@@ -1,0 +1,154 @@
+"""Command-line interface of the PyTorch port (serving subcommands):
+
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli forecast --region Moscow
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli validate --region Moscow --no-plots
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli info
+
+`--device` defaults to `cuda`; without a card the command fails unless
+`--device cpu` is given, which runs the plain PyTorch versions of the
+kernels. Config overrides use the JAX package's dotted `-o key=value` form.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+
+import torch
+
+from weatherforecast_stgcn_maml_tpu_torch.config import (
+    ADAPTATION_REGIONS,
+    ExperimentConfig,
+    apply_overrides,
+    to_dict,
+)
+
+
+def _region_by_name(name: str):
+    for box, rname in ADAPTATION_REGIONS:
+        if rname == name:
+            return box, rname
+    names = "; ".join(n for _, n in ADAPTATION_REGIONS)
+    raise SystemExit(f"unknown region {name!r}; known: {names}")
+
+
+def _resolve_region(args):
+    if args.region:
+        return _region_by_name(args.region)
+    if args.box:
+        box = tuple(float(v) for v in args.box)
+        return box, (args.name or f"box{box}")
+    raise SystemExit("pass --region NAME or --box LAT_MIN LAT_MAX LON_MIN LON_MAX")
+
+
+def _resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass --device cpu to run the plain "
+            "PyTorch route on the CPU"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
+    return device
+
+
+def _json_safe(obj):
+    """Replace non-finite floats by strings (json.dumps would emit invalid
+    `Infinity`)."""
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return str(obj)
+    return obj
+
+
+def _log_stderr(*args):
+    """Engine progress goes to stderr so stdout stays machine-readable."""
+    print(*args, file=sys.stderr)
+
+
+def _add_region_args(p):
+    p.add_argument("--region", help="named region (see `info`)")
+    p.add_argument(
+        "--box", nargs=4, metavar=("LAT_MIN", "LAT_MAX", "LON_MIN", "LON_MAX")
+    )
+    p.add_argument("--name", help="region name when using --box")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def _add_common(p):
+    p.add_argument(
+        "-o", "--override", action="append", default=[], metavar="KEY=VALUE",
+        help="config override, e.g. -o model.compute_dtype=bfloat16 -o out_dir=out2",
+    )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="wfstgcn-torch",
+        description="MAML-STGCN-LSTM weather forecasting, PyTorch/CUDA serving path",
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+
+    va = sub.add_parser("validate", help="validate an adapted (or base) model")
+    _add_region_args(va)
+    va.add_argument("--no-plots", action="store_true")
+    _add_common(va)
+
+    fc = sub.add_parser("forecast", help="emit denormalized forecasts for a region")
+    _add_region_args(fc)
+    fc.add_argument("--plots", action="store_true")
+    _add_common(fc)
+
+    info = sub.add_parser("info", help="print config, regions, and CUDA devices")
+    _add_common(info)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        cfg = apply_overrides(ExperimentConfig(), args.override)
+    except (ValueError, AttributeError, TypeError) as e:
+        raise SystemExit(f"bad -o override: {e}") from e
+
+    if args.command == "info":
+        print(json.dumps(to_dict(cfg), indent=2))
+        devices = [
+            torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())
+        ]
+        print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+        print("cuda devices:", devices if devices else "none")
+        print("regions:", ", ".join(n for _, n in ADAPTATION_REGIONS))
+        return 0
+
+    box, name = _resolve_region(args)
+    device = _resolve_device(args.device)
+
+    if args.command == "validate":
+        from weatherforecast_stgcn_maml_tpu_torch.engines.validate import run_validation
+
+        res = run_validation(
+            cfg, box, name, device=device, make_plots=not args.no_plots,
+            log_cb=_log_stderr,
+        )
+        print(json.dumps(_json_safe(res.results), indent=2))
+        return 0
+
+    if args.command == "forecast":
+        from weatherforecast_stgcn_maml_tpu_torch.engines.forecast import run_forecast
+
+        res = run_forecast(
+            cfg, box, name, device=device, make_plots=args.plots, log_cb=_log_stderr
+        )
+        print(f"forecast={res.artifact_path} ({res.model_kind} model)")
+        return 0
+
+    raise SystemExit(f"unhandled command {args.command}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

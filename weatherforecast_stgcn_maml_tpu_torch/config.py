@@ -1,0 +1,233 @@
+"""Configuration tree of the PyTorch port.
+
+Field names and defaults equal those of `weatherforecast_stgcn_maml_tpu.config`
+for every section the serving path reads (model, data, compat), so a config
+dict written by either package loads in the other. Sections that only the
+training engines read (meta, adapt, mesh) are not ported yet; a config dict
+that carries them loads with those keys ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Sequence
+
+# The 12 ERA5 surface variables used as model inputs/outputs, in feature order.
+WEATHER_VARS: tuple[str, ...] = (
+    "u10", "v10", "t2m", "d2m", "sp", "tp",
+    "u100", "v100", "str", "hcc", "lcc", "e",
+)
+
+# Cyclical time features appended to every node.
+TIME_VARS: tuple[str, ...] = (
+    "year_progress_sin", "year_progress_cos",
+    "day_progress_sin", "day_progress_cos",
+)
+
+NUM_WEATHER_VARS = len(WEATHER_VARS)  # 12
+NUM_TIME_VARS = len(TIME_VARS)  # 4
+T2M_INDEX = WEATHER_VARS.index("t2m")  # 2
+
+# The 18 adaptation/validation regions (box, name).
+ADAPTATION_REGIONS: tuple[tuple[tuple[float, float, float, float], str], ...] = (
+    ((40, 45, 285, 290), "NewYork"),
+    ((-5, 0, 100, 105), "Indonesia"),
+    ((53, 58, 35, 40), "Moscow"),
+    ((8, 13, 98, 103), "Thailand"),
+    ((-33, -28, 290, 295), "Argentina"),
+    ((-17, -12, 145, 150), "QueensAustralia"),
+    ((70, 75, 82, 87), "NorthSiberia"),
+    ((35, 40, 69, 74), "Afghanistan"),
+    ((15, 20, 30, 35), "Sudan"),
+    ((18, 23, 75, 80), "India"),
+    ((10, 15, 40, 45), "Ethiopia (Afar Region)"),
+    ((0, 5, 5, 10), "Debundscha, Cameroon"),
+    ((65, 70, 130, 135), "Verkhoyansk, Russia"),
+    ((60, 65, 140, 145), "Oymyakon, Russia"),
+    ((50, 55, 235, 240), "Lytton, Canada"),
+    ((-5, 0, 295, 300), "Amazon Rainforest, Brazil"),
+    ((15, 20, 355, 360), "Sahara Desert (Mali region)"),
+    ((75, 80, 10, 15), "Svalbard, Norway"),
+)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture of the hybrid STGCN->LSTM forecaster (reference width:
+    GCN 4x256, LSTM 4x128, window 24, horizon 8)."""
+
+    # "hybrid" (STGCN->LSTM) or "stgcn" (encoder + last-slice head).
+    family: str = "hybrid"
+    num_weather_vars: int = NUM_WEATHER_VARS
+    num_time_vars: int = NUM_TIME_VARS
+    koppen_classes: int = 31  # 0 = padding
+    koppen_dim: int = 8
+    hidden_channels: int = 256  # GCN width
+    gcn_layers: int = 4
+    gcn_dropout: float = 0.2
+    lstm_hidden: int = 128
+    lstm_layers: int = 4
+    lstm_dropout: float = 0.2
+    window: int = 24
+    horizon: int = 8
+    # Training-only switches, kept so configs round-trip; serving ignores them.
+    stop_base_gradients: bool = False
+    train_koppen_embedding: bool = True
+    # Matmul operand dtype ("float32" | "bfloat16" | "float64"); parameters
+    # are stored float32 and products accumulate in float32 (float64 under
+    # float64, which always takes the plain PyTorch route).
+    compute_dtype: str = "float32"
+    # True: the encoder runs as one fused GCN stack (ops/fused_gcn.py, the
+    # hand-written CUDA kernel on a card). False: the plain layerwise route.
+    use_pallas_gcn: bool = True
+    # The old eval-only LSTM kernel of the JAX package; not ported (raises).
+    use_pallas_lstm: bool = False
+    # "auto" / "pallas_stack": the fused LSTM stack (ops/fused_lstm_stack.py,
+    # the hand-written CUDA kernel on a card). "xla": the plain layerwise
+    # route. "pallas" (the per-layer recurrence kernel) is not ported.
+    lstm_kernel: str = "auto"
+    # Scan unroll factor of the JAX package; the port's loops do not unroll.
+    lstm_unroll: int = 0
+    # Wavefront LSTM schedule of the JAX package; not ported (raises).
+    lstm_wavefront: bool = False
+    # Append 2 within-box relative-coordinate channels to the node features.
+    relative_coords: bool = False
+
+    @property
+    def coord_channels(self) -> int:
+        return 2 if self.relative_coords else 0
+
+    @property
+    def in_channels(self) -> int:  # 12 + 4 + 8 (+2) = 24 (26)
+        return (
+            self.num_weather_vars + self.num_time_vars + self.koppen_dim
+            + self.coord_channels
+        )
+
+    @property
+    def feature_channels(self) -> int:
+        """Channels of precomputed features [T, N, C]: weather + time
+        (+ optional relative coords); the Koppen embedding is looked up
+        inside the model."""
+        return self.num_weather_vars + self.num_time_vars + self.coord_channels
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Data layout. Only the synthetic backend is ported: a non-empty `root`
+    (ERA5 through xarray) raises NotImplementedError."""
+
+    root: str = ""
+    cache_dir: str = "out/cache"
+    train_years: tuple[str, ...] = ("2020", "2021", "2022", "2023", "2024")
+    adapt_years: tuple[str, ...] = ("2023", "2024")
+    validate_year: str = "2025"
+    quarters: tuple[str, ...] = ("Jan2Mar", "Apr2Jun", "Jul2Sept", "Oct2Dec")
+    k_neighbors: int = 4
+    koppen_map: str = ""
+    validate_max_timesteps: int = 50
+    validate_num_samples: int = 3
+    synthetic_timesteps: int = 720
+    # >= 0: all synthetic regions sample one shared global wave field with
+    # this seed; -1: independent dynamics per (region, tag).
+    synthetic_shared_seed: int = 0
+    synthetic_train_time_spread_hours: int = 8766
+
+
+@dataclass(frozen=True)
+class CompatConfig:
+    """Flags reproducing documented reference quirks."""
+
+    # Validation averages predictions and targets over the sampled windows
+    # before scoring (the reference protocol).
+    average_validation_targets: bool = True
+    # Adaptation/validation pass Koppen code 0 instead of the region's class.
+    koppen_zero_in_adapt: bool = False
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """Top-level config bundle of the serving path."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    compat: CompatConfig = field(default_factory=CompatConfig)
+    out_dir: str = "out"
+
+
+def to_dict(cfg: Any) -> Any:
+    """Recursively convert a config dataclass to plain dicts (for ckpts)."""
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    return cfg
+
+
+_CONFIG_TYPES = {
+    "model": ModelConfig,
+    "data": DataConfig,
+    "compat": CompatConfig,
+}
+
+
+def _from_dict(cls: type, data: dict) -> Any:
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        sub = _CONFIG_TYPES.get(f.name)
+        if sub is not None and isinstance(v, dict):
+            v = _from_dict(sub, v)
+        elif isinstance(v, list):
+            v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def experiment_from_dict(data: dict) -> ExperimentConfig:
+    return _from_dict(ExperimentConfig, data)
+
+
+def apply_overrides(cfg: Any, overrides: Sequence[str]) -> Any:
+    """Apply 'dotted.path=value' CLI overrides to a config tree."""
+    for item in overrides:
+        path, _, raw = item.partition("=")
+        if not _:
+            raise ValueError(f"override {item!r} must be key=value")
+        cfg = _replace_path(cfg, path.split("."), raw)
+    return cfg
+
+
+def _coerce(raw: str, current: Any) -> Any:
+    if isinstance(current, bool):
+        low = raw.lower()
+        if low in ("1", "true", "yes", "on"):
+            return True
+        if low in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"boolean override expects true/false, got {raw!r}")
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, tuple):
+        parts = [p for p in raw.split(",") if p != ""]
+        elem = current[0] if current else ""
+        return tuple(_coerce(p, elem) for p in parts)
+    return raw
+
+
+def _replace_path(cfg: Any, keys: Sequence[str], raw: str) -> Any:
+    if len(keys) == 1:
+        current = getattr(cfg, keys[0])
+        if dataclasses.is_dataclass(current):
+            raise ValueError(
+                f"{keys[0]!r} is a config section, not a settable leaf — "
+                f"override one of its fields (e.g. {keys[0]}.<field>=...)"
+            )
+        return dataclasses.replace(cfg, **{keys[0]: _coerce(raw, current)})
+    child = getattr(cfg, keys[0])
+    return dataclasses.replace(cfg, **{keys[0]: _replace_path(child, keys[1:], raw)})

@@ -1,0 +1,85 @@
+"""Shared building blocks: the dtype policy, dense layers, the LSTM bias.
+
+Parameters are stored float32. A product rounds its operands to the compute
+dtype and multiplies them in the accumulation dtype (float32, or float64
+under float64), which is what the JAX package's
+`jnp.dot(..., preferred_element_type=f32)` computes. A bfloat16
+`torch.matmul` would round its output to bfloat16 instead, so none is used.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+from torch import nn
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float64": torch.float64,
+}
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown compute_dtype {name!r}; known: {sorted(_DTYPES)}"
+        ) from None
+
+
+def accum_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    """float32 accumulation for float32/bfloat16 compute, float64 under float64."""
+    return torch.float64 if compute_dtype == torch.float64 else torch.float32
+
+
+def as_operand(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """`x` rounded to the compute dtype, widened to the accumulation dtype."""
+    return x.to(compute_dtype).to(accum_dtype(compute_dtype))
+
+
+def no_training(train: bool) -> None:
+    """Only eval forwards are ported; dropout in a train-mode forward is not."""
+    if train:
+        raise NotImplementedError(
+            "train-mode (dropout) forwards are not ported yet; serving runs train=False"
+        )
+
+
+def lstm_bias(layer: Mapping) -> torch.Tensor:
+    """Effective gate bias of one LSTM layer given as a mapping of arrays:
+    the fused `b`, or the sum of torch-style split `b_ih` + `b_hh`."""
+    if "b" in layer:
+        return layer["b"]
+    return layer["b_ih"] + layer["b_hh"]
+
+
+def scaled_uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+class Dense(nn.Module):
+    """Weight `w` stored [in, out] and bias `b`: a dense layer or a GCN layer."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.w = nn.Parameter(w)
+        self.b = nn.Parameter(b)
+
+
+def init_dense(generator: torch.Generator, in_dim: int, out_dim: int) -> Dense:
+    """Fan-in uniform init (the torch.nn.Linear scheme)."""
+    bound = 1.0 / float(in_dim) ** 0.5
+    return Dense(
+        scaled_uniform((in_dim, out_dim), bound, generator),
+        scaled_uniform((out_dim,), bound, generator),
+    )
+
+
+def apply_dense(p: Dense, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
+    return (
+        torch.matmul(as_operand(x, compute_dtype), as_operand(p.w, compute_dtype))
+        + p.b
+    )

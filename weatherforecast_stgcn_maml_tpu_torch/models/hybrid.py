@@ -1,0 +1,86 @@
+"""Hybrid STGCN->LSTM forecaster, the flagship model.
+
+The GCN encoder runs per time slice, then every node's sequence of encoder
+features goes through the stacked LSTM, and a dense head maps the last
+hidden state to H steps x 12 variables. The Koppen climate embedding is
+looked up inside the model from the integer class code.
+
+Module tree (the JAX pytree's names):
+  encoder.layers.{l}.{w,b}, lstm.layers.{l}.{wx,wh,b}, head.{w,b}, koppen
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
+from weatherforecast_stgcn_maml_tpu_torch.models.common import (
+    apply_dense,
+    init_dense,
+    no_training,
+    resolve_dtype,
+)
+from weatherforecast_stgcn_maml_tpu_torch.models.lstm import apply_lstm, init_lstm
+from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import (
+    apply_encoder,
+    init_encoder,
+    koppen_features,
+)
+
+
+class HybridModel(nn.Module):
+    def __init__(self, encoder, lstm, head, koppen: torch.Tensor):
+        super().__init__()
+        self.encoder = encoder
+        self.lstm = lstm
+        self.head = head
+        self.koppen = nn.Parameter(koppen)
+
+
+def init_hybrid(generator: torch.Generator, cfg: ModelConfig) -> HybridModel:
+    return HybridModel(
+        init_encoder(generator, cfg),
+        init_lstm(generator, cfg.hidden_channels, cfg.lstm_hidden, cfg.lstm_layers),
+        init_dense(generator, cfg.lstm_hidden, cfg.num_weather_vars * cfg.horizon),
+        torch.randn((cfg.koppen_classes, cfg.koppen_dim), generator=generator),
+    )
+
+
+def apply_hybrid(
+    params: HybridModel,
+    a_hat: torch.Tensor,
+    x: torch.Tensor,
+    koppen_code,
+    cfg: ModelConfig,
+    *,
+    train: bool = False,
+) -> torch.Tensor:
+    """Eval forward.
+
+    Args:
+      a_hat: [N, N] dense normalized adjacency (padded), float32.
+      x: [..., W, N, 16] window features (12 z-scored weather + 4 time);
+        leading window-batch dims fold into the LSTM's rows.
+      koppen_code: int climate class (0 = unknown/padding).
+    Returns:
+      [..., H, N, 12] multi-step forecasts in normalized units.
+    """
+    no_training(train)
+    if cfg.use_pallas_lstm or cfg.lstm_wavefront:
+        raise NotImplementedError(
+            "model.use_pallas_lstm and model.lstm_wavefront select LSTM "
+            "routes that are not ported"
+        )
+    dtype = resolve_dtype(cfg.compute_dtype)
+    lead = x.shape[:-3]
+    w, n = x.shape[-3], x.shape[-2]
+
+    h = apply_encoder(params.encoder, a_hat, koppen_features(params, x, koppen_code), cfg)
+    # [..., W, N, hidden] -> [(...)*N, W, hidden]: nodes (of every window)
+    # become the LSTM's rows.
+    h = h.transpose(-3, -2).reshape(-1, w, h.shape[-1])
+    feat = apply_lstm(params.lstm, h, compute_dtype=dtype, kernel=cfg.lstm_kernel)
+    out = apply_dense(params.head, feat, compute_dtype=dtype)  # [rows, H*12]
+    out = out.reshape(*lead, n, cfg.horizon, cfg.num_weather_vars)
+    return out.transpose(-3, -2)  # [..., H, N, 12]

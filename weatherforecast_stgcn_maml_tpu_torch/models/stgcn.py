@@ -1,0 +1,104 @@
+"""STGCN backbone: stacked per-timestep graph convolutions + forecast head.
+
+The encoder (conv stack without the head, ReLU after every conv) is shared
+with the hybrid model. Only the eval forward is ported: dropout is the
+identity there, and `train=True` raises.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
+from weatherforecast_stgcn_maml_tpu_torch.models.common import (
+    apply_dense,
+    init_dense,
+    no_training,
+    resolve_dtype,
+)
+from weatherforecast_stgcn_maml_tpu_torch.models.gcn import init_gcn_layer
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import (
+    fused_gcn_stack,
+    gcn_stack_plain,
+)
+
+
+class Encoder(nn.Module):
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+def init_encoder(generator: torch.Generator, cfg: ModelConfig) -> Encoder:
+    layers = []
+    d_in = cfg.in_channels
+    for _ in range(cfg.gcn_layers):
+        layers.append(init_gcn_layer(generator, d_in, cfg.hidden_channels))
+        d_in = cfg.hidden_channels
+    return Encoder(layers)
+
+
+def apply_encoder(
+    params: Encoder,
+    a_hat: torch.Tensor,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    train: bool = False,
+) -> torch.Tensor:
+    """Spatial encoder over [..., W, N, C_in] -> [..., W, N, hidden].
+
+    `cfg.use_pallas_gcn` selects the fused stack, the CUDA kernel on a
+    card; False runs the plain layerwise route.
+    """
+    no_training(train)
+    dtype = resolve_dtype(cfg.compute_dtype)
+    if cfg.use_pallas_gcn:
+        return fused_gcn_stack(params.layers, a_hat, x, compute_dtype=dtype)
+    return gcn_stack_plain(params.layers, a_hat, x, dtype)
+
+
+class StgcnForecaster(nn.Module):
+    """Standalone STGCN with an in-model Koppen embedding (`family="stgcn"`)."""
+
+    def __init__(self, encoder: Encoder, head: nn.Module, koppen: torch.Tensor):
+        super().__init__()
+        self.encoder = encoder
+        self.head = head
+        self.koppen = nn.Parameter(koppen)
+
+
+def init_stgcn_forecaster(generator: torch.Generator, cfg: ModelConfig) -> StgcnForecaster:
+    encoder = init_encoder(generator, cfg)
+    head = init_dense(
+        generator, cfg.hidden_channels, cfg.num_weather_vars * cfg.horizon
+    )
+    koppen = torch.randn((cfg.koppen_classes, cfg.koppen_dim), generator=generator)
+    return StgcnForecaster(encoder, head, koppen)
+
+
+def koppen_features(params: nn.Module, x: torch.Tensor, koppen_code) -> torch.Tensor:
+    """Append the Koppen embedding of `koppen_code` to every node of x
+    [..., W, N, C]: -> [..., W, N, C + koppen_dim]."""
+    emb = params.koppen[koppen_code].to(x.dtype)
+    return torch.cat([x, emb.expand(*x.shape[:-1], emb.shape[-1])], dim=-1)
+
+
+def apply_stgcn_forecaster(
+    params: StgcnForecaster,
+    a_hat: torch.Tensor,
+    x: torch.Tensor,
+    koppen_code,
+    cfg: ModelConfig,
+    *,
+    train: bool = False,
+) -> torch.Tensor:
+    """[..., W, N, 16] features + Koppen code -> [..., H, N, 12] forecasts:
+    the encoder's last time slice through the dense head."""
+    no_training(train)
+    dtype = resolve_dtype(cfg.compute_dtype)
+    h = apply_encoder(params.encoder, a_hat, koppen_features(params, x, koppen_code), cfg)
+    out = apply_dense(params.head, h[..., -1, :, :], compute_dtype=dtype)
+    out = out.reshape(*out.shape[:-1], cfg.horizon, cfg.num_weather_vars)
+    return out.transpose(-3, -2)  # [..., H, N, 12]

@@ -1,0 +1,141 @@
+"""Build and load the port's CUDA kernels.
+
+`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+interface, loaded with ctypes. The library lands in `.cuda_build/<key>/` at
+the root of the checkout, keyed by a hash of the sources and of
+`nvcc --version`, so a changed source or toolkit rebuilds and an unchanged
+one loads what is there. Nothing is built or loaded at import time: the
+first call of `load()` does it, and a failed build raises with nvcc's
+output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import subprocess
+import tempfile
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_ROOT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".cuda_build",
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Storage-dtype codes of the C interface (csrc/common.cuh).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "wf_gcn_gemm": [_I, _I, _I, _I, _I, _P, _LL, _I, _P, _LL, _I, _P, _LL, _I,
+                    _P, _I, _I, _I, _I, _P],
+    "wf_lstm_stack_last": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _P],
+}
+
+_lib = None
+build_seconds: float | None = None  # wall time of the build this process ran
+build_log: str = ""  # nvcc's output (ptxas register and spill report)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build the kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _build_key(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    version = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, check=True
+    ).stdout
+    h.update(version.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _build(nvcc: str, target: str) -> None:
+    global build_seconds, build_log
+    import time
+
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(target))
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()],
+        capture_output=True, text=True,
+    )
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{build_log}")
+    os.replace(tmp, target)  # atomic: a concurrent process never loads half a file
+
+
+def load() -> ctypes.CDLL:
+    """Build the kernels if needed and return the loaded library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    nvcc = _nvcc()
+    target = os.path.join(BUILD_ROOT, _build_key(nvcc), "libwf_kernels.so")
+    if not os.path.exists(target):
+        _build(nvcc, target)
+    lib = ctypes.CDLL(target)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.wf_error_string.argtypes = [ctypes.c_int]
+    lib.wf_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if err != 0:
+        name = load().wf_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({name})")
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    try:
+        return DTYPE_CODES[dtype]
+    except KeyError:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}") from None
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def no_grad_inputs(*tensors: torch.Tensor) -> None:
+    """The serving kernels have no backward: refuse inputs that would need one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the fused serving kernels have no backward; call them under "
+            "torch.no_grad() or torch.inference_mode()"
+        )

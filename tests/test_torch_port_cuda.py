@@ -6,18 +6,29 @@ no jax, so it also runs where only PyTorch is installed:
   python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
 
 (`--noconftest`: tests/conftest.py sets up jax for the JAX package's tests.)
-Tolerances are those of chip_smoke.py: float32 1e-5, bfloat16 5e-2.
+Tolerances are those of chip_smoke.py: float32 1e-5, bfloat16 5e-2, on
+forwards as rtol = atol and on gradients as max|diff| / max|ref| (a
+reduction over thousands of terms in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
+from weatherforecast_stgcn_maml_tpu_torch.config import DataConfig, MetaConfig, ModelConfig
+from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
+from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
 from weatherforecast_stgcn_maml_tpu_torch.models.lstm import init_lstm
+from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder
-from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn, fused_lstm_stack
+from weatherforecast_stgcn_maml_tpu_torch.ops import (
+    fused_gcn,
+    fused_gcn_train,
+    fused_lstm_stack,
+)
+from weatherforecast_stgcn_maml_tpu_torch.train.maml import task_batch_grad
+from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 CFG = ModelConfig(hidden_channels=64, gcn_layers=3, lstm_hidden=32, lstm_layers=3,
@@ -76,3 +87,107 @@ def test_gcn_kernel_rejects_unaligned_nodes(dev):
             enc.layers, torch.eye(100, device=dev),
             torch.zeros((2, 100, CFG.in_channels), device=dev),
         )
+
+
+def _rel(got, ref):
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def _fwd_bwd(fn, inputs, params):
+    """fn(*inputs) and the gradients of <out, fixed cotangent> w.r.t.
+    inputs + params."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    for p in params:
+        p.grad = None
+    out = fn(*leaves)
+    ct = torch.from_numpy(
+        np.random.default_rng(9).normal(size=out.shape).astype(np.float32)
+    ).to(out.device, out.dtype)
+    grads = torch.autograd.grad(out, leaves + list(params), ct)
+    return out.detach(), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nodes", [117, 128])
+def test_gcn_train_kernels_match_plain(dev, dtype, nodes):
+    """Rows 6-7, forward and every gradient, with dropout masks (the
+    standalone STGCN's: after every layer)."""
+    enc = init_encoder(torch.Generator().manual_seed(0), CFG).to(dev)
+    a_hat = _a_hat(dev)[:nodes, :nodes].contiguous()
+    x = torch.from_numpy(
+        np.random.default_rng(5).normal(size=(7, nodes, CFG.in_channels)).astype(np.float32)
+    ).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    masks = draw_mask(gen, (CFG.gcn_layers, 7, nodes, CFG.hidden_channels), 0.2, dev)
+    params = [p for layer in enc.layers for p in (layer.w, layer.b)]
+    before = (fused_gcn_train.gcn_stack_train.launches,
+              fused_gcn_train.gcn_stack_train.backward_launches)
+    got, got_g = _fwd_bwd(
+        lambda x: fused_gcn_train.gcn_stack_train(
+            enc.layers, a_hat, x, masks=masks, keep=0.8, compute_dtype=dtype), [x], params)
+    assert (fused_gcn_train.gcn_stack_train.launches,
+            fused_gcn_train.gcn_stack_train.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_g = _fwd_bwd(
+        lambda x: fused_gcn_train.gcn_stack_train_plain(enc.layers, a_hat, x, masks, 0.8, dtype),
+        [x], params)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [100, 3000, 5000])
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+def test_lstm_train_kernels_match_plain(dev, dtype, rows, dropout):
+    """Rows 4-5, forward and every gradient, at row counts that pick each
+    row tile, none a multiple of it."""
+    lstm = init_lstm(torch.Generator().manual_seed(1), 24, 32, 3).to(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(6).normal(size=(rows, 7, 24)).astype(np.float32)
+    ).to(dev)
+    masks = None
+    if dropout:
+        gen = torch.Generator(device=dev).manual_seed(4)
+        masks = draw_mask(gen, (2, 7, rows, 32), dropout, dev)
+    keep = 1.0 - dropout
+    params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
+    before = (fused_lstm_stack.lstm_stack_train.launches,
+              fused_lstm_stack.lstm_stack_train.backward_launches)
+    got, got_g = _fwd_bwd(
+        lambda x: fused_lstm_stack.lstm_stack_train(
+            lstm.layers, x, masks=masks, keep=keep, compute_dtype=dtype), [x], params)
+    assert (fused_lstm_stack.lstm_stack_train.launches,
+            fused_lstm_stack.lstm_stack_train.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_g = _fwd_bwd(
+        lambda x: fused_lstm_stack.lstm_stack_plain(lstm.layers, x, dtype, masks, keep),
+        [x], params)
+    torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+def test_fo_meta_gradient_kernels_match_plain(dev):
+    """One micro-batch of the FO meta step (2 tasks, 2 inner steps each,
+    dropout on): kernel route against the plain route, same masks."""
+    cfg = ModelConfig(hidden_channels=64, gcn_layers=3, lstm_hidden=32, lstm_layers=3,
+                      window=7, horizon=3)
+    meta = MetaConfig(inner_epochs=1, inner_batches=2, fused_inner_update=False)
+    regions = [synthetic_region_for_box((10.0 + 3 * i, 12.0 + 3 * i, 20.0, 23.0),
+                                        num_timesteps=40, seed=i) for i in range(2)]
+    tasks = stack_tasks([b.task for b in build_meta_tasks(regions, cfg, meta, DataConfig())])
+    tasks = type(tasks)(*(f.to(dev) for f in tasks))
+    model = init_model(torch.Generator().manual_seed(2), cfg, device=dev)
+    out = {}
+    for route, mc in (("kernel", cfg),
+                      ("plain", ModelConfig(**{**cfg.__dict__, "use_pallas_gcn": False,
+                                               "lstm_kernel": "xla"}))):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        out[route] = task_batch_grad(model, tasks, gen, mc, meta)
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=tol, atol=tol)
+    for name, g in out["kernel"][1].items():
+        assert _rel(g, out["plain"][1][name]) <= tol, name

@@ -1,0 +1,247 @@
+"""The port's first-order MAML pieces against the JAX package, on the CPU:
+the meta optimizer (clip, schedule, AdamW), task building, the difficulty
+sampler, and one whole FO meta step in float64 against `make_meta_step`
+(also from a JAX mid-run optimizer state brought over by
+`utils/convert.opt_state_from_optax`).
+
+Tolerances: float64 1e-8 (rtol = atol) on the meta step (the same
+operations in another summation order), 1e-12 on the optimizer alone, and
+float32 1e-6 on the float32 schedule (a last-bit difference of cos/log).
+"""
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from weatherforecast_stgcn_maml_tpu import config as jcfg
+from weatherforecast_stgcn_maml_tpu import native as jax_native
+from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
+from weatherforecast_stgcn_maml_tpu.train import maml as jax_maml
+from weatherforecast_stgcn_maml_tpu.train import optimizers as jax_opt
+from weatherforecast_stgcn_maml_tpu.train.sampling import DifficultySampler as JaxSampler
+from weatherforecast_stgcn_maml_tpu.train.tasks import build_meta_tasks as jax_build_meta_tasks
+from weatherforecast_stgcn_maml_tpu.train.tasks import stack_tasks as jax_stack_tasks
+from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
+from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
+from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
+from weatherforecast_stgcn_maml_tpu_torch.train import maml, optimizers
+from weatherforecast_stgcn_maml_tpu_torch.train.sampling import DifficultySampler
+from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks
+from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    load_opt_state,
+    save_checkpoint,
+)
+from weatherforecast_stgcn_maml_tpu_torch.utils.convert import (
+    opt_state_from_optax,
+    params_from_state_dict,
+    state_dict_from_params,
+)
+
+MODEL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,
+             horizon=3, koppen_dim=4, gcn_dropout=0.0, lstm_dropout=0.0,
+             compute_dtype="float64")
+META = dict(meta_batch=2, grad_accum=2, inner_epochs=2, inner_batches=2,
+            fused_inner_update=False)
+
+
+@pytest.fixture()
+def numpy_host_route():
+    """The port gathers windows with torch indexing; hold it against the
+    JAX package's numpy route."""
+    jax_native.set_enabled(False)
+    yield
+    jax_native.set_enabled(True)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _grad_tree(seed, scale):
+    rng = np.random.default_rng(seed)
+    params = _np(jax_maml.init_model(jax.random.key(0), jcfg.ModelConfig(**MODEL)))
+    return jax.tree.map(lambda a: rng.normal(size=a.shape) * scale, params)
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0])
+def test_clip_global_norm_matches_jax(scale):
+    """Below max_norm (untouched) and above it (scaled by max/(norm+1e-6))."""
+    grads = _grad_tree(1, scale)
+    with jax.enable_x64(True):
+        ref, ref_norm = jax_opt.clip_global_norm_tree(jax.tree.map(jnp.asarray, grads), 1.0)
+        ref = state_dict_from_params(_np(ref), np.float64)
+    got, norm = optimizers.clip_global_norm_tree(state_dict_from_params(grads, np.float64), 1.0)
+    np.testing.assert_allclose(float(norm), float(ref_norm), rtol=1e-12)
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("t_mult", [1, 2])
+def test_cosine_warm_restarts_matches_jax(t_mult):
+    port = optimizers.cosine_warm_restarts(1e-3, 10, t_mult, 1e-6, steps_per_epoch=2)
+    ref = jax_opt.cosine_warm_restarts(1e-3, 10, t_mult, 1e-6, steps_per_epoch=2)
+    steps = np.arange(0, 200)
+    np.testing.assert_allclose([port(int(s)) for s in steps],
+                               [float(ref(s)) for s in steps], rtol=1e-6)
+
+
+def test_meta_optimizer_matches_optax_float64():
+    """Three clip + AdamW updates against optax's chain."""
+    cfg = jcfg.MetaConfig()
+    params = _grad_tree(2, 0.1)
+    with jax.enable_x64(True):
+        tx, _ = jax_opt.meta_optimizer(cfg)
+        p = jax.tree.map(jnp.asarray, params)
+        state = tx.init(p)
+        for i in range(3):
+            updates, state = tx.update(jax.tree.map(jnp.asarray, _grad_tree(10 + i, 0.5)),
+                                       state, p)
+            p = optax.apply_updates(p, updates)
+        ref = state_dict_from_params(_np(p), np.float64)
+    opt = optimizers.MetaOptimizer(tcfg.MetaConfig())
+    got = state_dict_from_params(params, np.float64)
+    st = opt.init(got)
+    for i in range(3):
+        st = opt.update(state_dict_from_params(_grad_tree(10 + i, 0.5), np.float64), st, got)
+    assert st.count == 3
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=1e-12, atol=1e-15, err_msg=k)
+
+
+def _regions(port):
+    make = synthetic_region_for_box if port else jax_box
+    return [make((10.0 + i, 10.5 + i, 20.0, 20.5), num_timesteps=40, seed=i) for i in range(2)]
+
+
+def test_build_meta_tasks_matches_jax(numpy_host_route):
+    mc, meta = jcfg.ModelConfig(**MODEL), jcfg.MetaConfig(**META)
+    ref = jax_build_meta_tasks(_regions(False), mc, meta, jcfg.DataConfig())
+    got = build_meta_tasks(_regions(True), tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**META),
+                           tcfg.DataConfig())
+    assert [b.region_name for b in got] == [b.region_name for b in ref]
+    for g, r in zip(got, ref):
+        for name in r.task._fields:
+            np.testing.assert_array_equal(getattr(g.task, name).numpy(),
+                                          np.asarray(getattr(r.task, name)), err_msg=name)
+        np.testing.assert_array_equal(g.stats.mean, r.stats.mean)
+
+
+def test_difficulty_sampler_draws_as_jax():
+    port, ref = DifficultySampler(7, 3, seed=5), JaxSampler(7, 3, seed=5)
+    losses = np.random.default_rng(0)
+    for _ in range(6):
+        idx = port.sample()
+        np.testing.assert_array_equal(idx, ref.sample())
+        per = losses.random(3)
+        port.update(idx, per)
+        ref.update(idx, per)
+    np.testing.assert_array_equal(port.difficulty, ref.difficulty)
+
+
+def _jax_f64(tree):
+    return jax.tree.map(
+        lambda a: jnp.asarray(np.asarray(a), jnp.float64)
+        if np.asarray(a).dtype == np.float32 else jnp.asarray(a), tree)
+
+
+def _adam_state(opt_state):
+    return next(s for s in jax.tree.leaves(
+        opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState))
+
+
+def _check_step(got_state, got_metrics, ref_state, ref_metrics):
+    tol = dict(rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(got_metrics["per_task_loss"].numpy(),
+                               np.asarray(ref_metrics["per_task_loss"]), **tol)
+    np.testing.assert_allclose(float(got_metrics["meta_loss"]),
+                               float(ref_metrics["meta_loss"]), **tol)
+    np.testing.assert_allclose(got_metrics["learning_rate"],
+                               float(ref_metrics["learning_rate"]), **tol)
+    assert got_state.step == int(ref_state.step)
+    ref = state_dict_from_params(_np(ref_state.params), np.float64)
+    for name, p in got_state.params.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(), err_msg=name, **tol)
+
+
+def test_fo_meta_step_matches_jax_float64(numpy_host_route):
+    """Two tasks, grad-accum 2 (two AdamW updates), 2 x 2 inner steps,
+    dropout 0; then one more step from JAX's mid-run state."""
+    mc, meta = jcfg.ModelConfig(**MODEL), jcfg.MetaConfig(**META)
+    tmc, tmeta = tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**META)
+    with jax.enable_x64(True):
+        tasks = _jax_f64(jax_stack_tasks(
+            [b.task for b in jax_build_meta_tasks(_regions(False), mc, meta, jcfg.DataConfig())]))
+        tx, _ = jax_opt.meta_optimizer(meta)
+        params = _jax_f64(jax_maml.init_model(jax.random.key(0), mc))
+        ref_state = jax_maml.MamlState(params, tx.init(params), jnp.zeros((), jnp.int32))
+        step = jax.jit(jax_maml.make_meta_step(mc, meta))
+        ref_states = [ref_state]
+        ref_metrics = []
+        for e in range(2):
+            s, m = step(ref_states[-1], tasks, jax.random.key(e))
+            ref_states.append(s)
+            ref_metrics.append(m)
+        snapshots = [(state_dict_from_params(_np(s.params), np.float64),
+                      opt_state_from_optax(_np(_adam_state(s.opt_state)), np.float64),
+                      int(s.step)) for s in ref_states[:2]]
+
+    port_tasks = stack_tasks([b.task for b in build_meta_tasks(
+        _regions(True), tmc, tmeta, tcfg.DataConfig())])
+    port_tasks = type(port_tasks)(*(f.double() if f.is_floating_point() else f
+                                    for f in port_tasks))
+    meta_step = maml.make_meta_step(tmc, tmeta)
+    for e, (params_sd, opt_state, n) in enumerate(snapshots):
+        model = init_model(torch.Generator().manual_seed(0), tmc).double()
+        model.load_state_dict(params_sd)
+        state = maml.MamlState(model, opt_state, n)
+        state, metrics = meta_step(state, port_tasks, None)
+        _check_step(state, metrics, ref_states[e + 1], ref_metrics[e])
+
+
+@pytest.mark.parametrize("override", [
+    dict(fused_inner_update=True), dict(second_order=True), dict(epochs_per_dispatch=2),
+])
+def test_unported_meta_settings_raise(override):
+    cfg = tcfg.MetaConfig(**{**META, **override})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        maml.make_meta_step(tcfg.ModelConfig(**MODEL), cfg)
+
+
+@pytest.mark.parametrize("override", [
+    dict(lstm_kernel="pallas"), dict(use_pallas_lstm=True), dict(lstm_wavefront=True),
+])
+def test_unported_model_routes_raise_in_meta_step(override):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        maml.make_meta_step(tcfg.ModelConfig(**{**MODEL, **override}), tcfg.MetaConfig(**META))
+
+
+def test_meta_config_ignores_jax_only_knobs():
+    """rng_impl, inner_unroll and so_* have no meaning in torch: they parse
+    and round-trip, and the meta step builds whatever they say."""
+    cfg = tcfg.apply_overrides(tcfg.ExperimentConfig(), [
+        "meta.rng_impl=threefry2x32", "meta.inner_unroll=4", "meta.so_impl=xla",
+        "meta.so_remat=dots", "meta.so_wavefront=true", "meta.fused_inner_update=false",
+    ])
+    assert tcfg.experiment_from_dict(tcfg.to_dict(cfg)) == cfg
+    maml.make_meta_step(cfg.model, cfg.meta)
+
+
+def test_checkpoint_round_trips_optimizer_state(tmp_path):
+    model = init_model(torch.Generator().manual_seed(0), tcfg.ModelConfig(**MODEL))
+    st = optimizers.MetaOptimizer.init(dict(model.named_parameters()))
+    st = optimizers.AdamState(7, {k: v + 1 for k, v in st.mu.items()}, st.nu)
+    save_checkpoint(str(tmp_path / "c"), model.state_dict(), {"step": 7},
+                    opt_state=st._asdict())
+    params, meta = load_checkpoint(str(tmp_path / "c"))
+    opt = load_opt_state(str(tmp_path / "c"))
+    assert meta == {"step": 7} and opt["count"] == 7
+    for k, v in st.mu.items():
+        torch.testing.assert_close(opt["mu"][k], v.detach())
+    assert params_from_state_dict(params).keys() == {"encoder", "lstm", "head", "koppen"}
+    assert load_opt_state(str(tmp_path)) is None

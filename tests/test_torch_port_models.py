@@ -177,14 +177,6 @@ def test_unported_routes_raise(route):
                     tcfg.ModelConfig(**SMALL, **route))
 
 
-def test_train_mode_raises():
-    _, model = _models("hybrid")
-    a_hat, x = _batch()
-    with pytest.raises(NotImplementedError, match="train-mode"):
-        apply_model(model, torch.from_numpy(a_hat), torch.from_numpy(x), 0,
-                    tcfg.ModelConfig(**SMALL), train=True)
-
-
 def test_convert_round_trip_with_split_lstm_bias():
     jparams, _ = _models("hybrid", seed=2)
     back = params_from_state_dict(state_dict_from_params(jparams))

@@ -1,5 +1,6 @@
-"""Command-line interface of the PyTorch port (serving subcommands):
+"""Command-line interface of the PyTorch port:
 
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli meta-train -o meta.fused_inner_update=false
   python -m weatherforecast_stgcn_maml_tpu_torch.cli forecast --region Moscow
   python -m weatherforecast_stgcn_maml_tpu_torch.cli validate --region Moscow --no-plots
   python -m weatherforecast_stgcn_maml_tpu_torch.cli info
@@ -89,9 +90,16 @@ def _add_common(p):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="wfstgcn-torch",
-        description="MAML-STGCN-LSTM weather forecasting, PyTorch/CUDA serving path",
+        description="MAML-STGCN-LSTM weather forecasting, PyTorch/CUDA port",
     )
     sub = p.add_subparsers(dest="command", required=True)
+
+    mt = sub.add_parser(
+        "meta-train", help="first-order MAML meta-training over global regions"
+    )
+    mt.add_argument("--resume", action="store_true", help="resume from ckpt_last")
+    mt.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _add_common(mt)
 
     va = sub.add_parser("validate", help="validate an adapted (or base) model")
     _add_region_args(va)
@@ -123,6 +131,18 @@ def main(argv=None) -> int:
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
         print("cuda devices:", devices if devices else "none")
         print("regions:", ", ".join(n for _, n in ADAPTATION_REGIONS))
+        return 0
+
+    if args.command == "meta-train":
+        from weatherforecast_stgcn_maml_tpu_torch.engines.meta_train import (
+            run_meta_training,
+        )
+
+        res = run_meta_training(
+            cfg, device=_resolve_device(args.device), resume=args.resume,
+            log_cb=_log_stderr,
+        )
+        print(f"best_loss={res.best_loss:.6f} best={res.best_path}")
         return 0
 
     box, name = _resolve_region(args)

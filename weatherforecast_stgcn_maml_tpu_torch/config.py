@@ -1,10 +1,10 @@
 """Configuration tree of the PyTorch port.
 
 Field names and defaults equal those of `weatherforecast_stgcn_maml_tpu.config`
-for every section the serving path reads (model, data, compat), so a config
-dict written by either package loads in the other. Sections that only the
-training engines read (meta, adapt, mesh) are not ported yet; a config dict
-that carries them loads with those keys ignored.
+for every section the port reads (model, meta, data, mesh, compat), so a
+config dict written by either package loads in the other. The adaptation
+section (adapt) is not ported yet; a config dict that carries it loads with
+those keys ignored.
 """
 
 from __future__ import annotations
@@ -28,6 +28,25 @@ TIME_VARS: tuple[str, ...] = (
 NUM_WEATHER_VARS = len(WEATHER_VARS)  # 12
 NUM_TIME_VARS = len(TIME_VARS)  # 4
 T2M_INDEX = WEATHER_VARS.index("t2m")  # 2
+
+# The 15 meta-training region boxes (lat_min, lat_max, lon_min, lon_max).
+META_TRAIN_REGIONS: tuple[tuple[float, float, float, float], ...] = (
+    (18, 23, 75, 80),            # India
+    (8, 13, 98, 103),            # Thailand
+    (53, 58, 35, 40),            # Russia
+    (12.5, 17.5, 102.5, 107.5),  # Thailand/Cambodia
+    (22.5, 27.5, 19.5, 24.5),    # Libya/Egypt
+    (43.5, 48.5, 7.5, 12.5),     # Southern France
+    (35.5, 40.5, -5.5, -0.5),    # Spain/Mediterranean
+    (32.5, 37.5, 137.5, 142.5),  # Tokyo/Eastern Japan
+    (-23.5, -18.5, 132.5, 137.5),  # Australia
+    (-20, -15, -70, -65),        # Peru
+    (44.5, 49.5, 125.5, 130.5),  # Northeast China
+    (29.5, 34.5, -101.5, -96.5),  # Texas
+    (-9.5, -4.5, -67.5, -62.5),  # Amazon Basin
+    (67.5, 72.5, -32.5, -27.5),  # Greenland
+    (51.5, 56.5, -112.5, -107.5),  # Alberta, Canada
+)
 
 # The 18 adaptation/validation regions (box, name).
 ADAPTATION_REGIONS: tuple[tuple[tuple[float, float, float, float], str], ...] = (
@@ -114,6 +133,55 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class MetaConfig:
+    """First-order MAML meta-training (engines/meta_train.py)."""
+
+    seed: int = 42
+    num_epochs: int = 40
+    meta_batch: int = 4  # tasks per meta-epoch
+    grad_accum: int = 2  # optimizer updates per meta-epoch (meta_batch / grad_accum tasks each)
+    inner_epochs: int = 6
+    inner_batches: int = 15  # support windows per inner epoch (batch 1 each)
+    inner_lr: float = 0.01
+    outer_lr: float = 1e-3
+    weight_decay: float = 1e-4
+    clip_norm: float = 1.0
+    # Cosine annealing warm restarts, stepped per optimizer update
+    # (grad_accum updates per epoch).
+    cosine_t0: int = 10
+    cosine_t_mult: int = 2
+    eta_min: float = 1e-6
+    # Second-order MAML (the JAX package's Hessian-vector kernels, rows
+    # 10-11) is not ported: True raises.
+    second_order: bool = False
+    # Second-order settings of the JAX package; no meaning here (ignored).
+    so_remat: str = "step"
+    so_impl: str = "fhvp"
+    so_wavefront: bool = False
+    # The whole-tree clip+SGD inner update kernel (rows 8-9) is not ported:
+    # True raises; run with -o meta.fused_inner_update=false.
+    fused_inner_update: bool = True
+    # XLA scan unroll factor of the JAX package; no meaning here (ignored).
+    inner_unroll: int = 1
+    # The query windows run in train mode (dropout on), as the reference.
+    query_train_mode: bool = True
+    query_batches: int = 1
+    # Task construction.
+    max_samples_per_task: int = 600
+    support_fraction: float = 0.75
+    # Per-task difficulty EMA of the task sampler.
+    difficulty_ema: float = 0.9
+    # The JAX package's PRNG implementation; dropout here draws from a
+    # torch.Generator, so this is ignored.
+    rng_impl: str = "rbg"
+    # Write the resumable `ckpt_last` every N epochs (best/final always).
+    checkpoint_every: int = 5
+    # Meta epochs chained into one dispatch in the JAX package; only 1 is
+    # ported (larger values raise).
+    epochs_per_dispatch: int = 1
+
+
+@dataclass(frozen=True)
 class DataConfig:
     """Data layout. Only the synthetic backend is ported: a non-empty `root`
     (ERA5 through xarray) raises NotImplementedError."""
@@ -136,6 +204,18 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The JAX package's device mesh. The port runs on one device: more
+    than one device, or a spatial axis, raises."""
+
+    data_axis: str = "dp"
+    num_devices: int = 0  # 0 -> all available
+    spatial_axis: str = "sp"
+    spatial_devices: int = 1
+    sp_impl: str = "auto"
+
+
+@dataclass(frozen=True)
 class CompatConfig:
     """Flags reproducing documented reference quirks."""
 
@@ -148,10 +228,12 @@ class CompatConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """Top-level config bundle of the serving path."""
+    """Top-level config bundle."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
+    meta: MetaConfig = field(default_factory=MetaConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     compat: CompatConfig = field(default_factory=CompatConfig)
     out_dir: str = "out"
 
@@ -167,7 +249,9 @@ def to_dict(cfg: Any) -> Any:
 
 _CONFIG_TYPES = {
     "model": ModelConfig,
+    "meta": MetaConfig,
     "data": DataConfig,
+    "mesh": MeshConfig,
     "compat": CompatConfig,
 }
 

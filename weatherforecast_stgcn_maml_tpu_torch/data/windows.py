@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from weatherforecast_stgcn_maml_tpu_torch.config import NUM_WEATHER_VARS
@@ -44,3 +45,13 @@ def gather_batch(
         1, spec.horizon + 1, device=features.device
     )
     return features[x_idx], features[y_idx][..., :NUM_WEATHER_VARS]
+
+
+def contiguous_split(
+    num_samples: int, first_fraction: float, max_samples: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Contiguous (temporal, leakage-free) index split: the first
+    `max_samples`, the leading `first_fraction` of them apart from the rest."""
+    total = num_samples if max_samples is None else min(max_samples, num_samples)
+    cut = int(first_fraction * total)
+    return np.arange(0, cut), np.arange(cut, total)

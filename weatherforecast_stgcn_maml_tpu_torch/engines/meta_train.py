@@ -1,0 +1,281 @@
+"""Meta-training engine: first-order MAML over the meta-training regions on
+one device.
+
+Counterpart of `weatherforecast_stgcn_maml_tpu/engines/meta_train.py` with
+one meta step per dispatch (`meta.epochs_per_dispatch == 1`): load the
+regions and build their tasks (a region that fails to load or build is
+skipped), fit meta_batch / grad_accum to the tasks built, then run
+`num_epochs` meta epochs of difficulty-sampled task batches. Every epoch
+appends `meta_log.csv` and `meta_log.jsonl`; `ckpt_best` keeps the best
+epoch, `ckpt_last` (every `checkpoint_every` epochs and the last) carries
+the optimizer and sampler state for `resume`, `ckpt_final` the end state.
+The sidecar schema is the JAX package's (`wfstgcn-meta-v1`), and
+`ckpt_best`'s `params.pt` is what `forecast` and `validate` load.
+
+Dropout draws from a torch.Generator on the device seeded from
+(meta.seed + 1, epoch), so a resumed run draws what a straight run draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from weatherforecast_stgcn_maml_tpu_torch.config import (
+    META_TRAIN_REGIONS,
+    ExperimentConfig,
+    to_dict,
+)
+from weatherforecast_stgcn_maml_tpu_torch.data.region import RegionData
+from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
+from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
+    MamlState,
+    check_supported,
+    init_meta_state,
+    make_meta_step,
+)
+from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import AdamState
+from weatherforecast_stgcn_maml_tpu_torch.train.sampling import DifficultySampler
+from weatherforecast_stgcn_maml_tpu_torch.train.tasks import (
+    build_task,
+    common_padded_nodes,
+    select_tasks,
+    stage_tasks,
+)
+from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import (
+    checkpoint_exists,
+    load_checkpoint,
+    load_opt_state,
+    save_checkpoint,
+)
+from weatherforecast_stgcn_maml_tpu_torch.utils.metrics import CsvLogger, JsonlLogger
+
+
+@dataclass
+class MetaTrainResult:
+    best_loss: float
+    final_loss: float
+    best_path: str
+    final_path: str
+    epochs_run: int
+    param_count: int
+
+
+def _load_regions(cfg: ExperimentConfig, log_cb) -> list[RegionData]:
+    """The meta-training regions in META_TRAIN_REGIONS order; a region that
+    fails to load is skipped without reordering the rest."""
+    regions = []
+    for i, box in enumerate(META_TRAIN_REGIONS):
+        try:
+            regions.append(
+                get_region_data(box, cfg.data.train_years, cfg.data, tag="train",
+                                name=f"region{i}")
+            )
+        except Exception as e:
+            log_cb(f"[meta-train] skipping region {box}: {e}")
+    return regions
+
+
+def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Generator:
+    """The dropout generator of one meta epoch, from (seed, epoch) alone."""
+    state = np.random.SeedSequence([seed, epoch]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) << 32 | int(state[1])
+    )
+
+
+def run_meta_training(
+    cfg: ExperimentConfig,
+    regions: list[RegionData] | None = None,
+    *,
+    device: torch.device | str,
+    resume: bool = False,
+    log_cb=print,
+) -> MetaTrainResult:
+    device = torch.device(device)
+    model_cfg, meta_cfg = cfg.model, cfg.meta
+    check_supported(model_cfg, meta_cfg)
+    if cfg.mesh.num_devices > 1 or cfg.mesh.spatial_devices > 1:
+        raise NotImplementedError(
+            "not ported: a device mesh (mesh.num_devices / mesh.spatial_devices "
+            "> 1); meta-training runs on one device"
+        )
+    out_dir = os.path.join(cfg.out_dir, "meta")
+    os.makedirs(out_dir, exist_ok=True)
+
+    if regions is None:
+        regions = _load_regions(cfg, log_cb)
+    if not regions:
+        raise RuntimeError("no meta-training regions could be loaded")
+    pad = common_padded_nodes(regions)
+    built = []
+    for r in regions:
+        try:
+            built.append(build_task(r, model_cfg, meta_cfg, cfg.data, pad_to=pad))
+        except Exception as e:
+            log_cb(f"[meta-train] skipping region {r.name!r}: {e}")
+    if not built:
+        raise RuntimeError("no meta-training tasks could be built")
+    log_cb(
+        f"[meta-train] {len(built)} tasks, padded nodes="
+        f"{built[0].graph.padded_nodes}"
+    )
+
+    # Fewer tasks than meta_batch, or a batch grad_accum does not divide:
+    # take the nearest valid decomposition.
+    batch = min(meta_cfg.meta_batch, len(built))
+    accum = max(1, min(meta_cfg.grad_accum, batch))
+    while batch % accum:
+        accum -= 1
+    if (batch, accum) != (meta_cfg.meta_batch, meta_cfg.grad_accum):
+        log_cb(
+            f"[meta-train] adjusting meta_batch {meta_cfg.meta_batch}->"
+            f"{batch}, grad_accum {meta_cfg.grad_accum}->{accum} "
+            f"({len(built)} tasks available)"
+        )
+        meta_cfg = dataclasses.replace(meta_cfg, meta_batch=batch, grad_accum=accum)
+
+    state = init_meta_state(
+        torch.Generator().manual_seed(meta_cfg.seed), model_cfg, meta_cfg, device=device
+    )
+    params_n = sum(p.numel() for p in state.params.parameters())
+    log_cb(f"[meta-train] {model_cfg.family} model: {params_n:,} parameters")
+    meta_step = make_meta_step(model_cfg, meta_cfg)
+
+    sampler = DifficultySampler(
+        len(built), meta_cfg.meta_batch, ema=meta_cfg.difficulty_ema, seed=meta_cfg.seed
+    )
+    csv = CsvLogger(
+        os.path.join(out_dir, "meta_log.csv"), ["epoch", "meta_loss", "learning_rate"]
+    )
+    jsonl = JsonlLogger(os.path.join(out_dir, "meta_log.jsonl"))
+    best_path = os.path.join(out_dir, "ckpt_best")
+    final_path = os.path.join(out_dir, "ckpt_final")
+    last_path = os.path.join(out_dir, "ckpt_last")
+    task_names = [b.region_name or f"task{i}" for i, b in enumerate(built)]
+
+    start_epoch, best_loss = 0, float("inf")
+    resumed_meta: dict = {}
+    if resume and checkpoint_exists(last_path):
+        state_dict, meta = load_checkpoint(last_path)
+        state.params.load_state_dict(state_dict)
+        opt = load_opt_state(last_path)
+        if opt is None:
+            raise FileNotFoundError(f"{last_path} holds no optimizer state to resume from")
+        state = MamlState(
+            state.params,
+            AdamState(
+                opt["count"],
+                {k: v.to(device) for k, v in opt["mu"].items()},
+                {k: v.to(device) for k, v in opt["nu"].items()},
+            ),
+            int(meta["step"]),
+        )
+        # Sampler state means something only for the same task pool.
+        if meta.get("task_names") == task_names:
+            sampler.difficulty = np.asarray(meta["sampler_difficulty"], np.float64)
+            sampler.seen = np.asarray(meta["sampler_seen"], bool)
+            rng_state = meta.get("sampler_rng_state")
+            if rng_state is not None:
+                sampler._rng.bit_generator.state = rng_state
+        else:
+            log_cb(
+                "[meta-train] task pool changed since the checkpoint; "
+                "resetting the difficulty sampler"
+            )
+        start_epoch = int(meta["epoch"]) + 1
+        best_loss = float(meta["best_loss"])
+        resumed_meta = meta
+        log_cb(f"[meta-train] resumed at epoch {start_epoch} (best {best_loss:.4f})")
+
+    def ckpt_meta(epoch, loss):
+        return {
+            "schema": "wfstgcn-meta-v1",
+            "model_version": "torch-1.0",
+            "epoch": epoch,
+            "step": state.step,
+            "meta_loss": loss,
+            "best_loss": best_loss,
+            "total_params": params_n,
+            "config": to_dict(cfg),
+            "task_names": task_names,
+            "sampler_difficulty": sampler.difficulty.tolist(),
+            "sampler_seen": sampler.seen.tolist(),
+            # bit_generator.state nests numpy integers: round-trip to JSON.
+            "sampler_rng_state": json.loads(json.dumps(
+                sampler._rng.bit_generator.state,
+                default=lambda o: o.item() if hasattr(o, "item") else list(o),
+            )),
+        }
+
+    def save(path, epoch, loss):
+        save_checkpoint(
+            path, state.params.state_dict(), ckpt_meta(epoch, loss),
+            opt_state=state.opt_state._asdict(),
+        )
+
+    if start_epoch >= meta_cfg.num_epochs:
+        log_cb(
+            f"[meta-train] checkpoint already at epoch {start_epoch} >= "
+            f"num_epochs {meta_cfg.num_epochs}; nothing to do"
+        )
+        return MetaTrainResult(
+            best_loss=best_loss,
+            final_loss=float(resumed_meta.get("meta_loss", best_loss)),
+            best_path=best_path,
+            final_path=final_path,
+            epochs_run=0,
+            param_count=params_n,
+        )
+
+    staged = stage_tasks([b.task for b in built], device)
+    loss = float("nan")
+    for epoch in range(start_epoch, meta_cfg.num_epochs):
+        t0 = time.perf_counter()
+        idx = sampler.sample()
+        state, metrics = meta_step(
+            state, select_tasks(staged, idx),
+            epoch_generator(meta_cfg.seed + 1, epoch, device),
+        )
+        per_task = metrics["per_task_loss"].float().cpu().numpy()
+        loss = float(metrics["meta_loss"])
+        lr = float(metrics["learning_rate"])
+        dt = time.perf_counter() - t0
+        sampler.update(idx, per_task)
+        csv.log(epoch=epoch + 1, meta_loss=loss, learning_rate=lr)
+        jsonl.log({
+            "epoch": epoch + 1,
+            "meta_loss": loss,
+            "learning_rate": lr,
+            "per_task_loss": per_task.tolist(),
+            "task_indices": np.asarray(idx).tolist(),
+            "epoch_seconds": dt,
+        })
+        log_cb(
+            f"[meta-train] epoch {epoch + 1}/{meta_cfg.num_epochs} "
+            f"loss {loss:.4f} lr {lr:.6f} ({dt:.2f}s)"
+        )
+        if loss < best_loss:
+            best_loss = loss
+            save(best_path, epoch, loss)
+        if (epoch + 1) % max(1, meta_cfg.checkpoint_every) == 0 or (
+            epoch == meta_cfg.num_epochs - 1
+        ):
+            save(last_path, epoch, loss)
+
+    save(final_path, meta_cfg.num_epochs - 1, loss)
+    log_cb(f"[meta-train] done: best {best_loss:.4f}")
+    return MetaTrainResult(
+        best_loss=best_loss,
+        final_loss=loss,
+        best_path=best_path,
+        final_path=final_path,
+        epochs_run=meta_cfg.num_epochs - start_epoch,
+        param_count=params_n,
+    )

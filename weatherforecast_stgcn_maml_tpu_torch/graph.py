@@ -88,13 +88,15 @@ class RegionGraph:
 
 
 def build_region_graph(
-    lats: np.ndarray, lons: np.ndarray, *, k_neighbors: int = 4
+    lats: np.ndarray, lons: np.ndarray, *, k_neighbors: int = 4,
+    pad_to: int | None = None,
 ) -> RegionGraph:
-    """Build the dense-adjacency graph for a lat/lon grid region, N padded up
+    """Build the dense-adjacency graph for a lat/lon grid region, N padded to
+    `pad_to` (meta-training's tasks share one node count) or, by default, up
     to the next multiple of 128."""
     positions = grid_node_positions(lats, lons)
     n = positions.shape[0]
-    size = round_up(n)
+    size = pad_to if pad_to is not None else round_up(n)
     edges = knn_edges(positions, k=k_neighbors)
     a_hat = normalized_adjacency(edges, n, size)
     mask = np.zeros((size,), dtype=np.float32)

@@ -1,4 +1,5 @@
-"""Shared building blocks: the dtype policy, dense layers, the LSTM bias.
+"""Shared building blocks: the dtype policy, dense layers, the LSTM bias,
+dropout masks.
 
 Parameters are stored float32. A product rounds its operands to the compute
 dtype and multiplies them in the accumulation dtype (float32, or float64
@@ -40,12 +41,38 @@ def as_operand(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     return x.to(compute_dtype).to(accum_dtype(compute_dtype))
 
 
-def no_training(train: bool) -> None:
-    """Only eval forwards are ported; dropout in a train-mode forward is not."""
-    if train:
-        raise NotImplementedError(
-            "train-mode (dropout) forwards are not ported yet; serving runs train=False"
+def draw_mask(
+    generator: torch.Generator, shape, rate: float, device: torch.device | str
+) -> torch.Tensor:
+    """An int8 {0, 1} dropout mask, each element 1 with probability
+    1 - rate, drawn from `generator` (a generator on `device`)."""
+    return (torch.rand(shape, generator=generator, device=device) < 1.0 - rate).to(
+        torch.int8
+    )
+
+
+def apply_mask(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """Inverted dropout with a drawn mask, in the kernels' form
+    x * (m * (1 / keep)); the JAX package's where(m, x / keep, 0) differs
+    from it in the last bit at most."""
+    return x * (mask.to(x.dtype) * (1.0 / keep))
+
+
+def train_masks(cfg, x: torch.Tensor, train: bool, generator, masks, draw) -> dict:
+    """The dropout masks of a forward: none in eval mode; in train mode (one
+    window x [W, N, C]) the given ones, else `draw(cfg, generator, W, N,
+    device)`, else none."""
+    if not train:
+        return {}
+    if x.dim() != 3:
+        raise ValueError(
+            f"a train-mode forward takes one window [W, N, C], got {list(x.shape)}"
         )
+    if masks is not None:
+        return masks
+    if generator is None:
+        return {}
+    return draw(cfg, generator, x.shape[0], x.shape[1], x.device)
 
 
 def lstm_bias(layer: Mapping) -> torch.Tensor:

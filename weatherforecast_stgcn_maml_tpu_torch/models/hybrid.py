@@ -17,9 +17,11 @@ from torch import nn
 from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     apply_dense,
+    apply_mask,
+    draw_mask,
     init_dense,
-    no_training,
     resolve_dtype,
+    train_masks,
 )
 from weatherforecast_stgcn_maml_tpu_torch.models.lstm import apply_lstm, init_lstm
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import (
@@ -47,6 +49,24 @@ def init_hybrid(generator: torch.Generator, cfg: ModelConfig) -> HybridModel:
     )
 
 
+def hybrid_masks(cfg: ModelConfig, generator, w: int, n: int, device) -> dict:
+    """Dropout masks of one hybrid train forward, drawn in the JAX
+    package's order: encoder (after every conv but the last), LSTM (every
+    inter-layer output, time-major), head input [N, lstm_hidden]."""
+    masks = {}
+    if cfg.gcn_dropout > 0.0 and cfg.gcn_layers > 1:
+        shape = (cfg.gcn_layers - 1, w, n, cfg.hidden_channels)
+        masks["encoder"] = draw_mask(generator, shape, cfg.gcn_dropout, device)
+    if cfg.lstm_dropout > 0.0:
+        if cfg.lstm_layers > 1:
+            shape = (cfg.lstm_layers - 1, w, n, cfg.lstm_hidden)
+            masks["lstm"] = draw_mask(generator, shape, cfg.lstm_dropout, device)
+        masks["head"] = draw_mask(
+            generator, (n, cfg.lstm_hidden), cfg.lstm_dropout, device
+        )
+    return masks
+
+
 def apply_hybrid(
     params: HybridModel,
     a_hat: torch.Tensor,
@@ -55,18 +75,23 @@ def apply_hybrid(
     cfg: ModelConfig,
     *,
     train: bool = False,
+    generator: torch.Generator | None = None,
+    masks: dict | None = None,
 ) -> torch.Tensor:
-    """Eval forward.
+    """Forward pass.
 
     Args:
       a_hat: [N, N] dense normalized adjacency (padded), float32.
       x: [..., W, N, 16] window features (12 z-scored weather + 4 time);
-        leading window-batch dims fold into the LSTM's rows.
+        leading window-batch dims fold into the LSTM's rows. Train mode
+        takes one window [W, N, 16].
       koppen_code: int climate class (0 = unknown/padding).
+      generator: draws the train-mode dropout masks (`hybrid_masks`) when
+        `masks` is not given; with neither, train mode has no dropout.
+      masks: {"encoder", "lstm", "head"} int8 masks (any may be absent).
     Returns:
       [..., H, N, 12] multi-step forecasts in normalized units.
     """
-    no_training(train)
     if cfg.use_pallas_lstm or cfg.lstm_wavefront:
         raise NotImplementedError(
             "model.use_pallas_lstm and model.lstm_wavefront select LSTM "
@@ -76,11 +101,23 @@ def apply_hybrid(
     lead = x.shape[:-3]
     w, n = x.shape[-3], x.shape[-2]
 
-    h = apply_encoder(params.encoder, a_hat, koppen_features(params, x, koppen_code), cfg)
+    masks = train_masks(cfg, x, train, generator, masks, hybrid_masks)
+
+    h = apply_encoder(
+        params.encoder, a_hat, koppen_features(params, x, koppen_code), cfg,
+        train=train, masks=masks.get("encoder"),
+    )
+    if cfg.stop_base_gradients:
+        h = h.detach()
     # [..., W, N, hidden] -> [(...)*N, W, hidden]: nodes (of every window)
     # become the LSTM's rows.
     h = h.transpose(-3, -2).reshape(-1, w, h.shape[-1])
-    feat = apply_lstm(params.lstm, h, compute_dtype=dtype, kernel=cfg.lstm_kernel)
+    feat = apply_lstm(
+        params.lstm, h, train=train, masks=masks.get("lstm"),
+        dropout_rate=cfg.lstm_dropout, compute_dtype=dtype, kernel=cfg.lstm_kernel,
+    )
+    if masks.get("head") is not None:
+        feat = apply_mask(feat, masks["head"], 1.0 - cfg.lstm_dropout)
     out = apply_dense(params.head, feat, compute_dtype=dtype)  # [rows, H*12]
     out = out.reshape(*lead, n, cfg.horizon, cfg.num_weather_vars)
     return out.transpose(-3, -2)  # [..., H, N, 12]

@@ -2,7 +2,8 @@
 
 Families (ModelConfig.family): "hybrid" (models/hybrid.py) and "stgcn"
 (models/stgcn.py). Both share the apply signature
-  apply(params, a_hat, x, koppen_code, cfg, *, train) -> [..., H, N, 12]
+  apply(params, a_hat, x, koppen_code, cfg, *, train, generator, masks)
+    -> [..., H, N, 12]
 """
 
 from __future__ import annotations
@@ -39,5 +40,11 @@ def init_model(
     return _family(cfg)[0](generator, cfg).to(device)
 
 
-def apply_model(params, a_hat, x, koppen_code, cfg: ModelConfig, *, train=False):
-    return _family(cfg)[1](params, a_hat, x, koppen_code, cfg, train=train)
+def apply_model(
+    params, a_hat, x, koppen_code, cfg: ModelConfig, *, train=False,
+    generator: torch.Generator | None = None, masks: dict | None = None,
+):
+    return _family(cfg)[1](
+        params, a_hat, x, koppen_code, cfg, train=train, generator=generator,
+        masks=masks,
+    )

@@ -1,8 +1,9 @@
 """STGCN backbone: stacked per-timestep graph convolutions + forecast head.
 
 The encoder (conv stack without the head, ReLU after every conv) is shared
-with the hybrid model. Only the eval forward is ported: dropout is the
-identity there, and `train=True` raises.
+with the hybrid model. In train mode dropout follows every conv but the last
+(the hybrid's feature extraction) or every conv (the standalone STGCN,
+`final_dropout`); its masks are drawn by the caller or from a generator.
 """
 
 from __future__ import annotations
@@ -13,14 +14,19 @@ from torch import nn
 from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     apply_dense,
+    draw_mask,
     init_dense,
-    no_training,
     resolve_dtype,
+    train_masks,
 )
 from weatherforecast_stgcn_maml_tpu_torch.models.gcn import init_gcn_layer
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import (
     fused_gcn_stack,
     gcn_stack_plain,
+)
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_train import (
+    gcn_stack_train,
+    gcn_stack_train_plain,
 )
 
 
@@ -46,17 +52,27 @@ def apply_encoder(
     cfg: ModelConfig,
     *,
     train: bool = False,
+    masks: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Spatial encoder over [..., W, N, C_in] -> [..., W, N, hidden].
 
-    `cfg.use_pallas_gcn` selects the fused stack, the CUDA kernel on a
-    card; False runs the plain layerwise route.
+    `cfg.use_pallas_gcn` selects the fused stack, the CUDA kernels on a
+    card (in train mode the training stack and its backward, also at
+    dropout 0, where it computes the same function as the eval stack);
+    False runs the plain layerwise route. In train mode `masks` (int8
+    {0, 1} [n, W, N, hidden], or None) drop the outputs of layers 0..n-1.
     """
-    no_training(train)
     dtype = resolve_dtype(cfg.compute_dtype)
+    if not train:
+        if cfg.use_pallas_gcn:
+            return fused_gcn_stack(params.layers, a_hat, x, compute_dtype=dtype)
+        return gcn_stack_plain(params.layers, a_hat, x, dtype)
+    keep = 1.0 - cfg.gcn_dropout
     if cfg.use_pallas_gcn:
-        return fused_gcn_stack(params.layers, a_hat, x, compute_dtype=dtype)
-    return gcn_stack_plain(params.layers, a_hat, x, dtype)
+        return gcn_stack_train(
+            params.layers, a_hat, x, masks=masks, keep=keep, compute_dtype=dtype
+        )
+    return gcn_stack_train_plain(params.layers, a_hat, x, masks, keep, dtype)
 
 
 class StgcnForecaster(nn.Module):
@@ -93,12 +109,31 @@ def apply_stgcn_forecaster(
     cfg: ModelConfig,
     *,
     train: bool = False,
+    generator: torch.Generator | None = None,
+    masks: dict | None = None,
 ) -> torch.Tensor:
     """[..., W, N, 16] features + Koppen code -> [..., H, N, 12] forecasts:
-    the encoder's last time slice through the dense head."""
-    no_training(train)
+    the encoder's last time slice through the dense head.
+
+    Train mode takes one window [W, N, 16]; its dropout masks are `masks`
+    ({"encoder": [gcn_layers, W, N, hidden]}) or, without them, drawn from
+    `generator` (no dropout when both are None).
+    """
     dtype = resolve_dtype(cfg.compute_dtype)
-    h = apply_encoder(params.encoder, a_hat, koppen_features(params, x, koppen_code), cfg)
+    masks = train_masks(cfg, x, train, generator, masks, stgcn_masks)
+    h = apply_encoder(
+        params.encoder, a_hat, koppen_features(params, x, koppen_code), cfg,
+        train=train, masks=masks.get("encoder"),
+    )
     out = apply_dense(params.head, h[..., -1, :, :], compute_dtype=dtype)
     out = out.reshape(*out.shape[:-1], cfg.horizon, cfg.num_weather_vars)
     return out.transpose(-3, -2)  # [..., H, N, 12]
+
+
+def stgcn_masks(cfg: ModelConfig, generator, w: int, n: int, device) -> dict:
+    """Dropout masks of one standalone-STGCN train forward: after every conv."""
+    if cfg.gcn_dropout <= 0.0:
+        return {}
+    shape = (cfg.gcn_layers, w, n, cfg.hidden_channels)
+    return {"encoder": draw_mask(generator, shape, cfg.gcn_dropout, device)}
+

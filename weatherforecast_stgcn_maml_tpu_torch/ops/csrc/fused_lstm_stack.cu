@@ -1,16 +1,26 @@
-// Fused LSTM stack, eval forward: all layers and all time steps in one launch,
-// returning only the top layer's last hidden state.
+// Fused LSTM stack forward: all layers and all time steps in one launch.
 //
-// Replaces the Pallas kernel `_fwd_kernel_m_lastonly_nomask` (launched by
-// `_fwd_pallas_m(..., emit_residuals=False)`) of
-// weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py. Per step t and layer
-// l it computes the merged-gates contraction
+// Replaces two Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
+// fused_lstm_stack.py, both bodies of `_fwd_kernel_m`:
+//   eval (TRAIN = false, kernel row 2): `_fwd_kernel_m_lastonly_nomask`,
+//     launched by `_fwd_pallas_m(..., emit_residuals=False)`; returns only the
+//     top layer's last hidden state;
+//   training (TRAIN = true, kernel row 4): `_fwd_kernel_m` (+ `_nomask`),
+//     launched by `_fwd_pallas_m` with residuals; also streams out every
+//     (layer, step)'s h and c in the compute dtype (the backward's residuals,
+//     JAX `_res_dtype`) and its activated gates in float32, and multiplies
+//     each inter-layer input by its int8 dropout mask times 1/keep before
+//     rounding it to the compute dtype. The TPU backward recomputes the
+//     gates from the residuals to spare HBM; here storing them (4 floats a
+//     unit, 100 MB at the reference width) halves the backward's serial
+//     work per step (csrc/fused_lstm_stack_train.cu).
+// Per step t and layer l it computes the merged-gates contraction
 //     gates = [in_t | h_{t-1}] @ [[Wx_l], [Wh_l]] + b_l      (gate order i,f,g,o)
 //     c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
 // with operands rounded to the compute dtype, float32 accumulation and a
 // float32 c carry; layer l's input is layer l-1's h of the same step,
-// rounded to the compute dtype, and only the top layer's last h is returned
-// (in float32).
+// rounded to the compute dtype, and the top layer's last h is returned in
+// float32.
 //
 // Translation: on the TPU the grid walks time in order, the carry sits in
 // VMEM scratch across grid steps and all weights stay resident in VMEM. Here
@@ -23,8 +33,11 @@
 // between threads; only the next contraction, which reads every unit of a
 // row, needs a barrier.
 //
-// Bound: the weights (about 2.4 MB in float32 at the reference width, half
-// in bfloat16) do not fit in shared memory, so every block streams all of
+// Bound: about 14.5 GFLOP at the training shapes (24 steps, 512 rows, 4
+// layers of width 128, input 256), 0.22 ms at the card's float32 rate; the
+// residual stream adds 2 * L * T * B * H elements (25 MB in float32), well
+// under that. The weights (about 2.4 MB in float32, half in bfloat16) do not
+// fit in shared memory, so every block streams all of
 // them from L2 once per step: T * L serial stages of one [K, 4H] weight
 // matrix each. Loading them with per-thread loads right before use left the
 // kernel bound by L2 latency (the row count barely changed its time).
@@ -43,21 +56,6 @@ namespace {
 constexpr int kTargetThreads = 256;
 constexpr int kTileK = 16;                // weight rows per pipelined tile
 constexpr size_t kMaxSmemBytes = 232448;  // 227 KB opt-in per block
-
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 struct Dims {
   int T, R, C, H, L;
@@ -86,16 +84,30 @@ __device__ __forceinline__ void prefetch_tile(int seq, int tiles_per_step,
     cp_async16(dst + 16 * c, src + 16 * c);
 }
 
+
+// The training forward's extra streams (unused in eval): residuals h_all and
+// c_all [L, T, R, H] in the compute dtype, the activated gates (i, f, g, o)
+// [L, T, R, 4H] in float32, the int8 {0, 1} inter-layer dropout masks
+// [L-1, T, R, H] (or null) and 1/keep.
+struct TrainIO {
+  void* h_all;
+  void* c_all;
+  float* gates;
+  const int8_t* masks;
+  float inv_keep;
+};
+
 // x[t, r, c] lives at x[t * st + r * sr + c]; wcat0 is [C + H, 4H], wcatr
 // [L-1, 2H, 4H] (both in the compute dtype TW), bias [L, 4H] float32,
 // out [R, H] float32. C and H are multiples of 4.
-template <typename TW, int RPT>
-__global__ void lstm_stack_last_kernel(const float* __restrict__ x,
-                                       long long st, long long sr,
-                                       const TW* __restrict__ wcat0,
-                                       const TW* __restrict__ wcatr,
-                                       const float* __restrict__ bias,
-                                       float* __restrict__ out, Dims d) {
+template <typename TW, int RPT, bool TRAIN>
+__global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
+                                      long long st, long long sr,
+                                      const TW* __restrict__ wcat0,
+                                      const TW* __restrict__ wcatr,
+                                      const float* __restrict__ bias,
+                                      float* __restrict__ out, Dims d,
+                                      TrainIO io) {
   extern __shared__ float4 smem4[];
   const int H = d.H, C = d.C, L = d.L;
   const int g4 = 4 * H;
@@ -110,6 +122,7 @@ __global__ void lstm_stack_last_kernel(const float* __restrict__ x,
   const int j = tid % H;
   const int r0 = (tid / H) * RPT;  // first local row of this thread
   const int row0 = blockIdx.x * rows_blk;
+  const size_t step_elems = (size_t)d.R * H;  // one [R, H] slice of h_all
 
   int tiles_per_step = 0;
   for (int l = 0; l < L; ++l) tiles_per_step += d.tiles(l);
@@ -178,6 +191,7 @@ __global__ void lstm_stack_last_kernel(const float* __restrict__ x,
       float* cl = cs + (size_t)l * rows_blk * H;
       float* in_next = in_l + (size_t)rows_blk * kl;  // layer l+1's rows
       const bool emit = l == L - 1 && t == d.T - 1;
+      const size_t slice = ((size_t)l * d.T + t) * step_elems;  // h_all[l, t]
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         const size_t at = (size_t)(r0 + r) * H + j;
@@ -190,8 +204,30 @@ __global__ void lstm_stack_last_kernel(const float* __restrict__ x,
         cl[at] = c;
         const float hr = round_to<TW>(h);
         in_l[(size_t)(r0 + r) * kl + kin + j] = hr;  // own recurrent input
-        if (l + 1 < L) in_next[(size_t)(r0 + r) * 2 * H + j] = hr;  // next layer's input
         const int row = row0 + r0 + r;
+        if constexpr (TRAIN) {
+          const size_t o = slice + (size_t)row * H + j;
+          if (row < d.R) {
+            static_cast<TW*>(io.h_all)[o] = from_float<TW>(h);
+            static_cast<TW*>(io.c_all)[o] = from_float<TW>(c);
+            float* gt = io.gates + slice * 4 + (size_t)row * g4;
+            gt[j] = ig;
+            gt[H + j] = fg;
+            gt[2 * H + j] = gg;
+            gt[3 * H + j] = og;
+          }
+          if (l + 1 < L) {
+            // Inter-layer dropout: masks[l, t] has h_all[l, t]'s layout.
+            float nx = h;
+            if (io.masks) {
+              const float m = row < d.R ? (float)io.masks[o] : 0.f;
+              nx = h * (m * io.inv_keep);
+            }
+            in_next[(size_t)(r0 + r) * 2 * H + j] = round_to<TW>(nx);
+          }
+        } else {
+          if (l + 1 < L) in_next[(size_t)(r0 + r) * 2 * H + j] = hr;  // next layer's input
+        }
         if (emit && row < d.R) out[(size_t)row * H + j] = h;
       }
       in_l = in_next;
@@ -199,10 +235,10 @@ __global__ void lstm_stack_last_kernel(const float* __restrict__ x,
   }
 }
 
-template <typename TW, int RPT>
+template <typename TW, int RPT, bool TRAIN>
 int launch(const float* x, long long st, long long sr, const void* wcat0,
            const void* wcatr, const float* bias, float* out, Dims d,
-           cudaStream_t stream) {
+           const TrainIO& io, cudaStream_t stream) {
   const int groups = d.H >= kTargetThreads ? 1 : kTargetThreads / d.H;
   const int threads = groups * d.H;
   const int rows_blk = groups * RPT;
@@ -213,28 +249,45 @@ int launch(const float* x, long long st, long long sr, const void* wcat0,
   if (threads > 1024 || smem > kMaxSmemBytes || d.C % 4 || d.H % 4)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_stack_last_kernel<TW, RPT>,
+      lstm_stack_fwd_kernel<TW, RPT, TRAIN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (d.R + rows_blk - 1) / rows_blk;
-  lstm_stack_last_kernel<TW, RPT><<<blocks, threads, smem, stream>>>(
+  lstm_stack_fwd_kernel<TW, RPT, TRAIN><<<blocks, threads, smem, stream>>>(
       x, st, sr, static_cast<const TW*>(wcat0), static_cast<const TW*>(wcatr),
-      bias, out, d);
+      bias, out, d, io);
   return (int)cudaGetLastError();
 }
 
-template <typename TW>
+template <typename TW, bool TRAIN>
 int launch_rpt(int rpt, const float* x, long long st, long long sr,
                const void* wcat0, const void* wcatr, const float* bias,
-               float* out, Dims d, cudaStream_t stream) {
+               float* out, Dims d, const TrainIO& io, cudaStream_t stream) {
   switch (rpt) {
     case 2:
-      return launch<TW, 2>(x, st, sr, wcat0, wcatr, bias, out, d, stream);
+      return launch<TW, 2, TRAIN>(x, st, sr, wcat0, wcatr, bias, out, d, io, stream);
     case 4:
-      return launch<TW, 4>(x, st, sr, wcat0, wcatr, bias, out, d, stream);
+      return launch<TW, 4, TRAIN>(x, st, sr, wcat0, wcatr, bias, out, d, io, stream);
     case 8:
-      return launch<TW, 8>(x, st, sr, wcat0, wcatr, bias, out, d, stream);
+      return launch<TW, 8, TRAIN>(x, st, sr, wcat0, wcatr, bias, out, d, io, stream);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool TRAIN>
+int launch_dt(int w_dt, int rpt, const float* x, long long st, long long sr,
+              const void* wcat0, const void* wcatr, const float* bias,
+              float* out, int T, int R, int C, int H, int L, const TrainIO& io,
+              void* stream) {
+  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Dims d{T, R, C, H, L};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_dt == kF32)
+    return launch_rpt<float, TRAIN>(rpt, x, st, sr, wcat0, wcatr, bias, out, d, io, s);
+  if (w_dt == kBF16)
+    return launch_rpt<__nv_bfloat16, TRAIN>(rpt, x, st, sr, wcat0, wcatr, bias,
+                                            out, d, io, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -250,15 +303,25 @@ extern "C" int wf_lstm_stack_last(int w_dt, int rows_per_thread,
                                   const void* wcat0, const void* wcatr,
                                   const float* bias, float* out, int T, int R,
                                   int C, int H, int L, void* stream) {
-  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0)
-    return (int)cudaErrorInvalidValue;
-  const wf::Dims d{T, R, C, H, L};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_dt == wf::kF32)
-    return wf::launch_rpt<float>(rows_per_thread, x, st, sr, wcat0, wcatr,
-                                 bias, out, d, s);
-  if (w_dt == wf::kBF16)
-    return wf::launch_rpt<__nv_bfloat16>(rows_per_thread, x, st, sr, wcat0,
-                                         wcatr, bias, out, d, s);
-  return (int)cudaErrorInvalidValue;
+  const wf::TrainIO none{nullptr, nullptr, nullptr, nullptr, 1.f};
+  return wf::launch_dt<false>(w_dt, rows_per_thread, x, st, sr, wcat0, wcatr,
+                              bias, out, T, R, C, H, L, none, stream);
+}
+
+// Training forward: as wf_lstm_stack_last, plus the residuals h_all and
+// c_all [L, T, R, H] (in the weights' dtype) and gates [L, T, R, 4H]
+// (float32), with optional int8 inter-layer dropout masks [L-1, T, R, H]
+// scaled by inv_keep (masks may be null).
+extern "C" int wf_lstm_stack_train_fwd(int w_dt, int rows_per_thread,
+                                       const float* x, long long st,
+                                       long long sr, const void* wcat0,
+                                       const void* wcatr, const float* bias,
+                                       const int8_t* masks, float inv_keep,
+                                       void* h_all, void* c_all, float* gates,
+                                       float* out, int T, int R, int C, int H,
+                                       int L, void* stream) {
+  if (!h_all || !c_all || !gates) return (int)cudaErrorInvalidValue;
+  const wf::TrainIO io{h_all, c_all, gates, masks, inv_keep};
+  return wf::launch_dt<true>(w_dt, rows_per_thread, x, st, sr, wcat0, wcatr,
+                             bias, out, T, R, C, H, L, io, stream);
 }

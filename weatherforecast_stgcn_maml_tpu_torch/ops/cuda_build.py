@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+`nvcc` compiles every `csrc/*.cu` to an object, one process per source,
+all started together, and links them into one shared library with a plain C
 interface, loaded with ctypes. The library lands in `.cuda_build/<key>/` at
 the root of the checkout, keyed by a hash of the sources and of
 `nvcc --version`, so a changed source or toolkit rebuilds and an unchanged
@@ -27,7 +28,7 @@ BUILD_ROOT = os.path.join(
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Storage-dtype codes of the C interface (csrc/common.cuh).
@@ -36,11 +37,19 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
-    "wf_gcn_gemm": [_I, _I, _I, _I, _I, _P, _LL, _I, _P, _LL, _I, _P, _LL, _I,
-                    _P, _I, _I, _I, _I, _P],
+    "wf_gemm": [_I, _I, _I, _I, _P, _LL, _I, _I, _P, _F, _P, _LL, _I, _I,
+                _P, _LL, _I, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _P],
+    "wf_sum_splits": [_P, _I, _LL, _P, _I, _I, _I, _P],
+    "wf_colsum": [_P, _I, _I, _I, _I, _P, _P],
+    "wf_gcn_relu_mask_grad": [_I, _I, _P, _P, _P, _F, _P, _LL, _P],
     "wf_lstm_stack_last": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
+    "wf_lstm_stack_train_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _F, _P,
+                                _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "wf_lstm_stack_train_bwd": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -79,19 +88,36 @@ def _build(nvcc: str, target: str) -> None:
     import time
 
     os.makedirs(os.path.dirname(target), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(target))
-    os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()],
-        capture_output=True, text=True,
-    )
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{build_log}")
-    os.replace(tmp, target)  # atomic: a concurrent process never loads half a file
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(target)) as tmpdir:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            jobs.append((src, obj, proc))
+        logs, failed = [], []
+        for src, _, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(f"== {os.path.basename(src)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(os.path.basename(src))
+        if not failed:
+            lib = os.path.join(tmpdir, "lib.so")
+            proc = subprocess.run(
+                [nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)],
+                capture_output=True, text=True,
+            )
+            logs.append(f"== link\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append("link")
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
+        os.replace(lib, target)  # atomic: a concurrent process never loads half a file
 
 
 def load() -> ctypes.CDLL:

@@ -1,7 +1,7 @@
 """Fused GCN encoder stack (serving): all L layers of
 `h = relu(A_hat @ (h @ W_l) + b_l)` over every time slice.
 
-`fused_gcn_stack` runs the hand-written CUDA kernel (csrc/fused_gcn.cu) on
+`fused_gcn_stack` runs the hand-written CUDA GEMM (csrc/gemm.cu) on
 a CUDA tensor and its plain PyTorch version, `gcn_stack_plain`, on a CPU
 tensor or under float64. On a CUDA tensor a shape or dtype the kernel does
 not take raises; nothing falls back to the plain version there.
@@ -17,8 +17,10 @@ from typing import Sequence
 
 import torch
 
+from weatherforecast_stgcn_maml_tpu_torch.models.common import apply_mask
 from weatherforecast_stgcn_maml_tpu_torch.models.gcn import apply_gcn_layer
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm
 
 NODE_MULTIPLE = 128  # the kernel takes node counts that are multiples of this
 
@@ -26,47 +28,53 @@ NODE_MULTIPLE = 128  # the kernel takes node counts that are multiples of this
 def gcn_stack_plain(
     layers: Sequence, a_hat: torch.Tensor, h: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    masks: torch.Tensor | None = None, keep: float = 1.0,
 ) -> torch.Tensor:
-    """Plain PyTorch version: the layerwise route, relu after every layer."""
-    for layer in layers:
+    """Plain PyTorch version: the layerwise route, relu after every layer;
+    `masks` (int8 {0, 1} [n, ..., N, C_out]) drop the outputs of layers
+    0..n-1 with scale 1/keep."""
+    for l, layer in enumerate(layers):
         h = torch.relu(apply_gcn_layer(layer, a_hat, h, compute_dtype=compute_dtype))
+        if masks is not None and l < masks.shape[0]:
+            h = apply_mask(h, masks[l], keep)
     return h
 
 
-def _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype):
-    lib = cuda_build.load()
+def check_gcn_inputs(weights, biases, a_hat, h, node_multiple=NODE_MULTIPLE) -> None:
+    """Raise on what the GCN kernels do not take."""
     dev = h.device
     n, c_in = h.shape[-2:]
-    if n % NODE_MULTIPLE:
+    if n % node_multiple:
         raise ValueError(
             f"the GCN kernel takes node counts that are multiples of "
-            f"{NODE_MULTIPLE}, got {n}"
+            f"{node_multiple}, got {n}"
         )
     if a_hat.shape != (n, n):
         raise ValueError(f"a_hat must be [{n}, {n}], got {list(a_hat.shape)}")
     for t in (a_hat, *weights, *biases):
         if t.device != dev or t.dtype != torch.float32:
             raise TypeError("a_hat, weights and biases must be float32 on the input's device")
-    rd = cuda_build.dtype_code(compute_dtype)
+    for l, w in enumerate(weights):
+        if w.shape[0] != c_in:
+            raise ValueError(f"layer {l}: weight is {list(w.shape)}, input has {c_in} channels")
+        c_in = w.shape[1]
+
+
+def _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype):
+    check_gcn_inputs(weights, biases, a_hat, h)
+    dev = h.device
+    n, c_in = h.shape[-2:]
     cur = h.reshape(-1, n, c_in).contiguous()
     slices = cur.shape[0]
     a = a_hat.contiguous()
-    stream = cuda_build.stream_ptr(dev)
     for l, (w, b) in enumerate(zip(weights, biases)):
-        if w.shape[0] != c_in:
-            raise ValueError(f"layer {l}: weight is {list(w.shape)}, input has {c_in} channels")
         w, b = w.contiguous(), b.contiguous()
         c_out = w.shape[1]
         hw = torch.empty((slices * n, c_out), dtype=compute_dtype, device=dev)
-        cuda_build.check(
-            lib.wf_gcn_gemm(
-                cuda_build.dtype_code(cur.dtype), 0, rd, rd, 0,
-                cur.data_ptr(), 0, c_in,
-                w.data_ptr(), 0, c_out,
-                hw.data_ptr(), 0, c_out,
-                None, slices * n, c_out, c_in, 1, stream,
-            ),
-            f"GCN layer {l} feature transform",
+        gemm(
+            cur, w, hw, m=slices * n, n=c_out, k=c_in, lda=c_in, ldb=c_out,
+            ldc=c_out, compute_dtype=compute_dtype,
+            what=f"GCN layer {l} feature transform",
         )
         last = l == len(weights) - 1
         out = torch.empty(
@@ -74,15 +82,10 @@ def _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype):
             dtype=torch.float32 if last else compute_dtype,
             device=dev,
         )
-        cuda_build.check(
-            lib.wf_gcn_gemm(
-                0, rd, cuda_build.dtype_code(out.dtype), rd, 1,
-                a.data_ptr(), 0, n,
-                hw.data_ptr(), n * c_out, c_out,
-                out.data_ptr(), n * c_out, c_out,
-                b.data_ptr(), n, c_out, n, slices, stream,
-            ),
-            f"GCN layer {l} aggregation",
+        gemm(
+            a, hw, out, m=n, n=c_out, k=n, lda=n, ldb=c_out, ldc=c_out,
+            sb=n * c_out, sc=n * c_out, batch=slices, bias=b, relu=True,
+            compute_dtype=compute_dtype, what=f"GCN layer {l} aggregation",
         )
         cur, c_in = out, c_out
     return cur.reshape(*h.shape[:-1], c_in)

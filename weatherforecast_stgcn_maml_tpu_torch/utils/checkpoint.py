@@ -1,9 +1,11 @@
 """Checkpoints: a PyTorch state_dict plus the JSON metadata sidecar.
 
 Layout of a checkpoint directory:
-  <dir>/params.pt  the model's state_dict (plain tensors; loads with
-                   torch.load(..., weights_only=True))
-  <dir>/meta.json  metadata: config dict (model.family), norm stats, tags
+  <dir>/params.pt     the model's state_dict (plain tensors; loads with
+                      torch.load(..., weights_only=True))
+  <dir>/opt_state.pt  optional: the meta optimizer's state {count, mu, nu}
+                      (meta-training's checkpoints, read back on resume)
+  <dir>/meta.json     metadata: config dict (model.family), norm stats, tags
 
 The sidecar carries the same schema the JAX package writes beside its Orbax
 arrays, so `meta.json` reads the same in both. Orbax arrays need jax to
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 PARAMS_FILE = "params.pt"
+OPT_STATE_FILE = "opt_state.pt"
 
 
 def _to_jsonable(x):
@@ -36,20 +39,32 @@ def _to_jsonable(x):
     return x
 
 
+def _cpu(tensors: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().contiguous() for k, v in tensors.items()}
+
+
 def save_checkpoint(
-    path: str, state_dict: Mapping[str, torch.Tensor], meta: dict | None = None
+    path: str, state_dict: Mapping[str, torch.Tensor], meta: dict | None = None,
+    opt_state: Mapping | None = None,
 ) -> str:
-    """Save a state_dict + JSON `meta`, replacing a checkpoint at `path`
-    (written to a sibling tmp dir first, then swapped in)."""
+    """Save a state_dict + JSON `meta` (+ an optimizer state {count, mu,
+    nu}), replacing a checkpoint at `path` (written to a sibling tmp dir
+    first, then swapped in)."""
     path = os.path.abspath(path)
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    torch.save(
-        {k: v.detach().cpu().contiguous() for k, v in state_dict.items()},
-        os.path.join(tmp, PARAMS_FILE),
-    )
+    torch.save(_cpu(state_dict), os.path.join(tmp, PARAMS_FILE))
+    if opt_state is not None:
+        torch.save(
+            {
+                "count": int(opt_state["count"]),
+                "mu": _cpu(opt_state["mu"]),
+                "nu": _cpu(opt_state["nu"]),
+            },
+            os.path.join(tmp, OPT_STATE_FILE),
+        )
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(_to_jsonable(meta or {}), f, indent=2)
     if os.path.exists(path):
@@ -69,6 +84,15 @@ def load_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict]:
         )
     state_dict = torch.load(params, map_location="cpu", weights_only=True)
     return state_dict, load_meta(path)
+
+
+def load_opt_state(path: str) -> dict | None:
+    """The optimizer state {count, mu, nu} (on the CPU) saved with a
+    checkpoint, or None."""
+    file = os.path.join(os.path.abspath(path), OPT_STATE_FILE)
+    if not os.path.exists(file):
+        return None
+    return torch.load(file, map_location="cpu", weights_only=True)
 
 
 def checkpoint_exists(path: str) -> bool:

@@ -10,6 +10,9 @@ indices become key parts. Layouts are the same on both sides (`w` stored
 [in, out]), so conversion copies leaves. LSTM layers imported from torch
 checkpoints carry split `b_ih`/`b_hh` biases; they fuse into `b` here,
 the bias every forward uses.
+
+An optax AdamW state (`ScaleByAdamState`: count, mu, nu with the
+parameters' tree) converts the same way into the port's optimizer state.
 """
 
 from __future__ import annotations
@@ -20,10 +23,12 @@ import numpy as np
 import torch
 
 from weatherforecast_stgcn_maml_tpu_torch.models.common import lstm_bias
+from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import AdamState
 
 
-def state_dict_from_params(params: Mapping) -> dict[str, torch.Tensor]:
-    """JAX parameter pytree (numpy leaves) -> flat float32 state_dict."""
+def state_dict_from_params(params: Mapping, dtype=np.float32) -> dict[str, torch.Tensor]:
+    """JAX parameter pytree (numpy leaves) -> flat state_dict (float32, or
+    `dtype`)."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node: Any) -> None:
@@ -36,7 +41,7 @@ def state_dict_from_params(params: Mapping) -> dict[str, torch.Tensor]:
             for i, v in enumerate(node):
                 walk(f"{prefix}{i}.", v)
         else:
-            out[prefix[:-1]] = torch.from_numpy(np.array(node, dtype=np.float32))
+            out[prefix[:-1]] = torch.from_numpy(np.array(node, dtype=dtype))
 
     walk("", params)
     return out
@@ -61,3 +66,14 @@ def params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
         return items
 
     return listify(root)
+
+
+def opt_state_from_optax(adam_state, dtype=np.float32) -> AdamState:
+    """optax `ScaleByAdamState` (count, and mu / nu as parameter trees with
+    numpy leaves) -> the port's AdamState (train/optimizers.py), so both
+    packages continue from one mid-run state."""
+    return AdamState(
+        count=int(np.asarray(adam_state.count)),
+        mu=state_dict_from_params(adam_state.mu, dtype),
+        nu=state_dict_from_params(adam_state.nu, dtype),
+    )

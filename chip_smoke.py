@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: the serving path and
-first-order MAML meta-training.
+"""Smoke run of the PyTorch port on one CUDA card: the serving path,
+first-order MAML meta-training, and regional adaptation with the pipeline.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -23,15 +23,28 @@ time):
      the inner step's shapes (one window: 24 slices x 512 nodes, 512 LSTM
      rows), forward and every gradient, float32 and bfloat16, with the same
      dropout masks (rate 0.2) on both sides; time each direction;
-  7. the FO meta-gradient of one micro-batch (2 tasks, 15 inner steps each,
-     dropout on), kernel route against plain route, same generator seed;
-  8. drive `cli meta-train` (the full default meta step: 4 tasks x 90 inner
-     steps, grad-accum 2): 2 epochs float32, 1 epoch bfloat16, then
-     `--resume` to epoch 3, then `forecast` from the meta-trained
-     `ckpt_best`; rows 4-7 must have launched, every loss must be finite;
-  9. time one inner step (with a torch.profiler breakdown of its device
-     time by kernel) and one meta step, with the meta step's peak device
-     memory.
+  7. hold the whole-tree clip + SGD kernel (rows 8-9) against its plain
+     version on the reference model's 23 leaves, one task and a task axis
+     of 4, gradient norms below and above clip_norm; time it, the plain
+     version and torch's clip_grad_norm_ + _foreach_add_;
+  8. the FO meta-gradient of one micro-batch (2 tasks, 15 inner steps each,
+     dropout on), kernel route (rows 4-8) against plain route, same
+     generator seed;
+  9. drive `cli meta-train` at MetaConfig() defaults (the full meta step:
+     4 tasks x 90 inner steps, grad-accum 2, the fused inner update): 2
+     epochs float32, 1 epoch bfloat16, `--resume` to epoch 3, then 1
+     float32 epoch with `meta.fused_inner_update=false`, then `forecast`
+     from the meta-trained `ckpt_best`; rows 4-8 must have launched (row 8
+     360 times a fused meta step), every loss must be finite;
+ 10. drive `cli adapt` (Moscow and Thailand float32, 2 epochs, Moscow
+     bfloat16, 1 epoch) from that `ckpt_best`, `validate` the adapted
+     Moscow model and `pipeline` Moscow + NewYork; rows 1-2 and 4-7 must
+     have launched, every loss and val_mse must be finite; time one
+     adaptation train step (batch 2, with a torch.profiler breakdown) and
+     one adaptation epoch;
+ 11. time one inner step (fused and per-leaf update, with a torch.profiler
+     breakdown of the fused one) and one meta step, with the meta step's
+     peak device memory.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -63,6 +76,8 @@ TPU_KERNELS = {
     "lstm_stack_train.backward": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py:725",
     "gcn_stack_train": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn_train.py:79",
     "gcn_stack_train.backward": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn_train.py:123",
+    "clip_sgd_update": "weatherforecast_stgcn_maml_tpu/ops/fused_sgd.py:69",
+    "clip_sgd_update.batched": "weatherforecast_stgcn_maml_tpu/ops/fused_sgd.py:112",
 }
 CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 SOURCES = {
@@ -72,6 +87,8 @@ SOURCES = {
     "lstm_stack_train.backward": CSRC + "fused_lstm_stack_train.cu",
     "gcn_stack_train": CSRC + "fused_gcn_train.cu",
     "gcn_stack_train.backward": CSRC + "fused_gcn_train.cu",
+    "clip_sgd_update": CSRC + "fused_sgd.cu",
+    "clip_sgd_update.batched": CSRC + "fused_sgd.cu",
 }
 
 
@@ -127,17 +144,17 @@ class Phase:
         log(f"== phase {self.name}: {time.perf_counter() - self.t0:.1f} s")
 
 
-def profile_inner_steps(torch, inner_step, card, steps=5):
-    """Device time by kernel over `steps` inner steps (torch.profiler), and
-    the device's busy share of the wall time."""
+def profile_kernels(torch, fn, steps):
+    """(rows, wall us) over `steps` calls of fn() under torch.profiler: one
+    row (device us, launches, kernel name) per kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    inner_step()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            inner_step()
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []  # device-side events only: an op's row repeats its kernels' time
@@ -145,11 +162,28 @@ def profile_inner_steps(torch, inner_step, card, steps=5):
         dev_us = getattr(ev, "self_device_time_total", 0.0)
         if str(ev.device_type).endswith("CUDA") and dev_us > 0:
             rows.append((dev_us, ev.count, ev.key))
+    return rows, wall_us
+
+
+def device_ms(torch, fn, repeats=REPEATS):
+    """The device time of fn() in ms: the sum of its kernels' times
+    (torch.profiler), averaged over `repeats` calls. Unlike CUDA events it
+    leaves out the device's idle time while the host prepares launches."""
+    rows, _ = profile_kernels(torch, fn, repeats)
+    if not rows:
+        raise RuntimeError("the profiler reported no device time")
+    return sum(r[0] for r in rows) / repeats / 1e3
+
+
+def profile_steps(torch, step, what, card, steps=5):
+    """Device time by kernel over `steps` calls of step() (torch.profiler),
+    and the device's busy share of the wall time."""
+    rows, wall_us = profile_kernels(torch, step, steps)
     busy = sum(r[0] for r in rows)
     if not rows:
         log("profile: the profiler reported no device time")
         return
-    log(f"profile of {steps} float32 inner steps: wall {wall_us / steps / 1e3:.3f} ms a step, "
+    log(f"profile of {steps} {what}: wall {wall_us / steps / 1e3:.3f} ms a step, "
         f"device busy {busy / steps / 1e3:.3f} ms a step ({100 * busy / wall_us:.1f}%)  [{card}]")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {dev_us / steps / 1e3:8.4f} ms a step  {count // steps:4d} launches  "
@@ -179,7 +213,14 @@ def main() -> int:
         ModelConfig,
         to_dict,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.data.preprocess import pad_nodes, prepare_features
     from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
+    from weatherforecast_stgcn_maml_tpu_torch.data.windows import (
+        WindowSpec,
+        contiguous_split,
+        gather_batch,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.engines.adapt import adapted_ckpt_path
     from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
     from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
     from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
@@ -199,19 +240,32 @@ def main() -> int:
         lstm_stack_plain,
         lstm_stack_train,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import (
+        clip_sgd_update,
+        clip_sgd_update_plain,
+    )
     from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
         init_meta_state,
         make_meta_step,
         task_batch_grad,
     )
-    from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import clip_global_norm_tree
-    from weatherforecast_stgcn_maml_tpu_torch.train.supervised import make_predict
+    from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import (
+        adaptation_optimizer,
+        clip_global_norm_tree,
+        leaf_order,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.train.supervised import (
+        SupervisedState,
+        make_epoch_runner,
+        make_predict,
+        make_train_step,
+    )
     from weatherforecast_stgcn_maml_tpu_torch.train.tasks import (
         build_meta_tasks,
         stage_tasks,
         task_at,
     )
-    from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import save_checkpoint
+    from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import load_meta, save_checkpoint
 
     # 1. The card.
     major, minor = torch.cuda.get_device_capability(0)
@@ -500,29 +554,107 @@ def main() -> int:
         measured["lstm_stack_train.backward"].update(
             flops=2 * fl, bytes=lstm_io + res + 4 * n * lh + 4 * x_rec.numel() + lstm_w_bytes)
 
+    # 7. The whole-tree clip + SGD (rows 8-9) vs plain: the reference
+    # model's 23 leaves, one task and a task axis of 4 (task v's parameters
+    # scaled by 1 + v / 10), gradients drawn with numpy and scaled to a
+    # global norm (per task) of 0.5 and 30 around clip_norm 1.0.
+    meta_cfg = MetaConfig()
+    leaves = [p.detach() for p in model.parameters()]
+    n_params = sum(p.numel() for p in leaves)
+
+    def sgd_inputs(tasks, scale):
+        params = leaves if tasks == 1 else [
+            torch.stack([p * (1 + 0.1 * v) for v in range(tasks)]) for p in leaves]
+        draw = np.random.default_rng(20 + tasks)
+        grads = [torch.from_numpy(draw.standard_normal(p.shape).astype(np.float32)).to(dev)
+                 for p in params]
+        norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads))) / tasks**0.5
+        return params, [g * (scale / norm) for g in grads]
+
+    with Phase("clip + SGD kernel vs plain"):
+        lr, max_norm = meta_cfg.inner_lr, meta_cfg.clip_norm
+        for tasks, name in ((1, "clip_sgd_update"), (4, "clip_sgd_update.batched")):
+            batched = tasks > 1
+            errs = []
+            for scale in (0.5, 30.0):
+                params, grads = sgd_inputs(tasks, scale)
+                got = [p.clone() for p in params]
+                clip_sgd_update(got, grads, lr, max_norm, batched=batched)
+                ref = [p.clone() for p in params]
+                clip_sgd_update_plain(ref, grads, lr, max_norm, batched=batched)
+                torch.cuda.synchronize()
+                rel = max(rel_err(a, r) for a, r in zip(got, ref))
+                err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+                log(f"{name} V={tasks} grad norm {scale}: max|diff|/max|ref| {rel:.3e} "
+                    f"(tol {TOL['float32']}), max_abs_err {err:.3e}")
+                if rel > TOL["float32"]:
+                    raise RuntimeError(f"{name} V={tasks}: error {rel:.3e}")
+                errs.append(err)
+            work = [p.clone() for p in params]  # the last inputs: clipping on
+            ms = cuda_ms(torch, lambda: clip_sgd_update(work, grads, lr, max_norm,
+                                                        batched=batched))
+            plain_ms = cuda_ms(torch, lambda: clip_sgd_update_plain(
+                work, grads, lr, max_norm, batched=batched))
+            # Yardstick: torch's clip_grad_norm_ per task, then one
+            # _foreach_add_ over every leaf (separate tensors per task).
+            lib = [[(p[v] if batched else p).clone() for p in params] for v in range(tasks)]
+            for v in range(tasks):
+                for q, g in zip(lib[v], grads):
+                    q.grad = (g[v] if batched else g).clone()
+            flat = [q for task in lib for q in task]
+            flat_g = [q.grad for q in flat]
+
+            def library():
+                for task in lib:
+                    torch.nn.utils.clip_grad_norm_(task, max_norm, foreach=True)
+                torch._foreach_add_(flat, flat_g, alpha=-lr)
+
+            library_ms = cuda_ms(torch, library)
+            log(f"{name} V={tasks} ({tasks * n_params:,} values), CUDA events (the device "
+                f"also waits on the host): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"clip_grad_norm_ + _foreach_add_ {library_ms:.4f} ms  [{card}]")
+            # The kernels' own device time, for the table: these calls are
+            # short enough that the host's launch work shows in the events.
+            ms = device_ms(torch, lambda: clip_sgd_update(work, grads, lr, max_norm,
+                                                          batched=batched))
+            plain_ms = device_ms(torch, lambda: clip_sgd_update_plain(
+                work, grads, lr, max_norm, batched=batched))
+            library_ms = device_ms(torch, library)
+            log(f"{name} V={tasks}, device time (torch.profiler): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, clip_grad_norm_ + _foreach_add_ {library_ms:.4f} ms  "
+                f"[{card}]")
+            measured[name] = {
+                "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                # Read p and g once, write p once; a square, an add, a
+                # multiply and a subtract per value.
+                "bytes": 12 * tasks * n_params, "flops": 4 * tasks * n_params,
+            }
+        del work, lib, flat, flat_g
+
     # Meta-training tasks at the reference width: 4 meta-training regions.
-    meta_cfg = MetaConfig(fused_inner_update=False)
     data_cfg = DataConfig()
     regions = [get_region_data(box, data_cfg.train_years, data_cfg, tag="train",
                                name=f"region{i}")
                for i, box in enumerate(META_TRAIN_REGIONS[:4])]
     tasks = stage_tasks([b.task for b in build_meta_tasks(regions, cfg, meta_cfg, data_cfg)], dev)
 
-    # 7. The FO meta-gradient, kernel route vs plain route.
+    # 8. The FO meta-gradient, kernel route vs plain route.
     with Phase("meta-gradient kernel vs plain"):
         one_epoch = dataclasses.replace(meta_cfg, inner_epochs=1)
         micro = type(tasks)(*(f[:2] for f in tasks))
         for dt_name, tol in TOL.items():
-            routes = {
-                "kernel": ModelConfig(compute_dtype=dt_name),
-                "plain": ModelConfig(compute_dtype=dt_name, use_pallas_gcn=False,
-                                     lstm_kernel="xla"),
+            routes = {  # the plain route: plain stacks, the per-leaf clip + SGD
+                "kernel": (ModelConfig(compute_dtype=dt_name), one_epoch),
+                "plain": (ModelConfig(compute_dtype=dt_name, use_pallas_gcn=False,
+                                      lstm_kernel="xla"),
+                          dataclasses.replace(one_epoch, fused_inner_update=False)),
             }
             res = {}
-            for route, mc in routes.items():
+            for route, (mc, mt) in routes.items():
                 g = torch.Generator(device=dev).manual_seed(11)
                 t0 = time.perf_counter()
-                res[route] = task_batch_grad(model, micro, g, mc, one_epoch)
+                res[route] = task_batch_grad(model, micro, g, mc, mt)
                 torch.cuda.synchronize()
                 log(f"  {route} route {dt_name}: {time.perf_counter() - t0:.2f} s")
             (loss_k, grad_k), (loss_p, grad_p) = res["kernel"], res["plain"]
@@ -536,13 +668,13 @@ def main() -> int:
             if rels[worst] > tol:
                 raise RuntimeError(f"meta-gradient {dt_name}: {worst} off by {rels[worst]:.3e}")
 
-    # 8. Meta-training through the CLI: the training path's main run.
+    # 9. Meta-training through the CLI: the training path's main run.
     meta_dir = os.path.join(out_root, "meta_train")
     with Phase("meta-train CLI"):
-        def meta_train(dt_name, epochs, *extra):
-            argv = ["meta-train", *extra, "-o", f"out_dir={meta_dir}/{dt_name}",
-                    "-o", f"model.compute_dtype={dt_name}",
-                    "-o", "meta.fused_inner_update=false", "-o", f"meta.num_epochs={epochs}"]
+        def meta_train(dt_name, epochs, *extra, out=None):
+            out = out or dt_name
+            argv = ["meta-train", *extra, "-o", f"out_dir={meta_dir}/{out}",
+                    "-o", f"model.compute_dtype={dt_name}", "-o", f"meta.num_epochs={epochs}"]
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
@@ -550,74 +682,186 @@ def main() -> int:
                     raise RuntimeError(f"meta-train {argv} failed")
             log(f"meta-train {dt_name} {epochs} epochs {' '.join(extra)}: "
                 f"{time.perf_counter() - t0:.1f} s; {buf.getvalue().strip()}")
-            with open(os.path.join(meta_dir, dt_name, "meta", "meta_log.jsonl")) as f:
+            with open(os.path.join(meta_dir, out, "meta", "meta_log.jsonl")) as f:
                 return [json.loads(line) for line in f]
 
         counters = (gcn_stack_train, lstm_stack_train)
         for fn in counters:
             fn.launches = fn.backward_launches = 0
+        clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
+        per_step = meta_cfg.meta_batch * meta_cfg.inner_epochs * meta_cfg.inner_batches
         logs = {"float32": meta_train("float32", 2), "bfloat16": meta_train("bfloat16", 1)}
+        if clip_sgd_update.launches != 3 * per_step:
+            raise RuntimeError(f"clip_sgd_update launched {clip_sgd_update.launches} times in "
+                               f"3 meta steps, not {per_step} a step")
+        logs["float32"] = meta_train("float32", 3, "--resume")
+        logs["per-leaf update"] = meta_train("float32", 1, "-o", "meta.fused_inner_update=false",
+                                             out="per_leaf")
+        if clip_sgd_update.launches != 4 * per_step:
+            raise RuntimeError("the per-leaf inner update launched the clip + SGD kernel")
         train_launches = {}
         for fn in counters:
             train_launches[fn.__name__] = fn.launches
             train_launches[fn.__name__ + ".backward"] = fn.backward_launches
-        log(f"launches on the meta-training path: {train_launches}")
+        train_launches["clip_sgd_update"] = clip_sgd_update.launches
+        # Row 9 is not on the port's path: its tasks run one after another,
+        # so the meta step updates with V = 1 (phase 7 holds V = 4).
+        train_launches["clip_sgd_update.batched"] = clip_sgd_update.batched_launches
+        log(f"launches on the meta-training path (5 meta steps, 4 with the fused update): "
+            f"{train_launches}")
         for name, count in train_launches.items():
-            if count == 0:
+            if count == 0 and name != "clip_sgd_update.batched":
                 raise RuntimeError(f"{name} never launched on the meta-training path")
-        logs["float32"] = meta_train("float32", 3, "--resume")
-        for dt_name, records in logs.items():
-            want = [1, 2, 3] if dt_name == "float32" else [1]
+        for name, records in logs.items():
+            want = [1, 2, 3] if name == "float32" else [1]
             if [r["epoch"] for r in records] != want:
-                raise RuntimeError(f"meta-train {dt_name}: epochs {[r['epoch'] for r in records]}")
+                raise RuntimeError(f"meta-train {name}: epochs {[r['epoch'] for r in records]}")
             for r in records:
                 losses = [r["meta_loss"], *r["per_task_loss"]]
                 if not np.isfinite(losses).all():
-                    raise RuntimeError(f"meta-train {dt_name}: non-finite loss {r}")
-                log(f"  {dt_name} epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
+                    raise RuntimeError(f"meta-train {name}: non-finite loss {r}")
+                log(f"  {name} epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
                     f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
+        for name in ("float32", "bfloat16", "per_leaf"):
             for ckpt in ("ckpt_best", "ckpt_last", "ckpt_final"):
-                if not os.path.isdir(os.path.join(meta_dir, dt_name, "meta", ckpt)):
-                    raise RuntimeError(f"meta-train {dt_name}: no {ckpt}")
+                if not os.path.isdir(os.path.join(meta_dir, name, "meta", ckpt)):
+                    raise RuntimeError(f"meta-train {name}: no {ckpt}")
         mean = forecast("Moscow", "float32", os.path.join(meta_dir, "float32"))
         log(f"forecast Moscow from the meta-trained ckpt_best: t2m {mean[:, 2].round(2).tolist()}")
 
-    # 9. Inner step, meta step, peak memory.
+    # 10. Adaptation and the pipeline through the CLI, from the meta-trained
+    # ckpt_best (float32); depth cut to 1-2 epochs, the width is the reference's.
+    adapt_dir = os.path.join(meta_dir, "float32")
+    with Phase("adapt + pipeline CLI"):
+        def run_cli(argv):
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+            if rc != 0:
+                raise RuntimeError(f"{argv} exited {rc}:\n{err.getvalue()[-3000:]}")
+            return out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+        for fn in (fused_gcn_stack, lstm_stack_last_all):
+            fn.launches = 0
+        for fn in counters:
+            fn.launches = fn.backward_launches = 0
+        for region, dt_name, epochs in (("Moscow", "float32", 2), ("Thailand", "float32", 2),
+                                        ("Moscow", "bfloat16", 1)):
+            out = adapt_dir if dt_name == "float32" else os.path.join(out_root, "adapt_bf16")
+            _, _, secs = run_cli([
+                "adapt", "--region", region,
+                "--meta-ckpt", os.path.join(adapt_dir, "meta", "ckpt_best"),
+                "-o", f"out_dir={out}", "-o", f"model.compute_dtype={dt_name}",
+                "-o", f"adapt.epochs={epochs}"])
+            side = load_meta(adapted_ckpt_path(out, region, boxes[region]))
+            values = [side["val_mse"], *side["epoch_losses"]]
+            if len(side["epoch_losses"]) != epochs or not np.isfinite(values).all():
+                raise RuntimeError(f"adapt {region} {dt_name}: {values}")
+            log(f"adapt {region} {dt_name} {epochs} epochs ({side['climate_zone']}): "
+                f"{secs:.1f} s, epoch losses {side['epoch_losses']}, val_mse "
+                f"{side['val_mse']:.6f}  [{card}]")
+        out, err, _ = run_cli(["validate", "--region", "Moscow", "--no-plots",
+                               "-o", f"out_dir={adapt_dir}"])
+        results = json.loads(out)
+        if "(adapted model)" not in err or not np.isfinite(results["average_mse"]):
+            raise RuntimeError(f"validate Moscow did not score the adapted model: {err[-2000:]}")
+        log(f"validate Moscow (adapted model): average_mse {results['average_mse']:.6f}")
+        _, err, secs = run_cli(["pipeline", "--regions", "Moscow;NewYork", "--no-plots",
+                                "-o", f"out_dir={adapt_dir}", "-o", "adapt.epochs=1"])
+        if ("using existing adapted model for Moscow" not in err
+                or "[adapt:NewYork] saved" not in err):
+            raise RuntimeError(f"pipeline did not reuse Moscow and adapt NewYork: {err[-3000:]}")
+        log(f"pipeline Moscow (reused) + NewYork (adapted, 1 epoch): {secs:.1f} s; "
+            + "; ".join(line.strip() for line in err.splitlines() if "avg_mse" in line))
+        adapt_launches = {fn.__name__: fn.launches for fn in (fused_gcn_stack, lstm_stack_last_all)}
+        for fn in counters:
+            adapt_launches[fn.__name__] = fn.launches
+            adapt_launches[fn.__name__ + ".backward"] = fn.backward_launches
+        log(f"launches on the adaptation path: {adapt_launches}")
+        for name, count in adapt_launches.items():
+            if count == 0:
+                raise RuntimeError(f"{name} never launched on the adaptation path")
+
+        # One adaptation train step (batch 2: 48 GCN slices, 1024 LSTM rows)
+        # and one epoch, float32, Moscow's data.
+        spec = WindowSpec(cfg.window, cfg.horizon)
+        moscow_adapt = get_region_data(boxes["Moscow"], data_cfg.adapt_years, data_cfg,
+                                       tag="adapt", name="Moscow")
+        koppen = max(moscow_adapt.koppen_code, 0)
+        feats, _ = prepare_features(moscow_adapt)
+        feats = torch.from_numpy(pad_nodes(feats, n)).to(dev)
+        node_mask = torch.from_numpy(graph.node_mask).to(dev)
+        tx, lr0 = adaptation_optimizer("Moscow")
+        adapted = init_model(torch.Generator().manual_seed(4), cfg, device=dev)
+        astate = SupervisedState(adapted, tx.init(dict(adapted.named_parameters())))
+        train_step = make_train_step(cfg, tx)
+        x, y = gather_batch(feats, [100, 101], spec)
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        def adapt_step():
+            nonlocal astate
+            astate, _ = train_step(astate, x, y, a_hat, node_mask, koppen, lr0, g)
+
+        ms = host_ms(torch, adapt_step)
+        log(f"adaptation train step float32 (batch 2, forward + backward + clip + Adam): "
+            f"{ms:.3f} ms  [{card}]")
+        profile_steps(torch, adapt_step, "float32 adaptation train steps (batch 2)", card)
+        train_idx, _ = contiguous_split(spec.num_samples(moscow_adapt.num_timesteps), 0.8, 1200)
+        batches = (spec.window + train_idx).reshape(-1, 2)
+        run_epoch = make_epoch_runner(cfg, tx, spec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        astate, losses = run_epoch(astate, feats, batches, a_hat, node_mask, koppen, lr0, g)
+        torch.cuda.synchronize()
+        log(f"adaptation epoch float32 ({len(batches)} steps of batch 2): "
+            f"{time.perf_counter() - t0:.3f} s, mean loss {float(losses.mean()):.6f}  [{card}]")
+        del feats, astate, adapted
+
+    # 11. Inner step, meta step, peak memory.
     with Phase("meta-step times"):
         for dt_name in TOL:
             mc = ModelConfig(compute_dtype=dt_name)
             state = init_meta_state(torch.Generator().manual_seed(1), mc, meta_cfg, device=dev)
             task = task_at(tasks, 0)
-            named = list(state.params.named_parameters())
+            named = sorted(state.params.named_parameters(), key=lambda kv: leaf_order(kv[0]))
+            params = [p for _, p in named]
             g = torch.Generator(device=dev).manual_seed(2)
 
-            def inner_step():
+            def inner_step(fused):
                 loss = masked_mse(apply_model(state.params, task.a_hat, task.support_x[0],
                                               task.koppen, mc, train=True, generator=g),
                                   task.support_y[0], task.node_mask)
-                grads = torch.autograd.grad(loss, [p for _, p in named])
-                grads, _ = clip_global_norm_tree(
-                    dict(zip((k for k, _ in named), grads)), meta_cfg.clip_norm)
+                grads = torch.autograd.grad(loss, params)
                 with torch.no_grad():
+                    if fused:
+                        clip_sgd_update(params, grads, meta_cfg.inner_lr, meta_cfg.clip_norm)
+                        return
+                    clipped, _ = clip_global_norm_tree(
+                        dict(zip((k for k, _ in named), grads)), meta_cfg.clip_norm)
                     for k, p in named:
-                        p.sub_(meta_cfg.inner_lr * grads[k])
+                        p.sub_(meta_cfg.inner_lr * clipped[k])
 
-            ms = host_ms(torch, inner_step)
-            log(f"inner step {dt_name} (forward + backward + clip + SGD, one window): "
-                f"{ms:.3f} ms  [{card}]")
+            for fused in (True, False):
+                ms = host_ms(torch, lambda: inner_step(fused))
+                log(f"inner step {dt_name} (forward + backward + clip + SGD, one window, "
+                    f"{'fused' if fused else 'per-leaf'} update): {ms:.3f} ms  [{card}]")
             if dt_name == "float32":
-                profile_inner_steps(torch, inner_step, card)
-            step = make_meta_step(mc, meta_cfg)
-            torch.cuda.reset_peak_memory_stats(dev)
+                profile_steps(torch, lambda: inner_step(True),
+                              "float32 inner steps (fused update)", card)
+            for fused in (True, False) if dt_name == "float32" else (True,):
+                step = make_meta_step(mc, dataclasses.replace(meta_cfg, fused_inner_update=fused))
+                torch.cuda.reset_peak_memory_stats(dev)
 
-            def meta_step():
-                nonlocal state
-                state, _ = step(state, tasks, g)
+                def meta_step():
+                    nonlocal state
+                    state, _ = step(state, tasks, g)
 
-            ms = host_ms(torch, meta_step, repeats=2)
-            peak = torch.cuda.max_memory_allocated(dev) / 2**30
-            log(f"meta step {dt_name} (4 tasks x 90 inner steps + query, grad-accum 2): "
-                f"{ms:.1f} ms, peak device memory {peak:.2f} GiB  [{card}]")
+                ms = host_ms(torch, meta_step, repeats=2)
+                peak = torch.cuda.max_memory_allocated(dev) / 2**30
+                log(f"meta step {dt_name} (4 tasks x 90 inner steps + query, grad-accum 2, "
+                    f"{'fused' if fused else 'per-leaf'} update): {ms:.1f} ms, peak device "
+                    f"memory {peak:.2f} GiB  [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

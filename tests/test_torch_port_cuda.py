@@ -26,6 +26,7 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import (
     fused_gcn,
     fused_gcn_train,
     fused_lstm_stack,
+    fused_sgd,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import task_batch_grad
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks
@@ -169,24 +170,75 @@ def test_lstm_train_kernels_match_plain(dev, dtype, rows, dropout):
         assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
 
 
+def _leaves_and_grads(dev, tasks, scale):
+    """The reference model's 23 leaves (task axis of `tasks` when > 1) and
+    numpy-drawn gradients of global norm ~`scale` per task."""
+    model = init_model(torch.Generator().manual_seed(3), ModelConfig(), device=dev)
+    params = [p.detach() for p in model.parameters()]
+    if tasks > 1:
+        params = [torch.stack([p * (1 + 0.1 * v) for v in range(tasks)]) for p in params]
+    rng = np.random.default_rng(8)
+    grads = [torch.from_numpy(rng.normal(size=p.shape).astype(np.float32)).to(dev)
+             for p in params]
+    norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads))) / tasks ** 0.5
+    return params, [g * (scale / norm) for g in grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tasks", [1, 4])
+@pytest.mark.parametrize("scale", [0.5, 30.0])
+def test_clip_sgd_kernel_matches_plain(dev, tasks, scale):
+    """Rows 8 (one task) and 9 (a task axis): the whole tree, gradient
+    norms below and above clip_norm 1.0; two launches give the same bits."""
+    params, grads = _leaves_and_grads(dev, tasks, scale)
+    batched = tasks > 1
+    counter = "batched_launches" if batched else "launches"
+    before = getattr(fused_sgd.clip_sgd_update, counter)
+    got = [p.clone() for p in params]
+    fused_sgd.clip_sgd_update(got, grads, 0.01, 1.0, batched=batched)
+    again = [p.clone() for p in params]
+    fused_sgd.clip_sgd_update(again, grads, 0.01, 1.0, batched=batched)
+    assert getattr(fused_sgd.clip_sgd_update, counter) == before + 2
+    ref = [p.clone() for p in params]
+    fused_sgd.clip_sgd_update_plain(ref, grads, 0.01, 1.0, batched=batched)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert _rel(g, r) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_clip_sgd_kernel_refuses_what_it_does_not_take(dev):
+    p = [torch.zeros(4, device=dev, dtype=torch.bfloat16)]
+    with pytest.raises(TypeError, match="float32"):
+        fused_sgd.clip_sgd_update(p, [torch.ones_like(p[0])], 0.1, 1.0)
+    p = [torch.zeros((4, 4), device=dev).t()]
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_sgd.clip_sgd_update(p, [torch.ones_like(p[0])], 0.1, 1.0)
+
+
 @pytest.mark.cuda
 def test_fo_meta_gradient_kernels_match_plain(dev):
     """One micro-batch of the FO meta step (2 tasks, 2 inner steps each,
-    dropout on): kernel route against the plain route, same masks."""
+    dropout on): kernel route (rows 4-8) against the plain route (the plain
+    stacks, the per-leaf clip + SGD), same masks."""
     cfg = ModelConfig(hidden_channels=64, gcn_layers=3, lstm_hidden=32, lstm_layers=3,
                       window=7, horizon=3)
-    meta = MetaConfig(inner_epochs=1, inner_batches=2, fused_inner_update=False)
+    meta = MetaConfig(inner_epochs=1, inner_batches=2)
     regions = [synthetic_region_for_box((10.0 + 3 * i, 12.0 + 3 * i, 20.0, 23.0),
                                         num_timesteps=40, seed=i) for i in range(2)]
     tasks = stack_tasks([b.task for b in build_meta_tasks(regions, cfg, meta, DataConfig())])
     tasks = type(tasks)(*(f.to(dev) for f in tasks))
     model = init_model(torch.Generator().manual_seed(2), cfg, device=dev)
     out = {}
-    for route, mc in (("kernel", cfg),
-                      ("plain", ModelConfig(**{**cfg.__dict__, "use_pallas_gcn": False,
-                                               "lstm_kernel": "xla"}))):
+    before = fused_sgd.clip_sgd_update.launches
+    for route, mc, mt in (
+        ("kernel", cfg, meta),
+        ("plain", ModelConfig(**{**cfg.__dict__, "use_pallas_gcn": False, "lstm_kernel": "xla"}),
+         MetaConfig(inner_epochs=1, inner_batches=2, fused_inner_update=False)),
+    ):
         gen = torch.Generator(device=dev).manual_seed(7)
-        out[route] = task_batch_grad(model, tasks, gen, mc, meta)
+        out[route] = task_batch_grad(model, tasks, gen, mc, mt)
+    assert fused_sgd.clip_sgd_update.launches == before + 4
     tol = TOL[torch.float32]
     torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=tol, atol=tol)
     for name, g in out["kernel"][1].items():

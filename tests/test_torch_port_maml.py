@@ -1,12 +1,15 @@
 """The port's first-order MAML pieces against the JAX package, on the CPU:
-the meta optimizer (clip, schedule, AdamW), task building, the difficulty
-sampler, and one whole FO meta step in float64 against `make_meta_step`
-(also from a JAX mid-run optimizer state brought over by
+the whole-tree clip + SGD update (rows 8-9) against the Pallas bodies in
+the interpreter, the meta optimizer (clip, schedule, AdamW), task building,
+the difficulty sampler, and one whole FO meta step in float64 against
+`make_meta_step`, with the per-leaf and the fused inner update (also from a
+JAX mid-run optimizer state brought over by
 `utils/convert.opt_state_from_optax`).
 
 Tolerances: float64 1e-8 (rtol = atol) on the meta step (the same
 operations in another summation order), 1e-12 on the optimizer alone, and
-float32 1e-6 on the float32 schedule (a last-bit difference of cos/log).
+float32 1e-6 on the float32 schedule and the clip + SGD update (a last-bit
+difference of cos/log, of the norm's summation order).
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import jax.numpy as jnp
 from weatherforecast_stgcn_maml_tpu import config as jcfg
 from weatherforecast_stgcn_maml_tpu import native as jax_native
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
+from weatherforecast_stgcn_maml_tpu.ops import fused_sgd as jax_fused_sgd
 from weatherforecast_stgcn_maml_tpu.train import maml as jax_maml
 from weatherforecast_stgcn_maml_tpu.train import optimizers as jax_opt
 from weatherforecast_stgcn_maml_tpu.train.sampling import DifficultySampler as JaxSampler
@@ -28,6 +32,7 @@ from weatherforecast_stgcn_maml_tpu.train.tasks import stack_tasks as jax_stack_
 from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_sgd
 from weatherforecast_stgcn_maml_tpu_torch.train import maml, optimizers
 from weatherforecast_stgcn_maml_tpu_torch.train.sampling import DifficultySampler
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks
@@ -79,6 +84,52 @@ def test_clip_global_norm_matches_jax(scale):
     np.testing.assert_allclose(float(norm), float(ref_norm), rtol=1e-12)
     for k, v in got.items():
         np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("tasks", [1, 3])
+@pytest.mark.parametrize("scale", [1e-3, 10.0])
+def test_clip_sgd_update_matches_pallas_body(tasks, scale):
+    """Rows 8-9: the port's whole-tree clip + SGD (its plain version, what
+    the CPU runs) against JAX's `clip_sgd_update` in the Pallas interpreter,
+    unbatched (row 8's body) and under jax.vmap over a task axis (row 9's
+    body, each task clipped by its own norm); norms below and above 1.0.
+    Float32."""
+    rng = np.random.default_rng(3)
+    params = _np(jax_maml.init_model(jax.random.key(0), jcfg.ModelConfig(**MODEL)))
+    names = sorted(state_dict_from_params(params), key=optimizers.leaf_order)
+    leaves = jax.tree.leaves(params)  # the same order as `names`
+    shape = (tasks,) if tasks > 1 else ()
+    p = [rng.normal(size=shape + a.shape).astype(np.float32) for a in leaves]
+    # Task v's gradients scaled by 1 + v: with 3 tasks, clipping differs per task.
+    g = [(rng.normal(size=shape + a.shape) * scale
+          * (1 + np.arange(tasks)).reshape(shape + (1,) * a.ndim)).astype(np.float32)
+         for a in leaves]
+
+    def jax_update(pp, gg):
+        return jax_fused_sgd.clip_sgd_update(pp, gg, 0.01, 1.0)
+
+    with jax_fused_sgd.force_interpret():
+        fn = jax.vmap(jax_update) if tasks > 1 else jax_update
+        ref = fn([jnp.asarray(a) for a in p], [jnp.asarray(a) for a in g])
+    got = [torch.from_numpy(a.copy()) for a in p]
+    fused_sgd.clip_sgd_update(got, [torch.from_numpy(a) for a in g], 0.01, 1.0,
+                              batched=tasks > 1)
+    assert len(names) == len(got)
+    for name, a, r in zip(names, got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+def test_clip_sgd_update_refuses_what_it_does_not_take():
+    p = [torch.zeros(3)]
+    with pytest.raises(ValueError, match="gradient"):
+        fused_sgd.clip_sgd_update(p, [torch.zeros(4)], 0.1, 1.0)
+    with pytest.raises(TypeError, match="Python numbers"):
+        fused_sgd.clip_sgd_update(p, [torch.zeros(3)], torch.tensor(0.1), 1.0)
+    with pytest.raises(RuntimeError, match="first-order"):
+        fused_sgd.clip_sgd_update(p, [torch.zeros(3, requires_grad=True)], 0.1, 1.0)
+    with pytest.raises(ValueError, match="task axis"):
+        fused_sgd.clip_sgd_update([torch.zeros(3), torch.zeros(2, 3)],
+                                  [torch.zeros(3), torch.zeros(2, 3)], 0.1, 1.0, batched=True)
 
 
 @pytest.mark.parametrize("t_mult", [1, 2])
@@ -171,9 +222,20 @@ def _check_step(got_state, got_metrics, ref_state, ref_metrics):
 
 def test_fo_meta_step_matches_jax_float64(numpy_host_route):
     """Two tasks, grad-accum 2 (two AdamW updates), 2 x 2 inner steps,
-    dropout 0; then one more step from JAX's mid-run state."""
-    mc, meta = jcfg.ModelConfig(**MODEL), jcfg.MetaConfig(**META)
-    tmc, tmeta = tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**META)
+    dropout 0, the per-leaf clip + SGD; then one more step from JAX's
+    mid-run state."""
+    _check_meta_steps(META)
+
+
+def test_fo_meta_step_fused_update_matches_jax_float64(numpy_host_route):
+    """The same with `fused_inner_update` on, the default, on both sides:
+    the port's whole-tree clip + SGD (its plain version on the CPU)."""
+    _check_meta_steps({**META, "fused_inner_update": True})
+
+
+def _check_meta_steps(meta_kw):
+    mc, meta = jcfg.ModelConfig(**MODEL), jcfg.MetaConfig(**meta_kw)
+    tmc, tmeta = tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**meta_kw)
     with jax.enable_x64(True):
         tasks = _jax_f64(jax_stack_tasks(
             [b.task for b in jax_build_meta_tasks(_regions(False), mc, meta, jcfg.DataConfig())]))
@@ -204,9 +266,7 @@ def test_fo_meta_step_matches_jax_float64(numpy_host_route):
         _check_step(state, metrics, ref_states[e + 1], ref_metrics[e])
 
 
-@pytest.mark.parametrize("override", [
-    dict(fused_inner_update=True), dict(second_order=True), dict(epochs_per_dispatch=2),
-])
+@pytest.mark.parametrize("override", [dict(second_order=True), dict(epochs_per_dispatch=2)])
 def test_unported_meta_settings_raise(override):
     cfg = tcfg.MetaConfig(**{**META, **override})
     with pytest.raises(NotImplementedError, match="not ported"):

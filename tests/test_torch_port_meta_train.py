@@ -37,8 +37,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,
              horizon=3, koppen_dim=4)
 SMALL_OVERRIDES = [f"model.{k}={v}" for k, v in SMALL.items()] + [
-    "meta.inner_epochs=1", "meta.inner_batches=2", "meta.fused_inner_update=false",
-    "data.synthetic_timesteps=40",
+    "meta.inner_epochs=1", "meta.inner_batches=2", "data.synthetic_timesteps=40",
 ]
 
 
@@ -151,8 +150,7 @@ def test_cli_meta_train_leaves_jax_unimported(tmp_path):
 def test_cli_meta_train_needs_a_card_or_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
-        cli.main(["meta-train", "-o", f"out_dir={tmp_path}", "-o",
-                  "meta.fused_inner_update=false"])
+        cli.main(["meta-train", "-o", f"out_dir={tmp_path}"])
 
 
 @pytest.mark.parametrize("override", ["mesh.num_devices=2", "mesh.spatial_devices=2"])

@@ -32,13 +32,14 @@ from weatherforecast_stgcn_maml_tpu.models.registry import init_model as jax_ini
 from weatherforecast_stgcn_maml_tpu.models.stgcn import init_encoder as jax_init_encoder
 from weatherforecast_stgcn_maml_tpu.ops import fused_gcn_train as jax_fgt
 from weatherforecast_stgcn_maml_tpu.ops import fused_lstm_stack as jax_fls
+from weatherforecast_stgcn_maml_tpu.train.supervised import batched_forward as jax_batched_forward
 from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
 from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import hybrid_masks
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mae, masked_mse
 from weatherforecast_stgcn_maml_tpu_torch.models.lstm import init_lstm
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model
-from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder
+from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder, stgcn_masks
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_train import gcn_stack_train
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import lstm_stack_train
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
@@ -211,6 +212,66 @@ def test_train_forward_and_grads_match_jax_float64(family):
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), ref_sd[name].numpy(), rtol=1e-10,
                                    atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("family", ["hybrid", "stgcn"])
+def test_batched_train_forward_and_grads_match_jax_float64(family):
+    """A window batch in train mode (what adaptation trains on), dropout on:
+    JAX vmaps the model over the windows with a key each; the port folds
+    the batch into the encoder's slices and the LSTM's rows, with JAX's
+    per-window masks injected."""
+    kw = dict(SMALL, family=family, compute_dtype="float64")
+    mc = jcfg.ModelConfig(**kw)
+    a_hat = _a_hat()
+    b = 3
+    x = np.random.default_rng(17).normal(size=(b, 6, 128, 16))
+    ct = np.random.default_rng(18).normal(size=(b, 3, 128, 12))
+    rng = jax.random.key(9)
+    with jax.enable_x64(True):
+        jp = jax.tree.map(lambda a: jnp.asarray(np.asarray(a), jnp.float64),
+                          jax_init_model(jax.random.key(0), mc))
+
+        def loss(p):
+            out = jax_batched_forward(p, jnp.asarray(a_hat, jnp.float64), jnp.asarray(x),
+                                      jnp.int32(4), mc, train=True, rng=rng)
+            return jnp.sum(out * ct), out
+
+        (_, ref), ref_g = jax.value_and_grad(loss, has_aux=True)(jp)
+        ref_sd = state_dict_from_params(_np(ref_g), np.float64)
+        per_window = [_jax_masks(family, mc, k, 6, 128) for k in jax.random.split(rng, b)]
+        params_sd = state_dict_from_params(_np(jp), np.float64)
+    masks = {k: torch.from_numpy(np.stack([m[k] for m in per_window])) for k in per_window[0]}
+
+    model = init_model(torch.Generator().manual_seed(0), tcfg.ModelConfig(**kw)).double()
+    model.load_state_dict(params_sd)
+    out = apply_model(model, torch.from_numpy(a_hat).double(), torch.from_numpy(x), 4,
+                      tcfg.ModelConfig(**kw), train=True, masks=masks)
+    (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-10, atol=1e-12)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref_sd[name].numpy(), rtol=1e-10,
+                                   atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("family", ["hybrid", "stgcn"])
+def test_batched_train_forward_draws_masks_per_window(family):
+    """From a generator, a window batch draws each window's masks in turn;
+    the folded batch forward equals each window's own forward with its
+    masks, and the windows' masks differ."""
+    mc = tcfg.ModelConfig(**SMALL, family=family, compute_dtype="float64")
+    model = init_model(torch.Generator().manual_seed(1), mc).double()
+    a_hat = torch.from_numpy(_a_hat()).double()
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 6, 128, 16)))
+    got = apply_model(model, a_hat, x, 3, mc, train=True,
+                      generator=torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(5)
+    draw = hybrid_masks if family == "hybrid" else stgcn_masks
+    per_window = [draw(mc, g, 6, 128, "cpu") for _ in range(2)]
+    assert not torch.equal(per_window[0]["encoder"], per_window[1]["encoder"])
+    for i, masks in enumerate(per_window):
+        ref = apply_model(model, a_hat, x[i], 3, mc, train=True, masks=masks)
+        np.testing.assert_allclose(got[i].detach().numpy(), ref.detach().numpy(),
+                                   rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("family", ["hybrid", "stgcn"])

@@ -1,8 +1,10 @@
 """Command-line interface of the PyTorch port:
 
-  python -m weatherforecast_stgcn_maml_tpu_torch.cli meta-train -o meta.fused_inner_update=false
-  python -m weatherforecast_stgcn_maml_tpu_torch.cli forecast --region Moscow
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli meta-train
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli adapt --region Moscow
   python -m weatherforecast_stgcn_maml_tpu_torch.cli validate --region Moscow --no-plots
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli forecast --region Moscow
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli pipeline --regions "Moscow;NewYork" --no-plots
   python -m weatherforecast_stgcn_maml_tpu_torch.cli info
 
 `--device` defaults to `cuda`; without a card the command fails unless
@@ -33,6 +35,24 @@ def _region_by_name(name: str):
             return box, rname
     names = "; ".join(n for _, n in ADAPTATION_REGIONS)
     raise SystemExit(f"unknown region {name!r}; known: {names}")
+
+
+def _parse_region_list(spec: str):
+    """Parse --regions. Six region names contain commas ('Lytton, Canada'),
+    so ';' is the safe separator; comma-separated input is still accepted
+    by greedily re-joining fragments until they match a known name."""
+    if ";" in spec:
+        return [_region_by_name(n.strip()) for n in spec.split(";") if n.strip()]
+    known = {n for _, n in ADAPTATION_REGIONS}
+    out, pending = [], ""
+    for frag in spec.split(","):
+        pending = f"{pending}, {frag.strip()}" if pending else frag.strip()
+        if pending in known:
+            out.append(_region_by_name(pending))
+            pending = ""
+    if pending:
+        _region_by_name(pending)  # raises with the known-names list
+    return out
 
 
 def _resolve_region(args):
@@ -101,6 +121,11 @@ def build_parser() -> argparse.ArgumentParser:
     mt.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     _add_common(mt)
 
+    ad = sub.add_parser("adapt", help="fine-tune the meta-trained model to one region")
+    _add_region_args(ad)
+    ad.add_argument("--meta-ckpt", help="the meta checkpoint (default <out_dir>/meta/ckpt_best)")
+    _add_common(ad)
+
     va = sub.add_parser("validate", help="validate an adapted (or base) model")
     _add_region_args(va)
     va.add_argument("--no-plots", action="store_true")
@@ -110,6 +135,19 @@ def build_parser() -> argparse.ArgumentParser:
     _add_region_args(fc)
     fc.add_argument("--plots", action="store_true")
     _add_common(fc)
+
+    pl = sub.add_parser("pipeline", help="adapt and validate every region (or --regions)")
+    pl.add_argument(
+        "--regions",
+        help="subset of region names, ';'-separated (names may contain commas)",
+    )
+    pl.add_argument("--shard", type=int, default=None, help="this host's shard id")
+    pl.add_argument("--num-shards", type=int, default=None)
+    pl.add_argument("--no-plots", action="store_true")
+    pl.add_argument("--mesh-fleet", action="store_true",
+                    help="the mesh-sharded fleet adaptation (not ported: raises)")
+    pl.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _add_common(pl)
 
     info = sub.add_parser("info", help="print config, regions, and CUDA devices")
     _add_common(info)
@@ -145,8 +183,37 @@ def main(argv=None) -> int:
         print(f"best_loss={res.best_loss:.6f} best={res.best_path}")
         return 0
 
+    if args.command == "pipeline":
+        from weatherforecast_stgcn_maml_tpu_torch.engines.pipeline import run_pipeline
+        from weatherforecast_stgcn_maml_tpu_torch.parallel.fleet import auto_shard
+
+        regions = _parse_region_list(args.regions) if args.regions else None
+        if args.shard is not None and args.num_shards is not None:
+            shard, num = args.shard, args.num_shards
+        elif args.shard is None and args.num_shards is None:
+            shard, num = auto_shard()
+        else:
+            raise SystemExit(
+                "pass BOTH --shard and --num-shards (explicit partitioning) or neither"
+            )
+        res = run_pipeline(
+            cfg, regions, device=_resolve_device(args.device), shard_id=shard,
+            num_shards=num, make_plots=not args.no_plots, mesh_fleet=args.mesh_fleet,
+            log_cb=_log_stderr,
+        )
+        return 1 if res.errors else 0
+
     box, name = _resolve_region(args)
     device = _resolve_device(args.device)
+
+    if args.command == "adapt":
+        from weatherforecast_stgcn_maml_tpu_torch.engines.adapt import run_adaptation
+
+        res = run_adaptation(
+            cfg, box, name, device=device, meta_ckpt=args.meta_ckpt, log_cb=_log_stderr
+        )
+        print(f"val_mse={res.val_mse:.6f} ckpt={res.ckpt_path}")
+        return 0
 
     if args.command == "validate":
         from weatherforecast_stgcn_maml_tpu_torch.engines.validate import run_validation

@@ -1,10 +1,8 @@
 """Configuration tree of the PyTorch port.
 
 Field names and defaults equal those of `weatherforecast_stgcn_maml_tpu.config`
-for every section the port reads (model, meta, data, mesh, compat), so a
-config dict written by either package loads in the other. The adaptation
-section (adapt) is not ported yet; a config dict that carries it loads with
-those keys ignored.
+for every section (model, meta, adapt, data, mesh, compat), so a config dict
+written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -158,8 +156,9 @@ class MetaConfig:
     so_remat: str = "step"
     so_impl: str = "fhvp"
     so_wavefront: bool = False
-    # The whole-tree clip+SGD inner update kernel (rows 8-9) is not ported:
-    # True raises; run with -o meta.fused_inner_update=false.
+    # True: the inner loop's clip + SGD is one kernel over the whole tree
+    # (ops/fused_sgd.py, the hand-written CUDA kernel on a card). False:
+    # per-leaf PyTorch operations.
     fused_inner_update: bool = True
     # XLA scan unroll factor of the JAX package; no meaning here (ignored).
     inner_unroll: int = 1
@@ -179,6 +178,29 @@ class MetaConfig:
     # Meta epochs chained into one dispatch in the JAX package; only 1 is
     # ported (larger values raise).
     epochs_per_dispatch: int = 1
+
+
+@dataclass(frozen=True)
+class AdaptConfig:
+    """Regional adaptation (fine-tuning, engines/adapt.py)."""
+
+    seed: int = 42
+    epochs: int = 15
+    base_lr: float = 6e-4
+    clip_norm: float = 1.0
+    max_samples: int = 1200
+    train_fraction: float = 0.8
+    # Windows per train step (the reference fine-tunes one at a time; 1
+    # reproduces that). The batch folds into the encoder's time slices and
+    # the LSTM's rows: B = 2 at 512 padded nodes makes 1024 LSTM rows.
+    batch_size: int = 2
+    shuffle: bool = True
+    # The JAX package's PRNG implementation; dropout here draws from a
+    # torch.Generator, so this is ignored.
+    rng_impl: str = "rbg"
+    # Move the [T, N, C] features to the device in chunks of this many
+    # timesteps, overlapping by window + horizon (0 = all at once).
+    max_device_timesteps: int = 0
 
 
 @dataclass(frozen=True)
@@ -232,6 +254,7 @@ class ExperimentConfig:
 
     model: ModelConfig = field(default_factory=ModelConfig)
     meta: MetaConfig = field(default_factory=MetaConfig)
+    adapt: AdaptConfig = field(default_factory=AdaptConfig)
     data: DataConfig = field(default_factory=DataConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     compat: CompatConfig = field(default_factory=CompatConfig)
@@ -250,6 +273,7 @@ def to_dict(cfg: Any) -> Any:
 _CONFIG_TYPES = {
     "model": ModelConfig,
     "meta": MetaConfig,
+    "adapt": AdaptConfig,
     "data": DataConfig,
     "mesh": MeshConfig,
     "compat": CompatConfig,

@@ -25,26 +25,29 @@ class WindowSpec:
         return max(0, num_timesteps - self.horizon - self.window)
 
 
-def gather_batch(
-    features: torch.Tensor, anchors: torch.Tensor, spec: WindowSpec
+def slice_window(
+    features: torch.Tensor, anchor: int, spec: WindowSpec
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batch-gather windows: [B] anchors -> (x [B, W, N, C], y [B, H, N, 12])."""
-    anchors = anchors.to(device=features.device, dtype=torch.long)
+    """One (x [W, N, C], y [H, N, 12]) sample of [T, N, C] at `anchor`."""
+    x = features[anchor - spec.window : anchor]
+    y = features[anchor + 1 : anchor + spec.horizon + 1, :, :NUM_WEATHER_VARS]
+    return x, y
+
+
+def gather_batch(
+    features: torch.Tensor, anchors, spec: WindowSpec
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch-gather windows: [B] anchors (host integers: a sequence, numpy
+    array or CPU tensor) -> (x [B, W, N, C], y [B, H, N, 12])."""
+    anchors = [int(a) for a in anchors]
     t = features.shape[0]
-    if anchors.numel() and (
-        int(anchors.min()) < spec.window or int(anchors.max()) + spec.horizon >= t
-    ):
+    if not anchors or min(anchors) < spec.window or max(anchors) + spec.horizon >= t:
         raise ValueError(
-            f"anchors must lie in [{spec.window}, {t - spec.horizon}) for "
-            f"{t} timesteps"
+            f"anchors must be at least one index in [{spec.window}, "
+            f"{t - spec.horizon}) for {t} timesteps"
         )
-    x_idx = anchors[:, None] + torch.arange(
-        -spec.window, 0, device=features.device
-    )
-    y_idx = anchors[:, None] + torch.arange(
-        1, spec.horizon + 1, device=features.device
-    )
-    return features[x_idx], features[y_idx][..., :NUM_WEATHER_VARS]
+    xs, ys = zip(*(slice_window(features, a, spec) for a in anchors))
+    return torch.stack(xs), torch.stack(ys)
 
 
 def contiguous_split(

@@ -1,1 +1,1 @@
-"""Serving engines: forecast and validate."""
+"""Engines: meta-training, adaptation, validation, forecasting, the pipeline."""

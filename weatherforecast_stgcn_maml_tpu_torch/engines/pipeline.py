@@ -1,0 +1,81 @@
+"""The multi-region pipeline (counterpart of
+`weatherforecast_stgcn_maml_tpu/engines/pipeline.py`).
+
+For each named region: adapt the meta-trained model unless an adapted
+checkpoint exists, then validate. Each region is error-isolated and timed,
+and the run ends with a summary. The region list can be sharded across
+hosts (`shard_id` / `num_shards`); they share checkpoints through the
+filesystem. The mesh-sharded fleet adaptation and plots are not ported:
+either raises before the first region.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from weatherforecast_stgcn_maml_tpu_torch.config import ADAPTATION_REGIONS, ExperimentConfig
+from weatherforecast_stgcn_maml_tpu_torch.engines.adapt import adapted_ckpt_path, run_adaptation
+from weatherforecast_stgcn_maml_tpu_torch.engines.validate import no_plots, run_validation
+from weatherforecast_stgcn_maml_tpu_torch.parallel.fleet import partition_round_robin
+from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import checkpoint_exists
+from weatherforecast_stgcn_maml_tpu_torch.utils.metrics import JsonlLogger
+
+
+@dataclass
+class PipelineResult:
+    validations: dict = field(default_factory=dict)  # name -> results dict
+    errors: dict = field(default_factory=dict)  # name -> error string
+    seconds: dict = field(default_factory=dict)  # name -> wall-clock
+
+
+def run_pipeline(
+    cfg: ExperimentConfig,
+    regions=None,
+    *,
+    device: torch.device | str,
+    shard_id: int = 0,
+    num_shards: int = 1,
+    make_plots: bool = True,
+    mesh_fleet: bool = False,
+    log_cb=print,
+) -> PipelineResult:
+    if mesh_fleet:
+        raise NotImplementedError(
+            "the mesh-sharded fleet adaptation (engines/fleet_adapt.py) is not "
+            "ported; run without --mesh-fleet"
+        )
+    no_plots(make_plots)
+    if regions is None:
+        regions = list(ADAPTATION_REGIONS)
+    regions = partition_round_robin(regions, num_shards, shard_id)
+    result = PipelineResult()
+    jsonl = JsonlLogger(f"{cfg.out_dir}/pipeline.jsonl")
+
+    for box, name in regions:
+        t0 = time.perf_counter()
+        try:
+            log_cb(f"[pipeline] region {name} {box}")
+            if not checkpoint_exists(adapted_ckpt_path(cfg.out_dir, name, box)):
+                run_adaptation(cfg, box, name, device=device, log_cb=log_cb)
+            else:
+                log_cb(f"[pipeline] using existing adapted model for {name}")
+            val = run_validation(cfg, box, name, device=device, log_cb=log_cb)
+            result.validations[name] = val.results
+            jsonl.log({"region": name, "status": "ok", "results": val.results})
+        except Exception as e:  # per-region isolation
+            result.errors[name] = f"{type(e).__name__}: {e}"
+            log_cb(f"[pipeline] ERROR in {name}: {result.errors[name]}")
+            jsonl.log({"region": name, "status": "error", "error": str(e)})
+        finally:
+            result.seconds[name] = time.perf_counter() - t0
+            log_cb(f"[pipeline] {name}: {result.seconds[name]:.1f}s")
+
+    log_cb("[pipeline] summary:")
+    for name, secs in result.seconds.items():
+        status = "ok" if name in result.validations else "ERROR"
+        mse = result.validations.get(name, {}).get("average_mse", float("nan"))
+        log_cb(f"  {name:>28}: {secs / 60:6.1f} min  {status}  avg_mse={mse:.3f}")
+    return result

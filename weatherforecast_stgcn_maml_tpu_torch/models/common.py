@@ -59,20 +59,44 @@ def apply_mask(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor
 
 
 def train_masks(cfg, x: torch.Tensor, train: bool, generator, masks, draw) -> dict:
-    """The dropout masks of a forward: none in eval mode; in train mode (one
-    window x [W, N, C]) the given ones, else `draw(cfg, generator, W, N,
-    device)`, else none."""
+    """The dropout masks of a forward: none in eval mode; in train mode the
+    given ones, else drawn from `generator`, else none.
+
+    One window x [W, N, C] takes one window's masks, `draw(cfg, generator,
+    W, N, device)`. A window batch x [B, W, N, C] takes per-window masks
+    with a leading B axis: each window draws its own in turn (its encoder,
+    LSTM and head masks, as the JAX package draws them for each window of a
+    vmapped batch), and they are stacked per site."""
     if not train:
         return {}
-    if x.dim() != 3:
+    if x.dim() not in (3, 4):
         raise ValueError(
-            f"a train-mode forward takes one window [W, N, C], got {list(x.shape)}"
+            f"a train-mode forward takes one window [W, N, C] or a window batch "
+            f"[B, W, N, C], got {list(x.shape)}"
         )
     if masks is not None:
         return masks
     if generator is None:
         return {}
-    return draw(cfg, generator, x.shape[0], x.shape[1], x.device)
+    w, n = x.shape[-3], x.shape[-2]
+    if x.dim() == 3:
+        return draw(cfg, generator, w, n, x.device)
+    per_window = [draw(cfg, generator, w, n, x.device) for _ in range(x.shape[0])]
+    return {k: torch.stack([m[k] for m in per_window]) for k in per_window[0]}
+
+
+def fold_slice_masks(masks: torch.Tensor) -> torch.Tensor:
+    """Per-window encoder masks [B, n, W, N, C] -> [n, B*W, N, C]: the
+    encoder takes the batch's time slices window by window."""
+    b, n_masks, w = masks.shape[:3]
+    return masks.transpose(0, 1).reshape(n_masks, b * w, *masks.shape[3:]).contiguous()
+
+
+def fold_row_masks(masks: torch.Tensor) -> torch.Tensor:
+    """Per-window LSTM masks [B, n, W, N, H] -> time-major [n, W, B*N, H]:
+    row b*N + node of the LSTM is node `node` of window b."""
+    b, n_masks, w, n, h = masks.shape
+    return masks.permute(1, 2, 0, 3, 4).reshape(n_masks, w, b * n, h).contiguous()
 
 
 def lstm_bias(layer: Mapping) -> torch.Tensor:

@@ -19,6 +19,8 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     apply_dense,
     apply_mask,
     draw_mask,
+    fold_row_masks,
+    fold_slice_masks,
     init_dense,
     resolve_dtype,
     train_masks,
@@ -83,12 +85,15 @@ def apply_hybrid(
     Args:
       a_hat: [N, N] dense normalized adjacency (padded), float32.
       x: [..., W, N, 16] window features (12 z-scored weather + 4 time);
-        leading window-batch dims fold into the LSTM's rows. Train mode
-        takes one window [W, N, 16].
+        leading window-batch dims fold into the encoder's time slices and
+        the LSTM's rows. Train mode takes one window [W, N, 16] or a batch
+        [B, W, N, 16].
       koppen_code: int climate class (0 = unknown/padding).
-      generator: draws the train-mode dropout masks (`hybrid_masks`) when
-        `masks` is not given; with neither, train mode has no dropout.
-      masks: {"encoder", "lstm", "head"} int8 masks (any may be absent).
+      generator: draws the train-mode dropout masks (`hybrid_masks`, per
+        window) when `masks` is not given; with neither, train mode has no
+        dropout.
+      masks: {"encoder", "lstm", "head"} int8 masks (any may be absent),
+        one window's, with a leading B axis for a window batch.
     Returns:
       [..., H, N, 12] multi-step forecasts in normalized units.
     """
@@ -102,6 +107,11 @@ def apply_hybrid(
     w, n = x.shape[-3], x.shape[-2]
 
     masks = train_masks(cfg, x, train, generator, masks, hybrid_masks)
+    if train and x.dim() == 4:
+        # Per-window masks, folded as the batch folds at each site.
+        folds = {"encoder": fold_slice_masks, "lstm": fold_row_masks,
+                 "head": lambda m: m.reshape(-1, m.shape[-1])}
+        masks = {k: folds[k](m) for k, m in masks.items()}
 
     h = apply_encoder(
         params.encoder, a_hat, koppen_features(params, x, koppen_code), cfg,
@@ -110,7 +120,7 @@ def apply_hybrid(
     if cfg.stop_base_gradients:
         h = h.detach()
     # [..., W, N, hidden] -> [(...)*N, W, hidden]: nodes (of every window)
-    # become the LSTM's rows.
+    # become the LSTM's rows, row b*N + node.
     h = h.transpose(-3, -2).reshape(-1, w, h.shape[-1])
     feat = apply_lstm(
         params.lstm, h, train=train, masks=masks.get("lstm"),

@@ -15,6 +15,7 @@ from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     apply_dense,
     draw_mask,
+    fold_slice_masks,
     init_dense,
     resolve_dtype,
     train_masks,
@@ -59,8 +60,9 @@ def apply_encoder(
     `cfg.use_pallas_gcn` selects the fused stack, the CUDA kernels on a
     card (in train mode the training stack and its backward, also at
     dropout 0, where it computes the same function as the eval stack);
-    False runs the plain layerwise route. In train mode `masks` (int8
-    {0, 1} [n, W, N, hidden], or None) drop the outputs of layers 0..n-1.
+    False runs the plain layerwise route. In train mode the leading dims
+    fold into one axis of time slices, and `masks` (int8 {0, 1} [n, slices,
+    N, hidden], or None) drop the outputs of layers 0..n-1.
     """
     dtype = resolve_dtype(cfg.compute_dtype)
     if not train:
@@ -68,11 +70,14 @@ def apply_encoder(
             return fused_gcn_stack(params.layers, a_hat, x, compute_dtype=dtype)
         return gcn_stack_plain(params.layers, a_hat, x, dtype)
     keep = 1.0 - cfg.gcn_dropout
+    slices = x.reshape(-1, *x.shape[-2:])
     if cfg.use_pallas_gcn:
-        return gcn_stack_train(
-            params.layers, a_hat, x, masks=masks, keep=keep, compute_dtype=dtype
+        h = gcn_stack_train(
+            params.layers, a_hat, slices, masks=masks, keep=keep, compute_dtype=dtype
         )
-    return gcn_stack_train_plain(params.layers, a_hat, x, masks, keep, dtype)
+    else:
+        h = gcn_stack_train_plain(params.layers, a_hat, slices, masks, keep, dtype)
+    return h.reshape(*x.shape[:-1], h.shape[-1])
 
 
 class StgcnForecaster(nn.Module):
@@ -115,12 +120,15 @@ def apply_stgcn_forecaster(
     """[..., W, N, 16] features + Koppen code -> [..., H, N, 12] forecasts:
     the encoder's last time slice through the dense head.
 
-    Train mode takes one window [W, N, 16]; its dropout masks are `masks`
-    ({"encoder": [gcn_layers, W, N, hidden]}) or, without them, drawn from
-    `generator` (no dropout when both are None).
+    Train mode takes one window [W, N, 16] or a batch [B, W, N, 16]; its
+    dropout masks are `masks` ({"encoder": [gcn_layers, W, N, hidden]},
+    with a leading B axis for a batch) or, without them, drawn from
+    `generator` per window (no dropout when both are None).
     """
     dtype = resolve_dtype(cfg.compute_dtype)
     masks = train_masks(cfg, x, train, generator, masks, stgcn_masks)
+    if train and x.dim() == 4 and "encoder" in masks:
+        masks = {"encoder": fold_slice_masks(masks["encoder"])}
     h = apply_encoder(
         params.encoder, a_hat, koppen_features(params, x, koppen_code), cfg,
         train=train, masks=masks.get("encoder"),

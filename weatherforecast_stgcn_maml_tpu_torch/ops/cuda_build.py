@@ -38,6 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "wf_gemm": [_I, _I, _I, _I, _P, _LL, _I, _I, _P, _F, _P, _LL, _I, _I,
                 _P, _LL, _I, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _P],
@@ -50,7 +52,10 @@ _SIGNATURES = {
                                 _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_stack_train_bwd": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _P],
+    "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],
+    "wf_clip_sgd_chunks": [_I, _PLL],
 }
+_RESTYPES = {"wf_clip_sgd_chunks": ctypes.c_longlong}  # the rest return a cudaError_t
 
 _lib = None
 build_seconds: float | None = None  # wall time of the build this process ran
@@ -133,7 +138,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     lib.wf_error_string.argtypes = [ctypes.c_int]
     lib.wf_error_string.restype = ctypes.c_char_p
     _lib = lib

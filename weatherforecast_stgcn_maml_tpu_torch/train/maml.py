@@ -7,7 +7,10 @@ Counterpart of the first-order path of
                   `inner_epochs * S` SGD steps on the support windows
                   (window s % S at step s): a train-mode forward and
                   backward, a global-norm clip, then p - inner_lr * g, all
-                  outside the meta-gradient's graph;
+                  outside the meta-gradient's graph. With
+                  `fused_inner_update` (the default) the clip and update
+                  are one kernel over the whole tree (ops/fused_sgd.py);
+                  without it, per-leaf PyTorch operations;
   meta-gradient : the query loss at the adapted parameters (train mode when
                   `query_train_mode`) is differentiated w.r.t. them. In the
                   first-order approximation d adapted / d params is the
@@ -34,10 +37,12 @@ from torch import nn
 from weatherforecast_stgcn_maml_tpu_torch.config import MetaConfig, ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import (
     AdamState,
     MetaOptimizer,
     clip_global_norm_tree,
+    leaf_order,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task, task_at
 
@@ -51,9 +56,6 @@ class MamlState(NamedTuple):
 def check_supported(model_cfg: ModelConfig, cfg: MetaConfig) -> None:
     """Raise NotImplementedError, naming it, for a setting not ported."""
     unported = {
-        "meta.fused_inner_update=true (the fused clip+SGD kernel, JAX "
-        "ops/fused_sgd.py rows 8-9); pass -o meta.fused_inner_update=false":
-            cfg.fused_inner_update,
         "meta.second_order=true (second-order MAML, the Hessian-vector "
         "kernels of JAX ops/fused_lstm_hvp.py rows 10-11)": cfg.second_order,
         "meta.epochs_per_dispatch > 1 (chained meta epochs)":
@@ -99,10 +101,11 @@ def adapt_and_query_loss(
     task's support set and return the query loss, differentiable w.r.t.
     `fast`'s parameters: its gradient there is the task's first-order
     meta-gradient."""
-    named = list(fast.named_parameters())
+    # The JAX parameter tree's leaf order: the order the clip sums squares in.
+    named = sorted(fast.named_parameters(), key=lambda kv: leaf_order(kv[0]))
     fast_params = [p for _, p in named]
     with torch.no_grad():
-        for q, p in zip(fast_params, params.parameters()):
+        for q, p in zip(fast.parameters(), params.parameters()):
             q.copy_(p)
     n_support = task.support_x.shape[0]
     for s in range(cfg.inner_epochs * n_support):
@@ -112,11 +115,17 @@ def adapt_and_query_loss(
             train=True, generator=generator,
         )
         loss = masked_mse(preds, task.support_y[idx], task.node_mask)
-        grads = dict(zip((n for n, _ in named), _grads(loss, fast_params)))
-        grads, _ = clip_global_norm_tree(grads, cfg.clip_norm)
+        grads = _grads(loss, fast_params)
         with torch.no_grad():
-            for name, p in named:
-                p.sub_(cfg.inner_lr * grads[name])
+            if cfg.fused_inner_update:
+                # The whole-tree clip + SGD as one kernel (rows 8-9).
+                clip_sgd_update(fast_params, grads, cfg.inner_lr, cfg.clip_norm)
+            else:
+                clipped, _ = clip_global_norm_tree(
+                    dict(zip((n for n, _ in named), grads)), cfg.clip_norm
+                )
+                for name, p in named:
+                    p.sub_(cfg.inner_lr * clipped[name])
 
     # A train-mode forward without a generator has no dropout: the eval
     # function, but differentiable (the eval kernels have no backward).

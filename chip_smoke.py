@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the serving path,
-first-order MAML meta-training, and regional adaptation with the pipeline.
+first- and second-order MAML meta-training, and regional adaptation with the
+pipeline.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -27,15 +28,25 @@ time):
      version on the reference model's 23 leaves, one task and a task axis
      of 4, gradient norms below and above clip_norm; time it, the plain
      version and torch's clip_grad_norm_ + _foreach_add_;
+  7b. hold the second-order kernels (rows 10-11, after rows 4-5 at the same
+     point) against the plain R-operator at the inner step's shapes (24
+     steps, 512 rows, input 256, 4 layers of 128, masks at rate 0.2; also
+     masks off and one layer), float32 and bfloat16; time them; probe
+     whether cuDNN's LSTM takes a forward-mode derivative or a double
+     backward;
   8. the FO meta-gradient of one micro-batch (2 tasks, 15 inner steps each,
      dropout on), kernel route (rows 4-8) against plain route, same
-     generator seed;
+     generator seed; then the same for the SO meta-gradient (fhvp: rows
+     4-7 and 10-11 against jvp of the plain loss's gradient);
   9. drive `cli meta-train` at MetaConfig() defaults (the full meta step:
      4 tasks x 90 inner steps, grad-accum 2, the fused inner update): 2
      epochs float32, 1 epoch bfloat16, `--resume` to epoch 3, then 1
      float32 epoch with `meta.fused_inner_update=false`, then `forecast`
      from the meta-trained `ckpt_best`; rows 4-8 must have launched (row 8
      360 times a fused meta step), every loss must be finite;
+  9b. drive `cli meta-train -o meta.second_order=true` at the defaults: 1
+     epoch float32, 1 epoch bfloat16, `--resume` to epoch 2; rows 10-11
+     must launch 360 times a meta step and rows 4-7 too, every loss finite;
  10. drive `cli adapt` (Moscow and Thailand float32, 2 epochs, Moscow
      bfloat16, 1 epoch) from that `ckpt_best`, `validate` the adapted
      Moscow model and `pipeline` Moscow + NewYork; rows 1-2 and 4-7 must
@@ -44,7 +55,8 @@ time):
      one adaptation epoch;
  11. time one inner step (fused and per-leaf update, with a torch.profiler
      breakdown of the fused one) and one meta step, with the meta step's
-     peak device memory.
+     peak device memory; the same for one SO inner step (the gradient and
+     its Hessian-vector product) and one SO meta step.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -78,6 +90,8 @@ TPU_KERNELS = {
     "gcn_stack_train.backward": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn_train.py:123",
     "clip_sgd_update": "weatherforecast_stgcn_maml_tpu/ops/fused_sgd.py:69",
     "clip_sgd_update.batched": "weatherforecast_stgcn_maml_tpu/ops/fused_sgd.py:112",
+    "hvp_stack_fwd": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_hvp.py:216",
+    "hvp_stack_bwd": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_hvp.py:395",
 }
 CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 SOURCES = {
@@ -89,7 +103,10 @@ SOURCES = {
     "gcn_stack_train.backward": CSRC + "fused_gcn_train.cu",
     "clip_sgd_update": CSRC + "fused_sgd.cu",
     "clip_sgd_update.batched": CSRC + "fused_sgd.cu",
+    "hvp_stack_fwd": CSRC + "fused_lstm_hvp.cu",
+    "hvp_stack_bwd": CSRC + "fused_lstm_hvp.cu",
 }
+HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
 
 def log(*args):
@@ -225,7 +242,11 @@ def main() -> int:
     from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
     from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
     from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
-    from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model
+    from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
+        apply_model,
+        draw_masks,
+        init_model,
+    )
     from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import (
         fused_gcn_stack,
@@ -235,6 +256,7 @@ def main() -> int:
         gcn_stack_train,
         gcn_stack_train_plain,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp as fh
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
         lstm_stack_last_all,
         lstm_stack_plain,
@@ -254,6 +276,12 @@ def main() -> int:
         clip_global_norm_tree,
         leaf_order,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import (
+        make_grad_loss_fused,
+        plain_route,
+        support_loss,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.train.so_grad import make_so_grad
     from weatherforecast_stgcn_maml_tpu_torch.train.supervised import (
         SupervisedState,
         make_epoch_runner,
@@ -632,6 +660,150 @@ def main() -> int:
             }
         del work, lib, flat, flat_g
 
+    # 7b. The second-order kernels (rows 10-11) vs the plain R-operator at
+    # the inner step's shapes: rows 4 + 10, then 5 + 11, at the same point.
+    def r_op_inputs(layers, dropout, seed):
+        draw = np.random.default_rng(seed)
+
+        def arr(shape, scale=1.0):
+            return torch.from_numpy((draw.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+        ks = [(hid if l == 0 else lh) + lh for l in range(layers)]
+        masks = None
+        if dropout and layers > 1:
+            masks = torch.from_numpy((draw.uniform(size=(layers - 1, w_len, n, lh)) >= dropout)
+                                     .astype(np.int8)).to(dev)
+        return dict(
+            x=arr((w_len, n, hid)), tx=arr((w_len, n, hid)),
+            wcat=[arr((k, 4 * lh), 0.1) for k in ks], twcat=[arr((k, 4 * lh), 0.1) for k in ks],
+            b2d=arr((layers, 4 * lh), 0.1), tb2d=arr((layers, 4 * lh), 0.1),
+            g=arr((n, lh)), tg=arr((n, lh)), masks=masks,
+            keep=1.0 - dropout if masks is not None else 1.0)
+
+    def r_ops(a, dt, kernels):
+        """(primal outputs, tangents, the pieces the timed calls take)."""
+        m, keep = a["masks"], a["keep"]
+        if not kernels:
+            (h_last, h_all, c_all, gates, th_last, th_all, tc_all, tgates) = fh.hvp_fwd_plain(
+                a["x"], a["wcat"], a["b2d"], m, keep, dt, a["tx"], a["twcat"], a["tb2d"])
+            dx, dw, db, _, _, _, tdx, tdw, tdb = fh.hvp_bwd_plain(
+                a["g"], a["x"], h_all, c_all, gates, a["wcat"], m, keep, dt,
+                a["tg"], a["tx"], th_all, tc_all, tgates, a["twcat"])
+            return ([h_last, h_all, c_all, dx, *dw, db],
+                    [th_last, th_all, tc_all, tgates, tdx, *tdw, tdb], None)
+        fwd_res = fh.stack_fwd(a["x"], a["wcat"], a["b2d"], m, keep, dt)
+        h_last, h_all, c_all, gates = fwd_res
+        tfwd = fh.hvp_stack_fwd(a["x"], a["tx"], a["wcat"], a["twcat"], a["b2d"], a["tb2d"],
+                                m, keep, dt, res=(h_all, c_all, gates))
+        th_last, th_all, tc_all, tgates = tfwd
+        dx, dw, db, dgates, dh_all, dc_all = fh.stack_bwd(
+            a["g"], a["x"], h_all, c_all, gates, a["wcat"], m, keep, dt)
+        bwd_args = (a["g"], a["tg"], a["x"], a["tx"], h_all, th_all, c_all, tc_all, gates,
+                    tgates, a["wcat"], a["twcat"], m, keep, dt)
+        bwd_res = (dgates, dh_all, dc_all)
+        tdx, tdw, tdb = fh.hvp_stack_bwd(*bwd_args, res=bwd_res)
+        return ([h_last, h_all, c_all, dx, *dw, db],
+                [th_last, th_all, tc_all, tgates, tdx, *tdw, tdb],
+                ((h_all, c_all, gates), bwd_args, bwd_res))
+
+    with Phase("second-order kernels vs plain"):
+        for layers, dropout in ((n_l, 0.2), (n_l, 0.0), (1, 0.0)):
+            a = r_op_inputs(layers, dropout, 30 + layers)
+            for dt_name, tol in TOL.items():
+                dt = getattr(torch, dt_name)
+                got_p, got_t, pieces = r_ops(a, dt, True)
+                ref_p, ref_t, _ = r_ops(a, dt, False)
+                torch.cuda.synchronize()
+                for i in range(3):  # the forward's outputs: rtol = atol
+                    torch.testing.assert_close(got_p[i].float(), ref_p[i].float(),
+                                               rtol=tol, atol=tol)
+                fwd_err = max(float((g.float() - r.float()).abs().max())
+                              for g, r in zip(got_p[:3], ref_p[:3]))
+                rels_p = [rel_err(g, r) for g, r in zip(got_p[3:], ref_p[3:])]
+                rels_t = [rel_err(g, r) for g, r in zip(got_t, ref_t)]
+                abs_errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got_t, ref_t)]
+                t_err = max(abs_errs)
+                log(f"rows 10-11 {dt_name} L={layers} dropout {dropout}: forward max_abs_err "
+                    f"{fwd_err:.3e} (tol {tol}); backward max|diff|/max|ref| {max(rels_p):.3e} "
+                    f"(tol {tol}); tangents max|diff|/max|ref| {max(rels_t):.3e} (tol "
+                    f"{HVP_TOL[dt_name]}) per output {[f'{r:.1e}' for r in rels_t]}, "
+                    f"max_abs_err {t_err:.3e}")
+                if max(rels_p) > tol or max(rels_t) > HVP_TOL[dt_name]:
+                    raise RuntimeError(f"rows 10-11 {dt_name} L={layers}: error above tolerance")
+                if layers != n_l or dropout == 0.0:
+                    continue
+                # The main path's case: time each kernel (its wrapper, from
+                # the primal residuals) and the plain R-operator.
+                fwd_res, bwd_args, bwd_res = pieces
+                m, keep = a["masks"], a["keep"]
+
+                def row10():
+                    fh.hvp_stack_fwd(a["x"], a["tx"], a["wcat"], a["twcat"], a["b2d"],
+                                     a["tb2d"], m, keep, dt, res=fwd_res)
+
+                def row11():
+                    fh.hvp_stack_bwd(*bwd_args, res=bwd_res)
+
+                def plain10():
+                    fh.hvp_fwd_plain(a["x"], a["wcat"], a["b2d"], m, keep, dt, a["tx"],
+                                     a["twcat"], a["tb2d"])
+
+                h_all, th_all, c_all, tc_all, gates, tgates = bwd_args[4:10]
+
+                def plain11():
+                    fh.hvp_bwd_plain(a["g"], a["x"], h_all, c_all, gates, a["wcat"], m, keep,
+                                     dt, a["tg"], a["tx"], th_all, tc_all, tgates, a["twcat"])
+
+                # The plain versions loop over 96 stages in Python: 3 runs.
+                times = {k: (cuda_ms(torch, f, reps), device_ms(torch, f, reps)) for k, f, reps in
+                         (("row10", row10, REPEATS), ("row11", row11, REPEATS),
+                          ("plain10", plain10, 3), ("plain11", plain11, 3))}
+                log(f"rows 10-11 {dt_name} [24, 512, 256] L=4: CUDA events / device time "
+                    f"(torch.profiler), ms: " + ", ".join(
+                        f"{k} {e:.4f} / {d:.4f}" for k, (e, d) in times.items()) + f"  [{card}]")
+                if dt_name == "float32":
+                    for name, k, plain, err in (
+                            ("hvp_stack_fwd", "row10", "plain10", max(abs_errs[:4])),
+                            ("hvp_stack_bwd", "row11", "plain11", max(abs_errs[4:]))):
+                        measured[name] = {"max_abs_err": err, "ms": times[k][0],
+                                          "plain_ms": times[plain][0], "library_ms": None}
+        # Bytes each function must move (inputs read once, outputs written
+        # once) and its operations: row 10 the [tangent | primal] operands
+        # against [W; tW], 2 dot units; row 11 the same in the backward plus
+        # the weight-gradient tangents, 4 dot units.
+        res_b = n_l * w_len * n * lh * 4  # one [L, T, B, H] float32 stream
+        gate_b = 4 * res_b
+        x_b = w_len * n * hid * 4
+        fl = lstm_flops(n, w_len, hid, lh, n_l)
+        masks_b = (n_l - 1) * w_len * n * lh
+        measured["hvp_stack_fwd"].update(
+            flops=2 * fl, bytes=2 * x_b + 2 * lstm_w_bytes + masks_b + 2 * res_b + gate_b
+            + 2 * res_b + gate_b + n * lh * 4)
+        measured["hvp_stack_bwd"].update(
+            flops=4 * fl, bytes=2 * n * lh * 4 + 3 * gate_b + 6 * res_b + 2 * x_b + masks_b
+            + 2 * lstm_w_bytes + x_b + gate_b + lstm_w_bytes)
+        # A library yardstick would be one PyTorch call computing an LSTM
+        # tangent: ask cuDNN's LSTM for a forward-mode derivative and for a
+        # double backward.
+        xr = x_rec.detach().clone().requires_grad_(True)
+        probes = {}
+        try:
+            torch.func.jvp(lambda v: cudnn(v)[0], (xr,), (torch.ones_like(xr),))
+            probes["forward-mode (torch.func.jvp)"] = "computed"
+        except Exception as e:  # a refusal is the finding, not a failure
+            probes["forward-mode (torch.func.jvp)"] = f"refused: {str(e).splitlines()[0][:160]}"
+        try:
+            out = cudnn(xr)[0].sum()
+            (gx,) = torch.autograd.grad(out, xr, create_graph=True)
+            torch.autograd.grad(gx.sum(), list(cudnn.parameters()))
+            probes["double backward"] = "computed"
+        except Exception as e:  # a refusal is the finding, not a failure
+            probes["double backward"] = f"refused: {str(e).splitlines()[0][:160]}"
+        log(f"cuDNN LSTM (torch.nn.LSTM on the card) second-order probes: {probes}")
+        # Free the full-width residuals before the later phases' peak memory reads.
+        del a, xr, pieces, got_p, got_t, ref_p, ref_t, fwd_res, bwd_args, bwd_res
+        del h_all, th_all, c_all, tc_all, gates, tgates, row10, row11, plain10, plain11
+
     # Meta-training tasks at the reference width: 4 meta-training regions.
     data_cfg = DataConfig()
     regions = [get_region_data(box, data_cfg.train_years, data_cfg, tag="train",
@@ -667,6 +839,36 @@ def main() -> int:
             torch.testing.assert_close(loss_k, loss_p, rtol=tol, atol=tol)
             if rels[worst] > tol:
                 raise RuntimeError(f"meta-gradient {dt_name}: {worst} off by {rels[worst]:.3e}")
+
+    # 8b. The SO meta-gradient, kernel route vs plain route: fhvp, the same
+    # micro-batch and generator seed; the plain route's Hessian transpose is
+    # jvp of the plain loss's gradient.
+    with Phase("SO meta-gradient kernel vs plain"):
+        so_epoch = dataclasses.replace(one_epoch, second_order=True)
+        for dt_name, tol in HVP_TOL.items():
+            res = {}
+            fh.hvp_stack_fwd.launches = fh.hvp_stack_bwd.launches = 0
+            for route, mc in (("kernel", ModelConfig(compute_dtype=dt_name)),
+                              ("plain", plain_route(ModelConfig(compute_dtype=dt_name)))):
+                g = torch.Generator(device=dev).manual_seed(11)
+                t0 = time.perf_counter()
+                res[route] = task_batch_grad(model, micro, g, mc, so_epoch)
+                torch.cuda.synchronize()
+                log(f"  {route} route {dt_name}: {time.perf_counter() - t0:.2f} s")
+            steps = 2 * so_epoch.inner_batches
+            if (fh.hvp_stack_fwd.launches, fh.hvp_stack_bwd.launches) != (steps, steps):
+                raise RuntimeError(f"rows 10-11 launched {fh.hvp_stack_fwd.launches}, "
+                                   f"{fh.hvp_stack_bwd.launches} times for {steps} inner steps")
+            (loss_k, grad_k), (loss_p, grad_p) = res["kernel"], res["plain"]
+            rels = {k: rel_err(grad_k[k], grad_p[k]) for k in grad_k}
+            worst = max(rels, key=rels.get)
+            log(f"SO meta-gradient {dt_name}: per-task query losses {loss_k.tolist()} vs "
+                f"{loss_p.tolist()}; gradient max|diff|/max|ref| {rels[worst]:.3e} at {worst} "
+                f"(tol {tol})")
+            torch.testing.assert_close(loss_k, loss_p, rtol=TOL[dt_name], atol=TOL[dt_name])
+            if rels[worst] > tol:
+                raise RuntimeError(f"SO meta-gradient {dt_name}: {worst} off by {rels[worst]:.3e}")
+        del res
 
     # 9. Meta-training through the CLI: the training path's main run.
     meta_dir = os.path.join(out_root, "meta_train")
@@ -728,6 +930,40 @@ def main() -> int:
                     raise RuntimeError(f"meta-train {name}: no {ckpt}")
         mean = forecast("Moscow", "float32", os.path.join(meta_dir, "float32"))
         log(f"forecast Moscow from the meta-trained ckpt_best: t2m {mean[:, 2].round(2).tolist()}")
+
+    # 9b. Second-order meta-training through the CLI: the SO path's main run,
+    # MetaConfig() defaults (fhvp, 4 tasks x 90 inner steps, grad-accum 2).
+    with Phase("SO meta-train CLI"):
+        so = ("-o", "meta.second_order=true")
+        for fn in counters:
+            fn.launches = fn.backward_launches = 0
+        fh.hvp_stack_fwd.launches = fh.hvp_stack_bwd.launches = 0
+        so_logs = {"float32": meta_train("float32", 1, *so, out="so_float32"),
+                   "bfloat16": meta_train("bfloat16", 1, *so, out="so_bfloat16")}
+        so_logs["float32"] = meta_train("float32", 2, *so, "--resume", out="so_float32")
+        so_launches = {}
+        for fn in counters:
+            so_launches[fn.__name__] = fn.launches
+            so_launches[fn.__name__ + ".backward"] = fn.backward_launches
+        so_launches["hvp_stack_fwd"] = fh.hvp_stack_fwd.launches
+        so_launches["hvp_stack_bwd"] = fh.hvp_stack_bwd.launches
+        log(f"launches on the SO meta-training path (3 meta steps): {so_launches}")
+        for name in ("hvp_stack_fwd", "hvp_stack_bwd"):
+            if so_launches[name] != 3 * per_step:
+                raise RuntimeError(f"{name} launched {so_launches[name]} times in 3 SO meta "
+                                   f"steps, not {per_step} a step")
+        for name, count in so_launches.items():
+            if count == 0:
+                raise RuntimeError(f"{name} never launched on the SO meta-training path")
+        for name, records in so_logs.items():
+            want = [1, 2] if name == "float32" else [1]
+            if [r["epoch"] for r in records] != want:
+                raise RuntimeError(f"SO meta-train {name}: epochs {[r['epoch'] for r in records]}")
+            for r in records:
+                if not np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all():
+                    raise RuntimeError(f"SO meta-train {name}: non-finite loss {r}")
+                log(f"  SO {name} epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
+                    f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
 
     # 10. Adaptation and the pipeline through the CLI, from the meta-trained
     # ckpt_best (float32); depth cut to 1-2 epochs, the width is the reference's.
@@ -862,13 +1098,51 @@ def main() -> int:
                 log(f"meta step {dt_name} (4 tasks x 90 inner steps + query, grad-accum 2, "
                     f"{'fused' if fused else 'per-leaf'} update): {ms:.1f} ms, peak device "
                     f"memory {peak:.2f} GiB  [{card}]")
+    # 11b. One SO inner step (the inner gradient, then its Hessian-vector
+    # product through a backward with a fixed cotangent) and one SO meta step.
+    with Phase("SO step times"):
+        mc = ModelConfig()
+        so_cfg = dataclasses.replace(meta_cfg, second_order=True)
+        state = init_meta_state(torch.Generator().manual_seed(1), mc, so_cfg, device=dev)
+        task = task_at(tasks, 0)
+        inner_grad = make_so_grad(support_loss(state.params, mc),
+                                  support_loss(state.params, plain_route(mc)), "fhvp",
+                                  make_grad_loss_fused(state.params, mc))
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in state.params.named_parameters()}
+        draw = np.random.default_rng(40)
+        ct = [torch.from_numpy(draw.normal(size=v.shape).astype(np.float32)).to(dev)
+              for v in p.values()]
+        aux = (task.support_x[0], task.support_y[0], task.a_hat, task.koppen, task.node_mask)
+        g = torch.Generator(device=dev).manual_seed(2)
+
+        def so_inner_step():
+            grads = inner_grad(p, aux, draw_masks(mc, g, aux[0]))
+            torch.autograd.grad(list(grads.values()), list(p.values()), ct)
+
+        ms = host_ms(torch, so_inner_step)
+        log(f"SO inner step float32 (kernel-route gradient + fhvp Hessian-vector product, "
+            f"one window): {ms:.3f} ms  [{card}]")
+        profile_steps(torch, so_inner_step, "float32 SO inner steps", card)
+        step = make_meta_step(mc, so_cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def so_meta_step():
+            nonlocal state
+            state, _ = step(state, tasks, g)
+
+        ms = host_ms(torch, so_meta_step, repeats=2)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"SO meta step float32 (fhvp, 4 tasks x 90 inner steps + query, grad-accum 2): "
+            f"{ms:.1f} ms, peak device memory {peak:.2f} GiB  [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name in TPU_KERNELS:
         m = measured[name]
         bound, bound_by = bound_ms(m["bytes"], m["flops"])
-        count = launches[name] if name in launches else train_launches[name]
+        count = next(src[name] for src in (launches, train_launches, so_launches)
+                     if name in src)
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -25,6 +25,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder
 from weatherforecast_stgcn_maml_tpu_torch.ops import (
     fused_gcn,
     fused_gcn_train,
+    fused_lstm_hvp,
     fused_lstm_stack,
     fused_sgd,
 )
@@ -243,3 +244,120 @@ def test_fo_meta_gradient_kernels_match_plain(dev):
     torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=tol, atol=tol)
     for name, g in out["kernel"][1].items():
         assert _rel(g, out["plain"][1][name]) <= tol, name
+
+
+def _r_op_inputs(dev, t_len, rows, c_in, hidden, layers, dropout, seed=0):
+    """Primals and tangents of the stack's R-operator, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def arr(shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    ks = [(c_in if l == 0 else hidden) + hidden for l in range(layers)]
+    masks = None
+    if dropout and layers > 1:
+        masks = torch.from_numpy(
+            (rng.uniform(size=(layers - 1, t_len, rows, hidden)) >= dropout).astype(np.int8)
+        ).to(dev)
+    return dict(
+        x=arr((t_len, rows, c_in)), tx=arr((t_len, rows, c_in)),
+        wcat=[arr((k, 4 * hidden), 0.3) for k in ks], twcat=[arr((k, 4 * hidden), 0.3) for k in ks],
+        b2d=arr((layers, 4 * hidden), 0.1), tb2d=arr((layers, 4 * hidden), 0.1),
+        g=arr((rows, hidden)), tg=arr((rows, hidden)), masks=masks,
+        keep=1.0 - dropout if masks is not None else 1.0,
+    )
+
+
+def r_ops(a, dtype, kernels):
+    """Rows 4 + 10 then 5 + 11 (kernels) or their plain versions: the
+    primal outputs and the tangents of the stack forward and backward."""
+    fh = fused_lstm_hvp
+    m, keep = a["masks"], a["keep"]
+    if kernels:
+        h_last, h_all, c_all, gates = fh.stack_fwd(a["x"], a["wcat"], a["b2d"], m, keep, dtype)
+        th_last, th_all, tc_all, tgates = fh.hvp_stack_fwd(
+            a["x"], a["tx"], a["wcat"], a["twcat"], a["b2d"], a["tb2d"], m, keep, dtype,
+            res=(h_all, c_all, gates))
+        dx, dw, db, dgates, dh_all, dc_all = fh.stack_bwd(
+            a["g"], a["x"], h_all, c_all, gates, a["wcat"], m, keep, dtype)
+        tdx, tdw, tdb = fh.hvp_stack_bwd(
+            a["g"], a["tg"], a["x"], a["tx"], h_all, th_all, c_all, tc_all, gates, tgates,
+            a["wcat"], a["twcat"], m, keep, dtype, res=(dgates, dh_all, dc_all))
+    else:
+        (h_last, h_all, c_all, gates, th_last, th_all, tc_all, tgates) = fh.hvp_fwd_plain(
+            a["x"], a["wcat"], a["b2d"], m, keep, dtype, a["tx"], a["twcat"], a["tb2d"])
+        dx, dw, db, _, _, _, tdx, tdw, tdb = fh.hvp_bwd_plain(
+            a["g"], a["x"], h_all, c_all, gates, a["wcat"], m, keep, dtype,
+            a["tg"], a["tx"], th_all, tc_all, tgates, a["twcat"])
+    primal = [h_last, h_all, c_all, dx, *dw, db]
+    tangent = [th_last, th_all, tc_all, tgates, tdx, *tdw, tdb]
+    return primal, tangent
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 100, 24, 32, 3), (7, 3000, 24, 32, 3),
+                                   (5, 5000, 64, 32, 2), (7, 100, 24, 32, 1)])
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+def test_hvp_kernels_match_plain(dev, dtype, shape, dropout):
+    """Rows 10-11 (after rows 4-5 at the same point) against the plain
+    R-operator, at row counts that pick each row tile and one layer.
+    Tangents: max|diff| / max|ref| <= 1e-4 in float32 (the tangent of a
+    backward compounds about twice the rounding of the backward)."""
+    a = _r_op_inputs(dev, *shape, dropout)
+    before = (fused_lstm_hvp.hvp_stack_fwd.launches, fused_lstm_hvp.hvp_stack_bwd.launches)
+    got_p, got_t = r_ops(a, dtype, kernels=True)
+    assert (fused_lstm_hvp.hvp_stack_fwd.launches,
+            fused_lstm_hvp.hvp_stack_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_p, ref_t = r_ops(a, dtype, kernels=False)
+    tol = TOL[dtype]
+    for i, (g, r) in enumerate(zip(got_p, ref_p)):
+        if i < 3:  # the forward's outputs
+            torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
+        else:
+            assert _rel(g, r) <= tol, (i, _rel(g, r))
+    ttol = 1e-4 if dtype == torch.float32 else tol
+    for i, (g, r) in enumerate(zip(got_t, ref_t)):
+        assert _rel(g, r) <= ttol, (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+def test_hvp_kernels_refuse_what_they_do_not_take(dev):
+    a = _r_op_inputs(dev, 3, 16, 12, 32, 2, 0.0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_lstm_hvp.stack_fwd(a["x"], a["wcat"], a["b2d"], None, 1.0, torch.float32)
+    a = _r_op_inputs(dev, 3, 16, 24, 32, 2, 0.2)
+    with pytest.raises(ValueError, match="masks"):
+        fused_lstm_hvp.stack_fwd(a["x"], a["wcat"], a["b2d"], a["masks"][:, :2], 0.8,
+                                 torch.float32)
+
+
+@pytest.mark.cuda
+def test_so_meta_gradient_kernels_match_plain(dev):
+    """One micro-batch of the SO meta step (fhvp, 2 tasks, 2 inner steps
+    each, dropout on): kernel route (rows 4-7 for each inner gradient, rows
+    4-5 and 10-11 for each Hessian-vector product) against the plain route
+    (jvp of the plain loss's gradient), same masks. The tangent of a
+    backward compounds about twice the rounding: max|diff| / max|ref| 1e-4."""
+    cfg = ModelConfig(hidden_channels=64, gcn_layers=3, lstm_hidden=32, lstm_layers=3,
+                      window=7, horizon=3)
+    meta = MetaConfig(inner_epochs=1, inner_batches=2, second_order=True)
+    regions = [synthetic_region_for_box((10.0 + 3 * i, 12.0 + 3 * i, 20.0, 23.0),
+                                        num_timesteps=40, seed=i) for i in range(2)]
+    tasks = stack_tasks([b.task for b in build_meta_tasks(regions, cfg, meta, DataConfig())])
+    tasks = type(tasks)(*(f.to(dev) for f in tasks))
+    model = init_model(torch.Generator().manual_seed(2), cfg, device=dev)
+    out = {}
+    before = (fused_lstm_hvp.hvp_stack_fwd.launches, fused_lstm_hvp.hvp_stack_bwd.launches)
+    for route, mc in (
+        ("kernel", cfg),
+        ("plain", ModelConfig(**{**cfg.__dict__, "use_pallas_gcn": False, "lstm_kernel": "xla"})),
+    ):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        out[route] = task_batch_grad(model, tasks, gen, mc, meta)
+    assert (fused_lstm_hvp.hvp_stack_fwd.launches,
+            fused_lstm_hvp.hvp_stack_bwd.launches) == (before[0] + 4, before[1] + 4)
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=tol, atol=tol)
+    for name, g in out["kernel"][1].items():
+        assert _rel(g, out["plain"][1][name]) <= 1e-4, (name, _rel(g, out["plain"][1][name]))

@@ -266,7 +266,9 @@ def _check_meta_steps(meta_kw):
         _check_step(state, metrics, ref_states[e + 1], ref_metrics[e])
 
 
-@pytest.mark.parametrize("override", [dict(second_order=True), dict(epochs_per_dispatch=2)])
+@pytest.mark.parametrize("override", [
+    dict(second_order=True, so_impl="hvp", so_wavefront=True), dict(epochs_per_dispatch=2),
+])
 def test_unported_meta_settings_raise(override):
     cfg = tcfg.MetaConfig(**{**META, **override})
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -282,8 +284,9 @@ def test_unported_model_routes_raise_in_meta_step(override):
 
 
 def test_meta_config_ignores_jax_only_knobs():
-    """rng_impl, inner_unroll and so_* have no meaning in torch: they parse
-    and round-trip, and the meta step builds whatever they say."""
+    """rng_impl and inner_unroll have no meaning in torch, and the so_*
+    fields act only under second_order (off here): they parse and
+    round-trip, and the meta step builds whatever they say."""
     cfg = tcfg.apply_overrides(tcfg.ExperimentConfig(), [
         "meta.rng_impl=threefry2x32", "meta.inner_unroll=4", "meta.so_impl=xla",
         "meta.so_remat=dots", "meta.so_wavefront=true", "meta.fused_inner_update=false",

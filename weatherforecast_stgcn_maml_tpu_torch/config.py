@@ -132,7 +132,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class MetaConfig:
-    """First-order MAML meta-training (engines/meta_train.py)."""
+    """MAML meta-training, first or second order (engines/meta_train.py)."""
 
     seed: int = 42
     num_epochs: int = 40
@@ -149,12 +149,23 @@ class MetaConfig:
     cosine_t0: int = 10
     cosine_t_mult: int = 2
     eta_min: float = 1e-6
-    # Second-order MAML (the JAX package's Hessian-vector kernels, rows
-    # 10-11) is not ported: True raises.
+    # Exact (second-order) MAML: the meta-gradient through the inner SGD
+    # steps, each step's Hessian-vector product by `so_impl`
+    # (train/so_grad.py). False: first order.
     second_order: bool = False
-    # Second-order settings of the JAX package; no meaning here (ignored).
+    # The JAX package's rematerialisation policy of its inner scan under
+    # second order ("step", "dots", "none", "sqrt", "chunk:<k>"). The port's
+    # inner gradient keeps only each step's parameters and masks and
+    # recomputes the rest in its backward under every policy; an unknown one
+    # raises.
     so_remat: str = "step"
+    # The Hessian transpose under second order: "fhvp" (the hybrid's LSTM
+    # stack through the second-order kernels, rows 10-11), "hvp"
+    # (forward-over-reverse), "rof" (reverse-over-forward) on the plain
+    # route, or "xla" (double backward through the plain route everywhere).
     so_impl: str = "fhvp"
+    # The JAX package's wavefront LSTM inside the hvp / rof Hessian
+    # transposes; not ported (True with those raises, ignored with fhvp).
     so_wavefront: bool = False
     # True: the inner loop's clip + SGD is one kernel over the whole tree
     # (ops/fused_sgd.py, the hand-written CUDA kernel on a card). False:

@@ -9,17 +9,24 @@ Families (ModelConfig.family): "hybrid" (models/hybrid.py) and "stgcn"
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
-from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid, init_hybrid
+from weatherforecast_stgcn_maml_tpu_torch.models.common import train_masks
+from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import (
+    apply_hybrid,
+    hybrid_masks,
+    init_hybrid,
+)
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import (
     apply_stgcn_forecaster,
     init_stgcn_forecaster,
+    stgcn_masks,
 )
 
 _FAMILIES = {
-    "hybrid": (init_hybrid, apply_hybrid),
-    "stgcn": (init_stgcn_forecaster, apply_stgcn_forecaster),
+    "hybrid": (init_hybrid, apply_hybrid, hybrid_masks),
+    "stgcn": (init_stgcn_forecaster, apply_stgcn_forecaster, stgcn_masks),
 }
 
 
@@ -47,4 +54,29 @@ def apply_model(
     return _family(cfg)[1](
         params, a_hat, x, koppen_code, cfg, train=train, generator=generator,
         masks=masks,
+    )
+
+
+def draw_masks(cfg: ModelConfig, generator: torch.Generator | None, x: torch.Tensor) -> dict:
+    """The dropout masks a train-mode forward of x draws from `generator`
+    ({} without one), for passing to `apply_model(..., masks=)` instead."""
+    return train_masks(cfg, x, True, generator, None, _family(cfg)[2])
+
+
+class _Bound(nn.Module):
+    def __init__(self, model: nn.Module, fn):
+        super().__init__()
+        self.model, self.fn = model, fn
+
+    def forward(self, *args, **kwargs):
+        return self.fn(self.model, *args, **kwargs)
+
+
+def functional_apply(model: nn.Module, params: dict, fn, *args, **kwargs):
+    """fn(model, *args, **kwargs) with the model's parameters taken from
+    `params` ({name: tensor}, the names of `model.named_parameters()`), as
+    `torch.func.functional_call` runs a module: differentiable w.r.t. those
+    tensors under autograd and the torch.func transforms."""
+    return torch.func.functional_call(
+        _Bound(model, fn), {f"model.{k}": v for k, v in params.items()}, args, kwargs
     )

@@ -43,7 +43,7 @@ namespace wf {
 namespace {
 
 constexpr int kTargetThreads = 256;
-constexpr int kTileK = 16;                // weight rows per pipelined tile
+constexpr int kTileK = kContractTile;     // weight rows per pipelined tile
 constexpr size_t kMaxSmemBytes = 232448;  // 227 KB opt-in per block
 
 struct BwdArgs {
@@ -56,61 +56,12 @@ struct BwdArgs {
   const void* wcatTr;  // [L-1, 4H, 2H]
   float* dx;           // [T, R, C]
   float* dgates;       // [L, T, R, 4H]
+  // Each stage's dh (every term added) and dc, [L, T, R, H], or null: the
+  // primal carries the second-order backward (fused_lstm_hvp.cu) reads.
+  float* dh_all;
+  float* dc_all;
   int T, R, C, H, L;
 };
-
-// acc[r][q] += sum_k opnd[r0 + r, k] * w[k, q * H + j] for q * H + j < ncols:
-// w is [K, ncols] in global memory, streamed through wbuf in double-buffered
-// [kTileK, ncols] tiles; opnd is [rows, ldo] in shared memory. K is a
-// multiple of 4. Ends with a barrier.
-template <typename TW, int RPT, int NQ>
-__device__ __forceinline__ void contract(const TW* __restrict__ w, int K,
-                                         int ncols, const float* opnd, int ldo,
-                                         TW* wbuf, int r0, int j, int H,
-                                         float (&acc)[RPT][NQ]) {
-  const int tiles = (K + kTileK - 1) / kTileK;
-  const size_t tile_elems = (size_t)kTileK * ncols;
-  auto load_tile = [&](int i) {
-    const int rows = min(kTileK, K - i * kTileK);
-    const char* src = reinterpret_cast<const char*>(w + (size_t)i * tile_elems);
-    char* dst = reinterpret_cast<char*>(wbuf + (size_t)(i & 1) * tile_elems);
-    const int chunks = rows * ncols * (int)sizeof(TW) / 16;
-    for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-      cp_async16(dst + 16 * c, src + 16 * c);
-  };
-  load_tile(0);
-  cp_async_commit();
-  for (int i = 0; i < tiles; ++i) {
-    if (i + 1 < tiles) load_tile(i + 1);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    cp_async_wait_all_but_newest();
-    __syncthreads();  // tile i (and the operand rows) visible to all
-    const TW* wt = wbuf + (size_t)(i & 1) * tile_elems + j;
-    const int k0 = i * kTileK;
-    const int rows = min(kTileK, K - k0);
-    for (int kk = 0; kk < rows; kk += 4) {
-      float4 v[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        v[r] = *reinterpret_cast<const float4*>(opnd + (size_t)(r0 + r) * ldo + k0 + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const TW* wk = wt + (size_t)(kk + u) * ncols;
-        float wq[NQ];
-#pragma unroll
-        for (int q = 0; q < NQ; ++q)
-          wq[q] = q * H + j < ncols ? to_float(wk[q * H]) : 0.f;
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const float a = u == 0 ? v[r].x : u == 1 ? v[r].y : u == 2 ? v[r].z : v[r].w;
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) acc[r][q] = fmaf(a, wq[q], acc[r][q]);
-        }
-      }
-    }
-    __syncthreads();  // done with buffer i % 2
-  }
-}
 
 // Thread (group, j) owns hidden unit j of RPT rows: its four gate gradients,
 // and the input-gradient columns q * H + j of the contraction (NQ >=
@@ -175,6 +126,11 @@ __global__ void lstm_stack_bwd_kernel(BwdArgs a) {
         const float d_f = dc * c_prev * fg * (1.f - fg);
         const float d_g = dc * ig * (1.f - gg * gg);
         dcc[at] = dc * fg;
+        if (a.dh_all && row < R) {
+          const size_t o = slice + (size_t)row * H + j;
+          a.dh_all[o] = dh;
+          a.dc_all[o] = dc;
+        }
         if (row < R) {
           float* out = a.dgates + slice * 4 + (size_t)row * g4;
           out[j] = d_i;
@@ -274,18 +230,20 @@ int launch_rpt(int rpt, const BwdArgs& a, cudaStream_t s) {
 // the layouts). w_dt is the dtype code of the weights, the residual c and
 // the compute dtype (0 = float32, 1 = bfloat16); rows_per_thread (2, 4 or 8)
 // sets the row tile as in the forward. C and H are multiples of 8 and
-// C <= 7 H. Writes dx and dgates; returns a cudaError_t code (0 on success).
+// C <= 7 H. Writes dx and dgates, and dh_all / dc_all unless they are null
+// (both or neither); returns a cudaError_t code (0 on success).
 extern "C" int wf_lstm_stack_train_bwd(int w_dt, int rows_per_thread,
                                        const float* g, const float* gates,
                                        const void* c_all, const int8_t* masks,
                                        float inv_keep, const void* wcatT0,
                                        const void* wcatTr, float* dx,
-                                       float* dgates, int T, int R, int C,
+                                       float* dgates, float* dh_all,
+                                       float* dc_all, int T, int R, int C,
                                        int H, int L, void* stream) {
-  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0)
+  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0 || !dh_all != !dc_all)
     return (int)cudaErrorInvalidValue;
   const wf::BwdArgs a{g, gates, c_all, masks, inv_keep, wcatT0, wcatTr,
-                      dx, dgates, T, R, C, H, L};
+                      dx, dgates, dh_all, dc_all, T, R, C, H, L};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_dt == wf::kF32) return wf::launch_rpt<float>(rows_per_thread, a, s);
   if (w_dt == wf::kBF16)

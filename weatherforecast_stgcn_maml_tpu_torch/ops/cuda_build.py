@@ -51,7 +51,11 @@ _SIGNATURES = {
     "wf_lstm_stack_train_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _F, _P,
                                 _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_stack_train_bwd": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _P],
+                                _P, _P, _I, _I, _I, _I, _I, _P],
+    "wf_lstm_hvp_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
+                        _P, _P, _I, _I, _I, _I, _I, _P],
+    "wf_lstm_hvp_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
+                        _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],
     "wf_clip_sgd_chunks": [_I, _PLL],
 }

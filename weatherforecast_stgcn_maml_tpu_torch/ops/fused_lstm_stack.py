@@ -173,92 +173,119 @@ def lstm_stack_last_all(
 lstm_stack_last_all.launches = 0  # stack runs through the CUDA kernel
 
 
+def train_forward(x_tbc, masks, keep, compute_dtype, b2d, wcat):
+    """Row 4 on a CUDA tensor: x_tbc [T, B, C], wcat_l = [[wx_l], [wh_l]]
+    float32, b2d [L, 4H] -> (h_last [B, H] float32, h_all, c_all [L, T, B,
+    H] in the compute dtype, the activated gates [L, T, B, 4H] float32)."""
+    lib = cuda_build.load()
+    dev = x_tbc.device
+    t_len, rows, c_in = x_tbc.shape
+    n_layers, g4 = b2d.shape
+    hidden = g4 // 4
+    code = cuda_build.dtype_code(compute_dtype)
+    x = x_tbc.to(torch.float32).contiguous()
+    wcat0, wcatr = _merged(wcat, compute_dtype)
+    bias = b2d.contiguous()
+    shape = (n_layers, t_len, rows, hidden)
+    h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
+    c_all = torch.empty(shape, dtype=compute_dtype, device=dev)
+    gates = torch.empty((n_layers, t_len, rows, g4), dtype=torch.float32, device=dev)
+    out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+    rpt = _rows_per_thread(rows, hidden, dev)
+    cuda_build.check(
+        lib.wf_lstm_stack_train_fwd(
+            code, rpt, x.data_ptr(), x.stride(0), x.stride(1),
+            wcat0.data_ptr(), wcatr.data_ptr(), bias.data_ptr(),
+            None if masks is None else masks.data_ptr(), 1.0 / keep,
+            h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), out.data_ptr(),
+            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
+        ),
+        "LSTM train forward",
+    )
+    lstm_stack_train.launches += 1
+    return out, h_all, c_all, gates
+
+
+def train_backward(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dtype,
+                   carries=False):
+    """Row 5 on a CUDA tensor: the gradient g [B, H] of the last h back to
+    (dx [T, B, C], [dwcat_l], db [L, 4H]) float32, and the gate gradients
+    dgates [L, T, B, 4H]; with `carries`, also each stage's dh and dc [L, T,
+    B, H] float32 (else None), which the second-order backward reads."""
+    lib = cuda_build.load()
+    dev = x_tbc.device
+    t_len, rows, c_in = x_tbc.shape
+    n_layers, _, _, g4 = gates.shape
+    hidden = g4 // 4
+    inv_keep = 1.0 / keep
+    x = x_tbc.to(torch.float32).contiguous()
+    g = g.to(torch.float32).contiguous()
+    wcat0, wcatr = _merged(wcat, compute_dtype)
+    # The transposed weights of the dgates @ wcat^T contraction.
+    wcat_t0 = wcat0.t().contiguous()
+    wcat_tr = wcatr.transpose(1, 2).contiguous() if n_layers > 1 else wcat_t0
+    dx = torch.empty((t_len, rows, c_in), dtype=torch.float32, device=dev)
+    dgates = torch.empty((n_layers, t_len, rows, g4), dtype=torch.float32, device=dev)
+    dh_all = dc_all = None
+    if carries:
+        dh_all = torch.empty((n_layers, t_len, rows, hidden), dtype=torch.float32, device=dev)
+        dc_all = torch.empty_like(dh_all)
+    cuda_build.check(
+        lib.wf_lstm_stack_train_bwd(
+            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
+            g.data_ptr(), gates.data_ptr(), c_all.data_ptr(),
+            None if masks is None else masks.data_ptr(), inv_keep,
+            wcat_t0.data_ptr(), wcat_tr.data_ptr(), dx.data_ptr(),
+            dgates.data_ptr(), None if dh_all is None else dh_all.data_ptr(),
+            None if dc_all is None else dc_all.data_ptr(),
+            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
+        ),
+        "LSTM train backward",
+    )
+    # dwcat_l = [inp | h_prev]^T @ dgates_l over every step and row;
+    # h_prev at t = 0 is zero, so its rows start at t = 1.
+    steps = t_len * rows
+    dwcat, db = [], torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
+    for l in range(n_layers):
+        kin = c_in if l == 0 else hidden
+        dg = dgates[l].view(steps, g4)
+        dw = torch.empty((kin + hidden, g4), dtype=torch.float32, device=dev)
+        if l == 0:
+            inp, mask = x.view(steps, c_in), None
+        else:
+            inp = h_all[l - 1].view(steps, hidden)
+            mask = None if masks is None else masks[l - 1].view(steps, hidden)
+        matmul_tn(
+            inp, dg, dw[:kin], amask=mask, ascale=inv_keep,
+            compute_dtype=compute_dtype, what=f"LSTM layer {l} input weight gradient",
+        )
+        matmul_tn(
+            h_all[l, :-1].reshape(steps - rows, hidden), dg[rows:], dw[kin:],
+            compute_dtype=compute_dtype, what=f"LSTM layer {l} recurrent weight gradient",
+        )
+        colsum(dg, db[l], f"LSTM layer {l} bias gradient")
+        dwcat.append(dw)
+    lstm_stack_train.backward_launches += 1
+    return dx, dwcat, db, dgates, dh_all, dc_all
+
+
 class _LstmStackTrain(torch.autograd.Function):
     """Rows 4 and 5 as one differentiable op over (x_tbc, wcat_0, ...,
     b2d): x_tbc [T, B, C], wcat_l = [[wx_l], [wh_l]] float32, b2d [L, 4H]."""
 
     @staticmethod
     def forward(ctx, x_tbc, masks, keep, compute_dtype, b2d, *wcat):
-        lib = cuda_build.load()
-        dev = x_tbc.device
-        t_len, rows, c_in = x_tbc.shape
-        n_layers, g4 = b2d.shape
-        hidden = g4 // 4
-        code = cuda_build.dtype_code(compute_dtype)
-        x = x_tbc.to(torch.float32).contiguous()
-        wcat0, wcatr = _merged(wcat, compute_dtype)
-        bias = b2d.contiguous()
-        inv_keep = 1.0 / keep
-        shape = (n_layers, t_len, rows, hidden)
-        h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
-        c_all = torch.empty(shape, dtype=compute_dtype, device=dev)
-        gates = torch.empty((n_layers, t_len, rows, g4), dtype=torch.float32, device=dev)
-        out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-        rpt = _rows_per_thread(rows, hidden, dev)
-        cuda_build.check(
-            lib.wf_lstm_stack_train_fwd(
-                code, rpt, x.data_ptr(), x.stride(0), x.stride(1),
-                wcat0.data_ptr(), wcatr.data_ptr(), bias.data_ptr(),
-                None if masks is None else masks.data_ptr(), inv_keep,
-                h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), out.data_ptr(),
-                t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
-            ),
-            "LSTM train forward",
-        )
-        ctx.compute_dtype, ctx.inv_keep, ctx.x_dtype = compute_dtype, inv_keep, x_tbc.dtype
-        ctx.save_for_backward(x, masks, wcat0, wcatr, h_all, c_all, gates)
+        out, h_all, c_all, gates = train_forward(x_tbc, masks, keep, compute_dtype, b2d, wcat)
+        ctx.compute_dtype, ctx.keep, ctx.x_dtype = compute_dtype, keep, x_tbc.dtype
+        ctx.save_for_backward(x_tbc, masks, h_all, c_all, gates, *wcat)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        lib = cuda_build.load()
-        x, masks, wcat0, wcatr, h_all, c_all, gates = ctx.saved_tensors
-        compute_dtype, inv_keep = ctx.compute_dtype, ctx.inv_keep
-        dev = x.device
-        t_len, rows, c_in = x.shape
-        n_layers, _, _, g4 = gates.shape
-        hidden = g4 // 4
-        g = g.to(torch.float32).contiguous()
-        # The transposed weights of the dgates @ wcat^T contraction.
-        wcat_t0 = wcat0.t().contiguous()
-        wcat_tr = wcatr.transpose(1, 2).contiguous() if n_layers > 1 else wcat_t0
-        dx = torch.empty((t_len, rows, c_in), dtype=torch.float32, device=dev)
-        dgates = torch.empty((n_layers, t_len, rows, g4), dtype=torch.float32, device=dev)
-        cuda_build.check(
-            lib.wf_lstm_stack_train_bwd(
-                cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
-                g.data_ptr(), gates.data_ptr(), c_all.data_ptr(),
-                None if masks is None else masks.data_ptr(), inv_keep,
-                wcat_t0.data_ptr(), wcat_tr.data_ptr(), dx.data_ptr(),
-                dgates.data_ptr(), t_len, rows, c_in, hidden, n_layers,
-                cuda_build.stream_ptr(dev),
-            ),
-            "LSTM train backward",
+        x, masks, h_all, c_all, gates, *wcat = ctx.saved_tensors
+        dx, dwcat, db, *_ = train_backward(
+            g, x, h_all, c_all, gates, wcat, masks, ctx.keep, ctx.compute_dtype
         )
-        # dwcat_l = [inp | h_prev]^T @ dgates_l over every step and row;
-        # h_prev at t = 0 is zero, so its rows start at t = 1.
-        steps = t_len * rows
-        dwcat, db = [], torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
-        for l in range(n_layers):
-            kin = c_in if l == 0 else hidden
-            dg = dgates[l].view(steps, g4)
-            dw = torch.empty((kin + hidden, g4), dtype=torch.float32, device=dev)
-            if l == 0:
-                inp, mask = x.view(steps, c_in), None
-            else:
-                inp = h_all[l - 1].view(steps, hidden)
-                mask = None if masks is None else masks[l - 1].view(steps, hidden)
-            matmul_tn(
-                inp, dg, dw[:kin], amask=mask, ascale=inv_keep,
-                compute_dtype=compute_dtype, what=f"LSTM layer {l} input weight gradient",
-            )
-            matmul_tn(
-                h_all[l, :-1].reshape(steps - rows, hidden), dg[rows:], dw[kin:],
-                compute_dtype=compute_dtype, what=f"LSTM layer {l} recurrent weight gradient",
-            )
-            colsum(dg, db[l], f"LSTM layer {l} bias gradient")
-            dwcat.append(dw)
-        lstm_stack_train.backward_launches += 1
         return (dx.to(ctx.x_dtype), None, None, None, db, *dwcat)
 
 
@@ -297,11 +324,7 @@ def lstm_stack_train(
         )
     b2d = torch.stack([layer.b for layer in layers])
     wcat = [torch.cat([layer.wx, layer.wh]) for layer in layers]
-    out = _LstmStackTrain.apply(
-        x.transpose(0, 1), masks, keep, compute_dtype, b2d, *wcat
-    )
-    lstm_stack_train.launches += 1
-    return out
+    return _LstmStackTrain.apply(x.transpose(0, 1), masks, keep, compute_dtype, b2d, *wcat)
 
 
 lstm_stack_train.launches = 0  # forwards run through the CUDA kernel (row 4)

@@ -1,7 +1,7 @@
-"""First-order MAML (FOMAML) meta step.
+"""MAML meta step, first-order (FOMAML) or second-order.
 
-Counterpart of the first-order path of
-`weatherforecast_stgcn_maml_tpu/train/maml.py`. Per task:
+Counterpart of `weatherforecast_stgcn_maml_tpu/train/maml.py`. Per task,
+first order (the default):
 
   inner loop    : a copy of the meta-parameters (the "fast" model) takes
                   `inner_epochs * S` SGD steps on the support windows
@@ -15,6 +15,14 @@ Counterpart of the first-order path of
                   `query_train_mode`) is differentiated w.r.t. them. In the
                   first-order approximation d adapted / d params is the
                   identity, so that gradient is the task's meta-gradient.
+
+Second order (`meta.second_order`): the inner loop runs on a functional
+parameter dict that stays in the meta-parameters' graph. Each step's
+gradient comes from train/so_grad.py (the first-order gradient forward, a
+Hessian-vector product backward, by `meta.so_impl`); the global-norm clip
+and p - inner_lr * g are per-leaf and differentiable (the fused clip + SGD
+kernel is first-order only), and the query loss is differentiated w.r.t. the
+meta-parameters themselves: the exact MAML meta-gradient.
 
 Tasks run one after another on one device (the JAX package vmaps them). The
 meta batch splits into `grad_accum` micro-batches run in sequence; the mean
@@ -36,7 +44,12 @@ from torch import nn
 
 from weatherforecast_stgcn_maml_tpu_torch.config import MetaConfig, ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
-from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model
+from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
+    apply_model,
+    draw_masks,
+    functional_apply,
+    init_model,
+)
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import (
     AdamState,
@@ -44,6 +57,12 @@ from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import (
     clip_global_norm_tree,
     leaf_order,
 )
+from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import (
+    make_grad_loss_fused,
+    plain_route,
+    support_loss,
+)
+from weatherforecast_stgcn_maml_tpu_torch.train.so_grad import SO_IMPLS, make_so_grad
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task, task_at
 
 
@@ -53,11 +72,24 @@ class MamlState(NamedTuple):
     step: int  # optimizer updates taken
 
 
+SO_REMATS = ("step", "dots", "none", "sqrt")
+
+
 def check_supported(model_cfg: ModelConfig, cfg: MetaConfig) -> None:
-    """Raise NotImplementedError, naming it, for a setting not ported."""
+    """Raise NotImplementedError, naming it, for a setting not ported, and
+    ValueError for an unknown second-order setting."""
+    if cfg.second_order:
+        if cfg.so_impl not in SO_IMPLS:
+            raise ValueError(f"meta.so_impl={cfg.so_impl!r}: expected one of {SO_IMPLS}")
+        chunk = cfg.so_remat.startswith("chunk:") and cfg.so_remat[6:].isdigit()
+        if cfg.so_remat not in SO_REMATS and not chunk:
+            raise ValueError(
+                f"meta.so_remat={cfg.so_remat!r}: expected 'step', 'dots', 'none', "
+                "'sqrt', or 'chunk:<k>'"
+            )
     unported = {
-        "meta.second_order=true (second-order MAML, the Hessian-vector "
-        "kernels of JAX ops/fused_lstm_hvp.py rows 10-11)": cfg.second_order,
+        "meta.so_wavefront with so_impl 'hvp' or 'rof' (the wavefront LSTM "
+        "schedule)": cfg.second_order and cfg.so_wavefront and cfg.so_impl in ("hvp", "rof"),
         "meta.epochs_per_dispatch > 1 (chained meta epochs)":
             cfg.epochs_per_dispatch > 1,
         "model.lstm_kernel='pallas' (the per-layer recurrence kernel)":
@@ -95,12 +127,17 @@ def adapt_and_query_loss(
     generator: torch.Generator | None,
     model_cfg: ModelConfig,
     cfg: MetaConfig,
-    fast: nn.Module,
+    fast: nn.Module | None = None,
 ) -> torch.Tensor:
-    """Inner-adapt `fast` (overwritten with a copy of `params`) on the
-    task's support set and return the query loss, differentiable w.r.t.
-    `fast`'s parameters: its gradient there is the task's first-order
-    meta-gradient."""
+    """Inner-adapt on the task's support set and return the query loss.
+
+    First order: `fast` (overwritten with a copy of `params`) adapts, and
+    the loss is differentiable w.r.t. `fast`'s parameters: its gradient
+    there is the task's first-order meta-gradient. Second order: the loss
+    is differentiable w.r.t. `params`' own parameters, and its gradient
+    there is the exact meta-gradient (`fast` is not used)."""
+    if cfg.second_order:
+        return _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg)
     # The JAX parameter tree's leaf order: the order the clip sums squares in.
     named = sorted(fast.named_parameters(), key=lambda kv: leaf_order(kv[0]))
     fast_params = [p for _, p in named]
@@ -127,20 +164,60 @@ def adapt_and_query_loss(
                 for name, p in named:
                     p.sub_(cfg.inner_lr * clipped[name])
 
-    # A train-mode forward without a generator has no dropout: the eval
-    # function, but differentiable (the eval kernels have no backward).
+    return _query_loss(fast, None, task, generator, model_cfg, cfg)
+
+
+def _query_loss(model, params, task, generator, model_cfg, cfg) -> torch.Tensor:
+    """The mean query loss of `model`, at `params` ({name: tensor}) when
+    given. A train-mode forward without a generator has no dropout: the
+    eval function, but differentiable (the eval kernels have no backward)."""
     q = max(1, min(cfg.query_batches, task.query_x.shape[0]))
+    gen = generator if cfg.query_train_mode else None
+
+    def forward(m, x):
+        return apply_model(m, task.a_hat, x, task.koppen, model_cfg, train=True, generator=gen)
+
     losses = [
         masked_mse(
-            apply_model(
-                fast, task.a_hat, task.query_x[i], task.koppen, model_cfg,
-                train=True, generator=generator if cfg.query_train_mode else None,
-            ),
+            forward(model, task.query_x[i]) if params is None
+            else functional_apply(model, params, forward, task.query_x[i]),
             task.query_y[i], task.node_mask,
         )
         for i in range(q)
     ]
     return torch.stack(losses).mean()
+
+
+def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg) -> torch.Tensor:
+    """Second order: the inner loop on a functional copy of `params`' tensors
+    that stays in their graph, then the query loss.
+
+    Each step draws its dropout masks once (encoder, LSTM, head, in the
+    first-order path's order); the inner gradient and its Hessian-vector
+    product both use them. `meta.so_remat` picks the JAX package's
+    rematerialisation policy for its scan; here the inner gradient's
+    autograd.Function keeps only the step's parameters and masks and
+    recomputes the rest inside its backward, so every policy gives the same
+    numbers and the same memory (an unknown one raises in check_supported).
+    """
+    check_supported(model_cfg, cfg)
+    route_x = plain_route(model_cfg)
+    if cfg.so_impl == "xla":
+        model_cfg = route_x  # double backward needs the plain route everywhere
+    fused = make_grad_loss_fused(params, model_cfg) if cfg.so_impl == "fhvp" else None
+    inner_grad = make_so_grad(
+        support_loss(params, model_cfg), support_loss(params, route_x), cfg.so_impl, fused
+    )
+    p = dict(params.named_parameters())
+    n_support = task.support_x.shape[0]
+    for s in range(cfg.inner_epochs * n_support):
+        idx = s % n_support  # epoch-major pass over the same support windows
+        aux = (task.support_x[idx], task.support_y[idx], task.a_hat, task.koppen,
+               task.node_mask)
+        masks = draw_masks(model_cfg, generator, task.support_x[idx])
+        g, _ = clip_global_norm_tree(inner_grad(p, aux, masks), cfg.clip_norm)
+        p = {k: v - cfg.inner_lr * g[k] for k, v in p.items()}
+    return _query_loss(params, p, task, generator, model_cfg, cfg)
 
 
 def task_batch_grad(
@@ -151,18 +228,22 @@ def task_batch_grad(
     cfg: MetaConfig,
     fast: nn.Module | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """The first-order meta-gradient of the mean query loss over a stacked
-    batch of tasks: (per-task query losses [B], {name: gradient})."""
-    fast = copy.deepcopy(params) if fast is None else fast
-    named = list(fast.named_parameters())
-    fast_params = [p for _, p in named]
+    """The meta-gradient (first- or second-order, by `cfg.second_order`) of
+    the mean query loss over a stacked batch of tasks: (per-task query
+    losses [B], {name: gradient})."""
+    if cfg.second_order:
+        named = list(params.named_parameters())
+    else:
+        fast = copy.deepcopy(params) if fast is None else fast
+        named = list(fast.named_parameters())
+    targets = [p for _, p in named]
     batch = tasks.support_x.shape[0]
     total, losses = None, []
     for i in range(batch):
         loss = adapt_and_query_loss(
             params, task_at(tasks, i), generator, model_cfg, cfg, fast
         )
-        grads = _grads(loss, fast_params)
+        grads = _grads(loss, targets)
         total = grads if total is None else [a + b for a, b in zip(total, grads)]
         losses.append(loss.detach())
     return torch.stack(losses), {n: g / batch for (n, _), g in zip(named, total)}
@@ -184,7 +265,7 @@ def make_meta_step(model_cfg: ModelConfig, cfg: MetaConfig):
         if batch % n_updates:
             raise ValueError(f"meta batch {batch} not divisible by grad_accum {n_updates}")
         per = batch // n_updates
-        fast = copy.deepcopy(state.params)
+        fast = None if cfg.second_order else copy.deepcopy(state.params)
         params = dict(state.params.named_parameters())
         opt_state, step, losses = state.opt_state, state.step, []
         for u in range(n_updates):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the serving path,
-first- and second-order MAML meta-training, and regional adaptation with the
-pipeline.
+first- and second-order MAML meta-training, regional adaptation with the
+pipeline, and node-sharded / data-parallel meta-training.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(`python3 chip_smoke.py --mesh-rank DIR` is phase 14's rank process, started
+by torch.distributed.run.)
 
 Phases (the first failure raises and exits non-zero; each prints its wall
 time):
@@ -56,7 +58,26 @@ time):
  11. time one inner step (fused and per-leaf update, with a torch.profiler
      breakdown of the fused one) and one meta step, with the meta step's
      peak device memory; the same for one SO inner step (the gradient and
-     its Hessian-vector product) and one SO meta step.
+     its Hessian-vector product) and one SO meta step;
+ 12. hold the node-sharded GCN sandwich kernels (rows 12-13) against their
+     plain versions at full width (W = 24, N = 512, hid = 256, NL = 512,
+     256, 128: the rows 1, 2 and 4 sp ranks hold), with and without a next
+     layer and masks (rate 0.2), float32 and bfloat16; time each direction,
+     the plain version (cuBLAS products, also the library yardstick) and
+     print the bound;
+ 13. on a 1 x 1 mesh (a NCCL group of one rank in this process): the
+     node-sharded FO meta-gradient at dropout 0 against the unsharded kernel
+     route (2 tasks x 15 inner steps); one sharded meta step at MetaConfig()
+     defaults, the main path of rows 12-13 (4 x 364 launches of each; rows
+     4-5 364, row 8 360, as unsharded); the sharded meta step timed against
+     the unsharded one in turns, with a torch.profiler breakdown of one
+     sharded inner step; `cli meta-train --mesh` (dp, world 1) for 1 epoch;
+ 14. two ranks on the one card, joined by gloo (which carries CUDA tensors;
+     NCCL refuses two ranks on one card): torch.distributed.run starts
+     `cli meta-train --mesh --device cuda:0 -o mesh.spatial_devices=2`
+     (one named card: gloo) for 1 float32 epoch, inner epochs cut to 2;
+     each rank must launch rows 12-13 on its 256 rows, both ranks must
+     report the same finite losses, and one set of checkpoints must exist.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -92,6 +113,8 @@ TPU_KERNELS = {
     "clip_sgd_update.batched": "weatherforecast_stgcn_maml_tpu/ops/fused_sgd.py:112",
     "hvp_stack_fwd": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_hvp.py:216",
     "hvp_stack_bwd": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_hvp.py:395",
+    "gcn_shard_layer": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn_shard.py:153",
+    "gcn_shard_layer.backward": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn_shard.py:179",
 }
 CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 SOURCES = {
@@ -105,7 +128,10 @@ SOURCES = {
     "clip_sgd_update.batched": CSRC + "fused_sgd.cu",
     "hvp_stack_fwd": CSRC + "fused_lstm_hvp.cu",
     "hvp_stack_bwd": CSRC + "fused_lstm_hvp.cu",
+    "gcn_shard_layer": CSRC + "gemm.cu",
+    "gcn_shard_layer.backward": CSRC + "fused_gcn_shard.cu",
 }
+MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
 
@@ -162,8 +188,9 @@ class Phase:
 
 
 def profile_kernels(torch, fn, steps):
-    """(rows, wall us) over `steps` calls of fn() under torch.profiler: one
-    row (device us, launches, kernel name) per kernel."""
+    """(rows, wall us, host rows) over `steps` calls of fn() under
+    torch.profiler: one row (device us, launches, kernel name) per kernel,
+    one (self host us, calls, op name) per host-side op."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -174,28 +201,31 @@ def profile_kernels(torch, fn, steps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []  # device-side events only: an op's row repeats its kernels' time
+    rows, host = [], []  # device rows: an op's own row repeats its kernels' time
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0.0)
         if str(ev.device_type).endswith("CUDA") and dev_us > 0:
             rows.append((dev_us, ev.count, ev.key))
-    return rows, wall_us
+        elif ev.self_cpu_time_total > 0:
+            host.append((ev.self_cpu_time_total, ev.count, ev.key))
+    return rows, wall_us, host
 
 
 def device_ms(torch, fn, repeats=REPEATS):
     """The device time of fn() in ms: the sum of its kernels' times
     (torch.profiler), averaged over `repeats` calls. Unlike CUDA events it
     leaves out the device's idle time while the host prepares launches."""
-    rows, _ = profile_kernels(torch, fn, repeats)
+    rows, _, _ = profile_kernels(torch, fn, repeats)
     if not rows:
         raise RuntimeError("the profiler reported no device time")
     return sum(r[0] for r in rows) / repeats / 1e3
 
 
-def profile_steps(torch, step, what, card, steps=5):
+def profile_steps(torch, step, what, card, steps=5, host_rows=0):
     """Device time by kernel over `steps` calls of step() (torch.profiler),
-    and the device's busy share of the wall time."""
-    rows, wall_us = profile_kernels(torch, step, steps)
+    the device's busy share of the wall time, and the `host_rows` host ops
+    that took the most host time of their own."""
+    rows, wall_us, host = profile_kernels(torch, step, steps)
     busy = sum(r[0] for r in rows)
     if not rows:
         log("profile: the profiler reported no device time")
@@ -205,6 +235,12 @@ def profile_steps(torch, step, what, card, steps=5):
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {dev_us / steps / 1e3:8.4f} ms a step  {count // steps:4d} launches  "
             f"{100 * dev_us / busy:5.1f}%  {key[:90]}")
+    if host_rows:
+        log(f"  host: {sum(h[0] for h in host) / steps / 1e3:.3f} ms a step of ops' own time; "
+            f"the {host_rows} largest:")
+    for cpu_us, count, key in sorted(host, reverse=True)[:host_rows]:
+        log(f"  {cpu_us / steps / 1e3:8.4f} ms a step  {count / steps:6.1f} calls  (host)  "
+            f"{key[:80]}")
 
 
 def rel_err(got, ref):
@@ -256,6 +292,7 @@ def main() -> int:
         gcn_stack_train,
         gcn_stack_train_plain,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_shard as fgs
     from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp as fh
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
         lstm_stack_last_all,
@@ -266,9 +303,25 @@ def main() -> int:
         clip_sgd_update,
         clip_sgd_update_plain,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
+        all_reduce_tensors,
+        make_mesh_2d,
+        shard_task_batch_2d,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import (
+        make_shardmap_batch_grad,
+        make_shardmap_meta_step_2d,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.spatial import (
+        hybrid_local_forward,
+        psum_masked_mse,
+    )
     from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
         init_meta_state,
+        inner_sgd_update,
         make_meta_step,
+        param_grads,
         task_batch_grad,
     )
     from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import (
@@ -1084,7 +1137,7 @@ def main() -> int:
                     f"{'fused' if fused else 'per-leaf'} update): {ms:.3f} ms  [{card}]")
             if dt_name == "float32":
                 profile_steps(torch, lambda: inner_step(True),
-                              "float32 inner steps (fused update)", card)
+                              "float32 inner steps (fused update)", card, host_rows=10)
             for fused in (True, False) if dt_name == "float32" else (True,):
                 step = make_meta_step(mc, dataclasses.replace(meta_cfg, fused_inner_update=fused))
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -1135,14 +1188,234 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         log(f"SO meta step float32 (fhvp, 4 tasks x 90 inner steps + query, grad-accum 2): "
             f"{ms:.1f} ms, peak device memory {peak:.2f} GiB  [{card}]")
+    # 12. The node-sharded GCN sandwich (rows 12-13) vs plain at full width:
+    # one layer's hw_full [N, W, hid] node-major, this rank's rows of the
+    # Moscow adjacency, the model's bias and next weight, masks at rate 0.2.
+    def shard_case(nl, has_next, has_mask, dt, seed):
+        draw = np.random.default_rng(seed)
+        hw = torch.from_numpy(draw.standard_normal((n, w_len, hid)).astype(np.float32))
+        mask = None
+        if has_mask:
+            mask = torch.from_numpy((draw.uniform(size=(nl, w_len, hid)) >= 0.2)
+                                    .astype(np.int8)).to(dev)
+        a_rows = a_hat[:nl].contiguous()
+        w_next = enc[1].w if has_next else None
+        leaves = [hw.to(dev, dt), enc[0].b] + ([w_next] if has_next else [])
+
+        def run(fn, xs):
+            return fn(xs[0], a_rows, xs[1], xs[2] if has_next else None, mask, 0.8, dt)
+
+        return leaves, run
+
+    def shard_graph(run, fn, leaves):
+        xs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        out = run(fn, xs)
+        out = out if isinstance(out, tuple) else (out,)
+        cts = [torch.from_numpy(np.random.default_rng(3 + i).standard_normal(o.shape)
+                                .astype(np.float32)).to(dev, o.dtype) for i, o in enumerate(out)]
+        return out, xs, cts
+
+    shard_routes = (("kernel", fgs.gcn_shard_layer), ("plain", fgs.shard_layer_plain))
+    with Phase("GCN sandwich kernels vs plain"):
+        for nl in (n, n // 2, n // 4):
+            for has_next in (True, False):
+                for has_mask in (True, False):
+                    for dt_name, tol in TOL.items():
+                        dt = getattr(torch, dt_name)
+                        leaves, run = shard_case(nl, has_next, has_mask, dt, 50 + nl)
+                        res = {}
+                        for route, fn in shard_routes:
+                            out, xs, cts = shard_graph(run, fn, leaves)
+                            res[route] = ([o.detach() for o in out],
+                                          torch.autograd.grad(out, xs, cts))
+                        torch.cuda.synchronize()
+                        (got, got_g), (ref, ref_g) = res["kernel"], res["plain"]
+                        for g, r in zip(got, ref):
+                            torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
+                        fwd_err = max(float((g.float() - r.float()).abs().max())
+                                      for g, r in zip(got, ref))
+                        rels = [rel_err(g, r) for g, r in zip(got_g, ref_g)]
+                        bwd_err = max(float((g.float() - r.float()).abs().max())
+                                      for g, r in zip(got_g, ref_g))
+                        log(f"rows 12-13 {dt_name} NL={nl} next={has_next} mask={has_mask}: "
+                            f"forward max_abs_err {fwd_err:.3e} (tol {tol}); gradients "
+                            f"max|diff|/max|ref| {max(rels):.3e} (tol {tol})")
+                        if max(rels) > tol:
+                            raise RuntimeError(f"rows 12-13 {dt_name} NL={nl}: gradient error "
+                                               f"{max(rels):.3e}")
+                        if not (has_next and has_mask):
+                            continue
+                        # The main path's layer (a next layer, masks): time it.
+                        times = {}
+                        for route, fn in shard_routes:
+                            with torch.no_grad():
+                                fwd = cuda_ms(torch, lambda: run(fn, leaves))
+                            out, xs, cts = shard_graph(run, fn, leaves)
+                            bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                                out, xs, cts, retain_graph=True))
+                            times[route] = (fwd, bwd)
+                        e = 4 if dt_name == "float32" else 2
+                        hw_b, act_b = n * w_len * hid * e, nl * w_len * hid * e
+                        fixed_b = 4 * nl * n + 4 * hid * hid + nl * w_len * hid
+                        flops_f = 2 * nl * n * w_len * hid + 2 * nl * w_len * hid * hid
+                        flops_b = 4 * nl * w_len * hid * hid + 2 * n * nl * w_len * hid
+                        bytes_f = hw_b + fixed_b + 4 * hid + 2 * act_b
+                        bytes_b = 3 * act_b + fixed_b + hw_b + 4 * hid * hid + 4 * hid
+                        bf, bb = bound_ms(bytes_f, flops_f)[0], bound_ms(bytes_b, flops_b)[0]
+                        log(f"rows 12-13 {dt_name} NL={nl} [N {n}, W {w_len}, hid {hid}]: kernel "
+                            f"forward {times['kernel'][0]:.4f} ms, backward "
+                            f"{times['kernel'][1]:.4f} ms; plain (cuBLAS) forward "
+                            f"{times['plain'][0]:.4f} ms, backward {times['plain'][1]:.4f} ms; "
+                            f"bound {bf:.4f} / {bb:.4f} ms ({flops_f / 1e9:.2f} / "
+                            f"{flops_b / 1e9:.2f} GFLOP)  [{card}]")
+                        if dt_name == "float32" and nl == n:
+                            measured["gcn_shard_layer"] = {
+                                "max_abs_err": fwd_err, "ms": times["kernel"][0],
+                                "plain_ms": times["plain"][0], "library_ms": times["plain"][0],
+                                "bytes": bytes_f, "flops": flops_f}
+                            measured["gcn_shard_layer.backward"] = {
+                                "max_abs_err": bwd_err, "ms": times["kernel"][1],
+                                "plain_ms": times["plain"][1], "library_ms": times["plain"][1],
+                                "bytes": bytes_b, "flops": flops_b}
+        del leaves, res, out, xs, cts
+
+    # 13. Node-sharded meta-training on a 1 x 1 mesh: a NCCL group of one rank
+    # in this process (the gathers are copies of one rank's rows).
+    with Phase("node-sharded meta step (1 x 1 mesh)"):
+        created_group = distributed.ensure_process_group("nccl")
+        mesh = make_mesh_2d(1, 1, dev)
+        nodrop = ModelConfig(gcn_dropout=0.0, lstm_dropout=0.0)
+        before = fgs.gcn_shard_layer.launches
+        loss_s, grad_s = make_shardmap_batch_grad(nodrop, one_epoch, mesh)(model, micro, None)
+        shard_check_launches = fgs.gcn_shard_layer.launches - before
+        loss_u, grad_u = task_batch_grad(model, micro, None, nodrop, one_epoch)
+        torch.cuda.synchronize()
+        rels = {k: rel_err(grad_s[k], grad_u[k]) for k in grad_u}
+        worst = max(rels, key=rels.get)
+        log(f"sharded (1 x 1) vs unsharded meta-gradient float32, dropout 0, 2 tasks x "
+            f"{one_epoch.inner_batches} inner steps: per-task losses {loss_s.tolist()} vs "
+            f"{loss_u.tolist()}; gradient max|diff|/max|ref| {rels[worst]:.3e} at {worst} "
+            f"(tol {TOL['float32']}); rows 12-13 launched {shard_check_launches} times")
+        torch.testing.assert_close(loss_s, loss_u, rtol=TOL["float32"], atol=TOL["float32"])
+        if rels[worst] > TOL["float32"]:
+            raise RuntimeError(f"sharded meta-gradient: {worst} off by {rels[worst]:.3e}")
+
+        # The main path: one sharded meta step at MetaConfig() defaults.
+        state = init_meta_state(torch.Generator().manual_seed(1), cfg, meta_cfg, device=dev)
+        sharded_step = make_shardmap_meta_step_2d(cfg, meta_cfg, mesh)
+        shard_counters = (fgs.gcn_shard_layer, gcn_stack_train, lstm_stack_train)
+        for fn in shard_counters:
+            fn.launches = fn.backward_launches = 0
+        clip_sgd_update.launches = 0
+        state, metrics = sharded_step(state, tasks, (7, 0))
+        torch.cuda.synchronize()
+        shard_launches = {"gcn_shard_layer": fgs.gcn_shard_layer.launches,
+                          "gcn_shard_layer.backward": fgs.gcn_shard_layer.backward_launches,
+                          "lstm_stack_train": lstm_stack_train.launches,
+                          "lstm_stack_train.backward": lstm_stack_train.backward_launches,
+                          "gcn_stack_train": gcn_stack_train.launches,
+                          "clip_sgd_update": clip_sgd_update.launches}
+        log(f"launches in one sharded meta step: {shard_launches}")
+        forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
+        want = {"gcn_shard_layer": cfg.gcn_layers * forwards,
+                "gcn_shard_layer.backward": cfg.gcn_layers * forwards,
+                "lstm_stack_train": forwards, "lstm_stack_train.backward": forwards,
+                "gcn_stack_train": 0, "clip_sgd_update": per_step}
+        if shard_launches != want:
+            raise RuntimeError(f"sharded meta step launched {shard_launches}, not {want}")
+        losses = metrics["per_task_loss"].tolist()
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"sharded meta step: non-finite losses {losses}")
+        log(f"sharded meta step float32: per-task losses {losses}")
+
+        # Sharded vs unsharded meta step, in turns (U, S, S, U).
+        unsharded_step = make_meta_step(cfg, meta_cfg)
+        g = torch.Generator(device=dev).manual_seed(2)
+        runs = {"unsharded": lambda: unsharded_step(state, tasks, g),
+                "sharded": lambda: sharded_step(state, tasks, (7, 1))}
+        step_ms = {k: [] for k in runs}
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            step_ms[name].append(host_ms(torch, runs[name], repeats=1))
+        log("meta step float32 at the defaults, host clock, in turns: " + ", ".join(
+            f"{k} {v[0]:.1f} / {v[1]:.1f} ms" for k, v in step_ms.items())
+            + f"; sharded / unsharded {sum(step_ms['sharded']) / sum(step_ms['unsharded']):.3f}"
+            f"  [{card}]")
+
+        t_l = [f[0] for f in shard_task_batch_2d(tasks, mesh)]
+        t_l = type(tasks)(*t_l)
+        named = sorted(state.params.named_parameters(), key=lambda kv: leaf_order(kv[0]))
+        params = [p for _, p in named]
+
+        def sharded_inner_step():
+            preds = hybrid_local_forward(state.params, t_l.a_hat, t_l.support_x[0], t_l.koppen,
+                                         cfg, mesh.sp_group, train=True, generator=g)
+            loss = psum_masked_mse(preds, t_l.support_y[0], t_l.node_mask, mesh.sp_group)
+            inner_sgd_update(named, all_reduce_tensors(param_grads(loss, params), mesh.sp_group),
+                             meta_cfg)
+
+        ms = host_ms(torch, sharded_inner_step)
+        log(f"sharded inner step float32 (1 x 1 mesh, one window, fused update): {ms:.3f} ms  "
+            f"[{card}]")
+        profile_steps(torch, sharded_inner_step, "float32 sharded inner steps (1 x 1 mesh)", card,
+                      host_rows=10)
+
+        mesh_log = meta_train("float32", 1, "--mesh", out="mesh_dp")
+        if not np.isfinite([mesh_log[0]["meta_loss"], *mesh_log[0]["per_task_loss"]]).all():
+            raise RuntimeError(f"meta-train --mesh: {mesh_log}")
+        log(f"meta-train --mesh (dp, world 1) epoch 1: meta_loss {mesh_log[0]['meta_loss']:.6f}, "
+            f"tasks {mesh_log[0]['task_indices']}, {mesh_log[0]['epoch_seconds']:.2f} s  [{card}]")
+        if created_group:
+            torch.distributed.destroy_process_group()
+        del state, sharded_step, unsharded_step, runs
+
+    # 14. Two ranks on the one card, joined by gloo, through the CLI.
+    with Phase("two ranks on one card (gloo, sp 2)"):
+        out = os.path.join(out_root, "mesh_sp2")
+        os.makedirs(out)
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
+             f"--master_port={distributed.free_port()}", os.path.abspath(__file__),
+             "--mesh-rank", out],
+            capture_output=True, text=True, timeout=900,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"two-rank meta-train exited {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for rec in ranks:
+            log(f"rank {rec['rank']}: {rec['stdout'].strip()}; {rec['seconds']:.1f} s; "
+                f"launches {rec['launches']}")
+        forwards = meta_cfg.meta_batch * (MESH_INNER_EPOCHS * meta_cfg.inner_batches + 1)
+        for rec in ranks:
+            want = cfg.gcn_layers * forwards
+            got = (rec["launches"]["gcn_shard_layer"], rec["launches"]["gcn_shard_layer.backward"])
+            if got != (want, want):
+                raise RuntimeError(f"rank {rec['rank']} launched rows 12-13 {got}, not {want}")
+        losses = [(rec["best_loss"], rec["final_loss"]) for rec in ranks]
+        if losses[0] != losses[1] or not np.isfinite(losses).all():
+            raise RuntimeError(f"the two ranks' losses differ or are not finite: {losses}")
+        meta_files = sorted(os.listdir(os.path.join(out, "meta")))
+        if meta_files != ["ckpt_best", "ckpt_final", "ckpt_last", "meta_log.csv",
+                          "meta_log.jsonl"]:
+            raise RuntimeError(f"two-rank meta-train wrote {meta_files}")
+        if "padded nodes=512" not in ranks[0]["stderr"]:
+            raise RuntimeError("two-rank meta-train: not 512 padded nodes (256 a rank)")
+        with open(os.path.join(out, "meta", "meta_log.jsonl")) as f:
+            rec = json.loads(f.readline())
+        log(f"two ranks (dp 1 x sp 2, 256 rows each, gloo on one card), epoch 1 "
+            f"({MESH_INNER_EPOCHS} inner epochs): meta_loss {rec['meta_loss']:.6f}, tasks "
+            f"{rec['task_indices']}, {rec['epoch_seconds']:.2f} s  [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name in TPU_KERNELS:
         m = measured[name]
         bound, bound_by = bound_ms(m["bytes"], m["flops"])
-        count = next(src[name] for src in (launches, train_launches, so_launches)
-                     if name in src)
+        count = next(src[name] for src in (launches, train_launches, so_launches,
+                                           shard_launches) if name in src)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1169,5 +1442,35 @@ def main() -> int:
     return 0
 
 
+def mesh_rank(out: str) -> int:
+    """Phase 14's rank: `cli meta-train --mesh` on card 0 with gloo, then
+    this rank's stdout, log, launch counts and time into OUT/rank<r>.json."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from weatherforecast_stgcn_maml_tpu_torch import cli
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_shard import gcn_shard_layer
+
+    argv = ["meta-train", "--mesh", "--device", "cuda:0",
+            "-o", "mesh.spatial_devices=2", "-o", "meta.num_epochs=1",
+            "-o", f"meta.inner_epochs={MESH_INNER_EPOCHS}", "-o", f"out_dir={out}"]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = cli.main(argv)
+    line = stdout.getvalue().strip()
+    fields = dict(kv.split("=", 1) for kv in line.split())
+    rank = int(fields["rank"])
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "rc": rc, "stdout": line, "stderr": stderr.getvalue(),
+                   "best_loss": float(fields["best_loss"]),
+                   "final_loss": float(fields["final_loss"]),
+                   "seconds": time.perf_counter() - t0,
+                   "launches": {"gcn_shard_layer": gcn_shard_layer.launches,
+                                "gcn_shard_layer.backward": gcn_shard_layer.backward_launches}},
+                  f)
+    return rc
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2]))
     sys.exit(main())

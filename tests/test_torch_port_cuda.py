@@ -24,6 +24,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder
 from weatherforecast_stgcn_maml_tpu_torch.ops import (
     fused_gcn,
+    fused_gcn_shard,
     fused_gcn_train,
     fused_lstm_hvp,
     fused_lstm_stack,
@@ -361,3 +362,100 @@ def test_so_meta_gradient_kernels_match_plain(dev):
     torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=tol, atol=tol)
     for name, g in out["kernel"][1].items():
         assert _rel(g, out["plain"][1][name]) <= 1e-4, (name, _rel(g, out["plain"][1][name]))
+
+
+def _shard_inputs(dev, dtype, nl, has_next, has_mask, n=128, w=7, hid=64, hid_next=48):
+    rng = np.random.default_rng(nl + 2 * has_next + has_mask)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    return dict(
+        hw_full=arr(n, w, hid).to(dtype),
+        a_rows=(arr(nl, n).abs() / n).contiguous(),
+        b=arr(hid, scale=0.1), w_next=arr(hid, hid_next, scale=0.1) if has_next else None,
+        mask=torch.from_numpy((rng.uniform(size=(nl, w, hid)) < 0.8).astype(np.int8)).to(dev)
+        if has_mask else None,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nl", [128, 64, 40])  # 1, 2 and 3 shards; 40 rows: a ragged tile
+@pytest.mark.parametrize("has_next", [True, False])
+@pytest.mark.parametrize("has_mask", [True, False])
+def test_gcn_shard_kernels_match_plain(dev, dtype, nl, has_next, has_mask):
+    """Rows 12-13 (the sandwich layer, node-major), forward and the
+    gradients of hw_full, b and w_next, against the plain version."""
+    # NL must divide N: 40 rows are a third of a 120-node graph.
+    a = _shard_inputs(dev, dtype, nl, has_next, has_mask, n=120 if nl == 40 else 128)
+    leaves = [a["hw_full"], a["b"]] + ([a["w_next"]] if has_next else [])
+    outs, grads = {}, {}
+    before = (fused_gcn_shard.gcn_shard_layer.launches,
+              fused_gcn_shard.gcn_shard_layer.backward_launches)
+    for route, fn in (("kernel", fused_gcn_shard.gcn_shard_layer),
+                      ("plain", fused_gcn_shard.shard_layer_plain)):
+        xs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        out = fn(xs[0], a["a_rows"], xs[1], xs[2] if has_next else None, a["mask"], 0.8, dtype)
+        out = out if has_next else (out,)
+        cts = [torch.from_numpy(np.random.default_rng(i).normal(size=o.shape).astype(
+            np.float32)).to(dev, o.dtype) for i, o in enumerate(out)]
+        grads[route] = torch.autograd.grad(out, xs, cts)
+        outs[route] = [o.detach() for o in out]
+    assert (fused_gcn_shard.gcn_shard_layer.launches,
+            fused_gcn_shard.gcn_shard_layer.backward_launches) == (before[0] + 1, before[1] + 1)
+    tol = TOL[dtype]
+    for g, r in zip(outs["kernel"], outs["plain"]):
+        torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
+    for g, r in zip(grads["kernel"], grads["plain"]):
+        assert _rel(g, r) <= tol, _rel(g, r)
+
+
+@pytest.mark.cuda
+def test_gcn_shard_kernels_refuse_what_they_do_not_take(dev):
+    a = _shard_inputs(dev, torch.float32, 64, True, True)
+    args = (a["hw_full"], a["a_rows"], a["b"], a["w_next"], a["mask"], 0.8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_gcn_shard.gcn_shard_layer(*args, torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_gcn_shard.gcn_shard_layer(a["hw_full"].half(), *args[1:], torch.float32)
+    with pytest.raises(ValueError, match="mask"):
+        fused_gcn_shard.gcn_shard_layer(*args[:4], a["mask"][:, :3].contiguous(), 0.8)
+    with pytest.raises(ValueError, match="NL dividing"):
+        fused_gcn_shard.gcn_shard_layer(args[0], a["a_rows"][:, :100].contiguous(), *args[2:])
+
+
+@pytest.mark.cuda
+def test_sharded_meta_gradient_matches_unsharded(dev):
+    """The node-sharded FO meta-gradient on a 1 x 1 mesh (a NCCL group of
+    one rank; rows 12-13 for the encoder, rows 4-5 and 8) against the
+    unsharded kernel route, 2 tasks x 2 inner steps, dropout 0. float32,
+    max|diff| / max|ref| 1e-5."""
+    import torch.distributed as dist
+
+    from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh_2d
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_batch_grad
+
+    cfg = ModelConfig(hidden_channels=64, gcn_layers=3, lstm_hidden=32, lstm_layers=3,
+                      window=7, horizon=3, gcn_dropout=0.0, lstm_dropout=0.0)
+    meta = MetaConfig(inner_epochs=1, inner_batches=2)
+    regions = [synthetic_region_for_box((10.0 + 3 * i, 12.0 + 3 * i, 20.0, 23.0),
+                                        num_timesteps=40, seed=i) for i in range(2)]
+    tasks = stack_tasks([b.task for b in build_meta_tasks(regions, cfg, meta, DataConfig())])
+    tasks = type(tasks)(*(f.to(dev) for f in tasks))
+    model = init_model(torch.Generator().manual_seed(2), cfg, device=dev)
+    assert distributed.ensure_process_group("nccl")
+    try:
+        mesh = make_mesh_2d(1, 1, dev)
+        before = fused_gcn_shard.gcn_shard_layer.launches
+        losses, grads = make_shardmap_batch_grad(cfg, meta, mesh)(model, tasks, None)
+        # 2 tasks x (2 inner steps + 1 query) forwards, one launch a layer.
+        assert fused_gcn_shard.gcn_shard_layer.launches == before + 3 * 2 * 3
+    finally:
+        dist.destroy_process_group()
+    ref_losses, ref_grads = task_batch_grad(model, tasks, None, cfg, meta)
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(losses, ref_losses, rtol=tol, atol=tol)
+    for name, g in grads.items():
+        assert _rel(g, ref_grads[name]) <= tol, (name, _rel(g, ref_grads[name]))

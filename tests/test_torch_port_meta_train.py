@@ -135,9 +135,12 @@ def test_cli_meta_train_leaves_jax_unimported(tmp_path):
         "import sys\n"
         "from weatherforecast_stgcn_maml_tpu_torch import cli\n"
         f"args = {[a for o in SMALL_OVERRIDES for a in ('-o', o)]!r}\n"
-        f"rc = cli.main(['meta-train', '--device', 'cpu', '-o', 'out_dir={tmp_path}',"
+        f"rc = cli.main(['meta-train', '--mesh', '--device', 'cpu', '-o', 'out_dir={tmp_path}',"
         " '-o', 'meta.num_epochs=1', *args])\n"
         "assert rc == 0\n"
+        "pkg = 'weatherforecast_stgcn_maml_tpu_torch.'\n"
+        "for m in ('parallel.distributed', 'parallel.meta_sp', 'ops.fused_gcn_shard'):\n"
+        "    assert pkg + m in sys.modules, m\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'weatherforecast_stgcn_maml_tpu.')) for m in sys.modules), 'jax imported'\n"
     )
@@ -155,6 +158,12 @@ def test_cli_meta_train_needs_a_card_or_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("override", ["mesh.num_devices=2", "mesh.spatial_devices=2"])
 def test_meta_train_refuses_a_mesh(tmp_path, override):
-    cfg = tcfg.apply_overrides(_cfg(tcfg, tmp_path, num_epochs=1), [override])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        meta_train.run_meta_training(cfg, device="cpu", log_cb=lambda *a: None)
+    """`meta-train --mesh` in one process forms a process group of one
+    rank: a mesh of two devices, or an sp axis of two, does not fit it (the
+    JAX package's make_mesh refusals), and the group is gone afterwards."""
+    import torch.distributed as dist
+
+    args = [a for o in SMALL_OVERRIDES + [override, f"out_dir={tmp_path}"] for a in ("-o", o)]
+    with pytest.raises(ValueError, match="devices"):
+        cli.main(["meta-train", "--mesh", "--device", "cpu", *args])
+    assert not dist.is_initialized()

@@ -10,6 +10,14 @@
 `--device` defaults to `cuda`; without a card the command fails unless
 `--device cpu` is given, which runs the plain PyTorch versions of the
 kernels. Config overrides use the JAX package's dotted `-o key=value` form.
+
+`meta-train --mesh` trains on a mesh of ranks, one process per device:
+
+  torchrun --nproc_per_node=4 -m weatherforecast_stgcn_maml_tpu_torch.cli \
+      meta-train --mesh -o mesh.spatial_devices=2
+
+(dp 2 x sp 2; spatial_devices 1, the default, splits only the tasks). A
+single process with `--mesh` forms a mesh of one rank.
 """
 
 from __future__ import annotations
@@ -114,11 +122,16 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
 
-    mt = sub.add_parser(
-        "meta-train", help="first-order MAML meta-training over global regions"
-    )
+    mt = sub.add_parser("meta-train", help="MAML meta-training over global regions")
     mt.add_argument("--resume", action="store_true", help="resume from ckpt_last")
-    mt.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    mt.add_argument("--device", default="cuda",
+                    help="cuda (default; with --mesh cuda:LOCAL_RANK), cuda:N, or cpu")
+    mt.add_argument(
+        "--mesh", action="store_true",
+        help="train on every rank of the process group (torchrun, or the JAX "
+        "package's COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID): the meta batch "
+        "over the ranks, with -o mesh.spatial_devices=S also the node axis",
+    )
     _add_common(mt)
 
     ad = sub.add_parser("adapt", help="fine-tune the meta-trained model to one region")
@@ -176,11 +189,30 @@ def main(argv=None) -> int:
             run_meta_training,
         )
 
-        res = run_meta_training(
-            cfg, device=_resolve_device(args.device), resume=args.resume,
-            log_cb=_log_stderr,
-        )
-        print(f"best_loss={res.best_loss:.6f} best={res.best_path}")
+        device = _resolve_device(args.device)
+        if not args.mesh:
+            res = run_meta_training(
+                cfg, device=device, resume=args.resume, log_cb=_log_stderr
+            )
+            print(f"best_loss={res.best_loss:.6f} best={res.best_path}")
+            return 0
+        import torch.distributed as dist
+
+        from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
+        from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh
+
+        # cuda:LOCAL_RANK over NCCL, unless a card is named: --device cuda:0
+        # puts every rank on card 0, over gloo (NCCL refuses that).
+        created = distributed.ensure_process_group(distributed.default_backend(device))
+        try:
+            mesh = make_mesh(cfg.mesh, device if device.index is not None
+                             else distributed.local_device(device.type))
+            res = run_meta_training(cfg, mesh=mesh, resume=args.resume, log_cb=_log_stderr)
+        finally:
+            if created:
+                dist.destroy_process_group()
+        print(f"rank={mesh.rank} best_loss={res.best_loss:.6f} "
+              f"final_loss={res.final_loss:.6f} best={res.best_path}")
         return 0
 
     if args.command == "pipeline":

@@ -238,13 +238,23 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device mesh. The port runs on one device: more
-    than one device, or a spatial axis, raises."""
+    """The mesh of `meta-train --mesh` (parallel/mesh.py): ranks are OS
+    processes, one per device, joined by torch.distributed.
+
+    `num_devices` (0 = the world size) ranks form a dp x sp grid with
+    `spatial_devices` ranks on the sp axis: spatial_devices = 1 gives a
+    data-parallel mesh (tasks split over ranks), > 1 also splits the padded
+    node axis of every task over the sp ranks (the node-sharded step,
+    parallel/meta_sp.py). `sp_impl` picks the 2-D step: "auto" resolves to
+    "shardmap" for the hybrid family; "gspmd" (the JAX package's
+    partitioner-driven step, also "auto" for the stgcn family) is not
+    ported and raises.
+    """
 
     data_axis: str = "dp"
-    num_devices: int = 0  # 0 -> all available
+    num_devices: int = 0  # 0 -> the world size
     spatial_axis: str = "sp"
-    spatial_devices: int = 1
+    spatial_devices: int = 1  # > 1 -> 2-D dp x sp mesh
     sp_impl: str = "auto"
 
 

@@ -1,5 +1,5 @@
-"""Meta-training engine: first-order MAML over the meta-training regions on
-one device.
+"""Meta-training engine: MAML over the meta-training regions, on one device
+or on a mesh of ranks.
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/engines/meta_train.py` with
 one meta step per dispatch (`meta.epochs_per_dispatch == 1`): load the
@@ -14,6 +14,15 @@ The sidecar schema is the JAX package's (`wfstgcn-meta-v1`), and
 
 Dropout draws from a torch.Generator on the device seeded from
 (meta.seed + 1, epoch), so a resumed run draws what a straight run draws.
+
+On a mesh (parallel/mesh.py; `cli meta-train --mesh`) every rank runs this
+engine: a 1-D mesh takes the data-parallel step (parallel/meta_dp.py), a
+dp x sp mesh the node-sharded one (parallel/meta_sp.py), both keyed by
+(meta.seed + 1, epoch). Every rank stages the whole task pool and keeps its
+own sampler; the steps hand every rank every task's loss, so the samplers
+pick the same tasks. Rank 0 alone writes the logs and checkpoints, and
+every rank waits at a barrier after each save; on `resume` every rank
+loads `ckpt_last`.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from weatherforecast_stgcn_maml_tpu_torch.config import (
     META_TRAIN_REGIONS,
@@ -34,6 +44,12 @@ from weatherforecast_stgcn_maml_tpu_torch.config import (
 )
 from weatherforecast_stgcn_maml_tpu_torch.data.region import RegionData
 from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
+from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import Mesh, resolve_sp_impl
+from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import (
+    make_parallel_meta_step,
+    refuse_second_order,
+)
+from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
     MamlState,
     check_supported,
@@ -90,22 +106,44 @@ def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Genera
     )
 
 
+def _check_mesh(cfg: ExperimentConfig, mesh: Mesh) -> None:
+    """Refuse, by name, what no step of `mesh` runs."""
+    refuse_second_order(cfg.meta, "a mesh")
+    if len(mesh.axis_names) == 1:
+        return
+    sp_impl = resolve_sp_impl(cfg.mesh.sp_impl, cfg.model)
+    if sp_impl == "gspmd":
+        raise NotImplementedError(
+            "not ported: mesh.sp_impl='gspmd' (the JAX package's GSPMD dp x sp meta step, "
+            f"which mesh.sp_impl='auto' picks for family {cfg.model.family!r}); a dp x sp "
+            "mesh runs the hybrid family's node-sharded step"
+        )
+    if sp_impl != "shardmap":
+        raise ValueError(
+            f"mesh.sp_impl={cfg.mesh.sp_impl!r}: expected 'auto', 'gspmd' or 'shardmap'"
+        )
+
+
 def run_meta_training(
     cfg: ExperimentConfig,
     regions: list[RegionData] | None = None,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
     resume: bool = False,
     log_cb=print,
 ) -> MetaTrainResult:
-    device = torch.device(device)
+    """Meta-train on `device`, or on `mesh` (this rank's part; its device)."""
+    if mesh is None and device is None:
+        raise ValueError("pass a device, or a mesh")
+    device = mesh.device if mesh is not None else torch.device(device)
+    main = mesh is None or mesh.rank == 0
+    if not main:
+        log_cb = lambda *a: None  # noqa: E731 - rank 0 reports for the mesh
     model_cfg, meta_cfg = cfg.model, cfg.meta
     check_supported(model_cfg, meta_cfg)
-    if cfg.mesh.num_devices > 1 or cfg.mesh.spatial_devices > 1:
-        raise NotImplementedError(
-            "not ported: a device mesh (mesh.num_devices / mesh.spatial_devices "
-            "> 1); meta-training runs on one device"
-        )
+    if mesh is not None:
+        _check_mesh(cfg, mesh)
     out_dir = os.path.join(cfg.out_dir, "meta")
     os.makedirs(out_dir, exist_ok=True)
 
@@ -146,15 +184,21 @@ def run_meta_training(
     )
     params_n = sum(p.numel() for p in state.params.parameters())
     log_cb(f"[meta-train] {model_cfg.family} model: {params_n:,} parameters")
-    meta_step = make_meta_step(model_cfg, meta_cfg)
+    if mesh is None:
+        meta_step = make_meta_step(model_cfg, meta_cfg)
+    elif len(mesh.axis_names) == 1:
+        meta_step = make_parallel_meta_step(model_cfg, meta_cfg, mesh)
+    else:
+        meta_step = make_shardmap_meta_step_2d(model_cfg, meta_cfg, mesh)
 
     sampler = DifficultySampler(
         len(built), meta_cfg.meta_batch, ema=meta_cfg.difficulty_ema, seed=meta_cfg.seed
     )
-    csv = CsvLogger(
-        os.path.join(out_dir, "meta_log.csv"), ["epoch", "meta_loss", "learning_rate"]
-    )
-    jsonl = JsonlLogger(os.path.join(out_dir, "meta_log.jsonl"))
+    if main:
+        csv = CsvLogger(
+            os.path.join(out_dir, "meta_log.csv"), ["epoch", "meta_loss", "learning_rate"]
+        )
+        jsonl = JsonlLogger(os.path.join(out_dir, "meta_log.jsonl"))
     best_path = os.path.join(out_dir, "ckpt_best")
     final_path = os.path.join(out_dir, "ckpt_final")
     last_path = os.path.join(out_dir, "ckpt_last")
@@ -215,10 +259,13 @@ def run_meta_training(
         }
 
     def save(path, epoch, loss):
-        save_checkpoint(
-            path, state.params.state_dict(), ckpt_meta(epoch, loss),
-            opt_state=state.opt_state._asdict(),
-        )
+        if main:
+            save_checkpoint(
+                path, state.params.state_dict(), ckpt_meta(epoch, loss),
+                opt_state=state.opt_state._asdict(),
+            )
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
 
     if start_epoch >= meta_cfg.num_epochs:
         log_cb(
@@ -239,24 +286,26 @@ def run_meta_training(
     for epoch in range(start_epoch, meta_cfg.num_epochs):
         t0 = time.perf_counter()
         idx = sampler.sample()
-        state, metrics = meta_step(
-            state, select_tasks(staged, idx),
-            epoch_generator(meta_cfg.seed + 1, epoch, device),
-        )
+        if mesh is None:
+            rng = epoch_generator(meta_cfg.seed + 1, epoch, device)
+        else:
+            rng = (meta_cfg.seed + 1, epoch)  # each task's generator derives from it
+        state, metrics = meta_step(state, select_tasks(staged, idx), rng)
         per_task = metrics["per_task_loss"].float().cpu().numpy()
         loss = float(metrics["meta_loss"])
         lr = float(metrics["learning_rate"])
         dt = time.perf_counter() - t0
         sampler.update(idx, per_task)
-        csv.log(epoch=epoch + 1, meta_loss=loss, learning_rate=lr)
-        jsonl.log({
-            "epoch": epoch + 1,
-            "meta_loss": loss,
-            "learning_rate": lr,
-            "per_task_loss": per_task.tolist(),
-            "task_indices": np.asarray(idx).tolist(),
-            "epoch_seconds": dt,
-        })
+        if main:
+            csv.log(epoch=epoch + 1, meta_loss=loss, learning_rate=lr)
+            jsonl.log({
+                "epoch": epoch + 1,
+                "meta_loss": loss,
+                "learning_rate": lr,
+                "per_task_loss": per_task.tolist(),
+                "task_indices": np.asarray(idx).tolist(),
+                "epoch_seconds": dt,
+            })
         log_cb(
             f"[meta-train] epoch {epoch + 1}/{meta_cfg.num_epochs} "
             f"loss {loss:.4f} lr {lr:.6f} ({dt:.2f}s)"

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "wf_sum_splits": [_P, _I, _LL, _P, _I, _I, _I, _P],
     "wf_colsum": [_P, _I, _I, _I, _I, _P, _P],
     "wf_gcn_relu_mask_grad": [_I, _I, _P, _P, _P, _F, _P, _LL, _P],
+    "wf_gcn_shard_dz": [_I, _I, _P, _P, _P, _P, _F, _P, _LL, _P],
     "wf_lstm_stack_last": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
     "wf_lstm_stack_train_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _F, _P,

@@ -1,0 +1,152 @@
+"""Data-parallel MAML meta step over a mesh of ranks.
+
+Counterpart of `weatherforecast_stgcn_maml_tpu/parallel/meta_dp.py`
+(`make_parallel_meta_step`). Each micro-batch of the meta batch splits over
+the dp ranks in contiguous blocks; every rank runs the whole inner loop of
+its tasks with no communication (the inner loop is task-local), and one
+all-reduce per update sums the meta-gradients. Parameters and optimizer
+state are replicated: every rank takes the same AdamW step from the same
+gradient, so they stay bitwise equal.
+
+`mesh_batch_grad` is shared with the node-sharded step (parallel/meta_sp.py),
+which plugs in its own per-task loss and task placement.
+
+Dropout: task i of the meta batch draws from its own generator,
+`shard_generator((*key, i), sp_index)` (parallel/mesh.py), so a task's
+masks do not depend on which rank runs it. The single-device step
+(train/maml.py) draws every task from one generator instead.
+
+The JAX package's GSPMD 2-D step (`make_parallel_meta_step_2d`) has no
+counterpart: the dp x sp mesh runs `make_shardmap_meta_step_2d`.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+
+from weatherforecast_stgcn_maml_tpu_torch.config import MetaConfig, ModelConfig
+from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    all_reduce_tensors,
+    shard_generator,
+    shard_task_batch,
+)
+from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
+    MamlState,
+    adapt_and_query_loss,
+    check_supported,
+    param_grads,
+)
+from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import MetaOptimizer
+from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task, task_at
+
+
+def refuse_second_order(cfg: MetaConfig, where: str) -> None:
+    if cfg.second_order:
+        raise NotImplementedError(
+            f"not ported: second-order MAML (meta.second_order) on {where}; run it on "
+            "one device (without --mesh)"
+        )
+
+
+def mesh_batch_grad(mesh: Mesh, local_tasks, task_loss):
+    """Build `batch_grad(params, tasks, key, fast=None, offset=0) ->
+    (per-task losses [B], {name: mean meta-gradient})` for a stacked batch
+    of B tasks that every rank holds whole.
+
+    `local_tasks(tasks, mesh)` cuts this rank's share; `task_loss(params,
+    task, generator, fast)` is one task's loss, differentiable w.r.t.
+    `fast`'s parameters. `offset` is the batch's first index in the meta
+    batch (it picks the tasks' generators). Both results are the same on
+    every rank."""
+
+    def batch_grad(params, tasks: Task, key, fast=None, offset: int = 0):
+        batch = tasks.support_x.shape[0]
+        if batch % mesh.dp:
+            raise ValueError(f"{batch} tasks do not split evenly over {mesh.dp} dp ranks")
+        local = batch // mesh.dp
+        mine = local_tasks(tasks, mesh)
+        fast = copy.deepcopy(params) if fast is None else fast
+        named = list(fast.named_parameters())
+        total, losses = None, []
+        for j in range(local):
+            index = offset + mesh.dp_index * local + j
+            gen = shard_generator(None if key is None else (*key, index), mesh.sp_index,
+                                  tasks.support_x.device)
+            loss = task_loss(params, task_at(mine, j), gen, fast)
+            grads = param_grads(loss, [p for _, p in named])
+            total = grads if total is None else [a + b for a, b in zip(total, grads)]
+            losses.append(loss.detach())
+        # The meta-gradient: every rank's sum (over sp, each rank's partial
+        # of its tasks; over dp, other tasks) summed over the whole mesh,
+        # then the mean over the batch. Every rank gets the same tensor.
+        total = all_reduce_tensors(total, mesh.group)
+        # Every rank's sampler must see every task's loss, or the samplers
+        # drift apart and the ranks pick different tasks.
+        per_task = all_gather_rows(torch.stack(losses), mesh.dp_group)
+        return per_task, {n: g / batch for (n, _), g in zip(named, total)}
+
+    return batch_grad
+
+
+def make_mesh_meta_step(cfg: MetaConfig, batch_grad):
+    """`meta_step(state, tasks, key) -> (state, metrics)` over grad_accum
+    micro-batches, each through `batch_grad` (mesh_batch_grad) and one
+    AdamW update; metrics as train/maml.py's meta step."""
+    opt = MetaOptimizer(cfg)
+
+    def meta_step(state: MamlState, tasks: Task, key):
+        batch = tasks.support_x.shape[0]
+        n_updates = max(1, min(cfg.grad_accum, batch))
+        if batch % n_updates:
+            raise ValueError(f"meta batch {batch} not divisible by grad_accum {n_updates}")
+        per = batch // n_updates
+        fast = copy.deepcopy(state.params)
+        params = dict(state.params.named_parameters())
+        opt_state, step, losses = state.opt_state, state.step, []
+        for u in range(n_updates):
+            micro = Task(*(f[u * per:(u + 1) * per] for f in tasks))
+            per_task, grads = batch_grad(state.params, micro, key, fast, offset=u * per)
+            opt_state = opt.update(grads, opt_state, params)
+            step += 1
+            losses.append(per_task)
+        per_task = torch.cat(losses)
+        metrics = {
+            "meta_loss": per_task.mean(),
+            "per_task_loss": per_task,
+            "learning_rate": opt.schedule(step - 1),
+        }
+        return MamlState(state.params, opt_state, step), metrics
+
+    return meta_step
+
+
+def make_parallel_meta_step(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: Mesh):
+    """The dp meta step on a 1-D mesh: `(state, tasks, key) -> (state,
+    metrics)`, the signature of train/maml.py's step with `key` (a tuple of
+    ints, or None for no dropout) in place of the generator. `tasks` is the
+    whole stacked batch on every rank.
+
+    Requires meta_batch / grad_accum (the tasks per update) to be divisible
+    by the mesh size, so every rank holds equal task shares."""
+    refuse_second_order(meta_cfg, "a mesh")
+    check_supported(model_cfg, meta_cfg)
+    if mesh.sp != 1:
+        raise ValueError(
+            "make_parallel_meta_step takes a 1-D dp mesh; a dp x sp mesh runs "
+            "parallel.meta_sp.make_shardmap_meta_step_2d"
+        )
+    per_update = meta_cfg.meta_batch // max(1, meta_cfg.grad_accum)
+    if per_update % mesh.size:
+        raise ValueError(
+            f"tasks per update ({per_update}) must be divisible by mesh size "
+            f"({mesh.size}) for even dp sharding"
+        )
+
+    def task_loss(params, task, gen, fast):
+        return adapt_and_query_loss(params, task, gen, model_cfg, meta_cfg, fast)
+
+    return make_mesh_meta_step(meta_cfg, mesh_batch_grad(mesh, shard_task_batch, task_loss))

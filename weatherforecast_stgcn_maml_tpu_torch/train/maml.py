@@ -114,7 +114,7 @@ def init_meta_state(
     return MamlState(model, MetaOptimizer.init(dict(model.named_parameters())), 0)
 
 
-def _grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]:
+def param_grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]:
     """d loss / d params; zero for a parameter the loss does not reach (the
     encoder under `model.stop_base_gradients`)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -152,19 +152,23 @@ def adapt_and_query_loss(
             train=True, generator=generator,
         )
         loss = masked_mse(preds, task.support_y[idx], task.node_mask)
-        grads = _grads(loss, fast_params)
-        with torch.no_grad():
-            if cfg.fused_inner_update:
-                # The whole-tree clip + SGD as one kernel (rows 8-9).
-                clip_sgd_update(fast_params, grads, cfg.inner_lr, cfg.clip_norm)
-            else:
-                clipped, _ = clip_global_norm_tree(
-                    dict(zip((n for n, _ in named), grads)), cfg.clip_norm
-                )
-                for name, p in named:
-                    p.sub_(cfg.inner_lr * clipped[name])
+        inner_sgd_update(named, param_grads(loss, fast_params), cfg)
 
     return _query_loss(fast, None, task, generator, model_cfg, cfg)
+
+
+@torch.no_grad()
+def inner_sgd_update(named: list, grads: list[torch.Tensor], cfg: MetaConfig) -> None:
+    """One first-order inner step in place: p <- p - inner_lr * clip(g),
+    the norm over the whole tree. `named` [(name, parameter)] in the JAX
+    leaf order, `grads` in the same order."""
+    if cfg.fused_inner_update:
+        # The whole-tree clip + SGD as one kernel (rows 8-9).
+        clip_sgd_update([p for _, p in named], grads, cfg.inner_lr, cfg.clip_norm)
+        return
+    clipped, _ = clip_global_norm_tree(dict(zip((n for n, _ in named), grads)), cfg.clip_norm)
+    for name, p in named:
+        p.sub_(cfg.inner_lr * clipped[name])
 
 
 def _query_loss(model, params, task, generator, model_cfg, cfg) -> torch.Tensor:
@@ -243,7 +247,7 @@ def task_batch_grad(
         loss = adapt_and_query_loss(
             params, task_at(tasks, i), generator, model_cfg, cfg, fast
         )
-        grads = _grads(loss, targets)
+        grads = param_grads(loss, targets)
         total = grads if total is None else [a + b for a, b in zip(total, grads)]
         losses.append(loss.detach())
     return torch.stack(losses), {n: g / batch for (n, _), g in zip(named, total)}

@@ -77,7 +77,27 @@ time):
      `cli meta-train --mesh --device cuda:0 -o mesh.spatial_devices=2`
      (one named card: gloo) for 1 float32 epoch, inner epochs cut to 2;
      each rank must launch rows 12-13 on its 256 rows, both ranks must
-     report the same finite losses, and one set of checkpoints must exist.
+     report the same finite losses, and one set of checkpoints must exist;
+ 15. hold the LSTM kernel routes and the single GCN layer against their
+     plain versions at full width, float32 and bfloat16, forward and every
+     gradient: the per-layer recurrence (rows 18-19) at xp [24, 512, 512],
+     wh [128, 512]; the eval stack as per-layer projections and
+     recurrences (row 20) at [1536, 24, 256] and [512, 24, 256], 4 layers of
+     128; one GCN layer (row 3) at [24, 512, 256] -> 256 and [72, 512, 24]
+     -> 256; time each, its plain version and its library call (row 20:
+     cuDNN's LSTM, beside row 2; row 3: torch.relu(a @ (h @ w) + b); rows
+     18-19: none, no PyTorch call runs a recurrence alone);
+ 16. drive those routes through the CLI: `meta-train -o
+     model.lstm_kernel=pallas` (1 epoch float32; rows 18 and 19 must launch
+     1456 times a meta step, rows 4-5 never), the FO meta-gradient of one
+     micro-batch on that route against the plain route, one inner step on
+     it (timed, with a torch.profiler breakdown), `forecast` (float32
+     and bfloat16, the Moscow forecast against `--device cpu`) and `validate
+     --no-plots` with `-o model.use_pallas_lstm=true` (row 20 launches, row
+     2 never), `forecast -o model.lstm_kernel=pallas` (4 launches of row 18
+     a predict), and `adapt -o model.use_pallas_lstm=true -o
+     model.lstm_dropout=0` (1 epoch: row 20 in train mode, row 4 never);
+     every loss must be finite.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -115,6 +135,10 @@ TPU_KERNELS = {
     "hvp_stack_bwd": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_hvp.py:395",
     "gcn_shard_layer": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn_shard.py:153",
     "gcn_shard_layer.backward": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn_shard.py:179",
+    "lstm_recurrence": "weatherforecast_stgcn_maml_tpu/ops/lstm_scan.py:122",
+    "lstm_recurrence.backward": "weatherforecast_stgcn_maml_tpu/ops/lstm_scan.py:148",
+    "fused_lstm_last_hidden": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm.py:63",
+    "fused_gcn_layer": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn.py:37",
 }
 CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 SOURCES = {
@@ -130,6 +154,10 @@ SOURCES = {
     "hvp_stack_bwd": CSRC + "fused_lstm_hvp.cu",
     "gcn_shard_layer": CSRC + "gemm.cu",
     "gcn_shard_layer.backward": CSRC + "fused_gcn_shard.cu",
+    "lstm_recurrence": CSRC + "lstm_scan.cu",
+    "lstm_recurrence.backward": CSRC + "lstm_scan.cu",
+    "fused_lstm_last_hidden": CSRC + "fused_lstm.cu",
+    "fused_gcn_layer": CSRC + "gemm.cu",
 }
 MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
@@ -277,6 +305,7 @@ def main() -> int:
     from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
     from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
     from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
+    from weatherforecast_stgcn_maml_tpu_torch.models.gcn import apply_gcn_layer
     from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
     from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
         apply_model,
@@ -285,6 +314,7 @@ def main() -> int:
     )
     from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import (
+        fused_gcn_layer,
         fused_gcn_stack,
         gcn_stack_plain,
     )
@@ -298,6 +328,11 @@ def main() -> int:
         lstm_stack_last_all,
         lstm_stack_plain,
         lstm_stack_train,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
+    from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import (
+        lstm_recurrence,
+        lstm_recurrence_plain,
     )
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import (
         clip_sgd_update,
@@ -436,9 +471,9 @@ def main() -> int:
             {"schema": "wfstgcn-meta-v1", "config": to_dict(ExperimentConfig(model=cfg))},
         )
 
-        def forecast(region, dt_name, out, device="cuda"):
+        def forecast(region, dt_name, out, device="cuda", *extra):
             argv = ["forecast", "--region", region, "--device", device,
-                    "-o", f"out_dir={out}", "-o", f"model.compute_dtype={dt_name}"]
+                    "-o", f"out_dir={out}", "-o", f"model.compute_dtype={dt_name}", *extra]
             with contextlib.redirect_stdout(io.StringIO()):
                 if cli.main(argv) != 0:
                     raise RuntimeError(f"forecast {argv} failed")
@@ -448,12 +483,12 @@ def main() -> int:
                 raise RuntimeError(f"forecast {region} {dt_name}: bad output {mean.shape}")
             return mean
 
-        def validate(dt_name):
+        def validate(dt_name, *extra):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["validate", "--region", "Moscow", "--no-plots",
                                "-o", f"out_dir={serve_dir}",
-                               "-o", f"model.compute_dtype={dt_name}"])
+                               "-o", f"model.compute_dtype={dt_name}", *extra])
             results = json.loads(buf.getvalue())
             values = [v for k, d in results.items() if isinstance(d, dict) for v in d.values()]
             if rc != 0 or not np.isfinite(values + [results["average_mse"]]).all():
@@ -1408,6 +1443,263 @@ def main() -> int:
         log(f"two ranks (dp 1 x sp 2, 256 rows each, gloo on one card), epoch 1 "
             f"({MESH_INNER_EPOCHS} inner epochs): meta_loss {rec['meta_loss']:.6f}, tasks "
             f"{rec['task_indices']}, {rec['epoch_seconds']:.2f} s  [{card}]")
+    # 15. The LSTM kernel routes (rows 18-20) and the single GCN layer (row
+    # 3) vs plain at full width, forward and every gradient.
+    def grads_of(fn, inputs, params, seed):
+        """(out, gradients of <out, fixed cotangent> w.r.t. inputs + params,
+        the graph's pieces for a timed backward)."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        ct = torch.from_numpy(np.random.default_rng(seed).standard_normal(out.shape)
+                              .astype(np.float32)).to(dev, out.dtype)
+        grads = torch.autograd.grad(out, leaves + list(params), ct, retain_graph=True)
+        return out.detach(), grads, (out, leaves + list(params), ct)
+
+    def hold(name, runs, inputs, params, dt_name, tol, seed):
+        """Kernel vs plain route: forward rtol = atol = tol, gradients
+        max|diff| / max|ref| <= tol; -> (forward, gradient) max abs errors
+        and each route's graph."""
+        res = {route: grads_of(fn, inputs, params, seed) for route, fn in runs}
+        torch.cuda.synchronize()
+        (got, got_g, got_graph), (ref, ref_g, ref_graph) = res["kernel"], res["plain"]
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+        fwd_err = float((got.float() - ref.float()).abs().max())
+        rels = [rel_err(g, r) for g, r in zip(got_g, ref_g)]
+        bwd_err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got_g, ref_g))
+        log(f"{name} {dt_name}: forward max_abs_err {fwd_err:.3e} (tol {tol}); gradients "
+            f"max|diff|/max|ref| {max(rels):.3e} (tol {tol}), per input "
+            f"{[f'{r:.1e}' for r in rels]}")
+        if max(rels) > tol:
+            raise RuntimeError(f"{name} {dt_name}: gradient error {max(rels):.3e} > {tol}")
+        return fwd_err, bwd_err, {"kernel": got_graph, "plain": ref_graph}
+
+    def time_routes(runs, graphs, inputs):
+        """{route: (forward ms with autograd on, backward ms)} by CUDA events."""
+        times = {}
+        for route, fn in runs:
+            leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+            fwd = cuda_ms(torch, lambda: fn(*leaves))
+            out, xs, ct = graphs[route]
+            bwd = cuda_ms(torch, lambda: torch.autograd.grad(out, xs, ct, retain_graph=True))
+            times[route] = (fwd, bwd)
+        return times
+
+    g4 = 4 * lh
+    xp = torch.from_numpy(np.random.default_rng(60).standard_normal((w_len, n, g4))
+                          .astype(np.float32)).to(dev)
+    wh = lstm[0].wh
+    x_gcn24 = torch.from_numpy(np.random.default_rng(62).standard_normal((w_len, n, hid))
+                               .astype(np.float32)).to(dev)
+    with Phase("LSTM routes and GCN layer kernels vs plain"):
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            # Rows 18-19: one layer's recurrence at the inner step's shape.
+            runs = (("kernel", lambda a: lstm_recurrence(a, wh, compute_dtype=dt)),
+                    ("plain", lambda a: lstm_recurrence_plain(a, wh, dt)))
+            fwd_err, bwd_err, graphs = hold(f"rows 18-19 xp {list(xp.shape)}", runs, [xp], [wh],
+                                            dt_name, tol, 61)
+            times = time_routes(runs, graphs, [xp])
+            log(f"rows 18-19 {dt_name} xp [24, 512, 512]: kernel forward {times['kernel'][0]:.4f} "
+                f"ms, backward {times['kernel'][1]:.4f} ms; plain forward "
+                f"{times['plain'][0]:.4f} ms, backward {times['plain'][1]:.4f} ms  [{card}]")
+            if dt_name == "float32":
+                measured["lstm_recurrence"] = {
+                    "max_abs_err": fwd_err, "ms": times["kernel"][0],
+                    "plain_ms": times["plain"][0], "library_ms": None}
+                measured["lstm_recurrence.backward"] = {
+                    "max_abs_err": bwd_err, "ms": times["kernel"][1],
+                    "plain_ms": times["plain"][1], "library_ms": None}
+            del graphs
+
+            # Row 20: the eval stack, at validate's 3 windows and at 1; the
+            # gradients (the plain route's, recomputed) at 1.
+            with torch.no_grad():
+                for xr in (x_lstm, x_lstm[:n]):
+                    got = fused_lstm_last_hidden(lstm, xr, compute_dtype=dt)
+                    ref = lstm_stack_plain(lstm, xr, dt)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+                    err = float((got - ref).abs().max())
+                    log(f"row 20 {dt_name} x {list(xr.shape)}: forward max_abs_err {err:.3e} "
+                        f"(tol {tol})")
+                    if dt_name == "float32" and xr.shape[0] == 3 * n:
+                        measured["fused_lstm_last_hidden"] = {"max_abs_err": err}
+            runs = (("kernel", lambda a: fused_lstm_last_hidden(lstm, a, compute_dtype=dt)),
+                    ("plain", lambda a: lstm_stack_plain(lstm, a, dt)))
+            hold(f"row 20 x {[n, w_len, hid]}", runs, [x_lstm[:n]], lstm_params, dt_name, tol, 63)
+            with torch.inference_mode():
+                ms = cuda_ms(torch, lambda: fused_lstm_last_hidden(lstm, x_lstm, compute_dtype=dt))
+                plain_ms = cuda_ms(torch, lambda: lstm_stack_plain(lstm, x_lstm, dt))
+                row2_ms = cuda_ms(torch, lambda: lstm_stack_last_all(lstm, x_lstm, compute_dtype=dt))
+                lib_ms = cuda_ms(torch, lambda: cudnn(x_lstm)) if dt_name == "float32" else None
+            log(f"row 20 {dt_name} [1536, 24, 256]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                f"row 2 (the same function) {row2_ms:.4f} ms"
+                + (f"; torch.nn.LSTM (cuDNN) {lib_ms:.4f} ms" if lib_ms else "") + f"  [{card}]")
+            if dt_name == "float32":
+                measured["fused_lstm_last_hidden"].update(ms=ms, plain_ms=plain_ms,
+                                                          library_ms=lib_ms, row2_ms=row2_ms)
+
+            # Row 3: one GCN layer, the encoder's layer 1 (256 -> 256) at one
+            # window and its layer 0 (24 -> 256) at three.
+            for label, layer, xg in (("[24, 512, 256] -> 256", enc[1], x_gcn24),
+                                     ("[72, 512, 24] -> 256", enc[0], x_gcn)):
+                runs = (("kernel", lambda h: fused_gcn_layer(layer, a_hat, h, compute_dtype=dt)),
+                        ("plain", lambda h: torch.relu(
+                            apply_gcn_layer(layer, a_hat, h, compute_dtype=dt))))
+                fwd_err, bwd_err, graphs = hold(f"row 3 {label}", runs, [xg],
+                                                [layer.w, layer.b], dt_name, tol, 64)
+                if xg is not x_gcn24:
+                    continue
+                times = time_routes(runs, graphs, [xg])
+                with torch.no_grad():
+                    fwd_ms = {route: cuda_ms(torch, lambda: fn(xg)) for route, fn in runs}
+                    lib_ms = cuda_ms(torch, lambda: torch.relu(a_hat @ (xg @ layer.w) + layer.b))
+                log(f"row 3 {dt_name} {label}: kernel forward {fwd_ms['kernel']:.4f} ms "
+                    f"({times['kernel'][0]:.4f} with autograd on), backward "
+                    f"{times['kernel'][1]:.4f} ms; plain forward {fwd_ms['plain']:.4f} ms, "
+                    f"backward {times['plain'][1]:.4f} ms; torch.relu(a @ (h @ w) + b) float32 "
+                    f"{lib_ms:.4f} ms  [{card}]")
+                if dt_name == "float32":
+                    measured["fused_gcn_layer"] = {
+                        "max_abs_err": fwd_err, "ms": fwd_ms["kernel"],
+                        "plain_ms": fwd_ms["plain"], "library_ms": lib_ms}
+                del graphs
+        rec_flops = 2 * w_len * n * lh * g4
+        rec_io = 4 * (w_len * n * g4 + lh * g4 + 2 * w_len * n * lh)  # xp, wh; h_all, c_all
+        measured["lstm_recurrence"].update(flops=rec_flops, bytes=rec_io)
+        # g, xp, h_all, c_all, wh in; dxp (= dgates), dwh out.
+        measured["lstm_recurrence.backward"].update(
+            flops=2 * rec_flops,
+            bytes=4 * (w_len * n * lh + w_len * n * g4 + 2 * w_len * n * lh + lh * g4)
+            + 4 * (w_len * n * g4 + lh * g4))
+        measured["fused_lstm_last_hidden"].update(
+            flops=measured["lstm_stack_last_all"]["flops"],
+            bytes=measured["lstm_stack_last_all"]["bytes"])
+        measured["fused_gcn_layer"].update(
+            flops=2 * w_len * (n * hid * hid + n * n * hid),
+            bytes=4 * (n * n + 2 * w_len * n * hid + hid * hid + hid))
+        del xp, x_gcn24
+
+    # 16. The LSTM routes through the CLI: the main runs of rows 18-20.
+    with Phase("LSTM routes through the CLI"):
+        for fn in (lstm_recurrence, lstm_stack_train):
+            fn.launches = fn.backward_launches = 0
+        fused_gcn_layer.launches = fused_gcn_layer.backward_launches = 0
+        rec_logs = meta_train("float32", 1, "-o", "model.lstm_kernel=pallas", out="recurrence")
+        route_launches = {
+            "lstm_recurrence": lstm_recurrence.launches,
+            "lstm_recurrence.backward": lstm_recurrence.backward_launches,
+            "lstm_stack_train": lstm_stack_train.launches,
+            "lstm_stack_train.backward": lstm_stack_train.backward_launches,
+        }
+        log(f"launches in one meta step with lstm_kernel=pallas: {route_launches}")
+        forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
+        want = {"lstm_recurrence": cfg.lstm_layers * forwards,
+                "lstm_recurrence.backward": cfg.lstm_layers * forwards,
+                "lstm_stack_train": 0, "lstm_stack_train.backward": 0}
+        if route_launches != want:
+            raise RuntimeError(f"meta-train -o model.lstm_kernel=pallas launched "
+                               f"{route_launches}, not {want}")
+        for r in rec_logs:
+            if not np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all():
+                raise RuntimeError(f"meta-train lstm_kernel=pallas: non-finite loss {r}")
+            log(f"  lstm_kernel=pallas epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
+                f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
+
+        # The FO meta-gradient of one micro-batch on that route vs the plain route.
+        for dt_name, tol in TOL.items():
+            res = {}
+            for route, mc, mt in (
+                    ("kernel", ModelConfig(compute_dtype=dt_name, lstm_kernel="pallas"), one_epoch),
+                    ("plain", ModelConfig(compute_dtype=dt_name, use_pallas_gcn=False,
+                                          lstm_kernel="xla"),
+                     dataclasses.replace(one_epoch, fused_inner_update=False))):
+                g = torch.Generator(device=dev).manual_seed(11)
+                res[route] = task_batch_grad(model, micro, g, mc, mt)
+            torch.cuda.synchronize()
+            (loss_k, grad_k), (loss_p, grad_p) = res["kernel"], res["plain"]
+            rels = {k: rel_err(grad_k[k], grad_p[k]) for k in grad_k}
+            worst = max(rels, key=rels.get)
+            log(f"meta-gradient lstm_kernel=pallas {dt_name}: per-task query losses "
+                f"{loss_k.tolist()} vs {loss_p.tolist()}; gradient max|diff|/max|ref| "
+                f"{rels[worst]:.3e} at {worst} (tol {tol})")
+            torch.testing.assert_close(loss_k, loss_p, rtol=tol, atol=tol)
+            if rels[worst] > tol:
+                raise RuntimeError(f"meta-gradient lstm_kernel=pallas {dt_name}: {worst} off by "
+                                   f"{rels[worst]:.3e}")
+        del res
+
+        # One inner step on that route, timed and profiled (phase 11 times
+        # the default route's).
+        rec_cfg = ModelConfig(lstm_kernel="pallas")
+        state = init_meta_state(torch.Generator().manual_seed(1), rec_cfg, meta_cfg, device=dev)
+        task = task_at(tasks, 0)
+        params = [p for _, p in sorted(state.params.named_parameters(),
+                                       key=lambda kv: leaf_order(kv[0]))]
+        g = torch.Generator(device=dev).manual_seed(2)
+
+        def rec_inner_step():
+            loss = masked_mse(apply_model(state.params, task.a_hat, task.support_x[0],
+                                          task.koppen, rec_cfg, train=True, generator=g),
+                              task.support_y[0], task.node_mask)
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                clip_sgd_update(params, grads, meta_cfg.inner_lr, meta_cfg.clip_norm)
+
+        ms = host_ms(torch, rec_inner_step)
+        log(f"inner step float32 with lstm_kernel=pallas (one window, fused update): "
+            f"{ms:.3f} ms  [{card}]")
+        profile_steps(torch, rec_inner_step, "float32 inner steps, lstm_kernel=pallas", card,
+                      host_rows=6)
+        del state, params
+
+        # Serving with use_pallas_lstm: row 20, never row 2.
+        row20 = ("-o", "model.use_pallas_lstm=true")
+        fused_lstm_last_hidden.launches = lstm_stack_last_all.launches = 0
+        served20 = {dt_name: forecast("Moscow", dt_name, serve_dir, "cuda", *row20)
+                    for dt_name in TOL}
+        validate("float32", *row20)
+        serve20 = {"fused_lstm_last_hidden": fused_lstm_last_hidden.launches,
+                   "lstm_stack_last_all": lstm_stack_last_all.launches}
+        log(f"launches serving with use_pallas_lstm (2 forecasts, 1 validate): {serve20}")
+        if serve20["fused_lstm_last_hidden"] == 0 or serve20["lstm_stack_last_all"] != 0:
+            raise RuntimeError(f"use_pallas_lstm serving launched {serve20}")
+        route_launches["fused_lstm_last_hidden"] = serve20["fused_lstm_last_hidden"]
+        for dt_name, tol in TOL.items():
+            ref = forecast("Moscow", dt_name, serve_dir, "cpu", *row20)
+            np.testing.assert_allclose(served20[dt_name], ref, rtol=tol, atol=tol)
+            log(f"forecast Moscow use_pallas_lstm {dt_name}: card vs plain route max_abs_err "
+                f"{float(np.abs(served20[dt_name] - ref).max()):.3e} (tol {tol})")
+
+        # Serving with lstm_kernel=pallas: one predict, a recurrence a layer.
+        lstm_recurrence.launches = lstm_stack_last_all.launches = 0
+        forecast("Moscow", "float32", serve_dir, "cuda", "-o", "model.lstm_kernel=pallas")
+        if (lstm_recurrence.launches, lstm_stack_last_all.launches) != (cfg.lstm_layers, 0):
+            raise RuntimeError(f"forecast -o model.lstm_kernel=pallas launched row 18 "
+                               f"{lstm_recurrence.launches} times, row 2 "
+                               f"{lstm_stack_last_all.launches}")
+        log(f"forecast lstm_kernel=pallas: row 18 launched {lstm_recurrence.launches} times "
+            f"in one predict")
+
+        # Adaptation with use_pallas_lstm at dropout 0: row 20 in train mode.
+        fused_lstm_last_hidden.launches = lstm_stack_train.launches = 0
+        out = os.path.join(out_root, "adapt_row20")
+        _, _, secs = run_cli([
+            "adapt", "--region", "Moscow",
+            "--meta-ckpt", os.path.join(adapt_dir, "meta", "ckpt_best"),
+            "-o", f"out_dir={out}", "-o", "adapt.epochs=1", *row20,
+            "-o", "model.lstm_dropout=0"])
+        side = load_meta(adapted_ckpt_path(out, "Moscow", boxes["Moscow"]))
+        values = [side["val_mse"], *side["epoch_losses"]]
+        if not np.isfinite(values).all():
+            raise RuntimeError(f"adapt use_pallas_lstm: {values}")
+        log(f"adapt Moscow use_pallas_lstm lstm_dropout=0, 1 epoch: {secs:.1f} s, epoch losses "
+            f"{side['epoch_losses']}, val_mse {side['val_mse']:.6f}; row 20 launched "
+            f"{fused_lstm_last_hidden.launches} times ({len(batches)} train steps), row 4 "
+            f"{lstm_stack_train.launches}  [{card}]")
+        if fused_lstm_last_hidden.launches < len(batches) or lstm_stack_train.launches:
+            raise RuntimeError("adapt with use_pallas_lstm did not train through row 20")
+        route_launches["fused_gcn_layer"] = fused_gcn_layer.launches  # on no path: 0
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1415,7 +1707,7 @@ def main() -> int:
         m = measured[name]
         bound, bound_by = bound_ms(m["bytes"], m["flops"])
         count = next(src[name] for src in (launches, train_launches, so_launches,
-                                           shard_launches) if name in src)
+                                           shard_launches, route_launches) if name in src)
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -265,7 +265,7 @@ def test_cli_adapt_then_validate_then_pipeline(base_ckpt, tmp_path):
     (["pipeline", "--regions", "Moscow", "--shard", "1", "--no-plots"], SystemExit, "BOTH"),
     (["pipeline", "--regions", "Atlantis", "--no-plots"], SystemExit, "unknown region"),
     (["adapt"], SystemExit, "--region NAME"),
-    (["adapt", "--region", "Moscow", "-o", "model.lstm_kernel=pallas"], NotImplementedError,
+    (["adapt", "--region", "Moscow", "-o", "model.lstm_wavefront=true"], NotImplementedError,
      "not ported"),
 ])
 def test_cli_pipeline_and_adapt_refusals(base_ckpt, tmp_path, argv, error, match):

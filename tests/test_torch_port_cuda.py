@@ -11,6 +11,8 @@ forwards as rtol = atol and on gradients as max|diff| / max|ref| (a
 reduction over thousands of terms in another order).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,17 +20,20 @@ import torch
 from weatherforecast_stgcn_maml_tpu_torch.config import DataConfig, MetaConfig, ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
-from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
+from weatherforecast_stgcn_maml_tpu_torch.models.common import Dense, draw_mask
+from weatherforecast_stgcn_maml_tpu_torch.models.gcn import apply_gcn_layer
 from weatherforecast_stgcn_maml_tpu_torch.models.lstm import init_lstm
-from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
+from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder
 from weatherforecast_stgcn_maml_tpu_torch.ops import (
     fused_gcn,
     fused_gcn_shard,
     fused_gcn_train,
+    fused_lstm,
     fused_lstm_hvp,
     fused_lstm_stack,
     fused_sgd,
+    lstm_scan,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import task_batch_grad
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks
@@ -459,3 +464,156 @@ def test_sharded_meta_gradient_matches_unsharded(dev):
     torch.testing.assert_close(losses, ref_losses, rtol=tol, atol=tol)
     for name, g in grads.items():
         assert _rel(g, ref_grads[name]) <= tol, (name, _rel(g, ref_grads[name]))
+
+
+# Rows 18-19 (the per-layer recurrence), 20 (the eval stack as per-layer
+# projections and recurrences) and 3 (one GCN layer), at small widths and
+# at the reference width (T = 24, 512 rows, 4H = 512; [512, 24, 256] with 4
+# layers of 128; [24, 512, 256] -> 256).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 100, 32), (7, 3000, 12), (24, 512, 128)])
+def test_lstm_recurrence_kernels_match_plain(dev, dtype, shape):
+    """Rows 18-19: h_all, dxp and dwh against the plain recurrence under
+    autograd, at row counts that pick each row tile."""
+    t_len, rows, hidden = shape
+    draw = np.random.default_rng(7)
+    xp = torch.from_numpy(draw.normal(size=(t_len, rows, 4 * hidden)).astype(np.float32)).to(dev)
+    wh = torch.from_numpy((draw.normal(size=(hidden, 4 * hidden)) * 0.1).astype(np.float32)
+                          ).to(dev).requires_grad_(True)
+    before = (lstm_scan.lstm_recurrence.launches, lstm_scan.lstm_recurrence.backward_launches)
+    got, got_g = _fwd_bwd(lambda a: lstm_scan.lstm_recurrence(a, wh, compute_dtype=dtype),
+                          [xp], [wh])
+    assert (lstm_scan.lstm_recurrence.launches,
+            lstm_scan.lstm_recurrence.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_g = _fwd_bwd(lambda a: lstm_scan.lstm_recurrence_plain(a, wh, dtype), [xp], [wh])
+    torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+def test_lstm_recurrence_refuses_what_it_does_not_take(dev):
+    xp = torch.zeros((3, 8, 4 * 300), device=dev)
+    with pytest.raises(ValueError, match="up to 256"):
+        lstm_scan.lstm_recurrence(xp, torch.zeros((300, 1200), device=dev))
+    with pytest.raises(ValueError, match="disagree"):
+        lstm_scan.lstm_recurrence(xp[..., :64], torch.zeros((8, 32), device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        lstm_scan.lstm_recurrence(xp[..., :64].double(), torch.zeros((16, 64), device=dev))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        lstm_scan.lstm_recurrence(xp[..., :64], torch.zeros((16, 64), device=dev),
+                                  compute_dtype=torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(100, 7, 24, 32, 3), (3000, 7, 24, 32, 1),
+                                   (512, 24, 256, 128, 4)])
+def test_fused_lstm_kernel_matches_plain(dev, dtype, shape):
+    """Row 20's forward against the plain layerwise route, and its
+    gradients (the plain route's, recomputed) against autograd of it."""
+    rows, t_len, c_in, hidden, layers = shape
+    lstm = init_lstm(torch.Generator().manual_seed(1), c_in, hidden, layers).to(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(6).normal(size=(rows, t_len, c_in)).astype(np.float32)).to(dev)
+    params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
+    before = fused_lstm.fused_lstm_last_hidden.launches
+    got, got_g = _fwd_bwd(
+        lambda a: fused_lstm.fused_lstm_last_hidden(lstm.layers, a, compute_dtype=dtype),
+        [x], params)
+    assert fused_lstm.fused_lstm_last_hidden.launches == before + 1
+    ref, ref_g = _fwd_bwd(lambda a: fused_lstm_stack.lstm_stack_plain(lstm.layers, a, dtype),
+                          [x], params)
+    torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [((3, 7), 117, 24, 64), ((24,), 512, 256, 256)])
+def test_gcn_layer_kernels_match_plain(dev, dtype, shape):
+    """Row 3: relu(A_hat (h W) + b) and dh, dW, db against the plain layer
+    under autograd."""
+    lead, nodes, c_in, c_out = shape
+    draw = np.random.default_rng(8)
+    if nodes < 128:
+        a_hat = _a_hat(dev)[:nodes, :nodes].contiguous()
+    else:  # the Moscow box's 441 nodes padded to 512
+        a_hat = torch.from_numpy(build_region_graph(
+            np.arange(10.0, 15.25, 0.25), np.arange(20.0, 25.25, 0.25)).a_hat).to(dev)
+    layer = Dense(*(torch.from_numpy((draw.normal(size=s) * 0.1).astype(np.float32))
+                    for s in ((c_in, c_out), (c_out,)))).to(dev)
+    h = torch.from_numpy(draw.normal(size=(*lead, a_hat.shape[0], c_in)).astype(np.float32)).to(dev)
+    before = (fused_gcn.fused_gcn_layer.launches, fused_gcn.fused_gcn_layer.backward_launches)
+    got, got_g = _fwd_bwd(
+        lambda a: fused_gcn.fused_gcn_layer(layer, a_hat, a, compute_dtype=dtype),
+        [h], [layer.w, layer.b])
+    assert (fused_gcn.fused_gcn_layer.launches,
+            fused_gcn.fused_gcn_layer.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_g = _fwd_bwd(
+        lambda a: torch.relu(apply_gcn_layer(layer, a_hat, a, compute_dtype=dtype)),
+        [h], [layer.w, layer.b])
+    assert got.dtype == torch.float32 and got.shape == (*lead, a_hat.shape[0], c_out)
+    torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [dict(use_pallas_lstm=True), dict(lstm_kernel="pallas")])
+def test_lstm_routes_drive_their_kernels_in_the_model(dev, flags):
+    """Eval and train mode through the hybrid: the route's kernels launch,
+    the others do not, and the output matches the plain route."""
+    cfg = dataclasses.replace(CFG, lstm_dropout=0.0, **flags)
+    model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
+    a_hat = _a_hat(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(7, 128, 16)).astype(np.float32)).to(dev)
+    counters = (fused_lstm.fused_lstm_last_hidden, lstm_scan.lstm_recurrence,
+                fused_lstm_stack.lstm_stack_last_all, fused_lstm_stack.lstm_stack_train)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        got = apply_model(model, a_hat, x, 3, cfg)
+        ref = apply_model(model, a_hat, x, 3,
+                          dataclasses.replace(cfg, use_pallas_lstm=False, lstm_kernel="xla"))
+    out = apply_model(model, a_hat, x, 3, cfg, train=True)
+    out.sum().backward()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    want = [2, 0, 0, 0] if flags.get("use_pallas_lstm") else [0, 2 * cfg.lstm_layers, 0, 0]
+    assert launched == want, launched
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_split_lstm_biases_run_the_kernels(dev):
+    """A model whose LSTM layers carry torch's two biases (`load_params`)
+    trains through the default route's kernels as through the plain route,
+    each of the two biases taking the fused bias's gradient."""
+    from weatherforecast_stgcn_maml_tpu_torch.models.registry import load_params
+
+    cfg = dataclasses.replace(CFG, lstm_dropout=0.0, gcn_dropout=0.0)
+    model = init_model(torch.Generator().manual_seed(3), cfg)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.startswith("lstm.") and k.endswith(".b"):
+            sd[k + "_ih"], sd[k + "_hh"] = 0.5 * v, 0.5 * v
+        else:
+            sd[k] = v
+    load_params(model, sd)
+    model = model.to(dev)
+    a_hat = _a_hat(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(7, 128, 16)).astype(np.float32)).to(dev)
+    plain = dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla")
+    grads = []
+    for route in (cfg, plain):
+        out = apply_model(model, a_hat, x, 3, route, train=True)
+        grads.append(dict(zip((n for n, _ in model.named_parameters()),
+                              torch.autograd.grad(out.sum(), list(model.parameters())))))
+    for name, g in grads[0].items():
+        assert _rel(g, grads[1][name]) <= 1e-5, (name, _rel(g, grads[1][name]))
+    torch.testing.assert_close(grads[0]["lstm.layers.0.b_ih"], grads[0]["lstm.layers.0.b_hh"])

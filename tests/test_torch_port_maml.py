@@ -275,9 +275,7 @@ def test_unported_meta_settings_raise(override):
         maml.make_meta_step(tcfg.ModelConfig(**MODEL), cfg)
 
 
-@pytest.mark.parametrize("override", [
-    dict(lstm_kernel="pallas"), dict(use_pallas_lstm=True), dict(lstm_wavefront=True),
-])
+@pytest.mark.parametrize("override", [dict(lstm_wavefront=True)])
 def test_unported_model_routes_raise_in_meta_step(override):
     with pytest.raises(NotImplementedError, match="not ported"):
         maml.make_meta_step(tcfg.ModelConfig(**{**MODEL, **override}), tcfg.MetaConfig(**META))

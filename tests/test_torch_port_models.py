@@ -165,10 +165,7 @@ def test_apply_hybrid_routes_match_jax(route):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL["float32"])
 
 
-@pytest.mark.parametrize(
-    "route",
-    [dict(lstm_kernel="pallas"), dict(use_pallas_lstm=True), dict(lstm_wavefront=True)],
-)
+@pytest.mark.parametrize("route", [dict(lstm_wavefront=True)])
 def test_unported_routes_raise(route):
     _, model = _models("hybrid")
     a_hat, x = _batch()

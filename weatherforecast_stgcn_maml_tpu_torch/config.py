@@ -98,11 +98,15 @@ class ModelConfig:
     # True: the encoder runs as one fused GCN stack (ops/fused_gcn.py, the
     # hand-written CUDA kernel on a card). False: the plain layerwise route.
     use_pallas_gcn: bool = True
-    # The old eval-only LSTM kernel of the JAX package; not ported (raises).
+    # The eval LSTM stack as per-layer projections and recurrences
+    # (ops/fused_lstm.py, kernel row 20 on a card; its backward
+    # differentiates the plain route). The hybrid takes it in eval, and in
+    # train mode when lstm_dropout == 0; otherwise lstm_kernel decides.
     use_pallas_lstm: bool = False
     # "auto" / "pallas_stack": the fused LSTM stack (ops/fused_lstm_stack.py,
-    # the hand-written CUDA kernel on a card). "xla": the plain layerwise
-    # route. "pallas" (the per-layer recurrence kernel) is not ported.
+    # the hand-written CUDA kernel on a card). "pallas": the layerwise route
+    # with the per-layer recurrence kernel (ops/lstm_scan.py, rows 18-19).
+    # "xla": the plain layerwise route.
     lstm_kernel: str = "auto"
     # Scan unroll factor of the JAX package; the port's loops do not unroll.
     lstm_unroll: int = 0

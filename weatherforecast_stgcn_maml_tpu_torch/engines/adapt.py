@@ -31,7 +31,7 @@ from weatherforecast_stgcn_maml_tpu_torch.data.windows import WindowSpec, contig
 from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
 from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype, resolve_dtype
-from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
+from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model, load_params
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import (
     ClimateLRSchedule,
     adaptation_optimizer,
@@ -128,7 +128,7 @@ def run_adaptation(
     state_dict, meta = load_checkpoint(meta_ckpt)
     check_family(meta, model_cfg.family, meta_ckpt)
     model = init_model(torch.Generator().manual_seed(0), model_cfg)
-    model.load_state_dict(state_dict)
+    load_params(model, state_dict)
     # Parameters are float32, and float64 under float64 compute (the JAX
     # package's x64 mode), so that a float64 run trains in float64.
     model = model.to(device, accum_dtype(resolve_dtype(model_cfg.compute_dtype)))

@@ -33,7 +33,7 @@ from weatherforecast_stgcn_maml_tpu_torch.eval.metrics import (
     variable_metrics,
 )
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
-from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
+from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model, load_params
 from weatherforecast_stgcn_maml_tpu_torch.train.supervised import make_predict
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import (
     check_family,
@@ -87,7 +87,7 @@ def _load_params_and_stats(cfg: ExperimentConfig, box, region_name, log_cb, devi
     state_dict, meta = load_checkpoint(path)
     check_family(meta, cfg.model.family, path)
     model = init_model(torch.Generator().manual_seed(0), cfg.model)
-    model.load_state_dict(state_dict)
+    load_params(model, state_dict)
     model.requires_grad_(False)
     stats = (
         NormStats.from_dict(meta["stats"])

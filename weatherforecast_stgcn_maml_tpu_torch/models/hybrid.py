@@ -31,6 +31,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import (
     init_encoder,
     koppen_features,
 )
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
 
 
 class HybridModel(nn.Module):
@@ -97,10 +98,9 @@ def apply_hybrid(
     Returns:
       [..., H, N, 12] multi-step forecasts in normalized units.
     """
-    if cfg.use_pallas_lstm or cfg.lstm_wavefront:
+    if cfg.lstm_wavefront:
         raise NotImplementedError(
-            "model.use_pallas_lstm and model.lstm_wavefront select LSTM "
-            "routes that are not ported"
+            "model.lstm_wavefront selects an LSTM route that is not ported"
         )
     dtype = resolve_dtype(cfg.compute_dtype)
     lead = x.shape[:-3]
@@ -122,10 +122,14 @@ def apply_hybrid(
     # [..., W, N, hidden] -> [(...)*N, W, hidden]: nodes (of every window)
     # become the LSTM's rows, row b*N + node.
     h = h.transpose(-3, -2).reshape(-1, w, h.shape[-1])
-    feat = apply_lstm(
-        params.lstm, h, train=train, masks=masks.get("lstm"),
-        dropout_rate=cfg.lstm_dropout, compute_dtype=dtype, kernel=cfg.lstm_kernel,
-    )
+    if cfg.use_pallas_lstm and (not train or cfg.lstm_dropout == 0.0):
+        # The eval stack's kernel (row 20): no dropout to apply.
+        feat = fused_lstm_last_hidden(params.lstm.layers, h, compute_dtype=dtype)
+    else:
+        feat = apply_lstm(
+            params.lstm, h, train=train, masks=masks.get("lstm"),
+            dropout_rate=cfg.lstm_dropout, compute_dtype=dtype, kernel=cfg.lstm_kernel,
+        )
     if masks.get("head") is not None:
         feat = apply_mask(feat, masks["head"], 1.0 - cfg.lstm_dropout)
     out = apply_dense(params.head, feat, compute_dtype=dtype)  # [rows, H*12]

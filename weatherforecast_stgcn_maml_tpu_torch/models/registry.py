@@ -18,6 +18,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import (
     hybrid_masks,
     init_hybrid,
 )
+from weatherforecast_stgcn_maml_tpu_torch.models.lstm import split_lstm_biases
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import (
     apply_stgcn_forecaster,
     init_stgcn_forecaster,
@@ -55,6 +56,15 @@ def apply_model(
         params, a_hat, x, koppen_code, cfg, train=train, generator=generator,
         masks=masks,
     )
+
+
+def load_params(model: nn.Module, state_dict) -> None:
+    """model.load_state_dict(state_dict), first giving the LSTM layers
+    torch's two biases where the state_dict carries them (`b_ih`, `b_hh`,
+    as a reference checkpoint does)."""
+    if any(k.endswith(".b_ih") for k in state_dict) and hasattr(model, "lstm"):
+        split_lstm_biases(model.lstm)
+    model.load_state_dict(state_dict)
 
 
 def draw_masks(cfg: ModelConfig, generator: torch.Generator | None, x: torch.Tensor) -> dict:

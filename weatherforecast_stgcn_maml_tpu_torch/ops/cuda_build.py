@@ -57,6 +57,9 @@ _SIGNATURES = {
                         _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_hvp_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
                         _P, _P, _I, _I, _I, _I, _I, _P],
+    "wf_lstm_scan_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "wf_lstm_scan_bwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "wf_fused_lstm_last": [_I, _I, _P, _PP, _PP, _PP, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],
     "wf_clip_sgd_chunks": [_I, _PLL],
 }

@@ -6,9 +6,18 @@ a CUDA tensor and its plain PyTorch version, `gcn_stack_plain`, on a CPU
 tensor or under float64. On a CUDA tensor a shape or dtype the kernel does
 not take raises; nothing falls back to the plain version there.
 
+`fused_gcn_layer` is one layer, relu(A_hat @ (h @ W) + b), with a
+hand-written backward: on a CUDA tensor its forward is that launcher at one
+layer (kernel row 3) and its backward (the relu gate, A_hat^T g, dW, dh,
+db) runs the kernels of the training stack's backward (ops/fused_gcn_train.py)
+behind a `torch.autograd.Function`; on a CPU tensor or under float64 it is
+the plain layer, differentiated by autograd.
+
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/fused_gcn.py`
-(`fused_gcn_stack`, whose Pallas body is `_stack_kernel`). The TPU kernel
-only runs where its VMEM budget allows; the CUDA kernel has no such gate.
+(`fused_gcn_stack`, whose Pallas body is `_stack_kernel`, and
+`fused_gcn_layer`, Pallas body `_kernel`, custom VJP `_fused_bwd`). The TPU
+kernel only runs where its VMEM budget allows; the CUDA kernel has no such
+gate.
 """
 
 from __future__ import annotations
@@ -60,8 +69,8 @@ def check_gcn_inputs(weights, biases, a_hat, h, node_multiple=NODE_MULTIPLE) -> 
         c_in = w.shape[1]
 
 
-def _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype):
-    check_gcn_inputs(weights, biases, a_hat, h)
+def _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype, node_multiple=NODE_MULTIPLE):
+    check_gcn_inputs(weights, biases, a_hat, h, node_multiple)
     dev = h.device
     n, c_in = h.shape[-2:]
     cur = h.reshape(-1, n, c_in).contiguous()
@@ -116,3 +125,58 @@ def fused_gcn_stack(
 
 
 fused_gcn_stack.launches = 0  # stack runs through the CUDA kernel
+
+
+class _FusedGcnLayer(torch.autograd.Function):
+    """Row 3 over (h, w, b): the forward is the stack launcher at one layer;
+    the backward is JAX's custom VJP. A_hat takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, a_hat, compute_dtype, w, b):
+        hb = h.reshape(-1, *h.shape[-2:]).contiguous()
+        a, w = a_hat.contiguous(), w.contiguous()
+        out = _gcn_stack_cuda([w], [b.contiguous()], a, hb, compute_dtype, node_multiple=1)
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(hb, a, w, out)
+        fused_gcn_layer.launches += 1
+        return out.reshape(*h.shape[:-1], w.shape[1])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_train import _backward
+
+        hb, a, w, out = ctx.saved_tensors
+        # The relu gate on g, db = sum g, A_hat^T g rounded to the compute
+        # dtype, dW = h^T (A_hat^T g), dh = (A_hat^T g) W^T (no mask).
+        dh, (dw,), (db,) = _backward(
+            g.reshape(out.shape).contiguous(), hb, a, [w], None, [out], 1.0,
+            ctx.compute_dtype,
+        )
+        fused_gcn_layer.backward_launches += 1
+        return dh.to(hb.dtype).reshape(g.shape[:-1] + (hb.shape[-1],)), None, None, dw, db
+
+
+def fused_gcn_layer(
+    layer, a_hat: torch.Tensor, h: torch.Tensor, *,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """One GCN layer, relu(A_hat @ (h @ W) + b), differentiable (first order
+    on a card).
+
+    Args:
+      layer: `w` [C_in, C_out], `b` [C_out] (models/common.Dense).
+      a_hat: [N, N] float32; h: [..., N, C_in].
+    Returns [..., N, C_out] float32 (float64 under float64).
+    """
+    if h.device.type == "cpu" or compute_dtype == torch.float64:
+        return torch.relu(apply_gcn_layer(layer, a_hat, h, compute_dtype=compute_dtype))
+    if h.device.type != "cuda":
+        raise TypeError(f"no GCN kernel for device {h.device}")
+    cuda_build.dtype_code(compute_dtype)
+    cuda_build.dtype_code(h.dtype)
+    return _FusedGcnLayer.apply(h, a_hat, compute_dtype, layer.w, layer.b)
+
+
+fused_gcn_layer.launches = 0  # forwards run through the CUDA kernel (row 3)
+fused_gcn_layer.backward_launches = 0  # backwards run through the kernels

@@ -1,0 +1,158 @@
+"""One LSTM layer's recurrence with a hand-written backward: xp [T, B, 4H]
+(the hoisted input projection + bias) and wh [H, 4H] -> h_all [T, B, H].
+
+`lstm_recurrence` runs the CUDA kernels of csrc/lstm_scan.cu behind one
+`torch.autograd.Function` on a CUDA tensor at float32 / bfloat16 compute:
+the forward (kernel row 18) emits h_all and c_all, and, when a backward will
+follow, the activated gates; the backward (row 19) emits dgates, and dwh =
+h_prev^T @ dgates runs on gemm.cu's split-K product; dxp is dgates. On a CPU
+tensor or under float64 it runs the plain version, `lstm_recurrence_plain`,
+differentiated by autograd. On a CUDA tensor a shape or dtype the kernels do
+not take raises; nothing falls back to the plain version there. The op is
+first-order differentiable only: second-order MAML differentiates the plain
+route (train/so_fused.py `plain_route`).
+
+Counterpart of `weatherforecast_stgcn_maml_tpu/ops/lstm_scan.py`
+(`lstm_recurrence(kernel="pallas")`; Pallas bodies `_fwd_kernel` and
+`_bwd_kernel`, custom VJP `_recurrence_bwd`). The TPU backward recomputes
+the gates from xp and h_prev; the CUDA forward stores them instead (see
+csrc/lstm_scan.cu), which changes no output.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype, as_operand
+from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import _rows_per_thread
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import matmul_tn
+
+
+def lstm_recurrence_plain(
+    xp: torch.Tensor, wh: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Plain PyTorch version: per step gates = xp[t] + round(h) @ round(wh)
+    (gate order i, f, g, o), zero carries at t = 0 -> h_all [T, B, H]."""
+    t_len, b, _ = xp.shape
+    hidden = wh.shape[0]
+    whc = as_operand(wh, compute_dtype)
+    h = torch.zeros((b, hidden), dtype=accum_dtype(compute_dtype), device=xp.device)
+    c = torch.zeros_like(h)
+    outs = []
+    for t in range(t_len):
+        gates = xp[t] + torch.matmul(as_operand(h, compute_dtype), whc)
+        i, f, g, o = gates.split(hidden, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(h)
+    return torch.stack(outs)
+
+
+def _aligned(w: torch.Tensor) -> torch.Tensor:
+    """w contiguous, its data 16-byte aligned (the kernels' cp.async tiles)."""
+    w = w.contiguous()
+    return w if w.data_ptr() % 16 == 0 else w.clone()
+
+
+def scan_forward(xp: torch.Tensor, wh: torch.Tensor, compute_dtype: torch.dtype,
+                 keep_gates: bool):
+    """Row 18 on a CUDA tensor: -> (h_all, c_all [T, B, H], gates [T, B, 4H]
+    or None), float32."""
+    t_len, rows, g4 = xp.shape
+    hidden = g4 // 4
+    dev = xp.device
+    h_all = torch.empty((t_len, rows, hidden), dtype=torch.float32, device=dev)
+    c_all = torch.empty_like(h_all)
+    gates = torch.empty_like(xp) if keep_gates else None
+    w = _aligned(wh.to(compute_dtype))
+    cuda_build.check(
+        cuda_build.load().wf_lstm_scan_fwd(
+            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
+            xp.data_ptr(), w.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
+            None if gates is None else gates.data_ptr(), t_len, rows, hidden,
+            cuda_build.stream_ptr(dev),
+        ),
+        "LSTM recurrence",
+    )
+    lstm_recurrence.launches += 1
+    return h_all, c_all, gates
+
+
+def scan_backward(g: torch.Tensor, h_all, c_all, gates, wh: torch.Tensor,
+                  compute_dtype: torch.dtype):
+    """Row 19 on a CUDA tensor, from the gradient g [T, B, H] of h_all:
+    -> (dxp = dgates [T, B, 4H], dwh [H, 4H]), float32."""
+    t_len, rows, hidden = h_all.shape
+    dev = h_all.device
+    g = g.to(torch.float32).contiguous()
+    wht = _aligned(wh.t().to(compute_dtype))
+    dgates = torch.empty_like(gates)
+    cuda_build.check(
+        cuda_build.load().wf_lstm_scan_bwd(
+            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
+            g.data_ptr(), gates.data_ptr(), c_all.data_ptr(), wht.data_ptr(),
+            dgates.data_ptr(), t_len, rows, hidden, cuda_build.stream_ptr(dev),
+        ),
+        "LSTM recurrence backward",
+    )
+    # dwh = h_prev^T @ dgates over every step and row; h_prev at t = 0 is
+    # zero, so the product starts at t = 1.
+    dwh = torch.empty(wh.shape, dtype=torch.float32, device=dev)
+    matmul_tn(
+        h_all[:-1].reshape(-1, hidden), dgates[1:].reshape(-1, 4 * hidden), dwh,
+        compute_dtype=compute_dtype, what="LSTM recurrence weight gradient",
+    )
+    lstm_recurrence.backward_launches += 1
+    return dgates, dwh
+
+
+class _LstmRecurrence(torch.autograd.Function):
+    """Rows 18 and 19 as one differentiable op over (xp, wh)."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, compute_dtype, keep_gates):
+        h_all, c_all, gates = scan_forward(xp, wh, compute_dtype, keep_gates)
+        ctx.compute_dtype, ctx.wh_dtype = compute_dtype, wh.dtype
+        ctx.save_for_backward(wh, h_all, c_all, gates)
+        return h_all
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        wh, h_all, c_all, gates = ctx.saved_tensors
+        if gates is None:
+            raise RuntimeError("the LSTM recurrence ran without autograd; it has no backward")
+        dgates, dwh = scan_backward(g, h_all, c_all, gates, wh, ctx.compute_dtype)
+        return dgates, dwh.to(ctx.wh_dtype), None, None
+
+
+def lstm_recurrence(
+    xp: torch.Tensor, wh: torch.Tensor, *, compute_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Recurrent half of an LSTM layer: xp [T, B, 4H] (float32, float64 under
+    float64), wh [H, 4H] -> h_all [T, B, H] in xp's dtype, differentiable
+    (first order on a card)."""
+    if xp.device.type == "cpu" or compute_dtype == torch.float64:
+        return lstm_recurrence_plain(xp, wh, compute_dtype)
+    if xp.device.type != "cuda":
+        raise TypeError(f"no LSTM recurrence kernel for device {xp.device}")
+    cuda_build.dtype_code(compute_dtype)
+    if xp.dim() != 3 or wh.dim() != 2:
+        raise ValueError(f"xp must be [T, B, 4H] and wh [H, 4H], got {list(xp.shape)}, "
+                         f"{list(wh.shape)}")
+    hidden = wh.shape[0]
+    if xp.shape[2] != 4 * hidden or wh.shape[1] != 4 * hidden:
+        raise ValueError(f"xp {list(xp.shape)} and wh {list(wh.shape)} disagree on 4H")
+    if hidden % 4 or hidden > 256:
+        raise ValueError(f"the recurrence kernel takes hidden widths that are multiples "
+                         f"of 4 up to 256, got {hidden}")
+    if xp.dtype != torch.float32 or wh.dtype != torch.float32 or wh.device != xp.device:
+        raise TypeError("xp and wh must be float32 on the same device")
+    # The gates are the backward's residual: stored only when one will run.
+    keep_gates = torch.is_grad_enabled() and (xp.requires_grad or wh.requires_grad)
+    return _LstmRecurrence.apply(xp.contiguous(), wh, compute_dtype, keep_gates)
+
+
+lstm_recurrence.launches = 0  # forwards run through the CUDA kernel (row 18)
+lstm_recurrence.backward_launches = 0  # backwards run through it (row 19)

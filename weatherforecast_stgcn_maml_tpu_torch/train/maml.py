@@ -92,10 +92,6 @@ def check_supported(model_cfg: ModelConfig, cfg: MetaConfig) -> None:
         "schedule)": cfg.second_order and cfg.so_wavefront and cfg.so_impl in ("hvp", "rof"),
         "meta.epochs_per_dispatch > 1 (chained meta epochs)":
             cfg.epochs_per_dispatch > 1,
-        "model.lstm_kernel='pallas' (the per-layer recurrence kernel)":
-            model_cfg.lstm_kernel == "pallas",
-        "model.use_pallas_lstm (the old eval-only LSTM kernel)":
-            model_cfg.use_pallas_lstm,
         "model.lstm_wavefront (the wavefront LSTM schedule)":
             model_cfg.lstm_wavefront,
     }

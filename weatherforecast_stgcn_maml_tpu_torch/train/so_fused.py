@@ -21,7 +21,9 @@ float32 / bfloat16 (a shape they do not take raises) and their plain
 versions on a CPU tensor or under float64. The standalone STGCN has no LSTM
 stack, and `lstm_kernel="xla"` pins the plain stack: there grad_loss is
 `torch.func.grad` of the plain loss, as the JAX package falls back to
-jax.grad of its XLA loss.
+jax.grad of its XLA loss. `lstm_kernel="pallas"` (the per-layer recurrence)
+and `use_pallas_lstm` take the stack ops here, as in the JAX package
+(`fused_hvp_chunk`): their kernels are first-order only.
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/train/so_fused.py`
 (`make_grad_loss_fused`, `_vjp_sandwich`). Its row-chunked route
@@ -60,8 +62,10 @@ def support_loss(model: nn.Module, cfg: ModelConfig):
 
 
 def plain_route(cfg: ModelConfig) -> ModelConfig:
-    """The twice-differentiable route: the plain encoder and LSTM stack."""
-    return dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla")
+    """The twice-differentiable route: the plain encoder and LSTM stack. The
+    kernel routes' Functions (rows 4-7, 18-20) are first-order only."""
+    return dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla",
+                               use_pallas_lstm=False)
 
 
 def make_grad_loss_fused(model: nn.Module, cfg: ModelConfig):

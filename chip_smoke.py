@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the serving path,
 first- and second-order MAML meta-training, regional adaptation with the
-pipeline, and node-sharded / data-parallel meta-training.
+pipeline, node-sharded / data-parallel meta-training, the LSTM kernel
+routes, and the two flag-selected LSTM-stack paths (the task-batched meta
+step and the unmerged-gates stack).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`python3 chip_smoke.py --mesh-rank DIR` is phase 14's rank process, started
@@ -97,7 +99,26 @@ time):
      2 never), `forecast -o model.lstm_kernel=pallas` (4 launches of row 18
      a predict), and `adapt -o model.use_pallas_lstm=true -o
      model.lstm_dropout=0` (1 epoch: row 20 in train mode, row 4 never);
-     every loss must be finite.
+     every loss must be finite;
+ 17. hold the unmerged-gates stack (rows 14-15: the forward's last h and
+     residuals, the backward from the same residuals) and the task-batched
+     stack (rows 16-17, V = 2 and 4, distinct weights a task; forward and
+     every gradient) against their plain versions at the inner step's
+     shapes (x [24, 512, 256], 4 layers of 128), masks at rate 0.2 and off,
+     float32 and bfloat16; time each, its plain version and cuDNN's LSTM
+     (once a task for rows 16-17), rows 16-17 also by row tile; print the
+     bounds;
+ 18. with ops.fused_lstm_stack._VBATCH set in process: the lockstep FO
+     meta-gradient of one micro-batch (2 tasks x 15 inner steps, dropout
+     on) kernel route vs plain route, same generator seed; `cli meta-train`
+     at MetaConfig() defaults for 1 float32 epoch (rows 16 and 17 182
+     launches each, row 9 180, rows 4-5 and 8 none); one lockstep inner
+     step timed with a torch.profiler breakdown; the lockstep meta step
+     against the serial one in turns;
+ 19. with ops.fused_lstm_stack._MERGED_GATES = False: `cli meta-train` for 1
+     float32 epoch (rows 14-15 364 launches each, rows 4-5 none), `forecast`
+     Moscow (row 14, never row 2; against the merged route's forecast), one
+     inner step timed and profiled; both flags are restored afterwards.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -139,6 +160,11 @@ TPU_KERNELS = {
     "lstm_recurrence.backward": "weatherforecast_stgcn_maml_tpu/ops/lstm_scan.py:148",
     "fused_lstm_last_hidden": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm.py:63",
     "fused_gcn_layer": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn.py:37",
+    "lstm_stack_split": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py:191",
+    "lstm_stack_split.backward": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py:251",
+    "lstm_stack_train_tasks": "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py:1180",
+    "lstm_stack_train_tasks.backward":
+        "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py:1232",
 }
 CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 SOURCES = {
@@ -158,6 +184,10 @@ SOURCES = {
     "lstm_recurrence.backward": CSRC + "lstm_scan.cu",
     "fused_lstm_last_hidden": CSRC + "fused_lstm.cu",
     "fused_gcn_layer": CSRC + "gemm.cu",
+    "lstm_stack_split": CSRC + "fused_lstm_split.cu",
+    "lstm_stack_split.backward": CSRC + "fused_lstm_split.cu",
+    "lstm_stack_train_tasks": CSRC + "fused_lstm_stack.cu",
+    "lstm_stack_train_tasks.backward": CSRC + "fused_lstm_stack_train.cu",
 }
 MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
@@ -307,6 +337,7 @@ def main() -> int:
     from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
     from weatherforecast_stgcn_maml_tpu_torch.models.gcn import apply_gcn_layer
     from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
+    from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks
     from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
         apply_model,
         draw_masks,
@@ -324,6 +355,7 @@ def main() -> int:
     )
     from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_shard as fgs
     from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp as fh
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
         lstm_stack_last_all,
         lstm_stack_plain,
@@ -355,6 +387,7 @@ def main() -> int:
     from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
         init_meta_state,
         inner_sgd_update,
+        inner_sgd_update_tasks,
         make_meta_step,
         param_grads,
         task_batch_grad,
@@ -406,9 +439,14 @@ def main() -> int:
             log("kernels loaded from an earlier build of the same sources")
         else:
             log(f"nvcc (one process per source, in parallel) {cuda_build.build_seconds:.1f} s")
+        entry = ""
         for line in cuda_build.build_log.splitlines():
-            if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            if "registers" in line:
                 log(f"  ptxas: {line.strip()}")
+            elif "spill" in line and " 0 bytes spill" not in line:
+                log(f"  ptxas: {line.strip()} in {entry}")
 
     cfg = ModelConfig()
     boxes = dict((name, box) for box, name in ADAPTATION_REGIONS)
@@ -994,13 +1032,10 @@ def main() -> int:
             train_launches[fn.__name__] = fn.launches
             train_launches[fn.__name__ + ".backward"] = fn.backward_launches
         train_launches["clip_sgd_update"] = clip_sgd_update.launches
-        # Row 9 is not on the port's path: its tasks run one after another,
-        # so the meta step updates with V = 1 (phase 7 holds V = 4).
-        train_launches["clip_sgd_update.batched"] = clip_sgd_update.batched_launches
         log(f"launches on the meta-training path (5 meta steps, 4 with the fused update): "
             f"{train_launches}")
         for name, count in train_launches.items():
-            if count == 0 and name != "clip_sgd_update.batched":
+            if count == 0:
                 raise RuntimeError(f"{name} never launched on the meta-training path")
         for name, records in logs.items():
             want = [1, 2, 3] if name == "float32" else [1]
@@ -1181,7 +1216,7 @@ def main() -> int:
                     nonlocal state
                     state, _ = step(state, tasks, g)
 
-                ms = host_ms(torch, meta_step, repeats=2)
+                ms = host_ms(torch, meta_step, repeats=1)
                 peak = torch.cuda.max_memory_allocated(dev) / 2**30
                 log(f"meta step {dt_name} (4 tasks x 90 inner steps + query, grad-accum 2, "
                     f"{'fused' if fused else 'per-leaf'} update): {ms:.1f} ms, peak device "
@@ -1219,7 +1254,7 @@ def main() -> int:
             nonlocal state
             state, _ = step(state, tasks, g)
 
-        ms = host_ms(torch, so_meta_step, repeats=2)
+        ms = host_ms(torch, so_meta_step, repeats=1)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         log(f"SO meta step float32 (fhvp, 4 tasks x 90 inner steps + query, grad-accum 2): "
             f"{ms:.1f} ms, peak device memory {peak:.2f} GiB  [{card}]")
@@ -1700,6 +1735,371 @@ def main() -> int:
         if fused_lstm_last_hidden.launches < len(batches) or lstm_stack_train.launches:
             raise RuntimeError("adapt with use_pallas_lstm did not train through row 20")
         route_launches["fused_gcn_layer"] = fused_gcn_layer.launches  # on no path: 0
+    # 17. The unmerged-gates stack (rows 14-15) and the task-batched stack
+    # (rows 16-17) vs plain at full width: the inner step's LSTM (x [24,
+    # 512, 256] time-major, 4 layers of 128), masks at rate 0.2 and off;
+    # rows 16-17 at V = 2 (the default micro-batch) and V = 4 with distinct
+    # weights a task.
+    x_tbc = x_rec.transpose(0, 1)
+    g_last = torch.from_numpy(np.random.default_rng(70).standard_normal((n, lh))
+                              .astype(np.float32)).to(dev)
+    split_w = [t.detach() for t in fls._split_weights(lstm)]
+
+    def task_weights(nv, seed):
+        draw = np.random.default_rng(seed)
+        bound = 1.0 / lh ** 0.5
+        return [torch.from_numpy(draw.uniform(-bound, bound, size=shape).astype(np.float32))
+                .to(dev) for shape in ((nv, hid + lh, 4 * lh), (nv, n_l - 1, 2 * lh, 4 * lh),
+                                       (nv, n_l, 4 * lh))]
+
+    def tasks_route(kernel):
+        if kernel:
+            return lambda x, w0, wr, b, m, keep, dt: fls.lstm_stack_train_tasks(
+                x, w0, wr, b, masks=m, keep=keep, compute_dtype=dt)
+        return lambda x, w0, wr, b, m, keep, dt: fls.lstm_stack_tasks_plain(
+            x, w0, wr, b, m, keep, dt)
+
+    with Phase("unmerged-gates and task-batched LSTM kernels vs plain"):
+        for dropout in (0.2, 0.0):
+            m, keep = (lstm_masks, 0.8) if dropout else (None, 1.0)
+            for dt_name, tol in TOL.items():
+                dt = getattr(torch, dt_name)
+                with torch.no_grad():
+                    got = fls.split_forward(x_tbc, *split_w, m, keep, dt)
+                    ref = fls.split_forward_plain(x_tbc, *split_w, m, keep, dt)
+                    res = ref[1:]  # both backwards start from the same residuals
+                    got_b = fls.split_backward(g_last, x_tbc, *res, *split_w, m, keep, dt)
+                    ref_b = fls.split_backward_plain(g_last, x_tbc, *res, *split_w, m, keep, dt)
+                torch.cuda.synchronize()
+                for a, b in zip(got, ref):
+                    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+                fwd_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+                rels = [rel_err(a, b) for a, b in zip(got_b, ref_b)]
+                bwd_err = max(float((a - b).abs().max()) for a, b in zip(got_b, ref_b))
+                log(f"rows 14-15 {dt_name} dropout {dropout}: forward (h_last, h_all, c_all) "
+                    f"max_abs_err {fwd_err:.3e} (tol {tol}); backward (dx, dwx0, dwxr, dwh, db) "
+                    f"max|diff|/max|ref| {max(rels):.3e} (tol {tol}), per output "
+                    f"{[f'{r:.1e}' for r in rels]}")
+                if max(rels) > tol:
+                    raise RuntimeError(f"rows 14-15 {dt_name}: gradient error {max(rels):.3e}")
+                if not dropout:
+                    continue
+                with torch.no_grad():  # the main path's case (masks on): time it
+                    times = {k: cuda_ms(torch, f, reps) for k, f, reps in (
+                        ("row14", lambda: fls.split_forward(x_tbc, *split_w, m, keep, dt),
+                         REPEATS),
+                        ("row15", lambda: fls.split_backward(g_last, x_tbc, *res, *split_w, m,
+                                                             keep, dt), REPEATS),
+                        ("plain14", lambda: fls.split_forward_plain(x_tbc, *split_w, m, keep,
+                                                                    dt), 3),
+                        ("plain15", lambda: fls.split_backward_plain(g_last, x_tbc, *res,
+                                                                     *split_w, m, keep, dt), 3))}
+                log(f"rows 14-15 {dt_name} [24, 512, 256] L=4, ms: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in times.items()) + f"  [{card}]")
+                if dt_name == "float32":
+                    # The library call is row 4's and 5's: cuDNN's LSTM at the
+                    # same shapes, timed in phase 6 of this run.
+                    measured["lstm_stack_split"] = {
+                        "max_abs_err": fwd_err, "ms": times["row14"],
+                        "plain_ms": times["plain14"],
+                        "library_ms": measured["lstm_stack_train"]["library_ms"]}
+                    measured["lstm_stack_split.backward"] = {
+                        "max_abs_err": bwd_err, "ms": times["row15"],
+                        "plain_ms": times["plain15"],
+                        "library_ms": measured["lstm_stack_train.backward"]["library_ms"]}
+        del got, ref, res, got_b, ref_b
+
+        for nv in (2, 4):
+            xs = torch.from_numpy(np.random.default_rng(80 + nv).standard_normal(
+                (nv, n, w_len, hid)).astype(np.float32)).to(dev)
+            weights = task_weights(nv, 90 + nv)
+            gen = torch.Generator(device=dev).manual_seed(nv)
+            for dropout in (0.2, 0.0):
+                m = draw_mask(gen, (nv, n_l - 1, w_len, n, lh), dropout, dev) if dropout else None
+                keep = 1.0 - dropout
+                for dt_name, tol in TOL.items():
+                    dt = getattr(torch, dt_name)
+                    graphs, outs = {}, {}
+                    for route in ("kernel", "plain"):
+                        leaves = [t.detach().clone().requires_grad_(True) for t in (xs, *weights)]
+                        out = tasks_route(route == "kernel")(*leaves, m, keep, dt)
+                        ct = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                            out.shape).astype(np.float32)).to(dev)
+                        outs[route] = (out.detach(),
+                                       torch.autograd.grad(out, leaves, ct, retain_graph=True))
+                        graphs[route] = (out, leaves, ct)
+                    torch.cuda.synchronize()
+                    (got, got_g), (ref, ref_g) = outs["kernel"], outs["plain"]
+                    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+                    fwd_err = float((got - ref).abs().max())
+                    rels = [rel_err(a, b) for a, b in zip(got_g, ref_g)]
+                    bwd_err = max(float((a - b).abs().max()) for a, b in zip(got_g, ref_g))
+                    log(f"rows 16-17 {dt_name} V={nv} dropout {dropout}: forward max_abs_err "
+                        f"{fwd_err:.3e} (tol {tol}); gradients (x, wcat0, wcatr, b2d) "
+                        f"max|diff|/max|ref| {max(rels):.3e} (tol {tol}), per input "
+                        f"{[f'{r:.1e}' for r in rels]}")
+                    if max(rels) > tol:
+                        raise RuntimeError(f"rows 16-17 {dt_name} V={nv}: gradient error "
+                                           f"{max(rels):.3e}")
+                    if not dropout:
+                        del graphs, outs
+                        continue
+                    times = {}
+                    for route in ("kernel", "plain"):
+                        fn = tasks_route(route == "kernel")
+                        with torch.no_grad():
+                            fwd = cuda_ms(torch, lambda: fn(xs, *weights, m, keep, dt),
+                                          REPEATS if route == "kernel" else 3)
+                        out, leaves, ct = graphs[route]
+                        bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                            out, leaves, ct, retain_graph=True),
+                            REPEATS if route == "kernel" else 3)
+                        times[route] = (fwd, bwd)
+                    del graphs, outs
+                    log(f"rows 16-17 {dt_name} V={nv} [{nv} x 512, 24, 256] L=4: kernel forward "
+                        f"{times['kernel'][0]:.4f} ms, backward {times['kernel'][1]:.4f} ms; "
+                        f"plain forward {times['plain'][0]:.4f} ms, backward "
+                        f"{times['plain'][1]:.4f} ms  [{card}]")
+                    if dt_name != "float32":
+                        continue
+                    # Yardstick: cuDNN's LSTM once a task (its weights copied in
+                    # from the model's; the time does not depend on them).
+                    xr = xs.detach().clone().requires_grad_(True)
+                    with torch.no_grad():
+                        lib_fwd = cuda_ms(torch, lambda: [cudnn(xr[v]) for v in range(nv)])
+                    lib_out = torch.stack([cudnn(xr[v])[0][:, -1] for v in range(nv)])
+                    lib_ct = torch.ones_like(lib_out)
+                    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                        lib_out, [xr, *cudnn.parameters()], lib_ct, retain_graph=True))
+                    del xr, lib_out, lib_ct
+                    log(f"torch.nn.LSTM (cuDNN) float32, once a task x {nv}: forward "
+                        f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms  [{card}]")
+                    # The row tile: V x 512 rows at 256 / H * rpt rows a block.
+                    tile_ms = {}
+                    chosen = fls._rows_per_thread(nv * n, lh, dev)
+                    real_rpt = fls._rows_per_thread
+                    try:
+                        with torch.no_grad():
+                            for rpt in fls.ROWS_PER_THREAD:
+                                fls._rows_per_thread = lambda rows, hidden, d, rpt=rpt: rpt
+                                x_v = xs.transpose(1, 2)
+                                fwd_res = fls.tasks_forward(x_v, m, keep, dt, *weights)
+                                tile_ms[rpt] = (
+                                    cuda_ms(torch, lambda: fls.tasks_forward(
+                                        x_v, m, keep, dt, *weights)),
+                                    cuda_ms(torch, lambda: fls.tasks_backward(
+                                        g_last.expand(nv, -1, -1), x_v, *fwd_res[1:],
+                                        *weights[:2], m, keep, dt)))
+                                del fwd_res
+                    finally:
+                        fls._rows_per_thread = real_rpt
+                    log(f"rows 16-17 float32 V={nv} by row tile (rows per thread: blocks of "
+                        f"{nv} x 512 rows; forward / backward ms): " + ", ".join(
+                            f"{rpt}: {-(-n // (256 // lh * rpt)) * nv} blocks "
+                            f"{f:.4f} / {b:.4f}" for rpt, (f, b) in tile_ms.items())
+                        + f"; the wrapper picks {chosen}  [{card}]")
+                    if nv == 2:
+                        measured["lstm_stack_train_tasks"] = {
+                            "max_abs_err": fwd_err, "ms": times["kernel"][0],
+                            "plain_ms": times["plain"][0], "library_ms": lib_fwd}
+                        measured["lstm_stack_train_tasks.backward"] = {
+                            "max_abs_err": bwd_err, "ms": times["kernel"][1],
+                            "plain_ms": times["plain"][1], "library_ms": lib_bwd}
+            del xs, weights
+        # Rows 14 and 16 do row 4's work (x V for row 16), rows 15 and 17 row
+        # 5's (its recomputed forward not counted): the same operations and
+        # the same bytes in and out.
+        row4, row5 = measured["lstm_stack_train"], measured["lstm_stack_train.backward"]
+        measured["lstm_stack_split"].update(flops=row4["flops"], bytes=row4["bytes"])
+        measured["lstm_stack_split.backward"].update(flops=row5["flops"], bytes=row5["bytes"])
+        measured["lstm_stack_train_tasks"].update(flops=2 * row4["flops"],
+                                                  bytes=2 * row4["bytes"])
+        measured["lstm_stack_train_tasks.backward"].update(flops=2 * row5["flops"],
+                                                           bytes=2 * row5["bytes"])
+        for name in ("lstm_stack_split", "lstm_stack_split.backward", "lstm_stack_train_tasks",
+                     "lstm_stack_train_tasks.backward"):
+            b, by = bound_ms(measured[name]["bytes"], measured[name]["flops"])
+            log(f"{name}: bound {b:.4f} ms (by {by}; {measured[name]['flops'] / 1e9:.2f} GFLOP)")
+        del x_tbc, g_last
+
+    # 18. The task-batched meta step (`_VBATCH`): the lockstep FO
+    # meta-gradient of one micro-batch kernel vs plain route, `meta-train`
+    # at the defaults (the main path of rows 16-17 and 9), one lockstep
+    # inner step and the lockstep meta step against the serial one.
+    def lockstep_counts():
+        return {"lstm_stack_train_tasks": fls.lstm_stack_train_tasks.launches,
+                "lstm_stack_train_tasks.backward": fls.lstm_stack_train_tasks.backward_launches,
+                "clip_sgd_update.batched": clip_sgd_update.batched_launches,
+                "clip_sgd_update": clip_sgd_update.launches,
+                "lstm_stack_train": lstm_stack_train.launches,
+                "lstm_stack_train.backward": lstm_stack_train.backward_launches,
+                "gcn_stack_train": gcn_stack_train.launches}
+
+    def zero_counts():
+        for fn in (fls.lstm_stack_train_tasks, lstm_stack_train, gcn_stack_train,
+                   fls.lstm_stack_split):
+            fn.launches = fn.backward_launches = 0
+        clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
+        lstm_stack_last_all.launches = 0
+
+    with Phase("_VBATCH: the lockstep meta step"):
+        fls._VBATCH = True
+        try:
+            for dt_name, tol in TOL.items():
+                res = {}
+                for route, mc, mt in (
+                        ("kernel", ModelConfig(compute_dtype=dt_name), one_epoch),
+                        ("plain", ModelConfig(compute_dtype=dt_name, use_pallas_gcn=False,
+                                              lstm_kernel="xla"),
+                         dataclasses.replace(one_epoch, fused_inner_update=False))):
+                    zero_counts()
+                    g = torch.Generator(device=dev).manual_seed(11)
+                    t0 = time.perf_counter()
+                    res[route] = task_batch_grad(model, micro, g, mc, mt)
+                    torch.cuda.synchronize()
+                    log(f"  lockstep {route} route {dt_name}: {time.perf_counter() - t0:.2f} s; "
+                        f"launches {lockstep_counts()}")
+                    if route == "kernel":
+                        steps = one_epoch.inner_batches
+                        want = {"lstm_stack_train_tasks": steps + 1,
+                                "lstm_stack_train_tasks.backward": steps + 1,
+                                "clip_sgd_update.batched": steps, "clip_sgd_update": 0,
+                                "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
+                                "gcn_stack_train": 2 * (steps + 1)}
+                        if lockstep_counts() != want:
+                            raise RuntimeError(f"the lockstep micro-batch launched "
+                                               f"{lockstep_counts()}, not {want}")
+                (loss_k, grad_k), (loss_p, grad_p) = res["kernel"], res["plain"]
+                rels = {k: rel_err(grad_k[k], grad_p[k]) for k in grad_k}
+                worst = max(rels, key=rels.get)
+                log(f"lockstep meta-gradient {dt_name}: per-task query losses "
+                    f"{loss_k.tolist()} vs {loss_p.tolist()}; gradient max|diff|/max|ref| "
+                    f"{rels[worst]:.3e} at {worst} (tol {tol})")
+                torch.testing.assert_close(loss_k, loss_p, rtol=tol, atol=tol)
+                if rels[worst] > tol:
+                    raise RuntimeError(f"lockstep meta-gradient {dt_name}: {worst} off by "
+                                       f"{rels[worst]:.3e}")
+            del res
+
+            # The main path: one meta step at the defaults through the CLI.
+            zero_counts()
+            vb_logs = meta_train("float32", 1, out="vbatch")
+            vbatch_launches = lockstep_counts()
+            log(f"launches in one meta step under _VBATCH: {vbatch_launches}")
+            forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
+            want = {"lstm_stack_train_tasks": forwards // 2,
+                    "lstm_stack_train_tasks.backward": forwards // 2,
+                    "clip_sgd_update.batched": per_step // 2, "clip_sgd_update": 0,
+                    "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
+                    "gcn_stack_train": forwards}
+            if vbatch_launches != want:
+                raise RuntimeError(f"meta-train under _VBATCH launched {vbatch_launches}, "
+                                   f"not {want}")
+            for r in vb_logs:
+                if not np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all():
+                    raise RuntimeError(f"meta-train under _VBATCH: non-finite loss {r}")
+                log(f"  _VBATCH epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
+                    f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
+
+            # One lockstep inner step (2 tasks, one window each), and the
+            # lockstep meta step against the serial one, in turns.
+            state = init_meta_state(torch.Generator().manual_seed(1), cfg, meta_cfg, device=dev)
+            named = sorted(state.params.named_parameters(), key=lambda kv: leaf_order(kv[0]))
+            names = [k for k, _ in named]
+            fast = [p.detach().unsqueeze(0).repeat(2, *[1] * p.dim()).requires_grad_(True)
+                    for _, p in named]
+            g = torch.Generator(device=dev).manual_seed(2)
+
+            def lockstep_inner_step():
+                x = micro.support_x[:, 0]
+                preds = apply_hybrid_tasks(dict(zip(names, fast)), micro.a_hat, x, micro.koppen,
+                                           cfg, masks=draw_masks(cfg, g, x))
+                loss = sum(masked_mse(preds[v], micro.support_y[v, 0], micro.node_mask[v])
+                           for v in range(2))
+                inner_sgd_update_tasks(fast, list(torch.autograd.grad(loss, fast)), meta_cfg)
+
+            ms = host_ms(torch, lockstep_inner_step)
+            log(f"lockstep inner step float32 (2 tasks, one window each, forward + backward + "
+                f"batched clip + SGD): {ms:.3f} ms  [{card}]")
+            profile_steps(torch, lockstep_inner_step, "float32 lockstep inner steps (2 tasks)",
+                          card, host_rows=8)
+            del fast
+            step = make_meta_step(cfg, meta_cfg)
+
+            def run_step(lockstep):
+                fls._VBATCH = lockstep
+                step(state, tasks, g)
+
+            step_ms = {"lockstep": [], "serial": []}
+            for name in ("lockstep", "serial", "serial", "lockstep"):
+                step_ms[name].append(host_ms(torch, lambda: run_step(name == "lockstep"),
+                                             repeats=1))
+            log("meta step float32 at the defaults, host clock, in turns: " + ", ".join(
+                f"{k} {v[0]:.1f} / {v[1]:.1f} ms" for k, v in step_ms.items())
+                + f"; lockstep / serial {sum(step_ms['lockstep']) / sum(step_ms['serial']):.3f}"
+                f"  [{card}]")
+            del state, step
+        finally:
+            fls._VBATCH = False
+
+    # 19. The unmerged-gates stack (`_MERGED_GATES=False`): one meta step
+    # through the CLI (the main path of rows 14-15), `forecast` (row 14 in
+    # place of row 2), one inner step timed and profiled.
+    with Phase("_MERGED_GATES=False: the unmerged-gates stack"):
+        fls._MERGED_GATES = False
+        try:
+            zero_counts()
+            um_logs = meta_train("float32", 1, out="unmerged")
+            split_launches = {
+                "lstm_stack_split": fls.lstm_stack_split.launches,
+                "lstm_stack_split.backward": fls.lstm_stack_split.backward_launches,
+                "lstm_stack_train": lstm_stack_train.launches,
+                "lstm_stack_train.backward": lstm_stack_train.backward_launches}
+            log(f"launches in one meta step with unmerged gates: {split_launches}")
+            forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
+            want = {"lstm_stack_split": forwards, "lstm_stack_split.backward": forwards,
+                    "lstm_stack_train": 0, "lstm_stack_train.backward": 0}
+            if split_launches != want:
+                raise RuntimeError(f"meta-train with unmerged gates launched {split_launches}, "
+                                   f"not {want}")
+            for r in um_logs:
+                if not np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all():
+                    raise RuntimeError(f"meta-train with unmerged gates: non-finite loss {r}")
+                log(f"  unmerged epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
+                    f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
+            zero_counts()
+            mean = forecast("Moscow", "float32", serve_dir)
+            serve14 = (fls.lstm_stack_split.launches, lstm_stack_last_all.launches)
+            err = float(np.abs(mean - served[("Moscow", "float32")]).max())
+            log(f"forecast Moscow with unmerged gates: row 14 launched {serve14[0]} times, row 2 "
+                f"{serve14[1]}; against the merged route's forecast max_abs_err {err:.3e}")
+            if serve14[0] == 0 or serve14[1] != 0:
+                raise RuntimeError(f"forecast with unmerged gates launched rows 14 / 2 {serve14}")
+            np.testing.assert_allclose(mean, served[("Moscow", "float32")],
+                                       rtol=TOL["float32"], atol=TOL["float32"])
+
+            state = init_meta_state(torch.Generator().manual_seed(1), cfg, meta_cfg, device=dev)
+            task = task_at(tasks, 0)
+            params = [p for _, p in sorted(state.params.named_parameters(),
+                                           key=lambda kv: leaf_order(kv[0]))]
+            g = torch.Generator(device=dev).manual_seed(2)
+
+            def unmerged_inner_step():
+                loss = masked_mse(apply_model(state.params, task.a_hat, task.support_x[0],
+                                              task.koppen, cfg, train=True, generator=g),
+                                  task.support_y[0], task.node_mask)
+                grads = torch.autograd.grad(loss, params)
+                with torch.no_grad():
+                    clip_sgd_update(params, grads, meta_cfg.inner_lr, meta_cfg.clip_norm)
+
+            ms = host_ms(torch, unmerged_inner_step)
+            log(f"inner step float32 with unmerged gates (one window, fused update): "
+                f"{ms:.3f} ms  [{card}]")
+            profile_steps(torch, unmerged_inner_step, "float32 inner steps, unmerged gates",
+                          card, host_rows=6)
+            del state, params
+        finally:
+            fls._MERGED_GATES = True
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1707,7 +2107,8 @@ def main() -> int:
         m = measured[name]
         bound, bound_by = bound_ms(m["bytes"], m["flops"])
         count = next(src[name] for src in (launches, train_launches, so_launches,
-                                           shard_launches, route_launches) if name in src)
+                                           shard_launches, route_launches, vbatch_launches,
+                                           split_launches) if name in src)
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -617,3 +617,158 @@ def test_split_lstm_biases_run_the_kernels(dev):
     for name, g in grads[0].items():
         assert _rel(g, grads[1][name]) <= 1e-5, (name, _rel(g, grads[1][name]))
     torch.testing.assert_close(grads[0]["lstm.layers.0.b_ih"], grads[0]["lstm.layers.0.b_hh"])
+
+
+def _task_weights(dev, nv, c_in, hidden, layers, seed):
+    """Distinct per-task LSTM weights, stacked: (wcat0 [V, C + H, 4H], wcatr
+    [V, L-1, 2H, 4H], b2d [V, L, 4H])."""
+    lstms = [init_lstm(torch.Generator().manual_seed(seed + v), c_in, hidden, layers).layers
+             for v in range(nv)]
+    wcat0 = torch.stack([torch.cat([m[0].wx, m[0].wh]) for m in lstms])
+    wcatr = (torch.stack([torch.stack([torch.cat([m[l].wx, m[l].wh]) for l in range(1, layers)])
+                          for m in lstms]) if layers > 1
+             else torch.zeros((nv, 0, 2 * hidden, 4 * hidden)))
+    b2d = torch.stack([torch.stack([layer.b for layer in m]) for m in lstms])
+    return [w.detach().to(dev) for w in (wcat0, wcatr, b2d)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,rows,layers", [(2, 100, 3), (3, 3000, 3), (4, 512, 3), (2, 100, 1)])
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+def test_lstm_tasks_kernels_match_plain(dev, dtype, nv, rows, layers, dropout):
+    """Rows 16-17: V tasks with distinct weights, forward and every
+    gradient (x and each task's weights), against the plain version."""
+    if dropout and layers == 1:
+        pytest.skip("one layer has no inter-layer dropout")
+    weights = _task_weights(dev, nv, 24, 32, layers, 10)
+    x = torch.from_numpy(
+        np.random.default_rng(6).normal(size=(nv, rows, 7, 24)).astype(np.float32)).to(dev)
+    masks = None
+    if dropout:
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(4),
+                          (nv, layers - 1, 7, rows, 32), dropout, dev)
+    keep = 1.0 - dropout
+    w0, wr, b2d = weights
+    fn = fused_lstm_stack.lstm_stack_train_tasks
+    before = (fn.launches, fn.backward_launches)
+    # One layer's wcatr is empty and takes no gradient.
+    got, got_g = _fwd_bwd(
+        lambda x, w0, b, *wr: fn(x, w0, *(wr or [weights[1]]), b, masks=masks, keep=keep,
+                                 compute_dtype=dtype),
+        [x, w0, b2d, *([wr] if layers > 1 else [])], [])
+    assert (fn.launches, fn.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_g = _fwd_bwd(
+        lambda x, w0, b, *wr: fused_lstm_stack.lstm_stack_tasks_plain(
+            x, w0, *(wr or [weights[1]]), b, masks, keep, dtype),
+        [x, w0, b2d, *([wr] if layers > 1 else [])], [])
+    torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,layers", [(100, 3), (3000, 3), (5000, 3), (100, 1)])
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+def test_lstm_split_kernels_match_plain(dev, dtype, rows, layers, dropout):
+    """Rows 14-15: the forward's last h and residuals against
+    `split_forward_plain`, the backward from the same residuals against
+    `split_backward_plain`, then the training entry (`merged=False`, rows
+    14 + 15 behind the Function) and the eval entry against the plain
+    stack."""
+    if dropout and layers == 1:
+        pytest.skip("one layer has no inter-layer dropout")
+    lstm = init_lstm(torch.Generator().manual_seed(1), 24, 32, layers).to(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(6).normal(size=(rows, 7, 24)).astype(np.float32)).to(dev)
+    masks = None
+    if dropout:
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(4),
+                          (layers - 1, 7, rows, 32), dropout, dev)
+    keep = 1.0 - dropout
+    fls, tol = fused_lstm_stack, TOL[dtype]
+    with torch.no_grad():
+        w = [t.detach() for t in fls._split_weights(lstm.layers)]
+        x_tbc = x.transpose(0, 1)
+        before = (fls.lstm_stack_split.launches, fls.lstm_stack_split.backward_launches)
+        got = fls.split_forward(x_tbc, *w, masks, keep, dtype)
+        ref = fls.split_forward_plain(x_tbc, *w, masks, keep, dtype)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+        g = torch.from_numpy(
+            np.random.default_rng(8).normal(size=(rows, 32)).astype(np.float32)).to(dev)
+        got_b = fls.split_backward(g, x_tbc, ref[1], ref[2], *w, masks, keep, dtype)
+        ref_b = fls.split_backward_plain(g, x_tbc, ref[1], ref[2], *w, masks, keep, dtype)
+        assert (fls.lstm_stack_split.launches,
+                fls.lstm_stack_split.backward_launches) == (before[0] + 1, before[1] + 1)
+        for i, (a, b) in enumerate(zip(got_b, ref_b)):
+            if b.numel():
+                assert _rel(a, b) <= tol, (i, _rel(a, b))
+    params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
+    got, got_g = _fwd_bwd(lambda x: fls.lstm_stack_train(
+        lstm.layers, x, masks=masks, keep=keep, compute_dtype=dtype, merged=False), [x], params)
+    ref, ref_g = _fwd_bwd(lambda x: fls.lstm_stack_plain(lstm.layers, x, dtype, masks, keep),
+                          [x], params)
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    for i, (a, b) in enumerate(zip(got_g, ref_g)):
+        assert _rel(a, b) <= tol, (i, _rel(a, b))
+    with torch.no_grad():
+        before = (fls.lstm_stack_split.launches, fls.lstm_stack_last_all.launches)
+        got = fls.lstm_stack_last_all(lstm.layers, x, compute_dtype=dtype, merged=False)
+        assert (fls.lstm_stack_split.launches, fls.lstm_stack_last_all.launches) == (
+            before[0] + 1, before[1])
+        torch.testing.assert_close(got, fls.lstm_stack_plain(lstm.layers, x, dtype),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_lstm_split_and_tasks_refuse_what_they_do_not_take(dev):
+    lstm = init_lstm(torch.Generator().manual_seed(1), 20, 32, 2).to(dev)
+    x = torch.zeros((8, 7, 20), device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_lstm_stack.lstm_stack_train(lstm.layers, x, merged=False)
+    w0, wr, b = _task_weights(dev, 2, 24, 32, 2, 0)
+    with pytest.raises(ValueError, match="masks"):
+        fused_lstm_stack.lstm_stack_train_tasks(
+            torch.zeros((2, 8, 7, 24), device=dev), w0, wr, b,
+            masks=torch.ones((1, 7, 8, 32), dtype=torch.int8, device=dev), keep=0.8)
+    with pytest.raises(ValueError, match="wrong shape"):
+        fused_lstm_stack.lstm_stack_train_tasks(torch.zeros((3, 8, 7, 24), device=dev), w0, wr, b)
+
+
+@pytest.mark.cuda
+def test_lockstep_meta_gradient_kernels_match_plain(dev, monkeypatch):
+    """One micro-batch of the lockstep FO meta step (`_VBATCH`; 2 tasks, 2
+    inner steps each, dropout on): kernel route (rows 6-7, 16-17 and 9)
+    against the plain route (the plain stacks in lockstep, the per-task
+    per-leaf clip + SGD), same generator seed."""
+    monkeypatch.setattr(fused_lstm_stack, "_VBATCH", True)
+    cfg = ModelConfig(hidden_channels=64, gcn_layers=3, lstm_hidden=32, lstm_layers=3,
+                      window=7, horizon=3)
+    meta = MetaConfig(inner_epochs=1, inner_batches=2)
+    regions = [synthetic_region_for_box((10.0 + 3 * i, 12.0 + 3 * i, 20.0, 23.0),
+                                        num_timesteps=40, seed=i) for i in range(2)]
+    tasks = stack_tasks([b.task for b in build_meta_tasks(regions, cfg, meta, DataConfig())])
+    tasks = type(tasks)(*(f.to(dev) for f in tasks))
+    model = init_model(torch.Generator().manual_seed(2), cfg, device=dev)
+    fn, sgd = fused_lstm_stack.lstm_stack_train_tasks, fused_sgd.clip_sgd_update
+    counters = (fn, fused_lstm_stack.lstm_stack_train)
+    before = [(c.launches, c.backward_launches) for c in counters]
+    before_sgd = (sgd.launches, sgd.batched_launches)
+    out = {}
+    for route, mc, mt in (
+        ("kernel", cfg, meta),
+        ("plain", dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla"),
+         dataclasses.replace(meta, fused_inner_update=False)),
+    ):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        out[route] = task_batch_grad(model, tasks, gen, mc, mt)
+    assert [(c.launches, c.backward_launches) for c in counters] == [
+        (before[0][0] + 3, before[0][1] + 3), before[1]]
+    assert (sgd.launches, sgd.batched_launches) == (before_sgd[0], before_sgd[1] + 2)
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=tol, atol=tol)
+    for name, g in out["kernel"][1].items():
+        assert _rel(g, out["plain"][1][name]) <= tol, name

@@ -47,6 +47,7 @@ from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import Mesh, resolve_sp_impl
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import (
     make_parallel_meta_step,
+    refuse_lockstep,
     refuse_second_order,
 )
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_meta_step_2d
@@ -109,6 +110,7 @@ def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Genera
 def _check_mesh(cfg: ExperimentConfig, mesh: Mesh) -> None:
     """Refuse, by name, what no step of `mesh` runs."""
     refuse_second_order(cfg.meta, "a mesh")
+    refuse_lockstep(cfg.model, cfg.meta, "a mesh")
     if len(mesh.axis_names) == 1:
         return
     sp_impl = resolve_sp_impl(cfg.mesh.sp_impl, cfg.model)

@@ -11,6 +11,8 @@ Module tree (the JAX pytree's names):
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 from torch import nn
 
@@ -18,10 +20,12 @@ from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     apply_dense,
     apply_mask,
+    as_operand,
     draw_mask,
     fold_row_masks,
     fold_slice_masks,
     init_dense,
+    lstm_bias,
     resolve_dtype,
     train_masks,
 )
@@ -32,6 +36,10 @@ from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import (
     koppen_features,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
+    lstm_stack_tasks_plain,
+    lstm_stack_train_tasks,
+)
 
 
 class HybridModel(nn.Module):
@@ -135,3 +143,79 @@ def apply_hybrid(
     out = apply_dense(params.head, feat, compute_dtype=dtype)  # [rows, H*12]
     out = out.reshape(*lead, n, cfg.horizon, cfg.num_weather_vars)
     return out.transpose(-3, -2)  # [..., H, N, 12]
+
+
+def _task_params(params: dict, v: int, n_layers: int, koppen: torch.Tensor) -> SimpleNamespace:
+    """Task v's encoder layers as apply_encoder reads them, and `koppen`,
+    every task's Koppen embedding row [V, koppen_dim], for
+    koppen_features(task, x, v)."""
+    layers = [SimpleNamespace(w=params[f"encoder.layers.{l}.w"][v],
+                              b=params[f"encoder.layers.{l}.b"][v]) for l in range(n_layers)]
+    return SimpleNamespace(encoder=SimpleNamespace(layers=layers), koppen=koppen)
+
+
+def apply_hybrid_tasks(
+    params: dict, a_hat: torch.Tensor, x: torch.Tensor, koppen_code: torch.Tensor,
+    cfg: ModelConfig, *, masks: dict | None = None,
+) -> torch.Tensor:
+    """Train-mode forward of V tasks at once, each at its own parameters.
+
+    Args:
+      params: {name: [V, ...]}, the names of `named_parameters()`, every
+        leaf with a leading task axis (the layout jax.vmap gives the JAX
+        package's tree over the tasks of a micro-batch).
+      a_hat: [V, N, N]; x: [V, W, N, 16], one window a task; koppen_code: [V].
+      masks: {"encoder", "lstm", "head"}, each task's masks of one window
+        (`hybrid_masks`) stacked on a leading V axis; any may be absent.
+    Returns:
+      [V, H, N, 12]: V calls of `apply_hybrid(train=True)` with the same
+      masks. Per task the Koppen features and the encoder (its training
+      kernels, rows 6-7, as in the JAX package, whose vmap of them runs the
+      tasks one after another); then every task's LSTM stack in one launch
+      each way (`lstm_stack_train_tasks`, rows 16-17; its plain version
+      under `lstm_kernel="xla"`), and the head as one batched product.
+    """
+    if cfg.lstm_kernel not in ("auto", "pallas_stack", "xla") or (
+            cfg.use_pallas_lstm and cfg.lstm_dropout == 0.0):
+        raise ValueError(
+            f"no task-batched forward for lstm_kernel={cfg.lstm_kernel!r} with "
+            f"use_pallas_lstm={cfg.use_pallas_lstm}")
+    masks = masks or {}
+    dtype = resolve_dtype(cfg.compute_dtype)
+    nv, n = x.shape[0], x.shape[2]
+    # Every task's embedding row in one gather: indexing with one task's
+    # code (a tensor on the card) would wait for the device.
+    koppen = params["koppen"][torch.arange(nv, device=koppen_code.device), koppen_code]
+    feats = []
+    for v in range(nv):
+        task = _task_params(params, v, cfg.gcn_layers, koppen)
+        enc_masks = masks["encoder"][v] if "encoder" in masks else None
+        h = apply_encoder(task.encoder, a_hat[v], koppen_features(task, x[v], v),
+                          cfg, train=True, masks=enc_masks)
+        feats.append(h.transpose(0, 1))  # [N, W, hidden]: nodes are the LSTM's rows
+    h = torch.stack(feats)
+    if cfg.stop_base_gradients:
+        h = h.detach()
+    n_layers = cfg.lstm_layers
+    wcat = [torch.cat([params[f"lstm.layers.{l}.wx"], params[f"lstm.layers.{l}.wh"]], dim=1)
+            for l in range(n_layers)]
+    wcatr = (torch.stack(wcat[1:], dim=1) if n_layers > 1
+             else wcat[0].new_zeros((nv, 0, 2 * cfg.lstm_hidden, 4 * cfg.lstm_hidden)))
+    b2d = torch.stack([
+        lstm_bias({k.rsplit(".", 1)[1]: p for k, p in params.items()
+                   if k.startswith(f"lstm.layers.{l}.")}) for l in range(n_layers)], dim=1)
+    keep = 1.0 - cfg.lstm_dropout
+    lstm_masks = masks.get("lstm")
+    lstm_masks = None if lstm_masks is None else lstm_masks.contiguous()
+    lstm_keep = keep if lstm_masks is not None else 1.0
+    if cfg.lstm_kernel == "xla":
+        feat = lstm_stack_tasks_plain(h, wcat[0], wcatr, b2d, lstm_masks, lstm_keep, dtype)
+    else:
+        feat = lstm_stack_train_tasks(h, wcat[0], wcatr, b2d, masks=lstm_masks, keep=lstm_keep,
+                                      compute_dtype=dtype)  # [V, N, lstm_hidden]
+    if "head" in masks:
+        feat = apply_mask(feat, masks["head"], keep)
+    out = torch.matmul(as_operand(feat, dtype), as_operand(params["head.w"], dtype))
+    out = out + params["head.b"][:, None]
+    out = out.reshape(nv, n, cfg.horizon, cfg.num_weather_vars)
+    return out.transpose(1, 2)  # [V, H, N, 12]

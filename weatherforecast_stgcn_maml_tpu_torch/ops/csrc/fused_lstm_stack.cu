@@ -1,7 +1,7 @@
 // Fused LSTM stack forward: all layers and all time steps in one launch.
 //
-// Replaces two Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
-// fused_lstm_stack.py, both bodies of `_fwd_kernel_m`:
+// Replaces three Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
+// fused_lstm_stack.py, the bodies of `_fwd_kernel_m` and `_fwd_kernel_mv`:
 //   eval (TRAIN = false, kernel row 2): `_fwd_kernel_m_lastonly_nomask`,
 //     launched by `_fwd_pallas_m(..., emit_residuals=False)`; returns only the
 //     top layer's last hidden state;
@@ -13,7 +13,15 @@
 //     rounding it to the compute dtype. The TPU backward recomputes the
 //     gates from the residuals to spare HBM; here storing them (4 floats a
 //     unit, 100 MB at the reference width) halves the backward's serial
-//     work per step (csrc/fused_lstm_stack_train.cu).
+//     work per step (csrc/fused_lstm_stack_train.cu);
+//   training for V tasks (kernel row 16): `_fwd_kernel_mv` (+ `_nomask`),
+//     launched by `_fwd_pallas_mv`: row 4 for V tasks, each with its own
+//     weights, inputs, masks and outputs, in one launch. The TPU folds the V
+//     chains into one program so that one chain's gate math hides under
+//     another's dots on the MXU; here the tasks are the grid's second axis
+//     (blockIdx.y), so V times the row tiles fill the card's SMs and each
+//     block streams its own task's weights (the wrapper picks the row tile
+//     for V x R rows).
 // Per step t and layer l it computes the merged-gates contraction
 //     gates = [in_t | h_{t-1}] @ [[Wx_l], [Wh_l]] + b_l      (gate order i,f,g,o)
 //     c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
@@ -59,6 +67,7 @@ constexpr size_t kMaxSmemBytes = 232448;  // 227 KB opt-in per block
 
 struct Dims {
   int T, R, C, H, L;
+  int V;  // tasks: the grid's second axis (1 but for row 16)
   __device__ int k(int l) const { return (l == 0 ? C : H) + H; }  // wcat_l rows
   __device__ int tiles(int l) const { return (k(l) + kTileK - 1) / kTileK; }
 };
@@ -99,10 +108,12 @@ struct TrainIO {
 
 // x[t, r, c] lives at x[t * st + r * sr + c]; wcat0 is [C + H, 4H], wcatr
 // [L-1, 2H, 4H] (both in the compute dtype TW), bias [L, 4H] float32,
-// out [R, H] float32. C and H are multiples of 4.
+// out [R, H] float32. C and H are multiples of 4. Task v = blockIdx.y
+// finds its x at x + v * sv and every other array at v times its one-task
+// size (a leading task axis).
 template <typename TW, int RPT, bool TRAIN>
 __global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
-                                      long long st, long long sr,
+                                      long long sv, long long st, long long sr,
                                       const TW* __restrict__ wcat0,
                                       const TW* __restrict__ wcatr,
                                       const float* __restrict__ bias,
@@ -111,6 +122,19 @@ __global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
   extern __shared__ float4 smem4[];
   const int H = d.H, C = d.C, L = d.L;
   const int g4 = 4 * H;
+  const size_t v = blockIdx.y;
+  x += v * sv;
+  wcat0 += v * (C + H) * g4;
+  wcatr += v * (L - 1) * 2 * H * g4;
+  bias += v * L * g4;
+  out += v * d.R * H;
+  if constexpr (TRAIN) {
+    const size_t res = (size_t)L * d.T * d.R * H;  // one task's [L, T, R, H]
+    io.h_all = static_cast<TW*>(io.h_all) + v * res;
+    io.c_all = static_cast<TW*>(io.c_all) + v * res;
+    io.gates += v * res * 4;
+    if (io.masks) io.masks += v * (L - 1) * d.T * d.R * H;
+  }
   const int rows_blk = (blockDim.x / H) * RPT;
   TW* wbuf = reinterpret_cast<TW*>(smem4);  // [2, kTileK, 4H]
   // Operand rows of layer l: [rows_blk, K_l] with K_l = (C or H) + H,
@@ -236,7 +260,7 @@ __global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
 }
 
 template <typename TW, int RPT, bool TRAIN>
-int launch(const float* x, long long st, long long sr, const void* wcat0,
+int launch(const float* x, long long sv, long long st, long long sr, const void* wcat0,
            const void* wcatr, const float* bias, float* out, Dims d,
            const TrainIO& io, cudaStream_t stream) {
   const int groups = d.H >= kTargetThreads ? 1 : kTargetThreads / d.H;
@@ -252,41 +276,41 @@ int launch(const float* x, long long st, long long sr, const void* wcat0,
       lstm_stack_fwd_kernel<TW, RPT, TRAIN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (d.R + rows_blk - 1) / rows_blk;
-  lstm_stack_fwd_kernel<TW, RPT, TRAIN><<<blocks, threads, smem, stream>>>(
-      x, st, sr, static_cast<const TW*>(wcat0), static_cast<const TW*>(wcatr),
+  const dim3 grid((d.R + rows_blk - 1) / rows_blk, d.V);
+  lstm_stack_fwd_kernel<TW, RPT, TRAIN><<<grid, threads, smem, stream>>>(
+      x, sv, st, sr, static_cast<const TW*>(wcat0), static_cast<const TW*>(wcatr),
       bias, out, d, io);
   return (int)cudaGetLastError();
 }
 
 template <typename TW, bool TRAIN>
-int launch_rpt(int rpt, const float* x, long long st, long long sr,
+int launch_rpt(int rpt, const float* x, long long sv, long long st, long long sr,
                const void* wcat0, const void* wcatr, const float* bias,
                float* out, Dims d, const TrainIO& io, cudaStream_t stream) {
   switch (rpt) {
     case 2:
-      return launch<TW, 2, TRAIN>(x, st, sr, wcat0, wcatr, bias, out, d, io, stream);
+      return launch<TW, 2, TRAIN>(x, sv, st, sr, wcat0, wcatr, bias, out, d, io, stream);
     case 4:
-      return launch<TW, 4, TRAIN>(x, st, sr, wcat0, wcatr, bias, out, d, io, stream);
+      return launch<TW, 4, TRAIN>(x, sv, st, sr, wcat0, wcatr, bias, out, d, io, stream);
     case 8:
-      return launch<TW, 8, TRAIN>(x, st, sr, wcat0, wcatr, bias, out, d, io, stream);
+      return launch<TW, 8, TRAIN>(x, sv, st, sr, wcat0, wcatr, bias, out, d, io, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool TRAIN>
-int launch_dt(int w_dt, int rpt, const float* x, long long st, long long sr,
-              const void* wcat0, const void* wcatr, const float* bias,
+int launch_dt(int w_dt, int rpt, int V, const float* x, long long sv, long long st,
+              long long sr, const void* wcat0, const void* wcatr, const float* bias,
               float* out, int T, int R, int C, int H, int L, const TrainIO& io,
               void* stream) {
-  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0)
+  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0 || V <= 0 || V > 65535)
     return (int)cudaErrorInvalidValue;
-  const Dims d{T, R, C, H, L};
+  const Dims d{T, R, C, H, L, V};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_dt == kF32)
-    return launch_rpt<float, TRAIN>(rpt, x, st, sr, wcat0, wcatr, bias, out, d, io, s);
+    return launch_rpt<float, TRAIN>(rpt, x, sv, st, sr, wcat0, wcatr, bias, out, d, io, s);
   if (w_dt == kBF16)
-    return launch_rpt<__nv_bfloat16, TRAIN>(rpt, x, st, sr, wcat0, wcatr, bias,
+    return launch_rpt<__nv_bfloat16, TRAIN>(rpt, x, sv, st, sr, wcat0, wcatr, bias,
                                             out, d, io, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -304,7 +328,7 @@ extern "C" int wf_lstm_stack_last(int w_dt, int rows_per_thread,
                                   const float* bias, float* out, int T, int R,
                                   int C, int H, int L, void* stream) {
   const wf::TrainIO none{nullptr, nullptr, nullptr, nullptr, 1.f};
-  return wf::launch_dt<false>(w_dt, rows_per_thread, x, st, sr, wcat0, wcatr,
+  return wf::launch_dt<false>(w_dt, rows_per_thread, 1, x, 0, st, sr, wcat0, wcatr,
                               bias, out, T, R, C, H, L, none, stream);
 }
 
@@ -322,6 +346,22 @@ extern "C" int wf_lstm_stack_train_fwd(int w_dt, int rows_per_thread,
                                        int L, void* stream) {
   if (!h_all || !c_all || !gates) return (int)cudaErrorInvalidValue;
   const wf::TrainIO io{h_all, c_all, gates, masks, inv_keep};
-  return wf::launch_dt<true>(w_dt, rows_per_thread, x, st, sr, wcat0, wcatr,
+  return wf::launch_dt<true>(w_dt, rows_per_thread, 1, x, 0, st, sr, wcat0, wcatr,
                              bias, out, T, R, C, H, L, io, stream);
+}
+
+// Training forward of V tasks in one launch (kernel row 16): as
+// wf_lstm_stack_train_fwd, each array with a leading task axis: x [V, T, R,
+// C] (task stride sv, contiguous otherwise), wcat0 [V, C + H, 4H], wcatr
+// [V, L-1, 2H, 4H], bias [V, L, 4H], masks [V, L-1, T, R, H] (or null),
+// h_all, c_all [V, L, T, R, H], gates [V, L, T, R, 4H], out [V, R, H].
+extern "C" int wf_lstm_stack_train_fwd_tasks(
+    int w_dt, int rows_per_thread, int V, const float* x, long long sv,
+    const void* wcat0, const void* wcatr, const float* bias, const int8_t* masks,
+    float inv_keep, void* h_all, void* c_all, float* gates, float* out, int T,
+    int R, int C, int H, int L, void* stream) {
+  if (!h_all || !c_all || !gates) return (int)cudaErrorInvalidValue;
+  const wf::TrainIO io{h_all, c_all, gates, masks, inv_keep};
+  return wf::launch_dt<true>(w_dt, rows_per_thread, V, x, sv, (long long)R * C, C,
+                             wcat0, wcatr, bias, out, T, R, C, H, L, io, stream);
 }

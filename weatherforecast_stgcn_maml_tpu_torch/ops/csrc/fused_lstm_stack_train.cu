@@ -1,9 +1,12 @@
 // Fused LSTM stack, training backward: the reverse-time recurrence of all
 // layers in one launch.
 //
-// Replaces the Pallas kernel `_bwd_kernel_m` (+ `_bwd_kernel_m_nomask`,
-// launched by `_bwd_pallas_m`) of
-// weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py (kernel row 5).
+// Replaces the Pallas kernels `_bwd_kernel_m` (+ `_bwd_kernel_m_nomask`,
+// launched by `_bwd_pallas_m`; kernel row 5) and `_bwd_kernel_mv` (+
+// `_nomask`, launched by `_bwd_pallas_mv`; kernel row 17: row 5 for V tasks,
+// each with its own weights, in one launch) of
+// weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py. As in the
+// forward (csrc/fused_lstm_stack.cu), the tasks are the grid's second axis.
 // Walking t = T-1 .. 0 and, per step, l = L-1 .. 0, it
 //   * reads the activated gates (i, f, g, o) the forward stored, and c_t,
 //     c_{t-1} from the forward's residuals (zero at t = 0);
@@ -61,16 +64,35 @@ struct BwdArgs {
   float* dh_all;
   float* dc_all;
   int T, R, C, H, L;
+  int V;  // tasks (1 but for row 17): every array above has a leading task axis
 };
 
 // Thread (group, j) owns hidden unit j of RPT rows: its four gate gradients,
 // and the input-gradient columns q * H + j of the contraction (NQ >=
 // (C + H) / H of them).
 template <typename TW, int RPT, int NQ>
-__global__ void lstm_stack_bwd_kernel(BwdArgs a) {
+__global__ void lstm_stack_bwd_kernel(BwdArgs args) {
   extern __shared__ float4 smem4[];
-  const int H = a.H, C = a.C, L = a.L, T = a.T, R = a.R;
+  const int H = args.H, C = args.C, L = args.L, T = args.T, R = args.R;
   const int g4 = 4 * H;
+  // Task v = blockIdx.y: each array at v times its one-task size.
+  BwdArgs a = args;
+  {
+    const size_t v = blockIdx.y;
+    const size_t res = (size_t)L * T * R * H;  // one task's [L, T, R, H]
+    a.g += v * R * H;
+    a.gates += v * res * 4;
+    a.c_all = static_cast<const TW*>(a.c_all) + v * res;
+    if (a.masks) a.masks += v * (L - 1) * T * R * H;
+    a.wcatT0 = static_cast<const TW*>(a.wcatT0) + v * g4 * (C + H);
+    a.wcatTr = static_cast<const TW*>(a.wcatTr) + v * (L - 1) * g4 * 2 * H;
+    a.dx += v * T * R * C;
+    a.dgates += v * res * 4;
+    if (a.dh_all) {
+      a.dh_all += v * res;
+      a.dc_all += v * res;
+    }
+  }
   const int kmax = (C > H ? C : H) + H;  // widest wcat_l^T row
   const int rows_blk = (blockDim.x / H) * RPT;
   TW* wbuf = reinterpret_cast<TW*>(smem4);  // [2, kTileK, kmax]
@@ -198,8 +220,8 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
       lstm_stack_bwd_kernel<TW, RPT, NQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.R + rows_blk - 1) / rows_blk;
-  lstm_stack_bwd_kernel<TW, RPT, NQ><<<blocks, threads, smem, stream>>>(a);
+  const dim3 grid((a.R + rows_blk - 1) / rows_blk, a.V);
+  lstm_stack_bwd_kernel<TW, RPT, NQ><<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -223,6 +245,13 @@ int launch_rpt(int rpt, const BwdArgs& a, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+int launch_dt(int w_dt, int rpt, const BwdArgs& a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_dt == kF32) return launch_rpt<float>(rpt, a, s);
+  if (w_dt == kBF16) return launch_rpt<__nv_bfloat16>(rpt, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace wf
 
@@ -243,10 +272,23 @@ extern "C" int wf_lstm_stack_train_bwd(int w_dt, int rows_per_thread,
   if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0 || !dh_all != !dc_all)
     return (int)cudaErrorInvalidValue;
   const wf::BwdArgs a{g, gates, c_all, masks, inv_keep, wcatT0, wcatTr,
-                      dx, dgates, dh_all, dc_all, T, R, C, H, L};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_dt == wf::kF32) return wf::launch_rpt<float>(rows_per_thread, a, s);
-  if (w_dt == wf::kBF16)
-    return wf::launch_rpt<__nv_bfloat16>(rows_per_thread, a, s);
-  return (int)cudaErrorInvalidValue;
+                      dx, dgates, dh_all, dc_all, T, R, C, H, L, 1};
+  return wf::launch_dt(w_dt, rows_per_thread, a, stream);
+}
+
+// Training backward recurrence of V tasks in one launch (kernel row 17): as
+// wf_lstm_stack_train_bwd without the carries, each array with a leading
+// task axis: g [V, R, H], gates [V, L, T, R, 4H], c_all [V, L, T, R, H],
+// masks [V, L-1, T, R, H] (or null), wcatT0 [V, 4H, C + H], wcatTr [V, L-1,
+// 4H, 2H], dx [V, T, R, C], dgates [V, L, T, R, 4H].
+extern "C" int wf_lstm_stack_train_bwd_tasks(
+    int w_dt, int rows_per_thread, int V, const float* g, const float* gates,
+    const void* c_all, const int8_t* masks, float inv_keep, const void* wcatT0,
+    const void* wcatTr, float* dx, float* dgates, int T, int R, int C, int H,
+    int L, void* stream) {
+  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0 || V <= 0 || V > 65535)
+    return (int)cudaErrorInvalidValue;
+  const wf::BwdArgs a{g, gates, c_all, masks, inv_keep, wcatT0, wcatTr,
+                      dx, dgates, nullptr, nullptr, T, R, C, H, L, V};
+  return wf::launch_dt(w_dt, rows_per_thread, a, stream);
 }

@@ -53,6 +53,14 @@ _SIGNATURES = {
                                 _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_stack_train_bwd": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P,
                                 _P, _P, _I, _I, _I, _I, _I, _P],
+    "wf_lstm_stack_train_fwd_tasks": [_I, _I, _I, _P, _LL, _P, _P, _P, _P, _F, _P, _P, _P,
+                                      _P, _I, _I, _I, _I, _I, _P],
+    "wf_lstm_stack_train_bwd_tasks": [_I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _P],
+    "wf_lstm_split_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _P],
+    "wf_lstm_split_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
+                          _I, _I, _I, _I, _I, _P],
     "wf_lstm_hvp_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
                         _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_hvp_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,

@@ -1,10 +1,10 @@
 """Fused LSTM stack: x [B, T, C] -> the top layer's last hidden state
 [B, H], all layers and time steps in one launch.
 
-Two entries, each running a hand-written CUDA kernel on a CUDA tensor and
-its plain PyTorch version, `lstm_stack_plain`, on a CPU tensor or under
-float64. On a CUDA tensor a shape or dtype a kernel does not take raises;
-nothing falls back to the plain version there.
+Each entry runs a hand-written CUDA kernel on a CUDA tensor and its plain
+PyTorch version on a CPU tensor or under float64. On a CUDA tensor a shape
+or dtype a kernel does not take raises; nothing falls back to the plain
+version there.
 
   * `lstm_stack_last_all`: the eval forward (csrc/fused_lstm_stack.cu,
     kernel row 2), no autograd;
@@ -12,19 +12,28 @@ nothing falls back to the plain version there.
     h / c residuals and the activated gates and applying int8 inter-layer
     dropout masks, row 4) and its backward (csrc/fused_lstm_stack_train.cu
     for the reverse-time recurrence, row 5, then csrc/gemm.cu for the
-    weight and bias gradients) behind one `torch.autograd.Function`.
+    weight and bias gradients) behind one `torch.autograd.Function`;
+  * `lstm_stack_train_tasks`: rows 4 and 5 for V tasks with their own
+    weights, one launch each way (rows 16 and 17), for the task-batched
+    meta step (`_VBATCH`);
+  * `lstm_stack_split`: the unmerged-gates stack (csrc/fused_lstm_split.cu,
+    rows 14 and 15), which the two entries above take under
+    `_MERGED_GATES = False` or `merged=False`.
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py`
 (`lstm_stack_last_all`; Pallas bodies `_fwd_kernel_m_lastonly_nomask`,
-`_fwd_kernel_m` and `_bwd_kernel_m`). Rows are independent sequences, so a
+`_fwd_kernel_m`, `_bwd_kernel_m`, `_fwd_kernel_mv`, `_bwd_kernel_mv`,
+`_fwd_kernel` and `_bwd_kernel`). Rows are independent sequences, so a
 batch of windows over N nodes is simply B*N rows of one launch.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     accum_dtype,
@@ -35,6 +44,32 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import colsum, matmul_tn
 
 ROWS_PER_THREAD = (2, 4, 8)  # the row tiles the kernel is built for
+
+# The JAX package's two routing flags, with its names and defaults. Both are
+# read at call time, so a caller (the tests, chip_smoke.py) flips them in
+# process as the JAX package's tests monkeypatch them; neither has a config
+# key or a CLI option, in either package.
+#
+# _MERGED_GATES: True runs the merged-gates kernels (one [in | h] @ [[Wx],
+# [Wh]] contraction a stage; rows 2, 4, 5). False sends `lstm_stack_last_all`
+# and `lstm_stack_train` to the unmerged-gates stack `lstm_stack_split`
+# (x @ Wx and h @ Wh as two contractions; rows 14 and 15). Second order
+# keeps rows 4-5 and 10-11 where it differentiates twice
+# (train/so_fused.py calls them directly), as the JAX package's fhvp does.
+_MERGED_GATES = True
+# _VBATCH: True makes the first-order meta step of the hybrid family on the
+# merged fused stack (`model.lstm_kernel` auto / pallas_stack) run the tasks
+# of a micro-batch in lockstep (train/maml.py `lockstep_route`), their LSTM
+# stacks in one launch each way (`lstm_stack_train_tasks`, rows 16-17) and
+# their inner updates as one batched clip + SGD (row 9). The plain stack
+# (`lstm_kernel="xla"`) takes the lockstep loop too, with the same
+# arithmetic and no kernel. The routes with no merged stack (the stgcn
+# family, `lstm_kernel="pallas"`, the train-mode row 20 of
+# `use_pallas_lstm` at dropout 0, unmerged gates) and second order keep
+# their serial route; `meta-train --mesh` refuses the flag. The JAX package
+# also checks `vbatch_supported` (V chains within a TPU core's VMEM); a card
+# streams any V, so the port has no such gate.
+_VBATCH = False
 
 
 def rows_per_thread(rows: int, hidden: int, sms: int) -> int:
@@ -150,17 +185,21 @@ def _lstm_stack_cuda(layers, x, compute_dtype):
 
 
 def lstm_stack_last_all(
-    layers: Sequence, x: torch.Tensor, *, compute_dtype: torch.dtype = torch.float32
+    layers: Sequence, x: torch.Tensor, *, compute_dtype: torch.dtype = torch.float32,
+    merged: bool | None = None,
 ) -> torch.Tensor:
     """Run the whole stacked LSTM: x [B, T, C] -> h_top [B, H] at the last
     step, float32 (float64 under float64).
 
     `layers` are the LSTM's layers, each with `wx` [C_in, 4H], `wh` [H, 4H]
-    and the fused bias `b` [4H] (models/lstm.py).
+    and the fused bias `b` [4H] (models/lstm.py). `merged` (None: read
+    `_MERGED_GATES`) False runs the unmerged-gates forward (row 14).
     """
     cuda_build.no_grad_inputs(
         x, *(p for layer in layers for p in (layer.wx, layer.wh, layer.b))
     )
+    if not (_MERGED_GATES if merged is None else merged):
+        return lstm_stack_split(layers, x, compute_dtype=compute_dtype, train=False)
     if x.device.type == "cpu" or compute_dtype == torch.float64:
         return lstm_stack_plain(layers, x, compute_dtype)
     if x.device.type != "cuda":
@@ -242,31 +281,43 @@ def train_backward(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dty
         ),
         "LSTM train backward",
     )
-    # dwcat_l = [inp | h_prev]^T @ dgates_l over every step and row;
-    # h_prev at t = 0 is zero, so its rows start at t = 1.
+    dwcat = [torch.empty(((c_in if l == 0 else hidden) + hidden, g4), dtype=torch.float32,
+                         device=dev) for l in range(n_layers)]
+    db = torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
+    _weight_grads(x, h_all, dgates, masks, inv_keep, compute_dtype,
+                  [dw[:-hidden] for dw in dwcat], [dw[-hidden:] for dw in dwcat], db)
+    lstm_stack_train.backward_launches += 1
+    return dx, dwcat, db, dgates, dh_all, dc_all
+
+
+def _weight_grads(x, h_all, dgates, masks, inv_keep, compute_dtype, dwx, dwh, db):
+    """The weight and bias gradients of one task's stack from its float32
+    gate gradients dgates [L, T, B, 4H], on gemm.cu's fixed-order products:
+    dwx[l] = inp_l^T @ dgates_l and dwh[l] = h_prev^T @ dgates_l over every
+    step and row, db[l] = the column sums of dgates_l (into the given
+    [K, 4H] views and db [L, 4H]). inp_l is x [T, B, C] for layer 0 and the
+    layer below's h, masked, above it; h_prev at t = 0 is zero, so its rows
+    start at t = 1."""
+    t_len, rows, c_in = x.shape
+    n_layers, _, _, g4 = dgates.shape
+    hidden = g4 // 4
     steps = t_len * rows
-    dwcat, db = [], torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
     for l in range(n_layers):
-        kin = c_in if l == 0 else hidden
         dg = dgates[l].view(steps, g4)
-        dw = torch.empty((kin + hidden, g4), dtype=torch.float32, device=dev)
         if l == 0:
             inp, mask = x.view(steps, c_in), None
         else:
             inp = h_all[l - 1].view(steps, hidden)
             mask = None if masks is None else masks[l - 1].view(steps, hidden)
         matmul_tn(
-            inp, dg, dw[:kin], amask=mask, ascale=inv_keep,
+            inp, dg, dwx[l], amask=mask, ascale=inv_keep,
             compute_dtype=compute_dtype, what=f"LSTM layer {l} input weight gradient",
         )
         matmul_tn(
-            h_all[l, :-1].reshape(steps - rows, hidden), dg[rows:], dw[kin:],
+            h_all[l, :-1].reshape(steps - rows, hidden), dg[rows:], dwh[l],
             compute_dtype=compute_dtype, what=f"LSTM layer {l} recurrent weight gradient",
         )
         colsum(dg, db[l], f"LSTM layer {l} bias gradient")
-        dwcat.append(dw)
-    lstm_stack_train.backward_launches += 1
-    return dx, dwcat, db, dgates, dh_all, dc_all
 
 
 class _LstmStackTrain(torch.autograd.Function):
@@ -292,14 +343,18 @@ class _LstmStackTrain(torch.autograd.Function):
 def lstm_stack_train(
     layers: Sequence, x: torch.Tensor, *,
     masks: torch.Tensor | None = None, keep: float = 1.0,
-    compute_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32, merged: bool | None = None,
 ) -> torch.Tensor:
     """Training forward of the stacked LSTM: x [B, T, C] -> h_top [B, H] at
     the last step, float32 (float64 under float64), differentiable.
 
     `masks` are int8 {0, 1} [L-1, T, B, H] (time-major, as the JAX
     package's) dropping each inter-layer output with scale 1/keep, or None.
+    `merged` (None: read `_MERGED_GATES`) False runs the unmerged-gates
+    stack (rows 14-15).
     """
+    if not (_MERGED_GATES if merged is None else merged):
+        return lstm_stack_split(layers, x, masks=masks, keep=keep, compute_dtype=compute_dtype)
     if x.device.type == "cpu" or compute_dtype == torch.float64:
         return lstm_stack_plain(layers, x, compute_dtype, masks, keep)
     if x.device.type != "cuda":
@@ -307,21 +362,7 @@ def lstm_stack_train(
     _check_lstm(layers, x, compute_dtype)
     rows, t_len, c_in = x.shape
     hidden = layers[0].wh.shape[0]
-    if c_in % 8 or hidden % 8 or c_in > 7 * hidden:
-        raise ValueError(
-            f"the LSTM training kernels take widths that are multiples of 8 "
-            f"with input <= 7 x hidden, got {c_in} and {hidden}"
-        )
-    cuda_build.dtype_code(x.dtype)
-    if masks is not None and (
-        masks.dtype != torch.int8 or masks.device != x.device
-        or masks.shape != (len(layers) - 1, t_len, rows, hidden)
-        or not masks.is_contiguous()
-    ):
-        raise ValueError(
-            f"masks must be contiguous int8 [{len(layers) - 1}, {t_len}, {rows}, "
-            f"{hidden}] on the input's device"
-        )
+    _check_train(x, masks, rows, t_len, c_in, hidden, len(layers))
     b2d = torch.stack([layer.b for layer in layers])
     wcat = [torch.cat([layer.wx, layer.wh]) for layer in layers]
     return _LstmStackTrain.apply(x.transpose(0, 1), masks, keep, compute_dtype, b2d, *wcat)
@@ -329,3 +370,438 @@ def lstm_stack_train(
 
 lstm_stack_train.launches = 0  # forwards run through the CUDA kernel (row 4)
 lstm_stack_train.backward_launches = 0  # backwards run through the kernels (row 5)
+
+
+def _check_train(x, masks, rows, t_len, c_in, hidden, n_layers, lead=()):
+    """Raise on what the training kernels do not take (widths, the input's
+    dtype, the masks' dtype, shape, device and layout)."""
+    if c_in % 8 or hidden % 8 or c_in > 7 * hidden:
+        raise ValueError(
+            f"the LSTM training kernels take widths that are multiples of 8 "
+            f"with input <= 7 x hidden, got {c_in} and {hidden}"
+        )
+    cuda_build.dtype_code(x.dtype)
+    shape = (*lead, n_layers - 1, t_len, rows, hidden)
+    if masks is not None and (
+        masks.dtype != torch.int8 or masks.device != x.device
+        or masks.shape != shape or not masks.is_contiguous()
+    ):
+        raise ValueError(f"masks must be contiguous int8 {list(shape)} on the input's device")
+
+
+def _on_card(x: torch.Tensor, compute_dtype: torch.dtype) -> bool:
+    """False for the plain versions' inputs (a CPU tensor, float64); True
+    on a card; raise on any other device."""
+    if x.device.type == "cpu" or compute_dtype == torch.float64:
+        return False
+    if x.device.type != "cuda":
+        raise TypeError(f"no LSTM kernel for device {x.device}")
+    return True
+
+
+# --------------------------------------------------------------------------
+# Rows 16-17: the merged training stack for V tasks, each with its own
+# weights (the JAX package's custom_vmap rules of the merged stack under
+# `_VBATCH`, `_fwd_pallas_mv` / `_bwd_pallas_mv`).
+
+
+def lstm_stack_tasks_plain(
+    x: torch.Tensor, wcat0: torch.Tensor, wcatr: torch.Tensor, b2d: torch.Tensor,
+    masks: torch.Tensor | None = None, keep: float = 1.0,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of `lstm_stack_train_tasks`: `lstm_stack_plain` per
+    task, each layer's [[wx], [wh]] split back. Differentiable."""
+    hidden = b2d.shape[-1] // 4
+
+    def layers(v):
+        return [SimpleNamespace(wx=w[:-hidden], wh=w[-hidden:], b=b)
+                for w, b in zip([wcat0[v], *wcatr[v]], b2d[v])]
+
+    return torch.stack([
+        lstm_stack_plain(layers(v), x[v], compute_dtype, None if masks is None else masks[v],
+                         keep) for v in range(x.shape[0])])
+
+
+def _on_card_weights(first, rest, compute_dtype):
+    """(first, rest) in the compute dtype, contiguous, for the kernels;
+    `first` stands in for an empty `rest` (one layer), which they never
+    read."""
+    first = first.to(compute_dtype).contiguous()
+    return first, rest.to(compute_dtype).contiguous() if rest.numel() else first
+
+
+def tasks_forward(x_vtbc, masks, keep, compute_dtype, wcat0, wcatr, b2d):
+    """Row 16 on a CUDA tensor: x_vtbc [V, T, B, C], wcat0 [V, C + H, 4H],
+    wcatr [V, L-1, 2H, 4H], b2d [V, L, 4H] -> (h_last [V, B, H] float32,
+    h_all, c_all [V, L, T, B, H] in the compute dtype, the activated gates
+    [V, L, T, B, 4H] float32)."""
+    lib = cuda_build.load()
+    dev = x_vtbc.device
+    nv, t_len, rows, c_in = x_vtbc.shape
+    n_layers, g4 = b2d.shape[1:]
+    hidden = g4 // 4
+    x = x_vtbc.to(torch.float32).contiguous()
+    w0, wr = _on_card_weights(wcat0, wcatr, compute_dtype)
+    bias = b2d.contiguous()
+    shape = (nv, n_layers, t_len, rows, hidden)
+    h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
+    c_all = torch.empty(shape, dtype=compute_dtype, device=dev)
+    gates = torch.empty((*shape[:-1], g4), dtype=torch.float32, device=dev)
+    out = torch.empty((nv, rows, hidden), dtype=torch.float32, device=dev)
+    # The row tile for all V x B rows: V times the tiles fill the SMs.
+    rpt = _rows_per_thread(nv * rows, hidden, dev)
+    cuda_build.check(
+        lib.wf_lstm_stack_train_fwd_tasks(
+            cuda_build.dtype_code(compute_dtype), rpt, nv, x.data_ptr(), x.stride(0),
+            w0.data_ptr(), wr.data_ptr(), bias.data_ptr(),
+            None if masks is None else masks.data_ptr(), 1.0 / keep,
+            h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), out.data_ptr(),
+            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
+        ),
+        "LSTM train forward (tasks)",
+    )
+    lstm_stack_train_tasks.launches += 1
+    return out, h_all, c_all, gates
+
+
+def tasks_backward(g, x_vtbc, h_all, c_all, gates, wcat0, wcatr, masks, keep,
+                   compute_dtype):
+    """Row 17 on a CUDA tensor: the gradient g [V, B, H] of each task's last
+    h back to (dx [V, T, B, C], dwcat0 [V, C + H, 4H], dwcatr [V, L-1, 2H,
+    4H], db [V, L, 4H]) float32: the reverse-time recurrence of every task
+    in one launch, then each task's weight gradients on gemm.cu."""
+    lib = cuda_build.load()
+    dev = x_vtbc.device
+    nv, t_len, rows, c_in = x_vtbc.shape
+    n_layers, g4 = gates.shape[1], gates.shape[-1]
+    hidden = g4 // 4
+    inv_keep = 1.0 / keep
+    x = x_vtbc.to(torch.float32).contiguous()
+    g = g.to(torch.float32).contiguous()
+    w0, wr = _on_card_weights(wcat0, wcatr, compute_dtype)
+    wt0 = w0.transpose(1, 2).contiguous()
+    wtr = wr.transpose(2, 3).contiguous() if n_layers > 1 else wt0
+    dx = torch.empty((nv, t_len, rows, c_in), dtype=torch.float32, device=dev)
+    dgates = torch.empty_like(gates)
+    cuda_build.check(
+        lib.wf_lstm_stack_train_bwd_tasks(
+            cuda_build.dtype_code(compute_dtype), _rows_per_thread(nv * rows, hidden, dev), nv,
+            g.data_ptr(), gates.data_ptr(), c_all.data_ptr(),
+            None if masks is None else masks.data_ptr(), inv_keep,
+            wt0.data_ptr(), wtr.data_ptr(), dx.data_ptr(), dgates.data_ptr(),
+            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
+        ),
+        "LSTM train backward (tasks)",
+    )
+    dwcat0 = torch.empty((nv, c_in + hidden, g4), dtype=torch.float32, device=dev)
+    dwcatr = torch.empty((nv, n_layers - 1, 2 * hidden, g4), dtype=torch.float32, device=dev)
+    db = torch.empty((nv, n_layers, g4), dtype=torch.float32, device=dev)
+    for v in range(nv):
+        dw = [dwcat0[v], *dwcatr[v]]
+        _weight_grads(x[v], h_all[v], dgates[v], None if masks is None else masks[v],
+                      inv_keep, compute_dtype, [w[:-hidden] for w in dw],
+                      [w[-hidden:] for w in dw], db[v])
+    lstm_stack_train_tasks.backward_launches += 1
+    return dx, dwcat0, dwcatr, db
+
+
+class _LstmStackTasks(torch.autograd.Function):
+    """Rows 16 and 17 as one differentiable op over (x_vtbc, wcat0, wcatr,
+    b2d), every argument with a leading task axis."""
+
+    @staticmethod
+    def forward(ctx, x_vtbc, masks, keep, compute_dtype, wcat0, wcatr, b2d):
+        out, h_all, c_all, gates = tasks_forward(
+            x_vtbc, masks, keep, compute_dtype, wcat0, wcatr, b2d)
+        ctx.compute_dtype, ctx.keep = compute_dtype, keep
+        ctx.save_for_backward(x_vtbc, masks, h_all, c_all, gates, wcat0, wcatr)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, masks, h_all, c_all, gates, wcat0, wcatr = ctx.saved_tensors
+        dx, dwcat0, dwcatr, db = tasks_backward(
+            g, x, h_all, c_all, gates, wcat0, wcatr, masks, ctx.keep, ctx.compute_dtype)
+        return dx.to(x.dtype), None, None, None, dwcat0, dwcatr, db
+
+
+def lstm_stack_train_tasks(
+    x: torch.Tensor, wcat0: torch.Tensor, wcatr: torch.Tensor, b2d: torch.Tensor, *,
+    masks: torch.Tensor | None = None, keep: float = 1.0,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Training forward of V tasks' stacked LSTMs, each with its own
+    weights: x [V, B, T, C] -> h_top [V, B, H] at the last step, float32
+    (float64 under float64), differentiable.
+
+    wcat0 [V, C + H, 4H] and wcatr [V, L-1, 2H, 4H] hold each layer's
+    [[wx], [wh]] (float32), b2d [V, L, 4H] its fused bias; `masks` are int8
+    {0, 1} [V, L-1, T, B, H] (each task's time-major masks) dropping each
+    inter-layer output with scale 1/keep, or None.
+    """
+    if not _on_card(x, compute_dtype):
+        return lstm_stack_tasks_plain(x, wcat0, wcatr, b2d, masks, keep, compute_dtype)
+    nv, rows, t_len, c_in = x.shape
+    n_layers, g4 = b2d.shape[1:]
+    hidden = g4 // 4
+    if (
+        b2d.shape != (nv, n_layers, g4) or g4 % 4
+        or wcat0.shape != (nv, c_in + hidden, g4)
+        or wcatr.shape != (nv, n_layers - 1, 2 * hidden, g4)
+    ):
+        raise ValueError(
+            f"task-stacked LSTM weights of the wrong shape: x {list(x.shape)}, wcat0 "
+            f"{list(wcat0.shape)}, wcatr {list(wcatr.shape)}, b2d {list(b2d.shape)}"
+        )
+    if any(p.device != x.device or p.dtype != torch.float32 for p in (wcat0, wcatr, b2d)):
+        raise TypeError("LSTM weights must be float32 on the input's device")
+    _check_train(x, masks, rows, t_len, c_in, hidden, n_layers, lead=(nv,))
+    cuda_build.dtype_code(compute_dtype)
+    return _LstmStackTasks.apply(x.transpose(1, 2), masks, keep, compute_dtype,
+                                 wcat0, wcatr, b2d)
+
+
+lstm_stack_train_tasks.launches = 0  # forwards run through the CUDA kernel (row 16)
+lstm_stack_train_tasks.backward_launches = 0  # backwards run through the kernels (row 17)
+
+
+# --------------------------------------------------------------------------
+# Rows 14-15: the unmerged-gates stack (the JAX package's `_stack_pallas`,
+# Pallas bodies `_fwd_kernel` and `_bwd_kernel`). Its residuals are JAX's:
+# h_all and c_all [L, T, B, H] in the compute dtype, no gates; the backward
+# recomputes each stage's gates from them.
+
+
+def _split_weights(layers):
+    """(wx0 [C, 4H], wxr [L-1, H, 4H], wh [L, H, 4H], b2d [L, 4H]) from the
+    layers, differentiable; wxr is empty for one layer."""
+    wx0 = layers[0].wx
+    wxr = (torch.stack([layer.wx for layer in layers[1:]]) if len(layers) > 1
+           else wx0.new_zeros((0, *layers[0].wh.shape)))
+    wh = torch.stack([layer.wh for layer in layers])
+    b2d = torch.stack([layer.b for layer in layers])
+    return wx0, wxr, wh, b2d
+
+
+def split_forward_plain(x_tbc, wx0, wxr, wh, b2d, masks=None, keep=1.0,
+                        compute_dtype=torch.float32):
+    """Plain version of row 14, JAX `_fwd_kernel`'s arithmetic: x_tbc
+    [T, B, C] -> (h_last [B, H] in the accumulation dtype, h_all, c_all
+    [L, T, B, H] in the compute dtype)."""
+    t_len = x_tbc.shape[0]
+    n_layers = wh.shape[0]
+    h = [torch.zeros((x_tbc.shape[1], wh.shape[1]), dtype=accum_dtype(compute_dtype),
+                     device=x_tbc.device)] * n_layers
+    c = list(h)
+    hs, cs = [], []
+    for t in range(t_len):
+        inp = as_operand(x_tbc[t], compute_dtype)
+        for l in range(n_layers):
+            wx = wx0 if l == 0 else wxr[l - 1]
+            gates = (torch.matmul(inp, as_operand(wx, compute_dtype))
+                     + torch.matmul(as_operand(h[l], compute_dtype),
+                                    as_operand(wh[l], compute_dtype)) + b2d[l])
+            i, f, g, o = gates.split(wh.shape[1], dim=-1)
+            c[l] = torch.sigmoid(f) * c[l] + torch.sigmoid(i) * torch.tanh(g)
+            h[l] = torch.sigmoid(o) * torch.tanh(c[l])
+            hs.append(h[l])
+            cs.append(c[l])
+            if l < n_layers - 1:
+                nxt = h[l] if masks is None else apply_mask(h[l], masks[l, t], keep)
+                inp = as_operand(nxt, compute_dtype)
+
+    def residual(vals):  # [T * L] in step order -> [L, T, B, H]
+        return (torch.stack(vals).view(t_len, n_layers, *vals[0].shape).transpose(0, 1)
+                .to(compute_dtype).contiguous())
+
+    return h[-1], residual(hs), residual(cs)
+
+
+def split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks=None, keep=1.0,
+                         compute_dtype=torch.float32):
+    """Plain version of row 15, JAX `_bwd_kernel`'s arithmetic: from the
+    gradient g [B, H] of the top layer's last h and row 14's residuals, the
+    reverse-time recurrence recomputing each stage's gates -> (dx [T, B, C],
+    dwx0 [C, 4H], dwxr [L-1, H, 4H], dwh [L, H, 4H], db [L, 4H]) in the
+    accumulation dtype."""
+    acc = accum_dtype(compute_dtype)
+    t_len, rows, _ = x_tbc.shape
+    n_layers, hidden = wh.shape[:2]
+
+    def op(a):
+        return as_operand(a, compute_dtype)
+
+    zero = torch.zeros((rows, hidden), dtype=acc, device=x_tbc.device)
+    dh, dc = [zero] * n_layers, [zero] * n_layers
+    dx = [None] * t_len
+    dwx = [torch.zeros_like(wx0, dtype=acc)] + [torch.zeros_like(w, dtype=acc) for w in wxr]
+    dwh = [torch.zeros_like(w, dtype=acc) for w in wh]
+    db = [torch.zeros_like(b, dtype=acc) for b in b2d]
+    for t in reversed(range(t_len)):
+        d_above = None
+        for l in reversed(range(n_layers)):
+            h_prev = zero if t == 0 else h_all[l, t - 1].to(acc)
+            c_prev = zero if t == 0 else c_all[l, t - 1].to(acc)
+            if l == 0:
+                inp, wx = op(x_tbc[t]), wx0
+            else:
+                inp = h_all[l - 1, t].to(acc)
+                if masks is not None:
+                    inp = apply_mask(inp, masks[l - 1, t], keep)
+                inp, wx = op(inp), wxr[l - 1]
+            gates = torch.matmul(inp, op(wx)) + torch.matmul(op(h_prev), op(wh[l])) + b2d[l]
+            i, f, gg, o = gates.split(hidden, dim=-1)
+            i, f, gg, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
+            tc = torch.tanh(c_all[l, t].to(acc))
+            dhl = dh[l]
+            if l == n_layers - 1 and t == t_len - 1:
+                dhl = dhl + g.to(acc)
+            if d_above is not None:
+                dhl = dhl + d_above
+            dcl = dc[l] + dhl * o * (1.0 - tc * tc)
+            dgates = torch.cat([dcl * gg * i * (1.0 - i), dcl * c_prev * f * (1.0 - f),
+                                dcl * i * (1.0 - gg * gg), dhl * tc * o * (1.0 - o)], dim=-1)
+            dgc = op(dgates)
+            dh[l] = torch.matmul(dgc, op(wh[l]).t())
+            dc[l] = dcl * f
+            d_in = torch.matmul(dgc, op(wx).t())
+            if l == 0:
+                dx[t] = d_in
+            else:
+                d_above = d_in if masks is None else apply_mask(d_in, masks[l - 1, t], keep)
+            dwx[l] = dwx[l] + torch.matmul(inp.t(), dgc)
+            dwh[l] = dwh[l] + torch.matmul(op(h_prev).t(), dgc)
+            db[l] = db[l] + dgates.sum(dim=0)
+    dwxr = torch.stack(dwx[1:]) if n_layers > 1 else torch.zeros_like(wxr, dtype=acc)
+    return torch.stack(dx), dwx[0], dwxr, torch.stack(dwh), torch.stack(db)
+
+
+def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residuals=True):
+    """Row 14 on a CUDA tensor (its plain version on a CPU tensor or under
+    float64): -> (h_last [B, H] float32, h_all, c_all [L, T, B, H] in the
+    compute dtype, or None without `residuals`)."""
+    if not _on_card(x_tbc, compute_dtype):
+        return split_forward_plain(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype)
+    lib = cuda_build.load()
+    dev = x_tbc.device
+    t_len, rows, c_in = x_tbc.shape
+    n_layers, hidden, g4 = wh.shape
+    x = x_tbc.to(torch.float32)
+    if x.stride(2) != 1:
+        x = x.contiguous()
+    w0, wr = _on_card_weights(wx0, wxr, compute_dtype)
+    whc = wh.to(compute_dtype).contiguous()
+    h_all = c_all = None
+    if residuals:
+        shape = (n_layers, t_len, rows, hidden)
+        h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
+        c_all = torch.empty(shape, dtype=compute_dtype, device=dev)
+    out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+    cuda_build.check(
+        lib.wf_lstm_split_fwd(
+            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
+            x.data_ptr(), x.stride(0), x.stride(1), w0.data_ptr(), wr.data_ptr(),
+            whc.data_ptr(), b2d.contiguous().data_ptr(),
+            None if masks is None else masks.data_ptr(), 1.0 / keep,
+            None if h_all is None else h_all.data_ptr(),
+            None if c_all is None else c_all.data_ptr(), out.data_ptr(),
+            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
+        ),
+        "LSTM unmerged-gates forward",
+    )
+    lstm_stack_split.launches += 1
+    return out, h_all, c_all
+
+
+def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compute_dtype):
+    """Row 15 on a CUDA tensor (its plain version on a CPU tensor or under
+    float64): -> (dx [T, B, C], dwx0, dwxr, dwh, db) float32; the weight
+    gradients on gemm.cu from the kernel's float32 gate gradients."""
+    if not _on_card(x_tbc, compute_dtype):
+        return split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
+                                    compute_dtype)
+    lib = cuda_build.load()
+    dev = x_tbc.device
+    t_len, rows, c_in = x_tbc.shape
+    n_layers, hidden, g4 = wh.shape
+    inv_keep = 1.0 / keep
+    x = x_tbc.to(torch.float32).contiguous()
+    g = g.to(torch.float32).contiguous()
+    h_all = h_all.to(compute_dtype).contiguous()
+    c_all = c_all.to(compute_dtype).contiguous()
+    w0, wr = _on_card_weights(wx0, wxr, compute_dtype)
+    whc = wh.to(compute_dtype).contiguous()
+    # The transposed weights of the dgates @ W^T contractions.
+    wt0 = w0.t().contiguous()
+    wtr = wr.transpose(-1, -2).contiguous() if n_layers > 1 else wt0
+    wht = whc.transpose(1, 2).contiguous()
+    dx = torch.empty((t_len, rows, c_in), dtype=torch.float32, device=dev)
+    dgates = torch.empty((n_layers, t_len, rows, g4), dtype=torch.float32, device=dev)
+    cuda_build.check(
+        lib.wf_lstm_split_bwd(
+            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
+            g.data_ptr(), x.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
+            w0.data_ptr(), wr.data_ptr(), whc.data_ptr(), wt0.data_ptr(), wtr.data_ptr(),
+            wht.data_ptr(), b2d.contiguous().data_ptr(),
+            None if masks is None else masks.data_ptr(), inv_keep,
+            dx.data_ptr(), dgates.data_ptr(), t_len, rows, c_in, hidden, n_layers,
+            cuda_build.stream_ptr(dev),
+        ),
+        "LSTM unmerged-gates backward",
+    )
+    dwx0 = torch.empty((c_in, g4), dtype=torch.float32, device=dev)
+    dwxr = torch.empty((n_layers - 1, hidden, g4), dtype=torch.float32, device=dev)
+    dwh = torch.empty((n_layers, hidden, g4), dtype=torch.float32, device=dev)
+    db = torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
+    _weight_grads(x, h_all, dgates, masks, inv_keep, compute_dtype, [dwx0, *dwxr],
+                  list(dwh), db)
+    lstm_stack_split.backward_launches += 1
+    return dx, dwx0, dwxr, dwh, db
+
+
+class _LstmStackSplit(torch.autograd.Function):
+    """Rows 14 and 15 as one differentiable op over (x_tbc, wx0, wxr, wh,
+    b2d)."""
+
+    @staticmethod
+    def forward(ctx, x_tbc, masks, keep, compute_dtype, wx0, wxr, wh, b2d):
+        h_last, h_all, c_all = split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep,
+                                             compute_dtype)
+        ctx.compute_dtype, ctx.keep = compute_dtype, keep
+        ctx.save_for_backward(x_tbc, masks, h_all, c_all, wx0, wxr, wh, b2d)
+        return h_last
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, masks, h_all, c_all, wx0, wxr, wh, b2d = ctx.saved_tensors
+        dx, dwx0, dwxr, dwh, db = split_backward(g, x, h_all, c_all, wx0, wxr, wh, b2d, masks,
+                                                 ctx.keep, ctx.compute_dtype)
+        return dx.to(x.dtype), None, None, None, dwx0, dwxr, dwh, db
+
+
+def lstm_stack_split(
+    layers: Sequence, x: torch.Tensor, *,
+    masks: torch.Tensor | None = None, keep: float = 1.0,
+    compute_dtype: torch.dtype = torch.float32, train: bool = True,
+) -> torch.Tensor:
+    """The unmerged-gates stack: x [B, T, C] -> h_top [B, H] at the last
+    step, float32 (float64 under float64). In train mode differentiable
+    (rows 14 and 15, `masks` as in `lstm_stack_train`); otherwise the eval
+    forward, row 14 without its residual stores."""
+    wx0, wxr, wh, b2d = _split_weights(layers)
+    x_tbc = x.transpose(0, 1)
+    if _on_card(x, compute_dtype):
+        _check_lstm(layers, x, compute_dtype)
+        rows, t_len, c_in = x.shape
+        _check_train(x, masks if train else None, rows, t_len, c_in, wh.shape[1], len(layers))
+    if not train:
+        return split_forward(x_tbc, wx0, wxr, wh, b2d, None, 1.0, compute_dtype,
+                             residuals=False)[0]
+    return _LstmStackSplit.apply(x_tbc, masks, keep, compute_dtype, wx0, wxr, wh, b2d)
+
+
+lstm_stack_split.launches = 0  # forwards run through the CUDA kernel (row 14)
+lstm_stack_split.backward_launches = 0  # backwards run through the kernels (row 15)

@@ -38,6 +38,7 @@ from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
     MamlState,
     adapt_and_query_loss,
     check_supported,
+    lockstep_route,
     param_grads,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import MetaOptimizer
@@ -49,6 +50,16 @@ def refuse_second_order(cfg: MetaConfig, where: str) -> None:
         raise NotImplementedError(
             f"not ported: second-order MAML (meta.second_order) on {where}; run it on "
             "one device (without --mesh)"
+        )
+
+
+def refuse_lockstep(model_cfg: ModelConfig, cfg: MetaConfig, where: str) -> None:
+    """The task-batched meta step has no mesh counterpart yet: under the
+    flag a mesh would silently run its tasks one after another."""
+    if lockstep_route(model_cfg, cfg):
+        raise NotImplementedError(
+            f"not ported: ops.fused_lstm_stack._VBATCH (the task-batched meta step, "
+            f"kernel rows 16-17) on {where}; run it on one device (without --mesh)"
         )
 
 
@@ -133,6 +144,7 @@ def make_parallel_meta_step(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: 
     Requires meta_batch / grad_accum (the tasks per update) to be divisible
     by the mesh size, so every rank holds equal task shares."""
     refuse_second_order(meta_cfg, "a mesh")
+    refuse_lockstep(model_cfg, meta_cfg, "a mesh")
     check_supported(model_cfg, meta_cfg)
     if mesh.sp != 1:
         raise ValueError(

@@ -38,6 +38,7 @@ from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import (
     make_mesh_meta_step,
     mesh_batch_grad,
+    refuse_lockstep,
     refuse_second_order,
 )
 from weatherforecast_stgcn_maml_tpu_torch.parallel.spatial import (
@@ -120,5 +121,6 @@ def make_shardmap_meta_step_2d(model_cfg: ModelConfig, meta_cfg: MetaConfig, mes
             f"({mesh.dp}) for even sharding"
         )
     refuse_second_order(meta_cfg, "the node-sharded (dp x sp) path")
+    refuse_lockstep(model_cfg, meta_cfg, "the node-sharded (dp x sp) path")
     check_supported(model_cfg, meta_cfg)
     return make_mesh_meta_step(meta_cfg, make_shardmap_batch_grad(model_cfg, meta_cfg, mesh))

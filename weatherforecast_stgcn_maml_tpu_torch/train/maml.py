@@ -24,14 +24,21 @@ and p - inner_lr * g are per-leaf and differentiable (the fused clip + SGD
 kernel is first-order only), and the query loss is differentiated w.r.t. the
 meta-parameters themselves: the exact MAML meta-gradient.
 
-Tasks run one after another on one device (the JAX package vmaps them). The
-meta batch splits into `grad_accum` micro-batches run in sequence; the mean
-meta-gradient of each feeds one clip + AdamW update (train/optimizers.py)
-from the parameters the previous update left.
+Tasks run one after another on one device (the JAX package vmaps them),
+except in lockstep: with `ops.fused_lstm_stack._VBATCH` on, the first-order
+step of the hybrid family on the merged fused LSTM stack runs the tasks of
+a micro-batch side by side (`lockstep_batch_grad`), as the JAX package's
+vmap does, their LSTM stacks in one launch each way (kernel rows 16-17) and
+their inner updates in one (row 9). The meta batch splits into
+`grad_accum` micro-batches run in sequence; the mean meta-gradient of each
+feeds one clip + AdamW update (train/optimizers.py) from the parameters
+the previous update left.
 
 Dropout masks come from one `torch.Generator` on the model's device,
 consumed in order: task by task, inner step by inner step, then the query
-windows; each forward draws encoder, LSTM, head masks in that order.
+windows (in lockstep: inner step by inner step, task by task within a step,
+then the query windows, task by task within each); each forward draws
+encoder, LSTM, head masks in that order.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 from torch import nn
 
 from weatherforecast_stgcn_maml_tpu_torch.config import MetaConfig, ModelConfig
+from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
     apply_model,
@@ -50,7 +58,11 @@ from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
     functional_apply,
     init_model,
 )
-from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import (
+    clip_sgd_update,
+    clip_sgd_update_plain,
+)
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import (
     AdamState,
     MetaOptimizer,
@@ -220,6 +232,79 @@ def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg) -> torch.T
     return _query_loss(params, p, task, generator, model_cfg, cfg)
 
 
+def lockstep_route(model_cfg: ModelConfig, cfg: MetaConfig) -> bool:
+    """Whether the meta step runs a micro-batch's tasks in lockstep: under
+    `_VBATCH`, first order, the hybrid family on the merged fused stack,
+    where the JAX flag sends the task vmap to its task-batched kernels (see
+    ops/fused_lstm_stack.py), and on the plain stack (`lstm_kernel="xla"`,
+    the same arithmetic with no kernel, so that the two compare with the
+    same dropout masks)."""
+    if not fused_lstm_stack._VBATCH or cfg.second_order or model_cfg.family != "hybrid":
+        return False
+    if model_cfg.use_pallas_lstm and model_cfg.lstm_dropout == 0.0:
+        return False  # the train-mode row 20 route
+    return model_cfg.lstm_kernel == "xla" or (
+        model_cfg.lstm_kernel in ("auto", "pallas_stack") and fused_lstm_stack._MERGED_GATES)
+
+
+@torch.no_grad()
+def inner_sgd_update_tasks(params: list, grads: list[torch.Tensor], cfg: MetaConfig) -> None:
+    """`inner_sgd_update` for leaves with a leading task axis, each task
+    clipped by its own norm: with `fused_inner_update` the batched kernel
+    (row 9), else per-leaf operations (its plain version). `params` and
+    `grads` in the JAX leaf order."""
+    update = clip_sgd_update if cfg.fused_inner_update else clip_sgd_update_plain
+    update(params, grads, cfg.inner_lr, cfg.clip_norm, batched=True)
+
+
+def lockstep_batch_grad(
+    params: nn.Module,
+    tasks: Task,
+    generator: torch.Generator | None,
+    model_cfg: ModelConfig,
+    cfg: MetaConfig,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The first-order meta-gradient of a stacked batch of V tasks, run in
+    lockstep: (per-task query losses [V], {name: mean gradient}).
+
+    The fast parameters are one copy of the meta-parameters stacked V
+    times. Inner step s runs one task-batched train forward and backward
+    (`apply_hybrid_tasks`) on support window s % S of every task, then one
+    clip + SGD update of the whole stacked tree, each task clipped by its
+    own norm (`inner_sgd_update_tasks`). Then the query loss of every task,
+    and each task's gradient at its adapted parameters. The tasks share no
+    parameter, so one backward of the summed losses gives each task's own
+    gradient in its slice.
+
+    Dropout masks come from `generator` inner step by inner step, task by
+    task within a step (each task's encoder, LSTM, head masks), then query
+    window by query window, task by task within each: the same draws as the
+    serial route's, in another order, so the same seed gives other masks.
+    """
+    named = sorted(params.named_parameters(), key=lambda kv: leaf_order(kv[0]))
+    names = [k for k, _ in named]
+    nv = tasks.support_x.shape[0]
+    fast = [p.detach().unsqueeze(0).repeat(nv, *[1] * p.dim()).requires_grad_(True)
+            for _, p in named]
+
+    def losses_at(x, y, gen):  # per-task losses [V] of one window a task
+        preds = apply_hybrid_tasks(dict(zip(names, fast)), tasks.a_hat, x, tasks.koppen,
+                                   model_cfg, masks=draw_masks(model_cfg, gen, x))
+        return torch.stack([masked_mse(preds[v], y[v], tasks.node_mask[v]) for v in range(nv)])
+
+    n_support = tasks.support_x.shape[1]
+    for s in range(cfg.inner_epochs * n_support):
+        idx = s % n_support  # epoch-major pass over the same support windows
+        losses = losses_at(tasks.support_x[:, idx], tasks.support_y[:, idx], generator)
+        inner_sgd_update_tasks(fast, param_grads(losses.sum(), fast), cfg)
+    q = max(1, min(cfg.query_batches, tasks.query_x.shape[1]))
+    gen = generator if cfg.query_train_mode else None
+    losses = torch.stack([losses_at(tasks.query_x[:, i], tasks.query_y[:, i], gen)
+                          for i in range(q)]).mean(dim=0)
+    grads = dict(zip(names, param_grads(losses.sum(), fast)))
+    return losses.detach(), {k: grads[k].sum(dim=0) / nv for k, _ in params.named_parameters()}
+
+
 def task_batch_grad(
     params: nn.Module,
     tasks: Task,
@@ -230,7 +315,10 @@ def task_batch_grad(
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The meta-gradient (first- or second-order, by `cfg.second_order`) of
     the mean query loss over a stacked batch of tasks: (per-task query
-    losses [B], {name: gradient})."""
+    losses [B], {name: gradient}). Under `lockstep_route` the tasks run in
+    lockstep (`lockstep_batch_grad`), else one after another."""
+    if lockstep_route(model_cfg, cfg):
+        return lockstep_batch_grad(params, tasks, generator, model_cfg, cfg)
     if cfg.second_order:
         named = list(params.named_parameters())
     else:

@@ -11,6 +11,11 @@ indices become key parts. Layouts are the same on both sides (`w` stored
 checkpoints carry split `b_ih`/`b_hh` biases; they fuse into `b` here,
 the bias every forward uses.
 
+A task-stacked tree, every leaf with a leading task axis V (the layout
+jax.vmap gives the tree over the tasks of a micro-batch), converts the same
+way with the axis kept: the port's stacked leaves {name: [V, ...]}, as the
+lockstep meta step (`train/maml.lockstep_batch_grad`) holds them.
+
 An optax AdamW state (`ScaleByAdamState`: count, mu, nu with the
 parameters' tree) converts the same way into the port's optimizer state.
 """

@@ -80,6 +80,12 @@ time):
      (one named card: gloo) for 1 float32 epoch, inner epochs cut to 2;
      each rank must launch rows 12-13 on its 256 rows, both ranks must
      report the same finite losses, and one set of checkpoints must exist;
+ 15a. hold the pipelined GEMM core (csrc/gemm_nn.cu) against gemm_nn_plain
+     at the products rows 3 and 15 give it (row 3's transform and
+     aggregation at both shapes; row 15's gate product, two operand pairs
+     at a row offset of 512, and its masked input product at [24, 512,
+     256], 4 layers of 128), float32 and bfloat16, each at rtol = atol
+     and at max|diff| / max|ref| within the dtype's tolerance;
  15. hold the LSTM kernel routes and the single GCN layer against their
      plain versions at full width, float32 and bfloat16, forward and every
      gradient: the per-layer recurrence (rows 18-19) at xp [24, 512, 512],
@@ -87,8 +93,9 @@ time):
      recurrences (row 20) at [1536, 24, 256] and [512, 24, 256], 4 layers of
      128; one GCN layer (row 3) at [24, 512, 256] -> 256 and [72, 512, 24]
      -> 256; time each, its plain version and its library call (row 20:
-     cuDNN's LSTM, beside row 2; row 3: torch.relu(a @ (h @ w) + b); rows
-     18-19: none, no PyTorch call runs a recurrence alone);
+     cuDNN's LSTM, beside row 2; row 3: torch.relu(a @ (h @ w) + b) in the
+     same dtype, also as device time by CUDA graph replay; rows 18-19:
+     none, no PyTorch call runs a recurrence alone);
  16. drive those routes through the CLI: `meta-train -o
      model.lstm_kernel=pallas` (1 epoch float32; rows 18 and 19 must launch
      1456 times a meta step, rows 4-5 never), the FO meta-gradient of one
@@ -106,8 +113,10 @@ time):
      every gradient) against their plain versions at the inner step's
      shapes (x [24, 512, 256], 4 layers of 128), masks at rate 0.2 and off,
      float32 and bfloat16; time each, its plain version and cuDNN's LSTM
-     (once a task for rows 16-17), rows 16-17 also by row tile; print the
-     bounds;
+     (once a task for rows 16-17; row 15 beside cuDNN's backward in the
+     same dtype, its device time by CUDA graph replay, and its time by part: gate products,
+     recurrences, input products, weight gradients), rows 16-17 also by
+     row tile; print the bounds;
  18. with ops.fused_lstm_stack._VBATCH set in process: the lockstep FO
      meta-gradient of one micro-batch (2 tasks x 15 inner steps, dropout
      on) kernel route vs plain route, same generator seed; `cli meta-train`
@@ -116,7 +125,8 @@ time):
      step timed with a torch.profiler breakdown; the lockstep meta step
      against the serial one in turns;
  19. with ops.fused_lstm_stack._MERGED_GATES = False: `cli meta-train` for 1
-     float32 epoch (rows 14-15 364 launches each, rows 4-5 none), `forecast`
+     float32 epoch (rows 14-15 364 launches each, the GEMM core 2 x 4 a
+     row-15 launch, rows 4-5 none), `forecast`
      Moscow (row 14, never row 2; against the merged route's forecast), one
      inner step timed and profiled; both flags are restored afterwards.
 
@@ -128,6 +138,7 @@ and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -167,28 +178,32 @@ TPU_KERNELS = {
         "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py:1232",
 }
 CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
+# The kernel's sources, its main one first (the kernels line's "source").
 SOURCES = {
-    "fused_gcn_stack": CSRC + "gemm.cu",
-    "lstm_stack_last_all": CSRC + "fused_lstm_stack.cu",
-    "lstm_stack_train": CSRC + "fused_lstm_stack.cu",
-    "lstm_stack_train.backward": CSRC + "fused_lstm_stack_train.cu",
-    "gcn_stack_train": CSRC + "fused_gcn_train.cu",
-    "gcn_stack_train.backward": CSRC + "fused_gcn_train.cu",
-    "clip_sgd_update": CSRC + "fused_sgd.cu",
-    "clip_sgd_update.batched": CSRC + "fused_sgd.cu",
-    "hvp_stack_fwd": CSRC + "fused_lstm_hvp.cu",
-    "hvp_stack_bwd": CSRC + "fused_lstm_hvp.cu",
-    "gcn_shard_layer": CSRC + "gemm.cu",
-    "gcn_shard_layer.backward": CSRC + "fused_gcn_shard.cu",
-    "lstm_recurrence": CSRC + "lstm_scan.cu",
-    "lstm_recurrence.backward": CSRC + "lstm_scan.cu",
-    "fused_lstm_last_hidden": CSRC + "fused_lstm.cu",
-    "fused_gcn_layer": CSRC + "gemm.cu",
-    "lstm_stack_split": CSRC + "fused_lstm_split.cu",
-    "lstm_stack_split.backward": CSRC + "fused_lstm_split.cu",
-    "lstm_stack_train_tasks": CSRC + "fused_lstm_stack.cu",
-    "lstm_stack_train_tasks.backward": CSRC + "fused_lstm_stack_train.cu",
+    "fused_gcn_stack": [CSRC + "gemm.cu"],
+    "lstm_stack_last_all": [CSRC + "fused_lstm_stack.cu"],
+    "lstm_stack_train": [CSRC + "fused_lstm_stack.cu"],
+    "lstm_stack_train.backward": [CSRC + "fused_lstm_stack_train.cu"],
+    "gcn_stack_train": [CSRC + "fused_gcn_train.cu"],
+    "gcn_stack_train.backward": [CSRC + "fused_gcn_train.cu"],
+    "clip_sgd_update": [CSRC + "fused_sgd.cu"],
+    "clip_sgd_update.batched": [CSRC + "fused_sgd.cu"],
+    "hvp_stack_fwd": [CSRC + "fused_lstm_hvp.cu"],
+    "hvp_stack_bwd": [CSRC + "fused_lstm_hvp.cu"],
+    "gcn_shard_layer": [CSRC + "gemm.cu"],
+    "gcn_shard_layer.backward": [CSRC + "fused_gcn_shard.cu"],
+    "lstm_recurrence": [CSRC + "lstm_scan.cu"],
+    "lstm_recurrence.backward": [CSRC + "lstm_scan.cu"],
+    "fused_lstm_last_hidden": [CSRC + "fused_lstm.cu"],
+    "fused_gcn_layer": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu", CSRC + "gemm.cu"],
+    "lstm_stack_split": [CSRC + "fused_lstm_split.cu"],
+    "lstm_stack_split.backward": [CSRC + "gemm_nn.cu", CSRC + "lstm_scan_bwd.cuh",
+                                  CSRC + "fused_lstm_split.cu", CSRC + "gemm.cu"],
+    "lstm_stack_train_tasks": [CSRC + "fused_lstm_stack.cu"],
+    "lstm_stack_train_tasks.backward": [CSRC + "fused_lstm_stack_train.cu"],
 }
+# Kernels whose ptxas report the build phase prints by name.
+NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "lstm_scan_bwd_kernel")
 MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
@@ -279,6 +294,22 @@ def device_ms(torch, fn, repeats=REPEATS):
     return sum(r[0] for r in rows) / repeats / 1e3
 
 
+def graph_ms(torch, fn, repeats=REPEATS):
+    """The device time of fn() in ms without the host's launch work: fn
+    captured once in a CUDA graph, its replays timed by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    ms = cuda_ms(torch, graph.replay, repeats)
+    del graph
+    return ms
+
+
 def profile_steps(torch, step, what, card, steps=5, host_rows=0):
     """Device time by kernel over `steps` calls of step() (torch.profiler),
     the device's busy share of the wall time, and the `host_rows` host ops
@@ -362,6 +393,7 @@ def main() -> int:
         lstm_stack_train,
     )
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
+    from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm_nn, gemm_nn_plain
     from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import (
         lstm_recurrence,
         lstm_recurrence_plain,
@@ -443,10 +475,22 @@ def main() -> int:
         for line in cuda_build.build_log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            if "registers" in line:
+            # The kernels rows 3 and 15 run on, by name: registers, stack
+            # frame and spills.
+            new = next((entry[entry.index(k):][:48] for k in NEW_KERNELS if k in entry), None)
+            if new and ("registers" in line or "spill" in line):
+                log(f"  ptxas {new}: {line.split(':', 1)[-1].strip()}")
+            elif "registers" in line:
                 log(f"  ptxas: {line.strip()}")
             elif "spill" in line and " 0 bytes spill" not in line:
                 log(f"  ptxas: {line.strip()} in {entry}")
+        # Their shared memory is dynamic (ptxas reports static memory only).
+        lib = cuda_build.load()
+        rpt = fls._rows_per_thread(512, 128, dev)
+        log(f"  dynamic shared memory a block: gemm_nn float32 {lib.wf_gemm_nn_smem(0)} B, "
+            f"bfloat16 {lib.wf_gemm_nn_smem(1)} B; lstm_scan_bwd at H = 128, {rpt} rows a "
+            f"thread (R = 512): float32 {lib.wf_lstm_split_recurrence_smem(0, rpt, 128)} B, "
+            f"bfloat16 {lib.wf_lstm_split_recurrence_smem(1, rpt, 128)} B")
 
     cfg = ModelConfig()
     boxes = dict((name, box) for box, name in ADAPTATION_REGIONS)
@@ -1525,6 +1569,64 @@ def main() -> int:
     wh = lstm[0].wh
     x_gcn24 = torch.from_numpy(np.random.default_rng(62).standard_normal((w_len, n, hid))
                                .astype(np.float32)).to(dev)
+    # 15a. The pipelined GEMM core (csrc/gemm_nn.cu) against gemm_nn_plain
+    # at the products rows 3 and 15 give it: row 3's feature transform and
+    # aggregation at both of its shapes; row 15's gate product (two operand
+    # pairs, the second at a row offset of R) and input product (the mask
+    # epilogue) at T = 24, R = 512, C = 256, H = 128. Each case is held
+    # at rtol = atol = TOL and at max|diff| / max|ref| <= TOL.
+    with Phase("GEMM core (gemm_nn) vs plain"), torch.no_grad():
+        draw = np.random.default_rng(64)
+
+        def drawn(shape, dtype=torch.float32, scale=1.0):
+            return torch.from_numpy((draw.standard_normal(shape) * scale)
+                                    .astype(np.float32)).to(dev, dtype)
+
+        steps = w_len * n
+        nn_mask = (drawn((steps, lh)) > -0.84).to(torch.int8)  # ~0.8 kept
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            cases = []
+            for xg, layer in ((x_gcn24, enc[1]), (x_gcn, enc[0])):
+                hw = gemm_nn_plain(xg, layer.w, compute_dtype=dt, out_dtype=dt)
+                cases += [
+                    (f"row 3 transform {list(xg.shape)} @ {list(layer.w.shape)}", (xg, layer.w),
+                     dict(out_dtype=dt)),
+                    (f"row 3 aggregation [{n}, {n}] @ {list(hw.shape)}", (a_hat, hw),
+                     dict(epilogue="bias_relu", bias=layer.b))]
+            for k_in in (hid, lh):  # layer 0's input (x, float32), a layer above's (h)
+                a_in = drawn((steps, k_in), torch.float32 if k_in == hid else dt)
+                cases.append((
+                    f"row 15 gates [{steps}, {k_in}] @ [{k_in}, {g4}] + h_prev "
+                    f"[{steps - n}, {lh}] at row {n}",
+                    (a_in, drawn((k_in, g4), scale=k_in ** -0.5)),
+                    dict(a2=drawn((steps - n, lh), dt), b2=drawn((lh, g4), scale=lh ** -0.5),
+                         row_offset=n, epilogue="gates", bias=drawn((g4,), scale=0.1))))
+            dg = drawn((steps, g4), scale=0.01)
+            cases += [
+                (f"row 15 input gradient [{steps}, {g4}] @ [{g4}, {lh}] x mask",
+                 (dg, drawn((g4, lh), scale=g4 ** -0.5)),
+                 dict(epilogue="mask", mask=nn_mask, scale=1.25)),
+                (f"row 15 input gradient [{steps}, {g4}] @ [{g4}, {hid}]",
+                 (dg, drawn((g4, hid), scale=g4 ** -0.5)), {})]
+            for label, (a_op, b_op), kw in cases:
+                got = gemm_nn(a_op, b_op, compute_dtype=dt, **kw)
+                ref = gemm_nn_plain(a_op, b_op, compute_dtype=dt, **kw)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+                # Also relative to the output's own scale: the input products
+                # are ~1e-2, below an absolute 5e-2, where a zero or wrong
+                # output would pass assert_close alone (a zero one gives 1).
+                rel = rel_err(got, ref)
+                log(f"gemm_nn {dt_name} {label}: max_abs_err "
+                    f"{float((got.float() - ref.float()).abs().max()):.3e}, max|diff|/max|ref| "
+                    f"{rel:.3e} (tol {tol}; max|ref| {float(ref.float().abs().max()):.3e})")
+                if not rel <= tol:
+                    raise RuntimeError(f"gemm_nn {dt_name} {label}: max|diff|/max|ref| "
+                                       f"{rel:.3e} > {tol}")
+            del cases, dg
+        del nn_mask
+
     with Phase("LSTM routes and GCN layer kernels vs plain"):
         for dt_name, tol in TOL.items():
             dt = getattr(torch, dt_name)
@@ -1586,19 +1688,34 @@ def main() -> int:
                 if xg is not x_gcn24:
                     continue
                 times = time_routes(runs, graphs, [xg])
+                # The library call in the same dtype: cuBLAS products of the
+                # rounded operands (bfloat16 on its tensor cores).
+                ac, hc, wc = (t.to(dt) for t in (a_hat, xg, layer.w))
+
+                def library():
+                    return torch.relu(ac @ (hc @ wc) + layer.b)
+
                 with torch.no_grad():
                     fwd_ms = {route: cuda_ms(torch, lambda: fn(xg)) for route, fn in runs}
-                    lib_ms = cuda_ms(torch, lambda: torch.relu(a_hat @ (xg @ layer.w) + layer.b))
+                    lib_ms = cuda_ms(torch, library)
+                    # Device time alone (CUDA graph replays): CUDA events
+                    # around one call also time the host's launch work.
+                    dev_ms = graph_ms(torch, lambda: runs[0][1](xg))
+                    lib_dev_ms = graph_ms(torch, library)
                 log(f"row 3 {dt_name} {label}: kernel forward {fwd_ms['kernel']:.4f} ms "
-                    f"({times['kernel'][0]:.4f} with autograd on), backward "
+                    f"({times['kernel'][0]:.4f} with autograd on; device {dev_ms:.4f}), backward "
                     f"{times['kernel'][1]:.4f} ms; plain forward {fwd_ms['plain']:.4f} ms, "
-                    f"backward {times['plain'][1]:.4f} ms; torch.relu(a @ (h @ w) + b) float32 "
-                    f"{lib_ms:.4f} ms  [{card}]")
+                    f"backward {times['plain'][1]:.4f} ms; torch.relu(a @ (h @ w) + b) {dt_name} "
+                    f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}; device times by CUDA graph "
+                    f"replay)  [{card}]")
+                row3 = {"max_abs_err": fwd_err, "ms": fwd_ms["kernel"],
+                        "plain_ms": fwd_ms["plain"], "library_ms": lib_ms,
+                        "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
                 if dt_name == "float32":
-                    measured["fused_gcn_layer"] = {
-                        "max_abs_err": fwd_err, "ms": fwd_ms["kernel"],
-                        "plain_ms": fwd_ms["plain"], "library_ms": lib_ms}
-                del graphs
+                    measured["fused_gcn_layer"] = row3
+                else:
+                    measured["fused_gcn_layer"]["bfloat16"] = row3
+                del graphs, ac, hc, wc
         rec_flops = 2 * w_len * n * lh * g4
         rec_io = 4 * (w_len * n * g4 + lh * g4 + 2 * w_len * n * lh)  # xp, wh; h_all, c_all
         measured["lstm_recurrence"].update(flops=rec_flops, bytes=rec_io)
@@ -1759,6 +1876,47 @@ def main() -> int:
         return lambda x, w0, wr, b, m, keep, dt: fls.lstm_stack_tasks_plain(
             x, w0, wr, b, m, keep, dt)
 
+    def split_parts(m, keep, dt, res):
+        """Row 15's device time by part: its schedule on the card's pieces,
+        each piece between two CUDA events; medians of REPEATS runs."""
+        marks = []
+
+        def timed(fn, part):
+            def run(*args, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                marks.append((part(kwargs), start, end))
+                return out
+            return run
+
+        card_pieces = fls.CARD_PIECES
+        pieces = fls.SplitPieces(
+            timed(card_pieces.product, lambda kw: "gate products"
+                  if kw.get("epilogue") == "gates" else "input products"),
+            timed(card_pieces.recurrence, lambda kw: "recurrences"),
+            timed(card_pieces.weight_grads, lambda kw: "weight gradients"))
+        x_c = x_tbc.contiguous()
+        runs = []
+        with torch.no_grad():
+            for i in range(REPEATS + 2):
+                marks.clear()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fls.split_backward_schedule(g_last, x_c, *res, *split_w, m, keep, dt, pieces)
+                end.record()
+                torch.cuda.synchronize()
+                if i < 2:  # warm-up
+                    continue
+                part = {"total": start.elapsed_time(end)}
+                for name, s, e in marks:
+                    part[name] = part.get(name, 0.0) + s.elapsed_time(e)
+                runs.append(part)
+        return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
     with Phase("unmerged-gates and task-batched LSTM kernels vs plain"):
         for dropout in (0.2, 0.0):
             m, keep = (lstm_masks, 0.8) if dropout else (None, 1.0)
@@ -1794,19 +1952,44 @@ def main() -> int:
                                                                     dt), 3),
                         ("plain15", lambda: fls.split_backward_plain(g_last, x_tbc, *res,
                                                                      *split_w, m, keep, dt), 3))}
+                    times["row15 device"] = graph_ms(torch, lambda: fls.split_backward(
+                        g_last, x_tbc, *res, *split_w, m, keep, dt))
+                # Row 15's library call in the same dtype, beside it: cuDNN's
+                # LSTM backward at the same shapes (weights copied in).
+                lib_lstm = cudnn if dt_name == "float32" else copy.deepcopy(cudnn).to(dt)
+                xr = x_rec.detach().to(dt).requires_grad_(True)
+                try:
+                    out = lib_lstm(xr)[0][:, -1]
+                except RuntimeError as err:  # a yardstick only: say so and go on
+                    log(f"torch.nn.LSTM (cuDNN) refused {dt_name}: {err}")
+                    times["cuDNN backward"] = None
+                else:
+                    ct = torch.ones_like(out)
+                    times["cuDNN backward"] = cuda_ms(torch, lambda: torch.autograd.grad(
+                        out, [xr, *lib_lstm.parameters()], ct, retain_graph=True))
+                    del out, ct
+                del lib_lstm, xr
+                parts = split_parts(m, keep, dt, res)
                 log(f"rows 14-15 {dt_name} [24, 512, 256] L=4, ms: " + ", ".join(
-                    f"{k} {v:.4f}" for k, v in times.items()) + f"  [{card}]")
+                    f"{k} {v if v is None else f'{v:.4f}'}" for k, v in times.items())
+                    + f"  [{card}]")
+                log(f"row 15 {dt_name} by part (CUDA events, median of {REPEATS}; the rest is "
+                    f"the schedule's glue): " + ", ".join(f"{k} {v:.4f} ms"
+                                                          for k, v in parts.items())
+                    + f"  [{card}]")
+                row = {"max_abs_err": bwd_err, "ms": times["row15"],
+                       "plain_ms": times["plain15"], "library_ms": times["cuDNN backward"],
+                       "device_ms": times["row15 device"], "parts_ms": parts}
                 if dt_name == "float32":
-                    # The library call is row 4's and 5's: cuDNN's LSTM at the
-                    # same shapes, timed in phase 6 of this run.
+                    # Row 14's library call is row 4's: cuDNN's LSTM forward
+                    # at the same shapes, timed in phase 6 of this run.
                     measured["lstm_stack_split"] = {
                         "max_abs_err": fwd_err, "ms": times["row14"],
                         "plain_ms": times["plain14"],
                         "library_ms": measured["lstm_stack_train"]["library_ms"]}
-                    measured["lstm_stack_split.backward"] = {
-                        "max_abs_err": bwd_err, "ms": times["row15"],
-                        "plain_ms": times["plain15"],
-                        "library_ms": measured["lstm_stack_train.backward"]["library_ms"]}
+                    measured["lstm_stack_split.backward"] = row
+                else:
+                    measured["lstm_stack_split.backward"]["bfloat16"] = row
         del got, ref, res, got_b, ref_b
 
         for nv in (2, 4):
@@ -1941,6 +2124,7 @@ def main() -> int:
             fn.launches = fn.backward_launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         lstm_stack_last_all.launches = 0
+        gemm_nn.launches = 0
 
     with Phase("_VBATCH: the lockstep meta step"):
         fls._VBATCH = True
@@ -2055,10 +2239,14 @@ def main() -> int:
                 "lstm_stack_split.backward": fls.lstm_stack_split.backward_launches,
                 "lstm_stack_train": lstm_stack_train.launches,
                 "lstm_stack_train.backward": lstm_stack_train.backward_launches}
+            split_launches["gemm_nn"] = gemm_nn.launches
             log(f"launches in one meta step with unmerged gates: {split_launches}")
             forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
+            # Row 15 runs the GEMM core twice a layer: its gates and its
+            # input gradient.
             want = {"lstm_stack_split": forwards, "lstm_stack_split.backward": forwards,
-                    "lstm_stack_train": 0, "lstm_stack_train.backward": 0}
+                    "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
+                    "gemm_nn": 2 * n_l * forwards}
             if split_launches != want:
                 raise RuntimeError(f"meta-train with unmerged gates launched {split_launches}, "
                                    f"not {want}")
@@ -2112,7 +2300,8 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": SOURCES[name],
+            "source": SOURCES[name][0],
+            "sources": SOURCES[name],
             "replaces": TPU_KERNELS[name],
             "launches": count,
             "max_abs_err": m["max_abs_err"],
@@ -2121,6 +2310,10 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": bound_by,
             "library_ms": m["library_ms"],
+            # Rows 3 and 15: device time alone, row 15 by part, and the
+            # bfloat16 run beside its library call.
+            **{k: m[k] for k in ("device_ms", "library_device_ms", "parts_ms", "bfloat16")
+               if k in m},
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

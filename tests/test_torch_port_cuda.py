@@ -35,6 +35,7 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import (
     fused_sgd,
     lstm_scan,
 )
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm_nn, gemm_nn_plain
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import task_batch_grad
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks
 
@@ -534,7 +535,8 @@ def test_fused_lstm_kernel_matches_plain(dev, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [((3, 7), 117, 24, 64), ((24,), 512, 256, 256)])
+@pytest.mark.parametrize("shape", [((3, 7), 117, 24, 64), ((24,), 512, 256, 256),
+                                   ((72,), 512, 24, 256)])
 def test_gcn_layer_kernels_match_plain(dev, dtype, shape):
     """Row 3: relu(A_hat (h W) + b) and dh, dW, db against the plain layer
     under autograd."""
@@ -772,3 +774,141 @@ def test_lockstep_meta_gradient_kernels_match_plain(dev, monkeypatch):
     torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=tol, atol=tol)
     for name, g in out["kernel"][1].items():
         assert _rel(g, out["plain"][1][name]) <= tol, name
+
+
+def _card(dev, shape, dtype=torch.float32, seed=0, scale=1.0):
+    return torch.from_numpy((np.random.default_rng(seed).normal(size=shape) * scale)
+                            .astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", ["none", "bias_relu", "gates", "mask"])
+@pytest.mark.parametrize("shape", [(200, 40, 72), (1000, 264, 136), (128, 16, 64)])
+def test_gemm_nn_matches_plain(dev, dtype, epilogue, shape):
+    """The pipelined GEMM core at ragged M, N and K (multiples of 8, not of
+    its tiles), every epilogue, one operand pair and two at a row offset,
+    float32 and bfloat16 A (bfloat16 compute: A float32 or bfloat16; stores
+    float32 and the compute dtype)."""
+    m, k, n = shape
+    b = _card(dev, (k, n), seed=2, scale=k ** -0.5)
+    kw = dict(epilogue=epilogue, bias=_card(dev, (n,), seed=3, scale=0.1),
+              mask=(_card(dev, (m, n), seed=4) > -0.84).to(torch.int8), scale=1.25)
+    tol = TOL[dtype]
+    a_types = (torch.float32,) if dtype == torch.float32 else (torch.float32, torch.bfloat16)
+    out_types = (torch.float32,) if dtype == torch.float32 else (torch.float32, dtype)
+    before = gemm_nn.launches
+    for a_dt in a_types:
+        a = _card(dev, (m, k), a_dt, seed=1)
+        for out_dt in out_types:
+            got = gemm_nn(a, b, compute_dtype=dtype, out_dtype=out_dt, **kw)
+            ref = gemm_nn_plain(a, b, compute_dtype=dtype, out_dtype=out_dt, **kw)
+            assert got.dtype == out_dt
+            torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+        off = m // 4
+        two = dict(a2=_card(dev, (m - off, 24), dtype, seed=5), b2=_card(dev, (24, n), seed=6),
+                   row_offset=off)
+        got = gemm_nn(a, b, compute_dtype=dtype, **two, **kw)
+        torch.testing.assert_close(got, gemm_nn_plain(a, b, compute_dtype=dtype, **two, **kw),
+                                   rtol=tol, atol=tol)
+    assert gemm_nn.launches == before + len(a_types) * (len(out_types) + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_nn_batched_and_strided(dev, dtype):
+    """A batch broadcast over a shared A (row 3's aggregation), a batched A
+    with a shared B (its transform), and an out that is a row block of a
+    larger buffer (row 3's padded hw)."""
+    tol = TOL[dtype]
+    a = _card(dev, (100, 64), seed=1)
+    b = _card(dev, (5, 64, 48), seed=2, scale=0.125)
+    bias = _card(dev, (48,), seed=3)
+    got = gemm_nn(a, b, compute_dtype=dtype, epilogue="bias_relu", bias=bias)
+    assert got.shape == (5, 100, 48)
+    torch.testing.assert_close(got, gemm_nn_plain(a, b, compute_dtype=dtype,
+                                                  epilogue="bias_relu", bias=bias),
+                               rtol=tol, atol=tol)
+    h = _card(dev, (5, 100, 64), seed=4)
+    buf = torch.zeros((5, 104, 48), dtype=dtype, device=dev)
+    gemm_nn(h, b[0], compute_dtype=dtype, out=buf[:, :100])
+    torch.testing.assert_close(buf[:, :100].float(), gemm_nn_plain(
+        h, b[0], compute_dtype=dtype, out_dtype=dtype).float(), rtol=tol, atol=tol)
+    assert not buf[:, 100:].any()
+
+
+@pytest.mark.cuda
+def test_gemm_nn_refuses_what_it_does_not_take(dev):
+    a, b = torch.zeros((16, 24), device=dev), torch.zeros((24, 16), device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gemm_nn(torch.zeros((16, 20), device=dev), torch.zeros((20, 16), device=dev),
+                compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gemm_nn(a, torch.zeros((24, 12), device=dev), compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="out row and batch strides"):
+        gemm_nn(a, b, compute_dtype=torch.float32, out=torch.zeros((16, 20), device=dev)[:, :16])
+    with pytest.raises(ValueError, match="A and B row and batch strides"):
+        gemm_nn(torch.zeros((16, 28), device=dev)[:, :24], b, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="disagree on K"):
+        gemm_nn(a, b[:16], compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="bias"):
+        gemm_nn(a, b, compute_dtype=torch.float32, epilogue="gates")
+    with pytest.raises(ValueError, match="mask"):
+        gemm_nn(a, b, compute_dtype=torch.float32, epilogue="mask")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gemm_nn(a, b, compute_dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,dropout", [(4, 0.2), (4, 0.0), (1, 0.0)])
+def test_lstm_split_backward_schedule_at_full_width(dev, dtype, layers, dropout):
+    """Row 15 at the inner step's shapes (24 steps, 512 rows, input 256,
+    hidden 128) against `split_backward_plain` from the same residuals:
+    two GEMM-core launches a layer, one row-15 launch."""
+    fls = fused_lstm_stack
+    lstm = init_lstm(torch.Generator().manual_seed(1), 256, 128, layers).to(dev)
+    w = [t.detach() for t in fls._split_weights(lstm.layers)]
+    x = _card(dev, (24, 512, 256), seed=11)
+    masks = None
+    if dropout:
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(4),
+                          (layers - 1, 24, 512, 128), dropout, dev)
+    keep = 1.0 - dropout
+    g = _card(dev, (512, 128), seed=12)
+    with torch.no_grad():
+        res = fls.split_forward_plain(x, *w, masks, keep, dtype)[1:]
+        before = (gemm_nn.launches, fls.lstm_stack_split.backward_launches)
+        got = fls.split_backward(g, x, *res, *w, masks, keep, dtype)
+        assert (gemm_nn.launches, fls.lstm_stack_split.backward_launches) == (
+            before[0] + 2 * layers, before[1] + 1)
+        ref = fls.split_backward_plain(g, x, *res, *w, masks, keep, dtype)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        if b.numel():
+            assert _rel(a, b) <= TOL[dtype], (i, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
+    """`_MERGED_GATES=False`: a train step of the hybrid runs rows 14-15 and
+    the GEMM core twice a layer (its gates and its input gradient), never
+    rows 4-5, and its gradients match the plain route's."""
+    monkeypatch.setattr(fused_lstm_stack, "_MERGED_GATES", False)
+    cfg = dataclasses.replace(CFG, lstm_dropout=0.0, gcn_dropout=0.0)
+    model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
+    a_hat = _a_hat(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(7, 128, 16)).astype(np.float32)).to(dev)
+    fls = fused_lstm_stack
+    before = (gemm_nn.launches, fls.lstm_stack_split.backward_launches,
+              fls.lstm_stack_train.backward_launches)
+    params = list(model.parameters())
+    got = torch.autograd.grad(apply_model(model, a_hat, x, 3, cfg, train=True).sum(), params)
+    assert (gemm_nn.launches, fls.lstm_stack_split.backward_launches,
+            fls.lstm_stack_train.backward_launches) == (
+        before[0] + 2 * cfg.lstm_layers, before[1] + 1, before[2])
+    plain = dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla")
+    ref = torch.autograd.grad(apply_model(model, a_hat, x, 3, plain, train=True).sum(), params)
+    for (name, _), a, b in zip(model.named_parameters(), got, ref):
+        assert _rel(a, b) <= 1e-5, (name, _rel(a, b))

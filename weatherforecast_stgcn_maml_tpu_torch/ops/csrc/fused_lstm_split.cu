@@ -1,6 +1,6 @@
 // Fused LSTM stack with unmerged gates: the training forward (and the eval
-// forward) and the training backward, all layers and all time steps in one
-// launch each.
+// forward), all layers and all time steps in one launch, and the serial
+// recurrence of the training backward, one launch a layer.
 //
 // Replaces two Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
 // fused_lstm_stack.py, selected there by `_MERGED_GATES = False` or
@@ -16,37 +16,33 @@
 //     of the same step times its int8 dropout mask and 1/keep, rounded to
 //     the compute dtype; the top layer's last h is returned in float32.
 //   backward (kernel row 15): `_bwd_kernel` (+ `_bwd_kernel_nomask`),
-//     launched by `_bwd_pallas`. Walking t = T-1 .. 0 and l = L-1 .. 0, it
-//     recomputes each stage's gates from the residuals (the input from x or
-//     from the layer below's stored h, masked as in the forward; h_{t-1}
-//     from the stored h, zero at t = 0), forms the gate gradients from the
-//     dh / dc carries as row 5 does (csrc/fused_lstm_stack_train.cu), and
-//     contracts round(dgates) with Wx_l^T (the input gradient: dx, or the
-//     layer below's dh at the same step after its mask) and with Wh_l^T (the
-//     dh carry to t-1): 4 contractions a stage.
+//     launched by `_bwd_pallas`. The TPU kernel walks t = T-1 .. 0 and l =
+//     L-1 .. 0 as one serial chain, recomputing each stage's gates from the
+//     residuals and contracting round(dgates) with Wx_l^T and Wh_l^T: four
+//     contractions a stage. Only the dh carry through Wh_l^T is recurrent, so
+//     the port walks layer by layer (ops/fused_lstm_stack.py
+//     `split_backward_schedule`): the gates of all T x R rows of a layer in
+//     one gemm_nn.cu launch, then the recurrence below (one contraction a
+//     step: lstm_scan_bwd.cuh, row 19's device code, reading c_all in the
+//     compute dtype), then the input gradient in one more gemm_nn.cu launch.
 //
-// Translation: as in row 4, each block owns a tile of rows (independent
-// sequences) and walks time and layers itself; thread (g, j) owns hidden
-// unit j of RPT rows, so the cell update needs no exchange between threads.
-// Each contraction streams its weight matrix from L2 through a
-// double-buffered cp.async tile ring (`contract()` in common.cuh); unlike
-// row 4's merged kernel the ring is not carried across contractions, a
-// simpler schedule that pays one tile's latency per contraction. The TPU
-// kernel accumulates dWx, dWh and db in its output blocks across the
-// sequential grid; CUDA blocks run in no order, so this kernel writes the
-// float32 gate gradients [L, T, R, 4H] and the wrapper forms dWx_l = inp^T @
-// dgates_l, dWh_l = h_prev^T @ dgates_l and db_l over K = T * R with
-// gemm.cu's split-K products and fixed-order sums (no float atomics), as row
-// 5's wrapper does.
+// Translation of the forward: as in row 4, each block owns a tile of rows
+// (independent sequences) and walks time and layers itself; thread (g, j)
+// owns hidden unit j of RPT rows, so the cell update needs no exchange
+// between threads. Each contraction streams its weight matrix from L2
+// through a double-buffered cp.async tile ring (`contract()` in
+// common.cuh); unlike row 4's merged kernel the ring is not carried across
+// contractions, a simpler schedule that pays one tile's latency per
+// contraction.
 //
 // Bound: the forward is row 4's work (about 14.5 GFLOP at the training
 // shapes: 24 steps, 512 rows, 4 layers of width 128, input 256; 0.22 ms at
-// the card's float32 rate) and the backward row 5's plus the recomputed
-// forward (29.0 GFLOP counted as row 5's). Both are bound by the serial
-// T * L chain of weight streams from L2, not by device memory.
+// the card's float32 rate), bound by the serial T * L chain of weight
+// streams from L2, not by device memory.
 #include <cstdint>
 
 #include "common.cuh"
+#include "lstm_scan_bwd.cuh"
 
 namespace wf {
 namespace {
@@ -63,16 +59,9 @@ struct SplitArgs {
   const float* bias;    // [L, 4H]
   const int8_t* masks;  // [L-1, T, R, H] or null
   float inv_keep;
-  void* h_all;  // [L, T, R, H] compute dtype: forward writes (unless null), backward reads
+  void* h_all;  // [L, T, R, H] compute dtype, written unless null
   void* c_all;
-  float* out;  // forward: [R, H], the top layer's last h
-  // Backward only.
-  const float* g;     // [R, H] gradient of the top layer's last h
-  const void* wxT0;   // [4H, C]      compute dtype
-  const void* wxTr;   // [L-1, 4H, H] compute dtype
-  const void* whT;    // [L, 4H, H]   compute dtype
-  float* dx;          // [T, R, C]
-  float* dgates;      // [L, T, R, 4H]
+  float* out;  // [R, H], the top layer's last h
   int T, R, C, H, L;
 };
 
@@ -163,178 +152,9 @@ __global__ void lstm_split_fwd_kernel(SplitArgs a) {
   }
 }
 
-// Thread (group, j) owns hidden unit j of RPT rows: its four gate
-// gradients, and the input-gradient columns q * H + j (NQ >= C / H of them).
-template <typename TW, int RPT, int NQ>
-__global__ void lstm_split_bwd_kernel(SplitArgs a) {
-  extern __shared__ float4 smem4[];
-  const int H = a.H, C = a.C, L = a.L, T = a.T, R = a.R;
-  const int g4 = 4 * H;
-  const int kmax = C > H ? C : H;          // widest layer input
-  const int wcols = g4 > kmax ? g4 : kmax;  // widest weight tile row
-  const int rows_blk = (blockDim.x / H) * RPT;
-  TW* wbuf = reinterpret_cast<TW*>(smem4);  // [2, kContractTile, wcols]
-  float* ins = reinterpret_cast<float*>(wbuf + 2 * kContractTile * wcols);  // [rows_blk, kin]
-  float* hp = ins + (size_t)rows_blk * kmax;  // [rows_blk, H] h_{t-1}
-  float* dg = hp + (size_t)rows_blk * H;      // [rows_blk, 4H] round(dgates)
-  float* dhc = dg + (size_t)rows_blk * g4;    // [L, rows_blk, H] dh carry
-  float* dcc = dhc + (size_t)L * rows_blk * H;  // [L, rows_blk, H] dc carry
-  float* dfa = dcc + (size_t)L * rows_blk * H;  // [rows_blk, H] from the layer above
-  const TW* wx0 = static_cast<const TW*>(a.wx0);
-  const TW* wxr = static_cast<const TW*>(a.wxr);
-  const TW* wh = static_cast<const TW*>(a.wh);
-  const TW* wxT0 = static_cast<const TW*>(a.wxT0);
-  const TW* wxTr = static_cast<const TW*>(a.wxTr);
-  const TW* whT = static_cast<const TW*>(a.whT);
-  const TW* h_all = static_cast<const TW*>(a.h_all);
-  const TW* c_all = static_cast<const TW*>(a.c_all);
-  const int tid = threadIdx.x;
-  const int j = tid % H;
-  const int r0 = (tid / H) * RPT;
-  const int row0 = blockIdx.x * rows_blk;
-  const size_t step_elems = (size_t)R * H;
-
-  for (int i = tid; i < (2 * L + 1) * rows_blk * H; i += blockDim.x) dhc[i] = 0.f;
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    for (int l = L - 1; l >= 0; --l) {
-      const int kin = l == 0 ? C : H;
-      const size_t slice = ((size_t)l * T + t) * step_elems;  // h_all[l, t]
-      const bool top_last = l == L - 1 && t == T - 1;
-
-      // This stage's operand rows (the previous stage ended with a barrier):
-      // the input as the forward rounded it, and h_{t-1}.
-      for (int i = tid; i < rows_blk * kin; i += blockDim.x) {
-        const int r = i / kin;
-        const int k = i % kin;
-        const int row = row0 + r;
-        float v = 0.f;
-        if (row < R) {
-          if (l == 0) {
-            v = round_to<TW>(a.x[t * a.st + row * a.sr + k]);
-          } else {
-            const size_t o = slice - (size_t)T * step_elems + (size_t)row * H + k;
-            v = to_float(h_all[o]);  // h_all[l - 1, t]
-            if (a.masks) v = v * ((float)a.masks[o] * a.inv_keep);
-            v = round_to<TW>(v);
-          }
-        }
-        ins[i] = v;
-      }
-      if (t > 0) {
-        for (int i = tid; i < rows_blk * H; i += blockDim.x) {
-          const int row = row0 + i / H;
-          hp[i] = row < R ? to_float(h_all[slice - step_elems + (size_t)row * H + i % H]) : 0.f;
-        }
-      }
-
-      // Recompute the gates: in @ Wx_l + h_{t-1} @ Wh_l.
-      const TW* wx = l == 0 ? wx0 : wxr + (size_t)(l - 1) * H * g4;
-      float acc[RPT][4];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-      contract<TW, RPT, 4>(wx, kin, g4, ins, kin, wbuf, r0, j, H, acc);
-      if (t > 0)
-        contract<TW, RPT, 4>(wh + (size_t)l * H * g4, H, g4, hp, H, wbuf, r0, j, H, acc);
-
-      // Gate gradients (the next contraction's first barrier publishes dg).
-      const float* bl = a.bias + (size_t)l * g4;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int lr = r0 + r;
-        const int row = row0 + lr;
-        const float ig = sigmoidf(acc[r][0] + bl[j]);
-        const float fg = sigmoidf(acc[r][1] + bl[H + j]);
-        const float gg = tanhf(acc[r][2] + bl[2 * H + j]);
-        const float og = sigmoidf(acc[r][3] + bl[3 * H + j]);
-        float c_t = 0.f, c_prev = 0.f, g_top = 0.f;
-        if (row < R) {
-          const size_t o = slice + (size_t)row * H + j;
-          c_t = to_float(c_all[o]);
-          if (t > 0) c_prev = to_float(c_all[o - step_elems]);
-          if (top_last) g_top = a.g[(size_t)row * H + j];
-        }
-        const float tc = tanhf(c_t);
-        const size_t at = ((size_t)l * rows_blk + lr) * H + j;
-        float dh = dhc[at];
-        if (top_last) dh = dh + g_top;
-        if (l < L - 1) dh = dh + dfa[(size_t)lr * H + j];
-        const float dc = dcc[at] + dh * og * (1.f - tc * tc);
-        const float d_o = dh * tc * og * (1.f - og);
-        const float d_i = dc * gg * ig * (1.f - ig);
-        const float d_f = dc * c_prev * fg * (1.f - fg);
-        const float d_g = dc * ig * (1.f - gg * gg);
-        dcc[at] = dc * fg;
-        if (row < R) {
-          float* out = a.dgates + slice * 4 + (size_t)row * g4;
-          out[j] = d_i;
-          out[H + j] = d_f;
-          out[2 * H + j] = d_g;
-          out[3 * H + j] = d_o;
-        }
-        float* dgr = dg + (size_t)lr * g4;
-        dgr[j] = round_to<TW>(d_i);
-        dgr[H + j] = round_to<TW>(d_f);
-        dgr[2 * H + j] = round_to<TW>(d_g);
-        dgr[3 * H + j] = round_to<TW>(d_o);
-      }
-
-      // The input gradient round(dgates) @ Wx_l^T and the carry
-      // round(dgates) @ Wh_l^T (zero at t = 0: nothing reads it).
-      float din[RPT][NQ];
-      float dhp[RPT][1];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        dhp[r][0] = 0.f;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) din[r][q] = 0.f;
-      }
-      const TW* wxt = l == 0 ? wxT0 : wxTr + (size_t)(l - 1) * g4 * H;
-      contract<TW, RPT, NQ>(wxt, g4, kin, dg, g4, wbuf, r0, j, H, din);
-      if (t > 0)
-        contract<TW, RPT, 1>(whT + (size_t)l * g4 * H, g4, H, dg, g4, wbuf, r0, j, H, dhp);
-
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int lr = r0 + r;
-        const int row = row0 + lr;
-        dhc[((size_t)l * rows_blk + lr) * H + j] = dhp[r][0];  // to t-1
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          const int k = q * H + j;
-          if (k >= kin) continue;
-          const float v = din[r][q];
-          if (l == 0) {
-            if (row < R) a.dx[((size_t)t * R + row) * C + k] = v;
-          } else {
-            float m = 1.f;
-            if (a.masks)
-              m = row < R ? (float)a.masks[slice - (size_t)T * step_elems +
-                                           (size_t)row * H + k] * a.inv_keep
-                          : 0.f;
-            dfa[(size_t)lr * H + k] = a.masks ? v * m : v;  // to layer l-1
-          }
-        }
-      }
-      __syncthreads();  // carries visible; operand rows free for the next stage
-    }
-  }
-}
-
 size_t fwd_smem(const SplitArgs& a, int rows_blk, size_t tw) {
   return 2 * (size_t)kContractTile * 4 * a.H * tw +
          ((size_t)rows_blk * a.C + 3 * (size_t)a.L * rows_blk * a.H) * sizeof(float);
-}
-
-size_t bwd_smem(const SplitArgs& a, int rows_blk, size_t tw) {
-  const int kmax = a.C > a.H ? a.C : a.H;
-  const int wcols = 4 * a.H > kmax ? 4 * a.H : kmax;
-  return 2 * (size_t)kContractTile * wcols * tw +
-         ((size_t)rows_blk * kmax + (size_t)rows_blk * a.H + (size_t)rows_blk * 4 * a.H +
-          (2 * (size_t)a.L + 1) * rows_blk * a.H) * sizeof(float);
 }
 
 template <typename KernelT>
@@ -361,35 +181,16 @@ int launch_fwd(const SplitArgs& a, cudaStream_t s) {
                        fwd_smem(a, rows_blk_of(a, RPT), sizeof(TW)), s);
 }
 
-template <typename TW, int RPT>
-int launch_bwd(const SplitArgs& a, cudaStream_t s) {
-  const size_t smem = bwd_smem(a, rows_blk_of(a, RPT), sizeof(TW));
-  if (a.C <= 2 * a.H) return launch_kernel(lstm_split_bwd_kernel<TW, RPT, 2>, a, RPT, smem, s);
-  if (a.C <= 4 * a.H) return launch_kernel(lstm_split_bwd_kernel<TW, RPT, 4>, a, RPT, smem, s);
-  if (a.C <= 8 * a.H) return launch_kernel(lstm_split_bwd_kernel<TW, RPT, 8>, a, RPT, smem, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <bool BWD, typename TW>
+template <typename TW>
 int launch_rpt(int rpt, const SplitArgs& a, cudaStream_t s) {
   switch (rpt) {
     case 2:
-      return BWD ? launch_bwd<TW, 2>(a, s) : launch_fwd<TW, 2>(a, s);
+      return launch_fwd<TW, 2>(a, s);
     case 4:
-      return BWD ? launch_bwd<TW, 4>(a, s) : launch_fwd<TW, 4>(a, s);
+      return launch_fwd<TW, 4>(a, s);
     case 8:
-      return BWD ? launch_bwd<TW, 8>(a, s) : launch_fwd<TW, 8>(a, s);
+      return launch_fwd<TW, 8>(a, s);
   }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <bool BWD>
-int launch_dt(int w_dt, int rpt, const SplitArgs& a, void* stream) {
-  if (a.T <= 0 || a.R <= 0 || a.C <= 0 || a.H <= 0 || a.L <= 0 || a.C % 8 || a.H % 8)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_dt == kF32) return launch_rpt<BWD, float>(rpt, a, s);
-  if (w_dt == kBF16) return launch_rpt<BWD, __nv_bfloat16>(rpt, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -408,7 +209,8 @@ extern "C" int wf_lstm_split_fwd(int w_dt, int rows_per_thread, const float* x,
                                  const int8_t* masks, float inv_keep, void* h_all,
                                  void* c_all, float* out, int T, int R, int C, int H,
                                  int L, void* stream) {
-  if (!h_all != !c_all) return (int)cudaErrorInvalidValue;
+  if (!h_all != !c_all || T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0 || C % 8 || H % 8)
+    return (int)cudaErrorInvalidValue;
   wf::SplitArgs a{};
   a.x = x;
   a.st = st;
@@ -427,45 +229,30 @@ extern "C" int wf_lstm_split_fwd(int w_dt, int rows_per_thread, const float* x,
   a.C = C;
   a.H = H;
   a.L = L;
-  return wf::launch_dt<false>(w_dt, rows_per_thread, a, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_dt == wf::kF32) return wf::launch_rpt<float>(rows_per_thread, a, s);
+  if (w_dt == wf::kBF16) return wf::launch_rpt<__nv_bfloat16>(rows_per_thread, a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Backward recurrence of the unmerged-gates stack (kernel row 15): from g
-// [R, H], x [T, R, C] (contiguous, float32), the forward's residuals h_all
-// and c_all [L, T, R, H], the weights, their transposes wxT0 [4H, C], wxTr
-// [L-1, 4H, H], whT [L, 4H, H] (compute dtype), bias and masks, it writes dx
-// [T, R, C] and the float32 gate gradients dgates [L, T, R, 4H] that the
-// weight-gradient products read. Returns a cudaError_t code.
-extern "C" int wf_lstm_split_bwd(int w_dt, int rows_per_thread, const float* g,
-                                 const float* x, const void* h_all, const void* c_all,
-                                 const void* wx0, const void* wxr, const void* wh,
-                                 const void* wxT0, const void* wxTr, const void* whT,
-                                 const float* bias, const int8_t* masks, float inv_keep,
-                                 float* dx, float* dgates, int T, int R, int C, int H,
-                                 int L, void* stream) {
-  if (!h_all || !c_all) return (int)cudaErrorInvalidValue;
-  wf::SplitArgs a{};
-  a.x = x;
-  a.st = (long long)R * C;
-  a.sr = C;
-  a.wx0 = wx0;
-  a.wxr = wxr;
-  a.wh = wh;
-  a.bias = bias;
-  a.masks = masks;
-  a.inv_keep = inv_keep;
-  a.h_all = const_cast<void*>(h_all);
-  a.c_all = const_cast<void*>(c_all);
-  a.g = g;
-  a.wxT0 = wxT0;
-  a.wxTr = wxTr;
-  a.whT = whT;
-  a.dx = dx;
-  a.dgates = dgates;
-  a.T = T;
-  a.R = R;
-  a.C = C;
-  a.H = H;
-  a.L = L;
-  return wf::launch_dt<true>(w_dt, rows_per_thread, a, stream);
+// The serial part of the unmerged-gates backward (kernel row 15) for one
+// layer: dgates [T, R, 4H] float32 from the gradient g [T, R, H] float32 of
+// the layer's h sequence, its recomputed activated gates [T, R, 4H] float32,
+// its c_all [T, R, H] and Wh^T [4H, H], both in the compute dtype w_dt (0 =
+// float32, 1 = bfloat16). rows_per_thread (2, 4 or 8) sets the row tile; H
+// is a multiple of 4, at most 256. Returns a cudaError_t code.
+extern "C" int wf_lstm_split_recurrence(int w_dt, int rows_per_thread, const float* g,
+                                        const float* gates, const void* c_all,
+                                        const void* wht, float* dgates, int T, int R, int H,
+                                        void* stream) {
+  const wf::ScanBwd a{g, gates, c_all, wht, dgates, T, R, H};
+  return wf::launch_scan_bwd_dt<true>(w_dt, rows_per_thread, a,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory a block of the recurrence above takes at hidden
+// width H and rows_per_thread, in the compute dtype w_dt.
+extern "C" long long wf_lstm_split_recurrence_smem(int w_dt, int rows_per_thread, int H) {
+  if (H <= 0 || H > wf::kScanBwdThreads) return -1;
+  return (long long)wf::scan_bwd_smem(H, rows_per_thread, w_dt == wf::kF32 ? 4 : 2);
 }

@@ -59,8 +59,10 @@ _SIGNATURES = {
                                       _I, _I, _I, _I, _P],
     "wf_lstm_split_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I,
                           _I, _I, _I, _P],
-    "wf_lstm_split_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
-                          _I, _I, _I, _I, _I, _P],
+    "wf_lstm_split_recurrence": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "wf_gemm_nn": [ctypes.c_char_p],  # one packed NNLaunch (ops/gemm.py _NN_LAUNCH)
+    "wf_gemm_nn_smem": [_I],
+    "wf_lstm_split_recurrence_smem": [_I, _I, _I],
     "wf_lstm_hvp_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
                         _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_hvp_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
@@ -71,11 +73,15 @@ _SIGNATURES = {
     "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],
     "wf_clip_sgd_chunks": [_I, _PLL],
 }
-_RESTYPES = {"wf_clip_sgd_chunks": ctypes.c_longlong}  # the rest return a cudaError_t
+_RESTYPES = {  # the rest return a cudaError_t
+    "wf_clip_sgd_chunks": ctypes.c_longlong,
+    "wf_gemm_nn_smem": ctypes.c_longlong,
+    "wf_lstm_split_recurrence_smem": ctypes.c_longlong,
+}
 
 _lib = None
 build_seconds: float | None = None  # wall time of the build this process ran
-build_log: str = ""  # nvcc's output (ptxas register and spill report)
+build_log: str = ""  # nvcc's output (ptxas register and spill report) of the loaded build
 
 
 def _nvcc() -> str:
@@ -138,18 +144,23 @@ def _build(nvcc: str, target: str) -> None:
         build_log = "".join(logs)
         if failed:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
+        with open(target + ".log", "w") as f:  # read back by a process that loads this build
+            f.write(build_log)
         os.replace(lib, target)  # atomic: a concurrent process never loads half a file
 
 
 def load() -> ctypes.CDLL:
     """Build the kernels if needed and return the loaded library."""
-    global _lib
+    global _lib, build_log
     if _lib is not None:
         return _lib
     nvcc = _nvcc()
     target = os.path.join(BUILD_ROOT, _build_key(nvcc), "libwf_kernels.so")
     if not os.path.exists(target):
         _build(nvcc, target)
+    elif not build_log and os.path.exists(target + ".log"):
+        with open(target + ".log") as f:
+            build_log = f.read()
     lib = ctypes.CDLL(target)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -176,6 +187,13 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 
 def stream_ptr(device: torch.device) -> int:
+    """The raw handle of the current stream on `device` (a CUDA device with
+    an index). PyTorch's own raw-stream getter, where its build has one,
+    skips the Stream object that current_stream() makes (~7 us a launch on
+    the card's host)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -7,9 +7,11 @@ tensor or under float64. On a CUDA tensor a shape or dtype the kernel does
 not take raises; nothing falls back to the plain version there.
 
 `fused_gcn_layer` is one layer, relu(A_hat @ (h @ W) + b), with a
-hand-written backward: on a CUDA tensor its forward is that launcher at one
-layer (kernel row 3) and its backward (the relu gate, A_hat^T g, dW, dh,
-db) runs the kernels of the training stack's backward (ops/fused_gcn_train.py)
+hand-written backward: on a CUDA tensor its forward (kernel row 3) is two
+launches of the pipelined GEMM core (csrc/gemm_nn.cu: hw = round(h) @
+round(W) stored in the compute dtype, then the aggregation with the bias +
+relu epilogue) and its backward (the relu gate, A_hat^T g, dW, dh, db) runs
+the kernels of the training stack's backward (ops/fused_gcn_train.py)
 behind a `torch.autograd.Function`; on a CPU tensor or under float64 it is
 the plain layer, differentiated by autograd.
 
@@ -29,7 +31,7 @@ import torch
 from weatherforecast_stgcn_maml_tpu_torch.models.common import apply_mask
 from weatherforecast_stgcn_maml_tpu_torch.models.gcn import apply_gcn_layer
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import NN_MULTIPLE, gemm, gemm_nn
 
 NODE_MULTIPLE = 128  # the kernel takes node counts that are multiples of this
 
@@ -69,8 +71,8 @@ def check_gcn_inputs(weights, biases, a_hat, h, node_multiple=NODE_MULTIPLE) -> 
         c_in = w.shape[1]
 
 
-def _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype, node_multiple=NODE_MULTIPLE):
-    check_gcn_inputs(weights, biases, a_hat, h, node_multiple)
+def _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype):
+    check_gcn_inputs(weights, biases, a_hat, h)
     dev = h.device
     n, c_in = h.shape[-2:]
     cur = h.reshape(-1, n, c_in).contiguous()
@@ -127,15 +129,54 @@ def fused_gcn_stack(
 fused_gcn_stack.launches = 0  # stack runs through the CUDA kernel
 
 
+def _pad(t: torch.Tensor, sizes) -> torch.Tensor:
+    """t zero-padded at the end of each dimension to `sizes` (t itself when
+    it has them)."""
+    if tuple(t.shape) == tuple(sizes):
+        return t
+    out = t.new_zeros(sizes)
+    out[tuple(slice(0, d) for d in t.shape)] = t
+    return out
+
+
+def _up(n: int) -> int:
+    return -(-n // NN_MULTIPLE) * NN_MULTIPLE
+
+
+def gcn_layer_forward(hb, a_hat, w, b, compute_dtype):
+    """Row 3's forward on a CUDA tensor: hb [S, N, C_in], a_hat [N, N], w
+    [C_in, C_out], b [C_out] -> relu(A_hat @ (h @ W) + b) [S, N, C_out]
+    float32, two gemm_nn launches. Widths and node counts that are not
+    multiples of 8 are zero-padded to them (zero rows and columns add
+    nothing); the reference width (512 nodes, 24 or 256 -> 256) takes no
+    padding."""
+    check_gcn_inputs([w], [b], a_hat, hb, node_multiple=1)
+    slices, n, c_in = hb.shape
+    c_out = w.shape[1]
+    n_p, ci_p, co_p = _up(n), _up(c_in), _up(c_out)
+    hb = _pad(hb, (slices, n, ci_p))
+    # hw rows n .. n_p - 1 of each slice stay zero: the aggregation's K tail.
+    hw = (torch.empty if n_p == n else torch.zeros)(
+        (slices, n_p, co_p), dtype=compute_dtype, device=hb.device)
+    gemm_nn(hb, _pad(w, (ci_p, co_p)), out=hw[:, :n], compute_dtype=compute_dtype,
+            what="GCN layer feature transform")
+    # A_hat rounded once here (0.5 MB at 512 nodes) rather than by every
+    # block as it loads: the bfloat16 path then copies it by cp.async.
+    a = _pad(a_hat, (n, n_p)).to(compute_dtype)
+    out = gemm_nn(a, hw, epilogue="bias_relu", bias=_pad(b, (co_p,)),
+                  compute_dtype=compute_dtype, what="GCN layer aggregation")
+    return out if co_p == c_out else out[..., :c_out].contiguous()
+
+
 class _FusedGcnLayer(torch.autograd.Function):
-    """Row 3 over (h, w, b): the forward is the stack launcher at one layer;
-    the backward is JAX's custom VJP. A_hat takes no gradient."""
+    """Row 3 over (h, w, b): the forward is two gemm_nn launches; the
+    backward is JAX's custom VJP. A_hat takes no gradient."""
 
     @staticmethod
     def forward(ctx, h, a_hat, compute_dtype, w, b):
         hb = h.reshape(-1, *h.shape[-2:]).contiguous()
         a, w = a_hat.contiguous(), w.contiguous()
-        out = _gcn_stack_cuda([w], [b.contiguous()], a, hb, compute_dtype, node_multiple=1)
+        out = gcn_layer_forward(hb, a, w, b.contiguous(), compute_dtype)
         ctx.compute_dtype = compute_dtype
         ctx.save_for_backward(hb, a, w, out)
         fused_gcn_layer.launches += 1

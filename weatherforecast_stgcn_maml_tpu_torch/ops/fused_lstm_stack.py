@@ -16,9 +16,12 @@ version there.
   * `lstm_stack_train_tasks`: rows 4 and 5 for V tasks with their own
     weights, one launch each way (rows 16 and 17), for the task-batched
     meta step (`_VBATCH`);
-  * `lstm_stack_split`: the unmerged-gates stack (csrc/fused_lstm_split.cu,
-    rows 14 and 15), which the two entries above take under
-    `_MERGED_GATES = False` or `merged=False`.
+  * `lstm_stack_split`: the unmerged-gates stack, which the two entries
+    above take under `_MERGED_GATES = False` or `merged=False`: the forward
+    in one launch (csrc/fused_lstm_split.cu, row 14), the backward (row 15)
+    layer by layer (`split_backward_schedule`: csrc/gemm_nn.cu for the
+    recomputed gates and the input gradient, the recurrence of
+    csrc/lstm_scan_bwd.cuh, gemm.cu for the weight gradients).
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py`
 (`lstm_stack_last_all`; Pallas bodies `_fwd_kernel_m_lastonly_nomask`,
@@ -29,8 +32,9 @@ batch of windows over N nodes is simply B*N rows of one launch.
 
 from __future__ import annotations
 
+import dataclasses
 from types import SimpleNamespace
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -41,7 +45,12 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     as_operand,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import colsum, matmul_tn
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
+    colsum,
+    gemm_nn,
+    gemm_nn_plain,
+    matmul_tn,
+)
 
 ROWS_PER_THREAD = (2, 4, 8)  # the row tiles the kernel is built for
 
@@ -715,50 +724,160 @@ def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residual
     return out, h_all, c_all
 
 
-def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compute_dtype):
-    """Row 15 on a CUDA tensor (its plain version on a CPU tensor or under
-    float64): -> (dx [T, B, C], dwx0, dwxr, dwh, db) float32; the weight
-    gradients on gemm.cu from the kernel's float32 gate gradients."""
-    if not _on_card(x_tbc, compute_dtype):
-        return split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
-                                    compute_dtype)
-    lib = cuda_build.load()
+# Row 15 on a card runs layer by layer, so that only the dh carry through
+# Wh^T is on the serial chain (the TPU kernel walks all T x L stages as one
+# chain with four contractions a stage). For l = L-1 .. 0:
+#   1. the gates of all T x R rows at once, act(round(in_l) @ Wx_l +
+#      round(h_all[l, t-1]) @ Wh_l + b_l): one product of two operand pairs,
+#      the second at a row offset of R (h_{-1} = 0), with the gate epilogue;
+#      in_l is x, or h_all[l-1] times its dropout mask and 1/keep, rounded;
+#   2. the recurrence, one contraction a step (row 19's device code), from
+#      the gradient g_l of the layer's h sequence: zero but for g at the top
+#      layer's last step, the input gradient of the layer above below it;
+#   3. the input gradient round(dgates_l) @ Wx_l^T: dx at l = 0, else
+#      g_{l-1}, times the mask and 1/keep (the mask epilogue).
+# The weight gradients follow from the gate gradients of every layer. The
+# pieces are swappable: the kernels on a card (`CARD_PIECES`), their plain
+# versions (`PLAIN_PIECES`) in the CPU tests.
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPieces:
+    """product: `gemm_nn`'s signature (ops/gemm.py); recurrence(g, gates,
+    c, wht, compute_dtype, out) -> dgates [T, R, 4H] into out;
+    weight_grads(x, h_all, dgates, masks, keep, compute_dtype) -> (dwx0,
+    dwxr, dwh, db)."""
+
+    product: Callable
+    recurrence: Callable
+    weight_grads: Callable
+
+
+def split_backward_schedule(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
+                            compute_dtype, pieces: SplitPieces):
+    """Row 15's function (`split_backward_plain`'s outputs) by the layer by
+    layer schedule above, on `pieces`."""
+    acc = accum_dtype(compute_dtype)
     dev = x_tbc.device
     t_len, rows, c_in = x_tbc.shape
     n_layers, hidden, g4 = wh.shape
-    inv_keep = 1.0 / keep
-    x = x_tbc.to(torch.float32).contiguous()
-    g = g.to(torch.float32).contiguous()
-    h_all = h_all.to(compute_dtype).contiguous()
-    c_all = c_all.to(compute_dtype).contiguous()
-    w0, wr = _on_card_weights(wx0, wxr, compute_dtype)
-    whc = wh.to(compute_dtype).contiguous()
-    # The transposed weights of the dgates @ W^T contractions.
-    wt0 = w0.t().contiguous()
-    wtr = wr.transpose(-1, -2).contiguous() if n_layers > 1 else wt0
-    wht = whc.transpose(1, 2).contiguous()
-    dx = torch.empty((t_len, rows, c_in), dtype=torch.float32, device=dev)
-    dgates = torch.empty((n_layers, t_len, rows, g4), dtype=torch.float32, device=dev)
+    steps = t_len * rows
+    wxs = [w.to(compute_dtype) for w in (wx0, *wxr)]
+    whs = wh.to(compute_dtype)
+    gates = torch.empty((steps, g4), dtype=acc, device=dev)  # reused by every layer
+    dgates = torch.empty((n_layers, t_len, rows, g4), dtype=acc, device=dev)
+    g_l = torch.zeros((t_len, rows, hidden), dtype=acc, device=dev)
+    g_l[-1] = g
+    g_next = torch.empty_like(g_l) if n_layers > 1 else None
+    dx = torch.empty((steps, c_in), dtype=acc, device=dev)
+    # The layers' inputs above layer 0, masked and rounded once for all.
+    h_in = h_all[:-1]
+    if masks is not None and n_layers > 1:
+        h_in = apply_mask(h_in.to(acc), masks, keep).to(compute_dtype)
+    for l in reversed(range(n_layers)):
+        inp = x_tbc.reshape(steps, c_in) if l == 0 else h_in[l - 1].reshape(steps, hidden)
+        prev = {} if t_len == 1 else dict(
+            a2=h_all[l, :-1].reshape(steps - rows, hidden), b2=whs[l], row_offset=rows)
+        pieces.product(inp, wxs[l], compute_dtype=compute_dtype, epilogue="gates",
+                       bias=b2d[l], out=gates, what=f"LSTM layer {l} gates", **prev)
+        # Each transpose just before its use: on a card its host work runs
+        # while the product before it does.
+        pieces.recurrence(g_l, gates.view(t_len, rows, g4), c_all[l], whs[l].t().contiguous(),
+                          compute_dtype, dgates[l])
+        dg = dgates[l].view(steps, g4)
+        wxt = wxs[l].t().contiguous()
+        if l == 0:
+            pieces.product(dg, wxt, compute_dtype=compute_dtype, out=dx,
+                           what="LSTM input gradient")
+            continue
+        mask = None if masks is None else masks[l - 1].reshape(steps, hidden)
+        pieces.product(dg, wxt, compute_dtype=compute_dtype,
+                       epilogue="none" if mask is None else "mask", mask=mask,
+                       scale=1.0 / keep, out=g_next.view(steps, hidden),
+                       what=f"LSTM layer {l} input gradient")
+        g_l, g_next = g_next, g_l
+    return (dx.view(t_len, rows, c_in),
+            *pieces.weight_grads(x_tbc, h_all, dgates, masks, keep, compute_dtype))
+
+
+def _recurrence_card(g, gates, c, wht, compute_dtype, out):
+    t_len, rows, hidden = g.shape
     cuda_build.check(
-        lib.wf_lstm_split_bwd(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
-            g.data_ptr(), x.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
-            w0.data_ptr(), wr.data_ptr(), whc.data_ptr(), wt0.data_ptr(), wtr.data_ptr(),
-            wht.data_ptr(), b2d.contiguous().data_ptr(),
-            None if masks is None else masks.data_ptr(), inv_keep,
-            dx.data_ptr(), dgates.data_ptr(), t_len, rows, c_in, hidden, n_layers,
-            cuda_build.stream_ptr(dev),
+        cuda_build.load().wf_lstm_split_recurrence(
+            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, g.device),
+            g.data_ptr(), gates.data_ptr(), c.data_ptr(), wht.data_ptr(), out.data_ptr(),
+            t_len, rows, hidden, cuda_build.stream_ptr(g.device),
         ),
-        "LSTM unmerged-gates backward",
+        "LSTM unmerged-gates backward recurrence",
     )
-    dwx0 = torch.empty((c_in, g4), dtype=torch.float32, device=dev)
+    return out
+
+
+def _weight_grads_card(x, h_all, dgates, masks, keep, compute_dtype):
+    dev = x.device
+    n_layers, _, _, g4 = dgates.shape
+    hidden = g4 // 4
+    dwx0 = torch.empty((x.shape[-1], g4), dtype=torch.float32, device=dev)
     dwxr = torch.empty((n_layers - 1, hidden, g4), dtype=torch.float32, device=dev)
     dwh = torch.empty((n_layers, hidden, g4), dtype=torch.float32, device=dev)
     db = torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
-    _weight_grads(x, h_all, dgates, masks, inv_keep, compute_dtype, [dwx0, *dwxr],
+    _weight_grads(x, h_all, dgates, masks, 1.0 / keep, compute_dtype, [dwx0, *dwxr],
                   list(dwh), db)
+    return dwx0, dwxr, dwh, db
+
+
+def _recurrence_plain(g, gates, c, wht, compute_dtype, out):
+    from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import scan_backward_plain
+
+    return out.copy_(scan_backward_plain(g, gates, c, wht.t(), compute_dtype))
+
+
+def _weight_grads_plain(x, h_all, dgates, masks, keep, compute_dtype):
+    """dwx[l] = round(inp_l)^T @ round(dgates_l), dwh[l] = round(h_prev)^T @
+    round(dgates_l) over every step and row, db[l] = the sums of dgates_l."""
+    acc = accum_dtype(compute_dtype)
+    t_len, rows, c_in = x.shape
+    n_layers, _, _, g4 = dgates.shape
+    hidden = g4 // 4
+    steps = t_len * rows
+    dwx, dwh, db = [], [], []
+    for l in range(n_layers):
+        dg = dgates[l].reshape(steps, g4)
+        if l == 0:
+            inp = x.reshape(steps, c_in)
+        else:
+            inp = h_all[l - 1].reshape(steps, hidden).to(acc)
+            if masks is not None:
+                inp = apply_mask(inp, masks[l - 1].reshape(steps, hidden), keep)
+        dgc = as_operand(dg, compute_dtype)
+        dwx.append(as_operand(inp, compute_dtype).t() @ dgc)
+        dwh.append(as_operand(h_all[l, :-1].reshape(steps - rows, hidden), compute_dtype).t()
+                   @ dgc[rows:])
+        db.append(dg.sum(dim=0))
+    dwxr = (torch.stack(dwx[1:]) if n_layers > 1
+            else torch.zeros((0, hidden, g4), dtype=acc, device=x.device))
+    return dwx[0], dwxr, torch.stack(dwh), torch.stack(db)
+
+
+CARD_PIECES = SplitPieces(gemm_nn, _recurrence_card, _weight_grads_card)
+PLAIN_PIECES = SplitPieces(gemm_nn_plain, _recurrence_plain, _weight_grads_plain)
+
+
+def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compute_dtype):
+    """Row 15 on a CUDA tensor (its plain version on a CPU tensor or under
+    float64): -> (dx [T, B, C], dwx0, dwxr, dwh, db) float32, by
+    `split_backward_schedule` on the kernels: per layer one gemm_nn launch
+    for the gates, one recurrence launch and one gemm_nn launch for the
+    input gradient, then the weight gradients on gemm.cu."""
+    if not _on_card(x_tbc, compute_dtype):
+        return split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
+                                    compute_dtype)
+    out = split_backward_schedule(
+        g.to(torch.float32), x_tbc.to(torch.float32).contiguous(),
+        h_all.to(compute_dtype).contiguous(), c_all.to(compute_dtype).contiguous(),
+        wx0, wxr, wh, b2d.to(torch.float32), masks, keep, compute_dtype, CARD_PIECES)
     lstm_stack_split.backward_launches += 1
-    return dx, dwx0, dwxr, dwh, db
+    return out
 
 
 class _LstmStackSplit(torch.autograd.Function):

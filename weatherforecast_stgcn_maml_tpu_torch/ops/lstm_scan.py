@@ -49,6 +49,35 @@ def lstm_recurrence_plain(
     return torch.stack(outs)
 
 
+def scan_backward_plain(
+    g: torch.Tensor, gates: torch.Tensor, c_all: torch.Tensor, wh: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of row 19's recurrence (csrc/lstm_scan_bwd.cuh): from
+    the gradient g [T, B, H] of the h sequence, the activated gates [T, B,
+    4H] and c_all [T, B, H] (any dtype; widened), walking t = T-1 .. 0 with
+    dh / dc carries -> dgates [T, B, 4H] in the accumulation dtype; the dh
+    carry is round(dgates) @ round(wh)^T."""
+    acc = accum_dtype(compute_dtype)
+    t_len, rows, hidden = g.shape
+    wht = as_operand(wh, compute_dtype).t()
+    dh_c = torch.zeros((rows, hidden), dtype=acc, device=g.device)
+    dc_c = torch.zeros_like(dh_c)
+    out = [None] * t_len
+    for t in reversed(range(t_len)):
+        i, f, gg, o = gates[t].to(acc).split(hidden, dim=-1)
+        c_prev = c_all[t - 1].to(acc) if t > 0 else torch.zeros_like(dh_c)
+        tc = torch.tanh(c_all[t].to(acc))
+        dh = g[t].to(acc) + dh_c
+        dc = dc_c + dh * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc * gg * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                            dc * i * (1.0 - gg * gg), dh * tc * o * (1.0 - o)], dim=-1)
+        dh_c = torch.matmul(as_operand(dgates, compute_dtype), wht)
+        dc_c = dc * f
+        out[t] = dgates
+    return torch.stack(out)
+
+
 def _aligned(w: torch.Tensor) -> torch.Tensor:
     """w contiguous, its data 16-byte aligned (the kernels' cp.async tiles)."""
     w = w.contiguous()

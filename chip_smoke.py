@@ -143,6 +143,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -180,10 +181,11 @@ TPU_KERNELS = {
 CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 # The kernel's sources, its main one first (the kernels line's "source").
 SOURCES = {
-    "fused_gcn_stack": [CSRC + "gemm.cu"],
+    "fused_gcn_stack": [CSRC + "gemm_nn.cu"],
     "lstm_stack_last_all": [CSRC + "fused_lstm_stack.cu"],
     "lstm_stack_train": [CSRC + "fused_lstm_stack.cu"],
-    "lstm_stack_train.backward": [CSRC + "fused_lstm_stack_train.cu"],
+    "lstm_stack_train.backward": [CSRC + "lstm_scan_bwd.cuh", CSRC + "fused_lstm_split.cu",
+                                  CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
     "gcn_stack_train": [CSRC + "fused_gcn_train.cu"],
     "gcn_stack_train.backward": [CSRC + "fused_gcn_train.cu"],
     "clip_sgd_update": [CSRC + "fused_sgd.cu"],
@@ -193,14 +195,15 @@ SOURCES = {
     "gcn_shard_layer": [CSRC + "gemm.cu"],
     "gcn_shard_layer.backward": [CSRC + "fused_gcn_shard.cu"],
     "lstm_recurrence": [CSRC + "lstm_scan.cu"],
-    "lstm_recurrence.backward": [CSRC + "lstm_scan.cu"],
+    "lstm_recurrence.backward": [CSRC + "lstm_scan.cu", CSRC + "lstm_scan_bwd.cuh",
+                                 CSRC + "gemm.cu"],
     "fused_lstm_last_hidden": [CSRC + "fused_lstm.cu"],
     "fused_gcn_layer": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu", CSRC + "gemm.cu"],
     "lstm_stack_split": [CSRC + "fused_lstm_split.cu"],
     "lstm_stack_split.backward": [CSRC + "gemm_nn.cu", CSRC + "lstm_scan_bwd.cuh",
                                   CSRC + "fused_lstm_split.cu", CSRC + "gemm.cu"],
     "lstm_stack_train_tasks": [CSRC + "fused_lstm_stack.cu"],
-    "lstm_stack_train_tasks.backward": [CSRC + "fused_lstm_stack_train.cu"],
+    "lstm_stack_train_tasks.backward": [CSRC + "fused_lstm_stack_train.cu", CSRC + "gemm.cu"],
 }
 # Kernels whose ptxas report the build phase prints by name.
 NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "lstm_scan_bwd_kernel")
@@ -387,13 +390,14 @@ def main() -> int:
     from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_shard as fgs
     from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp as fh
     from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
+    from weatherforecast_stgcn_maml_tpu_torch.ops import lstm_scan
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
         lstm_stack_last_all,
         lstm_stack_plain,
         lstm_stack_train,
     )
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
-    from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm_nn, gemm_nn_plain
+    from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm, gemm_nn, gemm_nn_plain
     from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import (
         lstm_recurrence,
         lstm_recurrence_plain,
@@ -472,25 +476,63 @@ def main() -> int:
         else:
             log(f"nvcc (one process per source, in parallel) {cuda_build.build_seconds:.1f} s")
         entry = ""
+        recurrence = []  # (source, template arguments, registers, spill line)
         for line in cuda_build.build_log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            # The kernels rows 3 and 15 run on, by name: registers, stack
-            # frame and spills.
+            # The kernels rows 1, 3, 5, 15 and 19 run on, by name: registers,
+            # stack frame and spills; the recurrence's 24 instances a source
+            # (dtypes, units a lane, rows a cluster) one line a source below.
             new = next((entry[entry.index(k):][:48] for k in NEW_KERNELS if k in entry), None)
-            if new and ("registers" in line or "spill" in line):
+            if new and new.startswith("lstm_scan_bwd_kernel"):
+                if "registers" in line:
+                    # <TW, TC, UPT, RB>, mangled as e.g. I13__nv_bfloat16S2_Li4ELi8E.
+                    tw_tc, upt, rb = re.match(r"I(.*?)Li(\d+)ELi(\d+)", entry[
+                        entry.index("lstm_scan_bwd_kernel") + 20:]).groups()
+                    tw_tc = tw_tc.replace("13__nv_bfloat16", "b").replace("S2_", "b")
+                    args = "/".join({"f": "f32", "b": "bf16"}[c] for c in tw_tc)
+                    source = "fused_lstm_split.cu" if "fused_lstm_split" in entry else "lstm_scan.cu"
+                    regs = line.split("Used")[1].split("registers")[0].strip()
+                    recurrence.append((source, f"{args} {upt} {rb}", regs))
+                elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                    log(f"  ptxas lstm_scan_bwd_kernel SPILLS: {line.strip()} in {entry}")
+            elif new and ("registers" in line or "spill" in line):
                 log(f"  ptxas {new}: {line.split(':', 1)[-1].strip()}")
             elif "registers" in line:
                 log(f"  ptxas: {line.strip()}")
             elif "spill" in line and " 0 bytes spill" not in line:
                 log(f"  ptxas: {line.strip()} in {entry}")
+        for source in sorted({r[0] for r in recurrence}):
+            log(f"  ptxas lstm_scan_bwd_kernel in {source} (weights / c_all dtype, units a "
+                f"lane, rows a cluster: registers; no spill unless named above): " + ", ".join(
+                    f"{args}: {regs}" for src, args, regs in recurrence if src == source))
         # Their shared memory is dynamic (ptxas reports static memory only).
         lib = cuda_build.load()
-        rpt = fls._rows_per_thread(512, 128, dev)
         log(f"  dynamic shared memory a block: gemm_nn float32 {lib.wf_gemm_nn_smem(0)} B, "
-            f"bfloat16 {lib.wf_gemm_nn_smem(1)} B; lstm_scan_bwd at H = 128, {rpt} rows a "
-            f"thread (R = 512): float32 {lib.wf_lstm_split_recurrence_smem(0, rpt, 128)} B, "
-            f"bfloat16 {lib.wf_lstm_split_recurrence_smem(1, rpt, 128)} B")
+            f"bfloat16 {lib.wf_gemm_nn_smem(1)} B")
+        # The backward recurrence (rows 5, 15, 19): its cluster plan at the
+        # main path's rows (512; adaptation 1024, a sharded rank 256) and at
+        # the gate's (48 rows, H 64 / 128 / 256), the shared memory a block
+        # takes and how many of its clusters the card runs at once.
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for dt in (torch.float32, torch.bfloat16):
+            for hidden, rows in ((128, 512), (128, 1024), (128, 256), (64, 48), (128, 48),
+                                 (256, 48)):
+                cs, hcp, rb = fls.recurrence_plan(hidden, rows, dt.itemsize, sms)
+                code = cuda_build.dtype_code(dt)
+                smem = lib.wf_lstm_stack_recurrence_smem(code, hcp, rb, hidden)
+                if smem != fls.scan_smem(hidden, hcp, rb, dt.itemsize):
+                    raise RuntimeError(f"recurrence shared memory: C {smem} B, Python "
+                                       f"{fls.scan_smem(hidden, hcp, rb, dt.itemsize)} B")
+                active = lib.wf_lstm_stack_recurrence_clusters(code, cs, hcp, rb, hidden)
+                if active <= 0:
+                    raise RuntimeError(f"the card runs no cluster of the recurrence plan "
+                                       f"{(cs, hcp, rb)} at H = {hidden} ({active})")
+                clusters = -(-rows // rb)
+                log(f"  lstm_scan_bwd {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of {cs}, "
+                    f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
+                    f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once "
+                    f"(cudaOccupancyMaxActiveClusters)")
 
     cfg = ModelConfig()
     boxes = dict((name, box) for box, name in ADAPTATION_REGIONS)
@@ -535,7 +577,14 @@ def main() -> int:
         for name, (kernel, plain) in runs.items():
             for dt_name, tol in TOL.items():
                 dt = getattr(torch, dt_name)
-                got, ref = kernel(dt), plain(dt)
+                before = gemm_nn.launches, gemm.launches
+                got = kernel(dt)
+                if name == "fused_gcn_stack" and (gemm_nn.launches - before[0],
+                                                  gemm.launches - before[1]) != (2 * len(enc), 0):
+                    raise RuntimeError(f"row 1 launched gemm_nn {gemm_nn.launches - before[0]} "
+                                       f"times and gemm.cu {gemm.launches - before[1]}, not "
+                                       f"{2 * len(enc)} and 0")
+                ref = plain(dt)
                 torch.cuda.synchronize()
                 err = float((got - ref).abs().max())
                 torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
@@ -577,7 +626,7 @@ def main() -> int:
                 raise RuntimeError(f"validate {dt_name}: {results}")
             return results
 
-        fused_gcn_stack.launches = 0
+        fused_gcn_stack.launches = fused_gcn_stack.gemm_nn_launches = 0
         lstm_stack_last_all.launches = 0
         served = {}
         for dt_name in TOL:
@@ -588,10 +637,14 @@ def main() -> int:
             "fused_gcn_stack": fused_gcn_stack.launches,
             "lstm_stack_last_all": lstm_stack_last_all.launches,
         }
-        log(f"launches on the serving path: {launches}")
+        log(f"launches on the serving path: {launches}; row 1's gemm_nn launches "
+            f"{fused_gcn_stack.gemm_nn_launches}")
         for name, count in launches.items():
             if count == 0:
                 raise RuntimeError(f"{name} never launched on the serving path")
+        if fused_gcn_stack.gemm_nn_launches != 2 * len(enc) * fused_gcn_stack.launches:
+            raise RuntimeError(f"row 1 launched gemm_nn {fused_gcn_stack.gemm_nn_launches} "
+                               f"times in {fused_gcn_stack.launches} calls")
 
         for dt_name, tol in TOL.items():
             ref = forecast("Moscow", dt_name, serve_dir, device="cpu")
@@ -621,9 +674,7 @@ def main() -> int:
                     log(f"{name} {dt_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
                     if dt_name == "float32":
                         measured[name].update(ms=ms, plain_ms=plain_ms)
-            # Yardsticks: the plain GEMM route (cuBLAS float32) for the GCN
-            # stack, cuDNN's LSTM for the LSTM stack.
-            measured["fused_gcn_stack"]["library_ms"] = measured["fused_gcn_stack"]["plain_ms"]
+            # Yardstick: cuDNN's LSTM for the LSTM stack (row 1's below).
             lib_ms = cuda_ms(torch, lambda: cudnn(x_lstm))
             measured["lstm_stack_last_all"]["library_ms"] = lib_ms
             log(f"torch.nn.LSTM (cuDNN) float32 forward [1536, 24, 256]: {lib_ms:.4f} ms  [{card}]")
@@ -637,6 +688,38 @@ def main() -> int:
                                  cfg.lstm_layers),
                 bytes=4 * (x_lstm.numel() + 3 * n * cfg.lstm_hidden) + lstm_w_bytes,
             )
+            # Row 1 beside its library call in the same dtype: cuBLAS products
+            # of the rounded operands layer by layer (bfloat16 on its tensor
+            # cores); device times alone by CUDA graph replay (CUDA events
+            # around one call also time the host's launch work).
+            for dt_name in TOL:
+                dt = getattr(torch, dt_name)
+                a_c, x_c = a_hat.to(dt), x_gcn.to(dt)
+                w_c = [(layer.w.to(dt), layer.b) for layer in enc]
+
+                def library():
+                    h = x_c
+                    for w, b in w_c:
+                        h = torch.relu(a_c @ (h @ w) + b).to(dt)
+                    return h
+
+                row1 = {"ms": cuda_ms(torch, lambda: fused_gcn_stack(enc, a_hat, x_gcn,
+                                                                      compute_dtype=dt)),
+                        "device_ms": graph_ms(torch, lambda: fused_gcn_stack(
+                            enc, a_hat, x_gcn, compute_dtype=dt)),
+                        "library_ms": cuda_ms(torch, library),
+                        "library_device_ms": graph_ms(torch, library)}
+                log(f"row 1 {dt_name} [72, 512, 24] -> 4 x 256: kernel {row1['ms']:.4f} ms "
+                    f"(device {row1['device_ms']:.4f}); cuBLAS layer by layer {dt_name} "
+                    f"{row1['library_ms']:.4f} ms (device {row1['library_device_ms']:.4f})  "
+                    f"[{card}]")
+                if dt_name == "float32":
+                    measured["fused_gcn_stack"].update(
+                        device_ms=row1["device_ms"], library_ms=row1["library_ms"],
+                        library_device_ms=row1["library_device_ms"])
+                else:
+                    measured["fused_gcn_stack"]["bfloat16"] = row1
+                del a_c, x_c, w_c
             for dt_name in TOL:
                 predict = make_predict(ModelConfig(compute_dtype=dt_name))
                 for b in (1, 3):
@@ -684,6 +767,93 @@ def main() -> int:
         ).to(dev, out.dtype)
         return out, [leaf, *params], ct
 
+    # 6a. The backward recurrence of rows 5, 15 and 19 alone against its
+    # plain version, at widths whose plans take clusters of 1, 2, 4 and 8
+    # blocks (48 rows, 7 steps), through both C entries: c_all in the compute
+    # dtype with the second-order carries (rows 5, 15), c_all float32 (19).
+    with Phase("backward recurrence (cluster plans) vs plain"), torch.no_grad():
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        seen = set()
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            for hidden in (64, 128, 256):
+                draw = np.random.default_rng(hidden)
+
+                def card_array(shape, scale=1.0):
+                    return torch.from_numpy((draw.standard_normal(shape) * scale)
+                                            .astype(np.float32)).to(dev)
+
+                pre = card_array((7, 48, 4, hidden))
+                gates_r = torch.cat([torch.sigmoid(pre[:, :, :2]), torch.tanh(pre[:, :, 2:3]),
+                                     torch.sigmoid(pre[:, :, 3:])], dim=2).reshape(7, 48, -1)
+                g_r, c_r = card_array((7, 48, hidden)), card_array((7, 48, hidden))
+                wh_r = card_array((hidden, 4 * hidden), hidden ** -0.5)
+                cs, hcp, rb = fls.recurrence_plan(hidden, 48, dt.itemsize, sms)
+                active = cuda_build.load().wf_lstm_stack_recurrence_clusters(
+                    cuda_build.dtype_code(dt), cs, hcp, rb, hidden)
+                refs = lstm_scan.scan_backward_plain(g_r, gates_r, c_r.to(dt), wh_r, dt,
+                                                     carries=True)
+                outs = [torch.empty_like(gates_r), torch.empty_like(g_r), torch.empty_like(g_r)]
+                fls._recurrence_card(g_r, gates_r, c_r.to(dt), wh_r, dt, *outs)
+                outs.append(fls.launch_recurrence(cuda_build.load().wf_lstm_scan_bwd,
+                                                  "row 19's recurrence",
+                                                  g_r, gates_r, c_r, wh_r, dt,
+                                                  torch.empty_like(gates_r)))
+                refs = (*refs, lstm_scan.scan_backward_plain(g_r, gates_r, c_r, wh_r, dt))
+                torch.cuda.synchronize()
+                rels = [rel_err(a, b) for a, b in zip(outs, refs)]
+                log(f"recurrence {dt_name} H = {hidden}: cluster of {cs} ({hcp} weight columns, "
+                    f"{rb} rows a cluster), at most {active} clusters at once; max|diff|/max|ref| "
+                    f"dgates {rels[0]:.2e}, dh {rels[1]:.2e}, dc {rels[2]:.2e}, row 19's entry "
+                    f"{rels[3]:.2e} (tol {tol})")
+                if max(rels) > tol:
+                    raise RuntimeError(f"recurrence {dt_name} H = {hidden}: error {max(rels):.3e}")
+                seen.add(cs)
+        if seen != {1, 2, 4, 8}:
+            raise RuntimeError(f"the recurrence gate reached clusters of {sorted(seen)} only")
+        del pre, gates_r, g_r, c_r, wh_r, refs, outs
+
+    def parts_ms(run):
+        """A layer-by-layer LSTM backward's device time by part: run(pieces)
+        on the card's pieces, each piece between two CUDA events; medians of
+        REPEATS runs."""
+        marks = []
+
+        def timed(fn, part):
+            def call(*args, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                marks.append((part(kwargs), start, end))
+                return out
+            return call
+
+        card_pieces = fls.CARD_PIECES
+        pieces = fls.SplitPieces(
+            timed(card_pieces.product, lambda kw: "gate products"
+                  if kw.get("epilogue") == "gates" else "input products"),
+            timed(card_pieces.recurrence, lambda kw: "recurrences"),
+            timed(card_pieces.weight_grads, lambda kw: "weight gradients"))
+        runs = []
+        with torch.no_grad():
+            for i in range(REPEATS + 2):
+                marks.clear()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(pieces)
+                end.record()
+                torch.cuda.synchronize()
+                if i < 2:  # warm-up
+                    continue
+                part = {"total": start.elapsed_time(end)}
+                for name, s, e in marks:
+                    part[name] = part.get(name, 0.0) + s.elapsed_time(e)
+                runs.append(part)
+        return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
     with Phase("training kernels vs plain"):
         for name, (kernel, plain, x, params) in train_runs.items():
             for dt_name, tol in TOL.items():
@@ -720,6 +890,8 @@ def main() -> int:
                     measured[name + ".backward"] = {
                         "max_abs_err": bwd_err, "ms": times["kernel"][1],
                         "plain_ms": times["plain"][1]}
+                elif name == "lstm_stack_train":
+                    measured[name + ".backward"]["bfloat16_ms"] = times["kernel"][1]
         # Yardsticks: cuBLAS float32 (the plain GEMM route) for the GCN
         # stack; cuDNN's LSTM, weights copied in, dropout 0, for the LSTM.
         measured["gcn_stack_train"]["library_ms"] = measured["gcn_stack_train"]["plain_ms"]
@@ -737,6 +909,52 @@ def main() -> int:
             f"{measured['lstm_stack_train']['library_ms']:.4f} ms, backward "
             f"{measured['lstm_stack_train.backward']['library_ms']:.4f} ms  [{card}]")
         del out, ct, xr
+        # Row 5 alone, its wrapper from row 4's residuals (masks at rate 0.2):
+        # by CUDA events, by CUDA graph replay (device time) and by part;
+        # cuDNN's backward in the same dtype beside it.
+        x5 = x_rec.transpose(0, 1).contiguous()
+        wcat5 = [torch.cat([layer.wx, layer.wh]).detach() for layer in lstm]
+        b2d5 = torch.stack([layer.b for layer in lstm]).detach()
+        g5 = torch.from_numpy(np.random.default_rng(5).standard_normal((n, lh))
+                              .astype(np.float32)).to(dev)
+        for dt_name in TOL:
+            dt = getattr(torch, dt_name)
+            with torch.no_grad():
+                _, h5, c5, gates5 = fls.train_forward(x5, lstm_masks, 0.8, dt, b2d5, wcat5)
+
+                def row5():
+                    fls.train_backward(g5, x5, h5, c5, gates5, wcat5, lstm_masks, 0.8, dt)
+
+                row = {"call_ms": cuda_ms(torch, row5), "device_ms": graph_ms(torch, row5),
+                       "parts_ms": parts_ms(lambda p: fls.merged_backward_schedule(
+                           g5, x5, h5, c5, gates5, wcat5, lstm_masks, 0.8, dt, p))}
+            lib_lstm = cudnn if dt_name == "float32" else copy.deepcopy(cudnn).to(dt)
+            xr = x_rec.detach().to(dt).requires_grad_(True)
+            try:
+                out = lib_lstm(xr)[0][:, -1]
+            except RuntimeError as err:  # a yardstick only: say so and go on
+                log(f"torch.nn.LSTM (cuDNN) refused {dt_name}: {err}")
+                row["library_ms"] = None
+            else:
+                ct = torch.ones_like(out)
+                row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+                    out, [xr, *lib_lstm.parameters()], ct, retain_graph=True))
+                del out, ct
+            del lib_lstm, xr, h5, c5, gates5
+            log(f"row 5 {dt_name} [24, 512, 256] L=4 from row 4's residuals: the call "
+                f"{row['call_ms']:.4f} ms, device {row['device_ms']:.4f} ms (CUDA graph replay); "
+                f"by part (CUDA events, median of {REPEATS}): " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in row["parts_ms"].items())
+                + f"; cuDNN backward {dt_name} "
+                + ("refused" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
+                + f"  [{card}]")
+            if dt_name == "float32":
+                measured["lstm_stack_train.backward"].update(
+                    device_ms=row["device_ms"], parts_ms=row["parts_ms"], call_ms=row["call_ms"])
+            else:
+                row["ms"] = measured["lstm_stack_train.backward"].pop("bfloat16_ms")
+                measured["lstm_stack_train.backward"]["bfloat16"] = row
+        del x5, wcat5, b2d5, g5
         e = 4  # float32 residuals
         gcn_io = 4 * (x_enc.numel() + n * n) + gcn_w_bytes + gcn_masks.numel()
         act = cfg.gcn_layers * w_len * n * hid * e
@@ -1060,6 +1278,8 @@ def main() -> int:
         counters = (gcn_stack_train, lstm_stack_train)
         for fn in counters:
             fn.launches = fn.backward_launches = 0
+        lstm_stack_train.backward_recurrence_launches = 0
+        lstm_stack_train.backward_gemm_nn_launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         per_step = meta_cfg.meta_batch * meta_cfg.inner_epochs * meta_cfg.inner_batches
         logs = {"float32": meta_train("float32", 2), "bfloat16": meta_train("bfloat16", 1)}
@@ -1081,6 +1301,17 @@ def main() -> int:
         for name, count in train_launches.items():
             if count == 0:
                 raise RuntimeError(f"{name} never launched on the meta-training path")
+        # Row 5: 364 calls a meta step (4 tasks x 90 inner steps + 4 query
+        # windows), each a recurrence and a gemm_nn launch a layer.
+        forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
+        row5 = (lstm_stack_train.backward_launches,
+                lstm_stack_train.backward_recurrence_launches,
+                lstm_stack_train.backward_gemm_nn_launches)
+        log(f"row 5 in 5 meta steps: {row5[0]} calls, {row5[1]} recurrence launches, "
+            f"{row5[2]} gemm_nn launches")
+        if row5 != (5 * forwards, 5 * forwards * n_l, 5 * forwards * n_l):
+            raise RuntimeError(f"row 5 launched {row5} in 5 meta steps, not {forwards} calls a "
+                               f"step with {n_l} recurrences and {n_l} gemm_nn launches each")
         for name, records in logs.items():
             want = [1, 2, 3] if name == "float32" else [1]
             if [r["epoch"] for r in records] != want:
@@ -1639,13 +1870,24 @@ def main() -> int:
             log(f"rows 18-19 {dt_name} xp [24, 512, 512]: kernel forward {times['kernel'][0]:.4f} "
                 f"ms, backward {times['kernel'][1]:.4f} ms; plain forward "
                 f"{times['plain'][0]:.4f} ms, backward {times['plain'][1]:.4f} ms  [{card}]")
+            # Row 19's device time alone: its call from row 18's residuals,
+            # by CUDA graph replay.
+            with torch.no_grad():
+                h19, c19, gates19 = lstm_scan.scan_forward(xp, wh.detach(), dt, True)
+                g19 = torch.from_numpy(np.random.default_rng(65).standard_normal(
+                    (w_len, n, lh)).astype(np.float32)).to(dev)
+                dev19 = graph_ms(torch, lambda: lstm_scan.scan_backward(
+                    g19, h19, c19, gates19, wh.detach(), dt))
+            log(f"row 19 {dt_name}: device {dev19:.4f} ms (CUDA graph replay of its call)  "
+                f"[{card}]")
+            del h19, c19, gates19, g19
             if dt_name == "float32":
                 measured["lstm_recurrence"] = {
                     "max_abs_err": fwd_err, "ms": times["kernel"][0],
                     "plain_ms": times["plain"][0], "library_ms": None}
                 measured["lstm_recurrence.backward"] = {
                     "max_abs_err": bwd_err, "ms": times["kernel"][1],
-                    "plain_ms": times["plain"][1], "library_ms": None}
+                    "plain_ms": times["plain"][1], "library_ms": None, "device_ms": dev19}
             del graphs
 
             # Row 20: the eval stack, at validate's 3 windows and at 1; the
@@ -1876,47 +2118,6 @@ def main() -> int:
         return lambda x, w0, wr, b, m, keep, dt: fls.lstm_stack_tasks_plain(
             x, w0, wr, b, m, keep, dt)
 
-    def split_parts(m, keep, dt, res):
-        """Row 15's device time by part: its schedule on the card's pieces,
-        each piece between two CUDA events; medians of REPEATS runs."""
-        marks = []
-
-        def timed(fn, part):
-            def run(*args, **kwargs):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = fn(*args, **kwargs)
-                end.record()
-                marks.append((part(kwargs), start, end))
-                return out
-            return run
-
-        card_pieces = fls.CARD_PIECES
-        pieces = fls.SplitPieces(
-            timed(card_pieces.product, lambda kw: "gate products"
-                  if kw.get("epilogue") == "gates" else "input products"),
-            timed(card_pieces.recurrence, lambda kw: "recurrences"),
-            timed(card_pieces.weight_grads, lambda kw: "weight gradients"))
-        x_c = x_tbc.contiguous()
-        runs = []
-        with torch.no_grad():
-            for i in range(REPEATS + 2):
-                marks.clear()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fls.split_backward_schedule(g_last, x_c, *res, *split_w, m, keep, dt, pieces)
-                end.record()
-                torch.cuda.synchronize()
-                if i < 2:  # warm-up
-                    continue
-                part = {"total": start.elapsed_time(end)}
-                for name, s, e in marks:
-                    part[name] = part.get(name, 0.0) + s.elapsed_time(e)
-                runs.append(part)
-        return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-
     with Phase("unmerged-gates and task-batched LSTM kernels vs plain"):
         for dropout in (0.2, 0.0):
             m, keep = (lstm_masks, 0.8) if dropout else (None, 1.0)
@@ -1969,7 +2170,9 @@ def main() -> int:
                         out, [xr, *lib_lstm.parameters()], ct, retain_graph=True))
                     del out, ct
                 del lib_lstm, xr
-                parts = split_parts(m, keep, dt, res)
+                x_c = x_tbc.contiguous()
+                parts = parts_ms(lambda p: fls.split_backward_schedule(
+                    g_last, x_c, *res, *split_w, m, keep, dt, p))
                 log(f"rows 14-15 {dt_name} [24, 512, 256] L=4, ms: " + ", ".join(
                     f"{k} {v if v is None else f'{v:.4f}'}" for k, v in times.items())
                     + f"  [{card}]")
@@ -2310,10 +2513,11 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": bound_by,
             "library_ms": m["library_ms"],
-            # Rows 3 and 15: device time alone, row 15 by part, and the
-            # bfloat16 run beside its library call.
-            **{k: m[k] for k in ("device_ms", "library_device_ms", "parts_ms", "bfloat16")
-               if k in m},
+            # Rows 1, 3, 5 and 15: device time alone, rows 5 and 15 by part
+            # (row 5 also its call alone), and the bfloat16 run beside its
+            # library call.
+            **{k: m[k] for k in ("device_ms", "call_ms", "library_device_ms", "parts_ms",
+                                 "bfloat16") if k in m},
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

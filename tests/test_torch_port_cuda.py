@@ -26,6 +26,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.lstm import init_lstm
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder
 from weatherforecast_stgcn_maml_tpu_torch.ops import (
+    cuda_build,
     fused_gcn,
     fused_gcn_shard,
     fused_gcn_train,
@@ -64,10 +65,13 @@ def test_gcn_kernel_matches_plain(dev, dtype):
     x = torch.from_numpy(
         np.random.default_rng(5).normal(size=(3, 7, 128, CFG.in_channels)).astype(np.float32)
     ).to(dev)
-    before = fused_gcn.fused_gcn_stack.launches
-    got = fused_gcn.fused_gcn_stack(enc.layers, a_hat, x, compute_dtype=dtype)
+    stack = fused_gcn.fused_gcn_stack
+    before = stack.launches, stack.gemm_nn_launches, gemm_nn.launches
+    got = stack(enc.layers, a_hat, x, compute_dtype=dtype)
     ref = fused_gcn.gcn_stack_plain(enc.layers, a_hat, x, dtype)
-    assert fused_gcn.fused_gcn_stack.launches == before + 1
+    # Row 1: two GEMM-core launches a layer.
+    assert (stack.launches, stack.gemm_nn_launches, gemm_nn.launches) == (
+        before[0] + 1, before[1] + 2 * CFG.gcn_layers, before[2] + 2 * CFG.gcn_layers)
     torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
 
 
@@ -163,13 +167,15 @@ def test_lstm_train_kernels_match_plain(dev, dtype, rows, dropout):
         masks = draw_mask(gen, (2, 7, rows, 32), dropout, dev)
     keep = 1.0 - dropout
     params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
-    before = (fused_lstm_stack.lstm_stack_train.launches,
-              fused_lstm_stack.lstm_stack_train.backward_launches)
+    train = fused_lstm_stack.lstm_stack_train
+    counts = lambda: (train.launches, train.backward_launches,  # noqa: E731
+                      train.backward_recurrence_launches, train.backward_gemm_nn_launches)
+    before = counts()
     got, got_g = _fwd_bwd(
         lambda x: fused_lstm_stack.lstm_stack_train(
             lstm.layers, x, masks=masks, keep=keep, compute_dtype=dtype), [x], params)
-    assert (fused_lstm_stack.lstm_stack_train.launches,
-            fused_lstm_stack.lstm_stack_train.backward_launches) == (before[0] + 1, before[1] + 1)
+    # Row 5: a recurrence and a GEMM-core launch a layer.
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 3, before[3] + 3)
     ref, ref_g = _fwd_bwd(
         lambda x: fused_lstm_stack.lstm_stack_plain(lstm.layers, x, dtype, masks, keep),
         [x], params)
@@ -912,3 +918,99 @@ def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
     ref = torch.autograd.grad(apply_model(model, a_hat, x, 3, plain, train=True).sum(), params)
     for (name, _), a, b in zip(model.named_parameters(), got, ref):
         assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+
+
+# The backward recurrence of rows 5, 15 and 19 (csrc/lstm_scan_bwd.cuh):
+# Wh^T resident in a cluster's shared memory, at the widths that take each
+# cluster size, and row 5 on its layer-by-layer schedule at full width.
+CLUSTER = {(torch.float32, 64): 1, (torch.float32, 128): 2, (torch.float32, 256): 8,
+           (torch.bfloat16, 64): 1, (torch.bfloat16, 128): 1, (torch.bfloat16, 256): 4}
+
+
+def _recurrence_inputs(dev, t_len, rows, hidden, seed):
+    draw = np.random.default_rng(seed)
+    pre = draw.normal(size=(t_len, rows, 4, hidden))
+    act = np.concatenate([1 / (1 + np.exp(-pre[:, :, :2])), np.tanh(pre[:, :, 2:3]),
+                          1 / (1 + np.exp(-pre[:, :, 3:]))], axis=2)
+    gates = torch.from_numpy(act.reshape(t_len, rows, 4 * hidden).astype(np.float32)).to(dev)
+    c = _card(dev, (t_len, rows, hidden), seed=seed + 1)
+    g = _card(dev, (t_len, rows, hidden), seed=seed + 2)
+    wh = _card(dev, (hidden, 4 * hidden), seed=seed + 3, scale=hidden ** -0.5)
+    return g, gates, c, wh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_backward_recurrence_cluster_sizes_match_plain(dev, dtype, hidden):
+    """The recurrence through both C entries (c_all in the compute dtype,
+    with dh / dc; c_all float32) against `scan_backward_plain`, at 48 rows:
+    clusters of 1, 2, 4 and 8 blocks."""
+    fls = fused_lstm_stack
+    g, gates, c, wh = _recurrence_inputs(dev, 7, 48, hidden, hidden)
+    cs, hcp, rb = fls.recurrence_plan(hidden, 48, dtype.itemsize, fls._sms(dev))
+    assert cs == CLUSTER[(dtype, hidden)]
+    lib = cuda_build.load()
+    assert lib.wf_lstm_stack_recurrence_clusters(cuda_build.dtype_code(dtype), cs, hcp, rb,
+                                                 hidden) > 0
+    ref, ref_dh, ref_dc = lstm_scan.scan_backward_plain(g, gates, c.to(dtype), wh, dtype,
+                                                        carries=True)
+    out, dh, dc = torch.empty_like(gates), torch.empty_like(g), torch.empty_like(g)
+    before = fls._recurrence_card.launches
+    fls._recurrence_card(g, gates, c.to(dtype), wh, dtype, out, dh, dc)
+    assert fls._recurrence_card.launches == before + 1
+    for a, b in ((out, ref), (dh, ref_dh), (dc, ref_dc)):
+        assert _rel(a, b) <= TOL[dtype], _rel(a, b)
+    ref19 = lstm_scan.scan_backward_plain(g, gates, c, wh, dtype)
+    out19 = fls.launch_recurrence(lib.wf_lstm_scan_bwd, "row 19", g, gates, c, wh, dtype,
+                                  torch.empty_like(gates))
+    assert _rel(out19, ref19) <= TOL[dtype], _rel(out19, ref19)
+
+
+@pytest.mark.cuda
+def test_backward_recurrence_refuses_a_plan_it_does_not_take(dev):
+    """A plan whose weight columns do not hold a block's units, or whose
+    tiles overflow shared memory, is refused: nothing launches."""
+    g, gates, c, wh = _recurrence_inputs(dev, 3, 8, 128, 1)
+    out = torch.empty_like(gates)
+    lib = cuda_build.load()
+    for plan in ((1, 64, 2), (2, 64, 3), (1, 128, 16)):  # 128 units; rb 3; 256 KB of f32
+        err = lib.wf_lstm_stack_recurrence(
+            0, *plan, g.data_ptr(), gates.data_ptr(), c.data_ptr(), wh.data_ptr(),
+            out.data_ptr(), None, None, 3, 8, 128, cuda_build.stream_ptr(dev))
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cuda_build.check(err, f"plan {plan}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,dropout", [(4, 0.2), (4, 0.0), (1, 0.0)])
+def test_merged_backward_schedule_at_full_width(dev, dtype, layers, dropout):
+    """Row 5 with its second-order carries at the inner step's shapes (24
+    steps, 512 rows, input 256, hidden 128) against `hvp_bwd_plain` from the
+    same residuals: all six outputs; a recurrence and a GEMM-core launch a
+    layer."""
+    fh, train = fused_lstm_hvp, fused_lstm_stack.lstm_stack_train
+    lstm = init_lstm(torch.Generator().manual_seed(1), 256, 128, layers).to(dev)
+    wcat = [torch.cat([layer.wx, layer.wh]).detach() for layer in lstm.layers]
+    b2d = torch.stack([layer.b for layer in lstm.layers]).detach()
+    x = _card(dev, (24, 512, 256), seed=11)
+    masks = None
+    if dropout:
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(4),
+                          (layers - 1, 24, 512, 128), dropout, dev)
+    keep = 1.0 - dropout
+    g = _card(dev, (512, 128), seed=12)
+    with torch.no_grad():
+        _, h_all, c_all, gates = fh.stack_fwd(x, wcat, b2d, masks, keep, dtype)
+        before = (train.backward_launches, train.backward_recurrence_launches,
+                  train.backward_gemm_nn_launches, gemm_nn.launches)
+        got = fh.stack_bwd(g, x, h_all, c_all, gates, wcat, masks, keep, dtype)
+        assert (train.backward_launches, train.backward_recurrence_launches,
+                train.backward_gemm_nn_launches, gemm_nn.launches) == (
+            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers)
+        ref = fh.hvp_bwd_plain(g, x, h_all, c_all, gates, wcat, masks, keep, dtype)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        for al, bl in zip(a, b) if i == 1 else [(a, b)]:
+            assert al.shape == bl.shape, i
+            assert _rel(al, bl) <= TOL[dtype], (i, _rel(al, bl))

@@ -21,10 +21,12 @@
 //     residuals and contracting round(dgates) with Wx_l^T and Wh_l^T: four
 //     contractions a stage. Only the dh carry through Wh_l^T is recurrent, so
 //     the port walks layer by layer (ops/fused_lstm_stack.py
-//     `split_backward_schedule`): the gates of all T x R rows of a layer in
-//     one gemm_nn.cu launch, then the recurrence below (one contraction a
-//     step: lstm_scan_bwd.cuh, row 19's device code, reading c_all in the
-//     compute dtype), then the input gradient in one more gemm_nn.cu launch.
+//     `backward_schedule`): the gates of all T x R rows of a layer in one
+//     gemm_nn.cu launch, then the recurrence below (one contraction a step:
+//     lstm_scan_bwd.cuh, reading c_all in the compute dtype), then the input
+//     gradient in one more gemm_nn.cu launch.
+// The recurrence entry below also serves the merged stack's backward (row
+// 5), which walks the same schedule from row 4's stored gates.
 //
 // Translation of the forward: as in row 4, each block owns a tile of rows
 // (independent sequences) and walks time and layers itself; thread (g, j)
@@ -235,24 +237,37 @@ extern "C" int wf_lstm_split_fwd(int w_dt, int rows_per_thread, const float* x,
   return (int)cudaErrorInvalidValue;
 }
 
-// The serial part of the unmerged-gates backward (kernel row 15) for one
-// layer: dgates [T, R, 4H] float32 from the gradient g [T, R, H] float32 of
-// the layer's h sequence, its recomputed activated gates [T, R, 4H] float32,
-// its c_all [T, R, H] and Wh^T [4H, H], both in the compute dtype w_dt (0 =
-// float32, 1 = bfloat16). rows_per_thread (2, 4 or 8) sets the row tile; H
-// is a multiple of 4, at most 256. Returns a cudaError_t code.
-extern "C" int wf_lstm_split_recurrence(int w_dt, int rows_per_thread, const float* g,
+// The backward recurrence of one layer of either LSTM stack: the serial
+// part of the merged stack's training backward (kernel row 5) and of the
+// unmerged-gates one (row 15). dgates [T, R, 4H] float32 from the gradient
+// g [T, R, H] float32 of the layer's h sequence, its activated gates [T, R,
+// 4H] float32 (row 4's stored ones for row 5, recomputed for row 15), its
+// c_all [T, R, H] in the compute dtype w_dt (0 = float32, 1 = bfloat16)
+// and Wh^T's column slices wts [cs, 4H, hcp] in w_dt, by the cluster plan
+// (cs, hcp, rb) of lstm_scan_bwd.cuh (ops/fused_lstm_stack.py
+// `recurrence_plan`); also each step's dh and dc [T, R, H] float32 into
+// dh_all and dc_all unless they are null (both or neither). Returns a
+// cudaError_t code.
+extern "C" int wf_lstm_stack_recurrence(int w_dt, int cs, int hcp, int rb, const float* g,
                                         const float* gates, const void* c_all,
-                                        const void* wht, float* dgates, int T, int R, int H,
-                                        void* stream) {
-  const wf::ScanBwd a{g, gates, c_all, wht, dgates, T, R, H};
-  return wf::launch_scan_bwd_dt<true>(w_dt, rows_per_thread, a,
-                                      static_cast<cudaStream_t>(stream));
+                                        const void* wts, float* dgates, float* dh_all,
+                                        float* dc_all, int T, int R, int H, void* stream) {
+  const wf::ScanBwd a{g, gates, c_all, wts, dgates, dh_all, dc_all, T, R, H, cs};
+  return wf::launch_scan_bwd_dt<true>(w_dt, hcp, rb, a, static_cast<cudaStream_t>(stream));
 }
 
-// The dynamic shared memory a block of the recurrence above takes at hidden
-// width H and rows_per_thread, in the compute dtype w_dt.
-extern "C" long long wf_lstm_split_recurrence_smem(int w_dt, int rows_per_thread, int H) {
-  if (H <= 0 || H > wf::kScanBwdThreads) return -1;
-  return (long long)wf::scan_bwd_smem(H, rows_per_thread, w_dt == wf::kF32 ? 4 : 2);
+// The most clusters of that recurrence's plan (cs, hcp, rb) at hidden width
+// H that the card runs at once (cudaOccupancyMaxActiveClusters), or a
+// negative cudaError_t code.
+extern "C" int wf_lstm_stack_recurrence_clusters(int w_dt, int cs, int hcp, int rb, int H) {
+  const wf::ScanBwd a{nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, nullptr, 1,       1,       H,       cs};
+  int n = 0;
+  const int err = wf::launch_scan_bwd_dt<true>(w_dt, hcp, rb, a, nullptr, &n);
+  return err ? -err : n;
+}
+
+// The dynamic shared memory a block of that recurrence takes.
+extern "C" long long wf_lstm_stack_recurrence_smem(int w_dt, int hcp, int rb, int H) {
+  return (long long)wf::scan_bwd_smem(H, hcp, rb, w_dt == wf::kF32 ? 4 : 2);
 }

@@ -1,13 +1,12 @@
-// Fused LSTM stack, training backward: the reverse-time recurrence of all
-// layers in one launch.
+// Fused LSTM stack, training backward of V tasks in one launch: the
+// reverse-time recurrence of all layers of every task (kernel row 17).
 //
-// Replaces the Pallas kernels `_bwd_kernel_m` (+ `_bwd_kernel_m_nomask`,
-// launched by `_bwd_pallas_m`; kernel row 5) and `_bwd_kernel_mv` (+
-// `_nomask`, launched by `_bwd_pallas_mv`; kernel row 17: row 5 for V tasks,
-// each with its own weights, in one launch) of
-// weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py. As in the
-// forward (csrc/fused_lstm_stack.cu), the tasks are the grid's second axis.
-// Walking t = T-1 .. 0 and, per step, l = L-1 .. 0, it
+// Replaces the Pallas kernel `_bwd_kernel_mv` (+ `_bwd_kernel_mv_nomask`,
+// launched by `_bwd_pallas_mv`) of weatherforecast_stgcn_maml_tpu/ops/
+// fused_lstm_stack.py: the merged stack's backward (row 5) for V tasks,
+// each with its own weights. As in the forward (csrc/fused_lstm_stack.cu),
+// the tasks are the grid's second axis. Walking t = T-1 .. 0 and, per step,
+// l = L-1 .. 0, it
 //   * reads the activated gates (i, f, g, o) the forward stored, and c_t,
 //     c_{t-1} from the forward's residuals (zero at t = 0);
 //   * carries dh, dc per layer: dh = dh_carry (+ g at the top layer's last
@@ -16,6 +15,9 @@
 //   * contracts round(dgates) @ wcat_l^T: its first K_in columns are the
 //     input gradient (dx for layer 0; for layer l-1 at the same step after
 //     the mask / keep), its last H columns the recurrent carry to t-1.
+// The single-task backward (row 5) walks layer by layer instead
+// (ops/fused_lstm_stack.py `backward_schedule` on lstm_scan_bwd.cuh and
+// gemm_nn.cu); this kernel goes onto that schedule next.
 //
 // Translation: the TPU kernel recomputes the gates from the residuals (its
 // HBM stream was the scarce resource) and accumulates dwcat and db in its
@@ -24,14 +26,15 @@
 // instead of two. CUDA blocks run in parallel and in no order, so, as in
 // the forward, each block owns a tile of rows and walks time and layers
 // itself, with its dh / dc carries in shared memory; per-block partial
-// weight gradients would take about 300 MB at 4 rows per block at the
-// reference width, so this kernel writes dgates [L, T, R, 4H] in float32
-// (100 MB) instead, and the wrapper forms dwcat_l = [inp | h_prev]^T @
-// dgates_l over K = T * R and db_l = colsum(dgates_l) with the split-K GEMM
-// and the fixed-order reductions of gemm.cu. Under float32 the result
-// differs from the TPU kernel's only in the order of the float32 sums.
+// weight gradients would take about 300 MB a task at 4 rows per block at
+// the reference width, so this kernel writes dgates [V, L, T, R, 4H] in
+// float32 (100 MB a task) instead, and the wrapper forms each task's dwcat_l
+// = [inp | h_prev]^T @ dgates_l over K = T * R and db_l = colsum(dgates_l)
+// with the split-K GEMM and the fixed-order reductions of gemm.cu. Under
+// float32 the result differs from the TPU kernel's only in the order of
+// the float32 sums.
 //
-// Bound: about 29 GFLOP at the training shapes (the dgates @ wcat^T
+// Bound: about 29 GFLOP a task at the training shapes (the dgates @ wcat^T
 // contraction here and the weight gradients, each as much as the forward),
 // 0.43 ms at the card's float32 rate, plus the gates and dgates streams
 // (100 MB each, 0.06 ms). Like the forward, each block streams wcat_l^T
@@ -59,12 +62,8 @@ struct BwdArgs {
   const void* wcatTr;  // [L-1, 4H, 2H]
   float* dx;           // [T, R, C]
   float* dgates;       // [L, T, R, 4H]
-  // Each stage's dh (every term added) and dc, [L, T, R, H], or null: the
-  // primal carries the second-order backward (fused_lstm_hvp.cu) reads.
-  float* dh_all;
-  float* dc_all;
   int T, R, C, H, L;
-  int V;  // tasks (1 but for row 17): every array above has a leading task axis
+  int V;  // tasks: every array above has a leading task axis
 };
 
 // Thread (group, j) owns hidden unit j of RPT rows: its four gate gradients,
@@ -88,10 +87,6 @@ __global__ void lstm_stack_bwd_kernel(BwdArgs args) {
     a.wcatTr = static_cast<const TW*>(a.wcatTr) + v * (L - 1) * g4 * 2 * H;
     a.dx += v * T * R * C;
     a.dgates += v * res * 4;
-    if (a.dh_all) {
-      a.dh_all += v * res;
-      a.dc_all += v * res;
-    }
   }
   const int kmax = (C > H ? C : H) + H;  // widest wcat_l^T row
   const int rows_blk = (blockDim.x / H) * RPT;
@@ -148,11 +143,6 @@ __global__ void lstm_stack_bwd_kernel(BwdArgs args) {
         const float d_f = dc * c_prev * fg * (1.f - fg);
         const float d_g = dc * ig * (1.f - gg * gg);
         dcc[at] = dc * fg;
-        if (a.dh_all && row < R) {
-          const size_t o = slice + (size_t)row * H + j;
-          a.dh_all[o] = dh;
-          a.dc_all[o] = dc;
-        }
         if (row < R) {
           float* out = a.dgates + slice * 4 + (size_t)row * g4;
           out[j] = d_i;
@@ -255,32 +245,16 @@ int launch_dt(int w_dt, int rpt, const BwdArgs& a, void* stream) {
 }  // namespace
 }  // namespace wf
 
-// Training backward recurrence of the whole LSTM stack (see wf::BwdArgs for
-// the layouts). w_dt is the dtype code of the weights, the residual c and
-// the compute dtype (0 = float32, 1 = bfloat16); rows_per_thread (2, 4 or 8)
-// sets the row tile as in the forward. C and H are multiples of 8 and
-// C <= 7 H. Writes dx and dgates, and dh_all / dc_all unless they are null
-// (both or neither); returns a cudaError_t code (0 on success).
-extern "C" int wf_lstm_stack_train_bwd(int w_dt, int rows_per_thread,
-                                       const float* g, const float* gates,
-                                       const void* c_all, const int8_t* masks,
-                                       float inv_keep, const void* wcatT0,
-                                       const void* wcatTr, float* dx,
-                                       float* dgates, float* dh_all,
-                                       float* dc_all, int T, int R, int C,
-                                       int H, int L, void* stream) {
-  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0 || !dh_all != !dc_all)
-    return (int)cudaErrorInvalidValue;
-  const wf::BwdArgs a{g, gates, c_all, masks, inv_keep, wcatT0, wcatTr,
-                      dx, dgates, dh_all, dc_all, T, R, C, H, L, 1};
-  return wf::launch_dt(w_dt, rows_per_thread, a, stream);
-}
-
-// Training backward recurrence of V tasks in one launch (kernel row 17): as
-// wf_lstm_stack_train_bwd without the carries, each array with a leading
-// task axis: g [V, R, H], gates [V, L, T, R, 4H], c_all [V, L, T, R, H],
-// masks [V, L-1, T, R, H] (or null), wcatT0 [V, 4H, C + H], wcatTr [V, L-1,
-// 4H, 2H], dx [V, T, R, C], dgates [V, L, T, R, 4H].
+// Training backward recurrence of V tasks in one launch (kernel row 17),
+// each array with a leading task axis: g [V, R, H] (the gradient of the top
+// layer's last h), gates [V, L, T, R, 4H] (the forward's activated gates),
+// c_all [V, L, T, R, H] (its residual c, compute dtype), masks [V, L-1, T,
+// R, H] (int8, or null) with inv_keep, wcatT0 [V, 4H, C + H], wcatTr [V,
+// L-1, 4H, 2H] (the transposed [[Wx], [Wh]], compute dtype), dx [V, T, R,
+// C], dgates [V, L, T, R, 4H]. w_dt is the compute dtype (0 = float32, 1 =
+// bfloat16); rows_per_thread (2, 4 or 8) sets the row tile as in the
+// forward. C and H are multiples of 8 and C <= 7 H. Returns a cudaError_t
+// code (0 on success).
 extern "C" int wf_lstm_stack_train_bwd_tasks(
     int w_dt, int rows_per_thread, int V, const float* g, const float* gates,
     const void* c_all, const int8_t* masks, float inv_keep, const void* wcatT0,
@@ -289,6 +263,6 @@ extern "C" int wf_lstm_stack_train_bwd_tasks(
   if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0 || V <= 0 || V > 65535)
     return (int)cudaErrorInvalidValue;
   const wf::BwdArgs a{g, gates, c_all, masks, inv_keep, wcatT0, wcatTr,
-                      dx, dgates, nullptr, nullptr, T, R, C, H, L, V};
+                      dx, dgates, T, R, C, H, L, V};
   return wf::launch_dt(w_dt, rows_per_thread, a, stream);
 }

@@ -19,19 +19,19 @@
 // stream was the scarce resource): one [B, H] @ [H, 4H] product more per
 // step on the serial chain. Here the forward stores the activated gates
 // when a backward will follow (25 MB a layer at B = 512, T = 24, H = 128)
-// and the backward reads them, so each backward step is one contraction,
-// as in row 5 (where storing them halved the serial work). The function's
-// outputs are JAX's: h_all (and, inside the op, c_all) from the forward,
-// dgates from the backward. Each block owns a tile of rows for all T steps; the
-// dh and dc carries of thread (g, j)'s unit j stay in its registers, only
-// round(dgates) [rows, 4H] goes through shared memory for the contraction,
-// which streams Wh^T [4H, H] from L2 in cp.async tiles (common.cuh).
+// and the backward reads them, so each backward step is one contraction.
+// The function's outputs are JAX's: h_all (and, inside the op, c_all) from
+// the forward, dgates from the backward. The forward's block owns a tile
+// of rows for all T steps with Wh streamed from L2 in cp.async tiles
+// (common.cuh); the backward keeps Wh^T resident in the shared memory of a
+// thread-block cluster (lstm_scan_bwd.cuh, the recurrence rows 5 and 15
+// share).
 //
 // Bound at the inner step's shape (T = 24, B = 512, H = 128): 1.61 GFLOP a
 // direction in the recurrence (the backward adds 1.61 for dWh), 0.024 and
 // 0.048 ms at the card's float32 rate; the xp / dgates streams (25 MB each)
 // take 0.008 ms of device memory time. So the kernels are bound by the
-// serial T-step chain and the per-step Wh stream from L2, not by memory.
+// serial T-step chain, not by memory.
 #include "lstm_recurrence.cuh"
 #include "lstm_scan_bwd.cuh"
 
@@ -52,13 +52,13 @@ extern "C" int wf_lstm_scan_fwd(int w_dt, int rows_per_thread, const float* xp,
 }
 
 // Row 19: dgates [T, R, 4H] float32 from the gradient g of h_all, the
-// forward's gates and c_all, and Wh^T [4H, H] in the compute dtype. Layouts,
-// H and rows_per_thread as in wf_lstm_scan_fwd.
-extern "C" int wf_lstm_scan_bwd(int w_dt, int rows_per_thread, const float* g,
-                                const float* gates, const float* c_all,
-                                const void* wht, float* dgates, int T, int R, int H,
-                                void* stream) {
-  const wf::ScanBwd a{g, gates, c_all, wht, dgates, T, R, H};
-  return wf::launch_scan_bwd_dt<false>(w_dt, rows_per_thread, a,
-                                       static_cast<cudaStream_t>(stream));
+// forward's gates and c_all (float32), and Wh^T's column slices wts [cs,
+// 4H, hcp] in the compute dtype w_dt, by the cluster plan (cs, hcp, rb) of
+// lstm_scan_bwd.cuh (ops/fused_lstm_stack.py `recurrence_plan`). Returns a
+// cudaError_t code.
+extern "C" int wf_lstm_scan_bwd(int w_dt, int cs, int hcp, int rb, const float* g,
+                                const float* gates, const float* c_all, const void* wts,
+                                float* dgates, int T, int R, int H, void* stream) {
+  const wf::ScanBwd a{g, gates, c_all, wts, dgates, nullptr, nullptr, T, R, H, cs};
+  return wf::launch_scan_bwd_dt<false>(w_dt, hcp, rb, a, static_cast<cudaStream_t>(stream));
 }

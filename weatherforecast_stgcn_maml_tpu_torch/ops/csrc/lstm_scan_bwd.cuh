@@ -1,5 +1,6 @@
-// One LSTM layer's backward recurrence: the device code that kernel rows 19
-// (lstm_scan.cu) and 15 (fused_lstm_split.cu) share.
+// One LSTM layer's backward recurrence: the device code that kernel rows 5
+// (the merged stack's training backward), 15 (the unmerged-gates stack's;
+// both through the entry in fused_lstm_split.cu) and 19 (lstm_scan.cu) share.
 //
 // From the gradient g [T, R, H] of the layer's h sequence, its activated
 // gates [T, R, 4H] (float32) and its cell states c_all [T, R, H], it walks
@@ -8,21 +9,50 @@
 //     dgates = [dc * g * i(1-i), dc * c_{t-1} * f(1-f), dc * i (1-g^2),
 //               dh * tanh(c_t) * o(1-o)]                  (c_{-1} = 0)
 //     dh_carry = round(dgates) @ round(Wh)^T;  dc_carry = dc * f
-// and writes dgates [T, R, 4H] float32: one [rows, 4H] x [4H, H] contraction a
-// step, the only truly serial work of an LSTM layer's backward. The arithmetic
-// is JAX's: `lstm_scan._bwd_kernel` for row 19, `fused_lstm_stack._bwd_kernel`
-// for row 15, whose gate recomputation and input gradient run off this chain
-// on gemm_nn.cu.
+// and writes dgates [T, R, 4H] float32 and, where asked, each step's dh and
+// dc (before the * f) [T, R, H] float32: the carries the second-order
+// backward (fused_lstm_hvp.cu) reads. The arithmetic is JAX's
+// (weatherforecast_stgcn_maml_tpu/ops/): `fused_lstm_stack._bwd_kernel_m`
+// for row 5, `fused_lstm_stack._bwd_kernel` for row 15, `lstm_scan.
+// _bwd_kernel` for row 19. Those TPU kernels walk the stack as one chain;
+// here each layer's gate products (row 15), input gradient and weight
+// gradients are products off this chain (ops/fused_lstm_stack.py
+// `backward_schedule`), and this recurrence is the only serial work.
 //
-// Design: each block owns a tile of rows (independent sequences) for all T
-// steps; thread (group, j) owns hidden unit j of RPT rows, so the dh and dc
-// carries stay in its registers; only round(dgates) [rows, 4H] goes through
-// shared memory for the contraction, which streams Wh^T [4H, H] from L2 in
-// cp.async tiles (contract() of common.cuh). c_all is read in its stored
-// dtype TC: float32 for row 19 (its forward's own), the compute dtype for
-// row 15 (JAX's residual contract).
+// Bound: at the training shapes (T = 24, R = 512, H = 128) a layer is 1.61
+// GFLOP (0.024 ms at the card's float32 rate) and moves 2 x 25 MB of gates
+// and dgates (0.015 ms): neither bounds it. The T-step chain does, and
+// each step contracts [rows, 4H] with all of Wh^T [4H, H] (256 KB in
+// float32): streamed from L2 at every step, Wh^T alone costs ~17 us a step
+// on an H100, 0.40 ms a layer.
+//
+// Design: Wh^T stays in shared memory for all T steps. Its H columns are
+// split across a thread-block cluster of cs blocks, the smallest power of
+// two (at most 8) whose slice [4H, hc] fits beside the dgates tiles:
+// float32 H = 128 takes 2 blocks of 128 KB, bfloat16 H = 128 one block,
+// float32 H = 256 eight. Each block copies its slice once a launch (bulk
+// copies behind an mbarrier, overlapping the first step's gate math) and
+// owns the dh / dc carries of its hc units for the cluster's RB rows. A
+// step: the block's threads form the dgates of its units (thread: a row and
+// 4 units, the dc carry in its registers), write round(dgates) into the
+// [RB, 4H] tile of every block of the cluster (distributed shared memory),
+// sync the cluster once, and contract the whole tile with their slice: each
+// warp an eighth of K, each lane UPT units of all RB rows (one broadcast
+// 16-byte load of a dgates row per 16 bytes of K, one vector load of its
+// units' weights per k), the warps' partial sums added in a fixed order by
+// the threads that own the units. The tiles alternate between two buffers,
+// so a partner's writes for step t-1 never meet this block's reads of step
+// t, and one cluster barrier a step suffices. The grid is clusters x row
+// tiles, sized (ops/fused_lstm_stack.py `recurrence_plan`) to fill the SMs
+// in one wave: at R = 512, 64 clusters of 2 blocks x 8 rows in float32,
+// 128 blocks x 4 rows in bfloat16. c_all is read in its stored dtype TC:
+// float32 for row 19 (its forward's own), the compute dtype for rows 5
+// and 15 (JAX's residual contract).
 #pragma once
 
+#include <cooperative_groups.h>
+
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -31,136 +61,431 @@ namespace wf {
 // Internal linkage: each source that includes this has its own copy.
 namespace {
 
+namespace cg = cooperative_groups;
+
 struct ScanBwd {
   const float* g;      // [T, R, H] gradient of the h sequence
   const float* gates;  // [T, R, 4H] activated gates
   const void* c_all;   // [T, R, H] in TC
-  const void* wht;     // [4H, H] in the compute dtype
+  const void* wts;     // [cs, 4H, hcp] in the compute dtype: block b's slice
+                       // Wh^T[:, b*hc : b*hc + hc], zero-padded to hcp columns
   float* dgates;       // [T, R, 4H]
+  float* dh_all;       // [T, R, H] each step's dh, or null
+  float* dc_all;       // [T, R, H] each step's dc, or null (with dh_all)
   int T, R, H;
+  int cs;  // blocks a cluster
 };
 
-constexpr int kScanBwdThreads = 256;  // 256 / H row groups of H threads
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr size_t kScanMaxSmem = 232448;  // 227 KB opt-in per block
+constexpr unsigned kBulkChunk = 32768;   // bytes a bulk copy of the weight slice
 
-template <typename TW, typename TC, int RPT>
-__global__ void __launch_bounds__(kScanBwdThreads) lstm_scan_bwd_kernel(ScanBwd a) {
-  extern __shared__ float4 smem4[];
-  const int H = a.H;
-  const int g4 = 4 * H;
-  const int rows_blk = (blockDim.x / H) * RPT;
-  TW* wbuf = reinterpret_cast<TW*>(smem4);  // [2, kContractTile, H]
-  float* dg = reinterpret_cast<float*>(wbuf + 2 * kContractTile * H);  // [rows_blk, 4H]
-  const TW* wht = static_cast<const TW*>(a.wht);
-  const TC* c_all = static_cast<const TC*>(a.c_all);
-  const int j = threadIdx.x % H;
-  const int r0 = (threadIdx.x / H) * RPT;
-  const int row0 = blockIdx.x * rows_blk;
-  const long long step = (long long)a.R * H;  // one [R, H] slice
+// The hidden units each block of a cs-block cluster owns: a multiple of 4.
+__host__ __device__ inline int scan_units(int H, int cs) {
+  return (H + 4 * cs - 1) / (4 * cs) * 4;
+}
 
-  float dh_c[RPT], dc_c[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) dh_c[r] = dc_c[r] = 0.f;
+// Dynamic shared memory a block takes: its mbarrier (16 B), its weight
+// slice [4H, hcp] and two round(dgates) tiles [rb, 4H] in the compute dtype,
+// and the warps' partial carries [8, rb, hcp] float32.
+inline size_t scan_bwd_smem(int H, int hcp, int rb, size_t tw) {
+  return 16 + 4 * (size_t)H * hcp * tw + 2 * (size_t)rb * 4 * H * tw +
+         (size_t)kScanWarps * rb * hcp * sizeof(float);
+}
 
-  for (int t = a.T - 1; t >= 0; --t) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = row0 + r0 + r;
-      float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f, c_t = 0.f, c_prev = 0.f, g_t = 0.f;
-      if (row < a.R) {
-        const float* gt = a.gates + ((long long)t * a.R + row) * g4 + j;
-        ig = gt[0];
-        fg = gt[H];
-        gg = gt[2 * H];
-        og = gt[3 * H];
-        const long long o = t * step + (long long)row * H + j;
-        c_t = to_float(c_all[o]);
-        if (t > 0) c_prev = to_float(c_all[o - step]);
-        g_t = a.g[o];
-      }
-      const float tc = tanhf(c_t);
-      const float dh = g_t + dh_c[r];
-      const float dc = dc_c[r] + dh * og * (1.f - tc * tc);
-      const float d_o = dh * tc * og * (1.f - og);
-      const float d_i = dc * gg * ig * (1.f - ig);
-      const float d_f = dc * c_prev * fg * (1.f - fg);
-      const float d_g = dc * ig * (1.f - gg * gg);
-      dc_c[r] = dc * fg;
-      if (row < a.R) {
-        float* out = a.dgates + ((long long)t * a.R + row) * g4 + j;
-        out[0] = d_i;
-        out[H] = d_f;
-        out[2 * H] = d_g;
-        out[3 * H] = d_o;
-      }
-      // The previous step's contraction closed with a barrier: dg is free.
-      float* dgr = dg + (r0 + r) * g4 + j;
-      dgr[0] = round_to<TW>(d_i);
-      dgr[H] = round_to<TW>(d_f);
-      dgr[2 * H] = round_to<TW>(d_g);
-      dgr[3 * H] = round_to<TW>(d_o);
-    }
-    if (t == 0) break;  // no carry into t = -1
-    // dh_carry = round(dgates) @ Wh^T: [rows, 4H] x [4H, H]; column j is
-    // this thread's own unit, so the carry stays in its registers.
-    float acc[RPT][1];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r][0] = 0.f;
-    contract<TW, RPT, 1>(wht, g4, H, dg, g4, wbuf, r0, j, H, acc);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) dh_c[r] = acc[r][0];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// Four consecutive values as float32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y));
+}
+// Four values stored in T (rounded to nearest even for bfloat16).
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                            *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// 16 bytes of one dgates row: 4 (float32) or 8 (bfloat16) k values.
+__device__ __forceinline__ void load_k(const float* p, float (&a)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+__device__ __forceinline__ void load_k(const __nv_bfloat16* p, float (&a)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  a[0] = bf_lo(v.x);
+  a[1] = bf_hi(v.x);
+  a[2] = bf_lo(v.y);
+  a[3] = bf_hi(v.y);
+  a[4] = bf_lo(v.z);
+  a[5] = bf_hi(v.z);
+  a[6] = bf_lo(v.w);
+  a[7] = bf_hi(v.w);
+}
+
+// A lane's UPT consecutive units of one weight row.
+template <int UPT>
+__device__ __forceinline__ void load_units(const float* p, float (&w)[UPT]) {
+  if constexpr (UPT == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (UPT == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = *p;
+  }
+}
+template <int UPT>
+__device__ __forceinline__ void load_units(const __nv_bfloat16* p, float (&w)[UPT]) {
+  if constexpr (UPT == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = bf_lo(v.x);
+    w[1] = bf_hi(v.x);
+    w[2] = bf_lo(v.y);
+    w[3] = bf_hi(v.y);
+  } else if constexpr (UPT == 2) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    w[0] = bf_lo(v);
+    w[1] = bf_hi(v);
+  } else {
+    w[0] = __bfloat162float(*p);
+  }
+}
+template <int UPT>
+__device__ __forceinline__ void store_units(float* p, const float (&v)[UPT]) {
+  if constexpr (UPT == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (UPT == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
   }
 }
 
-// Dynamic shared memory a block takes: Wh^T's double-buffered tiles and
-// round(dgates) of its rows.
-inline size_t scan_bwd_smem(int H, int rpt, size_t tw) {
-  const int rows_blk = (kScanBwdThreads / H) * rpt;
-  return 2 * (size_t)kContractTile * H * tw + (size_t)rows_blk * 4 * H * sizeof(float);
+// The two halves of a cluster barrier (release on arrive, acquire on wait).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
-template <typename TW, typename TC, int RPT>
-int launch_scan_bwd(const ScanBwd& a, cudaStream_t stream) {
-  const int groups = kScanBwdThreads / a.H;
-  const int rows_blk = groups * RPT;
-  const size_t smem = scan_bwd_smem(a.H, RPT, sizeof(TW));
-  if (smem > 232448) return (int)cudaErrorInvalidValue;  // 227 KB opt-in per block
-  cudaError_t err = cudaFuncSetAttribute(lstm_scan_bwd_kernel<TW, TC, RPT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One step's inputs of 4 units of one row, as float32.
+struct StepIn {
+  float4 i, f, gg, o, c, cp, g;  // gates, c_t, c_{t-1}, the gradient of h_t
+};
+
+// Load step t's inputs; c_t only when !have_c (it is the step above's c_{t-1}).
+template <typename TC>
+__device__ __forceinline__ void load_step(const ScanBwd& a, int t, int row, int j,
+                                          bool have_c, StepIn& in) {
+  const TC* c_all = static_cast<const TC*>(a.c_all);
+  const float* gt = a.gates + ((size_t)t * a.R + row) * 4 * a.H + j;
+  in.i = load4(gt);
+  in.f = load4(gt + a.H);
+  in.gg = load4(gt + 2 * a.H);
+  in.o = load4(gt + 3 * a.H);
+  const size_t o = ((size_t)t * a.R + row) * a.H + j;
+  if (!have_c) in.c = load4(c_all + o);
+  in.cp = t > 0 ? load4(c_all + o - (size_t)a.R * a.H) : make_float4(0.f, 0.f, 0.f, 0.f);
+  in.g = load4(a.g + o);
+}
+
+// The cell's backward for one unit: the gate gradients d[0..3] (i, f, g,
+// o), dc, and the dc carry into t-1.
+__device__ __forceinline__ void cell_bwd(float gi, float gf, float gg, float go, float c,
+                                         float cp, float dh, float& dcc, float& di, float& df,
+                                         float& dg, float& d_o, float& dc) {
+  const float tc = tanhf(c);
+  dc = dcc + dh * go * (1.f - tc * tc);
+  d_o = dh * tc * go * (1.f - go);
+  di = dc * gg * gi * (1.f - gi);
+  df = dc * cp * gf * (1.f - gf);
+  dg = dc * gi * (1.f - gg * gg);
+  dcc = dc * gf;
+}
+
+// Grid (cs, row tiles); clusters of cs blocks along x: block rank b owns
+// units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp.
+template <typename TW, typename TC, int UPT, int RB>
+__global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const ScanBwd a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int HCP = 32 * UPT;
+  constexpr int VK = 16 / sizeof(TW);  // k values a 16-byte load of a dgates row
+  constexpr int EPT = (RB * HCP / 4 + kScanThreads - 1) / kScanThreads;  // (row, 4 units) a thread
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = a.T, R = a.R, H = a.H, g4 = 4 * H;
+  const int rank = (int)cluster.block_rank();
+  const int hc = scan_units(H, a.cs);
+  const int j0 = rank * hc;
+  const int nq = max(0, min(hc, H - j0)) / 4;  // this block's 4-unit groups
+  const int row0 = blockIdx.y * RB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  TW* w_s = reinterpret_cast<TW*>(smem + 16);           // [4H, HCP]
+  TW* dg_s = w_s + (size_t)g4 * HCP;                     // [2, RB, 4H]
+  float* part = reinterpret_cast<float*>(dg_s + (size_t)2 * RB * g4);  // [8, RB, HCP]
+
+  // The weight slice, copied while the first step's gate math runs.
+  if (T > 1 && tid == 0) {
+    const uint32_t b = smem_u32(bar);
+    const unsigned bytes = (unsigned)((size_t)g4 * HCP * sizeof(TW));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+                 : "memory");
+    const char* src = static_cast<const char*>(a.wts) + (size_t)rank * bytes;
+    for (unsigned off = 0; off < bytes; off += kBulkChunk) {
+      const unsigned n = bytes - off < kBulkChunk ? bytes - off : kBulkChunk;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_u32(w_s) + off),
+          "l"(src + off), "r"(n), "r"(b)
+          : "memory");
+    }
+  }
+
+  // Thread tid owns (row r, units j .. j+3) for e < EPT: pair tid + e * 256.
+  int pr[EPT], pj[EPT];
+  StepIn in[EPT];
+  float4 dcc[EPT];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int p = tid + e * kScanThreads;
+    pr[e] = nq > 0 && p < RB * nq ? p / nq : -1;
+    pj[e] = nq > 0 ? j0 + 4 * (p % nq) : 0;
+    dcc[e] = zero;
+    in[e] = StepIn{zero, zero, zero, zero, zero, zero, zero};
+    if (pr[e] >= 0 && row0 + pr[e] < R) load_step<TC>(a, T - 1, row0 + pr[e], pj[e], false, in[e]);
+  }
+
+  for (int t = T - 1; t >= 0; --t) {
+    TW* dgb = dg_s + (size_t)(t & 1) * RB * g4;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      if (pr[e] < 0) continue;
+      const int r = pr[e], j = pj[e], row = row0 + r;
+      // dh = g + the carry, the warps' partial sums added in order.
+      float4 carry = zero;
+      if (t < T - 1) {
+        const float* pp = part + (size_t)r * HCP + (j - j0);
+#pragma unroll
+        for (int w = 0; w < kScanWarps; ++w) {
+          const float4 v = *reinterpret_cast<const float4*>(pp + (size_t)w * RB * HCP);
+          carry.x += v.x;
+          carry.y += v.y;
+          carry.z += v.z;
+          carry.w += v.w;
+        }
+      }
+      const StepIn& s = in[e];
+      const float4 dh = make_float4(s.g.x + carry.x, s.g.y + carry.y, s.g.z + carry.z,
+                                    s.g.w + carry.w);
+      float4 d[4], dc;
+      cell_bwd(s.i.x, s.f.x, s.gg.x, s.o.x, s.c.x, s.cp.x, dh.x, dcc[e].x, d[0].x, d[1].x,
+               d[2].x, d[3].x, dc.x);
+      cell_bwd(s.i.y, s.f.y, s.gg.y, s.o.y, s.c.y, s.cp.y, dh.y, dcc[e].y, d[0].y, d[1].y,
+               d[2].y, d[3].y, dc.y);
+      cell_bwd(s.i.z, s.f.z, s.gg.z, s.o.z, s.c.z, s.cp.z, dh.z, dcc[e].z, d[0].z, d[1].z,
+               d[2].z, d[3].z, dc.z);
+      cell_bwd(s.i.w, s.f.w, s.gg.w, s.o.w, s.c.w, s.cp.w, dh.w, dcc[e].w, d[0].w, d[1].w,
+               d[2].w, d[3].w, dc.w);
+      if (row < R) {
+        float* out = a.dgates + ((size_t)t * R + row) * g4 + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) store4(out + q * H, d[q]);
+        if (a.dh_all) {
+          const size_t o = ((size_t)t * R + row) * H + j;
+          store4(a.dh_all + o, dh);
+          store4(a.dc_all + o, dc);
+        }
+      }
+      if (t > 0) {  // round(dgates) into every block's tile (rows past R: zeros)
+        TW* loc = dgb + (size_t)r * g4 + j;
+        for (int b = 0; b < a.cs; ++b) {
+          TW* dst = cluster.map_shared_rank(loc, b);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) store4(dst + q * H, d[q]);
+        }
+      }
+    }
+    if (t == 0) break;  // no carry into t = -1
+    // One cluster barrier a step: every block's tile of step t written (the
+    // arrive releases this block's writes), and every block done with step
+    // t+1's contraction, so buffer t-1 is free. Step t-1's inputs are loaded
+    // between arrive and wait: in flight across the barrier and the
+    // contraction, and not held up by the arrive's release.
+    cluster_arrive();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      if (pr[e] < 0 || row0 + pr[e] >= R) continue;
+      in[e].c = in[e].cp;
+      load_step<TC>(a, t - 1, row0 + pr[e], pj[e], true, in[e]);
+    }
+    cluster_wait();
+    if (t == T - 1) mbar_wait(smem_u32(bar), 0);  // the weight slice has landed
+
+    // dh_carry of this block's units: [RB, 4H] x [4H, hc], warp w over its
+    // eighth of K; lane: units lane*UPT .. +UPT-1 of every row.
+    float acc[RB][UPT];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int p = 0; p < UPT; ++p) acc[r][p] = 0.f;
+    const int nch = g4 / VK;
+    const int c_hi = (warp + 1) * nch / kScanWarps;
+    const TW* wl = w_s + lane * UPT;
+    for (int c = warp * nch / kScanWarps; c < c_hi; ++c) {
+      const int k = c * VK;
+      float w[VK][UPT];
+#pragma unroll
+      for (int u = 0; u < VK; ++u) load_units<UPT>(wl + (size_t)(k + u) * HCP, w[u]);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        float av[VK];
+        load_k(dgb + (size_t)r * g4 + k, av);
+#pragma unroll
+        for (int u = 0; u < VK; ++u)
+#pragma unroll
+          for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], w[u][p], acc[r][p]);
+      }
+    }
+    float* pw = part + (size_t)warp * RB * HCP + lane * UPT;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
+    __syncthreads();  // the partial sums visible to the threads that own the units
+  }
+}
+
+// Launch one kernel instance, or (max_clusters not null) ask how many of
+// its clusters fit on the card at once.
+template <typename TW, typename TC, int UPT, int RB>
+int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
+  auto kernel = lstm_scan_bwd_kernel<TW, TC, UPT, RB>;
+  // The opt-in to more than 48 KB of shared memory, once a device.
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.R + rows_blk - 1) / rows_blk;
-  lstm_scan_bwd_kernel<TW, TC, RPT><<<blocks, groups * a.H, smem, stream>>>(a);
+  if (dev >= 64 || !opted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kScanMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) opted[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cs, max_clusters ? 1 : (a.R + RB - 1) / RB, 1);
+  cfg.blockDim = dim3(kScanThreads, 1, 1);
+  cfg.dynamicSmemBytes = scan_bwd_smem(a.H, 32 * UPT, RB, sizeof(TW));
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters) return (int)cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Launch one backward recurrence on `stream`: w_dt (0 = float32, 1 =
-// bfloat16) is the compute dtype, Wh^T's; c_all is float32 or, with
-// C_IN_COMPUTE, in the compute dtype. rows_per_thread is 2, 4 or 8; H a
-// multiple of 4, at most 256. Returns a cudaError_t code.
-template <bool C_IN_COMPUTE>
-int launch_scan_bwd_dt(int w_dt, int rpt, const ScanBwd& a, cudaStream_t s) {
-  if (a.T <= 0 || a.R <= 0 || a.H <= 0 || a.H > kScanBwdThreads || a.H % 4)
-    return (int)cudaErrorInvalidValue;
-  using CB = typename std::conditional<C_IN_COMPUTE, __nv_bfloat16, float>::type;
-  if (w_dt == kF32) {
-    switch (rpt) {
-      case 2:
-        return launch_scan_bwd<float, float, 2>(a, s);
-      case 4:
-        return launch_scan_bwd<float, float, 4>(a, s);
-      case 8:
-        return launch_scan_bwd<float, float, 8>(a, s);
-    }
-  } else if (w_dt == kBF16) {
-    switch (rpt) {
-      case 2:
-        return launch_scan_bwd<__nv_bfloat16, CB, 2>(a, s);
-      case 4:
-        return launch_scan_bwd<__nv_bfloat16, CB, 4>(a, s);
-      case 8:
-        return launch_scan_bwd<__nv_bfloat16, CB, 8>(a, s);
-    }
+template <typename TW, typename TC, int UPT>
+int scan_bwd_rb(int rb, const ScanBwd& a, cudaStream_t s, int* max_clusters) {
+  switch (rb) {
+    case 2:
+      return scan_bwd_run<TW, TC, UPT, 2>(a, s, max_clusters);
+    case 4:
+      return scan_bwd_run<TW, TC, UPT, 4>(a, s, max_clusters);
+    case 8:
+      return scan_bwd_run<TW, TC, UPT, 8>(a, s, max_clusters);
+    case 16:
+      return scan_bwd_run<TW, TC, UPT, 16>(a, s, max_clusters);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename TW, typename TC>
+int scan_bwd_hcp(int hcp, int rb, const ScanBwd& a, cudaStream_t s, int* max_clusters) {
+  switch (hcp) {
+    case 32:
+      return scan_bwd_rb<TW, TC, 1>(rb, a, s, max_clusters);
+    case 64:
+      return scan_bwd_rb<TW, TC, 2>(rb, a, s, max_clusters);
+    case 128:
+      return scan_bwd_rb<TW, TC, 4>(rb, a, s, max_clusters);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+inline bool aligned_to(const void* p, uintptr_t n) {
+  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
+}
+
+// Launch one backward recurrence on `stream` (or, with max_clusters, ask
+// the occupancy of its clusters): w_dt (0 = float32, 1 = bfloat16) is the
+// compute dtype, the weight slices'; c_all is float32 or, with
+// C_IN_COMPUTE, in the compute dtype. The plan (a.cs blocks a cluster, hcp
+// weight columns a block, rb rows a cluster) is the caller's: cs 1, 2, 4
+// or 8, hcp 32, 64 or 128 and at least scan_units(H, cs), rb 2, 4, 8 or 16,
+// within 227 KB of shared memory. H is a multiple of 4; every array is
+// 16-byte aligned (c_all in bfloat16: 8-byte). Returns a cudaError_t code:
+// a plan or an argument it does not take is cudaErrorInvalidValue or
+// cudaErrorMisalignedAddress; a cluster launch the card refuses returns the
+// card's code. Nothing falls back to another kernel.
+template <bool C_IN_COMPUTE>
+int launch_scan_bwd_dt(int w_dt, int hcp, int rb, const ScanBwd& a, cudaStream_t s,
+                       int* max_clusters = nullptr) {
+  const bool bf16 = w_dt == kBF16;
+  if ((w_dt != kF32 && !bf16) || (hcp != 32 && hcp != 64 && hcp != 128) ||
+      (rb != 2 && rb != 4 && rb != 8 && rb != 16) ||
+      (a.cs != 1 && a.cs != 2 && a.cs != 4 && a.cs != 8) || a.T <= 0 || a.R <= 0 || a.H <= 0 ||
+      a.H % 4 || scan_units(a.H, a.cs) > hcp || (a.R + rb - 1) / rb > 65535 ||
+      !a.dh_all != !a.dc_all || scan_bwd_smem(a.H, hcp, rb, bf16 ? 2 : 4) > kScanMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned_to(a.g, 16) || !aligned_to(a.gates, 16) || !aligned_to(a.dgates, 16) ||
+      !aligned_to(a.wts, 16) || !aligned_to(a.c_all, C_IN_COMPUTE && bf16 ? 8 : 16) ||
+      !aligned_to(a.dh_all, 16) || !aligned_to(a.dc_all, 16))
+    return (int)cudaErrorMisalignedAddress;
+  using CB = typename std::conditional<C_IN_COMPUTE, __nv_bfloat16, float>::type;
+  if (bf16) return scan_bwd_hcp<__nv_bfloat16, CB>(hcp, rb, a, s, max_clusters);
+  return scan_bwd_hcp<float, float>(hcp, rb, a, s, max_clusters);
 }
 
 }  // namespace

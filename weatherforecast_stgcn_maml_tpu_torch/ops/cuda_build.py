@@ -51,24 +51,24 @@ _SIGNATURES = {
                            _I, _I, _P],
     "wf_lstm_stack_train_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _F, _P,
                                 _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "wf_lstm_stack_train_bwd": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P,
-                                _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_stack_train_fwd_tasks": [_I, _I, _I, _P, _LL, _P, _P, _P, _P, _F, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_stack_train_bwd_tasks": [_I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I,
                                       _I, _I, _I, _I, _P],
     "wf_lstm_split_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I,
                           _I, _I, _I, _P],
-    "wf_lstm_split_recurrence": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "wf_lstm_stack_recurrence": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _P],
+    "wf_lstm_stack_recurrence_clusters": [_I, _I, _I, _I, _I],
+    "wf_lstm_stack_recurrence_smem": [_I, _I, _I, _I],
     "wf_gemm_nn": [ctypes.c_char_p],  # one packed NNLaunch (ops/gemm.py _NN_LAUNCH)
     "wf_gemm_nn_smem": [_I],
-    "wf_lstm_split_recurrence_smem": [_I, _I, _I],
     "wf_lstm_hvp_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
                         _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_hvp_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
                         _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_scan_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "wf_lstm_scan_bwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "wf_lstm_scan_bwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wf_fused_lstm_last": [_I, _I, _P, _PP, _PP, _PP, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],
     "wf_clip_sgd_chunks": [_I, _PLL],
@@ -76,7 +76,7 @@ _SIGNATURES = {
 _RESTYPES = {  # the rest return a cudaError_t
     "wf_clip_sgd_chunks": ctypes.c_longlong,
     "wf_gemm_nn_smem": ctypes.c_longlong,
-    "wf_lstm_split_recurrence_smem": ctypes.c_longlong,
+    "wf_lstm_stack_recurrence_smem": ctypes.c_longlong,
 }
 
 _lib = None

@@ -1,10 +1,13 @@
 """Fused GCN encoder stack (serving): all L layers of
 `h = relu(A_hat @ (h @ W_l) + b_l)` over every time slice.
 
-`fused_gcn_stack` runs the hand-written CUDA GEMM (csrc/gemm.cu) on
-a CUDA tensor and its plain PyTorch version, `gcn_stack_plain`, on a CPU
-tensor or under float64. On a CUDA tensor a shape or dtype the kernel does
-not take raises; nothing falls back to the plain version there.
+`fused_gcn_stack` (kernel row 1) runs, on a CUDA tensor, two launches a
+layer of the pipelined GEMM core (csrc/gemm_nn.cu; `gcn_stack_schedule`):
+hw = round(h) @ round(W) stored in the compute dtype, then relu(round(A_hat)
+@ hw + b), stored in the compute dtype below the last layer and in float32
+after it; on a CPU tensor or under float64 its plain PyTorch version,
+`gcn_stack_plain`. On a CUDA tensor a shape or dtype the kernel does not
+take raises; nothing falls back to the plain version there.
 
 `fused_gcn_layer` is one layer, relu(A_hat @ (h @ W) + b), with a
 hand-written backward: on a CUDA tensor its forward (kernel row 3) is two
@@ -31,7 +34,7 @@ import torch
 from weatherforecast_stgcn_maml_tpu_torch.models.common import apply_mask
 from weatherforecast_stgcn_maml_tpu_torch.models.gcn import apply_gcn_layer
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import NN_MULTIPLE, gemm, gemm_nn
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import NN_MULTIPLE, gemm_nn
 
 NODE_MULTIPLE = 128  # the kernel takes node counts that are multiples of this
 
@@ -71,37 +74,6 @@ def check_gcn_inputs(weights, biases, a_hat, h, node_multiple=NODE_MULTIPLE) -> 
         c_in = w.shape[1]
 
 
-def _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype):
-    check_gcn_inputs(weights, biases, a_hat, h)
-    dev = h.device
-    n, c_in = h.shape[-2:]
-    cur = h.reshape(-1, n, c_in).contiguous()
-    slices = cur.shape[0]
-    a = a_hat.contiguous()
-    for l, (w, b) in enumerate(zip(weights, biases)):
-        w, b = w.contiguous(), b.contiguous()
-        c_out = w.shape[1]
-        hw = torch.empty((slices * n, c_out), dtype=compute_dtype, device=dev)
-        gemm(
-            cur, w, hw, m=slices * n, n=c_out, k=c_in, lda=c_in, ldb=c_out,
-            ldc=c_out, compute_dtype=compute_dtype,
-            what=f"GCN layer {l} feature transform",
-        )
-        last = l == len(weights) - 1
-        out = torch.empty(
-            (slices, n, c_out),
-            dtype=torch.float32 if last else compute_dtype,
-            device=dev,
-        )
-        gemm(
-            a, hw, out, m=n, n=c_out, k=n, lda=n, ldb=c_out, ldc=c_out,
-            sb=n * c_out, sc=n * c_out, batch=slices, bias=b, relu=True,
-            compute_dtype=compute_dtype, what=f"GCN layer {l} aggregation",
-        )
-        cur, c_in = out, c_out
-    return cur.reshape(*h.shape[:-1], c_in)
-
-
 def fused_gcn_stack(
     layers, a_hat: torch.Tensor, h: torch.Tensor, *,
     compute_dtype: torch.dtype = torch.float32,
@@ -121,12 +93,18 @@ def fused_gcn_stack(
         return gcn_stack_plain(layers, a_hat, h, compute_dtype)
     if h.device.type != "cuda":
         raise TypeError(f"no GCN kernel for device {h.device}")
-    out = _gcn_stack_cuda(weights, biases, a_hat, h, compute_dtype)
+    check_gcn_inputs(weights, biases, a_hat, h)
+    n, c_in = h.shape[-2:]
+    before = gemm_nn.launches
+    out = gcn_stack_schedule(weights, biases, a_hat.contiguous(),
+                             h.reshape(-1, n, c_in).contiguous(), compute_dtype)
     fused_gcn_stack.launches += 1
-    return out
+    fused_gcn_stack.gemm_nn_launches += gemm_nn.launches - before
+    return out.reshape(*h.shape[:-1], out.shape[-1])
 
 
-fused_gcn_stack.launches = 0  # stack runs through the CUDA kernel
+fused_gcn_stack.launches = 0  # stacks run through the CUDA kernels (row 1)
+fused_gcn_stack.gemm_nn_launches = 0  # their gemm_nn launches (two a layer)
 
 
 def _pad(t: torch.Tensor, sizes) -> torch.Tensor:
@@ -143,29 +121,58 @@ def _up(n: int) -> int:
     return -(-n // NN_MULTIPLE) * NN_MULTIPLE
 
 
-def gcn_layer_forward(hb, a_hat, w, b, compute_dtype):
-    """Row 3's forward on a CUDA tensor: hb [S, N, C_in], a_hat [N, N], w
-    [C_in, C_out], b [C_out] -> relu(A_hat @ (h @ W) + b) [S, N, C_out]
-    float32, two gemm_nn launches. Widths and node counts that are not
-    multiples of 8 are zero-padded to them (zero rows and columns add
-    nothing); the reference width (512 nodes, 24 or 256 -> 256) takes no
-    padding."""
-    check_gcn_inputs([w], [b], a_hat, hb, node_multiple=1)
+def _layer(hb, a, w, b, compute_dtype, out_dtype, product):
+    """One layer on two products: hb [S, N, C_in] float32 or in the compute
+    dtype, a = round(A_hat) [N, N_p] (N_p: N up to a multiple of 8) -> relu(a
+    @ (round(h) @ round(W)) + b) [S, N, C_out] in out_dtype (None: the
+    product's default), hw stored in the compute dtype. Widths and node
+    counts that are not multiples of 8 are zero-padded to them (zero rows
+    and columns add nothing); the reference width (512 nodes, 24 or 256 ->
+    256) takes no padding."""
     slices, n, c_in = hb.shape
-    c_out = w.shape[1]
-    n_p, ci_p, co_p = _up(n), _up(c_in), _up(c_out)
+    n_p, c_out = a.shape[1], w.shape[1]
+    ci_p, co_p = _up(c_in), _up(c_out)
     hb = _pad(hb, (slices, n, ci_p))
     # hw rows n .. n_p - 1 of each slice stay zero: the aggregation's K tail.
     hw = (torch.empty if n_p == n else torch.zeros)(
         (slices, n_p, co_p), dtype=compute_dtype, device=hb.device)
-    gemm_nn(hb, _pad(w, (ci_p, co_p)), out=hw[:, :n], compute_dtype=compute_dtype,
+    product(hb, _pad(w, (ci_p, co_p)), out=hw[:, :n], compute_dtype=compute_dtype,
             what="GCN layer feature transform")
-    # A_hat rounded once here (0.5 MB at 512 nodes) rather than by every
-    # block as it loads: the bfloat16 path then copies it by cp.async.
-    a = _pad(a_hat, (n, n_p)).to(compute_dtype)
-    out = gemm_nn(a, hw, epilogue="bias_relu", bias=_pad(b, (co_p,)),
-                  compute_dtype=compute_dtype, what="GCN layer aggregation")
+    out = product(a, hw, epilogue="bias_relu", bias=_pad(b, (co_p,)),
+                  compute_dtype=compute_dtype, out_dtype=out_dtype,
+                  what="GCN layer aggregation")
     return out if co_p == c_out else out[..., :c_out].contiguous()
+
+
+def _rounded_a_hat(a_hat, compute_dtype):
+    """A_hat rounded once (0.5 MB at 512 nodes) rather than by every block
+    as it loads (the bfloat16 path then copies it by cp.async), its columns
+    padded to a multiple of 8."""
+    n = a_hat.shape[0]
+    return _pad(a_hat, (n, _up(n))).to(compute_dtype)
+
+
+def gcn_stack_schedule(weights, biases, a_hat, hb, compute_dtype, product=gemm_nn):
+    """Row 1's layer loop on `product` (`gemm_nn` on a card, `gemm_nn_plain`
+    in the CPU tests): hb [S, N, C_in] -> [S, N, C_out_last] float32, two
+    products a layer, A_hat rounded once a call; each layer's output in the
+    compute dtype below the last (JAX `_stack_kernel`'s rounding), the
+    last one's in `product`'s default (float32; float64 under float64)."""
+    a = _rounded_a_hat(a_hat, compute_dtype)
+    for l, (w, b) in enumerate(zip(weights, biases)):
+        last = l == len(weights) - 1
+        hb = _layer(hb, a, w.contiguous(), b.contiguous(), compute_dtype,
+                    None if last else compute_dtype, product)
+    return hb
+
+
+def gcn_layer_forward(hb, a_hat, w, b, compute_dtype):
+    """Row 3's forward on a CUDA tensor: hb [S, N, C_in], a_hat [N, N], w
+    [C_in, C_out], b [C_out] -> relu(A_hat @ (h @ W) + b) [S, N, C_out]
+    float32, two gemm_nn launches (`_layer`)."""
+    check_gcn_inputs([w], [b], a_hat, hb, node_multiple=1)
+    return _layer(hb, _rounded_a_hat(a_hat, compute_dtype), w, b, compute_dtype, None,
+                  gemm_nn)
 
 
 class _FusedGcnLayer(torch.autograd.Function):

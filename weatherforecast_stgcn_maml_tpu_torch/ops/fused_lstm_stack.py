@@ -10,18 +10,20 @@ version there.
     kernel row 2), no autograd;
   * `lstm_stack_train`: the training forward (the same kernel emitting
     h / c residuals and the activated gates and applying int8 inter-layer
-    dropout masks, row 4) and its backward (csrc/fused_lstm_stack_train.cu
-    for the reverse-time recurrence, row 5, then csrc/gemm.cu for the
-    weight and bias gradients) behind one `torch.autograd.Function`;
+    dropout masks, row 4) and its backward (row 5) behind one
+    `torch.autograd.Function`; the backward walks layer by layer
+    (`merged_backward_schedule`: the recurrence of csrc/lstm_scan_bwd.cuh
+    from the stored gates, csrc/gemm_nn.cu for the input gradient, gemm.cu
+    for the weight and bias gradients);
   * `lstm_stack_train_tasks`: rows 4 and 5 for V tasks with their own
-    weights, one launch each way (rows 16 and 17), for the task-batched
-    meta step (`_VBATCH`);
+    weights, one launch each way (rows 16 and 17,
+    csrc/fused_lstm_stack_train.cu for the backward's recurrence), for the
+    task-batched meta step (`_VBATCH`);
   * `lstm_stack_split`: the unmerged-gates stack, which the two entries
     above take under `_MERGED_GATES = False` or `merged=False`: the forward
     in one launch (csrc/fused_lstm_split.cu, row 14), the backward (row 15)
-    layer by layer (`split_backward_schedule`: csrc/gemm_nn.cu for the
-    recomputed gates and the input gradient, the recurrence of
-    csrc/lstm_scan_bwd.cuh, gemm.cu for the weight gradients).
+    by the same layer-by-layer schedule with each layer's gates recomputed
+    on csrc/gemm_nn.cu (`split_backward_schedule`).
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py`
 (`lstm_stack_last_all`; Pallas bodies `_fwd_kernel_m_lastonly_nomask`,
@@ -37,6 +39,7 @@ from types import SimpleNamespace
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from weatherforecast_stgcn_maml_tpu_torch.models.common import (
@@ -59,8 +62,9 @@ ROWS_PER_THREAD = (2, 4, 8)  # the row tiles the kernel is built for
 # process as the JAX package's tests monkeypatch them; neither has a config
 # key or a CLI option, in either package.
 #
-# _MERGED_GATES: True runs the merged-gates kernels (one [in | h] @ [[Wx],
-# [Wh]] contraction a stage; rows 2, 4, 5). False sends `lstm_stack_last_all`
+# _MERGED_GATES: True runs the merged-gates stack (the forwards one [in | h]
+# @ [[Wx], [Wh]] contraction a stage, rows 2 and 4; its backward, row 5,
+# from the gates row 4 stores). False sends `lstm_stack_last_all`
 # and `lstm_stack_train` to the unmerged-gates stack `lstm_stack_split`
 # (x @ Wx and h @ Wh as two contractions; rows 14 and 15). Second order
 # keeps rows 4-5 and 10-11 where it differentiates twice
@@ -82,11 +86,13 @@ _VBATCH = False
 
 
 def rows_per_thread(rows: int, hidden: int, sms: int) -> int:
-    """The kernel's row tile for `rows` sequences on a card with `sms` SMs: a
-    block holds 256 // H * rows_per_thread rows and walks all T * L stages
-    alone, so its time grows with its rows. The smallest tile whose blocks
-    fit in one wave (one block per SM) is the fastest; past that, the
-    largest tile (measured in PERF.md)."""
+    """The row tile of the kernels whose blocks walk every stage of their
+    rows alone (rows 2, 4, 10, 11, 14, 16-18, 20) for `rows` sequences on a
+    card with `sms` SMs: a block holds 256 // H * rows_per_thread rows, so
+    its time grows with its rows. The smallest tile whose blocks fit in one
+    wave (one block per SM) is the fastest; past that, the largest tile
+    (measured in PERF.md). The backward recurrence of rows 5, 15 and 19
+    has its own plan (`recurrence_plan`)."""
     groups = max(1, 256 // hidden)
     for rpt in ROWS_PER_THREAD:
         if -(-rows // (groups * rpt)) <= sms:
@@ -259,44 +265,20 @@ def train_backward(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dty
     """Row 5 on a CUDA tensor: the gradient g [B, H] of the last h back to
     (dx [T, B, C], [dwcat_l], db [L, 4H]) float32, and the gate gradients
     dgates [L, T, B, 4H]; with `carries`, also each stage's dh and dc [L, T,
-    B, H] float32 (else None), which the second-order backward reads."""
-    lib = cuda_build.load()
-    dev = x_tbc.device
-    t_len, rows, c_in = x_tbc.shape
-    n_layers, _, _, g4 = gates.shape
-    hidden = g4 // 4
-    inv_keep = 1.0 / keep
-    x = x_tbc.to(torch.float32).contiguous()
-    g = g.to(torch.float32).contiguous()
-    wcat0, wcatr = _merged(wcat, compute_dtype)
-    # The transposed weights of the dgates @ wcat^T contraction.
-    wcat_t0 = wcat0.t().contiguous()
-    wcat_tr = wcatr.transpose(1, 2).contiguous() if n_layers > 1 else wcat_t0
-    dx = torch.empty((t_len, rows, c_in), dtype=torch.float32, device=dev)
-    dgates = torch.empty((n_layers, t_len, rows, g4), dtype=torch.float32, device=dev)
-    dh_all = dc_all = None
-    if carries:
-        dh_all = torch.empty((n_layers, t_len, rows, hidden), dtype=torch.float32, device=dev)
-        dc_all = torch.empty_like(dh_all)
-    cuda_build.check(
-        lib.wf_lstm_stack_train_bwd(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
-            g.data_ptr(), gates.data_ptr(), c_all.data_ptr(),
-            None if masks is None else masks.data_ptr(), inv_keep,
-            wcat_t0.data_ptr(), wcat_tr.data_ptr(), dx.data_ptr(),
-            dgates.data_ptr(), None if dh_all is None else dh_all.data_ptr(),
-            None if dc_all is None else dc_all.data_ptr(),
-            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
-        ),
-        "LSTM train backward",
-    )
-    dwcat = [torch.empty(((c_in if l == 0 else hidden) + hidden, g4), dtype=torch.float32,
-                         device=dev) for l in range(n_layers)]
-    db = torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
-    _weight_grads(x, h_all, dgates, masks, inv_keep, compute_dtype,
-                  [dw[:-hidden] for dw in dwcat], [dw[-hidden:] for dw in dwcat], db)
-    lstm_stack_train.backward_launches += 1
-    return dx, dwcat, db, dgates, dh_all, dc_all
+    B, H] float32 (else None), which the second-order backward reads. By
+    `merged_backward_schedule` on the kernels: per layer one recurrence
+    launch (csrc/lstm_scan_bwd.cuh, from row 4's stored gates) and one
+    gemm_nn launch for the input gradient, then the weight gradients on
+    gemm.cu."""
+    before = _recurrence_card.launches, gemm_nn.launches
+    out = merged_backward_schedule(
+        g.to(torch.float32), x_tbc.to(torch.float32).contiguous(), h_all, c_all, gates, wcat,
+        masks, keep, compute_dtype, CARD_PIECES, carries=carries)
+    train = lstm_stack_train
+    train.backward_launches += 1
+    train.backward_recurrence_launches += _recurrence_card.launches - before[0]
+    train.backward_gemm_nn_launches += gemm_nn.launches - before[1]
+    return out
 
 
 def _weight_grads(x, h_all, dgates, masks, inv_keep, compute_dtype, dwx, dwh, db):
@@ -379,6 +361,9 @@ def lstm_stack_train(
 
 lstm_stack_train.launches = 0  # forwards run through the CUDA kernel (row 4)
 lstm_stack_train.backward_launches = 0  # backwards run through the kernels (row 5)
+# Row 5's pieces: its recurrence and gemm_nn launches (one each a layer).
+lstm_stack_train.backward_recurrence_launches = 0
+lstm_stack_train.backward_gemm_nn_launches = 0
 
 
 def _check_train(x, masks, rows, t_len, c_in, hidden, n_layers, lead=()):
@@ -724,16 +709,19 @@ def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residual
     return out, h_all, c_all
 
 
-# Row 15 on a card runs layer by layer, so that only the dh carry through
-# Wh^T is on the serial chain (the TPU kernel walks all T x L stages as one
-# chain with four contractions a stage). For l = L-1 .. 0:
-#   1. the gates of all T x R rows at once, act(round(in_l) @ Wx_l +
-#      round(h_all[l, t-1]) @ Wh_l + b_l): one product of two operand pairs,
-#      the second at a row offset of R (h_{-1} = 0), with the gate epilogue;
-#      in_l is x, or h_all[l-1] times its dropout mask and 1/keep, rounded;
-#   2. the recurrence, one contraction a step (row 19's device code), from
+# Rows 5 and 15 on a card run layer by layer, so that only the dh carry
+# through Wh^T is on the serial chain (the TPU kernels walk all T x L
+# stages as one chain: row 5 with one contraction a stage against [Wx;
+# Wh]^T, row 15 with four). For l = L-1 .. 0:
+#   1. row 15 only: the gates of all T x R rows at once, act(round(in_l) @
+#      Wx_l + round(h_all[l, t-1]) @ Wh_l + b_l): one product of two operand
+#      pairs, the second at a row offset of R (h_{-1} = 0), with the gate
+#      epilogue; in_l is x, or h_all[l-1] times its dropout mask and 1/keep,
+#      rounded. Row 5 reads the activated gates row 4 stored;
+#   2. the recurrence, one contraction a step (csrc/lstm_scan_bwd.cuh), from
 #      the gradient g_l of the layer's h sequence: zero but for g at the top
 #      layer's last step, the input gradient of the layer above below it;
+#      for second order also each step's dh and dc;
 #   3. the input gradient round(dgates_l) @ Wx_l^T: dx at l = 0, else
 #      g_{l-1}, times the mask and 1/keep (the mask epilogue).
 # The weight gradients follow from the gate gradients of every layer. The
@@ -744,47 +732,62 @@ def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residual
 @dataclasses.dataclass(frozen=True)
 class SplitPieces:
     """product: `gemm_nn`'s signature (ops/gemm.py); recurrence(g, gates,
-    c, wht, compute_dtype, out) -> dgates [T, R, 4H] into out;
-    weight_grads(x, h_all, dgates, masks, keep, compute_dtype) -> (dwx0,
-    dwxr, dwh, db)."""
+    c, wh, compute_dtype, out, dh=None, dc=None) -> dgates [T, R, 4H] into
+    out (and each step's dh, dc [T, R, H] into dh, dc where given), wh [H,
+    4H] in the compute dtype; weight_grads(x, h_all, dgates, masks, keep,
+    compute_dtype, merged=False) -> (dwx0, dwxr, dwh, db), or with `merged`
+    ([dwcat_l], db)."""
 
     product: Callable
     recurrence: Callable
     weight_grads: Callable
 
 
-def split_backward_schedule(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
-                            compute_dtype, pieces: SplitPieces):
-    """Row 15's function (`split_backward_plain`'s outputs) by the layer by
-    layer schedule above, on `pieces`."""
+def backward_schedule(g, x_tbc, h_all, c_all, wx, wh, masks, keep, compute_dtype,
+                      pieces: SplitPieces, gates=None, b2d=None, carries=False):
+    """The layer-by-layer schedule above on `pieces`, from the gradient g
+    [B, H] of the top layer's last h: -> (dx [T, B, C], dgates [L, T, B,
+    4H], dh_all, dc_all [L, T, B, H] or None without `carries`) in the
+    accumulation dtype. wx = [Wx_0 [C, 4H], Wx_1 [H, 4H], ...], wh [L, H,
+    4H]. `gates` [L, T, B, 4H] are the activated gates (row 5); None
+    recomputes each layer's from h_all, c_all and b2d [L, 4H] (row 15)."""
     acc = accum_dtype(compute_dtype)
     dev = x_tbc.device
     t_len, rows, c_in = x_tbc.shape
     n_layers, hidden, g4 = wh.shape
     steps = t_len * rows
-    wxs = [w.to(compute_dtype) for w in (wx0, *wxr)]
+    wxs = [w.to(compute_dtype) for w in wx]
     whs = wh.to(compute_dtype)
-    gates = torch.empty((steps, g4), dtype=acc, device=dev)  # reused by every layer
     dgates = torch.empty((n_layers, t_len, rows, g4), dtype=acc, device=dev)
+    dh_all = dc_all = None
+    if carries:
+        dh_all = torch.empty((n_layers, t_len, rows, hidden), dtype=acc, device=dev)
+        dc_all = torch.empty_like(dh_all)
     g_l = torch.zeros((t_len, rows, hidden), dtype=acc, device=dev)
     g_l[-1] = g
     g_next = torch.empty_like(g_l) if n_layers > 1 else None
     dx = torch.empty((steps, c_in), dtype=acc, device=dev)
-    # The layers' inputs above layer 0, masked and rounded once for all.
-    h_in = h_all[:-1]
-    if masks is not None and n_layers > 1:
-        h_in = apply_mask(h_in.to(acc), masks, keep).to(compute_dtype)
+    if gates is None:
+        gate_buf = torch.empty((steps, g4), dtype=acc, device=dev)  # reused by every layer
+        # The layers' inputs above layer 0, masked and rounded once for all.
+        h_in = h_all[:-1]
+        if masks is not None and n_layers > 1:
+            h_in = apply_mask(h_in.to(acc), masks, keep).to(compute_dtype)
     for l in reversed(range(n_layers)):
-        inp = x_tbc.reshape(steps, c_in) if l == 0 else h_in[l - 1].reshape(steps, hidden)
-        prev = {} if t_len == 1 else dict(
-            a2=h_all[l, :-1].reshape(steps - rows, hidden), b2=whs[l], row_offset=rows)
-        pieces.product(inp, wxs[l], compute_dtype=compute_dtype, epilogue="gates",
-                       bias=b2d[l], out=gates, what=f"LSTM layer {l} gates", **prev)
-        # Each transpose just before its use: on a card its host work runs
-        # while the product before it does.
-        pieces.recurrence(g_l, gates.view(t_len, rows, g4), c_all[l], whs[l].t().contiguous(),
-                          compute_dtype, dgates[l])
+        if gates is None:
+            inp = x_tbc.reshape(steps, c_in) if l == 0 else h_in[l - 1].reshape(steps, hidden)
+            prev = {} if t_len == 1 else dict(
+                a2=h_all[l, :-1].reshape(steps - rows, hidden), b2=whs[l], row_offset=rows)
+            pieces.product(inp, wxs[l], compute_dtype=compute_dtype, epilogue="gates",
+                           bias=b2d[l], out=gate_buf, what=f"LSTM layer {l} gates", **prev)
+            gates_l = gate_buf.view(t_len, rows, g4)
+        else:
+            gates_l = gates[l]
+        pieces.recurrence(g_l, gates_l, c_all[l], whs[l], compute_dtype, dgates[l],
+                          *(() if dh_all is None else (dh_all[l], dc_all[l])))
         dg = dgates[l].view(steps, g4)
+        # The transpose just before its use: on a card its host work runs
+        # while the recurrence does.
         wxt = wxs[l].t().contiguous()
         if l == 0:
             pieces.product(dg, wxt, compute_dtype=compute_dtype, out=dx,
@@ -796,45 +799,161 @@ def split_backward_schedule(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, ke
                        scale=1.0 / keep, out=g_next.view(steps, hidden),
                        what=f"LSTM layer {l} input gradient")
         g_l, g_next = g_next, g_l
-    return (dx.view(t_len, rows, c_in),
-            *pieces.weight_grads(x_tbc, h_all, dgates, masks, keep, compute_dtype))
+    return dx.view(t_len, rows, c_in), dgates, dh_all, dc_all
 
 
-def _recurrence_card(g, gates, c, wht, compute_dtype, out):
+def split_backward_schedule(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
+                            compute_dtype, pieces: SplitPieces):
+    """Row 15's function (`split_backward_plain`'s outputs) by
+    `backward_schedule` on `pieces`, each layer's gates recomputed."""
+    dx, dgates, _, _ = backward_schedule(g, x_tbc, h_all, c_all, [wx0, *wxr], wh, masks, keep,
+                                         compute_dtype, pieces, b2d=b2d)
+    return (dx, *pieces.weight_grads(x_tbc, h_all, dgates, masks, keep, compute_dtype))
+
+
+def merged_backward_schedule(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dtype,
+                             pieces: SplitPieces, carries=False):
+    """Row 5's function (`fused_lstm_hvp.hvp_bwd_plain`'s outputs: dx,
+    [dwcat_l], db, dgates, dh_all, dc_all; the last two None without
+    `carries`) by `backward_schedule` on `pieces`, from row 4's stored
+    activated gates [L, T, B, 4H] and the merged weights wcat_l = [[Wx_l],
+    [Wh_l]]."""
+    hidden = gates.shape[-1] // 4
+    wh = torch.stack([w[-hidden:] for w in wcat])
+    dx, dgates, dh_all, dc_all = backward_schedule(
+        g, x_tbc, h_all, c_all, [w[:-hidden] for w in wcat], wh, masks, keep, compute_dtype,
+        pieces, gates=gates, carries=carries)
+    dwcat, db = pieces.weight_grads(x_tbc, h_all, dgates, masks, keep, compute_dtype,
+                                    merged=True)
+    return dx, dwcat, db, dgates, dh_all, dc_all
+
+
+# The backward recurrence's plan (csrc/lstm_scan_bwd.cuh): Wh^T [4H, H]
+# stays in shared memory, its columns split over a cluster of cs blocks.
+SCAN_MAX_SMEM = 232448  # 227 KB opt-in per block
+SCAN_WARPS = 8  # warps a block
+
+
+def scan_units(hidden: int, cs: int) -> int:
+    """The hidden units each block of a cs-block cluster owns (a multiple
+    of 4; the last block may own fewer)."""
+    return -(-hidden // (4 * cs)) * 4
+
+
+def scan_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
+    """A block's dynamic shared memory: its mbarrier, its weight slice [4H,
+    hcp] and two round(dgates) tiles [rb, 4H] in the compute dtype, its
+    warps' partial carries [8, rb, hcp] float32 (`scan_bwd_smem`)."""
+    return (16 + 4 * hidden * hcp * itemsize + 2 * rb * 4 * hidden * itemsize
+            + SCAN_WARPS * rb * hcp * 4)
+
+
+def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[int, int, int]:
+    """(cs, hcp, rb): blocks a cluster, weight columns a block (hcp >=
+    `scan_units`, 32 x the units a lane owns), rows a cluster. The smallest
+    cluster (1, 2, 4, 8) whose slice of Wh^T fits in a block's shared memory
+    beside the tiles of a row tile that puts the clusters on `sms` SMs in one
+    wave, with the smallest such tile; if no cluster reaches one wave, the
+    smallest that fits at all, with its largest tile."""
+    fallback = None
+    for cs in (1, 2, 4, 8):
+        hcp = next((p for p in (32, 64, 128) if p >= scan_units(hidden, cs)), None)
+        if hcp is None:
+            continue
+        tiles = [rb for rb in (2, 4, 8, 16) if scan_smem(hidden, hcp, rb, itemsize) <= SCAN_MAX_SMEM]
+        if not tiles:
+            continue
+        wave = [rb for rb in tiles if -(-rows // rb) * cs <= sms]
+        if wave:
+            return cs, hcp, wave[0]
+        fallback = fallback or (cs, hcp, tiles[-1])
+    if fallback is None:
+        raise ValueError(f"the backward recurrence holds Wh^T in at most 8 blocks' shared "
+                         f"memory; hidden width {hidden} does not fit")
+    return fallback
+
+
+def recurrence_weights(wh: torch.Tensor, cs: int, hcp: int,
+                       compute_dtype: torch.dtype) -> torch.Tensor:
+    """wh [H, 4H] -> its transpose's column slices [cs, 4H, hcp] in the
+    compute dtype: slice b holds Wh^T[:, b*hc : b*hc + hc] (hc =
+    `scan_units`), zero-padded to hcp columns."""
+    hidden, g4 = wh.shape
+    hc = scan_units(hidden, cs)
+    wt = wh.to(compute_dtype).t()
+    if cs * hc != hidden:
+        wt = F.pad(wt, (0, cs * hc - hidden))
+    wt = wt.reshape(g4, cs, hc)
+    if hcp != hc:
+        wt = F.pad(wt, (0, hcp - hc))
+    return wt.transpose(0, 1).contiguous()
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def launch_recurrence(entry, what, g, gates, c, wh, compute_dtype, out, *carries):
+    """One backward recurrence on the card through the C entry `entry`
+    (wf_lstm_stack_recurrence, wf_lstm_scan_bwd): g [T, R, H] float32, gates
+    [T, R, 4H] float32, c [T, R, H], wh [H, 4H] -> dgates into out; the
+    carries' pointers (dh, dc or None) follow `out` for the stack entry."""
     t_len, rows, hidden = g.shape
+    cs, hcp, rb = recurrence_plan(hidden, rows, compute_dtype.itemsize, _sms(g.device))
+    wts = recurrence_weights(wh, cs, hcp, compute_dtype)
     cuda_build.check(
-        cuda_build.load().wf_lstm_split_recurrence(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, g.device),
-            g.data_ptr(), gates.data_ptr(), c.data_ptr(), wht.data_ptr(), out.data_ptr(),
-            t_len, rows, hidden, cuda_build.stream_ptr(g.device),
-        ),
-        "LSTM unmerged-gates backward recurrence",
+        entry(cuda_build.dtype_code(compute_dtype), cs, hcp, rb, g.data_ptr(), gates.data_ptr(),
+              c.data_ptr(), wts.data_ptr(), out.data_ptr(),
+              *(None if t is None else t.data_ptr() for t in carries),
+              t_len, rows, hidden, cuda_build.stream_ptr(g.device)),
+        f"{what} (cluster of {cs}, {hcp} weight columns a block, {rb} rows a cluster)",
     )
     return out
 
 
-def _weight_grads_card(x, h_all, dgates, masks, keep, compute_dtype):
+def _recurrence_card(g, gates, c, wh, compute_dtype, out, dh=None, dc=None):
+    launch_recurrence(cuda_build.load().wf_lstm_stack_recurrence, "LSTM backward recurrence",
+                      g, gates, c, wh, compute_dtype, out, dh, dc)
+    _recurrence_card.launches += 1
+    return out
+
+
+_recurrence_card.launches = 0  # launches of the stack recurrence (rows 5 and 15)
+
+
+def _weight_grads_card(x, h_all, dgates, masks, keep, compute_dtype, merged=False):
     dev = x.device
     n_layers, _, _, g4 = dgates.shape
     hidden = g4 // 4
+    db = torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
+    if merged:
+        dwcat = [torch.empty(((x.shape[-1] if l == 0 else hidden) + hidden, g4),
+                             dtype=torch.float32, device=dev) for l in range(n_layers)]
+        _weight_grads(x, h_all, dgates, masks, 1.0 / keep, compute_dtype,
+                      [dw[:-hidden] for dw in dwcat], [dw[-hidden:] for dw in dwcat], db)
+        return dwcat, db
     dwx0 = torch.empty((x.shape[-1], g4), dtype=torch.float32, device=dev)
     dwxr = torch.empty((n_layers - 1, hidden, g4), dtype=torch.float32, device=dev)
     dwh = torch.empty((n_layers, hidden, g4), dtype=torch.float32, device=dev)
-    db = torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
     _weight_grads(x, h_all, dgates, masks, 1.0 / keep, compute_dtype, [dwx0, *dwxr],
                   list(dwh), db)
     return dwx0, dwxr, dwh, db
 
 
-def _recurrence_plain(g, gates, c, wht, compute_dtype, out):
+def _recurrence_plain(g, gates, c, wh, compute_dtype, out, dh=None, dc=None):
     from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import scan_backward_plain
 
-    return out.copy_(scan_backward_plain(g, gates, c, wht.t(), compute_dtype))
+    dgates, dh_all, dc_all = scan_backward_plain(g, gates, c, wh, compute_dtype, carries=True)
+    if dh is not None:
+        dh.copy_(dh_all)
+        dc.copy_(dc_all)
+    return out.copy_(dgates)
 
 
-def _weight_grads_plain(x, h_all, dgates, masks, keep, compute_dtype):
+def _weight_grads_plain(x, h_all, dgates, masks, keep, compute_dtype, merged=False):
     """dwx[l] = round(inp_l)^T @ round(dgates_l), dwh[l] = round(h_prev)^T @
-    round(dgates_l) over every step and row, db[l] = the sums of dgates_l."""
+    round(dgates_l) over every step and row, db[l] = the sums of dgates_l;
+    with `merged`, ([[dwx_l], [dwh_l]], db)."""
     acc = accum_dtype(compute_dtype)
     t_len, rows, c_in = x.shape
     n_layers, _, _, g4 = dgates.shape
@@ -854,6 +973,8 @@ def _weight_grads_plain(x, h_all, dgates, masks, keep, compute_dtype):
         dwh.append(as_operand(h_all[l, :-1].reshape(steps - rows, hidden), compute_dtype).t()
                    @ dgc[rows:])
         db.append(dg.sum(dim=0))
+    if merged:
+        return [torch.cat(pair) for pair in zip(dwx, dwh)], torch.stack(db)
     dwxr = (torch.stack(dwx[1:]) if n_layers > 1
             else torch.zeros((0, hidden, g4), dtype=acc, device=x.device))
     return dwx[0], dwxr, torch.stack(dwh), torch.stack(db)
@@ -867,8 +988,9 @@ def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compu
     """Row 15 on a CUDA tensor (its plain version on a CPU tensor or under
     float64): -> (dx [T, B, C], dwx0, dwxr, dwh, db) float32, by
     `split_backward_schedule` on the kernels: per layer one gemm_nn launch
-    for the gates, one recurrence launch and one gemm_nn launch for the
-    input gradient, then the weight gradients on gemm.cu."""
+    for the gates, one recurrence launch (csrc/lstm_scan_bwd.cuh) and one
+    gemm_nn launch for the input gradient, then the weight gradients on
+    gemm.cu."""
     if not _on_card(x_tbc, compute_dtype):
         return split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
                                     compute_dtype)

@@ -42,6 +42,7 @@ def gemm(
     """c[z] = epilogue(op(a) @ op(b)) for z in [0, batch * splits): see
     `wf::Gemm` in csrc/gemm.cu for the indexing."""
     code = cuda_build.dtype_code
+    gemm.launches += 1
     cuda_build.check(
         cuda_build.load().wf_gemm(
             code(a.dtype), code(b.dtype), code(c.dtype), code(compute_dtype),
@@ -52,6 +53,9 @@ def gemm(
         ),
         what,
     )
+
+
+gemm.launches = 0  # launches of csrc/gemm.cu's tiled GEMM
 
 
 def sum_splits(part: torch.Tensor, out: torch.Tensor, what: str) -> None:

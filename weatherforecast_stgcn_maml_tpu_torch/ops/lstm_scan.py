@@ -4,7 +4,8 @@
 `lstm_recurrence` runs the CUDA kernels of csrc/lstm_scan.cu behind one
 `torch.autograd.Function` on a CUDA tensor at float32 / bfloat16 compute:
 the forward (kernel row 18) emits h_all and c_all, and, when a backward will
-follow, the activated gates; the backward (row 19) emits dgates, and dwh =
+follow, the activated gates; the backward (row 19, the cluster recurrence of
+csrc/lstm_scan_bwd.cuh that rows 5 and 15 share) emits dgates, and dwh =
 h_prev^T @ dgates runs on gemm.cu's split-K product; dxp is dgates. On a CPU
 tensor or under float64 it runs the plain version, `lstm_recurrence_plain`,
 differentiated by autograd. On a CUDA tensor a shape or dtype the kernels do
@@ -25,7 +26,10 @@ import torch
 
 from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype, as_operand
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
-from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import _rows_per_thread
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
+    _rows_per_thread,
+    launch_recurrence,
+)
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import matmul_tn
 
 
@@ -51,19 +55,21 @@ def lstm_recurrence_plain(
 
 def scan_backward_plain(
     g: torch.Tensor, gates: torch.Tensor, c_all: torch.Tensor, wh: torch.Tensor,
-    compute_dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    """Plain version of row 19's recurrence (csrc/lstm_scan_bwd.cuh): from
-    the gradient g [T, B, H] of the h sequence, the activated gates [T, B,
-    4H] and c_all [T, B, H] (any dtype; widened), walking t = T-1 .. 0 with
-    dh / dc carries -> dgates [T, B, 4H] in the accumulation dtype; the dh
-    carry is round(dgates) @ round(wh)^T."""
+    compute_dtype: torch.dtype = torch.float32, carries: bool = False,
+):
+    """Plain version of the backward recurrence of rows 5, 15 and 19
+    (csrc/lstm_scan_bwd.cuh): from the gradient g [T, B, H] of the h
+    sequence, the activated gates [T, B, 4H] and c_all [T, B, H] (any dtype;
+    widened), walking t = T-1 .. 0 with dh / dc carries -> dgates [T, B, 4H]
+    in the accumulation dtype; the dh carry is round(dgates) @ round(wh)^T.
+    With `carries`, -> (dgates, dh_all, dc_all): each step's dh (g plus the
+    carry) and dc (before the * f into the carry) [T, B, H]."""
     acc = accum_dtype(compute_dtype)
     t_len, rows, hidden = g.shape
     wht = as_operand(wh, compute_dtype).t()
     dh_c = torch.zeros((rows, hidden), dtype=acc, device=g.device)
     dc_c = torch.zeros_like(dh_c)
-    out = [None] * t_len
+    out, dhs, dcs = [None] * t_len, [None] * t_len, [None] * t_len
     for t in reversed(range(t_len)):
         i, f, gg, o = gates[t].to(acc).split(hidden, dim=-1)
         c_prev = c_all[t - 1].to(acc) if t > 0 else torch.zeros_like(dh_c)
@@ -74,7 +80,9 @@ def scan_backward_plain(
                             dc * i * (1.0 - gg * gg), dh * tc * o * (1.0 - o)], dim=-1)
         dh_c = torch.matmul(as_operand(dgates, compute_dtype), wht)
         dc_c = dc * f
-        out[t] = dgates
+        out[t], dhs[t], dcs[t] = dgates, dh, dc
+    if carries:
+        return torch.stack(out), torch.stack(dhs), torch.stack(dcs)
     return torch.stack(out)
 
 
@@ -112,19 +120,12 @@ def scan_backward(g: torch.Tensor, h_all, c_all, gates, wh: torch.Tensor,
                   compute_dtype: torch.dtype):
     """Row 19 on a CUDA tensor, from the gradient g [T, B, H] of h_all:
     -> (dxp = dgates [T, B, 4H], dwh [H, 4H]), float32."""
-    t_len, rows, hidden = h_all.shape
+    hidden = h_all.shape[-1]
     dev = h_all.device
-    g = g.to(torch.float32).contiguous()
-    wht = _aligned(wh.t().to(compute_dtype))
+    g = _aligned(g.to(torch.float32))
     dgates = torch.empty_like(gates)
-    cuda_build.check(
-        cuda_build.load().wf_lstm_scan_bwd(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
-            g.data_ptr(), gates.data_ptr(), c_all.data_ptr(), wht.data_ptr(),
-            dgates.data_ptr(), t_len, rows, hidden, cuda_build.stream_ptr(dev),
-        ),
-        "LSTM recurrence backward",
-    )
+    launch_recurrence(cuda_build.load().wf_lstm_scan_bwd, "LSTM recurrence backward", g,
+                      gates, c_all, wh, compute_dtype, dgates)
     # dwh = h_prev^T @ dgates over every step and row; h_prev at t = 0 is
     # zero, so the product starts at t = 1.
     dwh = torch.empty(wh.shape, dtype=torch.float32, device=dev)

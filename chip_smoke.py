@@ -186,14 +186,15 @@ SOURCES = {
     "lstm_stack_train": [CSRC + "fused_lstm_stack.cu"],
     "lstm_stack_train.backward": [CSRC + "lstm_scan_bwd.cuh", CSRC + "fused_lstm_split.cu",
                                   CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
-    "gcn_stack_train": [CSRC + "fused_gcn_train.cu"],
-    "gcn_stack_train.backward": [CSRC + "fused_gcn_train.cu"],
+    "gcn_stack_train": [CSRC + "gemm.cu", CSRC + "fused_gcn_train.cu"],
+    "gcn_stack_train.backward": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu",
+                                 CSRC + "gemm.cu"],
     "clip_sgd_update": [CSRC + "fused_sgd.cu"],
     "clip_sgd_update.batched": [CSRC + "fused_sgd.cu"],
     "hvp_stack_fwd": [CSRC + "fused_lstm_hvp.cu"],
     "hvp_stack_bwd": [CSRC + "fused_lstm_hvp.cu"],
-    "gcn_shard_layer": [CSRC + "gemm.cu"],
-    "gcn_shard_layer.backward": [CSRC + "fused_gcn_shard.cu"],
+    "gcn_shard_layer": [CSRC + "gemm_nn.cu"],
+    "gcn_shard_layer.backward": [CSRC + "fused_gcn_shard.cu", CSRC + "gemm.cu"],
     "lstm_recurrence": [CSRC + "lstm_scan.cu"],
     "lstm_recurrence.backward": [CSRC + "lstm_scan.cu", CSRC + "lstm_scan_bwd.cuh",
                                  CSRC + "gemm.cu"],
@@ -206,7 +207,9 @@ SOURCES = {
     "lstm_stack_train_tasks.backward": [CSRC + "fused_lstm_stack_train.cu", CSRC + "gemm.cu"],
 }
 # Kernels whose ptxas report the build phase prints by name.
-NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "lstm_scan_bwd_kernel")
+NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel",
+               "gemm_tn_bf16_kernel", "dz_top_kernel", "transpose_round_kernel",
+               "lstm_scan_bwd_kernel")
 MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
@@ -339,6 +342,23 @@ def rel_err(got, ref):
     return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
 
 
+def cublas_row7(torch, g, x, a_hat, weights, masks, h_all, keep):
+    """Row 7's function in float32 on torch.matmul (its library route): the
+    relu / dropout gradient, A_hat^T dz per slice, dW = h_in^T dhw, db, dh =
+    dhw W^T (as tools/gcn_rows.py times it)."""
+    dh, out = g, []
+    for l in reversed(range(len(weights))):
+        dz = dh * (h_all[l] > 0)
+        if masks is not None and l < masks.shape[0]:
+            dz = dz * (masks[l] * (1.0 / keep))
+        dhw = torch.matmul(a_hat.t(), dz)
+        inp = x if l == 0 else h_all[l - 1]
+        out.append(inp.reshape(-1, inp.shape[-1]).t() @ dhw.reshape(-1, dhw.shape[-1]))
+        out.append(dz.sum(dim=(0, 1)))
+        dh = torch.matmul(dhw, weights[l].t())
+    return dh, out
+
+
 def main() -> int:
     import torch
 
@@ -383,6 +403,7 @@ def main() -> int:
         fused_gcn_stack,
         gcn_stack_plain,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_train as fgt
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_train import (
         gcn_stack_train,
         gcn_stack_train_plain,
@@ -397,7 +418,15 @@ def main() -> int:
         lstm_stack_train,
     )
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
-    from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm, gemm_nn, gemm_nn_plain
+    from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
+        gemm,
+        gemm_nn,
+        gemm_nn_plain,
+        gemm_tn,
+        gemm_tn_plain,
+        sum_splits,
+        tn_splits,
+    )
     from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import (
         lstm_recurrence,
         lstm_recurrence_plain,
@@ -955,6 +984,64 @@ def main() -> int:
                 row["ms"] = measured["lstm_stack_train.backward"].pop("bfloat16_ms")
                 measured["lstm_stack_train.backward"]["bfloat16"] = row
         del x5, wcat5, b2d5, g5
+        # Rows 6 and 7 alone, row 7 from row 6's residuals: the call by CUDA
+        # events and its device time by CUDA graph replay, beside the cuBLAS
+        # route by both (float32: the plain forward; row 7's function written
+        # out on torch.matmul, `cublas_row7`); the launches of one backward.
+        enc_w = [layer.w.detach() for layer in enc]
+        enc_b = [layer.b.detach() for layer in enc]
+        for dt_name in TOL:
+            dt = getattr(torch, dt_name)
+            with torch.no_grad():
+                h7 = fgt._forward(x_enc, a_hat, enc_w, enc_b, gcn_masks, 1.25, dt)
+                g7 = torch.from_numpy(np.random.default_rng(7).standard_normal(h7[-1].shape)
+                                      .astype(np.float32)).to(dev, dt)
+
+                def row6():
+                    gcn_stack_train(enc, a_hat, x_enc, masks=gcn_masks, keep=0.8,
+                                    compute_dtype=dt)
+
+                def row7():
+                    fgt._backward(g7, x_enc, a_hat, enc_w, gcn_masks, h7, 1.25, dt)
+
+                before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                row7()
+                core7 = {"gemm_nn": gemm_nn.launches - before[0],
+                         "gemm_tn": gemm_tn.launches - before[1],
+                         "gemm.cu": gemm.launches - before[2]}
+                want = {"gemm_nn": 2 * len(enc), "gemm_tn": len(enc), "gemm.cu": 0}
+                if core7 != want:
+                    raise RuntimeError(f"row 7 launched {core7} a call, not {want}")
+                times = {"row 6": (cuda_ms(torch, row6), graph_ms(torch, row6)),
+                         "row 7": (cuda_ms(torch, row7), graph_ms(torch, row7))}
+                if dt_name == "float32":
+                    h7f = [h.float() for h in h7]
+
+                    def lib6():
+                        gcn_stack_train_plain(enc, a_hat, x_enc, gcn_masks, 0.8, dt)
+
+                    def lib7():
+                        cublas_row7(torch, g7, x_enc, a_hat, enc_w, gcn_masks, h7f, 0.8)
+
+                    times["cuBLAS row 6"] = (cuda_ms(torch, lib6), graph_ms(torch, lib6))
+                    times["cuBLAS row 7"] = (cuda_ms(torch, lib7), graph_ms(torch, lib7))
+            log(f"rows 6-7 {dt_name} x [24, 512, 24], 4 x 256, masks 0.2 (call by events / "
+                f"device by graph replay): " + ", ".join(
+                    f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in times.items())
+                + f"; row 7 launches a call {core7}  [{card}]")
+            if dt_name == "float32":
+                measured["gcn_stack_train"].update(
+                    call_ms=times["row 6"][0], device_ms=times["row 6"][1],
+                    library_call_ms=times["cuBLAS row 6"][0],
+                    library_device_ms=times["cuBLAS row 6"][1])
+                measured["gcn_stack_train.backward"].update(
+                    call_ms=times["row 7"][0], device_ms=times["row 7"][1],
+                    library_call_ms=times["cuBLAS row 7"][0],
+                    library_device_ms=times["cuBLAS row 7"][1], core_launches=core7)
+            else:
+                measured["gcn_stack_train.backward"]["bfloat16"] = {
+                    "call_ms": times["row 7"][0], "device_ms": times["row 7"][1]}
+            del h7, g7
         e = 4  # float32 residuals
         gcn_io = 4 * (x_enc.numel() + n * n) + gcn_w_bytes + gcn_masks.numel()
         act = cfg.gcn_layers * w_len * n * hid * e
@@ -969,6 +1056,65 @@ def main() -> int:
         measured["lstm_stack_train"].update(flops=fl, bytes=lstm_io + res + 4 * n * lh)
         measured["lstm_stack_train.backward"].update(
             flops=2 * fl, bytes=lstm_io + res + 4 * n * lh + 4 * x_rec.numel() + lstm_w_bytes)
+
+    # 6b. The pipelined core's TN variant (row 7's weight gradients) at the
+    # main path's shapes (K = 24 x 512 rows, M = 256 and layer 0's 24, N =
+    # 256, 48 splits of 256 rows) against its plain version split by split,
+    # the split sums against float64, two runs bitwise equal; the relu-grad
+    # epilogue's column sums (row 7's db partials) bitwise equal too.
+    with Phase("GEMM core TN variant vs plain"), torch.no_grad():
+        rows7 = w_len * n
+        draw = np.random.default_rng(11)
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            for m_tn in (hid, cfg.in_channels):
+                a_tn = torch.from_numpy(draw.standard_normal((rows7, m_tn)).astype(np.float32)
+                                        ).to(dev, dt)
+                b_tn = torch.from_numpy((draw.standard_normal((rows7, hid)) * rows7 ** -0.5)
+                                        .astype(np.float32)).to(dev, dt)
+                splits = tn_splits(rows7)
+                runs = [gemm_tn(a_tn, b_tn, torch.empty((splits, m_tn, hid), device=dev),
+                                compute_dtype=dt) for _ in range(2)]
+                ref = gemm_tn_plain(a_tn, b_tn, torch.empty((splits, m_tn, hid), device=dev),
+                                    compute_dtype=dt)
+                total = torch.empty((1, m_tn * hid), device=dev)
+                sum_splits(runs[0].view(splits, 1, -1), total, "TN gate")
+                torch.cuda.synchronize()
+                bitwise = torch.equal(runs[0], runs[1])
+                rels = (rel_err(runs[0], ref),
+                        rel_err(total.view(m_tn, hid), a_tn.double().T @ b_tn.double()))
+                ms = cuda_ms(torch, lambda: gemm_tn(a_tn, b_tn, runs[1], compute_dtype=dt))
+                lib = cuda_ms(torch, lambda: a_tn.T @ b_tn)
+                log(f"gemm_tn {dt_name} [{rows7}, {m_tn}]^T [{rows7}, {hid}] in {splits} splits: "
+                    f"max|diff|/max|ref| {rels[0]:.2e} by split, {rels[1]:.2e} summed against "
+                    f"float64 (tol {tol}); two runs bitwise equal: {bitwise}; {ms:.4f} ms "
+                    f"(partials), torch.matmul {lib:.4f} ms  [{card}]")
+                if not bitwise or max(rels) > tol:
+                    raise RuntimeError(f"gemm_tn {dt_name} M = {m_tn}: error {max(rels):.3e}, "
+                                       f"bitwise {bitwise}")
+            a_nn = torch.from_numpy(draw.standard_normal((rows7, hid)).astype(np.float32)
+                                    ).to(dev, dt)
+            w_nn = torch.from_numpy((draw.standard_normal((hid, hid)) * hid ** -0.5)
+                                    .astype(np.float32)).to(dev, dt)
+            res_nn = torch.from_numpy(draw.standard_normal((rows7, hid)).astype(np.float32)
+                                      ).to(dev, dt)
+            outs = []
+            for product in (gemm_nn, gemm_nn, gemm_nn_plain):
+                cs = torch.empty((-(-rows7 // 128), hid), device=dev)
+                out = product(a_nn, w_nn, compute_dtype=dt, epilogue="relu_grad",
+                              residual=res_nn, mask=gcn_masks[0].reshape(rows7, hid),
+                              scale=1.25, colsum=cs, out_dtype=dt)
+                outs.append((out, cs))
+            torch.cuda.synchronize()
+            rel = max(rel_err(outs[0][0], outs[2][0]), rel_err(outs[0][1], outs[2][1]))
+            bitwise = torch.equal(outs[0][1], outs[1][1])
+            log(f"gemm_nn relu_grad {dt_name} [{rows7}, {hid}] @ [{hid}, {hid}]: "
+                f"max|diff|/max|ref| "
+                f"{rel:.2e} (tol {tol}), column sums bitwise equal across two runs: {bitwise}")
+            if not bitwise or rel > tol:
+                raise RuntimeError(f"gemm_nn relu_grad {dt_name}: error {rel:.3e}, "
+                                   f"bitwise {bitwise}")
+        del a_tn, b_tn, runs, ref, total, a_nn, w_nn, res_nn, outs
 
     # 7. The whole-tree clip + SGD (rows 8-9) vs plain: the reference
     # model's 23 leaves, one task and a task axis of 4 (task v's parameters
@@ -1550,6 +1696,7 @@ def main() -> int:
         def run(fn, xs):
             return fn(xs[0], a_rows, xs[1], xs[2] if has_next else None, mask, 0.8, dt)
 
+        run.a_rows, run.mask = a_rows, mask
         return leaves, run
 
     def shard_graph(run, fn, leaves):
@@ -1599,6 +1746,36 @@ def main() -> int:
                             bwd = cuda_ms(torch, lambda: torch.autograd.grad(
                                 out, xs, cts, retain_graph=True))
                             times[route] = (fwd, bwd)
+                        # Device times by graph replay (row 13 alone from both
+                        # cotangents), the cuBLAS route's too; row 12's launches.
+                        a_rows, mask, w_next = run.a_rows, run.mask, leaves[2]
+                        with torch.no_grad():
+                            h_post, _ = fgs.shard_layer_plain(*leaves[:1], a_rows, leaves[1],
+                                                              w_next, mask, 0.8, dt)
+                            g1, g2 = cts
+
+                            def row13():
+                                fgs._bwd_cuda(g1, g2, h_post, a_rows, w_next, mask, 1.25, dt, dt)
+
+                            def lib13():
+                                fgs.shard_bwd_plain(g1, g2, h_post, a_rows, w_next, mask, 0.8,
+                                                    dt, dt)
+
+                            before = (gemm_nn.launches, gemm.launches)
+                            run(fgs.gcn_shard_layer, leaves)
+                            core12 = {"gemm_nn": gemm_nn.launches - before[0],
+                                      "gemm.cu": gemm.launches - before[1]}
+                            if core12 != {"gemm_nn": 2, "gemm.cu": 0}:
+                                raise RuntimeError(f"row 12 launched {core12} a call")
+                            dev_ms = {
+                                "row 12": graph_ms(torch, lambda: run(fgs.gcn_shard_layer, leaves)),
+                                "cuBLAS row 12": graph_ms(
+                                    torch, lambda: run(fgs.shard_layer_plain, leaves)),
+                                "row 13": graph_ms(torch, row13),
+                                "cuBLAS row 13": graph_ms(torch, lib13)}
+                        log(f"rows 12-13 {dt_name} NL={nl}: device time by graph replay " +
+                            ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
+                            + f"; row 12 launches a call {core12}  [{card}]")
                         e = 4 if dt_name == "float32" else 2
                         hw_b, act_b = n * w_len * hid * e, nl * w_len * hid * e
                         fixed_b = 4 * nl * n + 4 * hid * hid + nl * w_len * hid
@@ -1617,11 +1794,21 @@ def main() -> int:
                             measured["gcn_shard_layer"] = {
                                 "max_abs_err": fwd_err, "ms": times["kernel"][0],
                                 "plain_ms": times["plain"][0], "library_ms": times["plain"][0],
-                                "bytes": bytes_f, "flops": flops_f}
+                                "bytes": bytes_f, "flops": flops_f,
+                                "device_ms": dev_ms["row 12"],
+                                "library_device_ms": dev_ms["cuBLAS row 12"],
+                                "core_launches": core12}
                             measured["gcn_shard_layer.backward"] = {
                                 "max_abs_err": bwd_err, "ms": times["kernel"][1],
                                 "plain_ms": times["plain"][1], "library_ms": times["plain"][1],
-                                "bytes": bytes_b, "flops": flops_b}
+                                "bytes": bytes_b, "flops": flops_b,
+                                "device_ms": dev_ms["row 13"],
+                                "library_device_ms": dev_ms["cuBLAS row 13"]}
+                        if dt_name == "float32" and nl < n:
+                            measured["gcn_shard_layer"].setdefault("by_nl", {})[nl] = {
+                                "ms": times["kernel"][0], "device_ms": dev_ms["row 12"],
+                                "library_ms": times["plain"][0],
+                                "library_device_ms": dev_ms["cuBLAS row 12"]}
         del leaves, res, out, xs, cts
 
     # 13. Node-sharded meta-training on a 1 x 1 mesh: a NCCL group of one rank
@@ -2445,11 +2632,12 @@ def main() -> int:
             split_launches["gemm_nn"] = gemm_nn.launches
             log(f"launches in one meta step with unmerged gates: {split_launches}")
             forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
-            # Row 15 runs the GEMM core twice a layer: its gates and its
-            # input gradient.
+            # Row 15 runs the GEMM core twice a layer (its gates and its
+            # input gradient), and so does row 7, the GCN stack's backward
+            # (A_hat^T dz and its input gradient).
             want = {"lstm_stack_split": forwards, "lstm_stack_split.backward": forwards,
                     "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
-                    "gemm_nn": 2 * n_l * forwards}
+                    "gemm_nn": 2 * (n_l + cfg.gcn_layers) * forwards}
             if split_launches != want:
                 raise RuntimeError(f"meta-train with unmerged gates launched {split_launches}, "
                                    f"not {want}")
@@ -2517,7 +2705,8 @@ def main() -> int:
             # (row 5 also its call alone), and the bfloat16 run beside its
             # library call.
             **{k: m[k] for k in ("device_ms", "call_ms", "library_device_ms", "parts_ms",
-                                 "bfloat16") if k in m},
+                                 "bfloat16", "library_call_ms", "core_launches", "by_nl")
+               if k in m},
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -36,7 +36,15 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import (
     fused_sgd,
     lstm_scan,
 )
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm_nn, gemm_nn_plain
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
+    gemm,
+    gemm_nn,
+    gemm_nn_plain,
+    gemm_tn,
+    gemm_tn_plain,
+    sum_splits,
+    tn_splits,
+)
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import task_batch_grad
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks
 
@@ -863,6 +871,132 @@ def test_gemm_nn_refuses_what_it_does_not_take(dev):
         gemm_nn(a, b, compute_dtype=torch.float32, epilogue="mask")
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         gemm_nn(a, b, compute_dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,split_rows", [((12288, 256, 256), 256), ((12288, 24, 256), 256),
+                                              ((300, 40, 48), 64), ((96, 136, 16), 32)])
+def test_gemm_tn_matches_plain(dev, dtype, shape, split_rows):
+    """The K-split TN core (row 7's weight gradients; at the reference width
+    and at layer 0's 24 rows, and at ragged M, N, K) against its plain
+    version split by split, the sums against float64 a^T @ b, and two runs
+    bitwise equal."""
+    k, m, n = shape
+    a = _card(dev, (k, m), dtype, seed=1)
+    b = _card(dev, (k, n), dtype, seed=2, scale=k ** -0.5)
+    splits = tn_splits(k, split_rows)
+    before = gemm_tn.launches
+    got = gemm_tn(a, b, torch.empty((splits, m, n), device=dev), compute_dtype=dtype,
+                  split_rows=split_rows)
+    again = gemm_tn(a, b, torch.empty((splits, m, n), device=dev), compute_dtype=dtype,
+                    split_rows=split_rows)
+    assert gemm_tn.launches == before + 2
+    assert torch.equal(got, again)
+    ref = gemm_tn_plain(a, b, torch.empty((splits, m, n), device=dev), compute_dtype=dtype,
+                        split_rows=split_rows)
+    assert _rel(got, ref) <= 1e-5
+    total = torch.empty((1, m * n), device=dev)
+    sum_splits(got.view(splits, 1, m * n), total, "test")
+    want = a.double().T @ b.double()
+    assert _rel(total.view(m, n), want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_gemm_tn_refuses_what_it_does_not_take(dev):
+    a, b = torch.zeros((64, 16), device=dev), torch.zeros((64, 24), device=dev)
+    out = torch.empty((1, 16, 24), device=dev)
+    with pytest.raises(ValueError, match="M that are multiples of 8"):
+        gemm_tn(torch.zeros((64, 12), device=dev), b, torch.empty((1, 12, 24), device=dev),
+                compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="split rows"):
+        gemm_tn(a, b, torch.empty((2, 16, 24), device=dev), compute_dtype=torch.float32,
+                split_rows=40)
+    with pytest.raises(ValueError, match="in torch.bfloat16"):
+        gemm_tn(a, b, out, compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gemm_tn(a, b, out, compute_dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [300, 12288])
+def test_gemm_nn_new_epilogues_match_plain(dev, dtype, m):
+    """The bias + relu + mask epilogue (row 12) and the relu-grad epilogue
+    with its row tiles' column sums (row 7: residual float32 and in the
+    compute dtype, with and without a mask), at a ragged M and at row 7's;
+    the column sums bitwise equal across two runs."""
+    k, n = 256, 256
+    tol = TOL[dtype]
+    a = _card(dev, (m, k), dtype, seed=1)
+    b = _card(dev, (k, n), dtype, seed=2, scale=k ** -0.5)
+    mask = (_card(dev, (m, n), seed=4) > -0.84).to(torch.int8)
+    bias = _card(dev, (n,), seed=3, scale=0.1)
+    kw = dict(epilogue="bias_relu_mask", bias=bias, mask=mask, scale=1.25, out_dtype=dtype)
+    torch.testing.assert_close(gemm_nn(a, b, compute_dtype=dtype, **kw).float(),
+                               gemm_nn_plain(a, b, compute_dtype=dtype, **kw).float(),
+                               rtol=tol, atol=tol)
+    tiles = -(-m // 128)
+    for res_dt in (torch.float32, dtype):
+        residual = _card(dev, (m, n), res_dt, seed=5)
+        for msk in (mask, None):
+            outs = []
+            for product in (gemm_nn, gemm_nn, gemm_nn_plain):
+                cs = torch.empty((tiles, n), device=dev)
+                out = torch.empty((m, n), dtype=dtype, device=dev)
+                product(a, b, compute_dtype=dtype, epilogue="relu_grad", residual=residual,
+                        mask=msk, scale=1.25, colsum=cs, out=out)
+                outs.append((out, cs))
+            (got, cs), (_, cs2), (ref, ref_cs) = outs
+            torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+            assert torch.equal(cs, cs2)
+            assert _rel(cs, ref_cs) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gcn_train_backward_runs_on_the_core(dev, dtype):
+    """Row 7 at the inner step's shapes (24 slices x 512 nodes, 24 -> 4 x
+    256, masks after layers 0-2 at rate 0.2) against the plain schedule from
+    the same residuals: 2 NN and 1 TN launch of the core a layer, no
+    gemm.cu launch; dW bitwise equal across two calls."""
+    cfg = ModelConfig()
+    enc = init_encoder(torch.Generator().manual_seed(0), cfg).to(dev).requires_grad_(False)
+    weights = [layer.w for layer in enc.layers]
+    a_hat = _card(dev, (512, 512), seed=1, scale=512 ** -0.5).abs()
+    x = _card(dev, (24, 512, cfg.in_channels), seed=2)
+    masks = (_card(dev, (3, 24, 512, 256), seed=3) > -0.84).to(torch.int8)
+    h_all = fused_gcn_train._forward(x, a_hat, weights, [layer.b for layer in enc.layers], masks,
+                                     1.25, dtype)
+    g = _card(dev, h_all[-1].shape, dtype, seed=4)
+    before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+    got = fused_gcn_train._backward(g, x, a_hat, weights, masks, h_all, 1.25, dtype)
+    assert (gemm_nn.launches, gemm_tn.launches, gemm.launches) == (
+        before[0] + 8, before[1] + 4, before[2])
+    again = fused_gcn_train._backward(g, x, a_hat, weights, masks, h_all, 1.25, dtype)
+    ref = fused_gcn_train._backward(g, x, a_hat, weights, masks, h_all, 1.25, dtype,
+                                    fused_gcn_train.PLAIN_PIECES)
+    assert torch.equal(got[0], again[0])
+    assert _rel(got[0], ref[0]) <= TOL[dtype]
+    for got_l, again_l, ref_l in zip(got[1] + got[2], again[1] + again[2], ref[1] + ref[2]):
+        assert torch.equal(got_l, again_l)
+        assert _rel(got_l, ref_l) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nl", [512, 256, 128])
+def test_gcn_shard_forward_runs_on_the_core(dev, dtype, nl):
+    """Row 12 at full width (hw_full [512, 24, 256], a next layer, a mask)
+    against its plain version: two NN launches of the core, no gemm.cu."""
+    a = _shard_inputs(dev, dtype, nl, True, True, n=512, w=24, hid=256, hid_next=256)
+    before = (gemm_nn.launches, gemm.launches)
+    with torch.no_grad():
+        got = fused_gcn_shard.gcn_shard_layer(*a.values(), 0.8, dtype)
+    assert (gemm_nn.launches, gemm.launches) == (before[0] + 2, before[1])
+    ref = fused_gcn_shard.shard_layer_plain(*a.values(), 0.8, dtype)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.cuda

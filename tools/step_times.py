@@ -8,9 +8,10 @@ imports the port from CHECKOUT (default: this one) and prints one JSON line:
 the float32 FO inner step (one window, forward + backward + fused clip +
 SGD) and the same with `model.lstm_kernel=pallas`, each by the host clock
 (median of 20, ending in a synchronize) and by the device's busy time
-(torch.profiler, mean of 5), one FO meta step at `MetaConfig()` defaults
-(4 tasks x 90 inner steps, after one warm-up step) and the node-sharded
-meta step on a 1 x 1 mesh (a NCCL group of one; its own warm-up), and one
+(torch.profiler, mean of 5), the FO meta step at `MetaConfig()` defaults
+(4 tasks x 90 inner steps; the median of 3 after one warm-up step) and the
+node-sharded meta step on a 1 x 1 mesh (a NCCL group of one; its own
+warm-up, the median of 3), and one
 call of the serving GCN stack (kernel row 1, [72, 512, 24] -> 4 x 256) in
 float32 and bfloat16. Run it on two checkouts in turns (A, B, B, A) in one call on one
 card: the card's host varies between calls. `--cpu` is a dry run of the
@@ -137,11 +138,14 @@ for route, mc in (("default", ModelConfig()), ("pallas", ModelConfig(lstm_kernel
         for name, step, key in (("meta step ms", make_meta_step(mc, meta_cfg), g),
                                 ("sharded meta step ms", sharded, (7, 1))):
             step(state, tasks, key)
-            sync()
-            t0 = time.perf_counter()
-            step(state, tasks, key)
-            sync()
-            res[name] = None if args.cpu else (time.perf_counter() - t0) * 1e3
+            times = []
+            for _ in range(1 if args.cpu else 3):
+                sync()
+                t0 = time.perf_counter()
+                step(state, tasks, key)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            res[name] = None if args.cpu else statistics.median(times)
 
 cfg = ModelConfig()
 model = init_model(torch.Generator().manual_seed(0), cfg, device=dev)

@@ -1,18 +1,30 @@
-// Pipelined NN GEMM core: C = epilogue(op(A1) @ B1 [+ op(A2) @ B2]), row-major,
-// a batch as a leading index with strides.
+// Pipelined GEMM core, row-major, a batch as a leading index with strides:
+//   NN  C = epilogue(op(A1) @ B1 [+ op(A2) @ B2])          (wf_gemm_nn)
+//   TN  C[s] = A[ks]^T @ B[ks], split s of K, float32 partials  (wf_gemm_tn)
 //
-// Serves two kernel rows:
-//   row 3, weatherforecast_stgcn_maml_tpu/ops/fused_gcn.py `_kernel` (one GCN
-//     layer, forward): hw = round(h) @ round(W) stored in the compute dtype,
-//     then relu(round(A_hat) @ hw + b) in float32 (the bias + relu epilogue);
-//   row 15, fused_lstm_stack.py `_bwd_kernel` (the unmerged-gates LSTM
-//     backward), off its serial chain: the recomputed gates of one layer for
-//     all T x R rows, act(in @ Wx + h_{t-1} @ Wh + b) as two operand pairs into
-//     one float32 accumulator, the second at a row offset of R (h_{-1} = 0;
-//     the gate epilogue), and the input gradient round(dgates) @ Wx^T, times
-//     the layer below's dropout mask and 1/keep (the mask epilogue).
-// The other GEMMs of the port stay on gemm.cu; this core is the one they move
-// to next.
+// Serves these kernel rows (TPU kernels in weatherforecast_stgcn_maml_tpu/ops/):
+//   rows 1 and 3, fused_gcn.py `_stack_kernel` / `_kernel` (the GCN stack and
+//     one layer, forward): hw = round(h) @ round(W) stored in the compute
+//     dtype, then relu(round(A_hat) @ hw + b) (the bias + relu epilogue);
+//   row 7, fused_gcn_train.py `_bwd_kernel` (the training GCN stack's
+//     backward), layer by layer: dhw = round(A_hat^T) @ round(dz) per slice
+//     (NN, batched, stored in the compute dtype), dW = round(h_in)^T @ dhw over
+//     every slice and node (TN, split over K), and d_in = dhw @ round(W)^T,
+//     whose relu-grad epilogue writes the layer below's dz = d_in * [h > 0] *
+//     mask / keep in the compute dtype and its float32 column sums a row tile
+//     (db's partials, summed in tile order by wf_sum_splits);
+//   row 12, fused_gcn_shard.py `_fwd_kernel` (the node-sharded sandwich
+//     layer's forward): relu(round(A_rows) @ hw_full[:, s] + b) * mask / keep
+//     for every slice s in one batched launch over the node-major layout (the
+//     bias + relu + mask epilogue), then hw_next = round(h_post) @ W_next;
+//   rows 5 and 15, fused_lstm_stack.py `_bwd_kernel_m` / `_bwd_kernel` (the
+//     LSTM stack's backward), off the serial chain: row 15's recomputed gates
+//     of one layer for all T x R rows, act(in @ Wx + h_{t-1} @ Wh + b) as two
+//     operand pairs into one float32 accumulator, the second at a row offset
+//     of R (h_{-1} = 0; the gate epilogue), and both rows' input gradient
+//     round(dgates) @ Wx^T, times the layer below's dropout mask and 1/keep
+//     (the mask epilogue).
+// The other GEMMs of the port stay on gemm.cu.
 //
 // Numerics are the port's (common.cuh): operands are rounded to the compute
 // dtype as they are loaded, products accumulate in float32. B is stored in
@@ -40,6 +52,22 @@
 //     TMA and warp specialisation is later work.
 // Epilogues are compile-time variants (as runtime flags in gemm.cu they cost
 // an occupancy step); the store dtype is a runtime flag of the epilogue.
+//
+// TN (A stored [K, M]): the weight gradients' layout, natural for both tiles.
+//   float32: the A slab arrives by cp.async straight into the [BK][BM] layout
+//     the FFMA outer product reads (two LDS.128 of A and two of B a k step per
+//     64 FFMAs, as NN); ring, zero-filled edges and the 8 x 8 register tile
+//     as NN.
+//   bfloat16: A sits in shared memory as [BK][BM] rows and reaches mma.sync
+//     by ldmatrix.x4.trans, B as in NN.
+//   Split over K: at the GCN weight gradient's 256 x 256 output only 8 tiles
+//     exist, so each block takes `kc` rows of K (256 at the reference width:
+//     48 splits, 384 blocks, one wave at 3 blocks an SM) and writes its own
+//     float32 partial; wf_sum_splits adds them in split order, so the result
+//     does not depend on the order blocks ran in (no atomics: two runs are
+//     bitwise equal). An output narrower than the tile (M = 24 at the GCN's
+//     layer 0) zero-fills the missing columns as it loads, and warps whose
+//     rows all lie past M skip the math.
 #include <cstdint>
 
 #include "common.cuh"
@@ -47,7 +75,14 @@
 namespace wf {
 namespace {
 
-enum Epilogue : int { kEpiNone = 0, kEpiBiasRelu = 1, kEpiGates = 2, kEpiMask = 3 };
+enum Epilogue : int {
+  kEpiNone = 0,
+  kEpiBiasRelu = 1,
+  kEpiGates = 2,
+  kEpiMask = 3,
+  kEpiBiasReluMask = 4,  // relu(v + b[n]) * mask * scale
+  kEpiReluGrad = 5,      // v * [res > 0] (* mask * scale), plus column sums a row tile
+};
 
 // One operand pair. Output row m of batch z takes A row m - row_offset
 // (rows m < row_offset take no term of this pair): A[z*sa + (m -
@@ -67,10 +102,14 @@ struct NNArgs {
   void* C;  // C[z*sc + m*ldc + n], float32 or bfloat16 (c_bf16)
   long long sc;
   int ldc, c_bf16;
-  const float* bias;    // [N]: bias + relu, gates
-  const int8_t* mask;   // C's layout: the mask epilogue multiplies by mask * scale
+  const float* bias;    // [N]: bias + relu (+ mask), gates
+  const int8_t* mask;   // C's layout: multiplies by mask * scale (may be null in relu-grad)
   float scale;
   int M, N;
+  const void* res;  // relu-grad: the post-dropout activation in C's layout
+  int res_bf16;     // ... stored in bfloat16 (else float32)
+  float* colsum;    // relu-grad: colsum[(z * row tiles + tile) * ldp + n], float32
+  int ldp;
 };
 
 __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool ok) {
@@ -87,6 +126,13 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int EPI>
 __device__ __forceinline__ float epilogue(float v, int n, long long at, const NNArgs& g) {
   if (EPI == kEpiBiasRelu) return fmaxf(v + g.bias[n], 0.f);
+  if (EPI == kEpiBiasReluMask) return fmaxf(v + g.bias[n], 0.f) * ((float)g.mask[at] * g.scale);
+  if (EPI == kEpiReluGrad) {
+    const float h = g.res_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(g.res)[at])
+                               : static_cast<const float*>(g.res)[at];
+    v = v * (h > 0.f ? 1.f : 0.f);
+    return g.mask ? v * ((float)g.mask[at] * g.scale) : v;
+  }
   if (EPI == kEpiGates) {  // gate order i, f, g, o: tanh on g, sigmoid on the rest
     v = v + g.bias[n];
     return n / (g.N >> 2) == 2 ? tanhf(v) : sigmoidf(v);
@@ -95,20 +141,20 @@ __device__ __forceinline__ float epilogue(float v, int n, long long at, const NN
   return v;
 }
 
-// Columns n .. n + W - 1 of row m (all < N: N is a multiple of 8 and n of W).
+// Columns n .. n + W - 1 of row m (all < N: N is a multiple of 8 and n of W);
+// v is left holding the epilogue's float32 values.
 template <int EPI, int W>
-__device__ __forceinline__ void store_run(const NNArgs& g, long long at, int n, const float* v) {
-  float o[W];
+__device__ __forceinline__ void store_run(const NNArgs& g, long long at, int n, float* v) {
 #pragma unroll
-  for (int j = 0; j < W; ++j) o[j] = epilogue<EPI>(v[j], n + j, at + j, g);
+  for (int j = 0; j < W; ++j) v[j] = epilogue<EPI>(v[j], n + j, at + j, g);
   if (g.c_bf16) {
     __nv_bfloat162* c = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(g.C) + at);
 #pragma unroll
-    for (int j = 0; j < W; j += 2) c[j / 2] = __floats2bfloat162_rn(o[j], o[j + 1]);
+    for (int j = 0; j < W; j += 2) c[j / 2] = __floats2bfloat162_rn(v[j], v[j + 1]);
   } else if constexpr (W == 4) {
-    *reinterpret_cast<float4*>(static_cast<float*>(g.C) + at) = make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(static_cast<float*>(g.C) + at) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
-    *reinterpret_cast<float2*>(static_cast<float*>(g.C) + at) = make_float2(o[0], o[1]);
+    *reinterpret_cast<float2*>(static_cast<float*>(g.C) + at) = make_float2(v[0], v[1]);
   }
 }
 
@@ -220,6 +266,9 @@ __global__ void __launch_bounds__(kFThreads, 3) gemm_nn_f32_kernel(NNArgs g) {
     }
   }
 
+  float cs[8];  // relu-grad: this thread's column sums over its rows
+#pragma unroll
+  for (int j = 0; j < 8; ++j) cs[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + ty * 8 + i;
@@ -227,8 +276,26 @@ __global__ void __launch_bounds__(kFThreads, 3) gemm_nn_f32_kernel(NNArgs g) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int n = n0 + h * 32 + tx * 4;
-      if (n < g.N)
+      if (n < g.N) {
         store_run<EPI, 4>(g, z * g.sc + (long long)m * g.ldc + n, n, &acc[i][h * 4]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cs[h * 4 + j] += acc[i][h * 4 + j];
+      }
+    }
+  }
+  if constexpr (EPI == kEpiReluGrad) {
+    // The tile's column sums: the 16 row groups' sums added in order.
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is done with the ring
+    float* red = As;  // [16][kFBN]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[ty * kFBN + (j / 4) * 32 + tx * 4 + j % 4] = cs[j];
+    __syncthreads();
+    if (tid < kFBN && n0 + tid < g.N) {
+      float s = 0.f;
+#pragma unroll
+      for (int t = 0; t < kFThreads / 8; ++t) s += red[t * kFBN + tid];
+      g.colsum[(z * gridDim.y + blockIdx.y) * g.ldp + n0 + tid] = s;
     }
   }
 }
@@ -400,6 +467,260 @@ __global__ void __launch_bounds__(kHThreads, 3) gemm_nn_bf16_kernel(NNArgs g) {
   }
 
   // acc[mi][ni]: rows wm + mi*16 + lane/4 (+8), columns wn + ni*8 + (lane%4)*2 (+1).
+  float cs[4][2];  // relu-grad: this thread's column sums over its rows
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) cs[ni][0] = cs[ni][1] = 0.f;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mi * 16 + lane / 4 + half * 8;
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = n0 + wn + ni * 8 + (lane % 4) * 2;
+        if (n < g.N) {
+          store_run<EPI, 2>(g, z * g.sc + (long long)m * g.ldc + n, n, &acc[mi][ni][half * 2]);
+          cs[ni][0] += acc[mi][ni][half * 2];
+          cs[ni][1] += acc[mi][ni][half * 2 + 1];
+        }
+      }
+    }
+  if constexpr (EPI == kEpiReluGrad) {
+    // The tile's column sums: over the 8 lanes that share a column (a fixed
+    // butterfly), then the two warps that share it, in order.
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = cs[ni][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        cs[ni][e] = v;
+      }
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is done with the ring
+    float* red = reinterpret_cast<float*>(smem4);  // [2][kHBN]
+    if (lane < 4)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          red[(warp % 2) * kHBN + wn + ni * 8 + lane * 2 + e] = cs[ni][e];
+    __syncthreads();
+    if (tid < kHBN && n0 + tid < g.N)
+      g.colsum[(z * gridDim.y + blockIdx.y) * g.ldp + n0 + tid] = red[tid] + red[kHBN + tid];
+  }
+}
+
+// ---------------------------------------------------------------- TN
+
+// C[z*sc + m*ldc + n] = sum over k in [z*kc, min(K, (z+1)*kc)) of
+// A[k*lda + m] * B[k*ldb + n]: split z's float32 partial of A^T @ B.
+struct TNArgs {
+  const void* A;  // [K, M], compute dtype
+  const void* B;  // [K, N], compute dtype
+  float* C;
+  long long sc;
+  int lda, ldb, ldc, M, N, K, kc;
+};
+
+// float32: the NN tile's sizes (kFBM x kFBN, kFBK-deep slabs, kFStages) and
+// ring size, A's slab stored [BK][BM].
+constexpr int kTAStage = kFBK * kFBM;
+static_assert(kTAStage == kFAStage, "TN float32 reuses NN's ring size");
+
+__global__ void __launch_bounds__(kFThreads, 3) gemm_tn_f32_kernel(TNArgs g) {
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);
+  float* Bs = As + kFStages * kTAStage;
+  const int tid = threadIdx.x;
+  const int tx = tid % 8;  // columns tx*4 .. +3 and 32 + tx*4 .. +3
+  const int ty = tid / 8;  // rows ty*8 .. +7
+  const int m0 = blockIdx.y * kFBM;
+  const int n0 = blockIdx.x * kFBN;
+  const long long z = blockIdx.z;
+  const int kb = (int)z * g.kc;
+  const int ke = min(g.K, kb + g.kc);
+  const int kts = (ke - kb + kFBK - 1) / kFBK;
+  const float* A = static_cast<const float*>(g.A);
+  const float* B = static_cast<const float*>(g.B);
+
+  auto load_slab = [&](int s, int stage) {
+    const int k0 = kb + s * kFBK;
+    float* as = As + stage * kTAStage;
+    float* bs = Bs + stage * kFBStage;
+#pragma unroll
+    for (int i = 0; i < kTAStage / 4 / kFThreads; ++i) {  // 16-byte chunks of A rows
+      const int c = tid + i * kFThreads;
+      const int r = c / (kFBM / 4);
+      const int mc = (c % (kFBM / 4)) * 4;
+      const bool ok = k0 + r < ke && m0 + mc < g.M;
+      cp_async16_zfill(as + r * kFBM + mc, ok ? A + (long long)(k0 + r) * g.lda + m0 + mc : A,
+                       ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kFBStage / 4 / kFThreads; ++i) {
+      const int c = tid + i * kFThreads;
+      const int r = c / (kFBN / 4);
+      const int nc = (c % (kFBN / 4)) * 4;
+      const bool ok = k0 + r < ke && n0 + nc < g.N;
+      cp_async16_zfill(bs + r * kFBN + nc, ok ? B + (long long)(k0 + r) * g.ldb + n0 + nc : B,
+                       ok);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const bool live = m0 + ty * 8 < g.M;  // rows past M (a narrow output) skip the math
+
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < kts) load_slab(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < kts; ++s) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();
+    const int nxt = s + kFStages - 1;
+    if (nxt < kts) load_slab(nxt, nxt % kFStages);
+    cp_async_commit();
+    if (!live) continue;
+    const float* as = As + (s % kFStages) * kTAStage + ty * 8;
+    const float* bs = Bs + (s % kFStages) * kFBStage + tx * 4;
+#pragma unroll
+    for (int kk = 0; kk < kFBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kFBM);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * kFBM + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * kFBN);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * kFBN + 32);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+
+  float* C = g.C + z * g.sc;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 8 + i;
+    if (m >= g.M) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 32 + tx * 4;
+      if (n < g.N)
+        *reinterpret_cast<float4*>(C + (long long)m * g.ldc + n) =
+            make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+    }
+  }
+}
+
+// bfloat16: the NN tile's sizes; A's slab stored [kHBK][kHBM] with rows
+// padded by 16 bytes, so ldmatrix's 8 rows fall in 8 distinct bank groups.
+constexpr int kULdA = kHBM + 8;
+constexpr int kUAStage = kHBK * kULdA;
+constexpr size_t kUSmem = (size_t)kHStages * (kUAStage + kHBStage) * sizeof(__nv_bfloat16);
+
+__global__ void __launch_bounds__(kHThreads, 3) gemm_tn_bf16_kernel(TNArgs g) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Bs = As + kHStages * kUAStage;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int wm = (warp % 2) * 64;  // the warp's 64 x 32 tile
+  const int wn = (warp / 2) * 32;
+  const int m0 = blockIdx.y * kHBM;
+  const int n0 = blockIdx.x * kHBN;
+  const long long z = blockIdx.z;
+  const int kb = (int)z * g.kc;
+  const int ke = min(g.K, kb + g.kc);
+  const int kts = (ke - kb + kHBK - 1) / kHBK;
+  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(g.A);
+  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(g.B);
+
+  auto load_slab = [&](int s, int stage) {
+    const int k0 = kb + s * kHBK;
+    __nv_bfloat16* as = As + stage * kUAStage;
+    __nv_bfloat16* bs = Bs + stage * kHBStage;
+#pragma unroll
+    for (int i = 0; i < kHBK * kHBM / 8 / kHThreads; ++i) {
+      const int c = tid + i * kHThreads;
+      const int r = c / (kHBM / 8);
+      const int mc = (c % (kHBM / 8)) * 8;
+      const bool ok = k0 + r < ke && m0 + mc < g.M;
+      cp_async16_zfill(as + r * kULdA + mc, ok ? A + (long long)(k0 + r) * g.lda + m0 + mc : A,
+                       ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kHBK * kHBN / 8 / kHThreads; ++i) {
+      const int c = tid + i * kHThreads;
+      const int r = c / (kHBN / 8);
+      const int nc = (c % (kHBN / 8)) * 8;
+      const bool ok = k0 + r < ke && n0 + nc < g.N;
+      cp_async16_zfill(bs + r * kHLdB + nc, ok ? B + (long long)(k0 + r) * g.ldb + n0 + nc : B,
+                       ok);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const bool live = m0 + wm < g.M;  // a warp whose rows all lie past M skips the math
+
+#pragma unroll
+  for (int s = 0; s < kHStages - 1; ++s) {
+    if (s < kts) load_slab(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < kts; ++s) {
+    cp_async_wait<kHStages - 2>();
+    __syncthreads();
+    const int nxt = s + kHStages - 1;
+    if (nxt < kts) load_slab(nxt, nxt % kHStages);
+    cp_async_commit();
+    if (!live) continue;
+    const __nv_bfloat16* as = As + (s % kHStages) * kUAStage;
+    const __nv_bfloat16* bs = Bs + (s % kHStages) * kHBStage;
+#pragma unroll
+    for (int ks = 0; ks < kHBK; ks += 16) {
+      uint32_t af[4][4], bf[4][2];
+      // A^T's 16 x 16 fragment from the [k][m] rows: matrix q = lane / 8
+      // covers rows (q & 1) * 8 and k (q >> 1) * 8 of it, and .trans hands
+      // each thread its row-major pairs.
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4_trans(af[mi], as + (ks + (lane >> 4) * 8 + (lane & 7)) * kULdA + wm +
+                                      mi * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, bs + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * kHLdB + wn +
+                                 nj * 16 + (lane >> 4) * 8);
+        bf[2 * nj][0] = r[0];
+        bf[2 * nj][1] = r[1];
+        bf[2 * nj + 1][0] = r[2];
+        bf[2 * nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+    }
+  }
+
+  float* C = g.C + z * g.sc;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -410,7 +731,8 @@ __global__ void __launch_bounds__(kHThreads, 3) gemm_nn_bf16_kernel(NNArgs g) {
       for (int ni = 0; ni < 4; ++ni) {
         const int n = n0 + wn + ni * 8 + (lane % 4) * 2;
         if (n < g.N)
-          store_run<EPI, 2>(g, z * g.sc + (long long)m * g.ldc + n, n, &acc[mi][ni][half * 2]);
+          *reinterpret_cast<float2*>(C + (long long)m * g.ldc + n) =
+              make_float2(acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
       }
     }
 }
@@ -419,7 +741,8 @@ __global__ void __launch_bounds__(kHThreads, 3) gemm_nn_bf16_kernel(NNArgs g) {
 
 // Both rings fit the 48 KB of dynamic shared memory a block gets without
 // an opt-in: no cudaFuncSetAttribute call on the launch path.
-static_assert(kFSmem <= 48 * 1024 && kHSmem <= 48 * 1024, "opt-in shared memory");
+static_assert(kFSmem <= 48 * 1024 && kHSmem <= 48 * 1024 && kUSmem <= 48 * 1024,
+              "opt-in shared memory");
 
 // Refusals: an argument the kernel does not take. Negative, so that they
 // never collide with a cudaError_t; ops/gemm.py `_NN_REFUSALS` words each.
@@ -437,6 +760,9 @@ enum Refusal {
   kRefuseMask = -11,     // the mask epilogue without a mask
   kRefuseEpilogue = -12, // no such epilogue
   kRefuseGrid = -13,     // more than 65535 row tiles or batch entries
+  kRefuseReluGrad = -14, // the relu-grad epilogue without a residual or column-sum partials
+  kRefuseM = -15,        // TN: M not a multiple of 8
+  kRefuseSplit = -16,    // TN: split rows not a positive multiple of 32
 };
 
 template <typename KernelT>
@@ -471,8 +797,9 @@ struct NNLaunch {
   long long c, sc, ldc, c_bf16, bias, mask;
   double scale;
   long long M, N, batch, stream;
+  long long res, res_bf16, colsum, ldp;
 };
-static_assert(sizeof(NNLaunch) == 30 * 8, "NNLaunch is 30 packed 8-byte fields");
+static_assert(sizeof(NNLaunch) == 34 * 8, "NNLaunch is 34 packed 8-byte fields");
 
 // C = epilogue(op(A1) @ B1 [+ op(A2) @ B2]) for each of `batch` batch entries
 // (see wf::NNPair / wf::NNArgs for the indexing). r_dt is the compute dtype
@@ -480,7 +807,11 @@ static_assert(sizeof(NNLaunch) == 30 * 8, "NNLaunch is 30 packed 8-byte fields")
 // stored in float32 (else in the compute dtype; float32 compute takes only
 // float32 A). c_bf16 stores C in bfloat16. epilogue: 0 none, 1 + bias then
 // relu, 2 + bias then the LSTM gate activation (N = 4H, gate order i, f, g,
-// o), 3 x mask * scale (int8 in C's layout). a2 null: one pair. Every K, N,
+// o), 3 x mask * scale (int8 in C's layout), 4 + bias, relu, x mask *
+// scale, 5 (relu-grad) x [res > 0] (res float32, or bfloat16 with res_bf16,
+// in C's layout) x mask * scale where a mask is given, with the float32
+// column sums of each 128-row tile written to colsum[(z * tiles + tile) *
+// ldp + n]. a2 null: one pair. Every K, N,
 // leading dimension and batch stride is a multiple of 8 elements and every
 // pointer 16-byte aligned. Returns a cudaError_t code (0 on success); an
 // argument the kernel does not take returns its negative wf::Refusal code
@@ -511,6 +842,11 @@ extern "C" int wf_gemm_nn(const NNLaunch* p) {
   g.scale = (float)p->scale;
   g.M = M;
   g.N = N;
+  g.res = ptr(p->res);
+  g.res_bf16 = (int)p->res_bf16;
+  g.colsum = reinterpret_cast<float*>(p->colsum);
+  g.ldp = (int)p->ldp;
+  if (p->ldp > kMax) return kRefuseInt32;
   if (M <= 0 || N <= 0 || batch <= 0) return kRefuseSize;
   if (N % 8) return kRefuseN;
   if (g.ldc % 8 || g.sc % 8 || !aligned16(g.C)) return kRefuseC;
@@ -523,8 +859,11 @@ extern "C" int wf_gemm_nn(const NNLaunch* p) {
     if (q.row_offset < 0) return kRefuseOffset;
     if (r_dt == kF32 && !q.a_f32) return kRefuseAType;
   }
-  if ((epilogue == kEpiBiasRelu || epilogue == kEpiGates) && !g.bias) return kRefuseBias;
-  if (epilogue == kEpiMask && !g.mask) return kRefuseMask;
+  if ((epilogue == kEpiBiasRelu || epilogue == kEpiGates || epilogue == kEpiBiasReluMask) &&
+      !g.bias)
+    return kRefuseBias;
+  if ((epilogue == kEpiMask || epilogue == kEpiBiasReluMask) && !g.mask) return kRefuseMask;
+  if (epilogue == kEpiReluGrad && (!g.res || !g.colsum || g.ldp < N)) return kRefuseReluGrad;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(p->stream);
   switch (epilogue) {
     case kEpiNone:
@@ -535,12 +874,57 @@ extern "C" int wf_gemm_nn(const NNLaunch* p) {
       return launch_epi<kEpiGates>(r_dt, g, batch, s);
     case kEpiMask:
       return launch_epi<kEpiMask>(r_dt, g, batch, s);
+    case kEpiBiasReluMask:
+      return launch_epi<kEpiBiasReluMask>(r_dt, g, batch, s);
+    case kEpiReluGrad:
+      return launch_epi<kEpiReluGrad>(r_dt, g, batch, s);
   }
   return kRefuseEpilogue;
 }
 
+// The arguments of one TN launch, 13 packed 8-byte fields (ops/gemm.py
+// `_TN_LAUNCH`).
+struct TNLaunch {
+  long long r_dt, a, lda, b, ldb, c, sc, ldc, M, N, K, kc, stream;
+};
+static_assert(sizeof(TNLaunch) == 13 * 8, "TNLaunch is 13 packed 8-byte fields");
+
+// C[s] = A[ks]^T @ B[ks] for every split s of K: ks = rows [s*kc, min(K,
+// (s+1)*kc)), A [K, M] and B [K, N] stored in the compute dtype r_dt (0 =
+// float32, 1 = bfloat16) with row strides lda, ldb; C float32, split s at
+// C + s*sc, row stride ldc. M, N, every row stride and sc are multiples of 8
+// elements, every pointer 16-byte aligned, kc a positive multiple of 32.
+// Returns a cudaError_t code, or a negative wf::Refusal without launching.
+extern "C" int wf_gemm_tn(const TNLaunch* p) {
+  using namespace wf;
+  const int32_t kMax = 0x7fffffff;
+  if (p->lda > kMax || p->ldb > kMax || p->ldc > kMax || p->M > kMax || p->N > kMax ||
+      p->K > kMax || p->kc > kMax)
+    return kRefuseInt32;
+  TNArgs g{reinterpret_cast<const void*>(p->a), reinterpret_cast<const void*>(p->b),
+           reinterpret_cast<float*>(p->c), p->sc, (int)p->lda, (int)p->ldb, (int)p->ldc,
+           (int)p->M, (int)p->N, (int)p->K, (int)p->kc};
+  if (g.M <= 0 || g.N <= 0 || g.K <= 0) return kRefuseSize;
+  if (g.N % 8) return kRefuseN;
+  if (g.M % 8) return kRefuseM;
+  if (g.kc <= 0 || g.kc % 32) return kRefuseSplit;
+  if (g.ldc % 8 || g.sc % 8 || !aligned16(g.C)) return kRefuseC;
+  if (g.lda % 8 || g.ldb % 8 || !aligned16(g.A) || !aligned16(g.B)) return kRefuseAB;
+  const dim3 grid((g.N + kFBN - 1) / kFBN, (g.M + kFBM - 1) / kFBM, (g.K + g.kc - 1) / g.kc);
+  if (grid.y > 65535u || grid.z > 65535u) return kRefuseGrid;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(p->stream);
+  if (p->r_dt == kF32)
+    gemm_tn_f32_kernel<<<grid, kFThreads, kFSmem, s>>>(g);
+  else if (p->r_dt == kBF16)
+    gemm_tn_bf16_kernel<<<grid, kHThreads, kUSmem, s>>>(g);
+  else
+    return kRefuseDtype;
+  return (int)cudaGetLastError();
+}
+
 // The dynamic shared memory a block of the float32 (r_dt 0) or bfloat16 (1)
-// kernel takes: its cp.async ring (ptxas -v reports static memory only).
+// NN kernel takes, its cp.async ring (ptxas -v reports static memory only);
+// the TN kernels take the float32 ring and kUSmem.
 extern "C" long long wf_gemm_nn_smem(int r_dt) {
   return r_dt == wf::kF32 ? (long long)wf::kFSmem : (long long)wf::kHSmem;
 }

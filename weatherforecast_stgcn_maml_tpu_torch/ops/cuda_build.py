@@ -40,12 +40,14 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PLL = ctypes.POINTER(ctypes.c_longlong)
+_PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "wf_gemm": [_I, _I, _I, _I, _P, _LL, _I, _I, _P, _F, _P, _LL, _I, _I,
                 _P, _LL, _I, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _P],
     "wf_sum_splits": [_P, _I, _LL, _P, _I, _I, _I, _P],
     "wf_colsum": [_P, _I, _I, _I, _I, _P, _P],
-    "wf_gcn_relu_mask_grad": [_I, _I, _P, _P, _P, _F, _P, _LL, _P],
+    "wf_gcn_relu_mask_grad": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    "wf_transpose_round": [_I, _I, _PP, _PP, _PI, _PI, _PI, _PI, _P],
     "wf_gcn_shard_dz": [_I, _I, _P, _P, _P, _P, _F, _P, _LL, _P],
     "wf_lstm_stack_last": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
@@ -63,6 +65,7 @@ _SIGNATURES = {
     "wf_lstm_stack_recurrence_smem": [_I, _I, _I, _I],
     "wf_gemm_nn": [ctypes.c_char_p],  # one packed NNLaunch (ops/gemm.py _NN_LAUNCH)
     "wf_gemm_nn_smem": [_I],
+    "wf_gemm_tn": [ctypes.c_char_p],  # one packed TNLaunch (ops/gemm.py _TN_LAUNCH)
     "wf_lstm_hvp_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
                         _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_hvp_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,

@@ -107,7 +107,7 @@ fused_gcn_stack.launches = 0  # stacks run through the CUDA kernels (row 1)
 fused_gcn_stack.gemm_nn_launches = 0  # their gemm_nn launches (two a layer)
 
 
-def _pad(t: torch.Tensor, sizes) -> torch.Tensor:
+def pad_to(t: torch.Tensor, sizes) -> torch.Tensor:
     """t zero-padded at the end of each dimension to `sizes` (t itself when
     it has them)."""
     if tuple(t.shape) == tuple(sizes):
@@ -117,7 +117,8 @@ def _pad(t: torch.Tensor, sizes) -> torch.Tensor:
     return out
 
 
-def _up(n: int) -> int:
+def aligned(n: int) -> int:
+    """n rounded up to a multiple of NN_MULTIPLE."""
     return -(-n // NN_MULTIPLE) * NN_MULTIPLE
 
 
@@ -131,14 +132,14 @@ def _layer(hb, a, w, b, compute_dtype, out_dtype, product):
     256) takes no padding."""
     slices, n, c_in = hb.shape
     n_p, c_out = a.shape[1], w.shape[1]
-    ci_p, co_p = _up(c_in), _up(c_out)
-    hb = _pad(hb, (slices, n, ci_p))
+    ci_p, co_p = aligned(c_in), aligned(c_out)
+    hb = pad_to(hb, (slices, n, ci_p))
     # hw rows n .. n_p - 1 of each slice stay zero: the aggregation's K tail.
     hw = (torch.empty if n_p == n else torch.zeros)(
         (slices, n_p, co_p), dtype=compute_dtype, device=hb.device)
-    product(hb, _pad(w, (ci_p, co_p)), out=hw[:, :n], compute_dtype=compute_dtype,
+    product(hb, pad_to(w, (ci_p, co_p)), out=hw[:, :n], compute_dtype=compute_dtype,
             what="GCN layer feature transform")
-    out = product(a, hw, epilogue="bias_relu", bias=_pad(b, (co_p,)),
+    out = product(a, hw, epilogue="bias_relu", bias=pad_to(b, (co_p,)),
                   compute_dtype=compute_dtype, out_dtype=out_dtype,
                   what="GCN layer aggregation")
     return out if co_p == c_out else out[..., :c_out].contiguous()
@@ -149,7 +150,7 @@ def _rounded_a_hat(a_hat, compute_dtype):
     as it loads (the bfloat16 path then copies it by cp.async), its columns
     padded to a multiple of 8."""
     n = a_hat.shape[0]
-    return _pad(a_hat, (n, _up(n))).to(compute_dtype)
+    return pad_to(a_hat, (n, aligned(n))).to(compute_dtype)
 
 
 def gcn_stack_schedule(weights, biases, a_hat, hb, compute_dtype, product=gemm_nn):

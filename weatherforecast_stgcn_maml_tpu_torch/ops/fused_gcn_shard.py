@@ -15,8 +15,9 @@ the cotangents of h_post (g1, absent when only hw_next is used) and hw_next
 (the gather's backward, a reduce-scatter, sums the partials of every rank),
 dW_{l+1} and db_l. A_rows and the mask take no gradient.
 
-`gcn_shard_layer` runs the CUDA kernels (csrc/gemm.cu for the products,
-csrc/fused_gcn_shard.cu for the backward's epilogue) behind one
+`gcn_shard_layer` runs the CUDA kernels (the forward's two products on the
+pipelined GEMM core, csrc/gemm_nn.cu, `forward_schedule`; the backward's
+products on csrc/gemm.cu, its epilogue in csrc/fused_gcn_shard.cu) behind one
 `torch.autograd.Function` on a CUDA tensor in float32 or bfloat16, raises
 on a CUDA tensor of another dtype, and runs the plain PyTorch version,
 `shard_layer_plain` (autograd for the backward), on a CPU tensor or under
@@ -51,7 +52,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     as_operand,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import colsum, gemm, matmul_tn
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import colsum, gemm, gemm_nn, matmul_tn
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import all_gather_nodes
 
 
@@ -109,27 +110,25 @@ def shard_bwd_plain(g1, g2, h_post, a_rows, w_next, mask, keep, compute_dtype, h
     return d_hw_full, db, dw_next
 
 
-def _fwd_cuda(hw_full, a_rows, b, w_next, mask, inv_keep, dt):
+def forward_schedule(hw_full, a_rows, b, w_next, mask, inv_keep, dt, product):
+    """Row 12's forward on `product` (`gemm_nn` on a card, `gemm_nn_plain` in
+    the CPU tests) -> (h_post [NL, W, hid], hw_next [NL, W, hid_next] or None)
+    in the compute dtype: the aggregation as one batched product over the
+    time slices of the node-major layout (slice s: A_rows @ hw_full[:, s],
+    its rows W * hid apart, the slices hid apart) with the bias + relu (+
+    mask) epilogue, then hw_next = round(h_post) @ round(W_next)."""
     n, w, hid = hw_full.shape
     nl = a_rows.shape[0]
-    dev = hw_full.device
-    h_post = torch.empty((nl, w, hid), dtype=dt, device=dev)
-    # Per time slice (the batch): h_post[:, s] = epilogue(A_rows @ hw_full[:, s]);
-    # node-major rows are W * hid apart, slices hid apart.
-    gemm(
-        a_rows, hw_full, h_post, m=nl, n=hid, k=n, lda=n, ldb=w * hid, ldc=w * hid,
-        sb=hid, sc=hid, batch=w, bias=b, relu=True, cmask=mask, cscale=inv_keep,
-        compute_dtype=dt, what="GCN sandwich contraction",
-    )
+    h_post = torch.empty((nl, w, hid), dtype=dt, device=hw_full.device)
+    product(a_rows, hw_full.transpose(0, 1), compute_dtype=dt,
+            epilogue="bias_relu" if mask is None else "bias_relu_mask", bias=b,
+            mask=None if mask is None else mask.transpose(0, 1), scale=inv_keep,
+            out=h_post.transpose(0, 1), what="GCN sandwich contraction")
     if w_next is None:
         return h_post, None
-    hw_next = torch.empty((nl, w, w_next.shape[1]), dtype=dt, device=dev)
-    gemm(
-        h_post, w_next, hw_next, m=nl * w, n=w_next.shape[1], k=hid, lda=hid,
-        ldb=w_next.shape[1], ldc=w_next.shape[1], compute_dtype=dt,
-        what="GCN sandwich next transform",
-    )
-    return h_post, hw_next
+    hw_next = product(h_post.view(nl * w, hid), w_next, compute_dtype=dt, out_dtype=dt,
+                      what="GCN sandwich next transform")
+    return h_post, hw_next.view(nl, w, -1)
 
 
 def _bwd_cuda(g1, g2, h_post, a_rows, w_next, mask, inv_keep, dt, hw_dtype):
@@ -184,8 +183,8 @@ class _ShardLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hw_full, a_rows, b, w_next, mask, keep, compute_dtype):
         if hw_full.device.type == "cuda":
-            h_post, hw_next = _fwd_cuda(hw_full, a_rows, b, w_next, mask, 1.0 / keep,
-                                        compute_dtype)
+            h_post, hw_next = forward_schedule(hw_full, a_rows, b, w_next, mask, 1.0 / keep,
+                                               compute_dtype, gemm_nn)
         else:
             out = shard_layer_plain(hw_full, a_rows, b, w_next, mask, keep, compute_dtype)
             h_post, hw_next = out if w_next is not None else (out, None)

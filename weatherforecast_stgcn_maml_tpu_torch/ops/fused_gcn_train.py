@@ -2,9 +2,12 @@
 `h = relu(A_hat @ (h @ W_l) + b_l) * mask_l / keep` over all time slices,
 with a hand-written backward.
 
-`gcn_stack_train` runs the CUDA kernels (csrc/gemm.cu for the products,
-csrc/fused_gcn_train.cu for the relu / dropout gradient) behind one
-`torch.autograd.Function` on a CUDA tensor, and its plain PyTorch version,
+`gcn_stack_train` runs the CUDA kernels behind one `torch.autograd.Function`
+on a CUDA tensor: the forward (row 6) on csrc/gemm.cu, the backward (row 7)
+layer by layer on the pipelined GEMM core (csrc/gemm_nn.cu: NN products and
+the K-split TN weight gradient; `backward_schedule`) and
+csrc/fused_gcn_train.cu (the top layer's relu / dropout gradient, the
+transposes); its plain PyTorch version,
 `gcn_stack_train_plain` (the layerwise route, autograd for the backward),
 on a CPU tensor or under float64. On a CUDA tensor a shape or dtype the
 kernels do not take raises; nothing falls back to the plain version there.
@@ -20,16 +23,33 @@ bfloat16 the output is bfloat16.
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+import dataclasses
+from typing import Callable, Sequence
 
 import torch
 
+from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import (
+    aligned,
     check_gcn_inputs,
     gcn_stack_plain,
+    pad_to,
 )
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import colsum, gemm, matmul_tn
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
+    NN_ROW_TILE,
+    gemm,
+    gemm_nn,
+    gemm_nn_plain,
+    gemm_tn,
+    gemm_tn_plain,
+    row_tiles,
+    sum_splits,
+    tile_colsums,
+    tn_splits,
+    workspace,
+)
 
 
 def gcn_stack_train_plain(
@@ -67,52 +87,189 @@ def _forward(x, a_hat, weights, biases, masks, inv_keep, compute_dtype):
     return h_all
 
 
-def _backward(g, x, a_hat, weights, masks, h_all, inv_keep, compute_dtype):
-    """-> dx (float32, x's shape), [dW_l], [db_l] (float32)."""
-    lib = cuda_build.load()
-    slices, n, _ = x.shape
+# Row 7 layer by layer (JAX `_bwd_kernel`'s arithmetic and rounding points).
+# From dz_L = g * [h_all[L-1] > 0] * mask / keep (the top pass), per layer l:
+#   dhw = round(round(A_hat)^T @ round(dz_l)) per slice (NN, batched);
+#   dW_l = round(h_in)^T @ dhw over every slice and node (TN, split over K);
+#   d_in = dhw @ round(W_l)^T: dx at l = 0, else, through the relu_grad
+#     epilogue, dz_{l-1} = d_in * [h_all[l-1] > 0] * mask / keep in the
+#     compute dtype;
+# db_l = the column sums of the float32 dz_l, a partial a row tile written
+# where dz_l is made. round(A_hat)^T and round(W_l)^T are made once a call,
+# and one `sum_splits` a call adds every layer's dW partials, another every
+# db partial, each in a fixed order. The pieces are swappable: the kernels on
+# a card (`CARD_PIECES`), their plain versions (`PLAIN_PIECES`) in the CPU
+# tests.
+
+
+@dataclasses.dataclass(frozen=True)
+class GcnPieces:
+    """product: `gemm_nn`'s signature; product_tn: `gemm_tn`'s;
+    top_dz(dh, h_post, mask, inv_keep, dz, part): dz = dh * [h_post > 0] (*
+    mask * inv_keep) into dz (compute dtype) and its row tiles' column sums
+    into part; prep(mats, compute_dtype): each (src, dst, trans) of `mats`
+    rounded into dst, transposed where trans; sum_splits(part [S, 1, T], out
+    [1, T]): out = the sum over S."""
+
+    product: Callable
+    product_tn: Callable
+    top_dz: Callable
+    prep: Callable
+    sum_splits: Callable
+
+
+def backward_schedule(g, x, a_hat, weights, masks, h_all, inv_keep, compute_dtype,
+                      pieces: GcnPieces):
+    """Row 7 on `pieces` at widths and a node count the pieces take (on a
+    card: multiples of 8): g [S, N, hid_L], x [S, N, C], h_all [S, N, hid_l]
+    in the compute dtype (the top one may be float32) -> dx [S, N, C], [dW_l
+    [C_l, hid_l]], [db_l [hid_l]] in the accumulation dtype."""
+    acc = accum_dtype(compute_dtype)
     dev = x.device
-    stream = cuda_build.stream_ptr(dev)
+    slices, n, c0 = x.shape
     rows = slices * n
-    dws, dbs = [None] * len(weights), [None] * len(weights)
-    dh = g.reshape(rows, -1)
-    for l in range(len(weights) - 1, -1, -1):
-        w = weights[l]
-        c_l, hid = w.shape
-        mask = masks[l] if masks is not None and l < masks.shape[0] else None
-        dz = torch.empty((rows, hid), dtype=torch.float32, device=dev)
+    n_layers = len(weights)
+    cins = [w.shape[0] for w in weights]
+    hids = [w.shape[1] for w in weights]
+    hmax = max(hids)
+    tiles, splits = row_tiles(rows), tn_splits(rows)
+    dw_off = [0]
+    for c, h in zip(cins, hids):
+        dw_off.append(dw_off[-1] + c * h)
+    xr = x.reshape(rows, c0)
+    round_x = x.dtype is not compute_dtype and x.dtype is torch.float32
+    # The call's scratch in one allocation, its outputs in another.
+    at, *wts, dz_buf, dhw_buf, dw_part, db_part, xc = workspace(
+        dev, ((n, n), compute_dtype), *[((h, c), compute_dtype) for c, h in zip(cins, hids)],
+        ((rows * hmax,), compute_dtype), ((rows * hmax,), compute_dtype),
+        ((splits, dw_off[-1]), acc), ((tiles, n_layers * hmax), acc),
+        ((rows, c0) if round_x else (0,), compute_dtype))
+    dx, dw_flat, db_all = workspace(dev, ((slices, n, c0), acc), ((dw_off[-1],), acc),
+                                    ((n_layers, hmax), acc))
+    pieces.prep([(a_hat, at, True), *[(w, wt, True) for w, wt in zip(weights, wts)],
+                 *([(xr, xc, False)] if round_x else [])], compute_dtype)
+    if not round_x:
+        xc = xr.to(compute_dtype)
+    if len(set(hids)) > 1:  # narrower layers leave columns of their partials unwritten
+        db_part.zero_()
+
+    def mask_of(l, width):
+        return None if masks is None or l >= masks.shape[0] else masks[l].reshape(rows, width)
+
+    def partials(l, width):
+        return db_part[:, l * hmax:l * hmax + width]
+
+    top, h = n_layers - 1, hids[-1]
+    pieces.top_dz(g.reshape(rows, h), h_all[top].reshape(rows, h), mask_of(top, h), inv_keep,
+                  dz_buf[:rows * h].view(rows, h), partials(top, h))
+    for l in reversed(range(n_layers)):
+        c, h = cins[l], hids[l]
+        dhw = dhw_buf[:rows * h].view(rows, h)
+        pieces.product(at, dz_buf[:rows * h].view(slices, n, h), compute_dtype=compute_dtype,
+                       out=dhw.view(slices, n, h), what=f"GCN train layer {l} A^T dz")
+        pieces.product_tn(xc if l == 0 else h_all[l - 1].reshape(rows, c), dhw,
+                          dw_part[:, dw_off[l]:dw_off[l + 1]].view(splits, c, h),
+                          compute_dtype=compute_dtype, what=f"GCN train layer {l} weight gradient")
+        if l == 0:
+            pieces.product(dhw, wts[0], compute_dtype=compute_dtype, out=dx.view(rows, c0),
+                           what="GCN train input gradient")
+            continue
+        # dz_{l-1} over dz_l, which the A^T dz product above has read.
+        pieces.product(dhw, wts[l], compute_dtype=compute_dtype, epilogue="relu_grad",
+                       residual=h_all[l - 1].reshape(rows, c), mask=mask_of(l - 1, c),
+                       scale=inv_keep, colsum=partials(l - 1, c),
+                       out=dz_buf[:rows * c].view(rows, c),
+                       what=f"GCN train layer {l} input gradient")
+    pieces.sum_splits(dw_part.view(splits, 1, -1), dw_flat.view(1, -1))
+    pieces.sum_splits(db_part.view(tiles, 1, -1), db_all.view(1, -1))
+    return (dx, [dw_flat[dw_off[l]:dw_off[l + 1]].view(cins[l], hids[l]) for l in range(n_layers)],
+            [db_all[l, :hids[l]] for l in range(n_layers)])
+
+
+def _top_dz_card(dh, h_post, mask, inv_keep, dz, part):
+    code = cuda_build.dtype_code
+    rows, cols = dz.shape
+    cuda_build.check(
+        cuda_build.load().wf_gcn_relu_mask_grad(
+            code(dh.dtype), code(h_post.dtype), code(dz.dtype), dh.data_ptr(), h_post.data_ptr(),
+            None if mask is None else mask.data_ptr(), inv_keep, dz.data_ptr(), part.data_ptr(),
+            part.stride(0), rows, cols, NN_ROW_TILE, cuda_build.stream_ptr(dz.device)),
+        "GCN train top layer relu/dropout gradient",
+    )
+
+
+def _prep_card(mats, compute_dtype, chunk=8):
+    """csrc/fused_gcn_train.cu's transpose-and-round pass, one launch for up
+    to `chunk` float32 matrices."""
+    lib = cuda_build.load()
+    for i in range(0, len(mats), chunk):
+        part = mats[i:i + chunk]
+        k = len(part)
+
+        def ints(vals):
+            return (ctypes.c_int * k)(*vals)
+
         cuda_build.check(
-            lib.wf_gcn_relu_mask_grad(
-                cuda_build.dtype_code(dh.dtype), cuda_build.dtype_code(h_all[l].dtype),
-                dh.data_ptr(), h_all[l].data_ptr(),
-                None if mask is None else mask.data_ptr(), inv_keep,
-                dz.data_ptr(), rows * hid, stream,
-            ),
-            f"GCN train layer {l} relu/dropout gradient",
+            lib.wf_transpose_round(
+                cuda_build.dtype_code(compute_dtype), k,
+                (ctypes.c_void_p * k)(*[src.data_ptr() for src, _, _ in part]),
+                (ctypes.c_void_p * k)(*[dst.data_ptr() for _, dst, _ in part]),
+                ints([src.shape[0] for src, _, _ in part]),
+                ints([src.shape[1] for src, _, _ in part]),
+                ints([src.stride(0) for src, _, _ in part]), ints([int(t) for _, _, t in part]),
+                cuda_build.stream_ptr(part[0][1].device)),
+            "GCN train transpose and round",
         )
-        dbs[l] = torch.empty((hid,), dtype=torch.float32, device=dev)
-        colsum(dz, dbs[l], f"GCN train layer {l} bias gradient")
-        # dhw = A_hat^T @ dz per slice (no symmetry assumed).
-        dhw = torch.empty((rows, hid), dtype=compute_dtype, device=dev)
-        gemm(
-            a_hat, dz, dhw, m=n, n=hid, k=n, lda=n, ldb=hid, ldc=hid,
-            trans_a=True, sb=n * hid, sc=n * hid, batch=slices,
-            compute_dtype=compute_dtype, what=f"GCN train layer {l} A^T dz",
-        )
-        inp = (x if l == 0 else h_all[l - 1]).view(rows, c_l)
-        dws[l] = torch.empty((c_l, hid), dtype=torch.float32, device=dev)
-        matmul_tn(
-            inp, dhw, dws[l], compute_dtype=compute_dtype,
-            what=f"GCN train layer {l} weight gradient",
-        )
-        d_in = torch.empty((rows, c_l), dtype=torch.float32, device=dev)
-        gemm(
-            dhw, w, d_in, m=rows, n=c_l, k=hid, lda=hid, ldb=hid, ldc=c_l,
-            trans_b=True, compute_dtype=compute_dtype,
-            what=f"GCN train layer {l} input gradient",
-        )
-        dh = d_in
-    return dh.reshape(x.shape), dws, dbs
+
+
+def _sum_splits_card(part, out):
+    sum_splits(part, out, "GCN train gradient partials")
+
+
+def _top_dz_plain(dh, h_post, mask, inv_keep, dz, part):
+    acc = part.dtype
+    v = dh.to(acc) * (h_post.to(acc) > 0).to(acc)
+    if mask is not None:
+        v = v * (mask.to(acc) * inv_keep)
+    dz.copy_(v)
+    part.copy_(tile_colsums(v))
+
+
+def _prep_plain(mats, compute_dtype):
+    for src, dst, trans in mats:
+        dst.copy_(src.t() if trans else src)
+
+
+def _sum_splits_plain(part, out):
+    out.copy_(part.sum(dim=0))
+
+
+CARD_PIECES = GcnPieces(gemm_nn, gemm_tn, _top_dz_card, _prep_card, _sum_splits_card)
+PLAIN_PIECES = GcnPieces(gemm_nn_plain, gemm_tn_plain, _top_dz_plain, _prep_plain,
+                         _sum_splits_plain)
+
+
+def _backward(g, x, a_hat, weights, masks, h_all, inv_keep, compute_dtype,
+              pieces: GcnPieces = CARD_PIECES):
+    """Row 7: -> dx (x's shape), [dW_l], [db_l] in the accumulation dtype, by
+    `backward_schedule`. A node count or width that is not a multiple of 8
+    is zero-padded to one first (zero rows and columns add nothing to any
+    gradient); the reference width (512 nodes, 24 -> 4 x 256) takes no
+    padding."""
+    slices, n, c0 = x.shape
+    widths = [c0] + [w.shape[1] for w in weights]
+    n_p, wp = aligned(n), [aligned(c) for c in widths]
+    if n_p == n and wp == widths:
+        return backward_schedule(g, x, a_hat, weights, masks, h_all, inv_keep, compute_dtype,
+                                 pieces)
+    dx, dws, dbs = backward_schedule(
+        pad_to(g, (slices, n_p, wp[-1])), pad_to(x, (slices, n_p, wp[0])),
+        pad_to(a_hat, (n_p, n_p)), [pad_to(w, (wp[l], wp[l + 1])) for l, w in enumerate(weights)],
+        None if masks is None else pad_to(masks, (masks.shape[0], slices, n_p, wp[1])),
+        [pad_to(h, (slices, n_p, wp[l + 1])) for l, h in enumerate(h_all)], inv_keep,
+        compute_dtype, pieces)
+    return (dx[:, :n, :c0], [dw[:widths[l], :widths[l + 1]] for l, dw in enumerate(dws)],
+            [db[:widths[l + 1]] for l, db in enumerate(dbs)])
 
 
 class _GcnStackTrain(torch.autograd.Function):

@@ -27,7 +27,10 @@ time):
   6. hold the training kernels (rows 4-7) against their plain versions at
      the inner step's shapes (one window: 24 slices x 512 nodes, 512 LSTM
      rows), forward and every gradient, float32 and bfloat16, with the same
-     dropout masks (rate 0.2) on both sides; time each direction;
+     dropout masks (rate 0.2) on both sides; time each direction; rows 6
+     and 7 also alone, by events and by CUDA graph replay, each gated on
+     its launches of the GEMM core (row 6: 2 gemm_nn a layer; row 7: 2
+     gemm_nn and 1 gemm_tn a layer; neither any of gemm.cu's GEMM);
   7. hold the whole-tree clip + SGD kernel (rows 8-9) against its plain
      version on the reference model's 23 leaves, one task and a task axis
      of 4, gradient norms below and above clip_norm; time it, the plain
@@ -47,7 +50,9 @@ time):
      epochs float32, 1 epoch bfloat16, `--resume` to epoch 3, then 1
      float32 epoch with `meta.fused_inner_update=false`, then `forecast`
      from the meta-trained `ckpt_best`; rows 4-8 must have launched (row 8
-     360 times a fused meta step), every loss must be finite;
+     360 times a fused meta step; row 5 364 times, each a recurrence and a
+     gemm_nn launch a layer; row 6 364 times, 2 gemm_nn launches a layer),
+     every loss must be finite;
   9b. drive `cli meta-train -o meta.second_order=true` at the defaults: 1
      epoch float32, 1 epoch bfloat16, `--resume` to epoch 2; rows 10-11
      must launch 360 times a meta step and rows 4-7 too, every loss finite;
@@ -115,18 +120,24 @@ time):
      float32 and bfloat16; time each, its plain version and cuDNN's LSTM
      (once a task for rows 16-17; row 15 beside cuDNN's backward in the
      same dtype, its device time by CUDA graph replay, and its time by part: gate products,
-     recurrences, input products, weight gradients), rows 16-17 also by
-     row tile; print the bounds;
+     recurrences, input products, weight gradients), row 16 also by row
+     tile; rows 16-17 at V = 2 also alone, by events and by CUDA graph
+     replay, row 17 also by part and gated on its launches (a recurrence,
+     a gemm_nn and two gemm_tn launches a layer for all tasks, none of
+     gemm.cu's GEMM); print the bounds;
  18. with ops.fused_lstm_stack._VBATCH set in process: the lockstep FO
      meta-gradient of one micro-batch (2 tasks x 15 inner steps, dropout
      on) kernel route vs plain route, same generator seed; `cli meta-train`
      at MetaConfig() defaults for 1 float32 epoch (rows 16 and 17 182
-     launches each, row 9 180, rows 4-5 and 8 none); one lockstep inner
-     step timed with a torch.profiler breakdown; the lockstep meta step
-     against the serial one in turns;
+     launches each, row 17 with 4 recurrence, 4 gemm_nn and 8 gemm_tn
+     launches each, row 9 180, rows 4-5 and 8 none, gemm.cu's GEMM none);
+     one lockstep inner step timed with a torch.profiler breakdown; the
+     lockstep meta step against the serial one in turns, with the peak
+     device memory of each;
  19. with ops.fused_lstm_stack._MERGED_GATES = False: `cli meta-train` for 1
      float32 epoch (rows 14-15 364 launches each, the GEMM core 2 x 4 a
-     row-15 launch, rows 4-5 none), `forecast`
+     row-15 launch and 2 x 4 a row-6 and a row-7 launch, rows 4-5 none),
+     `forecast`
      Moscow (row 14, never row 2; against the merged route's forecast), one
      inner step timed and profiled; both flags are restored afterwards.
 
@@ -186,7 +197,7 @@ SOURCES = {
     "lstm_stack_train": [CSRC + "fused_lstm_stack.cu"],
     "lstm_stack_train.backward": [CSRC + "lstm_scan_bwd.cuh", CSRC + "fused_lstm_split.cu",
                                   CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
-    "gcn_stack_train": [CSRC + "gemm.cu", CSRC + "fused_gcn_train.cu"],
+    "gcn_stack_train": [CSRC + "gemm_nn.cu"],
     "gcn_stack_train.backward": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu",
                                  CSRC + "gemm.cu"],
     "clip_sgd_update": [CSRC + "fused_sgd.cu"],
@@ -204,7 +215,8 @@ SOURCES = {
     "lstm_stack_split.backward": [CSRC + "gemm_nn.cu", CSRC + "lstm_scan_bwd.cuh",
                                   CSRC + "fused_lstm_split.cu", CSRC + "gemm.cu"],
     "lstm_stack_train_tasks": [CSRC + "fused_lstm_stack.cu"],
-    "lstm_stack_train_tasks.backward": [CSRC + "fused_lstm_stack_train.cu", CSRC + "gemm.cu"],
+    "lstm_stack_train_tasks.backward": [CSRC + "lstm_scan_bwd.cuh", CSRC + "fused_lstm_split.cu",
+                                        CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
 }
 # Kernels whose ptxas report the build phase prints by name.
 NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel",
@@ -509,20 +521,23 @@ def main() -> int:
         for line in cuda_build.build_log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            # The kernels rows 1, 3, 5, 15 and 19 run on, by name: registers,
-            # stack frame and spills; the recurrence's 24 instances a source
-            # (dtypes, units a lane, rows a cluster) one line a source below.
+            # The kernels rows 1, 3, 5-7, 15, 17 and 19 run on, by name:
+            # registers, stack frame and spills; the recurrence's instances
+            # a source (dtypes, units a lane, rows a cluster, +db: with the
+            # bias partials) one line a source below.
             new = next((entry[entry.index(k):][:48] for k in NEW_KERNELS if k in entry), None)
             if new and new.startswith("lstm_scan_bwd_kernel"):
                 if "registers" in line:
-                    # <TW, TC, UPT, RB>, mangled as e.g. I13__nv_bfloat16S2_Li4ELi8E.
-                    tw_tc, upt, rb = re.match(r"I(.*?)Li(\d+)ELi(\d+)", entry[
+                    # <TW, TC, UPT, RB, DB>, mangled as e.g.
+                    # I13__nv_bfloat16S2_Li4ELi8ELb1E (DB: "+db").
+                    tw_tc, upt, rb, db = re.match(r"I(.*?)Li(\d+)ELi(\d+)ELb(\d)", entry[
                         entry.index("lstm_scan_bwd_kernel") + 20:]).groups()
                     tw_tc = tw_tc.replace("13__nv_bfloat16", "b").replace("S2_", "b")
                     args = "/".join({"f": "f32", "b": "bf16"}[c] for c in tw_tc)
                     source = "fused_lstm_split.cu" if "fused_lstm_split" in entry else "lstm_scan.cu"
                     regs = line.split("Used")[1].split("registers")[0].strip()
-                    recurrence.append((source, f"{args} {upt} {rb}", regs))
+                    recurrence.append((source, f"{args} {upt} {rb}{' +db' * (db == '1')}",
+                                       regs))
                 elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
                     log(f"  ptxas lstm_scan_bwd_kernel SPILLS: {line.strip()} in {entry}")
             elif new and ("registers" in line or "spill" in line):
@@ -533,21 +548,23 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()} in {entry}")
         for source in sorted({r[0] for r in recurrence}):
             log(f"  ptxas lstm_scan_bwd_kernel in {source} (weights / c_all dtype, units a "
-                f"lane, rows a cluster: registers; no spill unless named above): " + ", ".join(
+                f"lane, rows a cluster, +db with the bias partials: registers; no spill "
+                f"unless named above): " + ", ".join(
                     f"{args}: {regs}" for src, args, regs in recurrence if src == source))
         # Their shared memory is dynamic (ptxas reports static memory only).
         lib = cuda_build.load()
         log(f"  dynamic shared memory a block: gemm_nn float32 {lib.wf_gemm_nn_smem(0)} B, "
             f"bfloat16 {lib.wf_gemm_nn_smem(1)} B")
-        # The backward recurrence (rows 5, 15, 19): its cluster plan at the
-        # main path's rows (512; adaptation 1024, a sharded rank 256) and at
-        # the gate's (48 rows, H 64 / 128 / 256), the shared memory a block
-        # takes and how many of its clusters the card runs at once.
+        # The backward recurrence (rows 5, 15, 17, 19): its cluster plan at
+        # the main path's rows (512; adaptation 1024, a sharded rank 256, row
+        # 17's two tasks of 512) and at the gate's (48 rows, H 64 / 128 /
+        # 256), the shared memory a block takes and how many of its clusters
+        # the card runs at once.
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for dt in (torch.float32, torch.bfloat16):
-            for hidden, rows in ((128, 512), (128, 1024), (128, 256), (64, 48), (128, 48),
-                                 (256, 48)):
-                cs, hcp, rb = fls.recurrence_plan(hidden, rows, dt.itemsize, sms)
+            for hidden, rows, nv in ((128, 512, 1), (128, 1024, 1), (128, 256, 1),
+                                     (128, 512, 2), (64, 48, 1), (128, 48, 1), (256, 48, 1)):
+                cs, hcp, rb = fls.recurrence_plan(hidden, rows, dt.itemsize, sms, nv)
                 code = cuda_build.dtype_code(dt)
                 smem = lib.wf_lstm_stack_recurrence_smem(code, hcp, rb, hidden)
                 if smem != fls.scan_smem(hidden, hcp, rb, dt.itemsize):
@@ -557,8 +574,9 @@ def main() -> int:
                 if active <= 0:
                     raise RuntimeError(f"the card runs no cluster of the recurrence plan "
                                        f"{(cs, hcp, rb)} at H = {hidden} ({active})")
-                clusters = -(-rows // rb)
-                log(f"  lstm_scan_bwd {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of {cs}, "
+                clusters = nv * -(-rows // rb)
+                log(f"  lstm_scan_bwd {str(dt)[6:]} H = {hidden}, {nv} x R = {rows}: cluster of "
+                    f"{cs}, "
                     f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
                     f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once "
                     f"(cudaOccupancyMaxActiveClusters)")
@@ -860,11 +878,14 @@ def main() -> int:
             return call
 
         card_pieces = fls.CARD_PIECES
-        pieces = fls.SplitPieces(
-            timed(card_pieces.product, lambda kw: "gate products"
-                  if kw.get("epilogue") == "gates" else "input products"),
-            timed(card_pieces.recurrence, lambda kw: "recurrences"),
-            timed(card_pieces.weight_grads, lambda kw: "weight gradients"))
+        pieces = dataclasses.replace(
+            card_pieces,
+            product=timed(card_pieces.product, lambda kw: "gate products"
+                          if kw.get("epilogue") == "gates" else "input products"),
+            recurrence=timed(card_pieces.recurrence, lambda kw: "recurrences"),
+            weight_grads=timed(card_pieces.weight_grads, lambda kw: "weight gradients"),
+            product_tn=timed(card_pieces.product_tn, lambda kw: "weight gradients"),
+            sum_splits=timed(card_pieces.sum_splits, lambda kw: "partial sums"))
         runs = []
         with torch.no_grad():
             for i in range(REPEATS + 2):
@@ -1005,6 +1026,14 @@ def main() -> int:
                     fgt._backward(g7, x_enc, a_hat, enc_w, gcn_masks, h7, 1.25, dt)
 
                 before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                row6()
+                core6 = {"gemm_nn": gemm_nn.launches - before[0],
+                         "gemm_tn": gemm_tn.launches - before[1],
+                         "gemm.cu": gemm.launches - before[2]}
+                want = {"gemm_nn": 2 * len(enc), "gemm_tn": 0, "gemm.cu": 0}
+                if core6 != want:
+                    raise RuntimeError(f"row 6 launched {core6} a call, not {want}")
+                before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
                 row7()
                 core7 = {"gemm_nn": gemm_nn.launches - before[0],
                          "gemm_tn": gemm_tn.launches - before[1],
@@ -1028,17 +1057,19 @@ def main() -> int:
             log(f"rows 6-7 {dt_name} x [24, 512, 24], 4 x 256, masks 0.2 (call by events / "
                 f"device by graph replay): " + ", ".join(
                     f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in times.items())
-                + f"; row 7 launches a call {core7}  [{card}]")
+                + f"; row 6 launches a call {core6}, row 7 {core7}  [{card}]")
             if dt_name == "float32":
                 measured["gcn_stack_train"].update(
                     call_ms=times["row 6"][0], device_ms=times["row 6"][1],
                     library_call_ms=times["cuBLAS row 6"][0],
-                    library_device_ms=times["cuBLAS row 6"][1])
+                    library_device_ms=times["cuBLAS row 6"][1], core_launches=core6)
                 measured["gcn_stack_train.backward"].update(
                     call_ms=times["row 7"][0], device_ms=times["row 7"][1],
                     library_call_ms=times["cuBLAS row 7"][0],
                     library_device_ms=times["cuBLAS row 7"][1], core_launches=core7)
             else:
+                measured["gcn_stack_train"]["bfloat16"] = {
+                    "call_ms": times["row 6"][0], "device_ms": times["row 6"][1]}
                 measured["gcn_stack_train.backward"]["bfloat16"] = {
                     "call_ms": times["row 7"][0], "device_ms": times["row 7"][1]}
             del h7, g7
@@ -1426,6 +1457,7 @@ def main() -> int:
             fn.launches = fn.backward_launches = 0
         lstm_stack_train.backward_recurrence_launches = 0
         lstm_stack_train.backward_gemm_nn_launches = 0
+        gcn_stack_train.gemm_nn_launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         per_step = meta_cfg.meta_batch * meta_cfg.inner_epochs * meta_cfg.inner_batches
         logs = {"float32": meta_train("float32", 2), "bfloat16": meta_train("bfloat16", 1)}
@@ -1458,6 +1490,12 @@ def main() -> int:
         if row5 != (5 * forwards, 5 * forwards * n_l, 5 * forwards * n_l):
             raise RuntimeError(f"row 5 launched {row5} in 5 meta steps, not {forwards} calls a "
                                f"step with {n_l} recurrences and {n_l} gemm_nn launches each")
+        # Row 6: as many calls, each 2 gemm_nn launches a layer.
+        row6 = (gcn_stack_train.launches, gcn_stack_train.gemm_nn_launches)
+        log(f"row 6 in 5 meta steps: {row6[0]} calls, {row6[1]} gemm_nn launches")
+        if row6 != (5 * forwards, 5 * forwards * 2 * cfg.gcn_layers):
+            raise RuntimeError(f"row 6 launched {row6} in 5 meta steps, not {forwards} calls a "
+                               f"step with {2 * cfg.gcn_layers} gemm_nn launches each")
         for name, records in logs.items():
             want = [1, 2, 3] if name == "float32" else [1]
             if [r["epoch"] for r in records] != want:
@@ -2298,6 +2336,42 @@ def main() -> int:
                 .to(dev) for shape in ((nv, hid + lh, 4 * lh), (nv, n_l - 1, 2 * lh, 4 * lh),
                                        (nv, n_l, 4 * lh))]
 
+    def tasks_alone(xs, weights, m, keep, dt):
+        """Rows 16 and 17 of V tasks alone, row 17 from row 16's residuals:
+        (call by events, device by graph replay) each, row 17 by part and
+        its launches of a call, gated: a recurrence, a gemm_nn and two
+        gemm_tn launches a layer for all tasks, no launch of gemm.cu's
+        GEMM."""
+        nv = xs.shape[0]
+        x_v = xs.transpose(1, 2).contiguous()
+        g_v = g_last.expand(nv, -1, -1).contiguous()
+        tasks = fls.lstm_stack_train_tasks
+        with torch.no_grad():
+            res = fls.tasks_forward(x_v, m, keep, dt, *weights)
+
+            def row16():
+                fls.tasks_forward(x_v, m, keep, dt, *weights)
+
+            def row17():
+                fls.tasks_backward(g_v, x_v, *res[1:], *weights[:2], m, keep, dt)
+
+            before = (tasks.backward_recurrence_launches, tasks.backward_gemm_nn_launches,
+                      tasks.backward_gemm_tn_launches, gemm.launches)
+            row17()
+            core = {"recurrence": tasks.backward_recurrence_launches - before[0],
+                    "gemm_nn": tasks.backward_gemm_nn_launches - before[1],
+                    "gemm_tn": tasks.backward_gemm_tn_launches - before[2],
+                    "gemm.cu": gemm.launches - before[3]}
+            want = {"recurrence": n_l, "gemm_nn": n_l, "gemm_tn": 2 * n_l, "gemm.cu": 0}
+            if core != want:
+                raise RuntimeError(f"row 17 launched {core} a call, not {want}")
+            out = {"fwd": (cuda_ms(torch, row16), graph_ms(torch, row16)),
+                   "bwd": (cuda_ms(torch, row17), graph_ms(torch, row17)), "core": core,
+                   "parts_ms": parts_ms(lambda p: fls.tasks_backward_schedule(
+                       g_v, x_v, *res[1:], *weights[:2], m, keep, dt, p))}
+        del res
+        return out
+
     def tasks_route(kernel):
         if kernel:
             return lambda x, w0, wr, b, m, keep, dt: fls.lstm_stack_train_tasks(
@@ -2433,7 +2507,21 @@ def main() -> int:
                         f"{times['kernel'][0]:.4f} ms, backward {times['kernel'][1]:.4f} ms; "
                         f"plain forward {times['plain'][0]:.4f} ms, backward "
                         f"{times['plain'][1]:.4f} ms  [{card}]")
+                    if nv == 2:  # rows 16-17 alone, from the same residuals
+                        alone = tasks_alone(xs, weights, m, keep, dt)
+                        log(f"rows 16-17 {dt_name} V=2 alone (call by events / device by graph "
+                            f"replay): row 16 {alone['fwd'][0]:.4f} / {alone['fwd'][1]:.4f} ms, "
+                            f"row 17 {alone['bwd'][0]:.4f} / {alone['bwd'][1]:.4f} ms; row 17 "
+                            f"by part (CUDA events, median of {REPEATS}): " + ", ".join(
+                                f"{k} {v:.4f} ms" for k, v in alone["parts_ms"].items())
+                            + f"; row 17 launches a call {alone['core']}  [{card}]")
                     if dt_name != "float32":
+                        if nv == 2:
+                            measured["lstm_stack_train_tasks"]["bfloat16"] = {
+                                "call_ms": alone["fwd"][0], "device_ms": alone["fwd"][1]}
+                            measured["lstm_stack_train_tasks.backward"]["bfloat16"] = {
+                                "ms": times["kernel"][1], "call_ms": alone["bwd"][0],
+                                "device_ms": alone["bwd"][1], "parts_ms": alone["parts_ms"]}
                         continue
                     # Yardstick: cuDNN's LSTM once a task (its weights copied in
                     # from the model's; the time does not depend on them).
@@ -2447,7 +2535,8 @@ def main() -> int:
                     del xr, lib_out, lib_ct
                     log(f"torch.nn.LSTM (cuDNN) float32, once a task x {nv}: forward "
                         f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms  [{card}]")
-                    # The row tile: V x 512 rows at 256 / H * rpt rows a block.
+                    # Row 16's row tile: V x 512 rows at 256 / H * rpt rows a
+                    # block (row 17's plan is the recurrence's, by task count).
                     tile_ms = {}
                     chosen = fls._rows_per_thread(nv * n, lh, dev)
                     real_rpt = fls._rows_per_thread
@@ -2456,28 +2545,25 @@ def main() -> int:
                             for rpt in fls.ROWS_PER_THREAD:
                                 fls._rows_per_thread = lambda rows, hidden, d, rpt=rpt: rpt
                                 x_v = xs.transpose(1, 2)
-                                fwd_res = fls.tasks_forward(x_v, m, keep, dt, *weights)
-                                tile_ms[rpt] = (
-                                    cuda_ms(torch, lambda: fls.tasks_forward(
-                                        x_v, m, keep, dt, *weights)),
-                                    cuda_ms(torch, lambda: fls.tasks_backward(
-                                        g_last.expand(nv, -1, -1), x_v, *fwd_res[1:],
-                                        *weights[:2], m, keep, dt)))
-                                del fwd_res
+                                tile_ms[rpt] = cuda_ms(torch, lambda: fls.tasks_forward(
+                                    x_v, m, keep, dt, *weights))
                     finally:
                         fls._rows_per_thread = real_rpt
-                    log(f"rows 16-17 float32 V={nv} by row tile (rows per thread: blocks of "
-                        f"{nv} x 512 rows; forward / backward ms): " + ", ".join(
-                            f"{rpt}: {-(-n // (256 // lh * rpt)) * nv} blocks "
-                            f"{f:.4f} / {b:.4f}" for rpt, (f, b) in tile_ms.items())
+                    log(f"row 16 float32 V={nv} by row tile (rows per thread: blocks of "
+                        f"{nv} x 512 rows; forward ms): " + ", ".join(
+                            f"{rpt}: {-(-n // (256 // lh * rpt)) * nv} blocks {f:.4f}"
+                            for rpt, f in tile_ms.items())
                         + f"; the wrapper picks {chosen}  [{card}]")
                     if nv == 2:
                         measured["lstm_stack_train_tasks"] = {
                             "max_abs_err": fwd_err, "ms": times["kernel"][0],
-                            "plain_ms": times["plain"][0], "library_ms": lib_fwd}
+                            "plain_ms": times["plain"][0], "library_ms": lib_fwd,
+                            "call_ms": alone["fwd"][0], "device_ms": alone["fwd"][1]}
                         measured["lstm_stack_train_tasks.backward"] = {
                             "max_abs_err": bwd_err, "ms": times["kernel"][1],
-                            "plain_ms": times["plain"][1], "library_ms": lib_bwd}
+                            "plain_ms": times["plain"][1], "library_ms": lib_bwd,
+                            "call_ms": alone["bwd"][0], "device_ms": alone["bwd"][1],
+                            "parts_ms": alone["parts_ms"], "core_launches": alone["core"]}
             del xs, weights
         # Rows 14 and 16 do row 4's work (x V for row 16), rows 15 and 17 row
         # 5's (its recomputed forward not counted): the same operations and
@@ -2500,8 +2586,13 @@ def main() -> int:
     # at the defaults (the main path of rows 16-17 and 9), one lockstep
     # inner step and the lockstep meta step against the serial one.
     def lockstep_counts():
-        return {"lstm_stack_train_tasks": fls.lstm_stack_train_tasks.launches,
-                "lstm_stack_train_tasks.backward": fls.lstm_stack_train_tasks.backward_launches,
+        tasks = fls.lstm_stack_train_tasks
+        return {"lstm_stack_train_tasks": tasks.launches,
+                "lstm_stack_train_tasks.backward": tasks.backward_launches,
+                "row 17 recurrence": tasks.backward_recurrence_launches,
+                "row 17 gemm_nn": tasks.backward_gemm_nn_launches,
+                "row 17 gemm_tn": tasks.backward_gemm_tn_launches,
+                "gemm.cu": gemm.launches,
                 "clip_sgd_update.batched": clip_sgd_update.batched_launches,
                 "clip_sgd_update": clip_sgd_update.launches,
                 "lstm_stack_train": lstm_stack_train.launches,
@@ -2514,7 +2605,10 @@ def main() -> int:
             fn.launches = fn.backward_launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         lstm_stack_last_all.launches = 0
-        gemm_nn.launches = 0
+        gemm_nn.launches = gemm.launches = 0
+        tasks = fls.lstm_stack_train_tasks
+        tasks.backward_recurrence_launches = tasks.backward_gemm_nn_launches = 0
+        tasks.backward_gemm_tn_launches = 0
 
     with Phase("_VBATCH: the lockstep meta step"):
         fls._VBATCH = True
@@ -2537,6 +2631,9 @@ def main() -> int:
                         steps = one_epoch.inner_batches
                         want = {"lstm_stack_train_tasks": steps + 1,
                                 "lstm_stack_train_tasks.backward": steps + 1,
+                                "row 17 recurrence": (steps + 1) * n_l,
+                                "row 17 gemm_nn": (steps + 1) * n_l,
+                                "row 17 gemm_tn": 2 * (steps + 1) * n_l, "gemm.cu": 0,
                                 "clip_sgd_update.batched": steps, "clip_sgd_update": 0,
                                 "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
                                 "gcn_stack_train": 2 * (steps + 1)}
@@ -2563,6 +2660,9 @@ def main() -> int:
             forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
             want = {"lstm_stack_train_tasks": forwards // 2,
                     "lstm_stack_train_tasks.backward": forwards // 2,
+                    "row 17 recurrence": forwards // 2 * n_l,
+                    "row 17 gemm_nn": forwards // 2 * n_l,
+                    "row 17 gemm_tn": forwards // 2 * 2 * n_l, "gemm.cu": 0,
                     "clip_sgd_update.batched": per_step // 2, "clip_sgd_update": 0,
                     "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
                     "gcn_stack_train": forwards}
@@ -2605,13 +2705,17 @@ def main() -> int:
                 step(state, tasks, g)
 
             step_ms = {"lockstep": [], "serial": []}
+            peak = {}
             for name in ("lockstep", "serial", "serial", "lockstep"):
+                torch.cuda.reset_peak_memory_stats(dev)
                 step_ms[name].append(host_ms(torch, lambda: run_step(name == "lockstep"),
                                              repeats=1))
+                peak[name] = torch.cuda.max_memory_allocated(dev) / 2**30
             log("meta step float32 at the defaults, host clock, in turns: " + ", ".join(
                 f"{k} {v[0]:.1f} / {v[1]:.1f} ms" for k, v in step_ms.items())
                 + f"; lockstep / serial {sum(step_ms['lockstep']) / sum(step_ms['serial']):.3f}"
-                f"  [{card}]")
+                f"; peak device memory lockstep {peak['lockstep']:.3f} GiB, serial "
+                f"{peak['serial']:.3f} GiB  [{card}]")
             del state, step
         finally:
             fls._VBATCH = False
@@ -2633,11 +2737,12 @@ def main() -> int:
             log(f"launches in one meta step with unmerged gates: {split_launches}")
             forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
             # Row 15 runs the GEMM core twice a layer (its gates and its
-            # input gradient), and so does row 7, the GCN stack's backward
-            # (A_hat^T dz and its input gradient).
+            # input gradient), and so do row 7, the GCN stack's backward
+            # (A_hat^T dz and its input gradient), and row 6, its forward
+            # (h W and the aggregation).
             want = {"lstm_stack_split": forwards, "lstm_stack_split.backward": forwards,
                     "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
-                    "gemm_nn": 2 * (n_l + cfg.gcn_layers) * forwards}
+                    "gemm_nn": 2 * (n_l + 2 * cfg.gcn_layers) * forwards}
             if split_launches != want:
                 raise RuntimeError(f"meta-train with unmerged gates launched {split_launches}, "
                                    f"not {want}")

@@ -1032,7 +1032,8 @@ def test_lstm_split_backward_schedule_at_full_width(dev, dtype, layers, dropout)
 @pytest.mark.cuda
 def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
     """`_MERGED_GATES=False`: a train step of the hybrid runs rows 14-15 and
-    the GEMM core twice a layer (its gates and its input gradient), never
+    the GEMM core twice an LSTM layer (its gates and its input gradient)
+    beside the GCN stack's twice a layer each way (rows 6 and 7), never
     rows 4-5, and its gradients match the plain route's."""
     monkeypatch.setattr(fused_lstm_stack, "_MERGED_GATES", False)
     cfg = dataclasses.replace(CFG, lstm_dropout=0.0, gcn_dropout=0.0)
@@ -1047,7 +1048,7 @@ def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
     got = torch.autograd.grad(apply_model(model, a_hat, x, 3, cfg, train=True).sum(), params)
     assert (gemm_nn.launches, fls.lstm_stack_split.backward_launches,
             fls.lstm_stack_train.backward_launches) == (
-        before[0] + 2 * cfg.lstm_layers, before[1] + 1, before[2])
+        before[0] + 2 * (cfg.lstm_layers + 2 * cfg.gcn_layers), before[1] + 1, before[2])
     plain = dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla")
     ref = torch.autograd.grad(apply_model(model, a_hat, x, 3, plain, train=True).sum(), params)
     for (name, _), a, b in zip(model.named_parameters(), got, ref):
@@ -1109,9 +1110,9 @@ def test_backward_recurrence_refuses_a_plan_it_does_not_take(dev):
     out = torch.empty_like(gates)
     lib = cuda_build.load()
     for plan in ((1, 64, 2), (2, 64, 3), (1, 128, 16)):  # 128 units; rb 3; 256 KB of f32
-        err = lib.wf_lstm_stack_recurrence(
-            0, *plan, g.data_ptr(), gates.data_ptr(), c.data_ptr(), wh.data_ptr(),
-            out.data_ptr(), None, None, 3, 8, 128, cuda_build.stream_ptr(dev))
+        err = lib.wf_lstm_stack_recurrence(fused_lstm_stack._SCAN_LAUNCH.pack(
+            0, *plan, 1, g.data_ptr(), 0, gates.data_ptr(), 0, c.data_ptr(), 0, wh.data_ptr(), 0,
+            out.data_ptr(), 0, 0, 0, 0, 0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev)))
         with pytest.raises(RuntimeError, match="invalid argument"):
             cuda_build.check(err, f"plan {plan}")
 
@@ -1148,3 +1149,138 @@ def test_merged_backward_schedule_at_full_width(dev, dtype, layers, dropout):
         for al, bl in zip(a, b) if i == 1 else [(a, b)]:
             assert al.shape == bl.shape, i
             assert _rel(al, bl) <= TOL[dtype], (i, _rel(al, bl))
+
+
+# Row 17 on row 5's schedule with a task axis (the recurrence's grid z, the
+# core's batched products), and row 6 on the core.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,rows,hidden", [(2, 512, 128), (3, 48, 64), (2, 48, 256)])
+def test_backward_recurrence_task_axis_equals_one_task_launches(dev, dtype, nv, rows, hidden):
+    """V tasks in one launch (strided views, as row 17's schedule passes
+    them) give the bits of V one-task launches with the same plan; the bias
+    partials' sum matches the column sums of dgates."""
+    fls = fused_lstm_stack
+    ins = [_recurrence_inputs(dev, 7, rows, hidden, 20 + v) for v in range(nv)]
+    # Task-strided layouts: every task's [T, R, *] slice of a [V, 2, T, R, *] array.
+    g, gates, c = (torch.stack([torch.stack([i[k], i[k]]) for i in ins])[:, 1]
+                   for k in (0, 1, 2))
+    c = c.to(dtype)
+    wh = torch.stack([i[3] for i in ins])
+    out = torch.empty_like(gates)
+    db = torch.empty((nv, 3, 4 * hidden), device=dev)[:, 1]
+    before = fls._recurrence_card.launches
+    fls._recurrence_card(g, gates, c, wh, dtype, out, db=db)
+    assert fls._recurrence_card.launches == before + 1
+    plan = fls.recurrence_plan(hidden, rows, dtype.itemsize, fls._sms(dev), nv)
+    for v in range(nv):
+        one = torch.empty_like(gates[v])
+        fls._recurrence_card(g[v], gates[v], c[v], wh[v], dtype, one)
+        if fls.recurrence_plan(hidden, rows, dtype.itemsize, fls._sms(dev)) == plan:
+            assert torch.equal(out[v], one), v
+        assert _rel(out[v], one) <= TOL[dtype]
+        assert _rel(db[v], out[v].double().sum(dim=(0, 1))) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,a_off", [((12288, 128, 512), 512), ((12288, 24, 512), 0),
+                                         ((300, 40, 48), 7)])
+def test_gemm_tn_task_axis_matches_plain_and_one_task_launches(dev, dtype, shape, a_off):
+    """The batched TN core (row 17's weight gradients: V = 2 task-strided
+    operands, partials written into a [S, V, M, N] buffer viewed task first;
+    an A row offset) against its plain version, against V one-task launches
+    (equal bits) and, summed, against float64."""
+    k, m, n = shape
+    nv = 2
+    split_rows = fused_lstm_stack.wave_split_rows(k, m, n, nv, fused_lstm_stack._sms(dev))
+    splits = tn_splits(k, split_rows)
+    a = _card(dev, (nv, 2, k - a_off, m), dtype, seed=1)[:, 0]
+    b = _card(dev, (nv, k, n), dtype, seed=2, scale=k ** -0.5)
+    part = torch.empty((splits, nv, m, n), device=dev)
+    before = gemm_tn.launches
+    gemm_tn(a, b, part.transpose(0, 1), compute_dtype=dtype, split_rows=split_rows,
+            a_row_offset=a_off)
+    assert gemm_tn.launches == before + 1
+    ref = gemm_tn_plain(a, b, torch.empty((nv, splits, m, n), device=dev), compute_dtype=dtype,
+                        split_rows=split_rows, a_row_offset=a_off)
+    assert _rel(part.transpose(0, 1), ref) <= 1e-5
+    for v in range(nv):
+        one = gemm_tn(a[v], b[v], torch.empty((splits, m, n), device=dev), compute_dtype=dtype,
+                      split_rows=split_rows, a_row_offset=a_off)
+        assert torch.equal(part[:, v], one), v
+    total = torch.empty((nv, m * n), device=dev)
+    sum_splits(part.view(splits, nv, m * n), total, "test")
+    want = torch.cat([torch.zeros((nv, a_off, m), device=dev, dtype=torch.float64),
+                      a.double()], dim=1).transpose(1, 2) @ b.double()
+    assert _rel(total.view(nv, m, n), want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,layers,dropout", [(2, 4, 0.2), (2, 1, 0.0), (3, 2, 0.0)])
+def test_lstm_tasks_backward_schedule_at_full_width(dev, dtype, nv, layers, dropout):
+    """Row 17 at the inner step's shapes (24 steps, 512 rows, input 256,
+    hidden 128, V tasks) against its schedule on the plain pieces from the
+    same residuals: a recurrence, a gemm_nn and two gemm_tn launches a
+    layer, no gemm.cu launch; two calls bitwise equal."""
+    fls = fused_lstm_stack
+    w0, wr, b2d = _task_weights(dev, nv, 256, 128, layers, 30)
+    x = _card(dev, (nv, 24, 512, 256), seed=13)
+    masks = None
+    if dropout:
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(4),
+                          (nv, layers - 1, 24, 512, 128), dropout, dev)
+    keep = 1.0 - dropout
+    g = _card(dev, (nv, 512, 128), seed=14)
+    tasks = fls.lstm_stack_train_tasks
+    with torch.no_grad():
+        _, h_all, c_all, gates = fls.tasks_forward(x, masks, keep, dtype, w0, wr, b2d)
+        before = (tasks.backward_launches, tasks.backward_recurrence_launches,
+                  tasks.backward_gemm_nn_launches, tasks.backward_gemm_tn_launches,
+                  gemm.launches)
+        got = fls.tasks_backward(g, x, h_all, c_all, gates, w0, wr, masks, keep, dtype)
+        assert (tasks.backward_launches, tasks.backward_recurrence_launches,
+                tasks.backward_gemm_nn_launches, tasks.backward_gemm_tn_launches,
+                gemm.launches) == (before[0] + 1, before[1] + layers, before[2] + layers,
+                                   before[3] + 2 * layers, before[4])
+        again = fls.tasks_backward(g, x, h_all, c_all, gates, w0, wr, masks, keep, dtype)
+        ref = fls.tasks_backward_schedule(g, x, h_all, c_all, gates, w0, wr, masks, keep, dtype,
+                                          fls.PLAIN_PIECES)
+    for i, (a, a2, r) in enumerate(zip(got, again, ref)):
+        assert a.shape == r.shape and a.dtype == torch.float32, i
+        assert torch.equal(a, a2), i
+        if r.numel():
+            assert _rel(a, r) <= TOL[dtype], (i, _rel(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nodes,masked_layers", [(512, 3), (117, 4), (128, 0)])
+def test_gcn_train_forward_runs_on_the_core(dev, dtype, nodes, masked_layers):
+    """Row 6 at the inner step's widths (24 slices, 24 -> 4 x 256; masks
+    after the first `masked_layers` layers) against `forward_schedule` on
+    gemm_nn_plain: every layer's stored activation, 2 gemm_nn launches a
+    layer and no gemm.cu launch; 117 nodes take the zero padding."""
+    cfg = ModelConfig()
+    enc = init_encoder(torch.Generator().manual_seed(0), cfg).to(dev).requires_grad_(False)
+    weights = [layer.w for layer in enc.layers]
+    biases = [layer.b for layer in enc.layers]
+    a_hat = _card(dev, (nodes, nodes), seed=1).abs()
+    a_hat = a_hat / a_hat.sum(dim=1, keepdim=True)  # row-normalised, as the graph's
+    x = _card(dev, (24, nodes, cfg.in_channels), seed=2)
+    masks = ((_card(dev, (masked_layers, 24, nodes, 256), seed=3) > -0.84).to(torch.int8)
+             if masked_layers else None)
+    before = (gemm_nn.launches, gemm.launches, fused_gcn_train.gcn_stack_train.gemm_nn_launches)
+    got = fused_gcn_train._forward(x, a_hat, weights, biases, masks, 1.25, dtype)
+    assert (gemm_nn.launches, gemm.launches,
+            fused_gcn_train.gcn_stack_train.gemm_nn_launches) == (
+        before[0] + 2 * len(weights), before[1], before[2] + 2 * len(weights))
+    ref = fused_gcn_train.forward_schedule(x, a_hat, weights, biases, masks, 1.25, dtype,
+                                           product=gemm_nn_plain)
+    for l, (a, r) in enumerate(zip(got, ref)):
+        assert a.dtype == dtype and a.shape == (24, nodes, 256), l
+        torch.testing.assert_close(a.float(), r.float(), rtol=TOL[dtype], atol=TOL[dtype])
+

@@ -9,11 +9,15 @@ the float32 FO inner step (one window, forward + backward + fused clip +
 SGD) and the same with `model.lstm_kernel=pallas`, each by the host clock
 (median of 20, ending in a synchronize) and by the device's busy time
 (torch.profiler, mean of 5), the FO meta step at `MetaConfig()` defaults
-(4 tasks x 90 inner steps; the median of 3 after one warm-up step) and the
-node-sharded meta step on a 1 x 1 mesh (a NCCL group of one; its own
-warm-up, the median of 3), and one
-call of the serving GCN stack (kernel row 1, [72, 512, 24] -> 4 x 256) in
-float32 and bfloat16. Run it on two checkouts in turns (A, B, B, A) in one call on one
+(4 tasks x 90 inner steps), the same with the micro-batch's tasks in
+lockstep (`_VBATCH`: kernel rows 16-17 and 9) and the node-sharded meta
+step on a 1 x 1 mesh (a NCCL group of one), each the median of 3 after one
+warm-up step with its peak device memory (GiB, the most of the 3); the
+task-batched LSTM stack's backward alone (row 17 at V = 2: x [2 x 512, 24,
+256], 4 layers of 128, masks at rate 0.2, from row 16's residuals) by CUDA
+events (median of 20) and by CUDA graph replay; and one call of the serving
+GCN stack (kernel row 1, [72, 512, 24] -> 4 x 256) in float32 and
+bfloat16. Run it on two checkouts in turns (A, B, B, A) in one call on one
 card: the card's host varies between calls. `--cpu` is a dry run of the
 same code on the CPU (the plain versions, one inner step a task, gloo; no
 times).
@@ -44,8 +48,10 @@ from weatherforecast_stgcn_maml_tpu_torch.config import (  # noqa: E402
 )
 from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import fused_gcn_stack  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed  # noqa: E402
@@ -88,6 +94,38 @@ def host_ms(fn, repeats=20):
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def events_ms(fn, repeats=20):
+    """Median time of fn() in ms by CUDA events."""
+    fn()
+    fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn):
+    """fn()'s device time in ms: captured once in a CUDA graph, its replays
+    timed by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    ms = events_ms(graph.replay)
+    del graph
+    return ms
 
 
 def busy_ms(fn, steps=5):
@@ -135,19 +173,53 @@ for route, mc in (("default", ModelConfig()), ("pallas", ModelConfig(lstm_kernel
     if route == "default":
         distributed.ensure_process_group("gloo" if args.cpu else "nccl")
         sharded = make_shardmap_meta_step_2d(mc, meta_cfg, make_mesh_2d(1, 1, dev))
-        for name, step, key in (("meta step ms", make_meta_step(mc, meta_cfg), g),
-                                ("sharded meta step ms", sharded, (7, 1))):
+        serial = make_meta_step(mc, meta_cfg)
+
+        def lockstep(state, tasks, key):
+            fused_lstm_stack._VBATCH = True
+            try:
+                serial(state, tasks, key)
+            finally:
+                fused_lstm_stack._VBATCH = False
+
+        for name, step, key in (("meta step", serial, g), ("lockstep meta step", lockstep, g),
+                                ("sharded meta step", sharded, (7, 1))):
             step(state, tasks, key)
-            times = []
+            times, peaks = [], []
             for _ in range(1 if args.cpu else 3):
                 sync()
+                if not args.cpu:
+                    torch.cuda.reset_peak_memory_stats(dev)
                 t0 = time.perf_counter()
                 step(state, tasks, key)
                 sync()
                 times.append((time.perf_counter() - t0) * 1e3)
-            res[name] = None if args.cpu else statistics.median(times)
+                peaks.append(None if args.cpu else torch.cuda.max_memory_allocated(dev) / 2**30)
+            res[f"{name} ms"] = None if args.cpu else statistics.median(times)
+            res[f"{name} peak GiB"] = None if args.cpu else max(peaks)
+        res["lockstep / serial"] = (None if args.cpu
+                                    else res["lockstep meta step ms"] / res["meta step ms"])
 
 cfg = ModelConfig()
+if not args.cpu:  # row 17 alone at V = 2, from row 16's residuals (masks at rate 0.2)
+    nv, n, lh, n_l = 2, 512, cfg.lstm_hidden, cfg.lstm_layers
+    draw = torch.Generator(device=dev).manual_seed(5)
+    x_v = torch.randn((nv, cfg.window, n, cfg.hidden_channels), generator=draw, device=dev)
+    bound = lh ** -0.5
+    w0, wr, b2d = (torch.empty(shape, device=dev).uniform_(-bound, bound, generator=draw)
+                   for shape in ((nv, cfg.hidden_channels + lh, 4 * lh),
+                                 (nv, n_l - 1, 2 * lh, 4 * lh), (nv, n_l, 4 * lh)))
+    m = draw_mask(draw, (nv, n_l - 1, cfg.window, n, lh), 0.2, dev)
+    g_v = torch.randn((nv, n, lh), generator=draw, device=dev)
+    with torch.no_grad():
+        fwd = fused_lstm_stack.tasks_forward(x_v, m, 0.8, torch.float32, w0, wr, b2d)
+
+        def row17():
+            fused_lstm_stack.tasks_backward(g_v, x_v, *fwd[1:], w0, wr, m, 0.8, torch.float32)
+
+        res["row 17 ms"] = events_ms(row17)
+        res["row 17 device ms"] = graph_ms(row17)
+    del fwd, x_v
 model = init_model(torch.Generator().manual_seed(0), cfg, device=dev)
 a_hat = torch.from_numpy(
     build_region_graph(regions[0].lats, regions[0].lons, k_neighbors=4).a_hat).to(dev)

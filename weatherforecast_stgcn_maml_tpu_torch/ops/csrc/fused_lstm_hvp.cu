@@ -16,9 +16,9 @@
 // layer; a dot unit is one [rows, K_l] x [K_l, 4H] product). Here the primal
 // runs first, in the port's own first-order kernels, which keep what the
 // tangents need: the forward (fused_lstm_stack.cu, row 4) stores the
-// activated gates, and the backward (fused_lstm_stack_train.cu, row 5)
-// stores each stage's dh, dc and dgates. So these kernels compute tangents
-// only:
+// activated gates, and the backward (row 5's layer-by-layer schedule on
+// lstm_scan_bwd.cuh) stores each stage's dh, dc and dgates. So these kernels
+// compute tangents only:
 //   row 10, per step t and layer l (gate order i, f, g, o; s = sigmoid'):
 //     ds  = [dx_in | dh_{t-1} | x_in | h_{t-1}] @ [[W_l], [dW_l]] + db_l
 //           (one contraction over 2 K_l rows: 2 dot units)
@@ -28,7 +28,7 @@
 //   writing dh_all, dc_all (compute dtype) and the activated gates' tangents
 //   [L, T, R, 4H] float32, which row 11 reads;
 //   row 11, walking t and l backwards, linearises every line of row 5
-//   (csrc/fused_lstm_stack_train.cu) around its stored dh, dc, dgates, and
+//   (csrc/lstm_scan_bwd.cuh) around its stored dh, dc, dgates, and
 //   contracts [tdgates | dgates] @ [[W_l^T], [dW_l^T]] (8H rows: 2 dot
 //   units) for the tangent of dxh: its first K_l columns go to the layer
 //   below (or to tdx), the last H to step t-1. It writes tdgates [L, T, R,

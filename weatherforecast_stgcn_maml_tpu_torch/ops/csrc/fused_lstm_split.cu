@@ -26,7 +26,8 @@
 //     lstm_scan_bwd.cuh, reading c_all in the compute dtype), then the input
 //     gradient in one more gemm_nn.cu launch.
 // The recurrence entry below also serves the merged stack's backward (row
-// 5), which walks the same schedule from row 4's stored gates.
+// 5), which walks the same schedule from row 4's stored gates, and row 17
+// (row 5 for V tasks, from row 16's), one launch a layer for all tasks.
 //
 // Translation of the forward: as in row 4, each block owns a tile of rows
 // (independent sequences) and walks time and layers itself; thread (g, j)
@@ -237,31 +238,63 @@ extern "C" int wf_lstm_split_fwd(int w_dt, int rows_per_thread, const float* x,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward recurrence of one layer of either LSTM stack: the serial
-// part of the merged stack's training backward (kernel row 5) and of the
+// The arguments of one backward recurrence, every field 8 bytes wide, so
+// the Python side packs them with one struct format (ops/fused_lstm_stack.py
+// `_SCAN_LAUNCH`): one ctypes argument in place of twenty-five.
+struct ScanLaunch {
+  long long w_dt, cs, hcp, rb, tasks;
+  long long g, sg, gates, sgates, c_all, sc, wts, sw, dgates, sdg;
+  long long dh_all, dc_all, sdh, db, sdb, ldb;
+  long long T, R, H, stream;
+};
+static_assert(sizeof(ScanLaunch) == 25 * 8, "ScanLaunch is 25 packed 8-byte fields");
+
+// The backward recurrence of one layer of either LSTM stack, for `tasks`
+// tasks at once: the serial part of the merged stack's training backward
+// (kernel row 5; row 17 with a task each for V tasks) and of the
 // unmerged-gates one (row 15). dgates [T, R, 4H] float32 from the gradient
 // g [T, R, H] float32 of the layer's h sequence, its activated gates [T, R,
-// 4H] float32 (row 4's stored ones for row 5, recomputed for row 15), its
-// c_all [T, R, H] in the compute dtype w_dt (0 = float32, 1 = bfloat16)
-// and Wh^T's column slices wts [cs, 4H, hcp] in w_dt, by the cluster plan
-// (cs, hcp, rb) of lstm_scan_bwd.cuh (ops/fused_lstm_stack.py
+// 4H] float32 (row 4's or 16's stored ones for rows 5 and 17, recomputed
+// for row 15), its c_all [T, R, H] in the compute dtype w_dt (0 = float32,
+// 1 = bfloat16) and Wh^T's column slices wts [cs, 4H, hcp] in w_dt, by the
+// cluster plan (cs, hcp, rb) of lstm_scan_bwd.cuh (ops/fused_lstm_stack.py
 // `recurrence_plan`); also each step's dh and dc [T, R, H] float32 into
-// dh_all and dc_all unless they are null (both or neither). Returns a
-// cudaError_t code.
-extern "C" int wf_lstm_stack_recurrence(int w_dt, int cs, int hcp, int rb, const float* g,
-                                        const float* gates, const void* c_all,
-                                        const void* wts, float* dgates, float* dh_all,
-                                        float* dc_all, int T, int R, int H, void* stream) {
-  const wf::ScanBwd a{g, gates, c_all, wts, dgates, dh_all, dc_all, T, R, H, cs};
-  return wf::launch_scan_bwd_dt<true>(w_dt, hcp, rb, a, static_cast<cudaStream_t>(stream));
+// dh_all and dc_all unless they are null (both or neither), and the bias
+// gradient's partials, a row tile each, into db unless it is null. Task z's
+// arrays start z times their stride (s*, in elements) after task 0's; row
+// tile y's partial starts at db + z * sdb + y * ldb. Returns a cudaError_t
+// code.
+extern "C" int wf_lstm_stack_recurrence(const ScanLaunch* p) {
+  if (p->T > 0x7fffffff || p->R > 0x7fffffff || p->H > 0x7fffffff || p->tasks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  auto ptr = [](long long v) { return reinterpret_cast<const void*>(v); };
+  wf::ScanBwd a{static_cast<const float*>(ptr(p->g)),
+                static_cast<const float*>(ptr(p->gates)),
+                ptr(p->c_all),
+                ptr(p->wts),
+                reinterpret_cast<float*>(p->dgates),
+                reinterpret_cast<float*>(p->dh_all),
+                reinterpret_cast<float*>(p->dc_all),
+                (int)p->T, (int)p->R, (int)p->H, (int)p->cs, (int)p->tasks};
+  a.sg = p->sg;
+  a.sgates = p->sgates;
+  a.sc = p->sc;
+  a.sw = p->sw;
+  a.sdg = p->sdg;
+  a.sdh = p->sdh;
+  a.db = reinterpret_cast<float*>(p->db);
+  a.sdb = p->sdb;
+  a.ldb = p->ldb;
+  return wf::launch_scan_bwd_dt<true>((int)p->w_dt, (int)p->hcp, (int)p->rb, a,
+                                      reinterpret_cast<cudaStream_t>(p->stream));
 }
 
 // The most clusters of that recurrence's plan (cs, hcp, rb) at hidden width
 // H that the card runs at once (cudaOccupancyMaxActiveClusters), or a
 // negative cudaError_t code.
 extern "C" int wf_lstm_stack_recurrence_clusters(int w_dt, int cs, int hcp, int rb, int H) {
-  const wf::ScanBwd a{nullptr, nullptr, nullptr, nullptr, nullptr,
-                      nullptr, nullptr, 1,       1,       H,       cs};
+  const wf::ScanBwd a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, 1,       1,       H,       cs,      1};
   int n = 0;
   const int err = wf::launch_scan_bwd_dt<true>(w_dt, hcp, rb, a, nullptr, &n);
   return err ? -err : n;

@@ -12,8 +12,9 @@
 //     each inter-layer input by its int8 dropout mask times 1/keep before
 //     rounding it to the compute dtype. The TPU backward recomputes the
 //     gates from the residuals to spare HBM; here storing them (4 floats a
-//     unit, 100 MB at the reference width) halves the backward's serial
-//     work per step (csrc/fused_lstm_stack_train.cu);
+//     unit, 100 MB at the reference width) leaves the backward's serial
+//     recurrence one contraction a step (csrc/lstm_scan_bwd.cuh, rows 5 and
+//     17);
 //   training for V tasks (kernel row 16): `_fwd_kernel_mv` (+ `_nomask`),
 //     launched by `_fwd_pallas_mv`: row 4 for V tasks, each with its own
 //     weights, inputs, masks and outputs, in one launch. The TPU folds the V

@@ -17,14 +17,22 @@
 //     layer's forward): relu(round(A_rows) @ hw_full[:, s] + b) * mask / keep
 //     for every slice s in one batched launch over the node-major layout (the
 //     bias + relu + mask epilogue), then hw_next = round(h_post) @ W_next;
-//   rows 5 and 15, fused_lstm_stack.py `_bwd_kernel_m` / `_bwd_kernel` (the
-//     LSTM stack's backward), off the serial chain: row 15's recomputed gates
-//     of one layer for all T x R rows, act(in @ Wx + h_{t-1} @ Wh + b) as two
-//     operand pairs into one float32 accumulator, the second at a row offset
-//     of R (h_{-1} = 0; the gate epilogue), and both rows' input gradient
-//     round(dgates) @ Wx^T, times the layer below's dropout mask and 1/keep
-//     (the mask epilogue).
-// The other GEMMs of the port stay on gemm.cu.
+//   rows 5, 15 and 17, fused_lstm_stack.py `_bwd_kernel_m` / `_bwd_kernel` /
+//     `_bwd_kernel_mv` (the LSTM stack's backward; row 17 for V tasks, each
+//     product batched over the tasks), off the serial chain: row 15's
+//     recomputed gates of one layer for all T x R rows, act(in @ Wx +
+//     h_{t-1} @ Wh + b) as two operand pairs into one float32 accumulator,
+//     the second at a row offset of R (h_{-1} = 0; the gate epilogue), and
+//     each row's input gradient round(dgates) @ Wx^T, times the layer
+//     below's dropout mask and 1/keep (the mask epilogue); row 17's weight
+//     gradients, dWx = round(in)^T round(dgates) and dWh = round(h_{t-1})^T
+//     round(dgates) (TN, split over K, a task axis);
+//   row 6, fused_gcn_train.py `_fwd_kernel` (the training GCN stack's
+//     forward): row 1's two products a layer, the aggregation's bias + relu
+//     + mask epilogue storing each layer's post-dropout h in the compute
+//     dtype (ops/fused_gcn_train.py `forward_schedule`).
+// The other GEMMs of the port (rows 5 and 15's weight gradients, row 13)
+// stay on gemm.cu.
 //
 // Numerics are the port's (common.cuh): operands are rounded to the compute
 // dtype as they are loaded, products accumulate in float32. B is stored in
@@ -68,6 +76,14 @@
 //     bitwise equal). An output narrower than the tile (M = 24 at the GCN's
 //     layer 0) zero-fills the missing columns as it loads, and warps whose
 //     rows all lie past M skip the math.
+//   A task axis (row 17: V tasks' LSTM weight gradients in one launch, each
+//     task's operands and partials at strides of their own) shares
+//     blockIdx.z with the splits, and `kc` is chosen for V tasks x tiles x
+//     splits to make about one wave (ops/gemm.py `wave_split_rows`: 512 rows
+//     at V = 2). An A row offset pairs A row k - a_off with B row k,
+//     zero-filling the first a_off rows as they load: the recurrent weight
+//     gradient h_{t-1}^T dgates_t over every step, at the splits of the
+//     input weight gradient's.
 #include <cstdint>
 
 #include "common.cuh"
@@ -516,14 +532,20 @@ __global__ void __launch_bounds__(kHThreads, 3) gemm_nn_bf16_kernel(NNArgs g) {
 
 // ---------------------------------------------------------------- TN
 
-// C[z*sc + m*ldc + n] = sum over k in [z*kc, min(K, (z+1)*kc)) of
-// A[k*lda + m] * B[k*ldb + n]: split z's float32 partial of A^T @ B.
+// Block z works on task v = z / splits and split s = z % splits:
+// C[v*st + s*sc + m*ldc + n] = sum over k in [s*kc, min(K, (s+1)*kc)) of
+// A'[k, m] * B[v*sb + k*ldb + n], split s's float32 partial of A'^T @ B,
+// where A' holds a_off zero rows and then A: A'[k, m] = A[v*sa + (k -
+// a_off)*lda + m] for k >= a_off (the LSTM's recurrent weight gradient pairs
+// h_{t-1} with the gate gradients of step t, h_{-1} = 0).
 struct TNArgs {
-  const void* A;  // [K, M], compute dtype
+  const void* A;  // [K - a_off, M], compute dtype
   const void* B;  // [K, N], compute dtype
   float* C;
   long long sc;
   int lda, ldb, ldc, M, N, K, kc;
+  long long sa, sb, st;  // task strides of A, B and C
+  int splits, a_off;
 };
 
 // float32: the NN tile's sizes (kFBM x kFBN, kFBK-deep slabs, kFStages) and
@@ -540,12 +562,13 @@ __global__ void __launch_bounds__(kFThreads, 3) gemm_tn_f32_kernel(TNArgs g) {
   const int ty = tid / 8;  // rows ty*8 .. +7
   const int m0 = blockIdx.y * kFBM;
   const int n0 = blockIdx.x * kFBN;
-  const long long z = blockIdx.z;
-  const int kb = (int)z * g.kc;
+  const int task = blockIdx.z / g.splits;
+  const int split = blockIdx.z % g.splits;
+  const int kb = split * g.kc;
   const int ke = min(g.K, kb + g.kc);
   const int kts = (ke - kb + kFBK - 1) / kFBK;
-  const float* A = static_cast<const float*>(g.A);
-  const float* B = static_cast<const float*>(g.B);
+  const float* A = static_cast<const float*>(g.A) + task * g.sa;
+  const float* B = static_cast<const float*>(g.B) + task * g.sb;
 
   auto load_slab = [&](int s, int stage) {
     const int k0 = kb + s * kFBK;
@@ -556,9 +579,9 @@ __global__ void __launch_bounds__(kFThreads, 3) gemm_tn_f32_kernel(TNArgs g) {
       const int c = tid + i * kFThreads;
       const int r = c / (kFBM / 4);
       const int mc = (c % (kFBM / 4)) * 4;
-      const bool ok = k0 + r < ke && m0 + mc < g.M;
-      cp_async16_zfill(as + r * kFBM + mc, ok ? A + (long long)(k0 + r) * g.lda + m0 + mc : A,
-                       ok);
+      const bool ok = k0 + r < ke && k0 + r >= g.a_off && m0 + mc < g.M;
+      cp_async16_zfill(as + r * kFBM + mc,
+                       ok ? A + (long long)(k0 + r - g.a_off) * g.lda + m0 + mc : A, ok);
     }
 #pragma unroll
     for (int i = 0; i < kFBStage / 4 / kFThreads; ++i) {
@@ -607,7 +630,7 @@ __global__ void __launch_bounds__(kFThreads, 3) gemm_tn_f32_kernel(TNArgs g) {
     }
   }
 
-  float* C = g.C + z * g.sc;
+  float* C = g.C + task * g.st + split * g.sc;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + ty * 8 + i;
@@ -639,12 +662,13 @@ __global__ void __launch_bounds__(kHThreads, 3) gemm_tn_bf16_kernel(TNArgs g) {
   const int wn = (warp / 2) * 32;
   const int m0 = blockIdx.y * kHBM;
   const int n0 = blockIdx.x * kHBN;
-  const long long z = blockIdx.z;
-  const int kb = (int)z * g.kc;
+  const int task = blockIdx.z / g.splits;
+  const int split = blockIdx.z % g.splits;
+  const int kb = split * g.kc;
   const int ke = min(g.K, kb + g.kc);
   const int kts = (ke - kb + kHBK - 1) / kHBK;
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(g.A);
-  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(g.B);
+  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(g.A) + task * g.sa;
+  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(g.B) + task * g.sb;
 
   auto load_slab = [&](int s, int stage) {
     const int k0 = kb + s * kHBK;
@@ -655,9 +679,9 @@ __global__ void __launch_bounds__(kHThreads, 3) gemm_tn_bf16_kernel(TNArgs g) {
       const int c = tid + i * kHThreads;
       const int r = c / (kHBM / 8);
       const int mc = (c % (kHBM / 8)) * 8;
-      const bool ok = k0 + r < ke && m0 + mc < g.M;
-      cp_async16_zfill(as + r * kULdA + mc, ok ? A + (long long)(k0 + r) * g.lda + m0 + mc : A,
-                       ok);
+      const bool ok = k0 + r < ke && k0 + r >= g.a_off && m0 + mc < g.M;
+      cp_async16_zfill(as + r * kULdA + mc,
+                       ok ? A + (long long)(k0 + r - g.a_off) * g.lda + m0 + mc : A, ok);
     }
 #pragma unroll
     for (int i = 0; i < kHBK * kHBN / 8 / kHThreads; ++i) {
@@ -720,7 +744,7 @@ __global__ void __launch_bounds__(kHThreads, 3) gemm_tn_bf16_kernel(TNArgs g) {
     }
   }
 
-  float* C = g.C + z * g.sc;
+  float* C = g.C + task * g.st + split * g.sc;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -882,36 +906,45 @@ extern "C" int wf_gemm_nn(const NNLaunch* p) {
   return kRefuseEpilogue;
 }
 
-// The arguments of one TN launch, 13 packed 8-byte fields (ops/gemm.py
+// The arguments of one TN launch, 18 packed 8-byte fields (ops/gemm.py
 // `_TN_LAUNCH`).
 struct TNLaunch {
   long long r_dt, a, lda, b, ldb, c, sc, ldc, M, N, K, kc, stream;
+  long long batch, sa, sb, st, a_off;
 };
-static_assert(sizeof(TNLaunch) == 13 * 8, "TNLaunch is 13 packed 8-byte fields");
+static_assert(sizeof(TNLaunch) == 18 * 8, "TNLaunch is 18 packed 8-byte fields");
 
-// C[s] = A[ks]^T @ B[ks] for every split s of K: ks = rows [s*kc, min(K,
-// (s+1)*kc)), A [K, M] and B [K, N] stored in the compute dtype r_dt (0 =
-// float32, 1 = bfloat16) with row strides lda, ldb; C float32, split s at
-// C + s*sc, row stride ldc. M, N, every row stride and sc are multiples of 8
-// elements, every pointer 16-byte aligned, kc a positive multiple of 32.
-// Returns a cudaError_t code, or a negative wf::Refusal without launching.
+// C[v][s] = A'[v][ks]^T @ B[v][ks] for every task v < batch and split s of
+// K: ks = rows [s*kc, min(K, (s+1)*kc)), A' = a_off zero rows over A [K -
+// a_off, M], B [K, N], both stored in the compute dtype r_dt (0 = float32,
+// 1 = bfloat16) with row strides lda, ldb and task strides sa, sb; C
+// float32, task v's split s at C + v*st + s*sc, row stride ldc. M, N, every
+// row and task stride and sc are multiples of 8 elements, every pointer
+// 16-byte aligned, kc a positive multiple of 32. Returns a cudaError_t code,
+// or a negative wf::Refusal without launching.
 extern "C" int wf_gemm_tn(const TNLaunch* p) {
   using namespace wf;
   const int32_t kMax = 0x7fffffff;
   if (p->lda > kMax || p->ldb > kMax || p->ldc > kMax || p->M > kMax || p->N > kMax ||
-      p->K > kMax || p->kc > kMax)
+      p->K > kMax || p->kc > kMax || p->batch > kMax || p->a_off > kMax)
     return kRefuseInt32;
   TNArgs g{reinterpret_cast<const void*>(p->a), reinterpret_cast<const void*>(p->b),
            reinterpret_cast<float*>(p->c), p->sc, (int)p->lda, (int)p->ldb, (int)p->ldc,
-           (int)p->M, (int)p->N, (int)p->K, (int)p->kc};
-  if (g.M <= 0 || g.N <= 0 || g.K <= 0) return kRefuseSize;
+           (int)p->M, (int)p->N, (int)p->K, (int)p->kc, p->sa, p->sb, p->st, 0,
+           (int)p->a_off};
+  if (g.M <= 0 || g.N <= 0 || g.K <= 0 || p->batch <= 0) return kRefuseSize;
   if (g.N % 8) return kRefuseN;
   if (g.M % 8) return kRefuseM;
   if (g.kc <= 0 || g.kc % 32) return kRefuseSplit;
-  if (g.ldc % 8 || g.sc % 8 || !aligned16(g.C)) return kRefuseC;
-  if (g.lda % 8 || g.ldb % 8 || !aligned16(g.A) || !aligned16(g.B)) return kRefuseAB;
-  const dim3 grid((g.N + kFBN - 1) / kFBN, (g.M + kFBM - 1) / kFBM, (g.K + g.kc - 1) / g.kc);
-  if (grid.y > 65535u || grid.z > 65535u) return kRefuseGrid;
+  if (g.a_off < 0) return kRefuseOffset;
+  if (g.ldc % 8 || g.sc % 8 || g.st % 8 || !aligned16(g.C)) return kRefuseC;
+  if (g.lda % 8 || g.ldb % 8 || g.sa % 8 || g.sb % 8 || !aligned16(g.A) || !aligned16(g.B))
+    return kRefuseAB;
+  g.splits = (g.K + g.kc - 1) / g.kc;
+  const long long zs = p->batch * g.splits;
+  if (zs > 65535) return kRefuseGrid;
+  const dim3 grid((g.N + kFBN - 1) / kFBN, (g.M + kFBM - 1) / kFBM, (unsigned)zs);
+  if (grid.y > 65535u) return kRefuseGrid;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(p->stream);
   if (p->r_dt == kF32)
     gemm_tn_f32_kernel<<<grid, kFThreads, kFSmem, s>>>(g);

@@ -59,6 +59,6 @@ extern "C" int wf_lstm_scan_fwd(int w_dt, int rows_per_thread, const float* xp,
 extern "C" int wf_lstm_scan_bwd(int w_dt, int cs, int hcp, int rb, const float* g,
                                 const float* gates, const float* c_all, const void* wts,
                                 float* dgates, int T, int R, int H, void* stream) {
-  const wf::ScanBwd a{g, gates, c_all, wts, dgates, nullptr, nullptr, T, R, H, cs};
+  const wf::ScanBwd a{g, gates, c_all, wts, dgates, nullptr, nullptr, T, R, H, cs, 1};
   return wf::launch_scan_bwd_dt<false>(w_dt, hcp, rb, a, static_cast<cudaStream_t>(stream));
 }

@@ -11,13 +11,17 @@
 //     dh_carry = round(dgates) @ round(Wh)^T;  dc_carry = dc * f
 // and writes dgates [T, R, 4H] float32 and, where asked, each step's dh and
 // dc (before the * f) [T, R, H] float32: the carries the second-order
-// backward (fused_lstm_hvp.cu) reads. The arithmetic is JAX's
+// backward (fused_lstm_hvp.cu) reads; and, where asked, the bias gradient's
+// partials: the float32 column sums of dgates over every step and the rows
+// of each row tile. The arithmetic is JAX's
 // (weatherforecast_stgcn_maml_tpu/ops/): `fused_lstm_stack._bwd_kernel_m`
-// for row 5, `fused_lstm_stack._bwd_kernel` for row 15, `lstm_scan.
-// _bwd_kernel` for row 19. Those TPU kernels walk the stack as one chain;
-// here each layer's gate products (row 15), input gradient and weight
-// gradients are products off this chain (ops/fused_lstm_stack.py
-// `backward_schedule`), and this recurrence is the only serial work.
+// for row 5, `fused_lstm_stack._bwd_kernel` for row 15, `fused_lstm_stack.
+// _bwd_kernel_mv` for row 17 (V tasks, each with its own weights: the
+// grid's z axis), `lstm_scan._bwd_kernel` for row 19. Those TPU kernels walk
+// the stack as one chain; here each layer's gate products (row 15), input
+// gradient and weight gradients are products off this chain
+// (ops/fused_lstm_stack.py `backward_schedule`), and this recurrence is the
+// only serial work.
 //
 // Bound: at the training shapes (T = 24, R = 512, H = 128) a layer is 1.61
 // GFLOP (0.024 ms at the card's float32 rate) and moves 2 x 25 MB of gates
@@ -45,9 +49,14 @@
 // t, and one cluster barrier a step suffices. The grid is clusters x row
 // tiles, sized (ops/fused_lstm_stack.py `recurrence_plan`) to fill the SMs
 // in one wave: at R = 512, 64 clusters of 2 blocks x 8 rows in float32,
-// 128 blocks x 4 rows in bfloat16. c_all is read in its stored dtype TC:
-// float32 for row 19 (its forward's own), the compute dtype for rows 5
-// and 15 (JAX's residual contract).
+// 128 blocks x 4 rows in bfloat16; row 17's V tasks multiply the row tiles
+// by V (V = 2: 32 clusters of 2 blocks x 16 rows a task in float32). c_all
+// is read in its stored dtype TC: float32 for row 19 (its forward's own),
+// the compute dtype for rows 5, 15 and 17 (JAX's residual contract).
+// The bias gradient (row 17) costs no pass of its own: each thread adds its
+// float32 dgates over the steps in registers, and after the last step the
+// block adds its rows' sums in row order into one partial a row tile
+// (ops/gemm.py `sum_splits` adds the tiles in order: no atomics).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -73,7 +82,13 @@ struct ScanBwd {
   float* dh_all;       // [T, R, H] each step's dh, or null
   float* dc_all;       // [T, R, H] each step's dc, or null (with dh_all)
   int T, R, H;
-  int cs;  // blocks a cluster
+  int cs;     // blocks a cluster
+  int tasks;  // the grid's z axis: task z reads and writes each array below
+              // at z times its task stride (in elements of its own type)
+  long long sg, sgates, sc, sw, sdg, sdh;  // sdh: dh_all's and dc_all's
+  float* db;  // [z * sdb + tile * ldb + n] (n < 4H): the column sums of
+              // dgates over every step and the tile's rows, or null
+  long long sdb, ldb;
 };
 
 constexpr int kScanThreads = 256;
@@ -238,11 +253,27 @@ __device__ __forceinline__ void cell_bwd(float gi, float gf, float gg, float go,
   dcc = dc * gf;
 }
 
-// Grid (cs, row tiles); clusters of cs blocks along x: block rank b owns
-// units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp.
-template <typename TW, typename TC, int UPT, int RB>
-__global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const ScanBwd a) {
+// Grid (cs, row tiles, tasks); clusters of cs blocks along x: block rank b
+// owns units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp. DB:
+// the bias gradient's partials into a.db (a compile-time variant: its 16
+// sums a thread would cost the others registers).
+template <typename TW, typename TC, int UPT, int RB, bool DB>
+__global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const ScanBwd tasks) {
   extern __shared__ __align__(128) unsigned char smem[];
+  ScanBwd a = tasks;  // this block's task
+  {
+    const long long z = blockIdx.z;
+    a.g += z * a.sg;
+    a.gates += z * a.sgates;
+    a.c_all = static_cast<const TC*>(a.c_all) + z * a.sc;
+    a.wts = static_cast<const TW*>(a.wts) + z * a.sw;
+    a.dgates += z * a.sdg;
+    if (a.dh_all) {
+      a.dh_all += z * a.sdh;
+      a.dc_all += z * a.sdh;
+    }
+    if (DB) a.db += z * a.sdb + blockIdx.y * a.ldb;
+  }
   constexpr int HCP = 32 * UPT;
   constexpr int VK = 16 / sizeof(TW);  // k values a 16-byte load of a dgates row
   constexpr int EPT = (RB * HCP / 4 + kScanThreads - 1) / kScanThreads;  // (row, 4 units) a thread
@@ -283,6 +314,7 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
   int pr[EPT], pj[EPT];
   StepIn in[EPT];
   float4 dcc[EPT];
+  float4 dsum[DB ? EPT : 1][4];  // the bias gradient's sums over the steps
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
@@ -290,6 +322,10 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
     pr[e] = nq > 0 && p < RB * nq ? p / nq : -1;
     pj[e] = nq > 0 ? j0 + 4 * (p % nq) : 0;
     dcc[e] = zero;
+    if constexpr (DB) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dsum[e][q] = zero;
+    }
     in[e] = StepIn{zero, zero, zero, zero, zero, zero, zero};
     if (pr[e] >= 0 && row0 + pr[e] < R) load_step<TC>(a, T - 1, row0 + pr[e], pj[e], false, in[e]);
   }
@@ -333,6 +369,15 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
           const size_t o = ((size_t)t * R + row) * H + j;
           store4(a.dh_all + o, dh);
           store4(a.dc_all + o, dc);
+        }
+        if constexpr (DB) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            dsum[e][q].x += d[q].x;
+            dsum[e][q].y += d[q].y;
+            dsum[e][q].z += d[q].z;
+            dsum[e][q].w += d[q].w;
+          }
         }
       }
       if (t > 0) {  // round(dgates) into every block's tile (rows past R: zeros)
@@ -390,13 +435,36 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
     for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
     __syncthreads();  // the partial sums visible to the threads that own the units
   }
+
+  // The bias gradient's partial of this row tile: the threads' sums over
+  // the steps (rows past R hold zeros) laid out [RB][4][HCP] over the warps'
+  // partial-carry buffer, then each (gate, unit) of the block's units added
+  // over the RB rows in row order.
+  if constexpr (DB) {
+    __syncthreads();  // every thread done reading `part` for step 0's carry
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      if (pr[e] < 0) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        store4(part + ((size_t)pr[e] * 4 + q) * HCP + (pj[e] - j0), dsum[e][q]);
+    }
+    __syncthreads();
+    const int nu = 4 * nq;
+    for (int i = tid; i < 4 * nu; i += kScanThreads) {
+      const int q = i / nu, u = i % nu;
+      float v = 0.f;
+      for (int r = 0; r < RB; ++r) v += part[((size_t)r * 4 + q) * HCP + u];
+      a.db[q * H + j0 + u] = v;
+    }
+  }
 }
 
 // Launch one kernel instance, or (max_clusters not null) ask how many of
 // its clusters fit on the card at once.
-template <typename TW, typename TC, int UPT, int RB>
+template <typename TW, typename TC, int UPT, int RB, bool DB>
 int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
-  auto kernel = lstm_scan_bwd_kernel<TW, TC, UPT, RB>;
+  auto kernel = lstm_scan_bwd_kernel<TW, TC, UPT, RB, DB>;
   // The opt-in to more than 48 KB of shared memory, once a device.
   static bool opted[64] = {};
   int dev = 0;
@@ -409,7 +477,7 @@ int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
     if (dev < 64) opted[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.cs, max_clusters ? 1 : (a.R + RB - 1) / RB, 1);
+  cfg.gridDim = dim3(a.cs, max_clusters ? 1 : (a.R + RB - 1) / RB, max_clusters ? 1 : a.tasks);
   cfg.blockDim = dim3(kScanThreads, 1, 1);
   cfg.dynamicSmemBytes = scan_bwd_smem(a.H, 32 * UPT, RB, sizeof(TW));
   cfg.stream = stream;
@@ -426,30 +494,30 @@ int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
   return (int)cudaGetLastError();
 }
 
-template <typename TW, typename TC, int UPT>
+template <typename TW, typename TC, int UPT, bool DB>
 int scan_bwd_rb(int rb, const ScanBwd& a, cudaStream_t s, int* max_clusters) {
   switch (rb) {
     case 2:
-      return scan_bwd_run<TW, TC, UPT, 2>(a, s, max_clusters);
+      return scan_bwd_run<TW, TC, UPT, 2, DB>(a, s, max_clusters);
     case 4:
-      return scan_bwd_run<TW, TC, UPT, 4>(a, s, max_clusters);
+      return scan_bwd_run<TW, TC, UPT, 4, DB>(a, s, max_clusters);
     case 8:
-      return scan_bwd_run<TW, TC, UPT, 8>(a, s, max_clusters);
+      return scan_bwd_run<TW, TC, UPT, 8, DB>(a, s, max_clusters);
     case 16:
-      return scan_bwd_run<TW, TC, UPT, 16>(a, s, max_clusters);
+      return scan_bwd_run<TW, TC, UPT, 16, DB>(a, s, max_clusters);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TW, typename TC>
+template <typename TW, typename TC, bool DB>
 int scan_bwd_hcp(int hcp, int rb, const ScanBwd& a, cudaStream_t s, int* max_clusters) {
   switch (hcp) {
     case 32:
-      return scan_bwd_rb<TW, TC, 1>(rb, a, s, max_clusters);
+      return scan_bwd_rb<TW, TC, 1, DB>(rb, a, s, max_clusters);
     case 64:
-      return scan_bwd_rb<TW, TC, 2>(rb, a, s, max_clusters);
+      return scan_bwd_rb<TW, TC, 2, DB>(rb, a, s, max_clusters);
     case 128:
-      return scan_bwd_rb<TW, TC, 4>(rb, a, s, max_clusters);
+      return scan_bwd_rb<TW, TC, 4, DB>(rb, a, s, max_clusters);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -464,8 +532,9 @@ inline bool aligned_to(const void* p, uintptr_t n) {
 // C_IN_COMPUTE, in the compute dtype. The plan (a.cs blocks a cluster, hcp
 // weight columns a block, rb rows a cluster) is the caller's: cs 1, 2, 4
 // or 8, hcp 32, 64 or 128 and at least scan_units(H, cs), rb 2, 4, 8 or 16,
-// within 227 KB of shared memory. H is a multiple of 4; every array is
-// 16-byte aligned (c_all in bfloat16: 8-byte). Returns a cudaError_t code:
+// within 227 KB of shared memory; 1 to 65535 tasks. H is a multiple of 4;
+// every array is 16-byte aligned (c_all in bfloat16: 8-byte), and so is
+// every task's slice of it. Returns a cudaError_t code:
 // a plan or an argument it does not take is cudaErrorInvalidValue or
 // cudaErrorMisalignedAddress; a cluster launch the card refuses returns the
 // card's code. Nothing falls back to another kernel.
@@ -477,15 +546,27 @@ int launch_scan_bwd_dt(int w_dt, int hcp, int rb, const ScanBwd& a, cudaStream_t
       (rb != 2 && rb != 4 && rb != 8 && rb != 16) ||
       (a.cs != 1 && a.cs != 2 && a.cs != 4 && a.cs != 8) || a.T <= 0 || a.R <= 0 || a.H <= 0 ||
       a.H % 4 || scan_units(a.H, a.cs) > hcp || (a.R + rb - 1) / rb > 65535 ||
+      a.tasks <= 0 || a.tasks > 65535 ||
       !a.dh_all != !a.dc_all || scan_bwd_smem(a.H, hcp, rb, bf16 ? 2 : 4) > kScanMaxSmem)
     return (int)cudaErrorInvalidValue;
+  const int tc = C_IN_COMPUTE && bf16 ? 2 : 4;  // c_all's bytes an element
   if (!aligned_to(a.g, 16) || !aligned_to(a.gates, 16) || !aligned_to(a.dgates, 16) ||
-      !aligned_to(a.wts, 16) || !aligned_to(a.c_all, C_IN_COMPUTE && bf16 ? 8 : 16) ||
-      !aligned_to(a.dh_all, 16) || !aligned_to(a.dc_all, 16))
+      !aligned_to(a.wts, 16) || !aligned_to(a.c_all, 4 * tc) ||
+      !aligned_to(a.dh_all, 16) || !aligned_to(a.dc_all, 16) || !aligned_to(a.db, 4) ||
+      a.sg % 4 || a.sgates % 4 || a.sdg % 4 || a.sdh % 4 || a.sc % 4 || a.sw % (bf16 ? 8 : 4))
     return (int)cudaErrorMisalignedAddress;
   using CB = typename std::conditional<C_IN_COMPUTE, __nv_bfloat16, float>::type;
-  if (bf16) return scan_bwd_hcp<__nv_bfloat16, CB>(hcp, rb, a, s, max_clusters);
-  return scan_bwd_hcp<float, float>(hcp, rb, a, s, max_clusters);
+  // The bias-gradient variants exist for the stack entry alone (row 17).
+  if constexpr (C_IN_COMPUTE) {
+    if (a.db) {
+      if (bf16) return scan_bwd_hcp<__nv_bfloat16, CB, true>(hcp, rb, a, s, max_clusters);
+      return scan_bwd_hcp<float, float, true>(hcp, rb, a, s, max_clusters);
+    }
+  } else if (a.db) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (bf16) return scan_bwd_hcp<__nv_bfloat16, CB, false>(hcp, rb, a, s, max_clusters);
+  return scan_bwd_hcp<float, float, false>(hcp, rb, a, s, max_clusters);
 }
 
 }  // namespace

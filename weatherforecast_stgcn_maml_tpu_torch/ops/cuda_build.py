@@ -55,12 +55,10 @@ _SIGNATURES = {
                                 _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_stack_train_fwd_tasks": [_I, _I, _I, _P, _LL, _P, _P, _P, _P, _F, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _P],
-    "wf_lstm_stack_train_bwd_tasks": [_I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I,
-                                      _I, _I, _I, _I, _P],
     "wf_lstm_split_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I,
                           _I, _I, _I, _P],
-    "wf_lstm_stack_recurrence": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _P],
+    # one packed ScanLaunch (ops/fused_lstm_stack.py _SCAN_LAUNCH)
+    "wf_lstm_stack_recurrence": [ctypes.c_char_p],
     "wf_lstm_stack_recurrence_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_stack_recurrence_smem": [_I, _I, _I, _I],
     "wf_gemm_nn": [ctypes.c_char_p],  # one packed NNLaunch (ops/gemm.py _NN_LAUNCH)

@@ -122,14 +122,15 @@ def aligned(n: int) -> int:
     return -(-n // NN_MULTIPLE) * NN_MULTIPLE
 
 
-def _layer(hb, a, w, b, compute_dtype, out_dtype, product):
+def _layer(hb, a, w, b, compute_dtype, out_dtype, product, mask=None, scale=1.0):
     """One layer on two products: hb [S, N, C_in] float32 or in the compute
     dtype, a = round(A_hat) [N, N_p] (N_p: N up to a multiple of 8) -> relu(a
     @ (round(h) @ round(W)) + b) [S, N, C_out] in out_dtype (None: the
-    product's default), hw stored in the compute dtype. Widths and node
-    counts that are not multiples of 8 are zero-padded to them (zero rows
-    and columns add nothing); the reference width (512 nodes, 24 or 256 ->
-    256) takes no padding."""
+    product's default), hw stored in the compute dtype; with an int8 `mask`
+    [S, N, C_out], times mask * scale (the training stack's dropout). Widths
+    and node counts that are not multiples of 8 are zero-padded to them
+    (zero rows and columns add nothing); the reference width (512 nodes, 24
+    or 256 -> 256) takes no padding."""
     slices, n, c_in = hb.shape
     n_p, c_out = a.shape[1], w.shape[1]
     ci_p, co_p = aligned(c_in), aligned(c_out)
@@ -139,9 +140,10 @@ def _layer(hb, a, w, b, compute_dtype, out_dtype, product):
         (slices, n_p, co_p), dtype=compute_dtype, device=hb.device)
     product(hb, pad_to(w, (ci_p, co_p)), out=hw[:, :n], compute_dtype=compute_dtype,
             what="GCN layer feature transform")
-    out = product(a, hw, epilogue="bias_relu", bias=pad_to(b, (co_p,)),
-                  compute_dtype=compute_dtype, out_dtype=out_dtype,
-                  what="GCN layer aggregation")
+    masked = {} if mask is None else dict(mask=pad_to(mask, (slices, n, co_p)), scale=scale)
+    out = product(a, hw, epilogue="bias_relu_mask" if masked else "bias_relu",
+                  bias=pad_to(b, (co_p,)), compute_dtype=compute_dtype, out_dtype=out_dtype,
+                  what="GCN layer aggregation", **masked)
     return out if co_p == c_out else out[..., :c_out].contiguous()
 
 

@@ -3,9 +3,10 @@
 with a hand-written backward.
 
 `gcn_stack_train` runs the CUDA kernels behind one `torch.autograd.Function`
-on a CUDA tensor: the forward (row 6) on csrc/gemm.cu, the backward (row 7)
-layer by layer on the pipelined GEMM core (csrc/gemm_nn.cu: NN products and
-the K-split TN weight gradient; `backward_schedule`) and
+on a CUDA tensor: the forward (row 6) on the pipelined GEMM core
+(csrc/gemm_nn.cu, two products a layer: `forward_schedule`), the backward
+(row 7) layer by layer on the same core (NN products and the K-split TN
+weight gradient; `backward_schedule`) and
 csrc/fused_gcn_train.cu (the top layer's relu / dropout gradient, the
 transposes); its plain PyTorch version,
 `gcn_stack_train_plain` (the layerwise route, autograd for the backward),
@@ -32,6 +33,8 @@ import torch
 from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import (
+    _layer,
+    _rounded_a_hat,
     aligned,
     check_gcn_inputs,
     gcn_stack_plain,
@@ -39,13 +42,13 @@ from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import (
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
     NN_ROW_TILE,
-    gemm,
     gemm_nn,
     gemm_nn_plain,
     gemm_tn,
     gemm_tn_plain,
     row_tiles,
     sum_splits,
+    sum_splits_plain,
     tile_colsums,
     tn_splits,
     workspace,
@@ -61,29 +64,37 @@ def gcn_stack_train_plain(
     return gcn_stack_plain(layers, a_hat, x, compute_dtype, masks, keep).to(compute_dtype)
 
 
-def _forward(x, a_hat, weights, biases, masks, inv_keep, compute_dtype):
-    """-> h_all: each layer's post-dropout activation [W, N, hid] in the
-    compute dtype."""
-    slices, n, c_in = x.shape
-    h_all = []
-    cur = x
+# Row 6 (JAX `_fwd_kernel`'s arithmetic and rounding points) is row 1's
+# layer loop (ops/fused_gcn.py `_layer`) with dropout, per layer l:
+#   hw = round(round(h) @ round(W_l)) over every slice and node (NN);
+#   h = relu(round(A_hat) @ hw + b_l) per slice (NN, batched, float32
+#     accumulation), times mask_l / keep for l < n_masks (the bias + relu +
+#     mask epilogue), stored in the compute dtype as the backward's residual
+#     and the next layer's input.
+# round(A_hat) is made once a call (row 7 makes its transpose with the
+# weights' in its one transpose-and-round launch, so nothing is shared).
+
+
+def forward_schedule(x, a_hat, weights, biases, masks, inv_keep, compute_dtype,
+                     product=gemm_nn):
+    """Row 6 on `product` (`gemm_nn` on a card, `gemm_nn_plain` in the CPU
+    tests): x [S, N, C] -> h_all, each layer's post-dropout activation [S,
+    N, hid_l] in the compute dtype; two products a layer."""
+    a = _rounded_a_hat(a_hat, compute_dtype)
+    h_all, h = [], x
     for l, (w, b) in enumerate(zip(weights, biases)):
-        hid = w.shape[1]
-        hw = torch.empty((slices * n, hid), dtype=compute_dtype, device=x.device)
-        gemm(
-            cur, w, hw, m=slices * n, n=hid, k=c_in, lda=c_in, ldb=hid, ldc=hid,
-            compute_dtype=compute_dtype, what=f"GCN train layer {l} feature transform",
-        )
-        out = torch.empty((slices, n, hid), dtype=compute_dtype, device=x.device)
         mask = masks[l] if masks is not None and l < masks.shape[0] else None
-        gemm(
-            a_hat, hw, out, m=n, n=hid, k=n, lda=n, ldb=hid, ldc=hid,
-            sb=n * hid, sc=n * hid, batch=slices, bias=b, relu=True,
-            cmask=mask, cscale=inv_keep, compute_dtype=compute_dtype,
-            what=f"GCN train layer {l} aggregation",
-        )
-        h_all.append(out)
-        cur, c_in = out, hid
+        h = _layer(h, a, w, b, compute_dtype, compute_dtype, product, mask=mask,
+                   scale=inv_keep)
+        h_all.append(h)
+    return h_all
+
+
+def _forward(x, a_hat, weights, biases, masks, inv_keep, compute_dtype):
+    """Row 6 on the card (`forward_schedule` on gemm_nn) -> h_all."""
+    before = gemm_nn.launches
+    h_all = forward_schedule(x, a_hat, weights, biases, masks, inv_keep, compute_dtype)
+    gcn_stack_train.gemm_nn_launches += gemm_nn.launches - before
     return h_all
 
 
@@ -240,13 +251,9 @@ def _prep_plain(mats, compute_dtype):
         dst.copy_(src.t() if trans else src)
 
 
-def _sum_splits_plain(part, out):
-    out.copy_(part.sum(dim=0))
-
-
 CARD_PIECES = GcnPieces(gemm_nn, gemm_tn, _top_dz_card, _prep_card, _sum_splits_card)
 PLAIN_PIECES = GcnPieces(gemm_nn_plain, gemm_tn_plain, _top_dz_plain, _prep_plain,
-                         _sum_splits_plain)
+                         sum_splits_plain)
 
 
 def _backward(g, x, a_hat, weights, masks, h_all, inv_keep, compute_dtype,
@@ -349,4 +356,5 @@ def gcn_stack_train(
 
 
 gcn_stack_train.launches = 0  # forwards run through the CUDA kernels (row 6)
+gcn_stack_train.gemm_nn_launches = 0  # their gemm_nn launches (two a layer)
 gcn_stack_train.backward_launches = 0  # backwards run through them (row 7)

@@ -16,9 +16,11 @@ version there.
     from the stored gates, csrc/gemm_nn.cu for the input gradient, gemm.cu
     for the weight and bias gradients);
   * `lstm_stack_train_tasks`: rows 4 and 5 for V tasks with their own
-    weights, one launch each way (rows 16 and 17,
-    csrc/fused_lstm_stack_train.cu for the backward's recurrence), for the
-    task-batched meta step (`_VBATCH`);
+    weights (rows 16 and 17), for the task-batched meta step (`_VBATCH`):
+    the forward in one launch, the backward by row 5's layer-by-layer
+    schedule with a task axis (`tasks_backward_schedule`: per layer one
+    recurrence launch, one gemm_nn launch and two gemm_tn launches for all
+    V tasks);
   * `lstm_stack_split`: the unmerged-gates stack, which the two entries
     above take under `_MERGED_GATES = False` or `merged=False`: the forward
     in one launch (csrc/fused_lstm_split.cu, row 14), the backward (row 15)
@@ -35,6 +37,7 @@ batch of windows over N nodes is simply B*N rows of one launch.
 from __future__ import annotations
 
 import dataclasses
+import struct
 from types import SimpleNamespace
 from typing import Callable, Sequence
 
@@ -52,7 +55,13 @@ from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
     colsum,
     gemm_nn,
     gemm_nn_plain,
+    gemm_tn,
+    gemm_tn_plain,
     matmul_tn,
+    sum_splits,
+    sum_splits_plain,
+    tn_splits,
+    wave_split_rows,
 )
 
 ROWS_PER_THREAD = (2, 4, 8)  # the row tiles the kernel is built for
@@ -463,41 +472,22 @@ def tasks_backward(g, x_vtbc, h_all, c_all, gates, wcat0, wcatr, masks, keep,
                    compute_dtype):
     """Row 17 on a CUDA tensor: the gradient g [V, B, H] of each task's last
     h back to (dx [V, T, B, C], dwcat0 [V, C + H, 4H], dwcatr [V, L-1, 2H,
-    4H], db [V, L, 4H]) float32: the reverse-time recurrence of every task
-    in one launch, then each task's weight gradients on gemm.cu."""
-    lib = cuda_build.load()
-    dev = x_vtbc.device
-    nv, t_len, rows, c_in = x_vtbc.shape
-    n_layers, g4 = gates.shape[1], gates.shape[-1]
-    hidden = g4 // 4
-    inv_keep = 1.0 / keep
-    x = x_vtbc.to(torch.float32).contiguous()
-    g = g.to(torch.float32).contiguous()
-    w0, wr = _on_card_weights(wcat0, wcatr, compute_dtype)
-    wt0 = w0.transpose(1, 2).contiguous()
-    wtr = wr.transpose(2, 3).contiguous() if n_layers > 1 else wt0
-    dx = torch.empty((nv, t_len, rows, c_in), dtype=torch.float32, device=dev)
-    dgates = torch.empty_like(gates)
-    cuda_build.check(
-        lib.wf_lstm_stack_train_bwd_tasks(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(nv * rows, hidden, dev), nv,
-            g.data_ptr(), gates.data_ptr(), c_all.data_ptr(),
-            None if masks is None else masks.data_ptr(), inv_keep,
-            wt0.data_ptr(), wtr.data_ptr(), dx.data_ptr(), dgates.data_ptr(),
-            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
-        ),
-        "LSTM train backward (tasks)",
-    )
-    dwcat0 = torch.empty((nv, c_in + hidden, g4), dtype=torch.float32, device=dev)
-    dwcatr = torch.empty((nv, n_layers - 1, 2 * hidden, g4), dtype=torch.float32, device=dev)
-    db = torch.empty((nv, n_layers, g4), dtype=torch.float32, device=dev)
-    for v in range(nv):
-        dw = [dwcat0[v], *dwcatr[v]]
-        _weight_grads(x[v], h_all[v], dgates[v], None if masks is None else masks[v],
-                      inv_keep, compute_dtype, [w[:-hidden] for w in dw],
-                      [w[-hidden:] for w in dw], db[v])
-    lstm_stack_train_tasks.backward_launches += 1
-    return dx, dwcat0, dwcatr, db
+    4H], db [V, L, 4H]) float32, by `tasks_backward_schedule` on the
+    kernels: per layer, for all V tasks at once, one recurrence launch
+    (csrc/lstm_scan_bwd.cuh, from row 16's stored gates, with the bias
+    gradient's partials), one gemm_nn launch for the input gradient and two
+    gemm_tn launches for the weight gradients, each followed by the
+    `sum_splits` of its partials."""
+    before = _recurrence_card.launches, gemm_nn.launches, gemm_tn.launches
+    out = tasks_backward_schedule(
+        g.to(torch.float32), x_vtbc.to(torch.float32).contiguous(), h_all, c_all, gates,
+        wcat0, wcatr, masks, keep, compute_dtype, CARD_PIECES)
+    tasks = lstm_stack_train_tasks
+    tasks.backward_launches += 1
+    tasks.backward_recurrence_launches += _recurrence_card.launches - before[0]
+    tasks.backward_gemm_nn_launches += gemm_nn.launches - before[1]
+    tasks.backward_gemm_tn_launches += gemm_tn.launches - before[2]
+    return out
 
 
 class _LstmStackTasks(torch.autograd.Function):
@@ -559,6 +549,11 @@ def lstm_stack_train_tasks(
 
 lstm_stack_train_tasks.launches = 0  # forwards run through the CUDA kernel (row 16)
 lstm_stack_train_tasks.backward_launches = 0  # backwards run through the kernels (row 17)
+# Row 17's pieces: its recurrence and gemm_nn launches (one each a layer)
+# and gemm_tn launches (two a layer).
+lstm_stack_train_tasks.backward_recurrence_launches = 0
+lstm_stack_train_tasks.backward_gemm_nn_launches = 0
+lstm_stack_train_tasks.backward_gemm_tn_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -709,123 +704,212 @@ def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residual
     return out, h_all, c_all
 
 
-# Rows 5 and 15 on a card run layer by layer, so that only the dh carry
+# Rows 5, 15 and 17 on a card run layer by layer, so that only the dh carry
 # through Wh^T is on the serial chain (the TPU kernels walk all T x L
-# stages as one chain: row 5 with one contraction a stage against [Wx;
-# Wh]^T, row 15 with four). For l = L-1 .. 0:
+# stages as one chain: rows 5 and 17 with one contraction a stage against
+# [Wx; Wh]^T, row 15 with four). Every tensor carries a leading task axis
+# V (row 17: V tasks, each with its own weights; rows 5 and 15: V = 1), and
+# each product below is one launch for all V tasks. For l = L-1 .. 0:
 #   1. row 15 only: the gates of all T x R rows at once, act(round(in_l) @
 #      Wx_l + round(h_all[l, t-1]) @ Wh_l + b_l): one product of two operand
 #      pairs, the second at a row offset of R (h_{-1} = 0), with the gate
 #      epilogue; in_l is x, or h_all[l-1] times its dropout mask and 1/keep,
-#      rounded. Row 5 reads the activated gates row 4 stored;
+#      rounded. Rows 5 and 17 read the activated gates rows 4 and 16 stored;
 #   2. the recurrence, one contraction a step (csrc/lstm_scan_bwd.cuh), from
 #      the gradient g_l of the layer's h sequence: zero but for g at the top
 #      layer's last step, the input gradient of the layer above below it;
-#      for second order also each step's dh and dc;
+#      for second order also each step's dh and dc; for row 17 also db_l,
+#      the column sums of dgates_l;
 #   3. the input gradient round(dgates_l) @ Wx_l^T: dx at l = 0, else
-#      g_{l-1}, times the mask and 1/keep (the mask epilogue).
-# The weight gradients follow from the gate gradients of every layer. The
-# pieces are swappable: the kernels on a card (`CARD_PIECES`), their plain
-# versions (`PLAIN_PIECES`) in the CPU tests.
+#      g_{l-1}, times the mask and 1/keep (the mask epilogue);
+#   4. row 17 (`layer_grads`): the layer's weight gradients, dWx_l =
+#      round(in_l)^T round(dgates_l) and dWh_l = round(h_{t-1})^T
+#      round(dgates_l) over every step and row (two TN products split over
+#      the T x R rows, h_{t-1} at a row offset of R; their float32 partials
+#      added in split order), so one layer's dgates buffer serves every layer.
+# Rows 5 and 15 form the weight gradients of every layer after the loop,
+# from the gate gradients of every layer (`weight_grads`, on gemm.cu: moving
+# them onto step 4 is `layer_grads=True`). The pieces are swappable: the
+# kernels on a card (`CARD_PIECES`), their plain versions (`PLAIN_PIECES`)
+# in the CPU tests.
 
 
 @dataclasses.dataclass(frozen=True)
 class SplitPieces:
     """product: `gemm_nn`'s signature (ops/gemm.py); recurrence(g, gates,
-    c, wh, compute_dtype, out, dh=None, dc=None) -> dgates [T, R, 4H] into
-    out (and each step's dh, dc [T, R, H] into dh, dc where given), wh [H,
+    c, wh, compute_dtype, out, dh=None, dc=None, db=None) -> dgates [V, T,
+    R, 4H] into out (and each step's dh, dc [V, T, R, H] into dh, dc where
+    given, the column sums of dgates [V, 4H] into db where given), wh [V, H,
     4H] in the compute dtype; weight_grads(x, h_all, dgates, masks, keep,
     compute_dtype, merged=False) -> (dwx0, dwxr, dwh, db), or with `merged`
-    ([dwcat_l], db)."""
+    ([dwcat_l], db), one task's; product_tn: `gemm_tn`'s signature;
+    sum_splits(part [S, M, N], out [M, N], what): out = the sum over S."""
 
     product: Callable
     recurrence: Callable
     weight_grads: Callable
+    product_tn: Callable
+    sum_splits: Callable
 
 
-def backward_schedule(g, x_tbc, h_all, c_all, wx, wh, masks, keep, compute_dtype,
-                      pieces: SplitPieces, gates=None, b2d=None, carries=False):
-    """The layer-by-layer schedule above on `pieces`, from the gradient g
-    [B, H] of the top layer's last h: -> (dx [T, B, C], dgates [L, T, B,
-    4H], dh_all, dc_all [L, T, B, H] or None without `carries`) in the
-    accumulation dtype. wx = [Wx_0 [C, 4H], Wx_1 [H, 4H], ...], wh [L, H,
-    4H]. `gates` [L, T, B, 4H] are the activated gates (row 5); None
-    recomputes each layer's from h_all, c_all and b2d [L, 4H] (row 15)."""
+def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
+                      pieces: SplitPieces, gates=None, b2d=None, carries=False,
+                      layer_grads=False):
+    """The layer-by-layer schedule above on `pieces` for V tasks, every
+    tensor with a leading task axis, from the gradient g [V, B, H] of the
+    top layer's last h: -> (dx [V, T, B, C], dgates [V, L, T, B, 4H] (None
+    with `layer_grads`), dh_all, dc_all [V, L, T, B, H] (None without
+    `carries`), and with `layer_grads` (dwcat0 [V, C + H, 4H], dwcatr [V,
+    L-1, 2H, 4H], db [V, L, 4H]), else None) in the accumulation dtype. x
+    [V, T, B, C], h_all, c_all [V, L, T, B, H], wx = [Wx_0 [V, C, 4H], Wx_1
+    [V, H, 4H], ...], wh [V, L, H, 4H], masks [V, L-1, T, B, H]. `gates` [V,
+    L, T, B, 4H] are the activated gates (rows 5, 17); None recomputes each
+    layer's from h_all, c_all and b2d [V, L, 4H] (row 15, one task)."""
     acc = accum_dtype(compute_dtype)
-    dev = x_tbc.device
-    t_len, rows, c_in = x_tbc.shape
-    n_layers, hidden, g4 = wh.shape
+    dev = x.device
+    nv, t_len, rows, c_in = x.shape
+    n_layers, hidden, g4 = wh.shape[1:]
     steps = t_len * rows
+    if gates is None and nv != 1:
+        raise ValueError("the schedule recomputes the gates of one task only")
     wxs = [w.to(compute_dtype) for w in wx]
     whs = wh.to(compute_dtype)
-    dgates = torch.empty((n_layers, t_len, rows, g4), dtype=acc, device=dev)
+    dgates = torch.empty((nv, 1 if layer_grads else n_layers, t_len, rows, g4), dtype=acc,
+                         device=dev)
     dh_all = dc_all = None
     if carries:
-        dh_all = torch.empty((n_layers, t_len, rows, hidden), dtype=acc, device=dev)
+        dh_all = torch.empty((nv, n_layers, t_len, rows, hidden), dtype=acc, device=dev)
         dc_all = torch.empty_like(dh_all)
-    g_l = torch.zeros((t_len, rows, hidden), dtype=acc, device=dev)
-    g_l[-1] = g
-    g_next = torch.empty_like(g_l) if n_layers > 1 else None
-    dx = torch.empty((steps, c_in), dtype=acc, device=dev)
-    if gates is None:
-        gate_buf = torch.empty((steps, g4), dtype=acc, device=dev)  # reused by every layer
+    g_l = torch.zeros((nv, t_len, rows, hidden), dtype=acc, device=dev)
+    g_l[:, -1] = g
+    # The input gradients of the layers below the top, in the masks' layout:
+    # the mask epilogue reads the mask at the output's offsets.
+    g_below = (torch.empty((nv, n_layers - 1, t_len, rows, hidden), dtype=acc, device=dev)
+               if n_layers > 1 else None)
+    dx = torch.empty((nv, steps, c_in), dtype=acc, device=dev)
+    h_in = None
+    if n_layers > 1 and (gates is None or layer_grads):
         # The layers' inputs above layer 0, masked and rounded once for all.
-        h_in = h_all[:-1]
-        if masks is not None and n_layers > 1:
+        h_in = h_all[:, :-1]
+        if masks is not None:
             h_in = apply_mask(h_in.to(acc), masks, keep).to(compute_dtype)
+    if gates is None:
+        gate_buf = torch.empty((nv, steps, g4), dtype=acc, device=dev)  # reused by every layer
+    grads = None
+    if layer_grads:
+        x_c = x.reshape(nv, steps, c_in).to(compute_dtype)
+        k_max = max(c_in, hidden)
+        # One split plan for both products of every layer: a wave of the
+        # recurrent weight gradient's [H, 4H] tiles (512 rows at V = 2).
+        sms = _sms(dev) if dev.type == "cuda" else 132
+        split_rows = wave_split_rows(steps, hidden, g4, nv, sms)
+        splits = tn_splits(steps, split_rows)
+        part_buf = torch.empty(splits * nv * (k_max + hidden) * g4, dtype=acc, device=dev)
+        grads = (torch.empty((nv, c_in + hidden, g4), dtype=acc, device=dev),
+                 torch.empty((nv, n_layers - 1, 2 * hidden, g4), dtype=acc, device=dev),
+                 torch.empty((nv, n_layers, g4), dtype=acc, device=dev))
+
+    def layer_input(l):
+        return x.reshape(nv, steps, c_in) if l == 0 else h_in[:, l - 1].reshape(nv, steps, hidden)
+
     for l in reversed(range(n_layers)):
         if gates is None:
-            inp = x_tbc.reshape(steps, c_in) if l == 0 else h_in[l - 1].reshape(steps, hidden)
             prev = {} if t_len == 1 else dict(
-                a2=h_all[l, :-1].reshape(steps - rows, hidden), b2=whs[l], row_offset=rows)
-            pieces.product(inp, wxs[l], compute_dtype=compute_dtype, epilogue="gates",
-                           bias=b2d[l], out=gate_buf, what=f"LSTM layer {l} gates", **prev)
-            gates_l = gate_buf.view(t_len, rows, g4)
+                a2=h_all[:, l, :-1].reshape(nv, steps - rows, hidden), b2=whs[:, l],
+                row_offset=rows)
+            pieces.product(layer_input(l), wxs[l], compute_dtype=compute_dtype, epilogue="gates",
+                           bias=b2d[0, l], out=gate_buf, what=f"LSTM layer {l} gates", **prev)
+            gates_l = gate_buf.view(nv, t_len, rows, g4)
         else:
-            gates_l = gates[l]
-        pieces.recurrence(g_l, gates_l, c_all[l], whs[l], compute_dtype, dgates[l],
-                          *(() if dh_all is None else (dh_all[l], dc_all[l])))
-        dg = dgates[l].view(steps, g4)
+            gates_l = gates[:, l]
+        dg_l = dgates[:, 0 if layer_grads else l]
+        pieces.recurrence(g_l, gates_l, c_all[:, l], whs[:, l], compute_dtype, dg_l,
+                          *(() if dh_all is None else (dh_all[:, l], dc_all[:, l])),
+                          **({"db": grads[2][:, l]} if layer_grads else {}))
+        dg = dg_l.reshape(nv, steps, g4)
         # The transpose just before its use: on a card its host work runs
         # while the recurrence does.
-        wxt = wxs[l].t().contiguous()
+        wxt = wxs[l].transpose(-1, -2).contiguous()
         if l == 0:
             pieces.product(dg, wxt, compute_dtype=compute_dtype, out=dx,
                            what="LSTM input gradient")
+        else:
+            mask = None if masks is None else masks[:, l - 1].reshape(nv, steps, hidden)
+            g_l = g_below[:, l - 1]
+            pieces.product(dg, wxt, compute_dtype=compute_dtype,
+                           epilogue="none" if mask is None else "mask", mask=mask,
+                           scale=1.0 / keep, out=g_l.reshape(nv, steps, hidden),
+                           what=f"LSTM layer {l} input gradient")
+        if not layer_grads:
             continue
-        mask = None if masks is None else masks[l - 1].reshape(steps, hidden)
-        pieces.product(dg, wxt, compute_dtype=compute_dtype,
-                       epilogue="none" if mask is None else "mask", mask=mask,
-                       scale=1.0 / keep, out=g_next.view(steps, hidden),
-                       what=f"LSTM layer {l} input gradient")
-        g_l, g_next = g_next, g_l
-    return dx.view(t_len, rows, c_in), dgates, dh_all, dc_all
+        k_l = c_in if l == 0 else hidden
+        dgc = dg.to(compute_dtype)
+        part = part_buf[:splits * nv * (k_l + hidden) * g4].view(splits, nv, k_l + hidden, g4)
+        by_task = part.transpose(0, 1)  # [V, S, K_l + H, 4H]
+        pieces.product_tn(x_c if l == 0 else layer_input(l), dgc, by_task[:, :, :k_l],
+                          compute_dtype=compute_dtype, split_rows=split_rows,
+                          what=f"LSTM layer {l} input weight gradient")
+        pieces.product_tn(h_all[:, l, :-1].reshape(nv, steps - rows, hidden), dgc,
+                          by_task[:, :, k_l:], compute_dtype=compute_dtype,
+                          split_rows=split_rows, a_row_offset=rows,
+                          what=f"LSTM layer {l} recurrent weight gradient")
+        dw_l = grads[0] if l == 0 else grads[1][:, l - 1]
+        pieces.sum_splits(part.view(splits, nv, -1), dw_l.view(nv, -1),
+                          f"LSTM layer {l} weight gradient partials")
+    return dx.view(nv, t_len, rows, c_in), None if layer_grads else dgates, dh_all, dc_all, grads
+
+
+def _one_task(t):
+    return None if t is None else t[None]
+
+
+def _first_task(t):
+    return None if t is None else t[0]
 
 
 def split_backward_schedule(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
                             compute_dtype, pieces: SplitPieces):
     """Row 15's function (`split_backward_plain`'s outputs) by
-    `backward_schedule` on `pieces`, each layer's gates recomputed."""
-    dx, dgates, _, _ = backward_schedule(g, x_tbc, h_all, c_all, [wx0, *wxr], wh, masks, keep,
-                                         compute_dtype, pieces, b2d=b2d)
-    return (dx, *pieces.weight_grads(x_tbc, h_all, dgates, masks, keep, compute_dtype))
+    `backward_schedule` on `pieces` (one task), each layer's gates
+    recomputed."""
+    dx, dgates, _, _, _ = backward_schedule(
+        g[None], x_tbc[None], h_all[None], c_all[None], [wx0[None], *(w[None] for w in wxr)],
+        wh[None], _one_task(masks), keep, compute_dtype, pieces, b2d=b2d[None])
+    return (dx[0], *pieces.weight_grads(x_tbc, h_all, dgates[0], masks, keep, compute_dtype))
 
 
 def merged_backward_schedule(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dtype,
                              pieces: SplitPieces, carries=False):
     """Row 5's function (`fused_lstm_hvp.hvp_bwd_plain`'s outputs: dx,
     [dwcat_l], db, dgates, dh_all, dc_all; the last two None without
-    `carries`) by `backward_schedule` on `pieces`, from row 4's stored
-    activated gates [L, T, B, 4H] and the merged weights wcat_l = [[Wx_l],
-    [Wh_l]]."""
+    `carries`) by `backward_schedule` on `pieces` (one task), from row 4's
+    stored activated gates [L, T, B, 4H] and the merged weights wcat_l =
+    [[Wx_l], [Wh_l]]."""
     hidden = gates.shape[-1] // 4
     wh = torch.stack([w[-hidden:] for w in wcat])
-    dx, dgates, dh_all, dc_all = backward_schedule(
-        g, x_tbc, h_all, c_all, [w[:-hidden] for w in wcat], wh, masks, keep, compute_dtype,
-        pieces, gates=gates, carries=carries)
-    dwcat, db = pieces.weight_grads(x_tbc, h_all, dgates, masks, keep, compute_dtype,
+    dx, dgates, dh_all, dc_all, _ = backward_schedule(
+        g[None], x_tbc[None], h_all[None], c_all[None], [w[:-hidden][None] for w in wcat],
+        wh[None], _one_task(masks), keep, compute_dtype, pieces, gates=gates[None],
+        carries=carries)
+    dwcat, db = pieces.weight_grads(x_tbc, h_all, dgates[0], masks, keep, compute_dtype,
                                     merged=True)
-    return dx, dwcat, db, dgates, dh_all, dc_all
+    return dx[0], dwcat, db, dgates[0], _first_task(dh_all), _first_task(dc_all)
+
+
+def tasks_backward_schedule(g, x, h_all, c_all, gates, wcat0, wcatr, masks, keep,
+                            compute_dtype, pieces: SplitPieces):
+    """Row 17's function (`lstm_stack_tasks_plain`'s gradients: dx [V, T,
+    B, C], dwcat0 [V, C + H, 4H], dwcatr [V, L-1, 2H, 4H], db [V, L, 4H]) by
+    `backward_schedule` on `pieces` with the weight gradients layer by
+    layer, from row 16's stored activated gates [V, L, T, B, 4H] and each
+    task's merged weights."""
+    hidden = gates.shape[-1] // 4
+    wcat = [wcat0, *wcatr.unbind(1)]
+    wh = torch.stack([w[:, -hidden:] for w in wcat], dim=1)
+    dx, _, _, _, (dwcat0, dwcatr, db) = backward_schedule(
+        g, x, h_all, c_all, [w[:, :-hidden] for w in wcat], wh, masks, keep, compute_dtype,
+        pieces, gates=gates, layer_grads=True)
+    return dx, dwcat0, dwcatr, db
 
 
 # The backward recurrence's plan (csrc/lstm_scan_bwd.cuh): Wh^T [4H, H]
@@ -848,13 +932,15 @@ def scan_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
             + SCAN_WARPS * rb * hcp * 4)
 
 
-def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[int, int, int]:
+def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int,
+                    tasks: int = 1) -> tuple[int, int, int]:
     """(cs, hcp, rb): blocks a cluster, weight columns a block (hcp >=
     `scan_units`, 32 x the units a lane owns), rows a cluster. The smallest
     cluster (1, 2, 4, 8) whose slice of Wh^T fits in a block's shared memory
-    beside the tiles of a row tile that puts the clusters on `sms` SMs in one
-    wave, with the smallest such tile; if no cluster reaches one wave, the
-    smallest that fits at all, with its largest tile."""
+    beside the tiles of a row tile that puts the clusters of all `tasks`
+    tasks' rows on `sms` SMs in one wave, with the smallest such tile; if no
+    cluster reaches one wave, the smallest that fits at all, with its
+    largest tile."""
     fallback = None
     for cs in (1, 2, 4, 8):
         hcp = next((p for p in (32, 64, 128) if p >= scan_units(hidden, cs)), None)
@@ -863,7 +949,7 @@ def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[in
         tiles = [rb for rb in (2, 4, 8, 16) if scan_smem(hidden, hcp, rb, itemsize) <= SCAN_MAX_SMEM]
         if not tiles:
             continue
-        wave = [rb for rb in tiles if -(-rows // rb) * cs <= sms]
+        wave = [rb for rb in tiles if tasks * -(-rows // rb) * cs <= sms]
         if wave:
             return cs, hcp, wave[0]
         fallback = fallback or (cs, hcp, tiles[-1])
@@ -875,50 +961,99 @@ def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[in
 
 def recurrence_weights(wh: torch.Tensor, cs: int, hcp: int,
                        compute_dtype: torch.dtype) -> torch.Tensor:
-    """wh [H, 4H] -> its transpose's column slices [cs, 4H, hcp] in the
-    compute dtype: slice b holds Wh^T[:, b*hc : b*hc + hc] (hc =
-    `scan_units`), zero-padded to hcp columns."""
-    hidden, g4 = wh.shape
+    """wh [..., H, 4H] (a leading task axis or none) -> its transpose's
+    column slices [..., cs, 4H, hcp] in the compute dtype: slice b holds
+    Wh^T[:, b*hc : b*hc + hc] (hc = `scan_units`), zero-padded to hcp
+    columns."""
+    hidden, g4 = wh.shape[-2:]
     hc = scan_units(hidden, cs)
-    wt = wh.to(compute_dtype).t()
+    wt = wh.to(compute_dtype).transpose(-1, -2)
     if cs * hc != hidden:
         wt = F.pad(wt, (0, cs * hc - hidden))
-    wt = wt.reshape(g4, cs, hc)
+    wt = wt.reshape(*wt.shape[:-1], cs, hc)
     if hcp != hc:
         wt = F.pad(wt, (0, hcp - hc))
-    return wt.transpose(0, 1).contiguous()
+    return wt.transpose(-3, -2).contiguous()
 
 
 def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def launch_recurrence(entry, what, g, gates, c, wh, compute_dtype, out, *carries):
-    """One backward recurrence on the card through the C entry `entry`
-    (wf_lstm_stack_recurrence, wf_lstm_scan_bwd): g [T, R, H] float32, gates
-    [T, R, 4H] float32, c [T, R, H], wh [H, 4H] -> dgates into out; the
-    carries' pointers (dh, dc or None) follow `out` for the stack entry."""
+def launch_recurrence(entry, what, g, gates, c, wh, compute_dtype, out):
+    """One layer's backward recurrence on the card through the C entry
+    `entry` (wf_lstm_scan_bwd, row 19): g [T, R, H] float32, gates [T, R,
+    4H] float32, c [T, R, H], wh [H, 4H] -> dgates into out."""
     t_len, rows, hidden = g.shape
     cs, hcp, rb = recurrence_plan(hidden, rows, compute_dtype.itemsize, _sms(g.device))
     wts = recurrence_weights(wh, cs, hcp, compute_dtype)
     cuda_build.check(
         entry(cuda_build.dtype_code(compute_dtype), cs, hcp, rb, g.data_ptr(), gates.data_ptr(),
-              c.data_ptr(), wts.data_ptr(), out.data_ptr(),
-              *(None if t is None else t.data_ptr() for t in carries),
-              t_len, rows, hidden, cuda_build.stream_ptr(g.device)),
+              c.data_ptr(), wts.data_ptr(), out.data_ptr(), t_len, rows, hidden,
+              cuda_build.stream_ptr(g.device)),
         f"{what} (cluster of {cs}, {hcp} weight columns a block, {rb} rows a cluster)",
     )
     return out
 
 
-def _recurrence_card(g, gates, c, wh, compute_dtype, out, dh=None, dc=None):
-    launch_recurrence(cuda_build.load().wf_lstm_stack_recurrence, "LSTM backward recurrence",
-                      g, gates, c, wh, compute_dtype, out, dh, dc)
+# The stack recurrence's launch arguments, packed as csrc/fused_lstm_split.cu's
+# `ScanLaunch`: 25 8-byte integers (pointers as integers).
+_SCAN_LAUNCH = struct.Struct("<25q")
+
+
+def _task_stride(t, nv):
+    """t's task stride (0 for one task), after checking that each task's
+    slice of t is contiguous, as the recurrence reads it."""
+    if t is None:
+        return 0
+    if not t[0].is_contiguous():
+        raise ValueError(f"the LSTM backward recurrence reads each task's {list(t.shape[1:])} "
+                         f"contiguous, got strides {t.stride()}")
+    return t.stride(0) if nv > 1 else 0
+
+
+def _recurrence_card(g, gates, c, wh, compute_dtype, out, dh=None, dc=None, db=None):
+    """The backward recurrence of one layer of V tasks' stacks in one launch
+    (rows 5, 15 and 17) through wf_lstm_stack_recurrence: g [V, T, R, H]
+    float32, gates [V, T, R, 4H] float32, c [V, T, R, H] in the compute
+    dtype, wh [V, H, 4H] -> dgates into out [V, T, R, 4H]; each step's dh
+    and dc [V, T, R, H] into dh and dc where given; the column sums of
+    dgates [V, 4H] into db where given (a partial a row tile, then one
+    `sum_splits`). Each task's slice of each array is contiguous, the task
+    strides are the arrays' own; without the task axis, one task."""
+    if g.dim() == 3:
+        _recurrence_card(g[None], gates[None], c[None], wh[None], compute_dtype, out[None],
+                         _one_task(dh), _one_task(dc), _one_task(db))
+        return out
+    nv, t_len, rows, hidden = g.shape
+    dev = g.device
+    cs, hcp, rb = recurrence_plan(hidden, rows, compute_dtype.itemsize, _sms(dev), nv)
+    wts = recurrence_weights(wh, cs, hcp, compute_dtype)
+    part = None
+    if db is not None:
+        part = torch.empty((-(-rows // rb), nv, 4 * hidden), dtype=torch.float32, device=dev)
+    sdh = _task_stride(dh, nv)
+    if dc is not None and (dc.stride() != dh.stride() or not dc[0].is_contiguous()):
+        raise ValueError("the LSTM backward recurrence takes dh and dc in one layout")
+    cuda_build.check(
+        cuda_build.load().wf_lstm_stack_recurrence(_SCAN_LAUNCH.pack(
+            cuda_build.dtype_code(compute_dtype), cs, hcp, rb, nv,
+            g.data_ptr(), _task_stride(g, nv), gates.data_ptr(), _task_stride(gates, nv),
+            c.data_ptr(), _task_stride(c, nv), wts.data_ptr(), _task_stride(wts, nv),
+            out.data_ptr(), _task_stride(out, nv),
+            0 if dh is None else dh.data_ptr(), 0 if dc is None else dc.data_ptr(), sdh,
+            0 if part is None else part.data_ptr(), 4 * hidden, nv * 4 * hidden,
+            t_len, rows, hidden, cuda_build.stream_ptr(dev))),
+        f"LSTM backward recurrence ({nv} task(s), cluster of {cs}, {hcp} weight columns a "
+        f"block, {rb} rows a cluster)",
+    )
+    if part is not None:
+        sum_splits(part, db, "LSTM bias gradient partials")
     _recurrence_card.launches += 1
     return out
 
 
-_recurrence_card.launches = 0  # launches of the stack recurrence (rows 5 and 15)
+_recurrence_card.launches = 0  # launches of the stack recurrence (rows 5, 15 and 17)
 
 
 def _weight_grads_card(x, h_all, dgates, masks, keep, compute_dtype, merged=False):
@@ -940,14 +1075,19 @@ def _weight_grads_card(x, h_all, dgates, masks, keep, compute_dtype, merged=Fals
     return dwx0, dwxr, dwh, db
 
 
-def _recurrence_plain(g, gates, c, wh, compute_dtype, out, dh=None, dc=None):
+def _recurrence_plain(g, gates, c, wh, compute_dtype, out, dh=None, dc=None, db=None):
     from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import scan_backward_plain
 
-    dgates, dh_all, dc_all = scan_backward_plain(g, gates, c, wh, compute_dtype, carries=True)
-    if dh is not None:
-        dh.copy_(dh_all)
-        dc.copy_(dc_all)
-    return out.copy_(dgates)
+    for v in range(g.shape[0]):
+        dgates, dh_v, dc_v = scan_backward_plain(g[v], gates[v], c[v], wh[v], compute_dtype,
+                                                 carries=True)
+        out[v].copy_(dgates)
+        if dh is not None:
+            dh[v].copy_(dh_v)
+            dc[v].copy_(dc_v)
+        if db is not None:
+            db[v].copy_(dgates.sum(dim=(0, 1)))
+    return out
 
 
 def _weight_grads_plain(x, h_all, dgates, masks, keep, compute_dtype, merged=False):
@@ -980,8 +1120,9 @@ def _weight_grads_plain(x, h_all, dgates, masks, keep, compute_dtype, merged=Fal
     return dwx[0], dwxr, torch.stack(dwh), torch.stack(db)
 
 
-CARD_PIECES = SplitPieces(gemm_nn, _recurrence_card, _weight_grads_card)
-PLAIN_PIECES = SplitPieces(gemm_nn_plain, _recurrence_plain, _weight_grads_plain)
+CARD_PIECES = SplitPieces(gemm_nn, _recurrence_card, _weight_grads_card, gemm_tn, sum_splits)
+PLAIN_PIECES = SplitPieces(gemm_nn_plain, _recurrence_plain, _weight_grads_plain, gemm_tn_plain,
+                           sum_splits_plain)
 
 
 def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compute_dtype):

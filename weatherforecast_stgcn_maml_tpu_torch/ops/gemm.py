@@ -73,6 +73,11 @@ def sum_splits(part: torch.Tensor, out: torch.Tensor, what: str) -> None:
     )
 
 
+def sum_splits_plain(part: torch.Tensor, out: torch.Tensor, what: str = "") -> None:
+    """Plain version of `sum_splits`: out = part summed over its first axis."""
+    out.copy_(part.sum(dim=0))
+
+
 def matmul_tn(
     a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
     compute_dtype: torch.dtype,
@@ -129,8 +134,8 @@ def colsum(x: torch.Tensor, out: torch.Tensor, what: str) -> None:
 # gemm_nn's launch arguments, packed as csrc/gemm_nn.cu's `NNLaunch`: 25
 # 8-byte integers (pointers as integers), the scale as a double, 8 more.
 _NN_LAUNCH = struct.Struct("<25qd8q")
-# gemm_tn's, as `TNLaunch`: 13 8-byte integers.
-_TN_LAUNCH = struct.Struct("<13q")
+# gemm_tn's, as `TNLaunch`: 18 8-byte integers.
+_TN_LAUNCH = struct.Struct("<18q")
 # gemm_nn's epilogues (csrc/gemm_nn.cu `wf::Epilogue`).
 EPILOGUES = {"none": 0, "bias_relu": 1, "gates": 2, "mask": 3, "bias_relu_mask": 4,
              "relu_grad": 5}
@@ -346,49 +351,84 @@ def tn_splits(k: int, split_rows: int = SPLIT_ROWS) -> int:
     return -(-k // split_rows)
 
 
+TN_BLOCKS_PER_SM = 3  # the TN kernels' blocks an SM (__launch_bounds__)
+
+
+def wave_split_rows(k: int, m: int, n: int, tasks: int, sms: int) -> int:
+    """The split rows (a multiple of 32) that make `tasks` x output tiles x
+    splits of a K-long [M, N] TN product about one wave of the core on `sms`
+    SMs: at K = 12,288, M <= 128 and N = 512 (8 tiles) on 132 SMs, 256 rows
+    for one task (48 splits, 384 blocks) and 512 for two (24 splits)."""
+    tiles = -(-m // NN_ROW_TILE) * -(-n // 64)
+    splits = max(1, sms * TN_BLOCKS_PER_SM // (tasks * tiles))
+    rows = -(-k // splits)
+    return max(32, -(-rows // 32) * 32)
+
+
 def gemm_tn_plain(
     a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, compute_dtype: torch.dtype,
-    split_rows: int = SPLIT_ROWS, what: str = "",
+    split_rows: int = SPLIT_ROWS, a_row_offset: int = 0, what: str = "",
 ) -> torch.Tensor:
-    """Plain version of `gemm_tn`: out[s] = round(a[ks])^T @ round(b[ks]) in
-    the accumulation dtype for each split s (ks = rows s * split_rows ..)."""
+    """Plain version of `gemm_tn`: out[s] = round(a'[ks])^T @ round(b[ks])
+    in the accumulation dtype for each split s (ks = rows s * split_rows ..),
+    a' = `a_row_offset` zero rows over a; with a task axis (a [V, K -
+    a_row_offset, M], b [V, K, N], out [V, S, M, N]), task by task."""
+    if b.dim() == 3:
+        for v in range(b.shape[0]):
+            gemm_tn_plain(a[v], b[v], out[v], compute_dtype=compute_dtype,
+                          split_rows=split_rows, a_row_offset=a_row_offset)
+        return out
     for s in range(out.shape[0]):
-        ks = slice(s * split_rows, (s + 1) * split_rows)
-        out[s] = as_operand(a[ks], compute_dtype).T @ as_operand(b[ks], compute_dtype)
+        k0, k1 = s * split_rows, (s + 1) * split_rows
+        ka = slice(max(k0 - a_row_offset, 0), max(k1 - a_row_offset, 0))
+        kb = slice(max(k0, a_row_offset), k1)
+        out[s] = as_operand(a[ka], compute_dtype).T @ as_operand(b[kb], compute_dtype)
     return out
 
 
 def gemm_tn(
     a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, compute_dtype: torch.dtype,
-    split_rows: int = SPLIT_ROWS, what: str = "TN GEMM",
+    split_rows: int = SPLIT_ROWS, a_row_offset: int = 0, what: str = "TN GEMM",
 ) -> torch.Tensor:
-    """out [S, M, N] float32 = the K-split partials of round(a)^T @ round(b)
-    on csrc/gemm_nn.cu's TN core, one launch: out[s] = a[ks]^T @ b[ks] over
-    rows ks = [s * split_rows, (s + 1) * split_rows) of a [K, M] and b [K, N]
-    (both in the compute dtype, row strides of their own, unit column
-    stride); S = tn_splits(K, split_rows). out's split and row strides are
-    its own (a block of a larger buffer). `sum_splits` adds the partials in
-    split order: no atomics, so two runs give the same bits. M, N and the
-    strides are multiples of 8 elements, split_rows of 32, the data 16-byte
-    aligned. On CUDA tensors only: what the kernel does not take raises."""
+    """out [S, M, N] float32 = the K-split partials of round(a')^T @
+    round(b) on csrc/gemm_nn.cu's TN core, one launch: out[s] = a'[ks]^T @
+    b[ks] over rows ks = [s * split_rows, (s + 1) * split_rows) of a' [K, M]
+    and b [K, N] (both in the compute dtype, row strides of their own, unit
+    column stride), where a' is `a_row_offset` zero rows over a [K -
+    a_row_offset, M]; S = tn_splits(K, split_rows). With a task axis (a [V,
+    K - a_row_offset, M], b [V, K, N], out [V, S, M, N], task strides of
+    their own) one launch makes every task's partials. out's split and row
+    strides are its own (a block of a larger buffer). `sum_splits` adds the
+    partials in split order: no atomics, so two runs give the same bits. M,
+    N and the strides are multiples of 8 elements, split_rows of 32, the data
+    16-byte aligned. On CUDA tensors only: what the kernel does not take
+    raises."""
     code = cuda_build.DTYPE_CODES.get(compute_dtype)
     if a.device.type != "cuda" or code is None:
         raise TypeError(f"gemm_tn computes in float32 or bfloat16 on a CUDA tensor, got "
                         f"{compute_dtype} on {a.device}")
-    k, m = a.shape
-    n = b.shape[1]
-    if (b.shape[0] != k or a.dtype is not compute_dtype or b.dtype is not compute_dtype
-            or a.stride(1) != 1 or b.stride(1) != 1):
-        raise ValueError(f"{what}: gemm_tn takes a [K, M] and b [K, N] in {compute_dtype} with "
-                         f"unit column stride, got {a.dtype} {list(a.shape)} and {b.dtype} "
-                         f"{list(b.shape)}")
-    if (out.dtype is not torch.float32 or tuple(out.shape) != (tn_splits(k, split_rows), m, n)
-            or out.stride(2) != 1):
-        raise ValueError(f"{what}: out must be float32 [{tn_splits(k, split_rows)}, {m}, {n}] "
-                         f"with unit column stride, got {out.dtype} {list(out.shape)}")
+    batch = b.shape[0] if b.dim() == 3 else 1
+    k, n = b.shape[-2:]
+    m = a.shape[-1]
+    if (a.dim() != b.dim() or a.shape[:-2] != b.shape[:-2] or a.shape[-2] != k - a_row_offset
+            or a.dtype is not compute_dtype or b.dtype is not compute_dtype
+            or a.stride(-1) != 1 or b.stride(-1) != 1):
+        raise ValueError(f"{what}: gemm_tn takes a [K - {a_row_offset}, M] and b [K, N] in "
+                         f"{compute_dtype} with unit column stride, and a task axis on both or "
+                         f"neither, got {a.dtype} {list(a.shape)} and {b.dtype} {list(b.shape)}")
+    shape = (tn_splits(k, split_rows), m, n)
+    if (out.dtype is not torch.float32 or tuple(out.shape) != (*b.shape[:-2], *shape)
+            or out.stride(-1) != 1):
+        raise ValueError(f"{what}: out must be float32 {list(b.shape[:-2]) + list(shape)} with "
+                         f"unit column stride, got {out.dtype} {list(out.shape)}")
+
+    def task_stride(t):
+        return t.stride(0) if batch > 1 else 0
+
     err = cuda_build.load().wf_gemm_tn(_TN_LAUNCH.pack(
-        code, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), out.data_ptr(),
-        out.stride(0), out.stride(1), m, n, k, split_rows, cuda_build.stream_ptr(a.device)))
+        code, a.data_ptr(), a.stride(-2), b.data_ptr(), b.stride(-2), out.data_ptr(),
+        out.stride(-3), out.stride(-2), m, n, k, split_rows, cuda_build.stream_ptr(a.device),
+        batch, task_stride(a), task_stride(b), task_stride(out), a_row_offset))
     if err < 0:
         raise ValueError(f"{what}: gemm_tn takes {_NN_REFUSALS[err]}")
     cuda_build.check(err, what)

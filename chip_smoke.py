@@ -13,7 +13,8 @@ Phases (the first failure raises and exits non-zero; each prints its wall
 time):
   1. require a CUDA card of compute capability 9.x; print its name and
      power limit;
-  2. build the CUDA kernels from ops/csrc/*.cu;
+  2. build the CUDA kernels from ops/csrc/*.cu; print the cluster plans of
+     the backward and forward LSTM recurrences;
   3. hold the serving kernels (rows 1-2) against their plain PyTorch
      versions at the reference width (ModelConfig() defaults, the Moscow
      graph: 441 nodes padded to 512), float32 and bfloat16;
@@ -30,7 +31,13 @@ time):
      dropout masks (rate 0.2) on both sides; time each direction; rows 6
      and 7 also alone, by events and by CUDA graph replay, each gated on
      its launches of the GEMM core (row 6: 2 gemm_nn a layer; row 7: 2
-     gemm_nn and 1 gemm_tn a layer; neither any of gemm.cu's GEMM);
+     gemm_nn and 1 gemm_tn a layer; neither any of gemm.cu's GEMM); row 4
+     alone against its schedule on the plain pieces (h_last, h_all, c_all,
+     the gates; masks on and off), gated on 1 gemm_nn and 1 forward
+     recurrence launch a layer from one call, by events, by CUDA graph
+     replay, by part, the host's time a call, beside cuDNN's forward; before
+     this phase (6a) the two LSTM recurrences alone against their plain
+     versions at H 64 / 128 / 256 (clusters of 1, 2, 4 and 8 blocks);
   7. hold the whole-tree clip + SGD kernel (rows 8-9) against its plain
      version on the reference model's 23 leaves, one task and a task axis
      of 4, gradient norms below and above clip_norm; time it, the plain
@@ -50,8 +57,9 @@ time):
      epochs float32, 1 epoch bfloat16, `--resume` to epoch 3, then 1
      float32 epoch with `meta.fused_inner_update=false`, then `forecast`
      from the meta-trained `ckpt_best`; rows 4-8 must have launched (row 8
-     360 times a fused meta step; row 5 364 times, each a recurrence and a
-     gemm_nn launch a layer; row 6 364 times, 2 gemm_nn launches a layer),
+     360 times a fused meta step; rows 4 and 5 364 times, each a recurrence
+     and a gemm_nn launch a layer; row 6 364 times, 2 gemm_nn launches a
+     layer),
      every loss must be finite;
   9b. drive `cli meta-train -o meta.second_order=true` at the defaults: 1
      epoch float32, 1 epoch bfloat16, `--resume` to epoch 2; rows 10-11
@@ -69,9 +77,11 @@ time):
  12. hold the node-sharded GCN sandwich kernels (rows 12-13) against their
      plain versions at full width (W = 24, N = 512, hid = 256, NL = 512,
      256, 128: the rows 1, 2 and 4 sp ranks hold), with and without a next
-     layer and masks (rate 0.2), float32 and bfloat16; time each direction,
-     the plain version (cuBLAS products, also the library yardstick) and
-     print the bound;
+     layer and masks (rate 0.2), float32 and bfloat16; row 13 alone from
+     g2, g1 and both at NL = 512 and 256, gated on its launches of the GEMM
+     core (no gemm.cu GEMM); time each direction, the plain version (cuBLAS
+     products, also the library yardstick), row 13 alone (events, CUDA
+     graph replay, the host's time a call) and print the bound;
  13. on a 1 x 1 mesh (a NCCL group of one rank in this process): the
      node-sharded FO meta-gradient at dropout 0 against the unsharded kernel
      route (2 tasks x 15 inner steps); one sharded meta step at MetaConfig()
@@ -194,7 +204,8 @@ CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 SOURCES = {
     "fused_gcn_stack": [CSRC + "gemm_nn.cu"],
     "lstm_stack_last_all": [CSRC + "fused_lstm_stack.cu"],
-    "lstm_stack_train": [CSRC + "fused_lstm_stack.cu"],
+    "lstm_stack_train": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh",
+                         CSRC + "gemm_nn.cu"],
     "lstm_stack_train.backward": [CSRC + "lstm_scan_bwd.cuh", CSRC + "fused_lstm_split.cu",
                                   CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
     "gcn_stack_train": [CSRC + "gemm_nn.cu"],
@@ -205,7 +216,8 @@ SOURCES = {
     "hvp_stack_fwd": [CSRC + "fused_lstm_hvp.cu"],
     "hvp_stack_bwd": [CSRC + "fused_lstm_hvp.cu"],
     "gcn_shard_layer": [CSRC + "gemm_nn.cu"],
-    "gcn_shard_layer.backward": [CSRC + "fused_gcn_shard.cu", CSRC + "gemm.cu"],
+    "gcn_shard_layer.backward": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu",
+                                 CSRC + "gemm.cu"],
     "lstm_recurrence": [CSRC + "lstm_scan.cu"],
     "lstm_recurrence.backward": [CSRC + "lstm_scan.cu", CSRC + "lstm_scan_bwd.cuh",
                                  CSRC + "gemm.cu"],
@@ -221,7 +233,7 @@ SOURCES = {
 # Kernels whose ptxas report the build phase prints by name.
 NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel",
                "gemm_tn_bf16_kernel", "dz_top_kernel", "transpose_round_kernel",
-               "lstm_scan_bwd_kernel")
+               "lstm_scan_bwd_kernel", "lstm_scan_fwd_kernel")
 MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
@@ -256,6 +268,21 @@ def host_ms(torch, fn, repeats=REPEATS):
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def enqueue_ms(torch, fn, repeats=REPEATS):
+    """Median host time of one call of fn() in ms, from its start to its
+    return (the card idle before it, no synchronize inside): the host's
+    work to prepare and enqueue the call's launches."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -526,7 +553,18 @@ def main() -> int:
             # a source (dtypes, units a lane, rows a cluster, +db: with the
             # bias partials) one line a source below.
             new = next((entry[entry.index(k):][:48] for k in NEW_KERNELS if k in entry), None)
-            if new and new.startswith("lstm_scan_bwd_kernel"):
+            if new and new.startswith("lstm_scan_fwd_kernel"):
+                # <TW, UPT, RB>, mangled as e.g. I13__nv_bfloat16Li4ELi8E.
+                if "registers" in line:
+                    tw, upt, rb = re.match(r"I(.*?)Li(\d+)ELi(\d+)E", entry[
+                        entry.index("lstm_scan_fwd_kernel") + 20:]).groups()
+                    regs = line.split("Used")[1].split("registers")[0].strip()
+                    recurrence.append(("lstm_stack_fwd.cu (forward)",
+                                       f"{'bf16' if 'bfloat16' in tw else 'f32'} {upt} {rb}",
+                                       regs))
+                elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                    log(f"  ptxas lstm_scan_fwd_kernel SPILLS: {line.strip()} in {entry}")
+            elif new and new.startswith("lstm_scan_bwd_kernel"):
                 if "registers" in line:
                     # <TW, TC, UPT, RB, DB>, mangled as e.g.
                     # I13__nv_bfloat16S2_Li4ELi8ELb1E (DB: "+db").
@@ -547,9 +585,9 @@ def main() -> int:
             elif "spill" in line and " 0 bytes spill" not in line:
                 log(f"  ptxas: {line.strip()} in {entry}")
         for source in sorted({r[0] for r in recurrence}):
-            log(f"  ptxas lstm_scan_bwd_kernel in {source} (weights / c_all dtype, units a "
-                f"lane, rows a cluster, +db with the bias partials: registers; no spill "
-                f"unless named above): " + ", ".join(
+            log(f"  ptxas lstm_scan_{'fwd' if 'forward' in source else 'bwd'}_kernel in {source} "
+                f"(weights / c_all dtype, units a lane, rows a cluster, +db with the bias "
+                f"partials: registers; no spill unless named above): " + ", ".join(
                     f"{args}: {regs}" for src, args, regs in recurrence if src == source))
         # Their shared memory is dynamic (ptxas reports static memory only).
         lib = cuda_build.load()
@@ -580,6 +618,25 @@ def main() -> int:
                     f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
                     f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once "
                     f"(cudaOccupancyMaxActiveClusters)")
+        # The forward recurrence (row 4): its plan at the main path's rows
+        # (512; adaptation 1024, a sharded rank 256) and at the gate's.
+        for dt in (torch.float32, torch.bfloat16):
+            for hidden, rows in ((128, 512), (128, 1024), (128, 256), (64, 48), (128, 48),
+                                 (256, 48)):
+                cs, hcp, rb = fls.forward_plan(hidden, rows, dt.itemsize, sms)
+                code = cuda_build.dtype_code(dt)
+                smem = lib.wf_lstm_stack_forward_smem(code, hcp, rb, hidden)
+                if smem != fls.scan_fwd_smem(hidden, hcp, rb, dt.itemsize):
+                    raise RuntimeError(f"forward recurrence shared memory: C {smem} B, Python "
+                                       f"{fls.scan_fwd_smem(hidden, hcp, rb, dt.itemsize)} B")
+                active = lib.wf_lstm_stack_forward_clusters(code, cs, hcp, rb, hidden)
+                if active <= 0:
+                    raise RuntimeError(f"the card runs no cluster of the forward recurrence plan "
+                                       f"{(cs, hcp, rb)} at H = {hidden} ({active})")
+                clusters = -(-rows // rb)
+                log(f"  lstm_scan_fwd {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of {cs}, "
+                    f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
+                    f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once")
 
     cfg = ModelConfig()
     boxes = dict((name, box) for box, name in ADAPTATION_REGIONS)
@@ -818,7 +875,7 @@ def main() -> int:
     # plain version, at widths whose plans take clusters of 1, 2, 4 and 8
     # blocks (48 rows, 7 steps), through both C entries: c_all in the compute
     # dtype with the second-order carries (rows 5, 15), c_all float32 (19).
-    with Phase("backward recurrence (cluster plans) vs plain"), torch.no_grad():
+    with Phase("LSTM recurrences (cluster plans) vs plain"), torch.no_grad():
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         seen = set()
         for dt_name, tol in TOL.items():
@@ -859,11 +916,48 @@ def main() -> int:
         if seen != {1, 2, 4, 8}:
             raise RuntimeError(f"the recurrence gate reached clusters of {sorted(seen)} only")
         del pre, gates_r, g_r, c_r, wh_r, refs, outs
+        # Row 4's forward recurrence alone against its plain version, the same
+        # widths (clusters of 1, 2, 4 and 8), with a mask (the next layer's
+        # input) and the last h.
+        seen = set()
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            for hidden in (64, 128, 256):
+                draw = np.random.default_rng(hidden + 1)
+                xp_r = card_array((7, 48, 4 * hidden))
+                wh_r = card_array((hidden, 4 * hidden), hidden ** -0.5)
+                b_r = card_array((4 * hidden,), 0.1)
+                m_r = torch.from_numpy((draw.uniform(size=(7, 48, hidden)) >= 0.2)
+                                       .astype(np.int8)).to(dev)
+                cs, hcp, rb = fls.forward_plan(hidden, 48, dt.itemsize, sms)
+                outs = {}
+                for route, piece in (("kernel", fls._forward_recurrence_card),
+                                     ("plain", fls._forward_recurrence_plain)):
+                    res = [xp_r.clone(), *(torch.empty((7, 48, hidden), dtype=dt, device=dev)
+                                           for _ in range(3)),
+                           torch.empty((48, hidden), device=dev)]
+                    piece(res[0], wh_r, b_r, dt, res[1], res[2], mask=m_r, inv_keep=1.25,
+                          next_in=res[3], h_last=res[4])
+                    outs[route] = res
+                torch.cuda.synchronize()
+                errs = [float((a.float() - b.float()).abs().max())
+                        for a, b in zip(outs["kernel"], outs["plain"])]
+                log(f"forward recurrence {dt_name} H = {hidden}: cluster of {cs} ({hcp} weight "
+                    f"columns, {rb} rows a cluster); max_abs_err gates {errs[0]:.2e}, h "
+                    f"{errs[1]:.2e}, c {errs[2]:.2e}, next input {errs[3]:.2e}, last h "
+                    f"{errs[4]:.2e} (tol {tol})")
+                if max(errs) > tol:
+                    raise RuntimeError(f"forward recurrence {dt_name} H = {hidden}: error "
+                                       f"{max(errs):.3e}")
+                seen.add(cs)
+        if seen != {1, 2, 4, 8}:
+            raise RuntimeError(f"the forward recurrence gate reached clusters of {sorted(seen)}")
+        del xp_r, wh_r, b_r, m_r, outs
 
-    def parts_ms(run):
-        """A layer-by-layer LSTM backward's device time by part: run(pieces)
-        on the card's pieces, each piece between two CUDA events; medians of
-        REPEATS runs."""
+    def parts_ms(run, forward=False):
+        """A layer-by-layer LSTM backward's (with `forward`, row 4's) device
+        time by part: run(pieces) on the card's pieces, each piece between two
+        CUDA events; medians of REPEATS runs."""
         marks = []
 
         def timed(fn, part):
@@ -877,6 +971,11 @@ def main() -> int:
                 return out
             return call
 
+        if forward:
+            pieces = fls.ForwardPieces(
+                timed(fls.FWD_CARD_PIECES.product, lambda kw: "input products"),
+                timed(fls.FWD_CARD_PIECES.recurrence, lambda kw: "recurrences"))
+            return time_parts(run, pieces, marks)
         card_pieces = fls.CARD_PIECES
         pieces = dataclasses.replace(
             card_pieces,
@@ -886,6 +985,9 @@ def main() -> int:
             weight_grads=timed(card_pieces.weight_grads, lambda kw: "weight gradients"),
             product_tn=timed(card_pieces.product_tn, lambda kw: "weight gradients"),
             sum_splits=timed(card_pieces.sum_splits, lambda kw: "partial sums"))
+        return time_parts(run, pieces, marks)
+
+    def time_parts(run, pieces, marks):
         runs = []
         with torch.no_grad():
             for i in range(REPEATS + 2):
@@ -941,6 +1043,7 @@ def main() -> int:
                         "max_abs_err": bwd_err, "ms": times["kernel"][1],
                         "plain_ms": times["plain"][1]}
                 elif name == "lstm_stack_train":
+                    measured[name]["bfloat16_ms"] = times["kernel"][0]
                     measured[name + ".backward"]["bfloat16_ms"] = times["kernel"][1]
         # Yardsticks: cuBLAS float32 (the plain GEMM route) for the GCN
         # stack; cuDNN's LSTM, weights copied in, dropout 0, for the LSTM.
@@ -1004,7 +1107,86 @@ def main() -> int:
             else:
                 row["ms"] = measured["lstm_stack_train.backward"].pop("bfloat16_ms")
                 measured["lstm_stack_train.backward"]["bfloat16"] = row
-        del x5, wcat5, b2d5, g5
+        # Row 4 alone, as the model calls it (x [T, B, C] a view of [B, T, C]):
+        # its four outputs against its schedule on the plain pieces (masks at
+        # rate 0.2 and off), its launches a call (from one C call: a gemm_nn
+        # and a forward recurrence a layer, no gemm.cu), by CUDA events, by
+        # CUDA graph replay, by part (the schedule a launch at a time), the
+        # host's time a call; cuDNN's forward in the same dtype beside it.
+        x4 = x_rec.transpose(0, 1)
+        wcat4 = [torch.cat([layer.wx, layer.wh]).detach() for layer in lstm]
+        b2d4 = torch.stack([layer.b for layer in lstm]).detach()
+        train4 = lstm_stack_train
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            with torch.no_grad():
+                errs = {}
+                for m4 in (lstm_masks, None):
+                    got4 = fls.train_forward(x4, m4, 0.8, dt, b2d4, wcat4)
+                    ref4 = fls.forward_schedule(x4, m4, 0.8, dt, b2d4, wcat4,
+                                                fls.FWD_PLAIN_PIECES)
+                    torch.cuda.synchronize()
+                    for out_name, g, r in zip(("h_last", "h_all", "c_all", "gates"), got4, ref4):
+                        torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol,
+                                                   msg=f"row 4 {dt_name} {out_name}")
+                        errs[(m4 is not None, out_name)] = float((g.float() - r.float()).abs()
+                                                                 .max())
+                    del got4, ref4
+                log(f"row 4 {dt_name} [24, 512, 256] L=4 against its schedule on the plain "
+                    f"pieces: max_abs_err " + ", ".join(
+                        f"{k[1]}{' masked' if k[0] else ''} {v:.2e}" for k, v in errs.items())
+                    + f" (tol {tol})")
+
+                def row4():
+                    fls.train_forward(x4, lstm_masks, 0.8, dt, b2d4, wcat4)
+
+                before = (train4.launches, train4.forward_gemm_nn_launches,
+                          train4.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+                row4()
+                core4 = {"calls": train4.launches - before[0],
+                         "gemm_nn": train4.forward_gemm_nn_launches - before[1],
+                         "recurrences": train4.forward_recurrence_launches - before[2],
+                         "gemm_nn (all)": gemm_nn.launches - before[3],
+                         "gemm.cu": gemm.launches - before[4]}
+                want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l,
+                        "gemm.cu": 0}
+                if core4 != want:
+                    raise RuntimeError(f"row 4 launched {core4} a call, not {want}")
+                row = {"call_ms": cuda_ms(torch, row4), "device_ms": graph_ms(torch, row4),
+                       "host_ms": host_ms(torch, row4), "enqueue_ms": enqueue_ms(torch, row4),
+                       "parts_ms": parts_ms(lambda p: fls.forward_schedule(
+                           x4, lstm_masks, 0.8, dt, b2d4, wcat4, p), forward=True),
+                       "core_launches": core4}
+            lib_lstm = cudnn if dt_name == "float32" else copy.deepcopy(cudnn).to(dt)
+            xr = x_rec.detach().to(dt)
+            with torch.no_grad():
+                try:
+                    row["library_ms"] = cuda_ms(torch, lambda: lib_lstm(xr))
+                except RuntimeError as err:  # a yardstick only: say so and go on
+                    log(f"torch.nn.LSTM (cuDNN) forward refused {dt_name}: {err}")
+                    row["library_ms"] = None
+                if row["library_ms"] is not None:
+                    try:
+                        row["library_device_ms"] = graph_ms(torch, lambda: lib_lstm(xr))
+                    except RuntimeError as err:
+                        log(f"cuDNN's LSTM forward in a CUDA graph refused: {err}")
+            del lib_lstm, xr
+            log(f"row 4 {dt_name} [24, 512, 256] L=4, masks 0.2: the call {row['call_ms']:.4f} "
+                f"ms, device {row['device_ms']:.4f} ms (CUDA graph replay), host "
+                f"{row['host_ms']:.4f} ms to a synchronize, {row['enqueue_ms']:.4f} ms to enqueue; "
+                f"by part (CUDA events, median of {REPEATS}): " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in row["parts_ms"].items())
+                + f"; launches a call {core4}; cuDNN forward {dt_name} "
+                + ("refused" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
+                + (f" (device {row['library_device_ms']:.4f})" if "library_device_ms" in row
+                   else "") + f"  [{card}]")
+            if dt_name == "float32":
+                row.pop("library_ms")
+                measured["lstm_stack_train"].update(row)
+            else:
+                row["ms"] = measured["lstm_stack_train"].pop("bfloat16_ms")
+                measured["lstm_stack_train"]["bfloat16"] = row
+        del x4, wcat4, b2d4
         # Rows 6 and 7 alone, row 7 from row 6's residuals: the call by CUDA
         # events and its device time by CUDA graph replay, beside the cuBLAS
         # route by both (float32: the plain forward; row 7's function written
@@ -1457,6 +1639,8 @@ def main() -> int:
             fn.launches = fn.backward_launches = 0
         lstm_stack_train.backward_recurrence_launches = 0
         lstm_stack_train.backward_gemm_nn_launches = 0
+        lstm_stack_train.forward_recurrence_launches = 0
+        lstm_stack_train.forward_gemm_nn_launches = 0
         gcn_stack_train.gemm_nn_launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         per_step = meta_cfg.meta_batch * meta_cfg.inner_epochs * meta_cfg.inner_batches
@@ -1489,6 +1673,15 @@ def main() -> int:
             f"{row5[2]} gemm_nn launches")
         if row5 != (5 * forwards, 5 * forwards * n_l, 5 * forwards * n_l):
             raise RuntimeError(f"row 5 launched {row5} in 5 meta steps, not {forwards} calls a "
+                               f"step with {n_l} recurrences and {n_l} gemm_nn launches each")
+        # Row 4: as many calls, each a gemm_nn and a forward recurrence
+        # launch a layer.
+        row4 = (lstm_stack_train.launches, lstm_stack_train.forward_recurrence_launches,
+                lstm_stack_train.forward_gemm_nn_launches)
+        log(f"row 4 in 5 meta steps: {row4[0]} calls, {row4[1]} recurrence launches, "
+            f"{row4[2]} gemm_nn launches")
+        if row4 != (5 * forwards, 5 * forwards * n_l, 5 * forwards * n_l):
+            raise RuntimeError(f"row 4 launched {row4} in 5 meta steps, not {forwards} calls a "
                                f"step with {n_l} recurrences and {n_l} gemm_nn launches each")
         # Row 6: as many calls, each 2 gemm_nn launches a layer.
         row6 = (gcn_stack_train.launches, gcn_stack_train.gemm_nn_launches)
@@ -1773,6 +1966,39 @@ def main() -> int:
                         if max(rels) > tol:
                             raise RuntimeError(f"rows 12-13 {dt_name} NL={nl}: gradient error "
                                                f"{max(rels):.3e}")
+                        if has_next and nl > n // 4:
+                            # Row 13 alone from each cotangent and both (the
+                            # encoder sends g2 below its top layer, g1 at it),
+                            # against its plain statement: the core's launches,
+                            # no gemm.cu GEMM.
+                            with torch.no_grad():
+                                h_post, _ = fgs.shard_layer_plain(*leaves[:1], run.a_rows,
+                                                                  leaves[1], leaves[2], run.mask,
+                                                                  0.8, dt)
+                            for cts13 in ("g2", "g1", "both"):
+                                g1 = None if cts13 == "g2" else cts[0]
+                                g2 = None if cts13 == "g1" else cts[1]
+                                args13 = (g1, g2, h_post, run.a_rows, leaves[2], run.mask)
+                                before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                                got13 = fgs.backward_schedule(*args13, 1.25, dt, dt,
+                                                              fgt.CARD_PIECES)
+                                core13 = (gemm_nn.launches - before[0],
+                                          gemm_tn.launches - before[1],
+                                          gemm.launches - before[2])
+                                ref13 = fgs.shard_bwd_plain(*args13, 0.8, dt, dt)
+                                torch.cuda.synchronize()
+                                rels13 = [0.0 if cts13 == "g1" and i == 2 and not r.any()
+                                          else rel_err(g, r)
+                                          for i, (g, r) in enumerate(zip(got13, ref13))]
+                                log(f"row 13 {dt_name} NL={nl} mask={has_mask} from {cts13}: "
+                                    f"max|diff|/max|ref| {max(rels13):.3e} (tol {tol}); gemm_nn, "
+                                    f"gemm_tn, gemm.cu launches {core13}")
+                                want13 = {"g2": (2, 1, 0), "g1": (1, 0, 0), "both": (2, 1, 0)}
+                                if max(rels13) > tol or core13 != want13[cts13]:
+                                    raise RuntimeError(f"row 13 {dt_name} NL={nl} from {cts13}: "
+                                                       f"error {max(rels13):.3e}, launches "
+                                                       f"{core13}")
+                                del got13, ref13
                         if not (has_next and has_mask):
                             continue
                         # The main path's layer (a next layer, masks): time it.
@@ -1793,10 +2019,19 @@ def main() -> int:
                             g1, g2 = cts
 
                             def row13():
-                                fgs._bwd_cuda(g1, g2, h_post, a_rows, w_next, mask, 1.25, dt, dt)
+                                fgs.backward_schedule(g1, g2, h_post, a_rows, w_next, mask,
+                                                      1.25, dt, dt, fgt.CARD_PIECES)
+
+                            def row13_g2():  # the encoder's layers below the top
+                                fgs.backward_schedule(None, g2, h_post, a_rows, w_next, mask,
+                                                      1.25, dt, dt, fgt.CARD_PIECES)
 
                             def lib13():
                                 fgs.shard_bwd_plain(g1, g2, h_post, a_rows, w_next, mask, 0.8,
+                                                    dt, dt)
+
+                            def lib13_g2():
+                                fgs.shard_bwd_plain(None, g2, h_post, a_rows, w_next, mask, 0.8,
                                                     dt, dt)
 
                             before = (gemm_nn.launches, gemm.launches)
@@ -1810,7 +2045,22 @@ def main() -> int:
                                 "cuBLAS row 12": graph_ms(
                                     torch, lambda: run(fgs.shard_layer_plain, leaves)),
                                 "row 13": graph_ms(torch, row13),
-                                "cuBLAS row 13": graph_ms(torch, lib13)}
+                                "cuBLAS row 13": graph_ms(torch, lib13),
+                                "row 13 from g2": graph_ms(torch, row13_g2),
+                                "cuBLAS row 13 from g2": graph_ms(torch, lib13_g2)}
+                            call13 = {"call_ms": cuda_ms(torch, row13),
+                                      "host_ms": host_ms(torch, row13),
+                                      "enqueue_ms": enqueue_ms(torch, row13),
+                                      "g2 call_ms": cuda_ms(torch, row13_g2),
+                                      "g2 enqueue_ms": enqueue_ms(torch, row13_g2),
+                                      "library_call_ms": cuda_ms(torch, lib13),
+                                      "g2 library_call_ms": cuda_ms(torch, lib13_g2)}
+                        log(f"row 13 {dt_name} NL={nl} alone (both cotangents / g2): the call "
+                            f"{call13['call_ms']:.4f} / {call13['g2 call_ms']:.4f} ms, host "
+                            f"{call13['host_ms']:.4f} ms to a synchronize, "
+                            f"{call13['enqueue_ms']:.4f} / {call13['g2 enqueue_ms']:.4f} ms to "
+                            f"enqueue; cuBLAS {call13['library_call_ms']:.4f} / "
+                            f"{call13['g2 library_call_ms']:.4f} ms  [{card}]")
                         log(f"rows 12-13 {dt_name} NL={nl}: device time by graph replay " +
                             ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
                             + f"; row 12 launches a call {core12}  [{card}]")
@@ -1841,6 +2091,22 @@ def main() -> int:
                                 "plain_ms": times["plain"][1], "library_ms": times["plain"][1],
                                 "bytes": bytes_b, "flops": flops_b,
                                 "device_ms": dev_ms["row 13"],
+                                "library_device_ms": dev_ms["cuBLAS row 13"],
+                                "call_ms": call13["call_ms"], "host_ms": call13["host_ms"],
+                                "enqueue_ms": call13["enqueue_ms"],
+                                "library_call_ms": call13["library_call_ms"],
+                                "from_g2": {"call_ms": call13["g2 call_ms"],
+                                            "device_ms": dev_ms["row 13 from g2"],
+                                            "enqueue_ms": call13["g2 enqueue_ms"],
+                                            "library_call_ms": call13["g2 library_call_ms"],
+                                            "library_device_ms": dev_ms["cuBLAS row 13 from g2"]}}
+                        if nl == n // 2 and dt_name == "float32":
+                            measured["gcn_shard_layer.backward"]["by_nl"] = {nl: {
+                                "device_ms": dev_ms["row 13"], "call_ms": call13["call_ms"],
+                                "library_device_ms": dev_ms["cuBLAS row 13"]}}
+                        if dt_name == "bfloat16" and nl == n:
+                            measured["gcn_shard_layer.backward"]["bfloat16"] = {
+                                "device_ms": dev_ms["row 13"], "call_ms": call13["call_ms"],
                                 "library_device_ms": dev_ms["cuBLAS row 13"]}
                         if dt_name == "float32" and nl < n:
                             measured["gcn_shard_layer"].setdefault("by_nl", {})[nl] = {
@@ -2810,7 +3076,8 @@ def main() -> int:
             # (row 5 also its call alone), and the bfloat16 run beside its
             # library call.
             **{k: m[k] for k in ("device_ms", "call_ms", "library_device_ms", "parts_ms",
-                                 "bfloat16", "library_call_ms", "core_launches", "by_nl")
+                                 "bfloat16", "library_call_ms", "core_launches", "by_nl",
+                                 "host_ms", "enqueue_ms", "from_g2")
                if k in m},
         })
     log(json.dumps({"kernels": kernels}))

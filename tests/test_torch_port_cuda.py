@@ -177,13 +177,15 @@ def test_lstm_train_kernels_match_plain(dev, dtype, rows, dropout):
     params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
     train = fused_lstm_stack.lstm_stack_train
     counts = lambda: (train.launches, train.backward_launches,  # noqa: E731
-                      train.backward_recurrence_launches, train.backward_gemm_nn_launches)
+                      train.backward_recurrence_launches, train.backward_gemm_nn_launches,
+                      train.forward_recurrence_launches, train.forward_gemm_nn_launches)
     before = counts()
     got, got_g = _fwd_bwd(
         lambda x: fused_lstm_stack.lstm_stack_train(
             lstm.layers, x, masks=masks, keep=keep, compute_dtype=dtype), [x], params)
-    # Row 5: a recurrence and a GEMM-core launch a layer.
-    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 3, before[3] + 3)
+    # Rows 4 and 5: a recurrence and a GEMM-core launch a layer each way.
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 3, before[3] + 3,
+                        before[4] + 3, before[5] + 3)
     ref, ref_g = _fwd_bwd(
         lambda x: fused_lstm_stack.lstm_stack_plain(lstm.layers, x, dtype, masks, keep),
         [x], params)
@@ -1284,3 +1286,126 @@ def test_gcn_train_forward_runs_on_the_core(dev, dtype, nodes, masked_layers):
         assert a.dtype == dtype and a.shape == (24, nodes, 256), l
         torch.testing.assert_close(a.float(), r.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
+
+# Row 4 layer by layer (the input products on the core, the forward
+# recurrence of csrc/lstm_scan_fwd.cuh, all enqueued by one C call) and row
+# 13 on the core and row 7's pieces.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,layers,dropout", [(512, 4, 0.2), (512, 4, 0.0), (512, 1, 0.0),
+                                                 (1024, 4, 0.2)])
+def test_lstm_train_forward_at_full_width(dev, dtype, rows, layers, dropout):
+    """Row 4 at the inner step's shapes (24 steps, input 256, hidden 128;
+    1024 rows: the adaptation step) against its schedule on the plain pieces
+    from the same inputs: h_last, h_all, c_all and the gates; L gemm_nn and
+    L recurrence launches from one call; the same schedule a launch at a
+    time (`FWD_CARD_PIECES`) and a second call give the same bits."""
+    fls = fused_lstm_stack
+    train = fls.lstm_stack_train
+    lstm = init_lstm(torch.Generator().manual_seed(1), 256, 128, layers).to(dev)
+    wcat = [torch.cat([layer.wx, layer.wh]).detach() for layer in lstm.layers]
+    b2d = torch.stack([layer.b for layer in lstm.layers]).detach()
+    x = _card(dev, (rows, 24, 256), seed=11).transpose(0, 1)  # the model's [T, B, C] view
+    masks = None
+    if dropout:
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(4),
+                          (layers - 1, 24, rows, 128), dropout, dev)
+    keep = 1.0 - dropout
+    with torch.no_grad():
+        before = (train.launches, train.forward_gemm_nn_launches,
+                  train.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+        got = fls.train_forward(x, masks, keep, dtype, b2d, wcat)
+        assert (train.launches, train.forward_gemm_nn_launches,
+                train.forward_recurrence_launches, gemm_nn.launches, gemm.launches) == (
+            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers, before[4])
+        again = fls.train_forward(x, masks, keep, dtype, b2d, wcat)
+        pieces = fls.forward_schedule(x, masks, keep, dtype, b2d, wcat, fls.FWD_CARD_PIECES)
+        ref = fls.forward_schedule(x, masks, keep, dtype, b2d, wcat, fls.FWD_PLAIN_PIECES)
+    for name, g, a, p, r in zip(("h_last", "h_all", "c_all", "gates"), got, again, pieces, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert torch.equal(g, a) and torch.equal(g, p), name
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_forward_recurrence_cluster_sizes_match_plain(dev, dtype, hidden):
+    """The forward recurrence alone against its plain version at 48 rows, 7
+    steps, with a mask (the next layer's input) and the last h: clusters of
+    1, 2, 4 and 8 blocks."""
+    fls = fused_lstm_stack
+    cs, hcp, rb = fls.forward_plan(hidden, 48, dtype.itemsize, fls._sms(dev))
+    assert cs == CLUSTER[(dtype, hidden)]
+    assert cuda_build.load().wf_lstm_stack_forward_clusters(
+        cuda_build.dtype_code(dtype), cs, hcp, rb, hidden) > 0
+    xp = _card(dev, (7, 48, 4 * hidden), seed=hidden)
+    wh = _card(dev, (hidden, 4 * hidden), seed=hidden + 1, scale=hidden ** -0.5)
+    bias = _card(dev, (4 * hidden,), seed=hidden + 2, scale=0.1)
+    mask = (_card(dev, (7, 48, hidden), seed=hidden + 3) > -0.84).to(torch.int8)
+    outs = {}
+    for name, piece in (("kernel", fls._forward_recurrence_card),
+                        ("plain", fls._forward_recurrence_plain)):
+        gates = xp.clone()
+        res = [torch.empty((7, 48, hidden), dtype=dtype, device=dev) for _ in range(3)]
+        h_last = torch.empty((48, hidden), device=dev)
+        piece(gates, wh, bias, dtype, res[0], res[1], mask=mask, inv_keep=1.25, next_in=res[2],
+              h_last=h_last)
+        outs[name] = (gates, *res, h_last)
+    for i, (a, b) in enumerate(zip(outs["kernel"], outs["plain"])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=str(i))
+
+
+@pytest.mark.cuda
+def test_forward_recurrence_refuses_a_plan_it_does_not_take(dev):
+    """A plan whose weight columns do not hold a block's units, a row tile
+    it is not built for, or tiles beyond shared memory: nothing launches."""
+    gates = _card(dev, (3, 8, 512))
+    wh = _card(dev, (128, 512))
+    bias = _card(dev, (512,))
+    h = torch.empty((3, 8, 128), device=dev)
+    lib = cuda_build.load()
+    for plan in ((1, 64, 2), (2, 64, 3), (1, 128, 16)):  # 128 units; rb 3; 256 KB of f32
+        err = lib.wf_lstm_stack_forward_recurrence(fused_lstm_stack._SCAN_FWD.pack(
+            0, *plan, gates.data_ptr(), wh.data_ptr(), 512, bias.data_ptr(), h.data_ptr(),
+            h.data_ptr(), 0, 1.0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev)))
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cuda_build.check(err, f"plan {plan}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nl", [512, 256, 40])
+@pytest.mark.parametrize("cts", ["g2", "g1", "both"])
+@pytest.mark.parametrize("has_mask", [True, False])
+def test_gcn_shard_backward_runs_on_the_core(dev, dtype, nl, cts, has_mask):
+    """Row 13 at full width (hw_full [512, 24, 256] and hid_next 256; NL 40 of
+    120 nodes pads the A^T product's K) against its plain statement, each
+    cotangent alone and both: the core's NN and TN launches (g2: 2 NN, 1 TN;
+    g1: 1 NN; both: 2 NN, 1 TN), no gemm.cu GEMM; two calls bitwise equal."""
+    n = 120 if nl == 40 else 512
+    a = _shard_inputs(dev, dtype, nl, True, has_mask, n=n, w=24, hid=256, hid_next=256)
+    with torch.no_grad():
+        h_post, _ = fused_gcn_shard.shard_layer_plain(*a.values(), 0.8, dtype)
+    g1 = None if cts == "g2" else _card(dev, h_post.shape, dtype, seed=5)
+    g2 = None if cts == "g1" else _card(dev, (nl, 24, 256), dtype, seed=6)
+    args = (g1, g2, h_post, a["a_rows"], a["w_next"], a["mask"])
+    before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+    got = fused_gcn_shard.backward_schedule(*args, 1.25, dtype, dtype,
+                                            fused_gcn_train.CARD_PIECES)
+    assert (gemm_nn.launches - before[0], gemm_tn.launches - before[1],
+            gemm.launches - before[2]) == {"g2": (2, 1, 0), "g1": (1, 0, 0),
+                                           "both": (2, 1, 0)}[cts]
+    again = fused_gcn_shard.backward_schedule(*args, 1.25, dtype, dtype,
+                                              fused_gcn_train.CARD_PIECES)
+    ref = fused_gcn_shard.shard_bwd_plain(*args, 0.8, dtype, dtype)
+    for name, g, r, b in zip(("d_hw_full", "db", "dw_next"), got, ref, again):
+        assert torch.equal(g, b), name
+        if cts == "g1" and name == "dw_next":
+            assert not g.any()
+            continue
+        assert g.shape == r.shape and _rel(g, r) <= TOL[dtype], (name, _rel(g, r))

@@ -9,10 +9,12 @@ Float32 at the reference width: rows 6-7 (the training GCN stack, x [24,
 512, 24] -> 4 x 256, masks at rate 0.2: the forward, and the backward alone
 from the forward's residuals), rows 12-13 (the node-sharded sandwich layer,
 hw_full [512, 24, 256], a next layer, a mask, NL = 512, 256 and 128: the
-forward, and the backward alone from both cotangents). For each: the call
-by CUDA events (median of 20) and its device time by CUDA graph replay
-(the call captured once, its replays timed by events); the kernels one call
-launches (torch.profiler) and its `gemm_nn` and `gemm.cu` launches. The
+forward, and the backward alone from both cotangents and from g2 alone, as
+the encoder's layers below the top send it). For each: the call by CUDA
+events (median of 20), its device time by CUDA graph replay (the call
+captured once, its replays timed by events) and the host's time to enqueue
+it (the card idle before it; median of 20); the kernels one call launches
+(torch.profiler) and its `gemm_nn`, `gemm_tn` and `gemm.cu` launches. The
 cuBLAS routes are the plain versions (torch.matmul products): row 6
 `gcn_stack_train_plain`, row 7 the backward written out below, rows 12-13
 `shard_layer_plain` and `shard_bwd_plain`. Run it on two checkouts in
@@ -41,7 +43,7 @@ from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig  # noqa: E40
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_shard as fgs  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_train as fgt  # noqa: E402
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm, gemm_nn  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm, gemm_nn, gemm_tn  # noqa: E402
 
 if not args.cpu and not torch.cuda.is_available():
     sys.exit("gcn_rows: no CUDA card (--cpu is a dry run)")
@@ -82,6 +84,20 @@ def graph_ms(fn):
     return ms
 
 
+def enqueue_ms(fn):
+    """Median host time of one call of fn() in ms, from its start to its
+    return, the card idle before it."""
+    fn()
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def kernels_per_call(fn):
     """The device operations (kernels, copies, memsets) one call of fn()
     runs, by torch.profiler."""
@@ -100,12 +116,13 @@ def measure(name, kernel, library):
         library()
         res[name] = None
         return
-    g0, n0 = gemm.launches, gemm_nn.launches
+    g0, n0, t0 = gemm.launches, gemm_nn.launches, gemm_tn.launches
     kernel()
     torch.cuda.synchronize()
-    launches = {"gemm_nn_a_call": gemm_nn.launches - n0, "gemm_cu_a_call": gemm.launches - g0}
+    launches = {"gemm_nn_a_call": gemm_nn.launches - n0, "gemm_tn_a_call": gemm_tn.launches - t0,
+                "gemm_cu_a_call": gemm.launches - g0}
     res[name] = {
-        "ms": events_ms(kernel), "device_ms": graph_ms(kernel),
+        "ms": events_ms(kernel), "device_ms": graph_ms(kernel), "enqueue_ms": enqueue_ms(kernel),
         "kernels_a_call": kernels_per_call(kernel), **launches,
         "library_ms": events_ms(library), "library_device_ms": graph_ms(library),
     }
@@ -126,6 +143,14 @@ def cublas_row7(g, x, a_hat, weights, masks, h_all, keep):
         out.append(dz.sum(dim=(0, 1)))
         dh = torch.matmul(dhw, weights[l].t())
     return dh, out
+
+
+def row13(*args):
+    """Row 13 alone: `backward_schedule` on the card's pieces, or in a
+    checkout from before it, `_bwd_cuda`."""
+    if hasattr(fgs, "backward_schedule"):
+        return fgs.backward_schedule(*args, fgt.CARD_PIECES)
+    return fgs._bwd_cuda(*args)
 
 
 cfg = ModelConfig()
@@ -172,8 +197,9 @@ with torch.no_grad():
                 lambda: fgs.shard_layer_plain(hw_full, a_rows, b, w_next, m, keep, dt))
         h_post, _ = fgs.shard_layer_plain(hw_full, a_rows, b, w_next, m, keep, dt)
         g1, g2 = card((nl, w_len, hid)), card((nl, w_len, hid))
-        measure(f"row 13 NL={nl}",
-                lambda: fgs._bwd_cuda(g1, g2, h_post, a_rows, w_next, m, 1.0 / keep, dt, dt),
-                lambda: fgs.shard_bwd_plain(g1, g2, h_post, a_rows, w_next, m, keep, dt, dt))
+        for cts, c1 in (("", g1), (" from g2", None)):
+            measure(f"row 13{cts} NL={nl}",
+                    lambda: row13(c1, g2, h_post, a_rows, w_next, m, 1.0 / keep, dt, dt),
+                    lambda: fgs.shard_bwd_plain(c1, g2, h_post, a_rows, w_next, m, keep, dt, dt))
 res["seconds"] = time.perf_counter() - t_start
 print(json.dumps(res), flush=True)

@@ -15,7 +15,11 @@ step on a 1 x 1 mesh (a NCCL group of one), each the median of 3 after one
 warm-up step with its peak device memory (GiB, the most of the 3); the
 task-batched LSTM stack's backward alone (row 17 at V = 2: x [2 x 512, 24,
 256], 4 layers of 128, masks at rate 0.2, from row 16's residuals) by CUDA
-events (median of 20) and by CUDA graph replay; and one call of the serving
+events (median of 20) and by CUDA graph replay; the merged stack's training
+forward alone (row 4: x [512, 24, 256] as the model's [T, B, C] view, 4
+layers of 128, masks at rate 0.2) the same ways, with the host's time to
+enqueue a call (median of 20) and cuDNN's LSTM forward beside it; and one
+call of the serving
 GCN stack (kernel row 1, [72, 512, 24] -> 4 x 256) in float32 and
 bfloat16. Run it on two checkouts in turns (A, B, B, A) in one call on one
 card: the card's host varies between calls. `--cpu` is a dry run of the
@@ -93,6 +97,20 @@ def host_ms(fn, repeats=20):
         fn()
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def enqueue_ms(fn, repeats=20):
+    """Median host time of one call of fn() in ms, from its start to its
+    return, the card idle before it."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    sync()
     return statistics.median(times)
 
 
@@ -229,6 +247,30 @@ with torch.inference_mode():
     for dt in (torch.float32, torch.bfloat16):
         res[f"row 1 {str(dt)[6:]} call ms"] = host_ms(
             lambda: fused_gcn_stack(model.encoder.layers, a_hat, x, compute_dtype=dt))
+if not args.cpu:  # row 4 alone, beside cuDNN's forward
+    n, lh, n_l = 512, cfg.lstm_hidden, cfg.lstm_layers
+    draw = torch.Generator(device=dev).manual_seed(6)
+    x4 = torch.randn((n, cfg.window, cfg.hidden_channels), generator=draw, device=dev)
+    bound = lh ** -0.5
+    wcat = [torch.empty(((cfg.hidden_channels if l == 0 else lh) + lh, 4 * lh),
+                        device=dev).uniform_(-bound, bound, generator=draw) for l in range(n_l)]
+    b2d = torch.empty((n_l, 4 * lh), device=dev).uniform_(-bound, bound, generator=draw)
+    m = draw_mask(draw, (n_l - 1, cfg.window, n, lh), 0.2, dev)
+    cudnn = torch.nn.LSTM(cfg.hidden_channels, lh, n_l, batch_first=True).to(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+
+            def row4():
+                fused_lstm_stack.train_forward(x4.transpose(0, 1), m, 0.8, dt, b2d, wcat)
+
+            name = f"row 4 {str(dt)[6:]}"
+            res[f"{name} ms"] = events_ms(row4)
+            res[f"{name} device ms"] = graph_ms(row4)
+            res[f"{name} enqueue ms"] = enqueue_ms(row4)
+            lib = cudnn.to(dt)
+            res[f"cuDNN forward {str(dt)[6:]} ms"] = events_ms(lambda: lib(x4.to(dt)))
+    del x4, wcat, cudnn
 res["seconds"] = time.perf_counter() - t_start
 torch.distributed.destroy_process_group()
 print(json.dumps(res), flush=True)

@@ -1,28 +1,28 @@
 // Fused LSTM stack forward: all layers and all time steps in one launch.
 //
-// Replaces three Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
+// Replaces two Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
 // fused_lstm_stack.py, the bodies of `_fwd_kernel_m` and `_fwd_kernel_mv`:
 //   eval (TRAIN = false, kernel row 2): `_fwd_kernel_m_lastonly_nomask`,
 //     launched by `_fwd_pallas_m(..., emit_residuals=False)`; returns only the
 //     top layer's last hidden state;
-//   training (TRAIN = true, kernel row 4): `_fwd_kernel_m` (+ `_nomask`),
-//     launched by `_fwd_pallas_m` with residuals; also streams out every
-//     (layer, step)'s h and c in the compute dtype (the backward's residuals,
-//     JAX `_res_dtype`) and its activated gates in float32, and multiplies
-//     each inter-layer input by its int8 dropout mask times 1/keep before
-//     rounding it to the compute dtype. The TPU backward recomputes the
-//     gates from the residuals to spare HBM; here storing them (4 floats a
-//     unit, 100 MB at the reference width) leaves the backward's serial
-//     recurrence one contraction a step (csrc/lstm_scan_bwd.cuh, rows 5 and
-//     17);
-//   training for V tasks (kernel row 16): `_fwd_kernel_mv` (+ `_nomask`),
-//     launched by `_fwd_pallas_mv`: row 4 for V tasks, each with its own
-//     weights, inputs, masks and outputs, in one launch. The TPU folds the V
-//     chains into one program so that one chain's gate math hides under
-//     another's dots on the MXU; here the tasks are the grid's second axis
-//     (blockIdx.y), so V times the row tiles fill the card's SMs and each
-//     block streams its own task's weights (the wrapper picks the row tile
-//     for V x R rows).
+//   training for V tasks (TRAIN = true, kernel row 16): `_fwd_kernel_mv` (+
+//     `_nomask`), launched by `_fwd_pallas_mv`: V chains, each with its own
+//     weights, inputs, masks and outputs, in one launch; also streams out
+//     every (layer, step)'s h and c in the compute dtype (the backward's
+//     residuals, JAX `_res_dtype`) and its activated gates in float32, and
+//     multiplies each inter-layer input by its int8 dropout mask times 1/keep
+//     before rounding it to the compute dtype. The TPU backward recomputes
+//     the gates from the residuals to spare HBM; here storing them leaves the
+//     backward's serial recurrence one contraction a step
+//     (csrc/lstm_scan_bwd.cuh, row 17). The TPU folds the V chains into one
+//     program so that one chain's gate math hides under another's dots on the
+//     MXU; here the tasks are the grid's second axis (blockIdx.y), so V times
+//     the row tiles fill the card's SMs and each block streams its own task's
+//     weights (the wrapper picks the row tile for V x R rows).
+// The one-task training forward (kernel row 4) left this kernel: it runs
+// layer by layer on gemm_nn.cu and the cluster recurrence of
+// lstm_scan_fwd.cuh (lstm_stack_fwd.cu).
+//
 // Per step t and layer l it computes the merged-gates contraction
 //     gates = [in_t | h_{t-1}] @ [[Wx_l], [Wh_l]] + b_l      (gate order i,f,g,o)
 //     c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
@@ -53,8 +53,9 @@
 // Here the whole block copies the weights in [kTileK, 4H] tiles with
 // cp.async into a double buffer, one tile ahead of the tile being used,
 // across stage boundaries (the tile sequence is static), so the copy of the
-// next tile overlaps the FMAs on the current one. Tensor cores and weights
-// resident in the shared memory of a thread-block cluster are later work.
+// next tile overlaps the FMAs on the current one. Row 4's layer-by-layer
+// design (the input products hoisted onto gemm_nn.cu, Wh resident in a
+// cluster's shared memory) is the one rows 16 and 2 can take next.
 #include <cstdint>
 
 #include "common.cuh"
@@ -333,29 +334,14 @@ extern "C" int wf_lstm_stack_last(int w_dt, int rows_per_thread,
                               bias, out, T, R, C, H, L, none, stream);
 }
 
-// Training forward: as wf_lstm_stack_last, plus the residuals h_all and
-// c_all [L, T, R, H] (in the weights' dtype) and gates [L, T, R, 4H]
-// (float32), with optional int8 inter-layer dropout masks [L-1, T, R, H]
-// scaled by inv_keep (masks may be null).
-extern "C" int wf_lstm_stack_train_fwd(int w_dt, int rows_per_thread,
-                                       const float* x, long long st,
-                                       long long sr, const void* wcat0,
-                                       const void* wcatr, const float* bias,
-                                       const int8_t* masks, float inv_keep,
-                                       void* h_all, void* c_all, float* gates,
-                                       float* out, int T, int R, int C, int H,
-                                       int L, void* stream) {
-  if (!h_all || !c_all || !gates) return (int)cudaErrorInvalidValue;
-  const wf::TrainIO io{h_all, c_all, gates, masks, inv_keep};
-  return wf::launch_dt<true>(w_dt, rows_per_thread, 1, x, 0, st, sr, wcat0, wcatr,
-                             bias, out, T, R, C, H, L, io, stream);
-}
-
 // Training forward of V tasks in one launch (kernel row 16): as
-// wf_lstm_stack_train_fwd, each array with a leading task axis: x [V, T, R,
-// C] (task stride sv, contiguous otherwise), wcat0 [V, C + H, 4H], wcatr
-// [V, L-1, 2H, 4H], bias [V, L, 4H], masks [V, L-1, T, R, H] (or null),
-// h_all, c_all [V, L, T, R, H], gates [V, L, T, R, 4H], out [V, R, H].
+// wf_lstm_stack_last, plus the residuals h_all and c_all (in the weights'
+// dtype) and the activated gates (float32), with optional int8 inter-layer
+// dropout masks scaled by inv_keep (masks may be null); each array with a
+// leading task axis: x [V, T, R, C] (task stride sv, contiguous otherwise),
+// wcat0 [V, C + H, 4H], wcatr [V, L-1, 2H, 4H], bias [V, L, 4H], masks [V,
+// L-1, T, R, H] (or null), h_all, c_all [V, L, T, R, H], gates [V, L, T, R,
+// 4H], out [V, R, H].
 extern "C" int wf_lstm_stack_train_fwd_tasks(
     int w_dt, int rows_per_thread, int V, const float* x, long long sv,
     const void* wcat0, const void* wcatr, const float* bias, const int8_t* masks,

@@ -30,9 +30,17 @@
 //   row 6, fused_gcn_train.py `_fwd_kernel` (the training GCN stack's
 //     forward): row 1's two products a layer, the aggregation's bias + relu
 //     + mask epilogue storing each layer's post-dropout h in the compute
-//     dtype (ops/fused_gcn_train.py `forward_schedule`).
-// The other GEMMs of the port (rows 5 and 15's weight gradients, row 13)
-// stay on gemm.cu.
+//     dtype (ops/fused_gcn_train.py `forward_schedule`);
+//   row 4, fused_lstm_stack.py `_fwd_kernel_m` (the merged LSTM stack's
+//     training forward), layer by layer: the input product round(in) @
+//     round(Wx) of all T x R rows, batched over the steps (enqueued from
+//     lstm_stack_fwd.cu, which fills this file's NNLaunch);
+//   row 13, fused_gcn_shard.py `_bwd_kernel` (the node-sharded sandwich
+//     layer's backward): round(g2) @ round(W_next)^T with the relu-grad
+//     epilogue (dz and db's partials), dW_next = round(h_post)^T round(g2)
+//     (TN, split K) and round(A_rows)^T @ round(dz) (NN).
+// The other GEMMs of the port (the weight gradients of rows 5, 11, 15 and 19,
+// row 20's projections) stay on gemm.cu.
 //
 // Numerics are the port's (common.cuh): operands are rounded to the compute
 // dtype as they are loaded, products accumulate in float32. B is stored in
@@ -87,6 +95,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "gemm_nn_launch.cuh"
 
 namespace wf {
 namespace {
@@ -809,21 +818,6 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 }  // namespace wf
-
-// The arguments of one launch. Every field is 8 bytes wide, so the Python
-// side packs them with one struct format and no padding (ops/gemm.py
-// `_NN_LAUNCH`): one ctypes argument in place of thirty, a few microseconds
-// less host time a launch.
-struct NNLaunch {
-  long long r_dt, epilogue;
-  long long a1, sa1, lda1, a1_f32, b1, sb1, ldb1, k1;
-  long long a2, sa2, lda2, a2_f32, b2, sb2, ldb2, k2, row_offset2;
-  long long c, sc, ldc, c_bf16, bias, mask;
-  double scale;
-  long long M, N, batch, stream;
-  long long res, res_bf16, colsum, ldp;
-};
-static_assert(sizeof(NNLaunch) == 34 * 8, "NNLaunch is 34 packed 8-byte fields");
 
 // C = epilogue(op(A1) @ B1 [+ op(A2) @ B2]) for each of `batch` batch entries
 // (see wf::NNPair / wf::NNArgs for the indexing). r_dt is the compute dtype

@@ -1,0 +1,350 @@
+// One LSTM layer's forward recurrence, kept in a thread-block cluster: the
+// serial part of kernel row 4 (the merged stack's training forward), which
+// ops/fused_lstm_stack.py `forward_schedule` and the C entry of
+// lstm_stack_fwd.cu walk layer by layer.
+//
+// From xp [T, R, 4H] float32, round(in) @ round(Wx) of every step and row
+// (gemm_nn.cu's product, without the bias), it walks t = 0 .. T-1 with h / c
+// carries (zero at t = 0):
+//     gates = act((xp[t] + b) + round(h_{t-1}) @ round(Wh))   (i, f, g, o)
+//     c = f * c + i * g;  h = o * tanh(c)
+// and writes the activated gates over xp in place (float32, the backward's
+// residual), round(h) and round(c) [T, R, H] in the compute dtype, where a
+// mask is given the next layer's input round(h * mask * inv_keep) [T, R, H]
+// in the compute dtype (JAX's rounding point: from the float32 h, not from
+// round(h)), and where asked the last step's h [R, H] in float32. The
+// arithmetic is JAX's `fused_lstm_stack._fwd_kernel_m`
+// (weatherforecast_stgcn_maml_tpu/ops/), which walks all T x L stages as one
+// chain with one [in | h] @ [[Wx], [Wh]] contraction a stage; here the
+// input half is one product a layer off the chain, and this recurrence
+// contracts only round(h_{t-1}) with Wh.
+//
+// Bound: at the training shapes (T = 24, R = 512, H = 128) a layer's
+// recurrence is 1.61 GFLOP (0.024 ms at the card's float32 rate) and moves
+// 25 MB of xp in and gates out (0.015 ms); neither bounds it. The T-step
+// chain does: streamed from L2 at every step, Wh alone (256 KB in float32)
+// would cost ~17 us a step.
+//
+// Design, as the backward's (lstm_scan_bwd.cuh, whose helpers it uses): Wh
+// stays in shared memory for all T steps, split by hidden units over a
+// cluster of cs blocks: block b holds the four gate columns of its hc units,
+// [H, 4, hcp] (zero-padded to hcp), 128 KB at float32 H = 128 with cs = 2,
+// copied once a launch by cp.async while step 0 (which needs no weights: h_{-1}
+// = 0) runs. A thread owns a row and 4 units of all four gates (4 x 4 gate
+// values), so the c carry stays in its registers. A step: the block's 8
+// warps contract the cluster's round(h_{t-1}) tile [RB, H] with their slice
+// (warp w: gate w % 4 over half of K; lane: UPT units of every row; the h
+// row read as broadcast 16-byte loads), write float32 partials [2, 4, RB,
+// hcp], sync the block; the owners add the two halves in order to xp + b,
+// apply the cell, store, and write round(h_t) of their units into the [RB,
+// H] tile of every block of the cluster (distributed shared memory). The
+// tiles alternate between two buffers, so one cluster barrier a step
+// suffices: a partner's writes of step t never meet this block's reads of
+// step t-1's tile. The grid is clusters x row tiles, sized
+// (ops/fused_lstm_stack.py `forward_plan`) to fill the SMs in one wave: at R
+// = 512, 64 clusters of 2 blocks x 8 rows in float32, 128 blocks x 4 rows in
+// bfloat16; R = 1024 (the adaptation step) doubles the rows a cluster.
+#pragma once
+
+#include "lstm_scan_bwd.cuh"
+
+namespace wf {
+// Internal linkage: each source that includes this has its own copy.
+namespace {
+
+struct ScanFwd {
+  float* gates;        // [T, R, 4H] in: round(in) @ round(Wx); out: the activated gates
+  const void* wh;      // Wh [H, 4H] in the compute dtype, row stride ldw
+  long long ldw;
+  const float* bias;   // [4H]
+  void* h_all;         // [T, R, H] round(h), compute dtype
+  void* c_all;         // [T, R, H] round(c), compute dtype
+  const int8_t* mask;  // [T, R, H] the next layer's dropout mask, or null
+  float inv_keep;
+  void* next_in;       // [T, R, H] round(h * mask * inv_keep), compute dtype (with mask)
+  float* h_last;       // [R, H] the last step's h, or null
+  int T, R, H, cs;
+};
+
+// Dynamic shared memory a block takes: its weight slice [H, 4, hcp] and two
+// round(h) tiles [rb, H] in the compute dtype, and the warps' partial gates
+// [2, 4, rb, hcp] float32.
+inline size_t scan_fwd_smem(int H, int hcp, int rb, size_t tw) {
+  return 4 * (size_t)H * hcp * tw + 2 * (size_t)rb * H * tw +
+         8 * (size_t)rb * hcp * sizeof(float);
+}
+
+// Four elements (16 bytes in float32, 8 in bfloat16) into shared memory,
+// zero-filled where !ok.
+template <typename TW>
+__device__ __forceinline__ void cp_async_units(TW* dst, const TW* src, bool ok) {
+  constexpr int kBytes = 4 * sizeof(TW);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "n"(kBytes), "r"(ok ? kBytes : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// The cell of one unit: its activated gates into a[0..3], c and h updated.
+__device__ __forceinline__ void cell_fwd(float pi, float pf, float pg, float po, float& c,
+                                         float& h, float (&a)[4]) {
+  a[0] = sigmoidf(pi);
+  a[1] = sigmoidf(pf);
+  a[2] = tanhf(pg);
+  a[3] = sigmoidf(po);
+  c = a[1] * c + a[0] * a[2];
+  h = a[3] * tanhf(c);
+}
+
+// Grid (cs, row tiles); clusters of cs blocks along x: block rank b owns
+// units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp.
+template <typename TW, int UPT, int RB>
+__global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const ScanFwd a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int HCP = 32 * UPT;
+  constexpr int VK = 16 / sizeof(TW);  // k values a 16-byte load of an h row
+  constexpr int EPT = (RB * HCP / 4 + kScanThreads - 1) / kScanThreads;  // (row, 4 units) a thread
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = a.T, R = a.R, H = a.H, g4 = 4 * H;
+  const int rank = (int)cluster.block_rank();
+  const int hc = scan_units(H, a.cs);
+  const int j0 = rank * hc;
+  const int nu = max(0, min(hc, H - j0));  // this block's units (a multiple of 4)
+  const int nq = nu / 4;
+  const int row0 = blockIdx.y * RB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  TW* w_s = reinterpret_cast<TW*>(smem);                    // [H, 4, HCP]
+  TW* h_s = w_s + (size_t)H * 4 * HCP;                      // [2, RB, H]
+  float* part = reinterpret_cast<float*>(h_s + (size_t)2 * RB * H);  // [2, 4, RB, HCP]
+
+  // The weight slice: Wh[k, q*H + j0 + u] at w_s[(k*4 + q)*HCP + u], units
+  // past the block's own zero-filled; it lands while step 0 runs.
+  if (T > 1) {
+    const TW* wh = static_cast<const TW*>(a.wh);
+    constexpr int G = HCP / 4;  // 4-unit groups of a (k, gate) row
+    for (int i = tid; i < H * 4 * G; i += kScanThreads) {
+      const int k = i / (4 * G), q = (i / G) % 4, u = (i % G) * 4;
+      const bool ok = u < nu;
+      cp_async_units(w_s + ((size_t)k * 4 + q) * HCP + u,
+                     ok ? wh + (size_t)k * a.ldw + q * H + j0 + u : wh, ok);
+    }
+    cp_async_commit();
+  }
+
+  // Thread tid owns (row r, units j .. j+3) for e < EPT: pair tid + e * 256.
+  int pr[EPT], pj[EPT];
+  float4 xp[EPT][4], bias[EPT][4], cc[EPT];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int p = tid + e * kScanThreads;
+    pr[e] = nq > 0 && p < RB * nq ? p / nq : -1;
+    pj[e] = nq > 0 ? j0 + 4 * (p % nq) : 0;
+    cc[e] = zero;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      xp[e][q] = zero;
+      bias[e][q] = pr[e] >= 0 ? load4(a.bias + q * H + pj[e]) : zero;
+    }
+    if (pr[e] >= 0 && row0 + pr[e] < R) {
+      const float* gt = a.gates + (size_t)(row0 + pr[e]) * g4 + pj[e];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xp[e][q] = load4(gt + q * H);
+    }
+  }
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) {
+      // Partial gates of this block's units: round(h_{t-1}) [RB, H] x the
+      // slice [H, HCP] of gate q = warp % 4 over K half warp / 4.
+      const TW* hb = h_s + (size_t)((t - 1) & 1) * RB * H;
+      const int q = warp & 3, kh = warp >> 2;
+      float acc[RB][UPT];
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int p = 0; p < UPT; ++p) acc[r][p] = 0.f;
+      const int nch = H / VK;
+      const int c_hi = (kh + 1) * nch / 2;
+      const TW* wl = w_s + (size_t)q * HCP + lane * UPT;
+      for (int c = kh * nch / 2; c < c_hi; ++c) {
+        const int k = c * VK;
+        float w[VK][UPT];
+#pragma unroll
+        for (int u = 0; u < VK; ++u) load_units<UPT>(wl + (size_t)(k + u) * 4 * HCP, w[u]);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          float av[VK];
+          load_k(hb + (size_t)r * H + k, av);
+#pragma unroll
+          for (int u = 0; u < VK; ++u)
+#pragma unroll
+            for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], w[u][p], acc[r][p]);
+        }
+      }
+      float* pw = part + (size_t)(kh * 4 + q) * RB * HCP + lane * UPT;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
+      __syncthreads();  // the partials visible to the threads that own the units
+    }
+
+    TW* hn = h_s + (size_t)(t & 1) * RB * H;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      if (pr[e] < 0) continue;
+      const int r = pr[e], j = pj[e], row = row0 + r;
+      float4 pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        pre[q] = add4(xp[e][q], bias[e][q]);
+        if (t > 0) {
+          const float* pp = part + ((size_t)q * RB + r) * HCP + (j - j0);
+          pre[q] = add4(pre[q], add4(load4(pp), load4(pp + (size_t)4 * RB * HCP)));
+        }
+      }
+      float act[4][4];  // [unit][gate]
+      float4 h;
+      cell_fwd(pre[0].x, pre[1].x, pre[2].x, pre[3].x, cc[e].x, h.x, act[0]);
+      cell_fwd(pre[0].y, pre[1].y, pre[2].y, pre[3].y, cc[e].y, h.y, act[1]);
+      cell_fwd(pre[0].z, pre[1].z, pre[2].z, pre[3].z, cc[e].z, h.z, act[2]);
+      cell_fwd(pre[0].w, pre[1].w, pre[2].w, pre[3].w, cc[e].w, h.w, act[3]);
+      if (row < R) {
+        float* gt = a.gates + ((size_t)t * R + row) * g4 + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          store4(gt + q * H, make_float4(act[0][q], act[1][q], act[2][q], act[3][q]));
+        const size_t o = ((size_t)t * R + row) * H + j;
+        store4(static_cast<TW*>(a.h_all) + o, h);
+        store4(static_cast<TW*>(a.c_all) + o, cc[e]);
+        if (a.next_in) {
+          const char4 m = *reinterpret_cast<const char4*>(a.mask + o);
+          store4(static_cast<TW*>(a.next_in) + o,
+                 make_float4(h.x * ((float)m.x * a.inv_keep), h.y * ((float)m.y * a.inv_keep),
+                             h.z * ((float)m.z * a.inv_keep), h.w * ((float)m.w * a.inv_keep)));
+        }
+        if (a.h_last && t == T - 1) store4(a.h_last + (size_t)row * H + j, h);
+      }
+      if (t + 1 < T) {  // round(h_t) into every block's tile (rows past R too)
+        TW* loc = hn + (size_t)r * H + j;
+        for (int b = 0; b < a.cs; ++b) store4(cluster.map_shared_rank(loc, b), h);
+      }
+    }
+    if (t + 1 == T) break;
+    // One cluster barrier a step: every block's tile of step t written (the
+    // arrive releases this block's writes), and every block done with step
+    // t's contraction, so the partials and the other tile are free. Step
+    // t+1's xp is loaded between arrive and wait.
+    cluster_arrive();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      if (pr[e] < 0 || row0 + pr[e] >= R) continue;
+      const float* gt = a.gates + ((size_t)(t + 1) * R + row0 + pr[e]) * g4 + pj[e];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xp[e][q] = load4(gt + q * H);
+    }
+    cluster_wait();
+    if (t == 0) {  // the weight slice has landed (each thread's copies, then all)
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+    }
+  }
+}
+
+// Launch one kernel instance, or (max_clusters not null) ask how many of
+// its clusters fit on the card at once.
+template <typename TW, int UPT, int RB>
+int scan_fwd_run(const ScanFwd& a, cudaStream_t stream, int* max_clusters) {
+  auto kernel = lstm_scan_fwd_kernel<TW, UPT, RB>;
+  // The opt-in to more than 48 KB of shared memory, once a device.
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !opted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kScanMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) opted[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cs, max_clusters ? 1 : (a.R + RB - 1) / RB, 1);
+  cfg.blockDim = dim3(kScanThreads, 1, 1);
+  cfg.dynamicSmemBytes = scan_fwd_smem(a.H, 32 * UPT, RB, sizeof(TW));
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters) return (int)cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename TW, int UPT>
+int scan_fwd_rb(int rb, const ScanFwd& a, cudaStream_t s, int* max_clusters) {
+  switch (rb) {
+    case 2:
+      return scan_fwd_run<TW, UPT, 2>(a, s, max_clusters);
+    case 4:
+      return scan_fwd_run<TW, UPT, 4>(a, s, max_clusters);
+    case 8:
+      return scan_fwd_run<TW, UPT, 8>(a, s, max_clusters);
+    case 16:
+      return scan_fwd_run<TW, UPT, 16>(a, s, max_clusters);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TW>
+int scan_fwd_hcp(int hcp, int rb, const ScanFwd& a, cudaStream_t s, int* max_clusters) {
+  switch (hcp) {
+    case 32:
+      return scan_fwd_rb<TW, 1>(rb, a, s, max_clusters);
+    case 64:
+      return scan_fwd_rb<TW, 2>(rb, a, s, max_clusters);
+    case 128:
+      return scan_fwd_rb<TW, 4>(rb, a, s, max_clusters);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launch one forward recurrence on `stream` (or, with max_clusters, ask the
+// occupancy of its clusters): w_dt (0 = float32, 1 = bfloat16) is the
+// compute dtype, Wh's and the residuals'. The plan (a.cs blocks a cluster,
+// hcp weight columns a block and gate, rb rows a cluster) is the caller's:
+// cs 1, 2, 4 or 8, hcp 32, 64 or 128 and at least scan_units(H, cs), rb 2,
+// 4, 8 or 16, within 227 KB of shared memory. H is a multiple of 8, ldw of
+// 4; gates, bias and h_last are 16-byte aligned, Wh and the compute-dtype
+// arrays aligned to 4 elements, the mask to 4 bytes; mask and next_in come
+// together. Returns a cudaError_t code: a plan or an argument it does not
+// take is cudaErrorInvalidValue or cudaErrorMisalignedAddress; a cluster
+// launch the card refuses returns the card's code. Nothing falls back to
+// another kernel.
+inline int launch_scan_fwd(int w_dt, int hcp, int rb, const ScanFwd& a, cudaStream_t s,
+                           int* max_clusters = nullptr) {
+  const bool bf16 = w_dt == kBF16;
+  const size_t tw = bf16 ? 2 : 4;
+  if ((w_dt != kF32 && !bf16) || (hcp != 32 && hcp != 64 && hcp != 128) ||
+      (rb != 2 && rb != 4 && rb != 8 && rb != 16) ||
+      (a.cs != 1 && a.cs != 2 && a.cs != 4 && a.cs != 8) || a.T <= 0 || a.R <= 0 || a.H <= 0 ||
+      a.H % 8 || scan_units(a.H, a.cs) > hcp || (a.R + rb - 1) / rb > 65535 ||
+      !a.mask != !a.next_in || scan_fwd_smem(a.H, hcp, rb, tw) > kScanMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned_to(a.gates, 16) || !aligned_to(a.bias, 16) || !aligned_to(a.h_last, 16) ||
+      !aligned_to(a.wh, 4 * tw) || !aligned_to(a.h_all, 4 * tw) ||
+      !aligned_to(a.c_all, 4 * tw) || !aligned_to(a.next_in, 4 * tw) ||
+      !aligned_to(a.mask, 4) || a.ldw % 4)
+    return (int)cudaErrorMisalignedAddress;
+  if (bf16) return scan_fwd_hcp<__nv_bfloat16>(hcp, rb, a, s, max_clusters);
+  return scan_fwd_hcp<float>(hcp, rb, a, s, max_clusters);
+}
+
+}  // namespace
+}  // namespace wf

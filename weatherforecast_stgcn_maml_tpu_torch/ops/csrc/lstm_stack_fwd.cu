@@ -1,0 +1,163 @@
+// The merged LSTM stack's training forward (kernel row 4), layer by layer:
+// the C entry that enqueues the whole schedule from one host call, and the
+// forward recurrence alone.
+//
+// Replaces the Pallas kernel `_fwd_kernel_m` (+ `_fwd_kernel_m_nomask`) of
+// weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py, launched by
+// `_fwd_pallas_m` with residuals. The TPU kernel walks all T x L stages as
+// one chain, one [in | h] @ [[Wx], [Wh]] contraction a stage. Only the h
+// carry is recurrent, so here, for l = 0 .. L-1 (ops/fused_lstm_stack.py
+// `forward_schedule` states the same schedule on swappable pieces):
+//   1. xp_l = round(in_l) @ round(Wx_l) for all T x R rows: one gemm_nn.cu
+//      launch (batched over the T steps, so x's [B, T, C] layout needs no
+//      copy), written straight into gates[l] [T, R, 4H] float32; no bias
+//      (the recurrence adds it);
+//   2. the forward recurrence (lstm_scan_fwd.cuh) over gates[l] in place:
+//      the activated gates, round(h) and round(c) into h_all[l] and c_all[l],
+//      the next layer's input round(h * mask_l * inv_keep) into `masked`
+//      where masks are given (else the next layer reads h_all[l]), and the
+//      top layer's last h in float32.
+// in_0 is x; in_l above it is h_all[l-1] or, with masks, `masked` ([T, R,
+// H], one buffer for every layer: layer l+1's product has read it before
+// layer l+1's recurrence writes it again, in stream order).
+//
+// Bound at the training shapes (T = 24, R = 512, C = 256, H = 128, L = 4):
+// the input products are 8.05 GFLOP (0.12 ms at the card's float32 rate),
+// the recurrences 6.44 GFLOP over 4 x 24 serial steps; the whole forward
+// moves ~130 MB (x, the gates out and back, h and c): 0.22 ms by operations.
+#include <cstdint>
+
+#include "common.cuh"
+#include "gemm_nn_launch.cuh"
+#include "lstm_scan_fwd.cuh"
+
+// The arguments of one forward, 21 packed 8-byte fields (ops/fused_lstm_stack.py
+// `_STACK_FWD`), followed by L pairs (wcat_l, k_l): layer l's merged weights
+// [[Wx_l], [Wh_l]] [k_l + H, 4H] in the compute dtype (row-major, 16-byte
+// aligned) and its input width k_l (C, then H).
+struct StackFwdLaunch {
+  long long w_dt, cs, hcp, rb;
+  long long x, sxt, sxr, x_f32;  // x[t, r, c] at x + t*sxt + r*sxr + c (elements)
+  long long bias, masks;         // [L, 4H] float32; [L-1, T, R, H] int8 or 0
+  double inv_keep;
+  long long h_all, c_all, gates, h_last, masked;
+  long long T, R, H, L, stream;
+};
+static_assert(sizeof(StackFwdLaunch) == 21 * 8, "StackFwdLaunch is 21 packed 8-byte fields");
+
+// Row 4: for each layer one NN product (gemm_nn.cu) and one forward
+// recurrence of the plan (cs, hcp, rb) (lstm_scan_fwd.cuh), on `stream`, in
+// that order. w_dt is the compute dtype (0 = float32, 1 = bfloat16); x is
+// float32 (x_f32) or in the compute dtype; h_all, c_all [L, T, R, H] and
+// masked [T, R, H] (with masks) in the compute dtype, gates [L, T, R, 4H] and
+// h_last [R, H] float32. Returns 0, a cudaError_t code, or the product's
+// negative refusal code (ops/gemm.py `_NN_REFUSALS`); the first failure stops
+// the schedule.
+extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
+  const long long* layer = reinterpret_cast<const long long*>(p + 1);
+  const long long T = p->T, R = p->R, H = p->H, L = p->L, g4 = 4 * H;
+  if (T <= 0 || R <= 0 || H <= 0 || L <= 0 || T > 0x7fffffff || R > 0x7fffffff ||
+      H > 0x7fffffff || T > 65535 || (p->w_dt != wf::kF32 && p->w_dt != wf::kBF16))
+    return (int)cudaErrorInvalidValue;
+  const long long tw = p->w_dt == wf::kBF16 ? 2 : 4;
+  const long long res = T * R * H;  // one layer's [T, R, H]
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(p->stream);
+  long long in = p->x;
+  for (long long l = 0; l < L; ++l) {
+    const long long w = layer[2 * l], k = layer[2 * l + 1];
+    float* gates = reinterpret_cast<float*>(p->gates) + l * T * R * g4;
+    NNLaunch g{};
+    g.r_dt = p->w_dt;
+    g.a1 = in;
+    g.sa1 = l == 0 ? p->sxt : R * k;
+    g.lda1 = l == 0 ? p->sxr : k;
+    g.a1_f32 = l == 0 ? p->x_f32 : p->w_dt == wf::kF32;
+    g.b1 = w;
+    g.ldb1 = g4;
+    g.k1 = k;
+    g.c = reinterpret_cast<long long>(gates);
+    g.sc = R * g4;
+    g.ldc = g4;
+    g.scale = 1.0;
+    g.M = R;
+    g.N = g4;
+    g.batch = T;
+    g.stream = p->stream;
+    int err = wf_gemm_nn(&g);
+    if (err) return err;
+    const bool top = l + 1 == L;
+    const int8_t* mask = top || !p->masks ? nullptr
+                                          : reinterpret_cast<const int8_t*>(p->masks) + l * res;
+    const long long h_l = p->h_all + l * res * tw;
+    const wf::ScanFwd a{gates,
+                        reinterpret_cast<const void*>(w + k * g4 * tw),
+                        g4,
+                        reinterpret_cast<const float*>(p->bias) + l * g4,
+                        reinterpret_cast<void*>(h_l),
+                        reinterpret_cast<void*>(p->c_all + l * res * tw),
+                        mask,
+                        (float)p->inv_keep,
+                        mask ? reinterpret_cast<void*>(p->masked) : nullptr,
+                        top ? reinterpret_cast<float*>(p->h_last) : nullptr,
+                        (int)T,
+                        (int)R,
+                        (int)H,
+                        (int)p->cs};
+    err = wf::launch_scan_fwd((int)p->w_dt, (int)p->hcp, (int)p->rb, a, s);
+    if (err) return err;
+    in = mask ? p->masked : h_l;
+  }
+  return 0;
+}
+
+// The arguments of one forward recurrence, 18 packed 8-byte fields
+// (ops/fused_lstm_stack.py `_SCAN_FWD`): wf::ScanFwd's with the plan.
+struct ScanFwdLaunch {
+  long long w_dt, cs, hcp, rb;
+  long long gates, wh, ldw, bias, h_all, c_all, mask;
+  double inv_keep;
+  long long next_in, h_last, T, R, H, stream;
+};
+static_assert(sizeof(ScanFwdLaunch) == 18 * 8, "ScanFwdLaunch is 18 packed 8-byte fields");
+
+// One layer's forward recurrence alone (wf::ScanFwd for the arguments), on
+// the plan (cs, hcp, rb). Returns a cudaError_t code.
+extern "C" int wf_lstm_stack_forward_recurrence(const ScanFwdLaunch* p) {
+  if (p->T > 0x7fffffff || p->R > 0x7fffffff || p->H > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  auto ptr = [](long long v) { return reinterpret_cast<void*>(v); };
+  const wf::ScanFwd a{static_cast<float*>(ptr(p->gates)),
+                      ptr(p->wh),
+                      p->ldw,
+                      static_cast<const float*>(ptr(p->bias)),
+                      ptr(p->h_all),
+                      ptr(p->c_all),
+                      static_cast<const int8_t*>(ptr(p->mask)),
+                      (float)p->inv_keep,
+                      ptr(p->next_in),
+                      static_cast<float*>(ptr(p->h_last)),
+                      (int)p->T,
+                      (int)p->R,
+                      (int)p->H,
+                      (int)p->cs};
+  return wf::launch_scan_fwd((int)p->w_dt, (int)p->hcp, (int)p->rb, a,
+                             reinterpret_cast<cudaStream_t>(p->stream));
+}
+
+// The most clusters of the forward recurrence's plan (cs, hcp, rb) at hidden
+// width H that the card runs at once (cudaOccupancyMaxActiveClusters), or a
+// negative cudaError_t code.
+extern "C" int wf_lstm_stack_forward_clusters(int w_dt, int cs, int hcp, int rb, int H) {
+  wf::ScanFwd a{};
+  a.T = a.R = 1;
+  a.H = H;
+  a.cs = cs;
+  int n = 0;
+  const int err = wf::launch_scan_fwd(w_dt, hcp, rb, a, nullptr, &n);
+  return err ? -err : n;
+}
+
+// The dynamic shared memory a block of that recurrence takes.
+extern "C" long long wf_lstm_stack_forward_smem(int w_dt, int hcp, int rb, int H) {
+  return (long long)wf::scan_fwd_smem(H, hcp, rb, w_dt == wf::kF32 ? 4 : 2);
+}

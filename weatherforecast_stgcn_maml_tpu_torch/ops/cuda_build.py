@@ -46,13 +46,10 @@ _SIGNATURES = {
                 _P, _LL, _I, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _P],
     "wf_sum_splits": [_P, _I, _LL, _P, _I, _I, _I, _P],
     "wf_colsum": [_P, _I, _I, _I, _I, _P, _P],
-    "wf_gcn_relu_mask_grad": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
-    "wf_transpose_round": [_I, _I, _PP, _PP, _PI, _PI, _PI, _PI, _P],
-    "wf_gcn_shard_dz": [_I, _I, _P, _P, _P, _P, _F, _P, _LL, _P],
+    "wf_gcn_relu_mask_grad": [_I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    "wf_transpose_round": [_I, _I, _PP, _PP, _PI, _PI, _PI, _PI, _PI, _P],
     "wf_lstm_stack_last": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
-    "wf_lstm_stack_train_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _F, _P,
-                                _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_stack_train_fwd_tasks": [_I, _I, _I, _P, _LL, _P, _P, _P, _P, _F, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _P],
     "wf_lstm_split_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I,
@@ -61,6 +58,11 @@ _SIGNATURES = {
     "wf_lstm_stack_recurrence": [ctypes.c_char_p],
     "wf_lstm_stack_recurrence_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_stack_recurrence_smem": [_I, _I, _I, _I],
+    # one packed StackFwdLaunch and its layers (ops/fused_lstm_stack.py _stack_fwd_launch)
+    "wf_lstm_stack_forward": [ctypes.c_char_p],
+    "wf_lstm_stack_forward_recurrence": [ctypes.c_char_p],  # one packed ScanFwdLaunch
+    "wf_lstm_stack_forward_clusters": [_I, _I, _I, _I, _I],
+    "wf_lstm_stack_forward_smem": [_I, _I, _I, _I],
     "wf_gemm_nn": [ctypes.c_char_p],  # one packed NNLaunch (ops/gemm.py _NN_LAUNCH)
     "wf_gemm_nn_smem": [_I],
     "wf_gemm_tn": [ctypes.c_char_p],  # one packed TNLaunch (ops/gemm.py _TN_LAUNCH)
@@ -78,6 +80,7 @@ _RESTYPES = {  # the rest return a cudaError_t
     "wf_clip_sgd_chunks": ctypes.c_longlong,
     "wf_gemm_nn_smem": ctypes.c_longlong,
     "wf_lstm_stack_recurrence_smem": ctypes.c_longlong,
+    "wf_lstm_stack_forward_smem": ctypes.c_longlong,
 }
 
 _lib = None

@@ -16,8 +16,8 @@ the cotangents of h_post (g1, absent when only hw_next is used) and hw_next
 dW_{l+1} and db_l. A_rows and the mask take no gradient.
 
 `gcn_shard_layer` runs the CUDA kernels (the forward's two products on the
-pipelined GEMM core, csrc/gemm_nn.cu, `forward_schedule`; the backward's
-products on csrc/gemm.cu, its epilogue in csrc/fused_gcn_shard.cu) behind one
+pipelined GEMM core, csrc/gemm_nn.cu, `forward_schedule`; the backward on
+the same core and row 7's pieces, `backward_schedule`) behind one
 `torch.autograd.Function` on a CUDA tensor in float32 or bfloat16, raises
 on a CUDA tensor of another dtype, and runs the plain PyTorch version,
 `shard_layer_plain` (autograd for the backward), on a CPU tensor or under
@@ -52,7 +52,9 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     as_operand,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import colsum, gemm, gemm_nn, matmul_tn
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import aligned
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_train import CARD_PIECES, GcnPieces
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm_nn, row_tiles, tn_splits, workspace
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import all_gather_nodes
 
 
@@ -131,50 +133,71 @@ def forward_schedule(hw_full, a_rows, b, w_next, mask, inv_keep, dt, product):
     return h_post, hw_next.view(nl, w, -1)
 
 
-def _bwd_cuda(g1, g2, h_post, a_rows, w_next, mask, inv_keep, dt, hw_dtype):
+# Row 13 (JAX `_bwd_kernel`'s arithmetic and rounding points) on row 7's
+# pieces (ops/fused_gcn_train.py `GcnPieces`), node-major rows NL x W:
+#   dh = g1 + round(g2) @ round(W_next)^T;
+#   dz = dh * [h_post > 0] * mask / keep, stored in the compute dtype, with
+#     the float32 column sums of each row tile (db's partials): with g2 alone
+#     (layers 0..L-2 of the encoder) the product's relu_grad epilogue; with
+#     g1 alone (the top layer) the top_dz pass; with both (no path of the
+#     encoder, but the op takes it) the product unfused into float32, then
+#     top_dz adding it to g1;
+#   dW_next = round(h_post)^T round(g2) over the NL x W rows (TN, split K);
+#   d_hw_full = round(A_rows)^T [N, NL] @ round(dz) [NL, W * hid] (NN): this
+#     rank's partial over all N rows.
+# round(A_rows)^T and round(W_next)^T come from one prep launch; NL, the A^T
+# product's K, is zero-padded to a multiple of 8 there (A_rows^T's columns)
+# and in dz's rows. Two `sum_splits` add the dW_next and db partials.
+
+
+def backward_schedule(g1, g2, h_post, a_rows, w_next, mask, inv_keep, compute_dtype, hw_dtype,
+                      pieces: GcnPieces):
+    """Row 13 on `pieces` -> (d_hw_full [N, W, hid] in hw_dtype, db [hid],
+    dW_next [hid, hid_next] or None) in the accumulation dtype. g1 [NL, W,
+    hid], g2 [NL, W, hid_next] (either may be None, not both), h_post [NL,
+    W, hid] in the compute dtype, mask int8 [NL, W, hid] or None."""
+    acc = accum_dtype(compute_dtype)
+    dev = h_post.device
     nl, w, hid = h_post.shape
     n = a_rows.shape[1]
-    rows = nl * w
-    dev = h_post.device
-    lib = cuda_build.load()
-    t = dw_next = None
-    if w_next is not None:
-        hid_next = w_next.shape[1]
-        dw_next = torch.empty((hid, hid_next), dtype=torch.float32, device=dev)
-        if g2 is None:
-            dw_next.zero_()
+    rows, nlp = nl * w, aligned(nl)
+    hid_next = 0 if w_next is None else w_next.shape[1]
+    g2 = None if w_next is None else g2
+    tiles, splits = row_tiles(rows), 0 if g2 is None else tn_splits(rows)
+    at, wnt, dz, db_part, dw_part = workspace(
+        dev, ((n, nlp), compute_dtype), ((hid_next, hid), compute_dtype),
+        ((nlp * w * hid,), compute_dtype), ((tiles, hid), acc), ((splits, hid, hid_next), acc))
+    db, dw_next = workspace(dev, ((hid,), acc), ((hid, hid_next), acc))
+    pieces.prep([(a_rows, at, True)] + ([] if g2 is None else [(w_next, wnt, True)]),
+                compute_dtype)
+    if nlp > nl:  # zero rows of dz meet A_rows^T's zero columns
+        dz[rows * hid:].zero_()
+    dz_rows, h2 = dz[:rows * hid].view(rows, hid), h_post.view(rows, hid)
+    mask2 = None if mask is None else mask.view(rows, hid)
+    if g2 is None:
+        pieces.top_dz(g1.reshape(rows, hid), h2, mask2, inv_keep, dz_rows, db_part)
+        dw_next.zero_()
+    else:
+        g2r = g2.reshape(rows, hid_next).to(compute_dtype)
+        if g1 is None:
+            pieces.product(g2r, wnt, compute_dtype=compute_dtype, epilogue="relu_grad",
+                           residual=h2, mask=mask2, scale=inv_keep, colsum=db_part, out=dz_rows,
+                           what="GCN sandwich g2 @ W_next^T")
         else:
-            g2 = g2.contiguous()
-            t = torch.empty((rows, hid), dtype=torch.float32, device=dev)
-            gemm(
-                g2, w_next, t, m=rows, n=hid, k=hid_next, lda=hid_next, ldb=hid_next,
-                ldc=hid, trans_b=True, compute_dtype=dt, what="GCN sandwich g2 @ W_next^T",
-            )
-            matmul_tn(h_post.view(rows, hid), g2.view(rows, hid_next), dw_next,
-                      compute_dtype=dt, what="GCN sandwich W_next gradient")
-    if g1 is not None:
-        g1 = g1.contiguous()
-    dz = torch.empty((rows, hid), dtype=torch.float32, device=dev)
-    cuda_build.check(
-        lib.wf_gcn_shard_dz(
-            cuda_build.dtype_code(g1.dtype) if g1 is not None else 0,
-            cuda_build.dtype_code(h_post.dtype),
-            None if g1 is None else g1.data_ptr(), None if t is None else t.data_ptr(),
-            h_post.data_ptr(), None if mask is None else mask.data_ptr(), inv_keep,
-            dz.data_ptr(), rows * hid, cuda_build.stream_ptr(dev),
-        ),
-        "GCN sandwich relu/dropout gradient",
-    )
-    db = torch.empty((hid,), dtype=torch.float32, device=dev)
-    colsum(dz, db, "GCN sandwich bias gradient")
+            t = pieces.product(g2r, wnt, compute_dtype=compute_dtype,
+                               what="GCN sandwich g2 @ W_next^T")
+            pieces.top_dz(g1.reshape(rows, hid), h2, mask2, inv_keep, dz_rows, db_part, addend=t)
+        pieces.product_tn(h2, g2r, dw_part, compute_dtype=compute_dtype,
+                          what="GCN sandwich W_next gradient")
+        pieces.sum_splits(dw_part.view(splits, 1, -1), dw_next.view(1, -1))
+    pieces.sum_splits(db_part.view(tiles, 1, hid), db.view(1, hid))
     # This rank's partial of the gathered activations' cotangent, all N rows:
     # d_hw_full[:, s] = A_rows^T @ dz[:, s] for every slice in one product.
-    d_hw = torch.empty((n, w, hid), dtype=hw_dtype, device=dev)
-    gemm(
-        a_rows, dz, d_hw, m=n, n=w * hid, k=nl, lda=n, ldb=w * hid, ldc=w * hid,
-        trans_a=True, compute_dtype=dt, what="GCN sandwich A_rows^T dz",
-    )
-    return d_hw, db, dw_next
+    out_dt = hw_dtype if hw_dtype in (torch.float32, compute_dtype) else acc
+    d_hw = pieces.product(at, dz.view(nlp, w * hid), compute_dtype=compute_dtype,
+                          out_dtype=out_dt, what="GCN sandwich A_rows^T dz")
+    return (d_hw.view(n, w, hid).to(hw_dtype), db,
+            None if w_next is None else dw_next)
 
 
 class _ShardLayer(torch.autograd.Function):
@@ -201,8 +224,10 @@ class _ShardLayer(torch.autograd.Function):
         if g1 is None and g2 is None:
             return (None,) * 7
         if h_post.device.type == "cuda":
-            d_hw, db, dw_next = _bwd_cuda(g1, g2, h_post, a_rows, w_next, mask,
-                                          1.0 / ctx.keep, ctx.compute_dtype, ctx.hw_dtype)
+            d_hw, db, dw_next = backward_schedule(
+                g1 if g1 is None else g1.contiguous(), g2 if g2 is None else g2.contiguous(),
+                h_post, a_rows, w_next, mask, 1.0 / ctx.keep, ctx.compute_dtype, ctx.hw_dtype,
+                CARD_PIECES)
             gcn_shard_layer.backward_launches += 1
         else:
             d_hw, db, dw_next = shard_bwd_plain(g1, g2, h_post, a_rows, w_next, mask,

@@ -116,11 +116,13 @@ def _forward(x, a_hat, weights, biases, masks, inv_keep, compute_dtype):
 @dataclasses.dataclass(frozen=True)
 class GcnPieces:
     """product: `gemm_nn`'s signature; product_tn: `gemm_tn`'s;
-    top_dz(dh, h_post, mask, inv_keep, dz, part): dz = dh * [h_post > 0] (*
-    mask * inv_keep) into dz (compute dtype) and its row tiles' column sums
-    into part; prep(mats, compute_dtype): each (src, dst, trans) of `mats`
-    rounded into dst, transposed where trans; sum_splits(part [S, 1, T], out
-    [1, T]): out = the sum over S."""
+    top_dz(dh, h_post, mask, inv_keep, dz, part, addend=None): dz = (dh [+
+    addend, float32]) * [h_post > 0] (* mask * inv_keep) into dz (compute
+    dtype) and its row tiles' column sums into part; prep(mats,
+    compute_dtype): each (src, dst, trans) of `mats` rounded into dst,
+    transposed where trans (dst [cols, drows]: its columns past src's rows
+    zero); sum_splits(part [S, 1, T], out [1, T]): out = the sum over S. Row
+    13 (ops/fused_gcn_shard.py `backward_schedule`) runs on them too."""
 
     product: Callable
     product_tn: Callable
@@ -197,12 +199,13 @@ def backward_schedule(g, x, a_hat, weights, masks, h_all, inv_keep, compute_dtyp
             [db_all[l, :hids[l]] for l in range(n_layers)])
 
 
-def _top_dz_card(dh, h_post, mask, inv_keep, dz, part):
+def _top_dz_card(dh, h_post, mask, inv_keep, dz, part, addend=None):
     code = cuda_build.dtype_code
     rows, cols = dz.shape
     cuda_build.check(
         cuda_build.load().wf_gcn_relu_mask_grad(
-            code(dh.dtype), code(h_post.dtype), code(dz.dtype), dh.data_ptr(), h_post.data_ptr(),
+            code(dh.dtype), code(h_post.dtype), code(dz.dtype), dh.data_ptr(),
+            None if addend is None else addend.data_ptr(), h_post.data_ptr(),
             None if mask is None else mask.data_ptr(), inv_keep, dz.data_ptr(), part.data_ptr(),
             part.stride(0), rows, cols, NN_ROW_TILE, cuda_build.stream_ptr(dz.device)),
         "GCN train top layer relu/dropout gradient",
@@ -211,7 +214,8 @@ def _top_dz_card(dh, h_post, mask, inv_keep, dz, part):
 
 def _prep_card(mats, compute_dtype, chunk=8):
     """csrc/fused_gcn_train.cu's transpose-and-round pass, one launch for up
-    to `chunk` float32 matrices."""
+    to `chunk` float32 matrices; a transposed dst wider than its source's
+    rows gets zero columns."""
     lib = cuda_build.load()
     for i in range(0, len(mats), chunk):
         part = mats[i:i + chunk]
@@ -228,6 +232,7 @@ def _prep_card(mats, compute_dtype, chunk=8):
                 ints([src.shape[0] for src, _, _ in part]),
                 ints([src.shape[1] for src, _, _ in part]),
                 ints([src.stride(0) for src, _, _ in part]), ints([int(t) for _, _, t in part]),
+                ints([dst.shape[1] if t else dst.shape[0] for _, dst, t in part]),
                 cuda_build.stream_ptr(part[0][1].device)),
             "GCN train transpose and round",
         )
@@ -237,9 +242,10 @@ def _sum_splits_card(part, out):
     sum_splits(part, out, "GCN train gradient partials")
 
 
-def _top_dz_plain(dh, h_post, mask, inv_keep, dz, part):
+def _top_dz_plain(dh, h_post, mask, inv_keep, dz, part, addend=None):
     acc = part.dtype
-    v = dh.to(acc) * (h_post.to(acc) > 0).to(acc)
+    v = dh.to(acc) if addend is None else dh.to(acc) + addend.to(acc)
+    v = v * (h_post.to(acc) > 0).to(acc)
     if mask is not None:
         v = v * (mask.to(acc) * inv_keep)
     dz.copy_(v)
@@ -248,7 +254,11 @@ def _top_dz_plain(dh, h_post, mask, inv_keep, dz, part):
 
 def _prep_plain(mats, compute_dtype):
     for src, dst, trans in mats:
-        dst.copy_(src.t() if trans else src)
+        if not trans:
+            dst.copy_(src)
+            continue
+        dst[:, :src.shape[0]].copy_(src.t())
+        dst[:, src.shape[0]:].zero_()
 
 
 CARD_PIECES = GcnPieces(gemm_nn, gemm_tn, _top_dz_card, _prep_card, _sum_splits_card)

@@ -8,13 +8,15 @@ version there.
 
   * `lstm_stack_last_all`: the eval forward (csrc/fused_lstm_stack.cu,
     kernel row 2), no autograd;
-  * `lstm_stack_train`: the training forward (the same kernel emitting
-    h / c residuals and the activated gates and applying int8 inter-layer
-    dropout masks, row 4) and its backward (row 5) behind one
-    `torch.autograd.Function`; the backward walks layer by layer
-    (`merged_backward_schedule`: the recurrence of csrc/lstm_scan_bwd.cuh
-    from the stored gates, csrc/gemm_nn.cu for the input gradient, gemm.cu
-    for the weight and bias gradients);
+  * `lstm_stack_train`: the training forward (row 4, emitting h / c
+    residuals and the activated gates and applying int8 inter-layer dropout
+    masks) and its backward (row 5) behind one `torch.autograd.Function`,
+    both layer by layer: the forward (`forward_schedule`, enqueued by one C
+    call, csrc/lstm_stack_fwd.cu) as one csrc/gemm_nn.cu input product and
+    one cluster recurrence (csrc/lstm_scan_fwd.cuh) a layer; the backward
+    (`merged_backward_schedule`) as the recurrence of csrc/lstm_scan_bwd.cuh
+    from the stored gates and csrc/gemm_nn.cu for the input gradient a
+    layer, then gemm.cu for the weight and bias gradients;
   * `lstm_stack_train_tasks`: rows 4 and 5 for V tasks with their own
     weights (rows 16 and 17), for the task-batched meta step (`_VBATCH`):
     the forward in one launch, the backward by row 5's layer-by-layer
@@ -37,6 +39,7 @@ batch of windows over N nodes is simply B*N rows of one launch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import struct
 from types import SimpleNamespace
 from typing import Callable, Sequence
@@ -52,6 +55,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
+    _NN_REFUSALS,
     colsum,
     gemm_nn,
     gemm_nn_plain,
@@ -62,6 +66,7 @@ from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
     sum_splits_plain,
     tn_splits,
     wave_split_rows,
+    workspace,
 )
 
 ROWS_PER_THREAD = (2, 4, 8)  # the row tiles the kernel is built for
@@ -96,12 +101,13 @@ _VBATCH = False
 
 def rows_per_thread(rows: int, hidden: int, sms: int) -> int:
     """The row tile of the kernels whose blocks walk every stage of their
-    rows alone (rows 2, 4, 10, 11, 14, 16-18, 20) for `rows` sequences on a
+    rows alone (rows 2, 10, 11, 14, 16, 18, 20) for `rows` sequences on a
     card with `sms` SMs: a block holds 256 // H * rows_per_thread rows, so
     its time grows with its rows. The smallest tile whose blocks fit in one
     wave (one block per SM) is the fastest; past that, the largest tile
-    (measured in PERF.md). The backward recurrence of rows 5, 15 and 19
-    has its own plan (`recurrence_plan`)."""
+    (measured in PERF.md). The backward recurrence of rows 5, 15, 17 and
+    19 has its own plan (`recurrence_plan`), and so has row 4's forward
+    recurrence (`forward_plan`)."""
     groups = max(1, 256 // hidden)
     for rpt in ROWS_PER_THREAD:
         if -(-rows // (groups * rpt)) <= sms:
@@ -236,37 +242,182 @@ def lstm_stack_last_all(
 lstm_stack_last_all.launches = 0  # stack runs through the CUDA kernel
 
 
+# Row 4 on a card runs layer by layer, as its backward does
+# (`backward_schedule` below), so that only the h carry through Wh is on the
+# serial chain (the TPU kernel walks all T x L stages as one chain, one [in
+# | h] @ [[Wx], [Wh]] contraction a stage). For l = 0 .. L-1:
+#   1. xp_l = round(in_l) @ round(Wx_l) for all T x R rows: one product into
+#      gates[l] [T, R, 4H] float32, batched over the steps. No bias: the core
+#      has no bias-only epilogue, so the recurrence adds b_l. in_0 is x; in_l
+#      above it is the layer below's h_all, or with masks its masked copy;
+#   2. the forward recurrence (csrc/lstm_scan_fwd.cuh) over gates[l] in place:
+#      act((xp + b_l) + round(h_{t-1}) @ round(Wh_l)) as the activated gates,
+#      h_all[l] = round(h), c_all[l] = round(c), the top layer's last h in
+#      float32 and, with masks, the next layer's input round(h * mask_l /
+#      keep), rounded from the float32 h (JAX's rounding point; round(h_all)
+#      times the mask would round twice in bfloat16).
+# On a card one C call (csrc/lstm_stack_fwd.cu, `train_forward`) enqueues
+# all 2L launches. `forward_schedule` states the schedule on swappable
+# pieces: the kernels a launch each (`FWD_CARD_PIECES`: timing by part) or
+# their plain versions (`FWD_PLAIN_PIECES`: the CPU tests).
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPieces:
+    """product: `gemm_nn`'s signature; recurrence(gates, wh, bias,
+    compute_dtype, h_out, c_out, mask=None, inv_keep=1.0, next_in=None,
+    h_last=None): one layer's forward recurrence over gates [T, R, 4H]
+    float32 in place (in: xp; out: the activated gates), wh [H, 4H], bias
+    [4H] float32, into h_out and c_out [T, R, H] in the compute dtype; with
+    mask [T, R, H] int8 also next_in = round(h * mask * inv_keep); the last
+    step's h into h_last [R, H] where given."""
+
+    product: Callable
+    recurrence: Callable
+
+
+def forward_schedule(x, masks, keep, compute_dtype, b2d, wcat, pieces: ForwardPieces):
+    """Row 4's function (`train_forward`'s outputs: h_last [B, H], h_all,
+    c_all [L, T, B, H] in the compute dtype, the activated gates [L, T, B,
+    4H]; h_last and the gates in the accumulation dtype) by the schedule
+    above on `pieces`: x [T, B, C], wcat_l = [[Wx_l], [Wh_l]], b2d [L, 4H],
+    masks [L-1, T, B, H] or None."""
+    acc = accum_dtype(compute_dtype)
+    dev = x.device
+    t_len, rows, _ = x.shape
+    n_layers, g4 = b2d.shape
+    hidden = g4 // 4
+    shape = (n_layers, t_len, rows, hidden)
+    h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
+    c_all = torch.empty_like(h_all)
+    gates = torch.empty((*shape[:-1], g4), dtype=acc, device=dev)
+    h_last = torch.empty((rows, hidden), dtype=acc, device=dev)
+    # The masked inputs of every layer above 0 in turn: layer l+1's product
+    # reads them before layer l+1's recurrence writes the next.
+    masked = (torch.empty(shape[1:], dtype=compute_dtype, device=dev)
+              if masks is not None and n_layers > 1 else None)
+    inp = x
+    for l, w in enumerate(wcat):
+        k = w.shape[0] - hidden
+        top = l == n_layers - 1
+        pieces.product(inp, w[:k], compute_dtype=compute_dtype, out=gates[l],
+                       what=f"LSTM layer {l} input product")
+        mask = None if masked is None or top else masks[l]
+        pieces.recurrence(gates[l], w[k:], b2d[l], compute_dtype, h_all[l], c_all[l], mask=mask,
+                          inv_keep=1.0 / keep, next_in=None if mask is None else masked,
+                          h_last=h_last if top else None)
+        inp = h_all[l] if mask is None else masked
+    return h_last, h_all, c_all, gates
+
+
+def _forward_recurrence_plain(gates, wh, bias, compute_dtype, h_out, c_out, mask=None,
+                              inv_keep=1.0, next_in=None, h_last=None):
+    acc = gates.dtype
+    hidden = wh.shape[0]
+    whc = as_operand(wh, compute_dtype)
+    h = torch.zeros((gates.shape[1], hidden), dtype=acc, device=gates.device)
+    c = torch.zeros_like(h)
+    for t in range(gates.shape[0]):
+        i, f, g, o = ((gates[t] + bias) + torch.matmul(as_operand(h, compute_dtype), whc)).split(
+            hidden, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        gates[t] = torch.cat([i, f, g, o], dim=-1)
+        h_out[t], c_out[t] = h, c
+        if next_in is not None:
+            next_in[t] = h * (mask[t].to(acc) * inv_keep)
+    if h_last is not None:
+        h_last.copy_(h)
+    return gates
+
+
+# The forward recurrence's launch arguments, packed as csrc/lstm_stack_fwd.cu's
+# `ScanFwdLaunch`; the whole forward's as its `StackFwdLaunch`, followed by
+# one (weights, input width) pair a layer.
+_SCAN_FWD = struct.Struct("<11qd6q")
+_STACK_FWD = struct.Struct("<10qd10q")
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _forward_recurrence_card(gates, wh, bias, compute_dtype, h_out, c_out, mask=None,
+                             inv_keep=1.0, next_in=None, h_last=None):
+    t_len, rows, g4 = gates.shape
+    hidden = g4 // 4
+    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(gates.device))
+    wh = wh.to(compute_dtype)
+    if wh.stride(-1) != 1:
+        wh = wh.contiguous()
+    cuda_build.check(
+        cuda_build.load().wf_lstm_stack_forward_recurrence(_SCAN_FWD.pack(
+            cuda_build.dtype_code(compute_dtype), cs, hcp, rb, gates.data_ptr(), wh.data_ptr(),
+            wh.stride(0), bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), _ptr(mask),
+            inv_keep, _ptr(next_in), _ptr(h_last), t_len, rows, hidden,
+            cuda_build.stream_ptr(gates.device))),
+        f"LSTM forward recurrence (cluster of {cs}, {hcp} weight columns a block, {rb} rows "
+        f"a cluster)",
+    )
+    _forward_recurrence_card.launches += 1
+    return gates
+
+
+_forward_recurrence_card.launches = 0  # launches of the forward recurrence alone
+
+FWD_CARD_PIECES = ForwardPieces(gemm_nn, _forward_recurrence_card)
+FWD_PLAIN_PIECES = ForwardPieces(gemm_nn_plain, _forward_recurrence_plain)
+
+
 def train_forward(x_tbc, masks, keep, compute_dtype, b2d, wcat):
     """Row 4 on a CUDA tensor: x_tbc [T, B, C], wcat_l = [[wx_l], [wh_l]]
     float32, b2d [L, 4H] -> (h_last [B, H] float32, h_all, c_all [L, T, B,
-    H] in the compute dtype, the activated gates [L, T, B, 4H] float32)."""
-    lib = cuda_build.load()
+    H] in the compute dtype, the activated gates [L, T, B, 4H] float32), by
+    `forward_schedule`'s schedule, its L products and L recurrences enqueued
+    by one C call (csrc/lstm_stack_fwd.cu)."""
     dev = x_tbc.device
-    t_len, rows, c_in = x_tbc.shape
+    t_len, rows, _ = x_tbc.shape
     n_layers, g4 = b2d.shape
     hidden = g4 // 4
-    code = cuda_build.dtype_code(compute_dtype)
-    x = x_tbc.to(torch.float32).contiguous()
-    wcat0, wcatr = _merged(wcat, compute_dtype)
-    bias = b2d.contiguous()
+    x = x_tbc
+    if x.dtype is not torch.float32 and x.dtype is not compute_dtype:
+        x = x.float()
+    if x.stride(-1) != 1 or x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
+        x = x.contiguous()
+    # The weights in the compute dtype: float32 as they are, else one cast of
+    # all layers (each layer's rows stay 16-byte aligned: 4H columns).
+    if compute_dtype is torch.float32:
+        ws = [w.contiguous() for w in wcat]
+    else:
+        ws = torch.cat(wcat).to(compute_dtype).split([w.shape[0] for w in wcat])
+    layers = [v for w in ws for v in (w.data_ptr(), w.shape[0] - hidden)]
     shape = (n_layers, t_len, rows, hidden)
-    h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
-    c_all = torch.empty(shape, dtype=compute_dtype, device=dev)
-    gates = torch.empty((n_layers, t_len, rows, g4), dtype=torch.float32, device=dev)
-    out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    rpt = _rows_per_thread(rows, hidden, dev)
-    cuda_build.check(
-        lib.wf_lstm_stack_train_fwd(
-            code, rpt, x.data_ptr(), x.stride(0), x.stride(1),
-            wcat0.data_ptr(), wcatr.data_ptr(), bias.data_ptr(),
-            None if masks is None else masks.data_ptr(), 1.0 / keep,
-            h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), out.data_ptr(),
-            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
-        ),
-        "LSTM train forward",
-    )
-    lstm_stack_train.launches += 1
-    return out, h_all, c_all, gates
+    with_masks = masks is not None and n_layers > 1
+    h_all, c_all, gates, masked = workspace(
+        dev, (shape, compute_dtype), (shape, compute_dtype), ((*shape[:-1], g4), torch.float32),
+        (shape[1:] if with_masks else (0,), compute_dtype))
+    h_last = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
+    bias = b2d.contiguous()
+    launch = _STACK_FWD.pack(
+        cuda_build.dtype_code(compute_dtype), cs, hcp, rb, x.data_ptr(), x.stride(0), x.stride(1),
+        int(x.dtype is torch.float32), bias.data_ptr(), masks.data_ptr() if with_masks else 0,
+        1.0 / keep, h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), h_last.data_ptr(),
+        masked.data_ptr() if with_masks else 0, t_len, rows, hidden, n_layers,
+        cuda_build.stream_ptr(dev))
+    err = cuda_build.load().wf_lstm_stack_forward(
+        launch + struct.pack(f"<{2 * n_layers}q", *layers))
+    if err < 0:
+        raise ValueError(f"LSTM train forward: its input product takes {_NN_REFUSALS[err]}")
+    cuda_build.check(err, f"LSTM train forward (recurrences: cluster of {cs}, {hcp} weight "
+                          f"columns a block, {rb} rows a cluster)")
+    train = lstm_stack_train
+    train.launches += 1
+    train.forward_gemm_nn_launches += n_layers
+    train.forward_recurrence_launches += n_layers
+    gemm_nn.launches += n_layers
+    return h_last, h_all, c_all, gates
 
 
 def train_backward(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dtype,
@@ -368,7 +519,10 @@ def lstm_stack_train(
     return _LstmStackTrain.apply(x.transpose(0, 1), masks, keep, compute_dtype, b2d, *wcat)
 
 
-lstm_stack_train.launches = 0  # forwards run through the CUDA kernel (row 4)
+lstm_stack_train.launches = 0  # forwards run through the CUDA kernels (row 4)
+# Row 4's pieces: its gemm_nn and forward recurrence launches (one each a layer).
+lstm_stack_train.forward_gemm_nn_launches = 0
+lstm_stack_train.forward_recurrence_launches = 0
 lstm_stack_train.backward_launches = 0  # backwards run through the kernels (row 5)
 # Row 5's pieces: its recurrence and gemm_nn launches (one each a layer).
 lstm_stack_train.backward_recurrence_launches = 0
@@ -932,21 +1086,20 @@ def scan_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
             + SCAN_WARPS * rb * hcp * 4)
 
 
-def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int,
-                    tasks: int = 1) -> tuple[int, int, int]:
-    """(cs, hcp, rb): blocks a cluster, weight columns a block (hcp >=
-    `scan_units`, 32 x the units a lane owns), rows a cluster. The smallest
-    cluster (1, 2, 4, 8) whose slice of Wh^T fits in a block's shared memory
-    beside the tiles of a row tile that puts the clusters of all `tasks`
-    tasks' rows on `sms` SMs in one wave, with the smallest such tile; if no
-    cluster reaches one wave, the smallest that fits at all, with its
-    largest tile."""
+def _cluster_plan(hidden: int, rows: int, sms: int, tasks: int, smem: Callable,
+                  what: str) -> tuple[int, int, int]:
+    """(cs, hcp, rb) of a cluster recurrence whose block takes smem(hcp, rb)
+    bytes of shared memory: the smallest cluster (1, 2, 4, 8) whose weight
+    slice fits beside the tiles of a row tile that puts the clusters of all
+    `tasks` tasks' rows on `sms` SMs in one wave, with the smallest such
+    tile; if no cluster reaches one wave, the smallest that fits at all,
+    with its largest tile."""
     fallback = None
     for cs in (1, 2, 4, 8):
         hcp = next((p for p in (32, 64, 128) if p >= scan_units(hidden, cs)), None)
         if hcp is None:
             continue
-        tiles = [rb for rb in (2, 4, 8, 16) if scan_smem(hidden, hcp, rb, itemsize) <= SCAN_MAX_SMEM]
+        tiles = [rb for rb in (2, 4, 8, 16) if smem(hcp, rb) <= SCAN_MAX_SMEM]
         if not tiles:
             continue
         wave = [rb for rb in tiles if tasks * -(-rows // rb) * cs <= sms]
@@ -954,9 +1107,39 @@ def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int,
             return cs, hcp, wave[0]
         fallback = fallback or (cs, hcp, tiles[-1])
     if fallback is None:
-        raise ValueError(f"the backward recurrence holds Wh^T in at most 8 blocks' shared "
-                         f"memory; hidden width {hidden} does not fit")
+        raise ValueError(f"the {what} in at most 8 blocks' shared memory; hidden width {hidden} "
+                         f"does not fit")
     return fallback
+
+
+def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int,
+                    tasks: int = 1) -> tuple[int, int, int]:
+    """(cs, hcp, rb) of the backward recurrence: blocks a cluster, weight
+    columns a block (hcp >= `scan_units`, 32 x the units a lane owns), rows
+    a cluster, by `_cluster_plan` with its shared memory (`scan_smem`)."""
+    return _cluster_plan(hidden, rows, sms, tasks,
+                         lambda hcp, rb: scan_smem(hidden, hcp, rb, itemsize),
+                         "backward recurrence holds Wh^T")
+
+
+def scan_fwd_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
+    """A forward-recurrence block's dynamic shared memory: its weight slice
+    [H, 4, hcp] and two round(h) tiles [rb, H] in the compute dtype, its
+    warps' partial gates [2, 4, rb, hcp] float32 (`scan_fwd_smem` in
+    csrc/lstm_scan_fwd.cuh)."""
+    return 4 * hidden * hcp * itemsize + 2 * rb * hidden * itemsize + 8 * rb * hcp * 4
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[int, int, int]:
+    """(cs, hcp, rb) of row 4's forward recurrence (csrc/lstm_scan_fwd.cuh):
+    blocks a cluster, weight columns a block and gate, rows a cluster, by
+    `_cluster_plan` with its shared memory (`scan_fwd_smem`): at H = 128 and
+    R = 512 on 132 SMs, 2 blocks x 8 rows in float32, 1 block x 4 rows in
+    bfloat16; R = 1024 doubles the rows."""
+    return _cluster_plan(hidden, rows, sms, 1,
+                         lambda hcp, rb: scan_fwd_smem(hidden, hcp, rb, itemsize),
+                         "forward recurrence holds Wh")
 
 
 def recurrence_weights(wh: torch.Tensor, cs: int, hcp: int,

@@ -14,7 +14,8 @@ time):
   1. require a CUDA card of compute capability 9.x; print its name and
      power limit;
   2. build the CUDA kernels from ops/csrc/*.cu; print the cluster plans of
-     the backward and forward LSTM recurrences;
+     the backward, forward and tangent LSTM recurrences and ptxas's
+     registers and spills of each recurrence instance;
   3. hold the serving kernels (rows 1-2) against their plain PyTorch
      versions at the reference width (ModelConfig() defaults, the Moscow
      graph: 441 nodes padded to 512), float32 and bfloat16;
@@ -36,8 +37,9 @@ time):
      the gates; masks on and off), gated on 1 gemm_nn and 1 forward
      recurrence launch a layer from one call, by events, by CUDA graph
      replay, by part, the host's time a call, beside cuDNN's forward; before
-     this phase (6a) the two LSTM recurrences alone against their plain
-     versions at H 64 / 128 / 256 (clusters of 1, 2, 4 and 8 blocks);
+     this phase (6a) the three LSTM recurrences (backward, forward, row 11's
+     tangent) alone against their plain versions at H 64 / 128 / 256
+     (clusters of 1, 2, 4 and 8 blocks);
   7. hold the whole-tree clip + SGD kernel (rows 8-9) against its plain
      version on the reference model's 23 leaves, one task and a task axis
      of 4, gradient norms below and above clip_norm; time it, the plain
@@ -45,9 +47,11 @@ time):
   7b. hold the second-order kernels (rows 10-11, after rows 4-5 at the same
      point) against the plain R-operator at the inner step's shapes (24
      steps, 512 rows, input 256, 4 layers of 128, masks at rate 0.2; also
-     masks off and one layer), float32 and bfloat16; time them; probe
-     whether cuDNN's LSTM takes a forward-mode derivative or a double
-     backward;
+     masks off and one layer), float32 and bfloat16, row 11 gated on its
+     launches a call (a tangent recurrence, 2 gemm_nn and 4 gemm_tn a layer,
+     none of gemm.cu's GEMM); time them (row 11 also by CUDA graph replay,
+     by part and by the host's time to enqueue a call); probe whether
+     cuDNN's LSTM takes a forward-mode derivative or a double backward;
   8. the FO meta-gradient of one micro-batch (2 tasks, 15 inner steps each,
      dropout on), kernel route (rows 4-8) against plain route, same
      generator seed; then the same for the SO meta-gradient (fhvp: rows
@@ -127,10 +131,14 @@ time):
      stack (rows 16-17, V = 2 and 4, distinct weights a task; forward and
      every gradient) against their plain versions at the inner step's
      shapes (x [24, 512, 256], 4 layers of 128), masks at rate 0.2 and off,
-     float32 and bfloat16; time each, its plain version and cuDNN's LSTM
-     (once a task for rows 16-17; row 15 beside cuDNN's backward in the
-     same dtype, its device time by CUDA graph replay, and its time by part: gate products,
-     recurrences, input products, weight gradients), row 16 also by row
+     float32 and bfloat16, row 14 also without residuals (its eval forward)
+     and gated on a gemm_nn and a forward recurrence launch a layer from one
+     call; time each, its plain version and cuDNN's LSTM (row 14 by events,
+     CUDA graph replay and the host's time to enqueue a call beside cuDNN's
+     forward by events and graph replay; once a task for rows 16-17; row
+     15 beside cuDNN's backward in the same dtype, its device time by CUDA
+     graph replay, and its time by part: gate products, recurrences, input
+     products, weight gradients), row 16 also by row
      tile; rows 16-17 at V = 2 also alone, by events and by CUDA graph
      replay, row 17 also by part and gated on its launches (a recurrence,
      a gemm_nn and two gemm_tn launches a layer for all tasks, none of
@@ -145,8 +153,9 @@ time):
      lockstep meta step against the serial one in turns, with the peak
      device memory of each;
  19. with ops.fused_lstm_stack._MERGED_GATES = False: `cli meta-train` for 1
-     float32 epoch (rows 14-15 364 launches each, the GEMM core 2 x 4 a
-     row-15 launch and 2 x 4 a row-6 and a row-7 launch, rows 4-5 none),
+     float32 epoch (rows 14-15 364 launches each, the GEMM core 4 a row-14
+     launch, 2 x 4 a row-15 launch and 2 x 4 a row-6 and a row-7 launch,
+     rows 4-5 none),
      `forecast`
      Moscow (row 14, never row 2; against the merged route's forecast), one
      inner step timed and profiled; both flags are restored afterwards.
@@ -214,7 +223,8 @@ SOURCES = {
     "clip_sgd_update": [CSRC + "fused_sgd.cu"],
     "clip_sgd_update.batched": [CSRC + "fused_sgd.cu"],
     "hvp_stack_fwd": [CSRC + "fused_lstm_hvp.cu"],
-    "hvp_stack_bwd": [CSRC + "fused_lstm_hvp.cu"],
+    "hvp_stack_bwd": [CSRC + "lstm_scan_tan.cu", CSRC + "lstm_scan_bwd.cuh",
+                      CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
     "gcn_shard_layer": [CSRC + "gemm_nn.cu"],
     "gcn_shard_layer.backward": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu",
                                  CSRC + "gemm.cu"],
@@ -223,7 +233,8 @@ SOURCES = {
                                  CSRC + "gemm.cu"],
     "fused_lstm_last_hidden": [CSRC + "fused_lstm.cu"],
     "fused_gcn_layer": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu", CSRC + "gemm.cu"],
-    "lstm_stack_split": [CSRC + "fused_lstm_split.cu"],
+    "lstm_stack_split": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh",
+                         CSRC + "gemm_nn.cu"],
     "lstm_stack_split.backward": [CSRC + "gemm_nn.cu", CSRC + "lstm_scan_bwd.cuh",
                                   CSRC + "fused_lstm_split.cu", CSRC + "gemm.cu"],
     "lstm_stack_train_tasks": [CSRC + "fused_lstm_stack.cu"],
@@ -233,7 +244,7 @@ SOURCES = {
 # Kernels whose ptxas report the build phase prints by name.
 NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel",
                "gemm_tn_bf16_kernel", "dz_top_kernel", "transpose_round_kernel",
-               "lstm_scan_bwd_kernel", "lstm_scan_fwd_kernel")
+               "lstm_scan_bwd_kernel", "lstm_scan_fwd_kernel", "lstm_scan_tan_kernel")
 MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
@@ -544,7 +555,7 @@ def main() -> int:
         else:
             log(f"nvcc (one process per source, in parallel) {cuda_build.build_seconds:.1f} s")
         entry = ""
-        recurrence = []  # (source, template arguments, registers, spill line)
+        recurrence = []  # (kernel, source, template arguments, registers)
         for line in cuda_build.build_log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
@@ -553,17 +564,19 @@ def main() -> int:
             # a source (dtypes, units a lane, rows a cluster, +db: with the
             # bias partials) one line a source below.
             new = next((entry[entry.index(k):][:48] for k in NEW_KERNELS if k in entry), None)
-            if new and new.startswith("lstm_scan_fwd_kernel"):
+            if new and new.startswith(("lstm_scan_fwd_kernel", "lstm_scan_tan_kernel")):
                 # <TW, UPT, RB>, mangled as e.g. I13__nv_bfloat16Li4ELi8E.
+                kernel = new[:20]
                 if "registers" in line:
                     tw, upt, rb = re.match(r"I(.*?)Li(\d+)ELi(\d+)E", entry[
-                        entry.index("lstm_scan_fwd_kernel") + 20:]).groups()
+                        entry.index(kernel) + 20:]).groups()
                     regs = line.split("Used")[1].split("registers")[0].strip()
-                    recurrence.append(("lstm_stack_fwd.cu (forward)",
+                    recurrence.append((kernel, "lstm_stack_fwd.cu" if "fwd" in kernel
+                                       else "lstm_scan_tan.cu",
                                        f"{'bf16' if 'bfloat16' in tw else 'f32'} {upt} {rb}",
                                        regs))
                 elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
-                    log(f"  ptxas lstm_scan_fwd_kernel SPILLS: {line.strip()} in {entry}")
+                    log(f"  ptxas {kernel} SPILLS: {line.strip()} in {entry}")
             elif new and new.startswith("lstm_scan_bwd_kernel"):
                 if "registers" in line:
                     # <TW, TC, UPT, RB, DB>, mangled as e.g.
@@ -574,8 +587,8 @@ def main() -> int:
                     args = "/".join({"f": "f32", "b": "bf16"}[c] for c in tw_tc)
                     source = "fused_lstm_split.cu" if "fused_lstm_split" in entry else "lstm_scan.cu"
                     regs = line.split("Used")[1].split("registers")[0].strip()
-                    recurrence.append((source, f"{args} {upt} {rb}{' +db' * (db == '1')}",
-                                       regs))
+                    recurrence.append(("lstm_scan_bwd_kernel", source,
+                                       f"{args} {upt} {rb}{' +db' * (db == '1')}", regs))
                 elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
                     log(f"  ptxas lstm_scan_bwd_kernel SPILLS: {line.strip()} in {entry}")
             elif new and ("registers" in line or "spill" in line):
@@ -584,11 +597,11 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
             elif "spill" in line and " 0 bytes spill" not in line:
                 log(f"  ptxas: {line.strip()} in {entry}")
-        for source in sorted({r[0] for r in recurrence}):
-            log(f"  ptxas lstm_scan_{'fwd' if 'forward' in source else 'bwd'}_kernel in {source} "
-                f"(weights / c_all dtype, units a lane, rows a cluster, +db with the bias "
-                f"partials: registers; no spill unless named above): " + ", ".join(
-                    f"{args}: {regs}" for src, args, regs in recurrence if src == source))
+        for kernel, source in sorted({r[:2] for r in recurrence}):
+            log(f"  ptxas {kernel} in {source} (weights / c_all dtype, units a lane, rows a "
+                f"cluster, +db with the bias partials: registers; no spill unless named "
+                f"above): " + ", ".join(f"{args}: {regs}" for k, src, args, regs in recurrence
+                                        if (k, src) == (kernel, source)))
         # Their shared memory is dynamic (ptxas reports static memory only).
         lib = cuda_build.load()
         log(f"  dynamic shared memory a block: gemm_nn float32 {lib.wf_gemm_nn_smem(0)} B, "
@@ -637,6 +650,21 @@ def main() -> int:
                 log(f"  lstm_scan_fwd {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of {cs}, "
                     f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
                     f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once")
+        # Row 11's tangent recurrence: its plan at the SO inner step's rows
+        # (512) and at the gate's; its shared memory is the backward's.
+        for dt in (torch.float32, torch.bfloat16):
+            for hidden, rows in ((128, 512), (64, 48), (128, 48), (256, 48)):
+                cs, hcp, rb = fh.tangent_plan(hidden, rows, dt.itemsize, sms)
+                code = cuda_build.dtype_code(dt)
+                active = lib.wf_lstm_tangent_recurrence_clusters(code, cs, hcp, rb, hidden)
+                if active <= 0:
+                    raise RuntimeError(f"the card runs no cluster of the tangent recurrence plan "
+                                       f"{(cs, hcp, rb)} at H = {hidden} ({active})")
+                clusters = -(-rows // rb)
+                log(f"  lstm_scan_tan {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of {cs}, "
+                    f"{hcp} weight columns and {rb} rows a cluster, "
+                    f"{fls.scan_smem(hidden, hcp, rb, dt.itemsize)} B a block; {clusters} "
+                    f"clusters ({clusters * cs} blocks), at most {active} at once")
 
     cfg = ModelConfig()
     boxes = dict((name, box) for box, name in ADAPTATION_REGIONS)
@@ -953,11 +981,47 @@ def main() -> int:
         if seen != {1, 2, 4, 8}:
             raise RuntimeError(f"the forward recurrence gate reached clusters of {sorted(seen)}")
         del xp_r, wh_r, b_r, m_r, outs
+        # Row 11's tangent recurrence alone against its plain version, the
+        # same widths (clusters of 1, 2, 4 and 8): tdgates and the bias
+        # tangent, from random gates, their tangents, c, tc, dh, dc, g and p.
+        seen = set()
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            for hidden in (64, 128, 256):
+                draw = np.random.default_rng(hidden + 2)
+                pre = card_array((7, 48, 4, hidden))
+                gates_r = torch.cat([torch.sigmoid(pre[:, :, :2]), torch.tanh(pre[:, :, 2:3]),
+                                     torch.sigmoid(pre[:, :, 3:])], dim=2).reshape(7, 48, -1)
+                tgates_r = card_array((7, 48, 4 * hidden), 0.3)
+                g_r, p_r = card_array((7, 48, hidden)), card_array((6, 48, hidden))
+                c_r, tc_r, dh_r, dc_r = (card_array((7, 48, hidden)).to(dt) if i < 2
+                                         else card_array((7, 48, hidden)) for i in range(4))
+                wh_r = card_array((hidden, 4 * hidden), hidden ** -0.5)
+                cs, hcp, rb = fh.tangent_plan(hidden, 48, dt.itemsize, sms)
+                outs = {}
+                for route, piece in (("kernel", fh._tangent_recurrence_card),
+                                     ("plain", fh._tangent_recurrence_plain)):
+                    res = (torch.empty_like(gates_r), torch.empty(4 * hidden, device=dev))
+                    piece(g_r, p_r, gates_r, tgates_r, c_r, tc_r, dh_r, dc_r, wh_r, dt, *res)
+                    outs[route] = res
+                torch.cuda.synchronize()
+                rels = [rel_err(a, b) for a, b in zip(outs["kernel"], outs["plain"])]
+                log(f"tangent recurrence {dt_name} H = {hidden}: cluster of {cs} ({hcp} weight "
+                    f"columns, {rb} rows a cluster); max|diff|/max|ref| tdgates {rels[0]:.2e}, "
+                    f"bias tangent {rels[1]:.2e} (tol {tol})")
+                if max(rels) > tol:
+                    raise RuntimeError(f"tangent recurrence {dt_name} H = {hidden}: error "
+                                       f"{max(rels):.3e}")
+                seen.add(cs)
+        if seen != {1, 2, 4, 8}:
+            raise RuntimeError(f"the tangent recurrence gate reached clusters of {sorted(seen)}")
+        del pre, gates_r, tgates_r, g_r, p_r, c_r, tc_r, dh_r, dc_r, wh_r, outs
 
-    def parts_ms(run, forward=False):
-        """A layer-by-layer LSTM backward's (with `forward`, row 4's) device
-        time by part: run(pieces) on the card's pieces, each piece between two
-        CUDA events; medians of REPEATS runs."""
+    def parts_ms(run, forward=False, tangent=False):
+        """A layer-by-layer LSTM backward's (with `forward`, row 4's; with
+        `tangent`, row 11's) device time by part: run(pieces) on the card's
+        pieces, each piece between two CUDA events; medians of REPEATS
+        runs."""
         marks = []
 
         def timed(fn, part):
@@ -975,6 +1039,15 @@ def main() -> int:
             pieces = fls.ForwardPieces(
                 timed(fls.FWD_CARD_PIECES.product, lambda kw: "input products"),
                 timed(fls.FWD_CARD_PIECES.recurrence, lambda kw: "recurrences"))
+            return time_parts(run, pieces, marks)
+        if tangent:
+            card = fh.CARD_TANGENT_PIECES
+            pieces = fh.TangentPieces(
+                timed(card.product, lambda kw: "carry products" if "carry" in kw["what"]
+                      else "input tangents"),
+                timed(card.recurrence, lambda kw: "recurrences"),
+                timed(card.product_tn, lambda kw: "weight tangents"),
+                timed(card.sum_splits, lambda kw: "weight tangents"))
             return time_parts(run, pieces, marks)
         card_pieces = fls.CARD_PIECES
         pieces = dataclasses.replace(
@@ -1508,12 +1581,51 @@ def main() -> int:
                 log(f"rows 10-11 {dt_name} [24, 512, 256] L=4: CUDA events / device time "
                     f"(torch.profiler), ms: " + ", ".join(
                         f"{k} {e:.4f} / {d:.4f}" for k, (e, d) in times.items()) + f"  [{card}]")
+                # Row 11 alone: its launches a call (per layer a tangent
+                # recurrence, 2 gemm_nn and 4 gemm_tn, none of gemm.cu's
+                # GEMM), its device time by CUDA graph replay, by part, the
+                # host's time to enqueue a call.
+                bwd = fh.hvp_stack_bwd
+                before = (bwd.launches, bwd.recurrence_launches, bwd.gemm_nn_launches,
+                          bwd.gemm_tn_launches, gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                row11()
+                core11 = {"calls": bwd.launches - before[0],
+                          "recurrences": bwd.recurrence_launches - before[1],
+                          "gemm_nn": bwd.gemm_nn_launches - before[2],
+                          "gemm_tn": bwd.gemm_tn_launches - before[3],
+                          "gemm_nn (all)": gemm_nn.launches - before[4],
+                          "gemm_tn (all)": gemm_tn.launches - before[5],
+                          "gemm.cu": gemm.launches - before[6]}
+                want = {"calls": 1, "recurrences": n_l, "gemm_nn": 2 * n_l, "gemm_tn": 4 * n_l,
+                        "gemm_nn (all)": 2 * n_l, "gemm_tn (all)": 4 * n_l, "gemm.cu": 0}
+                if core11 != want:
+                    raise RuntimeError(f"row 11 launched {core11} a call, not {want}")
+                with torch.no_grad():
+                    row = {"call_ms": times["row11"][0], "device_ms": graph_ms(torch, row11),
+                           "enqueue_ms": enqueue_ms(torch, row11),
+                           "parts_ms": parts_ms(lambda p: fh.hvp_backward_schedule(
+                               a["tg"], *bwd_args[2:], bwd_res, p), tangent=True),
+                           "core_launches": core11}
+                log(f"row 11 {dt_name} [24, 512, 256] L=4, masks 0.2, from rows 4, 10 and 5: the "
+                    f"call {row['call_ms']:.4f} ms, device {row['device_ms']:.4f} ms (CUDA graph "
+                    f"replay), {row['enqueue_ms']:.4f} ms to enqueue; by part (CUDA events, "
+                    f"median of {REPEATS}): " + ", ".join(
+                        f"{k} {v:.4f} ms" for k, v in row["parts_ms"].items())
+                    + f"; launches a call {core11}  [{card}]")
                 if dt_name == "float32":
                     for name, k, plain, err in (
                             ("hvp_stack_fwd", "row10", "plain10", max(abs_errs[:4])),
                             ("hvp_stack_bwd", "row11", "plain11", max(abs_errs[4:]))):
                         measured[name] = {"max_abs_err": err, "ms": times[k][0],
-                                          "plain_ms": times[plain][0], "library_ms": None}
+                                          "plain_ms": times[plain][0], "library_ms": None,
+                                          "profiler_ms": times[k][1]}
+                    measured["hvp_stack_bwd"].update(
+                        {k: v for k, v in row.items() if k != "call_ms"})
+                else:
+                    row["ms"] = times["row11"][0]
+                    row["profiler_ms"] = times["row11"][1]
+                    bf16_row11 = row
+        measured["hvp_stack_bwd"]["bfloat16"] = bf16_row11
         # Bytes each function must move (inputs read once, outputs written
         # once) and its operations: row 10 the [tangent | primal] operands
         # against [W; tW], 2 dot units; row 11 the same in the backward plus
@@ -1713,6 +1825,8 @@ def main() -> int:
         for fn in counters:
             fn.launches = fn.backward_launches = 0
         fh.hvp_stack_fwd.launches = fh.hvp_stack_bwd.launches = 0
+        bwd = fh.hvp_stack_bwd
+        bwd.recurrence_launches = bwd.gemm_nn_launches = bwd.gemm_tn_launches = 0
         so_logs = {"float32": meta_train("float32", 1, *so, out="so_float32"),
                    "bfloat16": meta_train("bfloat16", 1, *so, out="so_bfloat16")}
         so_logs["float32"] = meta_train("float32", 2, *so, "--resume", out="so_float32")
@@ -1722,6 +1836,11 @@ def main() -> int:
             so_launches[fn.__name__ + ".backward"] = fn.backward_launches
         so_launches["hvp_stack_fwd"] = fh.hvp_stack_fwd.launches
         so_launches["hvp_stack_bwd"] = fh.hvp_stack_bwd.launches
+        for piece, each in (("recurrence", n_l), ("gemm_nn", 2 * n_l), ("gemm_tn", 4 * n_l)):
+            so_launches[f"row 11 {piece}"] = getattr(bwd, f"{piece}_launches")
+            if so_launches[f"row 11 {piece}"] != each * bwd.launches:
+                raise RuntimeError(f"row 11 launched {so_launches[f'row 11 {piece}']} of its "
+                                   f"{piece} pieces in {bwd.launches} calls, not {each} a call")
         log(f"launches on the SO meta-training path (3 meta steps): {so_launches}")
         for name in ("hvp_stack_fwd", "hvp_stack_bwd"):
             if so_launches[name] != 3 * per_step:
@@ -2650,20 +2769,38 @@ def main() -> int:
             m, keep = (lstm_masks, 0.8) if dropout else (None, 1.0)
             for dt_name, tol in TOL.items():
                 dt = getattr(torch, dt_name)
+                split = fls.lstm_stack_split
                 with torch.no_grad():
                     got = fls.split_forward(x_tbc, *split_w, m, keep, dt)
                     ref = fls.split_forward_plain(x_tbc, *split_w, m, keep, dt)
+                    # The eval forward (no residuals): its launches a call, a
+                    # gemm_nn and a forward recurrence a layer from one C call.
+                    before = (split.launches, split.forward_gemm_nn_launches,
+                              split.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+                    last = fls.split_forward(x_tbc, *split_w, m, keep, dt, residuals=False)
+                    core14 = {"calls": split.launches - before[0],
+                              "gemm_nn": split.forward_gemm_nn_launches - before[1],
+                              "recurrences": split.forward_recurrence_launches - before[2],
+                              "gemm_nn (all)": gemm_nn.launches - before[3],
+                              "gemm.cu": gemm.launches - before[4]}
+                    want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l,
+                            "gemm.cu": 0}
+                    if core14 != want or last[1] is not None:
+                        raise RuntimeError(f"row 14 launched {core14} a call, not {want}")
                     res = ref[1:]  # both backwards start from the same residuals
                     got_b = fls.split_backward(g_last, x_tbc, *res, *split_w, m, keep, dt)
                     ref_b = fls.split_backward_plain(g_last, x_tbc, *res, *split_w, m, keep, dt)
                 torch.cuda.synchronize()
                 for a, b in zip(got, ref):
                     torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+                torch.testing.assert_close(last[0], ref[0], rtol=tol, atol=tol)
                 fwd_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+                eval_err = float((last[0] - ref[0]).abs().max())
                 rels = [rel_err(a, b) for a, b in zip(got_b, ref_b)]
                 bwd_err = max(float((a - b).abs().max()) for a, b in zip(got_b, ref_b))
                 log(f"rows 14-15 {dt_name} dropout {dropout}: forward (h_last, h_all, c_all) "
-                    f"max_abs_err {fwd_err:.3e} (tol {tol}); backward (dx, dwx0, dwxr, dwh, db) "
+                    f"max_abs_err {fwd_err:.3e}, without residuals (h_last) {eval_err:.3e} (tol "
+                    f"{tol}; launches a call {core14}); backward (dx, dwx0, dwxr, dwh, db) "
                     f"max|diff|/max|ref| {max(rels):.3e} (tol {tol}), per output "
                     f"{[f'{r:.1e}' for r in rels]}")
                 if max(rels) > tol:
@@ -2682,20 +2819,34 @@ def main() -> int:
                                                                      *split_w, m, keep, dt), 3))}
                     times["row15 device"] = graph_ms(torch, lambda: fls.split_backward(
                         g_last, x_tbc, *res, *split_w, m, keep, dt))
-                # Row 15's library call in the same dtype, beside it: cuDNN's
-                # LSTM backward at the same shapes (weights copied in).
+
+                    def row14():
+                        fls.split_forward(x_tbc, *split_w, m, keep, dt)
+
+                    times["row14 device"] = graph_ms(torch, row14)
+                    times["row14 enqueue"] = enqueue_ms(torch, row14)
+                # Rows 14 and 15's library calls in the same dtype, beside them:
+                # cuDNN's LSTM forward (by events and by CUDA graph replay) and
+                # backward at the same shapes (weights copied in).
                 lib_lstm = cudnn if dt_name == "float32" else copy.deepcopy(cudnn).to(dt)
                 xr = x_rec.detach().to(dt).requires_grad_(True)
                 try:
+                    with torch.no_grad():
+                        times["cuDNN forward"] = cuda_ms(torch, lambda: lib_lstm(xr))
                     out = lib_lstm(xr)[0][:, -1]
                 except RuntimeError as err:  # a yardstick only: say so and go on
                     log(f"torch.nn.LSTM (cuDNN) refused {dt_name}: {err}")
-                    times["cuDNN backward"] = None
+                    times["cuDNN forward"] = times["cuDNN backward"] = None
                 else:
                     ct = torch.ones_like(out)
                     times["cuDNN backward"] = cuda_ms(torch, lambda: torch.autograd.grad(
                         out, [xr, *lib_lstm.parameters()], ct, retain_graph=True))
                     del out, ct
+                    try:
+                        with torch.no_grad():
+                            times["cuDNN forward device"] = graph_ms(torch, lambda: lib_lstm(xr))
+                    except RuntimeError as err:  # a yardstick only: say so and go on
+                        log(f"cuDNN's LSTM forward in a CUDA graph refused: {err}")
                 del lib_lstm, xr
                 x_c = x_tbc.contiguous()
                 parts = parts_ms(lambda p: fls.split_backward_schedule(
@@ -2710,15 +2861,18 @@ def main() -> int:
                 row = {"max_abs_err": bwd_err, "ms": times["row15"],
                        "plain_ms": times["plain15"], "library_ms": times["cuDNN backward"],
                        "device_ms": times["row15 device"], "parts_ms": parts}
+                row14 = {"ms": times["row14"], "device_ms": times["row14 device"],
+                         "enqueue_ms": times["row14 enqueue"],
+                         "library_ms": times["cuDNN forward"],
+                         "library_device_ms": times.get("cuDNN forward device"),
+                         "core_launches": core14}
                 if dt_name == "float32":
-                    # Row 14's library call is row 4's: cuDNN's LSTM forward
-                    # at the same shapes, timed in phase 6 of this run.
                     measured["lstm_stack_split"] = {
-                        "max_abs_err": fwd_err, "ms": times["row14"],
-                        "plain_ms": times["plain14"],
-                        "library_ms": measured["lstm_stack_train"]["library_ms"]}
+                        "max_abs_err": max(fwd_err, eval_err), "plain_ms": times["plain14"],
+                        **row14}
                     measured["lstm_stack_split.backward"] = row
                 else:
+                    measured["lstm_stack_split"]["bfloat16"] = row14
                     measured["lstm_stack_split.backward"]["bfloat16"] = row
         del got, ref, res, got_b, ref_b
 
@@ -2869,6 +3023,8 @@ def main() -> int:
         for fn in (fls.lstm_stack_train_tasks, lstm_stack_train, gcn_stack_train,
                    fls.lstm_stack_split):
             fn.launches = fn.backward_launches = 0
+        split = fls.lstm_stack_split
+        split.forward_gemm_nn_launches = split.forward_recurrence_launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         lstm_stack_last_all.launches = 0
         gemm_nn.launches = gemm.launches = 0
@@ -2999,16 +3155,20 @@ def main() -> int:
                 "lstm_stack_split.backward": fls.lstm_stack_split.backward_launches,
                 "lstm_stack_train": lstm_stack_train.launches,
                 "lstm_stack_train.backward": lstm_stack_train.backward_launches}
+            split_launches["row 14 gemm_nn"] = fls.lstm_stack_split.forward_gemm_nn_launches
+            split_launches["row 14 recurrence"] = (
+                fls.lstm_stack_split.forward_recurrence_launches)
             split_launches["gemm_nn"] = gemm_nn.launches
             log(f"launches in one meta step with unmerged gates: {split_launches}")
             forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
-            # Row 15 runs the GEMM core twice a layer (its gates and its
-            # input gradient), and so do row 7, the GCN stack's backward
-            # (A_hat^T dz and its input gradient), and row 6, its forward
-            # (h W and the aggregation).
+            # Row 14 runs the GEMM core once a layer (its input product) and
+            # row 15 twice (its gates and its input gradient); so does row 7,
+            # the GCN stack's backward (A_hat^T dz and its input gradient),
+            # and row 6, its forward (h W and the aggregation).
             want = {"lstm_stack_split": forwards, "lstm_stack_split.backward": forwards,
                     "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
-                    "gemm_nn": 2 * (n_l + 2 * cfg.gcn_layers) * forwards}
+                    "row 14 gemm_nn": n_l * forwards, "row 14 recurrence": n_l * forwards,
+                    "gemm_nn": (3 * n_l + 4 * cfg.gcn_layers) * forwards}
             if split_launches != want:
                 raise RuntimeError(f"meta-train with unmerged gates launched {split_launches}, "
                                    f"not {want}")
@@ -3019,12 +3179,17 @@ def main() -> int:
                     f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
             zero_counts()
             mean = forecast("Moscow", "float32", serve_dir)
-            serve14 = (fls.lstm_stack_split.launches, lstm_stack_last_all.launches)
+            split = fls.lstm_stack_split
+            serve14 = (split.launches, lstm_stack_last_all.launches,
+                       split.forward_gemm_nn_launches, split.forward_recurrence_launches)
             err = float(np.abs(mean - served[("Moscow", "float32")]).max())
-            log(f"forecast Moscow with unmerged gates: row 14 launched {serve14[0]} times, row 2 "
-                f"{serve14[1]}; against the merged route's forecast max_abs_err {err:.3e}")
-            if serve14[0] == 0 or serve14[1] != 0:
-                raise RuntimeError(f"forecast with unmerged gates launched rows 14 / 2 {serve14}")
+            log(f"forecast Moscow with unmerged gates: row 14 launched {serve14[0]} times ("
+                f"{serve14[2]} gemm_nn, {serve14[3]} recurrences), row 2 {serve14[1]}; against "
+                f"the merged route's forecast max_abs_err {err:.3e}")
+            if (serve14[0] == 0 or serve14[1] != 0
+                    or serve14[2:] != (n_l * serve14[0], n_l * serve14[0])):
+                raise RuntimeError(f"forecast with unmerged gates launched rows 14 / 2 "
+                                   f"(row 14's pieces) {serve14}")
             np.testing.assert_allclose(mean, served[("Moscow", "float32")],
                                        rtol=TOL["float32"], atol=TOL["float32"])
 
@@ -3077,7 +3242,7 @@ def main() -> int:
             # library call.
             **{k: m[k] for k in ("device_ms", "call_ms", "library_device_ms", "parts_ms",
                                  "bfloat16", "library_call_ms", "core_launches", "by_nl",
-                                 "host_ms", "enqueue_ms", "from_g2")
+                                 "host_ms", "enqueue_ms", "from_g2", "profiler_ms")
                if k in m},
         })
     log(json.dumps({"kernels": kernels}))

@@ -1034,9 +1034,10 @@ def test_lstm_split_backward_schedule_at_full_width(dev, dtype, layers, dropout)
 @pytest.mark.cuda
 def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
     """`_MERGED_GATES=False`: a train step of the hybrid runs rows 14-15 and
-    the GEMM core twice an LSTM layer (its gates and its input gradient)
-    beside the GCN stack's twice a layer each way (rows 6 and 7), never
-    rows 4-5, and its gradients match the plain route's."""
+    the GEMM core three times an LSTM layer (row 14's input product, row
+    15's gates and input gradient) beside the GCN stack's twice a layer
+    each way (rows 6 and 7), never rows 4-5, and its gradients match the
+    plain route's."""
     monkeypatch.setattr(fused_lstm_stack, "_MERGED_GATES", False)
     cfg = dataclasses.replace(CFG, lstm_dropout=0.0, gcn_dropout=0.0)
     model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
@@ -1050,7 +1051,7 @@ def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
     got = torch.autograd.grad(apply_model(model, a_hat, x, 3, cfg, train=True).sum(), params)
     assert (gemm_nn.launches, fls.lstm_stack_split.backward_launches,
             fls.lstm_stack_train.backward_launches) == (
-        before[0] + 2 * (cfg.lstm_layers + 2 * cfg.gcn_layers), before[1] + 1, before[2])
+        before[0] + 3 * cfg.lstm_layers + 4 * cfg.gcn_layers, before[1] + 1, before[2])
     plain = dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla")
     ref = torch.autograd.grad(apply_model(model, a_hat, x, 3, plain, train=True).sum(), params)
     for (name, _), a, b in zip(model.named_parameters(), got, ref):
@@ -1409,3 +1410,115 @@ def test_gcn_shard_backward_runs_on_the_core(dev, dtype, nl, cts, has_mask):
             assert not g.any()
             continue
         assert g.shape == r.shape and _rel(g, r) <= TOL[dtype], (name, _rel(g, r))
+
+
+# Row 14 on row 4's layer-by-layer forward, and row 11 layer by layer on the
+# tangent recurrence of csrc/lstm_scan_tan.cu and the GEMM core.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,dropout", [(4, 0.2), (4, 0.0), (1, 0.0)])
+def test_lstm_split_forward_at_full_width(dev, dtype, layers, dropout):
+    """Row 14 at the inner step's shapes (x [512, 24, 256] as the model's
+    [T, B, C] view, hidden 128) against its schedule on the plain pieces and
+    `split_forward_plain`, with residuals and without (the eval forward: the
+    same last h to the bit); L gemm_nn and L recurrence launches from one
+    call, no gemm.cu; a second call gives the same bits."""
+    fls = fused_lstm_stack
+    split = fls.lstm_stack_split
+    lstm = init_lstm(torch.Generator().manual_seed(2), 256, 128, layers).to(dev)
+    w = [t.detach() for t in fls._split_weights(lstm.layers)]
+    x = _card(dev, (512, 24, 256), seed=13).transpose(0, 1)
+    masks = None
+    if dropout:
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(5),
+                          (layers - 1, 24, 512, 128), dropout, dev)
+    keep = 1.0 - dropout
+    with torch.no_grad():
+        before = (split.launches, split.forward_gemm_nn_launches,
+                  split.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+        got = fls.split_forward(x, *w, masks, keep, dtype)
+        assert (split.launches, split.forward_gemm_nn_launches,
+                split.forward_recurrence_launches, gemm_nn.launches, gemm.launches) == (
+            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers, before[4])
+        again = fls.split_forward(x, *w, masks, keep, dtype)
+        last = fls.split_forward(x, *w, masks, keep, dtype, residuals=False)
+        ref = fls.split_forward_schedule(x, *w, masks, keep, dtype, fls.FWD_PLAIN_PIECES)
+        plain = fls.split_forward_plain(x, *w, masks, keep, dtype)
+    assert last[1] is None and torch.equal(last[0], got[0])
+    for name, g, a, r, p in zip(("h_last", "h_all", "c_all"), got, again, ref, plain):
+        assert g.dtype == r.dtype == p.dtype and g.shape == r.shape, name
+        assert torch.equal(g, a), name
+        for want in (r, p):
+            torch.testing.assert_close(g.float(), want.float(), rtol=TOL[dtype],
+                                       atol=TOL[dtype], msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_tangent_recurrence_cluster_sizes_match_plain(dev, dtype, hidden):
+    """Row 11's tangent recurrence alone against its plain version at 48
+    rows, 7 steps: clusters of 1, 2, 4 and 8 blocks; tdgates and the bias
+    tangent."""
+    fh = fused_lstm_hvp
+    cs, hcp, rb = fh.tangent_plan(hidden, 48, dtype.itemsize, fused_lstm_stack._sms(dev))
+    assert cs == CLUSTER[(dtype, hidden)]
+    assert cuda_build.load().wf_lstm_tangent_recurrence_clusters(
+        cuda_build.dtype_code(dtype), cs, hcp, rb, hidden) > 0
+    g, gates, c, wh = _recurrence_inputs(dev, 7, 48, hidden, hidden)
+    p, dh, dc = (_card(dev, shape, seed=hidden + i) for i, shape in enumerate(
+        ((6, 48, hidden), (7, 48, hidden), (7, 48, hidden)), 10))
+    tgates = _card(dev, (7, 48, 4 * hidden), seed=hidden + 20, scale=0.3)
+    tc = _card(dev, (7, 48, hidden), seed=hidden + 21)
+    outs = {}
+    for name, piece in (("kernel", fh._tangent_recurrence_card),
+                        ("plain", fh._tangent_recurrence_plain)):
+        out, db = torch.empty_like(gates), torch.empty(4 * hidden, device=dev)
+        piece(g, p, gates, tgates, c.to(dtype), tc.to(dtype), dh, dc, wh, dtype, out, db)
+        outs[name] = (out, db)
+    for a, b in zip(outs["kernel"], outs["plain"]):
+        assert _rel(a, b) <= TOL[dtype], _rel(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,dropout", [(4, 0.2), (4, 0.0), (1, 0.0)])
+def test_hvp_backward_schedule_at_full_width(dev, dtype, layers, dropout):
+    """Row 11 at the inner step's shapes (24 steps, 512 rows, input 256,
+    hidden 128) from rows 4, 10 and 5 at the same point, against its
+    schedule on the plain pieces and `hvp_bwd_plain` (the tangents at 1e-4
+    relative in float32): per layer one tangent recurrence, two gemm_nn and
+    four gemm_tn launches, no gemm.cu GEMM; a second call gives the same
+    bits."""
+    fh = fused_lstm_hvp
+    bwd = fh.hvp_stack_bwd
+    a = _r_op_inputs(dev, 24, 512, 256, 128, layers, dropout, seed=layers)
+    m, keep = a["masks"], a["keep"]
+    with torch.no_grad():
+        _, h_all, c_all, gates = fh.stack_fwd(a["x"], a["wcat"], a["b2d"], m, keep, dtype)
+        _, th_all, tc_all, tgates = fh.hvp_stack_fwd(
+            a["x"], a["tx"], a["wcat"], a["twcat"], a["b2d"], a["tb2d"], m, keep, dtype,
+            res=(h_all, c_all, gates))
+        res = fh.stack_bwd(a["g"], a["x"], h_all, c_all, gates, a["wcat"], m, keep, dtype)[3:]
+        args = (a["g"], a["tg"], a["x"], a["tx"], h_all, th_all, c_all, tc_all, gates, tgates,
+                a["wcat"], a["twcat"], m, keep, dtype)
+        before = (bwd.launches, bwd.recurrence_launches, bwd.gemm_nn_launches,
+                  bwd.gemm_tn_launches, gemm.launches)
+        got = fh.hvp_stack_bwd(*args, res=res)
+        assert (bwd.launches, bwd.recurrence_launches, bwd.gemm_nn_launches,
+                bwd.gemm_tn_launches, gemm.launches) == (
+            before[0] + 1, before[1] + layers, before[2] + 2 * layers, before[3] + 4 * layers,
+            before[4])
+        again = fh.hvp_stack_bwd(*args, res=res)
+        ref = fh.hvp_backward_schedule(a["tg"], *args[2:], res, fh.PLAIN_TANGENT_PIECES)
+        plain = fh.hvp_bwd_plain(a["g"], a["x"], h_all, c_all, gates, a["wcat"], m, keep, dtype,
+                                 a["tg"], a["tx"], th_all, tc_all, tgates, a["twcat"])[6:]
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    flat = lambda o: [o[0], *o[1], o[2]]  # noqa: E731
+    for i, (g, s, r, p) in enumerate(zip(*map(flat, (got, again, ref, plain)))):
+        assert g.shape == r.shape == p.shape, i
+        assert torch.equal(g, s), i
+        assert _rel(g, r) <= tol and _rel(g, p) <= tol, (i, _rel(g, r), _rel(g, p))
+

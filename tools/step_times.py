@@ -4,27 +4,34 @@ checkouts on one card.
 
   python3 tools/step_times.py [CHECKOUT] [--cpu]
 
-imports the port from CHECKOUT (default: this one) and prints one JSON line:
-the float32 FO inner step (one window, forward + backward + fused clip +
-SGD) and the same with `model.lstm_kernel=pallas`, each by the host clock
-(median of 20, ending in a synchronize) and by the device's busy time
-(torch.profiler, mean of 5), the FO meta step at `MetaConfig()` defaults
-(4 tasks x 90 inner steps), the same with the micro-batch's tasks in
-lockstep (`_VBATCH`: kernel rows 16-17 and 9) and the node-sharded meta
-step on a 1 x 1 mesh (a NCCL group of one), each the median of 3 after one
-warm-up step with its peak device memory (GiB, the most of the 3); the
-task-batched LSTM stack's backward alone (row 17 at V = 2: x [2 x 512, 24,
-256], 4 layers of 128, masks at rate 0.2, from row 16's residuals) by CUDA
-events (median of 20) and by CUDA graph replay; the merged stack's training
-forward alone (row 4: x [512, 24, 256] as the model's [T, B, C] view, 4
-layers of 128, masks at rate 0.2) the same ways, with the host's time to
-enqueue a call (median of 20) and cuDNN's LSTM forward beside it; and one
-call of the serving
-GCN stack (kernel row 1, [72, 512, 24] -> 4 x 256) in float32 and
-bfloat16. Run it on two checkouts in turns (A, B, B, A) in one call on one
-card: the card's host varies between calls. `--cpu` is a dry run of the
-same code on the CPU (the plain versions, one inner step a task, gloo; no
-times).
+imports the port from CHECKOUT (default: this one) and prints one JSON
+line: the float32 FO inner step (one window, forward + backward + fused
+clip + SGD), the same with `model.lstm_kernel=pallas` and the float32 SO
+inner step (the kernel route's inner gradient and its fhvp Hessian-vector
+product, one window) and the FO inner step with `_MERGED_GATES = False`
+(rows 14-15), each by the host clock (median of 20, ending in a
+synchronize) and by the device's busy time (torch.profiler, mean of 5), the
+SO meta step (fhvp, median of 2 after one warm-up step), the FO meta step
+at `MetaConfig()` defaults (4 tasks x 90 inner steps), the same with the
+micro-batch's tasks in lockstep (`_VBATCH`: kernel rows 16-17 and 9) and
+the node-sharded meta step on a 1 x 1 mesh (a NCCL group of one), each the
+median of 3 after one warm-up step with its peak device memory (GiB, the
+most of the 3); the task-batched LSTM stack's backward alone (row 17 at V =
+2: x [2 x 512, 24, 256], 4 layers of 128, masks at rate 0.2, from row 16's
+residuals) by CUDA events (median of 20) and by CUDA graph replay; the
+merged stack's training forward alone (row 4: x [512, 24, 256] as the
+model's [T, B, C] view, 4 layers of 128, masks at rate 0.2) and the
+unmerged-gates forward alone (row 14, the same weights as separate Wx and
+Wh arrays) the same ways, with the host's time to enqueue a call (median of
+20) and cuDNN's LSTM forward beside them by events and by CUDA graph
+replay; the tangent of the merged stack's backward alone (row 11 at x [24,
+512, 256], 4 layers of 128, masks at rate 0.2, from rows 4, 10 and 5 at the
+same point) by events, by CUDA graph replay and by the host's time to
+enqueue a call; and one call of the serving GCN stack (kernel row 1, [72,
+512, 24] -> 4 x 256) in float32 and bfloat16. Run it on two checkouts in
+turns (A, B, B, A) in one call on one card: the card's host varies between
+calls. `--cpu` is a dry run of the same code on the CPU (the plain
+versions, one inner step a task, gloo; no times).
 """
 
 import argparse
@@ -54,8 +61,12 @@ from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse  # noqa: E402
-from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model  # noqa: E402
-from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.models.registry import (  # noqa: E402
+    apply_model,
+    draw_masks,
+    init_model,
+)
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp, fused_lstm_stack  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import fused_gcn_stack  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed  # noqa: E402
@@ -68,6 +79,12 @@ from weatherforecast_stgcn_maml_tpu_torch.train.maml import (  # noqa: E402
     make_meta_step,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import leaf_order  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import (  # noqa: E402
+    make_grad_loss_fused,
+    plain_route,
+    support_loss,
+)
+from weatherforecast_stgcn_maml_tpu_torch.train.so_grad import make_so_grad  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import (  # noqa: E402
     build_meta_tasks,
     stage_tasks,
@@ -217,6 +234,43 @@ for route, mc in (("default", ModelConfig()), ("pallas", ModelConfig(lstm_kernel
             res[f"{name} peak GiB"] = None if args.cpu else max(peaks)
         res["lockstep / serial"] = (None if args.cpu
                                     else res["lockstep meta step ms"] / res["meta step ms"])
+        # The SO inner step: the inner gradient on the kernel route and its
+        # Hessian-vector product (fhvp: rows 4-7 and 10-11), one window.
+        so_cfg = dataclasses.replace(meta_cfg, second_order=True)
+        so_state = init_meta_state(torch.Generator().manual_seed(1), mc, so_cfg, device=dev)
+        inner_grad = make_so_grad(support_loss(so_state.params, mc),
+                                  support_loss(so_state.params, plain_route(mc)), "fhvp",
+                                  make_grad_loss_fused(so_state.params, mc))
+        so_p = {k: v.detach().clone().requires_grad_(True)
+                for k, v in so_state.params.named_parameters()}
+        draw = torch.Generator().manual_seed(40)
+        so_ct = [torch.randn(v.shape, generator=draw).to(dev) for v in so_p.values()]
+        aux = (task.support_x[0], task.support_y[0], task.a_hat, task.koppen, task.node_mask)
+
+        def so_inner_step():
+            grads = inner_grad(so_p, aux, draw_masks(mc, g, aux[0]))
+            torch.autograd.grad(list(grads.values()), list(so_p.values()), so_ct)
+
+        res["SO inner step ms"] = host_ms(so_inner_step)
+        res["SO inner step device busy ms"] = busy_ms(so_inner_step)
+        so_step = make_meta_step(mc, so_cfg)
+        so_step(so_state, tasks, g)
+        times = []
+        for _ in range(1 if args.cpu else 2):
+            sync()
+            t0 = time.perf_counter()
+            so_step(so_state, tasks, g)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["SO meta step ms"] = None if args.cpu else statistics.median(times)
+        del so_state, so_p, so_ct, so_step
+        # The unmerged-gates inner step (`_MERGED_GATES = False`: rows 14-15).
+        fused_lstm_stack._MERGED_GATES = False
+        try:
+            res["unmerged inner step ms"] = host_ms(inner_step)
+            res["unmerged inner step device busy ms"] = busy_ms(inner_step)
+        finally:
+            fused_lstm_stack._MERGED_GATES = True
 
 cfg = ModelConfig()
 if not args.cpu:  # row 17 alone at V = 2, from row 16's residuals (masks at rate 0.2)
@@ -247,30 +301,55 @@ with torch.inference_mode():
     for dt in (torch.float32, torch.bfloat16):
         res[f"row 1 {str(dt)[6:]} call ms"] = host_ms(
             lambda: fused_gcn_stack(model.encoder.layers, a_hat, x, compute_dtype=dt))
-if not args.cpu:  # row 4 alone, beside cuDNN's forward
-    n, lh, n_l = 512, cfg.lstm_hidden, cfg.lstm_layers
+if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; row 11 alone
+    n, lh, n_l, hid = 512, cfg.lstm_hidden, cfg.lstm_layers, cfg.hidden_channels
     draw = torch.Generator(device=dev).manual_seed(6)
-    x4 = torch.randn((n, cfg.window, cfg.hidden_channels), generator=draw, device=dev)
+    x4 = torch.randn((n, cfg.window, hid), generator=draw, device=dev)
     bound = lh ** -0.5
-    wcat = [torch.empty(((cfg.hidden_channels if l == 0 else lh) + lh, 4 * lh),
-                        device=dev).uniform_(-bound, bound, generator=draw) for l in range(n_l)]
-    b2d = torch.empty((n_l, 4 * lh), device=dev).uniform_(-bound, bound, generator=draw)
+    ks = [(hid if l == 0 else lh) + lh for l in range(n_l)]
+    wcat, twcat = ([torch.empty((k, 4 * lh), device=dev).uniform_(-bound, bound, generator=draw)
+                    for k in ks] for _ in range(2))
+    b2d, tb2d = (torch.empty((n_l, 4 * lh), device=dev).uniform_(-bound, bound, generator=draw)
+                 for _ in range(2))
+    # Row 14's weights: the same as separate Wx and Wh arrays.
+    split_w = (wcat[0][:hid], torch.stack([w[:lh] for w in wcat[1:]]),
+               torch.stack([w[lh:] if l else w[hid:] for l, w in enumerate(wcat)]), b2d)
     m = draw_mask(draw, (n_l - 1, cfg.window, n, lh), 0.2, dev)
-    cudnn = torch.nn.LSTM(cfg.hidden_channels, lh, n_l, batch_first=True).to(dev)
+    x_tbc = x4.transpose(0, 1)
+    tx, g_r, tg_r = (torch.randn(shape, generator=draw, device=dev)
+                     for shape in ((cfg.window, n, hid), (n, lh), (n, lh)))
+    cudnn = torch.nn.LSTM(hid, lh, n_l, batch_first=True).to(dev)
     torch.backends.cudnn.allow_tf32 = False
+    fh = fused_lstm_hvp
     with torch.no_grad():
         for dt in (torch.float32, torch.bfloat16):
 
             def row4():
-                fused_lstm_stack.train_forward(x4.transpose(0, 1), m, 0.8, dt, b2d, wcat)
+                fused_lstm_stack.train_forward(x_tbc, m, 0.8, dt, b2d, wcat)
 
-            name = f"row 4 {str(dt)[6:]}"
-            res[f"{name} ms"] = events_ms(row4)
-            res[f"{name} device ms"] = graph_ms(row4)
-            res[f"{name} enqueue ms"] = enqueue_ms(row4)
+            def row14():
+                fused_lstm_stack.split_forward(x_tbc, *split_w, m, 0.8, dt)
+
+            x_c = x_tbc.contiguous()
+            _, h_all, c_all, gates = fh.stack_fwd(x_c, wcat, b2d, m, 0.8, dt)
+            _, th_all, tc_all, tgates = fh.hvp_stack_fwd(x_c, tx, wcat, twcat, b2d, tb2d, m, 0.8,
+                                                         dt, res=(h_all, c_all, gates))
+            bwd_res = fh.stack_bwd(g_r, x_c, h_all, c_all, gates, wcat, m, 0.8, dt)[3:]
+
+            def row11():
+                fh.hvp_stack_bwd(g_r, tg_r, x_c, tx, h_all, th_all, c_all, tc_all, gates, tgates,
+                                 wcat, twcat, m, 0.8, dt, res=bwd_res)
+
+            for row, fn in (("row 4", row4), ("row 14", row14), ("row 11", row11)):
+                name = f"{row} {str(dt)[6:]}"
+                res[f"{name} ms"] = events_ms(fn)
+                res[f"{name} device ms"] = graph_ms(fn)
+                res[f"{name} enqueue ms"] = enqueue_ms(fn)
+            del h_all, c_all, gates, th_all, tc_all, tgates, bwd_res
             lib = cudnn.to(dt)
             res[f"cuDNN forward {str(dt)[6:]} ms"] = events_ms(lambda: lib(x4.to(dt)))
-    del x4, wcat, cudnn
+            res[f"cuDNN forward {str(dt)[6:]} device ms"] = graph_ms(lambda: lib(x4.to(dt)))
+    del x4, wcat, twcat, cudnn
 res["seconds"] = time.perf_counter() - t_start
 torch.distributed.destroy_process_group()
 print(json.dumps(res), flush=True)

@@ -134,6 +134,10 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
                                             *reinterpret_cast<const uint32_t*>(&hi));
 }
 
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
 // 16 bytes of one dgates row: 4 (float32) or 8 (bfloat16) k values.
 __device__ __forceinline__ void load_k(const float* p, float (&a)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -253,6 +257,111 @@ __device__ __forceinline__ void cell_bwd(float gi, float gf, float gg, float go,
   dcc = dc * gf;
 }
 
+// Thread 0: block `rank`'s weight slice (`bytes` of wts from rank * bytes)
+// into w_s by bulk copies that complete on the mbarrier `bar`; the block
+// waits for it with mbar_wait(smem_u32(bar), 0) before its first read.
+template <typename TW>
+__device__ __forceinline__ void scan_copy_slice(uint64_t* bar, TW* w_s, const void* wts,
+                                                int rank, unsigned bytes) {
+  const uint32_t b = smem_u32(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+               : "memory");
+  const char* src = static_cast<const char*>(wts) + (size_t)rank * bytes;
+  for (unsigned off = 0; off < bytes; off += kBulkChunk) {
+    const unsigned n = bytes - off < kBulkChunk ? bytes - off : kBulkChunk;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_u32(w_s) + off),
+        "l"(src + off), "r"(n), "r"(b)
+        : "memory");
+  }
+}
+
+// The carry of this block's units: the tile [RB, 4H] (compute dtype) x its
+// weight slice [4H, HCP], warp w over its eighth of K; lane: units lane*UPT
+// .. +UPT-1 of every row (one broadcast 16-byte load of a tile row per 16
+// bytes of K, one vector load of its units' weights per k); the warps'
+// partial sums into part [8, RB, HCP] (`scan_carry` adds them).
+template <typename TW, int UPT, int RB>
+__device__ __forceinline__ void scan_contract(const TW* tile, const TW* w_s, float* part,
+                                              int g4, int warp, int lane) {
+  constexpr int HCP = 32 * UPT;
+  constexpr int VK = 16 / sizeof(TW);  // k values a 16-byte load of a tile row
+  float acc[RB][UPT];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int p = 0; p < UPT; ++p) acc[r][p] = 0.f;
+  const int nch = g4 / VK;
+  const int c_hi = (warp + 1) * nch / kScanWarps;
+  const TW* wl = w_s + lane * UPT;
+  for (int c = warp * nch / kScanWarps; c < c_hi; ++c) {
+    const int k = c * VK;
+    float w[VK][UPT];
+#pragma unroll
+    for (int u = 0; u < VK; ++u) load_units<UPT>(wl + (size_t)(k + u) * HCP, w[u]);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      float av[VK];
+      load_k(tile + (size_t)r * g4 + k, av);
+#pragma unroll
+      for (int u = 0; u < VK; ++u)
+#pragma unroll
+        for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], w[u][p], acc[r][p]);
+    }
+  }
+  float* pw = part + (size_t)warp * RB * HCP + lane * UPT;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
+}
+
+// The carry of row r's units u .. u+3 (u from the block's first unit): the
+// warps' partial sums added in warp order.
+template <int RB, int HCP>
+__device__ __forceinline__ float4 scan_carry(const float* part, int r, int u) {
+  float4 carry = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* pp = part + (size_t)r * HCP + u;
+#pragma unroll
+  for (int w = 0; w < kScanWarps; ++w) {
+    const float4 v = *reinterpret_cast<const float4*>(pp + (size_t)w * RB * HCP);
+    carry.x += v.x;
+    carry.y += v.y;
+    carry.z += v.z;
+    carry.w += v.w;
+  }
+  return carry;
+}
+
+// The bias gradient's partial of this row tile into db (the block's units
+// of each gate: db[q * H + j0 + u]), after the last step: the threads' sums
+// over the steps (rows past R hold zeros) laid out [RB][4][HCP] over the
+// warps' partial-carry buffer, then each (gate, unit) of the block's nq * 4
+// units added over the RB rows in row order.
+template <int RB, int HCP, int EPT>
+__device__ __forceinline__ void scan_db_partial(float* part, const int (&pr)[EPT],
+                                                const int (&pj)[EPT], const float4 (&dsum)[EPT][4],
+                                                int j0, int nq, int H, float* db) {
+  __syncthreads();  // every thread done reading `part` for step 0's carry
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    if (pr[e] < 0) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      store4(part + ((size_t)pr[e] * 4 + q) * HCP + (pj[e] - j0), dsum[e][q]);
+  }
+  __syncthreads();
+  const int nu = 4 * nq;
+  for (int i = threadIdx.x; i < 4 * nu; i += kScanThreads) {
+    const int q = i / nu, u = i % nu;
+    float v = 0.f;
+    for (int r = 0; r < RB; ++r) v += part[((size_t)r * 4 + q) * HCP + u];
+    db[q * H + j0 + u] = v;
+  }
+}
+
 // Grid (cs, row tiles, tasks); clusters of cs blocks along x: block rank b
 // owns units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp. DB:
 // the bias gradient's partials into a.db (a compile-time variant: its 16
@@ -275,7 +384,6 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
     if (DB) a.db += z * a.sdb + blockIdx.y * a.ldb;
   }
   constexpr int HCP = 32 * UPT;
-  constexpr int VK = 16 / sizeof(TW);  // k values a 16-byte load of a dgates row
   constexpr int EPT = (RB * HCP / 4 + kScanThreads - 1) / kScanThreads;  // (row, 4 units) a thread
   cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, R = a.R, H = a.H, g4 = 4 * H;
@@ -291,24 +399,8 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
   float* part = reinterpret_cast<float*>(dg_s + (size_t)2 * RB * g4);  // [8, RB, HCP]
 
   // The weight slice, copied while the first step's gate math runs.
-  if (T > 1 && tid == 0) {
-    const uint32_t b = smem_u32(bar);
-    const unsigned bytes = (unsigned)((size_t)g4 * HCP * sizeof(TW));
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
-                 : "memory");
-    const char* src = static_cast<const char*>(a.wts) + (size_t)rank * bytes;
-    for (unsigned off = 0; off < bytes; off += kBulkChunk) {
-      const unsigned n = bytes - off < kBulkChunk ? bytes - off : kBulkChunk;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];\n" ::"r"(smem_u32(w_s) + off),
-          "l"(src + off), "r"(n), "r"(b)
-          : "memory");
-    }
-  }
+  if (T > 1 && tid == 0)
+    scan_copy_slice(bar, w_s, a.wts, rank, (unsigned)((size_t)g4 * HCP * sizeof(TW)));
 
   // Thread tid owns (row r, units j .. j+3) for e < EPT: pair tid + e * 256.
   int pr[EPT], pj[EPT];
@@ -337,18 +429,7 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
       if (pr[e] < 0) continue;
       const int r = pr[e], j = pj[e], row = row0 + r;
       // dh = g + the carry, the warps' partial sums added in order.
-      float4 carry = zero;
-      if (t < T - 1) {
-        const float* pp = part + (size_t)r * HCP + (j - j0);
-#pragma unroll
-        for (int w = 0; w < kScanWarps; ++w) {
-          const float4 v = *reinterpret_cast<const float4*>(pp + (size_t)w * RB * HCP);
-          carry.x += v.x;
-          carry.y += v.y;
-          carry.z += v.z;
-          carry.w += v.w;
-        }
-      }
+      const float4 carry = t < T - 1 ? scan_carry<RB, HCP>(part, r, j - j0) : zero;
       const StepIn& s = in[e];
       const float4 dh = make_float4(s.g.x + carry.x, s.g.y + carry.y, s.g.z + carry.z,
                                     s.g.w + carry.w);
@@ -405,68 +486,21 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
     cluster_wait();
     if (t == T - 1) mbar_wait(smem_u32(bar), 0);  // the weight slice has landed
 
-    // dh_carry of this block's units: [RB, 4H] x [4H, hc], warp w over its
-    // eighth of K; lane: units lane*UPT .. +UPT-1 of every row.
-    float acc[RB][UPT];
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-#pragma unroll
-      for (int p = 0; p < UPT; ++p) acc[r][p] = 0.f;
-    const int nch = g4 / VK;
-    const int c_hi = (warp + 1) * nch / kScanWarps;
-    const TW* wl = w_s + lane * UPT;
-    for (int c = warp * nch / kScanWarps; c < c_hi; ++c) {
-      const int k = c * VK;
-      float w[VK][UPT];
-#pragma unroll
-      for (int u = 0; u < VK; ++u) load_units<UPT>(wl + (size_t)(k + u) * HCP, w[u]);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        float av[VK];
-        load_k(dgb + (size_t)r * g4 + k, av);
-#pragma unroll
-        for (int u = 0; u < VK; ++u)
-#pragma unroll
-          for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], w[u][p], acc[r][p]);
-      }
-    }
-    float* pw = part + (size_t)warp * RB * HCP + lane * UPT;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
+    // dh_carry of this block's units: [RB, 4H] x [4H, hc].
+    scan_contract<TW, UPT, RB>(dgb, w_s, part, g4, warp, lane);
     __syncthreads();  // the partial sums visible to the threads that own the units
   }
 
-  // The bias gradient's partial of this row tile: the threads' sums over
-  // the steps (rows past R hold zeros) laid out [RB][4][HCP] over the warps'
-  // partial-carry buffer, then each (gate, unit) of the block's units added
-  // over the RB rows in row order.
-  if constexpr (DB) {
-    __syncthreads();  // every thread done reading `part` for step 0's carry
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      if (pr[e] < 0) continue;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        store4(part + ((size_t)pr[e] * 4 + q) * HCP + (pj[e] - j0), dsum[e][q]);
-    }
-    __syncthreads();
-    const int nu = 4 * nq;
-    for (int i = tid; i < 4 * nu; i += kScanThreads) {
-      const int q = i / nu, u = i % nu;
-      float v = 0.f;
-      for (int r = 0; r < RB; ++r) v += part[((size_t)r * 4 + q) * HCP + u];
-      a.db[q * H + j0 + u] = v;
-    }
-  }
+  if constexpr (DB) scan_db_partial<RB, HCP, EPT>(part, pr, pj, dsum, j0, nq, H, a.db);
 }
 
-// Launch one kernel instance, or (max_clusters not null) ask how many of
-// its clusters fit on the card at once.
-template <typename TW, typename TC, int UPT, int RB, bool DB>
-int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
-  auto kernel = lstm_scan_bwd_kernel<TW, TC, UPT, RB, DB>;
-  // The opt-in to more than 48 KB of shared memory, once a device.
-  static bool opted[64] = {};
+// Launch `kernel` on a grid of (cs, gy, gz) blocks in clusters of cs along
+// x with `smem` bytes of dynamic shared memory, or (max_clusters not null)
+// ask how many of its clusters fit on the card at once. `opted` holds the
+// kernel's opt-in to more than 48 KB of shared memory, once a device.
+template <typename Args>
+int launch_cluster(void (*kernel)(Args), const Args& a, bool (&opted)[64], int cs, unsigned gy,
+                   unsigned gz, size_t smem, cudaStream_t stream, int* max_clusters) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -477,13 +511,13 @@ int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
     if (dev < 64) opted[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.cs, max_clusters ? 1 : (a.R + RB - 1) / RB, max_clusters ? 1 : a.tasks);
+  cfg.gridDim = max_clusters ? dim3(cs, 1, 1) : dim3(cs, gy, gz);
   cfg.blockDim = dim3(kScanThreads, 1, 1);
-  cfg.dynamicSmemBytes = scan_bwd_smem(a.H, 32 * UPT, RB, sizeof(TW));
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.cs;
+  attr[0].val.clusterDim.x = cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -492,6 +526,16 @@ int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Launch one kernel instance, or (max_clusters not null) ask how many of
+// its clusters fit on the card at once.
+template <typename TW, typename TC, int UPT, int RB, bool DB>
+int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
+  static bool opted[64] = {};
+  return launch_cluster(lstm_scan_bwd_kernel<TW, TC, UPT, RB, DB>, a, opted, a.cs,
+                        (unsigned)((a.R + RB - 1) / RB), (unsigned)a.tasks,
+                        scan_bwd_smem(a.H, 32 * UPT, RB, sizeof(TW)), stream, max_clusters);
 }
 
 template <typename TW, typename TC, int UPT, bool DB>

@@ -84,10 +84,6 @@ __device__ __forceinline__ void cp_async_units(TW* dst, const TW* src, bool ok) 
                : "memory");
 }
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
 // The cell of one unit: its activated gates into a[0..3], c and h updated.
 __device__ __forceinline__ void cell_fwd(float pi, float pf, float pg, float po, float& c,
                                          float& h, float (&a)[4]) {
@@ -257,34 +253,10 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
 // its clusters fit on the card at once.
 template <typename TW, int UPT, int RB>
 int scan_fwd_run(const ScanFwd& a, cudaStream_t stream, int* max_clusters) {
-  auto kernel = lstm_scan_fwd_kernel<TW, UPT, RB>;
-  // The opt-in to more than 48 KB of shared memory, once a device.
   static bool opted[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !opted[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kScanMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.cs, max_clusters ? 1 : (a.R + RB - 1) / RB, 1);
-  cfg.blockDim = dim3(kScanThreads, 1, 1);
-  cfg.dynamicSmemBytes = scan_fwd_smem(a.H, 32 * UPT, RB, sizeof(TW));
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (max_clusters) return (int)cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cluster(lstm_scan_fwd_kernel<TW, UPT, RB>, a, opted, a.cs,
+                        (unsigned)((a.R + RB - 1) / RB), 1u,
+                        scan_fwd_smem(a.H, 32 * UPT, RB, sizeof(TW)), stream, max_clusters);
 }
 
 template <typename TW, int UPT>

@@ -1,25 +1,34 @@
-// The merged LSTM stack's training forward (kernel row 4), layer by layer:
-// the C entry that enqueues the whole schedule from one host call, and the
-// forward recurrence alone.
+// The LSTM stacks' training forwards (kernel rows 4 and 14) and the
+// unmerged-gates eval forward, layer by layer: the C entry that enqueues the
+// whole schedule from one host call, and the forward recurrence alone.
 //
-// Replaces the Pallas kernel `_fwd_kernel_m` (+ `_fwd_kernel_m_nomask`) of
-// weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py, launched by
-// `_fwd_pallas_m` with residuals. The TPU kernel walks all T x L stages as
-// one chain, one [in | h] @ [[Wx], [Wh]] contraction a stage. Only the h
-// carry is recurrent, so here, for l = 0 .. L-1 (ops/fused_lstm_stack.py
-// `forward_schedule` states the same schedule on swappable pieces):
+// Replaces the Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
+// fused_lstm_stack.py `_fwd_kernel_m` (+ `_fwd_kernel_m_nomask`, row 4),
+// launched by `_fwd_pallas_m` with residuals, and `_fwd_kernel` (+
+// `_fwd_kernel_nomask`, row 14, `_MERGED_GATES = False`), launched by
+// `_fwd_pallas`. The TPU kernels walk all T x L stages as one chain, with one
+// [in | h] @ [[Wx], [Wh]] contraction a stage (row 4) or in @ Wx + h @ Wh
+// from separate weight arrays (row 14). Only the h carry is recurrent, so
+// here, for l = 0 .. L-1 (ops/fused_lstm_stack.py `forward_schedule` states
+// the same schedule on swappable pieces):
 //   1. xp_l = round(in_l) @ round(Wx_l) for all T x R rows: one gemm_nn.cu
 //      launch (batched over the T steps, so x's [B, T, C] layout needs no
-//      copy), written straight into gates[l] [T, R, 4H] float32; no bias
-//      (the recurrence adds it);
-//   2. the forward recurrence (lstm_scan_fwd.cuh) over gates[l] in place:
-//      the activated gates, round(h) and round(c) into h_all[l] and c_all[l],
-//      the next layer's input round(h * mask_l * inv_keep) into `masked`
-//      where masks are given (else the next layer reads h_all[l]), and the
-//      top layer's last h in float32.
-// in_0 is x; in_l above it is h_all[l-1] or, with masks, `masked` ([T, R,
-// H], one buffer for every layer: layer l+1's product has read it before
-// layer l+1's recurrence writes it again, in stream order).
+//      copy), written straight into the layer's gates [T, R, 4H] float32; no
+//      bias (the recurrence adds it);
+//   2. the forward recurrence (lstm_scan_fwd.cuh) over those gates in place:
+//      the activated gates, round(h) and round(c) into the layer's h_all and
+//      c_all, the next layer's input round(h * mask_l * inv_keep) into
+//      `masked` where masks are given (else the next layer reads h_all), and
+//      the top layer's last h in float32.
+// in_0 is x; in_l above it is layer l-1's h_all or, with masks, `masked`
+// ([T, R, H], one buffer for every layer: layer l+1's product has read it
+// before layer l+1's recurrence writes it again, in stream order). Each
+// layer's gates, h_all and c_all start a layer stride after the layer
+// below's; a stride of 0 makes every layer reuse one buffer, on the same
+// ordering: row 14 keeps no gates (its backward recomputes them), and its
+// eval forward keeps no residuals (only the top layer's last h leaves).
+// Row 4's weights are the row blocks of wcat_l = [[Wx_l], [Wh_l]]; row 14's
+// are its own arrays: the entry takes a (Wx_l, Wh_l, k_l) triple a layer.
 //
 // Bound at the training shapes (T = 24, R = 512, C = 256, H = 128, L = 4):
 // the input products are 8.05 GFLOP (0.12 ms at the card's float32 rate),
@@ -31,48 +40,52 @@
 #include "gemm_nn_launch.cuh"
 #include "lstm_scan_fwd.cuh"
 
-// The arguments of one forward, 21 packed 8-byte fields (ops/fused_lstm_stack.py
-// `_STACK_FWD`), followed by L pairs (wcat_l, k_l): layer l's merged weights
-// [[Wx_l], [Wh_l]] [k_l + H, 4H] in the compute dtype (row-major, 16-byte
-// aligned) and its input width k_l (C, then H).
+// The arguments of one forward, 23 packed 8-byte fields (ops/fused_lstm_stack.py
+// `_STACK_FWD`), followed by L triples (wx_l, wh_l, k_l): layer l's weights
+// Wx_l [k_l, 4H] and Wh_l [H, 4H] in the compute dtype (row-major, row
+// stride 4H, 16-byte aligned) and its input width k_l (C, then H).
 struct StackFwdLaunch {
   long long w_dt, cs, hcp, rb;
   long long x, sxt, sxr, x_f32;  // x[t, r, c] at x + t*sxt + r*sxr + c (elements)
   long long bias, masks;         // [L, 4H] float32; [L-1, T, R, H] int8 or 0
   double inv_keep;
   long long h_all, c_all, gates, h_last, masked;
+  long long res_ls, gates_ls;    // layer strides (elements) of h_all / c_all and of gates
   long long T, R, H, L, stream;
 };
-static_assert(sizeof(StackFwdLaunch) == 21 * 8, "StackFwdLaunch is 21 packed 8-byte fields");
+static_assert(sizeof(StackFwdLaunch) == 23 * 8, "StackFwdLaunch is 23 packed 8-byte fields");
 
-// Row 4: for each layer one NN product (gemm_nn.cu) and one forward
+// Rows 4 and 14: for each layer one NN product (gemm_nn.cu) and one forward
 // recurrence of the plan (cs, hcp, rb) (lstm_scan_fwd.cuh), on `stream`, in
 // that order. w_dt is the compute dtype (0 = float32, 1 = bfloat16); x is
-// float32 (x_f32) or in the compute dtype; h_all, c_all [L, T, R, H] and
-// masked [T, R, H] (with masks) in the compute dtype, gates [L, T, R, 4H] and
-// h_last [R, H] float32. Returns 0, a cudaError_t code, or the product's
-// negative refusal code (ops/gemm.py `_NN_REFUSALS`); the first failure stops
-// the schedule.
+// float32 (x_f32) or in the compute dtype; layer l's h_all and c_all [T, R,
+// H] at l * res_ls and masked [T, R, H] (with masks) in the compute dtype,
+// its gates [T, R, 4H] at l * gates_ls and h_last [R, H] float32 (res_ls is
+// 0 or at least T * R * H, gates_ls 0 or at least T * R * 4H; without masks
+// and with res_ls 0, layer l+1 reads and overwrites layer l's h_all).
+// Returns 0, a cudaError_t code, or the product's negative refusal code
+// (ops/gemm.py `_NN_REFUSALS`); the first failure stops the schedule.
 extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
   const long long* layer = reinterpret_cast<const long long*>(p + 1);
   const long long T = p->T, R = p->R, H = p->H, L = p->L, g4 = 4 * H;
+  const long long res = T * R * H;  // one layer's [T, R, H]
   if (T <= 0 || R <= 0 || H <= 0 || L <= 0 || T > 0x7fffffff || R > 0x7fffffff ||
-      H > 0x7fffffff || T > 65535 || (p->w_dt != wf::kF32 && p->w_dt != wf::kBF16))
+      H > 0x7fffffff || T > 65535 || (p->w_dt != wf::kF32 && p->w_dt != wf::kBF16) ||
+      (p->res_ls != 0 && p->res_ls < res) || (p->gates_ls != 0 && p->gates_ls < 4 * res))
     return (int)cudaErrorInvalidValue;
   const long long tw = p->w_dt == wf::kBF16 ? 2 : 4;
-  const long long res = T * R * H;  // one layer's [T, R, H]
   cudaStream_t s = reinterpret_cast<cudaStream_t>(p->stream);
   long long in = p->x;
   for (long long l = 0; l < L; ++l) {
-    const long long w = layer[2 * l], k = layer[2 * l + 1];
-    float* gates = reinterpret_cast<float*>(p->gates) + l * T * R * g4;
+    const long long wx = layer[3 * l], wh = layer[3 * l + 1], k = layer[3 * l + 2];
+    float* gates = reinterpret_cast<float*>(p->gates) + l * p->gates_ls;
     NNLaunch g{};
     g.r_dt = p->w_dt;
     g.a1 = in;
     g.sa1 = l == 0 ? p->sxt : R * k;
     g.lda1 = l == 0 ? p->sxr : k;
     g.a1_f32 = l == 0 ? p->x_f32 : p->w_dt == wf::kF32;
-    g.b1 = w;
+    g.b1 = wx;
     g.ldb1 = g4;
     g.k1 = k;
     g.c = reinterpret_cast<long long>(gates);
@@ -88,13 +101,13 @@ extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
     const bool top = l + 1 == L;
     const int8_t* mask = top || !p->masks ? nullptr
                                           : reinterpret_cast<const int8_t*>(p->masks) + l * res;
-    const long long h_l = p->h_all + l * res * tw;
+    const long long h_l = p->h_all + l * p->res_ls * tw;
     const wf::ScanFwd a{gates,
-                        reinterpret_cast<const void*>(w + k * g4 * tw),
+                        reinterpret_cast<const void*>(wh),
                         g4,
                         reinterpret_cast<const float*>(p->bias) + l * g4,
                         reinterpret_cast<void*>(h_l),
-                        reinterpret_cast<void*>(p->c_all + l * res * tw),
+                        reinterpret_cast<void*>(p->c_all + l * p->res_ls * tw),
                         mask,
                         (float)p->inv_keep,
                         mask ? reinterpret_cast<void*>(p->masked) : nullptr,

@@ -52,13 +52,11 @@ _SIGNATURES = {
                            _I, _I, _P],
     "wf_lstm_stack_train_fwd_tasks": [_I, _I, _I, _P, _LL, _P, _P, _P, _P, _F, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _P],
-    "wf_lstm_split_fwd": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _P],
     # one packed ScanLaunch (ops/fused_lstm_stack.py _SCAN_LAUNCH)
     "wf_lstm_stack_recurrence": [ctypes.c_char_p],
     "wf_lstm_stack_recurrence_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_stack_recurrence_smem": [_I, _I, _I, _I],
-    # one packed StackFwdLaunch and its layers (ops/fused_lstm_stack.py _stack_fwd_launch)
+    # one packed StackFwdLaunch and its layers (ops/fused_lstm_stack.py `_STACK_FWD`)
     "wf_lstm_stack_forward": [ctypes.c_char_p],
     "wf_lstm_stack_forward_recurrence": [ctypes.c_char_p],  # one packed ScanFwdLaunch
     "wf_lstm_stack_forward_clusters": [_I, _I, _I, _I, _I],
@@ -68,8 +66,8 @@ _SIGNATURES = {
     "wf_gemm_tn": [ctypes.c_char_p],  # one packed TNLaunch (ops/gemm.py _TN_LAUNCH)
     "wf_lstm_hvp_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
                         _P, _P, _I, _I, _I, _I, _I, _P],
-    "wf_lstm_hvp_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
-                        _P, _P, _I, _I, _I, _I, _I, _P],
+    "wf_lstm_tangent_recurrence": [ctypes.c_char_p],  # one packed ScanTanLaunch
+    "wf_lstm_tangent_recurrence_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_scan_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wf_lstm_scan_bwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wf_fused_lstm_last": [_I, _I, _P, _PP, _PP, _PP, _P, _P, _P, _I, _I, _I, _I, _I, _P],

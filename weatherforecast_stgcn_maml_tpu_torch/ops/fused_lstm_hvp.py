@@ -13,8 +13,10 @@ from them computes the exact Hessian-vector product:
 Forward mode only: neither has a `backward` (the second-order inner step
 only ever jvp's them). Each `forward` runs the primal once and keeps what the
 tangent kernels read (the forward's activated gates; the backward's dh, dc
-and dgates of every stage), so a `jvp` computes tangents only
-(csrc/fused_lstm_hvp.cu).
+and dgates of every stage), so a `jvp` computes tangents only: row 10 in
+one launch (csrc/fused_lstm_hvp.cu), row 11 layer by layer
+(`hvp_backward_schedule`: the tangent recurrence of csrc/lstm_scan_tan.cu
+and the GEMM core, csrc/gemm_nn.cu).
 
 On a CUDA tensor at float32 / bfloat16 these run the hand-written kernels,
 and a shape or dtype they do not take raises. On a CPU tensor or under
@@ -31,7 +33,10 @@ H] with the 1/keep scale folded in.
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+import functools
+import struct
+from typing import Callable, Sequence
 
 import torch
 
@@ -42,11 +47,24 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
+    _cluster_plan,
     _rows_per_thread,
+    _sms,
+    recurrence_weights,
+    scan_smem,
     train_backward,
     train_forward,
 )
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import colsum, matmul_tn_sum
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
+    gemm_nn,
+    gemm_nn_plain,
+    gemm_tn,
+    gemm_tn_plain,
+    sum_splits,
+    sum_splits_plain,
+    tn_splits,
+    wave_split_rows,
+)
 
 
 def _plain(x: torch.Tensor, compute_dtype: torch.dtype) -> bool:
@@ -290,11 +308,10 @@ def stack_bwd(g, x, h_all, c_all, gates, wcat, masks, keep, compute_dtype):
                           carries=True)
 
 
-def _merged2(pairs, transpose: bool, compute_dtype):
-    """Per layer [[W_l], [tW_l]] (or [[W_l^T], [tW_l^T]]) in the compute
-    dtype: (layer 0, layers 1.. stacked, or layer 0 again when L = 1)."""
-    ws = [torch.cat([w.t(), tw.t()] if transpose else [w, tw]).to(compute_dtype).contiguous()
-          for w, tw in pairs]
+def _merged2(pairs, compute_dtype):
+    """Per layer [[W_l], [tW_l]] in the compute dtype: (layer 0, layers 1..
+    stacked, or layer 0 again when L = 1)."""
+    ws = [torch.cat([w, tw]).to(compute_dtype).contiguous() for w, tw in pairs]
     return ws[0], torch.stack(ws[1:]) if len(ws) > 1 else ws[0]
 
 
@@ -314,7 +331,7 @@ def hvp_stack_fwd(x, tx, wcat, twcat, b2d, tb2d, masks, keep, compute_dtype, res
     hidden = g4 // 4
     x = x.to(torch.float32).contiguous()
     tx = tx.to(torch.float32).contiguous()
-    w2_0, w2_r = _merged2(zip(wcat, twcat), False, compute_dtype)
+    w2_0, w2_r = _merged2(zip(wcat, twcat), compute_dtype)
     tb = tb2d.to(torch.float32).contiguous()
     th_all = torch.empty_like(h_all)
     tc_all = torch.empty_like(c_all)
@@ -338,73 +355,242 @@ def hvp_stack_fwd(x, tx, wcat, twcat, b2d, tb2d, masks, keep, compute_dtype, res
 hvp_stack_fwd.launches = 0  # tangent forwards run through the CUDA kernel (row 10)
 
 
-def hvp_stack_bwd(g, tg, x, tx, h_all, th_all, c_all, tc_all, gates, tgates,
-                  wcat, twcat, masks, keep, compute_dtype, res=None):
-    """Row 11: (tdx, [tdwcat_l], tdb), the tangent of the stack backward of
-    g along (tg, tx, th_all, tc_all, tgates, twcat). On a CUDA tensor the
-    kernel reads `res` = (dgates, dh_all, dc_all) of row 5 at the same
-    point; the plain version recomputes them."""
-    if _plain(x, compute_dtype):
-        return hvp_bwd_plain(g, x, h_all, c_all, gates, wcat, masks, keep, compute_dtype,
-                             tg, tx, th_all, tc_all, tgates, twcat)[6:]
-    _check(x, wcat, masks, compute_dtype)
+# Row 11 on a card runs layer by layer, on row 5's schedule
+# (fused_lstm_stack.backward_schedule), so that only the tangent carries
+# through Wh^T are on the serial chain (the TPU kernel walks all T x L stages
+# as one chain, one [tdgates | dgates] @ [[W], [tW]]^T contraction a stage).
+# The tdh carry into t-1 is round(tdgates_t) @ round(Wh)^T + round(dgates_t)
+# @ round(tWh)^T, and its second term does not depend on the chain. For l =
+# L-1 .. 0:
+#   1. p_l = round(dgates_l[t+1]) @ round(tWh_l)^T for t < T-1: one product
+#      off the chain, from row 5's stored gate gradients;
+#   2. the tangent recurrence (csrc/lstm_scan_tan.cu) from tg_l, the tangent
+#      of the gradient of the layer's h sequence (zero but tg at the top
+#      layer's last step, the input tangent of the layer above below it),
+#      p_l, row 4's gates, row 10's tangents of them and of c, row 5's dh
+#      and dc: tdgates_l into one buffer every layer reuses, and the bias
+#      tangent tdb_l (a partial a row tile, then one `sum_splits`);
+#   3. the input tangent round(tdgates_l) @ round(Wx_l)^T + round(dgates_l)
+#      @ round(tWx_l)^T: one product of two operand pairs, times the mask and
+#      1/keep (the mask epilogue): tg_{l-1}, or tdx at l = 0;
+#   4. the weight-gradient tangents tdWx_l = round(in_l)^T round(tdgates_l) +
+#      round(tin_l)^T round(dgates_l) and tdWh_l = round(h_{t-1})^T
+#      round(tdgates_l) + round(th_{t-1})^T round(dgates_l) over every step
+#      and row: four TN products split over the T x R rows (h_{t-1} and
+#      th_{t-1} at a row offset of R: zero at t = 0) into one buffer of
+#      float32 partials, added in split order (`sum_splits`: no atomics).
+#      in_l and tin_l are x and tx at l = 0, above it h_all[l-1] and
+#      th_all[l-1] times the mask and 1/keep, rounded once.
+# JAX sums [tdgates | dgates] @ [W; tW]^T in one contraction; here the two
+# products are summed apart, a float32 reordering (`HVP_TOL` in
+# chip_smoke.py: 1e-4 relative). The pieces are swappable: the kernels on a
+# card (`CARD_TANGENT_PIECES`), their plain versions
+# (`PLAIN_TANGENT_PIECES`) in the CPU tests.
+
+
+@dataclasses.dataclass(frozen=True)
+class TangentPieces:
+    """product: `gemm_nn`'s signature (ops/gemm.py); recurrence(g, p,
+    gates, tgates, c, tc, dh, dc, wh, compute_dtype, out, db): one layer's
+    tangent recurrence (the arguments as csrc/lstm_scan_tan.cu's `ScanTan`,
+    wh [H, 4H]) -> tdgates [T, R, 4H] into out, their column sums [4H] into
+    db; product_tn: `gemm_tn`'s signature; sum_splits(part [S, M, N], out
+    [M, N], what): out = the sum over S."""
+
+    product: Callable
+    recurrence: Callable
+    product_tn: Callable
+    sum_splits: Callable
+
+
+def hvp_backward_schedule(tg, x, tx, h_all, th_all, c_all, tc_all, gates, tgates, wcat, twcat,
+                          masks, keep, compute_dtype, res, pieces: TangentPieces):
+    """Row 11's function (`hvp_bwd_plain`'s tangents: tdx [T, B, C],
+    [tdwcat_l], tdb [L, 4H] in the accumulation dtype) by the schedule above
+    on `pieces`, from res = (dgates, dh_all, dc_all) of row 5 at the same
+    point. x, tx [T, B, C]; h_all, th_all, c_all, tc_all [L, T, B, H] in the
+    compute dtype; gates, tgates, dgates [L, T, B, 4H] and dh_all, dc_all
+    [L, T, B, H] in the accumulation dtype; wcat_l, twcat_l [K_l + H, 4H];
+    masks [L-1, T, B, H] or None."""
     dgates, dh_all, dc_all = res
-    lib = cuda_build.load()
+    acc = accum_dtype(compute_dtype)
     dev = x.device
     t_len, rows, c_in = x.shape
     n_layers, _, _, g4 = gates.shape
     hidden = g4 // 4
-    inv_keep = 1.0 / keep
-    tg = tg.to(torch.float32).contiguous()
-    tgates = tgates.contiguous()
-    wt_0, wt_r = _merged2(zip(wcat, twcat), True, compute_dtype)
-    tdx = torch.empty((t_len, rows, c_in), dtype=torch.float32, device=dev)
-    tdgates = torch.empty_like(dgates)
-    cuda_build.check(
-        lib.wf_lstm_hvp_bwd(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
-            tg.data_ptr(), gates.data_ptr(), tgates.data_ptr(), c_all.data_ptr(),
-            tc_all.contiguous().data_ptr(), dh_all.data_ptr(), dc_all.data_ptr(),
-            dgates.data_ptr(), None if masks is None else masks.data_ptr(), inv_keep,
-            wt_0.data_ptr(), wt_r.data_ptr(), tdx.data_ptr(), tdgates.data_ptr(),
-            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
-        ),
-        "LSTM second-order backward",
-    )
-    # tdwcat_l = xh^T @ tdgates_l + txh^T @ dgates_l, tdb_l = colsum(tdgates_l),
-    # over every step and row; h_{t-1} rows start at t = 1.
-    x = x.to(torch.float32).contiguous()
-    tx = tx.to(torch.float32).contiguous()
-    th_all = th_all.contiguous()
     steps = t_len * rows
-    tdwcat, tdb = [], torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
-    for l in range(n_layers):
-        kin = c_in if l == 0 else hidden
-        dg, tdg = dgates[l].view(steps, g4), tdgates[l].view(steps, g4)
-        tdw = torch.empty((kin + hidden, g4), dtype=torch.float32, device=dev)
+    tdgates = torch.empty((t_len, rows, g4), dtype=acc, device=dev)  # reused by every layer
+    p_l = torch.empty(((t_len - 1) * rows, hidden), dtype=acc, device=dev)
+    g_l = torch.zeros((t_len, rows, hidden), dtype=acc, device=dev)
+    g_l[-1] = tg
+    # The input tangents of the layers below the top, in the masks' layout:
+    # the mask epilogue reads the mask at the output's offsets.
+    g_below = (torch.empty((n_layers - 1, t_len, rows, hidden), dtype=acc, device=dev)
+               if n_layers > 1 else None)
+    tdx = torch.empty((steps, c_in), dtype=acc, device=dev)
+    tdb = torch.empty((n_layers, g4), dtype=acc, device=dev)
+    tdwcat = [torch.empty((w.shape[0], g4), dtype=acc, device=dev) for w in wcat]
+
+    def inputs(x0, h):  # each layer's input [T * B, K_l] in the compute dtype
+        above = h[:-1]
+        if masks is not None:
+            above = apply_mask(above.to(acc), masks, keep)
+        above = above.to(compute_dtype)
+        return [x0.to(compute_dtype).reshape(steps, c_in),
+                *(a.reshape(steps, hidden) for a in above)]
+
+    ins, tins = inputs(x, h_all), inputs(tx, th_all)
+    # One split plan for the four TN products of every layer: a wave of the
+    # recurrent weight gradient's [H, 4H] tiles.
+    split_rows = wave_split_rows(steps, hidden, g4, 1, _sms(dev) if dev.type == "cuda" else 132)
+    splits = tn_splits(steps, split_rows)
+    part_buf = torch.empty(2 * splits * (max(c_in, hidden) + hidden) * g4, dtype=acc, device=dev)
+    for l in reversed(range(n_layers)):
+        k = c_in if l == 0 else hidden
+        w, tw = wcat[l].to(compute_dtype), twcat[l].to(compute_dtype)
+        dg = dgates[l].reshape(steps, g4)
+        if t_len > 1:
+            pieces.product(dg[rows:], tw[k:].t().contiguous(), compute_dtype=compute_dtype,
+                           out=p_l, what=f"LSTM layer {l} tangent carry product")
+        pieces.recurrence(g_l, p_l.view(t_len - 1, rows, hidden), gates[l], tgates[l], c_all[l],
+                          tc_all[l], dh_all[l], dc_all[l], w[k:], compute_dtype, tdgates, tdb[l])
+        tdg = tdgates.view(steps, g4)
+        pair = dict(a2=dg, b2=tw[:k].t().contiguous(), compute_dtype=compute_dtype)
         if l == 0:
-            inp, tinp, mask = x.view(steps, c_in), tx.view(steps, c_in), None
+            pieces.product(tdg, w[:k].t().contiguous(), out=tdx, what="LSTM input tangent",
+                           **pair)
         else:
-            inp, tinp = h_all[l - 1].view(steps, hidden), th_all[l - 1].view(steps, hidden)
-            mask = None if masks is None else masks[l - 1].view(steps, hidden)
-        matmul_tn_sum(
-            [(inp, tdg, mask, inv_keep), (tinp, dg, mask, inv_keep)], tdw[:kin],
-            compute_dtype=compute_dtype, what=f"LSTM layer {l} input weight gradient tangent",
-        )
-        prev = steps - rows
-        matmul_tn_sum(
-            [(h_all[l, :-1].reshape(prev, hidden), tdg[rows:], None, 1.0),
-             (th_all[l, :-1].reshape(prev, hidden), dg[rows:], None, 1.0)], tdw[kin:],
-            compute_dtype=compute_dtype,
-            what=f"LSTM layer {l} recurrent weight gradient tangent",
-        )
-        colsum(tdg, tdb[l], f"LSTM layer {l} bias gradient tangent")
-        tdwcat.append(tdw)
-    hvp_stack_bwd.launches += 1
-    return tdx, tdwcat, tdb
+            mask = None if masks is None else masks[l - 1].reshape(steps, hidden)
+            g_l = g_below[l - 1]
+            pieces.product(tdg, w[:k].t().contiguous(),
+                           epilogue="none" if mask is None else "mask", mask=mask,
+                           scale=1.0 / keep, out=g_l.view(steps, hidden),
+                           what=f"LSTM layer {l} input tangent", **pair)
+        part = part_buf[:2 * splits * (k + hidden) * g4].view(2 * splits, k + hidden, g4)
+        h_prev = (h_all[l, :-1].reshape(steps - rows, hidden),
+                  th_all[l, :-1].reshape(steps - rows, hidden))
+        for half, (inp, prev, b) in enumerate(((ins[l], h_prev[0], tdg.to(compute_dtype)),
+                                               (tins[l], h_prev[1], dg.to(compute_dtype)))):
+            out = part[half * splits:(half + 1) * splits]
+            pieces.product_tn(inp, b, out[:, :k], compute_dtype=compute_dtype,
+                              split_rows=split_rows,
+                              what=f"LSTM layer {l} input weight gradient tangent")
+            pieces.product_tn(prev, b, out[:, k:], compute_dtype=compute_dtype,
+                              split_rows=split_rows, a_row_offset=rows,
+                              what=f"LSTM layer {l} recurrent weight gradient tangent")
+        pieces.sum_splits(part.view(2 * splits, 1, -1), tdwcat[l].view(1, -1),
+                          f"LSTM layer {l} weight gradient tangent partials")
+    return tdx.view(t_len, rows, c_in), tdwcat, tdb
 
 
-hvp_stack_bwd.launches = 0  # tangent backwards run through the CUDA kernel (row 11)
+def _tangent_recurrence_plain(g, p, gates, tgates, c, tc, dh, dc, wh, compute_dtype, out, db):
+    acc = out.dtype
+    t_len, rows, hidden = g.shape
+    wht = as_operand(wh, compute_dtype).t()
+    zero = torch.zeros((rows, hidden), dtype=acc, device=g.device)
+    tdh_c = tdc_c = zero
+    for t in reversed(range(t_len)):
+        i, f, gg, o = gates[t].to(acc).split(hidden, -1)
+        ti, tf, tgg, to = tgates[t].to(acc).split(hidden, -1)
+        c_prev, tc_prev = (c[t - 1].to(acc), tc[t - 1].to(acc)) if t > 0 else (zero, zero)
+        dh_t, dc_t = dh[t].to(acc), dc[t].to(acc)
+        tch = torch.tanh(c[t].to(acc))
+        om = 1 - tch * tch
+        ttc = om * tc[t].to(acc)
+        tdh = (g[t] + p[t] if t < t_len - 1 else g[t]) + tdh_c
+        tdc = tdc_c + tdh * o * om + dh_t * to * om - dh_t * o * (2 * tch * ttc)
+        si, sf, sg, so = i * (1 - i), f * (1 - f), 1 - gg * gg, o * (1 - o)
+        tdgt = torch.cat([
+            tdc * gg * si + dc_t * tgg * si + dc_t * gg * (1 - 2 * i) * ti,
+            tdc * c_prev * sf + dc_t * tc_prev * sf + dc_t * c_prev * (1 - 2 * f) * tf,
+            tdc * i * sg + dc_t * ti * sg - dc_t * i * (2 * gg * tgg),
+            tdh * tch * so + dh_t * ttc * so + dh_t * tch * (1 - 2 * o) * to,
+        ], -1)
+        out[t] = tdgt
+        tdh_c = as_operand(tdgt, compute_dtype) @ wht
+        tdc_c = tdc * f + dc_t * tf
+    db.copy_(out.sum(dim=(0, 1)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def tangent_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[int, int, int]:
+    """(cs, hcp, rb) of row 11's tangent recurrence (csrc/lstm_scan_tan.cu):
+    the backward recurrence's plan (`recurrence_plan`: its shared memory is
+    the same) with row tiles of at most 8 rows, so that a thread owns one
+    (row, 4 units) and its 15 inputs a unit stay in registers: at H = 128
+    and R = 512 on 132 SMs, 2 blocks x 8 rows in float32, 1 block x 4 rows
+    in bfloat16."""
+    return _cluster_plan(hidden, rows, sms, 1, lambda hcp, rb: scan_smem(hidden, hcp, rb, itemsize),
+                         "tangent recurrence holds Wh^T", row_tiles=(2, 4, 8))
+
+
+# The tangent recurrence's launch arguments, packed as csrc/lstm_scan_tan.cu's
+# `ScanTanLaunch`: 20 8-byte integers (pointers as integers).
+_SCAN_TAN = struct.Struct("<20q")
+
+
+def _tangent_recurrence_card(g, p, gates, tgates, c, tc, dh, dc, wh, compute_dtype, out, db):
+    t_len, rows, hidden = g.shape
+    dev = g.device
+    if not all(t.is_contiguous() for t in (g, p, gates, tgates, c, tc, dh, dc, out)):
+        raise ValueError("the LSTM tangent recurrence reads and writes contiguous arrays")
+    cs, hcp, rb = tangent_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
+    wts = recurrence_weights(wh, cs, hcp, compute_dtype)
+    part = torch.empty((-(-rows // rb), 1, 4 * hidden), dtype=torch.float32, device=dev)
+    cuda_build.check(
+        cuda_build.load().wf_lstm_tangent_recurrence(_SCAN_TAN.pack(
+            cuda_build.dtype_code(compute_dtype), cs, hcp, rb, g.data_ptr(), p.data_ptr(),
+            gates.data_ptr(), tgates.data_ptr(), c.data_ptr(), tc.data_ptr(), dh.data_ptr(),
+            dc.data_ptr(), wts.data_ptr(), out.data_ptr(), part.data_ptr(), 4 * hidden, t_len,
+            rows, hidden, cuda_build.stream_ptr(dev))),
+        f"LSTM tangent recurrence (cluster of {cs}, {hcp} weight columns a block, {rb} rows a "
+        f"cluster)",
+    )
+    sum_splits(part, db.view(1, -1), "LSTM bias gradient tangent partials")
+    _tangent_recurrence_card.launches += 1
+    return out
+
+
+_tangent_recurrence_card.launches = 0  # launches of the tangent recurrence (row 11)
+
+CARD_TANGENT_PIECES = TangentPieces(gemm_nn, _tangent_recurrence_card, gemm_tn, sum_splits)
+PLAIN_TANGENT_PIECES = TangentPieces(gemm_nn_plain, _tangent_recurrence_plain, gemm_tn_plain,
+                                     sum_splits_plain)
+
+
+def hvp_stack_bwd(g, tg, x, tx, h_all, th_all, c_all, tc_all, gates, tgates,
+                  wcat, twcat, masks, keep, compute_dtype, res=None):
+    """Row 11: (tdx, [tdwcat_l], tdb), the tangent of the stack backward of
+    g along (tg, tx, th_all, tc_all, tgates, twcat). On a CUDA tensor
+    `hvp_backward_schedule` on the kernels (per layer one tangent
+    recurrence, two gemm_nn and four gemm_tn launches) reads `res` =
+    (dgates, dh_all, dc_all) of row 5 at the same point; the plain version
+    recomputes them."""
+    if _plain(x, compute_dtype):
+        return hvp_bwd_plain(g, x, h_all, c_all, gates, wcat, masks, keep, compute_dtype,
+                             tg, tx, th_all, tc_all, tgates, twcat)[6:]
+    _check(x, wcat, masks, compute_dtype)
+    before = _tangent_recurrence_card.launches, gemm_nn.launches, gemm_tn.launches
+    dgates, dh_all, dc_all = res
+    out = hvp_backward_schedule(
+        tg.to(torch.float32), x, tx, h_all, th_all.contiguous(), c_all, tc_all.contiguous(),
+        gates, tgates.contiguous(), wcat, twcat, masks, keep, compute_dtype,
+        (dgates.contiguous(), dh_all.contiguous(), dc_all.contiguous()), CARD_TANGENT_PIECES)
+    bwd = hvp_stack_bwd
+    bwd.launches += 1
+    bwd.recurrence_launches += _tangent_recurrence_card.launches - before[0]
+    bwd.gemm_nn_launches += gemm_nn.launches - before[1]
+    bwd.gemm_tn_launches += gemm_tn.launches - before[2]
+    return out
+
+
+hvp_stack_bwd.launches = 0  # tangent backwards run through the kernels (row 11)
+# Row 11's pieces: its tangent recurrence (one a layer), gemm_nn (two a layer,
+# one at T = 1) and gemm_tn (four a layer) launches.
+hvp_stack_bwd.recurrence_launches = 0
+hvp_stack_bwd.gemm_nn_launches = 0
+hvp_stack_bwd.gemm_tn_launches = 0
 
 
 def _values(tensors):

@@ -25,8 +25,10 @@ version there.
     V tasks);
   * `lstm_stack_split`: the unmerged-gates stack, which the two entries
     above take under `_MERGED_GATES = False` or `merged=False`: the forward
-    in one launch (csrc/fused_lstm_split.cu, row 14), the backward (row 15)
-    by the same layer-by-layer schedule with each layer's gates recomputed
+    (row 14) on row 4's layer-by-layer schedule from its separate weight
+    arrays, one gates buffer for every layer (`split_forward_schedule`; the
+    eval forward also one h and one c buffer), the backward (row 15) by the
+    same layer-by-layer schedule as row 5 with each layer's gates recomputed
     on csrc/gemm_nn.cu (`split_backward_schedule`).
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py`
@@ -101,13 +103,14 @@ _VBATCH = False
 
 def rows_per_thread(rows: int, hidden: int, sms: int) -> int:
     """The row tile of the kernels whose blocks walk every stage of their
-    rows alone (rows 2, 10, 11, 14, 16, 18, 20) for `rows` sequences on a
+    rows alone (rows 2, 10, 16, 18, 20) for `rows` sequences on a
     card with `sms` SMs: a block holds 256 // H * rows_per_thread rows, so
     its time grows with its rows. The smallest tile whose blocks fit in one
     wave (one block per SM) is the fastest; past that, the largest tile
     (measured in PERF.md). The backward recurrence of rows 5, 15, 17 and
-    19 has its own plan (`recurrence_plan`), and so has row 4's forward
-    recurrence (`forward_plan`)."""
+    19 has its own plan (`recurrence_plan`), and so have the forward
+    recurrence of rows 4 and 14 (`forward_plan`) and row 11's tangent
+    recurrence (`fused_lstm_hvp.tangent_plan`)."""
     groups = max(1, 256 // hidden)
     for rpt in ROWS_PER_THREAD:
         if -(-rows // (groups * rpt)) <= sms:
@@ -259,7 +262,12 @@ lstm_stack_last_all.launches = 0  # stack runs through the CUDA kernel
 # On a card one C call (csrc/lstm_stack_fwd.cu, `train_forward`) enqueues
 # all 2L launches. `forward_schedule` states the schedule on swappable
 # pieces: the kernels a launch each (`FWD_CARD_PIECES`: timing by part) or
-# their plain versions (`FWD_PLAIN_PIECES`: the CPU tests).
+# their plain versions (`FWD_PLAIN_PIECES`: the CPU tests). Row 14 (the
+# unmerged-gates forward, `split_forward_schedule` and `split_forward`)
+# runs the same schedule from its separate Wx and Wh arrays. Its gates and
+# JAX's differ in the order of one float32 addition: JAX forms (in Wx + h
+# Wh) + b, the recurrence (in Wx + b) + h Wh (the last bit, within the
+# float32 gate of 1e-5).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,31 +290,60 @@ def forward_schedule(x, masks, keep, compute_dtype, b2d, wcat, pieces: ForwardPi
     4H]; h_last and the gates in the accumulation dtype) by the schedule
     above on `pieces`: x [T, B, C], wcat_l = [[Wx_l], [Wh_l]], b2d [L, 4H],
     masks [L-1, T, B, H] or None."""
+    hidden = b2d.shape[1] // 4
+    return _forward_layers(x, masks, keep, compute_dtype, b2d, [w[:-hidden] for w in wcat],
+                           [w[-hidden:] for w in wcat], pieces)
+
+
+def split_forward_schedule(x, wx0, wxr, wh, b2d, masks, keep, compute_dtype,
+                           pieces: ForwardPieces, residuals=True):
+    """Row 14's function (`split_forward_plain`'s outputs: h_last [B, H],
+    h_all, c_all [L, T, B, H], or None without `residuals`) by row 4's
+    schedule on `pieces`, from the separate weight arrays wx0 [C, 4H], wxr
+    [L-1, H, 4H], wh [L, H, 4H]. One gates buffer [T, B, 4H] serves every
+    layer (row 15 recomputes the gates); without `residuals` so does one h
+    and one c buffer [T, B, H] (layer l+1's product reads layer l's h before
+    layer l+1's recurrence writes it)."""
+    h_last, h_all, c_all, _ = _forward_layers(
+        x, masks, keep, compute_dtype, b2d, [wx0, *wxr], list(wh), pieces, keep_gates=False,
+        residuals=residuals)
+    return (h_last, h_all, c_all) if residuals else (h_last, None, None)
+
+
+def _forward_layers(x, masks, keep, compute_dtype, b2d, wx, wh, pieces: ForwardPieces,
+                    keep_gates=True, residuals=True):
+    """The schedule above over the layers' wx_l [K_l, 4H] and wh_l [H, 4H]:
+    -> (h_last, h_all, c_all, gates). Without `keep_gates` one gates buffer
+    [T, B, 4H] serves every layer, without `residuals` one h and one c
+    buffer [T, B, H]."""
     acc = accum_dtype(compute_dtype)
     dev = x.device
     t_len, rows, _ = x.shape
     n_layers, g4 = b2d.shape
     hidden = g4 // 4
-    shape = (n_layers, t_len, rows, hidden)
+    one = (t_len, rows, hidden)
+    shape = (n_layers, *one) if residuals else one
     h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
     c_all = torch.empty_like(h_all)
-    gates = torch.empty((*shape[:-1], g4), dtype=acc, device=dev)
+    gates = torch.empty(((n_layers,) if keep_gates else ()) + (t_len, rows, g4), dtype=acc,
+                        device=dev)
     h_last = torch.empty((rows, hidden), dtype=acc, device=dev)
     # The masked inputs of every layer above 0 in turn: layer l+1's product
     # reads them before layer l+1's recurrence writes the next.
-    masked = (torch.empty(shape[1:], dtype=compute_dtype, device=dev)
+    masked = (torch.empty(one, dtype=compute_dtype, device=dev)
               if masks is not None and n_layers > 1 else None)
     inp = x
-    for l, w in enumerate(wcat):
-        k = w.shape[0] - hidden
+    for l in range(n_layers):
         top = l == n_layers - 1
-        pieces.product(inp, w[:k], compute_dtype=compute_dtype, out=gates[l],
+        gates_l = gates[l] if keep_gates else gates
+        h_l, c_l = (h_all[l], c_all[l]) if residuals else (h_all, c_all)
+        pieces.product(inp, wx[l], compute_dtype=compute_dtype, out=gates_l,
                        what=f"LSTM layer {l} input product")
         mask = None if masked is None or top else masks[l]
-        pieces.recurrence(gates[l], w[k:], b2d[l], compute_dtype, h_all[l], c_all[l], mask=mask,
+        pieces.recurrence(gates_l, wh[l], b2d[l], compute_dtype, h_l, c_l, mask=mask,
                           inv_keep=1.0 / keep, next_in=None if mask is None else masked,
                           h_last=h_last if top else None)
-        inp = h_all[l] if mask is None else masked
+        inp = h_l if mask is None else masked
     return h_last, h_all, c_all, gates
 
 
@@ -334,9 +371,9 @@ def _forward_recurrence_plain(gates, wh, bias, compute_dtype, h_out, c_out, mask
 
 # The forward recurrence's launch arguments, packed as csrc/lstm_stack_fwd.cu's
 # `ScanFwdLaunch`; the whole forward's as its `StackFwdLaunch`, followed by
-# one (weights, input width) pair a layer.
+# one (Wx_l, Wh_l, input width) triple a layer.
 _SCAN_FWD = struct.Struct("<11qd6q")
-_STACK_FWD = struct.Struct("<10qd10q")
+_STACK_FWD = struct.Struct("<10qd12q")
 
 
 def _ptr(t):
@@ -376,6 +413,25 @@ def train_forward(x_tbc, masks, keep, compute_dtype, b2d, wcat):
     H] in the compute dtype, the activated gates [L, T, B, 4H] float32), by
     `forward_schedule`'s schedule, its L products and L recurrences enqueued
     by one C call (csrc/lstm_stack_fwd.cu)."""
+    hidden = b2d.shape[1] // 4
+    out = _stack_forward_card(x_tbc, masks, keep, compute_dtype, b2d,
+                              [w[:-hidden] for w in wcat], [w[-hidden:] for w in wcat],
+                              "LSTM train forward")
+    n_layers = len(wcat)
+    train = lstm_stack_train
+    train.launches += 1
+    train.forward_gemm_nn_launches += n_layers
+    train.forward_recurrence_launches += n_layers
+    return out
+
+
+def _stack_forward_card(x_tbc, masks, keep, compute_dtype, b2d, wx, wh, what, keep_gates=True,
+                        residuals=True):
+    """`_forward_layers` on the card: its 2L launches enqueued by one C call
+    (csrc/lstm_stack_fwd.cu) from x_tbc [T, B, C] and the layers' float32
+    wx_l [K_l, 4H] and wh_l [H, 4H] (row blocks of one matrix or arrays of
+    their own) -> (h_last [B, H] float32, h_all, c_all in the compute dtype,
+    the gates float32)."""
     dev = x_tbc.device
     t_len, rows, _ = x_tbc.shape
     n_layers, g4 = b2d.shape
@@ -387,16 +443,20 @@ def train_forward(x_tbc, masks, keep, compute_dtype, b2d, wcat):
         x = x.contiguous()
     # The weights in the compute dtype: float32 as they are, else one cast of
     # all layers (each layer's rows stay 16-byte aligned: 4H columns).
+    ws = [*wx, *wh]
     if compute_dtype is torch.float32:
-        ws = [w.contiguous() for w in wcat]
+        ws = [w.contiguous() for w in ws]
     else:
-        ws = torch.cat(wcat).to(compute_dtype).split([w.shape[0] for w in wcat])
-    layers = [v for w in ws for v in (w.data_ptr(), w.shape[0] - hidden)]
-    shape = (n_layers, t_len, rows, hidden)
+        ws = torch.cat(ws).to(compute_dtype).split([w.shape[0] for w in ws])
+    layers = [v for l in range(n_layers)
+              for v in (ws[l].data_ptr(), ws[n_layers + l].data_ptr(), ws[l].shape[0])]
+    one = (t_len, rows, hidden)
+    shape = (n_layers, *one) if residuals else one
     with_masks = masks is not None and n_layers > 1
     h_all, c_all, gates, masked = workspace(
-        dev, (shape, compute_dtype), (shape, compute_dtype), ((*shape[:-1], g4), torch.float32),
-        (shape[1:] if with_masks else (0,), compute_dtype))
+        dev, (shape, compute_dtype), (shape, compute_dtype),
+        (((n_layers,) if keep_gates else ()) + (t_len, rows, g4), torch.float32),
+        (one if with_masks else (0,), compute_dtype))
     h_last = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
     cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
     bias = b2d.contiguous()
@@ -404,18 +464,15 @@ def train_forward(x_tbc, masks, keep, compute_dtype, b2d, wcat):
         cuda_build.dtype_code(compute_dtype), cs, hcp, rb, x.data_ptr(), x.stride(0), x.stride(1),
         int(x.dtype is torch.float32), bias.data_ptr(), masks.data_ptr() if with_masks else 0,
         1.0 / keep, h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), h_last.data_ptr(),
-        masked.data_ptr() if with_masks else 0, t_len, rows, hidden, n_layers,
+        masked.data_ptr() if with_masks else 0, t_len * rows * hidden if residuals else 0,
+        t_len * rows * g4 if keep_gates else 0, t_len, rows, hidden, n_layers,
         cuda_build.stream_ptr(dev))
     err = cuda_build.load().wf_lstm_stack_forward(
-        launch + struct.pack(f"<{2 * n_layers}q", *layers))
+        launch + struct.pack(f"<{3 * n_layers}q", *layers))
     if err < 0:
-        raise ValueError(f"LSTM train forward: its input product takes {_NN_REFUSALS[err]}")
-    cuda_build.check(err, f"LSTM train forward (recurrences: cluster of {cs}, {hcp} weight "
-                          f"columns a block, {rb} rows a cluster)")
-    train = lstm_stack_train
-    train.launches += 1
-    train.forward_gemm_nn_launches += n_layers
-    train.forward_recurrence_launches += n_layers
+        raise ValueError(f"{what}: its input product takes {_NN_REFUSALS[err]}")
+    cuda_build.check(err, f"{what} (recurrences: cluster of {cs}, {hcp} weight columns a "
+                          f"block, {rb} rows a cluster)")
     gemm_nn.launches += n_layers
     return h_last, h_all, c_all, gates
 
@@ -824,38 +881,20 @@ def split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks=None, 
 def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residuals=True):
     """Row 14 on a CUDA tensor (its plain version on a CPU tensor or under
     float64): -> (h_last [B, H] float32, h_all, c_all [L, T, B, H] in the
-    compute dtype, or None without `residuals`)."""
+    compute dtype, or None without `residuals`), by
+    `split_forward_schedule`'s schedule (row 4's), its L products and L
+    recurrences enqueued by one C call (csrc/lstm_stack_fwd.cu)."""
     if not _on_card(x_tbc, compute_dtype):
         return split_forward_plain(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype)
-    lib = cuda_build.load()
-    dev = x_tbc.device
-    t_len, rows, c_in = x_tbc.shape
-    n_layers, hidden, g4 = wh.shape
-    x = x_tbc.to(torch.float32)
-    if x.stride(2) != 1:
-        x = x.contiguous()
-    w0, wr = _on_card_weights(wx0, wxr, compute_dtype)
-    whc = wh.to(compute_dtype).contiguous()
-    h_all = c_all = None
-    if residuals:
-        shape = (n_layers, t_len, rows, hidden)
-        h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
-        c_all = torch.empty(shape, dtype=compute_dtype, device=dev)
-    out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    cuda_build.check(
-        lib.wf_lstm_split_fwd(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
-            x.data_ptr(), x.stride(0), x.stride(1), w0.data_ptr(), wr.data_ptr(),
-            whc.data_ptr(), b2d.contiguous().data_ptr(),
-            None if masks is None else masks.data_ptr(), 1.0 / keep,
-            None if h_all is None else h_all.data_ptr(),
-            None if c_all is None else c_all.data_ptr(), out.data_ptr(),
-            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
-        ),
-        "LSTM unmerged-gates forward",
-    )
-    lstm_stack_split.launches += 1
-    return out, h_all, c_all
+    n_layers = wh.shape[0]
+    h_last, h_all, c_all, _ = _stack_forward_card(
+        x_tbc, masks, keep, compute_dtype, b2d, [wx0, *wxr], list(wh),
+        "LSTM unmerged-gates forward", keep_gates=False, residuals=residuals)
+    split = lstm_stack_split
+    split.launches += 1
+    split.forward_gemm_nn_launches += n_layers
+    split.forward_recurrence_launches += n_layers
+    return (h_last, h_all, c_all) if residuals else (h_last, None, None)
 
 
 # Rows 5, 15 and 17 on a card run layer by layer, so that only the dh carry
@@ -1087,19 +1126,19 @@ def scan_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
 
 
 def _cluster_plan(hidden: int, rows: int, sms: int, tasks: int, smem: Callable,
-                  what: str) -> tuple[int, int, int]:
+                  what: str, row_tiles=(2, 4, 8, 16)) -> tuple[int, int, int]:
     """(cs, hcp, rb) of a cluster recurrence whose block takes smem(hcp, rb)
     bytes of shared memory: the smallest cluster (1, 2, 4, 8) whose weight
-    slice fits beside the tiles of a row tile that puts the clusters of all
-    `tasks` tasks' rows on `sms` SMs in one wave, with the smallest such
-    tile; if no cluster reaches one wave, the smallest that fits at all,
-    with its largest tile."""
+    slice fits beside the tiles of a row tile (of `row_tiles`) that puts the
+    clusters of all `tasks` tasks' rows on `sms` SMs in one wave, with the
+    smallest such tile; if no cluster reaches one wave, the smallest that
+    fits at all, with its largest tile."""
     fallback = None
     for cs in (1, 2, 4, 8):
         hcp = next((p for p in (32, 64, 128) if p >= scan_units(hidden, cs)), None)
         if hcp is None:
             continue
-        tiles = [rb for rb in (2, 4, 8, 16) if smem(hcp, rb) <= SCAN_MAX_SMEM]
+        tiles = [rb for rb in row_tiles if smem(hcp, rb) <= SCAN_MAX_SMEM]
         if not tiles:
             continue
         wave = [rb for rb in tiles if tasks * -(-rows // rb) * cs <= sms]
@@ -1368,5 +1407,8 @@ def lstm_stack_split(
     return _LstmStackSplit.apply(x_tbc, masks, keep, compute_dtype, wx0, wxr, wh, b2d)
 
 
-lstm_stack_split.launches = 0  # forwards run through the CUDA kernel (row 14)
+lstm_stack_split.launches = 0  # forwards run through the CUDA kernels (row 14)
+# Row 14's pieces: its gemm_nn and forward recurrence launches (one each a layer).
+lstm_stack_split.forward_gemm_nn_launches = 0
+lstm_stack_split.forward_recurrence_launches = 0
 lstm_stack_split.backward_launches = 0  # backwards run through the kernels (row 15)

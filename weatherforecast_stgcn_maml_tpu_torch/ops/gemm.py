@@ -87,31 +87,17 @@ def matmul_tn(
     (row-major, row strides of their own): split over K, the partials added
     in split order. `amask` (a's layout) multiplies a by amask * ascale
     before rounding. `out` may be a row block of a larger matrix."""
-    matmul_tn_sum([(a, b, amask, ascale)], out, compute_dtype=compute_dtype, what=what)
-
-
-def matmul_tn_sum(
-    terms, out: torch.Tensor, *, compute_dtype: torch.dtype, what: str
-) -> None:
-    """out [M, N] float32 = the sum over `terms` (a, b, amask, ascale) of
-    matmul_tn's products: each split over its K, every partial added in one
-    fixed order (term by term, split by split)."""
     m, n = out.shape
-    splits = [-(-a.shape[0] // SPLIT_ROWS) for a, *_ in terms]
-    if sum(splits) == 0:
+    splits = -(-a.shape[0] // SPLIT_ROWS)
+    if splits == 0:
         out.zero_()
         return
-    part = torch.empty((sum(splits), m, n), dtype=torch.float32, device=out.device)
-    z = 0
-    for (a, b, amask, ascale), s in zip(terms, splits):
-        if s:
-            gemm(
-                a, b, part[z:z + s], m=m, n=n, k=a.shape[0], lda=a.stride(0),
-                ldb=b.stride(0), ldc=n, sc=m * n, splits=s, kc=SPLIT_ROWS,
-                trans_a=True, amask=amask, ascale=ascale,
-                compute_dtype=compute_dtype, what=what,
-            )
-        z += s
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=out.device)
+    gemm(
+        a, b, part, m=m, n=n, k=a.shape[0], lda=a.stride(0), ldb=b.stride(0), ldc=n, sc=m * n,
+        splits=splits, kc=SPLIT_ROWS, trans_a=True, amask=amask, ascale=ascale,
+        compute_dtype=compute_dtype, what=what,
+    )
     sum_splits(part, out, what)
 
 

@@ -37,9 +37,10 @@ time):
      the gates; masks on and off), gated on 1 gemm_nn and 1 forward
      recurrence launch a layer from one call, by events, by CUDA graph
      replay, by part, the host's time a call, beside cuDNN's forward; before
-     this phase (6a) the three LSTM recurrences (backward, forward, row 11's
-     tangent) alone against their plain versions at H 64 / 128 / 256
-     (clusters of 1, 2, 4 and 8 blocks);
+     this phase (6a) the four LSTM recurrences (backward, forward, row 11's
+     tangent, row 10's tangent forward) and row 18 (the forward recurrence
+     with float32 h and c, xp holding the bias) alone against their plain
+     versions at H 64 / 128 / 256 (clusters of 1, 2, 4 and 8 blocks);
   7. hold the whole-tree clip + SGD kernel (rows 8-9) against its plain
      version on the reference model's 23 leaves, one task and a task axis
      of 4, gradient norms below and above clip_norm; time it, the plain
@@ -47,10 +48,12 @@ time):
   7b. hold the second-order kernels (rows 10-11, after rows 4-5 at the same
      point) against the plain R-operator at the inner step's shapes (24
      steps, 512 rows, input 256, 4 layers of 128, masks at rate 0.2; also
-     masks off and one layer), float32 and bfloat16, row 11 gated on its
-     launches a call (a tangent recurrence, 2 gemm_nn and 4 gemm_tn a layer,
-     none of gemm.cu's GEMM); time them (row 11 also by CUDA graph replay,
-     by part and by the host's time to enqueue a call); probe whether
+     masks off and one layer), float32 and bfloat16, rows 10 and 11 gated
+     on their launches a call (row 10: a tangent forward recurrence and a
+     gemm_nn a layer from one call; row 11: a tangent recurrence, 2 gemm_nn
+     and 4 gemm_tn a layer; none of gemm.cu's GEMM); time them (both also
+     by CUDA graph replay, by part and by the host's time to enqueue a
+     call); probe whether
      cuDNN's LSTM takes a forward-mode derivative or a double backward;
   8. the FO meta-gradient of one micro-batch (2 tasks, 15 inner steps each,
      dropout on), kernel route (rows 4-8) against plain route, same
@@ -67,7 +70,8 @@ time):
      every loss must be finite;
   9b. drive `cli meta-train -o meta.second_order=true` at the defaults: 1
      epoch float32, 1 epoch bfloat16, `--resume` to epoch 2; rows 10-11
-     must launch 360 times a meta step and rows 4-7 too, every loss finite;
+     must launch 360 times a meta step (with 4 / 4 and 4 / 8 / 16 pieces a
+     call) and rows 4-7 too, every loss finite;
  10. drive `cli adapt` (Moscow and Thailand float32, 2 epochs, Moscow
      bfloat16, 1 epoch) from that `ckpt_best`, `validate` the adapted
      Moscow model and `pipeline` Moscow + NewYork; rows 1-2 and 4-7 must
@@ -113,8 +117,9 @@ time):
      128; one GCN layer (row 3) at [24, 512, 256] -> 256 and [72, 512, 24]
      -> 256; time each, its plain version and its library call (row 20:
      cuDNN's LSTM, beside row 2; row 3: torch.relu(a @ (h @ w) + b) in the
-     same dtype, also as device time by CUDA graph replay; rows 18-19:
-     none, no PyTorch call runs a recurrence alone);
+     same dtype, also as device time by CUDA graph replay; row 18 alone by
+     events, graph replay and enqueue; rows 18-19: none, no PyTorch call
+     runs a recurrence alone);
  16. drive those routes through the CLI: `meta-train -o
      model.lstm_kernel=pallas` (1 epoch float32; rows 18 and 19 must launch
      1456 times a meta step, rows 4-5 never), the FO meta-gradient of one
@@ -222,13 +227,14 @@ SOURCES = {
                                  CSRC + "gemm.cu"],
     "clip_sgd_update": [CSRC + "fused_sgd.cu"],
     "clip_sgd_update.batched": [CSRC + "fused_sgd.cu"],
-    "hvp_stack_fwd": [CSRC + "fused_lstm_hvp.cu"],
+    "hvp_stack_fwd": [CSRC + "lstm_scan_fwd_tan.cu", CSRC + "lstm_scan_fwd.cuh",
+                      CSRC + "gemm_nn.cu"],
     "hvp_stack_bwd": [CSRC + "lstm_scan_tan.cu", CSRC + "lstm_scan_bwd.cuh",
                       CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
     "gcn_shard_layer": [CSRC + "gemm_nn.cu"],
     "gcn_shard_layer.backward": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu",
                                  CSRC + "gemm.cu"],
-    "lstm_recurrence": [CSRC + "lstm_scan.cu"],
+    "lstm_recurrence": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh"],
     "lstm_recurrence.backward": [CSRC + "lstm_scan.cu", CSRC + "lstm_scan_bwd.cuh",
                                  CSRC + "gemm.cu"],
     "fused_lstm_last_hidden": [CSRC + "fused_lstm.cu"],
@@ -244,7 +250,12 @@ SOURCES = {
 # Kernels whose ptxas report the build phase prints by name.
 NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel",
                "gemm_tn_bf16_kernel", "dz_top_kernel", "transpose_round_kernel",
-               "lstm_scan_bwd_kernel", "lstm_scan_fwd_kernel", "lstm_scan_tan_kernel")
+               "lstm_scan_bwd_kernel", "lstm_scan_fwd_kernel", "lstm_scan_tan_kernel",
+               "lstm_scan_fwd_tan_kernel")
+# The cluster recurrences whose instances the build phase lists by source.
+RECURRENCE_SOURCES = {"lstm_scan_fwd_kernel": "lstm_stack_fwd.cu",
+                      "lstm_scan_tan_kernel": "lstm_scan_tan.cu",
+                      "lstm_scan_fwd_tan_kernel": "lstm_scan_fwd_tan.cu"}
 MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
@@ -564,15 +575,14 @@ def main() -> int:
             # a source (dtypes, units a lane, rows a cluster, +db: with the
             # bias partials) one line a source below.
             new = next((entry[entry.index(k):][:48] for k in NEW_KERNELS if k in entry), None)
-            if new and new.startswith(("lstm_scan_fwd_kernel", "lstm_scan_tan_kernel")):
+            kernel = next((k for k in RECURRENCE_SOURCES if new and new.startswith(k)), None)
+            if kernel:
                 # <TW, UPT, RB>, mangled as e.g. I13__nv_bfloat16Li4ELi8E.
-                kernel = new[:20]
                 if "registers" in line:
                     tw, upt, rb = re.match(r"I(.*?)Li(\d+)ELi(\d+)E", entry[
-                        entry.index(kernel) + 20:]).groups()
+                        entry.index(kernel) + len(kernel):]).groups()
                     regs = line.split("Used")[1].split("registers")[0].strip()
-                    recurrence.append((kernel, "lstm_stack_fwd.cu" if "fwd" in kernel
-                                       else "lstm_scan_tan.cu",
+                    recurrence.append((kernel, RECURRENCE_SOURCES[kernel],
                                        f"{'bf16' if 'bfloat16' in tw else 'f32'} {upt} {rb}",
                                        regs))
                 elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -631,11 +641,12 @@ def main() -> int:
                     f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
                     f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once "
                     f"(cudaOccupancyMaxActiveClusters)")
-        # The forward recurrence (row 4): its plan at the main path's rows
-        # (512; adaptation 1024, a sharded rank 256) and at the gate's.
+        # The forward recurrence (rows 4, 14 and 18): its plan at the main
+        # path's rows (512; adaptation 1024, a sharded rank 256, validate's
+        # 1536) and at the gate's.
         for dt in (torch.float32, torch.bfloat16):
-            for hidden, rows in ((128, 512), (128, 1024), (128, 256), (64, 48), (128, 48),
-                                 (256, 48)):
+            for hidden, rows in ((128, 512), (128, 1024), (128, 256), (128, 1536), (64, 48),
+                                 (128, 48), (256, 48)):
                 cs, hcp, rb = fls.forward_plan(hidden, rows, dt.itemsize, sms)
                 code = cuda_build.dtype_code(dt)
                 smem = lib.wf_lstm_stack_forward_smem(code, hcp, rb, hidden)
@@ -664,6 +675,22 @@ def main() -> int:
                 log(f"  lstm_scan_tan {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of {cs}, "
                     f"{hcp} weight columns and {rb} rows a cluster, "
                     f"{fls.scan_smem(hidden, hcp, rb, dt.itemsize)} B a block; {clusters} "
+                    f"clusters ({clusters * cs} blocks), at most {active} at once")
+        # Row 10's tangent forward recurrence: its plan at the SO inner step's
+        # rows (512) and at the gate's; its shared memory is the forward's.
+        for dt in (torch.float32, torch.bfloat16):
+            for hidden, rows in ((128, 512), (64, 48), (128, 48), (256, 48)):
+                cs, hcp, rb = fh.tangent_forward_plan(hidden, rows, dt.itemsize, sms)
+                code = cuda_build.dtype_code(dt)
+                active = lib.wf_lstm_tangent_forward_clusters(code, cs, hcp, rb, hidden)
+                if active <= 0:
+                    raise RuntimeError(f"the card runs no cluster of the tangent forward "
+                                       f"recurrence plan {(cs, hcp, rb)} at H = {hidden} "
+                                       f"({active})")
+                clusters = -(-rows // rb)
+                log(f"  lstm_scan_fwd_tan {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of "
+                    f"{cs}, {hcp} weight columns and {rb} rows a cluster, "
+                    f"{fls.scan_fwd_smem(hidden, hcp, rb, dt.itemsize)} B a block; {clusters} "
                     f"clusters ({clusters * cs} blocks), at most {active} at once")
 
     cfg = ModelConfig()
@@ -1016,12 +1043,88 @@ def main() -> int:
         if seen != {1, 2, 4, 8}:
             raise RuntimeError(f"the tangent recurrence gate reached clusters of {sorted(seen)}")
         del pre, gates_r, tgates_r, g_r, p_r, c_r, tc_r, dh_r, dc_r, wh_r, outs
+        # Row 10's tangent forward recurrence alone against its plain version,
+        # the same widths (clusters of 1, 2, 4 and 8): the gates' tangents, th
+        # and tc, below the top layer (a mask, the next layer's [tin | in | h a
+        # step back]) and at the top (the last th), from random gates, c, h,
+        # the next layer's h, the off-chain products and the bias tangent.
+        seen = set()
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            for hidden in (64, 128, 256):
+                draw = np.random.default_rng(hidden + 3)
+                pre = card_array((7, 48, 4, hidden))
+                gates_r = torch.cat([torch.sigmoid(pre[:, :, :2]), torch.tanh(pre[:, :, 2:3]),
+                                     torch.sigmoid(pre[:, :, 3:])], dim=2).reshape(7, 48, -1)
+                ds_r = card_array((7, 48, 4 * hidden), 0.3)
+                c_r, h_r, hn_r = (card_array((7, 48, hidden)).to(dt) for _ in range(3))
+                wh_r = card_array((hidden, 4 * hidden), hidden ** -0.5)
+                tb_r = card_array((4 * hidden,), 0.1)
+                m_r = torch.from_numpy((draw.uniform(size=(7, 48, hidden)) >= 0.2)
+                                       .astype(np.int8)).to(dev)
+                cs, hcp, rb = fh.tangent_forward_plan(hidden, 48, dt.itemsize, sms)
+                rels = []
+                for below_top in (True, False):
+                    outs = {}
+                    for route, piece in (("kernel", fh._tangent_forward_recurrence_card),
+                                         ("plain", fh._tangent_forward_recurrence_plain)):
+                        res = [ds_r.clone(), *(torch.empty((7, 48, hidden), dtype=dt, device=dev)
+                                               for _ in range(2))]
+                        if below_top:
+                            last = torch.empty((7, 48, 3 * hidden), dtype=dt, device=dev)
+                            extra = dict(mask=m_r, inv_keep=1.25, next_in=last)
+                        else:
+                            last = torch.empty((48, hidden), device=dev)
+                            extra = dict(th_last=last)
+                        piece(res[0], gates_r, c_r, h_r, hn_r, wh_r, tb_r, dt, res[1], res[2],
+                              **extra)
+                        outs[route] = (*res, last)
+                    torch.cuda.synchronize()
+                    rels += [rel_err(a, b) for a, b in zip(outs["kernel"], outs["plain"])]
+                log(f"tangent forward recurrence {dt_name} H = {hidden}: cluster of {cs} ({hcp} "
+                    f"weight columns, {rb} rows a cluster); max|diff|/max|ref| below the top "
+                    f"(tgates, th, tc, [tin | in | h]) {[f'{r:.2e}' for r in rels[:4]]}, at the "
+                    f"top (tgates, th, tc, last th) {[f'{r:.2e}' for r in rels[4:]]} (tol {tol})")
+                if max(rels) > tol:
+                    raise RuntimeError(f"tangent forward recurrence {dt_name} H = {hidden}: "
+                                       f"error {max(rels):.3e}")
+                seen.add(cs)
+        if seen != {1, 2, 4, 8}:
+            raise RuntimeError(f"the tangent forward recurrence gate reached clusters of "
+                               f"{sorted(seen)}")
+        del pre, gates_r, ds_r, c_r, h_r, hn_r, wh_r, tb_r, m_r, outs, res, last
+        # Row 18 alone (`scan_forward`: the forward recurrence with the bias
+        # in xp, the gates to an array of their own, h and c in float32)
+        # against its plain piece, the same widths (clusters of 1, 2, 4, 8).
+        seen = set()
+        for dt_name, tol in TOL.items():
+            dt = getattr(torch, dt_name)
+            for hidden in (64, 128, 256):
+                draw = np.random.default_rng(hidden + 4)
+                xp_r = card_array((7, 48, 4 * hidden))
+                wh_r = card_array((hidden, 4 * hidden), hidden ** -0.5)
+                got = lstm_scan.scan_forward(xp_r, wh_r, dt, True)
+                ref = lstm_scan.scan_forward_plain(xp_r, wh_r, dt, True)
+                torch.cuda.synchronize()
+                if any(t.dtype != torch.float32 for t in got):
+                    raise RuntimeError(f"row 18 {dt_name}: outputs {[t.dtype for t in got]}")
+                errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+                cs = fls.forward_plan(hidden, 48, dt.itemsize, sms)[0]
+                log(f"row 18's recurrence {dt_name} H = {hidden}: cluster of {cs}; max_abs_err "
+                    f"h {errs[0]:.2e}, c {errs[1]:.2e}, gates {errs[2]:.2e} (float32 outputs; "
+                    f"tol {tol})")
+                if max(errs) > tol:
+                    raise RuntimeError(f"row 18 {dt_name} H = {hidden}: error {max(errs):.3e}")
+                seen.add(cs)
+        if seen != {1, 2, 4, 8}:
+            raise RuntimeError(f"the row 18 gate reached clusters of {sorted(seen)}")
+        del xp_r, wh_r, got, ref
 
-    def parts_ms(run, forward=False, tangent=False):
+    def parts_ms(run, forward=False, tangent=False, tangent_forward=False):
         """A layer-by-layer LSTM backward's (with `forward`, row 4's; with
-        `tangent`, row 11's) device time by part: run(pieces) on the card's
-        pieces, each piece between two CUDA events; medians of REPEATS
-        runs."""
+        `tangent`, row 11's; with `tangent_forward`, row 10's) device time by
+        part: run(pieces) on the card's pieces, each piece between two CUDA
+        events; medians of REPEATS runs."""
         marks = []
 
         def timed(fn, part):
@@ -1039,6 +1142,11 @@ def main() -> int:
             pieces = fls.ForwardPieces(
                 timed(fls.FWD_CARD_PIECES.product, lambda kw: "input products"),
                 timed(fls.FWD_CARD_PIECES.recurrence, lambda kw: "recurrences"))
+            return time_parts(run, pieces, marks)
+        if tangent_forward:
+            pieces = fh.HvpFwdPieces(
+                timed(fh.CARD_HVP_FWD_PIECES.product, lambda kw: "input products"),
+                timed(fh.CARD_HVP_FWD_PIECES.recurrence, lambda kw: "recurrences"))
             return time_parts(run, pieces, marks)
         if tangent:
             card = fh.CARD_TANGENT_PIECES
@@ -1612,6 +1720,36 @@ def main() -> int:
                     f"median of {REPEATS}): " + ", ".join(
                         f"{k} {v:.4f} ms" for k, v in row["parts_ms"].items())
                     + f"; launches a call {core11}  [{card}]")
+                # Row 10 alone: its launches a call (per layer a gemm_nn
+                # product and a tangent forward recurrence, from one C call;
+                # no gemm.cu GEMM), its device time by CUDA graph replay, by
+                # part, the host's time to enqueue a call.
+                fwd = fh.hvp_stack_fwd
+                before = (fwd.launches, fwd.recurrence_launches, fwd.gemm_nn_launches,
+                          gemm_nn.launches, gemm.launches)
+                row10()
+                core10 = {"calls": fwd.launches - before[0],
+                          "recurrences": fwd.recurrence_launches - before[1],
+                          "gemm_nn": fwd.gemm_nn_launches - before[2],
+                          "gemm_nn (all)": gemm_nn.launches - before[3],
+                          "gemm.cu": gemm.launches - before[4]}
+                want = {"calls": 1, "recurrences": n_l, "gemm_nn": n_l, "gemm_nn (all)": n_l,
+                        "gemm.cu": 0}
+                if core10 != want:
+                    raise RuntimeError(f"row 10 launched {core10} a call, not {want}")
+                with torch.no_grad():
+                    tan_fwd = {"call_ms": times["row10"][0], "device_ms": graph_ms(torch, row10),
+                               "enqueue_ms": enqueue_ms(torch, row10),
+                               "parts_ms": parts_ms(lambda p: fh.hvp_forward_schedule(
+                                   a["x"], a["tx"], a["wcat"], a["twcat"], a["tb2d"], m, keep, dt,
+                                   fwd_res, p), tangent_forward=True),
+                               "core_launches": core10}
+                log(f"row 10 {dt_name} [24, 512, 256] L=4, masks 0.2, from row 4: the call "
+                    f"{tan_fwd['call_ms']:.4f} ms, device {tan_fwd['device_ms']:.4f} ms (CUDA "
+                    f"graph replay), {tan_fwd['enqueue_ms']:.4f} ms to enqueue; by part (CUDA "
+                    f"events, median of {REPEATS}): " + ", ".join(
+                        f"{k} {v:.4f} ms" for k, v in tan_fwd["parts_ms"].items())
+                    + f"; launches a call {core10}  [{card}]")
                 if dt_name == "float32":
                     for name, k, plain, err in (
                             ("hvp_stack_fwd", "row10", "plain10", max(abs_errs[:4])),
@@ -1621,11 +1759,17 @@ def main() -> int:
                                           "profiler_ms": times[k][1]}
                     measured["hvp_stack_bwd"].update(
                         {k: v for k, v in row.items() if k != "call_ms"})
+                    measured["hvp_stack_fwd"].update(
+                        {k: v for k, v in tan_fwd.items() if k != "call_ms"})
                 else:
                     row["ms"] = times["row11"][0]
                     row["profiler_ms"] = times["row11"][1]
                     bf16_row11 = row
+                    tan_fwd["ms"] = times["row10"][0]
+                    tan_fwd["profiler_ms"] = times["row10"][1]
+                    bf16_row10 = tan_fwd
         measured["hvp_stack_bwd"]["bfloat16"] = bf16_row11
+        measured["hvp_stack_fwd"]["bfloat16"] = bf16_row10
         # Bytes each function must move (inputs read once, outputs written
         # once) and its operations: row 10 the [tangent | primal] operands
         # against [W; tW], 2 dot units; row 11 the same in the backward plus
@@ -1825,8 +1969,9 @@ def main() -> int:
         for fn in counters:
             fn.launches = fn.backward_launches = 0
         fh.hvp_stack_fwd.launches = fh.hvp_stack_bwd.launches = 0
-        bwd = fh.hvp_stack_bwd
+        bwd, fwd = fh.hvp_stack_bwd, fh.hvp_stack_fwd
         bwd.recurrence_launches = bwd.gemm_nn_launches = bwd.gemm_tn_launches = 0
+        fwd.recurrence_launches = fwd.gemm_nn_launches = 0
         so_logs = {"float32": meta_train("float32", 1, *so, out="so_float32"),
                    "bfloat16": meta_train("bfloat16", 1, *so, out="so_bfloat16")}
         so_logs["float32"] = meta_train("float32", 2, *so, "--resume", out="so_float32")
@@ -1836,11 +1981,14 @@ def main() -> int:
             so_launches[fn.__name__ + ".backward"] = fn.backward_launches
         so_launches["hvp_stack_fwd"] = fh.hvp_stack_fwd.launches
         so_launches["hvp_stack_bwd"] = fh.hvp_stack_bwd.launches
-        for piece, each in (("recurrence", n_l), ("gemm_nn", 2 * n_l), ("gemm_tn", 4 * n_l)):
-            so_launches[f"row 11 {piece}"] = getattr(bwd, f"{piece}_launches")
-            if so_launches[f"row 11 {piece}"] != each * bwd.launches:
-                raise RuntimeError(f"row 11 launched {so_launches[f'row 11 {piece}']} of its "
-                                   f"{piece} pieces in {bwd.launches} calls, not {each} a call")
+        for row, fn, piece, each in ((10, fwd, "recurrence", n_l), (10, fwd, "gemm_nn", n_l),
+                                     (11, bwd, "recurrence", n_l), (11, bwd, "gemm_nn", 2 * n_l),
+                                     (11, bwd, "gemm_tn", 4 * n_l)):
+            so_launches[f"row {row} {piece}"] = getattr(fn, f"{piece}_launches")
+            if so_launches[f"row {row} {piece}"] != each * fn.launches:
+                raise RuntimeError(f"row {row} launched {so_launches[f'row {row} {piece}']} of "
+                                   f"its {piece} pieces in {fn.launches} calls, not {each} a "
+                                   f"call")
         log(f"launches on the SO meta-training path (3 meta steps): {so_launches}")
         for name in ("hvp_stack_fwd", "hvp_stack_bwd"):
             if so_launches[name] != 3 * per_step:
@@ -2491,13 +2639,27 @@ def main() -> int:
             log(f"row 19 {dt_name}: device {dev19:.4f} ms (CUDA graph replay of its call)  "
                 f"[{card}]")
             del h19, c19, gates19, g19
+            # Row 18 alone (the training call: its gates kept): by CUDA events,
+            # its device time by CUDA graph replay, the host's time to enqueue
+            # it.
+            with torch.no_grad():
+                def row18():
+                    lstm_scan.scan_forward(xp, wh.detach(), dt, True)
+
+                row18_t = {"call_ms": cuda_ms(torch, row18), "device_ms": graph_ms(torch, row18),
+                           "enqueue_ms": enqueue_ms(torch, row18)}
+            log(f"row 18 {dt_name} xp [24, 512, 512]: the call {row18_t['call_ms']:.4f} ms, "
+                f"device {row18_t['device_ms']:.4f} ms (CUDA graph replay), "
+                f"{row18_t['enqueue_ms']:.4f} ms to enqueue  [{card}]")
             if dt_name == "float32":
                 measured["lstm_recurrence"] = {
                     "max_abs_err": fwd_err, "ms": times["kernel"][0],
-                    "plain_ms": times["plain"][0], "library_ms": None}
+                    "plain_ms": times["plain"][0], "library_ms": None, **row18_t}
                 measured["lstm_recurrence.backward"] = {
                     "max_abs_err": bwd_err, "ms": times["kernel"][1],
                     "plain_ms": times["plain"][1], "library_ms": None, "device_ms": dev19}
+            else:
+                measured["lstm_recurrence"]["bfloat16"] = row18_t
             del graphs
 
             # Row 20: the eval stack, at validate's 3 windows and at 1; the

@@ -269,8 +269,9 @@ def test_fo_meta_gradient_kernels_match_plain(dev):
         assert _rel(g, out["plain"][1][name]) <= tol, name
 
 
-def _r_op_inputs(dev, t_len, rows, c_in, hidden, layers, dropout, seed=0):
-    """Primals and tangents of the stack's R-operator, drawn with numpy."""
+def _r_op_inputs(dev, t_len, rows, c_in, hidden, layers, dropout, seed=0, w_scale=0.3):
+    """Primals and tangents of the stack's R-operator, drawn with numpy
+    (the weights and their tangents at w_scale)."""
     rng = np.random.default_rng(seed)
 
     def arr(shape, scale=1.0):
@@ -284,7 +285,8 @@ def _r_op_inputs(dev, t_len, rows, c_in, hidden, layers, dropout, seed=0):
         ).to(dev)
     return dict(
         x=arr((t_len, rows, c_in)), tx=arr((t_len, rows, c_in)),
-        wcat=[arr((k, 4 * hidden), 0.3) for k in ks], twcat=[arr((k, 4 * hidden), 0.3) for k in ks],
+        wcat=[arr((k, 4 * hidden), w_scale) for k in ks],
+        twcat=[arr((k, 4 * hidden), w_scale) for k in ks],
         b2d=arr((layers, 4 * hidden), 0.1), tb2d=arr((layers, 4 * hidden), 0.1),
         g=arr((rows, hidden)), tg=arr((rows, hidden)), masks=masks,
         keep=1.0 - dropout if masks is not None else 1.0,
@@ -494,12 +496,19 @@ def test_sharded_meta_gradient_matches_unsharded(dev):
 @pytest.mark.parametrize("shape", [(7, 100, 32), (7, 3000, 12), (24, 512, 128)])
 def test_lstm_recurrence_kernels_match_plain(dev, dtype, shape):
     """Rows 18-19: h_all, dxp and dwh against the plain recurrence under
-    autograd, at row counts that pick each row tile."""
+    autograd, at row counts that pick each row tile. Hidden 12 under
+    bfloat16 is refused (row 18's cluster recurrence loads the bfloat16 h
+    tile 8 units at a time); under float32 it runs."""
     t_len, rows, hidden = shape
     draw = np.random.default_rng(7)
     xp = torch.from_numpy(draw.normal(size=(t_len, rows, 4 * hidden)).astype(np.float32)).to(dev)
     wh = torch.from_numpy((draw.normal(size=(hidden, 4 * hidden)) * 0.1).astype(np.float32)
                           ).to(dev).requires_grad_(True)
+    if dtype == torch.bfloat16 and hidden % 8:
+        with pytest.raises(ValueError, match="bfloat16 compute at hidden widths that are "
+                                             "multiples of 8"):
+            lstm_scan.lstm_recurrence(xp, wh, compute_dtype=dtype)
+        return
     before = (lstm_scan.lstm_recurrence.launches, lstm_scan.lstm_recurrence.backward_launches)
     got, got_g = _fwd_bwd(lambda a: lstm_scan.lstm_recurrence(a, wh, compute_dtype=dtype),
                           [xp], [wh])
@@ -509,6 +518,28 @@ def test_lstm_recurrence_kernels_match_plain(dev, dtype, shape):
     torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
     for i, (g, r) in enumerate(zip(got_g, ref_g)):
         assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,hidden", [(512, 128), (1024, 128), (441, 128), (48, 64),
+                                         (48, 256), (100, 32)])
+def test_lstm_recurrence_forward_matches_its_plain_piece(dev, dtype, rows, hidden):
+    """Row 18 alone (`scan_forward`, the cluster forward recurrence by
+    `forward_plan`: clusters of 1, 2, 4 and 8, row tiles of 2-16) against
+    `scan_forward_plain`: h_all, c_all (float32 under either compute dtype)
+    and the gates; without a backward no gates are kept."""
+    xp = _card(dev, (24, rows, 4 * hidden), seed=rows)
+    wh = _card(dev, (hidden, 4 * hidden), seed=hidden, scale=hidden ** -0.5)
+    before = lstm_scan.lstm_recurrence.launches
+    got = lstm_scan.scan_forward(xp, wh, dtype, True)
+    assert lstm_scan.lstm_recurrence.launches == before + 1
+    ref = lstm_scan.scan_forward_plain(xp, wh, dtype, True)
+    for name, g, r in zip(("h_all", "c_all", "gates"), got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape, name
+        torch.testing.assert_close(g, r, rtol=TOL[dtype], atol=TOL[dtype], msg=name)
+    h, c, gates = lstm_scan.scan_forward(xp, wh, dtype, False)
+    assert gates is None and torch.equal(h, got[0]) and torch.equal(c, got[1])
 
 
 @pytest.mark.cuda
@@ -1372,8 +1403,8 @@ def test_forward_recurrence_refuses_a_plan_it_does_not_take(dev):
     lib = cuda_build.load()
     for plan in ((1, 64, 2), (2, 64, 3), (1, 128, 16)):  # 128 units; rb 3; 256 KB of f32
         err = lib.wf_lstm_stack_forward_recurrence(fused_lstm_stack._SCAN_FWD.pack(
-            0, *plan, gates.data_ptr(), wh.data_ptr(), 512, bias.data_ptr(), h.data_ptr(),
-            h.data_ptr(), 0, 1.0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev)))
+            0, *plan, gates.data_ptr(), gates.data_ptr(), wh.data_ptr(), 512, bias.data_ptr(),
+            h.data_ptr(), h.data_ptr(), 0, 0, 1.0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev)))
         with pytest.raises(RuntimeError, match="invalid argument"):
             cuda_build.check(err, f"plan {plan}")
 
@@ -1522,3 +1553,110 @@ def test_hvp_backward_schedule_at_full_width(dev, dtype, layers, dropout):
         assert torch.equal(g, s), i
         assert _rel(g, r) <= tol and _rel(g, p) <= tol, (i, _rel(g, r), _rel(g, p))
 
+
+
+# Row 10 layer by layer: per layer one product of two operand pairs on the
+# core and the tangent forward recurrence of csrc/lstm_scan_fwd_tan.cu, all
+# enqueued by one C call.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+@pytest.mark.parametrize("below_top", [True, False])
+def test_tangent_forward_recurrence_cluster_sizes_match_plain(dev, dtype, hidden, below_top):
+    """Row 10's tangent forward recurrence alone against its plain version
+    at 48 rows, 7 steps: clusters of 1, 2, 4 and 8 blocks; the gates'
+    tangents, th, tc, and below the top layer the next layer's [tin | in |
+    h a step back] with a mask, at the top the last th."""
+    fh = fused_lstm_hvp
+    cs, hcp, rb = fh.tangent_forward_plan(hidden, 48, dtype.itemsize, fused_lstm_stack._sms(dev))
+    assert cs == CLUSTER[(dtype, hidden)] and rb <= 8
+    assert cuda_build.load().wf_lstm_tangent_forward_clusters(
+        cuda_build.dtype_code(dtype), cs, hcp, rb, hidden) > 0
+    _, gates, c, wh = _recurrence_inputs(dev, 7, 48, hidden, hidden)
+    ds = _card(dev, (7, 48, 4 * hidden), seed=hidden + 30, scale=0.3)
+    h, h_next = (_card(dev, (7, 48, hidden), seed=hidden + i).to(dtype) for i in (31, 34))
+    tb = _card(dev, (4 * hidden,), seed=hidden + 32, scale=0.1)
+    mask = (_card(dev, (7, 48, hidden), seed=hidden + 33) > -0.84).to(torch.int8)
+    outs = {}
+    for name, piece in (("kernel", fh._tangent_forward_recurrence_card),
+                        ("plain", fh._tangent_forward_recurrence_plain)):
+        tgates = ds.clone()
+        th, tc = (torch.empty((7, 48, hidden), dtype=dtype, device=dev) for _ in range(2))
+        extra = (dict(mask=mask, inv_keep=1.25,
+                      next_in=torch.empty((7, 48, 3 * hidden), dtype=dtype, device=dev))
+                 if below_top else dict(th_last=torch.empty((48, hidden), device=dev)))
+        piece(tgates, gates, c.to(dtype), h, h_next, wh, tb, dtype, th, tc, **extra)
+        outs[name] = (tgates, th, tc, extra["next_in" if below_top else "th_last"])
+    for i, (a, b) in enumerate(zip(outs["kernel"], outs["plain"])):
+        assert _rel(a, b) <= TOL[dtype], (i, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_tangent_forward_recurrence_refuses_a_plan_it_does_not_take(dev):
+    """A plan whose weight columns do not hold a block's units, a row tile
+    it is not built for (16: its tiles stop at 8), tiles beyond shared
+    memory, a mask without the next input, the next input without the next
+    layer's h: nothing launches."""
+    t = _card(dev, (3, 8, 512))
+    wh = _card(dev, (128, 512))
+    h = torch.empty((3, 8, 128), device=dev)
+    lib = cuda_build.load()
+    mask = torch.ones((3, 8, 128), dtype=torch.int8, device=dev)
+    nx = torch.empty((3, 8, 384), device=dev)
+    for plan, m, n in (((1, 64, 2), None, None), ((2, 64, 16), None, None),
+                       ((1, 128, 8), None, None), ((2, 64, 8), mask, None),
+                       ((2, 64, 8), None, nx)):
+        err = lib.wf_lstm_tangent_forward_recurrence(fused_lstm_hvp._SCAN_FWD_TAN.pack(
+            0, *plan, t.data_ptr(), t.data_ptr(), h.data_ptr(), h.data_ptr(), 0, wh.data_ptr(),
+            512, t.data_ptr(), h.data_ptr(), h.data_ptr(), 0 if m is None else m.data_ptr(), 1.0,
+            0 if n is None else n.data_ptr(), 0, 3, 8, 128, cuda_build.stream_ptr(dev)))
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cuda_build.check(err, f"plan {plan}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,layers,dropout", [(512, 4, 0.2), (512, 4, 0.0), (512, 1, 0.0),
+                                                 (1024, 2, 0.2)])
+def test_hvp_forward_schedule_at_full_width(dev, dtype, rows, layers, dropout):
+    """Row 10 at the inner step's shapes (24 steps, input 256, hidden 128)
+    from row 4 at the same point, against its schedule on the plain pieces
+    (the tangents at 1e-4 relative in float32): L gemm_nn and L tangent
+    recurrence launches from one call, no gemm.cu GEMM; the same schedule a
+    launch at a time (`CARD_HVP_FWD_PIECES`) and a second call give the same
+    bits. Weights at 0.3 (gates saturated) and at 0.1 (chip_smoke.py's
+    scale, near the model's initial weights); at 0.1 also against the
+    stage-by-stage `hvp_fwd_plain`. At 0.3 the 96 chained stages amplify the
+    schedule's float32 reordering to ~1e-4 of the stage-by-stage sums, and
+    bfloat16's rounded c (the kernel reads row 4's c_all, as JAX's residual
+    contract stores it) to ~9e-2 of `hvp_fwd_plain`'s unrounded c."""
+    fh = fused_lstm_hvp
+    fwd = fh.hvp_stack_fwd
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    for w_scale in (0.3, 0.1):
+        a = _r_op_inputs(dev, 24, rows, 256, 128, layers, dropout, seed=layers, w_scale=w_scale)
+        m, keep = a["masks"], a["keep"]
+        args = (a["x"], a["tx"], a["wcat"], a["twcat"], a["b2d"], a["tb2d"], m, keep, dtype)
+        with torch.no_grad():
+            res = fh.stack_fwd(a["x"], a["wcat"], a["b2d"], m, keep, dtype)[1:]
+            before = (fwd.launches, fwd.recurrence_launches, fwd.gemm_nn_launches,
+                      gemm_nn.launches, gemm.launches)
+            got = fh.hvp_stack_fwd(*args, res=res)
+            assert (fwd.launches, fwd.recurrence_launches, fwd.gemm_nn_launches,
+                    gemm_nn.launches, gemm.launches) == (before[0] + 1, before[1] + layers,
+                                                         before[2] + layers, before[3] + layers,
+                                                         before[4])
+            again = fh.hvp_stack_fwd(*args, res=res)
+            sched = (a["x"], a["tx"], a["wcat"], a["twcat"], a["tb2d"], m, keep, dtype, res)
+            pieces = fh.hvp_forward_schedule(*sched, fh.CARD_HVP_FWD_PIECES)
+            ref = fh.hvp_forward_schedule(*sched, fh.PLAIN_HVP_FWD_PIECES)
+            plain = (fh.hvp_fwd_plain(a["x"], a["wcat"], a["b2d"], m, keep, dtype, a["tx"],
+                                      a["twcat"], a["tb2d"])[4:] if w_scale == 0.1 else ref)
+        for name, g, s, p, r, q in zip(("th_last", "th_all", "tc_all", "tgates"), got, again,
+                                       pieces, ref, plain):
+            assert g.dtype == r.dtype and g.shape == r.shape == q.shape, name
+            assert torch.equal(g, s) and torch.equal(g, p), name
+            assert _rel(g, r) <= tol and _rel(g, q) <= tol, (w_scale, name, _rel(g, r),
+                                                             _rel(g, q))

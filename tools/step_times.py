@@ -24,11 +24,14 @@ model's [T, B, C] view, 4 layers of 128, masks at rate 0.2) and the
 unmerged-gates forward alone (row 14, the same weights as separate Wx and
 Wh arrays) the same ways, with the host's time to enqueue a call (median of
 20) and cuDNN's LSTM forward beside them by events and by CUDA graph
-replay; the tangent of the merged stack's backward alone (row 11 at x [24,
-512, 256], 4 layers of 128, masks at rate 0.2, from rows 4, 10 and 5 at the
-same point) by events, by CUDA graph replay and by the host's time to
-enqueue a call; and one call of the serving GCN stack (kernel row 1, [72,
-512, 24] -> 4 x 256) in float32 and bfloat16. Run it on two checkouts in
+replay; the tangent of the merged stack's forward alone (row 10 at x [24,
+512, 256], 4 layers of 128, masks at rate 0.2, from row 4 at the same
+point) and of its backward (row 11, from rows 4, 10 and 5) by events, by
+CUDA graph replay and by the host's time to enqueue a call; one layer's
+recurrence alone (row 18, the `lstm_kernel=pallas` route's forward: xp
+[24, 512, 512], its gates kept) the same ways; and one call of the serving
+GCN stack (kernel row 1, [72, 512, 24] -> 4 x 256) in float32 and
+bfloat16. Run it on two checkouts in
 turns (A, B, B, A) in one call on one card: the card's host varies between
 calls. `--cpu` is a dry run of the same code on the CPU (the plain
 versions, one inner step a task, gloo; no times).
@@ -66,7 +69,11 @@ from weatherforecast_stgcn_maml_tpu_torch.models.registry import (  # noqa: E402
     draw_masks,
     init_model,
 )
-from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp, fused_lstm_stack  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.ops import (  # noqa: E402
+    fused_lstm_hvp,
+    fused_lstm_stack,
+    lstm_scan,
+)
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import fused_gcn_stack  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed  # noqa: E402
@@ -301,7 +308,7 @@ with torch.inference_mode():
     for dt in (torch.float32, torch.bfloat16):
         res[f"row 1 {str(dt)[6:]} call ms"] = host_ms(
             lambda: fused_gcn_stack(model.encoder.layers, a_hat, x, compute_dtype=dt))
-if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; row 11 alone
+if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; rows 10, 11 and 18 alone
     n, lh, n_l, hid = 512, cfg.lstm_hidden, cfg.lstm_layers, cfg.hidden_channels
     draw = torch.Generator(device=dev).manual_seed(6)
     x4 = torch.randn((n, cfg.window, hid), generator=draw, device=dev)
@@ -318,6 +325,8 @@ if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; row 11 alone
     x_tbc = x4.transpose(0, 1)
     tx, g_r, tg_r = (torch.randn(shape, generator=draw, device=dev)
                      for shape in ((cfg.window, n, hid), (n, lh), (n, lh)))
+    xp18 = torch.randn((cfg.window, n, 4 * lh), generator=draw, device=dev)
+    wh18 = wcat[1][lh:]
     cudnn = torch.nn.LSTM(hid, lh, n_l, batch_first=True).to(dev)
     torch.backends.cudnn.allow_tf32 = False
     fh = fused_lstm_hvp
@@ -336,11 +345,19 @@ if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; row 11 alone
                                                          dt, res=(h_all, c_all, gates))
             bwd_res = fh.stack_bwd(g_r, x_c, h_all, c_all, gates, wcat, m, 0.8, dt)[3:]
 
+            def row10():
+                fh.hvp_stack_fwd(x_c, tx, wcat, twcat, b2d, tb2d, m, 0.8, dt,
+                                 res=(h_all, c_all, gates))
+
             def row11():
                 fh.hvp_stack_bwd(g_r, tg_r, x_c, tx, h_all, th_all, c_all, tc_all, gates, tgates,
                                  wcat, twcat, m, 0.8, dt, res=bwd_res)
 
-            for row, fn in (("row 4", row4), ("row 14", row14), ("row 11", row11)):
+            def row18():
+                lstm_scan.scan_forward(xp18, wh18, dt, True)
+
+            for row, fn in (("row 4", row4), ("row 14", row14), ("row 10", row10),
+                            ("row 11", row11), ("row 18", row18)):
                 name = f"{row} {str(dt)[6:]}"
                 res[f"{name} ms"] = events_ms(fn)
                 res[f"{name} device ms"] = graph_ms(fn)
@@ -349,7 +366,7 @@ if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; row 11 alone
             lib = cudnn.to(dt)
             res[f"cuDNN forward {str(dt)[6:]} ms"] = events_ms(lambda: lib(x4.to(dt)))
             res[f"cuDNN forward {str(dt)[6:]} device ms"] = graph_ms(lambda: lib(x4.to(dt)))
-    del x4, wcat, twcat, cudnn
+    del x4, wcat, twcat, cudnn, xp18
 res["seconds"] = time.perf_counter() - t_start
 torch.distributed.destroy_process_group()
 print(json.dumps(res), flush=True)

@@ -20,10 +20,10 @@
 // scratch from the wrapper, 100 MB and 25 MB at B = 1536): per layer,
 //   1. the projection, on the hand-written GEMM of gemm.cu (wf_gemm, the
 //      bias added in its epilogue), over all B * T rows at once;
-//   2. the recurrence, the device code row 18 runs (lstm_recurrence.cuh),
-//      reading xp batch-major and writing the h sequence batch-major, so
-//      the next layer's projection reads it as one [B * T, H] matrix; the
-//      top layer writes only its last h.
+//   2. the recurrence (lstm_recurrence.cuh), reading xp batch-major and
+//      writing the h sequence batch-major, so the next layer's projection
+//      reads it as one [B * T, H] matrix; the top layer writes only its
+//      last h.
 // One C call runs all 2L launches.
 //
 // Bound at the serving shape [1536, 24, 256], 4 layers of 128: 43.5 GFLOP

@@ -1,5 +1,6 @@
-// One LSTM layer's recurrence, forward: the device code that kernel rows 18
-// (lstm_scan.cu) and 20 (fused_lstm.cu) share.
+// One LSTM layer's recurrence, forward: the device code of kernel row 20
+// (fused_lstm.cu). Row 18 runs on the cluster forward recurrence of
+// lstm_scan_fwd.cuh instead.
 //
 // Given the input projection xp = x @ Wx + b (float32, computed outside the
 // recurrence), it walks t = 0 .. T-1 with zero carries at t = 0:
@@ -19,7 +20,7 @@
 // read by every thread of the next step's contraction. Wh (256 KB in
 // float32 at H = 128) does not fit next to it in a block's 227 KB, so every
 // step streams it from L2 in double-buffered cp.async tiles (contract() of
-// common.cuh), as rows 4, 5, 10 and 11 do.
+// common.cuh).
 #pragma once
 
 #include "common.cuh"

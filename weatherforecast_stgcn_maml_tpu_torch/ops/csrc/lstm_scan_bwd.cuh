@@ -11,7 +11,7 @@
 //     dh_carry = round(dgates) @ round(Wh)^T;  dc_carry = dc * f
 // and writes dgates [T, R, 4H] float32 and, where asked, each step's dh and
 // dc (before the * f) [T, R, H] float32: the carries the second-order
-// backward (fused_lstm_hvp.cu) reads; and, where asked, the bias gradient's
+// backward (lstm_scan_tan.cu) reads; and, where asked, the bias gradient's
 // partials: the float32 column sums of dgates over every step and the rows
 // of each row tile. The arithmetic is JAX's
 // (weatherforecast_stgcn_maml_tpu/ops/): `fused_lstm_stack._bwd_kernel_m`

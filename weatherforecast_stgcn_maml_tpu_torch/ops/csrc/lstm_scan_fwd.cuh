@@ -1,21 +1,24 @@
 // One LSTM layer's forward recurrence, kept in a thread-block cluster: the
-// serial part of kernel row 4 (the merged stack's training forward), which
-// ops/fused_lstm_stack.py `forward_schedule` and the C entry of
-// lstm_stack_fwd.cu walk layer by layer.
+// serial part of kernel rows 4 (the merged stack's training forward) and 14
+// (the unmerged-gates stack's), which ops/fused_lstm_stack.py
+// `forward_schedule` and the C entry of lstm_stack_fwd.cu walk layer by
+// layer, and the whole of row 18 (one layer's recurrence, ops/lstm_scan.py).
 //
 // From xp [T, R, 4H] float32, round(in) @ round(Wx) of every step and row
-// (gemm_nn.cu's product, without the bias), it walks t = 0 .. T-1 with h / c
-// carries (zero at t = 0):
+// (gemm_nn.cu's product, without the bias; row 18's xp holds the bias), it
+// walks t = 0 .. T-1 with h / c carries (zero at t = 0):
 //     gates = act((xp[t] + b) + round(h_{t-1}) @ round(Wh))   (i, f, g, o)
 //     c = f * c + i * g;  h = o * tanh(c)
-// and writes the activated gates over xp in place (float32, the backward's
-// residual), round(h) and round(c) [T, R, H] in the compute dtype, where a
-// mask is given the next layer's input round(h * mask * inv_keep) [T, R, H]
-// in the compute dtype (JAX's rounding point: from the float32 h, not from
-// round(h)), and where asked the last step's h [R, H] in float32. The
-// arithmetic is JAX's `fused_lstm_stack._fwd_kernel_m`
-// (weatherforecast_stgcn_maml_tpu/ops/), which walks all T x L stages as one
-// chain with one [in | h] @ [[Wx], [Wh]] contraction a stage; here the
+// and writes the activated gates (float32, the backward's residual: over xp
+// in place for rows 4 and 14, to an array of their own for row 18, or
+// nowhere), h and c [T, R, H] in the compute dtype (rounded) or, for row
+// 18, in float32, where a mask is given the next layer's input
+// round(h * mask * inv_keep) [T, R, H] in the compute dtype (JAX's rounding
+// point: from the float32 h, not from round(h)), and where asked the last
+// step's h [R, H] in float32. The arithmetic is JAX's
+// `fused_lstm_stack._fwd_kernel_m` (weatherforecast_stgcn_maml_tpu/ops/),
+// which walks all T x L stages as one chain with one [in | h] @ [[Wx],
+// [Wh]] contraction a stage, and `lstm_scan._fwd_kernel` (row 18); here the
 // input half is one product a layer off the chain, and this recurrence
 // contracts only round(h_{t-1}) with Wh.
 //
@@ -43,7 +46,10 @@
 // step t-1's tile. The grid is clusters x row tiles, sized
 // (ops/fused_lstm_stack.py `forward_plan`) to fill the SMs in one wave: at R
 // = 512, 64 clusters of 2 blocks x 8 rows in float32, 128 blocks x 4 rows in
-// bfloat16; R = 1024 (the adaptation step) doubles the rows a cluster.
+// bfloat16; R = 1024 (the adaptation step) doubles the rows a cluster. The
+// slice copy, the contraction, the partials' sum and the tile exchange are
+// helpers (scan_fwd_*) that the tangent forward recurrence of row 10
+// (lstm_scan_fwd_tan.cu) shares.
 #pragma once
 
 #include "lstm_scan_bwd.cuh"
@@ -53,12 +59,14 @@ namespace wf {
 namespace {
 
 struct ScanFwd {
-  float* gates;        // [T, R, 4H] in: round(in) @ round(Wx); out: the activated gates
+  const float* xp;     // [T, R, 4H] round(in) @ round(Wx) (row 18: + the bias)
+  float* gates;        // [T, R, 4H] the activated gates (xp itself: in place), or null
   const void* wh;      // Wh [H, 4H] in the compute dtype, row stride ldw
   long long ldw;
-  const float* bias;   // [4H]
-  void* h_all;         // [T, R, H] round(h), compute dtype
-  void* c_all;         // [T, R, H] round(c), compute dtype
+  const float* bias;   // [4H], or null (xp holds it)
+  void* h_all;         // [T, R, H] h, c: rounded to the compute dtype, or
+  void* c_all;         //   float32 where out_f32 is set
+  int out_f32;
   const int8_t* mask;  // [T, R, H] the next layer's dropout mask, or null
   float inv_keep;
   void* next_in;       // [T, R, H] round(h * mask * inv_keep), compute dtype (with mask)
@@ -84,6 +92,90 @@ __device__ __forceinline__ void cp_async_units(TW* dst, const TW* src, bool ok) 
                : "memory");
 }
 
+// The block's weight slice: Wh[k, q*H + j0 + u] at w_s[(k*4 + q)*HCP + u]
+// for its nu units, the columns past them zero-filled, by cp.async as one
+// group: it lands while step 0 runs (cp.async.wait_all before step 1).
+template <typename TW, int HCP>
+__device__ __forceinline__ void scan_fwd_copy_slice(TW* w_s, const void* wh_, long long ldw,
+                                                    int H, int j0, int nu) {
+  const TW* wh = static_cast<const TW*>(wh_);
+  constexpr int G = HCP / 4;  // 4-unit groups of a (k, gate) row
+  for (int i = threadIdx.x; i < H * 4 * G; i += kScanThreads) {
+    const int k = i / (4 * G), q = (i / G) % 4, u = (i % G) * 4;
+    const bool ok = u < nu;
+    cp_async_units(w_s + ((size_t)k * 4 + q) * HCP + u,
+                   ok ? wh + (size_t)k * ldw + q * H + j0 + u : wh, ok);
+  }
+  cp_async_commit();
+}
+
+// Partial gates of this block's units: the round(h_{t-1}) tile hb [RB, H]
+// x the slice [H, HCP] of gate q = warp % 4 over K half warp / 4 (lane:
+// units lane*UPT .. +UPT-1 of every row, the h row read as broadcast
+// 16-byte loads), into part [2, 4, RB, HCP] (`scan_fwd_partial` adds the
+// halves).
+template <typename TW, int UPT, int RB>
+__device__ __forceinline__ void scan_fwd_contract(const TW* hb, const TW* w_s, float* part, int H,
+                                                  int warp, int lane) {
+  constexpr int HCP = 32 * UPT;
+  constexpr int VK = 16 / sizeof(TW);  // k values a 16-byte load of an h row
+  const int q = warp & 3, kh = warp >> 2;
+  float acc[RB][UPT];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int p = 0; p < UPT; ++p) acc[r][p] = 0.f;
+  const int nch = H / VK;
+  const int c_hi = (kh + 1) * nch / 2;
+  const TW* wl = w_s + (size_t)q * HCP + lane * UPT;
+  for (int c = kh * nch / 2; c < c_hi; ++c) {
+    const int k = c * VK;
+    float w[VK][UPT];
+#pragma unroll
+    for (int u = 0; u < VK; ++u) load_units<UPT>(wl + (size_t)(k + u) * 4 * HCP, w[u]);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      float av[VK];
+      load_k(hb + (size_t)r * H + k, av);
+#pragma unroll
+      for (int u = 0; u < VK; ++u)
+#pragma unroll
+        for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], w[u][p], acc[r][p]);
+    }
+  }
+  float* pw = part + (size_t)(kh * 4 + q) * RB * HCP + lane * UPT;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
+}
+
+// Gate q's product of row r, units u .. u+3 (u from the block's first
+// unit): the two K halves added in order.
+template <int RB, int HCP>
+__device__ __forceinline__ float4 scan_fwd_partial(const float* part, int q, int r, int u) {
+  const float* pp = part + ((size_t)q * RB + r) * HCP + u;
+  return add4(load4(pp), load4(pp + (size_t)4 * RB * HCP));
+}
+
+// round(v) of 4 units of one row into the tile at `loc` of every block of
+// the cluster (distributed shared memory).
+template <typename TW>
+__device__ __forceinline__ void scan_fwd_share(cg::cluster_group& cluster, TW* loc, float4 v,
+                                               int cs) {
+  for (int b = 0; b < cs; ++b) store4(cluster.map_shared_rank(loc, b), v);
+}
+
+// The (row, 4 units) pairs of thread tid, pair tid + e * 256 for e < EPT:
+// row pr[e] of the tile (-1: none) and first unit pj[e].
+template <int RB, int EPT>
+__device__ __forceinline__ void scan_fwd_pairs(int nq, int j0, int (&pr)[EPT], int (&pj)[EPT]) {
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int p = threadIdx.x + e * kScanThreads;
+    pr[e] = nq > 0 && p < RB * nq ? p / nq : -1;
+    pj[e] = nq > 0 ? j0 + 4 * (p % nq) : 0;
+  }
+}
+
 // The cell of one unit: its activated gates into a[0..3], c and h updated.
 __device__ __forceinline__ void cell_fwd(float pi, float pf, float pg, float po, float& c,
                                          float& h, float (&a)[4]) {
@@ -101,7 +193,6 @@ template <typename TW, int UPT, int RB>
 __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const ScanFwd a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int HCP = 32 * UPT;
-  constexpr int VK = 16 / sizeof(TW);  // k values a 16-byte load of an h row
   constexpr int EPT = (RB * HCP / 4 + kScanThreads - 1) / kScanThreads;  // (row, 4 units) a thread
   cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, R = a.R, H = a.H, g4 = 4 * H;
@@ -116,37 +207,22 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
   TW* h_s = w_s + (size_t)H * 4 * HCP;                      // [2, RB, H]
   float* part = reinterpret_cast<float*>(h_s + (size_t)2 * RB * H);  // [2, 4, RB, HCP]
 
-  // The weight slice: Wh[k, q*H + j0 + u] at w_s[(k*4 + q)*HCP + u], units
-  // past the block's own zero-filled; it lands while step 0 runs.
-  if (T > 1) {
-    const TW* wh = static_cast<const TW*>(a.wh);
-    constexpr int G = HCP / 4;  // 4-unit groups of a (k, gate) row
-    for (int i = tid; i < H * 4 * G; i += kScanThreads) {
-      const int k = i / (4 * G), q = (i / G) % 4, u = (i % G) * 4;
-      const bool ok = u < nu;
-      cp_async_units(w_s + ((size_t)k * 4 + q) * HCP + u,
-                     ok ? wh + (size_t)k * a.ldw + q * H + j0 + u : wh, ok);
-    }
-    cp_async_commit();
-  }
+  if (T > 1) scan_fwd_copy_slice<TW, HCP>(w_s, a.wh, a.ldw, H, j0, nu);
 
-  // Thread tid owns (row r, units j .. j+3) for e < EPT: pair tid + e * 256.
   int pr[EPT], pj[EPT];
+  scan_fwd_pairs<RB, EPT>(nq, j0, pr, pj);
   float4 xp[EPT][4], bias[EPT][4], cc[EPT];
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
-    const int p = tid + e * kScanThreads;
-    pr[e] = nq > 0 && p < RB * nq ? p / nq : -1;
-    pj[e] = nq > 0 ? j0 + 4 * (p % nq) : 0;
     cc[e] = zero;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       xp[e][q] = zero;
-      bias[e][q] = pr[e] >= 0 ? load4(a.bias + q * H + pj[e]) : zero;
+      bias[e][q] = pr[e] >= 0 && a.bias ? load4(a.bias + q * H + pj[e]) : zero;
     }
     if (pr[e] >= 0 && row0 + pr[e] < R) {
-      const float* gt = a.gates + (size_t)(row0 + pr[e]) * g4 + pj[e];
+      const float* gt = a.xp + (size_t)(row0 + pr[e]) * g4 + pj[e];
 #pragma unroll
       for (int q = 0; q < 4; ++q) xp[e][q] = load4(gt + q * H);
     }
@@ -154,36 +230,8 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
 
   for (int t = 0; t < T; ++t) {
     if (t > 0) {
-      // Partial gates of this block's units: round(h_{t-1}) [RB, H] x the
-      // slice [H, HCP] of gate q = warp % 4 over K half warp / 4.
-      const TW* hb = h_s + (size_t)((t - 1) & 1) * RB * H;
-      const int q = warp & 3, kh = warp >> 2;
-      float acc[RB][UPT];
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int p = 0; p < UPT; ++p) acc[r][p] = 0.f;
-      const int nch = H / VK;
-      const int c_hi = (kh + 1) * nch / 2;
-      const TW* wl = w_s + (size_t)q * HCP + lane * UPT;
-      for (int c = kh * nch / 2; c < c_hi; ++c) {
-        const int k = c * VK;
-        float w[VK][UPT];
-#pragma unroll
-        for (int u = 0; u < VK; ++u) load_units<UPT>(wl + (size_t)(k + u) * 4 * HCP, w[u]);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          float av[VK];
-          load_k(hb + (size_t)r * H + k, av);
-#pragma unroll
-          for (int u = 0; u < VK; ++u)
-#pragma unroll
-            for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], w[u][p], acc[r][p]);
-        }
-      }
-      float* pw = part + (size_t)(kh * 4 + q) * RB * HCP + lane * UPT;
-#pragma unroll
-      for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
+      scan_fwd_contract<TW, UPT, RB>(h_s + (size_t)((t - 1) & 1) * RB * H, w_s, part, H, warp,
+                                     lane);
       __syncthreads();  // the partials visible to the threads that own the units
     }
 
@@ -196,10 +244,7 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         pre[q] = add4(xp[e][q], bias[e][q]);
-        if (t > 0) {
-          const float* pp = part + ((size_t)q * RB + r) * HCP + (j - j0);
-          pre[q] = add4(pre[q], add4(load4(pp), load4(pp + (size_t)4 * RB * HCP)));
-        }
+        if (t > 0) pre[q] = add4(pre[q], scan_fwd_partial<RB, HCP>(part, q, r, j - j0));
       }
       float act[4][4];  // [unit][gate]
       float4 h;
@@ -208,13 +253,20 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
       cell_fwd(pre[0].z, pre[1].z, pre[2].z, pre[3].z, cc[e].z, h.z, act[2]);
       cell_fwd(pre[0].w, pre[1].w, pre[2].w, pre[3].w, cc[e].w, h.w, act[3]);
       if (row < R) {
-        float* gt = a.gates + ((size_t)t * R + row) * g4 + j;
+        if (a.gates) {
+          float* gt = a.gates + ((size_t)t * R + row) * g4 + j;
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          store4(gt + q * H, make_float4(act[0][q], act[1][q], act[2][q], act[3][q]));
+          for (int q = 0; q < 4; ++q)
+            store4(gt + q * H, make_float4(act[0][q], act[1][q], act[2][q], act[3][q]));
+        }
         const size_t o = ((size_t)t * R + row) * H + j;
-        store4(static_cast<TW*>(a.h_all) + o, h);
-        store4(static_cast<TW*>(a.c_all) + o, cc[e]);
+        if (std::is_same<TW, float>::value || a.out_f32) {
+          store4(static_cast<float*>(a.h_all) + o, h);
+          store4(static_cast<float*>(a.c_all) + o, cc[e]);
+        } else {
+          store4(static_cast<TW*>(a.h_all) + o, h);
+          store4(static_cast<TW*>(a.c_all) + o, cc[e]);
+        }
         if (a.next_in) {
           const char4 m = *reinterpret_cast<const char4*>(a.mask + o);
           store4(static_cast<TW*>(a.next_in) + o,
@@ -223,10 +275,8 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
         }
         if (a.h_last && t == T - 1) store4(a.h_last + (size_t)row * H + j, h);
       }
-      if (t + 1 < T) {  // round(h_t) into every block's tile (rows past R too)
-        TW* loc = hn + (size_t)r * H + j;
-        for (int b = 0; b < a.cs; ++b) store4(cluster.map_shared_rank(loc, b), h);
-      }
+      // round(h_t) into every block's tile (rows past R too)
+      if (t + 1 < T) scan_fwd_share(cluster, hn + (size_t)r * H + j, h, a.cs);
     }
     if (t + 1 == T) break;
     // One cluster barrier a step: every block's tile of step t written (the
@@ -237,7 +287,7 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       if (pr[e] < 0 || row0 + pr[e] >= R) continue;
-      const float* gt = a.gates + ((size_t)(t + 1) * R + row0 + pr[e]) * g4 + pj[e];
+      const float* gt = a.xp + ((size_t)(t + 1) * R + row0 + pr[e]) * g4 + pj[e];
 #pragma unroll
       for (int q = 0; q < 4; ++q) xp[e][q] = load4(gt + q * H);
     }
@@ -287,31 +337,44 @@ int scan_fwd_hcp(int hcp, int rb, const ScanFwd& a, cudaStream_t s, int* max_clu
   return (int)cudaErrorInvalidValue;
 }
 
+// Whether a forward recurrence's plan (a cs-block cluster, hcp weight
+// columns a block and gate, rb rows a cluster) and shape are ones the
+// kernels take: cs 1, 2, 4 or 8, hcp 32, 64 or 128 and at least
+// scan_units(H, cs), rb among `tiles` (a bit a row tile: 2, 4, 8, 16),
+// within 227 KB of shared memory; H a multiple of 4 in float32 and of 8 in
+// bfloat16 (the h tile's 16-byte loads).
+inline bool scan_fwd_plan_ok(bool bf16, int hcp, int rb, int cs, int T, int R, int H,
+                             unsigned tiles) {
+  return (hcp == 32 || hcp == 64 || hcp == 128) && (rb == 2 || rb == 4 || rb == 8 || rb == 16) &&
+         (tiles & (unsigned)rb) && (cs == 1 || cs == 2 || cs == 4 || cs == 8) && T > 0 && R > 0 &&
+         H > 0 && H % (bf16 ? 8 : 4) == 0 && scan_units(H, cs) <= hcp &&
+         (R + rb - 1) / rb <= 65535 && scan_fwd_smem(H, hcp, rb, bf16 ? 2 : 4) <= kScanMaxSmem;
+}
+
 // Launch one forward recurrence on `stream` (or, with max_clusters, ask the
 // occupancy of its clusters): w_dt (0 = float32, 1 = bfloat16) is the
-// compute dtype, Wh's and the residuals'. The plan (a.cs blocks a cluster,
-// hcp weight columns a block and gate, rb rows a cluster) is the caller's:
-// cs 1, 2, 4 or 8, hcp 32, 64 or 128 and at least scan_units(H, cs), rb 2,
-// 4, 8 or 16, within 227 KB of shared memory. H is a multiple of 8, ldw of
-// 4; gates, bias and h_last are 16-byte aligned, Wh and the compute-dtype
-// arrays aligned to 4 elements, the mask to 4 bytes; mask and next_in come
-// together. Returns a cudaError_t code: a plan or an argument it does not
-// take is cudaErrorInvalidValue or cudaErrorMisalignedAddress; a cluster
-// launch the card refuses returns the card's code. Nothing falls back to
-// another kernel.
-inline int launch_scan_fwd(int w_dt, int hcp, int rb, const ScanFwd& a, cudaStream_t s,
-                           int* max_clusters = nullptr) {
+// compute dtype, Wh's and the residuals'. The plan (a.cs, hcp, rb) is the
+// caller's (`scan_fwd_plan_ok`). ldw is a multiple of 4; xp, gates, bias
+// and h_last are 16-byte aligned, Wh, next_in and h_all / c_all (float32
+// with out_f32, else in the compute dtype) aligned to 4 elements, the mask
+// to 4 bytes; mask and next_in come together. Returns a cudaError_t code: a
+// plan or an argument it does not take is cudaErrorInvalidValue or
+// cudaErrorMisalignedAddress; a cluster launch the card refuses returns the
+// card's code. Nothing falls back to another kernel. A template of the
+// argument type (always ScanFwd), so that a source that includes this header
+// for its helpers alone instantiates none of the kernel's instances.
+template <typename Args>
+int launch_scan_fwd(int w_dt, int hcp, int rb, const Args& a, cudaStream_t s,
+                    int* max_clusters = nullptr) {
   const bool bf16 = w_dt == kBF16;
   const size_t tw = bf16 ? 2 : 4;
-  if ((w_dt != kF32 && !bf16) || (hcp != 32 && hcp != 64 && hcp != 128) ||
-      (rb != 2 && rb != 4 && rb != 8 && rb != 16) ||
-      (a.cs != 1 && a.cs != 2 && a.cs != 4 && a.cs != 8) || a.T <= 0 || a.R <= 0 || a.H <= 0 ||
-      a.H % 8 || scan_units(a.H, a.cs) > hcp || (a.R + rb - 1) / rb > 65535 ||
-      !a.mask != !a.next_in || scan_fwd_smem(a.H, hcp, rb, tw) > kScanMaxSmem)
+  const size_t to = a.out_f32 ? 4 : tw;
+  if ((w_dt != kF32 && !bf16) || !scan_fwd_plan_ok(bf16, hcp, rb, a.cs, a.T, a.R, a.H, 30u) ||
+      !a.mask != !a.next_in)
     return (int)cudaErrorInvalidValue;
-  if (!aligned_to(a.gates, 16) || !aligned_to(a.bias, 16) || !aligned_to(a.h_last, 16) ||
-      !aligned_to(a.wh, 4 * tw) || !aligned_to(a.h_all, 4 * tw) ||
-      !aligned_to(a.c_all, 4 * tw) || !aligned_to(a.next_in, 4 * tw) ||
+  if (!aligned_to(a.xp, 16) || !aligned_to(a.gates, 16) || !aligned_to(a.bias, 16) ||
+      !aligned_to(a.h_last, 16) || !aligned_to(a.wh, 4 * tw) || !aligned_to(a.h_all, 4 * to) ||
+      !aligned_to(a.c_all, 4 * to) || !aligned_to(a.next_in, 4 * tw) ||
       !aligned_to(a.mask, 4) || a.ldw % 4)
     return (int)cudaErrorMisalignedAddress;
   if (bf16) return scan_fwd_hcp<__nv_bfloat16>(hcp, rb, a, s, max_clusters);

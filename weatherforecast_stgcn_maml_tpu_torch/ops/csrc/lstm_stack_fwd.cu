@@ -1,6 +1,7 @@
 // The LSTM stacks' training forwards (kernel rows 4 and 14) and the
 // unmerged-gates eval forward, layer by layer: the C entry that enqueues the
-// whole schedule from one host call, and the forward recurrence alone.
+// whole schedule from one host call, and the forward recurrence alone (also
+// the whole of row 18, one layer's recurrence: ops/lstm_scan.py).
 //
 // Replaces the Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
 // fused_lstm_stack.py `_fwd_kernel_m` (+ `_fwd_kernel_m_nomask`, row 4),
@@ -103,11 +104,13 @@ extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
                                           : reinterpret_cast<const int8_t*>(p->masks) + l * res;
     const long long h_l = p->h_all + l * p->res_ls * tw;
     const wf::ScanFwd a{gates,
+                        gates,
                         reinterpret_cast<const void*>(wh),
                         g4,
                         reinterpret_cast<const float*>(p->bias) + l * g4,
                         reinterpret_cast<void*>(h_l),
                         reinterpret_cast<void*>(p->c_all + l * p->res_ls * tw),
+                        0,
                         mask,
                         (float)p->inv_keep,
                         mask ? reinterpret_cast<void*>(p->masked) : nullptr,
@@ -123,28 +126,33 @@ extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
   return 0;
 }
 
-// The arguments of one forward recurrence, 18 packed 8-byte fields
+// The arguments of one forward recurrence, 20 packed 8-byte fields
 // (ops/fused_lstm_stack.py `_SCAN_FWD`): wf::ScanFwd's with the plan.
 struct ScanFwdLaunch {
   long long w_dt, cs, hcp, rb;
-  long long gates, wh, ldw, bias, h_all, c_all, mask;
+  long long xp, gates, wh, ldw, bias, h_all, c_all, out_f32, mask;
   double inv_keep;
   long long next_in, h_last, T, R, H, stream;
 };
-static_assert(sizeof(ScanFwdLaunch) == 18 * 8, "ScanFwdLaunch is 18 packed 8-byte fields");
+static_assert(sizeof(ScanFwdLaunch) == 20 * 8, "ScanFwdLaunch is 20 packed 8-byte fields");
 
 // One layer's forward recurrence alone (wf::ScanFwd for the arguments), on
-// the plan (cs, hcp, rb). Returns a cudaError_t code.
+// the plan (cs, hcp, rb): row 4's and row 14's recurrence a launch at a time
+// (gates = xp: in place), and row 18 (xp with the bias, no bias array; the
+// gates to an array of their own or nowhere; h and c in float32). Returns a
+// cudaError_t code.
 extern "C" int wf_lstm_stack_forward_recurrence(const ScanFwdLaunch* p) {
   if (p->T > 0x7fffffff || p->R > 0x7fffffff || p->H > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   auto ptr = [](long long v) { return reinterpret_cast<void*>(v); };
-  const wf::ScanFwd a{static_cast<float*>(ptr(p->gates)),
+  const wf::ScanFwd a{static_cast<const float*>(ptr(p->xp)),
+                      static_cast<float*>(ptr(p->gates)),
                       ptr(p->wh),
                       p->ldw,
                       static_cast<const float*>(ptr(p->bias)),
                       ptr(p->h_all),
                       ptr(p->c_all),
+                      (int)p->out_f32,
                       static_cast<const int8_t*>(ptr(p->mask)),
                       (float)p->inv_keep,
                       ptr(p->next_in),

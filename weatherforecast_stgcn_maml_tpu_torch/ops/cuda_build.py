@@ -64,11 +64,12 @@ _SIGNATURES = {
     "wf_gemm_nn": [ctypes.c_char_p],  # one packed NNLaunch (ops/gemm.py _NN_LAUNCH)
     "wf_gemm_nn_smem": [_I],
     "wf_gemm_tn": [ctypes.c_char_p],  # one packed TNLaunch (ops/gemm.py _TN_LAUNCH)
-    "wf_lstm_hvp_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
-                        _P, _P, _I, _I, _I, _I, _I, _P],
+    # one packed HvpFwdLaunch and its layers (ops/fused_lstm_hvp.py `_HVP_FWD`)
+    "wf_lstm_hvp_forward": [ctypes.c_char_p],
+    "wf_lstm_tangent_forward_recurrence": [ctypes.c_char_p],  # one packed ScanFwdTanLaunch
+    "wf_lstm_tangent_forward_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_tangent_recurrence": [ctypes.c_char_p],  # one packed ScanTanLaunch
     "wf_lstm_tangent_recurrence_clusters": [_I, _I, _I, _I, _I],
-    "wf_lstm_scan_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wf_lstm_scan_bwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wf_fused_lstm_last": [_I, _I, _P, _PP, _PP, _PP, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],

@@ -13,10 +13,11 @@ from them computes the exact Hessian-vector product:
 Forward mode only: neither has a `backward` (the second-order inner step
 only ever jvp's them). Each `forward` runs the primal once and keeps what the
 tangent kernels read (the forward's activated gates; the backward's dh, dc
-and dgates of every stage), so a `jvp` computes tangents only: row 10 in
-one launch (csrc/fused_lstm_hvp.cu), row 11 layer by layer
-(`hvp_backward_schedule`: the tangent recurrence of csrc/lstm_scan_tan.cu
-and the GEMM core, csrc/gemm_nn.cu).
+and dgates of every stage), so a `jvp` computes tangents only, layer by
+layer: row 10 by `hvp_forward_schedule` (the tangent forward recurrence of
+csrc/lstm_scan_fwd_tan.cu and the GEMM core, csrc/gemm_nn.cu), row 11 by
+`hvp_backward_schedule` (the tangent recurrence of csrc/lstm_scan_tan.cu
+and the GEMM core).
 
 On a CUDA tensor at float32 / bfloat16 these run the hand-written kernels,
 and a shape or dtype they do not take raises. On a CPU tensor or under
@@ -48,14 +49,16 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
     _cluster_plan,
-    _rows_per_thread,
+    _ptr,
     _sms,
     recurrence_weights,
+    scan_fwd_smem,
     scan_smem,
     train_backward,
     train_forward,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
+    _NN_REFUSALS,
     gemm_nn,
     gemm_nn_plain,
     gemm_tn,
@@ -308,51 +311,252 @@ def stack_bwd(g, x, h_all, c_all, gates, wcat, masks, keep, compute_dtype):
                           carries=True)
 
 
-def _merged2(pairs, compute_dtype):
-    """Per layer [[W_l], [tW_l]] in the compute dtype: (layer 0, layers 1..
-    stacked, or layer 0 again when L = 1)."""
-    ws = [torch.cat([w, tw]).to(compute_dtype).contiguous() for w, tw in pairs]
-    return ws[0], torch.stack(ws[1:]) if len(ws) > 1 else ws[0]
+# Row 10 runs layer by layer, on row 4's schedule (fused_lstm_stack.
+# forward_schedule), so that only the tangent carry through Wh is on the
+# serial chain (the TPU kernel walks all T x L stages as one chain, one
+# [tin | th | in | h] @ [[W], [tW]] contraction a stage). Of the tangent
+# pre-activation
+#     ds_l[t] = round(tin_l[t]) @ round(Wx_l)
+#             + round([in_l[t] | h_l[t-1]]) @ round(tW_l)
+#             + round(th_l[t-1]) @ round(Wh_l) + tb_l
+# (tW_l = twcat_l = [[tWx_l], [tWh_l]]) only the last term depends on the
+# chain. For l = 0 .. L-1:
+#   1. the off-chain terms: one product of two operand pairs, tin_l @ Wx_l
+#      and [in_l | h_l a step back] (K-concatenated, h_{-1} = 0) @ tW_l,
+#      into the layer's tangent gates [T, R, 4H], no bias. Both weights are
+#      read as they are stored (W_l's first rows, the whole of tW_l): on a
+#      card no weight copy in float32, one cast in bfloat16;
+#   2. the tangent forward recurrence (csrc/lstm_scan_fwd_tan.cu) over those
+#      in place: + tb_l + round(th_{t-1}) @ round(Wh_l), the tangent cell
+#      from row 4's activated gates and c_all: the gates' tangents ta, th_l
+#      and tc_l; below the top layer the next layer's operands [tin | in |
+#      h a step back] = [round(th * mask / keep) | round(round(h_all[l]) *
+#      mask / keep) | h_all[l+1] a step back] (tin from the float32 th,
+#      JAX's rounding point; in from row 4's stored h, row 11's choice:
+#      JAX's value in float32, rounded from round(h) in bfloat16), at the
+#      top layer the last th.
+# Layer 0's operands are tx and [x | h_all[0] a step back] (one pack launch
+# on a card). JAX sums the four products in one contraction; here three
+# sums apart, a float32 reordering (`HVP_TOL` in chip_smoke.py: 1e-4
+# relative). On a card one C call (`_hvp_forward_card`) enqueues the pack
+# and all 2L launches; `hvp_forward_schedule` states the schedule on
+# swappable pieces: the kernels a launch each (`CARD_HVP_FWD_PIECES`:
+# timing by part) or their plain versions (`PLAIN_HVP_FWD_PIECES`: the CPU
+# tests).
+
+
+@dataclasses.dataclass(frozen=True)
+class HvpFwdPieces:
+    """product: `gemm_nn`'s signature (ops/gemm.py); recurrence(tgates,
+    gates, c, h, h_next, wh, tb, compute_dtype, th_out, tc_out, mask=None,
+    inv_keep=1.0, next_in=None, th_last=None): one layer's tangent forward
+    recurrence (the arguments as csrc/lstm_scan_fwd_tan.cu's `ScanFwdTan`,
+    wh [H, 4H], tb [4H]) over tgates [T, R, 4H] in place (in: the off-chain
+    products; out: the gates' tangents), into th_out and tc_out [T, R, H];
+    with next_in [T, R, 3H] also the next layer's [tin | in | h_next a step
+    back] (tin and in times mask * inv_keep where a mask is given); the last
+    th into th_last [R, H] where given."""
+
+    product: Callable
+    recurrence: Callable
+
+
+def hvp_forward_schedule(x, tx, wcat, twcat, tb2d, masks, keep, compute_dtype, res,
+                         pieces: HvpFwdPieces):
+    """Row 10's function (`hvp_stack_fwd`'s outputs: th_last [B, H], th_all,
+    tc_all [L, T, B, H] in the compute dtype, tgates [L, T, B, 4H]; th_last
+    and tgates in the accumulation dtype) by the schedule above on `pieces`,
+    from res = (h_all, c_all, gates) of row 4 at the same point: x, tx [T, B,
+    C]; wcat_l, twcat_l [K_l + H, 4H]; tb2d [L, 4H]; masks [L-1, T, B, H] or
+    None."""
+    h_all, c_all, gates = res
+    acc = accum_dtype(compute_dtype)
+    dev = x.device
+    t_len, rows, c_in = x.shape
+    n_layers, _, _, g4 = gates.shape
+    hidden = g4 // 4
+    steps = t_len * rows
+    th_all = torch.empty(h_all.shape, dtype=compute_dtype, device=dev)
+    tc_all = torch.empty_like(th_all)
+    tgates = torch.empty(gates.shape, dtype=acc, device=dev)
+    th_last = torch.empty((rows, hidden), dtype=acc, device=dev)
+    # The next layer's [tin | in | h a step back], one buffer for every layer
+    # above 0.
+    next_in = (torch.empty((t_len, rows, 3 * hidden), dtype=compute_dtype, device=dev)
+               if n_layers > 1 else None)
+    tin, inp = tx, torch.cat([x.to(acc), _shifted(h_all[0]).to(acc)], -1)
+    for l in range(n_layers):
+        k = c_in if l == 0 else hidden
+        pieces.product(tin.reshape(steps, k), wcat[l][:k], a2=inp.reshape(steps, k + hidden),
+                       b2=twcat[l], compute_dtype=compute_dtype, out=tgates[l].view(steps, g4),
+                       what=f"LSTM layer {l} tangent input product")
+        top = l == n_layers - 1
+        pieces.recurrence(tgates[l], gates[l], c_all[l], h_all[l], None if top else h_all[l + 1],
+                          wcat[l][k:], tb2d[l], compute_dtype, th_all[l], tc_all[l],
+                          mask=None if top or masks is None else masks[l], inv_keep=1.0 / keep,
+                          next_in=None if top else next_in, th_last=th_last if top else None)
+        if not top:
+            tin, inp = next_in[..., :hidden], next_in[..., hidden:]
+    return th_last, th_all, tc_all, tgates
+
+
+def _tangent_forward_recurrence_plain(tgates, gates, c, h, h_next, wh, tb, compute_dtype,
+                                      th_out, tc_out, mask=None, inv_keep=1.0, next_in=None,
+                                      th_last=None):
+    acc = tgates.dtype
+    t_len, rows, g4 = tgates.shape
+    hidden = g4 // 4
+    whc = as_operand(wh, compute_dtype)
+    th = torch.zeros((rows, hidden), dtype=acc, device=tgates.device)
+    tc, c_prev = torch.zeros_like(th), torch.zeros_like(th)
+    for t in range(t_len):
+        a = gates[t].to(acc)
+        ta = _gate_slopes(a, hidden) * ((tgates[t] + tb) + as_operand(th, compute_dtype) @ whc)
+        i, f, g, o = a.split(hidden, -1)
+        ti, tf, tg, to = ta.split(hidden, -1)
+        c_t = c[t].to(acc)
+        tc = tf * c_prev + f * tc + ti * g + i * tg
+        tch = torch.tanh(c_t)
+        th = to * tch + o * (1 - tch * tch) * tc
+        tgates[t], th_out[t], tc_out[t] = ta, th, tc
+        if next_in is not None:
+            m = 1.0 if mask is None else mask[t].to(acc) * inv_keep
+            next_in[t, :, :hidden] = th * m
+            next_in[t, :, hidden:2 * hidden] = h[t].to(acc) * m
+            next_in[t, :, 2 * hidden:] = h_next[t - 1] if t > 0 else 0
+        c_prev = c_t
+    if th_last is not None:
+        th_last.copy_(th)
+    return tgates
+
+
+@functools.lru_cache(maxsize=None)
+def tangent_forward_plan(hidden: int, rows: int, itemsize: int,
+                         sms: int) -> tuple[int, int, int]:
+    """(cs, hcp, rb) of row 10's tangent forward recurrence
+    (csrc/lstm_scan_fwd_tan.cu): the forward recurrence's plan
+    (`forward_plan`: its shared memory is the same) with row tiles of at most
+    8 rows, so that a thread owns one (row, 4 units) and its 12 inputs a unit
+    stay in registers: at H = 128 and R = 512 on 132 SMs, 2 blocks x 8 rows
+    in float32, 1 block x 4 rows in bfloat16."""
+    return _cluster_plan(hidden, rows, sms, 1,
+                         lambda hcp, rb: scan_fwd_smem(hidden, hcp, rb, itemsize),
+                         "tangent forward recurrence holds Wh", row_tiles=(2, 4, 8))
+
+
+# The tangent forward recurrence's launch arguments, packed as
+# csrc/lstm_scan_fwd_tan.cu's `ScanFwdTanLaunch`; the whole tangent
+# forward's as its `HvpFwdLaunch`, followed by one (Wx_l, Wh_l, tW_l) triple
+# a layer.
+_SCAN_FWD_TAN = struct.Struct("<15qd6q")
+_HVP_FWD = struct.Struct("<13qd10q")
+
+
+def _tangent_forward_recurrence_card(tgates, gates, c, h, h_next, wh, tb, compute_dtype,
+                                     th_out, tc_out, mask=None, inv_keep=1.0, next_in=None,
+                                     th_last=None):
+    t_len, rows, g4 = tgates.shape
+    hidden = g4 // 4
+    dev = tgates.device
+    cs, hcp, rb = tangent_forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
+    wh = wh.to(compute_dtype)
+    if wh.stride(-1) != 1:
+        wh = wh.contiguous()
+    tb = tb.contiguous()
+    cuda_build.check(
+        cuda_build.load().wf_lstm_tangent_forward_recurrence(_SCAN_FWD_TAN.pack(
+            cuda_build.dtype_code(compute_dtype), cs, hcp, rb, tgates.data_ptr(),
+            gates.data_ptr(), c.data_ptr(), h.data_ptr(), _ptr(h_next), wh.data_ptr(),
+            wh.stride(0), tb.data_ptr(), th_out.data_ptr(), tc_out.data_ptr(), _ptr(mask),
+            inv_keep, _ptr(next_in), _ptr(th_last), t_len, rows, hidden,
+            cuda_build.stream_ptr(dev))),
+        f"LSTM tangent forward recurrence (cluster of {cs}, {hcp} weight columns a block, {rb} "
+        f"rows a cluster)",
+    )
+    _tangent_forward_recurrence_card.launches += 1
+    return tgates
+
+
+_tangent_forward_recurrence_card.launches = 0  # launches of the tangent forward recurrence alone
+
+CARD_HVP_FWD_PIECES = HvpFwdPieces(gemm_nn, _tangent_forward_recurrence_card)
+PLAIN_HVP_FWD_PIECES = HvpFwdPieces(gemm_nn_plain, _tangent_forward_recurrence_plain)
+
+
+def _hvp_forward_card(x, tx, wcat, twcat, tb2d, masks, keep, compute_dtype, res):
+    """`hvp_forward_schedule` on the card: the pack of [x | h_0 a step back]
+    and its 2L launches enqueued by one C call (csrc/lstm_scan_fwd_tan.cu) ->
+    (th_last [B, H] float32, th_all, tc_all in the compute dtype, tgates
+    float32)."""
+    h_all, c_all, gates = res
+    dev = x.device
+    t_len, rows, c_in = x.shape
+    n_layers, g4 = tb2d.shape
+    hidden = g4 // 4
+    x = x.to(torch.float32).contiguous()
+    tx = tx.to(torch.float32).contiguous()
+    # The weights in the compute dtype: float32 as they are, else one cast of
+    # all layers (each layer's rows stay 16-byte aligned: 4H columns).
+    ws = [*wcat, *twcat]
+    if compute_dtype is torch.float32:
+        ws = [w.contiguous() for w in ws]
+    else:
+        ws = torch.cat(ws).to(compute_dtype).split([w.shape[0] for w in ws])
+    row_bytes = g4 * compute_dtype.itemsize
+    layers = []
+    for l in range(n_layers):
+        w = ws[l].data_ptr()
+        k = c_in if l == 0 else hidden
+        layers += [w, w + k * row_bytes, ws[n_layers + l].data_ptr()]
+    th_all = torch.empty(h_all.shape, dtype=compute_dtype, device=dev)
+    tc_all = torch.empty_like(th_all)
+    tgates = torch.empty(gates.shape, dtype=torch.float32, device=dev)
+    th_last = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+    pack = torch.empty((t_len, rows, c_in + hidden), dtype=compute_dtype, device=dev)
+    next_in = (torch.empty((t_len, rows, 3 * hidden), dtype=compute_dtype, device=dev)
+               if n_layers > 1 else None)
+    with_masks = masks is not None and n_layers > 1
+    tb = tb2d.contiguous()
+    cs, hcp, rb = tangent_forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
+    launch = _HVP_FWD.pack(
+        cuda_build.dtype_code(compute_dtype), cs, hcp, rb, x.data_ptr(), tx.data_ptr(),
+        pack.data_ptr(), _ptr(next_in), h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(),
+        tb.data_ptr(), masks.data_ptr() if with_masks else 0, 1.0 / keep, th_all.data_ptr(),
+        tc_all.data_ptr(), tgates.data_ptr(), th_last.data_ptr(), t_len, rows, c_in, hidden,
+        n_layers, cuda_build.stream_ptr(dev))
+    err = cuda_build.load().wf_lstm_hvp_forward(launch + struct.pack(f"<{3 * n_layers}q", *layers))
+    if err < 0:
+        raise ValueError(f"LSTM second-order forward: its input product takes "
+                         f"{_NN_REFUSALS[err]}")
+    cuda_build.check(err, f"LSTM second-order forward (tangent recurrences: cluster of {cs}, "
+                          f"{hcp} weight columns a block, {rb} rows a cluster)")
+    gemm_nn.launches += n_layers
+    return th_last, th_all, tc_all, tgates
 
 
 def hvp_stack_fwd(x, tx, wcat, twcat, b2d, tb2d, masks, keep, compute_dtype, res=None):
     """Row 10: (th_last, th_all, tc_all, tgates), the tangent of the stack
-    forward at (x, wcat, b2d) along (tx, twcat, tb2d). On a CUDA tensor the
-    kernel reads `res` = (h_all, c_all, gates) of row 4 at the same point;
-    the plain version recomputes them."""
+    forward at (x, wcat, b2d) along (tx, twcat, tb2d). On a CUDA tensor
+    `hvp_forward_schedule` on the kernels (per layer one gemm_nn product and
+    one tangent forward recurrence, all from one C call) reads `res` =
+    (h_all, c_all, gates) of row 4 at the same point; the plain version
+    recomputes them."""
     if _plain(x, compute_dtype):
         return hvp_fwd_plain(x, wcat, b2d, masks, keep, compute_dtype, tx, twcat, tb2d)[4:]
     _check(x, wcat, masks, compute_dtype)
-    h_all, c_all, gates = res
-    lib = cuda_build.load()
-    dev = x.device
-    t_len, rows, c_in = x.shape
-    n_layers, g4 = b2d.shape
-    hidden = g4 // 4
-    x = x.to(torch.float32).contiguous()
-    tx = tx.to(torch.float32).contiguous()
-    w2_0, w2_r = _merged2(zip(wcat, twcat), compute_dtype)
-    tb = tb2d.to(torch.float32).contiguous()
-    th_all = torch.empty_like(h_all)
-    tc_all = torch.empty_like(c_all)
-    tgates = torch.empty_like(gates)
-    th_last = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    cuda_build.check(
-        lib.wf_lstm_hvp_fwd(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
-            x.data_ptr(), tx.data_ptr(), w2_0.data_ptr(), w2_r.data_ptr(), tb.data_ptr(),
-            None if masks is None else masks.data_ptr(), 1.0 / keep,
-            h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(),
-            th_all.data_ptr(), tc_all.data_ptr(), tgates.data_ptr(), th_last.data_ptr(),
-            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
-        ),
-        "LSTM second-order forward",
-    )
-    hvp_stack_fwd.launches += 1
-    return th_last, th_all, tc_all, tgates
+    out = _hvp_forward_card(x, tx, wcat, twcat, tb2d, masks, keep, compute_dtype, res)
+    fwd = hvp_stack_fwd
+    fwd.launches += 1
+    fwd.recurrence_launches += len(wcat)
+    fwd.gemm_nn_launches += len(wcat)
+    return out
 
 
-hvp_stack_fwd.launches = 0  # tangent forwards run through the CUDA kernel (row 10)
+hvp_stack_fwd.launches = 0  # tangent forwards run through the kernels (row 10)
+# Row 10's pieces: its tangent forward recurrences and gemm_nn products (one
+# of each a layer).
+hvp_stack_fwd.recurrence_launches = 0
+hvp_stack_fwd.gemm_nn_launches = 0
 
 
 # Row 11 on a card runs layer by layer, on row 5's schedule

@@ -276,7 +276,8 @@ class ForwardPieces:
     compute_dtype, h_out, c_out, mask=None, inv_keep=1.0, next_in=None,
     h_last=None): one layer's forward recurrence over gates [T, R, 4H]
     float32 in place (in: xp; out: the activated gates), wh [H, 4H], bias
-    [4H] float32, into h_out and c_out [T, R, H] in the compute dtype; with
+    [4H] float32 (the plain version also takes None: xp holds the bias, as
+    row 18's does), into h_out and c_out [T, R, H] in the compute dtype; with
     mask [T, R, H] int8 also next_in = round(h * mask * inv_keep); the last
     step's h into h_last [R, H] where given."""
 
@@ -355,8 +356,8 @@ def _forward_recurrence_plain(gates, wh, bias, compute_dtype, h_out, c_out, mask
     h = torch.zeros((gates.shape[1], hidden), dtype=acc, device=gates.device)
     c = torch.zeros_like(h)
     for t in range(gates.shape[0]):
-        i, f, g, o = ((gates[t] + bias) + torch.matmul(as_operand(h, compute_dtype), whc)).split(
-            hidden, dim=-1)
+        xp = gates[t] if bias is None else gates[t] + bias
+        i, f, g, o = (xp + torch.matmul(as_operand(h, compute_dtype), whc)).split(hidden, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         c = f * c + i * g
         h = o * torch.tanh(c)
@@ -372,7 +373,7 @@ def _forward_recurrence_plain(gates, wh, bias, compute_dtype, h_out, c_out, mask
 # The forward recurrence's launch arguments, packed as csrc/lstm_stack_fwd.cu's
 # `ScanFwdLaunch`; the whole forward's as its `StackFwdLaunch`, followed by
 # one (Wx_l, Wh_l, input width) triple a layer.
-_SCAN_FWD = struct.Struct("<11qd6q")
+_SCAN_FWD = struct.Struct("<13qd6q")
 _STACK_FWD = struct.Struct("<10qd12q")
 
 
@@ -390,9 +391,9 @@ def _forward_recurrence_card(gates, wh, bias, compute_dtype, h_out, c_out, mask=
         wh = wh.contiguous()
     cuda_build.check(
         cuda_build.load().wf_lstm_stack_forward_recurrence(_SCAN_FWD.pack(
-            cuda_build.dtype_code(compute_dtype), cs, hcp, rb, gates.data_ptr(), wh.data_ptr(),
-            wh.stride(0), bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), _ptr(mask),
-            inv_keep, _ptr(next_in), _ptr(h_last), t_len, rows, hidden,
+            cuda_build.dtype_code(compute_dtype), cs, hcp, rb, gates.data_ptr(), gates.data_ptr(),
+            wh.data_ptr(), wh.stride(0), bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), 0,
+            _ptr(mask), inv_keep, _ptr(next_in), _ptr(h_last), t_len, rows, hidden,
             cuda_build.stream_ptr(gates.device))),
         f"LSTM forward recurrence (cluster of {cs}, {hcp} weight columns a block, {rb} rows "
         f"a cluster)",

@@ -1,12 +1,14 @@
 """One LSTM layer's recurrence with a hand-written backward: xp [T, B, 4H]
 (the hoisted input projection + bias) and wh [H, 4H] -> h_all [T, B, H].
 
-`lstm_recurrence` runs the CUDA kernels of csrc/lstm_scan.cu behind one
-`torch.autograd.Function` on a CUDA tensor at float32 / bfloat16 compute:
-the forward (kernel row 18) emits h_all and c_all, and, when a backward will
-follow, the activated gates; the backward (row 19, the cluster recurrence of
-csrc/lstm_scan_bwd.cuh that rows 5 and 15 share) emits dgates, and dwh =
-h_prev^T @ dgates runs on gemm.cu's split-K product; dxp is dgates. On a CPU
+`lstm_recurrence` runs the CUDA kernels behind one `torch.autograd.Function`
+on a CUDA tensor at float32 / bfloat16 compute: the forward (kernel row 18,
+the cluster forward recurrence of csrc/lstm_scan_fwd.cuh that rows 4 and 14
+share, planned by `forward_plan`) emits h_all and c_all in float32, and,
+when a backward will follow, the activated gates; the backward (row 19, the
+cluster recurrence of csrc/lstm_scan_bwd.cuh that rows 5 and 15 share, entry
+in csrc/lstm_scan.cu) emits dgates, and dwh = h_prev^T @ dgates runs on
+gemm.cu's split-K product; dxp is dgates. On a CPU
 tensor or under float64 it runs the plain version, `lstm_recurrence_plain`,
 differentiated by autograd. On a CUDA tensor a shape or dtype the kernels do
 not take raises; nothing falls back to the plain version there. The op is
@@ -27,7 +29,10 @@ import torch
 from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype, as_operand
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
-    _rows_per_thread,
+    _SCAN_FWD,
+    _forward_recurrence_plain,
+    _sms,
+    forward_plan,
     launch_recurrence,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import matmul_tn
@@ -92,25 +97,40 @@ def _aligned(w: torch.Tensor) -> torch.Tensor:
     return w if w.data_ptr() % 16 == 0 else w.clone()
 
 
+def scan_forward_plain(xp: torch.Tensor, wh: torch.Tensor, compute_dtype: torch.dtype,
+                       keep_gates: bool):
+    """Plain version of `scan_forward`: the forward recurrence's plain piece
+    (`fused_lstm_stack._forward_recurrence_plain`, no bias: xp holds it) ->
+    (h_all, c_all [T, B, H] unrounded, the activated gates [T, B, 4H] or
+    None), in the accumulation dtype."""
+    t_len, rows, g4 = xp.shape
+    gates = xp.to(accum_dtype(compute_dtype)).clone()
+    h_all = torch.empty((t_len, rows, g4 // 4), dtype=gates.dtype, device=xp.device)
+    c_all = torch.empty_like(h_all)
+    _forward_recurrence_plain(gates, wh, None, compute_dtype, h_all, c_all)
+    return h_all, c_all, gates if keep_gates else None
+
+
 def scan_forward(xp: torch.Tensor, wh: torch.Tensor, compute_dtype: torch.dtype,
                  keep_gates: bool):
     """Row 18 on a CUDA tensor: -> (h_all, c_all [T, B, H], gates [T, B, 4H]
-    or None), float32."""
+    or None), float32, by the forward recurrence of csrc/lstm_scan_fwd.cuh
+    (one launch: xp holds the bias; the gates go to an array of their own,
+    xp being the autograd input)."""
     t_len, rows, g4 = xp.shape
     hidden = g4 // 4
     dev = xp.device
     h_all = torch.empty((t_len, rows, hidden), dtype=torch.float32, device=dev)
     c_all = torch.empty_like(h_all)
     gates = torch.empty_like(xp) if keep_gates else None
-    w = _aligned(wh.to(compute_dtype))
+    xp, w = _aligned(xp), _aligned(wh.to(compute_dtype))
+    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
     cuda_build.check(
-        cuda_build.load().wf_lstm_scan_fwd(
-            cuda_build.dtype_code(compute_dtype), _rows_per_thread(rows, hidden, dev),
-            xp.data_ptr(), w.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
-            None if gates is None else gates.data_ptr(), t_len, rows, hidden,
-            cuda_build.stream_ptr(dev),
-        ),
-        "LSTM recurrence",
+        cuda_build.load().wf_lstm_stack_forward_recurrence(_SCAN_FWD.pack(
+            cuda_build.dtype_code(compute_dtype), cs, hcp, rb, xp.data_ptr(),
+            0 if gates is None else gates.data_ptr(), w.data_ptr(), g4, 0, h_all.data_ptr(),
+            c_all.data_ptr(), 1, 0, 1.0, 0, 0, t_len, rows, hidden, cuda_build.stream_ptr(dev))),
+        f"LSTM recurrence (cluster of {cs}, {hcp} weight columns a block, {rb} rows a cluster)",
     )
     lstm_recurrence.launches += 1
     return h_all, c_all, gates
@@ -177,6 +197,9 @@ def lstm_recurrence(
     if hidden % 4 or hidden > 256:
         raise ValueError(f"the recurrence kernel takes hidden widths that are multiples "
                          f"of 4 up to 256, got {hidden}")
+    if hidden % 8 and compute_dtype == torch.bfloat16:
+        raise ValueError(f"the recurrence kernel takes bfloat16 compute at hidden widths that "
+                         f"are multiples of 8, got {hidden}")
     if xp.dtype != torch.float32 or wh.dtype != torch.float32 or wh.device != xp.device:
         raise TypeError("xp and wh must be float32 on the same device")
     # The gates are the backward's residual: stored only when one will run.

@@ -118,11 +118,15 @@ time):
      -> 256; time each, its plain version and its library call (row 20:
      cuDNN's LSTM, beside row 2; row 3: torch.relu(a @ (h @ w) + b) in the
      same dtype, also as device time by CUDA graph replay; row 18 alone by
-     events, graph replay and enqueue; rows 18-19: none, no PyTorch call
-     runs a recurrence alone);
+     events, graph replay and enqueue; row 19 alone against the plain
+     recurrence and a float64 dwh, gated on one launch of the TN core and
+     none of gemm.cu's GEMM a call, by events, graph replay, enqueue and
+     part, beside cuBLAS on its dwh product alone; rows 18-19: no library
+     call, no PyTorch call runs a recurrence alone);
  16. drive those routes through the CLI: `meta-train -o
      model.lstm_kernel=pallas` (1 epoch float32; rows 18 and 19 must launch
-     1456 times a meta step, rows 4-5 never), the FO meta-gradient of one
+     1456 times a meta step, row 19's dwh on the TN core each time, rows 4-5
+     and gemm.cu's GEMM never), the FO meta-gradient of one
      micro-batch on that route against the plain route, one inner step on
      it (timed, with a torch.profiler breakdown), `forecast` (float32
      and bfloat16, the Moscow forecast against `--device cpu`) and `validate
@@ -143,17 +147,21 @@ time):
      forward by events and graph replay; once a task for rows 16-17; row
      15 beside cuDNN's backward in the same dtype, its device time by CUDA
      graph replay, and its time by part: gate products, recurrences, input
-     products, weight gradients), row 16 also by row
-     tile; rows 16-17 at V = 2 also alone, by events and by CUDA graph
-     replay, row 17 also by part and gated on its launches (a recurrence,
-     a gemm_nn and two gemm_tn launches a layer for all tasks, none of
-     gemm.cu's GEMM); print the bounds;
+     products, weight gradients); rows 16-17 at V = 2 also alone, by events
+     and by CUDA graph replay, row 16 also against its schedule on the plain
+     pieces (all four outputs), by enqueue and by part, its recurrence plan
+     printed, gated on its launches (a gemm_nn and a forward recurrence a
+     layer for all tasks from one call, none of gemm.cu's GEMM), row 17 also
+     by part and gated on its launches (a recurrence, a gemm_nn and two
+     gemm_tn launches a layer for all tasks, none of gemm.cu's GEMM); print
+     the bounds;
  18. with ops.fused_lstm_stack._VBATCH set in process: the lockstep FO
      meta-gradient of one micro-batch (2 tasks x 15 inner steps, dropout
      on) kernel route vs plain route, same generator seed; `cli meta-train`
      at MetaConfig() defaults for 1 float32 epoch (rows 16 and 17 182
-     launches each, row 17 with 4 recurrence, 4 gemm_nn and 8 gemm_tn
-     launches each, row 9 180, rows 4-5 and 8 none, gemm.cu's GEMM none);
+     launches each, row 16 with 4 gemm_nn and 4 forward recurrence launches
+     each, row 17 with 4 recurrence, 4 gemm_nn and 8 gemm_tn launches each,
+     row 9 180, rows 4-5 and 8 none, gemm.cu's GEMM none);
      one lockstep inner step timed with a torch.profiler breakdown; the
      lockstep meta step against the serial one in turns, with the peak
      device memory of each;
@@ -236,14 +244,15 @@ SOURCES = {
                                  CSRC + "gemm.cu"],
     "lstm_recurrence": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh"],
     "lstm_recurrence.backward": [CSRC + "lstm_scan.cu", CSRC + "lstm_scan_bwd.cuh",
-                                 CSRC + "gemm.cu"],
+                                 CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
     "fused_lstm_last_hidden": [CSRC + "fused_lstm.cu"],
     "fused_gcn_layer": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu", CSRC + "gemm.cu"],
     "lstm_stack_split": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh",
                          CSRC + "gemm_nn.cu"],
     "lstm_stack_split.backward": [CSRC + "gemm_nn.cu", CSRC + "lstm_scan_bwd.cuh",
                                   CSRC + "fused_lstm_split.cu", CSRC + "gemm.cu"],
-    "lstm_stack_train_tasks": [CSRC + "fused_lstm_stack.cu"],
+    "lstm_stack_train_tasks": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh",
+                               CSRC + "gemm_nn.cu"],
     "lstm_stack_train_tasks.backward": [CSRC + "lstm_scan_bwd.cuh", CSRC + "fused_lstm_split.cu",
                                         CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
 }
@@ -251,7 +260,7 @@ SOURCES = {
 NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel",
                "gemm_tn_bf16_kernel", "dz_top_kernel", "transpose_round_kernel",
                "lstm_scan_bwd_kernel", "lstm_scan_fwd_kernel", "lstm_scan_tan_kernel",
-               "lstm_scan_fwd_tan_kernel")
+               "lstm_scan_fwd_tan_kernel", "round_pad_kernel")
 # The cluster recurrences whose instances the build phase lists by source.
 RECURRENCE_SOURCES = {"lstm_scan_fwd_kernel": "lstm_stack_fwd.cu",
                       "lstm_scan_tan_kernel": "lstm_scan_tan.cu",
@@ -641,13 +650,13 @@ def main() -> int:
                     f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
                     f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once "
                     f"(cudaOccupancyMaxActiveClusters)")
-        # The forward recurrence (rows 4, 14 and 18): its plan at the main
-        # path's rows (512; adaptation 1024, a sharded rank 256, validate's
-        # 1536) and at the gate's.
+        # The forward recurrence (rows 4, 14, 16 and 18): its plan at the
+        # main path's rows (512; adaptation 1024, a sharded rank 256,
+        # validate's 1536, row 16's two tasks of 512) and at the gate's.
         for dt in (torch.float32, torch.bfloat16):
-            for hidden, rows in ((128, 512), (128, 1024), (128, 256), (128, 1536), (64, 48),
-                                 (128, 48), (256, 48)):
-                cs, hcp, rb = fls.forward_plan(hidden, rows, dt.itemsize, sms)
+            for hidden, rows, nv in ((128, 512, 1), (128, 1024, 1), (128, 256, 1), (128, 1536, 1),
+                                     (128, 512, 2), (64, 48, 1), (128, 48, 1), (256, 48, 1)):
+                cs, hcp, rb = fls.forward_plan(hidden, rows, dt.itemsize, sms, nv)
                 code = cuda_build.dtype_code(dt)
                 smem = lib.wf_lstm_stack_forward_smem(code, hcp, rb, hidden)
                 if smem != fls.scan_fwd_smem(hidden, hcp, rb, dt.itemsize):
@@ -657,8 +666,9 @@ def main() -> int:
                 if active <= 0:
                     raise RuntimeError(f"the card runs no cluster of the forward recurrence plan "
                                        f"{(cs, hcp, rb)} at H = {hidden} ({active})")
-                clusters = -(-rows // rb)
-                log(f"  lstm_scan_fwd {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of {cs}, "
+                clusters = nv * -(-rows // rb)
+                log(f"  lstm_scan_fwd {str(dt)[6:]} H = {hidden}, {nv} x R = {rows}: cluster of "
+                    f"{cs}, "
                     f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
                     f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once")
         # Row 11's tangent recurrence: its plan at the SO inner step's rows
@@ -1120,11 +1130,12 @@ def main() -> int:
             raise RuntimeError(f"the row 18 gate reached clusters of {sorted(seen)}")
         del xp_r, wh_r, got, ref
 
-    def parts_ms(run, forward=False, tangent=False, tangent_forward=False):
-        """A layer-by-layer LSTM backward's (with `forward`, row 4's; with
-        `tangent`, row 11's; with `tangent_forward`, row 10's) device time by
-        part: run(pieces) on the card's pieces, each piece between two CUDA
-        events; medians of REPEATS runs."""
+    def parts_ms(run, forward=False, tangent=False, tangent_forward=False, scan_backward=False):
+        """A layer-by-layer LSTM backward's (with `forward`, row 4's or 16's;
+        with `tangent`, row 11's; with `tangent_forward`, row 10's; with
+        `scan_backward`, row 19's) device time by part: run(pieces) on the
+        card's pieces, each piece between two CUDA events; medians of
+        REPEATS runs."""
         marks = []
 
         def timed(fn, part):
@@ -1142,6 +1153,13 @@ def main() -> int:
             pieces = fls.ForwardPieces(
                 timed(fls.FWD_CARD_PIECES.product, lambda kw: "input products"),
                 timed(fls.FWD_CARD_PIECES.recurrence, lambda kw: "recurrences"))
+            return time_parts(run, pieces, marks)
+        if scan_backward:
+            card = lstm_scan.CARD_PIECES
+            pieces = lstm_scan.ScanBackwardPieces(
+                timed(card.recurrence, lambda kw: "recurrence"),
+                timed(card.product_tn, lambda kw: "dwh product"),
+                timed(card.sum_splits, lambda kw: "dwh partial sums"))
             return time_parts(run, pieces, marks)
         if tangent_forward:
             pieces = fh.HvpFwdPieces(
@@ -2628,17 +2646,58 @@ def main() -> int:
             log(f"rows 18-19 {dt_name} xp [24, 512, 512]: kernel forward {times['kernel'][0]:.4f} "
                 f"ms, backward {times['kernel'][1]:.4f} ms; plain forward "
                 f"{times['plain'][0]:.4f} ms, backward {times['plain'][1]:.4f} ms  [{card}]")
-            # Row 19's device time alone: its call from row 18's residuals,
-            # by CUDA graph replay.
+            # Row 19 alone, its call (one C call) from row 18's residuals:
+            # dgates and dwh against the plain recurrence and a float64 dwh of
+            # the same rounded operands; its launches a call (the TN core once,
+            # gemm.cu's GEMM never); by CUDA events, CUDA graph replay, part
+            # and the host's time to enqueue it; cuBLAS on its dwh product
+            # alone (h_prev^T @ dgates in the compute dtype) beside it.
             with torch.no_grad():
-                h19, c19, gates19 = lstm_scan.scan_forward(xp, wh.detach(), dt, True)
+                wh19 = wh.detach()
+                h19, c19, gates19 = lstm_scan.scan_forward(xp, wh19, dt, True)
                 g19 = torch.from_numpy(np.random.default_rng(65).standard_normal(
                     (w_len, n, lh)).astype(np.float32)).to(dev)
-                dev19 = graph_ms(torch, lambda: lstm_scan.scan_backward(
-                    g19, h19, c19, gates19, wh.detach(), dt))
-            log(f"row 19 {dt_name}: device {dev19:.4f} ms (CUDA graph replay of its call)  "
-                f"[{card}]")
-            del h19, c19, gates19, g19
+                rec = lstm_recurrence
+                before = (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches,
+                          gemm.launches)
+                dg19, dwh19 = lstm_scan.scan_backward(g19, h19, c19, gates19, wh19, dt)
+                core19 = {"calls": rec.backward_launches - before[0],
+                          "gemm_tn": rec.backward_gemm_tn_launches - before[1],
+                          "gemm_tn (all)": gemm_tn.launches - before[2],
+                          "gemm.cu": gemm.launches - before[3]}
+                want = {"calls": 1, "gemm_tn": 1, "gemm_tn (all)": 1, "gemm.cu": 0}
+                if core19 != want:
+                    raise RuntimeError(f"row 19 launched {core19} a call, not {want}")
+                a19 = torch.cat([torch.zeros_like(h19[:1]), h19[:-1]]).reshape(-1, lh).to(dt)
+                b19 = dg19.reshape(-1, g4).to(dt)
+                rel19 = (rel_err(dg19, lstm_scan.scan_backward_plain(g19, gates19, c19, wh19, dt)),
+                         rel_err(dwh19, a19.double().T @ b19.double()))
+                log(f"row 19 {dt_name} alone: dgates, dwh max|diff|/max|ref| against the plain "
+                    f"recurrence and a float64 dwh {rel19[0]:.2e}, {rel19[1]:.2e} (tol {tol}); "
+                    f"launches a call {core19}")
+                if max(rel19) > tol:
+                    raise RuntimeError(f"row 19 {dt_name}: error {max(rel19):.3e} > {tol}")
+
+                def row19():
+                    lstm_scan.scan_backward(g19, h19, c19, gates19, wh19, dt)
+
+                def cublas19():
+                    return a19.T @ b19
+
+                row19_t = {"call_ms": cuda_ms(torch, row19), "device_ms": graph_ms(torch, row19),
+                           "enqueue_ms": enqueue_ms(torch, row19),
+                           "parts_ms": parts_ms(lambda p: lstm_scan.scan_backward_schedule(
+                               g19, h19, c19, gates19, wh19, dt, p), scan_backward=True),
+                           "core_launches": core19, "dwh_cublas_ms": cuda_ms(torch, cublas19),
+                           "dwh_cublas_device_ms": graph_ms(torch, cublas19)}
+            log(f"row 19 {dt_name} xp [24, 512, 512]: the call {row19_t['call_ms']:.4f} ms, "
+                f"device {row19_t['device_ms']:.4f} ms (CUDA graph replay), "
+                f"{row19_t['enqueue_ms']:.4f} ms to enqueue; by part (CUDA events, median of "
+                f"{REPEATS}; the rest is the schedule's glue): " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in row19_t["parts_ms"].items())
+                + f"; cuBLAS on its dwh product alone {row19_t['dwh_cublas_ms']:.4f} ms (device "
+                f"{row19_t['dwh_cublas_device_ms']:.4f})  [{card}]")
+            del h19, c19, gates19, g19, dg19, dwh19, a19, b19
             # Row 18 alone (the training call: its gates kept): by CUDA events,
             # its device time by CUDA graph replay, the host's time to enqueue
             # it.
@@ -2657,9 +2716,10 @@ def main() -> int:
                     "plain_ms": times["plain"][0], "library_ms": None, **row18_t}
                 measured["lstm_recurrence.backward"] = {
                     "max_abs_err": bwd_err, "ms": times["kernel"][1],
-                    "plain_ms": times["plain"][1], "library_ms": None, "device_ms": dev19}
+                    "plain_ms": times["plain"][1], "library_ms": None, **row19_t}
             else:
                 measured["lstm_recurrence"]["bfloat16"] = row18_t
+                measured["lstm_recurrence.backward"]["bfloat16"] = row19_t
             del graphs
 
             # Row 20: the eval stack, at validate's 3 windows and at 1; the
@@ -2750,11 +2810,14 @@ def main() -> int:
     with Phase("LSTM routes through the CLI"):
         for fn in (lstm_recurrence, lstm_stack_train):
             fn.launches = fn.backward_launches = 0
+        lstm_recurrence.backward_gemm_tn_launches = gemm.launches = 0
         fused_gcn_layer.launches = fused_gcn_layer.backward_launches = 0
         rec_logs = meta_train("float32", 1, "-o", "model.lstm_kernel=pallas", out="recurrence")
         route_launches = {
             "lstm_recurrence": lstm_recurrence.launches,
             "lstm_recurrence.backward": lstm_recurrence.backward_launches,
+            "row 19 gemm_tn": lstm_recurrence.backward_gemm_tn_launches,
+            "gemm.cu": gemm.launches,
             "lstm_stack_train": lstm_stack_train.launches,
             "lstm_stack_train.backward": lstm_stack_train.backward_launches,
         }
@@ -2762,6 +2825,7 @@ def main() -> int:
         forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
         want = {"lstm_recurrence": cfg.lstm_layers * forwards,
                 "lstm_recurrence.backward": cfg.lstm_layers * forwards,
+                "row 19 gemm_tn": cfg.lstm_layers * forwards, "gemm.cu": 0,
                 "lstm_stack_train": 0, "lstm_stack_train.backward": 0}
         if route_launches != want:
             raise RuntimeError(f"meta-train -o model.lstm_kernel=pallas launched "
@@ -2883,18 +2947,40 @@ def main() -> int:
                 .to(dev) for shape in ((nv, hid + lh, 4 * lh), (nv, n_l - 1, 2 * lh, 4 * lh),
                                        (nv, n_l, 4 * lh))]
 
-    def tasks_alone(xs, weights, m, keep, dt):
+    def tasks_alone(xs, weights, m, keep, dt, tol):
         """Rows 16 and 17 of V tasks alone, row 17 from row 16's residuals:
-        (call by events, device by graph replay) each, row 17 by part and
-        its launches of a call, gated: a recurrence, a gemm_nn and two
-        gemm_tn launches a layer for all tasks, no launch of gemm.cu's
-        GEMM."""
+        row 16's four outputs against its schedule on the plain pieces and
+        its launches a call, gated (from one C call: a gemm_nn and a forward
+        recurrence a layer for all tasks, no gemm.cu), its recurrence plan;
+        each by events and by graph replay, row 16 also by the host's time to
+        enqueue a call and by part; row 17 by part and its launches of a
+        call, gated: a recurrence, a gemm_nn and two gemm_tn launches a layer
+        for all tasks, no launch of gemm.cu's GEMM."""
         nv = xs.shape[0]
         x_v = xs.transpose(1, 2).contiguous()
         g_v = g_last.expand(nv, -1, -1).contiguous()
         tasks = fls.lstm_stack_train_tasks
         with torch.no_grad():
+            before = (tasks.launches, tasks.forward_gemm_nn_launches,
+                      tasks.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
             res = fls.tasks_forward(x_v, m, keep, dt, *weights)
+            core16 = {"calls": tasks.launches - before[0],
+                      "gemm_nn": tasks.forward_gemm_nn_launches - before[1],
+                      "recurrences": tasks.forward_recurrence_launches - before[2],
+                      "gemm_nn (all)": gemm_nn.launches - before[3],
+                      "gemm.cu": gemm.launches - before[4]}
+            want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l,
+                    "gemm.cu": 0}
+            if core16 != want:
+                raise RuntimeError(f"row 16 launched {core16} a call, not {want}")
+            ref = fls.tasks_forward_schedule(x_v, m, keep, dt, *weights, fls.FWD_PLAIN_PIECES)
+            torch.cuda.synchronize()
+            errs16 = {}
+            for out_name, g, r in zip(("h_last", "h_all", "c_all", "gates"), res, ref):
+                torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol,
+                                           msg=f"row 16 {out_name}")
+                errs16[out_name] = float((g.float() - r.float()).abs().max())
+            del ref
 
             def row16():
                 fls.tasks_forward(x_v, m, keep, dt, *weights)
@@ -2913,6 +2999,11 @@ def main() -> int:
             if core != want:
                 raise RuntimeError(f"row 17 launched {core} a call, not {want}")
             out = {"fwd": (cuda_ms(torch, row16), graph_ms(torch, row16)),
+                   "fwd_enqueue": enqueue_ms(torch, row16),
+                   "fwd_parts": parts_ms(lambda p: fls.tasks_forward_schedule(
+                       x_v, m, keep, dt, *weights, p), forward=True),
+                   "plan": fls.forward_plan(lh, n, dt.itemsize, fls._sms(dev), nv),
+                   "core16": core16, "errs16": errs16,
                    "bwd": (cuda_ms(torch, row17), graph_ms(torch, row17)), "core": core,
                    "parts_ms": parts_ms(lambda p: fls.tasks_backward_schedule(
                        g_v, x_v, *res[1:], *weights[:2], m, keep, dt, p))}
@@ -3090,7 +3181,20 @@ def main() -> int:
                         f"plain forward {times['plain'][0]:.4f} ms, backward "
                         f"{times['plain'][1]:.4f} ms  [{card}]")
                     if nv == 2:  # rows 16-17 alone, from the same residuals
-                        alone = tasks_alone(xs, weights, m, keep, dt)
+                        alone = tasks_alone(xs, weights, m, keep, dt, tol)
+                        cs, hcp, rb = alone["plan"]
+                        log(f"row 16 {dt_name} V=2 [2 x 512, 24, 256] L=4 alone against its "
+                            f"schedule on the plain pieces: max_abs_err " + ", ".join(
+                                f"{k} {v:.2e}" for k, v in alone["errs16"].items())
+                            + f" (tol {tol}); launches a call {alone['core16']}; recurrence "
+                            f"plan (forward_plan, 2 tasks): cluster of {cs}, {hcp} weight "
+                            f"columns, {rb} rows a cluster, {2 * -(-n // rb) * cs} blocks a "
+                            f"layer; the call {alone['fwd'][0]:.4f} ms, device "
+                            f"{alone['fwd'][1]:.4f} ms (CUDA graph replay), "
+                            f"{alone['fwd_enqueue']:.4f} ms to enqueue; by part (CUDA events, "
+                            f"median of {REPEATS}): " + ", ".join(
+                                f"{k} {v:.4f} ms" for k, v in alone["fwd_parts"].items())
+                            + f"  [{card}]")
                         log(f"rows 16-17 {dt_name} V=2 alone (call by events / device by graph "
                             f"replay): row 16 {alone['fwd'][0]:.4f} / {alone['fwd'][1]:.4f} ms, "
                             f"row 17 {alone['bwd'][0]:.4f} / {alone['bwd'][1]:.4f} ms; row 17 "
@@ -3100,7 +3204,9 @@ def main() -> int:
                     if dt_name != "float32":
                         if nv == 2:
                             measured["lstm_stack_train_tasks"]["bfloat16"] = {
-                                "call_ms": alone["fwd"][0], "device_ms": alone["fwd"][1]}
+                                "call_ms": alone["fwd"][0], "device_ms": alone["fwd"][1],
+                                "enqueue_ms": alone["fwd_enqueue"],
+                                "parts_ms": alone["fwd_parts"], "plan": alone["plan"]}
                             measured["lstm_stack_train_tasks.backward"]["bfloat16"] = {
                                 "ms": times["kernel"][1], "call_ms": alone["bwd"][0],
                                 "device_ms": alone["bwd"][1], "parts_ms": alone["parts_ms"]}
@@ -3117,30 +3223,13 @@ def main() -> int:
                     del xr, lib_out, lib_ct
                     log(f"torch.nn.LSTM (cuDNN) float32, once a task x {nv}: forward "
                         f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms  [{card}]")
-                    # Row 16's row tile: V x 512 rows at 256 / H * rpt rows a
-                    # block (row 17's plan is the recurrence's, by task count).
-                    tile_ms = {}
-                    chosen = fls._rows_per_thread(nv * n, lh, dev)
-                    real_rpt = fls._rows_per_thread
-                    try:
-                        with torch.no_grad():
-                            for rpt in fls.ROWS_PER_THREAD:
-                                fls._rows_per_thread = lambda rows, hidden, d, rpt=rpt: rpt
-                                x_v = xs.transpose(1, 2)
-                                tile_ms[rpt] = cuda_ms(torch, lambda: fls.tasks_forward(
-                                    x_v, m, keep, dt, *weights))
-                    finally:
-                        fls._rows_per_thread = real_rpt
-                    log(f"row 16 float32 V={nv} by row tile (rows per thread: blocks of "
-                        f"{nv} x 512 rows; forward ms): " + ", ".join(
-                            f"{rpt}: {-(-n // (256 // lh * rpt)) * nv} blocks {f:.4f}"
-                            for rpt, f in tile_ms.items())
-                        + f"; the wrapper picks {chosen}  [{card}]")
                     if nv == 2:
                         measured["lstm_stack_train_tasks"] = {
                             "max_abs_err": fwd_err, "ms": times["kernel"][0],
                             "plain_ms": times["plain"][0], "library_ms": lib_fwd,
-                            "call_ms": alone["fwd"][0], "device_ms": alone["fwd"][1]}
+                            "call_ms": alone["fwd"][0], "device_ms": alone["fwd"][1],
+                            "enqueue_ms": alone["fwd_enqueue"], "parts_ms": alone["fwd_parts"],
+                            "core_launches": alone["core16"], "plan": alone["plan"]}
                         measured["lstm_stack_train_tasks.backward"] = {
                             "max_abs_err": bwd_err, "ms": times["kernel"][1],
                             "plain_ms": times["plain"][1], "library_ms": lib_bwd,
@@ -3170,6 +3259,8 @@ def main() -> int:
     def lockstep_counts():
         tasks = fls.lstm_stack_train_tasks
         return {"lstm_stack_train_tasks": tasks.launches,
+                "row 16 gemm_nn": tasks.forward_gemm_nn_launches,
+                "row 16 recurrence": tasks.forward_recurrence_launches,
                 "lstm_stack_train_tasks.backward": tasks.backward_launches,
                 "row 17 recurrence": tasks.backward_recurrence_launches,
                 "row 17 gemm_nn": tasks.backward_gemm_nn_launches,
@@ -3193,6 +3284,7 @@ def main() -> int:
         tasks = fls.lstm_stack_train_tasks
         tasks.backward_recurrence_launches = tasks.backward_gemm_nn_launches = 0
         tasks.backward_gemm_tn_launches = 0
+        tasks.forward_gemm_nn_launches = tasks.forward_recurrence_launches = 0
 
     with Phase("_VBATCH: the lockstep meta step"):
         fls._VBATCH = True
@@ -3214,6 +3306,8 @@ def main() -> int:
                     if route == "kernel":
                         steps = one_epoch.inner_batches
                         want = {"lstm_stack_train_tasks": steps + 1,
+                                "row 16 gemm_nn": (steps + 1) * n_l,
+                                "row 16 recurrence": (steps + 1) * n_l,
                                 "lstm_stack_train_tasks.backward": steps + 1,
                                 "row 17 recurrence": (steps + 1) * n_l,
                                 "row 17 gemm_nn": (steps + 1) * n_l,
@@ -3243,6 +3337,8 @@ def main() -> int:
             log(f"launches in one meta step under _VBATCH: {vbatch_launches}")
             forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
             want = {"lstm_stack_train_tasks": forwards // 2,
+                    "row 16 gemm_nn": forwards // 2 * n_l,
+                    "row 16 recurrence": forwards // 2 * n_l,
                     "lstm_stack_train_tasks.backward": forwards // 2,
                     "row 17 recurrence": forwards // 2 * n_l,
                     "row 17 gemm_nn": forwards // 2 * n_l,
@@ -3404,7 +3500,8 @@ def main() -> int:
             # library call.
             **{k: m[k] for k in ("device_ms", "call_ms", "library_device_ms", "parts_ms",
                                  "bfloat16", "library_call_ms", "core_launches", "by_nl",
-                                 "host_ms", "enqueue_ms", "from_g2", "profiler_ms")
+                                 "host_ms", "enqueue_ms", "from_g2", "profiler_ms", "plan",
+                                 "dwh_cublas_ms")
                if k in m},
         })
     log(json.dumps({"kernels": kernels}))

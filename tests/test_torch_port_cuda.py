@@ -20,7 +20,7 @@ import torch
 from weatherforecast_stgcn_maml_tpu_torch.config import DataConfig, MetaConfig, ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
-from weatherforecast_stgcn_maml_tpu_torch.models.common import Dense, draw_mask
+from weatherforecast_stgcn_maml_tpu_torch.models.common import Dense, as_operand, draw_mask
 from weatherforecast_stgcn_maml_tpu_torch.models.gcn import apply_gcn_layer
 from weatherforecast_stgcn_maml_tpu_torch.models.lstm import init_lstm
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, init_model
@@ -1404,7 +1404,8 @@ def test_forward_recurrence_refuses_a_plan_it_does_not_take(dev):
     for plan in ((1, 64, 2), (2, 64, 3), (1, 128, 16)):  # 128 units; rb 3; 256 KB of f32
         err = lib.wf_lstm_stack_forward_recurrence(fused_lstm_stack._SCAN_FWD.pack(
             0, *plan, gates.data_ptr(), gates.data_ptr(), wh.data_ptr(), 512, bias.data_ptr(),
-            h.data_ptr(), h.data_ptr(), 0, 0, 1.0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev)))
+            h.data_ptr(), h.data_ptr(), 0, 0, 1.0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev),
+            1, *[0] * 8))
         with pytest.raises(RuntimeError, match="invalid argument"):
             cuda_build.check(err, f"plan {plan}")
 
@@ -1660,3 +1661,152 @@ def test_hvp_forward_schedule_at_full_width(dev, dtype, rows, layers, dropout):
             assert torch.equal(g, s) and torch.equal(g, p), name
             assert _rel(g, r) <= tol and _rel(g, q) <= tol, (w_scale, name, _rel(g, r),
                                                              _rel(g, q))
+
+
+# Row 16 on row 4's layer-by-layer schedule with a task axis (the forward
+# recurrence's grid z, the core's products batched over the tasks), and row
+# 19's backward from one C call, its weight gradient on the TN core.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,rows,hidden", [(1, 48, 64), (2, 48, 128), (3, 48, 256),
+                                            (2, 512, 128), (3, 512, 128), (2, 1024, 128)])
+def test_forward_recurrence_task_axis_matches_plain(dev, dtype, nv, rows, hidden):
+    """V tasks' recurrences in one launch (task-strided views, as row 16's
+    schedule passes them: one layer of [V, L, T, R, *] arrays) against the
+    plain piece, with a mask and the last h, at plans of every cluster size;
+    each task bitwise equal to its one-task launch where the plan is the
+    same, and one task of the task-axis form bitwise equal to the one-task
+    form (row 4's launch)."""
+    fls = fused_lstm_stack
+    plan = fls.forward_plan(hidden, rows, dtype.itemsize, fls._sms(dev), nv)
+    t_len = 7
+    xp = _card(dev, (nv, 2, t_len, rows, 4 * hidden), seed=hidden)[:, 1]
+    wh = _card(dev, (nv, 2, hidden, 4 * hidden), seed=hidden + 1, scale=hidden ** -0.5)[:, 0]
+    bias = _card(dev, (nv, 2, 4 * hidden), seed=hidden + 2, scale=0.1)[:, 1]
+    mask = (_card(dev, (nv, 2, t_len, rows, hidden), seed=hidden + 3) > -0.84).to(torch.int8)[:, 0]
+    outs = {}
+    for name, piece in (("kernel", fls._forward_recurrence_card),
+                        ("plain", fls._forward_recurrence_plain)):
+        gates = xp.clone()
+        res = [torch.empty((nv, 2, t_len, rows, hidden), dtype=dtype, device=dev)[:, 1]
+               for _ in range(2)] + [torch.empty((nv, t_len, rows, hidden), dtype=dtype,
+                                                 device=dev)]
+        h_last = torch.empty((nv, rows, hidden), device=dev)
+        before = fls._forward_recurrence_card.launches
+        piece(gates, wh, bias, dtype, res[0], res[1], mask=mask, inv_keep=1.25, next_in=res[2],
+              h_last=h_last)
+        if name == "kernel":
+            assert fls._forward_recurrence_card.launches == before + 1
+        outs[name] = (gates, *res, h_last)
+    for i, (a, b) in enumerate(zip(outs["kernel"], outs["plain"])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=str(i))
+    for v in range(nv):
+        gates = xp[v].clone()
+        res = [torch.empty((t_len, rows, hidden), dtype=dtype, device=dev) for _ in range(3)]
+        h_last = torch.empty((rows, hidden), device=dev)
+        fls._forward_recurrence_card(gates, wh[v], bias[v], dtype, res[0], res[1],
+                                     mask=mask[v], inv_keep=1.25, next_in=res[2], h_last=h_last)
+        if nv == 1 or fls.forward_plan(hidden, rows, dtype.itemsize, fls._sms(dev)) == plan:
+            for i, (a, b) in enumerate(zip(outs["kernel"], (gates, *res, h_last))):
+                assert torch.equal(a[v], b), (v, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,rows,layers,dropout", [(2, 512, 4, 0.2), (2, 512, 4, 0.0),
+                                                    (3, 512, 2, 0.2), (2, 512, 1, 0.0),
+                                                    (2, 1024, 4, 0.2)])
+def test_lstm_tasks_forward_at_full_width(dev, dtype, nv, rows, layers, dropout):
+    """Row 16 at the inner step's shapes (24 steps, input 256, hidden 128, V
+    tasks) against its schedule on the plain pieces from the same inputs:
+    h_last, h_all, c_all and the gates; L gemm_nn and L recurrence launches
+    from one call, no gemm.cu launch; the same schedule a launch at a time
+    (`FWD_CARD_PIECES`) and a second call give the same bits; each task's
+    h_last against row 4 (`train_forward`) on that task's weights."""
+    fls = fused_lstm_stack
+    tasks = fls.lstm_stack_train_tasks
+    w0, wr, b2d = _task_weights(dev, nv, 256, 128, layers, 50)
+    x = _card(dev, (nv, 24, rows, 256), seed=15)
+    masks = None
+    if dropout:
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(4),
+                          (nv, layers - 1, 24, rows, 128), dropout, dev)
+    keep = 1.0 - dropout
+    with torch.no_grad():
+        before = (tasks.launches, tasks.forward_gemm_nn_launches,
+                  tasks.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+        got = fls.tasks_forward(x, masks, keep, dtype, w0, wr, b2d)
+        assert (tasks.launches, tasks.forward_gemm_nn_launches, tasks.forward_recurrence_launches,
+                gemm_nn.launches, gemm.launches) == (
+            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers, before[4])
+        again = fls.tasks_forward(x, masks, keep, dtype, w0, wr, b2d)
+        pieces = fls.tasks_forward_schedule(x, masks, keep, dtype, w0, wr, b2d,
+                                            fls.FWD_CARD_PIECES)
+        ref = fls.tasks_forward_schedule(x, masks, keep, dtype, w0, wr, b2d, fls.FWD_PLAIN_PIECES)
+        one = [fls.train_forward(x[v], None if masks is None else masks[v], keep, dtype, b2d[v],
+                                 [w0[v], *wr[v]])[0] for v in range(nv)]
+    for name, g, a, p, r in zip(("h_last", "h_all", "c_all", "gates"), got, again, pieces, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert torch.equal(g, a) and torch.equal(g, p), name
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=name)
+    torch.testing.assert_close(got[0], torch.stack(one), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_lstm_tasks_forward_refuses_what_row4_refuses(dev):
+    """Row 16 takes the widths row 4 takes: float32 hidden 320 holds no
+    forward-recurrence plan (Wh beyond 8 blocks' shared memory), which the
+    earlier one-kernel forward took at input 24 and 2 layers."""
+    w0, wr, b = _task_weights(dev, 2, 24, 320, 2, 0)
+    x = torch.zeros((2, 8, 7, 24), device=dev)
+    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 8 blocks"):
+        fused_lstm_stack.lstm_stack_train_tasks(x, w0, wr, b)
+    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 8 blocks"):
+        fused_lstm_stack.lstm_stack_train(init_lstm(torch.Generator().manual_seed(0), 24, 320,
+                                                    2).to(dev).layers, x[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 100, 32), (7, 3000, 12), (24, 512, 128), (24, 1024, 128),
+                                   (1, 48, 64)])
+def test_lstm_recurrence_backward_runs_on_the_tn_core(dev, dtype, shape):
+    """Row 19's call (one C call) from row 18's residuals against
+    `scan_backward_plain` and a plain dwh: dgates and dwh; one launch of the
+    TN core, none of gemm.cu's GEMM; the same schedule a launch at a time
+    (`lstm_scan.CARD_PIECES`) and a second call give the same bits. Hidden
+    12 (float32 only: the forward refuses it in bfloat16) zero-pads h's
+    columns for the TN product."""
+    t_len, rows, hidden = shape
+    if dtype == torch.bfloat16 and hidden % 8:
+        pytest.skip("the forward refuses bfloat16 at a hidden width that is no multiple of 8")
+    xp = _card(dev, (t_len, rows, 4 * hidden), seed=hidden)
+    wh = _card(dev, (hidden, 4 * hidden), seed=hidden + 1, scale=0.1)
+    g = _card(dev, (t_len, rows, hidden), seed=hidden + 2)
+    rec = lstm_scan.lstm_recurrence
+    with torch.no_grad():
+        h_all, c_all, gates = lstm_scan.scan_forward(xp, wh, dtype, True)
+        before = (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches,
+                  gemm.launches)
+        got = lstm_scan.scan_backward(g, h_all, c_all, gates, wh, dtype)
+        assert (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches,
+                gemm.launches) == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+        again = lstm_scan.scan_backward(g, h_all, c_all, gates, wh, dtype)
+        pieces = lstm_scan.scan_backward_schedule(g, h_all, c_all, gates, wh, dtype,
+                                                  lstm_scan.CARD_PIECES)
+        ref_dg = lstm_scan.scan_backward_plain(g, gates, c_all, wh, dtype)
+        h_prev = torch.cat([torch.zeros_like(h_all[:1]), h_all[:-1]]).reshape(-1, hidden)
+        ref_dwh = (as_operand(h_prev, dtype).double().T
+                   @ as_operand(got[0].reshape(-1, 4 * hidden), dtype).double())
+    for name, a, s, p in zip(("dgates", "dwh"), got, again, pieces):
+        assert a.dtype == torch.float32 and torch.equal(a, s) and torch.equal(a, p), name
+    assert got[1].shape == (hidden, 4 * hidden)
+    assert _rel(got[0], ref_dg) <= TOL[dtype], _rel(got[0], ref_dg)
+    if t_len == 1:  # h_{-1} = 0: no term
+        assert not got[1].any()
+    else:
+        assert _rel(got[1], ref_dwh) <= 1e-5, _rel(got[1], ref_dwh)

@@ -16,9 +16,13 @@ at `MetaConfig()` defaults (4 tasks x 90 inner steps), the same with the
 micro-batch's tasks in lockstep (`_VBATCH`: kernel rows 16-17 and 9) and
 the node-sharded meta step on a 1 x 1 mesh (a NCCL group of one), each the
 median of 3 after one warm-up step with its peak device memory (GiB, the
-most of the 3); the task-batched LSTM stack's backward alone (row 17 at V =
-2: x [2 x 512, 24, 256], 4 layers of 128, masks at rate 0.2, from row 16's
-residuals) by CUDA events (median of 20) and by CUDA graph replay; the
+most of the 3); one lockstep inner step (2 tasks, one window each: rows
+6-7, 16-17 and 9) by the host clock and the device's busy time; the
+task-batched LSTM stack's forward alone (row 16 at V = 2: x [2 x 512, 24,
+256], 4 layers of 128, masks at rate 0.2; float32 and bfloat16) by CUDA
+events (median of 20), by CUDA graph replay and by the host's time to
+enqueue a call, and its backward (row 17, from row 16's float32 residuals)
+by events and by graph replay; the
 merged stack's training forward alone (row 4: x [512, 24, 256] as the
 model's [T, B, C] view, 4 layers of 128, masks at rate 0.2) and the
 unmerged-gates forward alone (row 14, the same weights as separate Wx and
@@ -29,7 +33,8 @@ replay; the tangent of the merged stack's forward alone (row 10 at x [24,
 point) and of its backward (row 11, from rows 4, 10 and 5) by events, by
 CUDA graph replay and by the host's time to enqueue a call; one layer's
 recurrence alone (row 18, the `lstm_kernel=pallas` route's forward: xp
-[24, 512, 512], its gates kept) the same ways; and one call of the serving
+[24, 512, 512], its gates kept) and its backward (row 19, from row 18's
+residuals) the same ways; and one call of the serving
 GCN stack (kernel row 1, [72, 512, 24] -> 4 x 256) in float32 and
 bfloat16. Run it on two checkouts in
 turns (A, B, B, A) in one call on one card: the card's host varies between
@@ -63,6 +68,7 @@ from weatherforecast_stgcn_maml_tpu_torch.config import (  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import (  # noqa: E402
     apply_model,
@@ -83,6 +89,7 @@ from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import (  # noqa: E40
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import (  # noqa: E402
     init_meta_state,
+    inner_sgd_update_tasks,
     make_meta_step,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import leaf_order  # noqa: E402
@@ -241,6 +248,24 @@ for route, mc in (("default", ModelConfig()), ("pallas", ModelConfig(lstm_kernel
             res[f"{name} peak GiB"] = None if args.cpu else max(peaks)
         res["lockstep / serial"] = (None if args.cpu
                                     else res["lockstep meta step ms"] / res["meta step ms"])
+        # One lockstep inner step: 2 tasks, one window each, forward +
+        # backward + batched clip + SGD (rows 6-7, 16-17 and 9).
+        micro = type(tasks)(*(f[:2] for f in tasks))
+        named = sorted(state.params.named_parameters(), key=lambda kv: leaf_order(kv[0]))
+        fast = [p.detach().unsqueeze(0).repeat(2, *[1] * p.dim()).requires_grad_(True)
+                for _, p in named]
+
+        def lockstep_inner_step():
+            x = micro.support_x[:, 0]
+            preds = apply_hybrid_tasks(dict(zip((k for k, _ in named), fast)), micro.a_hat, x,
+                                       micro.koppen, mc, masks=draw_masks(mc, g, x))
+            loss = sum(masked_mse(preds[v], micro.support_y[v, 0], micro.node_mask[v])
+                       for v in range(2))
+            inner_sgd_update_tasks(fast, list(torch.autograd.grad(loss, fast)), meta_cfg)
+
+        res["lockstep inner step ms"] = host_ms(lockstep_inner_step)
+        res["lockstep inner step device busy ms"] = busy_ms(lockstep_inner_step)
+        del micro, fast
         # The SO inner step: the inner gradient on the kernel route and its
         # Hessian-vector product (fhvp: rows 4-7 and 10-11), one window.
         so_cfg = dataclasses.replace(meta_cfg, second_order=True)
@@ -280,7 +305,7 @@ for route, mc in (("default", ModelConfig()), ("pallas", ModelConfig(lstm_kernel
             fused_lstm_stack._MERGED_GATES = True
 
 cfg = ModelConfig()
-if not args.cpu:  # row 17 alone at V = 2, from row 16's residuals (masks at rate 0.2)
+if not args.cpu:  # rows 16 and 17 alone at V = 2 (row 17 from row 16's residuals; masks 0.2)
     nv, n, lh, n_l = 2, 512, cfg.lstm_hidden, cfg.lstm_layers
     draw = torch.Generator(device=dev).manual_seed(5)
     x_v = torch.randn((nv, cfg.window, n, cfg.hidden_channels), generator=draw, device=dev)
@@ -291,6 +316,14 @@ if not args.cpu:  # row 17 alone at V = 2, from row 16's residuals (masks at rat
     m = draw_mask(draw, (nv, n_l - 1, cfg.window, n, lh), 0.2, dev)
     g_v = torch.randn((nv, n, lh), generator=draw, device=dev)
     with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+
+            def row16():
+                fused_lstm_stack.tasks_forward(x_v, m, 0.8, dt, w0, wr, b2d)
+
+            res[f"row 16 {str(dt)[6:]} ms"] = events_ms(row16)
+            res[f"row 16 {str(dt)[6:]} device ms"] = graph_ms(row16)
+            res[f"row 16 {str(dt)[6:]} enqueue ms"] = enqueue_ms(row16)
         fwd = fused_lstm_stack.tasks_forward(x_v, m, 0.8, torch.float32, w0, wr, b2d)
 
         def row17():
@@ -327,6 +360,7 @@ if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; rows 10, 11 and
                      for shape in ((cfg.window, n, hid), (n, lh), (n, lh)))
     xp18 = torch.randn((cfg.window, n, 4 * lh), generator=draw, device=dev)
     wh18 = wcat[1][lh:]
+    g19 = torch.randn((cfg.window, n, lh), generator=draw, device=dev)
     cudnn = torch.nn.LSTM(hid, lh, n_l, batch_first=True).to(dev)
     torch.backends.cudnn.allow_tf32 = False
     fh = fused_lstm_hvp
@@ -356,13 +390,18 @@ if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; rows 10, 11 and
             def row18():
                 lstm_scan.scan_forward(xp18, wh18, dt, True)
 
+            res18 = lstm_scan.scan_forward(xp18, wh18, dt, True)
+
+            def row19():
+                lstm_scan.scan_backward(g19, *res18, wh18, dt)
+
             for row, fn in (("row 4", row4), ("row 14", row14), ("row 10", row10),
-                            ("row 11", row11), ("row 18", row18)):
+                            ("row 11", row11), ("row 18", row18), ("row 19", row19)):
                 name = f"{row} {str(dt)[6:]}"
                 res[f"{name} ms"] = events_ms(fn)
                 res[f"{name} device ms"] = graph_ms(fn)
                 res[f"{name} enqueue ms"] = enqueue_ms(fn)
-            del h_all, c_all, gates, th_all, tc_all, tgates, bwd_res
+            del h_all, c_all, gates, th_all, tc_all, tgates, bwd_res, res18
             lib = cudnn.to(dt)
             res[f"cuDNN forward {str(dt)[6:]} ms"] = events_ms(lambda: lib(x4.to(dt)))
             res[f"cuDNN forward {str(dt)[6:]} device ms"] = graph_ms(lambda: lib(x4.to(dt)))

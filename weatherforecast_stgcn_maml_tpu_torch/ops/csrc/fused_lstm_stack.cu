@@ -1,27 +1,13 @@
 // Fused LSTM stack forward: all layers and all time steps in one launch.
 //
-// Replaces two Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
-// fused_lstm_stack.py, the bodies of `_fwd_kernel_m` and `_fwd_kernel_mv`:
-//   eval (TRAIN = false, kernel row 2): `_fwd_kernel_m_lastonly_nomask`,
-//     launched by `_fwd_pallas_m(..., emit_residuals=False)`; returns only the
-//     top layer's last hidden state;
-//   training for V tasks (TRAIN = true, kernel row 16): `_fwd_kernel_mv` (+
-//     `_nomask`), launched by `_fwd_pallas_mv`: V chains, each with its own
-//     weights, inputs, masks and outputs, in one launch; also streams out
-//     every (layer, step)'s h and c in the compute dtype (the backward's
-//     residuals, JAX `_res_dtype`) and its activated gates in float32, and
-//     multiplies each inter-layer input by its int8 dropout mask times 1/keep
-//     before rounding it to the compute dtype. The TPU backward recomputes
-//     the gates from the residuals to spare HBM; here storing them leaves the
-//     backward's serial recurrence one contraction a step
-//     (csrc/lstm_scan_bwd.cuh, row 17). The TPU folds the V chains into one
-//     program so that one chain's gate math hides under another's dots on the
-//     MXU; here the tasks are the grid's second axis (blockIdx.y), so V times
-//     the row tiles fill the card's SMs and each block streams its own task's
-//     weights (the wrapper picks the row tile for V x R rows).
-// The one-task training forward (kernel row 4) left this kernel: it runs
-// layer by layer on gemm_nn.cu and the cluster recurrence of
-// lstm_scan_fwd.cuh (lstm_stack_fwd.cu).
+// Replaces the Pallas kernel of weatherforecast_stgcn_maml_tpu/ops/
+// fused_lstm_stack.py `_fwd_kernel_m_lastonly_nomask` (kernel row 2, the
+// eval forward), launched by `_fwd_pallas_m(..., emit_residuals=False)`:
+// returns only the top layer's last hidden state. The training forwards left
+// this kernel: the one-task one (row 4), the unmerged-gates one (row 14) and
+// the task-batched one (row 16, `_fwd_kernel_mv`) run layer by layer on
+// gemm_nn.cu and the cluster recurrence of lstm_scan_fwd.cuh
+// (lstm_stack_fwd.cu).
 //
 // Per step t and layer l it computes the merged-gates contraction
 //     gates = [in_t | h_{t-1}] @ [[Wx_l], [Wh_l]] + b_l      (gate order i,f,g,o)
@@ -42,22 +28,18 @@
 // between threads; only the next contraction, which reads every unit of a
 // row, needs a barrier.
 //
-// Bound: about 14.5 GFLOP at the training shapes (24 steps, 512 rows, 4
-// layers of width 128, input 256), 0.22 ms at the card's float32 rate; the
-// residual stream adds 2 * L * T * B * H elements (25 MB in float32), well
-// under that. The weights (about 2.4 MB in float32, half in bfloat16) do not
-// fit in shared memory, so every block streams all of
-// them from L2 once per step: T * L serial stages of one [K, 4H] weight
-// matrix each. Loading them with per-thread loads right before use left the
-// kernel bound by L2 latency (the row count barely changed its time).
-// Here the whole block copies the weights in [kTileK, 4H] tiles with
+// Bound: about 14.5 GFLOP for 512 rows of 24 steps, 4 layers of width 128,
+// input 256 (0.22 ms at the card's float32 rate). The weights (about 2.4 MB
+// in float32, half in bfloat16) do not fit in shared memory, so every block
+// streams all of them from L2 once per step: T * L serial stages of one [K,
+// 4H] weight matrix each. Loading them with per-thread loads right before
+// use left the kernel bound by L2 latency (the row count barely changed its
+// time). Here the whole block copies the weights in [kTileK, 4H] tiles with
 // cp.async into a double buffer, one tile ahead of the tile being used,
 // across stage boundaries (the tile sequence is static), so the copy of the
 // next tile overlaps the FMAs on the current one. Row 4's layer-by-layer
 // design (the input products hoisted onto gemm_nn.cu, Wh resident in a
-// cluster's shared memory) is the one rows 16 and 2 can take next.
-#include <cstdint>
-
+// cluster's shared memory) is the one row 2 can take next.
 #include "common.cuh"
 
 namespace wf {
@@ -69,7 +51,6 @@ constexpr size_t kMaxSmemBytes = 232448;  // 227 KB opt-in per block
 
 struct Dims {
   int T, R, C, H, L;
-  int V;  // tasks: the grid's second axis (1 but for row 16)
   __device__ int k(int l) const { return (l == 0 ? C : H) + H; }  // wcat_l rows
   __device__ int tiles(int l) const { return (k(l) + kTileK - 1) / kTileK; }
 };
@@ -95,48 +76,18 @@ __device__ __forceinline__ void prefetch_tile(int seq, int tiles_per_step,
     cp_async16(dst + 16 * c, src + 16 * c);
 }
 
-
-// The training forward's extra streams (unused in eval): residuals h_all and
-// c_all [L, T, R, H] in the compute dtype, the activated gates (i, f, g, o)
-// [L, T, R, 4H] in float32, the int8 {0, 1} inter-layer dropout masks
-// [L-1, T, R, H] (or null) and 1/keep.
-struct TrainIO {
-  void* h_all;
-  void* c_all;
-  float* gates;
-  const int8_t* masks;
-  float inv_keep;
-};
-
 // x[t, r, c] lives at x[t * st + r * sr + c]; wcat0 is [C + H, 4H], wcatr
 // [L-1, 2H, 4H] (both in the compute dtype TW), bias [L, 4H] float32,
-// out [R, H] float32. C and H are multiples of 4. Task v = blockIdx.y
-// finds its x at x + v * sv and every other array at v times its one-task
-// size (a leading task axis).
-template <typename TW, int RPT, bool TRAIN>
-__global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
-                                      long long sv, long long st, long long sr,
+// out [R, H] float32. C and H are multiples of 4.
+template <typename TW, int RPT>
+__global__ void lstm_stack_fwd_kernel(const float* __restrict__ x, long long st, long long sr,
                                       const TW* __restrict__ wcat0,
                                       const TW* __restrict__ wcatr,
                                       const float* __restrict__ bias,
-                                      float* __restrict__ out, Dims d,
-                                      TrainIO io) {
+                                      float* __restrict__ out, Dims d) {
   extern __shared__ float4 smem4[];
   const int H = d.H, C = d.C, L = d.L;
   const int g4 = 4 * H;
-  const size_t v = blockIdx.y;
-  x += v * sv;
-  wcat0 += v * (C + H) * g4;
-  wcatr += v * (L - 1) * 2 * H * g4;
-  bias += v * L * g4;
-  out += v * d.R * H;
-  if constexpr (TRAIN) {
-    const size_t res = (size_t)L * d.T * d.R * H;  // one task's [L, T, R, H]
-    io.h_all = static_cast<TW*>(io.h_all) + v * res;
-    io.c_all = static_cast<TW*>(io.c_all) + v * res;
-    io.gates += v * res * 4;
-    if (io.masks) io.masks += v * (L - 1) * d.T * d.R * H;
-  }
   const int rows_blk = (blockDim.x / H) * RPT;
   TW* wbuf = reinterpret_cast<TW*>(smem4);  // [2, kTileK, 4H]
   // Operand rows of layer l: [rows_blk, K_l] with K_l = (C or H) + H,
@@ -148,7 +99,6 @@ __global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
   const int j = tid % H;
   const int r0 = (tid / H) * RPT;  // first local row of this thread
   const int row0 = blockIdx.x * rows_blk;
-  const size_t step_elems = (size_t)d.R * H;  // one [R, H] slice of h_all
 
   int tiles_per_step = 0;
   for (int l = 0; l < L; ++l) tiles_per_step += d.tiles(l);
@@ -217,7 +167,6 @@ __global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
       float* cl = cs + (size_t)l * rows_blk * H;
       float* in_next = in_l + (size_t)rows_blk * kl;  // layer l+1's rows
       const bool emit = l == L - 1 && t == d.T - 1;
-      const size_t slice = ((size_t)l * d.T + t) * step_elems;  // h_all[l, t]
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         const size_t at = (size_t)(r0 + r) * H + j;
@@ -231,29 +180,7 @@ __global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
         const float hr = round_to<TW>(h);
         in_l[(size_t)(r0 + r) * kl + kin + j] = hr;  // own recurrent input
         const int row = row0 + r0 + r;
-        if constexpr (TRAIN) {
-          const size_t o = slice + (size_t)row * H + j;
-          if (row < d.R) {
-            static_cast<TW*>(io.h_all)[o] = from_float<TW>(h);
-            static_cast<TW*>(io.c_all)[o] = from_float<TW>(c);
-            float* gt = io.gates + slice * 4 + (size_t)row * g4;
-            gt[j] = ig;
-            gt[H + j] = fg;
-            gt[2 * H + j] = gg;
-            gt[3 * H + j] = og;
-          }
-          if (l + 1 < L) {
-            // Inter-layer dropout: masks[l, t] has h_all[l, t]'s layout.
-            float nx = h;
-            if (io.masks) {
-              const float m = row < d.R ? (float)io.masks[o] : 0.f;
-              nx = h * (m * io.inv_keep);
-            }
-            in_next[(size_t)(r0 + r) * 2 * H + j] = round_to<TW>(nx);
-          }
-        } else {
-          if (l + 1 < L) in_next[(size_t)(r0 + r) * 2 * H + j] = hr;  // next layer's input
-        }
+        if (l + 1 < L) in_next[(size_t)(r0 + r) * 2 * H + j] = hr;  // next layer's input
         if (emit && row < d.R) out[(size_t)row * H + j] = h;
       }
       in_l = in_next;
@@ -261,10 +188,9 @@ __global__ void lstm_stack_fwd_kernel(const float* __restrict__ x,
   }
 }
 
-template <typename TW, int RPT, bool TRAIN>
-int launch(const float* x, long long sv, long long st, long long sr, const void* wcat0,
-           const void* wcatr, const float* bias, float* out, Dims d,
-           const TrainIO& io, cudaStream_t stream) {
+template <typename TW, int RPT>
+int launch(const float* x, long long st, long long sr, const void* wcat0, const void* wcatr,
+           const float* bias, float* out, Dims d, cudaStream_t stream) {
   const int groups = d.H >= kTargetThreads ? 1 : kTargetThreads / d.H;
   const int threads = groups * d.H;
   const int rows_blk = groups * RPT;
@@ -275,45 +201,25 @@ int launch(const float* x, long long sv, long long st, long long sr, const void*
   if (threads > 1024 || smem > kMaxSmemBytes || d.C % 4 || d.H % 4)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_stack_fwd_kernel<TW, RPT, TRAIN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      lstm_stack_fwd_kernel<TW, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d.R + rows_blk - 1) / rows_blk, d.V);
-  lstm_stack_fwd_kernel<TW, RPT, TRAIN><<<grid, threads, smem, stream>>>(
-      x, sv, st, sr, static_cast<const TW*>(wcat0), static_cast<const TW*>(wcatr),
-      bias, out, d, io);
+  const dim3 grid((d.R + rows_blk - 1) / rows_blk);
+  lstm_stack_fwd_kernel<TW, RPT><<<grid, threads, smem, stream>>>(
+      x, st, sr, static_cast<const TW*>(wcat0), static_cast<const TW*>(wcatr), bias, out, d);
   return (int)cudaGetLastError();
 }
 
-template <typename TW, bool TRAIN>
-int launch_rpt(int rpt, const float* x, long long sv, long long st, long long sr,
-               const void* wcat0, const void* wcatr, const float* bias,
-               float* out, Dims d, const TrainIO& io, cudaStream_t stream) {
+template <typename TW>
+int launch_rpt(int rpt, const float* x, long long st, long long sr, const void* wcat0,
+               const void* wcatr, const float* bias, float* out, Dims d, cudaStream_t stream) {
   switch (rpt) {
     case 2:
-      return launch<TW, 2, TRAIN>(x, sv, st, sr, wcat0, wcatr, bias, out, d, io, stream);
+      return launch<TW, 2>(x, st, sr, wcat0, wcatr, bias, out, d, stream);
     case 4:
-      return launch<TW, 4, TRAIN>(x, sv, st, sr, wcat0, wcatr, bias, out, d, io, stream);
+      return launch<TW, 4>(x, st, sr, wcat0, wcatr, bias, out, d, stream);
     case 8:
-      return launch<TW, 8, TRAIN>(x, sv, st, sr, wcat0, wcatr, bias, out, d, io, stream);
+      return launch<TW, 8>(x, st, sr, wcat0, wcatr, bias, out, d, stream);
   }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <bool TRAIN>
-int launch_dt(int w_dt, int rpt, int V, const float* x, long long sv, long long st,
-              long long sr, const void* wcat0, const void* wcatr, const float* bias,
-              float* out, int T, int R, int C, int H, int L, const TrainIO& io,
-              void* stream) {
-  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0 || V <= 0 || V > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Dims d{T, R, C, H, L, V};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_dt == kF32)
-    return launch_rpt<float, TRAIN>(rpt, x, sv, st, sr, wcat0, wcatr, bias, out, d, io, s);
-  if (w_dt == kBF16)
-    return launch_rpt<__nv_bfloat16, TRAIN>(rpt, x, sv, st, sr, wcat0, wcatr, bias,
-                                            out, d, io, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -329,26 +235,13 @@ extern "C" int wf_lstm_stack_last(int w_dt, int rows_per_thread,
                                   const void* wcat0, const void* wcatr,
                                   const float* bias, float* out, int T, int R,
                                   int C, int H, int L, void* stream) {
-  const wf::TrainIO none{nullptr, nullptr, nullptr, nullptr, 1.f};
-  return wf::launch_dt<false>(w_dt, rows_per_thread, 1, x, 0, st, sr, wcat0, wcatr,
-                              bias, out, T, R, C, H, L, none, stream);
-}
-
-// Training forward of V tasks in one launch (kernel row 16): as
-// wf_lstm_stack_last, plus the residuals h_all and c_all (in the weights'
-// dtype) and the activated gates (float32), with optional int8 inter-layer
-// dropout masks scaled by inv_keep (masks may be null); each array with a
-// leading task axis: x [V, T, R, C] (task stride sv, contiguous otherwise),
-// wcat0 [V, C + H, 4H], wcatr [V, L-1, 2H, 4H], bias [V, L, 4H], masks [V,
-// L-1, T, R, H] (or null), h_all, c_all [V, L, T, R, H], gates [V, L, T, R,
-// 4H], out [V, R, H].
-extern "C" int wf_lstm_stack_train_fwd_tasks(
-    int w_dt, int rows_per_thread, int V, const float* x, long long sv,
-    const void* wcat0, const void* wcatr, const float* bias, const int8_t* masks,
-    float inv_keep, void* h_all, void* c_all, float* gates, float* out, int T,
-    int R, int C, int H, int L, void* stream) {
-  if (!h_all || !c_all || !gates) return (int)cudaErrorInvalidValue;
-  const wf::TrainIO io{h_all, c_all, gates, masks, inv_keep};
-  return wf::launch_dt<true>(w_dt, rows_per_thread, V, x, sv, (long long)R * C, C,
-                             wcat0, wcatr, bias, out, T, R, C, H, L, io, stream);
+  if (T <= 0 || R <= 0 || C <= 0 || H <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+  const wf::Dims d{T, R, C, H, L};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_dt == wf::kF32)
+    return wf::launch_rpt<float>(rows_per_thread, x, st, sr, wcat0, wcatr, bias, out, d, s);
+  if (w_dt == wf::kBF16)
+    return wf::launch_rpt<__nv_bfloat16>(rows_per_thread, x, st, sr, wcat0, wcatr, bias, out,
+                                         d, s);
+  return (int)cudaErrorInvalidValue;
 }

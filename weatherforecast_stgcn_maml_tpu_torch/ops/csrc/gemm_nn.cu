@@ -31,16 +31,21 @@
 //     forward): row 1's two products a layer, the aggregation's bias + relu
 //     + mask epilogue storing each layer's post-dropout h in the compute
 //     dtype (ops/fused_gcn_train.py `forward_schedule`);
-//   row 4, fused_lstm_stack.py `_fwd_kernel_m` (the merged LSTM stack's
-//     training forward), layer by layer: the input product round(in) @
-//     round(Wx) of all T x R rows, batched over the steps (enqueued from
+//   rows 4, 14 and 16, fused_lstm_stack.py `_fwd_kernel_m` / `_fwd_kernel` /
+//     `_fwd_kernel_mv` (the LSTM stacks' training forwards; row 16 for V
+//     tasks), layer by layer: the input product round(in) @ round(Wx) of all
+//     T x R rows, batched over the steps (one task) or over the tasks, B's
+//     batch stride stepping through each task's weights (enqueued from
 //     lstm_stack_fwd.cu, which fills this file's NNLaunch);
+//   row 19, lstm_scan.py `_bwd_kernel` (one LSTM layer's backward): its
+//     weight gradient dWh = round(h_{t-1})^T round(dgates) (TN, split over
+//     K, an A row offset; enqueued from lstm_scan.cu);
 //   row 13, fused_gcn_shard.py `_bwd_kernel` (the node-sharded sandwich
 //     layer's backward): round(g2) @ round(W_next)^T with the relu-grad
 //     epilogue (dz and db's partials), dW_next = round(h_post)^T round(g2)
 //     (TN, split K) and round(A_rows)^T @ round(dz) (NN).
-// The other GEMMs of the port (the weight gradients of rows 5, 11, 15 and 19,
-// row 20's projections) stay on gemm.cu.
+// The other GEMMs of the port (the weight gradients of rows 5 and 15, row
+// 20's projections) stay on gemm.cu.
 //
 // Numerics are the port's (common.cuh): operands are rounded to the compute
 // dtype as they are loaded, products accumulate in float32. B is stored in
@@ -899,14 +904,6 @@ extern "C" int wf_gemm_nn(const NNLaunch* p) {
   }
   return kRefuseEpilogue;
 }
-
-// The arguments of one TN launch, 18 packed 8-byte fields (ops/gemm.py
-// `_TN_LAUNCH`).
-struct TNLaunch {
-  long long r_dt, a, lda, b, ldb, c, sc, ldc, M, N, K, kc, stream;
-  long long batch, sa, sb, st, a_off;
-};
-static_assert(sizeof(TNLaunch) == 18 * 8, "TNLaunch is 18 packed 8-byte fields");
 
 // C[v][s] = A'[v][ks]^T @ B[v][ks] for every task v < batch and split s of
 // K: ks = rows [s*kc, min(K, (s+1)*kc)), A' = a_off zero rows over A [K -

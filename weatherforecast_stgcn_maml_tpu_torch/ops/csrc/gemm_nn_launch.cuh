@@ -1,6 +1,6 @@
-// The launch arguments of gemm_nn.cu's NN products, shared with the C entries
-// of other sources that enqueue them (lstm_stack_fwd.cu: row 4's input
-// products).
+// The launch arguments of gemm_nn.cu's NN and TN products, shared with the C
+// entries of other sources that enqueue them (lstm_stack_fwd.cu: the input
+// products of rows 4, 14 and 16; lstm_scan.cu: row 19's weight gradient).
 #pragma once
 
 // The arguments of one launch. Every field is 8 bytes wide, so the Python
@@ -21,3 +21,15 @@ static_assert(sizeof(NNLaunch) == 34 * 8, "NNLaunch is 34 packed 8-byte fields")
 // gemm_nn.cu: one NN launch (see the definition for the arguments); a
 // cudaError_t code, or a negative refusal code without launching.
 extern "C" int wf_gemm_nn(const NNLaunch* p);
+
+// The arguments of one TN launch, 18 packed 8-byte fields (ops/gemm.py
+// `_TN_LAUNCH`).
+struct TNLaunch {
+  long long r_dt, a, lda, b, ldb, c, sc, ldc, M, N, K, kc, stream;
+  long long batch, sa, sb, st, a_off;
+};
+static_assert(sizeof(TNLaunch) == 18 * 8, "TNLaunch is 18 packed 8-byte fields");
+
+// gemm_nn.cu: one TN launch; a cudaError_t code, or a negative refusal code
+// without launching.
+extern "C" int wf_gemm_tn(const TNLaunch* p);

@@ -1,6 +1,7 @@
 // One LSTM layer's forward recurrence, kept in a thread-block cluster: the
-// serial part of kernel rows 4 (the merged stack's training forward) and 14
-// (the unmerged-gates stack's), which ops/fused_lstm_stack.py
+// serial part of kernel rows 4 (the merged stack's training forward), 14
+// (the unmerged-gates stack's) and 16 (row 4 for V tasks, each with its own
+// weights: the grid's z axis), which ops/fused_lstm_stack.py
 // `forward_schedule` and the C entry of lstm_stack_fwd.cu walk layer by
 // layer, and the whole of row 18 (one layer's recurrence, ops/lstm_scan.py).
 //
@@ -43,10 +44,12 @@
 // H] tile of every block of the cluster (distributed shared memory). The
 // tiles alternate between two buffers, so one cluster barrier a step
 // suffices: a partner's writes of step t never meet this block's reads of
-// step t-1's tile. The grid is clusters x row tiles, sized
-// (ops/fused_lstm_stack.py `forward_plan`) to fill the SMs in one wave: at R
-// = 512, 64 clusters of 2 blocks x 8 rows in float32, 128 blocks x 4 rows in
-// bfloat16; R = 1024 (the adaptation step) doubles the rows a cluster. The
+// step t-1's tile. The grid is clusters x row tiles x tasks, sized
+// (ops/fused_lstm_stack.py `forward_plan`, by task count) to fill the SMs in
+// one wave: at R = 512, 64 clusters of 2 blocks x 8 rows in float32, 128
+// blocks x 4 rows in bfloat16; R = 1024 (the adaptation step) and row 16's
+// two tasks double the rows a cluster. Task z reads and writes every array
+// at z times its task stride (zero strides and one task: row 4's launch). The
 // slice copy, the contraction, the partials' sum and the tile exchange are
 // helpers (scan_fwd_*) that the tangent forward recurrence of row 10
 // (lstm_scan_fwd_tan.cu) shares.
@@ -72,6 +75,9 @@ struct ScanFwd {
   void* next_in;       // [T, R, H] round(h * mask * inv_keep), compute dtype (with mask)
   float* h_last;       // [R, H] the last step's h, or null
   int T, R, H, cs;
+  int tasks = 1;  // the grid's z axis: task z reads and writes each array at z
+                  // times its task stride below (in elements of its own type)
+  long long sxp, sgates, sw, sbias, sres, smask, snext, slast;  // sres: h_all's, c_all's
 };
 
 // Dynamic shared memory a block takes: its weight slice [H, 4, hcp] and two
@@ -187,11 +193,25 @@ __device__ __forceinline__ void cell_fwd(float pi, float pf, float pg, float po,
   h = a[3] * tanhf(c);
 }
 
-// Grid (cs, row tiles); clusters of cs blocks along x: block rank b owns
-// units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp.
+// Grid (cs, row tiles, tasks); clusters of cs blocks along x: block rank b
+// owns units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp.
 template <typename TW, int UPT, int RB>
-__global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const ScanFwd a) {
+__global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const ScanFwd tasks) {
   extern __shared__ __align__(128) unsigned char smem[];
+  ScanFwd a = tasks;  // this block's task: each array z task strides on
+  {
+    const long long z = blockIdx.z;
+    const size_t to = a.out_f32 ? sizeof(float) : sizeof(TW);  // h_all's and c_all's bytes
+    a.xp = tasks.xp + z * tasks.sxp;
+    if (a.gates) a.gates = tasks.gates + z * tasks.sgates;
+    a.wh = static_cast<const TW*>(tasks.wh) + z * tasks.sw;
+    if (a.bias) a.bias = tasks.bias + z * tasks.sbias;
+    a.h_all = static_cast<char*>(tasks.h_all) + z * tasks.sres * to;
+    a.c_all = static_cast<char*>(tasks.c_all) + z * tasks.sres * to;
+    if (a.mask) a.mask = tasks.mask + z * tasks.smask;
+    if (a.next_in) a.next_in = static_cast<TW*>(tasks.next_in) + z * tasks.snext;
+    if (a.h_last) a.h_last = tasks.h_last + z * tasks.slast;
+  }
   constexpr int HCP = 32 * UPT;
   constexpr int EPT = (RB * HCP / 4 + kScanThreads - 1) / kScanThreads;  // (row, 4 units) a thread
   cg::cluster_group cluster = cg::this_cluster();
@@ -305,7 +325,7 @@ template <typename TW, int UPT, int RB>
 int scan_fwd_run(const ScanFwd& a, cudaStream_t stream, int* max_clusters) {
   static bool opted[64] = {};
   return launch_cluster(lstm_scan_fwd_kernel<TW, UPT, RB>, a, opted, a.cs,
-                        (unsigned)((a.R + RB - 1) / RB), 1u,
+                        (unsigned)((a.R + RB - 1) / RB), (unsigned)a.tasks,
                         scan_fwd_smem(a.H, 32 * UPT, RB, sizeof(TW)), stream, max_clusters);
 }
 
@@ -342,13 +362,14 @@ int scan_fwd_hcp(int hcp, int rb, const ScanFwd& a, cudaStream_t s, int* max_clu
 // kernels take: cs 1, 2, 4 or 8, hcp 32, 64 or 128 and at least
 // scan_units(H, cs), rb among `tiles` (a bit a row tile: 2, 4, 8, 16),
 // within 227 KB of shared memory; H a multiple of 4 in float32 and of 8 in
-// bfloat16 (the h tile's 16-byte loads).
+// bfloat16 (the h tile's 16-byte loads); 1 to 65535 tasks.
 inline bool scan_fwd_plan_ok(bool bf16, int hcp, int rb, int cs, int T, int R, int H,
-                             unsigned tiles) {
+                             unsigned tiles, int tasks = 1) {
   return (hcp == 32 || hcp == 64 || hcp == 128) && (rb == 2 || rb == 4 || rb == 8 || rb == 16) &&
          (tiles & (unsigned)rb) && (cs == 1 || cs == 2 || cs == 4 || cs == 8) && T > 0 && R > 0 &&
          H > 0 && H % (bf16 ? 8 : 4) == 0 && scan_units(H, cs) <= hcp &&
-         (R + rb - 1) / rb <= 65535 && scan_fwd_smem(H, hcp, rb, bf16 ? 2 : 4) <= kScanMaxSmem;
+         (R + rb - 1) / rb <= 65535 && tasks > 0 && tasks <= 65535 &&
+         scan_fwd_smem(H, hcp, rb, bf16 ? 2 : 4) <= kScanMaxSmem;
 }
 
 // Launch one forward recurrence on `stream` (or, with max_clusters, ask the
@@ -357,7 +378,8 @@ inline bool scan_fwd_plan_ok(bool bf16, int hcp, int rb, int cs, int T, int R, i
 // caller's (`scan_fwd_plan_ok`). ldw is a multiple of 4; xp, gates, bias
 // and h_last are 16-byte aligned, Wh, next_in and h_all / c_all (float32
 // with out_f32, else in the compute dtype) aligned to 4 elements, the mask
-// to 4 bytes; mask and next_in come together. Returns a cudaError_t code: a
+// to 4 bytes; mask and next_in come together; each task stride keeps its
+// array's alignment (a multiple of 4 elements). Returns a cudaError_t code: a
 // plan or an argument it does not take is cudaErrorInvalidValue or
 // cudaErrorMisalignedAddress; a cluster launch the card refuses returns the
 // card's code. Nothing falls back to another kernel. A template of the
@@ -369,13 +391,15 @@ int launch_scan_fwd(int w_dt, int hcp, int rb, const Args& a, cudaStream_t s,
   const bool bf16 = w_dt == kBF16;
   const size_t tw = bf16 ? 2 : 4;
   const size_t to = a.out_f32 ? 4 : tw;
-  if ((w_dt != kF32 && !bf16) || !scan_fwd_plan_ok(bf16, hcp, rb, a.cs, a.T, a.R, a.H, 30u) ||
+  if ((w_dt != kF32 && !bf16) ||
+      !scan_fwd_plan_ok(bf16, hcp, rb, a.cs, a.T, a.R, a.H, 30u, a.tasks) ||
       !a.mask != !a.next_in)
     return (int)cudaErrorInvalidValue;
   if (!aligned_to(a.xp, 16) || !aligned_to(a.gates, 16) || !aligned_to(a.bias, 16) ||
       !aligned_to(a.h_last, 16) || !aligned_to(a.wh, 4 * tw) || !aligned_to(a.h_all, 4 * to) ||
       !aligned_to(a.c_all, 4 * to) || !aligned_to(a.next_in, 4 * tw) ||
-      !aligned_to(a.mask, 4) || a.ldw % 4)
+      !aligned_to(a.mask, 4) || a.ldw % 4 || a.sxp % 4 || a.sgates % 4 || a.sw % 4 ||
+      a.sbias % 4 || a.sres % 4 || a.smask % 4 || a.snext % 4 || a.slast % 4)
     return (int)cudaErrorMisalignedAddress;
   if (bf16) return scan_fwd_hcp<__nv_bfloat16>(hcp, rb, a, s, max_clusters);
   return scan_fwd_hcp<float>(hcp, rb, a, s, max_clusters);

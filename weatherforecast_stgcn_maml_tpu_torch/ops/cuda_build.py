@@ -50,8 +50,6 @@ _SIGNATURES = {
     "wf_transpose_round": [_I, _I, _PP, _PP, _PI, _PI, _PI, _PI, _PI, _P],
     "wf_lstm_stack_last": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
-    "wf_lstm_stack_train_fwd_tasks": [_I, _I, _I, _P, _LL, _P, _P, _P, _P, _F, _P, _P, _P,
-                                      _P, _I, _I, _I, _I, _I, _P],
     # one packed ScanLaunch (ops/fused_lstm_stack.py _SCAN_LAUNCH)
     "wf_lstm_stack_recurrence": [ctypes.c_char_p],
     "wf_lstm_stack_recurrence_clusters": [_I, _I, _I, _I, _I],
@@ -71,6 +69,7 @@ _SIGNATURES = {
     "wf_lstm_tangent_recurrence": [ctypes.c_char_p],  # one packed ScanTanLaunch
     "wf_lstm_tangent_recurrence_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_scan_bwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "wf_lstm_scan_backward": [ctypes.c_char_p],  # one packed ScanBackwardLaunch (lstm_scan.py)
     "wf_fused_lstm_last": [_I, _I, _P, _PP, _PP, _PP, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],
     "wf_clip_sgd_chunks": [_I, _PLL],

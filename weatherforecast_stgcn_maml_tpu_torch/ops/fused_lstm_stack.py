@@ -18,11 +18,12 @@ version there.
     from the stored gates and csrc/gemm_nn.cu for the input gradient a
     layer, then gemm.cu for the weight and bias gradients;
   * `lstm_stack_train_tasks`: rows 4 and 5 for V tasks with their own
-    weights (rows 16 and 17), for the task-batched meta step (`_VBATCH`):
-    the forward in one launch, the backward by row 5's layer-by-layer
-    schedule with a task axis (`tasks_backward_schedule`: per layer one
-    recurrence launch, one gemm_nn launch and two gemm_tn launches for all
-    V tasks);
+    weights (rows 16 and 17), for the task-batched meta step (`_VBATCH`),
+    both by rows 4 and 5's layer-by-layer schedules with a task axis: the
+    forward (`tasks_forward_schedule`, enqueued by row 4's C call) as one
+    gemm_nn launch and one cluster recurrence a layer for all V tasks; the
+    backward (`tasks_backward_schedule`) as one recurrence launch, one
+    gemm_nn launch and two gemm_tn launches a layer for all V tasks;
   * `lstm_stack_split`: the unmerged-gates stack, which the two entries
     above take under `_MERGED_GATES = False` or `merged=False`: the forward
     (row 14) on row 4's layer-by-layer schedule from its separate weight
@@ -103,14 +104,14 @@ _VBATCH = False
 
 def rows_per_thread(rows: int, hidden: int, sms: int) -> int:
     """The row tile of the kernels whose blocks walk every stage of their
-    rows alone (rows 2, 10, 16, 18, 20) for `rows` sequences on a
-    card with `sms` SMs: a block holds 256 // H * rows_per_thread rows, so
-    its time grows with its rows. The smallest tile whose blocks fit in one
-    wave (one block per SM) is the fastest; past that, the largest tile
-    (measured in PERF.md). The backward recurrence of rows 5, 15, 17 and
-    19 has its own plan (`recurrence_plan`), and so have the forward
-    recurrence of rows 4 and 14 (`forward_plan`) and row 11's tangent
-    recurrence (`fused_lstm_hvp.tangent_plan`)."""
+    rows alone (rows 2 and 20) for `rows` sequences on a card with `sms`
+    SMs: a block holds 256 // H * rows_per_thread rows, so its time grows
+    with its rows. The smallest tile whose blocks fit in one wave (one block
+    per SM) is the fastest; past that, the largest tile (measured in
+    PERF.md). The backward recurrence of rows 5, 15, 17 and 19 has its own
+    plan (`recurrence_plan`), and so have the forward recurrence of rows 4,
+    14, 16 and 18 (`forward_plan`) and the tangent recurrences of rows 10
+    and 11 (`fused_lstm_hvp`)."""
     groups = max(1, 256 // hidden)
     for rpt in ROWS_PER_THREAD:
         if -(-rows // (groups * rpt)) <= sms:
@@ -267,7 +268,13 @@ lstm_stack_last_all.launches = 0  # stack runs through the CUDA kernel
 # runs the same schedule from its separate Wx and Wh arrays. Its gates and
 # JAX's differ in the order of one float32 addition: JAX forms (in Wx + h
 # Wh) + b, the recurrence (in Wx + b) + h Wh (the last bit, within the
-# float32 gate of 1e-5).
+# float32 gate of 1e-5). Row 16 (`tasks_forward_schedule`, `tasks_forward`)
+# runs it for V tasks, each with its own weights, through the same C entry:
+# every tensor has a leading task axis, each product is one launch batched
+# over the tasks (M = T x R rows a task, x time-major), each recurrence one
+# launch with the tasks on the grid's z axis, its plan by task count. One
+# task keeps row 4's launches: the product batched over the T steps (x may
+# be the model's [B, T, C] layout viewed [T, B, C]).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,7 +286,9 @@ class ForwardPieces:
     [4H] float32 (the plain version also takes None: xp holds the bias, as
     row 18's does), into h_out and c_out [T, R, H] in the compute dtype; with
     mask [T, R, H] int8 also next_in = round(h * mask * inv_keep); the last
-    step's h into h_last [R, H] where given."""
+    step's h into h_last [R, H] where given. With a leading task axis on
+    every argument (gates [V, T, R, 4H], wh [V, H, 4H], bias [V, 4H], ...),
+    the V tasks' recurrences (one launch on a card)."""
 
     product: Callable
     recurrence: Callable
@@ -292,8 +301,29 @@ def forward_schedule(x, masks, keep, compute_dtype, b2d, wcat, pieces: ForwardPi
     above on `pieces`: x [T, B, C], wcat_l = [[Wx_l], [Wh_l]], b2d [L, 4H],
     masks [L-1, T, B, H] or None."""
     hidden = b2d.shape[1] // 4
-    return _forward_layers(x, masks, keep, compute_dtype, b2d, [w[:-hidden] for w in wcat],
-                           [w[-hidden:] for w in wcat], pieces)
+    out = _forward_layers(x[None], _one_task(masks), keep, compute_dtype, b2d[None],
+                          [w[None, :-hidden] for w in wcat], [w[None, -hidden:] for w in wcat],
+                          pieces)
+    return tuple(t[0] for t in out)
+
+
+def tasks_forward_schedule(x, masks, keep, compute_dtype, wcat0, wcatr, b2d,
+                           pieces: ForwardPieces):
+    """Row 16's function (`tasks_forward`'s outputs: h_last [V, B, H], h_all,
+    c_all [V, L, T, B, H] in the compute dtype, the activated gates [V, L, T,
+    B, 4H]; h_last and the gates in the accumulation dtype) by the schedule
+    above on `pieces` for V tasks: x [V, T, B, C], wcat0 [V, C + H, 4H],
+    wcatr [V, L-1, 2H, 4H], b2d [V, L, 4H], masks [V, L-1, T, B, H] or
+    None."""
+    wx, wh = _task_layers(wcat0, wcatr, b2d.shape[-1] // 4)
+    return _forward_layers(x, masks, keep, compute_dtype, b2d, wx, wh, pieces)
+
+
+def _task_layers(wcat0, wcatr, hidden):
+    """([Wx_l [V, K_l, 4H]], [Wh_l [V, H, 4H]]): the row blocks of each
+    task's wcat_l = [[Wx_l], [Wh_l]] (views)."""
+    wcat = [wcat0, *wcatr.unbind(1)]
+    return [w[:, :-hidden] for w in wcat], [w[:, -hidden:] for w in wcat]
 
 
 def split_forward_schedule(x, wx0, wxr, wh, b2d, masks, keep, compute_dtype,
@@ -306,29 +336,32 @@ def split_forward_schedule(x, wx0, wxr, wh, b2d, masks, keep, compute_dtype,
     and one c buffer [T, B, H] (layer l+1's product reads layer l's h before
     layer l+1's recurrence writes it)."""
     h_last, h_all, c_all, _ = _forward_layers(
-        x, masks, keep, compute_dtype, b2d, [wx0, *wxr], list(wh), pieces, keep_gates=False,
+        x[None], _one_task(masks), keep, compute_dtype, b2d[None],
+        [wx0[None], *(w[None] for w in wxr)], [w[None] for w in wh], pieces, keep_gates=False,
         residuals=residuals)
-    return (h_last, h_all, c_all) if residuals else (h_last, None, None)
+    return (h_last[0], h_all[0], c_all[0]) if residuals else (h_last[0], None, None)
 
 
 def _forward_layers(x, masks, keep, compute_dtype, b2d, wx, wh, pieces: ForwardPieces,
                     keep_gates=True, residuals=True):
-    """The schedule above over the layers' wx_l [K_l, 4H] and wh_l [H, 4H]:
-    -> (h_last, h_all, c_all, gates). Without `keep_gates` one gates buffer
-    [T, B, 4H] serves every layer, without `residuals` one h and one c
-    buffer [T, B, H]."""
+    """The schedule above for V tasks over the layers' wx_l [V, K_l, 4H] and
+    wh_l [V, H, 4H], from x [V, T, B, C], b2d [V, L, 4H] and masks [V, L-1,
+    T, B, H] or None: -> (h_last [V, B, H], h_all, c_all [V, L, T, B, H],
+    gates [V, L, T, B, 4H]). Without `keep_gates` one gates buffer [V, T, B,
+    4H] serves every layer, without `residuals` one h and one c buffer [V,
+    T, B, H]."""
     acc = accum_dtype(compute_dtype)
     dev = x.device
-    t_len, rows, _ = x.shape
-    n_layers, g4 = b2d.shape
+    nv, t_len, rows, _ = x.shape
+    n_layers, g4 = b2d.shape[1:]
     hidden = g4 // 4
-    one = (t_len, rows, hidden)
-    shape = (n_layers, *one) if residuals else one
+    one = (nv, t_len, rows, hidden)
+    shape = (nv, n_layers, *one[1:]) if residuals else one
     h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
     c_all = torch.empty_like(h_all)
-    gates = torch.empty(((n_layers,) if keep_gates else ()) + (t_len, rows, g4), dtype=acc,
+    gates = torch.empty((nv, *((n_layers,) if keep_gates else ()), t_len, rows, g4), dtype=acc,
                         device=dev)
-    h_last = torch.empty((rows, hidden), dtype=acc, device=dev)
+    h_last = torch.empty((nv, rows, hidden), dtype=acc, device=dev)
     # The masked inputs of every layer above 0 in turn: layer l+1's product
     # reads them before layer l+1's recurrence writes the next.
     masked = (torch.empty(one, dtype=compute_dtype, device=dev)
@@ -336,12 +369,17 @@ def _forward_layers(x, masks, keep, compute_dtype, b2d, wx, wh, pieces: ForwardP
     inp = x
     for l in range(n_layers):
         top = l == n_layers - 1
-        gates_l = gates[l] if keep_gates else gates
-        h_l, c_l = (h_all[l], c_all[l]) if residuals else (h_all, c_all)
-        pieces.product(inp, wx[l], compute_dtype=compute_dtype, out=gates_l,
-                       what=f"LSTM layer {l} input product")
-        mask = None if masked is None or top else masks[l]
-        pieces.recurrence(gates_l, wh[l], b2d[l], compute_dtype, h_l, c_l, mask=mask,
+        gates_l = gates[:, l] if keep_gates else gates
+        h_l, c_l = (h_all[:, l], c_all[:, l]) if residuals else (h_all, c_all)
+        what = f"LSTM layer {l} input product"
+        if nv == 1:  # batched over the steps
+            pieces.product(inp[0], wx[l][0], compute_dtype=compute_dtype, out=gates_l[0],
+                           what=what)
+        else:  # batched over the tasks, T x B rows a task
+            pieces.product(inp.reshape(nv, t_len * rows, -1), wx[l], compute_dtype=compute_dtype,
+                           out=gates_l.view(nv, t_len * rows, g4), what=what)
+        mask = None if masked is None or top else masks[:, l]
+        pieces.recurrence(gates_l, wh[l], b2d[:, l], compute_dtype, h_l, c_l, mask=mask,
                           inv_keep=1.0 / keep, next_in=None if mask is None else masked,
                           h_last=h_last if top else None)
         inp = h_l if mask is None else masked
@@ -350,6 +388,13 @@ def _forward_layers(x, masks, keep, compute_dtype, b2d, wx, wh, pieces: ForwardP
 
 def _forward_recurrence_plain(gates, wh, bias, compute_dtype, h_out, c_out, mask=None,
                               inv_keep=1.0, next_in=None, h_last=None):
+    if gates.dim() == 4:  # V tasks, one at a time
+        for v in range(gates.shape[0]):
+            _forward_recurrence_plain(
+                gates[v], wh[v], _task(bias, v), compute_dtype, h_out[v],
+                c_out[v], mask=_task(mask, v), inv_keep=inv_keep, next_in=_task(next_in, v),
+                h_last=_task(h_last, v))
+        return gates
     acc = gates.dtype
     hidden = wh.shape[0]
     whc = as_operand(wh, compute_dtype)
@@ -372,9 +417,9 @@ def _forward_recurrence_plain(gates, wh, bias, compute_dtype, h_out, c_out, mask
 
 # The forward recurrence's launch arguments, packed as csrc/lstm_stack_fwd.cu's
 # `ScanFwdLaunch`; the whole forward's as its `StackFwdLaunch`, followed by
-# one (Wx_l, Wh_l, input width) triple a layer.
-_SCAN_FWD = struct.Struct("<13qd6q")
-_STACK_FWD = struct.Struct("<10qd12q")
+# one (Wx_l, Wh_l, input width, task stride) quadruple a layer.
+_SCAN_FWD = struct.Struct("<13qd15q")
+_STACK_FWD = struct.Struct("<10qd20q")
 
 
 def _ptr(t):
@@ -383,20 +428,29 @@ def _ptr(t):
 
 def _forward_recurrence_card(gates, wh, bias, compute_dtype, h_out, c_out, mask=None,
                              inv_keep=1.0, next_in=None, h_last=None):
-    t_len, rows, g4 = gates.shape
+    if gates.dim() == 3:  # one task
+        _forward_recurrence_card(gates[None], wh[None], bias[None], compute_dtype, h_out[None],
+                                 c_out[None], _one_task(mask), inv_keep, _one_task(next_in),
+                                 _one_task(h_last))
+        return gates
+    nv, t_len, rows, g4 = gates.shape
     hidden = g4 // 4
-    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(gates.device))
+    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(gates.device), nv)
     wh = wh.to(compute_dtype)
-    if wh.stride(-1) != 1:
+    if wh.stride(-1) != 1 or not wh[0].is_contiguous():
         wh = wh.contiguous()
+    if _task_stride(c_out, nv) != _task_stride(h_out, nv):
+        raise ValueError("the LSTM forward recurrence takes h and c in one layout")
     cuda_build.check(
         cuda_build.load().wf_lstm_stack_forward_recurrence(_SCAN_FWD.pack(
             cuda_build.dtype_code(compute_dtype), cs, hcp, rb, gates.data_ptr(), gates.data_ptr(),
-            wh.data_ptr(), wh.stride(0), bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), 0,
+            wh.data_ptr(), wh.stride(-2), bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), 0,
             _ptr(mask), inv_keep, _ptr(next_in), _ptr(h_last), t_len, rows, hidden,
-            cuda_build.stream_ptr(gates.device))),
-        f"LSTM forward recurrence (cluster of {cs}, {hcp} weight columns a block, {rb} rows "
-        f"a cluster)",
+            cuda_build.stream_ptr(gates.device), nv,
+            *(_task_stride(t, nv) for t in (gates, gates, wh, bias, h_out, mask, next_in,
+                                            h_last)))),
+        f"LSTM forward recurrence ({nv} task(s), cluster of {cs}, {hcp} weight columns a "
+        f"block, {rb} rows a cluster)",
     )
     _forward_recurrence_card.launches += 1
     return gates
@@ -415,65 +469,93 @@ def train_forward(x_tbc, masks, keep, compute_dtype, b2d, wcat):
     `forward_schedule`'s schedule, its L products and L recurrences enqueued
     by one C call (csrc/lstm_stack_fwd.cu)."""
     hidden = b2d.shape[1] // 4
-    out = _stack_forward_card(x_tbc, masks, keep, compute_dtype, b2d,
-                              [w[:-hidden] for w in wcat], [w[-hidden:] for w in wcat],
-                              "LSTM train forward")
+    # `weights` keeps the compute-dtype weights alive while the call enqueues.
+    layers, weights = _one_task_layers([w[:-hidden] for w in wcat], [w[-hidden:] for w in wcat],
+                                       compute_dtype)
+    out = _stack_forward_card(x_tbc[None], _one_task(masks), keep, compute_dtype, b2d[None],
+                              layers, "LSTM train forward")
     n_layers = len(wcat)
     train = lstm_stack_train
     train.launches += 1
     train.forward_gemm_nn_launches += n_layers
     train.forward_recurrence_launches += n_layers
-    return out
+    return tuple(t[0] for t in out)
 
 
-def _stack_forward_card(x_tbc, masks, keep, compute_dtype, b2d, wx, wh, what, keep_gates=True,
-                        residuals=True):
-    """`_forward_layers` on the card: its 2L launches enqueued by one C call
-    (csrc/lstm_stack_fwd.cu) from x_tbc [T, B, C] and the layers' float32
-    wx_l [K_l, 4H] and wh_l [H, 4H] (row blocks of one matrix or arrays of
-    their own) -> (h_last [B, H] float32, h_all, c_all in the compute dtype,
-    the gates float32)."""
-    dev = x_tbc.device
-    t_len, rows, _ = x_tbc.shape
-    n_layers, g4 = b2d.shape
-    hidden = g4 // 4
-    x = x_tbc
-    if x.dtype is not torch.float32 and x.dtype is not compute_dtype:
-        x = x.float()
-    if x.stride(-1) != 1 or x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
-        x = x.contiguous()
-    # The weights in the compute dtype: float32 as they are, else one cast of
-    # all layers (each layer's rows stay 16-byte aligned: 4H columns).
+def _one_task_layers(wx, wh, compute_dtype):
+    """The (Wx_l, Wh_l, K_l, task stride 0) quadruples of `_stack_forward_card`
+    for one task's float32 wx_l [K_l, 4H] and wh_l [H, 4H] (row blocks of one
+    matrix or arrays of their own), and the tensors they point into: float32
+    as they are, else one cast of all layers (each layer's rows stay 16-byte
+    aligned: 4H columns)."""
     ws = [*wx, *wh]
     if compute_dtype is torch.float32:
         ws = [w.contiguous() for w in ws]
     else:
         ws = torch.cat(ws).to(compute_dtype).split([w.shape[0] for w in ws])
-    layers = [v for l in range(n_layers)
-              for v in (ws[l].data_ptr(), ws[n_layers + l].data_ptr(), ws[l].shape[0])]
+    n = len(wx)
+    return [(a.data_ptr(), b.data_ptr(), a.shape[0], 0) for a, b in zip(ws[:n], ws[n:])], ws
+
+
+def _task_layers_card(wcat0, wcatr, c_in, hidden):
+    """The (Wx_l, Wh_l, K_l, task stride) quadruples of `_stack_forward_card`
+    for V tasks' contiguous wcat0 [V, C + H, 4H] and wcatr [V, L-1, 2H, 4H]:
+    the row blocks of each task's wcat_l = [[Wx_l], [Wh_l]], by address."""
+    row = 4 * hidden * wcat0.element_size()
+    layers = [(wcat0.data_ptr(), wcat0.data_ptr() + c_in * row, c_in, wcat0.stride(0))]
+    for l in range(wcatr.shape[1]):
+        w = wcatr.data_ptr() + l * wcatr.stride(1) * wcatr.element_size()
+        layers.append((w, w + hidden * row, hidden, wcatr.stride(0)))
+    return layers
+
+
+def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_gates=True,
+                        residuals=True):
+    """`_forward_layers` on the card: its 2L launches enqueued by one C call
+    (csrc/lstm_stack_fwd.cu) for V tasks from x [V, T, B, C], b2d [V, L, 4H],
+    masks [V, L-1, T, B, H] or None and the layers' weights: a (Wx_l, Wh_l,
+    K_l, task stride) quadruple each, addresses of Wx_l [K_l, 4H] and Wh_l
+    [H, 4H] in the compute dtype (row stride 4H) -> (h_last [V, B, H]
+    float32, h_all, c_all in the compute dtype, the gates float32). One task
+    keeps row 4's launches (x may be a strided view)."""
+    dev = x.device
+    nv, t_len, rows, _ = x.shape
+    n_layers, g4 = b2d.shape[1:]
+    hidden = g4 // 4
+    if x.dtype is not torch.float32 and x.dtype is not compute_dtype:
+        x = x.float()
+    if (x.stride(-1) != 1 or x.stride(1) % 8 or x.stride(2) % 8 or x.data_ptr() % 16
+            or (nv > 1 and not x.is_contiguous())):
+        x = x.contiguous()
     one = (t_len, rows, hidden)
-    shape = (n_layers, *one) if residuals else one
+    shape = (nv, n_layers, *one) if residuals else (nv, *one)
     with_masks = masks is not None and n_layers > 1
     h_all, c_all, gates, masked = workspace(
         dev, (shape, compute_dtype), (shape, compute_dtype),
-        (((n_layers,) if keep_gates else ()) + (t_len, rows, g4), torch.float32),
-        (one if with_masks else (0,), compute_dtype))
-    h_last = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
+        ((nv, *((n_layers,) if keep_gates else ()), t_len, rows, g4), torch.float32),
+        ((nv, *one) if with_masks else (0,), compute_dtype))
+    h_last = torch.empty((nv, rows, hidden), dtype=torch.float32, device=dev)
+    if not with_masks:
+        masks = masked = None
+    elif not masks.is_contiguous():
+        masks = masks.contiguous()
+    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev), nv)
     bias = b2d.contiguous()
+    # Task strides: every array here is contiguous.
+    strides = [0 if t is None or nv == 1 else t.stride(0)
+               for t in (x, bias, masks, h_all, gates, h_last, masked)]
     launch = _STACK_FWD.pack(
-        cuda_build.dtype_code(compute_dtype), cs, hcp, rb, x.data_ptr(), x.stride(0), x.stride(1),
-        int(x.dtype is torch.float32), bias.data_ptr(), masks.data_ptr() if with_masks else 0,
-        1.0 / keep, h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), h_last.data_ptr(),
-        masked.data_ptr() if with_masks else 0, t_len * rows * hidden if residuals else 0,
-        t_len * rows * g4 if keep_gates else 0, t_len, rows, hidden, n_layers,
-        cuda_build.stream_ptr(dev))
+        cuda_build.dtype_code(compute_dtype), cs, hcp, rb, x.data_ptr(), x.stride(1), x.stride(2),
+        int(x.dtype is torch.float32), bias.data_ptr(), _ptr(masks), 1.0 / keep,
+        h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), h_last.data_ptr(), _ptr(masked),
+        t_len * rows * hidden if residuals else 0, t_len * rows * g4 if keep_gates else 0, t_len,
+        rows, hidden, n_layers, cuda_build.stream_ptr(dev), nv, *strides)
     err = cuda_build.load().wf_lstm_stack_forward(
-        launch + struct.pack(f"<{3 * n_layers}q", *layers))
+        launch + struct.pack(f"<{4 * n_layers}q", *(v for layer in layers for v in layer)))
     if err < 0:
         raise ValueError(f"{what}: its input product takes {_NN_REFUSALS[err]}")
-    cuda_build.check(err, f"{what} (recurrences: cluster of {cs}, {hcp} weight columns a "
-                          f"block, {rb} rows a cluster)")
+    cuda_build.check(err, f"{what} ({nv} task(s); recurrences: cluster of {cs}, {hcp} weight "
+                          f"columns a block, {rb} rows a cluster)")
     gemm_nn.launches += n_layers
     return h_last, h_all, c_all, gates
 
@@ -638,53 +720,32 @@ def lstm_stack_tasks_plain(
                          keep) for v in range(x.shape[0])])
 
 
-def _on_card_weights(first, rest, compute_dtype):
-    """(first, rest) in the compute dtype, contiguous, for the kernels;
-    `first` stands in for an empty `rest` (one layer), which they never
-    read."""
-    first = first.to(compute_dtype).contiguous()
-    return first, rest.to(compute_dtype).contiguous() if rest.numel() else first
-
-
 def tasks_forward(x_vtbc, masks, keep, compute_dtype, wcat0, wcatr, b2d):
     """Row 16 on a CUDA tensor: x_vtbc [V, T, B, C], wcat0 [V, C + H, 4H],
     wcatr [V, L-1, 2H, 4H], b2d [V, L, 4H] -> (h_last [V, B, H] float32,
     h_all, c_all [V, L, T, B, H] in the compute dtype, the activated gates
-    [V, L, T, B, 4H] float32)."""
-    lib = cuda_build.load()
-    dev = x_vtbc.device
-    nv, t_len, rows, c_in = x_vtbc.shape
-    n_layers, g4 = b2d.shape[1:]
-    hidden = g4 // 4
-    x = x_vtbc.to(torch.float32).contiguous()
-    w0, wr = _on_card_weights(wcat0, wcatr, compute_dtype)
-    bias = b2d.contiguous()
-    shape = (nv, n_layers, t_len, rows, hidden)
-    h_all = torch.empty(shape, dtype=compute_dtype, device=dev)
-    c_all = torch.empty(shape, dtype=compute_dtype, device=dev)
-    gates = torch.empty((*shape[:-1], g4), dtype=torch.float32, device=dev)
-    out = torch.empty((nv, rows, hidden), dtype=torch.float32, device=dev)
-    # The row tile for all V x B rows: V times the tiles fill the SMs.
-    rpt = _rows_per_thread(nv * rows, hidden, dev)
-    cuda_build.check(
-        lib.wf_lstm_stack_train_fwd_tasks(
-            cuda_build.dtype_code(compute_dtype), rpt, nv, x.data_ptr(), x.stride(0),
-            w0.data_ptr(), wr.data_ptr(), bias.data_ptr(),
-            None if masks is None else masks.data_ptr(), 1.0 / keep,
-            h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), out.data_ptr(),
-            t_len, rows, c_in, hidden, n_layers, cuda_build.stream_ptr(dev),
-        ),
-        "LSTM train forward (tasks)",
-    )
-    lstm_stack_train_tasks.launches += 1
-    return out, h_all, c_all, gates
+    [V, L, T, B, 4H] float32), by `tasks_forward_schedule`'s schedule, its L
+    products and L recurrences (each one launch for all V tasks) enqueued by
+    one C call (csrc/lstm_stack_fwd.cu). x_vtbc is read time-major in float32
+    (a copy unless it is so already); the weights are cast once a call."""
+    n_layers = b2d.shape[1]
+    w0, wr = wcat0.to(compute_dtype).contiguous(), wcatr.to(compute_dtype).contiguous()
+    out = _stack_forward_card(x_vtbc.to(torch.float32).contiguous(), masks, keep, compute_dtype,
+                              b2d, _task_layers_card(w0, wr, x_vtbc.shape[-1], b2d.shape[-1] // 4),
+                              "LSTM train forward (tasks)")
+    tasks = lstm_stack_train_tasks
+    tasks.launches += 1
+    tasks.forward_gemm_nn_launches += n_layers
+    tasks.forward_recurrence_launches += n_layers
+    return out
 
 
 def tasks_backward(g, x_vtbc, h_all, c_all, gates, wcat0, wcatr, masks, keep,
                    compute_dtype):
     """Row 17 on a CUDA tensor: the gradient g [V, B, H] of each task's last
     h back to (dx [V, T, B, C], dwcat0 [V, C + H, 4H], dwcatr [V, L-1, 2H,
-    4H], db [V, L, 4H]) float32, by `tasks_backward_schedule` on the
+    4H], db [V, L, 4H]) float32 (x_vtbc: row 16's time-major float32 x), by
+    `tasks_backward_schedule` on the
     kernels: per layer, for all V tasks at once, one recurrence launch
     (csrc/lstm_scan_bwd.cuh, from row 16's stored gates, with the bias
     gradient's partials), one gemm_nn launch for the input gradient and two
@@ -708,10 +769,11 @@ class _LstmStackTasks(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_vtbc, masks, keep, compute_dtype, wcat0, wcatr, b2d):
-        out, h_all, c_all, gates = tasks_forward(
-            x_vtbc, masks, keep, compute_dtype, wcat0, wcatr, b2d)
-        ctx.compute_dtype, ctx.keep = compute_dtype, keep
-        ctx.save_for_backward(x_vtbc, masks, h_all, c_all, gates, wcat0, wcatr)
+        # The one time-major float32 copy of x: row 16 reads it, row 17 too.
+        x = x_vtbc.to(torch.float32).contiguous()
+        out, h_all, c_all, gates = tasks_forward(x, masks, keep, compute_dtype, wcat0, wcatr, b2d)
+        ctx.compute_dtype, ctx.keep, ctx.x_dtype = compute_dtype, keep, x_vtbc.dtype
+        ctx.save_for_backward(x, masks, h_all, c_all, gates, wcat0, wcatr)
         return out
 
     @staticmethod
@@ -720,7 +782,7 @@ class _LstmStackTasks(torch.autograd.Function):
         x, masks, h_all, c_all, gates, wcat0, wcatr = ctx.saved_tensors
         dx, dwcat0, dwcatr, db = tasks_backward(
             g, x, h_all, c_all, gates, wcat0, wcatr, masks, ctx.keep, ctx.compute_dtype)
-        return dx.to(x.dtype), None, None, None, dwcat0, dwcatr, db
+        return dx.to(ctx.x_dtype), None, None, None, dwcat0, dwcatr, db
 
 
 def lstm_stack_train_tasks(
@@ -759,7 +821,10 @@ def lstm_stack_train_tasks(
                                  wcat0, wcatr, b2d)
 
 
-lstm_stack_train_tasks.launches = 0  # forwards run through the CUDA kernel (row 16)
+lstm_stack_train_tasks.launches = 0  # forwards run through the CUDA kernels (row 16)
+# Row 16's pieces: its gemm_nn and forward recurrence launches (one each a layer).
+lstm_stack_train_tasks.forward_gemm_nn_launches = 0
+lstm_stack_train_tasks.forward_recurrence_launches = 0
 lstm_stack_train_tasks.backward_launches = 0  # backwards run through the kernels (row 17)
 # Row 17's pieces: its recurrence and gemm_nn launches (one each a layer)
 # and gemm_tn launches (two a layer).
@@ -888,14 +953,15 @@ def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residual
     if not _on_card(x_tbc, compute_dtype):
         return split_forward_plain(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype)
     n_layers = wh.shape[0]
+    layers, weights = _one_task_layers([wx0, *wxr], list(wh), compute_dtype)
     h_last, h_all, c_all, _ = _stack_forward_card(
-        x_tbc, masks, keep, compute_dtype, b2d, [wx0, *wxr], list(wh),
+        x_tbc[None], _one_task(masks), keep, compute_dtype, b2d[None], layers,
         "LSTM unmerged-gates forward", keep_gates=False, residuals=residuals)
     split = lstm_stack_split
     split.launches += 1
     split.forward_gemm_nn_launches += n_layers
     split.forward_recurrence_launches += n_layers
-    return (h_last, h_all, c_all) if residuals else (h_last, None, None)
+    return (h_last[0], h_all[0], c_all[0]) if residuals else (h_last[0], None, None)
 
 
 # Rows 5, 15 and 17 on a card run layer by layer, so that only the dh carry
@@ -1061,6 +1127,10 @@ def _first_task(t):
     return None if t is None else t[0]
 
 
+def _task(t, v):
+    return None if t is None else t[v]
+
+
 def split_backward_schedule(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
                             compute_dtype, pieces: SplitPieces):
     """Row 15's function (`split_backward_plain`'s outputs) by
@@ -1152,6 +1222,7 @@ def _cluster_plan(hidden: int, rows: int, sms: int, tasks: int, smem: Callable,
     return fallback
 
 
+@functools.lru_cache(maxsize=None)
 def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int,
                     tasks: int = 1) -> tuple[int, int, int]:
     """(cs, hcp, rb) of the backward recurrence: blocks a cluster, weight
@@ -1171,13 +1242,15 @@ def scan_fwd_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def forward_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[int, int, int]:
-    """(cs, hcp, rb) of row 4's forward recurrence (csrc/lstm_scan_fwd.cuh):
-    blocks a cluster, weight columns a block and gate, rows a cluster, by
-    `_cluster_plan` with its shared memory (`scan_fwd_smem`): at H = 128 and
-    R = 512 on 132 SMs, 2 blocks x 8 rows in float32, 1 block x 4 rows in
-    bfloat16; R = 1024 doubles the rows."""
-    return _cluster_plan(hidden, rows, sms, 1,
+def forward_plan(hidden: int, rows: int, itemsize: int, sms: int,
+                 tasks: int = 1) -> tuple[int, int, int]:
+    """(cs, hcp, rb) of the forward recurrence of rows 4, 14, 16 and 18
+    (csrc/lstm_scan_fwd.cuh) for `tasks` tasks: blocks a cluster, weight
+    columns a block and gate, rows a cluster, by `_cluster_plan` with its
+    shared memory (`scan_fwd_smem`): at H = 128 and R = 512 on 132 SMs, 2
+    blocks x 8 rows in float32, 1 block x 4 rows in bfloat16; R = 1024 or
+    two tasks (row 16) double the rows."""
+    return _cluster_plan(hidden, rows, sms, tasks,
                          lambda hcp, rb: scan_fwd_smem(hidden, hcp, rb, itemsize),
                          "forward recurrence holds Wh")
 
@@ -1199,6 +1272,7 @@ def recurrence_weights(wh: torch.Tensor, cs: int, hcp: int,
     return wt.transpose(-3, -2).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -1226,11 +1300,11 @@ _SCAN_LAUNCH = struct.Struct("<25q")
 
 def _task_stride(t, nv):
     """t's task stride (0 for one task), after checking that each task's
-    slice of t is contiguous, as the recurrence reads it."""
+    slice of t is contiguous, as the recurrences read it."""
     if t is None:
         return 0
     if not t[0].is_contiguous():
-        raise ValueError(f"the LSTM backward recurrence reads each task's {list(t.shape[1:])} "
+        raise ValueError(f"the LSTM recurrences read each task's {list(t.shape[1:])} "
                          f"contiguous, got strides {t.stride()}")
     return t.stride(0) if nv > 1 else 0
 

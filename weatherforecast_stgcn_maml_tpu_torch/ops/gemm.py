@@ -62,11 +62,15 @@ gemm.launches = 0  # launches of csrc/gemm.cu's tiled GEMM
 
 def sum_splits(part: torch.Tensor, out: torch.Tensor, what: str) -> None:
     """out [M, N] (row stride out.stride(0)) = part [S, M, N] summed over S
-    in order."""
+    in order; each split's [M, N] contiguous, the splits part.stride(0)
+    apart (the first M rows of larger partials)."""
     splits, m, n = part.shape
+    if part.stride(2) != 1 or (m > 1 and part.stride(1) != n):
+        raise ValueError(f"{what}: each split's partial must be contiguous, got strides "
+                         f"{part.stride()}")
     cuda_build.check(
         cuda_build.load().wf_sum_splits(
-            part.data_ptr(), splits, m * n, out.data_ptr(), m, n, out.stride(0),
+            part.data_ptr(), splits, part.stride(0), out.data_ptr(), m, n, out.stride(0),
             cuda_build.stream_ptr(out.device),
         ),
         what,

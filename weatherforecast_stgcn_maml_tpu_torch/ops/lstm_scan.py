@@ -3,17 +3,21 @@
 
 `lstm_recurrence` runs the CUDA kernels behind one `torch.autograd.Function`
 on a CUDA tensor at float32 / bfloat16 compute: the forward (kernel row 18,
-the cluster forward recurrence of csrc/lstm_scan_fwd.cuh that rows 4 and 14
-share, planned by `forward_plan`) emits h_all and c_all in float32, and,
-when a backward will follow, the activated gates; the backward (row 19, the
-cluster recurrence of csrc/lstm_scan_bwd.cuh that rows 5 and 15 share, entry
-in csrc/lstm_scan.cu) emits dgates, and dwh = h_prev^T @ dgates runs on
-gemm.cu's split-K product; dxp is dgates. On a CPU
-tensor or under float64 it runs the plain version, `lstm_recurrence_plain`,
-differentiated by autograd. On a CUDA tensor a shape or dtype the kernels do
-not take raises; nothing falls back to the plain version there. The op is
-first-order differentiable only: second-order MAML differentiates the plain
-route (train/so_fused.py `plain_route`).
+the cluster forward recurrence of csrc/lstm_scan_fwd.cuh that rows 4, 14 and
+16 share, planned by `forward_plan`) emits h_all and c_all in float32, and,
+when a backward will follow, the activated gates; the backward (row 19,
+`scan_backward`: one C call, csrc/lstm_scan.cu) emits dgates by the cluster
+recurrence of csrc/lstm_scan_bwd.cuh that rows 5, 15 and 17 share, and dwh =
+round(h_prev)^T @ round(dgates) on the GEMM core's K-split TN product
+(csrc/gemm_nn.cu), its partials added in split order; dxp is dgates.
+`scan_backward_schedule` states that backward on swappable pieces (the
+kernels a launch each, `CARD_PIECES`, or their plain versions,
+`PLAIN_PIECES`: the CPU tests). On a CPU tensor or under float64 it runs the
+plain version, `lstm_recurrence_plain`, differentiated by autograd. On a
+CUDA tensor a shape or dtype the kernels do not take raises; nothing falls
+back to the plain version there. The op is first-order differentiable only:
+second-order MAML differentiates the plain route (train/so_fused.py
+`plain_route`).
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/lstm_scan.py`
 (`lstm_recurrence(kernel="pallas")`; Pallas bodies `_fwd_kernel` and
@@ -24,18 +28,34 @@ csrc/lstm_scan.cu), which changes no output.
 
 from __future__ import annotations
 
+import dataclasses
+import struct
+from typing import Callable
+
 import torch
+import torch.nn.functional as F
 
 from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype, as_operand
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
     _SCAN_FWD,
     _forward_recurrence_plain,
+    _ptr,
     _sms,
     forward_plan,
     launch_recurrence,
+    recurrence_plan,
 )
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import matmul_tn
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
+    _NN_REFUSALS,
+    NN_MULTIPLE,
+    gemm_tn,
+    gemm_tn_plain,
+    sum_splits,
+    sum_splits_plain,
+    tn_splits,
+    wave_split_rows,
+)
 
 
 def lstm_recurrence_plain(
@@ -129,31 +149,113 @@ def scan_forward(xp: torch.Tensor, wh: torch.Tensor, compute_dtype: torch.dtype,
         cuda_build.load().wf_lstm_stack_forward_recurrence(_SCAN_FWD.pack(
             cuda_build.dtype_code(compute_dtype), cs, hcp, rb, xp.data_ptr(),
             0 if gates is None else gates.data_ptr(), w.data_ptr(), g4, 0, h_all.data_ptr(),
-            c_all.data_ptr(), 1, 0, 1.0, 0, 0, t_len, rows, hidden, cuda_build.stream_ptr(dev))),
+            c_all.data_ptr(), 1, 0, 1.0, 0, 0, t_len, rows, hidden, cuda_build.stream_ptr(dev),
+            1, *[0] * 8)),
         f"LSTM recurrence (cluster of {cs}, {hcp} weight columns a block, {rb} rows a cluster)",
     )
     lstm_recurrence.launches += 1
     return h_all, c_all, gates
 
 
+@dataclasses.dataclass(frozen=True)
+class ScanBackwardPieces:
+    """recurrence(g, gates, c_all, wh, compute_dtype, out): the backward
+    recurrence from the gradient g [T, R, H] of h_all, the activated gates
+    [T, R, 4H] and c_all [T, R, H] (float32) into dgates out [T, R, 4H];
+    product_tn: `gemm_tn`'s signature; sum_splits(part [S, M, N], out [M, N],
+    what): out = the sum over S."""
+
+    recurrence: Callable
+    product_tn: Callable
+    sum_splits: Callable
+
+
+def scan_backward_schedule(g, h_all, c_all, gates, wh, compute_dtype,
+                           pieces: ScanBackwardPieces):
+    """Row 19's function (JAX `_recurrence_bwd`'s outputs: dxp = dgates [T,
+    B, 4H] and dwh [H, 4H], in the accumulation dtype) by csrc/lstm_scan.cu's
+    schedule on `pieces`: the recurrence, then dwh = round(h_prev)^T @
+    round(dgates) over every step and row as K-split partials, added in
+    split order. h_prev is h_all's first (T-1) x B rows at a row offset of B
+    (h_{-1} = 0), both operands rounded once (bfloat16: h_all is float32),
+    h's columns zero-padded to a multiple of 8 (the TN core's M); the split
+    rows make one wave of the core (`wave_split_rows`)."""
+    acc = accum_dtype(compute_dtype)
+    dev = h_all.device
+    t_len, rows, hidden = h_all.shape
+    g4 = 4 * hidden
+    steps = t_len * rows
+    dgates = torch.empty((t_len, rows, g4), dtype=acc, device=dev)
+    pieces.recurrence(g, gates, c_all, wh, compute_dtype, dgates)
+    h_pad = -(-hidden // NN_MULTIPLE) * NN_MULTIPLE
+    h_prev = h_all[:-1].reshape(steps - rows, hidden).to(compute_dtype)
+    if h_pad != hidden:
+        h_prev = F.pad(h_prev, (0, h_pad - hidden))
+    split_rows = wave_split_rows(steps, hidden, g4, 1, _sms(dev) if dev.type == "cuda" else 132)
+    part = torch.empty((tn_splits(steps, split_rows), h_pad, g4), dtype=acc, device=dev)
+    pieces.product_tn(h_prev, dgates.view(steps, g4).to(compute_dtype), part,
+                      compute_dtype=compute_dtype, split_rows=split_rows, a_row_offset=rows,
+                      what="LSTM recurrence weight gradient")
+    dwh = torch.empty((hidden, g4), dtype=acc, device=dev)
+    pieces.sum_splits(part[:, :hidden], dwh, "LSTM recurrence weight gradient partials")
+    return dgates, dwh
+
+
+def _recurrence_card(g, gates, c_all, wh, compute_dtype, out):
+    return launch_recurrence(cuda_build.load().wf_lstm_scan_bwd, "LSTM recurrence backward",
+                             _aligned(g.to(torch.float32)), gates, c_all, wh, compute_dtype, out)
+
+
+def _recurrence_plain(g, gates, c_all, wh, compute_dtype, out):
+    return out.copy_(scan_backward_plain(g, gates, c_all, wh, compute_dtype))
+
+
+CARD_PIECES = ScanBackwardPieces(_recurrence_card, gemm_tn, sum_splits)
+PLAIN_PIECES = ScanBackwardPieces(_recurrence_plain, gemm_tn_plain, sum_splits_plain)
+
+# Row 19's launch arguments, packed as csrc/lstm_scan.cu's `ScanBackwardLaunch`.
+_SCAN_BWD = struct.Struct("<21q")
+
+
 def scan_backward(g: torch.Tensor, h_all, c_all, gates, wh: torch.Tensor,
                   compute_dtype: torch.dtype):
-    """Row 19 on a CUDA tensor, from the gradient g [T, B, H] of h_all:
-    -> (dxp = dgates [T, B, 4H], dwh [H, 4H]), float32."""
-    hidden = h_all.shape[-1]
+    """Row 19 on a CUDA tensor, from the gradient g [T, B, H] of h_all and
+    row 18's residuals (h_all, c_all, gates float32): -> (dxp = dgates [T, B,
+    4H], dwh [H, 4H]), float32, by `scan_backward_schedule`'s schedule
+    enqueued by one C call (csrc/lstm_scan.cu): Wh^T's layout for the
+    recurrence's plan, the recurrence, the rounding (bfloat16) or padding (H
+    % 8) of its operands, dwh's TN partials and their sum."""
+    t_len, rows, hidden = h_all.shape
+    g4 = 4 * hidden
+    steps = t_len * rows
     dev = h_all.device
-    g = _aligned(g.to(torch.float32))
+    sms = _sms(dev)
+    cs, hcp, rb = recurrence_plan(hidden, rows, compute_dtype.itemsize, sms)
+    split_rows = wave_split_rows(steps, hidden, g4, 1, sms)
+    h_pad = -(-hidden // NN_MULTIPLE) * NN_MULTIPLE
+    bf16 = compute_dtype is torch.bfloat16
+    round_h = (bf16 or h_pad != hidden) and t_len > 1  # h_prev rounded or padded
+    wts = torch.empty((cs, g4, hcp), dtype=compute_dtype, device=dev)
+    h_round = (torch.empty((steps - rows, h_pad), dtype=compute_dtype, device=dev) if round_h
+               else None)
+    dg_round = torch.empty((steps, g4), dtype=compute_dtype, device=dev) if bf16 else None
+    part = torch.empty((tn_splits(steps, split_rows), h_pad, g4), dtype=torch.float32, device=dev)
+    g, wh = _aligned(g.to(torch.float32)), _aligned(wh)
     dgates = torch.empty_like(gates)
-    launch_recurrence(cuda_build.load().wf_lstm_scan_bwd, "LSTM recurrence backward", g,
-                      gates, c_all, wh, compute_dtype, dgates)
-    # dwh = h_prev^T @ dgates over every step and row; h_prev at t = 0 is
-    # zero, so the product starts at t = 1.
-    dwh = torch.empty(wh.shape, dtype=torch.float32, device=dev)
-    matmul_tn(
-        h_all[:-1].reshape(-1, hidden), dgates[1:].reshape(-1, 4 * hidden), dwh,
-        compute_dtype=compute_dtype, what="LSTM recurrence weight gradient",
-    )
+    dwh = torch.empty((hidden, g4), dtype=torch.float32, device=dev)
+    err = cuda_build.load().wf_lstm_scan_backward(_SCAN_BWD.pack(
+        cuda_build.dtype_code(compute_dtype), cs, hcp, rb, g.data_ptr(), gates.data_ptr(),
+        c_all.data_ptr(), wh.data_ptr(), h_all.data_ptr(), wts.data_ptr(), _ptr(h_round),
+        _ptr(dg_round), part.data_ptr(), dgates.data_ptr(), dwh.data_ptr(), t_len, rows, hidden, h_pad,
+        split_rows, cuda_build.stream_ptr(dev)))
+    if err < 0:
+        raise ValueError(f"LSTM recurrence weight gradient: gemm_tn takes {_NN_REFUSALS[err]}")
+    cuda_build.check(err, f"LSTM recurrence backward (cluster of {cs}, {hcp} weight columns a "
+                          f"block, {rb} rows a cluster; {split_rows} rows a weight-gradient "
+                          f"split)")
     lstm_recurrence.backward_launches += 1
+    lstm_recurrence.backward_gemm_tn_launches += 1
+    gemm_tn.launches += 1
     return dgates, dwh
 
 
@@ -208,4 +310,5 @@ def lstm_recurrence(
 
 
 lstm_recurrence.launches = 0  # forwards run through the CUDA kernel (row 18)
-lstm_recurrence.backward_launches = 0  # backwards run through it (row 19)
+lstm_recurrence.backward_launches = 0  # backwards run through the kernels (row 19)
+lstm_recurrence.backward_gemm_tn_launches = 0  # row 19's dwh products on the TN core

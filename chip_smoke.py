@@ -36,7 +36,10 @@ time):
      alone against its schedule on the plain pieces (h_last, h_all, c_all,
      the gates; masks on and off), gated on 1 gemm_nn and 1 forward
      recurrence launch a layer from one call, by events, by CUDA graph
-     replay, by part, the host's time a call, beside cuDNN's forward; before
+     replay, by part, the host's time a call, beside cuDNN's forward; row 5
+     alone from row 4's residuals by events, CUDA graph replay and part
+     (recurrences, input products, the weight gradients' TN products and
+     partial sums) beside cuDNN's backward by events and graph replay; before
      this phase (6a) the four LSTM recurrences (backward, forward, row 11's
      tangent, row 10's tangent forward) and row 18 (the forward recurrence
      with float32 h and c, xp holding the bias) alone against their plain
@@ -65,13 +68,21 @@ time):
      float32 epoch with `meta.fused_inner_update=false`, then `forecast`
      from the meta-trained `ckpt_best`; rows 4-8 must have launched (row 8
      360 times a fused meta step; rows 4 and 5 364 times, each a recurrence
-     and a gemm_nn launch a layer; row 6 364 times, 2 gemm_nn launches a
-     layer),
+     and a gemm_nn launch a layer, row 5 also two gemm_tn launches a layer;
+     row 6 364 times, 2 gemm_nn launches a layer; no gemm.cu GEMM, no call
+     on the plain stack),
      every loss must be finite;
   9b. drive `cli meta-train -o meta.second_order=true` at the defaults: 1
      epoch float32, 1 epoch bfloat16, `--resume` to epoch 2; rows 10-11
      must launch 360 times a meta step (with 4 / 4 and 4 / 8 / 16 pieces a
      call) and rows 4-7 too, every loss finite;
+  9c. `lstm_kernel=auto` at float32 hidden 320, where no cluster plan holds
+     Wh: one train step of the hybrid runs the plain stack (rows 4-5 never
+     launch, the plain-route counter moves once; loss and gradients equal to
+     `lstm_kernel=xla`'s), `pallas_stack` and `pallas` raise, second
+     order's fused inner gradient is the plain loss's (counted once), and
+     `cli meta-train -o model.lstm_hidden=320` trains 1 float32 epoch (its
+     inner epochs cut to 1) with 64 plain-route calls and no row 4-5 launch;
  10. drive `cli adapt` (Moscow and Thailand float32, 2 epochs, Moscow
      bfloat16, 1 epoch) from that `ckpt_best`, `validate` the adapted
      Moscow model and `pipeline` Moscow + NewYork; rows 1-2 and 4-7 must
@@ -145,9 +156,10 @@ time):
      call; time each, its plain version and cuDNN's LSTM (row 14 by events,
      CUDA graph replay and the host's time to enqueue a call beside cuDNN's
      forward by events and graph replay; once a task for rows 16-17; row
-     15 beside cuDNN's backward in the same dtype, its device time by CUDA
-     graph replay, and its time by part: gate products, recurrences, input
-     products, weight gradients); rows 16-17 at V = 2 also alone, by events
+     15 beside cuDNN's backward in the same dtype (by events and by CUDA
+     graph replay), its device time by CUDA graph replay, and its time by
+     part: gate products, recurrences, input products, the weight gradients'
+     TN products and partial sums); rows 16-17 at V = 2 also alone, by events
      and by CUDA graph replay, row 16 also against its schedule on the plain
      pieces (all four outputs), by enqueue and by part, its recurrence plan
      printed, gated on its launches (a gemm_nn and a forward recurrence a
@@ -168,7 +180,7 @@ time):
  19. with ops.fused_lstm_stack._MERGED_GATES = False: `cli meta-train` for 1
      float32 epoch (rows 14-15 364 launches each, the GEMM core 4 a row-14
      launch, 2 x 4 a row-15 launch and 2 x 4 a row-6 and a row-7 launch,
-     rows 4-5 none),
+     its TN products 2 x 4 a row-15 launch, rows 4-5 and gemm.cu none),
      `forecast`
      Moscow (row 14, never row 2; against the merged route's forecast), one
      inner step timed and profiled; both flags are restored afterwards.
@@ -384,6 +396,21 @@ def graph_ms(torch, fn, repeats=REPEATS):
     ms = cuda_ms(torch, graph.replay, repeats)
     del graph
     return ms
+
+
+def cudnn_backward_device_ms(torch, out, x, lstm, ct):
+    """cuDNN's LSTM backward (the gradient of `out` for x and the weights)
+    by CUDA graph replay, a second capture where the first refuses, else
+    None (logged; its first captures in a process have refused in float32
+    on an H100): a yardstick only."""
+    for attempt in (1, 2):
+        try:
+            return graph_ms(torch, lambda: torch.autograd.grad(
+                out, [x, *lstm.parameters()], ct, retain_graph=True))
+        except RuntimeError as err:
+            log(f"cuDNN's LSTM backward in a CUDA graph refused (capture {attempt}): "
+                f"{str(err).splitlines()[0]}")
+    return None
 
 
 def profile_steps(torch, step, what, card, steps=5, host_rows=0):
@@ -1181,7 +1208,6 @@ def main() -> int:
             product=timed(card_pieces.product, lambda kw: "gate products"
                           if kw.get("epilogue") == "gates" else "input products"),
             recurrence=timed(card_pieces.recurrence, lambda kw: "recurrences"),
-            weight_grads=timed(card_pieces.weight_grads, lambda kw: "weight gradients"),
             product_tn=timed(card_pieces.product_tn, lambda kw: "weight gradients"),
             sum_splits=timed(card_pieces.sum_splits, lambda kw: "partial sums"))
         return time_parts(run, pieces, marks)
@@ -1202,6 +1228,8 @@ def main() -> int:
                 part = {"total": start.elapsed_time(end)}
                 for name, s, e in marks:
                     part[name] = part.get(name, 0.0) + s.elapsed_time(e)
+                if "partial sums" in part:  # the weight gradients' TN products and their sums
+                    part["weight-gradient part"] = part["weight gradients"] + part["partial sums"]
                 runs.append(part)
         return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
@@ -1291,6 +1319,7 @@ def main() -> int:
                 ct = torch.ones_like(out)
                 row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
                     out, [xr, *lib_lstm.parameters()], ct, retain_graph=True))
+                row["library_device_ms"] = cudnn_backward_device_ms(torch, out, xr, lib_lstm, ct)
                 del out, ct
             del lib_lstm, xr, h5, c5, gates5
             log(f"row 5 {dt_name} [24, 512, 256] L=4 from row 4's residuals: the call "
@@ -1299,10 +1328,12 @@ def main() -> int:
                     f"{k} {v:.4f} ms" for k, v in row["parts_ms"].items())
                 + f"; cuDNN backward {dt_name} "
                 + ("refused" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
-                + f"  [{card}]")
+                + ("" if row.get("library_device_ms") is None
+                   else f" (device {row['library_device_ms']:.4f})") + f"  [{card}]")
             if dt_name == "float32":
                 measured["lstm_stack_train.backward"].update(
-                    device_ms=row["device_ms"], parts_ms=row["parts_ms"], call_ms=row["call_ms"])
+                    device_ms=row["device_ms"], parts_ms=row["parts_ms"], call_ms=row["call_ms"],
+                    library_device_ms=row.get("library_device_ms"))
             else:
                 row["ms"] = measured["lstm_stack_train.backward"].pop("bfloat16_ms")
                 measured["lstm_stack_train.backward"]["bfloat16"] = row
@@ -1913,9 +1944,12 @@ def main() -> int:
             fn.launches = fn.backward_launches = 0
         lstm_stack_train.backward_recurrence_launches = 0
         lstm_stack_train.backward_gemm_nn_launches = 0
+        lstm_stack_train.backward_gemm_tn_launches = 0
         lstm_stack_train.forward_recurrence_launches = 0
         lstm_stack_train.forward_gemm_nn_launches = 0
+        lstm_stack_train.plain_routes = 0
         gcn_stack_train.gemm_nn_launches = 0
+        gemm.launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         per_step = meta_cfg.meta_batch * meta_cfg.inner_epochs * meta_cfg.inner_batches
         logs = {"float32": meta_train("float32", 2), "bfloat16": meta_train("bfloat16", 1)}
@@ -1938,16 +1972,22 @@ def main() -> int:
             if count == 0:
                 raise RuntimeError(f"{name} never launched on the meta-training path")
         # Row 5: 364 calls a meta step (4 tasks x 90 inner steps + 4 query
-        # windows), each a recurrence and a gemm_nn launch a layer.
+        # windows), each a recurrence, a gemm_nn and two gemm_tn launches a
+        # layer; no gemm.cu GEMM on the path, no call sent to the plain stack.
         forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
         row5 = (lstm_stack_train.backward_launches,
                 lstm_stack_train.backward_recurrence_launches,
-                lstm_stack_train.backward_gemm_nn_launches)
+                lstm_stack_train.backward_gemm_nn_launches,
+                lstm_stack_train.backward_gemm_tn_launches, gemm.launches,
+                lstm_stack_train.plain_routes)
         log(f"row 5 in 5 meta steps: {row5[0]} calls, {row5[1]} recurrence launches, "
-            f"{row5[2]} gemm_nn launches")
-        if row5 != (5 * forwards, 5 * forwards * n_l, 5 * forwards * n_l):
+            f"{row5[2]} gemm_nn launches, {row5[3]} gemm_tn launches; gemm.cu {row5[4]} "
+            f"launches, plain routes {row5[5]}")
+        if row5 != (5 * forwards, 5 * forwards * n_l, 5 * forwards * n_l,
+                    5 * forwards * 2 * n_l, 0, 0):
             raise RuntimeError(f"row 5 launched {row5} in 5 meta steps, not {forwards} calls a "
-                               f"step with {n_l} recurrences and {n_l} gemm_nn launches each")
+                               f"step with {n_l} recurrences, {n_l} gemm_nn and {2 * n_l} "
+                               f"gemm_tn launches each, no gemm.cu GEMM and no plain route")
         # Row 4: as many calls, each a gemm_nn and a forward recurrence
         # launch a layer.
         row4 = (lstm_stack_train.launches, lstm_stack_train.forward_recurrence_launches,
@@ -2024,6 +2064,78 @@ def main() -> int:
                     raise RuntimeError(f"SO meta-train {name}: non-finite loss {r}")
                 log(f"  SO {name} epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
                     f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
+
+    # 9c. `lstm_kernel=auto` where no cluster holds Wh (float32 hidden 320):
+    # the plain stack in place of rows 4-5, as the JAX package's `auto` takes
+    # its XLA scan where `stack_supported` fails; the forced routes raise.
+    with Phase("auto at float32 hidden 320"):
+        cfg320 = dataclasses.replace(cfg, lstm_hidden=320)
+        state = init_meta_state(torch.Generator().manual_seed(1), cfg320, meta_cfg, device=dev)
+        task = task_at(tasks, 0)
+        params = list(state.params.parameters())
+
+        def step320(mc):
+            g = torch.Generator(device=dev).manual_seed(3)
+            loss = masked_mse(apply_model(state.params, task.a_hat, task.support_x[0],
+                                          task.koppen, mc, train=True, generator=g),
+                              task.support_y[0], task.node_mask)
+            return loss.detach(), torch.autograd.grad(loss, params)
+
+        def counts320():
+            train = lstm_stack_train
+            return (train.launches, train.backward_launches, train.plain_routes)
+
+        before = counts320()
+        loss320, got = step320(cfg320)
+        moved = tuple(a - b for a, b in zip(counts320(), before))
+        loss_x, ref = step320(dataclasses.replace(cfg320, lstm_kernel="xla"))
+        same = bool(loss320 == loss_x) and all(torch.equal(a, b) for a, b in zip(got, ref))
+        log(f"train step float32 hidden 320, lstm_kernel=auto: loss {float(loss320):.6f}; rows "
+            f"4 / 5 / plain routes {moved}; loss and every gradient equal to the plain "
+            f"route's: {same}")
+        if moved != (0, 0, 1) or not same or not torch.isfinite(loss320):
+            raise RuntimeError(f"auto at float32 hidden 320: launches {moved}, equal to the "
+                               f"plain route {same}, loss {float(loss320)}")
+        for kernel in ("pallas_stack", "pallas"):
+            try:
+                step320(dataclasses.replace(cfg320, lstm_kernel=kernel))
+            except ValueError as err:
+                log(f"lstm_kernel={kernel} at float32 hidden 320 refused: {err}")
+            else:
+                raise RuntimeError(f"lstm_kernel={kernel} ran at float32 hidden 320")
+        # Second order's fused inner gradient (fhvp) takes the plain loss's
+        # gradient there, as the JAX package's fhvp takes its XLA loss's.
+        aux = (task.support_x[0], task.support_y[0], task.a_hat, task.koppen, task.node_mask)
+        so_masks = draw_masks(cfg320, torch.Generator(device=dev).manual_seed(4), aux[0])
+        q = {k: v.detach() for k, v in state.params.named_parameters()}
+        before = lstm_stack_train.plain_routes
+        got_so = make_grad_loss_fused(state.params, cfg320)(q, aux, so_masks)
+        so_moved = lstm_stack_train.plain_routes - before
+        ref_so = torch.func.grad(support_loss(state.params, plain_route(cfg320)))(q, aux,
+                                                                                  so_masks)
+        same = all(torch.equal(got_so[k], ref_so[k]) for k in q)
+        log(f"SO fused inner gradient float32 hidden 320: plain routes {so_moved}; equal to "
+            f"the plain loss's gradient: {same}")
+        if so_moved != 1 or not same:
+            raise RuntimeError(f"SO at float32 hidden 320: plain routes {so_moved}, equal {same}")
+        del state, task, params, got, ref, q, got_so, ref_so
+        # The CLI at the defaults but the width: 1 float32 epoch (one meta
+        # step), its depth cut to 1 inner epoch (4 x 15 inner steps).
+        lstm_stack_train.launches = lstm_stack_train.backward_launches = 0
+        lstm_stack_train.plain_routes = 0
+        records = meta_train("float32", 1, "-o", "model.lstm_hidden=320",
+                             "-o", "meta.inner_epochs=1", out="h320")
+        h320 = counts320()
+        calls320 = meta_cfg.meta_batch * (meta_cfg.inner_batches + 1)
+        log(f"meta-train -o model.lstm_hidden=320, 1 epoch of 1 inner epoch: rows 4 / 5 / "
+            f"plain routes {h320}")
+        if h320 != (0, 0, calls320) or not all(
+                np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all() for r in records):
+            raise RuntimeError(f"meta-train at float32 hidden 320: launches {h320}, not (0, 0, "
+                               f"{calls320}); logs {records}")
+        for r in records:
+            log(f"  hidden 320 epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, "
+                f"{r['epoch_seconds']:.2f} s  [{card}]")
 
     # 10. Adaptation and the pipeline through the CLI, from the meta-trained
     # ckpt_best (float32); depth cut to 1-2 epochs, the width is the reference's.
@@ -3094,6 +3206,8 @@ def main() -> int:
                     ct = torch.ones_like(out)
                     times["cuDNN backward"] = cuda_ms(torch, lambda: torch.autograd.grad(
                         out, [xr, *lib_lstm.parameters()], ct, retain_graph=True))
+                    times["cuDNN backward device"] = cudnn_backward_device_ms(torch, out, xr,
+                                                                              lib_lstm, ct)
                     del out, ct
                     try:
                         with torch.no_grad():
@@ -3113,6 +3227,7 @@ def main() -> int:
                     + f"  [{card}]")
                 row = {"max_abs_err": bwd_err, "ms": times["row15"],
                        "plain_ms": times["plain15"], "library_ms": times["cuDNN backward"],
+                       "library_device_ms": times.get("cuDNN backward device"),
                        "device_ms": times["row15 device"], "parts_ms": parts}
                 row14 = {"ms": times["row14"], "device_ms": times["row14 device"],
                          "enqueue_ms": times["row14 enqueue"],
@@ -3278,6 +3393,7 @@ def main() -> int:
             fn.launches = fn.backward_launches = 0
         split = fls.lstm_stack_split
         split.forward_gemm_nn_launches = split.forward_recurrence_launches = 0
+        split.backward_gemm_tn_launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         lstm_stack_last_all.launches = 0
         gemm_nn.launches = gemm.launches = 0
@@ -3416,17 +3532,21 @@ def main() -> int:
             split_launches["row 14 gemm_nn"] = fls.lstm_stack_split.forward_gemm_nn_launches
             split_launches["row 14 recurrence"] = (
                 fls.lstm_stack_split.forward_recurrence_launches)
+            split_launches["row 15 gemm_tn"] = fls.lstm_stack_split.backward_gemm_tn_launches
             split_launches["gemm_nn"] = gemm_nn.launches
+            split_launches["gemm.cu"] = gemm.launches
             log(f"launches in one meta step with unmerged gates: {split_launches}")
             forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
             # Row 14 runs the GEMM core once a layer (its input product) and
             # row 15 twice (its gates and its input gradient); so does row 7,
             # the GCN stack's backward (A_hat^T dz and its input gradient),
-            # and row 6, its forward (h W and the aggregation).
+            # and row 6, its forward (h W and the aggregation). Row 15's
+            # weight gradients are two TN products a layer; no gemm.cu GEMM.
             want = {"lstm_stack_split": forwards, "lstm_stack_split.backward": forwards,
                     "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
                     "row 14 gemm_nn": n_l * forwards, "row 14 recurrence": n_l * forwards,
-                    "gemm_nn": (3 * n_l + 4 * cfg.gcn_layers) * forwards}
+                    "row 15 gemm_tn": 2 * n_l * forwards,
+                    "gemm_nn": (3 * n_l + 4 * cfg.gcn_layers) * forwards, "gemm.cu": 0}
             if split_launches != want:
                 raise RuntimeError(f"meta-train with unmerged gates launched {split_launches}, "
                                    f"not {want}")

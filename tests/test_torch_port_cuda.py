@@ -1038,7 +1038,8 @@ def test_gcn_shard_forward_runs_on_the_core(dev, dtype, nl):
 def test_lstm_split_backward_schedule_at_full_width(dev, dtype, layers, dropout):
     """Row 15 at the inner step's shapes (24 steps, 512 rows, input 256,
     hidden 128) against `split_backward_plain` from the same residuals:
-    two GEMM-core launches a layer, one row-15 launch."""
+    two NN and two TN launches of the GEMM core a layer, no gemm.cu launch,
+    one row-15 launch; two calls bitwise equal."""
     fls = fused_lstm_stack
     lstm = init_lstm(torch.Generator().manual_seed(1), 256, 128, layers).to(dev)
     w = [t.detach() for t in fls._split_weights(lstm.layers)]
@@ -1051,13 +1052,19 @@ def test_lstm_split_backward_schedule_at_full_width(dev, dtype, layers, dropout)
     g = _card(dev, (512, 128), seed=12)
     with torch.no_grad():
         res = fls.split_forward_plain(x, *w, masks, keep, dtype)[1:]
-        before = (gemm_nn.launches, fls.lstm_stack_split.backward_launches)
+        split = fls.lstm_stack_split
+        before = (gemm_nn.launches, gemm_tn.launches, gemm.launches, split.backward_launches,
+                  split.backward_gemm_tn_launches)
         got = fls.split_backward(g, x, *res, *w, masks, keep, dtype)
-        assert (gemm_nn.launches, fls.lstm_stack_split.backward_launches) == (
-            before[0] + 2 * layers, before[1] + 1)
+        assert (gemm_nn.launches, gemm_tn.launches, gemm.launches, split.backward_launches,
+                split.backward_gemm_tn_launches) == (
+            before[0] + 2 * layers, before[1] + 2 * layers, before[2], before[3] + 1,
+            before[4] + 2 * layers)
+        again = fls.split_backward(g, x, *res, *w, masks, keep, dtype)
         ref = fls.split_backward_plain(g, x, *res, *w, masks, keep, dtype)
-    for i, (a, b) in enumerate(zip(got, ref)):
+    for i, (a, a2, b) in enumerate(zip(got, again, ref)):
         assert a.shape == b.shape, i
+        assert torch.equal(a, a2), i
         if b.numel():
             assert _rel(a, b) <= TOL[dtype], (i, _rel(a, b))
 
@@ -1067,8 +1074,9 @@ def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
     """`_MERGED_GATES=False`: a train step of the hybrid runs rows 14-15 and
     the GEMM core three times an LSTM layer (row 14's input product, row
     15's gates and input gradient) beside the GCN stack's twice a layer
-    each way (rows 6 and 7), never rows 4-5, and its gradients match the
-    plain route's."""
+    each way (rows 6 and 7), its TN products twice an LSTM layer (row 15's
+    weight gradients) and once a GCN layer (row 7's), never gemm.cu or rows
+    4-5, and its gradients match the plain route's."""
     monkeypatch.setattr(fused_lstm_stack, "_MERGED_GATES", False)
     cfg = dataclasses.replace(CFG, lstm_dropout=0.0, gcn_dropout=0.0)
     model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
@@ -1076,13 +1084,16 @@ def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
     x = torch.from_numpy(
         np.random.default_rng(4).normal(size=(7, 128, 16)).astype(np.float32)).to(dev)
     fls = fused_lstm_stack
-    before = (gemm_nn.launches, fls.lstm_stack_split.backward_launches,
-              fls.lstm_stack_train.backward_launches)
+    def counts():
+        return (gemm_nn.launches, gemm_tn.launches, gemm.launches,
+                fls.lstm_stack_split.backward_launches, fls.lstm_stack_train.backward_launches)
+
+    before = counts()
     params = list(model.parameters())
     got = torch.autograd.grad(apply_model(model, a_hat, x, 3, cfg, train=True).sum(), params)
-    assert (gemm_nn.launches, fls.lstm_stack_split.backward_launches,
-            fls.lstm_stack_train.backward_launches) == (
-        before[0] + 3 * cfg.lstm_layers + 4 * cfg.gcn_layers, before[1] + 1, before[2])
+    assert counts() == (before[0] + 3 * cfg.lstm_layers + 4 * cfg.gcn_layers,
+                        before[1] + 2 * cfg.lstm_layers + cfg.gcn_layers, before[2],
+                        before[3] + 1, before[4])
     plain = dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla")
     ref = torch.autograd.grad(apply_model(model, a_hat, x, 3, plain, train=True).sum(), params)
     for (name, _), a, b in zip(model.named_parameters(), got, ref):
@@ -1157,8 +1168,9 @@ def test_backward_recurrence_refuses_a_plan_it_does_not_take(dev):
 def test_merged_backward_schedule_at_full_width(dev, dtype, layers, dropout):
     """Row 5 with its second-order carries at the inner step's shapes (24
     steps, 512 rows, input 256, hidden 128) against `hvp_bwd_plain` from the
-    same residuals: all six outputs; a recurrence and a GEMM-core launch a
-    layer."""
+    same residuals: all six outputs; a recurrence, a gemm_nn and two gemm_tn
+    launches a layer, no gemm.cu launch; two calls bitwise equal. Without
+    the carries, the same gradients to the bit and no dgates, dh or dc."""
     fh, train = fused_lstm_hvp, fused_lstm_stack.lstm_stack_train
     lstm = init_lstm(torch.Generator().manual_seed(1), 256, 128, layers).to(dev)
     wcat = [torch.cat([layer.wx, layer.wh]).detach() for layer in lstm.layers]
@@ -1172,17 +1184,29 @@ def test_merged_backward_schedule_at_full_width(dev, dtype, layers, dropout):
     g = _card(dev, (512, 128), seed=12)
     with torch.no_grad():
         _, h_all, c_all, gates = fh.stack_fwd(x, wcat, b2d, masks, keep, dtype)
-        before = (train.backward_launches, train.backward_recurrence_launches,
-                  train.backward_gemm_nn_launches, gemm_nn.launches)
+        def counts():
+            return (train.backward_launches, train.backward_recurrence_launches,
+                    train.backward_gemm_nn_launches, train.backward_gemm_tn_launches,
+                    gemm_nn.launches, gemm_tn.launches, gemm.launches)
+
+        before = counts()
         got = fh.stack_bwd(g, x, h_all, c_all, gates, wcat, masks, keep, dtype)
-        assert (train.backward_launches, train.backward_recurrence_launches,
-                train.backward_gemm_nn_launches, gemm_nn.launches) == (
-            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers)
+        assert counts() == (before[0] + 1, before[1] + layers, before[2] + layers,
+                            before[3] + 2 * layers, before[4] + layers, before[5] + 2 * layers,
+                            before[6])
+        again = fh.stack_bwd(g, x, h_all, c_all, gates, wcat, masks, keep, dtype)
+        first = fused_lstm_stack.train_backward(g, x, h_all, c_all, gates, wcat, masks, keep,
+                                                dtype)
         ref = fh.hvp_bwd_plain(g, x, h_all, c_all, gates, wcat, masks, keep, dtype)
-    for i, (a, b) in enumerate(zip(got, ref)):
-        for al, bl in zip(a, b) if i == 1 else [(a, b)]:
+    assert first[3:] == (None, None, None)
+    for i, (a, a2, b) in enumerate(zip(got, again, ref)):
+        for al, al2, bl in zip(a, a2, b) if i == 1 else [(a, a2, b)]:
             assert al.shape == bl.shape, i
+            assert torch.equal(al, al2), i
             assert _rel(al, bl) <= TOL[dtype], (i, _rel(al, bl))
+    for i, (a, f) in enumerate(zip(got[:3], first[:3])):
+        for al, fl in zip(a, f) if i == 1 else [(a, f)]:
+            assert torch.equal(al, fl), i
 
 
 # Row 17 on row 5's schedule with a task axis (the recurrence's grid z, the
@@ -1754,6 +1778,37 @@ def test_lstm_tasks_forward_at_full_width(dev, dtype, nv, rows, layers, dropout)
         torch.testing.assert_close(g.float(), r.float(), rtol=TOL[dtype], atol=TOL[dtype],
                                    msg=name)
     torch.testing.assert_close(got[0], torch.stack(one), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_auto_takes_the_plain_stack_where_no_cluster_holds_wh(dev):
+    """Float32 hidden 320 has no cluster plan for Wh: a train step of the
+    hybrid under `lstm_kernel="auto"` runs the plain stack (rows 4-5 never
+    launch, `plain_routes` counts the call) with the plain route's
+    gradients; the forced routes `pallas_stack` and `pallas` raise."""
+    cfg = dataclasses.replace(CFG, lstm_hidden=320, lstm_layers=2)
+    model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
+    a_hat = _a_hat(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(7, 128, 16)).astype(np.float32)).to(dev)
+    train = fused_lstm_stack.lstm_stack_train
+    gen = torch.Generator(device=dev)
+    before = (train.launches, train.backward_launches, train.plain_routes)
+    params = list(model.parameters())
+    got = torch.autograd.grad(apply_model(model, a_hat, x, 3, cfg, train=True,
+                                          generator=gen.manual_seed(5)).sum(), params)
+    assert (train.launches, train.backward_launches, train.plain_routes) == (
+        before[0], before[1], before[2] + 1)
+    plain = dataclasses.replace(cfg, lstm_kernel="xla")
+    ref = torch.autograd.grad(apply_model(model, a_hat, x, 3, plain, train=True,
+                                          generator=gen.manual_seed(5)).sum(), params)
+    for (name, _), a, b in zip(model.named_parameters(), got, ref):
+        assert torch.equal(a, b), name
+    for kernel, match in (("pallas_stack", "forward recurrence holds Wh"),
+                          ("pallas", "hidden widths that are multiples of 4 up to 256")):
+        with pytest.raises(ValueError, match=match):
+            apply_model(model, a_hat, x, 3, dataclasses.replace(cfg, lstm_kernel=kernel),
+                        train=True, generator=gen.manual_seed(5))
 
 
 @pytest.mark.cuda

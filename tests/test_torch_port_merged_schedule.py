@@ -9,6 +9,9 @@ plan and row 1's layer loop, on the CPU.
     interpreter) on the same numpy inputs, JAX's residuals and int8 masks;
     one to three layers, the input wider than the hidden width, masks on
     and off; float64 against `hvp_bwd_plain`;
+  * with the second-order carries every layer's dgates kept while the
+    weight gradients still run layer by layer, the gradients bitwise those
+    of the first-order call (which keeps none);
   * the plain recurrence's dh / dc carries against autograd of a plain
     recurrence;
   * `recurrence_plan` (the cluster size, weight columns and row tile of
@@ -156,6 +159,32 @@ def test_merged_schedule_without_carries_returns_none():
     ref = hvp_bwd_plain(torch.from_numpy(g), torch.from_numpy(x), h_all, c_all, gates, tw, tm,
                         keep, torch.float32)
     torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("n_layers,with_masks", [(1, False), (3, True)])
+def test_merged_schedule_carries_keep_every_layer(dtype, tol, n_layers, with_masks):
+    """With `carries` (second order) the weight gradients still run layer by
+    layer, each on its layer's slice of the kept [L, T, B, 4H] dgates:
+    every layer's dgates, dh and dc and every weight gradient against the
+    stage-by-stage `hvp_bwd_plain`; dx, [dwcat_l] and db equal, bit for
+    bit, to the first-order call's, which keeps no dgates."""
+    g, x, wcat, b2d, masks, keep = _inputs(n_layers, with_masks, 40 + n_layers)
+    tg, tx, tb = (torch.from_numpy(a).to(dtype) for a in (g, x, b2d))
+    tw = [torch.from_numpy(w).to(dtype) for w in wcat]
+    tm = None if masks is None else torch.from_numpy(masks)
+    _, h_all, c_all, gates = hvp_fwd_plain(tx, tw, tb, tm, keep, dtype)
+    args = (tg, tx, h_all, c_all, gates, tw, tm, keep, dtype, fls.PLAIN_PIECES)
+    got = fls.merged_backward_schedule(*args, carries=True)
+    first = fls.merged_backward_schedule(*args)
+    ref = hvp_bwd_plain(tg, tx, h_all, c_all, gates, tw, tm, keep, dtype)
+    assert got[3].shape == (n_layers, T, B, 4 * H) and first[3:] == (None, None, None)
+    for name, a, f, r in zip(NAMES, got, first, ref):
+        for al, fl, rl in zip(a, f, r) if name == "dwcat" else [(a, f, r)]:
+            assert al.dtype == dtype and al.shape == rl.shape, name
+            assert _rel(al, rl) <= tol, (name, _rel(al, rl))
+            if fl is not None:
+                assert torch.equal(al, fl), name
 
 
 @pytest.mark.parametrize("t_len,rows,hidden", [(6, 5, 8), (1, 3, 4)])

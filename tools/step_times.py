@@ -34,7 +34,11 @@ point) and of its backward (row 11, from rows 4, 10 and 5) by events, by
 CUDA graph replay and by the host's time to enqueue a call; one layer's
 recurrence alone (row 18, the `lstm_kernel=pallas` route's forward: xp
 [24, 512, 512], its gates kept) and its backward (row 19, from row 18's
-residuals) the same ways; and one call of the serving
+residuals) the same ways; the merged stack's training backward alone
+(row 5, from row 4's residuals) and the unmerged one (row 15, from row 14's)
+the same ways and by part (CUDA events around each piece of their
+schedules: recurrences, gate and input products, the weight gradients);
+and one call of the serving
 GCN stack (kernel row 1, [72, 512, 24] -> 4 x 256) in float32 and
 bfloat16. Run it on two checkouts in
 turns (A, B, B, A) in one call on one card: the card's host varies between
@@ -175,6 +179,47 @@ def graph_ms(fn):
     ms = events_ms(graph.replay)
     del graph
     return ms
+
+
+def parts_ms(run, card, repeats=20):
+    """A layer-by-layer LSTM backward's time by part: run(pieces) on
+    `card`'s pieces (a `fused_lstm_stack.SplitPieces`), each piece between
+    two CUDA events, medians of `repeats` runs. The weight gradients are
+    every piece that forms them, of either checkout's schedule: the TN
+    products and their partial sums, or one piece after the layer loop."""
+    marks = []
+    labels = {"recurrence": "recurrences", "weight_grads": "weight gradients",
+              "product_tn": "weight gradients", "sum_splits": "weight gradients"}
+
+    def timed(fn, name):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            marks.append((labels.get(name) or ("gate products" if kw.get("epilogue") == "gates"
+                                               else "input products"), start, end))
+            return out
+        return call
+
+    pieces = dataclasses.replace(card, **{f.name: timed(getattr(card, f.name), f.name)
+                                          for f in dataclasses.fields(card)})
+    runs = []
+    for i in range(repeats + 2):
+        marks.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(pieces)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:  # after two warm-up runs
+            part = {"total": start.elapsed_time(end)}
+            for name, s, e in marks:
+                part[name] = part.get(name, 0.0) + s.elapsed_time(e)
+            runs.append(part)
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
 
 def busy_ms(fn, steps=5):
@@ -395,13 +440,33 @@ if not args.cpu:  # rows 4 and 14 alone, beside cuDNN's forward; rows 10, 11 and
             def row19():
                 lstm_scan.scan_backward(g19, *res18, wh18, dt)
 
+            def row5(pieces=None):
+                if pieces is None:
+                    fused_lstm_stack.train_backward(g_r, x_c, h_all, c_all, gates, wcat, m, 0.8,
+                                                    dt)
+                else:
+                    fused_lstm_stack.merged_backward_schedule(g_r, x_c, h_all, c_all, gates, wcat,
+                                                              m, 0.8, dt, pieces)
+
+            res14 = fused_lstm_stack.split_forward(x_c, *split_w, m, 0.8, dt)[1:]
+
+            def row15(pieces=None):
+                if pieces is None:
+                    fused_lstm_stack.split_backward(g_r, x_c, *res14, *split_w, m, 0.8, dt)
+                else:
+                    fused_lstm_stack.split_backward_schedule(g_r, x_c, *res14, *split_w, m, 0.8,
+                                                             dt, pieces)
+
             for row, fn in (("row 4", row4), ("row 14", row14), ("row 10", row10),
-                            ("row 11", row11), ("row 18", row18), ("row 19", row19)):
+                            ("row 11", row11), ("row 18", row18), ("row 19", row19),
+                            ("row 5", row5), ("row 15", row15)):
                 name = f"{row} {str(dt)[6:]}"
                 res[f"{name} ms"] = events_ms(fn)
                 res[f"{name} device ms"] = graph_ms(fn)
                 res[f"{name} enqueue ms"] = enqueue_ms(fn)
-            del h_all, c_all, gates, th_all, tc_all, tgates, bwd_res, res18
+            for row, fn in (("row 5", row5), ("row 15", row15)):
+                res[f"{row} {str(dt)[6:]} parts ms"] = parts_ms(fn, fused_lstm_stack.CARD_PIECES)
+            del h_all, c_all, gates, th_all, tc_all, tgates, bwd_res, res18, res14
             lib = cudnn.to(dt)
             res[f"cuDNN forward {str(dt)[6:]} ms"] = events_ms(lambda: lib(x4.to(dt)))
             res[f"cuDNN forward {str(dt)[6:]} device ms"] = graph_ms(lambda: lib(x4.to(dt)))

@@ -13,6 +13,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     as_operand,
     scaled_uniform,
 )
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
     lstm_stack_last_all,
     lstm_stack_plain,
@@ -115,7 +116,15 @@ def apply_lstm(
     on a card: the eval forward, or in train mode the training forward and
     its backward); "pallas" runs the layerwise route with the per-layer
     recurrence kernel (`lstm_layerwise`); "xla" runs the plain layerwise
-    route. Under float64 every route is plain.
+    route. Under float64 every route is plain. Only "auto" chooses: where
+    the training stack's recurrences have no cluster plan
+    (`fused_lstm_stack.stack_planned`: float32 H > 256, bfloat16 H > 384)
+    it runs the plain stack, counted in `lstm_stack_train.plain_routes`, as
+    the JAX package's `auto` runs its XLA scan where `stack_supported`
+    fails; the merged eval forward (row 2) has no such plan and keeps its
+    kernel. "pallas_stack" and "pallas" run their kernels at any width and
+    raise on a card where they refuse it, as the JAX package's forced
+    routes do.
 
     In train mode `masks` (int8 {0, 1} [L-1, T, B, H], time-major, or None)
     drop each inter-layer output with scale 1 / (1 - dropout_rate).
@@ -130,6 +139,11 @@ def apply_lstm(
     if kernel == "pallas":
         return lstm_layerwise(params, x, masks=masks, keep=keep, compute_dtype=compute_dtype)
     if kernel == "xla":
+        return lstm_stack_plain(params.layers, x, compute_dtype, masks, keep)
+    if kernel == "auto" and (train or not fused_lstm_stack._MERGED_GATES) and not (
+            fused_lstm_stack.stack_planned(params.layers[0].wh.shape[0], x.shape[0],
+                                           compute_dtype, x.device)):
+        fused_lstm_stack.lstm_stack_train.plain_routes += 1
         return lstm_stack_plain(params.layers, x, compute_dtype, masks, keep)
     if not train:
         return lstm_stack_last_all(params.layers, x, compute_dtype=compute_dtype)

@@ -1,31 +1,16 @@
-// Tiled GEMM of the GCN stacks and the training weight gradients, plus the
-// fixed-order reductions that finish a split-K product and a column sum.
+// Tiled SIMT GEMM, the port's first, plus the fixed-order reduction that
+// finishes a split-K product.
 //
-// The GEMM replaces every product inside these Pallas kernels of
-// weatherforecast_stgcn_maml_tpu/ops/:
-//   fused_gcn.py `_stack_kernel` (eval stack, kernel row 1), per layer
-//       hw  = h @ W_l                    M = slices*N, K = C_in, N = C_out
-//       h'  = relu(A_hat @ hw + b_l)     per slice: M = N, K = N, N = C_out
-//   fused_gcn.py `_kernel` (one layer with a custom VJP, row 3): the same
-//       two products at one layer (output float32); its backward, which JAX
-//       leaves to XLA, runs row 7's sequence below at one layer without a
-//       mask (the relu gate of fused_gcn_train.cu, A_hat^T g, dW, dh, db).
-//       Bound at [24, 512, 256] -> 256: 4.83 GFLOP forward (1.61 transform +
-//       3.22 aggregation), 0.072 ms at the card's float32 rate;
-//   fused_gcn_train.py `_fwd_kernel` (row 6): the same two products, the
-//       aggregation's epilogue also multiplying by the dropout mask m/keep;
-//   fused_gcn_train.py `_bwd_kernel` (row 7): dhw = A_hat^T @ dz (transposed
-//       A), dW = h^T @ dhw over all slices and nodes (transposed A, split K),
-//       d_in = dhw @ W^T (transposed B);
-//   fused_lstm_stack.py `_bwd_kernel_m` (row 5): dwcat = [inp | h_prev]^T @
-//       dgates over all steps and rows (transposed A, split K; the layer
-//       input's dropout mask multiplies the A operand as it is loaded).
-// On the TPU the whole stack lives in VMEM across layers; a Hopper block has
-// at most 227 KB of shared memory, so each product is its own launch and the
-// intermediates between them are stored rounded to the compute dtype,
-// exactly the values the TPU kernel feeds its next product. Operands are
-// rounded to the compute dtype as they are loaded and multiplied in float32,
-// so float32 compute is true float32 (no TF32).
+// The GEMM now serves one caller: the input projections of row 20
+// (weatherforecast_stgcn_maml_tpu/ops/fused_lstm.py `_kernel`; csrc/fused_lstm.cu
+// calls `wf_gemm` a layer, xp = in @ Wx + b, M = B*T, K = C_l, N = 4H). The
+// GCN stacks' products (rows 1, 3, 6, 7, 12, 13) and every weight gradient
+// (rows 5, 7, 11, 13, 15, 17, 19) run on csrc/gemm_nn.cu's core; its split-K
+// TN partials, and the LSTM recurrences' bias partials, are added here by
+// `wf_sum_splits`.
+//
+// Operands are rounded to the compute dtype as they are loaded and
+// multiplied in float32, so float32 compute is true float32 (no TF32).
 //
 // A TPU kernel carries weight-gradient sums across its sequential grid; CUDA
 // blocks run in no order. A long reduction (K = slices * N = 12,288 at the
@@ -224,18 +209,6 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, int splits,
   out[(i / N) * ldo + i % N] = v;
 }
 
-// part[chunk, col] = sum of x[row, col] over the chunk's rows, in row order.
-__global__ void colsum_kernel(const float* __restrict__ x, int rows, int cols,
-                              int ldx, int chunk, float* __restrict__ part) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= cols) return;
-  const int r0 = blockIdx.y * chunk;
-  const int r1 = min(rows, r0 + chunk);
-  float v = 0.f;
-  for (int r = r0; r < r1; ++r) v += x[(long long)r * ldx + col];
-  part[(long long)blockIdx.y * cols + col] = v;
-}
-
 }  // namespace
 }  // namespace wf
 
@@ -272,17 +245,5 @@ extern "C" int wf_sum_splits(const float* part, int splits, long long stride,
   wf::sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       part, splits, stride, out, M, N, ldo);
-  return (int)cudaGetLastError();
-}
-
-// Per-chunk column sums of x [rows, cols] (row stride ldx) into part
-// [ceil(rows / chunk), cols]; wf_sum_splits finishes the sum.
-extern "C" int wf_colsum(const float* x, int rows, int cols, int ldx,
-                         int chunk, float* part, void* stream) {
-  if (rows <= 0 || cols <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((cols + 255) / 256, (rows + chunk - 1) / chunk);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-  wf::colsum_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, rows, cols, ldx, chunk, part);
   return (int)cudaGetLastError();
 }

@@ -45,7 +45,6 @@ _SIGNATURES = {
     "wf_gemm": [_I, _I, _I, _I, _P, _LL, _I, _I, _P, _F, _P, _LL, _I, _I,
                 _P, _LL, _I, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _P],
     "wf_sum_splits": [_P, _I, _LL, _P, _I, _I, _I, _P],
-    "wf_colsum": [_P, _I, _I, _I, _I, _P, _P],
     "wf_gcn_relu_mask_grad": [_I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
     "wf_transpose_round": [_I, _I, _PP, _PP, _PI, _PI, _PI, _PI, _PI, _P],
     "wf_lstm_stack_last": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,

@@ -15,8 +15,9 @@ version there.
     call, csrc/lstm_stack_fwd.cu) as one csrc/gemm_nn.cu input product and
     one cluster recurrence (csrc/lstm_scan_fwd.cuh) a layer; the backward
     (`merged_backward_schedule`) as the recurrence of csrc/lstm_scan_bwd.cuh
-    from the stored gates and csrc/gemm_nn.cu for the input gradient a
-    layer, then gemm.cu for the weight and bias gradients;
+    from the stored gates (with the bias gradient), csrc/gemm_nn.cu for the
+    input gradient and two of its split-K TN products for the weight
+    gradients a layer;
   * `lstm_stack_train_tasks`: rows 4 and 5 for V tasks with their own
     weights (rows 16 and 17), for the task-batched meta step (`_VBATCH`),
     both by rows 4 and 5's layer-by-layer schedules with a task axis: the
@@ -31,6 +32,12 @@ version there.
     eval forward also one h and one c buffer), the backward (row 15) by the
     same layer-by-layer schedule as row 5 with each layer's gates recomputed
     on csrc/gemm_nn.cu (`split_backward_schedule`).
+
+`models/lstm.apply_lstm`'s `lstm_kernel="auto"` asks `stack_planned`
+before it calls the training entries: where no cluster plan holds Wh it
+takes the plain stack, as the JAX package's `auto` takes its XLA scan
+where `stack_supported` fails. That is a route chosen by shape before any
+launch; the entries themselves still raise at such a width.
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py`
 (`lstm_stack_last_all`; Pallas bodies `_fwd_kernel_m_lastonly_nomask`,
@@ -59,12 +66,10 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
     _NN_REFUSALS,
-    colsum,
     gemm_nn,
     gemm_nn_plain,
     gemm_tn,
     gemm_tn_plain,
-    matmul_tn,
     sum_splits,
     sum_splits_plain,
     tn_splits,
@@ -563,14 +568,15 @@ def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_g
 def train_backward(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dtype,
                    carries=False):
     """Row 5 on a CUDA tensor: the gradient g [B, H] of the last h back to
-    (dx [T, B, C], [dwcat_l], db [L, 4H]) float32, and the gate gradients
-    dgates [L, T, B, 4H]; with `carries`, also each stage's dh and dc [L, T,
-    B, H] float32 (else None), which the second-order backward reads. By
+    (dx [T, B, C], [dwcat_l], db [L, 4H]) float32; with `carries`, also the
+    gate gradients dgates [L, T, B, 4H] and each stage's dh and dc [L, T, B,
+    H] float32 (else None), which the second-order backward reads. By
     `merged_backward_schedule` on the kernels: per layer one recurrence
-    launch (csrc/lstm_scan_bwd.cuh, from row 4's stored gates) and one
-    gemm_nn launch for the input gradient, then the weight gradients on
-    gemm.cu."""
-    before = _recurrence_card.launches, gemm_nn.launches
+    launch (csrc/lstm_scan_bwd.cuh, from row 4's stored gates, with the bias
+    gradient's partials), one gemm_nn launch for the input gradient and two
+    gemm_tn launches for the weight gradients, each followed by the
+    `sum_splits` of its partials."""
+    before = _recurrence_card.launches, gemm_nn.launches, gemm_tn.launches
     out = merged_backward_schedule(
         g.to(torch.float32), x_tbc.to(torch.float32).contiguous(), h_all, c_all, gates, wcat,
         masks, keep, compute_dtype, CARD_PIECES, carries=carries)
@@ -578,37 +584,8 @@ def train_backward(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dty
     train.backward_launches += 1
     train.backward_recurrence_launches += _recurrence_card.launches - before[0]
     train.backward_gemm_nn_launches += gemm_nn.launches - before[1]
+    train.backward_gemm_tn_launches += gemm_tn.launches - before[2]
     return out
-
-
-def _weight_grads(x, h_all, dgates, masks, inv_keep, compute_dtype, dwx, dwh, db):
-    """The weight and bias gradients of one task's stack from its float32
-    gate gradients dgates [L, T, B, 4H], on gemm.cu's fixed-order products:
-    dwx[l] = inp_l^T @ dgates_l and dwh[l] = h_prev^T @ dgates_l over every
-    step and row, db[l] = the column sums of dgates_l (into the given
-    [K, 4H] views and db [L, 4H]). inp_l is x [T, B, C] for layer 0 and the
-    layer below's h, masked, above it; h_prev at t = 0 is zero, so its rows
-    start at t = 1."""
-    t_len, rows, c_in = x.shape
-    n_layers, _, _, g4 = dgates.shape
-    hidden = g4 // 4
-    steps = t_len * rows
-    for l in range(n_layers):
-        dg = dgates[l].view(steps, g4)
-        if l == 0:
-            inp, mask = x.view(steps, c_in), None
-        else:
-            inp = h_all[l - 1].view(steps, hidden)
-            mask = None if masks is None else masks[l - 1].view(steps, hidden)
-        matmul_tn(
-            inp, dg, dwx[l], amask=mask, ascale=inv_keep,
-            compute_dtype=compute_dtype, what=f"LSTM layer {l} input weight gradient",
-        )
-        matmul_tn(
-            h_all[l, :-1].reshape(steps - rows, hidden), dg[rows:], dwh[l],
-            compute_dtype=compute_dtype, what=f"LSTM layer {l} recurrent weight gradient",
-        )
-        colsum(dg, db[l], f"LSTM layer {l} bias gradient")
 
 
 class _LstmStackTrain(torch.autograd.Function):
@@ -664,9 +641,15 @@ lstm_stack_train.launches = 0  # forwards run through the CUDA kernels (row 4)
 lstm_stack_train.forward_gemm_nn_launches = 0
 lstm_stack_train.forward_recurrence_launches = 0
 lstm_stack_train.backward_launches = 0  # backwards run through the kernels (row 5)
-# Row 5's pieces: its recurrence and gemm_nn launches (one each a layer).
+# Row 5's pieces: its recurrence and gemm_nn launches (one each a layer)
+# and gemm_tn launches (two a layer).
 lstm_stack_train.backward_recurrence_launches = 0
 lstm_stack_train.backward_gemm_nn_launches = 0
+lstm_stack_train.backward_gemm_tn_launches = 0
+# Calls that a route chosen by shape sent to the plain stack because no
+# cluster plan holds Wh (`stack_planned`): `lstm_kernel="auto"` in
+# models/lstm.apply_lstm, second order's fused gradient in train/so_fused.
+lstm_stack_train.plain_routes = 0
 
 
 def _check_train(x, masks, rows, t_len, c_in, hidden, n_layers, lead=()):
@@ -978,20 +961,18 @@ def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residual
 #   2. the recurrence, one contraction a step (csrc/lstm_scan_bwd.cuh), from
 #      the gradient g_l of the layer's h sequence: zero but for g at the top
 #      layer's last step, the input gradient of the layer above below it;
-#      for second order also each step's dh and dc; for row 17 also db_l,
-#      the column sums of dgates_l;
+#      also db_l, the column sums of dgates_l; for second order also each
+#      step's dh and dc;
 #   3. the input gradient round(dgates_l) @ Wx_l^T: dx at l = 0, else
 #      g_{l-1}, times the mask and 1/keep (the mask epilogue);
-#   4. row 17 (`layer_grads`): the layer's weight gradients, dWx_l =
-#      round(in_l)^T round(dgates_l) and dWh_l = round(h_{t-1})^T
-#      round(dgates_l) over every step and row (two TN products split over
-#      the T x R rows, h_{t-1} at a row offset of R; their float32 partials
-#      added in split order), so one layer's dgates buffer serves every layer.
-# Rows 5 and 15 form the weight gradients of every layer after the loop,
-# from the gate gradients of every layer (`weight_grads`, on gemm.cu: moving
-# them onto step 4 is `layer_grads=True`). The pieces are swappable: the
-# kernels on a card (`CARD_PIECES`), their plain versions (`PLAIN_PIECES`)
-# in the CPU tests.
+#   4. the layer's weight gradients, dWx_l = round(in_l)^T round(dgates_l)
+#      and dWh_l = round(h_{t-1})^T round(dgates_l) over every step and row:
+#      two TN products split over the T x R rows (h_{t-1} at a row offset of
+#      R), their float32 partials added in split order (no atomics: two runs
+#      give the same bits). One layer's dgates buffer serves every layer,
+#      but for second order, which reads every layer's dgates back.
+# The pieces are swappable: the kernels on a card (`CARD_PIECES`), their
+# plain versions (`PLAIN_PIECES`) in the CPU tests.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1000,27 +981,24 @@ class SplitPieces:
     c, wh, compute_dtype, out, dh=None, dc=None, db=None) -> dgates [V, T,
     R, 4H] into out (and each step's dh, dc [V, T, R, H] into dh, dc where
     given, the column sums of dgates [V, 4H] into db where given), wh [V, H,
-    4H] in the compute dtype; weight_grads(x, h_all, dgates, masks, keep,
-    compute_dtype, merged=False) -> (dwx0, dwxr, dwh, db), or with `merged`
-    ([dwcat_l], db), one task's; product_tn: `gemm_tn`'s signature;
+    4H] in the compute dtype; product_tn: `gemm_tn`'s signature;
     sum_splits(part [S, M, N], out [M, N], what): out = the sum over S."""
 
     product: Callable
     recurrence: Callable
-    weight_grads: Callable
     product_tn: Callable
     sum_splits: Callable
 
 
 def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
-                      pieces: SplitPieces, gates=None, b2d=None, carries=False,
-                      layer_grads=False):
+                      pieces: SplitPieces, gates=None, b2d=None, carries=False):
     """The layer-by-layer schedule above on `pieces` for V tasks, every
     tensor with a leading task axis, from the gradient g [V, B, H] of the
-    top layer's last h: -> (dx [V, T, B, C], dgates [V, L, T, B, 4H] (None
-    with `layer_grads`), dh_all, dc_all [V, L, T, B, H] (None without
-    `carries`), and with `layer_grads` (dwcat0 [V, C + H, 4H], dwcatr [V,
-    L-1, 2H, 4H], db [V, L, 4H]), else None) in the accumulation dtype. x
+    top layer's last h: -> (dx [V, T, B, C], dw [V, L, K + H, 4H], db [V,
+    L, 4H], and with `carries` dgates [V, L, T, B, 4H], dh_all, dc_all [V,
+    L, T, B, H], else None) in the accumulation dtype. Layer l's weight
+    gradient [[dWx_l], [dWh_l]] is the last K_l + H rows of dw[:, l] (K =
+    max(C, H), K_l = C at l = 0, else H; `dwcat_views` cuts the views). x
     [V, T, B, C], h_all, c_all [V, L, T, B, H], wx = [Wx_0 [V, C, 4H], Wx_1
     [V, H, 4H], ...], wh [V, L, H, 4H], masks [V, L-1, T, B, H]. `gates` [V,
     L, T, B, 4H] are the activated gates (rows 5, 17); None recomputes each
@@ -1034,7 +1012,7 @@ def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
         raise ValueError("the schedule recomputes the gates of one task only")
     wxs = [w.to(compute_dtype) for w in wx]
     whs = wh.to(compute_dtype)
-    dgates = torch.empty((nv, 1 if layer_grads else n_layers, t_len, rows, g4), dtype=acc,
+    dgates = torch.empty((nv, n_layers if carries else 1, t_len, rows, g4), dtype=acc,
                          device=dev)
     dh_all = dc_all = None
     if carries:
@@ -1048,26 +1026,23 @@ def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
                if n_layers > 1 else None)
     dx = torch.empty((nv, steps, c_in), dtype=acc, device=dev)
     h_in = None
-    if n_layers > 1 and (gates is None or layer_grads):
+    if n_layers > 1:
         # The layers' inputs above layer 0, masked and rounded once for all.
         h_in = h_all[:, :-1]
         if masks is not None:
             h_in = apply_mask(h_in.to(acc), masks, keep).to(compute_dtype)
     if gates is None:
         gate_buf = torch.empty((nv, steps, g4), dtype=acc, device=dev)  # reused by every layer
-    grads = None
-    if layer_grads:
-        x_c = x.reshape(nv, steps, c_in).to(compute_dtype)
-        k_max = max(c_in, hidden)
-        # One split plan for both products of every layer: a wave of the
-        # recurrent weight gradient's [H, 4H] tiles (512 rows at V = 2).
-        sms = _sms(dev) if dev.type == "cuda" else 132
-        split_rows = wave_split_rows(steps, hidden, g4, nv, sms)
-        splits = tn_splits(steps, split_rows)
-        part_buf = torch.empty(splits * nv * (k_max + hidden) * g4, dtype=acc, device=dev)
-        grads = (torch.empty((nv, c_in + hidden, g4), dtype=acc, device=dev),
-                 torch.empty((nv, n_layers - 1, 2 * hidden, g4), dtype=acc, device=dev),
-                 torch.empty((nv, n_layers, g4), dtype=acc, device=dev))
+    x_c = x.reshape(nv, steps, c_in).to(compute_dtype)
+    k_max = max(c_in, hidden)
+    # One split plan for both products of every layer: a wave of the
+    # recurrent weight gradient's [H, 4H] tiles (256 rows at V = 1, 512 at
+    # V = 2); the partials of one layer at a time.
+    split_rows = wave_split_rows(steps, hidden, g4, nv, _card_sms(dev))
+    splits = tn_splits(steps, split_rows)
+    part_buf = torch.empty(splits * nv * (k_max + hidden) * g4, dtype=acc, device=dev)
+    dw = torch.empty((nv, n_layers, k_max + hidden, g4), dtype=acc, device=dev)
+    db = torch.empty((nv, n_layers, g4), dtype=acc, device=dev)
 
     def layer_input(l):
         return x.reshape(nv, steps, c_in) if l == 0 else h_in[:, l - 1].reshape(nv, steps, hidden)
@@ -1082,10 +1057,10 @@ def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
             gates_l = gate_buf.view(nv, t_len, rows, g4)
         else:
             gates_l = gates[:, l]
-        dg_l = dgates[:, 0 if layer_grads else l]
+        dg_l = dgates[:, l if carries else 0]
         pieces.recurrence(g_l, gates_l, c_all[:, l], whs[:, l], compute_dtype, dg_l,
                           *(() if dh_all is None else (dh_all[:, l], dc_all[:, l])),
-                          **({"db": grads[2][:, l]} if layer_grads else {}))
+                          db=db[:, l])
         dg = dg_l.reshape(nv, steps, g4)
         # The transpose just before its use: on a card its host work runs
         # while the recurrence does.
@@ -1100,8 +1075,6 @@ def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
                            epilogue="none" if mask is None else "mask", mask=mask,
                            scale=1.0 / keep, out=g_l.reshape(nv, steps, hidden),
                            what=f"LSTM layer {l} input gradient")
-        if not layer_grads:
-            continue
         k_l = c_in if l == 0 else hidden
         dgc = dg.to(compute_dtype)
         part = part_buf[:splits * nv * (k_l + hidden) * g4].view(splits, nv, k_l + hidden, g4)
@@ -1113,10 +1086,18 @@ def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
                           by_task[:, :, k_l:], compute_dtype=compute_dtype,
                           split_rows=split_rows, a_row_offset=rows,
                           what=f"LSTM layer {l} recurrent weight gradient")
-        dw_l = grads[0] if l == 0 else grads[1][:, l - 1]
-        pieces.sum_splits(part.view(splits, nv, -1), dw_l.view(nv, -1),
+        pieces.sum_splits(part.view(splits, nv, -1), dw[:, l, k_max - k_l:].view(nv, -1),
                           f"LSTM layer {l} weight gradient partials")
-    return dx.view(nv, t_len, rows, c_in), None if layer_grads else dgates, dh_all, dc_all, grads
+    return (dx.view(nv, t_len, rows, c_in), dw, db,
+            *((dgates, dh_all, dc_all) if carries else (None, None, None)))
+
+
+def dwcat_views(dw, c_in):
+    """`backward_schedule`'s dw [V, L, K + H, 4H] -> views (dwcat0 [V, C +
+    H, 4H], dwcatr [V, L-1, 2H, 4H]), each layer's [[dWx_l], [dWh_l]]."""
+    hidden = dw.shape[-1] // 4
+    k_max = dw.shape[2] - hidden
+    return dw[:, 0, k_max - c_in:], dw[:, 1:, k_max - hidden:]
 
 
 def _one_task(t):
@@ -1133,47 +1114,50 @@ def _task(t, v):
 
 def split_backward_schedule(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
                             compute_dtype, pieces: SplitPieces):
-    """Row 15's function (`split_backward_plain`'s outputs) by
-    `backward_schedule` on `pieces` (one task), each layer's gates
-    recomputed."""
-    dx, dgates, _, _, _ = backward_schedule(
+    """Row 15's function (`split_backward_plain`'s outputs: dx, dwx0, dwxr,
+    dwh, db) by `backward_schedule` on `pieces` (one task), each layer's
+    gates recomputed. The weight gradients are views of the schedule's dw:
+    dwxr [L-1, H, 4H] and dwh [L, H, 4H] strided by its layers."""
+    c_in, hidden = x_tbc.shape[-1], wh.shape[1]
+    dx, dw, db, *_ = backward_schedule(
         g[None], x_tbc[None], h_all[None], c_all[None], [wx0[None], *(w[None] for w in wxr)],
         wh[None], _one_task(masks), keep, compute_dtype, pieces, b2d=b2d[None])
-    return (dx[0], *pieces.weight_grads(x_tbc, h_all, dgates[0], masks, keep, compute_dtype))
+    k_max = dw.shape[2] - hidden
+    dw = dw[0]  # layer l's slot: k_max - K_l unused rows, dWx_l, dWh_l
+    return dx[0], dw[0, k_max - c_in:k_max], dw[1:, k_max - hidden:k_max], dw[:, k_max:], db[0]
 
 
 def merged_backward_schedule(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dtype,
                              pieces: SplitPieces, carries=False):
     """Row 5's function (`fused_lstm_hvp.hvp_bwd_plain`'s outputs: dx,
-    [dwcat_l], db, dgates, dh_all, dc_all; the last two None without
+    [dwcat_l], db, dgates, dh_all, dc_all; the last three None without
     `carries`) by `backward_schedule` on `pieces` (one task), from row 4's
     stored activated gates [L, T, B, 4H] and the merged weights wcat_l =
-    [[Wx_l], [Wh_l]]."""
+    [[Wx_l], [Wh_l]]; each dwcat_l a view of the schedule's dw."""
     hidden = gates.shape[-1] // 4
     wh = torch.stack([w[-hidden:] for w in wcat])
-    dx, dgates, dh_all, dc_all, _ = backward_schedule(
+    dx, dw, db, dgates, dh_all, dc_all = backward_schedule(
         g[None], x_tbc[None], h_all[None], c_all[None], [w[:-hidden][None] for w in wcat],
         wh[None], _one_task(masks), keep, compute_dtype, pieces, gates=gates[None],
         carries=carries)
-    dwcat, db = pieces.weight_grads(x_tbc, h_all, dgates[0], masks, keep, compute_dtype,
-                                    merged=True)
-    return dx[0], dwcat, db, dgates[0], _first_task(dh_all), _first_task(dc_all)
+    dwcat0, dwcatr = dwcat_views(dw, x_tbc.shape[-1])
+    return (dx[0], [dwcat0[0], *dwcatr[0].unbind(0)], db[0], _first_task(dgates),
+            _first_task(dh_all), _first_task(dc_all))
 
 
 def tasks_backward_schedule(g, x, h_all, c_all, gates, wcat0, wcatr, masks, keep,
                             compute_dtype, pieces: SplitPieces):
     """Row 17's function (`lstm_stack_tasks_plain`'s gradients: dx [V, T,
     B, C], dwcat0 [V, C + H, 4H], dwcatr [V, L-1, 2H, 4H], db [V, L, 4H]) by
-    `backward_schedule` on `pieces` with the weight gradients layer by
-    layer, from row 16's stored activated gates [V, L, T, B, 4H] and each
-    task's merged weights."""
+    `backward_schedule` on `pieces`, from row 16's stored activated gates
+    [V, L, T, B, 4H] and each task's merged weights."""
     hidden = gates.shape[-1] // 4
     wcat = [wcat0, *wcatr.unbind(1)]
     wh = torch.stack([w[:, -hidden:] for w in wcat], dim=1)
-    dx, _, _, _, (dwcat0, dwcatr, db) = backward_schedule(
+    dx, dw, db, *_ = backward_schedule(
         g, x, h_all, c_all, [w[:, :-hidden] for w in wcat], wh, masks, keep, compute_dtype,
-        pieces, gates=gates, layer_grads=True)
-    return dx, dwcat0, dwcatr, db
+        pieces, gates=gates)
+    return dx, *dwcat_views(dw, x.shape[-1]), db
 
 
 # The backward recurrence's plan (csrc/lstm_scan_bwd.cuh): Wh^T [4H, H]
@@ -1255,6 +1239,27 @@ def forward_plan(hidden: int, rows: int, itemsize: int, sms: int,
                          "forward recurrence holds Wh")
 
 
+def stack_planned(hidden: int, rows: int, compute_dtype: torch.dtype, device: torch.device,
+                  tasks: int = 1) -> bool:
+    """Whether `forward_plan` and `recurrence_plan` place the recurrences of
+    the training stack of hidden width `hidden` over `rows` rows in
+    `compute_dtype` on `device`'s card: rows 4-5 and 14-15 for one task,
+    rows 16-17 for `tasks`. False where no cluster's shared memory holds Wh
+    (float32 H > 256, bfloat16 H > 384); True under float64, which runs
+    plain on every route. Off a card the plans assume an H100, so the
+    answer is the card's. Pure Python: the plans' own answer, before any
+    launch."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        return True
+    sms = _card_sms(device)
+    try:
+        forward_plan(hidden, rows, compute_dtype.itemsize, sms, tasks)
+        recurrence_plan(hidden, rows, compute_dtype.itemsize, sms, tasks)
+    except ValueError:
+        return False
+    return True
+
+
 def recurrence_weights(wh: torch.Tensor, cs: int, hcp: int,
                        compute_dtype: torch.dtype) -> torch.Tensor:
     """wh [..., H, 4H] (a leading task axis or none) -> its transpose's
@@ -1275,6 +1280,13 @@ def recurrence_weights(wh: torch.Tensor, cs: int, hcp: int,
 @functools.lru_cache(maxsize=None)
 def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+H100_SMS = 132  # the SMs plans assume off a card, so that the CPU tests plan as it does
+
+
+def _card_sms(dev):
+    return _sms(dev) if dev.type == "cuda" else H100_SMS
 
 
 def launch_recurrence(entry, what, g, gates, c, wh, compute_dtype, out):
@@ -1353,25 +1365,6 @@ def _recurrence_card(g, gates, c, wh, compute_dtype, out, dh=None, dc=None, db=N
 _recurrence_card.launches = 0  # launches of the stack recurrence (rows 5, 15 and 17)
 
 
-def _weight_grads_card(x, h_all, dgates, masks, keep, compute_dtype, merged=False):
-    dev = x.device
-    n_layers, _, _, g4 = dgates.shape
-    hidden = g4 // 4
-    db = torch.empty((n_layers, g4), dtype=torch.float32, device=dev)
-    if merged:
-        dwcat = [torch.empty(((x.shape[-1] if l == 0 else hidden) + hidden, g4),
-                             dtype=torch.float32, device=dev) for l in range(n_layers)]
-        _weight_grads(x, h_all, dgates, masks, 1.0 / keep, compute_dtype,
-                      [dw[:-hidden] for dw in dwcat], [dw[-hidden:] for dw in dwcat], db)
-        return dwcat, db
-    dwx0 = torch.empty((x.shape[-1], g4), dtype=torch.float32, device=dev)
-    dwxr = torch.empty((n_layers - 1, hidden, g4), dtype=torch.float32, device=dev)
-    dwh = torch.empty((n_layers, hidden, g4), dtype=torch.float32, device=dev)
-    _weight_grads(x, h_all, dgates, masks, 1.0 / keep, compute_dtype, [dwx0, *dwxr],
-                  list(dwh), db)
-    return dwx0, dwxr, dwh, db
-
-
 def _recurrence_plain(g, gates, c, wh, compute_dtype, out, dh=None, dc=None, db=None):
     from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import scan_backward_plain
 
@@ -1387,56 +1380,28 @@ def _recurrence_plain(g, gates, c, wh, compute_dtype, out, dh=None, dc=None, db=
     return out
 
 
-def _weight_grads_plain(x, h_all, dgates, masks, keep, compute_dtype, merged=False):
-    """dwx[l] = round(inp_l)^T @ round(dgates_l), dwh[l] = round(h_prev)^T @
-    round(dgates_l) over every step and row, db[l] = the sums of dgates_l;
-    with `merged`, ([[dwx_l], [dwh_l]], db)."""
-    acc = accum_dtype(compute_dtype)
-    t_len, rows, c_in = x.shape
-    n_layers, _, _, g4 = dgates.shape
-    hidden = g4 // 4
-    steps = t_len * rows
-    dwx, dwh, db = [], [], []
-    for l in range(n_layers):
-        dg = dgates[l].reshape(steps, g4)
-        if l == 0:
-            inp = x.reshape(steps, c_in)
-        else:
-            inp = h_all[l - 1].reshape(steps, hidden).to(acc)
-            if masks is not None:
-                inp = apply_mask(inp, masks[l - 1].reshape(steps, hidden), keep)
-        dgc = as_operand(dg, compute_dtype)
-        dwx.append(as_operand(inp, compute_dtype).t() @ dgc)
-        dwh.append(as_operand(h_all[l, :-1].reshape(steps - rows, hidden), compute_dtype).t()
-                   @ dgc[rows:])
-        db.append(dg.sum(dim=0))
-    if merged:
-        return [torch.cat(pair) for pair in zip(dwx, dwh)], torch.stack(db)
-    dwxr = (torch.stack(dwx[1:]) if n_layers > 1
-            else torch.zeros((0, hidden, g4), dtype=acc, device=x.device))
-    return dwx[0], dwxr, torch.stack(dwh), torch.stack(db)
-
-
-CARD_PIECES = SplitPieces(gemm_nn, _recurrence_card, _weight_grads_card, gemm_tn, sum_splits)
-PLAIN_PIECES = SplitPieces(gemm_nn_plain, _recurrence_plain, _weight_grads_plain, gemm_tn_plain,
-                           sum_splits_plain)
+CARD_PIECES = SplitPieces(gemm_nn, _recurrence_card, gemm_tn, sum_splits)
+PLAIN_PIECES = SplitPieces(gemm_nn_plain, _recurrence_plain, gemm_tn_plain, sum_splits_plain)
 
 
 def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compute_dtype):
     """Row 15 on a CUDA tensor (its plain version on a CPU tensor or under
     float64): -> (dx [T, B, C], dwx0, dwxr, dwh, db) float32, by
     `split_backward_schedule` on the kernels: per layer one gemm_nn launch
-    for the gates, one recurrence launch (csrc/lstm_scan_bwd.cuh) and one
-    gemm_nn launch for the input gradient, then the weight gradients on
-    gemm.cu."""
+    for the gates, one recurrence launch (csrc/lstm_scan_bwd.cuh, with the
+    bias gradient's partials), one gemm_nn launch for the input gradient and
+    two gemm_tn launches for the weight gradients, each followed by the
+    `sum_splits` of its partials."""
     if not _on_card(x_tbc, compute_dtype):
         return split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
                                     compute_dtype)
+    before = gemm_tn.launches
     out = split_backward_schedule(
         g.to(torch.float32), x_tbc.to(torch.float32).contiguous(),
         h_all.to(compute_dtype).contiguous(), c_all.to(compute_dtype).contiguous(),
         wx0, wxr, wh, b2d.to(torch.float32), masks, keep, compute_dtype, CARD_PIECES)
     lstm_stack_split.backward_launches += 1
+    lstm_stack_split.backward_gemm_tn_launches += gemm_tn.launches - before
     return out
 
 
@@ -1487,3 +1452,4 @@ lstm_stack_split.launches = 0  # forwards run through the CUDA kernels (row 14)
 lstm_stack_split.forward_gemm_nn_launches = 0
 lstm_stack_split.forward_recurrence_launches = 0
 lstm_stack_split.backward_launches = 0  # backwards run through the kernels (row 15)
+lstm_stack_split.backward_gemm_tn_launches = 0  # row 15's weight gradients (two a layer)

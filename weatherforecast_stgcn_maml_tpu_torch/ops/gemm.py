@@ -1,5 +1,5 @@
 """Python side of csrc/gemm.cu (the tiled GEMM and the fixed-order
-reductions) and csrc/gemm_nn.cu (the pipelined GEMM core: NN products,
+reduction of split-K partials) and csrc/gemm_nn.cu (the pipelined GEMM core: NN products,
 `gemm_nn`, and K-split TN products, `gemm_tn`, with their plain versions
 `gemm_nn_plain` and `gemm_tn_plain`): one launch per call, on CUDA tensors
 only and outside autograd.
@@ -19,9 +19,8 @@ import torch
 from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype, as_operand
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 
-# K rows per split of a long reduction (a weight gradient over every slice
-# and node, or every step and row): 12,288 rows at the reference width make
-# 48 partials, enough blocks to fill the card.
+# K rows per split of a long TN reduction (a weight gradient over every
+# slice and node, or every step and row) where the caller sets none.
 SPLIT_ROWS = 256
 
 
@@ -80,45 +79,6 @@ def sum_splits(part: torch.Tensor, out: torch.Tensor, what: str) -> None:
 def sum_splits_plain(part: torch.Tensor, out: torch.Tensor, what: str = "") -> None:
     """Plain version of `sum_splits`: out = part summed over its first axis."""
     out.copy_(part.sum(dim=0))
-
-
-def matmul_tn(
-    a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
-    compute_dtype: torch.dtype,
-    amask: torch.Tensor | None = None, ascale: float = 1.0, what: str,
-) -> None:
-    """out [M, N] float32 = round(a)^T @ round(b) for a [K, M], b [K, N]
-    (row-major, row strides of their own): split over K, the partials added
-    in split order. `amask` (a's layout) multiplies a by amask * ascale
-    before rounding. `out` may be a row block of a larger matrix."""
-    m, n = out.shape
-    splits = -(-a.shape[0] // SPLIT_ROWS)
-    if splits == 0:
-        out.zero_()
-        return
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=out.device)
-    gemm(
-        a, b, part, m=m, n=n, k=a.shape[0], lda=a.stride(0), ldb=b.stride(0), ldc=n, sc=m * n,
-        splits=splits, kc=SPLIT_ROWS, trans_a=True, amask=amask, ascale=ascale,
-        compute_dtype=compute_dtype, what=what,
-    )
-    sum_splits(part, out, what)
-
-
-def colsum(x: torch.Tensor, out: torch.Tensor, what: str) -> None:
-    """out [N] float32 = the column sums of x [rows, N] float32, by row
-    chunks, the chunk sums added in order."""
-    rows, cols = x.shape
-    chunks = -(-rows // SPLIT_ROWS)
-    part = torch.empty((chunks, 1, cols), dtype=torch.float32, device=x.device)
-    cuda_build.check(
-        cuda_build.load().wf_colsum(
-            x.data_ptr(), rows, cols, x.stride(0), SPLIT_ROWS, part.data_ptr(),
-            cuda_build.stream_ptr(x.device),
-        ),
-        what,
-    )
-    sum_splits(part, out.view(1, cols), what)
 
 
 # gemm_nn's launch arguments, packed as csrc/gemm_nn.cu's `NNLaunch`: 25

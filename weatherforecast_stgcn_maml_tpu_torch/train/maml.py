@@ -50,6 +50,7 @@ import torch
 from torch import nn
 
 from weatherforecast_stgcn_maml_tpu_torch.config import MetaConfig, ModelConfig
+from weatherforecast_stgcn_maml_tpu_torch.models.common import resolve_dtype
 from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
@@ -232,19 +233,31 @@ def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg) -> torch.T
     return _query_loss(params, p, task, generator, model_cfg, cfg)
 
 
-def lockstep_route(model_cfg: ModelConfig, cfg: MetaConfig) -> bool:
+def lockstep_route(model_cfg: ModelConfig, cfg: MetaConfig, tasks: Task | None = None) -> bool:
     """Whether the meta step runs a micro-batch's tasks in lockstep: under
     `_VBATCH`, first order, the hybrid family on the merged fused stack,
     where the JAX flag sends the task vmap to its task-batched kernels (see
     ops/fused_lstm_stack.py), and on the plain stack (`lstm_kernel="xla"`,
     the same arithmetic with no kernel, so that the two compare with the
-    same dropout masks)."""
+    same dropout masks). Given the stacked `tasks`, the fused stack goes in
+    lockstep only where its recurrences have a cluster plan for their V
+    tasks (`stack_planned`), as the JAX package's task-batched kernels run
+    only where `vbatch_supported` holds; elsewhere the tasks run one after
+    another, where `auto` then takes the plain stack."""
     if not fused_lstm_stack._VBATCH or cfg.second_order or model_cfg.family != "hybrid":
         return False
     if model_cfg.use_pallas_lstm and model_cfg.lstm_dropout == 0.0:
         return False  # the train-mode row 20 route
-    return model_cfg.lstm_kernel == "xla" or (
-        model_cfg.lstm_kernel in ("auto", "pallas_stack") and fused_lstm_stack._MERGED_GATES)
+    if model_cfg.lstm_kernel == "xla":
+        return True
+    if model_cfg.lstm_kernel not in ("auto", "pallas_stack") or not fused_lstm_stack._MERGED_GATES:
+        return False
+    if tasks is None:
+        return True
+    nv, _, _, nodes, _ = tasks.support_x.shape  # [V, S, W, N, F]
+    return fused_lstm_stack.stack_planned(model_cfg.lstm_hidden, nodes,
+                                          resolve_dtype(model_cfg.compute_dtype),
+                                          tasks.support_x.device, nv)
 
 
 @torch.no_grad()
@@ -317,7 +330,7 @@ def task_batch_grad(
     the mean query loss over a stacked batch of tasks: (per-task query
     losses [B], {name: gradient}). Under `lockstep_route` the tasks run in
     lockstep (`lockstep_batch_grad`), else one after another."""
-    if lockstep_route(model_cfg, cfg):
+    if lockstep_route(model_cfg, cfg, tasks):
         return lockstep_batch_grad(params, tasks, generator, model_cfg, cfg)
     if cfg.second_order:
         named = list(params.named_parameters())

@@ -23,7 +23,11 @@ stack, and `lstm_kernel="xla"` pins the plain stack: there grad_loss is
 `torch.func.grad` of the plain loss, as the JAX package falls back to
 jax.grad of its XLA loss. `lstm_kernel="pallas"` (the per-layer recurrence)
 and `use_pallas_lstm` take the stack ops here, as in the JAX package
-(`fused_hvp_chunk`): their kernels are first-order only.
+(`fused_hvp_chunk`): their kernels are first-order only. Where no cluster
+plan holds the stack's Wh (`fused_lstm_stack.stack_planned`: float32 H >
+256, bfloat16 H > 384; rows 10-11's tangent plans share those shared-memory
+budgets) grad_loss is the plain loss's gradient too, as the JAX package
+takes jax.grad of its XLA loss where no chunk of its R-kernels fits.
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/train/so_fused.py`
 (`make_grad_loss_fused`, `_vjp_sandwich`). Its row-chunked route
@@ -44,6 +48,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import apply_dense, appl
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, functional_apply
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import apply_encoder, koppen_features
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_hvp import bwd_op, fwd_op
 
 
@@ -72,8 +77,9 @@ def make_grad_loss_fused(model: nn.Module, cfg: ModelConfig):
     """grad_loss(q, aux, masks) -> {name: gradient}, the gradient of
     `support_loss(model, cfg)` at q, forward-differentiable through the
     second-order stack kernels (see the module docstring)."""
+    plain = torch.func.grad(support_loss(model, plain_route(cfg)))
     if cfg.family != "hybrid" or cfg.lstm_kernel == "xla":
-        return torch.func.grad(support_loss(model, plain_route(cfg)))
+        return plain
     dtype = resolve_dtype(cfg.compute_dtype)
     enc_cfg = dataclasses.replace(cfg, use_pallas_gcn=False)
     keep = 1.0 - cfg.lstm_dropout
@@ -81,6 +87,9 @@ def make_grad_loss_fused(model: nn.Module, cfg: ModelConfig):
     def grad_loss(q, aux, masks):
         xb, yb, a_hat, koppen, node_mask = aux
         n = xb.shape[1]
+        if not fused_lstm_stack.stack_planned(cfg.lstm_hidden, n, dtype, xb.device):
+            fused_lstm_stack.lstm_stack_train.plain_routes += 1
+            return plain(q, aux, masks)
         lstm_masks = masks.get("lstm")
         lstm_keep = keep if lstm_masks is not None else 1.0
 

@@ -13,26 +13,34 @@ Phases (the first failure raises and exits non-zero; each prints its wall
 time):
   1. require a CUDA card of compute capability 9.x; print its name and
      power limit;
-  2. build the CUDA kernels from ops/csrc/*.cu; print the cluster plans of
-     the backward, forward and tangent LSTM recurrences and ptxas's
-     registers and spills of each recurrence instance;
+  2. build the CUDA kernels from ops/csrc/*.cu; check that the library
+     exports no `wf_gemm` (gemm.cu's retired SIMT GEMM: no path can launch
+     it) and that the retired row 2 and row 20 sources are gone; print the
+     cluster plans of the backward, forward and tangent LSTM recurrences
+     (validate's 1536 rows on 48 clusters of 2 x 32 rows in float32, all
+     co-resident) and ptxas's registers and spills of each recurrence
+     instance (none may spill at 32 rows a cluster);
   3. hold the serving kernels (rows 1-2) against their plain PyTorch
      versions at the reference width (ModelConfig() defaults, the Moscow
-     graph: 441 nodes padded to 512), float32 and bfloat16;
+     graph: 441 nodes padded to 512; row 2 at validate's [1536, 24, 256]
+     and the forecast's [512, 24, 256], each call gated on 4 gemm_nn and 4
+     forward recurrence launches), float32 and bfloat16;
   4. write a seeded base checkpoint and drive the serving CLI: `forecast`
      for three regions and `validate --no-plots` for Moscow, at float32 and
      bfloat16; both kernels must have launched, every output must be
      finite, and the Moscow forecast must match the same request on the
      plain route (`--device cpu`);
   5. time the serving kernels, their plain versions and cuDNN / cuBLAS
-     yardsticks, one `predict` call and one whole forecast request;
+     yardsticks (row 2 at both shapes by events, CUDA graph replay and
+     enqueue, cuDNN's forward by events and graph replay), one `predict`
+     call and one whole forecast request;
   6. hold the training kernels (rows 4-7) against their plain versions at
      the inner step's shapes (one window: 24 slices x 512 nodes, 512 LSTM
      rows), forward and every gradient, float32 and bfloat16, with the same
      dropout masks (rate 0.2) on both sides; time each direction; rows 6
      and 7 also alone, by events and by CUDA graph replay, each gated on
      its launches of the GEMM core (row 6: 2 gemm_nn a layer; row 7: 2
-     gemm_nn and 1 gemm_tn a layer; neither any of gemm.cu's GEMM); row 4
+     gemm_nn and 1 gemm_tn a layer); row 4
      alone against its schedule on the plain pieces (h_last, h_all, c_all,
      the gates; masks on and off), gated on 1 gemm_nn and 1 forward
      recurrence launch a layer from one call, by events, by CUDA graph
@@ -54,7 +62,7 @@ time):
      masks off and one layer), float32 and bfloat16, rows 10 and 11 gated
      on their launches a call (row 10: a tangent forward recurrence and a
      gemm_nn a layer from one call; row 11: a tangent recurrence, 2 gemm_nn
-     and 4 gemm_tn a layer; none of gemm.cu's GEMM); time them (both also
+     and 4 gemm_tn a layer); time them (both also
      by CUDA graph replay, by part and by the host's time to enqueue a
      call); probe whether
      cuDNN's LSTM takes a forward-mode derivative or a double backward;
@@ -69,7 +77,7 @@ time):
      from the meta-trained `ckpt_best`; rows 4-8 must have launched (row 8
      360 times a fused meta step; rows 4 and 5 364 times, each a recurrence
      and a gemm_nn launch a layer, row 5 also two gemm_tn launches a layer;
-     row 6 364 times, 2 gemm_nn launches a layer; no gemm.cu GEMM, no call
+     row 6 364 times, 2 gemm_nn launches a layer; no call
      on the plain stack),
      every loss must be finite;
   9b. drive `cli meta-train -o meta.second_order=true` at the defaults: 1
@@ -98,7 +106,7 @@ time):
      256, 128: the rows 1, 2 and 4 sp ranks hold), with and without a next
      layer and masks (rate 0.2), float32 and bfloat16; row 13 alone from
      g2, g1 and both at NL = 512 and 256, gated on its launches of the GEMM
-     core (no gemm.cu GEMM); time each direction, the plain version (cuBLAS
+     core; time each direction, the plain version (cuBLAS
      products, also the library yardstick), row 13 alone (events, CUDA
      graph replay, the host's time a call) and print the bound;
  13. on a 1 x 1 mesh (a NCCL group of one rank in this process): the
@@ -123,29 +131,36 @@ time):
  15. hold the LSTM kernel routes and the single GCN layer against their
      plain versions at full width, float32 and bfloat16, forward and every
      gradient: the per-layer recurrence (rows 18-19) at xp [24, 512, 512],
-     wh [128, 512]; the eval stack as per-layer projections and
-     recurrences (row 20) at [1536, 24, 256] and [512, 24, 256], 4 layers of
-     128; one GCN layer (row 3) at [24, 512, 256] -> 256 and [72, 512, 24]
-     -> 256; time each, its plain version and its library call (row 20:
-     cuDNN's LSTM, beside row 2; row 3: torch.relu(a @ (h @ w) + b) in the
+     wh [128, 512]; the eval stack's row 20 (row 2's schedule, counted on
+     its own entry, each call gated on 4 gemm_nn and 4 recurrence
+     launches) at [1536, 24, 256] and [512, 24, 256], 4 layers of 128, and
+     its train-mode gradients (row 15's schedule) at [512, 24, 256]; one
+     GCN layer (row 3) at [24, 512, 256] -> 256 and [72, 512, 24] -> 256;
+     time each, its plain version and its library call (row 20 at both
+     shapes by events, graph replay and enqueue beside cuDNN's LSTM by
+     events and graph replay; row 3: torch.relu(a @ (h @ w) + b) in the
      same dtype, also as device time by CUDA graph replay; row 18 alone by
      events, graph replay and enqueue; row 19 alone against the plain
-     recurrence and a float64 dwh, gated on one launch of the TN core and
-     none of gemm.cu's GEMM a call, by events, graph replay, enqueue and
+     recurrence and a float64 dwh, gated on one launch of the TN core
+     a call, by events, graph replay, enqueue and
      part, beside cuBLAS on its dwh product alone; rows 18-19: no library
      call, no PyTorch call runs a recurrence alone);
  16. drive those routes through the CLI: `meta-train -o
      model.lstm_kernel=pallas` (1 epoch float32; rows 18 and 19 must launch
      1456 times a meta step, row 19's dwh on the TN core each time, rows 4-5
-     and gemm.cu's GEMM never), the FO meta-gradient of one
+     never), the FO meta-gradient of one
      micro-batch on that route against the plain route, one inner step on
      it (timed, with a torch.profiler breakdown), `forecast` (float32
      and bfloat16, the Moscow forecast against `--device cpu`) and `validate
      --no-plots` with `-o model.use_pallas_lstm=true` (row 20 launches, row
      2 never), `forecast -o model.lstm_kernel=pallas` (4 launches of row 18
-     a predict), and `adapt -o model.use_pallas_lstm=true -o
-     model.lstm_dropout=0` (1 epoch: row 20 in train mode, row 4 never);
-     every loss must be finite;
+     a predict), `adapt -o model.use_pallas_lstm=true -o
+     model.lstm_dropout=0` (1 epoch: row 20 in train mode, forward and
+     backward on the card, row 4 never; its epoch timed beside the default
+     route's in this phase), and `forecast -o model.lstm_hidden=320` under
+     `lstm_kernel=auto` and under `use_pallas_lstm` (no cluster holds Wh:
+     the plain stack, counted, rows 2, 14 and 20 never; against `--device
+     cpu`); every loss must be finite;
  17. hold the unmerged-gates stack (rows 14-15: the forward's last h and
      residuals, the backward from the same residuals) and the task-batched
      stack (rows 16-17, V = 2 and 4, distinct weights a task; forward and
@@ -163,9 +178,9 @@ time):
      and by CUDA graph replay, row 16 also against its schedule on the plain
      pieces (all four outputs), by enqueue and by part, its recurrence plan
      printed, gated on its launches (a gemm_nn and a forward recurrence a
-     layer for all tasks from one call, none of gemm.cu's GEMM), row 17 also
+     layer for all tasks from one call), row 17 also
      by part and gated on its launches (a recurrence, a gemm_nn and two
-     gemm_tn launches a layer for all tasks, none of gemm.cu's GEMM); print
+     gemm_tn launches a layer for all tasks); print
      the bounds;
  18. with ops.fused_lstm_stack._VBATCH set in process: the lockstep FO
      meta-gradient of one micro-batch (2 tasks x 15 inner steps, dropout
@@ -173,14 +188,14 @@ time):
      at MetaConfig() defaults for 1 float32 epoch (rows 16 and 17 182
      launches each, row 16 with 4 gemm_nn and 4 forward recurrence launches
      each, row 17 with 4 recurrence, 4 gemm_nn and 8 gemm_tn launches each,
-     row 9 180, rows 4-5 and 8 none, gemm.cu's GEMM none);
+     row 9 180, rows 4-5 and 8 none);
      one lockstep inner step timed with a torch.profiler breakdown; the
      lockstep meta step against the serial one in turns, with the peak
      device memory of each;
  19. with ops.fused_lstm_stack._MERGED_GATES = False: `cli meta-train` for 1
      float32 epoch (rows 14-15 364 launches each, the GEMM core 4 a row-14
      launch, 2 x 4 a row-15 launch and 2 x 4 a row-6 and a row-7 launch,
-     its TN products 2 x 4 a row-15 launch, rows 4-5 and gemm.cu none),
+     its TN products 2 x 4 a row-15 launch, rows 4-5 none),
      `forecast`
      Moscow (row 14, never row 2; against the merged route's forecast), one
      inner step timed and profiled; both flags are restored afterwards.
@@ -237,7 +252,8 @@ CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 # The kernel's sources, its main one first (the kernels line's "source").
 SOURCES = {
     "fused_gcn_stack": [CSRC + "gemm_nn.cu"],
-    "lstm_stack_last_all": [CSRC + "fused_lstm_stack.cu"],
+    "lstm_stack_last_all": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh",
+                            CSRC + "gemm_nn.cu"],
     "lstm_stack_train": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh",
                          CSRC + "gemm_nn.cu"],
     "lstm_stack_train.backward": [CSRC + "lstm_scan_bwd.cuh", CSRC + "fused_lstm_split.cu",
@@ -257,7 +273,8 @@ SOURCES = {
     "lstm_recurrence": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh"],
     "lstm_recurrence.backward": [CSRC + "lstm_scan.cu", CSRC + "lstm_scan_bwd.cuh",
                                  CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
-    "fused_lstm_last_hidden": [CSRC + "fused_lstm.cu"],
+    "fused_lstm_last_hidden": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh",
+                               CSRC + "gemm_nn.cu"],
     "fused_gcn_layer": [CSRC + "gemm_nn.cu", CSRC + "fused_gcn_train.cu", CSRC + "gemm.cu"],
     "lstm_stack_split": [CSRC + "lstm_stack_fwd.cu", CSRC + "lstm_scan_fwd.cuh",
                          CSRC + "gemm_nn.cu"],
@@ -516,7 +533,6 @@ def main() -> int:
     )
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
     from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
-        gemm,
         gemm_nn,
         gemm_nn_plain,
         gemm_tn,
@@ -603,6 +619,7 @@ def main() -> int:
             log(f"nvcc (one process per source, in parallel) {cuda_build.build_seconds:.1f} s")
         entry = ""
         recurrence = []  # (kernel, source, template arguments, registers)
+        spills = []  # (entry, ptxas line) of every recurrence instance that spills
         for line in cuda_build.build_log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
@@ -623,6 +640,7 @@ def main() -> int:
                                        regs))
                 elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
                     log(f"  ptxas {kernel} SPILLS: {line.strip()} in {entry}")
+                    spills.append((entry, line.strip()))
             elif new and new.startswith("lstm_scan_bwd_kernel"):
                 if "registers" in line:
                     # <TW, TC, UPT, RB, DB>, mangled as e.g.
@@ -648,8 +666,30 @@ def main() -> int:
                 f"cluster, +db with the bias partials: registers; no spill unless named "
                 f"above): " + ", ".join(f"{args}: {regs}" for k, src, args, regs in recurrence
                                         if (k, src) == (kernel, source)))
+        # The forward recurrence's 32-row tile (validate's rows, float32):
+        # built at 1 and 2 units a lane in float32, 1 in bfloat16, none
+        # spilling.
+        wide = [r for r in recurrence if r[0] == "lstm_scan_fwd_kernel" and
+                r[2].endswith(" 32")]
+        if sorted(r[2] for r in wide if r[1] == "lstm_stack_fwd.cu") != [
+                "bf16 1 32", "f32 1 32", "f32 2 32"]:
+            raise RuntimeError(f"the forward recurrence's 32-row instances: {wide}")
+        if any(re.search(r"lstm_scan_fwd_kernelI.*?Li\d+ELi32E", e) for e, _ in spills):
+            raise RuntimeError(f"a 32-row forward recurrence spills: {spills}")
         # Their shared memory is dynamic (ptxas reports static memory only).
         lib = cuda_build.load()
+        # The retired kernels: gemm.cu's SIMT GEMM (row 20's projections were
+        # its last caller) and rows 2 and 20's one-chain kernels. No path can
+        # launch what the library does not export.
+        for name in ("wf_gemm", "wf_lstm_stack_last", "wf_fused_lstm_last"):
+            if hasattr(lib, name):
+                raise RuntimeError(f"the library still exports {name}")
+        for name in ("fused_lstm_stack.cu", "fused_lstm.cu", "lstm_recurrence.cuh"):
+            if os.path.exists(os.path.join(os.path.dirname(os.path.abspath(__file__)), CSRC,
+                                           name)):
+                raise RuntimeError(f"the retired source {name} is still in the tree")
+        log("  no wf_gemm, wf_lstm_stack_last or wf_fused_lstm_last exported; their sources "
+            "are gone")
         log(f"  dynamic shared memory a block: gemm_nn float32 {lib.wf_gemm_nn_smem(0)} B, "
             f"bfloat16 {lib.wf_gemm_nn_smem(1)} B")
         # The backward recurrence (rows 5, 15, 17, 19): its cluster plan at
@@ -698,6 +738,10 @@ def main() -> int:
                     f"{cs}, "
                     f"{hcp} weight columns and {rb} rows a cluster, {smem} B a block; "
                     f"{clusters} clusters ({clusters * cs} blocks), at most {active} at once")
+                # Validate's rows (rows 2, 14 and 20): every cluster in one wave.
+                if rows == 1536 and clusters > active:
+                    raise RuntimeError(f"the forward plan {(cs, hcp, rb)} at 1536 rows takes "
+                                       f"{clusters} clusters, {active} co-resident")
         # Row 11's tangent recurrence: its plan at the SO inner step's rows
         # (512) and at the gate's; its shared memory is the backward's.
         for dt in (torch.float32, torch.bfloat16):
@@ -759,27 +803,48 @@ def main() -> int:
     x_lstm = torch.from_numpy(
         rng.standard_normal((3 * n, cfg.window, cfg.hidden_channels)).astype(np.float32)
     ).to(dev)
+    def eval_call(entry, x, dt):
+        """One call of an eval LSTM entry (row 2 or 20: the eval forward on
+        row 14's schedule), gated on its launches: one call, a gemm_nn and a
+        forward recurrence a layer (all from one C call), no other
+        gemm_nn."""
+        def counts():
+            return (entry.launches, entry.forward_gemm_nn_launches,
+                    entry.forward_recurrence_launches, gemm_nn.launches)
+
+        before = counts()
+        out = entry(lstm, x, compute_dtype=dt)
+        got = tuple(a - b for a, b in zip(counts(), before))
+        want = (1, cfg.lstm_layers, cfg.lstm_layers, cfg.lstm_layers)
+        if got != want:
+            raise RuntimeError(f"{entry.__name__} launched (calls, its gemm_nn, its recurrences, "
+                               f"gemm_nn) {got} a call, not {want}")
+        return out
+
+    # Row 2 at validate's 3 windows (1536 rows) and at the forecast's one.
     runs = {
         "fused_gcn_stack": (
             lambda dt: fused_gcn_stack(enc, a_hat, x_gcn, compute_dtype=dt),
             lambda dt: gcn_stack_plain(enc, a_hat, x_gcn, dt),
         ),
         "lstm_stack_last_all": (
-            lambda dt: lstm_stack_last_all(lstm, x_lstm, compute_dtype=dt),
+            lambda dt: eval_call(lstm_stack_last_all, x_lstm, dt),
             lambda dt: lstm_stack_plain(lstm, x_lstm, dt),
+        ),
+        "lstm_stack_last_all [512]": (
+            lambda dt: eval_call(lstm_stack_last_all, x_lstm[:n], dt),
+            lambda dt: lstm_stack_plain(lstm, x_lstm[:n], dt),
         ),
     }
     with Phase("serving kernels vs plain"), torch.inference_mode():
         for name, (kernel, plain) in runs.items():
             for dt_name, tol in TOL.items():
                 dt = getattr(torch, dt_name)
-                before = gemm_nn.launches, gemm.launches
+                before = gemm_nn.launches
                 got = kernel(dt)
-                if name == "fused_gcn_stack" and (gemm_nn.launches - before[0],
-                                                  gemm.launches - before[1]) != (2 * len(enc), 0):
-                    raise RuntimeError(f"row 1 launched gemm_nn {gemm_nn.launches - before[0]} "
-                                       f"times and gemm.cu {gemm.launches - before[1]}, not "
-                                       f"{2 * len(enc)} and 0")
+                if name == "fused_gcn_stack" and gemm_nn.launches - before != 2 * len(enc):
+                    raise RuntimeError(f"row 1 launched gemm_nn {gemm_nn.launches - before} "
+                                       f"times, not {2 * len(enc)}")
                 ref = plain(dt)
                 torch.cuda.synchronize()
                 err = float((got - ref).abs().max())
@@ -823,7 +888,8 @@ def main() -> int:
             return results
 
         fused_gcn_stack.launches = fused_gcn_stack.gemm_nn_launches = 0
-        lstm_stack_last_all.launches = 0
+        lstm_stack_last_all.launches = lstm_stack_last_all.forward_gemm_nn_launches = 0
+        lstm_stack_last_all.forward_recurrence_launches = 0
         served = {}
         for dt_name in TOL:
             for region in REGIONS:
@@ -841,6 +907,12 @@ def main() -> int:
         if fused_gcn_stack.gemm_nn_launches != 2 * len(enc) * fused_gcn_stack.launches:
             raise RuntimeError(f"row 1 launched gemm_nn {fused_gcn_stack.gemm_nn_launches} "
                                f"times in {fused_gcn_stack.launches} calls")
+        row2 = (lstm_stack_last_all.launches, lstm_stack_last_all.forward_gemm_nn_launches,
+                lstm_stack_last_all.forward_recurrence_launches)
+        log(f"row 2 on the serving path: {row2[0]} calls, {row2[1]} gemm_nn and {row2[2]} "
+            f"forward recurrence launches")
+        if row2[1:] != (cfg.lstm_layers * row2[0],) * 2:
+            raise RuntimeError(f"row 2 launched (calls, gemm_nn, recurrences) {row2}")
 
         for dt_name, tol in TOL.items():
             ref = forecast("Moscow", dt_name, serve_dir, device="cpu")
@@ -861,29 +933,56 @@ def main() -> int:
                 getattr(cudnn, f"weight_hh_l{l}").copy_(layer.wh.t())
                 getattr(cudnn, f"bias_ih_l{l}").copy_(layer.b)
                 getattr(cudnn, f"bias_hh_l{l}").zero_()
+        # Yardstick: cuDNN's LSTM forward for the eval stack (rows 2 and 20)
+        # in each dtype at each shape, by events and by graph replay.
+        cudnn_bf16 = copy.deepcopy(cudnn).to(torch.bfloat16)
+        cudnn_ms = {}
+        with torch.inference_mode():
+            for rows in (3 * n, n):
+                for dt_name, lib in (("float32", cudnn), ("bfloat16", cudnn_bf16)):
+                    xr = x_lstm[:rows].to(getattr(torch, dt_name))
+                    cudnn_ms[(rows, dt_name)] = (cuda_ms(torch, lambda: lib(xr)),
+                                                 graph_ms(torch, lambda: lib(xr)))
+                    log(f"torch.nn.LSTM (cuDNN) {dt_name} forward [{rows}, 24, 256]: "
+                        f"{cudnn_ms[(rows, dt_name)][0]:.4f} ms, device "
+                        f"{cudnn_ms[(rows, dt_name)][1]:.4f} ms (CUDA graph replay)  [{card}]")
+        del cudnn_bf16
         with torch.inference_mode():
             for name, (kernel, plain) in runs.items():
                 for dt_name in TOL:
                     dt = getattr(torch, dt_name)
                     ms = cuda_ms(torch, lambda: kernel(dt))
                     plain_ms = cuda_ms(torch, lambda: plain(dt))
-                    log(f"{name} {dt_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+                    t = {"ms": ms, "plain_ms": plain_ms}
+                    if name.startswith("lstm_stack_last_all"):
+                        # Row 2: device time alone (CUDA graph replay), the
+                        # host's time to enqueue a call, cuDNN beside it.
+                        rows = n if name.endswith("[512]") else 3 * n
+                        t.update(device_ms=graph_ms(torch, lambda: kernel(dt)),
+                                 enqueue_ms=enqueue_ms(torch, lambda: kernel(dt)),
+                                 library_ms=cudnn_ms[(rows, dt_name)][0],
+                                 library_device_ms=cudnn_ms[(rows, dt_name)][1])
+                    log(f"{name} {dt_name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+                        + f"  [{card}]")
                     if dt_name == "float32":
-                        measured[name].update(ms=ms, plain_ms=plain_ms)
-            # Yardstick: cuDNN's LSTM for the LSTM stack (row 1's below).
-            lib_ms = cuda_ms(torch, lambda: cudnn(x_lstm))
-            measured["lstm_stack_last_all"]["library_ms"] = lib_ms
-            log(f"torch.nn.LSTM (cuDNN) float32 forward [1536, 24, 256]: {lib_ms:.4f} ms  [{card}]")
+                        measured[name].update(t)
+                    elif name.startswith("lstm_stack_last_all"):
+                        measured[name]["bfloat16"] = t
             measured["fused_gcn_stack"].update(
                 flops=gcn_flops(3 * cfg.window, gcn_widths),
                 bytes=4 * (x_gcn.numel() + n * n + 3 * cfg.window * n * cfg.hidden_channels)
                 + gcn_w_bytes,
             )
-            measured["lstm_stack_last_all"].update(
-                flops=lstm_flops(3 * n, cfg.window, cfg.hidden_channels, cfg.lstm_hidden,
-                                 cfg.lstm_layers),
-                bytes=4 * (x_lstm.numel() + 3 * n * cfg.lstm_hidden) + lstm_w_bytes,
-            )
+            for rows, name in ((3 * n, "lstm_stack_last_all"), (n, "lstm_stack_last_all [512]")):
+                measured[name].update(
+                    flops=lstm_flops(rows, cfg.window, cfg.hidden_channels, cfg.lstm_hidden,
+                                     cfg.lstm_layers),
+                    bytes=4 * (rows * cfg.window * cfg.hidden_channels + rows * cfg.lstm_hidden)
+                    + lstm_w_bytes,
+                )
+            at_512 = measured.pop("lstm_stack_last_all [512]")
+            at_512["bound_ms"] = bound_ms(at_512["bytes"], at_512["flops"])[0]
+            measured["lstm_stack_last_all"]["at_512"] = at_512
             # Row 1 beside its library call in the same dtype: cuBLAS products
             # of the rounded operands layer by layer (bfloat16 on its tensor
             # cores); device times alone by CUDA graph replay (CUDA events
@@ -1340,7 +1439,7 @@ def main() -> int:
         # Row 4 alone, as the model calls it (x [T, B, C] a view of [B, T, C]):
         # its four outputs against its schedule on the plain pieces (masks at
         # rate 0.2 and off), its launches a call (from one C call: a gemm_nn
-        # and a forward recurrence a layer, no gemm.cu), by CUDA events, by
+        # and a forward recurrence a layer), by CUDA events, by
         # CUDA graph replay, by part (the schedule a launch at a time), the
         # host's time a call; cuDNN's forward in the same dtype beside it.
         x4 = x_rec.transpose(0, 1)
@@ -1371,15 +1470,13 @@ def main() -> int:
                     fls.train_forward(x4, lstm_masks, 0.8, dt, b2d4, wcat4)
 
                 before = (train4.launches, train4.forward_gemm_nn_launches,
-                          train4.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+                          train4.forward_recurrence_launches, gemm_nn.launches)
                 row4()
                 core4 = {"calls": train4.launches - before[0],
                          "gemm_nn": train4.forward_gemm_nn_launches - before[1],
                          "recurrences": train4.forward_recurrence_launches - before[2],
-                         "gemm_nn (all)": gemm_nn.launches - before[3],
-                         "gemm.cu": gemm.launches - before[4]}
-                want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l,
-                        "gemm.cu": 0}
+                         "gemm_nn (all)": gemm_nn.launches - before[3]}
+                want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l}
                 if core4 != want:
                     raise RuntimeError(f"row 4 launched {core4} a call, not {want}")
                 row = {"call_ms": cuda_ms(torch, row4), "device_ms": graph_ms(torch, row4),
@@ -1437,20 +1534,18 @@ def main() -> int:
                 def row7():
                     fgt._backward(g7, x_enc, a_hat, enc_w, gcn_masks, h7, 1.25, dt)
 
-                before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                before = (gemm_nn.launches, gemm_tn.launches)
                 row6()
                 core6 = {"gemm_nn": gemm_nn.launches - before[0],
-                         "gemm_tn": gemm_tn.launches - before[1],
-                         "gemm.cu": gemm.launches - before[2]}
-                want = {"gemm_nn": 2 * len(enc), "gemm_tn": 0, "gemm.cu": 0}
+                         "gemm_tn": gemm_tn.launches - before[1]}
+                want = {"gemm_nn": 2 * len(enc), "gemm_tn": 0}
                 if core6 != want:
                     raise RuntimeError(f"row 6 launched {core6} a call, not {want}")
-                before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                before = (gemm_nn.launches, gemm_tn.launches)
                 row7()
                 core7 = {"gemm_nn": gemm_nn.launches - before[0],
-                         "gemm_tn": gemm_tn.launches - before[1],
-                         "gemm.cu": gemm.launches - before[2]}
-                want = {"gemm_nn": 2 * len(enc), "gemm_tn": len(enc), "gemm.cu": 0}
+                         "gemm_tn": gemm_tn.launches - before[1]}
+                want = {"gemm_nn": 2 * len(enc), "gemm_tn": len(enc)}
                 if core7 != want:
                     raise RuntimeError(f"row 7 launched {core7} a call, not {want}")
                 times = {"row 6": (cuda_ms(torch, row6), graph_ms(torch, row6)),
@@ -1739,22 +1834,21 @@ def main() -> int:
                     f"(torch.profiler), ms: " + ", ".join(
                         f"{k} {e:.4f} / {d:.4f}" for k, (e, d) in times.items()) + f"  [{card}]")
                 # Row 11 alone: its launches a call (per layer a tangent
-                # recurrence, 2 gemm_nn and 4 gemm_tn, none of gemm.cu's
-                # GEMM), its device time by CUDA graph replay, by part, the
+                # recurrence, 2 gemm_nn and 4 gemm_tn), its device time by
+                # CUDA graph replay, by part, the
                 # host's time to enqueue a call.
                 bwd = fh.hvp_stack_bwd
                 before = (bwd.launches, bwd.recurrence_launches, bwd.gemm_nn_launches,
-                          bwd.gemm_tn_launches, gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                          bwd.gemm_tn_launches, gemm_nn.launches, gemm_tn.launches)
                 row11()
                 core11 = {"calls": bwd.launches - before[0],
                           "recurrences": bwd.recurrence_launches - before[1],
                           "gemm_nn": bwd.gemm_nn_launches - before[2],
                           "gemm_tn": bwd.gemm_tn_launches - before[3],
                           "gemm_nn (all)": gemm_nn.launches - before[4],
-                          "gemm_tn (all)": gemm_tn.launches - before[5],
-                          "gemm.cu": gemm.launches - before[6]}
+                          "gemm_tn (all)": gemm_tn.launches - before[5]}
                 want = {"calls": 1, "recurrences": n_l, "gemm_nn": 2 * n_l, "gemm_tn": 4 * n_l,
-                        "gemm_nn (all)": 2 * n_l, "gemm_tn (all)": 4 * n_l, "gemm.cu": 0}
+                        "gemm_nn (all)": 2 * n_l, "gemm_tn (all)": 4 * n_l}
                 if core11 != want:
                     raise RuntimeError(f"row 11 launched {core11} a call, not {want}")
                 with torch.no_grad():
@@ -1770,20 +1864,18 @@ def main() -> int:
                         f"{k} {v:.4f} ms" for k, v in row["parts_ms"].items())
                     + f"; launches a call {core11}  [{card}]")
                 # Row 10 alone: its launches a call (per layer a gemm_nn
-                # product and a tangent forward recurrence, from one C call;
-                # no gemm.cu GEMM), its device time by CUDA graph replay, by
+                # product and a tangent forward recurrence, from one C
+                # call), its device time by CUDA graph replay, by
                 # part, the host's time to enqueue a call.
                 fwd = fh.hvp_stack_fwd
                 before = (fwd.launches, fwd.recurrence_launches, fwd.gemm_nn_launches,
-                          gemm_nn.launches, gemm.launches)
+                          gemm_nn.launches)
                 row10()
                 core10 = {"calls": fwd.launches - before[0],
                           "recurrences": fwd.recurrence_launches - before[1],
                           "gemm_nn": fwd.gemm_nn_launches - before[2],
-                          "gemm_nn (all)": gemm_nn.launches - before[3],
-                          "gemm.cu": gemm.launches - before[4]}
-                want = {"calls": 1, "recurrences": n_l, "gemm_nn": n_l, "gemm_nn (all)": n_l,
-                        "gemm.cu": 0}
+                          "gemm_nn (all)": gemm_nn.launches - before[3]}
+                want = {"calls": 1, "recurrences": n_l, "gemm_nn": n_l, "gemm_nn (all)": n_l}
                 if core10 != want:
                     raise RuntimeError(f"row 10 launched {core10} a call, not {want}")
                 with torch.no_grad():
@@ -1949,7 +2041,6 @@ def main() -> int:
         lstm_stack_train.forward_gemm_nn_launches = 0
         lstm_stack_train.plain_routes = 0
         gcn_stack_train.gemm_nn_launches = 0
-        gemm.launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         per_step = meta_cfg.meta_batch * meta_cfg.inner_epochs * meta_cfg.inner_batches
         logs = {"float32": meta_train("float32", 2), "bfloat16": meta_train("bfloat16", 1)}
@@ -1973,21 +2064,20 @@ def main() -> int:
                 raise RuntimeError(f"{name} never launched on the meta-training path")
         # Row 5: 364 calls a meta step (4 tasks x 90 inner steps + 4 query
         # windows), each a recurrence, a gemm_nn and two gemm_tn launches a
-        # layer; no gemm.cu GEMM on the path, no call sent to the plain stack.
+        # layer; no call sent to the plain stack.
         forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
         row5 = (lstm_stack_train.backward_launches,
                 lstm_stack_train.backward_recurrence_launches,
                 lstm_stack_train.backward_gemm_nn_launches,
-                lstm_stack_train.backward_gemm_tn_launches, gemm.launches,
+                lstm_stack_train.backward_gemm_tn_launches,
                 lstm_stack_train.plain_routes)
         log(f"row 5 in 5 meta steps: {row5[0]} calls, {row5[1]} recurrence launches, "
-            f"{row5[2]} gemm_nn launches, {row5[3]} gemm_tn launches; gemm.cu {row5[4]} "
-            f"launches, plain routes {row5[5]}")
+            f"{row5[2]} gemm_nn launches, {row5[3]} gemm_tn launches; plain routes {row5[4]}")
         if row5 != (5 * forwards, 5 * forwards * n_l, 5 * forwards * n_l,
-                    5 * forwards * 2 * n_l, 0, 0):
+                    5 * forwards * 2 * n_l, 0):
             raise RuntimeError(f"row 5 launched {row5} in 5 meta steps, not {forwards} calls a "
                                f"step with {n_l} recurrences, {n_l} gemm_nn and {2 * n_l} "
-                               f"gemm_tn launches each, no gemm.cu GEMM and no plain route")
+                               f"gemm_tn launches each and no plain route")
         # Row 4: as many calls, each a gemm_nn and a forward recurrence
         # launch a layer.
         row4 = (lstm_stack_train.launches, lstm_stack_train.forward_recurrence_launches,
@@ -2222,8 +2312,9 @@ def main() -> int:
         t0 = time.perf_counter()
         astate, losses = run_epoch(astate, feats, batches, a_hat, node_mask, koppen, lr0, g)
         torch.cuda.synchronize()
+        default_epoch_s = time.perf_counter() - t0
         log(f"adaptation epoch float32 ({len(batches)} steps of batch 2): "
-            f"{time.perf_counter() - t0:.3f} s, mean loss {float(losses.mean()):.6f}  [{card}]")
+            f"{default_epoch_s:.3f} s, mean loss {float(losses.mean()):.6f}  [{card}]")
         del feats, astate, adapted
 
     # 11. Inner step, meta step, peak memory.
@@ -2366,8 +2457,7 @@ def main() -> int:
                         if has_next and nl > n // 4:
                             # Row 13 alone from each cotangent and both (the
                             # encoder sends g2 below its top layer, g1 at it),
-                            # against its plain statement: the core's launches,
-                            # no gemm.cu GEMM.
+                            # against its plain statement: the core's launches.
                             with torch.no_grad():
                                 h_post, _ = fgs.shard_layer_plain(*leaves[:1], run.a_rows,
                                                                   leaves[1], leaves[2], run.mask,
@@ -2376,12 +2466,11 @@ def main() -> int:
                                 g1 = None if cts13 == "g2" else cts[0]
                                 g2 = None if cts13 == "g1" else cts[1]
                                 args13 = (g1, g2, h_post, run.a_rows, leaves[2], run.mask)
-                                before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                                before = (gemm_nn.launches, gemm_tn.launches)
                                 got13 = fgs.backward_schedule(*args13, 1.25, dt, dt,
                                                               fgt.CARD_PIECES)
                                 core13 = (gemm_nn.launches - before[0],
-                                          gemm_tn.launches - before[1],
-                                          gemm.launches - before[2])
+                                          gemm_tn.launches - before[1])
                                 ref13 = fgs.shard_bwd_plain(*args13, 0.8, dt, dt)
                                 torch.cuda.synchronize()
                                 rels13 = [0.0 if cts13 == "g1" and i == 2 and not r.any()
@@ -2389,8 +2478,8 @@ def main() -> int:
                                           for i, (g, r) in enumerate(zip(got13, ref13))]
                                 log(f"row 13 {dt_name} NL={nl} mask={has_mask} from {cts13}: "
                                     f"max|diff|/max|ref| {max(rels13):.3e} (tol {tol}); gemm_nn, "
-                                    f"gemm_tn, gemm.cu launches {core13}")
-                                want13 = {"g2": (2, 1, 0), "g1": (1, 0, 0), "both": (2, 1, 0)}
+                                    f"gemm_tn launches {core13}")
+                                want13 = {"g2": (2, 1), "g1": (1, 0), "both": (2, 1)}
                                 if max(rels13) > tol or core13 != want13[cts13]:
                                     raise RuntimeError(f"row 13 {dt_name} NL={nl} from {cts13}: "
                                                        f"error {max(rels13):.3e}, launches "
@@ -2431,11 +2520,10 @@ def main() -> int:
                                 fgs.shard_bwd_plain(None, g2, h_post, a_rows, w_next, mask, 0.8,
                                                     dt, dt)
 
-                            before = (gemm_nn.launches, gemm.launches)
+                            before = gemm_nn.launches
                             run(fgs.gcn_shard_layer, leaves)
-                            core12 = {"gemm_nn": gemm_nn.launches - before[0],
-                                      "gemm.cu": gemm.launches - before[1]}
-                            if core12 != {"gemm_nn": 2, "gemm.cu": 0}:
+                            core12 = {"gemm_nn": gemm_nn.launches - before}
+                            if core12 != {"gemm_nn": 2}:
                                 raise RuntimeError(f"row 12 launched {core12} a call")
                             dev_ms = {
                                 "row 12": graph_ms(torch, lambda: run(fgs.gcn_shard_layer, leaves)),
@@ -2760,8 +2848,8 @@ def main() -> int:
                 f"{times['plain'][0]:.4f} ms, backward {times['plain'][1]:.4f} ms  [{card}]")
             # Row 19 alone, its call (one C call) from row 18's residuals:
             # dgates and dwh against the plain recurrence and a float64 dwh of
-            # the same rounded operands; its launches a call (the TN core once,
-            # gemm.cu's GEMM never); by CUDA events, CUDA graph replay, part
+            # the same rounded operands; its launches a call (the TN core
+            # once); by CUDA events, CUDA graph replay, part
             # and the host's time to enqueue it; cuBLAS on its dwh product
             # alone (h_prev^T @ dgates in the compute dtype) beside it.
             with torch.no_grad():
@@ -2770,14 +2858,12 @@ def main() -> int:
                 g19 = torch.from_numpy(np.random.default_rng(65).standard_normal(
                     (w_len, n, lh)).astype(np.float32)).to(dev)
                 rec = lstm_recurrence
-                before = (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches,
-                          gemm.launches)
+                before = (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches)
                 dg19, dwh19 = lstm_scan.scan_backward(g19, h19, c19, gates19, wh19, dt)
                 core19 = {"calls": rec.backward_launches - before[0],
                           "gemm_tn": rec.backward_gemm_tn_launches - before[1],
-                          "gemm_tn (all)": gemm_tn.launches - before[2],
-                          "gemm.cu": gemm.launches - before[3]}
-                want = {"calls": 1, "gemm_tn": 1, "gemm_tn (all)": 1, "gemm.cu": 0}
+                          "gemm_tn (all)": gemm_tn.launches - before[2]}
+                want = {"calls": 1, "gemm_tn": 1, "gemm_tn (all)": 1}
                 if core19 != want:
                     raise RuntimeError(f"row 19 launched {core19} a call, not {want}")
                 a19 = torch.cat([torch.zeros_like(h19[:1]), h19[:-1]]).reshape(-1, lh).to(dt)
@@ -2834,33 +2920,59 @@ def main() -> int:
                 measured["lstm_recurrence.backward"]["bfloat16"] = row19_t
             del graphs
 
-            # Row 20: the eval stack, at validate's 3 windows and at 1; the
-            # gradients (the plain route's, recomputed) at 1.
-            with torch.no_grad():
-                for xr in (x_lstm, x_lstm[:n]):
-                    got = fused_lstm_last_hidden(lstm, xr, compute_dtype=dt)
+            # Row 20: the eval stack (row 2's schedule, counted on its own
+            # entry), at validate's 3 windows and at 1, each call gated on its
+            # launches, by events, graph replay and enqueue beside cuDNN's
+            # forward (phase 5) and row 2; its train-mode gradients (row 15's
+            # schedule: the adaptation step at dropout 0) at 1 window.
+            r20 = {}
+            with torch.inference_mode():
+                for rows in (3 * n, n):
+                    xr = x_lstm[:rows]
+                    got = eval_call(fused_lstm_last_hidden, xr, dt)
                     ref = lstm_stack_plain(lstm, xr, dt)
                     torch.cuda.synchronize()
                     torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
-                    err = float((got - ref).abs().max())
-                    log(f"row 20 {dt_name} x {list(xr.shape)}: forward max_abs_err {err:.3e} "
-                        f"(tol {tol})")
-                    if dt_name == "float32" and xr.shape[0] == 3 * n:
-                        measured["fused_lstm_last_hidden"] = {"max_abs_err": err}
+
+                    def call20(xr=xr):
+                        eval_call(fused_lstm_last_hidden, xr, dt)
+
+                    t = {"max_abs_err": float((got - ref).abs().max()),
+                         "ms": cuda_ms(torch, call20), "device_ms": graph_ms(torch, call20),
+                         "enqueue_ms": enqueue_ms(torch, call20),
+                         "plain_ms": cuda_ms(torch, lambda: lstm_stack_plain(lstm, xr, dt)),
+                         "library_ms": cudnn_ms[(rows, dt_name)][0],
+                         "library_device_ms": cudnn_ms[(rows, dt_name)][1]}
+                    r20[rows] = t
+                    log(f"row 20 {dt_name} [{rows}, 24, 256]: " + ", ".join(
+                        f"{k} {v:.4g}" if k == "max_abs_err" else f"{k} {v:.4f}"
+                        for k, v in t.items()) + f" (tol {tol}; library: cuDNN's forward)  "
+                        f"[{card}]")
+            row20_fn = fused_lstm_last_hidden
+            before = (row20_fn.launches, row20_fn.backward_launches,
+                      row20_fn.backward_gemm_tn_launches)
             runs = (("kernel", lambda a: fused_lstm_last_hidden(lstm, a, compute_dtype=dt)),
                     ("plain", lambda a: lstm_stack_plain(lstm, a, dt)))
-            hold(f"row 20 x {[n, w_len, hid]}", runs, [x_lstm[:n]], lstm_params, dt_name, tol, 63)
-            with torch.inference_mode():
-                ms = cuda_ms(torch, lambda: fused_lstm_last_hidden(lstm, x_lstm, compute_dtype=dt))
-                plain_ms = cuda_ms(torch, lambda: lstm_stack_plain(lstm, x_lstm, dt))
-                row2_ms = cuda_ms(torch, lambda: lstm_stack_last_all(lstm, x_lstm, compute_dtype=dt))
-                lib_ms = cuda_ms(torch, lambda: cudnn(x_lstm)) if dt_name == "float32" else None
-            log(f"row 20 {dt_name} [1536, 24, 256]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                f"row 2 (the same function) {row2_ms:.4f} ms"
-                + (f"; torch.nn.LSTM (cuDNN) {lib_ms:.4f} ms" if lib_ms else "") + f"  [{card}]")
+            _, bwd_err20, graphs = hold(f"row 20 train mode x {[n, w_len, hid]}", runs,
+                                        [x_lstm[:n]], lstm_params, dt_name, tol, 63)
+            core20 = (row20_fn.launches - before[0], row20_fn.backward_launches - before[1],
+                      row20_fn.backward_gemm_tn_launches - before[2])
+            if core20 != (1, 1, 2 * n_l):
+                raise RuntimeError(f"row 20's train-mode call launched (forwards, backwards, "
+                                   f"gemm_tn) {core20}, not (1, 1, {2 * n_l})")
+            times20 = time_routes(runs, graphs, [x_lstm[:n]])
+            log(f"row 20 train mode {dt_name} [{n}, 24, 256]: forward {times20['kernel'][0]:.4f} "
+                f"ms, backward {times20['kernel'][1]:.4f} ms (row 15's schedule); plain "
+                f"{times20['plain'][0]:.4f} / {times20['plain'][1]:.4f} ms  [{card}]")
+            del graphs
+            r20 = {**r20[3 * n], "at_512": r20[n],
+                     "train": {"rows": n, "forward_ms": times20["kernel"][0],
+                               "backward_ms": times20["kernel"][1],
+                               "max_abs_grad_err": bwd_err20}}
             if dt_name == "float32":
-                measured["fused_lstm_last_hidden"].update(ms=ms, plain_ms=plain_ms,
-                                                          library_ms=lib_ms, row2_ms=row2_ms)
+                measured["fused_lstm_last_hidden"] = r20
+            else:
+                measured["fused_lstm_last_hidden"]["bfloat16"] = r20
 
             # Row 3: one GCN layer, the encoder's layer 1 (256 -> 256) at one
             # window and its layer 0 (24 -> 256) at three.
@@ -2913,6 +3025,8 @@ def main() -> int:
         measured["fused_lstm_last_hidden"].update(
             flops=measured["lstm_stack_last_all"]["flops"],
             bytes=measured["lstm_stack_last_all"]["bytes"])
+        measured["fused_lstm_last_hidden"]["at_512"]["bound_ms"] = (
+            measured["lstm_stack_last_all"]["at_512"]["bound_ms"])
         measured["fused_gcn_layer"].update(
             flops=2 * w_len * (n * hid * hid + n * n * hid),
             bytes=4 * (n * n + 2 * w_len * n * hid + hid * hid + hid))
@@ -2922,14 +3036,13 @@ def main() -> int:
     with Phase("LSTM routes through the CLI"):
         for fn in (lstm_recurrence, lstm_stack_train):
             fn.launches = fn.backward_launches = 0
-        lstm_recurrence.backward_gemm_tn_launches = gemm.launches = 0
+        lstm_recurrence.backward_gemm_tn_launches = 0
         fused_gcn_layer.launches = fused_gcn_layer.backward_launches = 0
         rec_logs = meta_train("float32", 1, "-o", "model.lstm_kernel=pallas", out="recurrence")
         route_launches = {
             "lstm_recurrence": lstm_recurrence.launches,
             "lstm_recurrence.backward": lstm_recurrence.backward_launches,
             "row 19 gemm_tn": lstm_recurrence.backward_gemm_tn_launches,
-            "gemm.cu": gemm.launches,
             "lstm_stack_train": lstm_stack_train.launches,
             "lstm_stack_train.backward": lstm_stack_train.backward_launches,
         }
@@ -2937,7 +3050,7 @@ def main() -> int:
         forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
         want = {"lstm_recurrence": cfg.lstm_layers * forwards,
                 "lstm_recurrence.backward": cfg.lstm_layers * forwards,
-                "row 19 gemm_tn": cfg.lstm_layers * forwards, "gemm.cu": 0,
+                "row 19 gemm_tn": cfg.lstm_layers * forwards,
                 "lstm_stack_train": 0, "lstm_stack_train.backward": 0}
         if route_launches != want:
             raise RuntimeError(f"meta-train -o model.lstm_kernel=pallas launched "
@@ -3023,8 +3136,10 @@ def main() -> int:
         log(f"forecast lstm_kernel=pallas: row 18 launched {lstm_recurrence.launches} times "
             f"in one predict")
 
-        # Adaptation with use_pallas_lstm at dropout 0: row 20 in train mode.
+        # Adaptation with use_pallas_lstm at dropout 0: row 20 in train mode,
+        # its backward on row 15's schedule.
         fused_lstm_last_hidden.launches = lstm_stack_train.launches = 0
+        fused_lstm_last_hidden.backward_launches = 0
         out = os.path.join(out_root, "adapt_row20")
         _, _, secs = run_cli([
             "adapt", "--region", "Moscow",
@@ -3037,11 +3152,66 @@ def main() -> int:
             raise RuntimeError(f"adapt use_pallas_lstm: {values}")
         log(f"adapt Moscow use_pallas_lstm lstm_dropout=0, 1 epoch: {secs:.1f} s, epoch losses "
             f"{side['epoch_losses']}, val_mse {side['val_mse']:.6f}; row 20 launched "
-            f"{fused_lstm_last_hidden.launches} times ({len(batches)} train steps), row 4 "
+            f"{fused_lstm_last_hidden.launches} times, its backward (row 15's schedule) "
+            f"{fused_lstm_last_hidden.backward_launches} ({len(batches)} train steps), row 4 "
             f"{lstm_stack_train.launches}  [{card}]")
-        if fused_lstm_last_hidden.launches < len(batches) or lstm_stack_train.launches:
+        if (fused_lstm_last_hidden.launches < len(batches)
+                or fused_lstm_last_hidden.backward_launches < len(batches)
+                or lstm_stack_train.launches):
             raise RuntimeError("adapt with use_pallas_lstm did not train through row 20")
+        # One adaptation epoch on each route in turns (row 20 at dropout 0,
+        # the default route at dropout 0, again in reverse order), Moscow's
+        # data, beside phase 10's default epoch (dropout 0.2).
+        feats, _ = prepare_features(moscow_adapt)
+        feats = torch.from_numpy(pad_nodes(feats, n)).to(dev)
+        epochs = {"use_pallas_lstm": [], "default": []}
+        for route in ("use_pallas_lstm", "default", "default", "use_pallas_lstm"):
+            mc = ModelConfig(lstm_dropout=0.0, use_pallas_lstm=route == "use_pallas_lstm")
+            adapted = init_model(torch.Generator().manual_seed(4), mc, device=dev)
+            astate = SupervisedState(adapted, tx.init(dict(adapted.named_parameters())))
+            run_epoch = make_epoch_runner(mc, tx, spec)
+            g = torch.Generator(device=dev).manual_seed(5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            astate, losses = run_epoch(astate, feats, batches, a_hat, node_mask, koppen, lr0, g)
+            torch.cuda.synchronize()
+            epochs[route].append(time.perf_counter() - t0)
+            if not torch.isfinite(losses).all():
+                raise RuntimeError(f"adaptation epoch on the {route} route: non-finite loss")
+        ratio = min(epochs["use_pallas_lstm"]) / min(epochs["default"])
+        log(f"adaptation epoch float32 at lstm_dropout=0 ({len(batches)} steps of batch 2), in "
+            f"turns: use_pallas_lstm {epochs['use_pallas_lstm']} s, default route "
+            f"{epochs['default']} s (ratio {ratio:.3f}); the default route at dropout 0.2 "
+            f"(phase 10) {default_epoch_s:.3f} s  [{card}]")
+        del feats, astate, adapted
         route_launches["fused_gcn_layer"] = fused_gcn_layer.launches  # on no path: 0
+
+        # Float32 hidden 320, where no cluster holds Wh: `forecast` under
+        # `lstm_kernel=auto` and under `use_pallas_lstm` runs the plain stack
+        # (counted), rows 2, 14 and 20 never, and matches `--device cpu`.
+        cfg320 = ModelConfig(lstm_hidden=320)
+        serve320 = os.path.join(out_root, "serve320")
+        save_checkpoint(
+            os.path.join(serve320, "meta", "ckpt_best"),
+            init_model(torch.Generator().manual_seed(9), cfg320, device=dev).state_dict(),
+            {"schema": "wfstgcn-meta-v1", "config": to_dict(ExperimentConfig(model=cfg320))},
+        )
+        h320 = ("-o", "model.lstm_hidden=320")
+        eval_entries = (lstm_stack_last_all, fls.lstm_stack_split, fused_lstm_last_hidden)
+        for label, flags in (("auto", ()), ("use_pallas_lstm", row20)):
+            for fn in eval_entries:
+                fn.launches = 0
+            lstm_stack_train.plain_routes = 0
+            got = forecast("Moscow", "float32", serve320, "cuda", *h320, *flags)
+            counts = ([fn.launches for fn in eval_entries], lstm_stack_train.plain_routes)
+            ref = forecast("Moscow", "float32", serve320, "cpu", *h320, *flags)
+            err = float(np.abs(got - ref).max())
+            log(f"forecast Moscow lstm_hidden=320 {label}: rows 2, 14, 20 launched {counts[0]}, "
+                f"plain routes {counts[1]}; card vs --device cpu max_abs_err {err:.3e}")
+            if counts[0] != [0, 0, 0] or counts[1] == 0:
+                raise RuntimeError(f"forecast lstm_hidden=320 {label}: rows 2, 14, 20 "
+                                   f"{counts[0]}, plain routes {counts[1]}")
+            np.testing.assert_allclose(got, ref, rtol=TOL["float32"], atol=TOL["float32"])
     # 17. The unmerged-gates stack (rows 14-15) and the task-batched stack
     # (rows 16-17) vs plain at full width: the inner step's LSTM (x [24,
     # 512, 256] time-major, 4 layers of 128), masks at rate 0.2 and off;
@@ -3063,26 +3233,24 @@ def main() -> int:
         """Rows 16 and 17 of V tasks alone, row 17 from row 16's residuals:
         row 16's four outputs against its schedule on the plain pieces and
         its launches a call, gated (from one C call: a gemm_nn and a forward
-        recurrence a layer for all tasks, no gemm.cu), its recurrence plan;
+        recurrence a layer for all tasks), its recurrence plan;
         each by events and by graph replay, row 16 also by the host's time to
         enqueue a call and by part; row 17 by part and its launches of a
         call, gated: a recurrence, a gemm_nn and two gemm_tn launches a layer
-        for all tasks, no launch of gemm.cu's GEMM."""
+        for all tasks."""
         nv = xs.shape[0]
         x_v = xs.transpose(1, 2).contiguous()
         g_v = g_last.expand(nv, -1, -1).contiguous()
         tasks = fls.lstm_stack_train_tasks
         with torch.no_grad():
             before = (tasks.launches, tasks.forward_gemm_nn_launches,
-                      tasks.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+                      tasks.forward_recurrence_launches, gemm_nn.launches)
             res = fls.tasks_forward(x_v, m, keep, dt, *weights)
             core16 = {"calls": tasks.launches - before[0],
                       "gemm_nn": tasks.forward_gemm_nn_launches - before[1],
                       "recurrences": tasks.forward_recurrence_launches - before[2],
-                      "gemm_nn (all)": gemm_nn.launches - before[3],
-                      "gemm.cu": gemm.launches - before[4]}
-            want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l,
-                    "gemm.cu": 0}
+                      "gemm_nn (all)": gemm_nn.launches - before[3]}
+            want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l}
             if core16 != want:
                 raise RuntimeError(f"row 16 launched {core16} a call, not {want}")
             ref = fls.tasks_forward_schedule(x_v, m, keep, dt, *weights, fls.FWD_PLAIN_PIECES)
@@ -3101,13 +3269,12 @@ def main() -> int:
                 fls.tasks_backward(g_v, x_v, *res[1:], *weights[:2], m, keep, dt)
 
             before = (tasks.backward_recurrence_launches, tasks.backward_gemm_nn_launches,
-                      tasks.backward_gemm_tn_launches, gemm.launches)
+                      tasks.backward_gemm_tn_launches)
             row17()
             core = {"recurrence": tasks.backward_recurrence_launches - before[0],
                     "gemm_nn": tasks.backward_gemm_nn_launches - before[1],
-                    "gemm_tn": tasks.backward_gemm_tn_launches - before[2],
-                    "gemm.cu": gemm.launches - before[3]}
-            want = {"recurrence": n_l, "gemm_nn": n_l, "gemm_tn": 2 * n_l, "gemm.cu": 0}
+                    "gemm_tn": tasks.backward_gemm_tn_launches - before[2]}
+            want = {"recurrence": n_l, "gemm_nn": n_l, "gemm_tn": 2 * n_l}
             if core != want:
                 raise RuntimeError(f"row 17 launched {core} a call, not {want}")
             out = {"fwd": (cuda_ms(torch, row16), graph_ms(torch, row16)),
@@ -3141,15 +3308,13 @@ def main() -> int:
                     # The eval forward (no residuals): its launches a call, a
                     # gemm_nn and a forward recurrence a layer from one C call.
                     before = (split.launches, split.forward_gemm_nn_launches,
-                              split.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+                              split.forward_recurrence_launches, gemm_nn.launches)
                     last = fls.split_forward(x_tbc, *split_w, m, keep, dt, residuals=False)
                     core14 = {"calls": split.launches - before[0],
                               "gemm_nn": split.forward_gemm_nn_launches - before[1],
                               "recurrences": split.forward_recurrence_launches - before[2],
-                              "gemm_nn (all)": gemm_nn.launches - before[3],
-                              "gemm.cu": gemm.launches - before[4]}
-                    want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l,
-                            "gemm.cu": 0}
+                              "gemm_nn (all)": gemm_nn.launches - before[3]}
+                    want = {"calls": 1, "gemm_nn": n_l, "recurrences": n_l, "gemm_nn (all)": n_l}
                     if core14 != want or last[1] is not None:
                         raise RuntimeError(f"row 14 launched {core14} a call, not {want}")
                     res = ref[1:]  # both backwards start from the same residuals
@@ -3380,7 +3545,6 @@ def main() -> int:
                 "row 17 recurrence": tasks.backward_recurrence_launches,
                 "row 17 gemm_nn": tasks.backward_gemm_nn_launches,
                 "row 17 gemm_tn": tasks.backward_gemm_tn_launches,
-                "gemm.cu": gemm.launches,
                 "clip_sgd_update.batched": clip_sgd_update.batched_launches,
                 "clip_sgd_update": clip_sgd_update.launches,
                 "lstm_stack_train": lstm_stack_train.launches,
@@ -3396,7 +3560,7 @@ def main() -> int:
         split.backward_gemm_tn_launches = 0
         clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
         lstm_stack_last_all.launches = 0
-        gemm_nn.launches = gemm.launches = 0
+        gemm_nn.launches = 0
         tasks = fls.lstm_stack_train_tasks
         tasks.backward_recurrence_launches = tasks.backward_gemm_nn_launches = 0
         tasks.backward_gemm_tn_launches = 0
@@ -3427,7 +3591,7 @@ def main() -> int:
                                 "lstm_stack_train_tasks.backward": steps + 1,
                                 "row 17 recurrence": (steps + 1) * n_l,
                                 "row 17 gemm_nn": (steps + 1) * n_l,
-                                "row 17 gemm_tn": 2 * (steps + 1) * n_l, "gemm.cu": 0,
+                                "row 17 gemm_tn": 2 * (steps + 1) * n_l,
                                 "clip_sgd_update.batched": steps, "clip_sgd_update": 0,
                                 "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
                                 "gcn_stack_train": 2 * (steps + 1)}
@@ -3458,7 +3622,7 @@ def main() -> int:
                     "lstm_stack_train_tasks.backward": forwards // 2,
                     "row 17 recurrence": forwards // 2 * n_l,
                     "row 17 gemm_nn": forwards // 2 * n_l,
-                    "row 17 gemm_tn": forwards // 2 * 2 * n_l, "gemm.cu": 0,
+                    "row 17 gemm_tn": forwards // 2 * 2 * n_l,
                     "clip_sgd_update.batched": per_step // 2, "clip_sgd_update": 0,
                     "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
                     "gcn_stack_train": forwards}
@@ -3534,19 +3698,18 @@ def main() -> int:
                 fls.lstm_stack_split.forward_recurrence_launches)
             split_launches["row 15 gemm_tn"] = fls.lstm_stack_split.backward_gemm_tn_launches
             split_launches["gemm_nn"] = gemm_nn.launches
-            split_launches["gemm.cu"] = gemm.launches
             log(f"launches in one meta step with unmerged gates: {split_launches}")
             forwards = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
             # Row 14 runs the GEMM core once a layer (its input product) and
             # row 15 twice (its gates and its input gradient); so does row 7,
             # the GCN stack's backward (A_hat^T dz and its input gradient),
             # and row 6, its forward (h W and the aggregation). Row 15's
-            # weight gradients are two TN products a layer; no gemm.cu GEMM.
+            # weight gradients are two TN products a layer.
             want = {"lstm_stack_split": forwards, "lstm_stack_split.backward": forwards,
                     "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
                     "row 14 gemm_nn": n_l * forwards, "row 14 recurrence": n_l * forwards,
                     "row 15 gemm_tn": 2 * n_l * forwards,
-                    "gemm_nn": (3 * n_l + 4 * cfg.gcn_layers) * forwards, "gemm.cu": 0}
+                    "gemm_nn": (3 * n_l + 4 * cfg.gcn_layers) * forwards}
             if split_launches != want:
                 raise RuntimeError(f"meta-train with unmerged gates launched {split_launches}, "
                                    f"not {want}")
@@ -3621,7 +3784,7 @@ def main() -> int:
             **{k: m[k] for k in ("device_ms", "call_ms", "library_device_ms", "parts_ms",
                                  "bfloat16", "library_call_ms", "core_launches", "by_nl",
                                  "host_ms", "enqueue_ms", "from_g2", "profiler_ms", "plan",
-                                 "dwh_cublas_ms")
+                                 "dwh_cublas_ms", "at_512", "train")
                if k in m},
         })
     log(json.dumps({"kernels": kernels}))

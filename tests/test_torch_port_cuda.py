@@ -37,7 +37,6 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import (
     lstm_scan,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
-    gemm,
     gemm_nn,
     gemm_nn_plain,
     gemm_tn,
@@ -83,20 +82,27 @@ def test_gcn_kernel_matches_plain(dev, dtype):
     torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
 
 
+def _eval_counts(entry):
+    return (entry.launches, entry.forward_gemm_nn_launches, entry.forward_recurrence_launches)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [100, 3000, 5000])
 def test_lstm_kernel_matches_plain(dev, dtype, rows):
-    """Row counts that pick each row tile on an H100 (2, 4, 8 rows per
-    thread), none a multiple of the tile."""
+    """Row 2 (the eval forward on row 14's schedule) at row counts that are
+    no multiple of the forward plan's row tile (3000 and 5000 rows of H 32
+    take the 32-row tile); one call, L gemm_nn and L recurrence launches."""
     lstm = init_lstm(torch.Generator().manual_seed(1), 24, 32, 3).to(dev).requires_grad_(False)
     x = torch.from_numpy(
         np.random.default_rng(6).normal(size=(rows, 7, 24)).astype(np.float32)
     ).to(dev)
-    before = fused_lstm_stack.lstm_stack_last_all.launches
-    got = fused_lstm_stack.lstm_stack_last_all(lstm.layers, x, compute_dtype=dtype)
+    row2 = fused_lstm_stack.lstm_stack_last_all
+    before = _eval_counts(row2), gemm_nn.launches
+    got = row2(lstm.layers, x, compute_dtype=dtype)
     ref = fused_lstm_stack.lstm_stack_plain(lstm.layers, x, dtype)
-    assert fused_lstm_stack.lstm_stack_last_all.launches == before + 1
+    assert (_eval_counts(row2), gemm_nn.launches) == (
+        (before[0][0] + 1, before[0][1] + 3, before[0][2] + 3), before[1] + 3)
     torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
 
 
@@ -561,23 +567,116 @@ def test_lstm_recurrence_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize("shape", [(100, 7, 24, 32, 3), (3000, 7, 24, 32, 1),
                                    (512, 24, 256, 128, 4)])
 def test_fused_lstm_kernel_matches_plain(dev, dtype, shape):
-    """Row 20's forward against the plain layerwise route, and its
-    gradients (the plain route's, recomputed) against autograd of it."""
+    """Row 20's eval forward (row 14's schedule without residuals: L gemm_nn
+    and L recurrence launches) and its train-mode forward (with residuals)
+    against the plain layerwise route, and its gradients (row 15's schedule,
+    2L gemm_tn launches) against autograd of the plain route."""
     rows, t_len, c_in, hidden, layers = shape
     lstm = init_lstm(torch.Generator().manual_seed(1), c_in, hidden, layers).to(dev)
     x = torch.from_numpy(
         np.random.default_rng(6).normal(size=(rows, t_len, c_in)).astype(np.float32)).to(dev)
     params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
-    before = fused_lstm.fused_lstm_last_hidden.launches
-    got, got_g = _fwd_bwd(
-        lambda a: fused_lstm.fused_lstm_last_hidden(lstm.layers, a, compute_dtype=dtype),
-        [x], params)
-    assert fused_lstm.fused_lstm_last_hidden.launches == before + 1
+    row20 = fused_lstm.fused_lstm_last_hidden
+    with torch.no_grad():
+        before = _eval_counts(row20)
+        got = row20(lstm.layers, x, compute_dtype=dtype)
+        assert _eval_counts(row20) == (before[0] + 1, before[1] + layers, before[2] + layers)
+        torch.testing.assert_close(got, fused_lstm_stack.lstm_stack_plain(lstm.layers, x, dtype),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    before = _eval_counts(row20), row20.backward_launches, row20.backward_gemm_tn_launches
+    got, got_g = _fwd_bwd(lambda a: row20(lstm.layers, a, compute_dtype=dtype), [x], params)
+    assert (_eval_counts(row20), row20.backward_launches, row20.backward_gemm_tn_launches) == (
+        (before[0][0] + 1, before[0][1] + layers, before[0][2] + layers), before[1] + 1,
+        before[2] + 2 * layers)
     ref, ref_g = _fwd_bwd(lambda a: fused_lstm_stack.lstm_stack_plain(lstm.layers, a, dtype),
                           [x], params)
     torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
     for i, (g, r) in enumerate(zip(got_g, ref_g)):
         assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+def test_retired_kernels_are_gone(dev):
+    """The library exports no `wf_gemm` (gemm.cu's SIMT GEMM, whose last
+    caller was row 20's projections) and no entry of the retired row 2 and
+    row 20 kernels; their sources are gone. This stands for the former
+    "no gemm.cu GEMM launched" gates: none can launch."""
+    import os
+
+    lib = cuda_build.load()
+    for name in ("wf_gemm", "wf_lstm_stack_last", "wf_fused_lstm_last"):
+        assert not hasattr(lib, name), name
+    assert hasattr(lib, "wf_sum_splits")
+    csrc = os.path.join(os.path.dirname(cuda_build.__file__), "csrc")
+    for name in ("fused_lstm_stack.cu", "fused_lstm.cu", "lstm_recurrence.cuh"):
+        assert not os.path.exists(os.path.join(csrc, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1536, 512])
+def test_eval_rows_2_and_20_at_full_width(dev, dtype, rows):
+    """Rows 2 and 20 at validate's [1536, 24, 256] and the forecast's [512,
+    24, 256], 4 layers of 128, against the plain stack; each call one C
+    call of 4 gemm_nn and 4 recurrence launches, counted on its own entry;
+    float32 at 1536 rows on 48 clusters of 2 blocks x 32 rows, all
+    co-resident."""
+    fls = fused_lstm_stack
+    lstm = init_lstm(torch.Generator().manual_seed(2), 256, 128, 4).to(dev).requires_grad_(False)
+    x = _card(dev, (rows, 24, 256), seed=rows)
+    plan = fls.forward_plan(128, rows, dtype.itemsize, fls._sms(dev))
+    if dtype == torch.float32 and rows == 1536 and fls._sms(dev) == fls.H100_SMS:
+        assert plan == (2, 64, 32)
+        assert cuda_build.load().wf_lstm_stack_forward_clusters(0, *plan, 128) >= 48
+    ref = fls.lstm_stack_plain(lstm.layers, x, dtype)
+    entries = (fls.lstm_stack_last_all, fused_lstm.fused_lstm_last_hidden)
+    for entry in entries:
+        before = [_eval_counts(e) for e in entries], gemm_nn.launches
+        with torch.no_grad():
+            got = entry(lstm.layers, x, compute_dtype=dtype)
+        assert gemm_nn.launches == before[1] + 4
+        for e, b in zip(entries, before[0]):
+            assert _eval_counts(e) == ((b[0] + 1, b[1] + 4, b[2] + 4) if e is entry else b)
+        torch.testing.assert_close(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,rows", [(128, 1536), (64, 3000), (32, 3000)])
+def test_forward_recurrence_wide_tile_matches_plain(dev, dtype, hidden, rows):
+    """The forward recurrence alone where the plan takes 32 rows a cluster
+    (bfloat16 only at 32 weight columns: H 128 and 64 keep 16) against its
+    plain version, 5 steps, with a mask and the last h; a bfloat16 32-row
+    tile at 64 weight columns is refused."""
+    fls = fused_lstm_stack
+    cs, hcp, rb = fls.forward_plan(hidden, rows, dtype.itemsize, fls._sms(dev))
+    if fls._sms(dev) == fls.H100_SMS:
+        assert rb == (32 if dtype == torch.float32 or hidden == 32 else 16)
+    xp = _card(dev, (5, rows, 4 * hidden), seed=hidden)
+    wh = _card(dev, (hidden, 4 * hidden), seed=hidden + 1, scale=hidden ** -0.5)
+    bias = _card(dev, (4 * hidden,), seed=hidden + 2, scale=0.1)
+    mask = (_card(dev, (5, rows, hidden), seed=hidden + 3) > -0.84).to(torch.int8)
+    outs = {}
+    for name, piece in (("kernel", fls._forward_recurrence_card),
+                        ("plain", fls._forward_recurrence_plain)):
+        gates = xp.clone()
+        res = [torch.empty((5, rows, hidden), dtype=dtype, device=dev) for _ in range(3)]
+        h_last = torch.empty((rows, hidden), device=dev)
+        piece(gates, wh, bias, dtype, res[0], res[1], mask=mask, inv_keep=1.25, next_in=res[2],
+              h_last=h_last)
+        outs[name] = (gates, *res, h_last)
+    for i, (a, b) in enumerate(zip(outs["kernel"], outs["plain"])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=str(i))
+    if dtype == torch.bfloat16 and hidden == 64:
+        h = torch.empty((5, rows, 64), dtype=dtype, device=dev)
+        whc = wh.to(dtype)
+        err = cuda_build.load().wf_lstm_stack_forward_recurrence(fls._SCAN_FWD.pack(
+            1, 1, 64, 32, xp.data_ptr(), xp.data_ptr(), whc.data_ptr(), 256,
+            bias.data_ptr(), h.data_ptr(), h.data_ptr(), 0, 0, 1.0, 0, 0, 5, rows, 64,
+            cuda_build.stream_ptr(dev), 1, *[0] * 8))
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cuda_build.check(err, "bfloat16, 32 rows at 64 weight columns")
 
 
 @pytest.mark.cuda
@@ -991,8 +1090,8 @@ def test_gemm_nn_new_epilogues_match_plain(dev, dtype, m):
 def test_gcn_train_backward_runs_on_the_core(dev, dtype):
     """Row 7 at the inner step's shapes (24 slices x 512 nodes, 24 -> 4 x
     256, masks after layers 0-2 at rate 0.2) against the plain schedule from
-    the same residuals: 2 NN and 1 TN launch of the core a layer, no
-    gemm.cu launch; dW bitwise equal across two calls."""
+    the same residuals: 2 NN and 1 TN launch of the core a layer; dW
+    bitwise equal across two calls."""
     cfg = ModelConfig()
     enc = init_encoder(torch.Generator().manual_seed(0), cfg).to(dev).requires_grad_(False)
     weights = [layer.w for layer in enc.layers]
@@ -1002,10 +1101,9 @@ def test_gcn_train_backward_runs_on_the_core(dev, dtype):
     h_all = fused_gcn_train._forward(x, a_hat, weights, [layer.b for layer in enc.layers], masks,
                                      1.25, dtype)
     g = _card(dev, h_all[-1].shape, dtype, seed=4)
-    before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+    before = (gemm_nn.launches, gemm_tn.launches)
     got = fused_gcn_train._backward(g, x, a_hat, weights, masks, h_all, 1.25, dtype)
-    assert (gemm_nn.launches, gemm_tn.launches, gemm.launches) == (
-        before[0] + 8, before[1] + 4, before[2])
+    assert (gemm_nn.launches, gemm_tn.launches) == (before[0] + 8, before[1] + 4)
     again = fused_gcn_train._backward(g, x, a_hat, weights, masks, h_all, 1.25, dtype)
     ref = fused_gcn_train._backward(g, x, a_hat, weights, masks, h_all, 1.25, dtype,
                                     fused_gcn_train.PLAIN_PIECES)
@@ -1021,12 +1119,12 @@ def test_gcn_train_backward_runs_on_the_core(dev, dtype):
 @pytest.mark.parametrize("nl", [512, 256, 128])
 def test_gcn_shard_forward_runs_on_the_core(dev, dtype, nl):
     """Row 12 at full width (hw_full [512, 24, 256], a next layer, a mask)
-    against its plain version: two NN launches of the core, no gemm.cu."""
+    against its plain version: two NN launches of the core."""
     a = _shard_inputs(dev, dtype, nl, True, True, n=512, w=24, hid=256, hid_next=256)
-    before = (gemm_nn.launches, gemm.launches)
+    before = gemm_nn.launches
     with torch.no_grad():
         got = fused_gcn_shard.gcn_shard_layer(*a.values(), 0.8, dtype)
-    assert (gemm_nn.launches, gemm.launches) == (before[0] + 2, before[1])
+    assert gemm_nn.launches == before + 2
     ref = fused_gcn_shard.shard_layer_plain(*a.values(), 0.8, dtype)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.float(), r.float(), rtol=TOL[dtype], atol=TOL[dtype])
@@ -1038,8 +1136,8 @@ def test_gcn_shard_forward_runs_on_the_core(dev, dtype, nl):
 def test_lstm_split_backward_schedule_at_full_width(dev, dtype, layers, dropout):
     """Row 15 at the inner step's shapes (24 steps, 512 rows, input 256,
     hidden 128) against `split_backward_plain` from the same residuals:
-    two NN and two TN launches of the GEMM core a layer, no gemm.cu launch,
-    one row-15 launch; two calls bitwise equal."""
+    two NN and two TN launches of the GEMM core a layer, one row-15 launch;
+    two calls bitwise equal."""
     fls = fused_lstm_stack
     lstm = init_lstm(torch.Generator().manual_seed(1), 256, 128, layers).to(dev)
     w = [t.detach() for t in fls._split_weights(lstm.layers)]
@@ -1053,13 +1151,13 @@ def test_lstm_split_backward_schedule_at_full_width(dev, dtype, layers, dropout)
     with torch.no_grad():
         res = fls.split_forward_plain(x, *w, masks, keep, dtype)[1:]
         split = fls.lstm_stack_split
-        before = (gemm_nn.launches, gemm_tn.launches, gemm.launches, split.backward_launches,
+        before = (gemm_nn.launches, gemm_tn.launches, split.backward_launches,
                   split.backward_gemm_tn_launches)
         got = fls.split_backward(g, x, *res, *w, masks, keep, dtype)
-        assert (gemm_nn.launches, gemm_tn.launches, gemm.launches, split.backward_launches,
+        assert (gemm_nn.launches, gemm_tn.launches, split.backward_launches,
                 split.backward_gemm_tn_launches) == (
-            before[0] + 2 * layers, before[1] + 2 * layers, before[2], before[3] + 1,
-            before[4] + 2 * layers)
+            before[0] + 2 * layers, before[1] + 2 * layers, before[2] + 1,
+            before[3] + 2 * layers)
         again = fls.split_backward(g, x, *res, *w, masks, keep, dtype)
         ref = fls.split_backward_plain(g, x, *res, *w, masks, keep, dtype)
     for i, (a, a2, b) in enumerate(zip(got, again, ref)):
@@ -1075,8 +1173,8 @@ def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
     the GEMM core three times an LSTM layer (row 14's input product, row
     15's gates and input gradient) beside the GCN stack's twice a layer
     each way (rows 6 and 7), its TN products twice an LSTM layer (row 15's
-    weight gradients) and once a GCN layer (row 7's), never gemm.cu or rows
-    4-5, and its gradients match the plain route's."""
+    weight gradients) and once a GCN layer (row 7's), never rows 4-5, and
+    its gradients match the plain route's."""
     monkeypatch.setattr(fused_lstm_stack, "_MERGED_GATES", False)
     cfg = dataclasses.replace(CFG, lstm_dropout=0.0, gcn_dropout=0.0)
     model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
@@ -1085,15 +1183,15 @@ def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
         np.random.default_rng(4).normal(size=(7, 128, 16)).astype(np.float32)).to(dev)
     fls = fused_lstm_stack
     def counts():
-        return (gemm_nn.launches, gemm_tn.launches, gemm.launches,
+        return (gemm_nn.launches, gemm_tn.launches,
                 fls.lstm_stack_split.backward_launches, fls.lstm_stack_train.backward_launches)
 
     before = counts()
     params = list(model.parameters())
     got = torch.autograd.grad(apply_model(model, a_hat, x, 3, cfg, train=True).sum(), params)
     assert counts() == (before[0] + 3 * cfg.lstm_layers + 4 * cfg.gcn_layers,
-                        before[1] + 2 * cfg.lstm_layers + cfg.gcn_layers, before[2],
-                        before[3] + 1, before[4])
+                        before[1] + 2 * cfg.lstm_layers + cfg.gcn_layers,
+                        before[2] + 1, before[3])
     plain = dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla")
     ref = torch.autograd.grad(apply_model(model, a_hat, x, 3, plain, train=True).sum(), params)
     for (name, _), a, b in zip(model.named_parameters(), got, ref):
@@ -1169,7 +1267,7 @@ def test_merged_backward_schedule_at_full_width(dev, dtype, layers, dropout):
     """Row 5 with its second-order carries at the inner step's shapes (24
     steps, 512 rows, input 256, hidden 128) against `hvp_bwd_plain` from the
     same residuals: all six outputs; a recurrence, a gemm_nn and two gemm_tn
-    launches a layer, no gemm.cu launch; two calls bitwise equal. Without
+    launches a layer; two calls bitwise equal. Without
     the carries, the same gradients to the bit and no dgates, dh or dc."""
     fh, train = fused_lstm_hvp, fused_lstm_stack.lstm_stack_train
     lstm = init_lstm(torch.Generator().manual_seed(1), 256, 128, layers).to(dev)
@@ -1187,13 +1285,12 @@ def test_merged_backward_schedule_at_full_width(dev, dtype, layers, dropout):
         def counts():
             return (train.backward_launches, train.backward_recurrence_launches,
                     train.backward_gemm_nn_launches, train.backward_gemm_tn_launches,
-                    gemm_nn.launches, gemm_tn.launches, gemm.launches)
+                    gemm_nn.launches, gemm_tn.launches)
 
         before = counts()
         got = fh.stack_bwd(g, x, h_all, c_all, gates, wcat, masks, keep, dtype)
         assert counts() == (before[0] + 1, before[1] + layers, before[2] + layers,
-                            before[3] + 2 * layers, before[4] + layers, before[5] + 2 * layers,
-                            before[6])
+                            before[3] + 2 * layers, before[4] + layers, before[5] + 2 * layers)
         again = fh.stack_bwd(g, x, h_all, c_all, gates, wcat, masks, keep, dtype)
         first = fused_lstm_stack.train_backward(g, x, h_all, c_all, gates, wcat, masks, keep,
                                                 dtype)
@@ -1283,7 +1380,7 @@ def test_lstm_tasks_backward_schedule_at_full_width(dev, dtype, nv, layers, drop
     """Row 17 at the inner step's shapes (24 steps, 512 rows, input 256,
     hidden 128, V tasks) against its schedule on the plain pieces from the
     same residuals: a recurrence, a gemm_nn and two gemm_tn launches a
-    layer, no gemm.cu launch; two calls bitwise equal."""
+    layer; two calls bitwise equal."""
     fls = fused_lstm_stack
     w0, wr, b2d = _task_weights(dev, nv, 256, 128, layers, 30)
     x = _card(dev, (nv, 24, 512, 256), seed=13)
@@ -1297,13 +1394,11 @@ def test_lstm_tasks_backward_schedule_at_full_width(dev, dtype, nv, layers, drop
     with torch.no_grad():
         _, h_all, c_all, gates = fls.tasks_forward(x, masks, keep, dtype, w0, wr, b2d)
         before = (tasks.backward_launches, tasks.backward_recurrence_launches,
-                  tasks.backward_gemm_nn_launches, tasks.backward_gemm_tn_launches,
-                  gemm.launches)
+                  tasks.backward_gemm_nn_launches, tasks.backward_gemm_tn_launches)
         got = fls.tasks_backward(g, x, h_all, c_all, gates, w0, wr, masks, keep, dtype)
         assert (tasks.backward_launches, tasks.backward_recurrence_launches,
-                tasks.backward_gemm_nn_launches, tasks.backward_gemm_tn_launches,
-                gemm.launches) == (before[0] + 1, before[1] + layers, before[2] + layers,
-                                   before[3] + 2 * layers, before[4])
+                tasks.backward_gemm_nn_launches, tasks.backward_gemm_tn_launches) == (
+            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + 2 * layers)
         again = fls.tasks_backward(g, x, h_all, c_all, gates, w0, wr, masks, keep, dtype)
         ref = fls.tasks_backward_schedule(g, x, h_all, c_all, gates, w0, wr, masks, keep, dtype,
                                           fls.PLAIN_PIECES)
@@ -1321,7 +1416,7 @@ def test_gcn_train_forward_runs_on_the_core(dev, dtype, nodes, masked_layers):
     """Row 6 at the inner step's widths (24 slices, 24 -> 4 x 256; masks
     after the first `masked_layers` layers) against `forward_schedule` on
     gemm_nn_plain: every layer's stored activation, 2 gemm_nn launches a
-    layer and no gemm.cu launch; 117 nodes take the zero padding."""
+    layer; 117 nodes take the zero padding."""
     cfg = ModelConfig()
     enc = init_encoder(torch.Generator().manual_seed(0), cfg).to(dev).requires_grad_(False)
     weights = [layer.w for layer in enc.layers]
@@ -1331,11 +1426,10 @@ def test_gcn_train_forward_runs_on_the_core(dev, dtype, nodes, masked_layers):
     x = _card(dev, (24, nodes, cfg.in_channels), seed=2)
     masks = ((_card(dev, (masked_layers, 24, nodes, 256), seed=3) > -0.84).to(torch.int8)
              if masked_layers else None)
-    before = (gemm_nn.launches, gemm.launches, fused_gcn_train.gcn_stack_train.gemm_nn_launches)
+    before = (gemm_nn.launches, fused_gcn_train.gcn_stack_train.gemm_nn_launches)
     got = fused_gcn_train._forward(x, a_hat, weights, biases, masks, 1.25, dtype)
-    assert (gemm_nn.launches, gemm.launches,
-            fused_gcn_train.gcn_stack_train.gemm_nn_launches) == (
-        before[0] + 2 * len(weights), before[1], before[2] + 2 * len(weights))
+    assert (gemm_nn.launches, fused_gcn_train.gcn_stack_train.gemm_nn_launches) == (
+        before[0] + 2 * len(weights), before[1] + 2 * len(weights))
     ref = fused_gcn_train.forward_schedule(x, a_hat, weights, biases, masks, 1.25, dtype,
                                            product=gemm_nn_plain)
     for l, (a, r) in enumerate(zip(got, ref)):
@@ -1371,11 +1465,11 @@ def test_lstm_train_forward_at_full_width(dev, dtype, rows, layers, dropout):
     keep = 1.0 - dropout
     with torch.no_grad():
         before = (train.launches, train.forward_gemm_nn_launches,
-                  train.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+                  train.forward_recurrence_launches, gemm_nn.launches)
         got = fls.train_forward(x, masks, keep, dtype, b2d, wcat)
         assert (train.launches, train.forward_gemm_nn_launches,
-                train.forward_recurrence_launches, gemm_nn.launches, gemm.launches) == (
-            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers, before[4])
+                train.forward_recurrence_launches, gemm_nn.launches) == (
+            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers)
         again = fls.train_forward(x, masks, keep, dtype, b2d, wcat)
         pieces = fls.forward_schedule(x, masks, keep, dtype, b2d, wcat, fls.FWD_CARD_PIECES)
         ref = fls.forward_schedule(x, masks, keep, dtype, b2d, wcat, fls.FWD_PLAIN_PIECES)
@@ -1443,7 +1537,7 @@ def test_gcn_shard_backward_runs_on_the_core(dev, dtype, nl, cts, has_mask):
     """Row 13 at full width (hw_full [512, 24, 256] and hid_next 256; NL 40 of
     120 nodes pads the A^T product's K) against its plain statement, each
     cotangent alone and both: the core's NN and TN launches (g2: 2 NN, 1 TN;
-    g1: 1 NN; both: 2 NN, 1 TN), no gemm.cu GEMM; two calls bitwise equal."""
+    g1: 1 NN; both: 2 NN, 1 TN); two calls bitwise equal."""
     n = 120 if nl == 40 else 512
     a = _shard_inputs(dev, dtype, nl, True, has_mask, n=n, w=24, hid=256, hid_next=256)
     with torch.no_grad():
@@ -1451,12 +1545,11 @@ def test_gcn_shard_backward_runs_on_the_core(dev, dtype, nl, cts, has_mask):
     g1 = None if cts == "g2" else _card(dev, h_post.shape, dtype, seed=5)
     g2 = None if cts == "g1" else _card(dev, (nl, 24, 256), dtype, seed=6)
     args = (g1, g2, h_post, a["a_rows"], a["w_next"], a["mask"])
-    before = (gemm_nn.launches, gemm_tn.launches, gemm.launches)
+    before = (gemm_nn.launches, gemm_tn.launches)
     got = fused_gcn_shard.backward_schedule(*args, 1.25, dtype, dtype,
                                             fused_gcn_train.CARD_PIECES)
-    assert (gemm_nn.launches - before[0], gemm_tn.launches - before[1],
-            gemm.launches - before[2]) == {"g2": (2, 1, 0), "g1": (1, 0, 0),
-                                           "both": (2, 1, 0)}[cts]
+    assert (gemm_nn.launches - before[0], gemm_tn.launches - before[1]) == {
+        "g2": (2, 1), "g1": (1, 0), "both": (2, 1)}[cts]
     again = fused_gcn_shard.backward_schedule(*args, 1.25, dtype, dtype,
                                               fused_gcn_train.CARD_PIECES)
     ref = fused_gcn_shard.shard_bwd_plain(*args, 0.8, dtype, dtype)
@@ -1480,7 +1573,7 @@ def test_lstm_split_forward_at_full_width(dev, dtype, layers, dropout):
     [T, B, C] view, hidden 128) against its schedule on the plain pieces and
     `split_forward_plain`, with residuals and without (the eval forward: the
     same last h to the bit); L gemm_nn and L recurrence launches from one
-    call, no gemm.cu; a second call gives the same bits."""
+    call; a second call gives the same bits."""
     fls = fused_lstm_stack
     split = fls.lstm_stack_split
     lstm = init_lstm(torch.Generator().manual_seed(2), 256, 128, layers).to(dev)
@@ -1493,11 +1586,11 @@ def test_lstm_split_forward_at_full_width(dev, dtype, layers, dropout):
     keep = 1.0 - dropout
     with torch.no_grad():
         before = (split.launches, split.forward_gemm_nn_launches,
-                  split.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+                  split.forward_recurrence_launches, gemm_nn.launches)
         got = fls.split_forward(x, *w, masks, keep, dtype)
         assert (split.launches, split.forward_gemm_nn_launches,
-                split.forward_recurrence_launches, gemm_nn.launches, gemm.launches) == (
-            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers, before[4])
+                split.forward_recurrence_launches, gemm_nn.launches) == (
+            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers)
         again = fls.split_forward(x, *w, masks, keep, dtype)
         last = fls.split_forward(x, *w, masks, keep, dtype, residuals=False)
         ref = fls.split_forward_schedule(x, *w, masks, keep, dtype, fls.FWD_PLAIN_PIECES)
@@ -1546,8 +1639,7 @@ def test_hvp_backward_schedule_at_full_width(dev, dtype, layers, dropout):
     hidden 128) from rows 4, 10 and 5 at the same point, against its
     schedule on the plain pieces and `hvp_bwd_plain` (the tangents at 1e-4
     relative in float32): per layer one tangent recurrence, two gemm_nn and
-    four gemm_tn launches, no gemm.cu GEMM; a second call gives the same
-    bits."""
+    four gemm_tn launches; a second call gives the same bits."""
     fh = fused_lstm_hvp
     bwd = fh.hvp_stack_bwd
     a = _r_op_inputs(dev, 24, 512, 256, 128, layers, dropout, seed=layers)
@@ -1561,12 +1653,11 @@ def test_hvp_backward_schedule_at_full_width(dev, dtype, layers, dropout):
         args = (a["g"], a["tg"], a["x"], a["tx"], h_all, th_all, c_all, tc_all, gates, tgates,
                 a["wcat"], a["twcat"], m, keep, dtype)
         before = (bwd.launches, bwd.recurrence_launches, bwd.gemm_nn_launches,
-                  bwd.gemm_tn_launches, gemm.launches)
+                  bwd.gemm_tn_launches)
         got = fh.hvp_stack_bwd(*args, res=res)
         assert (bwd.launches, bwd.recurrence_launches, bwd.gemm_nn_launches,
-                bwd.gemm_tn_launches, gemm.launches) == (
-            before[0] + 1, before[1] + layers, before[2] + 2 * layers, before[3] + 4 * layers,
-            before[4])
+                bwd.gemm_tn_launches) == (
+            before[0] + 1, before[1] + layers, before[2] + 2 * layers, before[3] + 4 * layers)
         again = fh.hvp_stack_bwd(*args, res=res)
         ref = fh.hvp_backward_schedule(a["tg"], *args[2:], res, fh.PLAIN_TANGENT_PIECES)
         plain = fh.hvp_bwd_plain(a["g"], a["x"], h_all, c_all, gates, a["wcat"], m, keep, dtype,
@@ -1649,7 +1740,7 @@ def test_hvp_forward_schedule_at_full_width(dev, dtype, rows, layers, dropout):
     """Row 10 at the inner step's shapes (24 steps, input 256, hidden 128)
     from row 4 at the same point, against its schedule on the plain pieces
     (the tangents at 1e-4 relative in float32): L gemm_nn and L tangent
-    recurrence launches from one call, no gemm.cu GEMM; the same schedule a
+    recurrence launches from one call; the same schedule a
     launch at a time (`CARD_HVP_FWD_PIECES`) and a second call give the same
     bits. Weights at 0.3 (gates saturated) and at 0.1 (chip_smoke.py's
     scale, near the model's initial weights); at 0.1 also against the
@@ -1667,12 +1758,11 @@ def test_hvp_forward_schedule_at_full_width(dev, dtype, rows, layers, dropout):
         with torch.no_grad():
             res = fh.stack_fwd(a["x"], a["wcat"], a["b2d"], m, keep, dtype)[1:]
             before = (fwd.launches, fwd.recurrence_launches, fwd.gemm_nn_launches,
-                      gemm_nn.launches, gemm.launches)
+                      gemm_nn.launches)
             got = fh.hvp_stack_fwd(*args, res=res)
             assert (fwd.launches, fwd.recurrence_launches, fwd.gemm_nn_launches,
-                    gemm_nn.launches, gemm.launches) == (before[0] + 1, before[1] + layers,
-                                                         before[2] + layers, before[3] + layers,
-                                                         before[4])
+                    gemm_nn.launches) == (before[0] + 1, before[1] + layers,
+                                          before[2] + layers, before[3] + layers)
             again = fh.hvp_stack_fwd(*args, res=res)
             sched = (a["x"], a["tx"], a["wcat"], a["twcat"], a["tb2d"], m, keep, dtype, res)
             pieces = fh.hvp_forward_schedule(*sched, fh.CARD_HVP_FWD_PIECES)
@@ -1747,7 +1837,7 @@ def test_lstm_tasks_forward_at_full_width(dev, dtype, nv, rows, layers, dropout)
     """Row 16 at the inner step's shapes (24 steps, input 256, hidden 128, V
     tasks) against its schedule on the plain pieces from the same inputs:
     h_last, h_all, c_all and the gates; L gemm_nn and L recurrence launches
-    from one call, no gemm.cu launch; the same schedule a launch at a time
+    from one call; the same schedule a launch at a time
     (`FWD_CARD_PIECES`) and a second call give the same bits; each task's
     h_last against row 4 (`train_forward`) on that task's weights."""
     fls = fused_lstm_stack
@@ -1761,11 +1851,11 @@ def test_lstm_tasks_forward_at_full_width(dev, dtype, nv, rows, layers, dropout)
     keep = 1.0 - dropout
     with torch.no_grad():
         before = (tasks.launches, tasks.forward_gemm_nn_launches,
-                  tasks.forward_recurrence_launches, gemm_nn.launches, gemm.launches)
+                  tasks.forward_recurrence_launches, gemm_nn.launches)
         got = fls.tasks_forward(x, masks, keep, dtype, w0, wr, b2d)
         assert (tasks.launches, tasks.forward_gemm_nn_launches, tasks.forward_recurrence_launches,
-                gemm_nn.launches, gemm.launches) == (
-            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers, before[4])
+                gemm_nn.launches) == (
+            before[0] + 1, before[1] + layers, before[2] + layers, before[3] + layers)
         again = fls.tasks_forward(x, masks, keep, dtype, w0, wr, b2d)
         pieces = fls.tasks_forward_schedule(x, masks, keep, dtype, w0, wr, b2d,
                                             fls.FWD_CARD_PIECES)
@@ -1812,6 +1902,42 @@ def test_auto_takes_the_plain_stack_where_no_cluster_holds_wh(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [320, 132])
+def test_eval_routes_take_the_plain_stack_where_unplanned(dev, hidden):
+    """Float32 hidden 320 (no cluster holds Wh) and 132 (not a multiple of
+    8): the hybrid's eval forward under `lstm_kernel="auto"` and under
+    `use_pallas_lstm` (also its train mode at dropout 0) runs the plain
+    stack, counted once a call, rows 2 and 20 never launch, and it equals
+    the plain route; a forced `pallas_stack` eval forward raises."""
+    cfg = dataclasses.replace(CFG, lstm_hidden=hidden, lstm_layers=2, lstm_dropout=0.0)
+    model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
+    a_hat = _a_hat(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(7, 128, 16)).astype(np.float32)).to(dev)
+    fls = fused_lstm_stack
+    entries = (fls.lstm_stack_last_all, fused_lstm.fused_lstm_last_hidden,
+               fls.lstm_stack_train)
+    with torch.no_grad():
+        ref = apply_model(model, a_hat, x, 3, dataclasses.replace(cfg, lstm_kernel="xla"))
+    for flags in (dict(lstm_kernel="auto"), dict(use_pallas_lstm=True)):
+        mc = dataclasses.replace(cfg, **flags)
+        before = [e.launches for e in entries], fls.lstm_stack_train.plain_routes
+        with torch.no_grad():
+            got = apply_model(model, a_hat, x, 3, mc)
+        assert ([e.launches for e in entries], fls.lstm_stack_train.plain_routes) == (
+            before[0], before[1] + 1), flags
+        assert torch.equal(got, ref), flags
+    mc = dataclasses.replace(cfg, use_pallas_lstm=True)
+    before = fused_lstm.fused_lstm_last_hidden.launches, fls.lstm_stack_train.plain_routes
+    apply_model(model, a_hat, x, 3, mc, train=True).sum().backward()
+    assert (fused_lstm.fused_lstm_last_hidden.launches, fls.lstm_stack_train.plain_routes) == (
+        before[0], before[1] + 1)
+    with torch.no_grad(), pytest.raises(ValueError, match="forward recurrence holds Wh|"
+                                                          "multiples of 8"):
+        apply_model(model, a_hat, x, 3, dataclasses.replace(cfg, lstm_kernel="pallas_stack"))
+
+
+@pytest.mark.cuda
 def test_lstm_tasks_forward_refuses_what_row4_refuses(dev):
     """Row 16 takes the widths row 4 takes: float32 hidden 320 holds no
     forward-recurrence plan (Wh beyond 8 blocks' shared memory), which the
@@ -1832,7 +1958,7 @@ def test_lstm_tasks_forward_refuses_what_row4_refuses(dev):
 def test_lstm_recurrence_backward_runs_on_the_tn_core(dev, dtype, shape):
     """Row 19's call (one C call) from row 18's residuals against
     `scan_backward_plain` and a plain dwh: dgates and dwh; one launch of the
-    TN core, none of gemm.cu's GEMM; the same schedule a launch at a time
+    TN core; the same schedule a launch at a time
     (`lstm_scan.CARD_PIECES`) and a second call give the same bits. Hidden
     12 (float32 only: the forward refuses it in bfloat16) zero-pads h's
     columns for the TN product."""
@@ -1845,11 +1971,10 @@ def test_lstm_recurrence_backward_runs_on_the_tn_core(dev, dtype, shape):
     rec = lstm_scan.lstm_recurrence
     with torch.no_grad():
         h_all, c_all, gates = lstm_scan.scan_forward(xp, wh, dtype, True)
-        before = (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches,
-                  gemm.launches)
+        before = (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches)
         got = lstm_scan.scan_backward(g, h_all, c_all, gates, wh, dtype)
-        assert (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches,
-                gemm.launches) == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+        assert (rec.backward_launches, rec.backward_gemm_tn_launches, gemm_tn.launches) == (
+            before[0] + 1, before[1] + 1, before[2] + 1)
         again = lstm_scan.scan_backward(g, h_all, c_all, gates, wh, dtype)
         pieces = lstm_scan.scan_backward_schedule(g, h_all, c_all, gates, wh, dtype,
                                                   lstm_scan.CARD_PIECES)

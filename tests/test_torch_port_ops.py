@@ -127,12 +127,3 @@ def test_wrappers_refuse_inputs_that_need_grad():
         fused_gcn.fused_gcn_stack(enc.layers, torch.from_numpy(_a_hat()), x)
     with pytest.raises(RuntimeError, match="no backward"):
         fused_lstm_stack.lstm_stack_last_all(lstm.layers, torch.zeros((4, 6, 16)))
-
-
-@pytest.mark.parametrize(
-    "rows, hidden, rpt",
-    [(512, 128, 2), (1024, 128, 4), (1536, 128, 8), (100_000, 128, 8), (100, 32, 2)],
-)
-def test_lstm_kernel_row_tile_rule(rows, hidden, rpt):
-    """Smallest row tile whose blocks fit one wave on a 132-SM H100."""
-    assert fused_lstm_stack.rows_per_thread(rows, hidden, 132) == rpt

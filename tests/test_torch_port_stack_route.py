@@ -5,8 +5,8 @@ Wh, on the CPU.
     stack's recurrences) by width and dtype, and the route `apply_lstm`
     takes on it: `auto` in train mode runs the training kernels' entry where
     the plans hold and the plain stack where they do not, counted in
-    `lstm_stack_train.plain_routes`; the merged eval forward (row 2) keeps
-    its kernel at any width, the unmerged one (row 14) does not;
+    `lstm_stack_train.plain_routes`; so does the eval forward, merged (row
+    2) or not (row 14), where its recurrence has no plan (`eval_planned`);
   * the forced routes `pallas_stack` and `pallas` reach their kernels'
     entries at any width (on a card they raise there: the plans refuse,
     tests/test_torch_port_cuda.py);
@@ -125,10 +125,11 @@ def test_plans_refuse_float32_h320_and_forced_routes_reach_their_kernels(monkeyp
 
 @pytest.mark.parametrize("merged", [True, False])
 def test_eval_forward_keeps_row2_at_any_width(monkeypatch, merged):
-    """The merged eval forward (row 2) has no cluster plan: `auto` keeps it
-    at float32 hidden 320. The unmerged one (row 14, `_MERGED_GATES=False`)
-    plans its recurrence as the training forward does, so `auto` runs the
-    plain stack there."""
+    """The eval forward, merged (row 2) or not (row 14,
+    `_MERGED_GATES=False`), runs on the card as one schedule whose forward
+    recurrence has no cluster plan at float32 hidden 320 (`eval_planned`):
+    `auto` runs the plain stack there, counted, as JAX's `auto` does where
+    `stack_supported` fails; no eval entry is called."""
     monkeypatch.setattr(fls, "_MERGED_GATES", merged)
     lstm = _stack(320)
     x = torch.randn((B, T, C), generator=torch.Generator().manual_seed(1))
@@ -136,8 +137,9 @@ def test_eval_forward_keeps_row2_at_any_width(monkeypatch, merged):
     before = fls.lstm_stack_train.plain_routes
     with torch.no_grad():
         got = tlstm.apply_lstm(lstm, x, compute_dtype=torch.float32, kernel="auto")
-    assert (calls == ["lstm_stack_last_all"]) is merged
-    assert fls.lstm_stack_train.plain_routes == before + (not merged)
+    assert calls == []
+    assert fls.lstm_stack_train.plain_routes == before + 1
+    assert not fls.eval_planned(C, 320, B, torch.float32, x.device)
     with torch.no_grad():
         assert torch.equal(got, fls.lstm_stack_plain(lstm.layers, x, torch.float32))
 

@@ -14,7 +14,7 @@ the encoder's layers below the top send it). For each: the call by CUDA
 events (median of 20), its device time by CUDA graph replay (the call
 captured once, its replays timed by events) and the host's time to enqueue
 it (the card idle before it; median of 20); the kernels one call launches
-(torch.profiler) and its `gemm_nn`, `gemm_tn` and `gemm.cu` launches. The
+(torch.profiler) and its `gemm_nn` and `gemm_tn` launches. The
 cuBLAS routes are the plain versions (torch.matmul products): row 6
 `gcn_stack_train_plain`, row 7 the backward written out below, rows 12-13
 `shard_layer_plain` and `shard_bwd_plain`. Run it on two checkouts in
@@ -43,7 +43,7 @@ from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig  # noqa: E40
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_shard as fgs  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_train as fgt  # noqa: E402
-from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm, gemm_nn, gemm_tn  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm_nn, gemm_tn  # noqa: E402
 
 if not args.cpu and not torch.cuda.is_available():
     sys.exit("gcn_rows: no CUDA card (--cpu is a dry run)")
@@ -116,11 +116,10 @@ def measure(name, kernel, library):
         library()
         res[name] = None
         return
-    g0, n0, t0 = gemm.launches, gemm_nn.launches, gemm_tn.launches
+    n0, t0 = gemm_nn.launches, gemm_tn.launches
     kernel()
     torch.cuda.synchronize()
-    launches = {"gemm_nn_a_call": gemm_nn.launches - n0, "gemm_tn_a_call": gemm_tn.launches - t0,
-                "gemm_cu_a_call": gemm.launches - g0}
+    launches = {"gemm_nn_a_call": gemm_nn.launches - n0, "gemm_tn_a_call": gemm_tn.launches - t0}
     res[name] = {
         "ms": events_ms(kernel), "device_ms": graph_ms(kernel), "enqueue_ms": enqueue_ms(kernel),
         "kernels_a_call": kernels_per_call(kernel), **launches,

@@ -2,11 +2,20 @@
 """Step times of the PyTorch port in one checkout, for comparing two
 checkouts on one card.
 
-  python3 tools/step_times.py [CHECKOUT] [--cpu]
+  python3 tools/step_times.py [CHECKOUT] [--cpu] [--eval-only]
 
 imports the port from CHECKOUT (default: this one) and prints one JSON
-line: the float32 FO inner step (one window, forward + backward + fused
-clip + SGD), the same with `model.lstm_kernel=pallas` and the float32 SO
+line: the eval LSTM stack's two entries alone (rows 2 and 20 at validate's
+[1536, 24, 256] and the forecast's [512, 24, 256], 4 layers of 128, float32
+and bfloat16) by CUDA events, by CUDA graph replay and by the host's time
+to enqueue a call, cuDNN's LSTM forward beside them by events and graph
+replay, and row 20's train-mode call (forward and backward through
+autograd, [1024, 24, 256]: the adaptation step's rows) by events; where the
+checkout has the 32-row forward plan (`FWD_WIDE_TILE`), rows 2 and 20 at
+1536 rows also under the 16-row plan (three waves) and the forward
+recurrence alone (24 steps) at 512, 1024 and 1536 rows under each plan by
+graph replay (`--eval-only` stops there); the float32 FO inner step (one
+window, forward + backward + fused clip + SGD), the same with `model.lstm_kernel=pallas` and the float32 SO
 inner step (the kernel route's inner gradient and its fhvp Hessian-vector
 product, one window) and the FO inner step with `_MERGED_GATES = False`
 (rows 14-15), each by the host clock (median of 20, ending in a
@@ -58,6 +67,7 @@ parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("checkout", nargs="?",
                     default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 parser.add_argument("--cpu", action="store_true", help="dry run on the CPU, no times")
+parser.add_argument("--eval-only", action="store_true", help="rows 2 and 20 alone, then stop")
 args = parser.parse_args()
 sys.path.insert(0, os.path.abspath(args.checkout))
 
@@ -74,6 +84,7 @@ from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph  # noq
 from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.models.lstm import init_lstm  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import (  # noqa: E402
     apply_model,
     draw_masks,
@@ -85,6 +96,9 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import (  # noqa: E402
     lstm_scan,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import fused_gcn_stack  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import (  # noqa: E402
+    fused_lstm_last_hidden,
+)
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh_2d  # noqa: E402
@@ -244,6 +258,88 @@ if args.cpu:
     meta_cfg = dataclasses.replace(meta_cfg, inner_epochs=1, inner_batches=1)
 res = {"checkout": args.checkout, "device": "cpu" if args.cpu else torch.cuda.get_device_name(0)}
 t_start = time.perf_counter()
+
+
+def eval_rows():
+    """Rows 2 and 20 alone (the module docstring), into `res`."""
+    cfg = ModelConfig()
+    hid, lh, n_l, t_len = cfg.hidden_channels, cfg.lstm_hidden, cfg.lstm_layers, cfg.window
+    fls = fused_lstm_stack
+    lstm = init_lstm(torch.Generator().manual_seed(7), hid, lh, n_l).to(dev)
+    draw = torch.Generator(device=dev).manual_seed(8)
+    cudnn = torch.nn.LSTM(hid, lh, n_l, batch_first=True).to(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    wide = hasattr(fls, "FWD_WIDE_TILE")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan16(hidden, rows, itemsize, sms, tasks=1):  # today's tiles of at most 16 rows
+        return fls._cluster_plan(hidden, rows, sms, tasks,
+                                 lambda hcp, rb: fls.scan_fwd_smem(hidden, hcp, rb, itemsize),
+                                 "forward recurrence holds Wh")
+
+    plans = {"": None, " plan16": plan16} if wide else {"": None}
+    for rows in (1536, 512):
+        x = torch.randn((rows, t_len, hid), generator=draw, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            d = str(dt)[6:]
+            for tag, plan in plans.items():
+                if plan and (rows, dt) != (1536, torch.float32):
+                    continue
+                saved = fls.forward_plan
+                fls.forward_plan = plan or saved
+                try:
+                    with torch.no_grad():
+                        for row, fn in (
+                                ("row 2", lambda: fls.lstm_stack_last_all(lstm.layers, x,
+                                                                          compute_dtype=dt)),
+                                ("row 20", lambda: fused_lstm_last_hidden(lstm.layers, x,
+                                                                          compute_dtype=dt))):
+                            name = f"{row} {d} [{rows}]{tag}"
+                            res[f"{name} ms"] = events_ms(fn)
+                            res[f"{name} device ms"] = graph_ms(fn)
+                            res[f"{name} enqueue ms"] = enqueue_ms(fn)
+                finally:
+                    fls.forward_plan = saved
+            lib = cudnn.to(dt)
+            with torch.no_grad():
+                res[f"cuDNN forward {d} [{rows}] ms"] = events_ms(lambda: lib(x.to(dt)))
+                res[f"cuDNN forward {d} [{rows}] device ms"] = graph_ms(lambda: lib(x.to(dt)))
+    cudnn.float()
+    # Row 20 in train mode, the adaptation step's rows (2 windows).
+    x = torch.randn((1024, t_len, hid), generator=draw, device=dev, requires_grad=True)
+    params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
+
+    def row20_train():
+        out = fused_lstm_last_hidden(lstm.layers, x)
+        torch.autograd.grad(out.sum(), [x, *params])
+
+    res["row 20 train float32 [1024] ms"] = events_ms(row20_train)
+    if wide:  # the forward recurrence alone, 24 steps: a step's time by rows a cluster
+        wh = lstm.layers[0].wh.detach()
+        bias = lstm.layers[0].b.detach()
+        for rows in (512, 1024, 1536):
+            xp = torch.randn((t_len, rows, 4 * lh), generator=draw, device=dev)
+            h_out = torch.empty((t_len, rows, lh), device=dev)
+            for tag, plan in plans.items():
+                cs, hcp, rb = (plan or fls.forward_plan)(lh, rows, 4, sms)
+                if plan and (cs, hcp, rb) == fls.forward_plan(lh, rows, 4, sms):
+                    continue
+                saved = fls.forward_plan
+                fls.forward_plan = plan or saved
+                try:
+                    ms = graph_ms(lambda: fls._forward_recurrence_card(  # in place on xp
+                        xp, wh, bias, torch.float32, h_out, h_out))
+                finally:
+                    fls.forward_plan = saved
+                res[f"recurrence float32 [{rows}] plan {(cs, hcp, rb)} device ms"] = ms
+
+
+if not args.cpu:
+    eval_rows()
+if args.eval_only:
+    res["seconds"] = time.perf_counter() - t_start
+    print(json.dumps(res), flush=True)
+    sys.exit(0)
 regions = [get_region_data(box, data_cfg.train_years, data_cfg, tag="train", name=f"region{i}")
            for i, box in enumerate(META_TRAIN_REGIONS[:4])]
 for route, mc in (("default", ModelConfig()), ("pallas", ModelConfig(lstm_kernel="pallas"))):

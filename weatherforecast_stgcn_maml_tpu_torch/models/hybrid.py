@@ -35,8 +35,10 @@ from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import (
     init_encoder,
     koppen_features,
 )
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
+    lstm_stack_plain,
     lstm_stack_tasks_plain,
     lstm_stack_train_tasks,
 )
@@ -131,8 +133,19 @@ def apply_hybrid(
     # become the LSTM's rows, row b*N + node.
     h = h.transpose(-3, -2).reshape(-1, w, h.shape[-1])
     if cfg.use_pallas_lstm and (not train or cfg.lstm_dropout == 0.0):
-        # The eval stack's kernel (row 20): no dropout to apply.
-        feat = fused_lstm_last_hidden(params.lstm.layers, h, compute_dtype=dtype)
+        # The eval stack's kernel (row 20): no dropout to apply. Where the
+        # card's schedule does not take the stack (eval: `eval_planned`;
+        # train mode: `stack_planned`, row 15's backward), the plain stack,
+        # counted, as JAX's `fused_lstm_last_hidden` takes its XLA route
+        # where `fits_vmem` fails.
+        rows, c_in = h.shape[0], h.shape[-1]
+        if (fused_lstm_stack.stack_planned(cfg.lstm_hidden, rows, dtype, h.device, c_in=c_in)
+                if train else
+                fused_lstm_stack.eval_planned(c_in, cfg.lstm_hidden, rows, dtype, h.device)):
+            feat = fused_lstm_last_hidden(params.lstm.layers, h, compute_dtype=dtype)
+        else:
+            fused_lstm_stack.lstm_stack_train.plain_routes += 1
+            feat = lstm_stack_plain(params.lstm.layers, h, dtype)
     else:
         feat = apply_lstm(
             params.lstm, h, train=train, masks=masks.get("lstm"),

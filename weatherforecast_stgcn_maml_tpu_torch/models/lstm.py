@@ -117,14 +117,15 @@ def apply_lstm(
     its backward); "pallas" runs the layerwise route with the per-layer
     recurrence kernel (`lstm_layerwise`); "xla" runs the plain layerwise
     route. Under float64 every route is plain. Only "auto" chooses: where
-    the training stack's recurrences have no cluster plan
-    (`fused_lstm_stack.stack_planned`: float32 H > 256, bfloat16 H > 384)
-    it runs the plain stack, counted in `lstm_stack_train.plain_routes`, as
-    the JAX package's `auto` runs its XLA scan where `stack_supported`
-    fails; the merged eval forward (row 2) has no such plan and keeps its
-    kernel. "pallas_stack" and "pallas" run their kernels at any width and
-    raise on a card where they refuse it, as the JAX package's forced
-    routes do.
+    the card's schedule does not take the stack (in train mode
+    `fused_lstm_stack.stack_planned`, the training stack's recurrences and
+    widths: float32 H > 256, bfloat16 H > 384, widths not multiples of 8;
+    in eval mode `eval_planned`, the eval forward's recurrence and widths:
+    float32 H > 256, widths not multiples of 8) it runs the plain stack,
+    counted in `lstm_stack_train.plain_routes`, as the JAX package's `auto`
+    runs its XLA scan where `stack_supported` fails. "pallas_stack" and
+    "pallas" run their kernels at any width and raise on a card where they
+    refuse it, as the JAX package's forced routes do.
 
     In train mode `masks` (int8 {0, 1} [L-1, T, B, H], time-major, or None)
     drop each inter-layer output with scale 1 / (1 - dropout_rate).
@@ -140,9 +141,11 @@ def apply_lstm(
         return lstm_layerwise(params, x, masks=masks, keep=keep, compute_dtype=compute_dtype)
     if kernel == "xla":
         return lstm_stack_plain(params.layers, x, compute_dtype, masks, keep)
-    if kernel == "auto" and (train or not fused_lstm_stack._MERGED_GATES) and not (
-            fused_lstm_stack.stack_planned(params.layers[0].wh.shape[0], x.shape[0],
-                                           compute_dtype, x.device)):
+    rows, c_in, hidden = x.shape[0], x.shape[-1], params.layers[0].wh.shape[0]
+    if kernel == "auto" and not (
+            fused_lstm_stack.stack_planned(hidden, rows, compute_dtype, x.device, c_in=c_in)
+            if train else
+            fused_lstm_stack.eval_planned(c_in, hidden, rows, compute_dtype, x.device)):
         fused_lstm_stack.lstm_stack_train.plain_routes += 1
         return lstm_stack_plain(params.layers, x, compute_dtype, masks, keep)
     if not train:

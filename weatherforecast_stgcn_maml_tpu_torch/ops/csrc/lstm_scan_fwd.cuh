@@ -1,7 +1,8 @@
 // One LSTM layer's forward recurrence, kept in a thread-block cluster: the
 // serial part of kernel rows 4 (the merged stack's training forward), 14
 // (the unmerged-gates stack's) and 16 (row 4 for V tasks, each with its own
-// weights: the grid's z axis), which ops/fused_lstm_stack.py
+// weights: the grid's z axis) and of the eval forwards of rows 2 and 20
+// (row 14's schedule without residuals), which ops/fused_lstm_stack.py
 // `forward_schedule` and the C entry of lstm_stack_fwd.cu walk layer by
 // layer, and the whole of row 18 (one layer's recurrence, ops/lstm_scan.py).
 //
@@ -13,7 +14,9 @@
 // and writes the activated gates (float32, the backward's residual: over xp
 // in place for rows 4 and 14, to an array of their own for row 18, or
 // nowhere), h and c [T, R, H] in the compute dtype (rounded) or, for row
-// 18, in float32, where a mask is given the next layer's input
+// 18, in float32 (either, where its pointer is null, nowhere: the eval
+// forward of rows 2, 14 and 20 keeps no c, and its top layer no h), where a
+// mask is given the next layer's input
 // round(h * mask * inv_keep) [T, R, H] in the compute dtype (JAX's rounding
 // point: from the float32 h, not from round(h)), and where asked the last
 // step's h [R, H] in float32. The arithmetic is JAX's
@@ -48,7 +51,9 @@
 // (ops/fused_lstm_stack.py `forward_plan`, by task count) to fill the SMs in
 // one wave: at R = 512, 64 clusters of 2 blocks x 8 rows in float32, 128
 // blocks x 4 rows in bfloat16; R = 1024 (the adaptation step) and row 16's
-// two tasks double the rows a cluster. Task z reads and writes every array
+// two tasks double the rows a cluster; validate's R = 1536 takes 48
+// clusters of 2 x 32 rows in float32 (at 16 rows it would take three
+// waves), 96 blocks x 16 rows in bfloat16. Task z reads and writes every array
 // at z times its task stride (zero strides and one task: row 4's launch). The
 // slice copy, the contraction, the partials' sum and the tile exchange are
 // helpers (scan_fwd_*) that the tangent forward recurrence of row 10
@@ -206,8 +211,8 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
     if (a.gates) a.gates = tasks.gates + z * tasks.sgates;
     a.wh = static_cast<const TW*>(tasks.wh) + z * tasks.sw;
     if (a.bias) a.bias = tasks.bias + z * tasks.sbias;
-    a.h_all = static_cast<char*>(tasks.h_all) + z * tasks.sres * to;
-    a.c_all = static_cast<char*>(tasks.c_all) + z * tasks.sres * to;
+    if (a.h_all) a.h_all = static_cast<char*>(tasks.h_all) + z * tasks.sres * to;
+    if (a.c_all) a.c_all = static_cast<char*>(tasks.c_all) + z * tasks.sres * to;
     if (a.mask) a.mask = tasks.mask + z * tasks.smask;
     if (a.next_in) a.next_in = static_cast<TW*>(tasks.next_in) + z * tasks.snext;
     if (a.h_last) a.h_last = tasks.h_last + z * tasks.slast;
@@ -281,11 +286,11 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
         }
         const size_t o = ((size_t)t * R + row) * H + j;
         if (std::is_same<TW, float>::value || a.out_f32) {
-          store4(static_cast<float*>(a.h_all) + o, h);
-          store4(static_cast<float*>(a.c_all) + o, cc[e]);
+          if (a.h_all) store4(static_cast<float*>(a.h_all) + o, h);
+          if (a.c_all) store4(static_cast<float*>(a.c_all) + o, cc[e]);
         } else {
-          store4(static_cast<TW*>(a.h_all) + o, h);
-          store4(static_cast<TW*>(a.c_all) + o, cc[e]);
+          if (a.h_all) store4(static_cast<TW*>(a.h_all) + o, h);
+          if (a.c_all) store4(static_cast<TW*>(a.c_all) + o, cc[e]);
         }
         if (a.next_in) {
           const char4 m = *reinterpret_cast<const char4*>(a.mask + o);
@@ -340,6 +345,13 @@ int scan_fwd_rb(int rb, const ScanFwd& a, cudaStream_t s, int* max_clusters) {
       return scan_fwd_run<TW, UPT, 8>(a, s, max_clusters);
     case 16:
       return scan_fwd_run<TW, UPT, 16>(a, s, max_clusters);
+    case 32:  // validate's 1536 rows in one wave. Its accumulators and a
+              // 16-byte load's weights fit in registers (no spill) only where
+              // the k values of the load times the units a lane are at most 8:
+              // float32 at UPT <= 2, bfloat16 at UPT 1.
+      if constexpr (16 / sizeof(TW) * UPT <= 8)
+        return scan_fwd_run<TW, UPT, 32>(a, s, max_clusters);
+      break;
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -360,12 +372,15 @@ int scan_fwd_hcp(int hcp, int rb, const ScanFwd& a, cudaStream_t s, int* max_clu
 // Whether a forward recurrence's plan (a cs-block cluster, hcp weight
 // columns a block and gate, rb rows a cluster) and shape are ones the
 // kernels take: cs 1, 2, 4 or 8, hcp 32, 64 or 128 and at least
-// scan_units(H, cs), rb among `tiles` (a bit a row tile: 2, 4, 8, 16),
-// within 227 KB of shared memory; H a multiple of 4 in float32 and of 8 in
-// bfloat16 (the h tile's 16-byte loads); 1 to 65535 tasks.
+// scan_units(H, cs), rb among `tiles` (a bit a row tile: 2, 4, 8, 16, and
+// 32 at hcp <= 64 in float32, hcp 32 in bfloat16), within 227 KB of shared
+// memory; H a multiple of 4 in float32 and of 8 in bfloat16 (the h tile's
+// 16-byte loads); 1 to 65535 tasks.
 inline bool scan_fwd_plan_ok(bool bf16, int hcp, int rb, int cs, int T, int R, int H,
                              unsigned tiles, int tasks = 1) {
-  return (hcp == 32 || hcp == 64 || hcp == 128) && (rb == 2 || rb == 4 || rb == 8 || rb == 16) &&
+  return (hcp == 32 || hcp == 64 || hcp == 128) &&
+         (rb == 2 || rb == 4 || rb == 8 || rb == 16 ||
+          (rb == 32 && hcp <= (bf16 ? 32 : 64))) &&
          (tiles & (unsigned)rb) && (cs == 1 || cs == 2 || cs == 4 || cs == 8) && T > 0 && R > 0 &&
          H > 0 && H % (bf16 ? 8 : 4) == 0 && scan_units(H, cs) <= hcp &&
          (R + rb - 1) / rb <= 65535 && tasks > 0 && tasks <= 65535 &&
@@ -392,7 +407,7 @@ int launch_scan_fwd(int w_dt, int hcp, int rb, const Args& a, cudaStream_t s,
   const size_t tw = bf16 ? 2 : 4;
   const size_t to = a.out_f32 ? 4 : tw;
   if ((w_dt != kF32 && !bf16) ||
-      !scan_fwd_plan_ok(bf16, hcp, rb, a.cs, a.T, a.R, a.H, 30u, a.tasks) ||
+      !scan_fwd_plan_ok(bf16, hcp, rb, a.cs, a.T, a.R, a.H, 62u, a.tasks) ||
       !a.mask != !a.next_in)
     return (int)cudaErrorInvalidValue;
   if (!aligned_to(a.xp, 16) || !aligned_to(a.gates, 16) || !aligned_to(a.bias, 16) ||

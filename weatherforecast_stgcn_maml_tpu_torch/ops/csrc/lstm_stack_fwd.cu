@@ -1,7 +1,8 @@
 // The LSTM stacks' training forwards (kernel rows 4, 14 and 16) and the
-// unmerged-gates eval forward, layer by layer: the C entry that enqueues the
-// whole schedule from one host call, and the forward recurrence alone (also
-// the whole of row 18, one layer's recurrence: ops/lstm_scan.py).
+// eval forward (rows 2, 14 and 20: the top layer's last h, no dropout),
+// layer by layer: the C entry that enqueues the whole schedule from one host
+// call, and the forward recurrence alone (also the whole of row 18, one
+// layer's recurrence: ops/lstm_scan.py).
 //
 // Replaces the Pallas kernels of weatherforecast_stgcn_maml_tpu/ops/
 // fused_lstm_stack.py `_fwd_kernel_m` (+ `_fwd_kernel_m_nomask`, row 4),
@@ -32,8 +33,15 @@
 // before layer l+1's recurrence writes it again, in stream order). Each
 // layer's gates, h_all and c_all start a layer stride after the layer
 // below's; a stride of 0 makes every layer reuse one buffer, on the same
-// ordering: row 14 keeps no gates (its backward recomputes them), and its
-// eval forward keeps no residuals (only the top layer's last h leaves).
+// ordering: row 14 keeps no gates (its backward recomputes them), and the
+// eval forward keeps no residuals (only the top layer's last h leaves: no c,
+// and no h sequence at the top layer). The eval forward is row 14's without
+// residuals, and rows 2 and 20 run it too, from the layers' own Wx, Wh and
+// b: the TPU's merged [[Wx], [Wh]] layout of row 2
+// (`_fwd_kernel_m_lastonly_nomask`, one [in | h] contraction a stage)
+// changes the gates only in the order of a float32 addition, and row 20's
+// body (weatherforecast_stgcn_maml_tpu/ops/fused_lstm.py `_kernel`) adds in
+// this recurrence's order, (round(in) Wx + b) + round(h) Wh.
 // Rows 4 and 16's weights are the row blocks of wcat_l = [[Wx_l], [Wh_l]];
 // row 14's are its own arrays: the entry takes a (Wx_l, Wh_l, k_l, task
 // stride) quadruple a layer. Row 16's masks [V, L-1, T, R, H] and its
@@ -70,16 +78,17 @@ struct StackFwdLaunch {
 };
 static_assert(sizeof(StackFwdLaunch) == 31 * 8, "StackFwdLaunch is 31 packed 8-byte fields");
 
-// Rows 4, 14 and 16: for each layer one NN product (gemm_nn.cu) and one
-// forward recurrence of the plan (cs, hcp, rb) (lstm_scan_fwd.cuh), on
-// `stream`, in that order. w_dt is the compute dtype (0 = float32, 1 =
+// Rows 4, 14 and 16 and the eval forward: for each layer one NN product
+// (gemm_nn.cu) and one forward recurrence of the plan (cs, hcp, rb)
+// (lstm_scan_fwd.cuh), on `stream`, in that order. w_dt is the compute dtype (0 = float32, 1 =
 // bfloat16); x is float32 (x_f32) or in the compute dtype; layer l's h_all
 // and c_all [T, R, H] at l * res_ls and masked [T, R, H] (with masks) in the
 // compute dtype, its gates [T, R, 4H] at l * gates_ls and h_last [R, H]
 // float32 (res_ls is 0 or at least T * R * H, gates_ls 0 or at least T * R *
 // 4H; without masks and with res_ls 0, layer l+1 reads and overwrites layer
-// l's h_all). With tasks > 1 every array of task v starts v times its task
-// stride after task 0's, and x is time-major within a task (sxt = R * sxr):
+// l's h_all, and the top layer stores no h_all; c_all 0 stores no c). With
+// tasks > 1 every array of task v starts v times its task stride after task
+// 0's, and x is time-major within a task (sxt = R * sxr):
 // each product is one launch for all tasks, M = T * R. Returns 0, a
 // cudaError_t code, or the product's negative refusal code (ops/gemm.py
 // `_NN_REFUSALS`); the first failure stops the schedule.
@@ -130,13 +139,15 @@ extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
     int err = wf_gemm_nn(&g);
     if (err) return err;
     const long long h_l = p->h_all + l * p->res_ls * tw;
+    // Without residuals only the top layer's last h leaves: its h sequence
+    // is not stored, nor (c_all null) any layer's c.
     wf::ScanFwd a{gates,
                   gates,
                   reinterpret_cast<const void*>(wh),
                   g4,
                   reinterpret_cast<const float*>(p->bias) + l * g4,
-                  reinterpret_cast<void*>(h_l),
-                  reinterpret_cast<void*>(p->c_all + l * p->res_ls * tw),
+                  top && p->res_ls == 0 ? nullptr : reinterpret_cast<void*>(h_l),
+                  p->c_all ? reinterpret_cast<void*>(p->c_all + l * p->res_ls * tw) : nullptr,
                   0,
                   mask,
                   (float)p->inv_keep,

@@ -42,13 +42,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _PLL = ctypes.POINTER(ctypes.c_longlong)
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "wf_gemm": [_I, _I, _I, _I, _P, _LL, _I, _I, _P, _F, _P, _LL, _I, _I,
-                _P, _LL, _I, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _P],
     "wf_sum_splits": [_P, _I, _LL, _P, _I, _I, _I, _P],
     "wf_gcn_relu_mask_grad": [_I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
     "wf_transpose_round": [_I, _I, _PP, _PP, _PI, _PI, _PI, _PI, _PI, _P],
-    "wf_lstm_stack_last": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _P],
     # one packed ScanLaunch (ops/fused_lstm_stack.py _SCAN_LAUNCH)
     "wf_lstm_stack_recurrence": [ctypes.c_char_p],
     "wf_lstm_stack_recurrence_clusters": [_I, _I, _I, _I, _I],
@@ -69,7 +65,6 @@ _SIGNATURES = {
     "wf_lstm_tangent_recurrence_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_scan_bwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wf_lstm_scan_backward": [ctypes.c_char_p],  # one packed ScanBackwardLaunch (lstm_scan.py)
-    "wf_fused_lstm_last": [_I, _I, _P, _PP, _PP, _PP, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],
     "wf_clip_sgd_chunks": [_I, _PLL],
 }

@@ -1,13 +1,17 @@
 """Fused LSTM stack: x [B, T, C] -> the top layer's last hidden state
-[B, H], all layers and time steps in one launch.
+[B, H].
 
-Each entry runs a hand-written CUDA kernel on a CUDA tensor and its plain
+Each entry runs hand-written CUDA kernels on a CUDA tensor and its plain
 PyTorch version on a CPU tensor or under float64. On a CUDA tensor a shape
 or dtype a kernel does not take raises; nothing falls back to the plain
 version there.
 
-  * `lstm_stack_last_all`: the eval forward (csrc/fused_lstm_stack.cu,
-    kernel row 2), no autograd;
+  * `lstm_stack_last_all`: the eval forward (kernel row 2), no autograd, on
+    the card `eval_forward`: row 14's layer-by-layer schedule without
+    residuals (one csrc/gemm_nn.cu input product and one cluster recurrence
+    of csrc/lstm_scan_fwd.cuh a layer, enqueued by one C call,
+    csrc/lstm_stack_fwd.cu) from the layers' own wx, wh and b, which row 20
+    (ops/fused_lstm.py) and row 14's eval forward run too;
   * `lstm_stack_train`: the training forward (row 4, emitting h / c
     residuals and the activated gates and applying int8 inter-layer dropout
     masks) and its backward (row 5) behind one `torch.autograd.Function`,
@@ -34,10 +38,12 @@ version there.
     on csrc/gemm_nn.cu (`split_backward_schedule`).
 
 `models/lstm.apply_lstm`'s `lstm_kernel="auto"` asks `stack_planned`
-before it calls the training entries: where no cluster plan holds Wh it
-takes the plain stack, as the JAX package's `auto` takes its XLA scan
-where `stack_supported` fails. That is a route chosen by shape before any
-launch; the entries themselves still raise at such a width.
+before it calls the training entries and `eval_planned` before the eval
+forward: where the widths or no cluster plan fit it takes the plain stack,
+as the JAX package's `auto` takes its XLA scan where `stack_supported`
+fails (models/hybrid.py asks the same for row 20). That is a route chosen
+by shape before any launch; the entries themselves still raise at such a
+width.
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py`
 (`lstm_stack_last_all`; Pallas bodies `_fwd_kernel_m_lastonly_nomask`,
@@ -77,17 +83,17 @@ from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
     workspace,
 )
 
-ROWS_PER_THREAD = (2, 4, 8)  # the row tiles the kernel is built for
-
 # The JAX package's two routing flags, with its names and defaults. Both are
 # read at call time, so a caller (the tests, chip_smoke.py) flips them in
 # process as the JAX package's tests monkeypatch them; neither has a config
 # key or a CLI option, in either package.
 #
-# _MERGED_GATES: True runs the merged-gates stack (the forwards one [in | h]
-# @ [[Wx], [Wh]] contraction a stage, rows 2 and 4; its backward, row 5,
-# from the gates row 4 stores). False sends `lstm_stack_last_all`
-# and `lstm_stack_train` to the unmerged-gates stack `lstm_stack_split`
+# _MERGED_GATES: True runs the merged-gates stack (on the TPU the forwards
+# one [in | h] @ [[Wx], [Wh]] contraction a stage, rows 2 and 4; its
+# backward, row 5, from the gates row 4 stores; on a card row 2 is the eval
+# forward that row 14 runs too, and only the counters tell them apart).
+# False sends `lstm_stack_last_all` and `lstm_stack_train` to the
+# unmerged-gates stack `lstm_stack_split`
 # (x @ Wx and h @ Wh as two contractions; rows 14 and 15). Second order
 # keeps rows 4-5 and 10-11 where it differentiates twice
 # (train/so_fused.py calls them directly), as the JAX package's fhvp does.
@@ -105,23 +111,6 @@ _MERGED_GATES = True
 # also checks `vbatch_supported` (V chains within a TPU core's VMEM); a card
 # streams any V, so the port has no such gate.
 _VBATCH = False
-
-
-def rows_per_thread(rows: int, hidden: int, sms: int) -> int:
-    """The row tile of the kernels whose blocks walk every stage of their
-    rows alone (rows 2 and 20) for `rows` sequences on a card with `sms`
-    SMs: a block holds 256 // H * rows_per_thread rows, so its time grows
-    with its rows. The smallest tile whose blocks fit in one wave (one block
-    per SM) is the fastest; past that, the largest tile (measured in
-    PERF.md). The backward recurrence of rows 5, 15, 17 and 19 has its own
-    plan (`recurrence_plan`), and so have the forward recurrence of rows 4,
-    14, 16 and 18 (`forward_plan`) and the tangent recurrences of rows 10
-    and 11 (`fused_lstm_hvp`)."""
-    groups = max(1, 256 // hidden)
-    for rpt in ROWS_PER_THREAD:
-        if -(-rows // (groups * rpt)) <= sms:
-            return rpt
-    return ROWS_PER_THREAD[-1]
 
 
 def lstm_stack_plain(
@@ -156,7 +145,9 @@ def lstm_stack_plain(
 
 
 def _check_lstm(layers, x, compute_dtype):
-    """Raise on what the LSTM kernels do not take."""
+    """Raise on what the LSTM stacks' kernels do not take (the weights'
+    shapes, dtype and device; widths that are multiples of 8, the input
+    products' K)."""
     dev = x.device
     _, _, c_in = x.shape
     hidden = layers[0].wh.shape[0]
@@ -174,53 +165,12 @@ def _check_lstm(layers, x, compute_dtype):
             for p in (layer.wx, layer.wh, layer.b)
         ):
             raise TypeError("LSTM weights must be float32 on the input's device")
-    if c_in % 4 or hidden % 4:
+    if c_in % 8 or hidden % 8:
         raise ValueError(
-            f"the LSTM kernel takes input and hidden widths that are multiples "
-            f"of 4, got {c_in} and {hidden}"
+            f"the LSTM kernels take input and hidden widths that are multiples "
+            f"of 8, got {c_in} and {hidden}"
         )
     return cuda_build.dtype_code(compute_dtype)
-
-
-def _merged(wcat, compute_dtype):
-    """(wcat0, wcatr) in the compute dtype from the per-layer [[wx], [wh]]."""
-    wcat = [w.to(compute_dtype) for w in wcat]
-    wcat0 = wcat[0].contiguous()
-    wcatr = torch.stack(wcat[1:]).contiguous() if len(wcat) > 1 else wcat0
-    return wcat0, wcatr
-
-
-def _rows_per_thread(rows, hidden, dev):
-    return rows_per_thread(
-        rows, hidden, torch.cuda.get_device_properties(dev).multi_processor_count
-    )
-
-
-def _lstm_stack_cuda(layers, x, compute_dtype):
-    lib = cuda_build.load()
-    code = _check_lstm(layers, x, compute_dtype)
-    dev = x.device
-    rows, t_len, c_in = x.shape
-    hidden = layers[0].wh.shape[0]
-    x = x.to(torch.float32)
-    if x.stride(2) != 1:
-        x = x.contiguous()
-    # Merged gates: wcat_l = [[wx_l], [wh_l]] in the compute dtype.
-    wcat0, wcatr = _merged(
-        [torch.cat([layer.wx, layer.wh]) for layer in layers], compute_dtype
-    )
-    bias = torch.stack([layer.b for layer in layers]).contiguous()
-    out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    cuda_build.check(
-        lib.wf_lstm_stack_last(
-            code, _rows_per_thread(rows, hidden, dev),
-            x.data_ptr(), x.stride(1), x.stride(0),
-            wcat0.data_ptr(), wcatr.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            t_len, rows, c_in, hidden, len(layers), cuda_build.stream_ptr(dev),
-        ),
-        "LSTM stack",
-    )
-    return out
 
 
 def lstm_stack_last_all(
@@ -232,23 +182,42 @@ def lstm_stack_last_all(
 
     `layers` are the LSTM's layers, each with `wx` [C_in, 4H], `wh` [H, 4H]
     and the fused bias `b` [4H] (models/lstm.py). `merged` (None: read
-    `_MERGED_GATES`) False runs the unmerged-gates forward (row 14).
+    `_MERGED_GATES`) False runs the unmerged-gates forward (row 14): on a
+    card the same schedule (`eval_forward`), counted as row 14's.
     """
     cuda_build.no_grad_inputs(
         x, *(p for layer in layers for p in (layer.wx, layer.wh, layer.b))
     )
     if not (_MERGED_GATES if merged is None else merged):
         return lstm_stack_split(layers, x, compute_dtype=compute_dtype, train=False)
-    if x.device.type == "cpu" or compute_dtype == torch.float64:
+    if not _on_card(x, compute_dtype):
         return lstm_stack_plain(layers, x, compute_dtype)
-    if x.device.type != "cuda":
-        raise TypeError(f"no LSTM kernel for device {x.device}")
-    out = _lstm_stack_cuda(layers, x, compute_dtype)
-    lstm_stack_last_all.launches += 1
-    return out
+    return eval_forward(layers, x, compute_dtype, lstm_stack_last_all)
 
 
-lstm_stack_last_all.launches = 0  # stack runs through the CUDA kernel
+lstm_stack_last_all.launches = 0  # eval forwards run through the CUDA kernels (row 2)
+# Row 2's pieces: its gemm_nn and forward recurrence launches (one each a layer).
+lstm_stack_last_all.forward_gemm_nn_launches = 0
+lstm_stack_last_all.forward_recurrence_launches = 0
+
+
+def eval_forward(layers: Sequence, x: torch.Tensor, compute_dtype: torch.dtype,
+                 counter: Callable) -> torch.Tensor:
+    """The eval forward of rows 2, 14 and 20 on a CUDA tensor: x [B, T, C]
+    -> the top layer's last h [B, H] float32, no dropout, by row 14's
+    schedule without residuals (`split_forward_schedule(...,
+    residuals=False)`) from the layers' own wx, wh and b: L `gemm_nn` input
+    products and L forward recurrences enqueued by one C call
+    (csrc/lstm_stack_fwd.cu), one gates buffer and one h buffer for every
+    layer, no c and no top-layer h sequence stored. x keeps its [B, T, C]
+    layout, read time-major through a view. `counter` is the caller's entry
+    (`lstm_stack_last_all`, `lstm_stack_split`, `fused_lstm_last_hidden`):
+    the call and its launches count there."""
+    _check_lstm(layers, x, compute_dtype)
+    b2d = torch.stack([layer.b for layer in layers])
+    return _split_forward_card(
+        x.transpose(0, 1), [layer.wx for layer in layers], [layer.wh for layer in layers], b2d,
+        None, 1.0, compute_dtype, False, counter, f"LSTM eval forward ({counter.__name__})")[0]
 
 
 # Row 4 on a card runs layer by layer, as its backward does
@@ -521,8 +490,10 @@ def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_g
     masks [V, L-1, T, B, H] or None and the layers' weights: a (Wx_l, Wh_l,
     K_l, task stride) quadruple each, addresses of Wx_l [K_l, 4H] and Wh_l
     [H, 4H] in the compute dtype (row stride 4H) -> (h_last [V, B, H]
-    float32, h_all, c_all in the compute dtype, the gates float32). One task
-    keeps row 4's launches (x may be a strided view)."""
+    float32, h_all, c_all in the compute dtype, the gates float32; without
+    `residuals` h_all is one layer's scratch, its top layer unwritten, and
+    c_all empty). One task keeps row 4's launches (x may be a strided
+    view)."""
     dev = x.device
     nv, t_len, rows, _ = x.shape
     n_layers, g4 = b2d.shape[1:]
@@ -535,8 +506,9 @@ def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_g
     one = (t_len, rows, hidden)
     shape = (nv, n_layers, *one) if residuals else (nv, *one)
     with_masks = masks is not None and n_layers > 1
+    # Without residuals only the top layer's last h leaves: no c is stored.
     h_all, c_all, gates, masked = workspace(
-        dev, (shape, compute_dtype), (shape, compute_dtype),
+        dev, (shape, compute_dtype), (shape if residuals else (0,), compute_dtype),
         ((nv, *((n_layers,) if keep_gates else ()), t_len, rows, g4), torch.float32),
         ((nv, *one) if with_masks else (0,), compute_dtype))
     h_last = torch.empty((nv, rows, hidden), dtype=torch.float32, device=dev)
@@ -552,7 +524,8 @@ def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_g
     launch = _STACK_FWD.pack(
         cuda_build.dtype_code(compute_dtype), cs, hcp, rb, x.data_ptr(), x.stride(1), x.stride(2),
         int(x.dtype is torch.float32), bias.data_ptr(), _ptr(masks), 1.0 / keep,
-        h_all.data_ptr(), c_all.data_ptr(), gates.data_ptr(), h_last.data_ptr(), _ptr(masked),
+        h_all.data_ptr(), c_all.data_ptr() if residuals else 0, gates.data_ptr(),
+        h_last.data_ptr(), _ptr(masked),
         t_len * rows * hidden if residuals else 0, t_len * rows * g4 if keep_gates else 0, t_len,
         rows, hidden, n_layers, cuda_build.stream_ptr(dev), nv, *strides)
     err = cuda_build.load().wf_lstm_stack_forward(
@@ -927,23 +900,37 @@ def split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks=None, 
     return torch.stack(dx), dwx[0], dwxr, torch.stack(dwh), torch.stack(db)
 
 
-def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residuals=True):
+def split_forward(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype, residuals=True,
+                  counter=None):
     """Row 14 on a CUDA tensor (its plain version on a CPU tensor or under
     float64): -> (h_last [B, H] float32, h_all, c_all [L, T, B, H] in the
     compute dtype, or None without `residuals`), by
     `split_forward_schedule`'s schedule (row 4's), its L products and L
-    recurrences enqueued by one C call (csrc/lstm_stack_fwd.cu)."""
+    recurrences enqueued by one C call (csrc/lstm_stack_fwd.cu). The call
+    and its launches count on `counter` (None: `lstm_stack_split`; row 20's
+    train-mode forward counts on its own entry)."""
     if not _on_card(x_tbc, compute_dtype):
         return split_forward_plain(x_tbc, wx0, wxr, wh, b2d, masks, keep, compute_dtype)
-    n_layers = wh.shape[0]
-    layers, weights = _one_task_layers([wx0, *wxr], list(wh), compute_dtype)
+    return _split_forward_card(x_tbc, [wx0, *wxr], list(wh), b2d, masks, keep, compute_dtype,
+                               residuals, counter or lstm_stack_split,
+                               "LSTM unmerged-gates forward")
+
+
+def _split_forward_card(x_tbc, wx, wh, b2d, masks, keep, compute_dtype, residuals, counter,
+                        what):
+    """Row 14's schedule on the card from the layers' wx = [Wx_l [K_l, 4H]]
+    and wh = [Wh_l [H, 4H]] float32, b2d [L, 4H]: one C call, one gates
+    buffer for every layer (without `residuals` one h buffer too, no c),
+    counted on `counter`."""
+    n_layers = len(wh)
+    # `weights` keeps the compute-dtype weights alive while the call enqueues.
+    layers, weights = _one_task_layers(wx, wh, compute_dtype)
     h_last, h_all, c_all, _ = _stack_forward_card(
-        x_tbc[None], _one_task(masks), keep, compute_dtype, b2d[None], layers,
-        "LSTM unmerged-gates forward", keep_gates=False, residuals=residuals)
-    split = lstm_stack_split
-    split.launches += 1
-    split.forward_gemm_nn_launches += n_layers
-    split.forward_recurrence_launches += n_layers
+        x_tbc[None], _one_task(masks), keep, compute_dtype, b2d[None], layers, what,
+        keep_gates=False, residuals=residuals)
+    counter.launches += 1
+    counter.forward_gemm_nn_launches += n_layers
+    counter.forward_recurrence_launches += n_layers
     return (h_last[0], h_all[0], c_all[0]) if residuals else (h_last[0], None, None)
 
 
@@ -1225,36 +1212,90 @@ def scan_fwd_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
     return 4 * hidden * hcp * itemsize + 2 * rb * hidden * itemsize + 8 * rb * hcp * 4
 
 
+# The forward recurrence's widest row tile, built at hcp <= 16 x the
+# element size (64 weight columns in float32, 32 in bfloat16: its
+# accumulators fit in registers there, without spilling): taken for one
+# task where no tile of 16 rows or less puts every cluster in one wave and
+# it does (validate's 1536 rows in float32).
+FWD_WIDE_TILE = 32
+
+
 @functools.lru_cache(maxsize=None)
 def forward_plan(hidden: int, rows: int, itemsize: int, sms: int,
                  tasks: int = 1) -> tuple[int, int, int]:
-    """(cs, hcp, rb) of the forward recurrence of rows 4, 14, 16 and 18
-    (csrc/lstm_scan_fwd.cuh) for `tasks` tasks: blocks a cluster, weight
+    """(cs, hcp, rb) of the forward recurrence of rows 2, 4, 14, 16, 18 and
+    20 (csrc/lstm_scan_fwd.cuh) for `tasks` tasks: blocks a cluster, weight
     columns a block and gate, rows a cluster, by `_cluster_plan` with its
     shared memory (`scan_fwd_smem`): at H = 128 and R = 512 on 132 SMs, 2
     blocks x 8 rows in float32, 1 block x 4 rows in bfloat16; R = 1024 or
-    two tasks (row 16) double the rows."""
-    return _cluster_plan(hidden, rows, sms, tasks,
-                         lambda hcp, rb: scan_fwd_smem(hidden, hcp, rb, itemsize),
-                         "forward recurrence holds Wh")
+    two tasks (row 16) double the rows. Where no tile of at most 16 rows
+    reaches one wave, one task takes `FWD_WIDE_TILE` rows a cluster if that
+    does: R = 1536 in float32, 2 blocks x 32 rows (48 clusters, not 192 in
+    three waves)."""
+    def smem(hcp, rb):
+        return scan_fwd_smem(hidden, hcp, rb, itemsize)
+
+    what = "forward recurrence holds Wh"
+    plan = _cluster_plan(hidden, rows, sms, tasks, smem, what)
+    if tasks > 1 or _one_wave(plan, rows, tasks, sms):
+        return plan
+    try:  # the wide tile is built at hcp <= 16 x itemsize only
+        wide = _cluster_plan(
+            hidden, rows, sms, tasks,
+            lambda hcp, rb: smem(hcp, rb) if hcp <= 16 * itemsize else SCAN_MAX_SMEM + 1,
+            what, row_tiles=(FWD_WIDE_TILE,))
+    except ValueError:
+        return plan
+    return wide if _one_wave(wide, rows, tasks, sms) else plan
+
+
+def _one_wave(plan, rows, tasks, sms):
+    """Whether the plan's clusters over `tasks` tasks' rows fit on `sms` SMs
+    at once (a block an SM)."""
+    cs, _, rb = plan
+    return tasks * -(-rows // rb) * cs <= sms
 
 
 def stack_planned(hidden: int, rows: int, compute_dtype: torch.dtype, device: torch.device,
-                  tasks: int = 1) -> bool:
+                  tasks: int = 1, c_in: int | None = None) -> bool:
     """Whether `forward_plan` and `recurrence_plan` place the recurrences of
     the training stack of hidden width `hidden` over `rows` rows in
     `compute_dtype` on `device`'s card: rows 4-5 and 14-15 for one task,
     rows 16-17 for `tasks`. False where no cluster's shared memory holds Wh
-    (float32 H > 256, bfloat16 H > 384); True under float64, which runs
-    plain on every route. Off a card the plans assume an H100, so the
-    answer is the card's. Pure Python: the plans' own answer, before any
-    launch."""
+    (float32 H > 256, bfloat16 H > 384) and, where the input width `c_in` is
+    given, at widths the training kernels do not take (`_check_train`: not
+    multiples of 8, or C > 7H); True under float64, which runs plain on
+    every route. Off a card the plans assume an H100, so the answer is the
+    card's. Pure Python: the plans' own answer, before any launch."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return True
+    if c_in is not None and (c_in % 8 or hidden % 8 or c_in > 7 * hidden):
+        return False
     sms = _card_sms(device)
     try:
         forward_plan(hidden, rows, compute_dtype.itemsize, sms, tasks)
         recurrence_plan(hidden, rows, compute_dtype.itemsize, sms, tasks)
+    except ValueError:
+        return False
+    return True
+
+
+def eval_planned(c_in: int, hidden: int, rows: int, compute_dtype: torch.dtype,
+                 device: torch.device) -> bool:
+    """Whether the eval forward's card schedule (`eval_forward`: rows 2, 14
+    and 20 without dropout) takes an LSTM of input width `c_in` and hidden
+    width `hidden` over `rows` rows in `compute_dtype` on `device`'s card:
+    widths that are multiples of 8 (its input products' K) and a cluster
+    plan of the forward recurrence (`forward_plan`; none where no cluster's
+    shared memory holds Wh, float32 H > 256). True under float64, which runs
+    plain on every route; off a card the H100's answer. Pure Python, asked
+    before any launch, as `stack_planned` is for the training stack."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        return True
+    if c_in % 8 or hidden % 8:
+        return False
+    try:
+        forward_plan(hidden, rows, compute_dtype.itemsize, _card_sms(device))
     except ValueError:
         return False
     return True
@@ -1384,24 +1425,27 @@ CARD_PIECES = SplitPieces(gemm_nn, _recurrence_card, gemm_tn, sum_splits)
 PLAIN_PIECES = SplitPieces(gemm_nn_plain, _recurrence_plain, gemm_tn_plain, sum_splits_plain)
 
 
-def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compute_dtype):
+def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compute_dtype,
+                   counter=None):
     """Row 15 on a CUDA tensor (its plain version on a CPU tensor or under
     float64): -> (dx [T, B, C], dwx0, dwxr, dwh, db) float32, by
     `split_backward_schedule` on the kernels: per layer one gemm_nn launch
     for the gates, one recurrence launch (csrc/lstm_scan_bwd.cuh, with the
     bias gradient's partials), one gemm_nn launch for the input gradient and
     two gemm_tn launches for the weight gradients, each followed by the
-    `sum_splits` of its partials."""
+    `sum_splits` of its partials. The call and its TN launches count on
+    `counter` (None: `lstm_stack_split`)."""
     if not _on_card(x_tbc, compute_dtype):
         return split_backward_plain(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep,
                                     compute_dtype)
+    counter = counter or lstm_stack_split
     before = gemm_tn.launches
     out = split_backward_schedule(
         g.to(torch.float32), x_tbc.to(torch.float32).contiguous(),
         h_all.to(compute_dtype).contiguous(), c_all.to(compute_dtype).contiguous(),
         wx0, wxr, wh, b2d.to(torch.float32), masks, keep, compute_dtype, CARD_PIECES)
-    lstm_stack_split.backward_launches += 1
-    lstm_stack_split.backward_gemm_tn_launches += gemm_tn.launches - before
+    counter.backward_launches += 1
+    counter.backward_gemm_tn_launches += gemm_tn.launches - before
     return out
 
 
@@ -1434,16 +1478,19 @@ def lstm_stack_split(
     """The unmerged-gates stack: x [B, T, C] -> h_top [B, H] at the last
     step, float32 (float64 under float64). In train mode differentiable
     (rows 14 and 15, `masks` as in `lstm_stack_train`); otherwise the eval
-    forward, row 14 without its residual stores."""
+    forward, row 14 without its residual stores (on a card `eval_forward`,
+    counted here)."""
+    on_card = _on_card(x, compute_dtype)
+    if not train and on_card:
+        return eval_forward(layers, x, compute_dtype, lstm_stack_split)
     wx0, wxr, wh, b2d = _split_weights(layers)
     x_tbc = x.transpose(0, 1)
-    if _on_card(x, compute_dtype):
+    if not train:
+        return split_forward_plain(x_tbc, wx0, wxr, wh, b2d, None, 1.0, compute_dtype)[0]
+    if on_card:
         _check_lstm(layers, x, compute_dtype)
         rows, t_len, c_in = x.shape
-        _check_train(x, masks if train else None, rows, t_len, c_in, wh.shape[1], len(layers))
-    if not train:
-        return split_forward(x_tbc, wx0, wxr, wh, b2d, None, 1.0, compute_dtype,
-                             residuals=False)[0]
+        _check_train(x, masks, rows, t_len, c_in, wh.shape[1], len(layers))
     return _LstmStackSplit.apply(x_tbc, masks, keep, compute_dtype, wx0, wxr, wh, b2d)
 
 

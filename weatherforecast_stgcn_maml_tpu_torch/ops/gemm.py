@@ -1,8 +1,8 @@
-"""Python side of csrc/gemm.cu (the tiled GEMM and the fixed-order
-reduction of split-K partials) and csrc/gemm_nn.cu (the pipelined GEMM core: NN products,
+"""Python side of csrc/gemm_nn.cu (the pipelined GEMM core: NN products,
 `gemm_nn`, and K-split TN products, `gemm_tn`, with their plain versions
-`gemm_nn_plain` and `gemm_tn_plain`): one launch per call, on CUDA tensors
-only and outside autograd.
+`gemm_nn_plain` and `gemm_tn_plain`) and csrc/gemm.cu (`sum_splits`, the
+fixed-order reduction of split-K partials): one launch per call, on CUDA
+tensors only and outside autograd.
 
 Matrices are row-major with a row stride (`ld*`) and unit column stride;
 the kernels round both operands to the compute dtype as they load them and
@@ -22,41 +22,6 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 # K rows per split of a long TN reduction (a weight gradient over every
 # slice and node, or every step and row) where the caller sets none.
 SPLIT_ROWS = 256
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
-def gemm(
-    a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
-    m: int, n: int, k: int, lda: int, ldb: int, ldc: int,
-    compute_dtype: torch.dtype,
-    trans_a: bool = False, trans_b: bool = False,
-    sa: int = 0, sb: int = 0, sc: int = 0, batch: int = 1,
-    splits: int = 1, kc: int | None = None,
-    bias: torch.Tensor | None = None, relu: bool = False,
-    amask: torch.Tensor | None = None, ascale: float = 1.0,
-    cmask: torch.Tensor | None = None, cscale: float = 1.0,
-    what: str = "GEMM",
-) -> None:
-    """c[z] = epilogue(op(a) @ op(b)) for z in [0, batch * splits): see
-    `wf::Gemm` in csrc/gemm.cu for the indexing."""
-    code = cuda_build.dtype_code
-    gemm.launches += 1
-    cuda_build.check(
-        cuda_build.load().wf_gemm(
-            code(a.dtype), code(b.dtype), code(c.dtype), code(compute_dtype),
-            a.data_ptr(), sa, lda, int(trans_a), _ptr(amask), ascale,
-            b.data_ptr(), sb, ldb, int(trans_b),
-            c.data_ptr(), sc, ldc, _ptr(bias), int(relu), _ptr(cmask), cscale,
-            m, n, k, batch, splits, kc or k, cuda_build.stream_ptr(c.device),
-        ),
-        what,
-    )
-
-
-gemm.launches = 0  # launches of csrc/gemm.cu's tiled GEMM
 
 
 def sum_splits(part: torch.Tensor, out: torch.Tensor, what: str) -> None:

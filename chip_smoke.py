@@ -52,10 +52,16 @@ time):
      tangent, row 10's tangent forward) and row 18 (the forward recurrence
      with float32 h and c, xp holding the bias) alone against their plain
      versions at H 64 / 128 / 256 (clusters of 1, 2, 4 and 8 blocks);
-  7. hold the whole-tree clip + SGD kernel (rows 8-9) against its plain
-     version on the reference model's 23 leaves, one task and a task axis
-     of 4, gradient norms below and above clip_norm; time it, the plain
-     version and torch's clip_grad_norm_ + _foreach_add_;
+  7. hold the whole-tree clip + SGD kernel (row 8: two kernels chained by
+     programmatic dependent launch; row 9: its two kernels with a task
+     axis) against its plain version on the reference model's 23
+     leaves, one task and a task axis of 4, gradient norms below and above
+     clip_norm, and on trees of odd, unaligned leaves (31 x 7, 5, ...);
+     two calls bitwise equal, and one call captured in a CUDA graph and
+     replayed equal to an eager call; time it (torch.profiler, and the
+     host's time to enqueue a call), the plain version and torch's
+     clip_grad_norm_ + _foreach_add_; the build phase prints row 8's
+     kernels' ptxas registers and fails if they spill;
   7b. hold the second-order kernels (rows 10-11, after rows 4-5 at the same
      point) against the plain R-operator at the inner step's shapes (24
      steps, 512 rows, input 256, 4 layers of 128, masks at rate 0.2; also
@@ -93,7 +99,10 @@ time):
      inner epochs cut to 1) with 64 plain-route calls and no row 4-5 launch;
  10. drive `cli adapt` (Moscow and Thailand float32, 2 epochs, Moscow
      bfloat16, 1 epoch) from that `ckpt_best`, `validate` the adapted
-     Moscow model and `pipeline` Moscow + NewYork; rows 1-2 and 4-7 must
+     Moscow model (with --no-plots, then at its defaults: where matplotlib
+     is missing it must raise an ImportError naming --no-plots, where it is
+     present both figures must be written; the phase prints which held)
+     and `pipeline` Moscow + NewYork; rows 1-2 and 4-7 must
      have launched, every loss and val_mse must be finite; time one
      adaptation train step (batch 2, with a torch.profiler breakdown) and
      one adaptation epoch;
@@ -289,7 +298,8 @@ SOURCES = {
 NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel",
                "gemm_tn_bf16_kernel", "dz_top_kernel", "transpose_round_kernel",
                "lstm_scan_bwd_kernel", "lstm_scan_fwd_kernel", "lstm_scan_tan_kernel",
-               "lstm_scan_fwd_tan_kernel", "round_pad_kernel")
+               "lstm_scan_fwd_tan_kernel", "round_pad_kernel", "sumsq4_kernel",
+               "update4_kernel")
 # The cluster recurrences whose instances the build phase lists by source.
 RECURRENCE_SOURCES = {"lstm_scan_fwd_kernel": "lstm_stack_fwd.cu",
                       "lstm_scan_tan_kernel": "lstm_scan_tan.cu",
@@ -657,6 +667,9 @@ def main() -> int:
                     log(f"  ptxas lstm_scan_bwd_kernel SPILLS: {line.strip()} in {entry}")
             elif new and ("registers" in line or "spill" in line):
                 log(f"  ptxas {new}: {line.split(':', 1)[-1].strip()}")
+                if (new.startswith(("sumsq4_kernel", "update4_kernel")) and "spill" in line
+                        and " 0 bytes spill stores, 0 bytes spill loads" not in line):
+                    spills.append((entry, line.strip()))
             elif "registers" in line:
                 log(f"  ptxas: {line.strip()}")
             elif "spill" in line and " 0 bytes spill" not in line:
@@ -676,6 +689,10 @@ def main() -> int:
             raise RuntimeError(f"the forward recurrence's 32-row instances: {wide}")
         if any(re.search(r"lstm_scan_fwd_kernelI.*?Li\d+ELi32E", e) for e, _ in spills):
             raise RuntimeError(f"a 32-row forward recurrence spills: {spills}")
+        # Row 8's update holds its chunk's g and p in registers while it
+        # waits for the norm: a spill would put them in memory.
+        if any("sumsq4_kernel" in e or "update4_kernel" in e for e, _ in spills):
+            raise RuntimeError(f"a clip + SGD kernel spills: {spills}")
         # Their shared memory is dynamic (ptxas reports static memory only).
         lib = cuda_build.load()
         # The retired kernels: gemm.cu's SIMT GEMM (row 20's projections were
@@ -1671,25 +1688,60 @@ def main() -> int:
         norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads))) / tasks**0.5
         return params, [g * (scale / norm) for g in grads]
 
+    def hold_sgd(what, params, grads, batched):
+        """The kernel against its plain version (1e-5 relative), a second
+        call bitwise equal, one call captured in a CUDA graph and replayed
+        bitwise equal to an eager call; its max |diff|."""
+        def copy(p):  # a copy as far off 16-byte alignment as p
+            off = p.storage_offset() % 4
+            return torch.empty(p.numel() + off, device=p.device)[off:].view(p.shape).copy_(p)
+
+        got, again, replayed = ([copy(p) for p in params] for _ in range(3))
+        clip_sgd_update(got, grads, lr, max_norm, batched=batched)
+        clip_sgd_update(again, grads, lr, max_norm, batched=batched)
+        ref = [p.clone() for p in params]
+        clip_sgd_update_plain(ref, grads, lr, max_norm, batched=batched)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            clip_sgd_update(replayed, grads, lr, max_norm, batched=batched)
+        graph.replay()
+        torch.cuda.synchronize()
+        rel = max(rel_err(a, r) for a, r in zip(got, ref))
+        err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        replay_same = all(torch.equal(a, b) for a, b in zip(got, replayed))
+        log(f"{what}: max|diff|/max|ref| {rel:.3e} (tol {TOL['float32']}), max_abs_err "
+            f"{err:.3e}; two calls bitwise equal: {same}; graph replay equal: {replay_same}")
+        if rel > TOL["float32"] or not same or not replay_same:
+            raise RuntimeError(f"{what}: error {rel:.3e}, bitwise {same}, replay {replay_same}")
+        del graph
+        return err
+
     with Phase("clip + SGD kernel vs plain"):
         lr, max_norm = meta_cfg.inner_lr, meta_cfg.clip_norm
+        # Odd leaves: ragged chunk ends, sizes not a multiple of 4, a base
+        # that is not 16-byte aligned (a view one float in), above clip_norm.
+        odd_rng = np.random.default_rng(29)
+        for tasks in (1, 3):
+            base = torch.from_numpy(odd_rng.standard_normal(1 + 3 * 333).astype(np.float32))
+            lead = (tasks,) if tasks > 1 else ()
+            params = [torch.from_numpy(odd_rng.standard_normal(lead + s).astype(np.float32))
+                      for s in ((31, 7), (5,), (3, 1000), (1,), (64, 64))]
+            params.append(base.to(dev)[1:].reshape(lead + (-1,)) if tasks > 1
+                          else base.to(dev)[1:334])
+            params = [p.to(dev) for p in params]
+            grads = [torch.from_numpy(odd_rng.standard_normal(p.shape).astype(np.float32) * 3)
+                     .to(dev) for p in params]
+            hold_sgd(f"clip_sgd_update odd leaves V={tasks}", params, grads, tasks > 1)
         for tasks, name in ((1, "clip_sgd_update"), (4, "clip_sgd_update.batched")):
             batched = tasks > 1
             errs = []
             for scale in (0.5, 30.0):
                 params, grads = sgd_inputs(tasks, scale)
-                got = [p.clone() for p in params]
-                clip_sgd_update(got, grads, lr, max_norm, batched=batched)
-                ref = [p.clone() for p in params]
-                clip_sgd_update_plain(ref, grads, lr, max_norm, batched=batched)
-                torch.cuda.synchronize()
-                rel = max(rel_err(a, r) for a, r in zip(got, ref))
-                err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
-                log(f"{name} V={tasks} grad norm {scale}: max|diff|/max|ref| {rel:.3e} "
-                    f"(tol {TOL['float32']}), max_abs_err {err:.3e}")
-                if rel > TOL["float32"]:
-                    raise RuntimeError(f"{name} V={tasks}: error {rel:.3e}")
-                errs.append(err)
+                errs.append(hold_sgd(f"{name} V={tasks} grad norm {scale}", params, grads,
+                                     batched))
             work = [p.clone() for p in params]  # the last inputs: clipping on
             ms = cuda_ms(torch, lambda: clip_sgd_update(work, grads, lr, max_norm,
                                                         batched=batched))
@@ -1720,9 +1772,11 @@ def main() -> int:
             plain_ms = device_ms(torch, lambda: clip_sgd_update_plain(
                 work, grads, lr, max_norm, batched=batched))
             library_ms = device_ms(torch, library)
+            enq_ms = enqueue_ms(torch, lambda: clip_sgd_update(work, grads, lr, max_norm,
+                                                                batched=batched), 200)
             log(f"{name} V={tasks}, device time (torch.profiler): kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, clip_grad_norm_ + _foreach_add_ {library_ms:.4f} ms  "
-                f"[{card}]")
+                f"{plain_ms:.4f} ms, clip_grad_norm_ + _foreach_add_ {library_ms:.4f} ms; "
+                f"the host's time to enqueue a kernel call {enq_ms:.4f} ms  [{card}]")
             measured[name] = {
                 "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms,
@@ -2265,6 +2319,27 @@ def main() -> int:
         if "(adapted model)" not in err or not np.isfinite(results["average_mse"]):
             raise RuntimeError(f"validate Moscow did not score the adapted model: {err[-2000:]}")
         log(f"validate Moscow (adapted model): average_mse {results['average_mse']:.6f}")
+        # validate at its defaults (plots): without matplotlib it must refuse,
+        # naming --no-plots; with it both figures must be written.
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            try:
+                run_cli(["validate", "--region", "Moscow", "-o", f"out_dir={adapt_dir}"])
+            except ImportError as err:
+                if "--no-plots" not in str(err):
+                    raise RuntimeError(f"the ImportError does not name --no-plots: {err}")
+                log(f"validate Moscow without --no-plots: matplotlib missing here, refused "
+                    f"with an ImportError naming --no-plots ({err})")
+            else:
+                raise RuntimeError("validate without --no-plots ran where matplotlib is missing")
+        else:
+            run_cli(["validate", "--region", "Moscow", "-o", f"out_dir={adapt_dir}"])
+            pngs = [os.path.join(adapt_dir, "validation", f"Moscow_{kind}.png")
+                    for kind in ("temperature", "all_variables")]
+            if not all(os.path.exists(p) and os.path.getsize(p) > 0 for p in pngs):
+                raise RuntimeError(f"validate without --no-plots did not write {pngs}")
+            log(f"validate Moscow without --no-plots: matplotlib present here, wrote {pngs}")
         _, err, secs = run_cli(["pipeline", "--regions", "Moscow;NewYork", "--no-plots",
                                 "-o", f"out_dir={adapt_dir}", "-o", "adapt.epochs=1"])
         if ("using existing adapted model for Moscow" not in err

@@ -258,20 +258,31 @@ def test_cli_adapt_then_validate_then_pipeline(base_ckpt, tmp_path):
     assert rc == 0 and "[adapt:NewYork] saved" in err
 
 
+# Each case keeps the id it had beside the plot refusal (argv1, now
+# test_cli_pipeline_writes_plots).
 @pytest.mark.parametrize("argv, error, match", [
-    (["pipeline", "--regions", "Moscow", "--no-plots", "--mesh-fleet"],
-     NotImplementedError, "fleet"),
-    (["pipeline", "--regions", "Moscow"], NotImplementedError, "matplotlib"),
-    (["pipeline", "--regions", "Moscow", "--shard", "1", "--no-plots"], SystemExit, "BOTH"),
-    (["pipeline", "--regions", "Atlantis", "--no-plots"], SystemExit, "unknown region"),
-    (["adapt"], SystemExit, "--region NAME"),
-    (["adapt", "--region", "Moscow", "-o", "model.lstm_wavefront=true"], NotImplementedError,
-     "not ported"),
+    pytest.param(["pipeline", "--regions", "Moscow", "--no-plots", "--mesh-fleet"],
+                 NotImplementedError, "fleet", id="argv0-NotImplementedError-fleet"),
+    pytest.param(["pipeline", "--regions", "Moscow", "--shard", "1", "--no-plots"], SystemExit,
+                 "BOTH", id="argv2-SystemExit-BOTH"),
+    pytest.param(["pipeline", "--regions", "Atlantis", "--no-plots"], SystemExit,
+                 "unknown region", id="argv3-SystemExit-unknown region"),
+    pytest.param(["adapt"], SystemExit, "--region NAME", id="argv4-SystemExit---region NAME"),
+    pytest.param(["adapt", "--region", "Moscow", "-o", "model.lstm_wavefront=true"],
+                 NotImplementedError, "not ported", id="argv5-NotImplementedError-not ported"),
 ])
 def test_cli_pipeline_and_adapt_refusals(base_ckpt, tmp_path, argv, error, match):
     with pytest.raises(error, match=match):
         _cli(*argv, "--device", "cpu", *base_ckpt)
     assert not os.path.exists(tmp_path / "adapted")
+
+
+def test_cli_pipeline_writes_plots(base_ckpt, tmp_path):
+    """pipeline at its defaults (no --no-plots) validates with plots."""
+    rc, _, err = _cli("pipeline", "--regions", "Moscow", "--device", "cpu", *base_ckpt)
+    assert rc == 0 and "[adapt:Moscow] saved" in err
+    for png in ("Moscow_temperature.png", "Moscow_all_variables.png"):
+        assert os.path.getsize(tmp_path / "validation" / png) > 0, png
 
 
 def test_cli_adapt_and_pipeline_leave_jax_unimported(base_ckpt):

@@ -236,6 +236,56 @@ def test_clip_sgd_kernel_matches_plain(dev, tasks, scale):
         assert _rel(g, r) <= TOL[torch.float32]
 
 
+def _offset_copy(p):
+    """A copy of p as far off 16-byte alignment as p is."""
+    off = p.storage_offset() % 4
+    return torch.empty(p.numel() + off, device=p.device)[off:].view(p.shape).copy_(p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tasks", [1, 3])
+def test_clip_sgd_kernel_odd_leaves(dev, tasks):
+    """Ragged chunk ends, sizes not a multiple of 4 and a parameter one
+    float off 16-byte alignment (the kernel's scalar paths), above
+    clip_norm: against plain, and two calls bitwise equal."""
+    rng = np.random.default_rng(9)
+    lead = (tasks,) if tasks > 1 else ()
+    params = [torch.from_numpy(rng.normal(size=lead + s).astype(np.float32)).to(dev)
+              for s in ((31, 7), (5,), (3, 1000), (1,), (64, 64))]
+    base = torch.from_numpy(rng.normal(size=1 + 333 * tasks).astype(np.float32)).to(dev)
+    params.append(base[1:].reshape(lead + (333,)))
+    grads = [torch.from_numpy(rng.normal(size=p.shape).astype(np.float32) * 3).to(dev)
+             for p in params]
+    got, again = [_offset_copy(p) for p in params], [_offset_copy(p) for p in params]
+    assert got[-1].data_ptr() % 16 != 0
+    fused_sgd.clip_sgd_update(got, grads, 0.01, 1.0, batched=tasks > 1)
+    fused_sgd.clip_sgd_update(again, grads, 0.01, 1.0, batched=tasks > 1)
+    ref = [p.clone() for p in params]
+    fused_sgd.clip_sgd_update_plain(ref, grads, 0.01, 1.0, batched=tasks > 1)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert _rel(g, r) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tasks", [1, 4])
+def test_clip_sgd_kernel_graph_replay(dev, tasks):
+    """One call captured in a CUDA graph (its own scratch), replayed: the
+    same bits as an eager call."""
+    params, grads = _leaves_and_grads(dev, tasks, 30.0)
+    eager, replayed = [p.clone() for p in params], [p.clone() for p in params]
+    fused_sgd.clip_sgd_update(eager, grads, 0.01, 1.0, batched=tasks > 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fused_sgd.clip_sgd_update(replayed, grads, 0.01, 1.0, batched=tasks > 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    for e, r in zip(eager, replayed):
+        assert torch.equal(e, r)
+
+
 @pytest.mark.cuda
 def test_clip_sgd_kernel_refuses_what_it_does_not_take(dev):
     p = [torch.zeros(4, device=dev, dtype=torch.bfloat16)]

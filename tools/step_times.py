@@ -2,14 +2,21 @@
 """Step times of the PyTorch port in one checkout, for comparing two
 checkouts on one card.
 
-  python3 tools/step_times.py [CHECKOUT] [--cpu] [--eval-only]
+  python3 tools/step_times.py [CHECKOUT] [--cpu] [--eval-only] [--sgd-only]
 
 imports the port from CHECKOUT (default: this one) and prints one JSON
 line: the eval LSTM stack's two entries alone (rows 2 and 20 at validate's
 [1536, 24, 256] and the forecast's [512, 24, 256], 4 layers of 128, float32
 and bfloat16) by CUDA events, by CUDA graph replay and by the host's time
 to enqueue a call, cuDNN's LSTM forward beside them by events and graph
-replay, and row 20's train-mode call (forward and backward through
+replay (`--sgd-only` instead times only the whole-tree clip + SGD update,
+rows 8 and 9 on the reference model's 23 leaves, one task and 4: device
+time by torch.profiler, by CUDA events and by graph replay, the host's
+time to enqueue a call with the card idle, and the float32 FO inner step
+by the host clock and the device's busy time; after holding each row
+against its plain version, two calls bitwise equal and a graph replay of
+one call equal to an eager call; it exits 1 where one of these fails), and
+row 20's train-mode call (forward and backward through
 autograd, [1024, 24, 256]: the adaptation step's rows) by events; where the
 checkout has the 32-row forward plan (`FWD_WIDE_TILE`), rows 2 and 20 at
 1536 rows also under the 16-row plan (three waves) and the forward
@@ -68,6 +75,7 @@ parser.add_argument("checkout", nargs="?",
                     default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 parser.add_argument("--cpu", action="store_true", help="dry run on the CPU, no times")
 parser.add_argument("--eval-only", action="store_true", help="rows 2 and 20 alone, then stop")
+parser.add_argument("--sgd-only", action="store_true", help="rows 8 and 9 alone, then stop")
 args = parser.parse_args()
 sys.path.insert(0, os.path.abspath(args.checkout))
 
@@ -99,7 +107,10 @@ from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import fused_gcn_stack  
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import (  # noqa: E402
     fused_lstm_last_hidden,
 )
-from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update  # noqa: E402
+from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import (  # noqa: E402
+    clip_sgd_update,
+    clip_sgd_update_plain,
+)
 from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh_2d  # noqa: E402
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import (  # noqa: E402
@@ -334,6 +345,92 @@ def eval_rows():
                 res[f"recurrence float32 [{rows}] plan {(cs, hcp, rb)} device ms"] = ms
 
 
+def sgd_rows():
+    """Rows 8 and 9 alone and the FO inner step (the module docstring), into
+    `res`; the names of the checks that failed."""
+    lr, max_norm = meta_cfg.inner_lr, meta_cfg.clip_norm
+    model = init_model(torch.Generator().manual_seed(3), ModelConfig(), device=dev)
+    leaves = [p.detach() for p in model.parameters()]
+    draw = torch.Generator(device=dev).manual_seed(4)
+    failed = []
+
+    def inputs(shapes, tasks, scale):
+        params = [torch.randn((tasks, *s) if tasks > 1 else s, generator=draw, device=dev)
+                  for s in shapes]
+        grads = [torch.randn(p.shape, generator=draw, device=dev) for p in params]
+        norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads))) / tasks ** 0.5
+        return params, [g * (scale / norm) for g in grads]
+
+    def hold(name, params, grads, tasks):
+        """Kernel vs plain (1e-5 relative), two calls bitwise equal, one call
+        replayed from a CUDA graph equal to an eager call."""
+        batched = tasks > 1
+        runs = []
+        for _ in range(2):
+            runs.append([p.clone() for p in params])
+            clip_sgd_update(runs[-1], grads, lr, max_norm, batched=batched)
+        ref = [p.clone() for p in params]
+        clip_sgd_update_plain(ref, grads, lr, max_norm, batched=batched)
+        rel = max(float((a - r).abs().max() / r.abs().max()) for a, r in zip(runs[0], ref))
+        res[f"{name} max rel err"] = rel
+        if rel > 1e-5:
+            failed.append(f"{name}: error {rel:.3e}")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            failed.append(f"{name}: two calls differ")
+        replayed = [p.clone() for p in params]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+            clip_sgd_update(replayed, grads, lr, max_norm, batched=batched)
+        graph.replay()
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(replayed, runs[0])):
+            failed.append(f"{name}: a graph replay differs from an eager call")
+
+    with torch.no_grad():
+        for tasks, row in ((1, "row 8"), (4, "row 9")):
+            params, grads = inputs([p.shape for p in leaves], tasks, 30.0)
+            for scale in (0.5, 30.0):
+                hold(f"{row} grad norm {scale}", params, [g * (scale / 30.0) for g in grads],
+                     tasks)
+
+            def fn():
+                clip_sgd_update(params, grads, lr, max_norm, batched=tasks > 1)
+
+            res[f"{row} device ms"] = busy_ms(fn, steps=50)
+            res[f"{row} ms"] = events_ms(fn)
+            res[f"{row} graph ms"] = graph_ms(fn)
+            res[f"{row} enqueue ms"] = enqueue_ms(fn, repeats=200)
+    regions = [get_region_data(box, data_cfg.train_years, data_cfg, tag="train",
+                               name=f"region{i}") for i, box in enumerate(META_TRAIN_REGIONS[:4])]
+    mc = ModelConfig()
+    tasks = stage_tasks([b.task for b in build_meta_tasks(regions, mc, meta_cfg, data_cfg)], dev)
+    state = init_meta_state(torch.Generator().manual_seed(1), mc, meta_cfg, device=dev)
+    task = task_at(tasks, 0)
+    params = [p for _, p in sorted(state.params.named_parameters(),
+                                   key=lambda kv: leaf_order(kv[0]))]
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def inner_step():
+        loss = masked_mse(apply_model(state.params, task.a_hat, task.support_x[0], task.koppen,
+                                      mc, train=True, generator=g),
+                          task.support_y[0], task.node_mask)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            clip_sgd_update(params, grads, meta_cfg.inner_lr, meta_cfg.clip_norm)
+
+    res["default inner step ms"] = host_ms(inner_step)
+    res["default inner step device busy ms"] = busy_ms(inner_step)
+    return failed
+
+
+if args.sgd_only:
+    failed = [] if args.cpu else sgd_rows()
+    res["failed"] = failed
+    res["seconds"] = time.perf_counter() - t_start
+    print(json.dumps(res), flush=True)
+    sys.exit(1 if failed else 0)
 if not args.cpu:
     eval_rows()
 if args.eval_only:

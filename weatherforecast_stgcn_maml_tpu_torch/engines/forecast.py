@@ -1,8 +1,10 @@
 """Forecast (serving) engine: load the adapted (or base) checkpoint, build
 the latest window from the region's data, run the forward once, and emit
 denormalized per-variable forecasts (node-averaged series plus the full
-per-node grid) as JSON. Plots need matplotlib and are not ported:
-`make_plots=True` raises."""
+per-node grid) as JSON. With `make_plots` the input window's and the
+forecast's temperature go to `<out_dir>/forecasts/<region>_forecast.png`;
+where matplotlib is missing that raises an ImportError naming `--no-plots`
+before any checkpoint or data is read."""
 
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ from weatherforecast_stgcn_maml_tpu_torch.data.region import RegionData
 from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
 from weatherforecast_stgcn_maml_tpu_torch.engines.validate import (
     _load_params_and_stats,
-    no_plots,
+    host_array,
 )
+from weatherforecast_stgcn_maml_tpu_torch.eval.plots import require_matplotlib, temperature_figure
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
 from weatherforecast_stgcn_maml_tpu_torch.train.supervised import make_predict
 
@@ -51,7 +54,8 @@ def run_forecast(
     make_plots: bool = False,
     log_cb=print,
 ) -> ForecastResult:
-    no_plots(make_plots)
+    if make_plots:
+        require_matplotlib()
     model_cfg, data_cfg = cfg.model, cfg.data
     device = torch.device(device)
     params, saved_stats, kind = _load_params_and_stats(
@@ -82,7 +86,7 @@ def run_forecast(
     predict = make_predict(model_cfg)
     a_hat = torch.from_numpy(graph.a_hat).to(device)
     preds = predict(params, x, a_hat, koppen)[0, :, : graph.num_nodes, :]
-    preds = preds.float().cpu().numpy()  # [H, N, 12] normalized
+    preds = host_array(preds)  # [H, N, 12] normalized
 
     denorm = stats.denormalize(preds)  # [H, N, 12]
     grid = denorm.reshape(
@@ -112,6 +116,20 @@ def run_forecast(
             },
             f,
             indent=2,
+        )
+
+    if make_plots:
+        input_temp = stats.denormalize(
+            window[:, : graph.num_nodes, T2M_INDEX].mean(axis=1), T2M_INDEX
+        )
+        temperature_figure(
+            os.path.join(out_dir, f"{region_name}_forecast.png"),
+            region.times[-model_cfg.window :],
+            times,
+            input_temp,
+            None,  # no truth for a live forecast
+            mean_forecast[:, T2M_INDEX],
+            region_name,
         )
 
     t2m = mean_forecast[:, T2M_INDEX]

@@ -5,8 +5,10 @@ For each named region: adapt the meta-trained model unless an adapted
 checkpoint exists, then validate. Each region is error-isolated and timed,
 and the run ends with a summary. The region list can be sharded across
 hosts (`shard_id` / `num_shards`); they share checkpoints through the
-filesystem. The mesh-sharded fleet adaptation and plots are not ported:
-either raises before the first region.
+filesystem. Validation writes its plots unless `make_plots` is False;
+where matplotlib is missing that raises an ImportError naming `--no-plots`
+before the first region. The mesh-sharded fleet adaptation is not ported:
+it raises before the first region.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from weatherforecast_stgcn_maml_tpu_torch.config import ADAPTATION_REGIONS, ExperimentConfig
 from weatherforecast_stgcn_maml_tpu_torch.engines.adapt import adapted_ckpt_path, run_adaptation
-from weatherforecast_stgcn_maml_tpu_torch.engines.validate import no_plots, run_validation
+from weatherforecast_stgcn_maml_tpu_torch.engines.validate import run_validation
+from weatherforecast_stgcn_maml_tpu_torch.eval.plots import require_matplotlib
 from weatherforecast_stgcn_maml_tpu_torch.parallel.fleet import partition_round_robin
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import checkpoint_exists
 from weatherforecast_stgcn_maml_tpu_torch.utils.metrics import JsonlLogger
@@ -47,7 +50,8 @@ def run_pipeline(
             "the mesh-sharded fleet adaptation (engines/fleet_adapt.py) is not "
             "ported; run without --mesh-fleet"
         )
-    no_plots(make_plots)
+    if make_plots:
+        require_matplotlib()
     if regions is None:
         regions = list(ADAPTATION_REGIONS)
     regions = partition_round_robin(regions, num_shards, shard_id)
@@ -62,7 +66,9 @@ def run_pipeline(
                 run_adaptation(cfg, box, name, device=device, log_cb=log_cb)
             else:
                 log_cb(f"[pipeline] using existing adapted model for {name}")
-            val = run_validation(cfg, box, name, device=device, log_cb=log_cb)
+            val = run_validation(
+                cfg, box, name, device=device, make_plots=make_plots, log_cb=log_cb
+            )
             result.validations[name] = val.results
             jsonl.log({"region": name, "status": "ok", "results": val.results})
         except Exception as e:  # per-region isolation

@@ -7,7 +7,9 @@ forward over a few windows, and scores the node-averaged, denormalized
 forecasts per variable. With `compat.average_validation_targets` (the
 reference protocol) predictions and targets are averaged over the windows
 before scoring; otherwise each window is scored and the metrics averaged.
-Plots need matplotlib and are not ported: `make_plots=True` raises.
+With `make_plots` (the default) the temperature and all-variable figures go
+to `<out_dir>/validation/`; where matplotlib is missing that raises an
+ImportError naming `--no-plots` before any checkpoint or data is read.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ from weatherforecast_stgcn_maml_tpu_torch.eval.metrics import (
     forecast_table,
     variable_metrics,
 )
+from weatherforecast_stgcn_maml_tpu_torch.eval.plots import (
+    require_matplotlib,
+    temperature_figure,
+    variables_figure,
+)
 from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model, load_params
 from weatherforecast_stgcn_maml_tpu_torch.train.supervised import make_predict
@@ -51,12 +58,10 @@ class ValidationResult:
     model_kind: str  # "adapted" | "base"
 
 
-def no_plots(make_plots: bool) -> None:
-    if make_plots:
-        raise NotImplementedError(
-            "plots need matplotlib and are not ported yet; run without plots "
-            "(validate --no-plots)"
-        )
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A prediction as numpy in its own precision (float64 stays float64, as
+    JAX's arrays do under x64); bfloat16, which numpy lacks, as float32."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _mean_metric_dicts(dicts: list[dict]) -> dict:
@@ -104,10 +109,11 @@ def run_validation(
     *,
     device: torch.device | str,
     region: RegionData | None = None,
-    make_plots: bool = False,
+    make_plots: bool = True,
     log_cb=print,
 ) -> ValidationResult:
-    no_plots(make_plots)
+    if make_plots:
+        require_matplotlib()
     model_cfg, data_cfg = cfg.model, cfg.data
     device = torch.device(device)
     params, saved_stats, kind = _load_params_and_stats(
@@ -170,7 +176,7 @@ def run_validation(
     koppen = 0 if cfg.compat.koppen_zero_in_adapt else max(region.koppen_code, 0)
     predict = make_predict(model_cfg)
     a_hat = torch.from_numpy(graph.a_hat).to(device)
-    preds = predict(params, x, a_hat, koppen).float().cpu().numpy()
+    preds = host_array(predict(params, x, a_hat, koppen))
     targets = y.cpu().numpy()
 
     n = graph.num_nodes
@@ -187,11 +193,26 @@ def run_validation(
         )
 
     # t2m table on the first window's timeline.
+    input_times = sub.times[: model_cfg.window]
     forecast_times = sub.times[model_cfg.window : model_cfg.window + model_cfg.horizon]
     t_true = stats.denormalize(true_avg[:, T2M_INDEX], T2M_INDEX)
     t_pred = stats.denormalize(pred_avg[:, T2M_INDEX], T2M_INDEX)
     table = forecast_table(forecast_times, t_true, t_pred)
     log_cb(f"[validate:{region_name}] t2m forecast ({kind} model):\n{table}")
+
+    plots = []
+    if make_plots:
+        plot_dir = os.path.join(cfg.out_dir, "validation")
+        x0 = x[0].cpu().numpy()[:, :n, :]  # [W, N, C]
+        input_temp = stats.denormalize(x0[..., T2M_INDEX].mean(axis=1), T2M_INDEX)
+        plots.append(temperature_figure(
+            os.path.join(plot_dir, f"{region_name}_temperature.png"),
+            input_times, forecast_times, input_temp, t_true, t_pred, region_name,
+        ))
+        plots.append(variables_figure(
+            os.path.join(plot_dir, f"{region_name}_all_variables.png"),
+            true_avg, pred_avg, stats, region_name,
+        ))
 
     summary = ", ".join(
         f"{k}: mse={v['mse']:.3f}" for k, v in results.items() if isinstance(v, dict)
@@ -203,7 +224,7 @@ def run_validation(
     return ValidationResult(
         results=results,
         table=table,
-        plots=[],
+        plots=plots,
         region_name=region_name,
         model_kind=kind,
     )

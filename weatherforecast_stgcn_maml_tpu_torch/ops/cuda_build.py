@@ -65,11 +65,12 @@ _SIGNATURES = {
     "wf_lstm_tangent_recurrence_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_scan_bwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wf_lstm_scan_backward": [ctypes.c_char_p],  # one packed ScanBackwardLaunch (lstm_scan.py)
-    "wf_clip_sgd_update": [_I, _PP, _PP, _PLL, _I, _F, _F, _P, _P],
-    "wf_clip_sgd_chunks": [_I, _PLL],
+    "wf_clip_sgd_update": [ctypes.c_char_p],  # one packed SgdLaunch (ops/fused_sgd.py)
+    "wf_clip_sgd_update_tasks": [ctypes.c_char_p],  # the same, a task axis
+    "wf_clip_sgd_plan": [_I, _PLL, _I],
 }
 _RESTYPES = {  # the rest return a cudaError_t
-    "wf_clip_sgd_chunks": ctypes.c_longlong,
+    "wf_clip_sgd_plan": ctypes.c_longlong,
     "wf_gemm_nn_smem": ctypes.c_longlong,
     "wf_lstm_stack_recurrence_smem": ctypes.c_longlong,
     "wf_lstm_stack_forward_smem": ctypes.c_longlong,
@@ -182,14 +183,16 @@ def dtype_code(dtype: torch.dtype) -> int:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}") from None
 
 
+# PyTorch's own raw-stream getter, where its build has one.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(device: torch.device) -> int:
     """The raw handle of the current stream on `device` (a CUDA device with
-    an index). PyTorch's own raw-stream getter, where its build has one,
-    skips the Stream object that current_stream() makes (~7 us a launch on
-    the card's host)."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None and device.index is not None:
-        return raw(device.index)
+    an index). The raw getter skips the Stream object that current_stream()
+    makes (~7 us a launch on the card's host)."""
+    if _RAW_STREAM is not None and device.index is not None:
+        return _RAW_STREAM(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

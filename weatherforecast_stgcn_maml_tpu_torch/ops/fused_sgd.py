@@ -6,7 +6,9 @@ norm > max_norm).
 `clip_sgd_update` runs the hand-written CUDA kernel (csrc/fused_sgd.cu) on
 CUDA float32 tensors and its plain PyTorch version,
 `clip_sgd_update_plain`, on CPU tensors or under float64. On a CUDA tensor
-anything else raises; nothing falls back to the plain version there.
+anything else raises; nothing falls back to the plain version there. A call
+on a card packs one launch from a plan cached for the tree (`_Plan`: the
+leaves' addresses and shapes, the kernel's scratch) and makes one C call.
 
 With `batched=True` every leaf carries a leading task axis of one size V
 and each task is clipped by its own norm (kernel row 9); otherwise the
@@ -20,6 +22,8 @@ it runs outside autograd, and the MAML inner loop calls it under
 from __future__ import annotations
 
 import ctypes
+import struct
+from operator import attrgetter
 from typing import Sequence
 
 import torch
@@ -71,6 +75,64 @@ def _check(params, grads, lr, max_norm, batched):
         )
 
 
+def _card_refusals(params) -> None:
+    """What the kernel does not take, beyond `_check`: raise on it."""
+    dev, dtype = params[0].device, params[0].dtype
+    if not _on_card(params[0]):
+        raise TypeError(f"no clip + SGD kernel for device {dev}")
+    if dtype != torch.float32:
+        raise TypeError(f"the clip + SGD kernel takes float32 leaves, not {dtype}")
+    if len(params) > MAX_LEAVES:
+        raise ValueError(f"the clip + SGD kernel takes at most {MAX_LEAVES} leaves")
+    if not all(p.is_contiguous() for p in params):
+        raise ValueError("the clip + SGD kernel updates contiguous parameters in place")
+
+
+def _on_card(p: torch.Tensor) -> bool:
+    return p.is_cuda
+
+
+def _library():
+    return cuda_build.load()
+
+
+_shape, _needs_grad = attrgetter("shape"), attrgetter("requires_grad")
+_ptr, _contiguous = torch.Tensor.data_ptr, torch.Tensor.is_contiguous
+# One C++ pass over a tensor list: {(device, dtype): ...} of its tensors.
+_by_device_and_dtype = torch._C._group_tensors_by_device_and_dtype
+
+
+class _Plan:
+    """One parameter tree's launch, kept between calls (the MAML inner loop
+    updates the same leaves in place at every inner step): the tree's
+    signature (the leaves' addresses and shapes), its device, task count,
+    the kernel's scratch and the launch's packing."""
+
+    __slots__ = ("pptrs", "shapes", "where", "tasks", "entry", "partials", "launch", "sizes")
+
+    def __init__(self, params, pptrs, shapes, batched):
+        n = len(params)
+        self.pptrs, self.shapes = pptrs, shapes
+        self.where = (params[0].device, torch.float32)
+        self.tasks = shapes[0][0] if batched else 1
+        # Row 9 (a task axis) has its own entry: csrc/fused_sgd.cu.
+        self.entry = "wf_clip_sgd_update_tasks" if batched else "wf_clip_sgd_update"
+        sizes = [p.numel() // self.tasks for p in params]
+        floats = _library().wf_clip_sgd_plan(n, (ctypes.c_longlong * n)(*sizes), self.tasks)
+        if floats < 0:
+            raise ValueError("the clip + SGD kernel takes non-empty leaves and at most 65535 "
+                             "tasks")
+        self.partials = torch.empty(floats, dtype=torch.float32, device=params[0].device)
+        # csrc/fused_sgd.cu `SgdLaunch`: n_leaves, n_tasks, lr, max_norm, the
+        # partials' and the stream's addresses, the parameters' and the
+        # gradients' addresses, then the sizes; 8 bytes each.
+        self.launch = struct.Struct(f"<qqddqq{2 * n}q")
+        self.sizes = struct.pack(f"<{n}q", *sizes)
+
+
+_PLANS: dict = {}  # (batched, stream) -> the plan of the tree last updated there
+
+
 def clip_sgd_update(
     params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], lr: float,
     max_norm: float, *, batched: bool = False,
@@ -83,34 +145,50 @@ def clip_sgd_update(
         contiguous float32 tensors.
       grads: one gradient of the same shape, device and dtype per leaf.
       lr, max_norm: Python numbers (the MAML inner lr and clip norm).
+
+    On a card every check of `_check` and `_card_refusals` is made at every
+    call, against the cached plan's signature where the tree is the one it
+    was made for; the plan is made anew when the leaves' addresses or shapes
+    (or the stream) change.
     """
-    _check(params, grads, lr, max_norm, batched)
-    dev, dtype = params[0].device, params[0].dtype
-    if dev.type == "cpu" or dtype == torch.float64:
-        return clip_sgd_update_plain(params, grads, lr, max_norm, batched=batched)
-    if dev.type != "cuda":
-        raise TypeError(f"no clip + SGD kernel for device {dev}")
-    if dtype != torch.float32:
-        raise TypeError(f"the clip + SGD kernel takes float32 leaves, not {dtype}")
-    if len(params) > MAX_LEAVES:
-        raise ValueError(f"the clip + SGD kernel takes at most {MAX_LEAVES} leaves")
-    if not all(p.is_contiguous() for p in params):
-        raise ValueError("the clip + SGD kernel updates contiguous parameters in place")
-    grads = [g.contiguous() for g in grads]
-    tasks = params[0].shape[0] if batched else 1
-    n = len(params)
-    sizes = (ctypes.c_longlong * n)(*(p.numel() // tasks for p in params))
-    lib = cuda_build.load()
-    chunks = lib.wf_clip_sgd_chunks(n, sizes)
-    if chunks < 0:
-        raise ValueError("the clip + SGD kernel takes non-empty leaves")
-    partials = torch.empty(tasks * chunks, dtype=torch.float32, device=dev)
+    if (not params or len(params) != len(grads) or not isinstance(lr, (int, float))
+            or not isinstance(max_norm, (int, float)) or not _on_card(params[0])
+            or params[0].dtype is not torch.float32):
+        _check(params, grads, lr, max_norm, batched)
+        dev, dtype = params[0].device, params[0].dtype
+        if dev.type == "cpu" or dtype == torch.float64:
+            return clip_sgd_update_plain(params, grads, lr, max_norm, batched=batched)
+        _card_refusals(params)
+    pptrs, shapes = tuple(map(_ptr, params)), tuple(map(_shape, params))
+    dev = params[0].device
+    stream = cuda_build.stream_ptr(dev)
+    plan = _PLANS.get((batched, stream))
+    if plan is None or plan.pptrs != pptrs or plan.shapes != shapes:
+        _check(params, grads, lr, max_norm, batched)
+        _card_refusals(params)
+        if len(_PLANS) >= 16:
+            _PLANS.clear()
+        plan = _PLANS[(batched, stream)] = _Plan(params, pptrs, shapes, batched)
+    # `_check` and `_card_refusals` against the plan: shapes leaf by leaf, one
+    # device and float32 throughout, contiguous parameters (the leaf count
+    # and the task axis are the plan's, its shapes being these).
+    p_where, g_where = _by_device_and_dtype([params], False), _by_device_and_dtype([grads], False)
+    if (tuple(map(_shape, grads)) != shapes or len(p_where) != 1 or plan.where not in p_where
+            or len(g_where) != 1 or plan.where not in g_where
+            or not all(map(_contiguous, params))):
+        _check(params, grads, lr, max_norm, batched)
+        _card_refusals(params)
+    if torch.is_grad_enabled() and any(map(_needs_grad, grads)):
+        _check(params, grads, lr, max_norm, batched)
+    if not all(map(_contiguous, grads)):
+        grads = [g.contiguous() for g in grads]
+    partials = plan.partials
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        partials = torch.empty_like(partials)  # a captured graph's own scratch
     cuda_build.check(
-        lib.wf_clip_sgd_update(
-            n, (ctypes.c_void_p * n)(*(p.data_ptr() for p in params)),
-            (ctypes.c_void_p * n)(*(g.data_ptr() for g in grads)), sizes, tasks,
-            float(lr), float(max_norm), partials.data_ptr(), cuda_build.stream_ptr(dev),
-        ),
+        getattr(_library(), plan.entry)(
+            plan.launch.pack(len(pptrs), plan.tasks, lr, max_norm, partials.data_ptr(), stream,
+                             *pptrs, *map(_ptr, grads)) + plan.sizes),
         "clip + SGD update",
     )
     if batched:

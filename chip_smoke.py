@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port on one CUDA card: the serving path,
 first- and second-order MAML meta-training, regional adaptation with the
 pipeline, node-sharded / data-parallel meta-training, the LSTM kernel
-routes, and the two flag-selected LSTM-stack paths (the task-batched meta
-step and the unmerged-gates stack).
+routes, the two flag-selected LSTM-stack paths (the task-batched meta
+step and the unmerged-gates stack), reference-checkpoint interop and the
+region fleet (`pipeline --mesh-fleet`).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`python3 chip_smoke.py --mesh-rank DIR` is phase 14's rank process, started
@@ -207,7 +208,33 @@ time):
      its TN products 2 x 4 a row-15 launch, rows 4-5 none),
      `forecast`
      Moscow (row 14, never row 2; against the merged route's forecast), one
-     inner step timed and profiled; both flags are restored afterwards.
+     inner step timed and profiled; both flags are restored afterwards;
+ 20. interop at ModelConfig(): a reference-schema .pt written from seeded
+     weights (a torch.nn.LSTM's state dict: split biases, bias_hh nonzero;
+     a meta form and an adapted form with Moscow's stats) is imported
+     through `python -m weatherforecast_stgcn_maml_tpu_torch
+     import-checkpoint`; `forecast` Moscow from it (rows 1-2 must launch)
+     against `--device cpu`; one train step of the imported model, kernel
+     route (rows 4-7, no plain stack) against the plain route with the same
+     masks, every gradient (b_ih and b_hh too) within the float32 gate and
+     each layer's two biases given the same gradient; that step under
+     utils/profiling.trace_span, whose Chrome trace must hold gemm_nn and
+     forward recurrence kernels; `adapt` Moscow 1 epoch from it (rows 4-7,
+     no plain stack, finite losses); the adapted form imported with
+     `--region Moscow` and `validate --no-plots` (rows 1-2); its
+     `export-checkpoint` imported again, bitwise equal; `data-report` (12
+     variable rows); `python -m ... info` (names the card);
+ 21. `pipeline --mesh-fleet --no-plots` over Moscow, NorthSiberia,
+     Afghanistan (cold) and NewYork (temperate) at AdaptConfig(), 1 epoch,
+     from the imported checkpoint: the log must say fleet-adapted and no
+     fallback, every adapted checkpoint `fleet_mesh`, rows 4-7 R launches a
+     fleet step, rows 16-17 none, every val_mse finite; at dropout 0 and
+     200 windows the fleet against the serial pipeline and, with _VBATCH
+     set, the fleet on rows 16-17 (once a zone's fleet step each way, rows
+     4-5 never; the forward plans printed) against the default fleet, 1e-5
+     relative; one fleet epoch of the three cold regions against their
+     three serial epochs in turns, with peak device memory, and rows 16-17
+     at the fleet's shape against three calls of rows 4-5.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -496,6 +523,7 @@ def main() -> int:
     from weatherforecast_stgcn_maml_tpu_torch.config import (
         ADAPTATION_REGIONS,
         META_TRAIN_REGIONS,
+        AdaptConfig,
         DataConfig,
         ExperimentConfig,
         MetaConfig,
@@ -520,6 +548,7 @@ def main() -> int:
         apply_model,
         draw_masks,
         init_model,
+        load_params,
     )
     from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import (
@@ -564,6 +593,10 @@ def main() -> int:
         make_mesh_2d,
         shard_task_batch_2d,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.fleet_mesh import (
+        make_fleet_epoch_runner,
+        stack_fleet,
+    )
     from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import (
         make_shardmap_batch_grad,
         make_shardmap_meta_step_2d,
@@ -602,7 +635,13 @@ def main() -> int:
         stage_tasks,
         task_at,
     )
-    from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import load_meta, save_checkpoint
+    from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        load_meta,
+        save_checkpoint,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.utils.profiling import trace_span
+    from weatherforecast_stgcn_maml_tpu_torch.utils.torch_import import import_torch_checkpoint
 
     # 1. The card.
     major, minor = torch.cuda.get_device_capability(0)
@@ -3831,6 +3870,386 @@ def main() -> int:
             del state, params
         finally:
             fls._MERGED_GATES = True
+    # 20. Interop: a reference-schema .pt through import-checkpoint (python -m),
+    # served, adapted and validated on the card, exported back; data-report,
+    # info and trace_span.
+    with Phase("interop: import-checkpoint, export-checkpoint, data-report, python -m"):
+        interop = os.path.join(out_root, "interop")
+        os.makedirs(interop)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+        def python_m(*argv):
+            proc = subprocess.run(
+                [sys.executable, "-m", "weatherforecast_stgcn_maml_tpu_torch", *argv],
+                env=env, capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"python -m ... {argv} exited {proc.returncode}:\n"
+                                   f"{proc.stderr[-3000:]}")
+            return proc.stdout
+
+        # A reference checkpoint from seeded weights, keyed as the reference
+        # saves it: GCNConv linear weights [out, in], a torch.nn.LSTM's state
+        # dict (split biases, bias_hh nonzero), the head, the Koppen table.
+        gen = torch.Generator().manual_seed(20)
+
+        def uniform(*shape):
+            return (torch.rand(shape, generator=gen) * 2 - 1) / shape[-1] ** 0.5
+
+        hybrid_sd, d_in = {}, cfg.in_channels
+        for i in range(1, cfg.gcn_layers + 1):
+            hybrid_sd[f"base_stgcn.conv{i}.lin.weight"] = uniform(cfg.hidden_channels, d_in)
+            hybrid_sd[f"base_stgcn.conv{i}.bias"] = uniform(cfg.hidden_channels, d_in)[:, 0]
+            d_in = cfg.hidden_channels
+        out_dim = cfg.num_weather_vars * cfg.horizon
+        hybrid_sd["base_stgcn.output_layer.weight"] = uniform(out_dim, cfg.hidden_channels)
+        hybrid_sd["base_stgcn.output_layer.bias"] = uniform(out_dim, cfg.hidden_channels)[:, 0]
+        torch.manual_seed(20)
+        ref_lstm = torch.nn.LSTM(cfg.hidden_channels, cfg.lstm_hidden, cfg.lstm_layers,
+                                 batch_first=True)
+        hybrid_sd.update({f"lstm.{k}": v.detach().clone()
+                          for k, v in ref_lstm.state_dict().items()})
+        hybrid_sd["output_layer.weight"] = uniform(out_dim, cfg.lstm_hidden)
+        hybrid_sd["output_layer.bias"] = uniform(out_dim, cfg.lstm_hidden)[:, 0]
+        moscow_adapt = get_region_data(boxes["Moscow"], data_cfg.adapt_years, data_cfg,
+                                       tag="adapt", name="Moscow")
+        feats_np, moscow_stats = prepare_features(moscow_adapt)
+        ref_ckpt = {
+            "hybrid_model_state_dict": hybrid_sd,
+            "koppen_embed_state_dict": {"embedding.weight": torch.randn(
+                cfg.koppen_classes, cfg.koppen_dim, generator=gen)},
+            "config": {"input_channels": cfg.in_channels, "hidden_channels": cfg.hidden_channels,
+                       "output_channels": cfg.num_weather_vars, "window_size": cfg.window,
+                       "forecast_horizon": cfg.horizon},
+            "hybrid_config": {"lstm_hidden_size": cfg.lstm_hidden,
+                              "lstm_num_layers": cfg.lstm_layers,
+                              "lstm_dropout": cfg.lstm_dropout},
+            "model_version": "5.0", "epoch": 40,
+        }
+        meta_pt, adapted_pt = (os.path.join(interop, f) for f in ("ref_meta.pt", "ref_adapted.pt"))
+        torch.save(ref_ckpt, meta_pt)
+        torch.save({**ref_ckpt, "region_name": "Moscow", "val_loss": 0.5, "stats": {
+            "mean": moscow_stats.mean, "std": moscow_stats.std}}, adapted_pt)
+        if not float(hybrid_sd["lstm.bias_hh_l0"].abs().max()) > 0:
+            raise RuntimeError("the reference LSTM's bias_hh is zero")
+
+        # import-checkpoint through `python -m <package>`.
+        t0 = time.perf_counter()
+        text = python_m("import-checkpoint", meta_pt, "-o", f"out_dir={interop}")
+        log(f"python -m ... import-checkpoint: {time.perf_counter() - t0:.1f} s; "
+            f"{text.splitlines()[0]}")
+        meta_ckpt = os.path.join(interop, "meta", "ckpt_best")
+        imported_sd, imported_meta = load_checkpoint(meta_ckpt)
+        split = sorted(k for k in imported_sd if k.endswith(("b_ih", "b_hh")))
+        if len(split) != 2 * cfg.lstm_layers or imported_meta["schema"] != "wfstgcn-meta-v1":
+            raise RuntimeError(f"the imported checkpoint: split biases {split}, "
+                               f"schema {imported_meta.get('schema')}")
+
+        # forecast from it: rows 1-2 on the card, equal to the plain route's.
+        for fn in (fused_gcn_stack, lstm_stack_last_all):
+            fn.launches = 0
+        got = forecast("Moscow", "float32", interop)
+        interop_serving = {"fused_gcn_stack": fused_gcn_stack.launches,
+                           "lstm_stack_last_all": lstm_stack_last_all.launches}
+        ref = forecast("Moscow", "float32", interop, device="cpu")
+        err = float(np.abs(got - ref).max())
+        log(f"forecast Moscow from the imported checkpoint: launches {interop_serving}; "
+            f"card vs plain route max_abs_err {err:.3e} (tol {TOL['float32']})")
+        if 0 in interop_serving.values():
+            raise RuntimeError(f"forecast from the imported checkpoint: {interop_serving}")
+        np.testing.assert_allclose(got, ref, rtol=TOL["float32"], atol=TOL["float32"])
+
+        # One train step of the imported (split-bias) model, kernel route vs
+        # plain route, the same masks: every gradient, b_ih and b_hh too.
+        spec = WindowSpec(cfg.window, cfg.horizon)
+        feats = torch.from_numpy(pad_nodes(feats_np, n)).to(dev)
+        node_mask = torch.from_numpy(graph.node_mask).to(dev)
+        koppen = max(moscow_adapt.koppen_code, 0)
+        imported = init_model(torch.Generator().manual_seed(0), cfg)
+        load_params(imported, imported_sd)
+        imported = imported.to(dev)
+        names, leaves = zip(*imported.named_parameters())
+        x, y = gather_batch(feats, [100, 101], spec)
+        masks = draw_masks(cfg, torch.Generator(device=dev).manual_seed(21), x)
+        split_grads = {}
+        for route, mc in (("kernel", cfg),
+                          ("plain", ModelConfig(use_pallas_gcn=False, lstm_kernel="xla"))):
+            for fn in (gcn_stack_train, lstm_stack_train):
+                fn.launches = fn.backward_launches = 0
+            lstm_stack_train.plain_routes = 0
+            loss = masked_mse(apply_model(imported, a_hat, x, koppen, mc, train=True,
+                                          masks=masks), y, node_mask)
+            split_grads[route] = dict(zip(names, torch.autograd.grad(loss, leaves)))
+            if route == "kernel":
+                counts = (gcn_stack_train.launches, gcn_stack_train.backward_launches,
+                          lstm_stack_train.launches, lstm_stack_train.backward_launches,
+                          lstm_stack_train.plain_routes)
+                if counts != (1, 1, 1, 1, 0):
+                    raise RuntimeError(f"the imported model's train step launched rows 6, 7, "
+                                       f"4, 5 and the plain stack {counts} times")
+        rels = {k: rel_err(split_grads["kernel"][k], split_grads["plain"][k]) for k in names}
+        worst = max(rels, key=rels.get)
+        bias_rels = {k: f"{v:.2e}" for k, v in rels.items() if k.endswith(("b_ih", "b_hh"))}
+        log(f"imported model's train step (split biases), kernel vs plain route: gradient "
+            f"max|diff|/max|ref| {rels[worst]:.3e} at {worst} (tol {TOL['float32']}); "
+            f"b_ih / b_hh {bias_rels}")
+        if rels[worst] > TOL["float32"]:
+            raise RuntimeError(f"the imported model's gradient {worst} off by {rels[worst]:.3e}")
+        for l in range(cfg.lstm_layers):
+            kg = split_grads["kernel"]
+            if not torch.equal(kg[f"lstm.layers.{l}.b_ih"], kg[f"lstm.layers.{l}.b_hh"]):
+                raise RuntimeError(f"layer {l}: b_ih and b_hh took different gradients")
+
+        # One adaptation step under trace_span: the Chrome trace must hold the
+        # GEMM core's and the forward recurrence's kernels.
+        tx, lr0 = adaptation_optimizer("Moscow")
+        train_step = make_train_step(cfg, tx)
+        astate = SupervisedState(imported, tx.init(dict(imported.named_parameters())))
+        g = torch.Generator(device=dev).manual_seed(22)
+        astate, _ = train_step(astate, x, y, a_hat, node_mask, koppen, lr0, g)
+        trace_dir = os.path.join(interop, "trace")
+        with trace_span(trace_dir):
+            astate, _ = train_step(astate, x, y, a_hat, node_mask, koppen, lr0, g)
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            kernels_seen = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                            if e.get("cat") == "kernel"}
+        hits = {k: sum(k in name for name in kernels_seen)
+                for k in ("gemm_nn", "lstm_scan_fwd_kernel")}
+        log(f"trace_span of one adaptation step: {len(kernels_seen)} distinct kernels, {hits}")
+        if 0 in hits.values():
+            raise RuntimeError(f"the trace lacks a kernel: {hits}; {sorted(kernels_seen)[:20]}")
+        del astate, imported, split_grads
+
+        # adapt Moscow 1 epoch from the imported checkpoint: rows 4-7, no
+        # plain stack, finite losses.
+        for fn in (gcn_stack_train, lstm_stack_train):
+            fn.launches = fn.backward_launches = 0
+        lstm_stack_train.plain_routes = 0
+        adapt_out = os.path.join(interop, "adapt_run")
+        _, _, secs = run_cli(["adapt", "--region", "Moscow", "--meta-ckpt", meta_ckpt,
+                              "-o", f"out_dir={adapt_out}", "-o", "adapt.epochs=1"])
+        interop_adapt = {"gcn_stack_train": gcn_stack_train.launches,
+                         "gcn_stack_train.backward": gcn_stack_train.backward_launches,
+                         "lstm_stack_train": lstm_stack_train.launches,
+                         "lstm_stack_train.backward": lstm_stack_train.backward_launches,
+                         "plain stack": lstm_stack_train.plain_routes}
+        side = load_meta(adapted_ckpt_path(adapt_out, "Moscow", boxes["Moscow"]))
+        values = [side["val_mse"], *side["epoch_losses"]]
+        log(f"adapt Moscow from the imported checkpoint, 1 epoch: {secs:.1f} s, launches "
+            f"{interop_adapt}, epoch loss {side['epoch_losses']}, val_mse "
+            f"{side['val_mse']:.6f}  [{card}]")
+        if (0 in list(interop_adapt.values())[:4] or interop_adapt["plain stack"]
+                or not np.isfinite(values).all()):
+            raise RuntimeError(f"adapt from the imported checkpoint: {interop_adapt}, {values}")
+
+        # The adapted form, imported under Moscow's name, validated on the card.
+        _, _, _ = run_cli(["import-checkpoint", adapted_pt, "--region", "Moscow",
+                           "-o", f"out_dir={interop}"])
+        for fn in (fused_gcn_stack, lstm_stack_last_all):
+            fn.launches = 0
+        out, err, _ = run_cli(["validate", "--region", "Moscow", "--no-plots",
+                               "-o", f"out_dir={interop}"])
+        interop_validate = {"fused_gcn_stack": fused_gcn_stack.launches,
+                            "lstm_stack_last_all": lstm_stack_last_all.launches}
+        results = json.loads(out)
+        log(f"validate Moscow from the imported adapted checkpoint: average_mse "
+            f"{results['average_mse']:.6f}, launches {interop_validate}")
+        if ("(adapted model)" not in err or 0 in interop_validate.values()
+                or not np.isfinite(results["average_mse"])):
+            raise RuntimeError(f"validate of the imported adapted checkpoint: {err[-2000:]}")
+
+        # export-checkpoint it, import the .pt again: the same parameters, bitwise.
+        exported_pt = os.path.join(interop, "exported.pt")
+        run_cli(["export-checkpoint", "--region", "Moscow", "--out", exported_pt,
+                 "-o", f"out_dir={interop}"])
+        adapted_sd, _ = load_checkpoint(adapted_ckpt_path(interop, "Moscow", boxes["Moscow"]))
+        again, _, again_stats, _ = import_torch_checkpoint(exported_pt)
+        if sorted(again) != sorted(adapted_sd) or not all(
+                torch.equal(again[k], adapted_sd[k]) for k in again):
+            raise RuntimeError("export -> import changed the adapted parameters")
+        if not np.array_equal(again_stats.mean, moscow_stats.mean):
+            raise RuntimeError("export -> import changed the stats")
+        log(f"export-checkpoint -> import: {len(again)} tensors bitwise equal, stats equal")
+
+        report, _, _ = run_cli(["data-report", "--region", "Moscow"])
+        rows = [line for line in report.splitlines()[3:] if line.strip()]
+        log("data-report Moscow:\n" + report.rstrip())
+        if len(rows) != cfg.num_weather_vars:
+            raise RuntimeError(f"data-report printed {len(rows)} variable rows")
+        info = python_m("info")
+        if torch.cuda.get_device_name(0) not in info:
+            raise RuntimeError(f"python -m ... info does not name the card: {info[-500:]}")
+        log(f"python -m ... info: {info.strip().splitlines()[-2]}")
+
+    # 21. The fleet: `pipeline --mesh-fleet` over three cold regions and a
+    # temperate one, from the imported meta checkpoint.
+    with Phase("pipeline --mesh-fleet"):
+        fleet_regions = ["Moscow", "NorthSiberia", "Afghanistan", "NewYork"]
+        groups = {"cold": 3, "temperate": 1}
+
+        def fleet_counts():
+            tasks = fls.lstm_stack_train_tasks
+            return {"gcn_stack_train": gcn_stack_train.launches,
+                    "gcn_stack_train.backward": gcn_stack_train.backward_launches,
+                    "lstm_stack_train": lstm_stack_train.launches,
+                    "lstm_stack_train.backward": lstm_stack_train.backward_launches,
+                    "lstm_stack_train_tasks": tasks.launches,
+                    "lstm_stack_train_tasks.backward": tasks.backward_launches,
+                    "fused_gcn_stack": fused_gcn_stack.launches,
+                    "lstm_stack_last_all": lstm_stack_last_all.launches}
+
+        def zero_fleet_counts():
+            for fn in (gcn_stack_train, lstm_stack_train, fls.lstm_stack_train_tasks):
+                fn.launches = fn.backward_launches = 0
+            fused_gcn_stack.launches = lstm_stack_last_all.launches = 0
+
+        def pipeline(out, *extra, fleet=True):
+            if not os.path.exists(os.path.join(out, "meta", "ckpt_best")):
+                save_checkpoint(os.path.join(out, "meta", "ckpt_best"), imported_sd,
+                                imported_meta)
+            _, err, secs = run_cli(["pipeline", "--regions", ";".join(fleet_regions),
+                                    "--no-plots", *(["--mesh-fleet"] if fleet else []),
+                                    "-o", f"out_dir={out}", "-o", "adapt.epochs=1", *extra])
+            sides = {r: load_meta(adapted_ckpt_path(out, r, boxes[r])) for r in fleet_regions}
+            return err, secs, sides
+
+        def steps(max_samples=AdaptConfig().max_samples):
+            n_win = spec.num_samples(data_cfg.synthetic_timesteps)
+            train_idx, _ = contiguous_split(n_win, AdaptConfig().train_fraction, max_samples)
+            return -(-len(train_idx) // AdaptConfig().batch_size)
+
+        zero_fleet_counts()
+        err, secs, sides = pipeline(os.path.join(out_root, "fleet"))
+        main_fleet = fleet_counts()
+        nb = steps()
+        log(f"pipeline --mesh-fleet {fleet_regions} at AdaptConfig() (1 epoch, {nb} fleet "
+            f"steps a zone): {secs:.1f} s; launches {main_fleet}  [{card}]")
+        log("  " + "\n  ".join(line for line in err.splitlines() if "fleet" in line
+                               or "avg_mse" in line))
+        if "fleet-adapted" not in err or "fleet adaptation failed" in err:
+            raise RuntimeError(f"the fleet did not run: {err[-3000:]}")
+        for r, side in sides.items():
+            if side.get("fleet_mesh") is not True or not np.isfinite(
+                    [side["val_mse"], *side["epoch_losses"]]).all():
+                raise RuntimeError(f"{r}'s adapted checkpoint: {side}")
+        want = {k: len(fleet_regions) * nb for k in list(main_fleet)[:4]}
+        want.update({"lstm_stack_train_tasks": 0, "lstm_stack_train_tasks.backward": 0})
+        if {k: main_fleet[k] for k in want} != want or not (
+                main_fleet["fused_gcn_stack"] and main_fleet["lstm_stack_last_all"]):
+            raise RuntimeError(f"the fleet launched {main_fleet}, not {want} and rows 1-2")
+
+        # Dropout 0, the windows cut to 200: the fleet against the serial
+        # pipeline, then the fleet under _VBATCH against the default fleet.
+        cut = ["-o", "model.gcn_dropout=0", "-o", "model.lstm_dropout=0",
+               "-o", "adapt.max_samples=200"]
+        nb_cut = steps(200)
+        runs = {}
+        for name, fleet in (("serial", False), ("fleet", True)):
+            _, secs, runs[name] = pipeline(os.path.join(out_root, f"cut_{name}"), *cut,
+                                           fleet=fleet)
+            log(f"pipeline {name} at dropout 0, 200 windows: {secs:.1f} s")
+        sides_vb = None
+        plans = {r: fls.forward_plan(cfg.lstm_hidden, 2 * n, 4, fls._card_sms(dev), r)
+                 for r in (1, 2, 3, 4, 8)}
+        log(f"forward recurrence plans (cs, hcp, rb) at {2 * n} rows a region, float32: {plans}")
+        fls._VBATCH = True
+        try:
+            zero_fleet_counts()
+            t0 = time.perf_counter()
+            _, _, runs["_VBATCH"] = pipeline(os.path.join(out_root, "cut_vbatch"), *cut)
+            vb_fleet = fleet_counts()
+        finally:
+            fls._VBATCH = False
+        log(f"pipeline --mesh-fleet under _VBATCH at dropout 0, 200 windows: "
+            f"{time.perf_counter() - t0:.1f} s; launches {vb_fleet}")
+        want = {"lstm_stack_train": 0, "lstm_stack_train.backward": 0,
+                "lstm_stack_train_tasks": len(groups) * nb_cut,
+                "lstm_stack_train_tasks.backward": len(groups) * nb_cut,
+                "gcn_stack_train": len(fleet_regions) * nb_cut}
+        if {k: vb_fleet[k] for k in want} != want:
+            raise RuntimeError(f"the fleet under _VBATCH launched {vb_fleet}, not {want}")
+        for a, b in (("fleet", "serial"), ("_VBATCH", "fleet")):
+            worst = 0.0
+            for r in fleet_regions:
+                va = np.asarray([runs[a][r]["val_mse"], *runs[a][r]["epoch_losses"]])
+                vb = np.asarray([runs[b][r]["val_mse"], *runs[b][r]["epoch_losses"]])
+                worst = max(worst, float(np.max(np.abs(va - vb) / np.abs(vb))))
+            log(f"{a} vs {b} at dropout 0: largest relative difference of val_mse and the "
+                f"epoch loss over {len(fleet_regions)} regions {worst:.3e} (tol {TOL['float32']})")
+            if worst > TOL["float32"]:
+                raise RuntimeError(f"{a} vs {b}: {worst:.3e}")
+
+        # One fleet epoch of the three cold regions against their three
+        # serial epochs (40 steps of batch 2 each), in turns, with peak memory;
+        # rows 16-17 at the fleet's shape beside rows 4-5 three times.
+        cold = fleet_regions[:3]
+        datas = [get_region_data(boxes[r], data_cfg.adapt_years, data_cfg, tag="adapt", name=r)
+                 for r in cold]
+        fleet_feats = torch.from_numpy(np.stack([pad_nodes(prepare_features(d)[0], n)
+                                                 for d in datas])).to(dev)
+        template = init_model(torch.Generator().manual_seed(0), cfg)
+        load_params(template, imported_sd)
+        template = template.to(dev)
+        tx, lr0 = adaptation_optimizer("Moscow")
+        anchors = (spec.window + np.arange(80)).reshape(40, 2)
+        a_hat3 = a_hat.expand(3, n, n).contiguous()
+        mask3 = node_mask.expand(3, n).contiguous()
+        kop3 = [max(d.koppen_code, 0) for d in datas]
+        run_fleet = make_fleet_epoch_runner(cfg, tx, spec, template)
+        run_serial = make_epoch_runner(cfg, tx, spec)
+        params3, _ = stack_fleet([dict(template.named_parameters())] * 3, None, dev)
+        states3 = [tx.init({k: p[v] for k, p in params3.items()}) for v in range(3)]
+        lanes = [copy.deepcopy(template) for _ in range(3)]
+        serial_states = [SupervisedState(m, tx.init(dict(m.named_parameters()))) for m in lanes]
+        gens = [torch.Generator(device=dev).manual_seed(v) for v in range(3)]
+
+        def fleet_epoch():
+            run_fleet(params3, states3, fleet_feats, np.stack([anchors] * 3), a_hat3, mask3,
+                      kop3, [lr0] * 3, gens)
+
+        def serial_epochs():
+            for v in range(3):
+                run_serial(serial_states[v], fleet_feats[v], anchors, a_hat, node_mask, kop3[v],
+                           lr0, gens[v])
+
+        epoch_ms = {"fleet": [], "serial": []}
+        fleet_peak = {}
+        for name in ("fleet", "serial", "serial", "fleet"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            fn = fleet_epoch if name == "fleet" else serial_epochs
+            epoch_ms[name].append(host_ms(torch, fn, repeats=1))
+            fleet_peak[name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        log("3 cold regions, 40 steps of batch 2 each, host clock, in turns: one fleet epoch "
+            f"{epoch_ms['fleet'][0]:.1f} / {epoch_ms['fleet'][1]:.1f} ms, three serial epochs "
+            f"{epoch_ms['serial'][0]:.1f} / {epoch_ms['serial'][1]:.1f} ms; peak device memory "
+            f"fleet {fleet_peak['fleet']:.3f} GiB, serial {fleet_peak['serial']:.3f} GiB  [{card}]")
+        h3 = torch.randn(3, 2 * n, cfg.window, cfg.hidden_channels, device=dev)
+        wcat = [torch.cat([l.wx, l.wh]).detach() for l in template.lstm.layers]
+        b2d = torch.stack([l.b.detach() for l in template.lstm.layers])
+        w0 = wcat[0].expand(3, *wcat[0].shape).contiguous().requires_grad_(True)
+        wr = torch.stack(wcat[1:]).expand(3, *torch.stack(wcat[1:]).shape).contiguous()
+        b3 = b2d.expand(3, *b2d.shape).contiguous()
+
+        def row16_17():
+            out = fls.lstm_stack_train_tasks(h3, w0, wr, b3)
+            torch.autograd.grad(out.sum(), w0)
+
+        h1 = h3[0].clone()
+        layers = list(template.lstm.layers)
+
+        def rows4_5_three():
+            for _ in range(3):
+                out = lstm_stack_train(layers, h1)
+                torch.autograd.grad(out.sum(), layers[0].wx)
+
+        turns = {"rows 16-17 (V 3)": [], "rows 4-5 x 3": []}
+        for name in ("rows 16-17 (V 3)", "rows 4-5 x 3", "rows 4-5 x 3", "rows 16-17 (V 3)"):
+            turns[name].append(cuda_ms(torch, row16_17 if name.startswith("rows 16") else
+                                       rows4_5_three))
+        log(f"forward + backward at the fleet's shape ({2 * n} rows a region, 3 regions), CUDA "
+            f"events, in turns: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
+                                               for k, v in turns.items()) + f"  [{card}]")
+        del fleet_feats, params3, states3, lanes, serial_states, template, h3, w0
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -261,8 +261,8 @@ def test_cli_adapt_then_validate_then_pipeline(base_ckpt, tmp_path):
 # Each case keeps the id it had beside the plot refusal (argv1, now
 # test_cli_pipeline_writes_plots).
 @pytest.mark.parametrize("argv, error, match", [
-    pytest.param(["pipeline", "--regions", "Moscow", "--no-plots", "--mesh-fleet"],
-                 NotImplementedError, "fleet", id="argv0-NotImplementedError-fleet"),
+    pytest.param(["adapt", "--region", "Moscow", "-o", "data.root=/data/era5"],
+                 NotImplementedError, "ERA5", id="argv0-NotImplementedError-ERA5"),
     pytest.param(["pipeline", "--regions", "Moscow", "--shard", "1", "--no-plots"], SystemExit,
                  "BOTH", id="argv2-SystemExit-BOTH"),
     pytest.param(["pipeline", "--regions", "Atlantis", "--no-plots"], SystemExit,

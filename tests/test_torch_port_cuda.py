@@ -2040,3 +2040,116 @@ def test_lstm_recurrence_backward_runs_on_the_tn_core(dev, dtype, shape):
         assert not got[1].any()
     else:
         assert _rel(got[1], ref_dwh) <= 1e-5, _rel(got[1], ref_dwh)
+
+
+def _split_bias_model(dev, cfg, seed=0):
+    """The hybrid at `cfg` with torch's two LSTM biases, as an imported
+    reference checkpoint gives them (`utils/torch_import`): a real
+    torch.nn.LSTM's state dict, bias_hh nonzero."""
+    from weatherforecast_stgcn_maml_tpu_torch.models.registry import load_params
+    from weatherforecast_stgcn_maml_tpu_torch.utils.torch_import import params_from_state_dicts
+
+    model = init_model(torch.Generator().manual_seed(seed), cfg)
+    torch.manual_seed(seed)
+    lstm = torch.nn.LSTM(cfg.hidden_channels, cfg.lstm_hidden, cfg.lstm_layers)
+    sd = {k: v for k, v in model.state_dict().items() if not k.startswith("lstm.")}
+    ref = params_from_state_dicts(
+        {**{f"base_stgcn.conv{i + 1}.lin.weight": sd[f"encoder.layers.{i}.w"].t()
+            for i in range(cfg.gcn_layers)},
+         **{f"base_stgcn.conv{i + 1}.bias": sd[f"encoder.layers.{i}.b"]
+            for i in range(cfg.gcn_layers)},
+         **{f"lstm.{k}": v.detach() for k, v in lstm.state_dict().items()},
+         "output_layer.weight": sd["head.w"].t(), "output_layer.bias": sd["head.b"]},
+        {"embedding.weight": sd["koppen"]}, cfg)
+    load_params(model, ref)
+    return model.to(dev)
+
+
+@pytest.mark.cuda
+def test_imported_split_biases_train_on_rows_4_to_7(dev):
+    """A train step of the imported (split-bias) model on the card's kernels
+    (rows 4-7, no plain stack) against the plain route with the same masks:
+    every gradient within the float32 gate, b_ih and b_hh included, and the
+    two biases of a layer given the same gradient."""
+    from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
+    from weatherforecast_stgcn_maml_tpu_torch.models.registry import draw_masks
+
+    cfg = dataclasses.replace(CFG, hidden_channels=64, lstm_hidden=32)
+    model = _split_bias_model(dev, cfg)
+    names, leaves = zip(*model.named_parameters())
+    assert "lstm.layers.2.b_hh" in names
+    a_hat = _a_hat(dev)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, cfg.window, 128, cfg.feature_channels)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, cfg.horizon, 128, 12)).astype(np.float32)).to(dev)
+    mask = torch.ones(128, device=dev)
+    masks = draw_masks(cfg, torch.Generator(device=dev).manual_seed(4), x)
+    grads = {}
+    train = fused_lstm_stack.lstm_stack_train
+    gcn = fused_gcn_train.gcn_stack_train
+    for route, mc in (("kernel", cfg),
+                      ("plain", dataclasses.replace(cfg, use_pallas_gcn=False, lstm_kernel="xla"))):
+        before = (train.launches, train.backward_launches, gcn.launches, gcn.backward_launches,
+                  train.plain_routes)
+        loss = masked_mse(apply_model(model, a_hat, x, 3, mc, train=True, masks=masks), y, mask)
+        grads[route] = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        moved = tuple(a - b for a, b in zip(
+            (train.launches, train.backward_launches, gcn.launches, gcn.backward_launches,
+             train.plain_routes), before))
+        assert moved == ((1, 1, 1, 1, 0) if route == "kernel" else (0, 0, 0, 0, 0)), moved
+    for k in names:
+        assert _rel(grads["kernel"][k], grads["plain"][k]) <= TOL[torch.float32], k
+    for l in range(cfg.lstm_layers):
+        assert torch.equal(grads["kernel"][f"lstm.layers.{l}.b_ih"],
+                           grads["kernel"][f"lstm.layers.{l}.b_hh"])
+
+
+@pytest.mark.cuda
+def test_fleet_step_region_batched_on_rows_16_17(dev, monkeypatch):
+    """The fleet's step over 3 regions (2 windows each, split biases, dropout
+    0), two steps: under `_VBATCH` one launch of rows 16 and 17 a step and no
+    row 4-5 launch; by default 3 of each of rows 4-5 and none of 16-17. The
+    two routes' losses of both steps within the float32 gate, and the first
+    step's gradients (each region's Adam first moment after it, 0.1 x the
+    clipped gradient) as max|diff| / max|ref|. The updated weights are not
+    compared: Adam moves a weight whose gradient is near its eps by about lr
+    whatever the gradient's last bits, and such a weight barely moves the
+    loss."""
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.fleet_mesh import stack_fleet
+    from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import adaptation_optimizer
+    from weatherforecast_stgcn_maml_tpu_torch.train.supervised import make_region_train_step
+
+    cfg = dataclasses.replace(CFG, hidden_channels=64, lstm_hidden=32, gcn_dropout=0.0,
+                              lstm_dropout=0.0)
+    template = _split_bias_model(dev, cfg, seed=1)
+    tx, lr0 = adaptation_optimizer("Moscow")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(3, 2, cfg.window, 128, cfg.feature_channels))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(3, 2, cfg.horizon, 128, 12)).astype(np.float32)).to(dev)
+    a_hat = _a_hat(dev).expand(3, 128, 128).contiguous()
+    mask = torch.ones(3, 128, device=dev)
+    train, tasks = fused_lstm_stack.lstm_stack_train, fused_lstm_stack.lstm_stack_train_tasks
+    step = make_region_train_step(cfg, tx, template)
+    out = {}
+    for vbatch in (False, True):
+        monkeypatch.setattr(fused_lstm_stack, "_VBATCH", vbatch)
+        params, _ = stack_fleet([dict(template.named_parameters())] * 3, None, dev)
+        states = [tx.init({k: p[v] for k, p in params.items()}) for v in range(3)]
+        before = (train.launches, train.backward_launches, tasks.launches, tasks.backward_launches)
+        losses, first_mu = [], None
+        for _ in range(2):
+            states, loss = step(params, states, x, y, a_hat, mask, [1, 2, 3], [lr0] * 3,
+                                [None] * 3)
+            losses.append(loss)
+            first_mu = first_mu or [dict(st.mu) for st in states]
+        moved = tuple(a - b for a, b in zip(
+            (train.launches, train.backward_launches, tasks.launches, tasks.backward_launches),
+            before))
+        assert moved == ((0, 0, 2, 2) if vbatch else (6, 6, 0, 0)), moved
+        out[vbatch] = torch.stack(losses), first_mu
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-5, atol=1e-5)
+    for v in range(3):
+        for k, mu in out[False][1][v].items():
+            assert _rel(out[True][1][v][k], mu) <= TOL[torch.float32], (k, v)

@@ -5,11 +5,18 @@
   python -m weatherforecast_stgcn_maml_tpu_torch.cli validate --region Moscow --no-plots
   python -m weatherforecast_stgcn_maml_tpu_torch.cli forecast --region Moscow
   python -m weatherforecast_stgcn_maml_tpu_torch.cli pipeline --regions "Moscow;NewYork" --no-plots
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli pipeline --mesh-fleet --no-plots
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli import-checkpoint ref.pt
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli export-checkpoint --out ref.pt
+  python -m weatherforecast_stgcn_maml_tpu_torch.cli data-report --region Moscow
   python -m weatherforecast_stgcn_maml_tpu_torch.cli info
 
+(`python -m weatherforecast_stgcn_maml_tpu_torch ...` is the same CLI.)
 `--device` defaults to `cuda`; without a card the command fails unless
 `--device cpu` is given, which runs the plain PyTorch versions of the
-kernels. Config overrides use the JAX package's dotted `-o key=value` form.
+kernels. `import-checkpoint`, `export-checkpoint` and `data-report` run on
+the host only. Config overrides use the JAX package's dotted `-o key=value`
+form.
 
 `meta-train --mesh` trains on a mesh of ranks, one process per device:
 
@@ -157,14 +164,190 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--shard", type=int, default=None, help="this host's shard id")
     pl.add_argument("--num-shards", type=int, default=None)
     pl.add_argument("--no-plots", action="store_true")
-    pl.add_argument("--mesh-fleet", action="store_true",
-                    help="the mesh-sharded fleet adaptation (not ported: raises)")
+    pl.add_argument(
+        "--mesh-fleet", action="store_true",
+        help="adapt pending regions in one fleet pass (regions side by side, "
+        "grouped by climate zone; engines/fleet_adapt.py)",
+    )
     pl.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     _add_common(pl)
+
+    imp = sub.add_parser(
+        "import-checkpoint",
+        help="convert a reference PyTorch .pt checkpoint into this framework",
+    )
+    imp.add_argument("path", help="reference .pt checkpoint")
+    imp.add_argument(
+        "--allow-unsafe-pickle", action="store_true",
+        help="load with full pickle (executes arbitrary bytecode) - only "
+        "for TRUSTED files that torch's safe weights_only load rejects",
+    )
+    imp.add_argument(
+        "--out",
+        help="output checkpoint dir (default: out/meta/ckpt_best, or the "
+        "region's adapted-checkpoint path with --region/--box)",
+    )
+    imp.add_argument(
+        "--region",
+        help="import as an ADAPTED checkpoint for this named region "
+        "(reference adaptation outputs carry region stats)",
+    )
+    imp.add_argument(
+        "--box", nargs=4, metavar=("LAT_MIN", "LAT_MAX", "LON_MIN", "LON_MAX")
+    )
+    imp.add_argument("--name", help="region name when using --box")
+    _add_common(imp)
+
+    exp = sub.add_parser(
+        "export-checkpoint",
+        help="convert one of this framework's checkpoints to a reference "
+        "PyTorch .pt (inverse of import-checkpoint)",
+    )
+    exp.add_argument(
+        "path", nargs="?",
+        help="framework checkpoint dir (default: out/meta/ckpt_best, or the "
+        "region's adapted checkpoint with --region/--box)",
+    )
+    exp.add_argument("--out", required=True, help="output .pt path")
+    exp.add_argument("--region", help="export this named region's adapted checkpoint")
+    exp.add_argument(
+        "--box", nargs=4, metavar=("LAT_MIN", "LAT_MAX", "LON_MIN", "LON_MAX")
+    )
+    exp.add_argument("--name", help="region name when using --box")
+    _add_common(exp)
+
+    dr = sub.add_parser(
+        "data-report",
+        help="NaN percentages, normalization stats, and graph info for a region",
+    )
+    dr.add_argument("--region", help="named region (see `info`)")
+    dr.add_argument(
+        "--box", nargs=4, metavar=("LAT_MIN", "LAT_MAX", "LON_MIN", "LON_MAX")
+    )
+    dr.add_argument("--name")
+    dr.add_argument("--years", default="train", choices=["train", "adapt", "validate"])
+    _add_common(dr)
 
     info = sub.add_parser("info", help="print config, regions, and CUDA devices")
     _add_common(info)
     return p
+
+
+def _import_checkpoint(args, cfg) -> int:
+    from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import save_checkpoint
+    from weatherforecast_stgcn_maml_tpu_torch.utils.torch_import import (
+        import_torch_checkpoint,
+    )
+
+    params, model_cfg, stats, meta = import_torch_checkpoint(
+        args.path, allow_unsafe_pickle=args.allow_unsafe_pickle
+    )
+    common = {
+        "model_version": str(meta.get("model_version", "imported")),
+        "imported_from": args.path,
+        "epoch": int(meta.get("epoch", -1)),
+        "stats": stats.to_dict() if stats is not None else None,
+        "config": {**to_dict(cfg), "model": to_dict(model_cfg)},
+    }
+    if args.region or args.box:
+        from weatherforecast_stgcn_maml_tpu_torch.engines.adapt import adapted_ckpt_path
+
+        box, name = _resolve_region(args)
+        out = args.out or adapted_ckpt_path(cfg.out_dir, name, box)
+        save_checkpoint(out, params, {
+            "schema": "wfstgcn-adapted-v1", "region": list(box), "region_name": name,
+            **common,
+        })
+    else:
+        out = args.out or f"{cfg.out_dir}/meta/ckpt_best"
+        save_checkpoint(out, params, {"schema": "wfstgcn-meta-v1", **common})
+    print(f"imported {args.path} -> {out}")
+    print(f"model config: {model_cfg}")
+    return 0
+
+
+def _export_checkpoint(args, cfg) -> int:
+    from weatherforecast_stgcn_maml_tpu_torch.config import experiment_from_dict
+    from weatherforecast_stgcn_maml_tpu_torch.data.preprocess import NormStats
+    from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import load_checkpoint
+    from weatherforecast_stgcn_maml_tpu_torch.utils.torch_export import (
+        export_torch_checkpoint,
+    )
+
+    box = name = None
+    if args.region or args.box:
+        from weatherforecast_stgcn_maml_tpu_torch.engines.adapt import adapted_ckpt_path
+
+        box, name = _resolve_region(args)
+        src = args.path or adapted_ckpt_path(cfg.out_dir, name, box)
+    else:
+        src = args.path or f"{cfg.out_dir}/meta/ckpt_best"
+    params, meta = load_checkpoint(src)
+    model_cfg = cfg.model
+    if isinstance(meta.get("config"), dict) and "model" in meta["config"]:
+        model_cfg = experiment_from_dict(meta["config"]).model
+    if model_cfg.family != "hybrid":
+        raise SystemExit(
+            f"export-checkpoint: reference schema is hybrid-only, "
+            f"checkpoint family is {model_cfg.family!r}"
+        )
+    stats = NormStats.from_dict(meta["stats"]) if meta.get("stats") else None
+    extra = {
+        k: meta[k]
+        for k in ("epoch", "val_mse", "koppen_code")
+        if k in meta and meta[k] is not None
+    }
+    export_torch_checkpoint(
+        args.out, params, model_cfg, stats=stats,
+        region=tuple(box) if box else meta.get("region"),
+        region_name=name or meta.get("region_name"),
+        extra_meta=extra,
+    )
+    print(f"exported {src} -> {args.out}")
+    return 0
+
+
+def _data_report(args, cfg) -> int:
+    import numpy as np
+
+    from weatherforecast_stgcn_maml_tpu_torch.config import WEATHER_VARS
+    from weatherforecast_stgcn_maml_tpu_torch.data.koppen import class_name
+    from weatherforecast_stgcn_maml_tpu_torch.data.preprocess import (
+        compute_stats,
+        fill_nans_with_mean,
+        nan_percentages,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
+    from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
+
+    box, name = _resolve_region(args)
+    years = {
+        "train": cfg.data.train_years,
+        "adapt": cfg.data.adapt_years,
+        "validate": (cfg.data.validate_year,),
+    }[args.years]
+    region = get_region_data(box, years, cfg.data, tag=args.years, name=name)
+    pct = nan_percentages(region.weather)
+    t, la, lo, _ = region.weather.shape
+    # The pipeline's NaN policy: fill with the per-variable nanmean, then
+    # the stats the model sees.
+    filled = fill_nans_with_mean(region.weather.reshape(t, la * lo, -1).astype(np.float32))
+    stats = compute_stats(filled)
+    g = build_region_graph(region.lats, region.lons, k_neighbors=cfg.data.k_neighbors)
+    print(f"region {name} {tuple(box)} \u2014 {args.years} years {years}")
+    print(
+        f"  {t} timesteps x {la}x{lo} grid = {g.num_nodes} nodes "
+        f"(padded {g.padded_nodes}); koppen {region.koppen_code} "
+        f"({class_name(region.koppen_code)})"
+    )
+    print(f"  {'var':>6} {'nan%':>6} {'mean':>12} {'std':>12}")
+    for i, var in enumerate(WEATHER_VARS):
+        flag = "!!" if pct[i] >= 0.15 else (" !" if pct[i] >= 0.05 else "  ")
+        print(
+            f"  {var:>6} {100 * pct[i]:5.1f}{flag} {stats.mean[i]:12.4g} "
+            f"{stats.std[i]:12.4g}"
+        )
+    return 0
 
 
 def main(argv=None) -> int:
@@ -234,6 +417,13 @@ def main(argv=None) -> int:
             log_cb=_log_stderr,
         )
         return 1 if res.errors else 0
+
+    if args.command == "import-checkpoint":
+        return _import_checkpoint(args, cfg)
+    if args.command == "export-checkpoint":
+        return _export_checkpoint(args, cfg)
+    if args.command == "data-report":
+        return _data_report(args, cfg)
 
     box, name = _resolve_region(args)
     device = _resolve_device(args.device)

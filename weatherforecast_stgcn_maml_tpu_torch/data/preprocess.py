@@ -41,6 +41,12 @@ class NormStats:
         return x * self.std + self.mean
 
 
+def nan_percentages(weather: np.ndarray) -> np.ndarray:
+    """Fraction of NaNs per variable (the last axis)."""
+    flat = weather.reshape(-1, weather.shape[-1])
+    return np.isnan(flat).mean(axis=0)
+
+
 def fill_nans_with_mean(weather: np.ndarray) -> np.ndarray:
     """Replace NaNs by the per-variable nanmean (0 if a variable is all-NaN)."""
     if not np.isnan(weather).any():

@@ -72,6 +72,7 @@ from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from weatherforecast_stgcn_maml_tpu_torch.utils.metrics import CsvLogger, JsonlLogger
+from weatherforecast_stgcn_maml_tpu_torch.utils.profiling import Timer
 
 
 @dataclass
@@ -153,13 +154,15 @@ def run_meta_training(
         regions = _load_regions(cfg, log_cb)
     if not regions:
         raise RuntimeError("no meta-training regions could be loaded")
-    pad = common_padded_nodes(regions)
-    built = []
-    for r in regions:
-        try:
-            built.append(build_task(r, model_cfg, meta_cfg, cfg.data, pad_to=pad))
-        except Exception as e:
-            log_cb(f"[meta-train] skipping region {r.name!r}: {e}")
+    timer = Timer()
+    with timer.span("task_build"):
+        pad = common_padded_nodes(regions)
+        built = []
+        for r in regions:
+            try:
+                built.append(build_task(r, model_cfg, meta_cfg, cfg.data, pad_to=pad))
+            except Exception as e:
+                log_cb(f"[meta-train] skipping region {r.name!r}: {e}")
     if not built:
         raise RuntimeError("no meta-training tasks could be built")
     log_cb(
@@ -321,7 +324,7 @@ def run_meta_training(
             save(last_path, epoch, loss)
 
     save(final_path, meta_cfg.num_epochs - 1, loss)
-    log_cb(f"[meta-train] done: best {best_loss:.4f}")
+    log_cb(f"[meta-train] done: best {best_loss:.4f}; spans {timer.summary()}")
     return MetaTrainResult(
         best_loss=best_loss,
         final_loss=loss,

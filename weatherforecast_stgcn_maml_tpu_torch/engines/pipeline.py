@@ -7,8 +7,12 @@ and the run ends with a summary. The region list can be sharded across
 hosts (`shard_id` / `num_shards`); they share checkpoints through the
 filesystem. Validation writes its plots unless `make_plots` is False;
 where matplotlib is missing that raises an ImportError naming `--no-plots`
-before the first region. The mesh-sharded fleet adaptation is not ported:
-it raises before the first region.
+before the first region.
+
+With `mesh_fleet`, every region without an adapted checkpoint is first
+adapted in one fleet pass (`engines/fleet_adapt.py`: regions side by side,
+grouped by climate zone); if the fleet raises, the per-region loop below
+adapts what is still missing, as without it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from weatherforecast_stgcn_maml_tpu_torch.config import ADAPTATION_REGIONS, ExperimentConfig
 from weatherforecast_stgcn_maml_tpu_torch.engines.adapt import adapted_ckpt_path, run_adaptation
+from weatherforecast_stgcn_maml_tpu_torch.engines.fleet_adapt import run_fleet_adaptation
 from weatherforecast_stgcn_maml_tpu_torch.engines.validate import run_validation
 from weatherforecast_stgcn_maml_tpu_torch.eval.plots import require_matplotlib
 from weatherforecast_stgcn_maml_tpu_torch.parallel.fleet import partition_round_robin
@@ -45,11 +50,6 @@ def run_pipeline(
     mesh_fleet: bool = False,
     log_cb=print,
 ) -> PipelineResult:
-    if mesh_fleet:
-        raise NotImplementedError(
-            "the mesh-sharded fleet adaptation (engines/fleet_adapt.py) is not "
-            "ported; run without --mesh-fleet"
-        )
     if make_plots:
         require_matplotlib()
     if regions is None:
@@ -57,6 +57,25 @@ def run_pipeline(
     regions = partition_round_robin(regions, num_shards, shard_id)
     result = PipelineResult()
     jsonl = JsonlLogger(f"{cfg.out_dir}/pipeline.jsonl")
+
+    if mesh_fleet:
+        pending = [
+            (box, name) for box, name in regions
+            if not checkpoint_exists(adapted_ckpt_path(cfg.out_dir, name, box))
+        ]
+        if pending:
+            t0 = time.perf_counter()
+            try:
+                run_fleet_adaptation(cfg, pending, device=device, log_cb=log_cb)
+                log_cb(
+                    f"[pipeline] fleet-adapted {len(pending)} regions in "
+                    f"{time.perf_counter() - t0:.1f}s"
+                )
+            except Exception as e:
+                log_cb(
+                    f"[pipeline] fleet adaptation failed "
+                    f"({type(e).__name__}: {e}); falling back to serial"
+                )
 
     for box, name in regions:
         t0 = time.perf_counter()

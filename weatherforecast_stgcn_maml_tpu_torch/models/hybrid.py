@@ -176,17 +176,23 @@ def apply_hybrid_tasks(
     Args:
       params: {name: [V, ...]}, the names of `named_parameters()`, every
         leaf with a leading task axis (the layout jax.vmap gives the JAX
-        package's tree over the tasks of a micro-batch).
-      a_hat: [V, N, N]; x: [V, W, N, 16], one window a task; koppen_code: [V].
-      masks: {"encoder", "lstm", "head"}, each task's masks of one window
-        (`hybrid_masks`) stacked on a leading V axis; any may be absent.
+        package's tree over the tasks of a micro-batch, or over the regions
+        of a fleet).
+      a_hat: [V, N, N]; x: [V, W, N, 16], one window a task, or [V, B, W,
+        N, 16], a batch of B windows a task (a fleet region's batch: its
+        windows fold into the task's LSTM rows, row b*N + node, as
+        `apply_hybrid` folds a batch); koppen_code: [V].
+      masks: {"encoder", "lstm", "head"}, each task's masks of its window
+        (`hybrid_masks`), with a leading B axis for a batch, stacked on a
+        leading V axis; any may be absent.
     Returns:
-      [V, H, N, 12]: V calls of `apply_hybrid(train=True)` with the same
-      masks. Per task the Koppen features and the encoder (its training
-      kernels, rows 6-7, as in the JAX package, whose vmap of them runs the
-      tasks one after another); then every task's LSTM stack in one launch
-      each way (`lstm_stack_train_tasks`, rows 16-17; its plain version
-      under `lstm_kernel="xla"`), and the head as one batched product.
+      [V, H, N, 12] (or [V, B, H, N, 12]): V calls of
+      `apply_hybrid(train=True)` with the same masks. Per task the Koppen
+      features and the encoder (its training kernels, rows 6-7, as in the
+      JAX package, whose vmap of them runs the tasks one after another);
+      then every task's LSTM stack in one launch each way
+      (`lstm_stack_train_tasks`, rows 16-17; its plain version under
+      `lstm_kernel="xla"`), and the head as one batched product.
     """
     if cfg.lstm_kernel not in ("auto", "pallas_stack", "xla") or (
             cfg.use_pallas_lstm and cfg.lstm_dropout == 0.0):
@@ -195,7 +201,7 @@ def apply_hybrid_tasks(
             f"use_pallas_lstm={cfg.use_pallas_lstm}")
     masks = masks or {}
     dtype = resolve_dtype(cfg.compute_dtype)
-    nv, n = x.shape[0], x.shape[2]
+    nv, lead, w, n = x.shape[0], x.shape[1:-3], x.shape[-3], x.shape[-2]
     # Every task's embedding row in one gather: indexing with one task's
     # code (a tensor on the card) would wait for the device.
     koppen = params["koppen"][torch.arange(nv, device=koppen_code.device), koppen_code]
@@ -203,9 +209,13 @@ def apply_hybrid_tasks(
     for v in range(nv):
         task = _task_params(params, v, cfg.gcn_layers, koppen)
         enc_masks = masks["encoder"][v] if "encoder" in masks else None
+        if lead and enc_masks is not None:
+            enc_masks = fold_slice_masks(enc_masks)
         h = apply_encoder(task.encoder, a_hat[v], koppen_features(task, x[v], v),
                           cfg, train=True, masks=enc_masks)
-        feats.append(h.transpose(0, 1))  # [N, W, hidden]: nodes are the LSTM's rows
+        # [(B,) W, N, hidden] -> [(B*)N, W, hidden]: the nodes (of every
+        # window) are the LSTM's rows.
+        feats.append(h.transpose(-3, -2).reshape(-1, w, h.shape[-1]))
     h = torch.stack(feats)
     if cfg.stop_base_gradients:
         h = h.detach()
@@ -219,7 +229,9 @@ def apply_hybrid_tasks(
                    if k.startswith(f"lstm.layers.{l}.")}) for l in range(n_layers)], dim=1)
     keep = 1.0 - cfg.lstm_dropout
     lstm_masks = masks.get("lstm")
-    lstm_masks = None if lstm_masks is None else lstm_masks.contiguous()
+    if lstm_masks is not None:
+        lstm_masks = (torch.stack([fold_row_masks(m) for m in lstm_masks]) if lead
+                      else lstm_masks.contiguous())
     lstm_keep = keep if lstm_masks is not None else 1.0
     if cfg.lstm_kernel == "xla":
         feat = lstm_stack_tasks_plain(h, wcat[0], wcatr, b2d, lstm_masks, lstm_keep, dtype)
@@ -227,8 +239,8 @@ def apply_hybrid_tasks(
         feat = lstm_stack_train_tasks(h, wcat[0], wcatr, b2d, masks=lstm_masks, keep=lstm_keep,
                                       compute_dtype=dtype)  # [V, N, lstm_hidden]
     if "head" in masks:
-        feat = apply_mask(feat, masks["head"], keep)
+        feat = apply_mask(feat, masks["head"].reshape(nv, -1, masks["head"].shape[-1]), keep)
     out = torch.matmul(as_operand(feat, dtype), as_operand(params["head.w"], dtype))
     out = out + params["head.b"][:, None]
-    out = out.reshape(nv, n, cfg.horizon, cfg.num_weather_vars)
-    return out.transpose(1, 2)  # [V, H, N, 12]
+    out = out.reshape(nv, *lead, n, cfg.horizon, cfg.num_weather_vars)
+    return out.transpose(-3, -2)  # [V, (B,) H, N, 12]

@@ -233,31 +233,44 @@ def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg) -> torch.T
     return _query_loss(params, p, task, generator, model_cfg, cfg)
 
 
-def lockstep_route(model_cfg: ModelConfig, cfg: MetaConfig, tasks: Task | None = None) -> bool:
-    """Whether the meta step runs a micro-batch's tasks in lockstep: under
-    `_VBATCH`, first order, the hybrid family on the merged fused stack,
-    where the JAX flag sends the task vmap to its task-batched kernels (see
-    ops/fused_lstm_stack.py), and on the plain stack (`lstm_kernel="xla"`,
-    the same arithmetic with no kernel, so that the two compare with the
-    same dropout masks). Given the stacked `tasks`, the fused stack goes in
-    lockstep only where its recurrences have a cluster plan for their V
-    tasks (`stack_planned`), as the JAX package's task-batched kernels run
-    only where `vbatch_supported` holds; elsewhere the tasks run one after
-    another, where `auto` then takes the plain stack."""
-    if not fused_lstm_stack._VBATCH or cfg.second_order or model_cfg.family != "hybrid":
-        return False
+def lockstep_stack(model_cfg: ModelConfig) -> str | None:
+    """The LSTM stack a task-batched train forward runs (`apply_hybrid_tasks`),
+    or None where the model's tasks (or a fleet's regions) run one after
+    another. Under `_VBATCH`, the hybrid family on the merged fused stack
+    ("fused": where the JAX flag sends a vmap over tasks to its task-batched
+    kernels, see ops/fused_lstm_stack.py) and on the plain stack ("plain":
+    `lstm_kernel="xla"`, the same arithmetic with no kernel, so that the two
+    compare with the same dropout masks)."""
+    if not fused_lstm_stack._VBATCH or model_cfg.family != "hybrid":
+        return None
     if model_cfg.use_pallas_lstm and model_cfg.lstm_dropout == 0.0:
-        return False  # the train-mode row 20 route
+        return None  # the train-mode row 20 route
     if model_cfg.lstm_kernel == "xla":
-        return True
+        return "plain"
     if model_cfg.lstm_kernel not in ("auto", "pallas_stack") or not fused_lstm_stack._MERGED_GATES:
-        return False
-    if tasks is None:
-        return True
+        return None
+    return "fused"
+
+
+def lockstep_planned(model_cfg: ModelConfig, tasks: int, rows: int, device) -> bool:
+    """Whether the fused stack's recurrences have a cluster plan for `tasks`
+    tasks of `rows` rows (`stack_planned`), as the JAX package's
+    task-batched kernels run only where `vbatch_supported` holds."""
+    return fused_lstm_stack.stack_planned(model_cfg.lstm_hidden, rows,
+                                          resolve_dtype(model_cfg.compute_dtype), device, tasks)
+
+
+def lockstep_route(model_cfg: ModelConfig, cfg: MetaConfig, tasks: Task | None = None) -> bool:
+    """Whether the meta step runs a micro-batch's tasks in lockstep: first
+    order, where `lockstep_stack` names a stack. Given the stacked `tasks`,
+    the fused stack goes in lockstep only where `lockstep_planned` holds for
+    their V tasks; elsewhere the tasks run one after another, where `auto`
+    then takes the plain stack."""
+    stack = None if cfg.second_order else lockstep_stack(model_cfg)
+    if stack != "fused" or tasks is None:
+        return stack is not None
     nv, _, _, nodes, _ = tasks.support_x.shape  # [V, S, W, N, F]
-    return fused_lstm_stack.stack_planned(model_cfg.lstm_hidden, nodes,
-                                          resolve_dtype(model_cfg.compute_dtype),
-                                          tasks.support_x.device, nv)
+    return lockstep_planned(model_cfg, nv, nodes, tasks.support_x.device)
 
 
 @torch.no_grad()

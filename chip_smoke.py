@@ -4,11 +4,12 @@ first- and second-order MAML meta-training, regional adaptation with the
 pipeline, node-sharded / data-parallel meta-training, the LSTM kernel
 routes, the two flag-selected LSTM-stack paths (the task-batched meta
 step and the unmerged-gates stack), reference-checkpoint interop and the
-region fleet (`pipeline --mesh-fleet`).
+region fleet (`pipeline --mesh-fleet`), and second-order MAML on both
+meshes with the task-batched meta step on the dp mesh.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(`python3 chip_smoke.py --mesh-rank DIR` is phase 14's rank process, started
-by torch.distributed.run.)
+(`python3 chip_smoke.py --mesh-rank DIR [-o KEY=VALUE ...]` is phases 14 and
+22's rank process, started by torch.distributed.run.)
 
 Phases (the first failure raises and exits non-zero; each prints its wall
 time):
@@ -127,7 +128,8 @@ time):
      the unsharded one in turns, with a torch.profiler breakdown of one
      sharded inner step; `cli meta-train --mesh` (dp, world 1) for 1 epoch;
  14. two ranks on the one card, joined by gloo (which carries CUDA tensors;
-     NCCL refuses two ranks on one card): torch.distributed.run starts
+     NCCL refuses two ranks on one card): `two_ranks` has
+     torch.distributed.run start
      `cli meta-train --mesh --device cuda:0 -o mesh.spatial_devices=2`
      (one named card: gloo) for 1 float32 epoch, inner epochs cut to 2;
      each rank must launch rows 12-13 on its 256 rows, both ranks must
@@ -235,6 +237,22 @@ time):
      relative; one fleet epoch of the three cold regions against their
      three serial epochs in turns, with peak device memory, and rows 16-17
      at the fleet's shape against three calls of rows 4-5.
+ 22. second order and _VBATCH on meshes, at ModelConfig() float32: on a 1 x 1
+     dp mesh and a 1 x 1 dp x sp mesh (a NCCL group of one rank), the SO
+     fhvp meta-gradient of 2 tasks x 15 inner steps at dropout 0 against
+     the unsharded one (max|diff| / max|ref| <= 1e-4; rows 10-11 once each
+     an inner step; on dp x sp rows 12-13 once a layer a forward, rows 4-5
+     in the inner gradient's forward, the GCN stack never); one SO inner
+     step on the dp x sp mesh against the unsharded one in turns, each with
+     its device-busy share; `cli meta-train --mesh -o
+     meta.second_order=true` 1 epoch (rows 10-11 360 times each, finite
+     losses); with _VBATCH set, the lockstep dp-mesh meta-gradient against
+     the serial one with dropout on and the same key (1e-5; rows 16-17 16
+     times, row 9 15) and `cli meta-train --mesh` 1 epoch (rows 16-17 182
+     each, row 9 180, rows 4-5 and 8 none), the flag restored; two gloo
+     ranks on the card (phase 14's launcher) with `-o meta.second_order=true
+     -o meta.inner_epochs=1`: each rank launches rows 10-11 on its 256 rows
+     60 times, both report the same finite losses.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -597,7 +615,9 @@ def main() -> int:
         make_fleet_epoch_runner,
         stack_fleet,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import make_parallel_batch_grad
     from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import (
+        local_route,
         make_shardmap_batch_grad,
         make_shardmap_meta_step_2d,
     )
@@ -799,9 +819,10 @@ def main() -> int:
                     raise RuntimeError(f"the forward plan {(cs, hcp, rb)} at 1536 rows takes "
                                        f"{clusters} clusters, {active} co-resident")
         # Row 11's tangent recurrence: its plan at the SO inner step's rows
-        # (512) and at the gate's; its shared memory is the backward's.
+        # (512; 256 a rank at sp 2) and at the gate's; its shared memory is
+        # the backward's.
         for dt in (torch.float32, torch.bfloat16):
-            for hidden, rows in ((128, 512), (64, 48), (128, 48), (256, 48)):
+            for hidden, rows in ((128, 512), (128, 256), (64, 48), (128, 48), (256, 48)):
                 cs, hcp, rb = fh.tangent_plan(hidden, rows, dt.itemsize, sms)
                 code = cuda_build.dtype_code(dt)
                 active = lib.wf_lstm_tangent_recurrence_clusters(code, cs, hcp, rb, hidden)
@@ -814,9 +835,10 @@ def main() -> int:
                     f"{fls.scan_smem(hidden, hcp, rb, dt.itemsize)} B a block; {clusters} "
                     f"clusters ({clusters * cs} blocks), at most {active} at once")
         # Row 10's tangent forward recurrence: its plan at the SO inner step's
-        # rows (512) and at the gate's; its shared memory is the forward's.
+        # rows (512; 256 a rank at sp 2) and at the gate's; its shared memory
+        # is the forward's.
         for dt in (torch.float32, torch.bfloat16):
-            for hidden, rows in ((128, 512), (64, 48), (128, 48), (256, 48)):
+            for hidden, rows in ((128, 512), (128, 256), (64, 48), (128, 48), (256, 48)):
                 cs, hcp, rb = fh.tangent_forward_plan(hidden, rows, dt.itemsize, sms)
                 code = cuda_build.dtype_code(dt)
                 active = lib.wf_lstm_tangent_forward_clusters(code, cs, hcp, rb, hidden)
@@ -1826,8 +1848,9 @@ def main() -> int:
         del work, lib, flat, flat_g
 
     # 7b. The second-order kernels (rows 10-11) vs the plain R-operator at
-    # the inner step's shapes: rows 4 + 10, then 5 + 11, at the same point.
-    def r_op_inputs(layers, dropout, seed):
+    # the inner step's shapes (n rows, and n / 2: a rank's rows at sp 2):
+    # rows 4 + 10, then 5 + 11, at the same point.
+    def r_op_inputs(layers, dropout, seed, rows):
         draw = np.random.default_rng(seed)
 
         def arr(shape, scale=1.0):
@@ -1836,13 +1859,13 @@ def main() -> int:
         ks = [(hid if l == 0 else lh) + lh for l in range(layers)]
         masks = None
         if dropout and layers > 1:
-            masks = torch.from_numpy((draw.uniform(size=(layers - 1, w_len, n, lh)) >= dropout)
+            masks = torch.from_numpy((draw.uniform(size=(layers - 1, w_len, rows, lh)) >= dropout)
                                      .astype(np.int8)).to(dev)
         return dict(
-            x=arr((w_len, n, hid)), tx=arr((w_len, n, hid)),
+            x=arr((w_len, rows, hid)), tx=arr((w_len, rows, hid)),
             wcat=[arr((k, 4 * lh), 0.1) for k in ks], twcat=[arr((k, 4 * lh), 0.1) for k in ks],
             b2d=arr((layers, 4 * lh), 0.1), tb2d=arr((layers, 4 * lh), 0.1),
-            g=arr((n, lh)), tg=arr((n, lh)), masks=masks,
+            g=arr((rows, lh)), tg=arr((rows, lh)), masks=masks,
             keep=1.0 - dropout if masks is not None else 1.0)
 
     def r_ops(a, dt, kernels):
@@ -1872,8 +1895,9 @@ def main() -> int:
                 ((h_all, c_all, gates), bwd_args, bwd_res))
 
     with Phase("second-order kernels vs plain"):
-        for layers, dropout in ((n_l, 0.2), (n_l, 0.0), (1, 0.0)):
-            a = r_op_inputs(layers, dropout, 30 + layers)
+        for layers, dropout, rows in ((n_l, 0.2, n), (n_l, 0.0, n), (1, 0.0, n),
+                                      (n_l, 0.2, n // 2), (n_l, 0.0, n // 2)):
+            a = r_op_inputs(layers, dropout, 30 + layers, rows)
             for dt_name, tol in TOL.items():
                 dt = getattr(torch, dt_name)
                 got_p, got_t, pieces = r_ops(a, dt, True)
@@ -1888,14 +1912,16 @@ def main() -> int:
                 rels_t = [rel_err(g, r) for g, r in zip(got_t, ref_t)]
                 abs_errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got_t, ref_t)]
                 t_err = max(abs_errs)
-                log(f"rows 10-11 {dt_name} L={layers} dropout {dropout}: forward max_abs_err "
+                log(f"rows 10-11 {dt_name} L={layers} dropout {dropout} {rows} rows: forward "
+                    f"max_abs_err "
                     f"{fwd_err:.3e} (tol {tol}); backward max|diff|/max|ref| {max(rels_p):.3e} "
                     f"(tol {tol}); tangents max|diff|/max|ref| {max(rels_t):.3e} (tol "
                     f"{HVP_TOL[dt_name]}) per output {[f'{r:.1e}' for r in rels_t]}, "
                     f"max_abs_err {t_err:.3e}")
                 if max(rels_p) > tol or max(rels_t) > HVP_TOL[dt_name]:
-                    raise RuntimeError(f"rows 10-11 {dt_name} L={layers}: error above tolerance")
-                if layers != n_l or dropout == 0.0:
+                    raise RuntimeError(f"rows 10-11 {dt_name} L={layers} {rows} rows: error above "
+                                       f"tolerance")
+                if layers != n_l or dropout == 0.0 or rows != n:
                     continue
                 # The main path's case: time each kernel (its wrapper, from
                 # the primal residuals) and the plain R-operator.
@@ -2804,13 +2830,15 @@ def main() -> int:
         del state, sharded_step, unsharded_step, runs
 
     # 14. Two ranks on the one card, joined by gloo, through the CLI.
-    with Phase("two ranks on one card (gloo, sp 2)"):
-        out = os.path.join(out_root, "mesh_sp2")
-        os.makedirs(out)
+    def two_ranks(out, *extra):
+        """`cli meta-train --mesh` on two ranks (dp 1 x sp 2) under
+        torch.distributed.run, with `extra` overrides; both ranks' records,
+        checked: the same finite losses, one set of checkpoints, 512 padded
+        nodes (256 a rank)."""
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
              f"--master_port={distributed.free_port()}", os.path.abspath(__file__),
-             "--mesh-rank", out],
+             "--mesh-rank", out, *extra],
             capture_output=True, text=True, timeout=900,
         )
         if proc.returncode != 0:
@@ -2823,12 +2851,6 @@ def main() -> int:
         for rec in ranks:
             log(f"rank {rec['rank']}: {rec['stdout'].strip()}; {rec['seconds']:.1f} s; "
                 f"launches {rec['launches']}")
-        forwards = meta_cfg.meta_batch * (MESH_INNER_EPOCHS * meta_cfg.inner_batches + 1)
-        for rec in ranks:
-            want = cfg.gcn_layers * forwards
-            got = (rec["launches"]["gcn_shard_layer"], rec["launches"]["gcn_shard_layer.backward"])
-            if got != (want, want):
-                raise RuntimeError(f"rank {rec['rank']} launched rows 12-13 {got}, not {want}")
         losses = [(rec["best_loss"], rec["final_loss"]) for rec in ranks]
         if losses[0] != losses[1] or not np.isfinite(losses).all():
             raise RuntimeError(f"the two ranks' losses differ or are not finite: {losses}")
@@ -2838,6 +2860,18 @@ def main() -> int:
             raise RuntimeError(f"two-rank meta-train wrote {meta_files}")
         if "padded nodes=512" not in ranks[0]["stderr"]:
             raise RuntimeError("two-rank meta-train: not 512 padded nodes (256 a rank)")
+        return ranks
+
+    with Phase("two ranks on one card (gloo, sp 2)"):
+        out = os.path.join(out_root, "mesh_sp2")
+        os.makedirs(out)
+        ranks = two_ranks(out, "-o", f"meta.inner_epochs={MESH_INNER_EPOCHS}")
+        forwards = meta_cfg.meta_batch * (MESH_INNER_EPOCHS * meta_cfg.inner_batches + 1)
+        for rec in ranks:
+            want = cfg.gcn_layers * forwards
+            got = (rec["launches"]["gcn_shard_layer"], rec["launches"]["gcn_shard_layer.backward"])
+            if got != (want, want):
+                raise RuntimeError(f"rank {rec['rank']} launched rows 12-13 {got}, not {want}")
         with open(os.path.join(out, "meta", "meta_log.jsonl")) as f:
             rec = json.loads(f.readline())
         log(f"two ranks (dp 1 x sp 2, 256 rows each, gloo on one card), epoch 1 "
@@ -4250,6 +4284,216 @@ def main() -> int:
                                                for k, v in turns.items()) + f"  [{card}]")
         del fleet_feats, params3, states3, lanes, serial_states, template, h3, w0
 
+    # 22. Second order on both meshes and _VBATCH on the dp mesh, on 1 x 1
+    # meshes (a NCCL group of one rank in this process) and two gloo ranks.
+    with Phase("second order and _VBATCH on meshes"):
+        t0 = time.perf_counter()
+        created_group = distributed.ensure_process_group("nccl")
+        dp_mesh = make_mesh_2d(1, 1, dev, axis_names=("dp",))
+        grid_mesh = make_mesh_2d(1, 1, dev)
+        log(f"  the NCCL group of one and its two meshes: {time.perf_counter() - t0:.1f} s")
+        so_nodrop = ModelConfig(gcn_dropout=0.0, lstm_dropout=0.0)
+        so_epoch = dataclasses.replace(one_epoch, second_order=True)  # fhvp, 15 inner steps
+        steps = 2 * so_epoch.inner_batches
+        forwards = 2 * (so_epoch.inner_batches + 1)
+
+        def mesh_so_counts():
+            return {"hvp_stack_fwd": fh.hvp_stack_fwd.launches,
+                    "hvp_stack_bwd": fh.hvp_stack_bwd.launches,
+                    "gcn_shard_layer": fgs.gcn_shard_layer.launches,
+                    "gcn_shard_layer.backward": fgs.gcn_shard_layer.backward_launches,
+                    "lstm_stack_train": lstm_stack_train.launches,
+                    "lstm_stack_train.backward": lstm_stack_train.backward_launches,
+                    "gcn_stack_train": gcn_stack_train.launches}
+
+        def zero_mesh_so_counts():
+            fh.hvp_stack_fwd.launches = fh.hvp_stack_bwd.launches = 0
+            for fn in (fgs.gcn_shard_layer, lstm_stack_train, gcn_stack_train):
+                fn.launches = fn.backward_launches = 0
+
+        # (a), (b): the SO fhvp meta-gradient of 2 tasks on each mesh against
+        # the unsharded one, dropout 0. Rows 10-11 once each an inner step;
+        # on dp x sp rows 12-13 (and 4-5) in the inner gradient's forward,
+        # the GCN stack (rows 6-7) never.
+        t0 = time.perf_counter()
+        ref_loss, ref_grad = task_batch_grad(model, micro, None, so_nodrop, so_epoch)
+        torch.cuda.synchronize()
+        log(f"  the unsharded SO meta-gradient: {time.perf_counter() - t0:.1f} s")
+        for name, mesh_, make in (("dp 1", dp_mesh, make_parallel_batch_grad),
+                                  ("dp 1 x sp 1", grid_mesh, make_shardmap_batch_grad)):
+            zero_mesh_so_counts()
+            t0 = time.perf_counter()
+            loss_m, grad_m = make(so_nodrop, so_epoch, mesh_)(model, micro, None)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = mesh_so_counts()
+            rels = {k: rel_err(grad_m[k], ref_grad[k]) for k in ref_grad}
+            worst = max(rels, key=rels.get)
+            log(f"SO fhvp meta-gradient on a {name} mesh vs unsharded, float32, dropout 0, 2 "
+                f"tasks x {so_epoch.inner_batches} inner steps: per-task losses "
+                f"{loss_m.tolist()} vs {ref_loss.tolist()}; gradient max|diff|/max|ref| "
+                f"{rels[worst]:.3e} at {worst} (tol {HVP_TOL['float32']}); {secs:.2f} s; "
+                f"launches {counts}")
+            torch.testing.assert_close(loss_m, ref_loss, rtol=TOL["float32"],
+                                       atol=TOL["float32"])
+            if rels[worst] > HVP_TOL["float32"]:
+                raise RuntimeError(f"SO meta-gradient on {name}: {worst} off by "
+                                   f"{rels[worst]:.3e}")
+            if (counts["hvp_stack_fwd"], counts["hvp_stack_bwd"]) != (steps, steps):
+                raise RuntimeError(f"SO on {name}: rows 10-11 launched {counts}, not {steps} "
+                                   f"each")
+            sharded = mesh_ is grid_mesh
+            shard = cfg.gcn_layers * forwards if sharded else 0
+            if (counts["gcn_shard_layer"], counts["gcn_shard_layer.backward"]) != (shard, shard):
+                raise RuntimeError(f"SO on {name}: rows 12-13 launched {counts}, not {shard}")
+            if (counts["gcn_stack_train"] == 0) != sharded or min(
+                    counts["lstm_stack_train"], counts["lstm_stack_train.backward"]) < forwards:
+                raise RuntimeError(f"SO on {name}: the inner gradient's forward launched "
+                                   f"{counts}")
+
+        # One SO inner step (the kernel-route gradient and its fhvp Hessian
+        # transpose, one window) on the dp x sp mesh against the unsharded
+        # one, in turns (U, S, S, U), and each one's device-busy share.
+        mc = ModelConfig()
+        group = grid_mesh.sp_group
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in model.named_parameters()}
+        draw = np.random.default_rng(41)
+        ct = [torch.from_numpy(draw.normal(size=v.shape).astype(np.float32)).to(dev)
+              for v in p.values()]
+        task = task_at(tasks, 0)
+        aux = (task.support_x[0], task.support_y[0], task.a_hat, task.koppen, task.node_mask)
+        t_l = task_at(shard_task_batch_2d(tasks, grid_mesh), 0)
+        aux_l = (t_l.support_x[0], t_l.support_y[0], t_l.a_hat, t_l.koppen, t_l.node_mask)
+        unsharded_grad = make_so_grad(support_loss(model, mc),
+                                      support_loss(model, plain_route(mc)), "fhvp",
+                                      make_grad_loss_fused(model, mc))
+        rank_route = local_route(group)
+        sharded_grad = make_so_grad(
+            support_loss(model, mc, rank_route.forward, rank_route.mse),
+            support_loss(model, plain_route(mc), rank_route.forward, rank_route.mse), "fhvp",
+            rank_route.grad_loss_fused(model, mc))
+        g = torch.Generator(device=dev).manual_seed(2)
+
+        def so_step_unsharded():
+            grads = unsharded_grad(p, aux, draw_masks(mc, g, aux[0]))
+            torch.autograd.grad(list(grads.values()), list(p.values()), ct)
+
+        def so_step_sharded():
+            grads = sharded_grad(p, aux_l, rank_route.masks(mc, g, aux_l[0]))
+            torch.autograd.grad(rank_route.reduce(list(grads.values())), list(p.values()), ct)
+
+        runs = {"unsharded": so_step_unsharded, "dp 1 x sp 1": so_step_sharded}
+        so_ms = {k: [] for k in runs}
+        t0 = time.perf_counter()
+        for name in ("unsharded", "dp 1 x sp 1", "dp 1 x sp 1", "unsharded"):
+            so_ms[name].append(host_ms(torch, runs[name]))
+        log("SO inner step float32 (kernel-route gradient + fhvp Hessian transpose, one "
+            "window), host clock, in turns: " + ", ".join(
+                f"{k} {v[0]:.3f} / {v[1]:.3f} ms" for k, v in so_ms.items())
+            + f"; sharded / unsharded {sum(so_ms['dp 1 x sp 1']) / sum(so_ms['unsharded']):.3f}"
+            f" ({time.perf_counter() - t0:.1f} s)  [{card}]")
+        # Each one's device-busy share, and the sharded step's host ops.
+        t0 = time.perf_counter()
+        profile_steps(torch, so_step_unsharded, "float32 SO inner steps (unsharded)", card)
+        profile_steps(torch, so_step_sharded, "float32 SO inner steps (1 x 1 dp x sp mesh)",
+                      card, host_rows=10)
+        log(f"  the two profiles: {time.perf_counter() - t0:.1f} s")
+        del p, ct, unsharded_grad, sharded_grad
+
+        # (c) The SO main path on a mesh: `cli meta-train --mesh -o
+        # meta.second_order=true`, 1 epoch at MetaConfig() (dp, world 1):
+        # rows 10-11 360 times each.
+        zero_mesh_so_counts()
+        so_mesh_log = meta_train("float32", 1, "--mesh", "-o", "meta.second_order=true",
+                                 out="mesh_so")
+        so_mesh_launches = mesh_so_counts()
+        log(f"launches in one SO meta step on the dp mesh: {so_mesh_launches}")
+        if (so_mesh_launches["hvp_stack_fwd"], so_mesh_launches["hvp_stack_bwd"]) != (
+                per_step, per_step):
+            raise RuntimeError(f"meta-train --mesh SO launched rows 10-11 {so_mesh_launches}, "
+                               f"not {per_step} each")
+        for r in so_mesh_log:
+            if not np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all():
+                raise RuntimeError(f"meta-train --mesh SO: non-finite loss {r}")
+            log(f"  SO --mesh epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
+                f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
+
+        # (e) _VBATCH on the dp mesh: the lockstep mesh meta-gradient against
+        # the serial mesh meta-gradient, dropout on (rate 0.2), the same key,
+        # so the same masks; then the main path through the CLI.
+        try:
+            vb = {}
+            for name, flag in (("lockstep", True), ("serial", False)):
+                fls._VBATCH = flag
+                zero_counts()
+                t0 = time.perf_counter()
+                vb[name] = make_parallel_batch_grad(cfg, one_epoch, dp_mesh)(model, micro, (11, 0))
+                torch.cuda.synchronize()
+                log(f"  {name} dp-mesh meta-gradient: {time.perf_counter() - t0:.1f} s")
+                vb[name] += (lockstep_counts(),)
+            want = {"lstm_stack_train_tasks": steps // 2 + 1,
+                    "lstm_stack_train_tasks.backward": steps // 2 + 1,
+                    "clip_sgd_update.batched": steps // 2, "clip_sgd_update": 0,
+                    "lstm_stack_train": 0, "lstm_stack_train.backward": 0}
+            got = {k: vb["lockstep"][2][k] for k in want}
+            if got != want or vb["serial"][2]["lstm_stack_train_tasks"] != 0:
+                raise RuntimeError(f"the lockstep mesh meta-gradient launched {got}, not {want} "
+                                   f"(serial: {vb['serial'][2]})")
+            rels = {k: rel_err(vb["lockstep"][1][k], vb["serial"][1][k]) for k in vb["serial"][1]}
+            worst = max(rels, key=rels.get)
+            log(f"_VBATCH on the dp mesh: lockstep vs serial meta-gradient float32, dropout on, "
+                f"key (11, 0): per-task losses {vb['lockstep'][0].tolist()} vs "
+                f"{vb['serial'][0].tolist()}; gradient max|diff|/max|ref| {rels[worst]:.3e} at "
+                f"{worst} (tol {TOL['float32']}); lockstep launches {vb['lockstep'][2]}")
+            torch.testing.assert_close(vb["lockstep"][0], vb["serial"][0], rtol=TOL["float32"],
+                                       atol=TOL["float32"])
+            if rels[worst] > TOL["float32"]:
+                raise RuntimeError(f"lockstep mesh meta-gradient: {worst} off by "
+                                   f"{rels[worst]:.3e}")
+            fls._VBATCH = True
+            zero_counts()
+            vb_mesh_log = meta_train("float32", 1, "--mesh", out="mesh_vbatch")
+            vb_mesh_launches = lockstep_counts()
+        finally:
+            fls._VBATCH = False
+        log(f"launches in one meta step under _VBATCH on the dp mesh: {vb_mesh_launches}")
+        forwards_step = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches + 1)
+        want = {"lstm_stack_train_tasks": forwards_step // 2,
+                "lstm_stack_train_tasks.backward": forwards_step // 2,
+                "clip_sgd_update.batched": per_step // 2, "clip_sgd_update": 0,
+                "lstm_stack_train": 0, "lstm_stack_train.backward": 0}
+        got = {k: vb_mesh_launches[k] for k in want}
+        if got != want:
+            raise RuntimeError(f"meta-train --mesh under _VBATCH launched {got}, not {want}")
+        for r in vb_mesh_log:
+            if not np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all():
+                raise RuntimeError(f"meta-train --mesh under _VBATCH: non-finite loss {r}")
+            log(f"  _VBATCH --mesh epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
+                f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
+        if created_group:
+            torch.distributed.destroy_process_group()
+
+        # (d) Two gloo ranks on the one card (phase 14's launcher), dp 1 x
+        # sp 2, second order, 1 inner epoch: each rank launches rows 10-11
+        # on its 256 rows once an inner step, rows 12-13 once a forward.
+        out = os.path.join(out_root, "mesh_sp2_so")
+        os.makedirs(out)
+        ranks = two_ranks(out, "-o", "meta.second_order=true", "-o", "meta.inner_epochs=1")
+        so_steps = meta_cfg.meta_batch * meta_cfg.inner_batches
+        for rec in ranks:
+            got = (rec["launches"]["hvp_stack_fwd"], rec["launches"]["hvp_stack_bwd"],
+                   rec["launches"]["gcn_shard_layer"])
+            want = (so_steps, so_steps,
+                    cfg.gcn_layers * meta_cfg.meta_batch * (meta_cfg.inner_batches + 1))
+            if got != want:
+                raise RuntimeError(f"SO rank {rec['rank']} launched rows 10, 11, 12 {got}, not "
+                                   f"{want}")
+        with open(os.path.join(out, "meta", "meta_log.jsonl")) as f:
+            rec = json.loads(f.readline())
+        log(f"two ranks SO (dp 1 x sp 2, 256 rows each, gloo on one card), epoch 1 (1 inner "
+            f"epoch): meta_loss {rec['meta_loss']:.6f}, tasks {rec['task_indices']}, "
+            f"{rec['epoch_seconds']:.2f} s  [{card}]")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -4294,16 +4538,21 @@ def main() -> int:
     return 0
 
 
-def mesh_rank(out: str) -> int:
-    """Phase 14's rank: `cli meta-train --mesh` on card 0 with gloo, then
-    this rank's stdout, log, launch counts and time into OUT/rank<r>.json."""
+def mesh_rank(out: str, extra: list[str]) -> int:
+    """Phase 14's and 22's rank: `cli meta-train --mesh` on card 0 with gloo
+    (dp 1 x sp 2, 1 epoch, the `extra` overrides), then this rank's stdout,
+    log, launch counts and time into OUT/rank<r>.json."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from weatherforecast_stgcn_maml_tpu_torch import cli
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_shard import gcn_shard_layer
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_hvp import (
+        hvp_stack_bwd,
+        hvp_stack_fwd,
+    )
 
     argv = ["meta-train", "--mesh", "--device", "cuda:0",
-            "-o", "mesh.spatial_devices=2", "-o", "meta.num_epochs=1",
-            "-o", f"meta.inner_epochs={MESH_INNER_EPOCHS}", "-o", f"out_dir={out}"]
+            "-o", "mesh.spatial_devices=2", "-o", "meta.num_epochs=1", "-o", f"out_dir={out}",
+            *extra]
     stdout, stderr = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
@@ -4317,12 +4566,14 @@ def mesh_rank(out: str) -> int:
                    "final_loss": float(fields["final_loss"]),
                    "seconds": time.perf_counter() - t0,
                    "launches": {"gcn_shard_layer": gcn_shard_layer.launches,
-                                "gcn_shard_layer.backward": gcn_shard_layer.backward_launches}},
+                                "gcn_shard_layer.backward": gcn_shard_layer.backward_launches,
+                                "hvp_stack_fwd": hvp_stack_fwd.launches,
+                                "hvp_stack_bwd": hvp_stack_bwd.launches}},
                   f)
     return rc
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
-        sys.exit(mesh_rank(sys.argv[2]))
+        sys.exit(mesh_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -541,6 +541,47 @@ def test_sharded_meta_gradient_matches_unsharded(dev):
         assert _rel(g, ref_grads[name]) <= tol, (name, _rel(g, ref_grads[name]))
 
 
+@pytest.mark.cuda
+def test_sharded_so_meta_gradient_matches_unsharded(dev):
+    """The second-order fhvp meta-gradient on a 1 x 1 dp x sp mesh (a NCCL
+    group of one rank) against the unsharded SO meta-gradient, 2 tasks x 2
+    inner steps, dropout 0: rows 12-13 in the inner gradient's forward (one
+    launch a layer a forward), rows 10-11 in its Hessian transpose (one
+    launch each an inner step). float32, max|diff| / max|ref| 1e-4 (the SO
+    tangent gate)."""
+    import torch.distributed as dist
+
+    from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh_2d
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_batch_grad
+
+    cfg = ModelConfig(hidden_channels=64, gcn_layers=3, lstm_hidden=32, lstm_layers=3,
+                      window=7, horizon=3, gcn_dropout=0.0, lstm_dropout=0.0)
+    meta = MetaConfig(inner_epochs=1, inner_batches=2, second_order=True, so_impl="fhvp")
+    regions = [synthetic_region_for_box((10.0 + 3 * i, 12.0 + 3 * i, 20.0, 23.0),
+                                        num_timesteps=40, seed=i) for i in range(2)]
+    tasks = stack_tasks([b.task for b in build_meta_tasks(regions, cfg, meta, DataConfig())])
+    tasks = type(tasks)(*(f.to(dev) for f in tasks))
+    model = init_model(torch.Generator().manual_seed(2), cfg, device=dev)
+    counters = (fused_gcn_shard.gcn_shard_layer, fused_lstm_hvp.hvp_stack_fwd,
+                fused_lstm_hvp.hvp_stack_bwd)
+    assert distributed.ensure_process_group("nccl")
+    try:
+        mesh = make_mesh_2d(1, 1, dev)
+        before = [fn.launches for fn in counters]
+        losses, grads = make_shardmap_batch_grad(cfg, meta, mesh)(model, tasks, None)
+        launches = [fn.launches - b for fn, b in zip(counters, before)]
+    finally:
+        dist.destroy_process_group()
+    # 2 tasks x (2 inner steps + 1 query) forwards of 3 layers; 2 x 2 steps.
+    assert launches == [3 * 2 * 3, 2 * 2, 2 * 2]
+    ref_losses, ref_grads = task_batch_grad(model, tasks, None, cfg, meta)
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(losses, ref_losses, rtol=tol, atol=tol)
+    for name, g in grads.items():
+        assert _rel(g, ref_grads[name]) <= 1e-4, (name, _rel(g, ref_grads[name]))
+
+
 # Rows 18-19 (the per-layer recurrence), 20 (the eval stack as per-layer
 # projections and recurrences) and 3 (one GCN layer), at small widths and
 # at the reference width (T = 24, 512 rows, 4H = 512; [512, 24, 256] with 4

@@ -1,0 +1,417 @@
+"""Second-order MAML and the task-batched (`_VBATCH`) meta step on the
+port's meshes against the JAX package, on the CPU.
+
+Across OS processes joined by gloo (this file's `__main__` block is the
+rank; each world size starts once and runs all of its cases in that
+process, which writes its results for the tests to read; the JAX references
+run here meanwhile). Inputs: four 10 x 10-node regions padded to 128 nodes
+(real nodes on both sp shards), built on the JAX package's numpy host
+route, and JAX's float64 initial parameters; dropout 0 wherever JAX is the
+reference. JAX's second-order steps run `so_impl="hvp"` (every so_impl
+computes the same exact meta-gradient; "hvp" compiles fastest on the CPU).
+
+  * 2 ranks, dp 2: second-order meta steps (so_impl "xla" and "fhvp", the
+    fused composition on its plain pieces) against JAX's
+    `make_parallel_meta_step` with `second_order=True` (rtol 1e-8), "hvp"
+    and "rof" against the port's "xla" mesh step (1e-9); under `_VBATCH`
+    the lockstep mesh step against the serial mesh step with dropout on at
+    every site (two LSTM layers, query windows in train mode, seeded
+    weights; 1e-10: the same key, so the same masks) and, at dropout 0 on
+    the plain stack, against JAX's dp step (1e-8).
+  * 4 ranks, dp 2 x sp 2: the same second-order cases against JAX's
+    `make_shardmap_meta_step_2d` (JAX's own case: meta_batch 2, grad_accum
+    1, inner_epochs 1, inner_batches 2), parameters bitwise equal on every
+    rank; then on sp 4 the node-sharded encoder's torch.func.jvp and its
+    double backward (create_graph=True) against the unsharded encoder
+    (float64, 1e-10): a collective whose backward leaves no graph drops the
+    second-order terms that cross the gathers.
+"""
+
+import copy
+import os
+import subprocess
+import sys
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
+from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
+from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODEL = dict(hidden_channels=8, gcn_layers=2, lstm_hidden=8, lstm_layers=1, window=6,
+             horizon=2, koppen_dim=4, gcn_dropout=0.0, lstm_dropout=0.0,
+             compute_dtype="float64", lstm_kernel="xla")
+META = dict(meta_batch=4, grad_accum=2, inner_epochs=1, inner_batches=2,
+            query_train_mode=False)
+META_DP = dict(META, second_order=True)  # dp 2: two tasks an update, one a rank
+META_GRID = dict(META, meta_batch=2, grad_accum=1, second_order=True)  # JAX's 2 x 2 case
+META_VBATCH = dict(META, grad_accum=1)  # two tasks a rank: V = 2 in lockstep
+# The port's route for each so_impl: "fhvp" takes its fused composition
+# (rows 4-5 and 10-11 on their plain pieces here) only off lstm_kernel="xla".
+ROUTES = {"xla": "xla", "fhvp": "auto", "hvp": "auto", "rof": "auto"}
+WORLDS = {"dp": 2, "grid": 4}
+TOL_JAX = dict(rtol=1e-8, atol=1e-11)
+# Parameters after the AdamW updates: the two packages' float32
+# learning-rate schedules differ in the last bit of cos (numpy vs XLA), one
+# float32 ulp (2^-23 relative) of lr = 1e-3 an update, 1.2e-10 after two
+# (as tests/test_torch_port_parallel.py measures); the rest at rtol 1e-8.
+TOL_JAX_PARAMS = dict(rtol=1e-8, atol=3e-10)
+
+
+# ---------------------------------------------------------------------------
+# The rank worker (run as a script)
+# ---------------------------------------------------------------------------
+
+
+def _load_inputs(out_dir, count):
+    from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
+    from weatherforecast_stgcn_maml_tpu_torch.train.maml import MamlState
+    from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import MetaOptimizer
+
+    saved = torch.load(os.path.join(out_dir, "inputs.pt"))
+    tasks = Task(**{k: v[:count] for k, v in saved["tasks"].items()})
+
+    def state(mc):
+        model = init_model(torch.Generator().manual_seed(0), mc).double()
+        model.load_state_dict(saved["params"])
+        return MamlState(model, MetaOptimizer.init(dict(model.named_parameters())), 0)
+
+    return tasks, state
+
+
+def _params(state):
+    return {k: v.detach().clone() for k, v in state.params.state_dict().items()}
+
+
+def _so_steps(make_step, mesh, out_dir, meta_kw):
+    """One float64 second-order meta step on `mesh` for every so_impl:
+    {so_impl: (per-task losses, parameters)}."""
+    tasks, state = _load_inputs(out_dir, meta_kw["meta_batch"])
+    res = {}
+    for impl, kernel in ROUTES.items():
+        mc = tcfg.ModelConfig(**dict(MODEL, lstm_kernel=kernel))
+        meta = tcfg.MetaConfig(**meta_kw, so_impl=impl)
+        s, m = make_step(mc, meta, mesh)(state(mc), tasks, None)
+        res[impl] = (m["per_task_loss"].numpy(), _params(s))
+    return res
+
+
+def _dp_rank(out_dir, rank):
+    """dp 2: the second-order steps, then `_VBATCH` (lockstep vs serial with
+    dropout on; at dropout 0 on the plain stack for JAX)."""
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
+    from weatherforecast_stgcn_maml_tpu_torch.parallel import meta_dp
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh
+    from weatherforecast_stgcn_maml_tpu_torch.train.maml import MamlState, init_meta_state
+    from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import MetaOptimizer
+
+    mesh = make_mesh(tcfg.MeshConfig(), torch.device("cpu"))
+    res = {"so": _so_steps(meta_dp.make_parallel_meta_step, mesh, out_dir, META_DP)}
+
+    calls = []
+    sums = meta_dp.lockstep_grad_sums
+
+    def counted(params, tasks, gens, *args):
+        calls.append(tasks.support_x.shape[0])
+        return sums(params, tasks, gens, *args)
+
+    meta_dp.lockstep_grad_sums = counted
+    tasks, state = _load_inputs(out_dir, 4)
+
+    # Dropout on at every site (two LSTM layers, query windows in train
+    # mode); weights from a seed.
+    drop = tcfg.ModelConfig(**dict(MODEL, gcn_dropout=0.3, lstm_dropout=0.3, lstm_layers=2,
+                                   lstm_kernel="auto"))
+    drop_meta = tcfg.MetaConfig(**dict(META_VBATCH, query_train_mode=True))
+    drop_state = init_meta_state(torch.Generator().manual_seed(0), drop, drop_meta)
+    vb = {}
+    for name, flag, mc, meta, key in (
+            ("lockstep", True, drop, drop_meta, (3,)),
+            ("serial", False, drop, drop_meta, (3,)),
+            ("plain", True, tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**META_VBATCH), None)):
+        fused_lstm_stack._VBATCH = flag
+        try:
+            start = state(mc) if key is None else MamlState(
+                copy.deepcopy(drop_state.params).double(), None, 0)
+            start = start._replace(opt_state=MetaOptimizer.init(
+                dict(start.params.named_parameters())))
+            s, m = meta_dp.make_parallel_meta_step(mc, meta, mesh)(start, tasks, key)
+        finally:
+            fused_lstm_stack._VBATCH = False
+        vb[name] = (m["per_task_loss"].numpy(), _params(s), list(calls))
+        calls.clear()
+    res["vbatch"] = vb
+    return res
+
+
+def _grid_rank(out_dir, rank):
+    """dp 2 x sp 2: the second-order steps; sp 4: the encoder's jvp and
+    double backward against the unsharded encoder."""
+    from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn import gcn_stack_plain
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import (
+        make_shardmap_meta_step_2d,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.spatial import _spatial_encoder
+
+    mesh = make_mesh(tcfg.MeshConfig(spatial_devices=2), torch.device("cpu"))
+    assert (mesh.dp, mesh.sp, mesh.dp_index, mesh.sp_index) == (2, 2, rank // 2, rank % 2)
+    res = {"so": _so_steps(make_shardmap_meta_step_2d, mesh, out_dir, META_GRID)}
+
+    sp4 = make_mesh_2d(1, 4, torch.device("cpu"))
+    cfg = tcfg.ModelConfig(hidden_channels=8, gcn_layers=3, gcn_dropout=0.3,
+                           compute_dtype="float64")
+    n, w, keep = 128, 5, 0.7
+    draw = np.random.default_rng(0)
+    layers = init_encoder(torch.Generator().manual_seed(1), cfg).double().layers
+    x, tx, vx = (torch.from_numpy(draw.normal(size=(w, n, cfg.in_channels))) for _ in range(3))
+    a = torch.from_numpy(draw.uniform(size=(n, n)) / n)
+    masks = torch.from_numpy((draw.uniform(size=(2, w, n, 8)) < keep).astype(np.int8))
+    ct = torch.from_numpy(draw.normal(size=(w, n, 8)))
+    params = [p.detach() for layer in layers for p in (layer.w, layer.b)]
+    tparams = [torch.from_numpy(draw.normal(size=p.shape)) for p in params]
+    vparams = [torch.from_numpy(draw.normal(size=p.shape)) for p in params]
+    rows = slice(sp4.sp_index * n // 4, (sp4.sp_index + 1) * n // 4)
+
+    def node_major(t):
+        return t[..., rows, :].transpose(-3, -2).contiguous()
+
+    def sharded(x, *ps):
+        layer_ps = [SimpleNamespace(w=wt, b=b) for wt, b in zip(ps[::2], ps[1::2])]
+        return _spatial_encoder(layer_ps, a[rows].contiguous(), x, cfg, sp4.sp_group,
+                                node_major(masks))
+
+    def unsharded(x, *ps):
+        layer_ps = [SimpleNamespace(w=wt, b=b) for wt, b in zip(ps[::2], ps[1::2])]
+        return gcn_stack_plain(layer_ps, a, x, torch.float64, masks, keep)
+
+    # Forward mode: this rank's rows of the output and its tangent.
+    got = torch.func.jvp(sharded, (node_major(x), *params), (node_major(tx), *tparams))
+    ref = torch.func.jvp(unsharded, (x, *params), (tx, *tparams))
+    res["jvp"] = max(float((g - node_major(r)).abs().max()) for g, r in zip(got, ref))
+
+    # Double backward: phi = <d<h, ct>/dx, vx> + <d<h, ct>/dparams, vparams>
+    # summed over the ranks (each rank's parameter gradient is its partial),
+    # differentiated again; x's rows exact, the parameters' summed over sp.
+    def second(fn, xs, ct_, vx_):
+        leaves = [t.clone().requires_grad_(True) for t in xs]
+        grads = torch.autograd.grad((fn(*leaves) * ct_).sum(), leaves, create_graph=True)
+        phi = (grads[0] * vx_).sum() + sum((g * v).sum() for g, v in zip(grads[1:], vparams))
+        return torch.autograd.grad(phi, leaves)
+
+    got = second(sharded, [node_major(x), *params], node_major(ct), node_major(vx))
+    got_p = [g.clone() for g in got[1:]]
+    for g in got_p:
+        dist.all_reduce(g, group=sp4.sp_group)
+    ref = second(unsharded, [x, *params], ct, vx)
+    res["double_backward"] = max(
+        float((g - r).abs().max()) for g, r in zip([got[0], *got_p], [node_major(ref[0]),
+                                                                        *ref[1:]]))
+    res["double_backward_scale"] = max(float(r.abs().max()) for r in ref)
+    return res
+
+
+def _worker(case, rank, world, port, out_dir):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        res = {"grid": _grid_rank, "dp": _dp_rank}[case](out_dir, rank)
+        torch.save(res, os.path.join(out_dir, f"{case}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# JAX references (this process)
+# ---------------------------------------------------------------------------
+
+
+def _jax_tasks_and_state(mc, meta):
+    """The four tasks (the JAX package's numpy host route) and the float64
+    initial state, as JAX arrays (call under x64)."""
+    import jax
+    import jax.numpy as jnp
+
+    from weatherforecast_stgcn_maml_tpu import native as jax_native
+    from weatherforecast_stgcn_maml_tpu.config import DataConfig
+    from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box
+    from weatherforecast_stgcn_maml_tpu.train.maml import MamlState, init_meta_state
+    from weatherforecast_stgcn_maml_tpu.train.optimizers import meta_optimizer
+    from weatherforecast_stgcn_maml_tpu.train.tasks import build_meta_tasks, stack_tasks
+
+    regions = [synthetic_region_for_box((10.0 + i, 12.25 + i, 20.0, 22.25), num_timesteps=32,
+                                        seed=i) for i in range(4)]
+    jax_native.set_enabled(False)
+    try:
+        built = build_meta_tasks(regions, mc, meta, DataConfig())
+    finally:
+        jax_native.set_enabled(True)
+
+    def f64(a):
+        a = np.asarray(a)
+        return jnp.asarray(a, jnp.float64) if a.dtype == np.float32 else jnp.asarray(a)
+
+    tasks = jax.tree.map(f64, stack_tasks([b.task for b in built]))
+    params = jax.tree.map(f64, init_meta_state(jax.random.key(0), mc, meta).params)
+    tx, _ = meta_optimizer(meta)
+    return tasks, MamlState(params, tx.init(params), jnp.zeros((), jnp.int32))
+
+
+def _write_inputs(out_dir):
+    import jax
+
+    from weatherforecast_stgcn_maml_tpu import config as jcfg
+    from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
+
+    with jax.enable_x64(True):
+        tasks, state = _jax_tasks_and_state(jcfg.ModelConfig(**MODEL), jcfg.MetaConfig(**META))
+        fields = {k: torch.from_numpy(np.asarray(v).copy()) for k, v in tasks._asdict().items()}
+        fields["koppen"] = fields["koppen"].long()
+        params = state_dict_from_params(jax.tree.map(np.asarray, state.params), np.float64)
+    assert int(fields["node_mask"][0].sum()) == 100 and fields["node_mask"].shape[1] == 128
+    torch.save({"tasks": fields, "params": params}, os.path.join(out_dir, "inputs.pt"))
+
+
+def _jax_references():
+    """{case: (per-task losses, parameters)} of one float64 JAX meta step:
+    "dp" second order on dp 2, "grid" second order on dp 2 x sp 2, "vbatch"
+    first order on dp 2 (two tasks a device)."""
+    import jax
+
+    from weatherforecast_stgcn_maml_tpu import config as jcfg
+    from weatherforecast_stgcn_maml_tpu.ops import fused_gcn_shard
+    from weatherforecast_stgcn_maml_tpu.parallel import mesh as jmesh
+    from weatherforecast_stgcn_maml_tpu.parallel.meta_dp import make_parallel_meta_step as jdp
+    from weatherforecast_stgcn_maml_tpu.parallel.meta_sp import make_shardmap_meta_step_2d as jsp
+    from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
+
+    mc = jcfg.ModelConfig(**MODEL)
+    refs = {}
+    with jax.enable_x64(True), fused_gcn_shard.force_reference():
+        tasks, state = _jax_tasks_and_state(mc, jcfg.MetaConfig(**META))
+        dp = jmesh.make_mesh(jcfg.MeshConfig(num_devices=2))
+        grid = jmesh.make_mesh_2d(2, 2)
+        for case, meta_kw, make, mesh, place in (
+                ("dp", META_DP, jdp, dp, jmesh.shard_task_batch),
+                ("vbatch", META_VBATCH, jdp, dp, jmesh.shard_task_batch),
+                ("grid", META_GRID, jsp, grid, jmesh.shard_task_batch_2d)):
+            meta = jcfg.MetaConfig(**meta_kw, so_impl="hvp") if meta_kw.get(
+                "second_order") else jcfg.MetaConfig(**meta_kw)
+            batch = jax.tree.map(lambda f: f[:meta.meta_batch], tasks)
+            s, m = make(mc, meta, mesh, donate_state=False)(
+                state, place(batch, mesh), jax.random.key(7))
+            refs[case] = (np.asarray(m["per_task_loss"]),
+                          state_dict_from_params(jax.tree.map(np.asarray, s.params),
+                                                 np.float64))
+    return refs
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Launch the 2-rank and 4-rank workers, compute the JAX references
+    while they run, and return (results per case and rank, references)."""
+    out_dir = str(tmp_path_factory.mktemp("mesh_so"))
+    _write_inputs(out_dir)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = []
+    for case, world in WORLDS.items():
+        port = distributed.free_port()
+        procs += [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), case, str(r), str(world), str(port),
+             out_dir], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+    refs = _jax_references()
+    for p in procs:
+        out, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, out[-4000:]
+    results = {
+        case: [torch.load(os.path.join(out_dir, f"{case}_rank{r}.pt"), weights_only=False)
+               for r in range(world)]
+        for case, world in WORLDS.items()
+    }
+    return results, refs
+
+
+def _assert_params(got, ref, **tol):
+    for name, p in got.items():
+        np.testing.assert_allclose(p.numpy(), ref[name].numpy(), err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("case", ["dp", "grid"])
+@pytest.mark.parametrize("impl", ["xla", "fhvp"])
+def test_so_mesh_step_matches_jax_float64(ranks, case, impl):
+    """Second order on dp 2 and on dp 2 x sp 2 (real nodes on both sp
+    shards) against JAX's second-order mesh steps: per-task losses and
+    parameters after the AdamW updates, rtol 1e-8; every rank's parameters
+    bitwise equal."""
+    results, refs = ranks
+    ref_losses, ref_params = refs[case]
+    first = results[case][0]["so"][impl]
+    for res in results[case]:
+        losses, params = res["so"][impl]
+        np.testing.assert_allclose(losses, ref_losses, **TOL_JAX)
+        for name, p in params.items():
+            torch.testing.assert_close(p, first[1][name], rtol=0, atol=0)
+    _assert_params(first[1], ref_params, **TOL_JAX_PARAMS)
+
+
+@pytest.mark.parametrize("case", ["dp", "grid"])
+@pytest.mark.parametrize("impl", ["hvp", "rof"])
+def test_so_mesh_hessian_transposes_match_xla(ranks, case, impl):
+    """The "hvp" and "rof" Hessian transposes against the port's "xla"
+    mesh step on the same mesh (1e-9), and against JAX's second-order mesh
+    step (rtol 1e-8, as the "xla" and "fhvp" steps)."""
+    results, refs = ranks
+    ref_losses, ref_params = refs[case]
+    for res in results[case]:
+        losses, params = res["so"][impl]
+        np.testing.assert_allclose(losses, res["so"]["xla"][0], rtol=1e-9, atol=1e-12)
+        _assert_params(params, res["so"]["xla"][1], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(losses, ref_losses, **TOL_JAX)
+        _assert_params(params, ref_params, **TOL_JAX_PARAMS)
+
+
+def test_lockstep_mesh_step_matches_serial_with_dropout(ranks):
+    """Under `_VBATCH` each rank's two tasks run in lockstep (one call of
+    `lockstep_grad_sums` an update, V = 2), each drawing from the generator
+    its serial run draws from: the same step as the serial mesh step with
+    dropout on (1e-10); the serial step never runs in lockstep."""
+    results, _ = ranks
+    for res in results["dp"]:
+        lock, serial = res["vbatch"]["lockstep"], res["vbatch"]["serial"]
+        assert lock[2] == [2] and serial[2] == []
+        np.testing.assert_allclose(lock[0], serial[0], rtol=1e-10, atol=1e-12)
+        _assert_params(lock[1], serial[1], rtol=1e-10, atol=1e-12)
+
+
+def test_lockstep_mesh_step_matches_jax_float64(ranks):
+    """At dropout 0 on the plain stack (`lstm_kernel="xla"`) the lockstep dp
+    step against JAX's dp meta step (1e-8)."""
+    results, refs = ranks
+    ref_losses, ref_params = refs["vbatch"]
+    for res in results["dp"]:
+        losses, params, calls = res["vbatch"]["plain"]
+        assert calls == [2]
+        np.testing.assert_allclose(losses, ref_losses, **TOL_JAX)
+        _assert_params(params, ref_params, **TOL_JAX_PARAMS)
+
+
+def test_sharded_encoder_jvp_and_double_backward_match_unsharded(ranks):
+    """sp 4: torch.func.jvp of the node-sharded encoder (its gathers' jvp)
+    and its double backward (the gathers' reduce-scatter backward kept in
+    the graph) against the unsharded encoder, float64 1e-10."""
+    results, _ = ranks
+    for res in results["grid"]:
+        assert res["jvp"] < 1e-10, res["jvp"]
+        assert res["double_backward"] < 1e-10 * max(1.0, res["double_backward_scale"]), res
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])

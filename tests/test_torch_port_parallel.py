@@ -41,6 +41,7 @@ import torch.distributed as dist
 
 from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.engines import meta_train
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
 from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
     Mesh,
@@ -546,7 +547,7 @@ def test_partial_topology_raises(monkeypatch, env):
         distributed.initialize()
 
 
-def test_mesh_steps_refuse_what_they_do_not_run():
+def test_mesh_steps_refuse_what_they_do_not_run(monkeypatch):
     mc, meta = tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**META)
     with pytest.raises(ValueError, match="dp mesh axis"):  # 2 tasks per update over 4
         make_shardmap_meta_step_2d(mc, meta, _fake_mesh(4, 2, 0))
@@ -555,19 +556,22 @@ def test_mesh_steps_refuse_what_they_do_not_run():
                                    _fake_mesh(2, 2, 0))
     with pytest.raises(ValueError, match="mesh size"):
         make_parallel_meta_step(mc, meta, _fake_mesh(4, 1, 0))
-    so = dataclasses.replace(meta, second_order=True)
-    for make, mesh in ((make_shardmap_meta_step_2d, _fake_mesh(2, 2, 0)),
-                       (make_parallel_meta_step, _fake_mesh(2, 1, 0))):
-        with pytest.raises(NotImplementedError, match="second-order"):
-            make(mc, so, mesh)
+    # Under `_VBATCH` the dp x sp step refuses, naming the flag; the dp
+    # step runs a rank's tasks in lockstep.
+    monkeypatch.setattr(fused_lstm_stack, "_VBATCH", True)
+    with pytest.raises(NotImplementedError, match="_VBATCH.*dp x sp"):
+        make_shardmap_meta_step_2d(mc, meta, _fake_mesh(2, 2, 0))
+    make_parallel_meta_step(mc, meta, _fake_mesh(2, 1, 0))
 
 
 @pytest.mark.parametrize("override,match", [
-    (["meta.second_order=true"], "second-order"),
+    ([], "_VBATCH"),  # with ops.fused_lstm_stack._VBATCH set
     (["mesh.sp_impl=gspmd"], "gspmd"),
     (["model.family=stgcn"], "gspmd"),
 ])
-def test_engine_refuses_unported_mesh_settings(tmp_path, override, match):
+def test_engine_refuses_unported_mesh_settings(tmp_path, monkeypatch, override, match):
+    if match == "_VBATCH":
+        monkeypatch.setattr(fused_lstm_stack, "_VBATCH", True)
     cfg = tcfg.apply_overrides(tcfg.ExperimentConfig(), override + [f"out_dir={tmp_path}"])
     with pytest.raises(NotImplementedError, match=match):
         meta_train.run_meta_training(cfg, mesh=_fake_mesh(1, 2, 0), log_cb=lambda *a: None)

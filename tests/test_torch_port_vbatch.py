@@ -396,14 +396,19 @@ def test_f32_meta_gradient_with_vbatch_matches_jax(vbatch, tiny_model_cfg):
 
 
 def test_vbatch_refused_on_a_mesh(vbatch):
-    """Under `_VBATCH` a mesh would run its tasks one after another: the
-    engine and both mesh steps refuse, naming the flag."""
+    """Under `_VBATCH` the dp x sp mesh would run its tasks one after
+    another: the engine on a dp x sp mesh and the dp x sp step refuse,
+    naming the flag; the dp mesh and its step take it (a rank's tasks in
+    lockstep)."""
     mc, meta = tcfg.ModelConfig(**MODEL), tcfg.MetaConfig()
+    cfg = tcfg.ExperimentConfig(model=mc, meta=meta)
     with pytest.raises(NotImplementedError, match="_VBATCH"):
-        meta_train._check_mesh(tcfg.ExperimentConfig(model=mc, meta=meta), None)
-    for build in (meta_dp.make_parallel_meta_step, meta_sp.make_shardmap_meta_step_2d):
-        with pytest.raises(NotImplementedError, match="_VBATCH"):
-            build(mc, meta, type("OneRankMesh", (), {"dp": 1})())
+        meta_train._check_mesh(cfg, type("GridMesh", (), {"axis_names": ("dp", "sp")})())
+    with pytest.raises(NotImplementedError, match="_VBATCH"):
+        meta_sp.make_shardmap_meta_step_2d(mc, meta, type("OneRankMesh", (), {"dp": 1})())
+    meta_train._check_mesh(cfg, type("DpMesh", (), {"axis_names": ("dp",)})())
+    meta_dp.make_parallel_meta_step(mc, meta, type("OneRankMesh", (), {"dp": 1, "sp": 1,
+                                                                        "size": 1})())
 
 
 @pytest.mark.parametrize("override,meta_override", [

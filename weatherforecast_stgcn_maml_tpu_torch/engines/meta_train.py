@@ -48,7 +48,6 @@ from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import Mesh, resolve_sp_
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import (
     make_parallel_meta_step,
     refuse_lockstep,
-    refuse_second_order,
 )
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
@@ -110,10 +109,9 @@ def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Genera
 
 def _check_mesh(cfg: ExperimentConfig, mesh: Mesh) -> None:
     """Refuse, by name, what no step of `mesh` runs."""
-    refuse_second_order(cfg.meta, "a mesh")
-    refuse_lockstep(cfg.model, cfg.meta, "a mesh")
     if len(mesh.axis_names) == 1:
         return
+    refuse_lockstep(cfg.model, cfg.meta, "the node-sharded (dp x sp) mesh")
     sp_impl = resolve_sp_impl(cfg.mesh.sp_impl, cfg.model)
     if sp_impl == "gspmd":
         raise NotImplementedError(

@@ -16,11 +16,15 @@ Task down to this rank's tasks and node rows, the counterpart of
 of support/query windows ([..., W, NL, C]), the adjacency's rows ([NL, N])
 and the node mask ([NL]).
 
-The two collectives with a gradient (`torch.autograd.Function`s):
-`all_gather_nodes` (forward all_gather_into_tensor along dim 0; backward
-reduce_scatter_tensor, sum: the psum-scatter that JAX's all_gather
-transposes to) and `all_reduce_sum` (forward sum over the group; backward
-the identity, so each rank's backward starts from its own share).
+The collectives with a gradient (`torch.autograd.Function`s, each with a
+backward and a jvp that call the collectives again, so that the
+second-order meta-gradient can differentiate through them twice):
+`all_gather_nodes` and its transpose, a reduce-scatter (along dim 0;
+exact cotangents and tangents both ways), `all_reduce_sum` (a sum whose
+cotangent every rank holds whole: backward the identity, so each rank's
+backward starts from its own share) and `all_reduce_tensors` (a sum whose
+cotangent each rank holds in part: backward a sum too). `all_gather_rows`
+takes no gradient.
 """
 
 from __future__ import annotations
@@ -171,9 +175,13 @@ def shard_task_batch_2d(tasks, mesh: Mesh):
 
 
 class _GatherNodes(torch.autograd.Function):
+    # The setup_context form: the torch.func transforms unwrap the operands
+    # before forward and jvp run, so the collective sees plain tensors. The
+    # backward and the jvp call the collective Functions again, never the
+    # raw collectives, so that their results stay differentiable (double
+    # backward, jvp of a backward).
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(x, group):
         size = dist.get_world_size(group)
         x = x.contiguous()
         out = x.new_empty((size * x.shape[0], *x.shape[1:]))
@@ -181,46 +189,106 @@ class _GatherNodes(torch.autograd.Function):
         return out
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
     def backward(ctx, g):
-        size = dist.get_world_size(ctx.group)
+        return _ReduceScatterNodes.apply(g, ctx.group), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _GatherNodes.apply(t, ctx.group)
+
+
+class _ReduceScatterNodes(torch.autograd.Function):
+    @staticmethod
+    def forward(g, group):
+        size = dist.get_world_size(group)
         g = g.contiguous()
         out = g.new_empty((g.shape[0] // size, *g.shape[1:]))
-        # The psum-scatter: each rank's partial cotangent of the gathered
-        # tensor, summed over the group, back to the rank that sent the rows.
-        dist.reduce_scatter_tensor(out, g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return out, None
+        dist.reduce_scatter_tensor(out, g, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherNodes.apply(g, ctx.group), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _ReduceScatterNodes.apply(t, ctx.group)
 
 
 def all_gather_nodes(x: torch.Tensor, group) -> torch.Tensor:
     """[NL, ...] node rows of every rank of `group`, stacked along dim 0 in
-    rank order: [size * NL, ...]. Differentiable (reduce-scatter backward)."""
+    rank order: [size * NL, ...]. Its backward is a reduce-scatter Function
+    (the psum-scatter JAX's all_gather transposes to: each rank's partial
+    cotangent of the gathered tensor, summed over the group, back to the
+    rank that sent the rows; its own backward gathers); its jvp gathers the
+    tangent. Every cotangent
+    and tangent here is exact for the tensor it belongs to, so the pair is
+    differentiable to any order (the second-order inner gradient's double
+    backward and Hessian-vector products cross it)."""
     return _GatherNodes.apply(x, group)
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(x, group):
         out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
     def backward(ctx, g):
         return g, None
 
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _AllReduceSum.apply(t, ctx.group)
+
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of x over `group`. Its backward is the identity: each rank's
-    gradient flows only into its own summand (psum's transpose)."""
+    """The sum of x over `group`, for a sum whose cotangent every rank holds
+    whole (a replicated loss: each rank's backward starts from 1). Its
+    backward is the identity: each rank's gradient flows only into its own
+    summand (psum's transpose into device-varying summands). Its jvp sums
+    the tangent over the group."""
     return _AllReduceSum.apply(x, group)
 
 
-@torch.no_grad()
+class _SumPartials(_AllReduceSum):
+    @staticmethod
+    def backward(ctx, g):
+        return _SumPartials.apply(g, ctx.group), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _SumPartials.apply(t, ctx.group)
+
+
 def all_reduce_tensors(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
     """The elementwise sum over `group` of each tensor, in one collective
-    (flattened into one buffer); returns views of that buffer."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    (flattened into one buffer); returns views of that buffer. For a sum
+    whose cotangent each rank holds only in part: a replicated value that
+    feeds each rank's own computation (the inner gradient, summed over sp,
+    then clipped and stepped into parameters that every rank differentiates
+    on its own rows). Its backward sums the cotangents over the group too,
+    so each summand gets the whole cotangent (JAX's psum followed by pcast
+    to varying, whose transpose is a psum); its jvp sums the tangents. With
+    `all_reduce_sum`'s identity backward a cotangent held in part would
+    reach each summand unsummed: off by the other ranks' parts. On tensors
+    that carry no graph (the first-order inner gradient, the meta-gradient)
+    it records none."""
+    flat = _SumPartials.apply(torch.cat([t.reshape(-1) for t in tensors]), group)
     return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 

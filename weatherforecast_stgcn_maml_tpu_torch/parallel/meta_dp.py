@@ -11,9 +11,18 @@ gradient, so they stay bitwise equal.
 `mesh_batch_grad` is shared with the node-sharded step (parallel/meta_sp.py),
 which plugs in its own per-task loss and task placement.
 
+Second order needs no communication inside a task either: each rank
+differentiates its tasks' query losses w.r.t. the meta-parameters
+themselves (train/maml.py's second-order inner loop), and the same
+all-reduce sums the exact meta-gradients. Under `ops.fused_lstm_stack.
+_VBATCH` (train/maml.lockstep_route) a rank runs its tasks of a
+micro-batch side by side (`train/maml.lockstep_grad_sums`: rows 16-17
+each way and row 9 an inner step).
+
 Dropout: task i of the meta batch draws from its own generator,
 `shard_generator((*key, i), sp_index)` (parallel/mesh.py), so a task's
-masks do not depend on which rank runs it. The single-device step
+masks do not depend on which rank runs it, nor on whether the rank's
+tasks run one after another or side by side. The single-device step
 (train/maml.py) draws every task from one generator instead.
 
 The JAX package's GSPMD 2-D step (`make_parallel_meta_step_2d`) has no
@@ -38,6 +47,7 @@ from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
     MamlState,
     adapt_and_query_loss,
     check_supported,
+    lockstep_grad_sums,
     lockstep_route,
     param_grads,
 )
@@ -45,34 +55,32 @@ from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import MetaOptimizer
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task, task_at
 
 
-def refuse_second_order(cfg: MetaConfig, where: str) -> None:
-    if cfg.second_order:
-        raise NotImplementedError(
-            f"not ported: second-order MAML (meta.second_order) on {where}; run it on "
-            "one device (without --mesh)"
-        )
-
-
 def refuse_lockstep(model_cfg: ModelConfig, cfg: MetaConfig, where: str) -> None:
-    """The task-batched meta step has no mesh counterpart yet: under the
-    flag a mesh would silently run its tasks one after another."""
+    """The task-batched meta step runs on one device and on a dp mesh; on
+    `where` (the dp x sp step) the flag would silently run the tasks one
+    after another."""
     if lockstep_route(model_cfg, cfg):
         raise NotImplementedError(
-            f"not ported: ops.fused_lstm_stack._VBATCH (the task-batched meta step, "
-            f"kernel rows 16-17) on {where}; run it on one device (without --mesh)"
+            "ops.fused_lstm_stack._VBATCH (the task-batched meta step, kernel rows "
+            "16-17) runs on one device and on a dp mesh (mesh.spatial_devices=1), not "
+            f"yet on {where}"
         )
 
 
-def mesh_batch_grad(mesh: Mesh, local_tasks, task_loss):
+def mesh_batch_grad(mesh: Mesh, local_tasks, task_loss, second_order: bool = False,
+                    lockstep=None):
     """Build `batch_grad(params, tasks, key, fast=None, offset=0) ->
     (per-task losses [B], {name: mean meta-gradient})` for a stacked batch
     of B tasks that every rank holds whole.
 
     `local_tasks(tasks, mesh)` cuts this rank's share; `task_loss(params,
     task, generator, fast)` is one task's loss, differentiable w.r.t.
-    `fast`'s parameters. `offset` is the batch's first index in the meta
-    batch (it picks the tasks' generators). Both results are the same on
-    every rank."""
+    `fast`'s parameters (first order) or `params`' own (`second_order`).
+    `offset` is the batch's first index in the meta batch (it picks the
+    tasks' generators). `lockstep(params, tasks, generators)`, where given,
+    runs this rank's tasks side by side and returns (per-task losses,
+    {name: gradient summed over them}), or None where they run one after
+    another. Both results are the same on every rank."""
 
     def batch_grad(params, tasks: Task, key, fast=None, offset: int = 0):
         batch = tasks.support_x.shape[0]
@@ -80,17 +88,25 @@ def mesh_batch_grad(mesh: Mesh, local_tasks, task_loss):
             raise ValueError(f"{batch} tasks do not split evenly over {mesh.dp} dp ranks")
         local = batch // mesh.dp
         mine = local_tasks(tasks, mesh)
-        fast = copy.deepcopy(params) if fast is None else fast
-        named = list(fast.named_parameters())
-        total, losses = None, []
-        for j in range(local):
-            index = offset + mesh.dp_index * local + j
-            gen = shard_generator(None if key is None else (*key, index), mesh.sp_index,
-                                  tasks.support_x.device)
-            loss = task_loss(params, task_at(mine, j), gen, fast)
-            grads = param_grads(loss, [p for _, p in named])
-            total = grads if total is None else [a + b for a, b in zip(total, grads)]
-            losses.append(loss.detach())
+        first = offset + mesh.dp_index * local  # this rank's first task in the meta batch
+        gens = [shard_generator(None if key is None else (*key, first + j), mesh.sp_index,
+                                tasks.support_x.device) for j in range(local)]
+        if second_order:
+            named = list(params.named_parameters())
+        else:
+            fast = copy.deepcopy(params) if fast is None else fast
+            named = list(fast.named_parameters())
+        side_by_side = None if lockstep is None else lockstep(params, mine, gens)
+        if side_by_side is not None:
+            per_task, sums = side_by_side
+            total, losses = [sums[n] for n, _ in named], list(per_task)
+        else:
+            total, losses = None, []
+            for j in range(local):
+                loss = task_loss(params, task_at(mine, j), gens[j], fast)
+                grads = param_grads(loss, [p for _, p in named])
+                total = grads if total is None else [a + b for a, b in zip(total, grads)]
+                losses.append(loss.detach())
         # The meta-gradient: every rank's sum (over sp, each rank's partial
         # of its tasks; over dp, other tasks) summed over the whole mesh,
         # then the mean over the batch. Every rank gets the same tensor.
@@ -115,7 +131,7 @@ def make_mesh_meta_step(cfg: MetaConfig, batch_grad):
         if batch % n_updates:
             raise ValueError(f"meta batch {batch} not divisible by grad_accum {n_updates}")
         per = batch // n_updates
-        fast = copy.deepcopy(state.params)
+        fast = None if cfg.second_order else copy.deepcopy(state.params)
         params = dict(state.params.named_parameters())
         opt_state, step, losses = state.opt_state, state.step, []
         for u in range(n_updates):
@@ -139,12 +155,13 @@ def make_parallel_meta_step(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: 
     """The dp meta step on a 1-D mesh: `(state, tasks, key) -> (state,
     metrics)`, the signature of train/maml.py's step with `key` (a tuple of
     ints, or None for no dropout) in place of the generator. `tasks` is the
-    whole stacked batch on every rank.
+    whole stacked batch on every rank. First or second order (the loss is
+    differentiated w.r.t. the meta-parameters themselves); under
+    `lockstep_route` a rank's tasks run side by side (rows 16-17 and 9),
+    each drawing from the generator its serial run would draw from.
 
     Requires meta_batch / grad_accum (the tasks per update) to be divisible
     by the mesh size, so every rank holds equal task shares."""
-    refuse_second_order(meta_cfg, "a mesh")
-    refuse_lockstep(model_cfg, meta_cfg, "a mesh")
     check_supported(model_cfg, meta_cfg)
     if mesh.sp != 1:
         raise ValueError(
@@ -158,7 +175,20 @@ def make_parallel_meta_step(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: 
             f"({mesh.size}) for even dp sharding"
         )
 
+    return make_mesh_meta_step(meta_cfg, make_parallel_batch_grad(model_cfg, meta_cfg, mesh))
+
+
+def make_parallel_batch_grad(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: Mesh):
+    """`batch_grad(params, tasks, key, fast=None, offset=0) -> (per-task
+    losses [B], {name: mean meta-gradient})` of the dp step (see
+    mesh_batch_grad); the counterpart of train/maml.py's task_batch_grad."""
+
     def task_loss(params, task, gen, fast):
         return adapt_and_query_loss(params, task, gen, model_cfg, meta_cfg, fast)
 
-    return make_mesh_meta_step(meta_cfg, mesh_batch_grad(mesh, shard_task_batch, task_loss))
+    def lockstep(params, tasks, gens):
+        if not lockstep_route(model_cfg, meta_cfg, tasks):
+            return None
+        return lockstep_grad_sums(params, tasks, gens, model_cfg, meta_cfg)
+
+    return mesh_batch_grad(mesh, shard_task_batch, task_loss, meta_cfg.second_order, lockstep)

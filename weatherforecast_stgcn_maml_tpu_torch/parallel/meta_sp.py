@@ -2,8 +2,9 @@
 the fused kernels engaged per node shard.
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/parallel/meta_sp.py`
-(`make_shardmap_meta_step_2d`, first order). Each rank holds its tasks'
-node rows (parallel/mesh.shard_task_batch_2d) and runs, per task:
+(`make_shardmap_meta_step_2d`). Each rank holds its tasks' node rows
+(parallel/mesh.shard_task_batch_2d) and runs, per task, train/maml.py's
+`adapt_and_query_loss` on `local_route`, first order:
 
   * the inner SGD loop on the node-local hybrid forward
     (parallel/spatial.hybrid_local_forward: the GCN sandwich kernels, rows
@@ -21,15 +22,29 @@ takes the same AdamW step. Dropout masks are per rank (its NL rows) and per
 task, from `shard_generator((*key, task_index), sp_index)`: a valid stream
 that differs from the unsharded step's.
 
-Not ported: second-order MAML on this path (JAX `meta_sp.py:145-160` and
-`so_fused.make_local_grad_loss_fused`) raises NotImplementedError.
+Second order (`meta.second_order`): the inner loop runs on a functional
+copy of the parameters that stays in their graph. Each step's gradient is
+train/so_grad.py's, on the node-local support loss (with `so_impl="fhvp"`
+the Hessian transpose is the jvp of `make_local_grad_loss_fused`, rows
+10-11 on the rank's NL rows), the rank's partial gradient;
+`mesh.all_reduce_tensors` sums it over sp (its backward sums the cotangents
+over sp before each rank's Hessian transpose), then the differentiable
+global-norm clip and p - inner_lr * g. The query loss is differentiated
+w.r.t. the meta-parameters themselves: each rank's partial of the exact
+meta-gradient.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+from torch import nn
 
 from weatherforecast_stgcn_maml_tpu_torch.config import MetaConfig, ModelConfig
+from weatherforecast_stgcn_maml_tpu_torch.models.common import apply_dense, apply_mask, resolve_dtype
+from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import koppen_features
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_tensors,
@@ -39,57 +54,116 @@ from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import (
     make_mesh_meta_step,
     mesh_batch_grad,
     refuse_lockstep,
-    refuse_second_order,
 )
 from weatherforecast_stgcn_maml_tpu_torch.parallel.spatial import (
+    _spatial_encoder,
     hybrid_local_forward,
+    local_masks,
     psum_masked_mse,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
+    TaskRoute,
+    adapt_and_query_loss,
     check_supported,
-    inner_sgd_update,
-    param_grads,
 )
-from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import leaf_order
+from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import (
+    _stack_weights,
+    _vjp_sandwich,
+    plain_route,
+    support_loss,
+)
 
 
-def _local_adapt_and_query_loss(params, task, generator, model_cfg: ModelConfig,
-                                cfg: MetaConfig, group, fast) -> torch.Tensor:
-    """One task's first-order inner adaptation and query loss on this rank's
-    node rows (`task` as shard_task_batch_2d cuts it). `fast` is overwritten
-    with a copy of `params` and adapted; the returned loss (the whole
-    task's, the same on every rank of `group`) is differentiable w.r.t.
-    `fast`'s parameters, and its gradient there is this rank's partial of
-    the task's meta-gradient."""
-    # The JAX parameter tree's leaf order: the order the clip sums squares in.
-    named = sorted(fast.named_parameters(), key=lambda kv: leaf_order(kv[0]))
-    fast_params = [p for _, p in named]
-    with torch.no_grad():
-        for q, p in zip(fast.parameters(), params.parameters()):
-            q.copy_(p)
+def local_route(group) -> TaskRoute:
+    """The task route of a dp x sp rank: its node rows ([W, NL, C] windows,
+    a_rows [NL, N], node_mask [NL], as shard_task_batch_2d cuts a task)
+    through `hybrid_local_forward`, the masked MSE summed over `group` (the
+    whole window's loss on every rank), this rank's dropout masks
+    (`local_masks`), and the inner gradient summed over `group`.
 
-    def loss_at(x, y, gen):
-        preds = hybrid_local_forward(fast, task.a_hat, x, task.koppen, model_cfg, group,
-                                     train=True, generator=gen)
-        return psum_masked_mse(preds, y, task.node_mask, group)
+    The partial-gradient trap: each rank's gradient covers its own node rows
+    (plus what crossed the gathers), so the inner gradient is the SUM over
+    sp, taken BEFORE the global-norm clip. Clipping or stepping on a partial
+    would let the sp ranks' parameters drift apart whenever real nodes span
+    shards."""
 
-    n_support = task.support_x.shape[0]
-    for s in range(cfg.inner_epochs * n_support):
-        idx = s % n_support  # epoch-major pass over the same support windows
-        grads = param_grads(loss_at(task.support_x[idx], task.support_y[idx], generator),
-                            fast_params)
-        # The partial-gradient trap: each rank's gradient covers its own
-        # node rows (plus what crossed the gathers), so the inner gradient
-        # is the SUM over sp, taken BEFORE the global-norm clip. Clipping
-        # or stepping on a partial would let the sp ranks' parameters drift
-        # apart whenever real nodes span shards.
-        inner_sgd_update(named, all_reduce_tensors(grads, group), cfg)
+    def forward(model, a_rows, x, koppen, cfg, **kwargs):
+        return hybrid_local_forward(model, a_rows, x, koppen, cfg, group, **kwargs)
 
-    q = max(1, min(cfg.query_batches, task.query_x.shape[0]))
-    gen = generator if cfg.query_train_mode else None
-    return torch.stack(
-        [loss_at(task.query_x[i], task.query_y[i], gen) for i in range(q)]
-    ).mean()
+    def mse(preds, y, node_mask):
+        return psum_masked_mse(preds, y, node_mask, group)
+
+    def masks(cfg, generator, x):
+        return local_masks(cfg, generator, x.shape[0], x.shape[1], x.device)
+
+    def grad_loss_fused(model, cfg):
+        return make_local_grad_loss_fused(
+            model, cfg, group, support_loss(model, plain_route(cfg), forward, mse))
+
+    return TaskRoute(forward, mse, masks, lambda grads: all_reduce_tensors(grads, group),
+                     grad_loss_fused)
+
+
+def make_local_grad_loss_fused(model: nn.Module, cfg: ModelConfig, group, loss_plain):
+    """The node-sharded twin of train/so_fused.make_grad_loss_fused:
+    grad_loss(q, aux, masks) -> {name: this rank's partial gradient} of the
+    local support loss (`support_loss` on `local_route(group)`; `loss_plain`
+    is it on the plain route) at q, aux = (x [W, NL, C], y [H, NL, 12],
+    a_rows [NL, N], koppen, node_mask [NL]), with this rank's masks,
+    forward-differentiable through the second-order stack kernels on this
+    rank's NL rows.
+
+      pre   the node-local Koppen embedding and the node-sharded encoder
+            (`parallel.spatial._spatial_encoder`) on its plain layerwise
+            route, one all-gather a layer (the sandwich kernels, rows 12-13,
+            are first-order only), and the merged LSTM weights;
+      stack `fwd_op` / `bwd_op` (rows 4-5; jvp rows 10-11) on the NL rows;
+      post  head dropout, dense head, the masked MSE summed over `group`.
+
+    The value is what torch.func.grad of the local loss returns on this
+    rank: its partial of the gradient (its rows' share, plus what crossed
+    the gathers); the caller sums it over sp. Its jvp pushes every rank's
+    tangent through the collectives' jvps, which by the symmetry of the
+    joint Hessian over the ranks' parameter copies is this rank's share of
+    the Hessian transpose the second-order meta-gradient needs. Where
+    `fused_lstm_stack.stack_planned` fails at NL rows, and under
+    `lstm_kernel="xla"`, it is torch.func.grad of `loss_plain`, counted in
+    `lstm_stack_train.plain_routes` where unplanned.
+
+    Counterpart of `weatherforecast_stgcn_maml_tpu/train/so_fused.py`
+    (`make_local_grad_loss_fused`)."""
+    plain = torch.func.grad(loss_plain)
+    if cfg.lstm_kernel == "xla":
+        return plain
+    dtype = resolve_dtype(cfg.compute_dtype)
+    enc_cfg = dataclasses.replace(cfg, use_pallas_gcn=False)
+    keep = 1.0 - cfg.lstm_dropout
+
+    def grad_loss(q, aux, masks):
+        xb, yb, a_rows, koppen, node_mask = aux
+        nl = xb.shape[1]
+        if not fused_lstm_stack.stack_planned(cfg.lstm_hidden, nl, dtype, xb.device):
+            fused_lstm_stack.lstm_stack_train.plain_routes += 1
+            return plain(q, aux, masks)
+
+        def pre(m):
+            h = koppen_features(m, xb, koppen).transpose(0, 1)  # [NL, W, C_in]
+            h = _spatial_encoder(m.encoder.layers, a_rows, h, enc_cfg, group,
+                                 masks.get("encoder"))
+            if cfg.stop_base_gradients:
+                h = h.detach()
+            return h.transpose(0, 1).contiguous(), *_stack_weights(m)  # [W, NL, hidden]
+
+        def post(m, feat):
+            if "head" in masks:
+                feat = apply_mask(feat, masks["head"], keep)
+            out = apply_dense(m.head, feat, compute_dtype=dtype)
+            preds = out.reshape(nl, cfg.horizon, cfg.num_weather_vars).transpose(0, 1)
+            return psum_masked_mse(preds, yb, node_mask, group)
+
+        return _vjp_sandwich(model, q, pre, post, masks.get("lstm"), keep, dtype)
+
+    return grad_loss
 
 
 def make_shardmap_batch_grad(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: Mesh):
@@ -98,17 +172,18 @@ def make_shardmap_batch_grad(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh:
     parallel/meta_dp.mesh_batch_grad); the counterpart of train/maml.py's
     task_batch_grad."""
 
-    def task_loss(params, task, gen, fast):
-        return _local_adapt_and_query_loss(params, task, gen, model_cfg, meta_cfg,
-                                           mesh.sp_group, fast)
+    route = local_route(mesh.sp_group)
 
-    return mesh_batch_grad(mesh, shard_task_batch_2d, task_loss)
+    def task_loss(params, task, gen, fast):
+        return adapt_and_query_loss(params, task, gen, model_cfg, meta_cfg, fast, route)
+
+    return mesh_batch_grad(mesh, shard_task_batch_2d, task_loss, meta_cfg.second_order)
 
 
 def make_shardmap_meta_step_2d(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: Mesh):
     """The dp x sp meta step: `(state, tasks, key) -> (state, metrics)`,
     `tasks` the whole stacked batch on every rank, `key` a tuple of ints
-    (None: no dropout). The hybrid family only, first order."""
+    (None: no dropout). The hybrid family only; first or second order."""
     if getattr(model_cfg, "family", "hybrid") != "hybrid":
         raise ValueError(
             "the dp x sp meta step supports family='hybrid' only (the JAX package's "
@@ -120,7 +195,6 @@ def make_shardmap_meta_step_2d(model_cfg: ModelConfig, meta_cfg: MetaConfig, mes
             f"tasks per update ({per_update}) must be divisible by the dp mesh axis "
             f"({mesh.dp}) for even sharding"
         )
-    refuse_second_order(meta_cfg, "the node-sharded (dp x sp) path")
     refuse_lockstep(model_cfg, meta_cfg, "the node-sharded (dp x sp) path")
     check_supported(model_cfg, meta_cfg)
     return make_mesh_meta_step(meta_cfg, make_shardmap_batch_grad(model_cfg, meta_cfg, mesh))

@@ -29,7 +29,8 @@ except in lockstep: with `ops.fused_lstm_stack._VBATCH` on, the first-order
 step of the hybrid family on the merged fused LSTM stack runs the tasks of
 a micro-batch side by side (`lockstep_batch_grad`), as the JAX package's
 vmap does, their LSTM stacks in one launch each way (kernel rows 16-17) and
-their inner updates in one (row 9). The meta batch splits into
+their inner updates in one (row 9); the dp mesh (parallel/meta_dp.py) runs
+a rank's tasks so too. The meta batch splits into
 `grad_accum` micro-batches run in sequence; the mean meta-gradient of each
 feeds one clip + AdamW update (train/optimizers.py) from the parameters
 the previous update left.
@@ -44,7 +45,7 @@ encoder, LSTM, head masks in that order.
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -123,6 +124,34 @@ def init_meta_state(
     return MamlState(model, MetaOptimizer.init(dict(model.named_parameters())), 0)
 
 
+class TaskRoute(NamedTuple):
+    """Where one task's losses run (`adapt_and_query_loss`): one device, the
+    whole task (`device_route`), or a dp x sp rank's node rows
+    (parallel/meta_sp.local_route).
+
+      forward(model, a_hat, x, koppen, cfg, *, train, generator, masks):
+          the predictions;
+      mse(preds, y, node_mask): the window's loss, the same on every rank;
+      masks(cfg, generator, x [W, N, F]): one train forward's dropout masks;
+      reduce([gradient]): the inner gradient, before the clip;
+      grad_loss_fused(model, cfg): `so_impl="fhvp"`'s gradient, forward-
+          differentiable through rows 10-11 (train/so_fused.py).
+    """
+
+    forward: Callable
+    mse: Callable
+    masks: Callable
+    reduce: Callable
+    grad_loss_fused: Callable
+
+
+def device_route() -> TaskRoute:
+    """One device, the whole task: this module's model functions, looked up
+    when the route is made, and no sum over ranks."""
+    return TaskRoute(apply_model, masked_mse, draw_masks, lambda grads: grads,
+                     make_grad_loss_fused)
+
+
 def param_grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]:
     """d loss / d params; zero for a parameter the loss does not reach (the
     encoder under `model.stop_base_gradients`)."""
@@ -137,6 +166,7 @@ def adapt_and_query_loss(
     model_cfg: ModelConfig,
     cfg: MetaConfig,
     fast: nn.Module | None = None,
+    route: TaskRoute | None = None,
 ) -> torch.Tensor:
     """Inner-adapt on the task's support set and return the query loss.
 
@@ -144,9 +174,11 @@ def adapt_and_query_loss(
     the loss is differentiable w.r.t. `fast`'s parameters: its gradient
     there is the task's first-order meta-gradient. Second order: the loss
     is differentiable w.r.t. `params`' own parameters, and its gradient
-    there is the exact meta-gradient (`fast` is not used)."""
+    there is the exact meta-gradient (`fast` is not used). On a dp x sp
+    rank (`route`) the gradients are the rank's partials of those."""
+    route = route or device_route()
     if cfg.second_order:
-        return _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg)
+        return _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg, route)
     # The JAX parameter tree's leaf order: the order the clip sums squares in.
     named = sorted(fast.named_parameters(), key=lambda kv: leaf_order(kv[0]))
     fast_params = [p for _, p in named]
@@ -156,14 +188,14 @@ def adapt_and_query_loss(
     n_support = task.support_x.shape[0]
     for s in range(cfg.inner_epochs * n_support):
         idx = s % n_support  # epoch-major pass over the same support windows
-        preds = apply_model(
+        preds = route.forward(
             fast, task.a_hat, task.support_x[idx], task.koppen, model_cfg,
             train=True, generator=generator,
         )
-        loss = masked_mse(preds, task.support_y[idx], task.node_mask)
-        inner_sgd_update(named, param_grads(loss, fast_params), cfg)
+        loss = route.mse(preds, task.support_y[idx], task.node_mask)
+        inner_sgd_update(named, route.reduce(param_grads(loss, fast_params)), cfg)
 
-    return _query_loss(fast, None, task, generator, model_cfg, cfg)
+    return _query_loss(fast, None, task, generator, model_cfg, cfg, route)
 
 
 @torch.no_grad()
@@ -180,28 +212,25 @@ def inner_sgd_update(named: list, grads: list[torch.Tensor], cfg: MetaConfig) ->
         p.sub_(cfg.inner_lr * clipped[name])
 
 
-def _query_loss(model, params, task, generator, model_cfg, cfg) -> torch.Tensor:
+def _query_loss(model, params, task, generator, model_cfg, cfg, route) -> torch.Tensor:
     """The mean query loss of `model`, at `params` ({name: tensor}) when
     given. A train-mode forward without a generator has no dropout: the
     eval function, but differentiable (the eval kernels have no backward)."""
     q = max(1, min(cfg.query_batches, task.query_x.shape[0]))
     gen = generator if cfg.query_train_mode else None
 
-    def forward(m, x):
-        return apply_model(m, task.a_hat, x, task.koppen, model_cfg, train=True, generator=gen)
+    def loss_at(m, i):
+        preds = route.forward(m, task.a_hat, task.query_x[i], task.koppen, model_cfg,
+                              train=True, generator=gen)
+        return route.mse(preds, task.query_y[i], task.node_mask)
 
-    losses = [
-        masked_mse(
-            forward(model, task.query_x[i]) if params is None
-            else functional_apply(model, params, forward, task.query_x[i]),
-            task.query_y[i], task.node_mask,
-        )
+    return torch.stack([
+        loss_at(model, i) if params is None else functional_apply(model, params, loss_at, i)
         for i in range(q)
-    ]
-    return torch.stack(losses).mean()
+    ]).mean()
 
 
-def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg) -> torch.Tensor:
+def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg, route) -> torch.Tensor:
     """Second order: the inner loop on a functional copy of `params`' tensors
     that stays in their graph, then the query loss.
 
@@ -212,25 +241,35 @@ def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg) -> torch.T
     autograd.Function keeps only the step's parameters and masks and
     recomputes the rest inside its backward, so every policy gives the same
     numbers and the same memory (an unknown one raises in check_supported).
+
+    "xla" runs the plain route everywhere; the other so_impl values take the
+    inner gradient on the model's own route and differentiate twice on the
+    plain route ("hvp", "rof") or through rows 10-11 ("fhvp"). On a dp x sp
+    rank `route.reduce` sums each step's partial gradient over sp before the
+    clip; its backward sums the cotangents over sp before each rank's
+    Hessian transpose.
     """
     check_supported(model_cfg, cfg)
     route_x = plain_route(model_cfg)
     if cfg.so_impl == "xla":
         model_cfg = route_x  # double backward needs the plain route everywhere
-    fused = make_grad_loss_fused(params, model_cfg) if cfg.so_impl == "fhvp" else None
-    inner_grad = make_so_grad(
-        support_loss(params, model_cfg), support_loss(params, route_x), cfg.so_impl, fused
-    )
+    fused = route.grad_loss_fused(params, model_cfg) if cfg.so_impl == "fhvp" else None
+    inner_grad = make_so_grad(support_loss(params, model_cfg, route.forward, route.mse),
+                              support_loss(params, route_x, route.forward, route.mse),
+                              cfg.so_impl, fused)
     p = dict(params.named_parameters())
+    names = list(p)
     n_support = task.support_x.shape[0]
     for s in range(cfg.inner_epochs * n_support):
         idx = s % n_support  # epoch-major pass over the same support windows
         aux = (task.support_x[idx], task.support_y[idx], task.a_hat, task.koppen,
                task.node_mask)
-        masks = draw_masks(model_cfg, generator, task.support_x[idx])
-        g, _ = clip_global_norm_tree(inner_grad(p, aux, masks), cfg.clip_norm)
+        masks = route.masks(model_cfg, generator, task.support_x[idx])
+        g = inner_grad(p, aux, masks)
+        g, _ = clip_global_norm_tree(dict(zip(names, route.reduce([g[k] for k in names]))),
+                                     cfg.clip_norm)
         p = {k: v - cfg.inner_lr * g[k] for k, v in p.items()}
-    return _query_loss(params, p, task, generator, model_cfg, cfg)
+    return _query_loss(params, p, task, generator, model_cfg, cfg, route)
 
 
 def lockstep_stack(model_cfg: ModelConfig) -> str | None:
@@ -283,15 +322,16 @@ def inner_sgd_update_tasks(params: list, grads: list[torch.Tensor], cfg: MetaCon
     update(params, grads, cfg.inner_lr, cfg.clip_norm, batched=True)
 
 
-def lockstep_batch_grad(
+def lockstep_grad_sums(
     params: nn.Module,
     tasks: Task,
-    generator: torch.Generator | None,
+    generator,
     model_cfg: ModelConfig,
     cfg: MetaConfig,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """The first-order meta-gradient of a stacked batch of V tasks, run in
-    lockstep: (per-task query losses [V], {name: mean gradient}).
+    """The first-order meta-gradients of a stacked batch of V tasks, run in
+    lockstep: (per-task query losses [V], {name: gradient summed over the
+    tasks}).
 
     The fast parameters are one copy of the meta-parameters stacked V
     times. Inner step s runs one task-batched train forward and backward
@@ -302,10 +342,14 @@ def lockstep_batch_grad(
     parameter, so one backward of the summed losses gives each task's own
     gradient in its slice.
 
-    Dropout masks come from `generator` inner step by inner step, task by
+    Dropout: `generator` is one torch.Generator (or None) or a sequence of
+    V, one a task. From one, masks come inner step by inner step, task by
     task within a step (each task's encoder, LSTM, head masks), then query
     window by query window, task by task within each: the same draws as the
     serial route's, in another order, so the same seed gives other masks.
+    From V, task v draws from its own in the order its serial run would
+    (its inner steps, then its query windows): the same masks as the serial
+    route given that generator (the dp mesh's per-task generators).
     """
     named = sorted(params.named_parameters(), key=lambda kv: leaf_order(kv[0]))
     names = [k for k, _ in named]
@@ -313,9 +357,15 @@ def lockstep_batch_grad(
     fast = [p.detach().unsqueeze(0).repeat(nv, *[1] * p.dim()).requires_grad_(True)
             for _, p in named]
 
+    def masks_of(gen, x):  # x [V, W, N, F]
+        if gen is None or isinstance(gen, torch.Generator):
+            return draw_masks(model_cfg, gen, x)
+        per_task = [draw_masks(model_cfg, g, x[v]) for v, g in enumerate(gen)]
+        return {k: torch.stack([m[k] for m in per_task]) for k in per_task[0]}
+
     def losses_at(x, y, gen):  # per-task losses [V] of one window a task
         preds = apply_hybrid_tasks(dict(zip(names, fast)), tasks.a_hat, x, tasks.koppen,
-                                   model_cfg, masks=draw_masks(model_cfg, gen, x))
+                                   model_cfg, masks=masks_of(gen, x))
         return torch.stack([masked_mse(preds[v], y[v], tasks.node_mask[v]) for v in range(nv)])
 
     n_support = tasks.support_x.shape[1]
@@ -328,7 +378,21 @@ def lockstep_batch_grad(
     losses = torch.stack([losses_at(tasks.query_x[:, i], tasks.query_y[:, i], gen)
                           for i in range(q)]).mean(dim=0)
     grads = dict(zip(names, param_grads(losses.sum(), fast)))
-    return losses.detach(), {k: grads[k].sum(dim=0) / nv for k, _ in params.named_parameters()}
+    return losses.detach(), {k: grads[k].sum(dim=0) for k, _ in params.named_parameters()}
+
+
+def lockstep_batch_grad(
+    params: nn.Module,
+    tasks: Task,
+    generator,
+    model_cfg: ModelConfig,
+    cfg: MetaConfig,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """`lockstep_grad_sums` with the mean gradient over the V tasks:
+    (per-task query losses [V], {name: mean gradient})."""
+    losses, sums = lockstep_grad_sums(params, tasks, generator, model_cfg, cfg)
+    nv = tasks.support_x.shape[0]
+    return losses, {k: g / nv for k, g in sums.items()}
 
 
 def task_batch_grad(

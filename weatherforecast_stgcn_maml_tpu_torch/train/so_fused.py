@@ -29,6 +29,11 @@ plan holds the stack's Wh (`fused_lstm_stack.stack_planned`: float32 H >
 budgets) grad_loss is the plain loss's gradient too, as the JAX package
 takes jax.grad of its XLA loss where no chunk of its R-kernels fits.
 
+Its node-sharded twin for the dp x sp mesh, the same composition on one
+rank's node rows, is parallel/meta_sp.make_local_grad_loss_fused (JAX keeps
+it in this module; here it sits in the Parallel layer, above the mesh's
+collectives, and takes `_vjp_sandwich` and `_stack_weights` from here).
+
 Counterpart of `weatherforecast_stgcn_maml_tpu/train/so_fused.py`
 (`make_grad_loss_fused`, `_vjp_sandwich`). Its row-chunked route
 (`hvp_chunk_size` / `chunked_stack_ops`) fits the R-kernels into a TPU
@@ -52,16 +57,18 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_hvp import bwd_op, fwd_op
 
 
-def support_loss(model: nn.Module, cfg: ModelConfig):
+def support_loss(model: nn.Module, cfg: ModelConfig, forward=apply_model, mse=masked_mse):
     """loss(q, aux, masks): the masked MSE of one train-mode forward of the
     window aux = (x, y, a_hat, koppen, node_mask) at the parameters q with
-    the dropout masks `masks`."""
+    the dropout masks `masks`. `forward` and `mse` are a task route's
+    (train/maml.TaskRoute): by default one device's whole window; on a
+    dp x sp rank its node rows, the loss summed over sp."""
 
     def loss(q, aux, masks):
         xb, yb, a_hat, koppen, node_mask = aux
-        preds = functional_apply(model, q, apply_model, a_hat, xb, koppen, cfg,
+        preds = functional_apply(model, q, forward, a_hat, xb, koppen, cfg,
                                  train=True, masks=masks)
-        return masked_mse(preds, yb, node_mask)
+        return mse(preds, yb, node_mask)
 
     return loss
 
@@ -91,7 +98,6 @@ def make_grad_loss_fused(model: nn.Module, cfg: ModelConfig):
             fused_lstm_stack.lstm_stack_train.plain_routes += 1
             return plain(q, aux, masks)
         lstm_masks = masks.get("lstm")
-        lstm_keep = keep if lstm_masks is not None else 1.0
 
         def pre(m):
             h = apply_encoder(m.encoder, a_hat, koppen_features(m, xb, koppen), enc_cfg,
@@ -99,9 +105,7 @@ def make_grad_loss_fused(model: nn.Module, cfg: ModelConfig):
             if cfg.stop_base_gradients:
                 h = h.detach()
             # h [W, N, hidden] is already the stack's [T, B, C] layout.
-            layers = m.lstm.layers
-            return (h, torch.stack([lay.b for lay in layers]),
-                    *(torch.cat([lay.wx, lay.wh]) for lay in layers))
+            return h, *_stack_weights(m)
 
         def post(m, feat):
             if "head" in masks:
@@ -110,15 +114,32 @@ def make_grad_loss_fused(model: nn.Module, cfg: ModelConfig):
             preds = out.reshape(n, cfg.horizon, cfg.num_weather_vars).transpose(0, 1)
             return masked_mse(preds, yb, node_mask)
 
-        (x_tbc, b2d, *wcat), pre_vjp = torch.func.vjp(
-            lambda q: functional_apply(model, q, pre), q)
-        h_last, h_all, c_all, gates = fwd_op(x_tbc, wcat, b2d, lstm_masks, lstm_keep, dtype)
-        loss, post_vjp = torch.func.vjp(
-            lambda q, feat: functional_apply(model, q, post, feat), q, h_last)
-        dq_post, dfeat = post_vjp(torch.ones_like(loss))
-        dx, dwcat, db = bwd_op(dfeat, x_tbc, h_all, c_all, gates, wcat, lstm_masks,
-                               lstm_keep, dtype)
-        (dq_pre,) = pre_vjp((dx, db, *dwcat))
-        return {k: dq_pre[k] + dq_post[k] for k in q}
+        return _vjp_sandwich(model, q, pre, post, lstm_masks, keep, dtype)
 
     return grad_loss
+
+
+def _stack_weights(m):
+    """The merged stack's operands of the model m: (b2d [L, 4H], Wcat_0,
+    ..., Wcat_{L-1}), Wcat_l = [Wx_l; Wh_l]."""
+    layers = m.lstm.layers
+    return (torch.stack([lay.b for lay in layers]),
+            *(torch.cat([lay.wx, lay.wh]) for lay in layers))
+
+
+def _vjp_sandwich(model, q, pre, post, lstm_masks, keep, dtype):
+    """The gradient at q of post(q, stack(pre(q))) as a manual VJP: pre and
+    post under `torch.func.vjp`, the stack through `fwd_op` / `bwd_op`
+    (rows 4-5, jvp rows 10-11). pre(m) -> (x [T, B, C], b2d, *wcat);
+    post(m, h_last) -> the loss."""
+    lstm_keep = keep if lstm_masks is not None else 1.0
+    (x_tbc, b2d, *wcat), pre_vjp = torch.func.vjp(
+        lambda q: functional_apply(model, q, pre), q)
+    h_last, h_all, c_all, gates = fwd_op(x_tbc, wcat, b2d, lstm_masks, lstm_keep, dtype)
+    loss, post_vjp = torch.func.vjp(
+        lambda q, feat: functional_apply(model, q, post, feat), q, h_last)
+    dq_post, dfeat = post_vjp(torch.ones_like(loss))
+    dx, dwcat, db = bwd_op(dfeat, x_tbc, h_all, c_all, gates, wcat, lstm_masks,
+                           lstm_keep, dtype)
+    (dq_pre,) = pre_vjp((dx, db, *dwcat))
+    return {k: dq_pre[k] + dq_post[k] for k in q}

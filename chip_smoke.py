@@ -4,12 +4,13 @@ first- and second-order MAML meta-training, regional adaptation with the
 pipeline, node-sharded / data-parallel meta-training, the LSTM kernel
 routes, the two flag-selected LSTM-stack paths (the task-batched meta
 step and the unmerged-gates stack), reference-checkpoint interop and the
-region fleet (`pipeline --mesh-fleet`), and second-order MAML on both
-meshes with the task-batched meta step on the dp mesh.
+region fleet (`pipeline --mesh-fleet`), second-order MAML on both
+meshes with the task-batched meta step on the dp mesh, and the GSPMD dp x
+sp meta step with chained meta epochs.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(`python3 chip_smoke.py --mesh-rank DIR [-o KEY=VALUE ...]` is phases 14 and
-22's rank process, started by torch.distributed.run.)
+(`python3 chip_smoke.py --mesh-rank DIR [-o KEY=VALUE ...]` is phases 14,
+22 and 23's rank process, started by torch.distributed.run.)
 
 Phases (the first failure raises and exits non-zero; each prints its wall
 time):
@@ -253,6 +254,22 @@ time):
      ranks on the card (phase 14's launcher) with `-o meta.second_order=true
      -o meta.inner_epochs=1`: each rank launches rows 10-11 on its 256 rows
      60 times, both report the same finite losses.
+ 23. the GSPMD dp x sp step and chained meta epochs, at ModelConfig()
+     float32: on a 1 x 1 dp x sp mesh (a NCCL group of one rank) the GSPMD
+     meta-gradient of 2 tasks x 15 inner steps at dropout 0.2 against the
+     dp mesh's on the same key on the plain routes (max|diff| / max|ref| <=
+     1e-5), for stgcn first order, stgcn second order (fhvp) and the hybrid
+     under a forced gspmd, each with no launch of rows 4-13; two gloo
+     ranks on the card (phase 14's launcher) with `-o model.family=stgcn -o
+     meta.inner_epochs=1`: the log names the GSPMD step, both ranks report
+     the same finite losses; `cli meta-train -o meta.epochs_per_dispatch=2
+     -o meta.num_epochs=3` (chunks of 2 + 1) against the same run epoch by
+     epoch fed its task indices: losses and final parameters within 1e-6
+     relative (bitwise equality printed), rows 4-8 3 x an epoch's
+     launches, one metrics fetch a chunk, each run's seconds an epoch
+     printed; second order, 2 epochs in one chunk (1 inner epoch): rows
+     10-11 once an inner step, one fetch; the two ranks again for 3 epochs
+     in chunks of 2.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -625,6 +642,12 @@ def main() -> int:
         hybrid_local_forward,
         psum_masked_mse,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.engines import meta_train as mt_engine
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_gspmd import (
+        make_gspmd_batch_grad,
+        pinned_configs,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.train import maml as maml_mod
     from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
         init_meta_state,
         inner_sgd_update,
@@ -995,11 +1018,15 @@ def main() -> int:
         for dt_name, tol in TOL.items():
             ref = forecast("Moscow", dt_name, serve_dir, device="cpu")
             got = served[("Moscow", dt_name)]
-            np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
+            diff = np.abs(got - ref)
             log(
                 f"forecast Moscow {dt_name}: card vs plain route max_abs_err "
-                f"{float(np.abs(got - ref).max()):.3e} (tol {tol})"
+                f"{float(diff.max()):.3e}, max_rel_err "
+                f"{float((diff / np.maximum(np.abs(ref), 1e-30)).max()):.3e}; gate "
+                f"|diff| <= atol + rtol * |ref| with atol {tol}, rtol {tol}: worst "
+                f"|diff| - rtol * |ref| {float((diff - tol * np.abs(ref)).max()):.3e}"
             )
+            np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
 
     # 5. Serving times.
     with Phase("serving times"):
@@ -4494,6 +4521,196 @@ def main() -> int:
             f"epoch): meta_loss {rec['meta_loss']:.6f}, tasks {rec['task_indices']}, "
             f"{rec['epoch_seconds']:.2f} s  [{card}]")
 
+    # 23. The GSPMD dp x sp step and chained meta epochs, at ModelConfig()
+    # width, float32.
+    with Phase("GSPMD dp x sp step and chained meta epochs"):
+        def rows_4_13():
+            return {"lstm_stack_train": lstm_stack_train.launches,
+                    "lstm_stack_train.backward": lstm_stack_train.backward_launches,
+                    "gcn_stack_train": gcn_stack_train.launches,
+                    "gcn_stack_train.backward": gcn_stack_train.backward_launches,
+                    "clip_sgd_update": clip_sgd_update.launches,
+                    "clip_sgd_update.batched": clip_sgd_update.batched_launches,
+                    "hvp_stack_fwd": fh.hvp_stack_fwd.launches,
+                    "hvp_stack_bwd": fh.hvp_stack_bwd.launches,
+                    "gcn_shard_layer": fgs.gcn_shard_layer.launches,
+                    "gcn_shard_layer.backward": fgs.gcn_shard_layer.backward_launches}
+
+        def zero_rows_4_13():
+            for fn in (lstm_stack_train, gcn_stack_train, fgs.gcn_shard_layer):
+                fn.launches = fn.backward_launches = 0
+            clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
+            fh.hvp_stack_fwd.launches = fh.hvp_stack_bwd.launches = 0
+
+        # (a) On a 1 x 1 dp x sp mesh (a NCCL group of one rank): the GSPMD
+        # meta-gradient of 2 tasks x 15 inner steps, dropout 0.2, against
+        # the dp-mesh step on the same key on the plain routes. The GSPMD
+        # step pins the plain routes, so rows 4-13 never launch.
+        t0 = time.perf_counter()
+        created_group = distributed.ensure_process_group("nccl")
+        dp_mesh = make_mesh_2d(1, 1, dev, axis_names=("dp",))
+        grid_mesh = make_mesh_2d(1, 1, dev)
+        stgcn_cfg = ModelConfig(family="stgcn")
+        stgcn_model = init_model(torch.Generator().manual_seed(3), stgcn_cfg, device=dev)
+        log(f"  the NCCL group of one, its two meshes and a seeded stgcn model: "
+            f"{time.perf_counter() - t0:.1f} s")
+        so_one = dataclasses.replace(one_epoch, second_order=True)  # fhvp
+        for name, mc, mdl, mt in (("stgcn FO", stgcn_cfg, stgcn_model, one_epoch),
+                                  ("stgcn SO fhvp", stgcn_cfg, stgcn_model, so_one),
+                                  ("hybrid FO (forced gspmd)", cfg, model, one_epoch)):
+            res = {}
+            for route in ("gspmd", "dp"):
+                zero_rows_4_13()
+                t0 = time.perf_counter()
+                if route == "gspmd":
+                    res[route] = make_gspmd_batch_grad(mc, mt, grid_mesh)(mdl, micro, (23, 0))
+                else:
+                    res[route] = make_parallel_batch_grad(*pinned_configs(mc, mt), dp_mesh)(
+                        mdl, micro, (23, 0))
+                torch.cuda.synchronize()
+                res[route] += (rows_4_13(), time.perf_counter() - t0)
+            (loss_g, grad_g, launches_g, secs_g), (loss_d, grad_d, _, secs_d) = (
+                res["gspmd"], res["dp"])
+            rels = {k: rel_err(grad_g[k], grad_d[k]) for k in grad_d}
+            worst = max(rels, key=rels.get)
+            loss_rel = float(((loss_g - loss_d).abs() / loss_d.abs()).max())
+            log(f"GSPMD {name} meta-gradient on a 1 x 1 dp x sp mesh vs the dp mesh's, "
+                f"float32, dropout 0.2, key (23, 0), 2 tasks x {mt.inner_batches} inner steps: "
+                f"per-task losses {loss_g.tolist()} vs {loss_d.tolist()} (max rel "
+                f"{loss_rel:.3e}); gradient max|diff|/max|ref| {rels[worst]:.3e} at {worst} "
+                f"(tol 1e-5); {secs_g:.2f} s vs {secs_d:.2f} s; rows 4-13 launches "
+                f"{launches_g}")
+            if loss_rel > 1e-5 or rels[worst] > 1e-5:
+                raise RuntimeError(f"GSPMD {name}: losses off by {loss_rel:.3e}, {worst} off "
+                                   f"by {rels[worst]:.3e}")
+            if any(launches_g.values()):
+                raise RuntimeError(f"GSPMD {name} launched kernels of rows 4-13: {launches_g}")
+        if created_group:
+            torch.distributed.destroy_process_group()
+        del stgcn_model, res
+
+        # (b) `cli meta-train --mesh -o model.family=stgcn` on two gloo ranks
+        # on the card (phase 14's launcher), 1 epoch, 1 inner epoch: the
+        # GSPMD step (mesh.sp_impl=auto), the same finite losses on both.
+        gspmd_args = ("-o", "model.family=stgcn", "-o", "meta.inner_epochs=1")
+        out = os.path.join(out_root, "mesh_sp2_gspmd")
+        os.makedirs(out)
+        ranks = two_ranks(out, *gspmd_args)
+        if "the GSPMD step" not in ranks[0]["stderr"]:
+            raise RuntimeError("two-rank stgcn meta-train did not name the GSPMD step:\n"
+                               + ranks[0]["stderr"][-2000:])
+        for rec in ranks:
+            if any(rec["launches"].values()):
+                raise RuntimeError(f"GSPMD rank {rec['rank']} launched {rec['launches']}")
+        with open(os.path.join(out, "meta", "meta_log.jsonl")) as f:
+            rec = json.loads(f.readline())
+        log(f"two ranks, stgcn on the GSPMD step (dp 1 x sp 2, 256 rows each, gloo on one "
+            f"card), epoch 1 (1 inner epoch): meta_loss {rec['meta_loss']:.6f}, tasks "
+            f"{rec['task_indices']}, {rec['epoch_seconds']:.2f} s  [{card}]")
+
+        # (c) Chained epochs on one device: 3 epochs in chunks of 2 (2 + 1),
+        # then epoch by epoch fed the chained run's task indices.
+        recorded = []
+
+        class Replay(mt_engine.DifficultySampler):
+            def sample(self):
+                return np.asarray(recorded.pop(0))
+
+        runs = {}
+        for name, k in (("chained", 2), ("unchained", 1)):
+            zero_rows_4_13()
+            fetches = maml_mod.fetch_metrics.fetches
+            sampler = mt_engine.DifficultySampler
+            if name == "unchained":
+                recorded = [r["task_indices"] for r in runs["chained"]["log"]]
+                mt_engine.DifficultySampler = Replay
+            try:
+                t0 = time.perf_counter()
+                log_k = meta_train("float32", 3, "-o", f"meta.epochs_per_dispatch={k}",
+                                   out=f"epochs_k{k}")
+                secs = time.perf_counter() - t0
+            finally:
+                mt_engine.DifficultySampler = sampler
+            params_k, _ = load_checkpoint(os.path.join(meta_dir, f"epochs_k{k}", "meta",
+                                                       "ckpt_final"))
+            runs[name] = {"log": log_k, "params": params_k, "launches": rows_4_13(),
+                          "fetches": maml_mod.fetch_metrics.fetches - fetches, "seconds": secs}
+        chained, unchained = runs["chained"], runs["unchained"]
+        if [r["task_indices"] for r in chained["log"]] != [
+                r["task_indices"] for r in unchained["log"]]:
+            raise RuntimeError("the unchained run was not fed the chained run's indices")
+        if [r.get("dispatch_epochs") for r in chained["log"]] != [2, 2, None]:
+            raise RuntimeError(f"chained run's chunks: {chained['log']}")
+        losses = np.array([[r["meta_loss"], *r["per_task_loss"]] for r in chained["log"]])
+        ref_losses = np.array([[r["meta_loss"], *r["per_task_loss"]] for r in unchained["log"]])
+        loss_rel = float((np.abs(losses - ref_losses) / np.abs(ref_losses)).max())
+        p_rels = {k: rel_err(chained["params"][k], unchained["params"][k])
+                  for k in unchained["params"]}
+        p_worst = max(p_rels, key=p_rels.get)
+        bitwise = bool((losses == ref_losses).all()) and all(
+            torch.equal(chained["params"][k], v) for k, v in unchained["params"].items())
+        forwards_epoch = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches
+                                                + 1)
+        want = {"lstm_stack_train": 3 * forwards_epoch,
+                "lstm_stack_train.backward": 3 * forwards_epoch,
+                "gcn_stack_train": 3 * forwards_epoch,
+                "gcn_stack_train.backward": 3 * forwards_epoch,
+                "clip_sgd_update": 3 * per_step}
+        got = {k: chained["launches"][k] for k in want}
+        log(f"chained meta epochs, float32, 3 epochs: epochs_per_dispatch=2 (chunks 2 + 1) vs "
+            f"1 fed the same indices {[r['task_indices'] for r in chained['log']]}: losses "
+            f"max rel {loss_rel:.3e}, final parameters max|diff|/max|ref| {p_rels[p_worst]:.3e} "
+            f"at {p_worst} (tol 1e-6); bitwise equal: {bitwise}; metric fetches "
+            f"{chained['fetches']} vs {unchained['fetches']}; rows 4-8 launches {got} (want "
+            f"{want}); unchained launches {runs['unchained']['launches']}")
+        for name, run in runs.items():
+            log(f"  {name}: seconds an epoch " + ", ".join(
+                f"{r['epoch_seconds']:.3f}" for r in run["log"])
+                + f"; the whole CLI call {run['seconds']:.1f} s  [{card}]")
+        if loss_rel > 1e-6 or p_rels[p_worst] > 1e-6:
+            raise RuntimeError(f"chained vs unchained: losses {loss_rel:.3e}, {p_worst} "
+                               f"{p_rels[p_worst]:.3e}")
+        if got != want:
+            raise RuntimeError(f"the chained run launched rows 4-8 {got}, not {want}")
+        if (chained["fetches"], unchained["fetches"]) != (2, 3):
+            raise RuntimeError(f"metric fetches {chained['fetches']} (2 chunks), "
+                               f"{unchained['fetches']} (3 epochs)")
+
+        # Second order chained: 2 epochs in one chunk, 1 inner epoch: rows
+        # 10-11 once an inner step of both epochs, one metrics fetch.
+        zero_rows_4_13()
+        fetches = maml_mod.fetch_metrics.fetches
+        so_log = meta_train("float32", 2, "-o", "meta.second_order=true", "-o",
+                            "meta.epochs_per_dispatch=2", "-o", "meta.inner_epochs=1",
+                            out="epochs_so_k2")
+        so_launches = rows_4_13()
+        so_steps = 2 * meta_cfg.meta_batch * meta_cfg.inner_batches
+        log(f"chained SO, float32, 2 epochs in one chunk (1 inner epoch): losses "
+            f"{[r['meta_loss'] for r in so_log]}, seconds an epoch "
+            f"{[round(r['epoch_seconds'], 3) for r in so_log]}; metric fetches "
+            f"{maml_mod.fetch_metrics.fetches - fetches}; launches {so_launches}  [{card}]")
+        if (so_launches["hvp_stack_fwd"], so_launches["hvp_stack_bwd"]) != (so_steps, so_steps):
+            raise RuntimeError(f"chained SO launched rows 10-11 {so_launches}, not {so_steps}")
+        if maml_mod.fetch_metrics.fetches - fetches != 1 or not np.isfinite(
+                [v for r in so_log for v in (r["meta_loss"], *r["per_task_loss"])]).all():
+            raise RuntimeError(f"chained SO: {so_log}")
+
+        # (d) Chained epochs on two ranks: (b) for 3 epochs in chunks of 2.
+        out = os.path.join(out_root, "mesh_sp2_gspmd_k2")
+        os.makedirs(out)
+        ranks = two_ranks(out, *gspmd_args, "-o", "meta.epochs_per_dispatch=2", "-o",
+                          "meta.num_epochs=3")
+        with open(os.path.join(out, "meta", "meta_log.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        if [r.get("dispatch_epochs") for r in recs] != [2, 2, None]:
+            raise RuntimeError(f"two-rank chained run's chunks: {recs}")
+        for r in recs:
+            if not np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all():
+                raise RuntimeError(f"two-rank chained run: non-finite loss {r}")
+        log("two ranks, stgcn on the GSPMD step, 3 epochs in chunks of 2: meta_loss "
+            + ", ".join(f"{r['meta_loss']:.6f}" for r in recs) + "; seconds an epoch "
+            + ", ".join(f"{r['epoch_seconds']:.2f}" for r in recs) + f"  [{card}]")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -4539,7 +4756,7 @@ def main() -> int:
 
 
 def mesh_rank(out: str, extra: list[str]) -> int:
-    """Phase 14's and 22's rank: `cli meta-train --mesh` on card 0 with gloo
+    """Phases 14, 22 and 23's rank: `cli meta-train --mesh` on card 0 with gloo
     (dp 1 x sp 2, 1 epoch, the `extra` overrides), then this rank's stdout,
     log, launch counts and time into OUT/rank<r>.json."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

@@ -40,6 +40,8 @@ from weatherforecast_stgcn_maml_tpu_torch.train import optimizers
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,
              horizon=3, koppen_dim=4)
@@ -297,6 +299,7 @@ def test_cli_adapt_and_pipeline_leave_jax_unimported(base_ckpt):
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'weatherforecast_stgcn_maml_tpu'))\n"
         "assert not bad, bad\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),
+    proc = subprocess.run([sys.executable, "-c", code],
+                          env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]

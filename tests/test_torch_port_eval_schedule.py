@@ -53,6 +53,8 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 T, B, C, H = 5, 16, 24, 8  # JAX tests/test_lstm_stack.py's widths
 TOL = {"float32": 1e-5, "bfloat16": 5e-2, "float64": 1e-10}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16),

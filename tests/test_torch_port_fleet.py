@@ -6,7 +6,8 @@ Moscow, NewYork; 2 epochs, batch 4, 40 samples). In float64 at dropout 0
 every region's epoch losses and validation MSE equal JAX's
 `run_fleet_adaptation` (threefry keys, as its test pins) and the port's
 serial `run_adaptation` at 1e-8; with dropout on the fleet equals the serial
-engine (the same masks: each lane draws from its region's generator).
+engine (the same masks: each lane draws from its region's generator), also
+with the Koppen table frozen (`model.train_koppen_embedding=false`).
 
 Across OS processes joined by gloo (this file's `__main__` block is a rank,
 OMP_NUM_THREADS=1): 3 regions of one zone on 2 ranks fill 4 lanes, and the
@@ -46,6 +47,8 @@ from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import (  # noqa: E40
     load_checkpoint,
     save_checkpoint,
 )
+
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
 
 MODEL = dict(hidden_channels=8, gcn_layers=2, lstm_hidden=8, lstm_layers=1, window=6,
              horizon=2, koppen_dim=4)
@@ -198,6 +201,26 @@ def test_fleet_equals_serial_with_dropout(tmp_path):
         _seed_meta_ckpt(c.out_dir)
     fleet = run_fleet_adaptation(fleet_cfg, REGIONS, device="cpu", log_cb=lambda *a: None)
     _close(fleet, _serial(serial_cfg, REGIONS), rtol=1e-12, atol=1e-12)
+
+
+def test_fleet_keeps_the_koppen_table_frozen(tmp_path):
+    """`model.train_koppen_embedding=false`, float64, dropout on: the fleet
+    equals the serial engine (1e-12), both leave the Koppen table bitwise as
+    the meta checkpoint holds it, and the rest of the model trains. (The
+    JAX package's fleet trains the table here, and its serial engine does
+    not; the port keeps the serial semantics.)"""
+    fleet_cfg, serial_cfg = (_cfg(tmp_path / name, 0.2, train_koppen_embedding=False)
+                             for name in ("fleet", "serial"))
+    for c in (fleet_cfg, serial_cfg):
+        _seed_meta_ckpt(c.out_dir)
+    start, _ = load_checkpoint(os.path.join(fleet_cfg.out_dir, "meta", "ckpt_best"))
+    fleet = run_fleet_adaptation(fleet_cfg, REGIONS, device="cpu", log_cb=lambda *a: None)
+    serial = _serial(serial_cfg, REGIONS)
+    _close(fleet, serial, rtol=1e-12, atol=1e-12)
+    for res in (*fleet, *serial):
+        sd, _ = load_checkpoint(res.ckpt_path)
+        torch.testing.assert_close(sd["koppen"], start["koppen"].double(), rtol=0, atol=0)
+        assert not torch.equal(sd["head.w"], start["head.w"].double()), res.region_name
 
 
 @pytest.fixture()

@@ -40,6 +40,8 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_train as fgt
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_hvp import hvp_fwd_plain
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 T, B, C, H = 5, 16, 24, 8  # JAX tests/test_lstm_stack.py's widths
 KEEP = 0.8
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}

@@ -36,6 +36,8 @@ from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
     tn_splits,
 )
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 KEEP = 0.8
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -41,6 +41,8 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp as fh
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
 from weatherforecast_stgcn_maml_tpu_torch.ops import lstm_scan
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 T, B, C, H = 5, 16, 24, 8  # tests/test_torch_port_hvp_schedule.py's widths
 KEEP = 0.75
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}

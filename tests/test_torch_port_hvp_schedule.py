@@ -43,6 +43,8 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm_nn_plain
 from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import scan_backward_plain
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 T, B, C, H = 5, 16, 24, 8  # tests/test_torch_port_forward_schedule.py's widths
 KEEP = 0.75
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}

@@ -40,6 +40,8 @@ from weatherforecast_stgcn_maml_tpu_torch.engines import meta_train
 from weatherforecast_stgcn_maml_tpu_torch.utils import profiling, torch_export, torch_import
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import load_checkpoint
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,
              horizon=3, koppen_dim=4)
@@ -370,8 +372,8 @@ def test_python_m_info_and_new_modules_leave_jax_unimported(tmp_path):
     every module this slice added, and the CLI's import / export /
     data-report, never import jax."""
     proc = subprocess.run([sys.executable, "-m", "weatherforecast_stgcn_maml_tpu_torch", "info"],
-                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-                          text=True, timeout=300)
+                          env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "cuda devices:" in proc.stdout and "regions:" in proc.stdout
     path = _save(tmp_path, _reference_ckpt(jcfg.ModelConfig(**SMALL)))
@@ -393,6 +395,7 @@ def test_python_m_info_and_new_modules_leave_jax_unimported(tmp_path):
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'weatherforecast_stgcn_maml_tpu'))\n"
         "assert not bad, bad\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),
+    proc = subprocess.run([sys.executable, "-c", code],
+                          env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -66,6 +66,8 @@ from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import plain_route
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks, task_at
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = dict(rtol=1e-5, atol=1e-5)
 F64 = dict(rtol=1e-10, atol=1e-12)
@@ -476,7 +478,7 @@ def test_cli_routes_leave_jax_unimported(tmp_path):
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'weatherforecast_stgcn_maml_tpu.')) for m in sys.modules), 'jax imported'\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

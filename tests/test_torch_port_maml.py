@@ -4,7 +4,8 @@ the interpreter, the meta optimizer (clip, schedule, AdamW), task building,
 the difficulty sampler, and one whole FO meta step in float64 against
 `make_meta_step`, with the per-leaf and the fused inner update (also from a
 JAX mid-run optimizer state brought over by
-`utils/convert.opt_state_from_optax`).
+`utils/convert.opt_state_from_optax`); the chained meta step against k
+single steps (bitwise).
 
 Tolerances: float64 1e-8 (rtol = atol) on the meta step (the same
 operations in another summation order), 1e-12 on the optimizer alone, and
@@ -35,7 +36,11 @@ from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_sgd
 from weatherforecast_stgcn_maml_tpu_torch.train import maml, optimizers
 from weatherforecast_stgcn_maml_tpu_torch.train.sampling import DifficultySampler
-from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks
+from weatherforecast_stgcn_maml_tpu_torch.train.tasks import (
+    build_meta_tasks,
+    select_tasks,
+    stack_tasks,
+)
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_opt_state,
@@ -46,6 +51,8 @@ from weatherforecast_stgcn_maml_tpu_torch.utils.convert import (
     params_from_state_dict,
     state_dict_from_params,
 )
+
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
 
 MODEL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,
              horizon=3, koppen_dim=4, gcn_dropout=0.0, lstm_dropout=0.0,
@@ -266,8 +273,46 @@ def _check_meta_steps(meta_kw):
         _check_step(state, metrics, ref_states[e + 1], ref_metrics[e])
 
 
+@pytest.mark.parametrize("family", ["hybrid", "stgcn"])
+def test_chained_meta_step_is_k_single_steps(family):
+    """A chained call of three epochs is bitwise three single steps fed the
+    same indices and each epoch's generator (dropout on at every site, the
+    fused inner update's plain version): metrics stacked on a leading [3]
+    axis, the same parameters and step count; `fetch_metrics` brings the
+    three epochs' losses over in one copy."""
+    mc = tcfg.ModelConfig(**{**MODEL, "family": family, "gcn_dropout": 0.3,
+                             "lstm_dropout": 0.3})
+    meta = tcfg.MetaConfig(**{**META, "inner_epochs": 1, "fused_inner_update": True})
+    pool = stack_tasks([b.task for b in build_meta_tasks(_regions(True), mc, meta,
+                                                         tcfg.DataConfig())])
+    pool = type(pool)(*(f.double() if f.is_floating_point() else f for f in pool))
+    idx_k = np.array([[0, 1], [1, 0], [1, 1]])
+
+    def gen(epoch):
+        return torch.Generator().manual_seed(100 + epoch)
+
+    step = maml.make_meta_step(mc, meta)
+    seq = maml.init_meta_state(torch.Generator().manual_seed(0), mc, meta)
+    losses = []
+    for e in range(3):
+        seq, m = step(seq, select_tasks(pool, idx_k[e]), gen(e))
+        losses.append(m["per_task_loss"])
+    chained = maml.init_meta_state(torch.Generator().manual_seed(0), mc, meta)
+    chained, mk = maml.make_chained_meta_step(step, gen)(chained, pool, idx_k, range(3))
+    assert mk["per_task_loss"].shape == (3, 2) and chained.step == seq.step == 6
+    torch.testing.assert_close(mk["per_task_loss"], torch.stack(losses), rtol=0, atol=0)
+    for (name, a), b in zip(chained.params.named_parameters(), seq.params.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    fetches = maml.fetch_metrics.fetches
+    loss_k, per_task_k, lr_k = maml.fetch_metrics(mk)
+    assert maml.fetch_metrics.fetches == fetches + 1
+    np.testing.assert_array_equal(per_task_k, torch.stack(losses).numpy())
+    np.testing.assert_array_equal(loss_k, per_task_k.mean(axis=1))
+    assert lr_k.shape == (3,) and per_task_k.dtype == np.float64
+
+
 @pytest.mark.parametrize("override", [
-    dict(second_order=True, so_impl="hvp", so_wavefront=True), dict(epochs_per_dispatch=2),
+    dict(second_order=True, so_impl="hvp", so_wavefront=True),
 ])
 def test_unported_meta_settings_raise(override):
     cfg = tcfg.MetaConfig(**{**META, **override})

@@ -28,6 +28,7 @@ computes the same exact meta-gradient; "hvp" compiles fastest on the CPU).
 """
 
 import copy
+import json
 import os
 import subprocess
 import sys
@@ -42,6 +43,8 @@ from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(hidden_channels=8, gcn_layers=2, lstm_hidden=8, lstm_layers=1, window=6,
              horizon=2, koppen_dim=4, gcn_dropout=0.0, lstm_dropout=0.0,
@@ -55,6 +58,17 @@ META_VBATCH = dict(META, grad_accum=1)  # two tasks a rank: V = 2 in lockstep
 # (rows 4-5 and 10-11 on their plain pieces here) only off lstm_kernel="xla".
 ROUTES = {"xla": "xla", "fhvp": "auto", "hvp": "auto", "rof": "auto"}
 WORLDS = {"dp": 2, "grid": 4}
+# The GSPMD step's cases against JAX's `make_parallel_meta_step_2d`: (case,
+# family, meta config); the hybrid runs it as under a forced
+# `mesh.sp_impl=gspmd`. JAX's second-order step runs "hvp", the port's its
+# default "fhvp" (on the GSPMD step's plain routes: the forward derivative
+# of the plain gradient).
+GSPMD_CASES = (("stgcn-fo", "stgcn", META), ("stgcn-so", "stgcn", META_GRID),
+               ("hybrid-fo", "hybrid", META))
+# Dropout on at every site of each family: (case, family, second order).
+DROPOUT_CASES = (("stgcn-fo", "stgcn", False), ("stgcn-so", "stgcn", True),
+                 ("hybrid-fo", "hybrid", False), ("hybrid-so", "hybrid", True))
+CHAIN = [[0, 1, 2, 3], [3, 1, 0, 2]]  # two epochs' task indices
 TOL_JAX = dict(rtol=1e-8, atol=1e-11)
 # Parameters after the AdamW updates: the two packages' float32
 # learning-rate schedules differ in the last bit of cos (numpy vs XLA), one
@@ -78,7 +92,7 @@ def _load_inputs(out_dir, count):
 
     def state(mc):
         model = init_model(torch.Generator().manual_seed(0), mc).double()
-        model.load_state_dict(saved["params"])
+        model.load_state_dict(saved["params" if mc.family == "hybrid" else "params_stgcn"])
         return MamlState(model, MetaOptimizer.init(dict(model.named_parameters())), 0)
 
     return tasks, state
@@ -146,6 +160,14 @@ def _dp_rank(out_dir, rank):
         vb[name] = (m["per_task_loss"].numpy(), _params(s), list(calls))
         calls.clear()
     res["vbatch"] = vb
+
+    # Two chained epochs on the dp mesh, dropout 0 (JAX's chained dp step).
+    from weatherforecast_stgcn_maml_tpu_torch.train.maml import make_chained_meta_step
+
+    mc, meta = tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**META_VBATCH)
+    step = meta_dp.make_parallel_meta_step(mc, meta, mesh)
+    s, m = make_chained_meta_step(step, lambda e: (11, e))(state(mc), tasks, CHAIN, range(2))
+    res["chained"] = (m["per_task_loss"].numpy(), _params(s))
     return res
 
 
@@ -163,6 +185,7 @@ def _grid_rank(out_dir, rank):
     mesh = make_mesh(tcfg.MeshConfig(spatial_devices=2), torch.device("cpu"))
     assert (mesh.dp, mesh.sp, mesh.dp_index, mesh.sp_index) == (2, 2, rank // 2, rank % 2)
     res = {"so": _so_steps(make_shardmap_meta_step_2d, mesh, out_dir, META_GRID)}
+    res.update(_gspmd_cases(out_dir, mesh))
 
     sp4 = make_mesh_2d(1, 4, torch.device("cpu"))
     cfg = tcfg.ModelConfig(hidden_channels=8, gcn_layers=3, gcn_dropout=0.3,
@@ -214,6 +237,105 @@ def _grid_rank(out_dir, rank):
         float((g - r).abs().max()) for g, r in zip([got[0], *got_p], [node_major(ref[0]),
                                                                         *ref[1:]]))
     res["double_backward_scale"] = max(float(r.abs().max()) for r in ref)
+    return res
+
+
+def _gspmd_cases(out_dir, mesh):
+    """dp 2 x sp 2: the GSPMD step at dropout 0 (for JAX); with dropout on
+    against the dp-mesh step (dp 4) on the same key; two chained epochs of
+    each dp x sp step against two single steps; the engine on the dp x sp
+    mesh (stgcn, `sp_impl=auto`, two epochs a chunk) and on dp 4."""
+    from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
+    from weatherforecast_stgcn_maml_tpu_torch.engines import meta_train
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh_2d
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import make_parallel_meta_step
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_gspmd import (
+        make_parallel_meta_step_2d,
+        pinned_configs,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import (
+        make_shardmap_meta_step_2d,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
+        MamlState,
+        init_meta_state,
+        make_chained_meta_step,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import MetaOptimizer
+
+    res = {"gspmd": {}, "gspmd_dropout": {}, "chained_2d": {}}
+    for case, family, meta_kw in GSPMD_CASES:
+        tasks, state = _load_inputs(out_dir, meta_kw["meta_batch"])
+        mc = tcfg.ModelConfig(**dict(MODEL, family=family))
+        s, m = make_parallel_meta_step_2d(mc, tcfg.MetaConfig(**meta_kw), mesh)(
+            state(mc), tasks, None)
+        res["gspmd"][case] = (m["per_task_loss"].numpy(), _params(s))
+
+    dp4 = make_mesh_2d(4, 1, torch.device("cpu"), axis_names=("dp",))
+    tasks, _ = _load_inputs(out_dir, 4)
+    for case, family, so in DROPOUT_CASES:
+        mc = tcfg.ModelConfig(**dict(MODEL, family=family, gcn_dropout=0.3, lstm_dropout=0.3,
+                                     lstm_layers=2))
+        meta = tcfg.MetaConfig(**dict(META, grad_accum=1, second_order=so,
+                                      query_train_mode=True))
+        start = init_meta_state(torch.Generator().manual_seed(0), mc, meta)
+        out = {}
+        for name, make, mesh_ in (("gspmd", make_parallel_meta_step_2d, mesh),
+                                  ("dp", make_parallel_meta_step, dp4)):
+            st = MamlState(copy.deepcopy(start.params), start.opt_state, 0)
+            s, m = make(*pinned_configs(mc, meta), mesh_)(st, tasks, (5,))
+            out[name] = (m["per_task_loss"].numpy(), _params(s))
+        res["gspmd_dropout"][case] = out
+
+    # Two chained epochs against two single steps, dropout on (stgcn on the
+    # GSPMD step, the hybrid on the shardmap step).
+    for name, family, make in (("gspmd", "stgcn", make_parallel_meta_step_2d),
+                               ("shardmap", "hybrid", make_shardmap_meta_step_2d)):
+        mc = tcfg.ModelConfig(**dict(MODEL, family=family, gcn_dropout=0.3, lstm_dropout=0.3))
+        meta = tcfg.MetaConfig(**META)
+        step = make(mc, meta, mesh)
+        start = init_meta_state(torch.Generator().manual_seed(0), mc, meta)
+        runs = {}
+        for how in ("chained", "single"):
+            st = MamlState(copy.deepcopy(start.params), start.opt_state, 0)
+            if how == "chained":
+                st, m = make_chained_meta_step(step, lambda e: (9, e))(st, tasks, CHAIN,
+                                                                      range(2))
+                losses = m["per_task_loss"]
+            else:
+                losses = []
+                for e, idx in enumerate(CHAIN):
+                    st, m = step(st, Task(*(f[idx] for f in tasks)), (9, e))
+                    losses.append(m["per_task_loss"])
+                losses = torch.stack(losses)
+            runs[how] = (losses, _params(st), st.step)
+        res["chained_2d"][name] = runs
+
+    # The engine, float64, dropout on: stgcn on dp 2 x sp 2 (`sp_impl`
+    # auto, two epochs in one chunk) and on dp 4 (epoch by epoch).
+    regions = [synthetic_region_for_box((10.0 + i, 12.25 + i, 20.0, 22.25), num_timesteps=32,
+                                        seed=i) for i in range(4)]
+    small = dict(family="stgcn", hidden_channels=8, gcn_layers=2, window=6, horizon=2,
+                 koppen_dim=4, compute_dtype="float64")
+    overrides = [f"model.{k}={v}" for k, v in small.items()] + [
+        "meta.meta_batch=4", "meta.grad_accum=1", "meta.inner_epochs=1",
+        "meta.inner_batches=2", "meta.num_epochs=2"]
+    lines = []
+    for name, mesh_, extra in (("grid", mesh, ["mesh.spatial_devices=2",
+                                               "meta.epochs_per_dispatch=2"]),
+                               ("dp4", dp4, [])):
+        cfg = tcfg.apply_overrides(tcfg.ExperimentConfig(), overrides + extra + [
+            f"out_dir={os.path.join(out_dir, 'engine', name)}"])
+        meta_train.run_meta_training(cfg, regions, mesh=mesh_, log_cb=lines.append)
+    engine = {"lines": lines}
+    for name in ("grid", "dp4"):
+        meta_dir = os.path.join(out_dir, "engine", name, "meta")
+        with open(os.path.join(meta_dir, "meta_log.jsonl")) as f:
+            engine[name] = {"log": [json.loads(line) for line in f],
+                            "files": sorted(os.listdir(meta_dir))}
+        for ckpt in ("ckpt_last", "ckpt_final"):
+            engine[name][ckpt] = torch.load(os.path.join(meta_dir, ckpt, "params.pt"))
+    res["engine"] = engine
     return res
 
 
@@ -275,8 +397,28 @@ def _write_inputs(out_dir):
         fields = {k: torch.from_numpy(np.asarray(v).copy()) for k, v in tasks._asdict().items()}
         fields["koppen"] = fields["koppen"].long()
         params = state_dict_from_params(jax.tree.map(np.asarray, state.params), np.float64)
+        stgcn = state_dict_from_params(
+            jax.tree.map(np.asarray, _jax_stgcn_state(jcfg.MetaConfig(**META)).params),
+            np.float64)
     assert int(fields["node_mask"][0].sum()) == 100 and fields["node_mask"].shape[1] == 128
-    torch.save({"tasks": fields, "params": params}, os.path.join(out_dir, "inputs.pt"))
+    torch.save({"tasks": fields, "params": params, "params_stgcn": stgcn},
+               os.path.join(out_dir, "inputs.pt"))
+
+
+def _jax_stgcn_state(meta):
+    """The stgcn family's float64 initial state (call under x64)."""
+    import jax
+    import jax.numpy as jnp
+
+    from weatherforecast_stgcn_maml_tpu import config as jcfg
+    from weatherforecast_stgcn_maml_tpu.train.maml import MamlState, init_meta_state
+    from weatherforecast_stgcn_maml_tpu.train.optimizers import meta_optimizer
+
+    mc = jcfg.ModelConfig(**dict(MODEL, family="stgcn"))
+    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                          init_meta_state(jax.random.key(0), mc, meta).params)
+    tx, _ = meta_optimizer(meta)
+    return MamlState(params, tx.init(params), jnp.zeros((), jnp.int32))
 
 
 def _jax_references():
@@ -289,7 +431,11 @@ def _jax_references():
     from weatherforecast_stgcn_maml_tpu.ops import fused_gcn_shard
     from weatherforecast_stgcn_maml_tpu.parallel import mesh as jmesh
     from weatherforecast_stgcn_maml_tpu.parallel.meta_dp import make_parallel_meta_step as jdp
+    import jax.numpy as jnp
+
+    from weatherforecast_stgcn_maml_tpu.parallel.meta_dp import make_parallel_meta_step_2d as jdp2d
     from weatherforecast_stgcn_maml_tpu.parallel.meta_sp import make_shardmap_meta_step_2d as jsp
+    from weatherforecast_stgcn_maml_tpu.train.maml import make_jit_chained_meta_step
     from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
     mc = jcfg.ModelConfig(**MODEL)
@@ -310,6 +456,26 @@ def _jax_references():
             refs[case] = (np.asarray(m["per_task_loss"]),
                           state_dict_from_params(jax.tree.map(np.asarray, s.params),
                                                  np.float64))
+        # The GSPMD step (`make_parallel_meta_step_2d`) on the 2 x 2 mesh.
+        for case, family, meta_kw in GSPMD_CASES:
+            meta = jcfg.MetaConfig(**meta_kw, so_impl="hvp") if meta_kw.get(
+                "second_order") else jcfg.MetaConfig(**meta_kw)
+            start = state if family == "hybrid" else _jax_stgcn_state(meta)
+            batch = jax.tree.map(lambda f: f[:meta.meta_batch], tasks)
+            s, m = jdp2d(jcfg.ModelConfig(**dict(MODEL, family=family)), meta, grid,
+                         donate_state=False)(start, jmesh.shard_task_batch_2d(batch, grid),
+                                             jax.random.key(7))
+            refs["gspmd-" + case] = (np.asarray(m["per_task_loss"]),
+                                     state_dict_from_params(jax.tree.map(np.asarray, s.params),
+                                                            np.float64))
+        # Two chained epochs on dp 2 (the chained step donates its state).
+        meta = jcfg.MetaConfig(**META_VBATCH, epochs_per_dispatch=2)
+        s, m = make_jit_chained_meta_step(mc, meta, mesh=dp)(
+            jax.tree.map(jnp.copy, state), tasks, np.asarray(CHAIN, np.int32),
+            jax.random.key(11), np.arange(2, dtype=np.int32))
+        refs["chained"] = (np.asarray(m["per_task_loss"]),
+                           state_dict_from_params(jax.tree.map(np.asarray, s.params),
+                                                  np.float64))
     return refs
 
 
@@ -401,6 +567,86 @@ def test_lockstep_mesh_step_matches_jax_float64(ranks):
         assert calls == [2]
         np.testing.assert_allclose(losses, ref_losses, **TOL_JAX)
         _assert_params(params, ref_params, **TOL_JAX_PARAMS)
+
+
+@pytest.mark.parametrize("case", [c for c, _, _ in GSPMD_CASES])
+def test_gspmd_step_matches_jax_float64(ranks, case):
+    """The GSPMD dp 2 x sp 2 step (stgcn first and second order; the hybrid
+    as under a forced `mesh.sp_impl=gspmd`) against JAX's
+    `make_parallel_meta_step_2d`, dropout 0: per-task losses (rtol 1e-8)
+    and parameters; every rank's parameters bitwise equal."""
+    results, refs = ranks
+    ref_losses, ref_params = refs["gspmd-" + case]
+    first = results["grid"][0]["gspmd"][case]
+    for res in results["grid"]:
+        losses, params = res["gspmd"][case]
+        np.testing.assert_allclose(losses, ref_losses, **TOL_JAX)
+        for name, p in params.items():
+            torch.testing.assert_close(p, first[1][name], rtol=0, atol=0)
+    _assert_params(first[1], ref_params, **TOL_JAX_PARAMS)
+
+
+@pytest.mark.parametrize("case", [c for c, _, _ in DROPOUT_CASES])
+def test_gspmd_step_matches_dp_step_with_dropout(ranks, case):
+    """Dropout on at every site (stgcn after every conv; the hybrid's GCN,
+    two LSTM layers and head; query windows in train mode): the GSPMD step
+    on dp 2 x sp 2 equals the dp step on dp 4 with the same key (1e-10),
+    each task's full-N masks drawn from its dp stream and cut to the rank's
+    rows."""
+    results, _ = ranks
+    for res in results["grid"]:
+        got, ref = (res["gspmd_dropout"][case][k] for k in ("gspmd", "dp"))
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-10, atol=1e-12)
+        _assert_params(got[1], ref[1], rtol=1e-10, atol=1e-12)
+
+
+def test_chained_dp_step_matches_jax_float64(ranks):
+    """Two chained epochs on dp 2 (the batches cut from the pool by index)
+    against JAX's chained dp step, dropout 0: losses stacked [2, 4]."""
+    results, refs = ranks
+    ref_losses, ref_params = refs["chained"]
+    for res in results["dp"]:
+        losses, params = res["chained"]
+        assert losses.shape == (2, 4)
+        np.testing.assert_allclose(losses, ref_losses, **TOL_JAX)
+        _assert_params(params, ref_params, **TOL_JAX_PARAMS)
+
+
+@pytest.mark.parametrize("route", ["gspmd", "shardmap"])
+def test_chained_2d_step_is_two_single_steps(ranks, route):
+    """Two chained epochs of each dp x sp step (the GSPMD step on stgcn, the
+    shardmap step on the hybrid; dropout on) bitwise equal to two single
+    steps fed the same indices and epoch keys."""
+    results, _ = ranks
+    for res in results["grid"]:
+        chained, single = (res["chained_2d"][route][k] for k in ("chained", "single"))
+        torch.testing.assert_close(chained[0], single[0], rtol=0, atol=0)
+        assert chained[2] == single[2] == 4
+        for name, p in chained[1].items():
+            torch.testing.assert_close(p, single[1][name], rtol=0, atol=0)
+
+
+def test_engine_on_gspmd_mesh_matches_dp_mesh(ranks):
+    """`run_meta_training` of the stgcn family, float64, dropout on: on dp 2
+    x sp 2 (`sp_impl=auto`, which the log names as the GSPMD step; two
+    epochs in one chunk) and on dp 4 epoch by epoch, the whole pool a batch
+    so both sample the same indices: the same logs and files, losses and
+    the last and final checkpoints within 1e-10."""
+    results, _ = ranks
+    for res in results["grid"]:
+        engine = res["engine"]
+        grid, dp4 = engine["grid"], engine["dp4"]
+        assert grid["files"] == dp4["files"]
+        assert [r["task_indices"] for r in grid["log"]] == [r["task_indices"] for r in dp4["log"]]
+        assert [r.get("dispatch_epochs") for r in grid["log"]] == [2, 2]
+        for key in ("meta_loss", "per_task_loss"):
+            np.testing.assert_allclose([r[key] for r in grid["log"]],
+                                       [r[key] for r in dp4["log"]], rtol=1e-10, atol=1e-12)
+        for ckpt in ("ckpt_last", "ckpt_final"):
+            _assert_params(grid[ckpt], dp4[ckpt], rtol=1e-10, atol=1e-12)
+    lines = results["grid"][0]["engine"]["lines"]
+    assert any("GSPMD step" in line for line in lines), lines
+    assert any("2 epochs/dispatch" in line for line in lines), lines
 
 
 def test_sharded_encoder_jvp_and_double_backward_match_unsharded(ranks):

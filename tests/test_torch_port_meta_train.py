@@ -3,7 +3,10 @@
 `run_meta_training(device="cpu")` against the JAX package's engine on the
 same synthetic regions and initial parameters (float32, dropout 0): the
 same task indices every epoch and meta losses within rtol 1e-4 (float32
-summation order over three epochs of inner loops). Then port-only checks:
+summation order over three epochs of inner loops), epoch by epoch and in
+chunks of `meta.epochs_per_dispatch` = 2 and 3 (the same checkpoints
+written, their parameters within rtol 1e-4, atol 2e-4). Then port-only
+checks:
 a resumed run equals a straight one (dropout on), the CLI trains, writes its
 checkpoints and logs, serves a forecast from `ckpt_best`, leaves jax
 unimported, and refuses what it does not run.
@@ -26,12 +29,16 @@ from weatherforecast_stgcn_maml_tpu.engines.meta_train import (
     run_meta_training as jax_run_meta_training,
 )
 from weatherforecast_stgcn_maml_tpu.train.maml import init_meta_state as jax_init_meta_state
+from weatherforecast_stgcn_maml_tpu.utils import checkpoint as jax_ckpt
 from weatherforecast_stgcn_maml_tpu_torch import cli
 from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
 from weatherforecast_stgcn_maml_tpu_torch.engines import meta_train
+from weatherforecast_stgcn_maml_tpu_torch.train import maml
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import load_checkpoint
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
+
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,
@@ -56,8 +63,9 @@ def _log(out_dir):
         return [json.loads(line) for line in f]
 
 
-def test_engine_matches_jax(tmp_path, monkeypatch):
-    meta = dict(num_epochs=3, meta_batch=2, grad_accum=2)
+def _run_both(tmp_path, monkeypatch, **meta):
+    """The JAX engine and the port's on the same regions and initial
+    parameters, dropout 0: (the port's log, JAX's log, the port's lines)."""
     drop = ["model.gcn_dropout=0", "model.lstm_dropout=0"]
     jax_cfg = jcfg.apply_overrides(_cfg(jcfg, tmp_path / "jax", **meta), drop)
     port_cfg = tcfg.apply_overrides(_cfg(tcfg, tmp_path / "port", **meta), drop)
@@ -76,12 +84,17 @@ def test_engine_matches_jax(tmp_path, monkeypatch):
         return state
 
     monkeypatch.setattr(meta_train, "init_meta_state", from_jax)
+    lines = []
     meta_train.run_meta_training(
         port_cfg, [synthetic_region_for_box(b, num_timesteps=40, seed=i)
                    for i, b in enumerate(_boxes())],
-        device="cpu", log_cb=lambda *a: None,
+        device="cpu", log_cb=lines.append,
     )
-    got, ref = _log(tmp_path / "port"), _log(tmp_path / "jax")
+    return _log(tmp_path / "port"), _log(tmp_path / "jax"), lines
+
+
+def test_engine_matches_jax(tmp_path, monkeypatch):
+    got, ref, _ = _run_both(tmp_path, monkeypatch, num_epochs=3, meta_batch=2, grad_accum=2)
     assert [r["task_indices"] for r in got] == [r["task_indices"] for r in ref]
     np.testing.assert_allclose([r["meta_loss"] for r in got], [r["meta_loss"] for r in ref],
                                rtol=1e-4)
@@ -90,6 +103,42 @@ def test_engine_matches_jax(tmp_path, monkeypatch):
     for name in ("ckpt_best", "ckpt_last", "ckpt_final"):
         _, side = load_checkpoint(str(tmp_path / "port" / "meta" / name))
         assert side["schema"] == "wfstgcn-meta-v1" and len(side["task_names"]) == 3
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_chained_engine_matches_jax(tmp_path, monkeypatch, k):
+    """Three epochs in chunks of k (k = 2: a chunk of 2, then the remainder
+    one epoch at a time; k = 3: one chunk), `checkpoint_every` 2: the same
+    task indices (the chunk's batches sampled before the sampler sees its
+    losses), losses and chunk marks in the log, one log line a chunk, and
+    the same checkpoints written (sidecar epoch, step and loss; parameters
+    within rtol 1e-4, atol 2e-4: Adam's update m / (sqrt(v) + eps) is
+    scale-free, so where an element's float32 gradient is near rounding
+    noise the two packages' summation orders move it by a fraction of one
+    step of lr 1e-3) as the JAX package's engine."""
+    fetches = maml.fetch_metrics.fetches
+    got, ref, lines = _run_both(tmp_path, monkeypatch, num_epochs=3, meta_batch=2,
+                                grad_accum=2, epochs_per_dispatch=k, checkpoint_every=2)
+    chunks = [k, 1] if k == 2 else [3]
+    assert maml.fetch_metrics.fetches - fetches == len(chunks)
+    assert sum(f"{k} epochs/dispatch" in line for line in lines) == 1
+    assert sum("] epoch " in line for line in lines) == len(chunks)
+    for key in ("task_indices", "dispatch_epochs"):
+        assert [r.get(key) for r in got] == [r.get(key) for r in ref], key
+    assert [r.get("dispatch_epochs") for r in got][:k] == [k] * k
+    np.testing.assert_allclose([r["meta_loss"] for r in got], [r["meta_loss"] for r in ref],
+                               rtol=1e-4)
+    assert sorted(os.listdir(tmp_path / "port" / "meta")) == sorted(
+        os.listdir(tmp_path / "jax" / "meta"))
+    for name in ("ckpt_best", "ckpt_last", "ckpt_final"):
+        params, side = load_checkpoint(str(tmp_path / "port" / "meta" / name))
+        arrays, ref_side = jax_ckpt.load_checkpoint(str(tmp_path / "jax" / "meta" / name))
+        assert (side["epoch"], side["step"]) == (ref_side["epoch"], ref_side["step"]), name
+        np.testing.assert_allclose(side["meta_loss"], ref_side["meta_loss"], rtol=1e-4)
+        ref_sd = state_dict_from_params(jax.tree.map(np.asarray, arrays["params"]))
+        for key, v in params.items():
+            np.testing.assert_allclose(v.numpy(), ref_sd[key].numpy(), rtol=1e-4, atol=2e-4,
+                                       err_msg=f"{name} {key}")
 
 
 def test_resume_equals_a_straight_run(tmp_path):
@@ -144,7 +193,7 @@ def test_cli_meta_train_leaves_jax_unimported(tmp_path):
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'weatherforecast_stgcn_maml_tpu.')) for m in sys.modules), 'jax imported'\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

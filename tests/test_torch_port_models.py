@@ -39,6 +39,8 @@ from weatherforecast_stgcn_maml_tpu_torch.utils.convert import (
     state_dict_from_params,
 )
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 SMALL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,
              horizon=3, koppen_dim=4)
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}

@@ -29,6 +29,8 @@ from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import init_encoder
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn, fused_lstm_stack
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 SMALL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,

@@ -2,7 +2,8 @@
 JAX package, on the CPU.
 
 In this process: meshes over a process group of one, the task placement on
-a mesh description, the distributed initialisation's refusals, and the
+a mesh description, the distributed initialisation's refusals, the
+engine's choice of dp x sp step (`mesh.sp_impl` by family), and the
 refusals of the mesh steps and the engine.
 
 Across OS processes joined by gloo (this file's `__main__` block is the
@@ -52,8 +53,11 @@ from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
     shard_task_batch_2d,
 )
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import make_parallel_meta_step
+from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_gspmd import make_parallel_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task
+
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(hidden_channels=8, gcn_layers=2, lstm_hidden=8, lstm_layers=1, window=6,
@@ -564,10 +568,33 @@ def test_mesh_steps_refuse_what_they_do_not_run(monkeypatch):
     make_parallel_meta_step(mc, meta, _fake_mesh(2, 1, 0))
 
 
+def test_engine_picks_the_dp_x_sp_step(monkeypatch):
+    """`mesh.sp_impl` resolved for the family: "auto" takes the shardmap
+    step for the hybrid and the GSPMD step for stgcn; a 1-D mesh takes
+    neither; an unknown value raises. Under `_VBATCH` only the shardmap
+    step refuses; the GSPMD step builds (its dp axis must divide the tasks
+    an update)."""
+    grid = _fake_mesh(1, 2, 0)
+
+    def cfg(*overrides):
+        return tcfg.apply_overrides(tcfg.ExperimentConfig(), list(overrides))
+
+    assert meta_train._check_mesh(cfg(), _fake_mesh(2, 1, 0)) is None
+    assert meta_train._check_mesh(cfg(), grid) == "shardmap"
+    assert meta_train._check_mesh(cfg("model.family=stgcn"), grid) == "gspmd"
+    assert meta_train._check_mesh(cfg("mesh.sp_impl=gspmd"), grid) == "gspmd"
+    with pytest.raises(ValueError, match="sp_impl"):
+        meta_train._check_mesh(cfg("mesh.sp_impl=xla"), grid)
+    mc, meta = tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**META)
+    with pytest.raises(ValueError, match="dp mesh axis"):  # 2 tasks per update over 4
+        make_parallel_meta_step_2d(mc, meta, _fake_mesh(4, 2, 0))
+    monkeypatch.setattr(fused_lstm_stack, "_VBATCH", True)
+    assert meta_train._check_mesh(cfg("mesh.sp_impl=gspmd"), grid) == "gspmd"
+    make_parallel_meta_step_2d(mc, meta, _fake_mesh(2, 2, 0))
+
+
 @pytest.mark.parametrize("override,match", [
     ([], "_VBATCH"),  # with ops.fused_lstm_stack._VBATCH set
-    (["mesh.sp_impl=gspmd"], "gspmd"),
-    (["model.family=stgcn"], "gspmd"),
 ])
 def test_engine_refuses_unported_mesh_settings(tmp_path, monkeypatch, override, match):
     if match == "_VBATCH":

@@ -36,6 +36,8 @@ from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import (
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.supervised import SupervisedState, make_train_step
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 KOPPEN_DIM = 4
 HIDDEN, GCN_LAYERS = 16, 2
 LSTM_HIDDEN, LSTM_LAYERS = 8, 2

@@ -30,6 +30,8 @@ from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
 from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build, fused_sgd
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 MODEL = dict(hidden_channels=16, gcn_layers=4, lstm_hidden=8, lstm_layers=4, window=6,
              horizon=3, koppen_dim=4)
 

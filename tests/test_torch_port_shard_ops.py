@@ -31,6 +31,8 @@ from weatherforecast_stgcn_maml_tpu.models.gcn import apply_gcn_layer as jax_gcn
 from weatherforecast_stgcn_maml_tpu.ops import fused_gcn_shard as jax_fgs
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_shard as fgs
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 KEEP = 0.7
 
 

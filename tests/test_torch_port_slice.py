@@ -32,6 +32,8 @@ from weatherforecast_stgcn_maml_tpu_torch.engines.adapt import adapted_ckpt_path
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import save_checkpoint
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOX = (10.0, 11.0, 20.0, 21.0)  # the tiny_region fixture's box: 25 nodes
 NAME = "tiny"
@@ -169,7 +171,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "weatherforecast_stgcn_maml_tpu"))
 assert not bad, bad
 """
-    env = {**os.environ, "PYTHONPATH": REPO}
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

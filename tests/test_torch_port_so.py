@@ -52,6 +52,8 @@ from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import make_grad_loss_f
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stack_tasks, task_at
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, B, C, H = 5, 16, 24, 8
 KEEP = 0.75
@@ -176,8 +178,9 @@ def test_hvp_plain_matches_autodiff_float64(layers, with_masks):
         def grads(g_, *a):
             return jax.vjp(lambda *aa: fwd(*aa)[0], *a)[1](g_)
 
-        out, tout = jax.jvp(fwd, j(p), j(t))
-        bout, btout = jax.jvp(grads, (jnp.asarray(g), *j(p)), (jnp.asarray(tg), *j(t)))
+        out, tout = jax.jit(lambda a, b: jax.jvp(fwd, a, b))(j(p), j(t))
+        bout, btout = jax.jit(lambda a, b: jax.jvp(grads, a, b))(
+            (jnp.asarray(g), *j(p)), (jnp.asarray(tg), *j(t)))
         ref = [np.asarray(a) for a in (*out, *tout)]
         bref = [_split_jax_bwd([np.asarray(a) for a in o], layers) for o in (bout, btout)]
     fwd_got, tfwd_got, bwd_got, tbwd_got = _port_r_ops(p, t, g, tg, masks, layers, torch.float64)
@@ -256,7 +259,7 @@ def test_grad_loss_fused_and_its_hvp_match_jax_float64(numpy_host_route):
 
         ct = jax.tree.map(lambda a: jnp.asarray(
             np.random.default_rng(3).normal(size=a.shape), jnp.float64), params)
-        g_ref, hv_ref = jax.jvp(jax.grad(loss), (params,), (ct,))
+        g_ref, hv_ref = jax.jit(lambda a, b: jax.jvp(jax.grad(loss), (a,), (b,)))(params, ct)
         g_ref = state_dict_from_params(_np(g_ref), np.float64)
         hv_ref = state_dict_from_params(_np(hv_ref), np.float64)
         w, n = aux[0].shape[:2]
@@ -297,20 +300,43 @@ def _so_setup(family, n_tasks=1, meta_kw=None):
                                        port_tasks, state_dict_from_params(_np(params), np.float64))
 
 
+@pytest.fixture(scope="module")
+def so_reference():
+    """`ref(family)`: (JAX's loss and SO meta-gradient of one task, 2 inner
+    steps, dropout 0; the port's side of `_so_setup`), JAX's computed once
+    a family, with `so_impl="hvp"` (every so_impl computes the same exact
+    meta-gradient, as the JAX package's own tests hold; "hvp" compiles
+    fastest on the CPU), on the numpy host route."""
+    cache = {}
+
+    def ref(family):
+        if family not in cache:
+            jax_native.set_enabled(False)
+            try:
+                (mc, meta, tasks, params), port = _so_setup(family)
+                meta = dataclasses.replace(meta, so_impl="hvp")
+                with jax.enable_x64(True):
+                    task = jax.tree.map(lambda a: a[0], tasks)
+                    loss_ref, g_ref = jax.value_and_grad(
+                        lambda p: jax_maml.adapt_and_query_loss(p, task, jax.random.key(2),
+                                                                mc, meta))(params)
+                    g_ref = state_dict_from_params(_np(g_ref), np.float64)
+            finally:
+                jax_native.set_enabled(True)
+            cache[family] = (float(loss_ref), g_ref, port)
+        return cache[family]
+
+    return ref
+
+
 @pytest.mark.parametrize("family", ["hybrid", "stgcn"])
 @pytest.mark.parametrize("impl", ["xla", "hvp", "rof", "fhvp"])
-def test_so_meta_gradient_matches_jax_float64(numpy_host_route, family, impl):
-    """(d) One task's SO meta-gradient (2 inner steps, dropout 0) against
-    jax.grad of JAX's adapt_and_query_loss with second_order=True."""
-    (mc, meta, tasks, params), (tmc, tmeta, ptasks, sd) = _so_setup(family)
-    meta = dataclasses.replace(meta, so_impl=impl)
+def test_so_meta_gradient_matches_jax_float64(so_reference, family, impl):
+    """(d) One task's SO meta-gradient (2 inner steps, dropout 0) on each
+    so_impl against jax.grad of JAX's adapt_and_query_loss with
+    second_order=True (`so_reference`)."""
+    loss_ref, g_ref, (tmc, tmeta, ptasks, sd) = so_reference(family)
     tmeta = dataclasses.replace(tmeta, so_impl=impl)
-    with jax.enable_x64(True):
-        task = jax.tree.map(lambda a: a[0], tasks)
-        loss_ref, g_ref = jax.value_and_grad(
-            lambda p: jax_maml.adapt_and_query_loss(p, task, jax.random.key(2), mc, meta)
-        )(params)
-        g_ref = state_dict_from_params(_np(g_ref), np.float64)
     model = _model(tmc, sd)
     loss = maml.adapt_and_query_loss(model, task_at(ptasks, 0), None, tmc, tmeta)
     grads = torch.autograd.grad(loss, list(model.parameters()))
@@ -417,7 +443,7 @@ def test_cli_so_meta_train_leaves_jax_unimported(tmp_path):
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'weatherforecast_stgcn_maml_tpu.')) for m in sys.modules), 'jax imported'\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -37,6 +37,8 @@ from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import (
     scan_backward_plain,
 )
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 T, B, C, H = 5, 16, 24, 8  # JAX tests/test_lstm_stack.py's widths
 CASES = [(1, False), (2, False), (2, True), (3, False), (3, True)]  # (layers, masks)
 

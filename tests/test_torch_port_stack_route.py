@@ -50,6 +50,8 @@ from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import (
 )
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 CPU = torch.device("cpu")
 T, B, C, KEEP = 3, 4, 8, 0.8
 # (compute dtype, hidden width, planned): float32 plans up to 256, bfloat16

@@ -40,6 +40,8 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_train as fgt
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import gemm_nn_plain, gemm_tn_plain, tn_splits
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 T, B, C, H = 5, 16, 24, 8  # JAX tests/test_lstm_stack.py's widths
 KEEP = 0.7
 

@@ -44,6 +44,8 @@ from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_train import gcn_stack_t
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import lstm_stack_train
 from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 FWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -63,6 +63,8 @@ from weatherforecast_stgcn_maml_tpu_torch.utils.convert import (
     state_dict_from_params,
 )
 
+torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
+
 T, B, C, H, L = 5, 16, 24, 8, 3  # JAX tests/test_lstm_stack.py's widths
 MODEL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, window=6,
              horizon=3, koppen_dim=4, gcn_dropout=0.0, lstm_dropout=0.0,

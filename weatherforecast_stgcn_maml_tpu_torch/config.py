@@ -190,8 +190,9 @@ class MetaConfig:
     rng_impl: str = "rbg"
     # Write the resumable `ckpt_last` every N epochs (best/final always).
     checkpoint_every: int = 5
-    # Meta epochs chained into one dispatch in the JAX package; only 1 is
-    # ported (larger values raise).
+    # Meta epochs chained into one call (engines/meta_train.py): the sampler
+    # sees a chunk's losses at its end, checkpoints are decided at chunk
+    # ends; 1 is the reference's epoch-by-epoch cadence.
     epochs_per_dispatch: int = 1
 
 
@@ -250,9 +251,9 @@ class MeshConfig:
     data-parallel mesh (tasks split over ranks), > 1 also splits the padded
     node axis of every task over the sp ranks (the node-sharded step,
     parallel/meta_sp.py). `sp_impl` picks the 2-D step: "auto" resolves to
-    "shardmap" for the hybrid family; "gspmd" (the JAX package's
-    partitioner-driven step, also "auto" for the stgcn family) is not
-    ported and raises.
+    "shardmap" for the hybrid family (the kernels engaged per node shard)
+    and to "gspmd" for the others (the JAX package's partitioner-driven
+    step on the plain routes, parallel/meta_gspmd.py; every family).
     """
 
     data_axis: str = "dp"

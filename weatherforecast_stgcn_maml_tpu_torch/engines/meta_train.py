@@ -1,28 +1,39 @@
 """Meta-training engine: MAML over the meta-training regions, on one device
 or on a mesh of ranks.
 
-Counterpart of `weatherforecast_stgcn_maml_tpu/engines/meta_train.py` with
-one meta step per dispatch (`meta.epochs_per_dispatch == 1`): load the
-regions and build their tasks (a region that fails to load or build is
-skipped), fit meta_batch / grad_accum to the tasks built, then run
+Counterpart of `weatherforecast_stgcn_maml_tpu/engines/meta_train.py`:
+load the regions and build their tasks (a region that fails to load or
+build is skipped), fit meta_batch / grad_accum to the tasks built, then run
 `num_epochs` meta epochs of difficulty-sampled task batches. Every epoch
 appends `meta_log.csv` and `meta_log.jsonl`; `ckpt_best` keeps the best
 epoch, `ckpt_last` (every `checkpoint_every` epochs and the last) carries
 the optimizer and sampler state for `resume`, `ckpt_final` the end state.
 The sidecar schema is the JAX package's (`wfstgcn-meta-v1`), and
-`ckpt_best`'s `params.pt` is what `forecast` and `validate` load.
+`ckpt_best`'s `params.pt` is what `forecast` and `validate` load. Float64
+compute trains float64 parameters on float64 tasks.
+
+Epochs run in chunks of `meta.epochs_per_dispatch` = k (the remainder,
+when fewer than k epochs are left, one at a time), each chunk one call of
+the chained step (train/maml.make_chained_meta_step). The k batches of a
+chunk are sampled before the sampler sees any of its losses, so within a
+chunk it draws from difficulties up to k - 1 epochs stale; the metrics
+reach the host once a chunk (`fetch_metrics`); best and last checkpoints
+are decided at chunk ends from the chunk-end loss and state. k = 1 is the
+reference's epoch-by-epoch cadence.
 
 Dropout draws from a torch.Generator on the device seeded from
 (meta.seed + 1, epoch), so a resumed run draws what a straight run draws.
 
 On a mesh (parallel/mesh.py; `cli meta-train --mesh`) every rank runs this
 engine: a 1-D mesh takes the data-parallel step (parallel/meta_dp.py), a
-dp x sp mesh the node-sharded one (parallel/meta_sp.py), both keyed by
-(meta.seed + 1, epoch). Every rank stages the whole task pool and keeps its
-own sampler; the steps hand every rank every task's loss, so the samplers
-pick the same tasks. Rank 0 alone writes the logs and checkpoints, and
-every rank waits at a barrier after each save; on `resume` every rank
-loads `ckpt_last`.
+dp x sp mesh the node-sharded one (parallel/meta_sp.py, `mesh.sp_impl`
+"shardmap") or the GSPMD one (parallel/meta_gspmd.py, "gspmd"; "auto"
+picks it for every family but the hybrid), each keyed by (meta.seed + 1,
+epoch). Every rank stages the whole task pool and keeps its own sampler;
+the steps hand every rank every task's loss, so the samplers pick the
+same tasks. Rank 0 alone writes the logs and checkpoints, and every rank
+waits at a barrier after each save; on `resume` every rank loads
+`ckpt_last`.
 """
 
 from __future__ import annotations
@@ -49,11 +60,14 @@ from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import (
     make_parallel_meta_step,
     refuse_lockstep,
 )
+from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_gspmd import make_parallel_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
     MamlState,
     check_supported,
+    fetch_metrics,
     init_meta_state,
+    make_chained_meta_step,
     make_meta_step,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import AdamState
@@ -61,7 +75,6 @@ from weatherforecast_stgcn_maml_tpu_torch.train.sampling import DifficultySample
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import (
     build_task,
     common_padded_nodes,
-    select_tasks,
     stage_tasks,
 )
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import (
@@ -107,22 +120,20 @@ def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Genera
     )
 
 
-def _check_mesh(cfg: ExperimentConfig, mesh: Mesh) -> None:
-    """Refuse, by name, what no step of `mesh` runs."""
+def _check_mesh(cfg: ExperimentConfig, mesh: Mesh) -> str | None:
+    """The dp x sp step `mesh` runs ("shardmap" or "gspmd", `mesh.sp_impl`
+    resolved for the model family), None on a 1-D mesh; refuse, by name,
+    what no step of `mesh` runs."""
     if len(mesh.axis_names) == 1:
-        return
-    refuse_lockstep(cfg.model, cfg.meta, "the node-sharded (dp x sp) mesh")
+        return None
     sp_impl = resolve_sp_impl(cfg.mesh.sp_impl, cfg.model)
-    if sp_impl == "gspmd":
-        raise NotImplementedError(
-            "not ported: mesh.sp_impl='gspmd' (the JAX package's GSPMD dp x sp meta step, "
-            f"which mesh.sp_impl='auto' picks for family {cfg.model.family!r}); a dp x sp "
-            "mesh runs the hybrid family's node-sharded step"
-        )
-    if sp_impl != "shardmap":
+    if sp_impl not in ("gspmd", "shardmap"):
         raise ValueError(
             f"mesh.sp_impl={cfg.mesh.sp_impl!r}: expected 'auto', 'gspmd' or 'shardmap'"
         )
+    if sp_impl == "shardmap":
+        refuse_lockstep(cfg.model, cfg.meta, "the node-sharded (dp x sp) mesh")
+    return sp_impl
 
 
 def run_meta_training(
@@ -143,8 +154,7 @@ def run_meta_training(
         log_cb = lambda *a: None  # noqa: E731 - rank 0 reports for the mesh
     model_cfg, meta_cfg = cfg.model, cfg.meta
     check_supported(model_cfg, meta_cfg)
-    if mesh is not None:
-        _check_mesh(cfg, mesh)
+    sp_impl = None if mesh is None else _check_mesh(cfg, mesh)
     out_dir = os.path.join(cfg.out_dir, "meta")
     os.makedirs(out_dir, exist_ok=True)
 
@@ -189,10 +199,21 @@ def run_meta_training(
     log_cb(f"[meta-train] {model_cfg.family} model: {params_n:,} parameters")
     if mesh is None:
         meta_step = make_meta_step(model_cfg, meta_cfg)
-    elif len(mesh.axis_names) == 1:
+    elif sp_impl is None:
         meta_step = make_parallel_meta_step(model_cfg, meta_cfg, mesh)
-    else:
+    elif sp_impl == "shardmap":
         meta_step = make_shardmap_meta_step_2d(model_cfg, meta_cfg, mesh)
+    else:
+        meta_step = make_parallel_meta_step_2d(model_cfg, meta_cfg, mesh)
+    if sp_impl is not None:
+        log_cb(f"[meta-train] dp {mesh.dp} x sp {mesh.sp} mesh: "
+               + ("the node-sharded (shardmap) step" if sp_impl == "shardmap" else
+                  "the GSPMD step (plain routes, per-leaf inner update)"))
+    if mesh is None:
+        chained = make_chained_meta_step(
+            meta_step, lambda e: epoch_generator(meta_cfg.seed + 1, e, device))
+    else:  # each task's generator derives from the epoch's key
+        chained = make_chained_meta_step(meta_step, lambda e: (meta_cfg.seed + 1, e))
 
     sampler = DifficultySampler(
         len(built), meta_cfg.meta_batch, ema=meta_cfg.difficulty_ema, seed=meta_cfg.seed
@@ -285,41 +306,52 @@ def run_meta_training(
         )
 
     staged = stage_tasks([b.task for b in built], device)
+    if next(state.params.parameters()).dtype == torch.float64:
+        staged = type(staged)(*(f.double() if f.is_floating_point() else f for f in staged))
+    k = max(1, int(meta_cfg.epochs_per_dispatch))
     loss = float("nan")
-    for epoch in range(start_epoch, meta_cfg.num_epochs):
+    epoch = start_epoch
+    while epoch < meta_cfg.num_epochs:
+        # A remainder shorter than k runs one epoch at a time.
+        kk = k if meta_cfg.num_epochs - epoch >= k else 1
         t0 = time.perf_counter()
-        idx = sampler.sample()
-        if mesh is None:
-            rng = epoch_generator(meta_cfg.seed + 1, epoch, device)
-        else:
-            rng = (meta_cfg.seed + 1, epoch)  # each task's generator derives from it
-        state, metrics = meta_step(state, select_tasks(staged, idx), rng)
-        per_task = metrics["per_task_loss"].float().cpu().numpy()
-        loss = float(metrics["meta_loss"])
-        lr = float(metrics["learning_rate"])
+        idx_k = np.stack([sampler.sample() for _ in range(kk)])
+        state, metrics = chained(state, staged, idx_k, range(epoch, epoch + kk))
+        loss_k, per_task_k, lr_k = fetch_metrics(metrics)
         dt = time.perf_counter() - t0
-        sampler.update(idx, per_task)
-        if main:
-            csv.log(epoch=epoch + 1, meta_loss=loss, learning_rate=lr)
-            jsonl.log({
-                "epoch": epoch + 1,
-                "meta_loss": loss,
-                "learning_rate": lr,
-                "per_task_loss": per_task.tolist(),
-                "task_indices": np.asarray(idx).tolist(),
-                "epoch_seconds": dt,
-            })
+        for j in range(kk):
+            sampler.update(idx_k[j], per_task_k[j])
+            if main:
+                csv.log(epoch=epoch + j + 1, meta_loss=float(loss_k[j]),
+                        learning_rate=float(lr_k[j]))
+                rec = {
+                    "epoch": epoch + j + 1,
+                    "meta_loss": float(loss_k[j]),
+                    "learning_rate": float(lr_k[j]),
+                    "per_task_loss": per_task_k[j].tolist(),
+                    "task_indices": idx_k[j].tolist(),
+                    "epoch_seconds": dt / kk,
+                }
+                if kk > 1:
+                    rec["dispatch_epochs"] = kk
+                jsonl.log(rec)
+        loss, lr = float(loss_k[-1]), float(lr_k[-1])
+        last_epoch = epoch + kk - 1
         log_cb(
-            f"[meta-train] epoch {epoch + 1}/{meta_cfg.num_epochs} "
-            f"loss {loss:.4f} lr {lr:.6f} ({dt:.2f}s)"
+            f"[meta-train] epoch {last_epoch + 1}/{meta_cfg.num_epochs} "
+            f"loss {loss:.4f} lr {lr:.6f} ({dt:.2f}s"
+            + (f", {kk} epochs/dispatch)" if kk > 1 else ")")
         )
+        # The chunk-end loss and state decide: the parameters of an epoch
+        # inside the chunk are gone by now.
         if loss < best_loss:
             best_loss = loss
-            save(best_path, epoch, loss)
-        if (epoch + 1) % max(1, meta_cfg.checkpoint_every) == 0 or (
-            epoch == meta_cfg.num_epochs - 1
+            save(best_path, last_epoch, loss)
+        if (last_epoch + 1) % max(1, meta_cfg.checkpoint_every) < kk or (
+            last_epoch == meta_cfg.num_epochs - 1
         ):
-            save(last_path, epoch, loss)
+            save(last_path, last_epoch, loss)
+        epoch += kk
 
     save(final_path, meta_cfg.num_epochs - 1, loss)
     log_cb(f"[meta-train] done: best {best_loss:.4f}; spans {timer.summary()}")

@@ -73,6 +73,13 @@ def draw_masks(cfg: ModelConfig, generator: torch.Generator | None, x: torch.Ten
     return train_masks(cfg, x, True, generator, None, _family(cfg)[2])
 
 
+def window_masks(cfg: ModelConfig, generator: torch.Generator | None, w: int, n: int,
+                 device) -> dict:
+    """One window's dropout masks at W x N nodes, as `draw_masks` draws them
+    for a window [W, N, C] ({} without a generator)."""
+    return {} if generator is None else _family(cfg)[2](cfg, generator, w, n, device)
+
+
 class _Bound(nn.Module):
     def __init__(self, model: nn.Module, fn):
         super().__init__()

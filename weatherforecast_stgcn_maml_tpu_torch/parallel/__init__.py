@@ -1,7 +1,8 @@
-"""Parallel layer: rank meshes, the data-parallel and node-sharded meta
-steps (`meta_dp.py`, `meta_sp.py`, `spatial.py`), multi-process
-initialisation (`distributed.py`), the region-fleet partition over hosts
-(`fleet.py`) and the region fleet's lanes over ranks (`fleet_mesh.py`).
+"""Parallel layer: rank meshes, the data-parallel, node-sharded and GSPMD
+meta steps (`meta_dp.py`, `meta_sp.py`, `meta_gspmd.py`, `spatial.py`),
+multi-process initialisation (`distributed.py`), the region-fleet
+partition over hosts (`fleet.py`) and the region fleet's lanes over ranks
+(`fleet_mesh.py`).
 
 Only the mesh and the dp step are imported here (the JAX package's
 exports that are ported): ops/fused_gcn_shard.py imports parallel.mesh,

@@ -25,8 +25,9 @@ masks do not depend on which rank runs it, nor on whether the rank's
 tasks run one after another or side by side. The single-device step
 (train/maml.py) draws every task from one generator instead.
 
-The JAX package's GSPMD 2-D step (`make_parallel_meta_step_2d`) has no
-counterpart: the dp x sp mesh runs `make_shardmap_meta_step_2d`.
+The dp x sp mesh runs `make_shardmap_meta_step_2d` (parallel/meta_sp.py)
+or the GSPMD step's counterpart, `make_parallel_meta_step_2d`
+(parallel/meta_gspmd.py).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def refuse_lockstep(model_cfg: ModelConfig, cfg: MetaConfig, where: str) -> None
 
 
 def mesh_batch_grad(mesh: Mesh, local_tasks, task_loss, second_order: bool = False,
-                    lockstep=None):
+                    lockstep=None, task_streams: bool = False):
     """Build `batch_grad(params, tasks, key, fast=None, offset=0) ->
     (per-task losses [B], {name: mean meta-gradient})` for a stacked batch
     of B tasks that every rank holds whole.
@@ -80,7 +81,10 @@ def mesh_batch_grad(mesh: Mesh, local_tasks, task_loss, second_order: bool = Fal
     tasks' generators). `lockstep(params, tasks, generators)`, where given,
     runs this rank's tasks side by side and returns (per-task losses,
     {name: gradient summed over them}), or None where they run one after
-    another. Both results are the same on every rank."""
+    another. With `task_streams` every sp rank takes its task's dp-mesh
+    generator (sp index 0), so that the sp group draws one stream a task,
+    the dp step's (the GSPMD step, parallel/meta_gspmd.py). Both results
+    are the same on every rank."""
 
     def batch_grad(params, tasks: Task, key, fast=None, offset: int = 0):
         batch = tasks.support_x.shape[0]
@@ -89,7 +93,8 @@ def mesh_batch_grad(mesh: Mesh, local_tasks, task_loss, second_order: bool = Fal
         local = batch // mesh.dp
         mine = local_tasks(tasks, mesh)
         first = offset + mesh.dp_index * local  # this rank's first task in the meta batch
-        gens = [shard_generator(None if key is None else (*key, first + j), mesh.sp_index,
+        stream = 0 if task_streams else mesh.sp_index
+        gens = [shard_generator(None if key is None else (*key, first + j), stream,
                                 tasks.support_x.device) for j in range(local)]
         if second_order:
             named = list(params.named_parameters())

@@ -1,4 +1,4 @@
-"""Node-sharded (spatial) model parallelism for the hybrid model.
+"""Node-sharded (spatial) model parallelism for both model families.
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/parallel/spatial.py`. Each
 rank of an sp group holds NL = N / sp of the padded nodes: its rows of the
@@ -17,10 +17,11 @@ Dropout: each rank draws masks for its own NL rows only (full-N masks per
 rank would put back the per-device memory the sp axis removes), from a
 `torch.Generator` of its own: `shard_generator(key, sp_index)` seeds it
 from the caller's key (a tuple of ints: the JAX rng's counterpart) and
-the rank's sp index, as JAX folds the axis index into its key. One forward
-draws, in order, the encoder masks [gcn_layers - 1, NL, W, hid]
+the rank's sp index, as JAX folds the axis index into its key. One hybrid
+forward draws, in order, the encoder masks [gcn_layers - 1, NL, W, hid]
 (node-major), the LSTM's [lstm_layers - 1, W, NL, H] (time-major) and the
-head's [NL, H].
+head's [NL, H]; one standalone-STGCN forward draws the encoder masks
+[gcn_layers, NL, W, hid] (after every conv).
 """
 
 from __future__ import annotations
@@ -54,6 +55,12 @@ def local_masks(cfg: ModelConfig, generator, w: int, nl: int, device) -> dict:
     if generator is None:
         return {}
     masks = {}
+    if cfg.family == "stgcn":
+        if cfg.gcn_dropout > 0.0:
+            masks["encoder"] = draw_mask(
+                generator, (cfg.gcn_layers, nl, w, cfg.hidden_channels), cfg.gcn_dropout,
+                device)
+        return masks
     if cfg.gcn_dropout > 0.0 and cfg.gcn_layers > 1:
         masks["encoder"] = draw_mask(
             generator, (cfg.gcn_layers - 1, nl, w, cfg.hidden_channels), cfg.gcn_dropout, device)
@@ -112,14 +119,16 @@ def hybrid_local_forward(
     generator: torch.Generator | None = None, masks: dict | None = None,
 ) -> torch.Tensor:
     """The hybrid forward on this rank's node rows: x_local [W, NL, C],
-    a_rows [NL, N] -> [H, NL, 12].
+    a_rows [NL, N] -> [H, NL, 12]; the stgcn family goes to
+    `stgcn_local_forward`.
 
     In train mode the dropout masks are `masks` (this rank's, as
     `local_masks` lays them out) or drawn from `generator`; with neither
     there is no dropout. The fused LSTM kernels run per rank: the node axis
     is the LSTM's row axis."""
     if cfg.family != "hybrid":
-        raise ValueError(f"the node-sharded forward runs the hybrid family, not {cfg.family!r}")
+        return stgcn_local_forward(params, a_rows, x_local, koppen, cfg, group, train=train,
+                                   generator=generator, masks=masks)
     w, nl = x_local.shape[:2]
     dtype = resolve_dtype(cfg.compute_dtype)
     if not train:
@@ -140,6 +149,29 @@ def hybrid_local_forward(
     return out.reshape(nl, cfg.horizon, cfg.num_weather_vars).transpose(0, 1)
 
 
+def stgcn_local_forward(
+    params, a_rows, x_local, koppen, cfg: ModelConfig, group, *, train: bool = False,
+    generator: torch.Generator | None = None, masks: dict | None = None,
+) -> torch.Tensor:
+    """The standalone STGCN forward (`models.stgcn.apply_stgcn_forecaster`)
+    on this rank's node rows: x_local [W, NL, C], a_rows [NL, N] ->
+    [H, NL, 12]. The node-sharded encoder (one all-gather a layer, dropout
+    after every conv in train mode), then the dense head on the last time
+    slice, which is node-local. Masks as `hybrid_local_forward` takes
+    them (`local_masks`' layout)."""
+    if cfg.family != "stgcn":
+        raise ValueError(f"unknown model family {cfg.family!r} for the node-sharded forward")
+    w, nl = x_local.shape[:2]
+    if not train:
+        masks = {}
+    elif masks is None:
+        masks = local_masks(cfg, generator, w, nl, x_local.device)
+    h = koppen_features(params, x_local, koppen).transpose(0, 1)  # [NL, W, C_in]
+    h = _spatial_encoder(params.encoder.layers, a_rows, h, cfg, group, masks.get("encoder"))
+    out = apply_dense(params.head, h[:, -1], compute_dtype=resolve_dtype(cfg.compute_dtype))
+    return out.reshape(nl, cfg.horizon, cfg.num_weather_vars).transpose(0, 1)
+
+
 def _local_inputs(mesh: Mesh, a_hat, x, *rest):
     """This rank's rows: a_hat [N, N] -> [NL, N], x [W, N, C] -> [W, NL, C],
     then each of `rest` ([H, N, C] windows or an [N] mask)."""
@@ -148,7 +180,7 @@ def _local_inputs(mesh: Mesh, a_hat, x, *rest):
 
 
 def make_spatial_forward(model_cfg: ModelConfig, mesh: Mesh):
-    """Node-sharded hybrid forward (inference): `fwd(params, a_hat, x,
+    """Node-sharded forward (inference): `fwd(params, a_hat, x,
     koppen) -> this rank's [H, NL, 12]` from the full a_hat [N, N] and
     window x [W, N, C] (each rank keeps its rows; rank r of the sp group
     holds rows r * NL ... (r + 1) * NL - 1). Dropout is off."""

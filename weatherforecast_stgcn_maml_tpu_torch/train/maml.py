@@ -47,11 +47,12 @@ from __future__ import annotations
 import copy
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from weatherforecast_stgcn_maml_tpu_torch.config import MetaConfig, ModelConfig
-from weatherforecast_stgcn_maml_tpu_torch.models.common import resolve_dtype
+from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype, resolve_dtype
 from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
@@ -77,7 +78,7 @@ from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import (
     support_loss,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.so_grad import SO_IMPLS, make_so_grad
-from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task, task_at
+from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task, select_tasks, task_at
 
 
 class MamlState(NamedTuple):
@@ -104,8 +105,6 @@ def check_supported(model_cfg: ModelConfig, cfg: MetaConfig) -> None:
     unported = {
         "meta.so_wavefront with so_impl 'hvp' or 'rof' (the wavefront LSTM "
         "schedule)": cfg.second_order and cfg.so_wavefront and cfg.so_impl in ("hvp", "rof"),
-        "meta.epochs_per_dispatch > 1 (chained meta epochs)":
-            cfg.epochs_per_dispatch > 1,
         "model.lstm_wavefront (the wavefront LSTM schedule)":
             model_cfg.lstm_wavefront,
     }
@@ -119,8 +118,10 @@ def init_meta_state(
     *, device: torch.device | str = "cpu",
 ) -> MamlState:
     """Random meta-parameters from `generator` (a CPU generator) on
-    `device`, a fresh optimizer state."""
-    model = init_model(generator, model_cfg, device=device)
+    `device`, a fresh optimizer state. The parameters are float32, and
+    float64 under float64 compute (the JAX package's x64 mode)."""
+    model = init_model(generator, model_cfg, device=device).to(
+        accum_dtype(resolve_dtype(model_cfg.compute_dtype)))
     return MamlState(model, MetaOptimizer.init(dict(model.named_parameters())), 0)
 
 
@@ -463,3 +464,49 @@ def make_meta_step(model_cfg: ModelConfig, cfg: MetaConfig):
         return MamlState(state.params, opt_state, step), metrics
 
     return meta_step
+
+
+def make_chained_meta_step(step, epoch_rng: Callable):
+    """Chain k meta steps into one call: `chained(state, pool, idx_k,
+    epochs_k) -> (state, metrics_k)`.
+
+    Counterpart of the JAX package's `make_chained_meta_step`. For each
+    epoch e of `epochs_k`, in order, the batch at the matching row of
+    `idx_k` ([k, B] task indices) is gathered on the device from the staged
+    `pool` (`select_tasks`) and `step` (any meta step: one device, the dp
+    mesh, either dp x sp step) runs on it with `epoch_rng(e)`, the rng
+    argument the engine gives epoch e alone. So a chained call is bitwise
+    k single steps fed the same indices. Metrics come back stacked on a
+    leading [k] axis and stay on the device (`learning_rate` is the host's
+    schedule, a float64 array); `fetch_metrics` brings them over in one
+    copy."""
+
+    def chained(state: MamlState, pool: Task, idx_k, epochs_k):
+        per = []
+        for idx, epoch in zip(idx_k, epochs_k):
+            state, metrics = step(state, select_tasks(pool, idx), epoch_rng(int(epoch)))
+            per.append(metrics)
+        return state, {
+            "meta_loss": torch.stack([m["meta_loss"] for m in per]),
+            "per_task_loss": torch.stack([m["per_task_loss"] for m in per]),
+            "learning_rate": np.asarray([m["learning_rate"] for m in per], np.float64),
+        }
+
+    return chained
+
+
+def fetch_metrics(metrics: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A meta step's or a chained step's metrics on the host: (meta_loss
+    [k] float64, per_task_loss [k, B] float32 (float64 under float64),
+    learning_rate [k]), the two losses in one device-to-host copy.
+    `fetch_metrics.fetches` counts the calls."""
+    loss = metrics["meta_loss"].reshape(-1, 1)
+    dtype = torch.float64 if loss.dtype == torch.float64 else torch.float32
+    per_task = metrics["per_task_loss"].reshape(loss.shape[0], -1)
+    host = torch.cat([loss.to(dtype), per_task.to(dtype)], dim=1).detach().cpu().numpy()
+    fetch_metrics.fetches += 1
+    lr = np.asarray(metrics["learning_rate"], np.float64).reshape(-1)
+    return host[:, 0].astype(np.float64), host[:, 1:], lr
+
+
+fetch_metrics.fetches = 0

@@ -5,12 +5,14 @@ pipeline, node-sharded / data-parallel meta-training, the LSTM kernel
 routes, the two flag-selected LSTM-stack paths (the task-batched meta
 step and the unmerged-gates stack), reference-checkpoint interop and the
 region fleet (`pipeline --mesh-fleet`), second-order MAML on both
-meshes with the task-batched meta step on the dp mesh, and the GSPMD dp x
-sp meta step with chained meta epochs.
+meshes with the task-batched meta step on the dp mesh, the GSPMD dp x
+sp meta step with chained meta epochs, the wavefront LSTM, the adaptation
+step's unfolded window batch and the task-batched meta step on the dp x sp
+mesh.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(`python3 chip_smoke.py --mesh-rank DIR [-o KEY=VALUE ...]` is phases 14,
-22 and 23's rank process, started by torch.distributed.run.)
+(`python3 chip_smoke.py --mesh-rank DIR [--vbatch] [-o KEY=VALUE ...]` is
+phases 14, 22, 23 and 24's rank process, started by torch.distributed.run.)
 
 Phases (the first failure raises and exits non-zero; each prints its wall
 time):
@@ -89,10 +91,11 @@ time):
      row 6 364 times, 2 gemm_nn launches a layer; no call
      on the plain stack),
      every loss must be finite;
-  9b. drive `cli meta-train -o meta.second_order=true` at the defaults: 1
-     epoch float32, 1 epoch bfloat16, `--resume` to epoch 2; rows 10-11
-     must launch 360 times a meta step (with 4 / 4 and 4 / 8 / 16 pieces a
-     call) and rows 4-7 too, every loss finite;
+  9b. drive `cli meta-train -o meta.second_order=true` at the defaults
+     with inner epochs cut to SO_INNER_EPOCHS (2): 1 epoch float32, 1
+     epoch bfloat16, `--resume` to epoch 2; rows 10-11 must launch once
+     each an inner step, 120 times a meta step (with 4 / 4 and 4 / 8 / 16
+     pieces a call) and rows 4-7 too, every loss finite;
   9c. `lstm_kernel=auto` at float32 hidden 320, where no cluster plan holds
      Wh: one train step of the hybrid runs the plain stack (rows 4-5 never
      launch, the plain-route counter moves once; loss and gradients equal to
@@ -132,7 +135,7 @@ time):
      NCCL refuses two ranks on one card): `two_ranks` has
      torch.distributed.run start
      `cli meta-train --mesh --device cuda:0 -o mesh.spatial_devices=2`
-     (one named card: gloo) for 1 float32 epoch, inner epochs cut to 2;
+     (one named card: gloo) for 1 float32 epoch, inner epochs cut to 1;
      each rank must launch rows 12-13 on its 256 rows, both ranks must
      report the same finite losses, and one set of checkpoints must exist;
  15a. hold the pipelined GEMM core (csrc/gemm_nn.cu) against gemm_nn_plain
@@ -193,8 +196,13 @@ time):
      printed, gated on its launches (a gemm_nn and a forward recurrence a
      layer for all tasks from one call), row 17 also
      by part and gated on its launches (a recurrence, a gemm_nn and two
-     gemm_tn launches a layer for all tasks); print
-     the bounds;
+     gemm_tn launches a layer for all tasks); rows 16-17 also at phase
+     24's shapes (`tasks_at_path_shapes`): V = 2 tasks of 256 rows (a dp x
+     sp rank's NL rows at sp 2) and V = 2 windows of 512 rows sharing one
+     set of weights expanded with task stride 0 (the unfolded adaptation
+     step), forward and every gradient against the plain version, masks at
+     rate 0.2 and off, float32 and bfloat16, the recurrence plans printed;
+     print the bounds;
  18. with ops.fused_lstm_stack._VBATCH set in process: the lockstep FO
      meta-gradient of one micro-batch (2 tasks x 15 inner steps, dropout
      on) kernel route vs plain route, same generator seed; `cli meta-train`
@@ -246,8 +254,8 @@ time):
      in the inner gradient's forward, the GCN stack never); one SO inner
      step on the dp x sp mesh against the unsharded one in turns, each with
      its device-busy share; `cli meta-train --mesh -o
-     meta.second_order=true` 1 epoch (rows 10-11 360 times each, finite
-     losses); with _VBATCH set, the lockstep dp-mesh meta-gradient against
+     meta.second_order=true` 1 epoch of SO_INNER_EPOCHS inner epochs (rows
+     10-11 120 times each, finite losses); with _VBATCH set, the lockstep dp-mesh meta-gradient against
      the serial one with dropout on and the same key (1e-5; rows 16-17 16
      times, row 9 15) and `cli meta-train --mesh` 1 epoch (rows 16-17 182
      each, row 9 180, rows 4-5 and 8 none), the flag restored; two gloo
@@ -270,6 +278,28 @@ time):
      printed; second order, 2 epochs in one chunk (1 inner epoch): rows
      10-11 once an inner step, one fetch; the two ranks again for 3 epochs
      in chunks of 2.
+ 24. the wavefront LSTM, the adaptation step's unfolded window batch and
+     _VBATCH on the dp x sp shardmap step, at ModelConfig() float32
+     (`wavefront_vbatch_phase`): (a) the FO meta-gradient of 2 tasks x 15
+     inner steps at dropout 0.2 with `model.lstm_wavefront` against
+     `lstm_kernel=xla` on the same masks (max|diff| / max|ref| <= 1e-5; one
+     wavefront a forward, no launch of rows 4-5 or 14-20), timed in turns;
+     the SO meta-gradient of 1 task (hvp, rof) with `meta.so_wavefront`
+     against the layerwise Hessian transposes on the same key (1e-4; one
+     wavefront an inner step); `cli meta-train -o model.lstm_wavefront=true`
+     1 epoch (finite losses, no LSTM kernel launch); a Moscow forecast from
+     its checkpoint on the card against --device cpu (phase 4's gate); (b)
+     the adaptation step at AdaptConfig() (2 windows x 512 rows, Moscow's
+     data) under _VBATCH with _ROWFOLD off against the folded step on the
+     same masks (loss and every gradient 1e-5; rows 16-17 once each, rows
+     4-5 never), one train step of each timed in turns, `cli adapt` 1 epoch
+     (finite val_mse, rows 16-17's launches printed), the flags restored;
+     (c) on a 1 x 1 dp x sp NCCL mesh the lockstep shardmap meta-gradient
+     against the serial one, dropout 0.2, the same key (1e-5; rows 16-17
+     16 times each, row 9 15, rows 12-13 128, rows 4-5 and 8 none), timed
+     in turns; two gloo ranks on the card (phase 14's launcher, `--vbatch`,
+     1 inner epoch): each rank launches rows 16-17 32 times and row 9 30
+     times on its 256 rows, both report the same finite losses.
 
 The last three lines of stdout are the kernels JSON, the card line as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints it,
@@ -366,7 +396,8 @@ NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel"
 RECURRENCE_SOURCES = {"lstm_scan_fwd_kernel": "lstm_stack_fwd.cu",
                       "lstm_scan_tan_kernel": "lstm_scan_tan.cu",
                       "lstm_scan_fwd_tan_kernel": "lstm_scan_fwd_tan.cu"}
-MESH_INNER_EPOCHS = 2  # phase 14's cut: 2 x 15 inner steps a task
+MESH_INNER_EPOCHS = 1  # phase 14's cut: 1 x 15 inner steps a task
+SO_INNER_EPOCHS = 2  # the SO meta-train runs' cut (phases 9b and 22): 2 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
 
@@ -2259,7 +2290,8 @@ def main() -> int:
     # 9b. Second-order meta-training through the CLI: the SO path's main run,
     # MetaConfig() defaults (fhvp, 4 tasks x 90 inner steps, grad-accum 2).
     with Phase("SO meta-train CLI"):
-        so = ("-o", "meta.second_order=true")
+        so = ("-o", "meta.second_order=true", "-o", f"meta.inner_epochs={SO_INNER_EPOCHS}")
+        so_per_step = meta_cfg.meta_batch * SO_INNER_EPOCHS * meta_cfg.inner_batches
         for fn in counters:
             fn.launches = fn.backward_launches = 0
         fh.hvp_stack_fwd.launches = fh.hvp_stack_bwd.launches = 0
@@ -2285,9 +2317,9 @@ def main() -> int:
                                    f"call")
         log(f"launches on the SO meta-training path (3 meta steps): {so_launches}")
         for name in ("hvp_stack_fwd", "hvp_stack_bwd"):
-            if so_launches[name] != 3 * per_step:
+            if so_launches[name] != 3 * so_per_step:
                 raise RuntimeError(f"{name} launched {so_launches[name]} times in 3 SO meta "
-                                   f"steps, not {per_step} a step")
+                                   f"steps, not {so_per_step} a step")
         for name, count in so_launches.items():
             if count == 0:
                 raise RuntimeError(f"{name} never launched on the SO meta-training path")
@@ -2856,39 +2888,8 @@ def main() -> int:
             torch.distributed.destroy_process_group()
         del state, sharded_step, unsharded_step, runs
 
-    # 14. Two ranks on the one card, joined by gloo, through the CLI.
-    def two_ranks(out, *extra):
-        """`cli meta-train --mesh` on two ranks (dp 1 x sp 2) under
-        torch.distributed.run, with `extra` overrides; both ranks' records,
-        checked: the same finite losses, one set of checkpoints, 512 padded
-        nodes (256 a rank)."""
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
-             f"--master_port={distributed.free_port()}", os.path.abspath(__file__),
-             "--mesh-rank", out, *extra],
-            capture_output=True, text=True, timeout=900,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"two-rank meta-train exited {proc.returncode}:\n"
-                               f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(out, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-        for rec in ranks:
-            log(f"rank {rec['rank']}: {rec['stdout'].strip()}; {rec['seconds']:.1f} s; "
-                f"launches {rec['launches']}")
-        losses = [(rec["best_loss"], rec["final_loss"]) for rec in ranks]
-        if losses[0] != losses[1] or not np.isfinite(losses).all():
-            raise RuntimeError(f"the two ranks' losses differ or are not finite: {losses}")
-        meta_files = sorted(os.listdir(os.path.join(out, "meta")))
-        if meta_files != ["ckpt_best", "ckpt_final", "ckpt_last", "meta_log.csv",
-                          "meta_log.jsonl"]:
-            raise RuntimeError(f"two-rank meta-train wrote {meta_files}")
-        if "padded nodes=512" not in ranks[0]["stderr"]:
-            raise RuntimeError("two-rank meta-train: not 512 padded nodes (256 a rank)")
-        return ranks
-
+    # 14. Two ranks on the one card, joined by gloo, through the CLI
+    # (`two_ranks`).
     with Phase("two ranks on one card (gloo, sp 2)"):
         out = os.path.join(out_root, "mesh_sp2")
         os.makedirs(out)
@@ -3691,6 +3692,7 @@ def main() -> int:
                             "call_ms": alone["bwd"][0], "device_ms": alone["bwd"][1],
                             "parts_ms": alone["parts_ms"], "core_launches": alone["core"]}
             del xs, weights
+        tasks_at_path_shapes(torch, dev, n, w_len, hid, lh, n_l)
         # Rows 14 and 16 do row 4's work (x V for row 16), rows 15 and 17 row
         # 5's (its recomputed forward not counted): the same operations and
         # the same bytes in and out.
@@ -4428,17 +4430,17 @@ def main() -> int:
         del p, ct, unsharded_grad, sharded_grad
 
         # (c) The SO main path on a mesh: `cli meta-train --mesh -o
-        # meta.second_order=true`, 1 epoch at MetaConfig() (dp, world 1):
-        # rows 10-11 360 times each.
+        # meta.second_order=true`, 1 epoch at MetaConfig() cut to
+        # SO_INNER_EPOCHS (dp, world 1): rows 10-11 once each an inner step.
         zero_mesh_so_counts()
         so_mesh_log = meta_train("float32", 1, "--mesh", "-o", "meta.second_order=true",
-                                 out="mesh_so")
+                                 "-o", f"meta.inner_epochs={SO_INNER_EPOCHS}", out="mesh_so")
         so_mesh_launches = mesh_so_counts()
         log(f"launches in one SO meta step on the dp mesh: {so_mesh_launches}")
         if (so_mesh_launches["hvp_stack_fwd"], so_mesh_launches["hvp_stack_bwd"]) != (
-                per_step, per_step):
+                so_per_step, so_per_step):
             raise RuntimeError(f"meta-train --mesh SO launched rows 10-11 {so_mesh_launches}, "
-                               f"not {per_step} each")
+                               f"not {so_per_step} each")
         for r in so_mesh_log:
             if not np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all():
                 raise RuntimeError(f"meta-train --mesh SO: non-finite loss {r}")
@@ -4683,14 +4685,15 @@ def main() -> int:
         so_log = meta_train("float32", 2, "-o", "meta.second_order=true", "-o",
                             "meta.epochs_per_dispatch=2", "-o", "meta.inner_epochs=1",
                             out="epochs_so_k2")
-        so_launches = rows_4_13()
+        # Its own name: the kernels line reads phase 9b's `so_launches`.
+        chained_so = rows_4_13()
         so_steps = 2 * meta_cfg.meta_batch * meta_cfg.inner_batches
         log(f"chained SO, float32, 2 epochs in one chunk (1 inner epoch): losses "
             f"{[r['meta_loss'] for r in so_log]}, seconds an epoch "
             f"{[round(r['epoch_seconds'], 3) for r in so_log]}; metric fetches "
-            f"{maml_mod.fetch_metrics.fetches - fetches}; launches {so_launches}  [{card}]")
-        if (so_launches["hvp_stack_fwd"], so_launches["hvp_stack_bwd"]) != (so_steps, so_steps):
-            raise RuntimeError(f"chained SO launched rows 10-11 {so_launches}, not {so_steps}")
+            f"{maml_mod.fetch_metrics.fetches - fetches}; launches {chained_so}  [{card}]")
+        if (chained_so["hvp_stack_fwd"], chained_so["hvp_stack_bwd"]) != (so_steps, so_steps):
+            raise RuntimeError(f"chained SO launched rows 10-11 {chained_so}, not {so_steps}")
         if maml_mod.fetch_metrics.fetches - fetches != 1 or not np.isfinite(
                 [v for r in so_log for v in (r["meta_loss"], *r["per_task_loss"])]).all():
             raise RuntimeError(f"chained SO: {so_log}")
@@ -4710,6 +4713,11 @@ def main() -> int:
         log("two ranks, stgcn on the GSPMD step, 3 epochs in chunks of 2: meta_loss "
             + ", ".join(f"{r['meta_loss']:.6f}" for r in recs) + "; seconds an epoch "
             + ", ".join(f"{r['epoch_seconds']:.2f}" for r in recs) + f"  [{card}]")
+
+    # 24. The wavefront LSTM, the adaptation step's unfolded window batch
+    # and _VBATCH on the dp x sp shardmap step.
+    with Phase("wavefront LSTM, unfolded adaptation batch, _VBATCH on dp x sp"):
+        new_paths = wavefront_vbatch_phase(torch, dev, card, out_root)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -4741,6 +4749,8 @@ def main() -> int:
                                  "host_ms", "enqueue_ms", "from_g2", "profiler_ms", "plan",
                                  "dwh_cublas_ms", "at_512", "train")
                if k in m},
+            # Rows 9, 12, 13, 16 and 17 on phase 24's paths.
+            **({"new_paths": new_paths[name]} if name in new_paths else {}),
         })
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -4755,17 +4765,488 @@ def main() -> int:
     return 0
 
 
+def tasks_at_path_shapes(torch, dev, rows: int, w_len: int, c_in: int, hidden: int,
+                         n_layers: int) -> None:
+    """Rows 16-17 (`lstm_stack_train_tasks`) against their plain version at
+    the shapes phase 24's paths give them: V = 2 tasks of rows // 2 rows,
+    each with its own weights (the dp x sp lockstep at sp 2: a rank's NL
+    rows), and V = 2 windows of `rows` rows sharing one set of weights,
+    expanded with task stride 0 (the unfolded adaptation step: autograd sums
+    their gradients over the windows). The forward and every gradient,
+    masks at rate 0.2 and off, float32 and bfloat16, within TOL; each error
+    printed with the recurrence plans of that shape."""
+    import numpy as np
+
+    from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
+
+    nv, bound = 2, 1.0 / hidden ** 0.5
+    routes = {"kernel": lambda x, w0, wr, b, m, keep, dt: fls.lstm_stack_train_tasks(
+                  x, w0, wr, b, masks=m, keep=keep, compute_dtype=dt),
+              "plain": fls.lstm_stack_tasks_plain}
+    for r, shared in ((rows // 2, False), (rows, True)):
+        draw = np.random.default_rng([r, shared])
+
+        def arr(shape, scale=1.0):
+            return torch.from_numpy((scale * draw.uniform(-1.0, 1.0, size=shape))
+                                    .astype(np.float32)).to(dev)
+
+        x = arr((nv, r, w_len, c_in))
+        weights = [arr((1 if shared else nv, *shape), bound) for shape in (
+            (c_in + hidden, 4 * hidden), (n_layers - 1, 2 * hidden, 4 * hidden),
+            (n_layers, 4 * hidden))]
+        ct = arr((nv, r, hidden))
+        gen = torch.Generator(device=dev).manual_seed(r)
+        what = (f"V=2 x {r} rows, one set of weights at task stride 0" if shared
+                else f"V=2 x {r} rows, weights a task")
+        for dropout in (0.2, 0.0):
+            m = draw_mask(gen, (nv, n_layers - 1, w_len, r, hidden), dropout, dev) if dropout \
+                else None
+            for dt_name, tol in TOL.items():
+                dt = getattr(torch, dt_name)
+                outs = {}
+                for name, route in routes.items():
+                    leaves = [t.detach().clone().requires_grad_(True) for t in (x, *weights)]
+                    ws = leaves[1:]
+                    if shared:
+                        ws = [w.expand(nv, *w.shape[1:]) for w in ws]
+                        if any(w.stride(0) for w in ws):
+                            raise RuntimeError("the shared weights are not at task stride 0")
+                    out = route(leaves[0], *ws, m, 1.0 - dropout, dt)
+                    outs[name] = (out.detach(), torch.autograd.grad(out, leaves, ct))
+                (got, got_g), (ref, ref_g) = outs["kernel"], outs["plain"]
+                torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+                rels = [rel_err(a, b) for a, b in zip(got_g, ref_g)]
+                plans = [plan(hidden, r, dt.itemsize, fls._card_sms(dev), nv)
+                         for plan in (fls.forward_plan, fls.recurrence_plan)]
+                log(f"rows 16-17 {dt_name} {what}, dropout {dropout}: forward max_abs_err "
+                    f"{float((got - ref).abs().max()):.3e} (tol {tol}); gradients (x, wcat0, "
+                    f"wcatr, b2d) max|diff|/max|ref| {max(rels):.3e} (tol {tol}), per input "
+                    f"{[f'{e:.1e}' for e in rels]}; plans (cs, hcp, rb): forward {plans[0]}, "
+                    f"backward {plans[1]}")
+                if max(rels) > tol:
+                    raise RuntimeError(f"rows 16-17 {dt_name} {what}: gradient error "
+                                       f"{max(rels):.3e}")
+
+
+def wavefront_vbatch_phase(torch, dev, card: str, out_root: str) -> dict:
+    """Phase 24, at ModelConfig() float32: (a) the wavefront LSTM, (b) the
+    adaptation step's window batch unfolded under _VBATCH (rows 16-17 with
+    shared weights), (c) _VBATCH on the dp x sp shardmap step (rows 16-17,
+    12-13 and 9 per rank). Returns the launches of rows 9, 12, 13, 16 and 17
+    on paths (b) and (c), each path's counts set to 0 just before it ran."""
+    import numpy as np
+
+    from weatherforecast_stgcn_maml_tpu_torch import cli
+    from weatherforecast_stgcn_maml_tpu_torch.config import (
+        ADAPTATION_REGIONS,
+        META_TRAIN_REGIONS,
+        DataConfig,
+        ExperimentConfig,
+        MetaConfig,
+        ModelConfig,
+        to_dict,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.data.preprocess import pad_nodes, prepare_features
+    from weatherforecast_stgcn_maml_tpu_torch.data.windows import WindowSpec, gather_batch
+    from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
+    from weatherforecast_stgcn_maml_tpu_torch.graph import build_region_graph
+    from weatherforecast_stgcn_maml_tpu_torch.models import hybrid as hybrid_mod
+    from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
+    from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
+        apply_model,
+        draw_masks,
+        init_model,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_gcn_shard as fgs
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_train import gcn_stack_train
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm import fused_lstm_last_hidden
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update
+    from weatherforecast_stgcn_maml_tpu_torch.ops.lstm_scan import lstm_recurrence
+    from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import make_mesh_2d
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_batch_grad
+    from weatherforecast_stgcn_maml_tpu_torch.train.maml import task_batch_grad
+    from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import adaptation_optimizer
+    from weatherforecast_stgcn_maml_tpu_torch.train.supervised import (
+        SupervisedState,
+        make_train_step,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.train.tasks import build_meta_tasks, stage_tasks
+    from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import save_checkpoint
+
+    counted = {"lstm_stack_train": fls.lstm_stack_train,
+               "lstm_stack_split": fls.lstm_stack_split,
+               "lstm_stack_train_tasks": fls.lstm_stack_train_tasks,
+               "lstm_recurrence": lstm_recurrence,
+               "fused_lstm_last_hidden": fused_lstm_last_hidden,
+               "gcn_stack_train": gcn_stack_train,
+               "gcn_shard_layer": fgs.gcn_shard_layer}
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+            if hasattr(fn, "backward_launches"):
+                fn.backward_launches = 0
+        clip_sgd_update.launches = clip_sgd_update.batched_launches = 0
+
+    def counts():
+        out = {}
+        for name, fn in counted.items():
+            out[name] = fn.launches
+            if hasattr(fn, "backward_launches"):
+                out[name + ".backward"] = fn.backward_launches
+        out["clip_sgd_update"] = clip_sgd_update.launches
+        out["clip_sgd_update.batched"] = clip_sgd_update.batched_launches
+        return out
+
+    def lstm_kernel_launches(c):
+        return {k: v for k, v in c.items()
+                if k.startswith(("lstm_stack", "lstm_recurrence", "fused_lstm")) and v}
+
+    wavefront_calls = []
+    real_wavefront = hybrid_mod.lstm_wavefront
+
+    def counted_wavefront(*args, **kwargs):
+        wavefront_calls.append(1)
+        return real_wavefront(*args, **kwargs)
+
+    def run_cli(argv):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise RuntimeError(f"{argv} exited {rc}:\n{err.getvalue()[-3000:]}")
+        return out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+    def gate(what, got, ref, tol):
+        (loss_g, grad_g), (loss_r, grad_r) = got, ref
+        loss_rel = float(((loss_g - loss_r).abs() / loss_r.abs()).max())
+        rels = {k: rel_err(grad_g[k], grad_r[k]) for k in grad_r}
+        worst = max(rels, key=rels.get)
+        log(f"{what}: per-task losses {[round(v, 6) for v in loss_g.tolist()]} vs "
+            f"{[round(v, 6) for v in loss_r.tolist()]} (max rel {loss_rel:.3e}); gradient "
+            f"max|diff|/max|ref| {rels[worst]:.3e} at {worst} (tol {tol})")
+        if loss_rel > tol or rels[worst] > tol:
+            raise RuntimeError(f"{what}: losses {loss_rel:.3e}, {worst} {rels[worst]:.3e}")
+
+    cfg, meta_cfg, data_cfg = ModelConfig(), MetaConfig(), DataConfig()
+    one_epoch = dataclasses.replace(meta_cfg, inner_epochs=1)  # 15 inner steps a task
+    model = init_model(torch.Generator().manual_seed(0), cfg, device=dev)
+    regions = [get_region_data(box, data_cfg.train_years, data_cfg, tag="train",
+                               name=f"region{i}") for i, box in enumerate(META_TRAIN_REGIONS[:2])]
+    micro = stage_tasks([b.task for b in build_meta_tasks(regions, cfg, meta_cfg, data_cfg)], dev)
+
+    def meta_grad(mc, mt, key=11, tasks=2):
+        g = torch.Generator(device=dev).manual_seed(key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = task_batch_grad(model, type(micro)(*(f[:tasks] for f in micro)), g, mc, mt)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) The wavefront LSTM.
+    t_a = time.perf_counter()
+    hybrid_mod.lstm_wavefront = counted_wavefront
+    try:
+        # The FO meta-gradient against the layerwise plain stack on the same
+        # masks (one generator seed), in turns (W, L, L, W) after one
+        # untimed call of each.
+        wf_cfg, layer_cfg = ModelConfig(lstm_wavefront=True), ModelConfig(lstm_kernel="xla")
+        res, secs = {}, {"wavefront": [], "layerwise": []}
+        for mc in (wf_cfg, layer_cfg):  # untimed: each route's first calls
+            meta_grad(mc, one_epoch)
+        for name in ("wavefront", "layerwise", "layerwise", "wavefront"):
+            zero()
+            wavefront_calls.clear()
+            res[name], t = meta_grad(wf_cfg if name == "wavefront" else layer_cfg, one_epoch)
+            secs[name].append(t)
+            if name == "wavefront":
+                wf_counts, wf_n = counts(), len(wavefront_calls)
+        gate(f"FO meta-gradient, model.lstm_wavefront vs the layerwise stack "
+             f"(lstm_kernel=xla), float32, dropout 0.2, 2 tasks x {one_epoch.inner_batches} "
+             f"inner steps", res["wavefront"], res["layerwise"], TOL["float32"])
+        log(f"  FO meta-gradient host clock in turns (W, L, L, W): wavefront "
+            f"{secs['wavefront'][0]:.3f} / {secs['wavefront'][1]:.3f} s, layerwise "
+            f"{secs['layerwise'][0]:.3f} / {secs['layerwise'][1]:.3f} s; wavefront / layerwise "
+            f"{sum(secs['wavefront']) / sum(secs['layerwise']):.3f}  [{card}]")
+        forwards = micro.support_x.shape[0] * (one_epoch.inner_batches + 1)
+        log(f"  wavefront calls {wf_n} (want {forwards}); launches {wf_counts}")
+        if wf_n != forwards or lstm_kernel_launches(wf_counts):
+            raise RuntimeError(f"the wavefront meta-gradient ran {wf_n} wavefronts and the LSTM "
+                               f"kernels {lstm_kernel_launches(wf_counts)}")
+
+        # The SO meta-gradient with the wavefront in the hvp / rof Hessian
+        # transposes against the layerwise ones, the same key.
+        # One task (the phase's cut): its 15 Hessian transposes.
+        for impl in ("hvp", "rof"):
+            so = dataclasses.replace(one_epoch, second_order=True, so_impl=impl)
+            r, t = {}, {}
+            for wf in (True, False):
+                wavefront_calls.clear()
+                r[wf], t[wf] = meta_grad(cfg, dataclasses.replace(so, so_wavefront=wf), tasks=1)
+                if wf and len(wavefront_calls) != one_epoch.inner_batches:
+                    raise RuntimeError(f"so_wavefront {impl}: {len(wavefront_calls)} wavefronts "
+                                       f"for {one_epoch.inner_batches} inner steps")
+            gate(f"SO ({impl}) meta-gradient, so_wavefront vs the layerwise Hessian transpose, "
+                 f"float32, dropout 0.2, 1 task x {one_epoch.inner_batches} inner steps",
+                 r[True], r[False], HVP_TOL["float32"])
+            log(f"  SO ({impl}) host clock: so_wavefront {t[True]:.3f} s, layerwise "
+                f"{t[False]:.3f} s  [{card}]")
+        del res, r
+
+        # The main path: `cli meta-train -o model.lstm_wavefront=true`, one
+        # epoch at MetaConfig(); then a Moscow forecast from its checkpoint
+        # on the card against --device cpu (phase 4's gate).
+        wf_dir = os.path.join(out_root, "wavefront")
+        zero()
+        wavefront_calls.clear()
+        _, _, t = run_cli(["meta-train", "-o", f"out_dir={wf_dir}", "-o", "meta.num_epochs=1",
+                           "-o", "model.lstm_wavefront=true"])
+        with open(os.path.join(wf_dir, "meta", "meta_log.jsonl")) as f:
+            rec = json.loads(f.readline())
+        c = counts()
+        log(f"meta-train -o model.lstm_wavefront=true, 1 epoch: meta_loss "
+            f"{rec['meta_loss']:.6f}, per-task {rec['per_task_loss']}, "
+            f"{rec['epoch_seconds']:.2f} s an epoch ({t:.1f} s the call); wavefront calls "
+            f"{len(wavefront_calls)}; launches {c}  [{card}]")
+        if not np.isfinite([rec["meta_loss"], *rec["per_task_loss"]]).all() or (
+                lstm_kernel_launches(c) or not wavefront_calls):
+            raise RuntimeError(f"meta-train on the wavefront: {rec}, {c}")
+        fc = {}
+        for device in ("cuda", "cpu"):
+            run_cli(["forecast", "--region", "Moscow", "--device", device,
+                     "-o", f"out_dir={wf_dir}", "-o", "model.lstm_wavefront=true"])
+            with open(os.path.join(wf_dir, "forecasts", "Moscow.json")) as f:
+                fc[device] = np.asarray(json.load(f)["mean_forecast"])
+        tol = TOL["float32"]
+        diff = np.abs(fc["cuda"] - fc["cpu"])
+        log(f"forecast Moscow from the wavefront checkpoint, float32: card vs --device cpu "
+            f"max_abs_err {float(diff.max()):.3e}; gate |diff| <= atol + rtol * |ref| with "
+            f"atol {tol}, rtol {tol}: worst |diff| - rtol * |ref| "
+            f"{float((diff - tol * np.abs(fc['cpu'])).max()):.3e}")
+        np.testing.assert_allclose(fc["cuda"], fc["cpu"], rtol=tol, atol=tol)
+    finally:
+        hybrid_mod.lstm_wavefront = real_wavefront
+    log(f"  (a) {time.perf_counter() - t_a:.1f} s")
+
+    # (b) The adaptation step (AdaptConfig(): 2 windows x 512 rows) under
+    # _VBATCH with _ROWFOLD off, against the folded step on the same masks.
+    t_b = time.perf_counter()
+    boxes = dict((name, box) for box, name in ADAPTATION_REGIONS)
+    moscow = get_region_data(boxes["Moscow"], data_cfg.adapt_years, data_cfg, tag="adapt",
+                             name="Moscow")
+    graph = build_region_graph(moscow.lats, moscow.lons, k_neighbors=4)
+    n = graph.padded_nodes
+    a_hat = torch.from_numpy(graph.a_hat).to(dev)
+    node_mask = torch.from_numpy(graph.node_mask).to(dev)
+    koppen = max(moscow.koppen_code, 0)
+    feats, _ = prepare_features(moscow)
+    feats = torch.from_numpy(pad_nodes(feats, n)).to(dev)
+    x, y = gather_batch(feats, [100, 101], WindowSpec(cfg.window, cfg.horizon))
+    masks = draw_masks(cfg, torch.Generator(device=dev).manual_seed(3), x)
+    params = list(model.parameters())
+    names = [k for k, _ in model.named_parameters()]
+    res, route_counts = {}, {}
+    fls._VBATCH = True
+    try:
+        for name, rowfold in (("unfolded", False), ("folded", True)):
+            fls._ROWFOLD = rowfold
+            zero()
+            loss = masked_mse(apply_model(model, a_hat, x, koppen, cfg, train=True, masks=masks),
+                              y, node_mask)
+            grads = torch.autograd.grad(loss, params)
+            res[name] = (loss.detach()[None], dict(zip(names, grads)))
+            route_counts[name] = counts()
+        log(f"  adaptation step launches: unfolded {route_counts['unfolded']}; folded "
+            f"{route_counts['folded']}")
+        gate(f"adaptation step (2 windows x {n} rows), _VBATCH unfolded (rows 16-17, shared "
+             f"weights) vs folded (rows 4-5), float32, dropout 0.2, the same masks: loss and "
+             f"every gradient", res["unfolded"], res["folded"], TOL["float32"])
+        u = route_counts["unfolded"]
+        if (u["lstm_stack_train_tasks"], u["lstm_stack_train_tasks.backward"],
+                u["lstm_stack_train"], u["lstm_stack_train.backward"]) != (1, 1, 0, 0):
+            raise RuntimeError(f"the unfolded adaptation step launched {u}")
+        adapt_step_launches = u
+
+        # One train step of each route, in turns (U, F, F, U).
+        tx, lr0 = adaptation_optimizer("Moscow")
+        tmodel = copy.deepcopy(model)
+        state = SupervisedState(tmodel, tx.init(dict(tmodel.named_parameters())))
+        train_step = make_train_step(cfg, tx)
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        def step_on(rowfold):
+            def fn():
+                nonlocal state
+                fls._ROWFOLD = rowfold
+                state, _ = train_step(state, x, y, a_hat, node_mask, koppen, lr0, g)
+            return fn
+
+        ms = {"unfolded": [], "folded": []}
+        for name in ("unfolded", "folded", "folded", "unfolded"):
+            ms[name].append(host_ms(torch, step_on(name == "folded")))
+        log(f"adaptation train step float32 (2 windows x {n} rows), host clock to a "
+            f"synchronize, median of {REPEATS}, in turns (U, F, F, U): unfolded "
+            f"{ms['unfolded'][0]:.3f} / {ms['unfolded'][1]:.3f} ms, folded {ms['folded'][0]:.3f} "
+            f"/ {ms['folded'][1]:.3f} ms; unfolded / folded "
+            f"{sum(ms['unfolded']) / sum(ms['folded']):.3f}  [{card}]")
+        del state, tmodel
+
+        # `cli adapt` 1 epoch under the flag, from a seeded meta checkpoint.
+        fls._ROWFOLD = False
+        adapt_dir = os.path.join(out_root, "vbatch_adapt")
+        save_checkpoint(os.path.join(adapt_dir, "meta", "ckpt_best"), model.state_dict(),
+                        {"schema": "wfstgcn-meta-v1",
+                         "config": to_dict(ExperimentConfig(model=cfg))})
+        zero()
+        out, _, t = run_cli(["adapt", "--region", "Moscow", "-o", f"out_dir={adapt_dir}",
+                             "-o", "adapt.epochs=1"])
+        c = counts()
+        val_mse = float(out.split("val_mse=")[1].split()[0])
+        log(f"adapt Moscow 1 epoch under _VBATCH: val_mse {val_mse:.6f}, {t:.1f} s; rows 16-17 "
+            f"{c['lstm_stack_train_tasks']} / {c['lstm_stack_train_tasks.backward']} launches, "
+            f"rows 4-5 {c['lstm_stack_train']} / {c['lstm_stack_train.backward']} (1-window "
+            f"batches fold); launches {c}  [{card}]")
+        if not np.isfinite(val_mse) or c["lstm_stack_train_tasks"] == 0 or (
+                c["lstm_stack_train_tasks"] != c["lstm_stack_train_tasks.backward"]):
+            raise RuntimeError(f"adapt under _VBATCH: val_mse {val_mse}, launches {c}")
+        adapt_cli_launches = c
+    finally:
+        fls._VBATCH = fls._ROWFOLD = False
+    log(f"  (b) {time.perf_counter() - t_b:.1f} s")
+
+    # (c) _VBATCH on the dp x sp shardmap step: on a 1 x 1 NCCL mesh the
+    # lockstep meta-gradient against the serial one, dropout 0.2, the same
+    # key, in turns (L, S, S, L) after one untimed call of each; then two
+    # gloo ranks (sp 2) through the CLI.
+    t_c = time.perf_counter()
+    created_group = distributed.ensure_process_group("nccl")
+    grid = make_mesh_2d(1, 1, dev)
+    res, secs, path_counts = {}, {"lockstep": [], "serial": []}, {}
+    try:
+        # The first two untimed: each route's first calls.
+        for name in ("lockstep", "serial", "lockstep", "serial", "serial", "lockstep"):
+            fls._VBATCH = name == "lockstep"
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[name] = make_shardmap_batch_grad(cfg, one_epoch, grid)(model, micro, (13, 0))
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            path_counts[name] = counts()
+    finally:
+        fls._VBATCH = False
+    secs = {k: v[1:] for k, v in secs.items()}
+    if created_group:
+        torch.distributed.destroy_process_group()
+    gate(f"_VBATCH on a 1 x 1 dp x sp mesh: lockstep vs serial shardmap meta-gradient, "
+         f"float32, dropout 0.2, key (13, 0), 2 tasks x {one_epoch.inner_batches} inner steps",
+         res["lockstep"], res["serial"], TOL["float32"])
+    log(f"  host clock in turns (L, S, S, L): lockstep {secs['lockstep'][0]:.3f} / "
+        f"{secs['lockstep'][1]:.3f} s, serial {secs['serial'][0]:.3f} / {secs['serial'][1]:.3f}"
+        f" s; lockstep / serial {sum(secs['lockstep']) / sum(secs['serial']):.3f}  [{card}]")
+    lock = path_counts["lockstep"]
+    fwd = one_epoch.inner_batches + 1
+    want = {"lstm_stack_train_tasks": fwd, "lstm_stack_train_tasks.backward": fwd,
+            "clip_sgd_update.batched": one_epoch.inner_batches, "clip_sgd_update": 0,
+            "lstm_stack_train": 0, "lstm_stack_train.backward": 0,
+            "gcn_shard_layer": cfg.gcn_layers * 2 * fwd,
+            "gcn_shard_layer.backward": cfg.gcn_layers * 2 * fwd}
+    got = {k: lock[k] for k in want}
+    log(f"  lockstep launches {lock}; serial {path_counts['serial']}")
+    if got != want:
+        raise RuntimeError(f"the dp x sp lockstep meta-gradient launched {got}, not {want}")
+    out = os.path.join(out_root, "mesh_sp2_vbatch")
+    os.makedirs(out)
+    ranks = two_ranks(out, "--vbatch", "-o", "meta.inner_epochs=1")
+    per_rank = meta_cfg.meta_batch // 2 * (meta_cfg.inner_batches + 1)  # 2 micro-batches, V = 2
+    for rec in ranks:
+        c = rec["launches"]
+        got = (c["lstm_stack_train_tasks"], c["lstm_stack_train_tasks.backward"],
+               c["clip_sgd_update.batched"], c["lstm_stack_train"], c["clip_sgd_update"])
+        want = (per_rank, per_rank, meta_cfg.meta_batch // 2 * meta_cfg.inner_batches, 0, 0)
+        if got != want:
+            raise RuntimeError(f"_VBATCH rank {rec['rank']} launched rows 16, 17, 9, 4, 8 {got}, "
+                               f"not {want}")
+    with open(os.path.join(out, "meta", "meta_log.jsonl")) as f:
+        rec = json.loads(f.readline())
+    log(f"two ranks under _VBATCH (dp 1 x sp 2, 256 rows each, gloo on one card), 1 inner "
+        f"epoch: meta_loss {rec['meta_loss']:.6f}, tasks {rec['task_indices']}, "
+        f"{rec['epoch_seconds']:.2f} s an epoch; rows 16-17 {per_rank} launches a rank  "
+        f"[{card}]")
+    log(f"  (c) {time.perf_counter() - t_c:.1f} s")
+    return {name: {"adaptation step (b)": adapt_step_launches.get(key, 0),
+                   "adapt CLI epoch (b)": adapt_cli_launches.get(key, 0),
+                   "dp x sp lockstep, 2 tasks (c)": lock[key],
+                   "two gloo ranks, a rank (c)": ranks[0]["launches"].get(rank_key)}
+            for name, key, rank_key in (
+                ("clip_sgd_update.batched", "clip_sgd_update.batched", "clip_sgd_update.batched"),
+                ("gcn_shard_layer", "gcn_shard_layer", "gcn_shard_layer"),
+                ("gcn_shard_layer.backward", "gcn_shard_layer.backward",
+                 "gcn_shard_layer.backward"),
+                ("lstm_stack_train_tasks", "lstm_stack_train_tasks", "lstm_stack_train_tasks"),
+                ("lstm_stack_train_tasks.backward", "lstm_stack_train_tasks.backward",
+                 "lstm_stack_train_tasks.backward"))}
+
+
+def two_ranks(out, *extra):
+    """`cli meta-train --mesh` on two ranks (dp 1 x sp 2) on card 0, joined
+    by gloo, under torch.distributed.run (`mesh_rank`), with `extra`
+    arguments (`--vbatch` first, then overrides); both ranks' records,
+    checked: the same finite losses, one set of checkpoints, 512 padded
+    nodes (256 a rank)."""
+    import numpy as np
+
+    from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
+         f"--master_port={distributed.free_port()}", os.path.abspath(__file__),
+         "--mesh-rank", out, *extra],
+        capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"two-rank meta-train exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for rec in ranks:
+        log(f"rank {rec['rank']}: {rec['stdout'].strip()}; {rec['seconds']:.1f} s; "
+            f"launches {rec['launches']}")
+    losses = [(rec["best_loss"], rec["final_loss"]) for rec in ranks]
+    if losses[0] != losses[1] or not np.isfinite(losses).all():
+        raise RuntimeError(f"the two ranks' losses differ or are not finite: {losses}")
+    meta_files = sorted(os.listdir(os.path.join(out, "meta")))
+    if meta_files != ["ckpt_best", "ckpt_final", "ckpt_last", "meta_log.csv",
+                      "meta_log.jsonl"]:
+        raise RuntimeError(f"two-rank meta-train wrote {meta_files}")
+    if "padded nodes=512" not in ranks[0]["stderr"]:
+        raise RuntimeError("two-rank meta-train: not 512 padded nodes (256 a rank)")
+    return ranks
+
+
 def mesh_rank(out: str, extra: list[str]) -> int:
-    """Phases 14, 22 and 23's rank: `cli meta-train --mesh` on card 0 with gloo
-    (dp 1 x sp 2, 1 epoch, the `extra` overrides), then this rank's stdout,
-    log, launch counts and time into OUT/rank<r>.json."""
+    """Phases 14, 22, 23 and 24's rank: `cli meta-train --mesh` on card 0 with
+    gloo (dp 1 x sp 2, 1 epoch, the `extra` overrides; a leading `--vbatch`
+    sets `ops.fused_lstm_stack._VBATCH`), then this rank's stdout, log,
+    launch counts and time into OUT/rank<r>.json."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from weatherforecast_stgcn_maml_tpu_torch import cli
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_shard import gcn_shard_layer
     from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_hvp import (
         hvp_stack_bwd,
         hvp_stack_fwd,
     )
+    from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import clip_sgd_update
+
+    if extra[:1] == ["--vbatch"]:
+        fls._VBATCH, extra = True, extra[1:]
 
     argv = ["meta-train", "--mesh", "--device", "cuda:0",
             "-o", "mesh.spatial_devices=2", "-o", "meta.num_epochs=1", "-o", f"out_dir={out}",
@@ -4785,7 +5266,13 @@ def mesh_rank(out: str, extra: list[str]) -> int:
                    "launches": {"gcn_shard_layer": gcn_shard_layer.launches,
                                 "gcn_shard_layer.backward": gcn_shard_layer.backward_launches,
                                 "hvp_stack_fwd": hvp_stack_fwd.launches,
-                                "hvp_stack_bwd": hvp_stack_bwd.launches}},
+                                "hvp_stack_bwd": hvp_stack_bwd.launches,
+                                "lstm_stack_train_tasks": fls.lstm_stack_train_tasks.launches,
+                                "lstm_stack_train_tasks.backward":
+                                    fls.lstm_stack_train_tasks.backward_launches,
+                                "lstm_stack_train": fls.lstm_stack_train.launches,
+                                "clip_sgd_update.batched": clip_sgd_update.batched_launches,
+                                "clip_sgd_update": clip_sgd_update.launches}},
                   f)
     return rc
 

@@ -35,6 +35,8 @@ from weatherforecast_stgcn_maml_tpu_torch import cli
 from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
 from weatherforecast_stgcn_maml_tpu_torch.engines import adapt
+from weatherforecast_stgcn_maml_tpu_torch.models import hybrid as port_hybrid
+from weatherforecast_stgcn_maml_tpu_torch.models.lstm import lstm_wavefront
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
 from weatherforecast_stgcn_maml_tpu_torch.train import optimizers
 from weatherforecast_stgcn_maml_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -261,7 +263,8 @@ def test_cli_adapt_then_validate_then_pipeline(base_ckpt, tmp_path):
 
 
 # Each case keeps the id it had beside the plot refusal (argv1, now
-# test_cli_pipeline_writes_plots).
+# test_cli_pipeline_writes_plots) and the wavefront's (argv5, now
+# test_cli_adapt_and_pipeline_on_the_wavefront).
 @pytest.mark.parametrize("argv, error, match", [
     pytest.param(["adapt", "--region", "Moscow", "-o", "data.root=/data/era5"],
                  NotImplementedError, "ERA5", id="argv0-NotImplementedError-ERA5"),
@@ -270,13 +273,28 @@ def test_cli_adapt_then_validate_then_pipeline(base_ckpt, tmp_path):
     pytest.param(["pipeline", "--regions", "Atlantis", "--no-plots"], SystemExit,
                  "unknown region", id="argv3-SystemExit-unknown region"),
     pytest.param(["adapt"], SystemExit, "--region NAME", id="argv4-SystemExit---region NAME"),
-    pytest.param(["adapt", "--region", "Moscow", "-o", "model.lstm_wavefront=true"],
-                 NotImplementedError, "not ported", id="argv5-NotImplementedError-not ported"),
 ])
 def test_cli_pipeline_and_adapt_refusals(base_ckpt, tmp_path, argv, error, match):
     with pytest.raises(error, match=match):
         _cli(*argv, "--device", "cpu", *base_ckpt)
     assert not os.path.exists(tmp_path / "adapted")
+
+
+def test_cli_adapt_and_pipeline_on_the_wavefront(base_ckpt, tmp_path, monkeypatch):
+    """`adapt` and `pipeline` with `-o model.lstm_wavefront=true` run their
+    train and eval forwards through the wavefront LSTM and report finite
+    numbers."""
+    calls = []
+    monkeypatch.setattr(port_hybrid, "lstm_wavefront",
+                        lambda *a, **k: calls.append(1) or lstm_wavefront(*a, **k))
+    wf = ["-o", "model.lstm_wavefront=true"]
+    rc, out, _ = _cli("adapt", "--region", "Moscow", "--device", "cpu", *base_ckpt, *wf)
+    assert rc == 0 and calls
+    assert np.isfinite(float(out.split("val_mse=")[1].split()[0]))
+    calls.clear()
+    rc, _, err = _cli("pipeline", "--regions", "NewYork", "--no-plots", "--device", "cpu",
+                      *base_ckpt, *wf)
+    assert rc == 0 and "[adapt:NewYork] saved" in err and calls
 
 
 def test_cli_pipeline_writes_plots(base_ckpt, tmp_path):

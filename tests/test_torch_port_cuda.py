@@ -908,6 +908,48 @@ def test_lstm_tasks_kernels_match_plain(dev, dtype, nv, rows, layers, dropout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,layers", [(2, 4), (3, 1)])
+def test_lstm_tasks_kernels_with_shared_weights(dev, dtype, nv, layers):
+    """Rows 16-17 with one set of weights broadcast over V windows (task
+    stride 0, as the adaptation step's unfolded window batch passes them):
+    the forward bitwise that of the same weights copied V times, and the
+    weights' gradients (summed over V through the broadcast) equal to the
+    copies' gradients summed over V; both against the plain version. No
+    weight is copied a task: the C entries read the stride-0 weights."""
+    w0, wr, b2d = (w[:1] for w in _task_weights(dev, 1, 128, 128, layers, 10))
+    x = torch.from_numpy(
+        np.random.default_rng(6).normal(size=(nv, 512, 24, 128)).astype(np.float32)).to(dev)
+    masks = (draw_mask(torch.Generator(device=dev).manual_seed(4),
+                       (nv, layers - 1, 24, 512, 128), 0.2, dev) if layers > 1 else None)
+    fn = fused_lstm_stack.lstm_stack_train_tasks
+
+    # One layer's wcatr is empty and takes no gradient.
+    inputs = [x, w0, b2d, *([wr] if layers > 1 else [])]
+
+    def run(stack, spread):
+        def call(x, w0, b, *wr_):
+            return stack(x, *(spread(w) for w in (w0, *(wr_ or [wr]), b)))
+        return _fwd_bwd(call, inputs, [])
+
+    def kernels(x, w0, wr_, b):
+        return fn(x, w0, wr_, b, masks=masks, keep=0.8, compute_dtype=dtype)
+
+    def plain(x, w0, wr_, b):
+        return fused_lstm_stack.lstm_stack_tasks_plain(x, w0, wr_, b, masks, 0.8, dtype)
+
+    shared, shared_g = run(kernels, lambda w: w.expand(nv, *w.shape[1:]))
+    copied, copied_g = run(kernels, lambda w: w.repeat(nv, *[1] * (w.dim() - 1)))
+    torch.testing.assert_close(shared, copied, rtol=0, atol=0)
+    for i, (g, r) in enumerate(zip(shared_g, copied_g)):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-6, msg=str(i))
+    ref, ref_g = run(plain, lambda w: w.expand(nv, *w.shape[1:]))
+    torch.testing.assert_close(shared, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    for i, (g, r) in enumerate(zip(shared_g, ref_g)):
+        assert _rel(g, r) <= TOL[dtype], (i, _rel(g, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,layers", [(100, 3), (3000, 3), (5000, 3), (100, 1)])
 @pytest.mark.parametrize("dropout", [0.0, 0.2])
 def test_lstm_split_kernels_match_plain(dev, dtype, rows, layers, dropout):

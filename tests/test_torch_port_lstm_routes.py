@@ -338,11 +338,19 @@ def test_hybrid_route_matches_jax_float64(route, monkeypatch):
         np.testing.assert_allclose(p.grad.numpy(), ref_sd[name].numpy(), err_msg=name, **F64)
 
 
-def test_lstm_wavefront_still_refused():
-    tmc = tcfg.ModelConfig(**SMALL, lstm_wavefront=True)
+def test_lstm_wavefront_serves_as_the_layerwise_stack():
+    """`model.lstm_wavefront` in eval mode (forecast, validate) runs the
+    wavefront LSTM whatever `lstm_kernel` says: the same forecast as the
+    plain layerwise stack, float64, 1e-12."""
+    tmc = tcfg.ModelConfig(**SMALL, lstm_wavefront=True, lstm_kernel="pallas")
     model = init_model(torch.Generator().manual_seed(0), tmc).double()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        apply_model(model, torch.eye(128).double(), torch.zeros((6, 128, 16)).double(), 0, tmc)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(6, 128, 16)))
+    a_hat = torch.from_numpy(_a_hat()).double()
+    with torch.no_grad():
+        got = apply_model(model, a_hat, x, 2, tmc)
+        ref = apply_model(model, a_hat, x, 2, dataclasses.replace(tmc, lstm_wavefront=False,
+                                                                  lstm_kernel="xla"))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12, atol=1e-14)
 
 
 def test_plain_route_pins_every_lstm_kernel():

@@ -311,19 +311,47 @@ def test_chained_meta_step_is_k_single_steps(family):
     assert lr_k.shape == (3,) and per_task_k.dtype == np.float64
 
 
+def _meta_step_once(model_kw, meta_kw):
+    """One meta step of two tasks at MODEL with dropout 0.2 at every site,
+    seeded weights and a seeded generator: (per-task losses, the
+    parameters after it)."""
+    mc = tcfg.ModelConfig(**{**MODEL, "gcn_dropout": 0.2, "lstm_dropout": 0.2, **model_kw})
+    meta = tcfg.MetaConfig(**{**META, "inner_epochs": 1, **meta_kw})
+    regions = [synthetic_region_for_box((10.0 + i, 10.5 + i, 20.0, 20.5), num_timesteps=40,
+                                        seed=i) for i in range(2)]
+    tasks = stack_tasks([b.task for b in build_meta_tasks(regions, mc, meta,
+                                                          tcfg.DataConfig())])
+    tasks = type(tasks)(*(f.double() if f.is_floating_point() else f for f in tasks))
+    state = maml.init_meta_state(torch.Generator().manual_seed(0), mc, meta)
+    state, m = maml.make_meta_step(mc, meta)(state, tasks, torch.Generator().manual_seed(4))
+    return m["per_task_loss"], dict(state.params.named_parameters())
+
+
+def _assert_same_step(got, ref):
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-10, atol=1e-12)
+    for name, p in got[1].items():
+        torch.testing.assert_close(p, ref[1][name], rtol=1e-10, atol=1e-12, msg=name)
+
+
 @pytest.mark.parametrize("override", [
     dict(second_order=True, so_impl="hvp", so_wavefront=True),
 ])
-def test_unported_meta_settings_raise(override):
-    cfg = tcfg.MetaConfig(**{**META, **override})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        maml.make_meta_step(tcfg.ModelConfig(**MODEL), cfg)
+def test_so_wavefront_meta_step_matches_layerwise(override):
+    """`meta.so_wavefront` (second order, hvp, dropout 0.2, two LSTM
+    layers): the wavefront in the Hessian transposes takes the meta step
+    the layerwise Hessian transposes take on the same masks (float64,
+    1e-10)."""
+    _assert_same_step(_meta_step_once({}, override),
+                      _meta_step_once({}, {**override, "so_wavefront": False}))
 
 
 @pytest.mark.parametrize("override", [dict(lstm_wavefront=True)])
-def test_unported_model_routes_raise_in_meta_step(override):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        maml.make_meta_step(tcfg.ModelConfig(**{**MODEL, **override}), tcfg.MetaConfig(**META))
+def test_lstm_wavefront_meta_step_matches_layerwise(override):
+    """`model.lstm_wavefront` (first order, dropout 0.2, two LSTM layers):
+    the meta step the plain layerwise stack takes on the same masks
+    (float64, 1e-10)."""
+    _assert_same_step(_meta_step_once(override, {}),
+                      _meta_step_once(dict(lstm_kernel="xla"), {}))
 
 
 def test_meta_config_ignores_jax_only_knobs():

@@ -21,10 +21,13 @@ computes the same exact meta-gradient; "hvp" compiles fastest on the CPU).
   * 4 ranks, dp 2 x sp 2: the same second-order cases against JAX's
     `make_shardmap_meta_step_2d` (JAX's own case: meta_batch 2, grad_accum
     1, inner_epochs 1, inner_batches 2), parameters bitwise equal on every
-    rank; then on sp 4 the node-sharded encoder's torch.func.jvp and its
-    double backward (create_graph=True) against the unsharded encoder
-    (float64, 1e-10): a collective whose backward leaves no graph drops the
-    second-order terms that cross the gathers.
+    rank; under `_VBATCH` the lockstep shardmap step against the serial one
+    with dropout on (1e-10), and the shardmap step with both wavefront flags
+    against the step without them (bitwise: it ignores them); then on sp 4
+    the node-sharded encoder's torch.func.jvp and its double backward
+    (create_graph=True) against the unsharded encoder (float64, 1e-10): a
+    collective whose backward leaves no graph drops the second-order terms
+    that cross the gathers.
 """
 
 import copy
@@ -65,9 +68,17 @@ WORLDS = {"dp": 2, "grid": 4}
 # of the plain gradient).
 GSPMD_CASES = (("stgcn-fo", "stgcn", META), ("stgcn-so", "stgcn", META_GRID),
                ("hybrid-fo", "hybrid", META))
-# Dropout on at every site of each family: (case, family, second order).
-DROPOUT_CASES = (("stgcn-fo", "stgcn", False), ("stgcn-so", "stgcn", True),
-                 ("hybrid-fo", "hybrid", False), ("hybrid-so", "hybrid", True))
+# Dropout on at every site of each family: (case, family, model flags, meta
+# flags). The wavefront cases run `model.lstm_wavefront` in every forward
+# and `meta.so_wavefront` in the hvp Hessian transposes: the GSPMD step runs
+# them as the JAX package's does (its step is models/hybrid.py's).
+DROPOUT_CASES = (("stgcn-fo", "stgcn", {}, {}),
+                 ("stgcn-so", "stgcn", {}, dict(second_order=True)),
+                 ("hybrid-fo", "hybrid", {}, {}),
+                 ("hybrid-so", "hybrid", {}, dict(second_order=True)),
+                 ("hybrid-wavefront", "hybrid", dict(lstm_wavefront=True), {}),
+                 ("hybrid-so-wavefront", "hybrid", {},
+                  dict(second_order=True, so_impl="hvp", so_wavefront=True)))
 CHAIN = [[0, 1, 2, 3], [3, 1, 0, 2]]  # two epochs' task indices
 TOL_JAX = dict(rtol=1e-8, atol=1e-11)
 # Parameters after the AdamW updates: the two packages' float32
@@ -171,6 +182,50 @@ def _dp_rank(out_dir, rank):
     return res
 
 
+def _shardmap_cases(out_dir, mesh):
+    """dp 2 x sp 2, the shardmap step, dropout on at every site (two LSTM
+    layers, query windows in train mode), seeded weights, one key: under
+    `_VBATCH` (each rank's two tasks in lockstep, V = 2 at its 64 rows)
+    against the serial step; with `model.lstm_wavefront` and
+    `meta.so_wavefront` against the step without them (the shardmap step
+    ignores both, as the JAX package's does)."""
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
+    from weatherforecast_stgcn_maml_tpu_torch.parallel import meta_sp
+    from weatherforecast_stgcn_maml_tpu_torch.train.maml import MamlState, init_meta_state
+
+    calls = []
+    sums = meta_sp.lockstep_grad_sums
+
+    def counted(params, tasks, gens, *args):
+        calls.append(tasks.support_x.shape[0])
+        return sums(params, tasks, gens, *args)
+
+    meta_sp.lockstep_grad_sums = counted
+    tasks, _ = _load_inputs(out_dir, 4)
+    drop = dict(MODEL, gcn_dropout=0.3, lstm_dropout=0.3, lstm_layers=2, lstm_kernel="auto")
+    drop_meta = dict(META_VBATCH, query_train_mode=True)
+    start = init_meta_state(torch.Generator().manual_seed(0), tcfg.ModelConfig(**drop),
+                            tcfg.MetaConfig(**drop_meta))
+    out = {}
+    for name, flag, model_kw, meta_kw in (
+            ("lockstep", True, {}, {}),
+            ("serial", False, {}, {}),
+            ("so", False, {}, dict(second_order=True, so_impl="hvp")),
+            ("so_wavefront", False, dict(lstm_wavefront=True),
+             dict(second_order=True, so_impl="hvp", so_wavefront=True))):
+        fused_lstm_stack._VBATCH = flag
+        try:
+            st = MamlState(copy.deepcopy(start.params), start.opt_state, 0)
+            s, m = meta_sp.make_shardmap_meta_step_2d(
+                tcfg.ModelConfig(**drop, **model_kw), tcfg.MetaConfig(**drop_meta, **meta_kw),
+                mesh)(st, tasks, (5,))
+        finally:
+            fused_lstm_stack._VBATCH = False
+        out[name] = (m["per_task_loss"].numpy(), _params(s), list(calls))
+        calls.clear()
+    return {"shardmap": out}
+
+
 def _grid_rank(out_dir, rank):
     """dp 2 x sp 2: the second-order steps; sp 4: the encoder's jvp and
     double backward against the unsharded encoder."""
@@ -186,6 +241,7 @@ def _grid_rank(out_dir, rank):
     assert (mesh.dp, mesh.sp, mesh.dp_index, mesh.sp_index) == (2, 2, rank // 2, rank % 2)
     res = {"so": _so_steps(make_shardmap_meta_step_2d, mesh, out_dir, META_GRID)}
     res.update(_gspmd_cases(out_dir, mesh))
+    res.update(_shardmap_cases(out_dir, mesh))
 
     sp4 = make_mesh_2d(1, 4, torch.device("cpu"))
     cfg = tcfg.ModelConfig(hidden_channels=8, gcn_layers=3, gcn_dropout=0.3,
@@ -263,7 +319,16 @@ def _gspmd_cases(out_dir, mesh):
     )
     from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import MetaOptimizer
 
+    from weatherforecast_stgcn_maml_tpu_torch.models import hybrid
+    from weatherforecast_stgcn_maml_tpu_torch.parallel import spatial
+
     res = {"gspmd": {}, "gspmd_dropout": {}, "chained_2d": {}}
+    # The wavefront's calls on each route: the node-local forward (the
+    # GSPMD step) and the model (the dp step).
+    wavefronts = {"gspmd": [], "dp": []}
+    for module, name in ((spatial, "gspmd"), (hybrid, "dp")):
+        module.lstm_wavefront = (lambda fn, calls: lambda *a, **k: calls.append(1) or fn(*a, **k))(
+            module.lstm_wavefront, wavefronts[name])
     for case, family, meta_kw in GSPMD_CASES:
         tasks, state = _load_inputs(out_dir, meta_kw["meta_batch"])
         mc = tcfg.ModelConfig(**dict(MODEL, family=family))
@@ -273,18 +338,19 @@ def _gspmd_cases(out_dir, mesh):
 
     dp4 = make_mesh_2d(4, 1, torch.device("cpu"), axis_names=("dp",))
     tasks, _ = _load_inputs(out_dir, 4)
-    for case, family, so in DROPOUT_CASES:
+    for case, family, model_kw, meta_kw in DROPOUT_CASES:
         mc = tcfg.ModelConfig(**dict(MODEL, family=family, gcn_dropout=0.3, lstm_dropout=0.3,
-                                     lstm_layers=2))
-        meta = tcfg.MetaConfig(**dict(META, grad_accum=1, second_order=so,
-                                      query_train_mode=True))
+                                     lstm_layers=2, **model_kw))
+        meta = tcfg.MetaConfig(**dict(META, grad_accum=1, query_train_mode=True, **meta_kw))
         start = init_meta_state(torch.Generator().manual_seed(0), mc, meta)
         out = {}
         for name, make, mesh_ in (("gspmd", make_parallel_meta_step_2d, mesh),
                                   ("dp", make_parallel_meta_step, dp4)):
+            calls = wavefronts[name]
+            calls.clear()
             st = MamlState(copy.deepcopy(start.params), start.opt_state, 0)
             s, m = make(*pinned_configs(mc, meta), mesh_)(st, tasks, (5,))
-            out[name] = (m["per_task_loss"].numpy(), _params(s))
+            out[name] = (m["per_task_loss"].numpy(), _params(s), len(calls))
         res["gspmd_dropout"][case] = out
 
     # Two chained epochs against two single steps, dropout on (stgcn on the
@@ -586,18 +652,55 @@ def test_gspmd_step_matches_jax_float64(ranks, case):
     _assert_params(first[1], ref_params, **TOL_JAX_PARAMS)
 
 
-@pytest.mark.parametrize("case", [c for c, _, _ in DROPOUT_CASES])
+@pytest.mark.parametrize("case", [c for c, *_ in DROPOUT_CASES])
 def test_gspmd_step_matches_dp_step_with_dropout(ranks, case):
     """Dropout on at every site (stgcn after every conv; the hybrid's GCN,
     two LSTM layers and head; query windows in train mode): the GSPMD step
     on dp 2 x sp 2 equals the dp step on dp 4 with the same key (1e-10),
     each task's full-N masks drawn from its dp stream and cut to the rank's
-    rows."""
+    rows. The wavefront cases run the wavefront on both steps (a rank's
+    calls: 3 forwards a task, or one a Hessian transpose), the others
+    never."""
     results, _ = ranks
+    wavefront = "wavefront" in case
     for res in results["grid"]:
         got, ref = (res["gspmd_dropout"][case][k] for k in ("gspmd", "dp"))
         np.testing.assert_allclose(got[0], ref[0], rtol=1e-10, atol=1e-12)
         _assert_params(got[1], ref[1], rtol=1e-10, atol=1e-12)
+        # A GSPMD rank runs 2 tasks, a dp 4 rank one.
+        want = (6, 3) if case == "hybrid-wavefront" else (4, 2) if wavefront else (0, 0)
+        assert (got[2], ref[2]) == want, case
+
+
+def test_shardmap_lockstep_step_matches_serial_with_dropout(ranks):
+    """dp 2 x sp 2 under `_VBATCH`: each rank's two tasks run in lockstep
+    at its 64 node rows (one `lockstep_grad_sums` call an update, V = 2;
+    rows 16-17 and 9 on a card), the stacked inner gradients summed over
+    sp before each task's clip: the same step as the serial shardmap step
+    with dropout on at every site and the same key (float64, 1e-10), and
+    every rank's parameters bitwise equal. The serial step never runs in
+    lockstep."""
+    results, _ = ranks
+    first = results["grid"][0]["shardmap"]["lockstep"]
+    for res in results["grid"]:
+        lock, serial = res["shardmap"]["lockstep"], res["shardmap"]["serial"]
+        assert lock[2] == [2] and serial[2] == []
+        np.testing.assert_allclose(lock[0], serial[0], rtol=1e-10, atol=1e-12)
+        _assert_params(lock[1], serial[1], rtol=1e-10, atol=1e-12)
+        for name, p in lock[1].items():
+            torch.testing.assert_close(p, first[1][name], rtol=0, atol=0)
+
+
+def test_shardmap_step_ignores_the_wavefront_flags(ranks):
+    """The shardmap step's LSTM is the node-local forward's, as in the JAX
+    package: with `model.lstm_wavefront` and `meta.so_wavefront` (second
+    order, hvp, dropout on) it runs without raising and takes bitwise the
+    step it takes without them."""
+    results, _ = ranks
+    for res in results["grid"]:
+        got, ref = res["shardmap"]["so_wavefront"], res["shardmap"]["so"]
+        np.testing.assert_array_equal(got[0], ref[0])
+        _assert_params(got[1], ref[1], rtol=0, atol=0)
 
 
 def test_chained_dp_step_matches_jax_float64(ranks):

@@ -168,12 +168,16 @@ def test_apply_hybrid_routes_match_jax(route):
 
 
 @pytest.mark.parametrize("route", [dict(lstm_wavefront=True)])
-def test_unported_routes_raise(route):
-    _, model = _models("hybrid")
+def test_predict_on_the_wavefront_matches_jax(route):
+    """`make_predict` over a batch of 3 windows with `model.lstm_wavefront`
+    (the serving forward of `forecast` and `validate`) against JAX's, float32."""
+    jparams, model = _models("hybrid", seed=1)
     a_hat, x = _batch()
-    with pytest.raises(NotImplementedError):
-        apply_model(model, torch.from_numpy(a_hat), torch.from_numpy(x), 0,
-                    tcfg.ModelConfig(**SMALL, **route))
+    ref = jax_make_predict(jcfg.ModelConfig(**SMALL, **route))(
+        jparams, jnp.asarray(x), jnp.asarray(a_hat), jnp.int32(4))
+    got = make_predict(tcfg.ModelConfig(**SMALL, **route))(
+        model, torch.from_numpy(x), torch.from_numpy(a_hat), 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL["float32"])
 
 
 def test_convert_round_trip_with_split_lstm_bias():

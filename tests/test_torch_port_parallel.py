@@ -55,6 +55,7 @@ from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import make_parallel_meta_step
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_gspmd import make_parallel_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_meta_step_2d
+from weatherforecast_stgcn_maml_tpu_torch.train import maml
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task
 
 torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-side workers
@@ -560,20 +561,17 @@ def test_mesh_steps_refuse_what_they_do_not_run(monkeypatch):
                                    _fake_mesh(2, 2, 0))
     with pytest.raises(ValueError, match="mesh size"):
         make_parallel_meta_step(mc, meta, _fake_mesh(4, 1, 0))
-    # Under `_VBATCH` the dp x sp step refuses, naming the flag; the dp
-    # step runs a rank's tasks in lockstep.
+    # Under `_VBATCH` both steps build: each runs a rank's tasks in lockstep.
     monkeypatch.setattr(fused_lstm_stack, "_VBATCH", True)
-    with pytest.raises(NotImplementedError, match="_VBATCH.*dp x sp"):
-        make_shardmap_meta_step_2d(mc, meta, _fake_mesh(2, 2, 0))
+    make_shardmap_meta_step_2d(mc, meta, _fake_mesh(2, 2, 0))
     make_parallel_meta_step(mc, meta, _fake_mesh(2, 1, 0))
 
 
 def test_engine_picks_the_dp_x_sp_step(monkeypatch):
     """`mesh.sp_impl` resolved for the family: "auto" takes the shardmap
     step for the hybrid and the GSPMD step for stgcn; a 1-D mesh takes
-    neither; an unknown value raises. Under `_VBATCH` only the shardmap
-    step refuses; the GSPMD step builds (its dp axis must divide the tasks
-    an update)."""
+    neither; an unknown value raises. Under `_VBATCH` the GSPMD step builds
+    too (its dp axis must divide the tasks an update)."""
     grid = _fake_mesh(1, 2, 0)
 
     def cfg(*overrides):
@@ -596,12 +594,28 @@ def test_engine_picks_the_dp_x_sp_step(monkeypatch):
 @pytest.mark.parametrize("override,match", [
     ([], "_VBATCH"),  # with ops.fused_lstm_stack._VBATCH set
 ])
-def test_engine_refuses_unported_mesh_settings(tmp_path, monkeypatch, override, match):
+def test_engine_takes_vbatch_on_the_dp_x_sp_mesh(monkeypatch, override, match):
+    """Under `_VBATCH` the engine's dp x sp mesh takes the shardmap step,
+    which runs a rank's tasks in lockstep where a plan holds them at its
+    node rows (`lockstep_route` on the rank's share of the batch: V = 2
+    tasks of 64 rows on dp 2 x sp 2 here), else one after another,
+    counted."""
     if match == "_VBATCH":
         monkeypatch.setattr(fused_lstm_stack, "_VBATCH", True)
-    cfg = tcfg.apply_overrides(tcfg.ExperimentConfig(), override + [f"out_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match=match):
-        meta_train.run_meta_training(cfg, mesh=_fake_mesh(1, 2, 0), log_cb=lambda *a: None)
+    cfg = tcfg.apply_overrides(tcfg.ExperimentConfig(), override)
+    grid = _fake_mesh(2, 2, 1)
+    assert meta_train._check_mesh(cfg, grid) == "shardmap"
+    make_shardmap_meta_step_2d(cfg.model, cfg.meta, grid)
+    batch = Task(*(torch.zeros((4, *shape)) for shape in (
+        (2, 24, 128, 16), (2, 8, 128, 12), (1, 24, 128, 16), (1, 8, 128, 12), (),
+        (128, 128), (128,))))
+    mine = shard_task_batch_2d(batch, grid)
+    assert mine.support_x.shape[:1] + mine.support_x.shape[3:4] == (2, 64)
+    assert maml.lockstep_route(cfg.model, cfg.meta, mine)
+    before = maml.lockstep_route.serial_fallbacks
+    wide = dataclasses.replace(cfg.model, lstm_hidden=320)  # no plan at float32 H 320
+    assert not maml.lockstep_route(wide, cfg.meta, mine)
+    assert maml.lockstep_route.serial_fallbacks == before + 1
 
 
 if __name__ == "__main__":

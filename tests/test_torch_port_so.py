@@ -45,6 +45,8 @@ from weatherforecast_stgcn_maml_tpu.train.tasks import build_meta_tasks as jax_b
 from weatherforecast_stgcn_maml_tpu.train.tasks import stack_tasks as jax_stack_tasks
 from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.data.synthetic import synthetic_region_for_box
+from weatherforecast_stgcn_maml_tpu_torch.models import hybrid as port_hybrid
+from weatherforecast_stgcn_maml_tpu_torch.models.lstm import lstm_wavefront
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import init_model
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp as fh
 from weatherforecast_stgcn_maml_tpu_torch.train import maml
@@ -346,6 +348,27 @@ def test_so_meta_gradient_matches_jax_float64(so_reference, family, impl):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("impl", ["hvp", "rof"])
+def test_so_wavefront_meta_gradient_matches_jax_float64(so_reference, monkeypatch, impl):
+    """(d) With `meta.so_wavefront` the hvp and rof Hessian transposes run the
+    wavefront LSTM (once an inner step) and the inner gradients keep the
+    model's route: the same exact meta-gradient against JAX's
+    (`so_reference`, 1e-8)."""
+    loss_ref, g_ref, (tmc, tmeta, ptasks, sd) = so_reference("hybrid")
+    tmeta = dataclasses.replace(tmeta, so_impl=impl, so_wavefront=True)
+    calls = []
+    monkeypatch.setattr(port_hybrid, "lstm_wavefront",
+                        lambda *a, **k: calls.append(1) or lstm_wavefront(*a, **k))
+    model = _model(tmc, sd)
+    loss = maml.adapt_and_query_loss(model, task_at(ptasks, 0), None, tmc, tmeta)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    assert len(calls) == tmeta.inner_epochs * tmeta.inner_batches
+    np.testing.assert_allclose(loss.item(), float(loss_ref), rtol=1e-8, atol=1e-8)
+    for (name, _), g in zip(model.named_parameters(), grads):
+        np.testing.assert_allclose(g.numpy(), g_ref[name].numpy(), rtol=1e-8, atol=1e-8,
+                                   err_msg=name)
+
+
 def test_so_meta_step_matches_jax_float64(numpy_host_route):
     """(e) One SO meta step (fhvp, 2 tasks, grad-accum 2: two AdamW updates)
     against JAX's make_meta_step."""
@@ -398,12 +421,9 @@ def test_so_meta_gradient_matches_central_differences():
     (dict(so_impl="hessian"), ValueError),
     (dict(so_remat="dot"), ValueError),
     (dict(so_remat="chunk:x"), ValueError),
-    (dict(so_impl="hvp", so_wavefront=True), NotImplementedError),
-    (dict(so_impl="rof", so_wavefront=True), NotImplementedError),
 ])
 def test_so_settings_refused(override, err):
-    """(g) Unknown so_impl / so_remat raise ValueError naming the field; the
-    wavefront LSTM of the hvp / rof Hessian transposes is not ported."""
+    """(g) Unknown so_impl / so_remat raise ValueError naming the field."""
     cfg = tcfg.MetaConfig(**{**META, **override})
     with pytest.raises(err, match="so_impl|so_remat|so_wavefront"):
         maml.make_meta_step(tcfg.ModelConfig(**MODEL), cfg)

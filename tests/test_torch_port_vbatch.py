@@ -337,11 +337,13 @@ def test_lockstep_matches_serial_with_same_masks(monkeypatch):
     monkeypatch.setattr(maml, "apply_model", serial_apply)
     serial = maml.task_batch_grad(model, tasks, gen, cfg, meta)
     monkeypatch.setattr(fls, "_VBATCH", True)
-    lock_calls = iter(range(forwards))
+    # The lockstep route draws one window's masks a task, task by task
+    # within each step.
+    lock_calls = iter([(k, v) for k in range(forwards) for v in range(nv)])
 
     def lockstep_draw(c, generator, x):
-        k = next(lock_calls)
-        return {key: torch.stack([table[v][k][key] for v in range(nv)]) for key in table[0][0]}
+        k, v = next(lock_calls)
+        return table[v][k]
 
     monkeypatch.setattr(maml, "draw_masks", lockstep_draw)
     lock = maml.task_batch_grad(model, tasks, gen, cfg, meta)
@@ -397,20 +399,20 @@ def test_f32_meta_gradient_with_vbatch_matches_jax(vbatch, tiny_model_cfg):
                                    err_msg=name)
 
 
-def test_vbatch_refused_on_a_mesh(vbatch):
-    """Under `_VBATCH` the dp x sp mesh would run its tasks one after
-    another: the engine on a dp x sp mesh and the dp x sp step refuse,
-    naming the flag; the dp mesh and its step take it (a rank's tasks in
-    lockstep)."""
+def test_vbatch_taken_on_both_meshes(vbatch):
+    """Under `_VBATCH` the engine on a dp x sp mesh takes the shardmap step
+    and both mesh steps build: each runs a rank's tasks in lockstep
+    (`lockstep_route`), the dp x sp one at the rank's node rows."""
     mc, meta = tcfg.ModelConfig(**MODEL), tcfg.MetaConfig()
     cfg = tcfg.ExperimentConfig(model=mc, meta=meta)
-    with pytest.raises(NotImplementedError, match="_VBATCH"):
-        meta_train._check_mesh(cfg, type("GridMesh", (), {"axis_names": ("dp", "sp")})())
-    with pytest.raises(NotImplementedError, match="_VBATCH"):
-        meta_sp.make_shardmap_meta_step_2d(mc, meta, type("OneRankMesh", (), {"dp": 1})())
-    meta_train._check_mesh(cfg, type("DpMesh", (), {"axis_names": ("dp",)})())
+    assert meta_train._check_mesh(
+        cfg, type("GridMesh", (), {"axis_names": ("dp", "sp")})()) == "shardmap"
+    meta_sp.make_shardmap_meta_step_2d(mc, meta, type("OneRankMesh", (),
+                                                      {"dp": 1, "sp_group": None})())
+    assert meta_train._check_mesh(cfg, type("DpMesh", (), {"axis_names": ("dp",)})()) is None
     meta_dp.make_parallel_meta_step(mc, meta, type("OneRankMesh", (), {"dp": 1, "sp": 1,
                                                                         "size": 1})())
+    assert maml.lockstep_route(mc, meta)
 
 
 @pytest.mark.parametrize("override,meta_override", [
@@ -419,11 +421,12 @@ def test_vbatch_refused_on_a_mesh(vbatch):
     (dict(use_pallas_lstm=True), {}),
     (dict(lstm_dropout=0.3), dict(second_order=True)),
     (dict(lstm_dropout=0.3), "unmerged"),
+    (dict(lstm_wavefront=True), {}),
 ])
 def test_routes_without_merged_stack_launch_neither_row_16_nor_17(
         vbatch, monkeypatch, override, meta_override):
-    """The routes with no merged stack keep the serial route under
-    `_VBATCH`: the task-batched stack (rows 16-17) is never called; the
+    """The routes with no merged stack (the wavefront among them) keep the
+    serial route under `_VBATCH`: the task-batched stack (rows 16-17) is never called; the
     default route calls it once a forward (the control)."""
     if meta_override == "unmerged":
         monkeypatch.setattr(fls, "_MERGED_GATES", False)

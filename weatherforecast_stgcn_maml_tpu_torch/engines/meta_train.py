@@ -56,10 +56,7 @@ from weatherforecast_stgcn_maml_tpu_torch.config import (
 from weatherforecast_stgcn_maml_tpu_torch.data.region import RegionData
 from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import Mesh, resolve_sp_impl
-from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import (
-    make_parallel_meta_step,
-    refuse_lockstep,
-)
+from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import make_parallel_meta_step
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_gspmd import make_parallel_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_sp import make_shardmap_meta_step_2d
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
@@ -122,8 +119,8 @@ def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Genera
 
 def _check_mesh(cfg: ExperimentConfig, mesh: Mesh) -> str | None:
     """The dp x sp step `mesh` runs ("shardmap" or "gspmd", `mesh.sp_impl`
-    resolved for the model family), None on a 1-D mesh; refuse, by name,
-    what no step of `mesh` runs."""
+    resolved for the model family), None on a 1-D mesh; an unknown
+    `mesh.sp_impl` raises."""
     if len(mesh.axis_names) == 1:
         return None
     sp_impl = resolve_sp_impl(cfg.mesh.sp_impl, cfg.model)
@@ -131,8 +128,6 @@ def _check_mesh(cfg: ExperimentConfig, mesh: Mesh) -> str | None:
         raise ValueError(
             f"mesh.sp_impl={cfg.mesh.sp_impl!r}: expected 'auto', 'gspmd' or 'shardmap'"
         )
-    if sp_impl == "shardmap":
-        refuse_lockstep(cfg.model, cfg.meta, "the node-sharded (dp x sp) mesh")
     return sp_impl
 
 
@@ -153,7 +148,7 @@ def run_meta_training(
     if not main:
         log_cb = lambda *a: None  # noqa: E731 - rank 0 reports for the mesh
     model_cfg, meta_cfg = cfg.model, cfg.meta
-    check_supported(model_cfg, meta_cfg)
+    check_supported(meta_cfg)
     sp_impl = None if mesh is None else _check_mesh(cfg, mesh)
     out_dir = os.path.join(cfg.out_dir, "meta")
     os.makedirs(out_dir, exist_ok=True)

@@ -29,7 +29,7 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     resolve_dtype,
     train_masks,
 )
-from weatherforecast_stgcn_maml_tpu_torch.models.lstm import apply_lstm, init_lstm
+from weatherforecast_stgcn_maml_tpu_torch.models.lstm import apply_lstm, init_lstm, lstm_wavefront
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import (
     apply_encoder,
     init_encoder,
@@ -97,8 +97,10 @@ def apply_hybrid(
       a_hat: [N, N] dense normalized adjacency (padded), float32.
       x: [..., W, N, 16] window features (12 z-scored weather + 4 time);
         leading window-batch dims fold into the encoder's time slices and
-        the LSTM's rows. Train mode takes one window [W, N, 16] or a batch
-        [B, W, N, 16].
+        the LSTM's rows (a train-mode batch under `_VBATCH` without
+        `_ROWFOLD` runs its LSTM one window a task instead,
+        `window_batch_unfolded`). Train mode takes one window [W, N, 16] or
+        a batch [B, W, N, 16].
       koppen_code: int climate class (0 = unknown/padding).
       generator: draws the train-mode dropout masks (`hybrid_masks`, per
         window) when `masks` is not given; with neither, train mode has no
@@ -108,19 +110,17 @@ def apply_hybrid(
     Returns:
       [..., H, N, 12] multi-step forecasts in normalized units.
     """
-    if cfg.lstm_wavefront:
-        raise NotImplementedError(
-            "model.lstm_wavefront selects an LSTM route that is not ported"
-        )
     dtype = resolve_dtype(cfg.compute_dtype)
     lead = x.shape[:-3]
     w, n = x.shape[-3], x.shape[-2]
 
     masks = train_masks(cfg, x, train, generator, masks, hybrid_masks)
+    unfolded = train and x.dim() == 4 and window_batch_unfolded(cfg, x.shape[0], n, x.device)
     if train and x.dim() == 4:
-        # Per-window masks, folded as the batch folds at each site.
-        folds = {"encoder": fold_slice_masks, "lstm": fold_row_masks,
-                 "head": lambda m: m.reshape(-1, m.shape[-1])}
+        # Per-window masks, folded as the batch folds at each site (the
+        # unfolded LSTM takes its masks a window each, as they are).
+        folds = {"encoder": fold_slice_masks, "head": lambda m: m.reshape(-1, m.shape[-1]),
+                 "lstm": (lambda m: m.contiguous()) if unfolded else fold_row_masks}
         masks = {k: folds[k](m) for k, m in masks.items()}
 
     h = apply_encoder(
@@ -146,6 +146,18 @@ def apply_hybrid(
         else:
             fused_lstm_stack.lstm_stack_train.plain_routes += 1
             feat = lstm_stack_plain(params.lstm.layers, h, dtype)
+    elif cfg.lstm_wavefront:
+        # Whatever `lstm_kernel` says, in eval mode too, as in the JAX
+        # package (row 20 above comes first).
+        feat = lstm_wavefront(params.lstm, h, masks=masks.get("lstm"),
+                              keep=1.0 - cfg.lstm_dropout if "lstm" in masks else 1.0,
+                              compute_dtype=dtype)
+    elif unfolded:
+        # One window a task, the weights shared: rows 16-17 (`_VBATCH`
+        # without `_ROWFOLD`), the window's nodes a task's rows.
+        feat = _lstm_tasks(*_shared_lstm_weights(params.lstm.layers, x.shape[0]),
+                           h.reshape(x.shape[0], n, w, -1), cfg, masks.get("lstm"),
+                           dtype).reshape(-1, cfg.lstm_hidden)
     else:
         feat = apply_lstm(
             params.lstm, h, train=train, masks=masks.get("lstm"),
@@ -158,7 +170,7 @@ def apply_hybrid(
     return out.transpose(-3, -2)  # [..., H, N, 12]
 
 
-def _task_params(params: dict, v: int, n_layers: int, koppen: torch.Tensor) -> SimpleNamespace:
+def task_params(params: dict, v: int, n_layers: int, koppen: torch.Tensor) -> SimpleNamespace:
     """Task v's encoder layers as apply_encoder reads them, and `koppen`,
     every task's Koppen embedding row [V, koppen_dim], for
     koppen_features(task, x, v)."""
@@ -200,14 +212,13 @@ def apply_hybrid_tasks(
             f"no task-batched forward for lstm_kernel={cfg.lstm_kernel!r} with "
             f"use_pallas_lstm={cfg.use_pallas_lstm}")
     masks = masks or {}
-    dtype = resolve_dtype(cfg.compute_dtype)
     nv, lead, w, n = x.shape[0], x.shape[1:-3], x.shape[-3], x.shape[-2]
     # Every task's embedding row in one gather: indexing with one task's
     # code (a tensor on the card) would wait for the device.
     koppen = params["koppen"][torch.arange(nv, device=koppen_code.device), koppen_code]
     feats = []
     for v in range(nv):
-        task = _task_params(params, v, cfg.gcn_layers, koppen)
+        task = task_params(params, v, cfg.gcn_layers, koppen)
         enc_masks = masks["encoder"][v] if "encoder" in masks else None
         if lead and enc_masks is not None:
             enc_masks = fold_slice_masks(enc_masks)
@@ -219,7 +230,27 @@ def apply_hybrid_tasks(
     h = torch.stack(feats)
     if cfg.stop_base_gradients:
         h = h.detach()
-    n_layers = cfg.lstm_layers
+    task_masks = {}
+    if "lstm" in masks:
+        task_masks["lstm"] = (torch.stack([fold_row_masks(m) for m in masks["lstm"]]) if lead
+                              else masks["lstm"].contiguous())
+    if "head" in masks:
+        task_masks["head"] = masks["head"].reshape(nv, -1, masks["head"].shape[-1])
+    out = tasks_lstm_head(params, h, task_masks, cfg)
+    out = out.reshape(nv, *lead, n, cfg.horizon, cfg.num_weather_vars)
+    return out.transpose(-3, -2)  # [V, (B,) H, N, 12]
+
+
+def tasks_lstm_head(params: dict, h: torch.Tensor, masks: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The LSTM stacks and heads of V tasks at their own parameters (`params`
+    {name: [V, ...]}): h [V, R, W, C] (the encoder's features, R rows a
+    task) -> [V, R, horizon * 12]. Every task's stack in one launch each
+    way (rows 16-17; their plain version under `lstm_kernel="xla"`), the
+    heads as one batched product. masks: "lstm" [V, L-1, W, R, H], "head"
+    [V, R, H], either may be absent. `apply_hybrid_tasks` and the node-
+    sharded `parallel.spatial.hybrid_local_forward_tasks` end here."""
+    dtype = resolve_dtype(cfg.compute_dtype)
+    nv, n_layers = h.shape[0], cfg.lstm_layers
     wcat = [torch.cat([params[f"lstm.layers.{l}.wx"], params[f"lstm.layers.{l}.wh"]], dim=1)
             for l in range(n_layers)]
     wcatr = (torch.stack(wcat[1:], dim=1) if n_layers > 1
@@ -227,20 +258,83 @@ def apply_hybrid_tasks(
     b2d = torch.stack([
         lstm_bias({k.rsplit(".", 1)[1]: p for k, p in params.items()
                    if k.startswith(f"lstm.layers.{l}.")}) for l in range(n_layers)], dim=1)
-    keep = 1.0 - cfg.lstm_dropout
-    lstm_masks = masks.get("lstm")
-    if lstm_masks is not None:
-        lstm_masks = (torch.stack([fold_row_masks(m) for m in lstm_masks]) if lead
-                      else lstm_masks.contiguous())
-    lstm_keep = keep if lstm_masks is not None else 1.0
-    if cfg.lstm_kernel == "xla":
-        feat = lstm_stack_tasks_plain(h, wcat[0], wcatr, b2d, lstm_masks, lstm_keep, dtype)
-    else:
-        feat = lstm_stack_train_tasks(h, wcat[0], wcatr, b2d, masks=lstm_masks, keep=lstm_keep,
-                                      compute_dtype=dtype)  # [V, N, lstm_hidden]
+    feat = _lstm_tasks(wcat[0], wcatr, b2d, h, cfg, masks.get("lstm"), dtype)
     if "head" in masks:
-        feat = apply_mask(feat, masks["head"].reshape(nv, -1, masks["head"].shape[-1]), keep)
+        feat = apply_mask(feat, masks["head"], 1.0 - cfg.lstm_dropout)
     out = torch.matmul(as_operand(feat, dtype), as_operand(params["head.w"], dtype))
-    out = out + params["head.b"][:, None]
-    out = out.reshape(nv, *lead, n, cfg.horizon, cfg.num_weather_vars)
-    return out.transpose(-3, -2)  # [V, (B,) H, N, 12]
+    return out + params["head.b"][:, None]
+
+
+def _shared_lstm_weights(layers, nv: int):
+    """(wcat0 [V, C + H, 4H], wcatr [V, L-1, 2H, 4H], b2d [V, L, 4H]) of
+    one stack's layers broadcast over V tasks that share them: each array
+    built once and expanded, task stride 0 (no copy a task), so the
+    weights' gradients come back summed over the tasks."""
+    hidden = layers[0].wh.shape[0]
+    wcat = [torch.cat([layer.wx, layer.wh]) for layer in layers]
+    wcatr = (torch.stack(wcat[1:]) if len(wcat) > 1
+             else wcat[0].new_zeros((0, 2 * hidden, 4 * hidden)))
+    b2d = torch.stack([layer.b for layer in layers])
+    return tuple(t.expand(nv, *t.shape) for t in (wcat[0], wcatr, b2d))
+
+
+def _lstm_tasks(wcat0, wcatr, b2d, h, cfg: ModelConfig, masks, dtype) -> torch.Tensor:
+    """V tasks' stacks, h [V, R, W, C] -> [V, R, H]: `lstm_stack_train_tasks`
+    (rows 16-17), or its plain version under `lstm_kernel="xla"`."""
+    keep = 1.0 - cfg.lstm_dropout if masks is not None else 1.0
+    if cfg.lstm_kernel == "xla":
+        return lstm_stack_tasks_plain(h, wcat0, wcatr, b2d, masks, keep, dtype)
+    return lstm_stack_train_tasks(h, wcat0, wcatr, b2d, masks=masks, keep=keep,
+                                  compute_dtype=dtype)
+
+
+def lockstep_stack(model_cfg: ModelConfig) -> str | None:
+    """The LSTM stack a task-batched train forward runs (`apply_hybrid_tasks`),
+    or None where the model's tasks (or a fleet's regions) run one after
+    another. Under `_VBATCH`, the hybrid family on the merged fused stack
+    ("fused": where the JAX flag sends a vmap over tasks to its task-batched
+    kernels, see ops/fused_lstm_stack.py) and on the plain stack ("plain":
+    `lstm_kernel="xla"`, the same arithmetic with no kernel, so that the two
+    compare with the same dropout masks). None under `model.lstm_wavefront`:
+    the wavefront has no task-batched kernel (the JAX flag acts only on the
+    fused stack's vmap rules)."""
+    if not fused_lstm_stack._VBATCH or model_cfg.family != "hybrid" or model_cfg.lstm_wavefront:
+        return None
+    if model_cfg.use_pallas_lstm and model_cfg.lstm_dropout == 0.0:
+        return None  # the train-mode row 20 route
+    if model_cfg.lstm_kernel == "xla":
+        return "plain"
+    if model_cfg.lstm_kernel not in ("auto", "pallas_stack") or not fused_lstm_stack._MERGED_GATES:
+        return None
+    return "fused"
+
+
+def lockstep_planned(model_cfg: ModelConfig, tasks: int, rows: int, device) -> bool:
+    """Whether the fused stack's recurrences have a cluster plan for `tasks`
+    tasks of `rows` rows (`stack_planned`), as the JAX package's
+    task-batched kernels run only where `vbatch_supported` holds."""
+    return fused_lstm_stack.stack_planned(model_cfg.lstm_hidden, rows,
+                                          resolve_dtype(model_cfg.compute_dtype), device, tasks)
+
+
+def window_batch_unfolded(cfg: ModelConfig, windows: int, nodes: int, device) -> bool:
+    """Whether a train-mode forward over a batch of `windows` windows (the
+    adaptation step's) runs its LSTM unfolded, one window a task with the
+    weights shared (rows 16-17, `_lstm_tasks` over `_shared_lstm_weights`):
+    under `_VBATCH` with `_ROWFOLD` off, more than one window, the fused
+    stack (`lockstep_stack`) and a plan for the windows' rows
+    (`lockstep_planned`), as the JAX package's vmap over windows reaches
+    its task-batched kernels there. Elsewhere the windows fold into the
+    LSTM's rows (rows 4-5 at B x N rows, JAX's `_ROWFOLD` route); where only
+    the plan fails it folds too, counted in
+    `window_batch_unfolded.folded_fallbacks`, as the JAX package falls back
+    where `vbatch_supported` fails."""
+    if fused_lstm_stack._ROWFOLD or windows < 2 or lockstep_stack(cfg) != "fused":
+        return False
+    if lockstep_planned(cfg, windows, nodes, device):
+        return True
+    window_batch_unfolded.folded_fallbacks += 1
+    return False
+
+
+window_batch_unfolded.folded_fallbacks = 0  # unfolded window batches folded for want of a plan

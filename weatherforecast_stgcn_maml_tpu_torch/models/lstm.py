@@ -100,6 +100,77 @@ def lstm_layerwise(
     return h[-1]
 
 
+def lstm_wavefront(
+    params: LSTM, x: torch.Tensor, *, masks: torch.Tensor | None = None,
+    keep: float = 1.0, compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The stack advanced on the (layer, time) antidiagonal wavefront
+    (`model.lstm_wavefront`; the JAX package's `apply_lstm_wavefront`):
+    x [B, T, C] -> the top layer's last h [B, H]. Plain PyTorch, no kernel.
+
+    Cell (l, t) depends only on (l, t-1) and (l-1, t), so every cell with
+    l + t = k is independent: T + L - 1 steps, each one lane-batched
+    product [L, B, 2H] @ [L, 2H, 4H] of [inter-layer input | own h] with
+    [[wx_l], [wh_l]]. Layer 0's input projection is hoisted (one [T, B, C]
+    @ [C, 4H] product, with its bias), so lane 0's wx slot is zero. A
+    lane's own h and c are reset at its first active step, so what a lane
+    computed before it started never reaches an active cell; the last step
+    computes the top lane at time T-1. One layer runs the layerwise stack.
+
+    `masks` (int8 {0, 1} [L-1, T, B, H], the layerwise stack's layout)
+    drop each inter-layer output, gathered into wavefront order: lane l at
+    step k takes element [l-1, clamp(k-l, 0, T-1)]; the clamped elements
+    fall on lanes that have not started or have finished, whose outputs
+    never reach the result. Applied as where(mask, x / keep, 0). Operands
+    are rounded to the compute dtype and multiplied in the accumulation
+    dtype, where the JAX package rounds. Every operation is out of place,
+    so the function is twice differentiable under torch.func (second
+    order's Hessian transpose runs it under `meta.so_wavefront`)."""
+    layers = params.layers
+    n_layers = len(layers)
+    if n_layers == 1:
+        return lstm_stack_plain(layers, x, compute_dtype)
+    x_tbc = x.transpose(0, 1)  # [T, B, C]
+    t_len, b, _ = x_tbc.shape
+    hidden = layers[0].wh.shape[0]
+    xproj0 = torch.matmul(
+        as_operand(x_tbc, compute_dtype), as_operand(layers[0].wx, compute_dtype)
+    ) + layers[0].b  # [T, B, 4H]
+    w_cat = torch.stack([
+        torch.cat([torch.zeros_like(layers[0].wh) if l == 0 else layer.wx, layer.wh])
+        for l, layer in enumerate(layers)])  # [L, 2H, 4H]
+    w_cat = as_operand(w_cat, compute_dtype)
+    # Lane 0's bias lives in xproj0.
+    bias = torch.stack([torch.zeros_like(layers[0].b)] + [layer.b for layer in layers[1:]])
+    n_steps = t_len + n_layers - 1
+    wf_masks = None
+    if masks is not None:
+        below = torch.arange(1, n_layers, device=masks.device)[None, :]
+        t_idx = (torch.arange(n_steps, device=masks.device)[:, None] - below).clamp(0, t_len - 1)
+        wf_masks = masks.bool()[below - 1, t_idx]  # [T + L - 1, L-1, B, H]
+    lanes = torch.arange(n_layers, device=x.device)
+    h = xproj0.new_zeros((n_layers, b, hidden))
+    c = h
+    for k in range(n_steps):
+        # Lane l's inter-layer input at step k is lane l-1's output of step
+        # k-1 (time k-l): h shifted down one lane; lane 0 has none.
+        below = h[:-1]
+        if wf_masks is not None:
+            below = torch.where(wf_masks[k], below / keep, torch.zeros_like(below))
+        shifted = torch.cat([torch.zeros_like(h[:1]), below])
+        starting = (lanes == k)[:, None, None]
+        h_own = torch.where(starting, torch.zeros_like(h), h)
+        c_own = torch.where(starting, torch.zeros_like(c), c)
+        in_cat = torch.cat([as_operand(shifted, compute_dtype),
+                            as_operand(h_own, compute_dtype)], dim=-1)  # [L, B, 2H]
+        gates = torch.matmul(in_cat, w_cat) + bias[:, None, :]
+        gates = torch.cat([gates[:1] + xproj0[min(k, t_len - 1)], gates[1:]])
+        i, f, g, o = gates.split(hidden, dim=-1)
+        c = torch.sigmoid(f) * c_own + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+    return h[-1]
+
+
 def apply_lstm(
     params: LSTM,
     x: torch.Tensor,

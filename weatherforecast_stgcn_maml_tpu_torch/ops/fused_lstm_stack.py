@@ -107,10 +107,21 @@ _MERGED_GATES = True
 # arithmetic and no kernel. The routes with no merged stack (the stgcn
 # family, `lstm_kernel="pallas"`, the train-mode row 20 of
 # `use_pallas_lstm` at dropout 0, unmerged gates) and second order keep
-# their serial route; `meta-train --mesh` refuses the flag. The JAX package
-# also checks `vbatch_supported` (V chains within a TPU core's VMEM); a card
-# streams any V, so the port has no such gate.
+# their serial route; on a mesh a rank's tasks run in lockstep (the dp step
+# and the dp x sp shardmap step). The JAX package gates it by
+# `vbatch_supported` (V chains within a TPU core's VMEM); the port by the
+# cluster plans (`stack_planned` for V tasks), falling back as JAX does.
 _VBATCH = False
+# _ROWFOLD: the JAX package's route for a vmap over windows that share the
+# weights (the adaptation step's window batch). True folds the windows into
+# the single-task stack's rows (row 4 / row 5 at B x N rows; "a wash" on
+# the TPU, JAX's comment says). False with `_VBATCH` runs the task-batched
+# kernels, one window a task, the weights broadcast over the windows with
+# task stride 0 and their gradients summed over them (rows 16-17,
+# `models/hybrid.window_batch_unfolded`). Neither flag: JAX runs its
+# grid-serialized vmap, which the port folds instead (equal up to the order
+# of sums).
+_ROWFOLD = False
 
 
 def lstm_stack_plain(
@@ -517,8 +528,8 @@ def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_g
     elif not masks.is_contiguous():
         masks = masks.contiguous()
     cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev), nv)
-    bias = b2d.contiguous()
-    # Task strides: every array here is contiguous.
+    bias = _per_task(torch.Tensor.contiguous, b2d)
+    # Task strides: every array here is contiguous (bias: or shared, 0).
     strides = [0 if t is None or nv == 1 else t.stride(0)
                for t in (x, bias, masks, h_all, gates, h_last, masked)]
     launch = _STACK_FWD.pack(
@@ -676,6 +687,17 @@ def lstm_stack_tasks_plain(
                          keep) for v in range(x.shape[0])])
 
 
+def _per_task(fn, *ts):
+    """fn(*ts) for arrays with a leading task axis; where every one is
+    shared by the V tasks (task stride 0, an `expand`), fn of task 0's
+    slices broadcast back with task stride 0, so no array is copied a task."""
+    nv = ts[0].shape[0]
+    if nv > 1 and all(t.stride(0) == 0 for t in ts):
+        out = fn(*(t[:1] for t in ts))
+        return out.expand(nv, *out.shape[1:])
+    return fn(*ts)
+
+
 def tasks_forward(x_vtbc, masks, keep, compute_dtype, wcat0, wcatr, b2d):
     """Row 16 on a CUDA tensor: x_vtbc [V, T, B, C], wcat0 [V, C + H, 4H],
     wcatr [V, L-1, 2H, 4H], b2d [V, L, 4H] -> (h_last [V, B, H] float32,
@@ -683,9 +705,10 @@ def tasks_forward(x_vtbc, masks, keep, compute_dtype, wcat0, wcatr, b2d):
     [V, L, T, B, 4H] float32), by `tasks_forward_schedule`'s schedule, its L
     products and L recurrences (each one launch for all V tasks) enqueued by
     one C call (csrc/lstm_stack_fwd.cu). x_vtbc is read time-major in float32
-    (a copy unless it is so already); the weights are cast once a call."""
+    (a copy unless it is so already); the weights are cast once a call,
+    once for all tasks where they share them (task stride 0)."""
     n_layers = b2d.shape[1]
-    w0, wr = wcat0.to(compute_dtype).contiguous(), wcatr.to(compute_dtype).contiguous()
+    w0, wr = (_per_task(lambda w: w.to(compute_dtype).contiguous(), w) for w in (wcat0, wcatr))
     out = _stack_forward_card(x_vtbc.to(torch.float32).contiguous(), masks, keep, compute_dtype,
                               b2d, _task_layers_card(w0, wr, x_vtbc.shape[-1], b2d.shape[-1] // 4),
                               "LSTM train forward (tasks)")
@@ -997,8 +1020,8 @@ def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
     steps = t_len * rows
     if gates is None and nv != 1:
         raise ValueError("the schedule recomputes the gates of one task only")
-    wxs = [w.to(compute_dtype) for w in wx]
-    whs = wh.to(compute_dtype)
+    wxs = [_per_task(lambda t: t.to(compute_dtype), w) for w in wx]
+    whs = _per_task(lambda t: t.to(compute_dtype), wh)
     dgates = torch.empty((nv, n_layers if carries else 1, t_len, rows, g4), dtype=acc,
                          device=dev)
     dh_all = dc_all = None
@@ -1051,7 +1074,7 @@ def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
         dg = dg_l.reshape(nv, steps, g4)
         # The transpose just before its use: on a card its host work runs
         # while the recurrence does.
-        wxt = wxs[l].transpose(-1, -2).contiguous()
+        wxt = _per_task(lambda t: t.transpose(-1, -2).contiguous(), wxs[l])
         if l == 0:
             pieces.product(dg, wxt, compute_dtype=compute_dtype, out=dx,
                            what="LSTM input gradient")
@@ -1140,7 +1163,7 @@ def tasks_backward_schedule(g, x, h_all, c_all, gates, wcat0, wcatr, masks, keep
     [V, L, T, B, 4H] and each task's merged weights."""
     hidden = gates.shape[-1] // 4
     wcat = [wcat0, *wcatr.unbind(1)]
-    wh = torch.stack([w[:, -hidden:] for w in wcat], dim=1)
+    wh = _per_task(lambda *ws: torch.stack([w[:, -hidden:] for w in ws], dim=1), *wcat)
     dx, dw, db, *_ = backward_schedule(
         g, x, h_all, c_all, [w[:, :-hidden] for w in wcat], wh, masks, keep, compute_dtype,
         pieces, gates=gates)
@@ -1378,7 +1401,7 @@ def _recurrence_card(g, gates, c, wh, compute_dtype, out, dh=None, dc=None, db=N
     nv, t_len, rows, hidden = g.shape
     dev = g.device
     cs, hcp, rb = recurrence_plan(hidden, rows, compute_dtype.itemsize, _sms(dev), nv)
-    wts = recurrence_weights(wh, cs, hcp, compute_dtype)
+    wts = _per_task(lambda w: recurrence_weights(w, cs, hcp, compute_dtype), wh)
     part = None
     if db is not None:
         part = torch.empty((-(-rows // rb), nv, 4 * hidden), dtype=torch.float32, device=dev)

@@ -17,7 +17,9 @@ themselves (train/maml.py's second-order inner loop), and the same
 all-reduce sums the exact meta-gradients. Under `ops.fused_lstm_stack.
 _VBATCH` (train/maml.lockstep_route) a rank runs its tasks of a
 micro-batch side by side (`train/maml.lockstep_grad_sums`: rows 16-17
-each way and row 9 an inner step).
+each way and row 9 an inner step), as the dp x sp shardmap step does.
+`model.lstm_wavefront` and `meta.so_wavefront` act as on one device: a
+rank runs train/maml.py's loop on models/hybrid.py.
 
 Dropout: task i of the meta batch draws from its own generator,
 `shard_generator((*key, i), sp_index)` (parallel/mesh.py), so a task's
@@ -54,18 +56,6 @@ from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import MetaOptimizer
 from weatherforecast_stgcn_maml_tpu_torch.train.tasks import Task, task_at
-
-
-def refuse_lockstep(model_cfg: ModelConfig, cfg: MetaConfig, where: str) -> None:
-    """The task-batched meta step runs on one device and on a dp mesh; on
-    `where` (the dp x sp step) the flag would silently run the tasks one
-    after another."""
-    if lockstep_route(model_cfg, cfg):
-        raise NotImplementedError(
-            "ops.fused_lstm_stack._VBATCH (the task-batched meta step, kernel rows "
-            "16-17) runs on one device and on a dp mesh (mesh.spatial_devices=1), not "
-            f"yet on {where}"
-        )
 
 
 def mesh_batch_grad(mesh: Mesh, local_tasks, task_loss, second_order: bool = False,
@@ -167,7 +157,7 @@ def make_parallel_meta_step(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: 
 
     Requires meta_batch / grad_accum (the tasks per update) to be divisible
     by the mesh size, so every rank holds equal task shares."""
-    check_supported(model_cfg, meta_cfg)
+    check_supported(meta_cfg)
     if mesh.sp != 1:
         raise ValueError(
             "make_parallel_meta_step takes a 1-D dp mesh; a dp x sp mesh runs "

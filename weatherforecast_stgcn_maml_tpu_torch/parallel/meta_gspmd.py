@@ -19,7 +19,10 @@ and runs, per task, train/maml.py's `adapt_and_query_loss` on
   * forward: the node-local forward of the family
     (parallel/spatial.hybrid_local_forward, stgcn_local_forward: one
     all-gather a GCN layer, everything else node-local) on the plain
-    routes, so no kernel launches here, as none runs in the JAX step;
+    routes, so no kernel launches here, as none runs in the JAX step. The
+    JAX step runs models/hybrid.py, so `model.lstm_wavefront` selects the
+    wavefront LSTM here, and `meta.so_wavefront` (so_impl hvp / rof) does
+    in the Hessian transpose (train/maml.py), as on one device;
   * loss: the masked MSE summed over sp (`psum_masked_mse`);
   * the inner gradient summed over sp before the clip
     (`all_reduce_tensors`), first or second order (every so_impl;
@@ -135,6 +138,6 @@ def make_parallel_meta_step_2d(model_cfg: ModelConfig, meta_cfg: MetaConfig, mes
             f"tasks per update ({per_update}) must be divisible by the dp mesh axis "
             f"({mesh.dp}) for even sharding"
         )
-    check_supported(model_cfg, meta_cfg)
+    check_supported(meta_cfg)
     model_cfg, meta_cfg = pinned_configs(model_cfg, meta_cfg)
     return make_mesh_meta_step(meta_cfg, make_gspmd_batch_grad(model_cfg, meta_cfg, mesh))

@@ -22,6 +22,22 @@ takes the same AdamW step. Dropout masks are per rank (its NL rows) and per
 task, from `shard_generator((*key, task_index), sp_index)`: a valid stream
 that differs from the unsharded step's.
 
+Under `ops.fused_lstm_stack._VBATCH` (train/maml.lockstep_route, at the
+rank's NL rows) a rank runs its tasks of a micro-batch side by side, as the
+JAX package's vmap over them does: `train/maml.lockstep_grad_sums` on
+`local_route`, each forward `spatial.hybrid_local_forward_tasks` (rows
+12-13 task by task, rows 16-17 once for all), the stacked inner gradients
+summed over sp BEFORE each task's clip, then row 9 (the per-task clip +
+SGD). Each task draws from its own generator, so the lockstep step draws
+the masks the serial step draws on the same key. Where no plan holds V
+tasks' NL rows the tasks run one after another (counted in
+`lockstep_route.serial_fallbacks`). Second order stays serial.
+
+The shardmap step's LSTM is the node-local forward's (`apply_lstm`), as in
+the JAX package, whose `_local_adapt_and_query_loss` reaches no wavefront:
+`local_route` hands the forward `spatial.node_local(cfg)`, so
+`model.lstm_wavefront` and `meta.so_wavefront` leave its routes as they are.
+
 Second order (`meta.second_order`): the inner loop runs on a functional
 copy of the parameters that stays in their graph. Each step's gradient is
 train/so_grad.py's, on the node-local support loss (with `so_impl="fhvp"`
@@ -53,18 +69,21 @@ from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
 from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import (
     make_mesh_meta_step,
     mesh_batch_grad,
-    refuse_lockstep,
 )
 from weatherforecast_stgcn_maml_tpu_torch.parallel.spatial import (
     _spatial_encoder,
     hybrid_local_forward,
+    hybrid_local_forward_tasks,
     local_masks,
+    node_local,
     psum_masked_mse,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.maml import (
     TaskRoute,
     adapt_and_query_loss,
     check_supported,
+    lockstep_grad_sums,
+    lockstep_route,
 )
 from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import (
     _stack_weights,
@@ -88,7 +107,7 @@ def local_route(group) -> TaskRoute:
     shards."""
 
     def forward(model, a_rows, x, koppen, cfg, **kwargs):
-        return hybrid_local_forward(model, a_rows, x, koppen, cfg, group, **kwargs)
+        return hybrid_local_forward(model, a_rows, x, koppen, node_local(cfg), group, **kwargs)
 
     def mse(preds, y, node_mask):
         return psum_masked_mse(preds, y, node_mask, group)
@@ -100,8 +119,11 @@ def local_route(group) -> TaskRoute:
         return make_local_grad_loss_fused(
             model, cfg, group, support_loss(model, plain_route(cfg), forward, mse))
 
+    def forward_tasks(params, a_rows, x, koppen, cfg, *, masks=None):
+        return hybrid_local_forward_tasks(params, a_rows, x, koppen, cfg, group, masks=masks)
+
     return TaskRoute(forward, mse, masks, lambda grads: all_reduce_tensors(grads, group),
-                     grad_loss_fused)
+                     grad_loss_fused, forward_tasks)
 
 
 def make_local_grad_loss_fused(model: nn.Module, cfg: ModelConfig, group, loss_plain):
@@ -170,14 +192,21 @@ def make_shardmap_batch_grad(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh:
     """`batch_grad(params, tasks, key, fast=None, offset=0) -> (per-task
     losses [B], {name: mean meta-gradient})` of the node-sharded path (see
     parallel/meta_dp.mesh_batch_grad); the counterpart of train/maml.py's
-    task_batch_grad."""
+    task_batch_grad; under `lockstep_route` a rank's tasks run side by
+    side."""
 
     route = local_route(mesh.sp_group)
 
     def task_loss(params, task, gen, fast):
         return adapt_and_query_loss(params, task, gen, model_cfg, meta_cfg, fast, route)
 
-    return mesh_batch_grad(mesh, shard_task_batch_2d, task_loss, meta_cfg.second_order)
+    def lockstep(params, tasks, gens):
+        if not lockstep_route(model_cfg, meta_cfg, tasks):
+            return None
+        return lockstep_grad_sums(params, tasks, gens, model_cfg, meta_cfg, route)
+
+    return mesh_batch_grad(mesh, shard_task_batch_2d, task_loss, meta_cfg.second_order,
+                           lockstep)
 
 
 def make_shardmap_meta_step_2d(model_cfg: ModelConfig, meta_cfg: MetaConfig, mesh: Mesh):
@@ -195,6 +224,5 @@ def make_shardmap_meta_step_2d(model_cfg: ModelConfig, meta_cfg: MetaConfig, mes
             f"tasks per update ({per_update}) must be divisible by the dp mesh axis "
             f"({mesh.dp}) for even sharding"
         )
-    refuse_lockstep(model_cfg, meta_cfg, "the node-sharded (dp x sp) path")
-    check_supported(model_cfg, meta_cfg)
+    check_supported(meta_cfg)
     return make_mesh_meta_step(meta_cfg, make_shardmap_batch_grad(model_cfg, meta_cfg, mesh))

@@ -26,6 +26,8 @@ head's [NL, H]; one standalone-STGCN forward draws the encoder masks
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
@@ -36,7 +38,8 @@ from weatherforecast_stgcn_maml_tpu_torch.models.common import (
     draw_mask,
     resolve_dtype,
 )
-from weatherforecast_stgcn_maml_tpu_torch.models.lstm import apply_lstm
+from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import task_params, tasks_lstm_head
+from weatherforecast_stgcn_maml_tpu_torch.models.lstm import apply_lstm, lstm_wavefront
 from weatherforecast_stgcn_maml_tpu_torch.models.stgcn import koppen_features
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_gcn_shard import gcn_shard_encoder
 from weatherforecast_stgcn_maml_tpu_torch.parallel.mesh import (
@@ -114,6 +117,13 @@ def _spatial_encoder(layers, a_rows, h_local, cfg: ModelConfig, group, masks=Non
     return h
 
 
+def node_local(cfg: ModelConfig) -> ModelConfig:
+    """`cfg` as the JAX package's node-local forward reads it: the LSTM is
+    `apply_lstm`'s whatever `model.lstm_wavefront` says (the shardmap meta
+    step, the spatial forward and train step)."""
+    return dataclasses.replace(cfg, lstm_wavefront=False) if cfg.lstm_wavefront else cfg
+
+
 def hybrid_local_forward(
     params, a_rows, x_local, koppen, cfg: ModelConfig, group, *, train: bool = False,
     generator: torch.Generator | None = None, masks: dict | None = None,
@@ -125,7 +135,11 @@ def hybrid_local_forward(
     In train mode the dropout masks are `masks` (this rank's, as
     `local_masks` lays them out) or drawn from `generator`; with neither
     there is no dropout. The fused LSTM kernels run per rank: the node axis
-    is the LSTM's row axis."""
+    is the LSTM's row axis. `cfg.lstm_wavefront` selects the wavefront
+    LSTM, as `models.hybrid.apply_hybrid` does (the GSPMD step, whose JAX
+    counterpart runs models/hybrid.py); the routes whose JAX counterpart is
+    the node-local forward, which knows no wavefront, pass
+    `node_local(cfg)`."""
     if cfg.family != "hybrid":
         return stgcn_local_forward(params, a_rows, x_local, koppen, cfg, group, train=train,
                                    generator=generator, masks=masks)
@@ -139,14 +153,51 @@ def hybrid_local_forward(
     h = _spatial_encoder(params.encoder.layers, a_rows, h, cfg, group, masks.get("encoder"))
     if cfg.stop_base_gradients:
         h = h.detach()
-    feat = apply_lstm(
-        params.lstm, h.contiguous(), train=train, masks=masks.get("lstm"),
-        dropout_rate=cfg.lstm_dropout, compute_dtype=dtype, kernel=cfg.lstm_kernel,
-    )
+    if cfg.lstm_wavefront:
+        feat = lstm_wavefront(params.lstm, h, masks=masks.get("lstm"),
+                              keep=1.0 - cfg.lstm_dropout if "lstm" in masks else 1.0,
+                              compute_dtype=dtype)
+    else:
+        feat = apply_lstm(
+            params.lstm, h.contiguous(), train=train, masks=masks.get("lstm"),
+            dropout_rate=cfg.lstm_dropout, compute_dtype=dtype, kernel=cfg.lstm_kernel,
+        )
     if masks.get("head") is not None:
         feat = apply_mask(feat, masks["head"], 1.0 - cfg.lstm_dropout)
     out = apply_dense(params.head, feat, compute_dtype=dtype)
     return out.reshape(nl, cfg.horizon, cfg.num_weather_vars).transpose(0, 1)
+
+
+def hybrid_local_forward_tasks(
+    params: dict, a_rows, x_local, koppen_code, cfg: ModelConfig, group, *,
+    masks: dict | None = None,
+) -> torch.Tensor:
+    """Train-mode forward of V tasks at their own parameters on this rank's
+    node rows, the node-sharded `models.hybrid.apply_hybrid_tasks`:
+    params {name: [V, ...]}, a_rows [V, NL, N], x_local [V, W, NL, C],
+    koppen_code [V] -> [V, H, NL, 12]. `masks` {"encoder", "lstm",
+    "head"}: each task's `local_masks`, stacked on a leading V axis (any
+    may be absent).
+
+    Per task the node-sharded encoder (`_spatial_encoder`: rows 12-13 on a
+    card, one all-gather a layer; the JAX package's vmap of them runs the
+    tasks one after another too); then every task's LSTM stack over its NL
+    rows in one launch each way (rows 16-17) and the heads as one product
+    (`tasks_lstm_head`)."""
+    masks = masks or {}
+    nv, w, nl = x_local.shape[:3]
+    koppen = params["koppen"][torch.arange(nv, device=koppen_code.device), koppen_code]
+    feats = []
+    for v in range(nv):
+        task = task_params(params, v, cfg.gcn_layers, koppen)
+        h = koppen_features(task, x_local[v], v).transpose(0, 1)  # [NL, W, C_in]
+        feats.append(_spatial_encoder(task.encoder.layers, a_rows[v], h, cfg, group,
+                                      masks["encoder"][v] if "encoder" in masks else None))
+    h = torch.stack(feats)  # [V, NL, W, hidden]
+    if cfg.stop_base_gradients:
+        h = h.detach()
+    out = tasks_lstm_head(params, h, {k: masks[k] for k in ("lstm", "head") if k in masks}, cfg)
+    return out.reshape(nv, nl, cfg.horizon, cfg.num_weather_vars).transpose(1, 2)
 
 
 def stgcn_local_forward(
@@ -188,7 +239,8 @@ def make_spatial_forward(model_cfg: ModelConfig, mesh: Mesh):
     @torch.no_grad()
     def fwd(params, a_hat, x, koppen):
         a_rows, x_local = _local_inputs(mesh, a_hat, x)
-        return hybrid_local_forward(params, a_rows, x_local, koppen, model_cfg, mesh.sp_group)
+        return hybrid_local_forward(params, a_rows, x_local, koppen, node_local(model_cfg),
+                                    mesh.sp_group)
 
     return fwd
 
@@ -210,8 +262,9 @@ def make_spatial_train_step(model_cfg: ModelConfig, mesh: Mesh, tx):
         named = list(state.params.named_parameters())
         a_rows, x_local, y_local, mask_local = _local_inputs(mesh, a_hat, x, y, node_mask)
         gen = shard_generator(key, mesh.sp_index, x.device)
-        preds = hybrid_local_forward(state.params, a_rows, x_local, koppen, model_cfg,
-                                     mesh.sp_group, train=True, generator=gen)
+        preds = hybrid_local_forward(state.params, a_rows, x_local, koppen,
+                                     node_local(model_cfg), mesh.sp_group, train=True,
+                                     generator=gen)
         loss = psum_masked_mse(preds, y_local, mask_local, mesh.sp_group)
         grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]

@@ -29,8 +29,9 @@ except in lockstep: with `ops.fused_lstm_stack._VBATCH` on, the first-order
 step of the hybrid family on the merged fused LSTM stack runs the tasks of
 a micro-batch side by side (`lockstep_batch_grad`), as the JAX package's
 vmap does, their LSTM stacks in one launch each way (kernel rows 16-17) and
-their inner updates in one (row 9); the dp mesh (parallel/meta_dp.py) runs
-a rank's tasks so too. The meta batch splits into
+their inner updates in one (row 9); on both meshes (parallel/meta_dp.py,
+parallel/meta_sp.py) a rank runs its tasks so too, through its
+`TaskRoute`. The meta batch splits into
 `grad_accum` micro-batches run in sequence; the mean meta-gradient of each
 feeds one clip + AdamW update (train/optimizers.py) from the parameters
 the previous update left.
@@ -45,6 +46,7 @@ encoder, LSTM, head masks in that order.
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -53,7 +55,11 @@ from torch import nn
 
 from weatherforecast_stgcn_maml_tpu_torch.config import MetaConfig, ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.models.common import accum_dtype, resolve_dtype
-from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks
+from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import (
+    apply_hybrid_tasks,
+    lockstep_planned,
+    lockstep_stack,
+)
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
     apply_model,
@@ -61,7 +67,6 @@ from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
     functional_apply,
     init_model,
 )
-from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_sgd import (
     clip_sgd_update,
     clip_sgd_update_plain,
@@ -90,9 +95,8 @@ class MamlState(NamedTuple):
 SO_REMATS = ("step", "dots", "none", "sqrt")
 
 
-def check_supported(model_cfg: ModelConfig, cfg: MetaConfig) -> None:
-    """Raise NotImplementedError, naming it, for a setting not ported, and
-    ValueError for an unknown second-order setting."""
+def check_supported(cfg: MetaConfig) -> None:
+    """Raise ValueError for an unknown second-order setting."""
     if cfg.second_order:
         if cfg.so_impl not in SO_IMPLS:
             raise ValueError(f"meta.so_impl={cfg.so_impl!r}: expected one of {SO_IMPLS}")
@@ -102,15 +106,6 @@ def check_supported(model_cfg: ModelConfig, cfg: MetaConfig) -> None:
                 f"meta.so_remat={cfg.so_remat!r}: expected 'step', 'dots', 'none', "
                 "'sqrt', or 'chunk:<k>'"
             )
-    unported = {
-        "meta.so_wavefront with so_impl 'hvp' or 'rof' (the wavefront LSTM "
-        "schedule)": cfg.second_order and cfg.so_wavefront and cfg.so_impl in ("hvp", "rof"),
-        "model.lstm_wavefront (the wavefront LSTM schedule)":
-            model_cfg.lstm_wavefront,
-    }
-    missing = [name for name, on in unported.items() if on]
-    if missing:
-        raise NotImplementedError("not ported: " + "; ".join(missing))
 
 
 def init_meta_state(
@@ -134,9 +129,13 @@ class TaskRoute(NamedTuple):
           the predictions;
       mse(preds, y, node_mask): the window's loss, the same on every rank;
       masks(cfg, generator, x [W, N, F]): one train forward's dropout masks;
-      reduce([gradient]): the inner gradient, before the clip;
+      reduce([gradient]): the inner gradient, before the clip (also the
+          stacked [V, ...] gradients of tasks run in lockstep);
       grad_loss_fused(model, cfg): `so_impl="fhvp"`'s gradient, forward-
-          differentiable through rows 10-11 (train/so_fused.py).
+          differentiable through rows 10-11 (train/so_fused.py);
+      forward_tasks(params, a_hat, x, koppen, cfg, *, masks): V tasks'
+          train-mode predictions at their own parameters ({name: [V, ...]},
+          x [V, W, N, F]), for `lockstep_grad_sums`.
     """
 
     forward: Callable
@@ -144,13 +143,14 @@ class TaskRoute(NamedTuple):
     masks: Callable
     reduce: Callable
     grad_loss_fused: Callable
+    forward_tasks: Callable
 
 
 def device_route() -> TaskRoute:
     """One device, the whole task: this module's model functions, looked up
     when the route is made, and no sum over ranks."""
     return TaskRoute(apply_model, masked_mse, draw_masks, lambda grads: grads,
-                     make_grad_loss_fused)
+                     make_grad_loss_fused, apply_hybrid_tasks)
 
 
 def param_grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -245,15 +245,21 @@ def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg, route) -> 
 
     "xla" runs the plain route everywhere; the other so_impl values take the
     inner gradient on the model's own route and differentiate twice on the
-    plain route ("hvp", "rof") or through rows 10-11 ("fhvp"). On a dp x sp
+    plain route ("hvp", "rof"; with `meta.so_wavefront` its LSTM is the
+    wavefront, `models/lstm.lstm_wavefront`) or through rows 10-11
+    ("fhvp", which ignores `so_wavefront`, as does "xla"). On a dp x sp
     rank `route.reduce` sums each step's partial gradient over sp before the
     clip; its backward sums the cotangents over sp before each rank's
     Hessian transpose.
     """
-    check_supported(model_cfg, cfg)
+    check_supported(cfg)
     route_x = plain_route(model_cfg)
     if cfg.so_impl == "xla":
         model_cfg = route_x  # double backward needs the plain route everywhere
+    elif cfg.so_wavefront and cfg.so_impl in ("hvp", "rof"):
+        # Their Hessian transpose runs the wavefront LSTM (the same cells and
+        # masks, T + L - 1 serial steps), as the JAX package's does.
+        route_x = dataclasses.replace(route_x, lstm_wavefront=True)
     fused = route.grad_loss_fused(params, model_cfg) if cfg.so_impl == "fhvp" else None
     inner_grad = make_so_grad(support_loss(params, model_cfg, route.forward, route.mse),
                               support_loss(params, route_x, route.forward, route.mse),
@@ -273,44 +279,24 @@ def _so_adapt_and_query_loss(params, task, generator, model_cfg, cfg, route) -> 
     return _query_loss(params, p, task, generator, model_cfg, cfg, route)
 
 
-def lockstep_stack(model_cfg: ModelConfig) -> str | None:
-    """The LSTM stack a task-batched train forward runs (`apply_hybrid_tasks`),
-    or None where the model's tasks (or a fleet's regions) run one after
-    another. Under `_VBATCH`, the hybrid family on the merged fused stack
-    ("fused": where the JAX flag sends a vmap over tasks to its task-batched
-    kernels, see ops/fused_lstm_stack.py) and on the plain stack ("plain":
-    `lstm_kernel="xla"`, the same arithmetic with no kernel, so that the two
-    compare with the same dropout masks)."""
-    if not fused_lstm_stack._VBATCH or model_cfg.family != "hybrid":
-        return None
-    if model_cfg.use_pallas_lstm and model_cfg.lstm_dropout == 0.0:
-        return None  # the train-mode row 20 route
-    if model_cfg.lstm_kernel == "xla":
-        return "plain"
-    if model_cfg.lstm_kernel not in ("auto", "pallas_stack") or not fused_lstm_stack._MERGED_GATES:
-        return None
-    return "fused"
-
-
-def lockstep_planned(model_cfg: ModelConfig, tasks: int, rows: int, device) -> bool:
-    """Whether the fused stack's recurrences have a cluster plan for `tasks`
-    tasks of `rows` rows (`stack_planned`), as the JAX package's
-    task-batched kernels run only where `vbatch_supported` holds."""
-    return fused_lstm_stack.stack_planned(model_cfg.lstm_hidden, rows,
-                                          resolve_dtype(model_cfg.compute_dtype), device, tasks)
-
-
 def lockstep_route(model_cfg: ModelConfig, cfg: MetaConfig, tasks: Task | None = None) -> bool:
     """Whether the meta step runs a micro-batch's tasks in lockstep: first
     order, where `lockstep_stack` names a stack. Given the stacked `tasks`,
     the fused stack goes in lockstep only where `lockstep_planned` holds for
-    their V tasks; elsewhere the tasks run one after another, where `auto`
-    then takes the plain stack."""
+    their V tasks (a dp x sp rank's: its node rows); elsewhere the tasks run
+    one after another, counted in `lockstep_route.serial_fallbacks`, where
+    `auto` then takes the plain stack if one task has no plan either."""
     stack = None if cfg.second_order else lockstep_stack(model_cfg)
     if stack != "fused" or tasks is None:
         return stack is not None
     nv, _, _, nodes, _ = tasks.support_x.shape  # [V, S, W, N, F]
-    return lockstep_planned(model_cfg, nv, nodes, tasks.support_x.device)
+    if lockstep_planned(model_cfg, nv, nodes, tasks.support_x.device):
+        return True
+    lockstep_route.serial_fallbacks += 1
+    return False
+
+
+lockstep_route.serial_fallbacks = 0  # micro-batches run serially for want of a plan
 
 
 @torch.no_grad()
@@ -329,54 +315,59 @@ def lockstep_grad_sums(
     generator,
     model_cfg: ModelConfig,
     cfg: MetaConfig,
+    route: TaskRoute | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The first-order meta-gradients of a stacked batch of V tasks, run in
     lockstep: (per-task query losses [V], {name: gradient summed over the
-    tasks}).
+    tasks}); on a dp x sp rank (`route`, parallel/meta_sp.local_route) the
+    rank's partials of those.
 
     The fast parameters are one copy of the meta-parameters stacked V
     times. Inner step s runs one task-batched train forward and backward
-    (`apply_hybrid_tasks`) on support window s % S of every task, then one
-    clip + SGD update of the whole stacked tree, each task clipped by its
-    own norm (`inner_sgd_update_tasks`). Then the query loss of every task,
-    and each task's gradient at its adapted parameters. The tasks share no
+    (`route.forward_tasks`: `apply_hybrid_tasks`, or a rank's node rows) on
+    support window s % S of every task, sums the stacked gradients over
+    the ranks (`route.reduce`, before any clip), then one clip + SGD update
+    of the whole stacked tree, each task clipped by its own norm
+    (`inner_sgd_update_tasks`). Then the query loss of every task, and each
+    task's gradient at its adapted parameters. The tasks share no
     parameter, so one backward of the summed losses gives each task's own
     gradient in its slice.
 
     Dropout: `generator` is one torch.Generator (or None) or a sequence of
-    V, one a task. From one, masks come inner step by inner step, task by
-    task within a step (each task's encoder, LSTM, head masks), then query
-    window by query window, task by task within each: the same draws as the
-    serial route's, in another order, so the same seed gives other masks.
-    From V, task v draws from its own in the order its serial run would
-    (its inner steps, then its query windows): the same masks as the serial
-    route given that generator (the dp mesh's per-task generators).
+    V, one a task; each task's masks are `route.masks`' of its window. From
+    one, masks come inner step by inner step, task by task within a step
+    (each task's encoder, LSTM, head masks), then query window by query
+    window, task by task within each: the same draws as the serial route's,
+    in another order, so the same seed gives other masks. From V, task v
+    draws from its own in the order its serial run would (its inner steps,
+    then its query windows): the same masks as the serial route given that
+    generator (the meshes' per-task generators).
     """
+    route = route or device_route()
     named = sorted(params.named_parameters(), key=lambda kv: leaf_order(kv[0]))
     names = [k for k, _ in named]
     nv = tasks.support_x.shape[0]
     fast = [p.detach().unsqueeze(0).repeat(nv, *[1] * p.dim()).requires_grad_(True)
             for _, p in named]
+    gens = generator if isinstance(generator, (list, tuple)) else [generator] * nv
 
-    def masks_of(gen, x):  # x [V, W, N, F]
-        if gen is None or isinstance(gen, torch.Generator):
-            return draw_masks(model_cfg, gen, x)
-        per_task = [draw_masks(model_cfg, g, x[v]) for v, g in enumerate(gen)]
+    def masks_of(gens, x):  # x [V, W, N, F]
+        per_task = [route.masks(model_cfg, g, x[v]) for v, g in enumerate(gens)]
         return {k: torch.stack([m[k] for m in per_task]) for k in per_task[0]}
 
-    def losses_at(x, y, gen):  # per-task losses [V] of one window a task
-        preds = apply_hybrid_tasks(dict(zip(names, fast)), tasks.a_hat, x, tasks.koppen,
-                                   model_cfg, masks=masks_of(gen, x))
-        return torch.stack([masked_mse(preds[v], y[v], tasks.node_mask[v]) for v in range(nv)])
+    def losses_at(x, y, gens):  # per-task losses [V] of one window a task
+        preds = route.forward_tasks(dict(zip(names, fast)), tasks.a_hat, x, tasks.koppen,
+                                    model_cfg, masks=masks_of(gens, x))
+        return torch.stack([route.mse(preds[v], y[v], tasks.node_mask[v]) for v in range(nv)])
 
     n_support = tasks.support_x.shape[1]
     for s in range(cfg.inner_epochs * n_support):
         idx = s % n_support  # epoch-major pass over the same support windows
-        losses = losses_at(tasks.support_x[:, idx], tasks.support_y[:, idx], generator)
-        inner_sgd_update_tasks(fast, param_grads(losses.sum(), fast), cfg)
+        losses = losses_at(tasks.support_x[:, idx], tasks.support_y[:, idx], gens)
+        inner_sgd_update_tasks(fast, route.reduce(param_grads(losses.sum(), fast)), cfg)
     q = max(1, min(cfg.query_batches, tasks.query_x.shape[1]))
-    gen = generator if cfg.query_train_mode else None
-    losses = torch.stack([losses_at(tasks.query_x[:, i], tasks.query_y[:, i], gen)
+    query_gens = gens if cfg.query_train_mode else [None] * nv
+    losses = torch.stack([losses_at(tasks.query_x[:, i], tasks.query_y[:, i], query_gens)
                           for i in range(q)]).mean(dim=0)
     grads = dict(zip(names, param_grads(losses.sum(), fast)))
     return losses.detach(), {k: grads[k].sum(dim=0) for k, _ in params.named_parameters()}
@@ -435,7 +426,7 @@ def make_meta_step(model_cfg: ModelConfig, cfg: MetaConfig):
     min(grad_accum, B)). Metrics: `meta_loss` (mean of the per-task query
     losses), `per_task_loss` [B] in input order, `learning_rate` (the
     schedule at the last update)."""
-    check_supported(model_cfg, cfg)
+    check_supported(cfg)
     opt = MetaOptimizer(cfg)
 
     def meta_step(state: MamlState, tasks: Task, generator: torch.Generator | None):

@@ -28,14 +28,17 @@ from torch import nn
 
 from weatherforecast_stgcn_maml_tpu_torch.config import ModelConfig
 from weatherforecast_stgcn_maml_tpu_torch.data.windows import WindowSpec, gather_batch
-from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks
+from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import (
+    apply_hybrid_tasks,
+    lockstep_planned,
+    lockstep_stack,
+)
 from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import (
     apply_model,
     draw_masks,
     functional_apply,
 )
-from weatherforecast_stgcn_maml_tpu_torch.train.maml import lockstep_planned, lockstep_stack
 from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import AdamState, AdaptOptimizer
 
 
@@ -52,8 +55,12 @@ def batched_forward(
 
     The weights are shared across windows, so the batch folds into the
     encoder's time slices and the LSTM's rows: one kernel launch each for
-    the whole batch. In train mode every window has its own dropout masks
-    (drawn from `generator` window by window, or given per window).
+    the whole batch. In train mode under `ops.fused_lstm_stack._VBATCH`
+    without `_ROWFOLD` the LSTM runs one window a task instead (rows 16-17,
+    the weights shared; `models/hybrid.window_batch_unfolded`), as the JAX
+    package's vmap over windows does. In train mode every window has its
+    own dropout masks (drawn from `generator` window by window, or given
+    per window).
     """
     return apply_model(
         params, a_hat, x, koppen, model_cfg, train=train, generator=generator, masks=masks
@@ -86,7 +93,7 @@ def region_batched_route(model_cfg: ModelConfig, regions: int, rows: int,
                          device: torch.device) -> bool:
     """Whether a fleet step runs its `regions` regions' LSTM stacks in one
     task-batched launch each way (`rows` LSTM rows a region: windows x
-    nodes): where `train/maml.lockstep_stack` names a stack, and for the
+    nodes): where `models/hybrid.lockstep_stack` names a stack, and for the
     fused stack where `lockstep_planned` holds for the regions' rows, as
     the meta step's lockstep route decides for tasks. Where it does not,
     the regions run in turn, counted in

@@ -18,7 +18,9 @@ Phases (the first failure raises and exits non-zero; each prints its wall
 time):
   1. require a CUDA card of compute capability 9.x; print its name and
      power limit;
-  2. build the CUDA kernels from ops/csrc/*.cu; check that the library
+  2. build the native host pipeline (native/csrc/wf_native.cpp, g++; the
+     script fails without it) and the CUDA kernels from ops/csrc/*.cu;
+     check that the library
      exports no `wf_gemm` (gemm.cu's retired SIMT GEMM: no path can launch
      it) and that the retired row 2 and row 20 sources are gone; print the
      cluster plans of the backward, forward and tangent LSTM recurrences
@@ -39,6 +41,11 @@ time):
      yardsticks (row 2 at both shapes by events, CUDA graph replay and
      enqueue, cuDNN's forward by events and graph replay), one `predict`
      call and one whole forecast request;
+  5b. hold the native host pipeline's five functions against the numpy
+     route on Moscow's region (720 steps x 441 nodes, 5% NaN: kNN edges and
+     windows equal, adjacency, NaN fill, stats and z-score within float32
+     rounding) and time the forecast request's host stages (graph,
+     features) and the whole request with the library on and off, in turns;
   6. hold the training kernels (rows 4-7) against their plain versions at
      the inner step's shapes (one window: 24 slices x 512 nodes, 512 LSTM
      rows), forward and every gradient, float32 and bfloat16, with the same
@@ -92,17 +99,26 @@ time):
      on the plain stack),
      every loss must be finite;
   9b. drive `cli meta-train -o meta.second_order=true` at the defaults
-     with inner epochs cut to SO_INNER_EPOCHS (2): 1 epoch float32, 1
+     with inner epochs cut to SO_INNER_EPOCHS (1): 1 epoch float32, 1
      epoch bfloat16, `--resume` to epoch 2; rows 10-11 must launch once
-     each an inner step, 120 times a meta step (with 4 / 4 and 4 / 8 / 16
+     each an inner step, 60 times a meta step (with 4 / 4 and 4 / 8 / 16
      pieces a call) and rows 4-7 too, every loss finite;
-  9c. `lstm_kernel=auto` at float32 hidden 320, where no cluster plan holds
-     Wh: one train step of the hybrid runs the plain stack (rows 4-5 never
-     launch, the plain-route counter moves once; loss and gradients equal to
-     `lstm_kernel=xla`'s), `pallas_stack` and `pallas` raise, second
-     order's fused inner gradient is the plain loss's (counted once), and
-     `cli meta-train -o model.lstm_hidden=320` trains 1 float32 epoch (its
-     inner epochs cut to 1) with 64 plain-route calls and no row 4-5 launch;
+  9c. `lstm_kernel=auto` at float32 hidden 448, where no cluster plan holds
+     Wh (not even a 16-block one): one train step of the hybrid runs the
+     plain stack (rows 4-5 never launch, the plain-route counter moves once;
+     loss and gradients equal to `lstm_kernel=xla`'s), `pallas_stack` and
+     `pallas` raise, second order's fused inner gradient is the plain loss's
+     (counted once); `cli meta-train -o model.lstm_hidden=320` (16-block
+     clusters) trains 1 float32 epoch (its inner epochs cut to 1) with 64
+     launches of rows 4 and 5 and no plain route;
+  9d. every LSTM cluster recurrence on 16-block clusters (`wide_cluster_phase`)
+     at float32 H 320 and 384 and bfloat16 H 512, at the inner step's
+     shapes: rows 4-5 and 16-17 (V = 2; masks at 0.2 and off), rows 10-11,
+     rows 18-19 (xp [24, 512, 4H]), rows 2 and 20 ([512, 24, 256] and
+     [1536, 24, 256]) against their plain versions, gated on their
+     launches; each plan's cluster size and cudaOccupancyMaxActiveClusters;
+     each row's time by CUDA events beside its plain version's, cuDNN's
+     LSTM and its bound;
  10. drive `cli adapt` (Moscow and Thailand float32, 2 epochs, Moscow
      bfloat16, 1 epoch) from that `ckpt_best`, `validate` the adapted
      Moscow model (with --no-plots, then at its defaults: where matplotlib
@@ -115,7 +131,8 @@ time):
  11. time one inner step (fused and per-leaf update, with a torch.profiler
      breakdown of the fused one) and one meta step, with the meta step's
      peak device memory; the same for one SO inner step (the gradient and
-     its Hessian-vector product) and one SO meta step;
+     its Hessian-vector product) and one SO meta step of
+     TIMED_INNER_EPOCHS (1) inner epoch;
  12. hold the node-sharded GCN sandwich kernels (rows 12-13) against their
      plain versions at full width (W = 24, N = 512, hid = 256, NL = 512,
      256, 128: the rows 1, 2 and 4 sp ranks hold), with and without a next
@@ -129,13 +146,14 @@ time):
      route (2 tasks x 15 inner steps); one sharded meta step at MetaConfig()
      defaults, the main path of rows 12-13 (4 x 364 launches of each; rows
      4-5 364, row 8 360, as unsharded); the sharded meta step timed against
-     the unsharded one in turns, with a torch.profiler breakdown of one
+     the unsharded one in turns (TIMED_INNER_EPOCHS inner epoch each), with a torch.profiler breakdown of one
      sharded inner step; `cli meta-train --mesh` (dp, world 1) for 1 epoch;
  14. two ranks on the one card, joined by gloo (which carries CUDA tensors;
      NCCL refuses two ranks on one card): `two_ranks` has
      torch.distributed.run start
      `cli meta-train --mesh --device cuda:0 -o mesh.spatial_devices=2`
-     (one named card: gloo) for 1 float32 epoch, inner epochs cut to 1;
+     (one named card: gloo) for 1 float32 epoch, inner epochs cut to 1 of
+     RANK_INNER_BATCHES (5) steps, as in every two-rank run;
      each rank must launch rows 12-13 on its 256 rows, both ranks must
      report the same finite losses, and one set of checkpoints must exist;
  15a. hold the pipelined GEMM core (csrc/gemm_nn.cu) against gemm_nn_plain
@@ -174,9 +192,10 @@ time):
      model.lstm_dropout=0` (1 epoch: row 20 in train mode, forward and
      backward on the card, row 4 never; its epoch timed beside the default
      route's in this phase), and `forecast -o model.lstm_hidden=320` under
-     `lstm_kernel=auto` and under `use_pallas_lstm` (no cluster holds Wh:
-     the plain stack, counted, rows 2, 14 and 20 never; against `--device
-     cpu`); every loss must be finite;
+     `lstm_kernel=auto` (row 2) and under `use_pallas_lstm` (row 20; 16-block
+     clusters), and at `model.lstm_hidden=448` under both (no cluster holds
+     Wh: the plain stack, counted, rows 2, 14 and 20 never), each against
+     `--device cpu`; every loss must be finite;
  17. hold the unmerged-gates stack (rows 14-15: the forward's last h and
      residuals, the backward from the same residuals) and the task-batched
      stack (rows 16-17, V = 2 and 4, distinct weights a task; forward and
@@ -255,13 +274,13 @@ time):
      step on the dp x sp mesh against the unsharded one in turns, each with
      its device-busy share; `cli meta-train --mesh -o
      meta.second_order=true` 1 epoch of SO_INNER_EPOCHS inner epochs (rows
-     10-11 120 times each, finite losses); with _VBATCH set, the lockstep dp-mesh meta-gradient against
+     10-11 60 times each, finite losses); with _VBATCH set, the lockstep dp-mesh meta-gradient against
      the serial one with dropout on and the same key (1e-5; rows 16-17 16
      times, row 9 15) and `cli meta-train --mesh` 1 epoch (rows 16-17 182
      each, row 9 180, rows 4-5 and 8 none), the flag restored; two gloo
      ranks on the card (phase 14's launcher) with `-o meta.second_order=true
      -o meta.inner_epochs=1`: each rank launches rows 10-11 on its 256 rows
-     60 times, both report the same finite losses.
+     20 times, both report the same finite losses.
  23. the GSPMD dp x sp step and chained meta epochs, at ModelConfig()
      float32: on a 1 x 1 dp x sp mesh (a NCCL group of one rank) the GSPMD
      meta-gradient of 2 tasks x 15 inner steps at dropout 0.2 against the
@@ -271,7 +290,8 @@ time):
      ranks on the card (phase 14's launcher) with `-o model.family=stgcn -o
      meta.inner_epochs=1`: the log names the GSPMD step, both ranks report
      the same finite losses; `cli meta-train -o meta.epochs_per_dispatch=2
-     -o meta.num_epochs=3` (chunks of 2 + 1) against the same run epoch by
+     -o meta.num_epochs=3` (chunks of 2 + 1; CLI_INNER_EPOCHS = 1 inner
+     epoch) against the same run epoch by
      epoch fed its task indices: losses and final parameters within 1e-6
      relative (bitwise equality printed), rows 4-8 3 x an epoch's
      launches, one metrics fetch a chunk, each run's seconds an epoch
@@ -287,7 +307,7 @@ time):
      the SO meta-gradient of 1 task (hvp, rof) with `meta.so_wavefront`
      against the layerwise Hessian transposes on the same key (1e-4; one
      wavefront an inner step); `cli meta-train -o model.lstm_wavefront=true`
-     1 epoch (finite losses, no LSTM kernel launch); a Moscow forecast from
+     1 epoch of 1 inner epoch (finite losses, no LSTM kernel launch); a Moscow forecast from
      its checkpoint on the card against --device cpu (phase 4's gate); (b)
      the adaptation step at AdaptConfig() (2 windows x 512 rows, Moscow's
      data) under _VBATCH with _ROWFOLD off against the folded step on the
@@ -298,7 +318,7 @@ time):
      against the serial one, dropout 0.2, the same key (1e-5; rows 16-17
      16 times each, row 9 15, rows 12-13 128, rows 4-5 and 8 none), timed
      in turns; two gloo ranks on the card (phase 14's launcher, `--vbatch`,
-     1 inner epoch): each rank launches rows 16-17 32 times and row 9 30
+     1 inner epoch): each rank launches rows 16-17 12 times and row 9 10
      times on its 256 rows, both report the same finite losses.
 
 The last three lines of stdout are the kernels JSON, the card line as
@@ -325,6 +345,7 @@ TOL = {"float32": 1e-5, "bfloat16": 5e-2}  # rtol = atol; gradients: max|diff| /
 REPEATS = 10
 REGIONS = ("Moscow", "NewYork", "Thailand")
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bfloat16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TPU_KERNELS = {
     "fused_gcn_stack": "weatherforecast_stgcn_maml_tpu/ops/fused_gcn.py:148",
@@ -396,8 +417,17 @@ NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel"
 RECURRENCE_SOURCES = {"lstm_scan_fwd_kernel": "lstm_stack_fwd.cu",
                       "lstm_scan_tan_kernel": "lstm_scan_tan.cu",
                       "lstm_scan_fwd_tan_kernel": "lstm_scan_fwd_tan.cu"}
-MESH_INNER_EPOCHS = 1  # phase 14's cut: 1 x 15 inner steps a task
-SO_INNER_EPOCHS = 2  # the SO meta-train runs' cut (phases 9b and 22): 2 x 15 inner steps a task
+MESH_INNER_EPOCHS = 1  # phase 14's cut: 1 inner epoch a task
+# The two-rank runs' cut (`two_ranks`: phases 14, 22, 23 and 24): 5 inner
+# steps an inner epoch, not 15.
+RANK_INNER_BATCHES = 5
+# Phase 23's chained meta-train runs and phase 24's wavefront meta-train:
+# 1 inner epoch, not 6.
+CLI_INNER_EPOCHS = 1
+# The meta steps timed in turns in phase 13 and the SO meta step timed in
+# phase 11: 1 inner epoch, not 6.
+TIMED_INNER_EPOCHS = 1
+SO_INNER_EPOCHS = 1  # the SO meta-train runs' cut (phases 9b and 22): 1 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
 
 
@@ -449,10 +479,13 @@ def enqueue_ms(torch, fn, repeats=REPEATS):
     return statistics.median(times)
 
 
-def bound_ms(n_bytes, flops):
+def bound_ms(n_bytes, flops, dtype="float32"):
     """The least time the card could take: bytes over the memory rate or
-    float32 operations over the float32 rate, whichever is larger."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    operations over the card's peak rate for `dtype` ("float32": outside
+    the tensor cores; "bfloat16": the tensor cores' dense rate), whichever
+    is larger."""
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
@@ -585,7 +618,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from weatherforecast_stgcn_maml_tpu_torch import cli
+    from weatherforecast_stgcn_maml_tpu_torch import cli, native
     from weatherforecast_stgcn_maml_tpu_torch.config import (
         ADAPTATION_REGIONS,
         META_TRAIN_REGIONS,
@@ -735,6 +768,11 @@ def main() -> int:
 
     # 2. Build.
     with Phase("build"):
+        t0 = time.perf_counter()
+        if not native.build():  # the host pipeline: g++, one source
+            raise RuntimeError("no C++ compiler: the native host pipeline did not build")
+        log(f"native host pipeline {native._lib._name}: {time.perf_counter() - t0:.2f} s"
+            + (f"; g++: {native.build_log.strip()}" if native.build_log.strip() else ""))
         cuda_build.load()
         if cuda_build.build_seconds is None:
             log("kernels loaded from an earlier build of the same sources")
@@ -1162,6 +1200,11 @@ def main() -> int:
         for dt_name in TOL:
             ms = host_ms(torch, lambda: forecast("Moscow", dt_name, serve_dir))
             log(f"forecast request Moscow {dt_name}: {ms:.3f} ms  [{card}]")
+
+    # 5b. The native host pipeline against its numpy route, and the forecast
+    # request's host stages with it on and off.
+    with Phase("native host pipeline"):
+        native_phase(torch, card, lambda region, dt_name: forecast(region, dt_name, serve_dir))
 
     # 6. Training kernels (rows 4-7) vs plain at the inner step's shapes.
     w_len, hid, lh, n_l = cfg.window, cfg.hidden_channels, cfg.lstm_hidden, cfg.lstm_layers
@@ -2333,77 +2376,87 @@ def main() -> int:
                 log(f"  SO {name} epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, tasks "
                     f"{r['task_indices']}, {r['epoch_seconds']:.2f} s  [{card}]")
 
-    # 9c. `lstm_kernel=auto` where no cluster holds Wh (float32 hidden 320):
-    # the plain stack in place of rows 4-5, as the JAX package's `auto` takes
-    # its XLA scan where `stack_supported` fails; the forced routes raise.
-    with Phase("auto at float32 hidden 320"):
-        cfg320 = dataclasses.replace(cfg, lstm_hidden=320)
-        state = init_meta_state(torch.Generator().manual_seed(1), cfg320, meta_cfg, device=dev)
+    # 9c. `lstm_kernel=auto` where no cluster holds Wh (float32 hidden 448,
+    # past even a 16-block cluster): the plain stack in place of rows 4-5,
+    # as the JAX package's `auto` takes its XLA scan where `stack_supported`
+    # fails; the forced routes raise. At hidden 320 a 16-block cluster holds
+    # Wh: `cli meta-train` there runs rows 4-5 (the wide phase, 9d, holds
+    # each row there against its plain version).
+    with Phase("auto at float32 hidden 448 and 320"):
+        cfg448 = dataclasses.replace(cfg, lstm_hidden=448)
+        state = init_meta_state(torch.Generator().manual_seed(1), cfg448, meta_cfg, device=dev)
         task = task_at(tasks, 0)
         params = list(state.params.parameters())
 
-        def step320(mc):
+        def step448(mc):
             g = torch.Generator(device=dev).manual_seed(3)
             loss = masked_mse(apply_model(state.params, task.a_hat, task.support_x[0],
                                           task.koppen, mc, train=True, generator=g),
                               task.support_y[0], task.node_mask)
             return loss.detach(), torch.autograd.grad(loss, params)
 
-        def counts320():
+        def counts_auto():
             train = lstm_stack_train
             return (train.launches, train.backward_launches, train.plain_routes)
 
-        before = counts320()
-        loss320, got = step320(cfg320)
-        moved = tuple(a - b for a, b in zip(counts320(), before))
-        loss_x, ref = step320(dataclasses.replace(cfg320, lstm_kernel="xla"))
-        same = bool(loss320 == loss_x) and all(torch.equal(a, b) for a, b in zip(got, ref))
-        log(f"train step float32 hidden 320, lstm_kernel=auto: loss {float(loss320):.6f}; rows "
+        before = counts_auto()
+        loss448, got = step448(cfg448)
+        moved = tuple(a - b for a, b in zip(counts_auto(), before))
+        loss_x, ref = step448(dataclasses.replace(cfg448, lstm_kernel="xla"))
+        same = bool(loss448 == loss_x) and all(torch.equal(a, b) for a, b in zip(got, ref))
+        log(f"train step float32 hidden 448, lstm_kernel=auto: loss {float(loss448):.6f}; rows "
             f"4 / 5 / plain routes {moved}; loss and every gradient equal to the plain "
             f"route's: {same}")
-        if moved != (0, 0, 1) or not same or not torch.isfinite(loss320):
-            raise RuntimeError(f"auto at float32 hidden 320: launches {moved}, equal to the "
-                               f"plain route {same}, loss {float(loss320)}")
+        if moved != (0, 0, 1) or not same or not torch.isfinite(loss448):
+            raise RuntimeError(f"auto at float32 hidden 448: launches {moved}, equal to the "
+                               f"plain route {same}, loss {float(loss448)}")
         for kernel in ("pallas_stack", "pallas"):
             try:
-                step320(dataclasses.replace(cfg320, lstm_kernel=kernel))
+                step448(dataclasses.replace(cfg448, lstm_kernel=kernel))
             except ValueError as err:
-                log(f"lstm_kernel={kernel} at float32 hidden 320 refused: {err}")
+                log(f"lstm_kernel={kernel} at float32 hidden 448 refused: {err}")
             else:
-                raise RuntimeError(f"lstm_kernel={kernel} ran at float32 hidden 320")
+                raise RuntimeError(f"lstm_kernel={kernel} ran at float32 hidden 448")
         # Second order's fused inner gradient (fhvp) takes the plain loss's
         # gradient there, as the JAX package's fhvp takes its XLA loss's.
         aux = (task.support_x[0], task.support_y[0], task.a_hat, task.koppen, task.node_mask)
-        so_masks = draw_masks(cfg320, torch.Generator(device=dev).manual_seed(4), aux[0])
+        so_masks = draw_masks(cfg448, torch.Generator(device=dev).manual_seed(4), aux[0])
         q = {k: v.detach() for k, v in state.params.named_parameters()}
         before = lstm_stack_train.plain_routes
-        got_so = make_grad_loss_fused(state.params, cfg320)(q, aux, so_masks)
+        got_so = make_grad_loss_fused(state.params, cfg448)(q, aux, so_masks)
         so_moved = lstm_stack_train.plain_routes - before
-        ref_so = torch.func.grad(support_loss(state.params, plain_route(cfg320)))(q, aux,
+        ref_so = torch.func.grad(support_loss(state.params, plain_route(cfg448)))(q, aux,
                                                                                   so_masks)
         same = all(torch.equal(got_so[k], ref_so[k]) for k in q)
-        log(f"SO fused inner gradient float32 hidden 320: plain routes {so_moved}; equal to "
+        log(f"SO fused inner gradient float32 hidden 448: plain routes {so_moved}; equal to "
             f"the plain loss's gradient: {same}")
         if so_moved != 1 or not same:
-            raise RuntimeError(f"SO at float32 hidden 320: plain routes {so_moved}, equal {same}")
+            raise RuntimeError(f"SO at float32 hidden 448: plain routes {so_moved}, equal {same}")
         del state, task, params, got, ref, q, got_so, ref_so
-        # The CLI at the defaults but the width: 1 float32 epoch (one meta
-        # step), its depth cut to 1 inner epoch (4 x 15 inner steps).
+        # The CLI at the defaults but the width 320 (16-block clusters): 1
+        # float32 epoch (one meta step), its depth cut to 1 inner epoch (4 x
+        # 15 inner steps and a query a task): rows 4-5 once a forward, no
+        # plain route.
         lstm_stack_train.launches = lstm_stack_train.backward_launches = 0
         lstm_stack_train.plain_routes = 0
         records = meta_train("float32", 1, "-o", "model.lstm_hidden=320",
                              "-o", "meta.inner_epochs=1", out="h320")
-        h320 = counts320()
+        h320 = counts_auto()
         calls320 = meta_cfg.meta_batch * (meta_cfg.inner_batches + 1)
         log(f"meta-train -o model.lstm_hidden=320, 1 epoch of 1 inner epoch: rows 4 / 5 / "
             f"plain routes {h320}")
-        if h320 != (0, 0, calls320) or not all(
+        if h320 != (calls320, calls320, 0) or not all(
                 np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all() for r in records):
-            raise RuntimeError(f"meta-train at float32 hidden 320: launches {h320}, not (0, 0, "
-                               f"{calls320}); logs {records}")
+            raise RuntimeError(f"meta-train at float32 hidden 320: launches {h320}, not "
+                               f"({calls320}, {calls320}, 0); logs {records}")
         for r in records:
             log(f"  hidden 320 epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, "
                 f"{r['epoch_seconds']:.2f} s  [{card}]")
+
+    # 9d. Every LSTM cluster recurrence on 16-block clusters, against its
+    # plain version, at the widths only such a cluster holds Wh at.
+    with Phase("16-block clusters"):
+        wide = wide_cluster_phase(torch, dev, card)
 
     # 10. Adaptation and the pipeline through the CLI, from the meta-trained
     # ckpt_best (float32); depth cut to 1-2 epochs, the width is the reference's.
@@ -2586,7 +2639,8 @@ def main() -> int:
         log(f"SO inner step float32 (kernel-route gradient + fhvp Hessian-vector product, "
             f"one window): {ms:.3f} ms  [{card}]")
         profile_steps(torch, so_inner_step, "float32 SO inner steps", card)
-        step = make_meta_step(mc, so_cfg)
+        timed_so = dataclasses.replace(so_cfg, inner_epochs=TIMED_INNER_EPOCHS)
+        step = make_meta_step(mc, timed_so)
         torch.cuda.reset_peak_memory_stats(dev)
 
         def so_meta_step():
@@ -2595,8 +2649,9 @@ def main() -> int:
 
         ms = host_ms(torch, so_meta_step, repeats=1)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        log(f"SO meta step float32 (fhvp, 4 tasks x 90 inner steps + query, grad-accum 2): "
-            f"{ms:.1f} ms, peak device memory {peak:.2f} GiB  [{card}]")
+        log(f"SO meta step float32 (fhvp, 4 tasks x "
+            f"{timed_so.inner_epochs * timed_so.inner_batches} inner steps + query, grad-accum "
+            f"2): {ms:.1f} ms, peak device memory {peak:.2f} GiB  [{card}]")
     # 12. The node-sharded GCN sandwich (rows 12-13) vs plain at full width:
     # one layer's hw_full [N, W, hid] node-major, this rank's rows of the
     # Moscow adjacency, the model's bias and next weight, masks at rate 0.2.
@@ -2755,7 +2810,8 @@ def main() -> int:
                         flops_b = 4 * nl * w_len * hid * hid + 2 * n * nl * w_len * hid
                         bytes_f = hw_b + fixed_b + 4 * hid + 2 * act_b
                         bytes_b = 3 * act_b + fixed_b + hw_b + 4 * hid * hid + 4 * hid
-                        bf, bb = bound_ms(bytes_f, flops_f)[0], bound_ms(bytes_b, flops_b)[0]
+                        bf, bb = (bound_ms(bytes_f, flops_f, dt_name)[0],
+                                  bound_ms(bytes_b, flops_b, dt_name)[0])
                         log(f"rows 12-13 {dt_name} NL={nl} [N {n}, W {w_len}, hid {hid}]: kernel "
                             f"forward {times['kernel'][0]:.4f} ms, backward "
                             f"{times['kernel'][1]:.4f} ms; plain (cuBLAS) forward "
@@ -2848,15 +2904,19 @@ def main() -> int:
             raise RuntimeError(f"sharded meta step: non-finite losses {losses}")
         log(f"sharded meta step float32: per-task losses {losses}")
 
-        # Sharded vs unsharded meta step, in turns (U, S, S, U).
-        unsharded_step = make_meta_step(cfg, meta_cfg)
+        # Sharded vs unsharded meta step of TIMED_INNER_EPOCHS inner epochs,
+        # in turns (U, S, S, U).
+        timed_cfg = dataclasses.replace(meta_cfg, inner_epochs=TIMED_INNER_EPOCHS)
+        unsharded_step = make_meta_step(cfg, timed_cfg)
+        timed_sharded = make_shardmap_meta_step_2d(cfg, timed_cfg, mesh)
         g = torch.Generator(device=dev).manual_seed(2)
         runs = {"unsharded": lambda: unsharded_step(state, tasks, g),
-                "sharded": lambda: sharded_step(state, tasks, (7, 1))}
+                "sharded": lambda: timed_sharded(state, tasks, (7, 1))}
         step_ms = {k: [] for k in runs}
         for name in ("unsharded", "sharded", "sharded", "unsharded"):
             step_ms[name].append(host_ms(torch, runs[name], repeats=1))
-        log("meta step float32 at the defaults, host clock, in turns: " + ", ".join(
+        log(f"meta step float32 ({TIMED_INNER_EPOCHS} inner epoch of "
+            f"{meta_cfg.inner_batches} steps a task), host clock, in turns: " + ", ".join(
             f"{k} {v[0]:.1f} / {v[1]:.1f} ms" for k, v in step_ms.items())
             + f"; sharded / unsharded {sum(step_ms['sharded']) / sum(step_ms['unsharded']):.3f}"
             f"  [{card}]")
@@ -2894,7 +2954,7 @@ def main() -> int:
         out = os.path.join(out_root, "mesh_sp2")
         os.makedirs(out)
         ranks = two_ranks(out, "-o", f"meta.inner_epochs={MESH_INNER_EPOCHS}")
-        forwards = meta_cfg.meta_batch * (MESH_INNER_EPOCHS * meta_cfg.inner_batches + 1)
+        forwards = meta_cfg.meta_batch * (MESH_INNER_EPOCHS * RANK_INNER_BATCHES + 1)
         for rec in ranks:
             want = cfg.gcn_layers * forwards
             got = (rec["launches"]["gcn_shard_layer"], rec["launches"]["gcn_shard_layer.backward"])
@@ -2903,7 +2963,7 @@ def main() -> int:
         with open(os.path.join(out, "meta", "meta_log.jsonl")) as f:
             rec = json.loads(f.readline())
         log(f"two ranks (dp 1 x sp 2, 256 rows each, gloo on one card), epoch 1 "
-            f"({MESH_INNER_EPOCHS} inner epochs): meta_loss {rec['meta_loss']:.6f}, tasks "
+            f"({MESH_INNER_EPOCHS} inner epochs of {RANK_INNER_BATCHES} steps): meta_loss {rec['meta_loss']:.6f}, tasks "
             f"{rec['task_indices']}, {rec['epoch_seconds']:.2f} s  [{card}]")
     # 15. The LSTM kernel routes (rows 18-20) and the single GCN layer (row
     # 3) vs plain at full width, forward and every gradient.
@@ -3362,32 +3422,38 @@ def main() -> int:
         del feats, astate, adapted
         route_launches["fused_gcn_layer"] = fused_gcn_layer.launches  # on no path: 0
 
-        # Float32 hidden 320, where no cluster holds Wh: `forecast` under
-        # `lstm_kernel=auto` and under `use_pallas_lstm` runs the plain stack
-        # (counted), rows 2, 14 and 20 never, and matches `--device cpu`.
-        cfg320 = ModelConfig(lstm_hidden=320)
-        serve320 = os.path.join(out_root, "serve320")
-        save_checkpoint(
-            os.path.join(serve320, "meta", "ckpt_best"),
-            init_model(torch.Generator().manual_seed(9), cfg320, device=dev).state_dict(),
-            {"schema": "wfstgcn-meta-v1", "config": to_dict(ExperimentConfig(model=cfg320))},
-        )
-        h320 = ("-o", "model.lstm_hidden=320")
+        # Float32 hidden 320, where a 16-block cluster holds Wh: `forecast`
+        # under `lstm_kernel=auto` runs row 2 and under `use_pallas_lstm` row
+        # 20; at 448, where none does, both run the plain stack (counted),
+        # rows 2, 14 and 20 never. Each matches `--device cpu`.
         eval_entries = (lstm_stack_last_all, fls.lstm_stack_split, fused_lstm_last_hidden)
-        for label, flags in (("auto", ()), ("use_pallas_lstm", row20)):
-            for fn in eval_entries:
-                fn.launches = 0
-            lstm_stack_train.plain_routes = 0
-            got = forecast("Moscow", "float32", serve320, "cuda", *h320, *flags)
-            counts = ([fn.launches for fn in eval_entries], lstm_stack_train.plain_routes)
-            ref = forecast("Moscow", "float32", serve320, "cpu", *h320, *flags)
-            err = float(np.abs(got - ref).max())
-            log(f"forecast Moscow lstm_hidden=320 {label}: rows 2, 14, 20 launched {counts[0]}, "
-                f"plain routes {counts[1]}; card vs --device cpu max_abs_err {err:.3e}")
-            if counts[0] != [0, 0, 0] or counts[1] == 0:
-                raise RuntimeError(f"forecast lstm_hidden=320 {label}: rows 2, 14, 20 "
-                                   f"{counts[0]}, plain routes {counts[1]}")
-            np.testing.assert_allclose(got, ref, rtol=TOL["float32"], atol=TOL["float32"])
+        for hidden in (320, 448):
+            wide_cfg = ModelConfig(lstm_hidden=hidden)
+            serve_wide = os.path.join(out_root, f"serve{hidden}")
+            save_checkpoint(
+                os.path.join(serve_wide, "meta", "ckpt_best"),
+                init_model(torch.Generator().manual_seed(9), wide_cfg, device=dev).state_dict(),
+                {"schema": "wfstgcn-meta-v1",
+                 "config": to_dict(ExperimentConfig(model=wide_cfg))},
+            )
+            width = ("-o", f"model.lstm_hidden={hidden}")
+            for label, flags, want in (("auto", (), [1, 0, 0]),
+                                       ("use_pallas_lstm", row20, [0, 0, 1])):
+                want = want if hidden == 320 else [0, 0, 0]
+                for fn in eval_entries:
+                    fn.launches = 0
+                lstm_stack_train.plain_routes = 0
+                got = forecast("Moscow", "float32", serve_wide, "cuda", *width, *flags)
+                counts = ([fn.launches for fn in eval_entries], lstm_stack_train.plain_routes)
+                ref = forecast("Moscow", "float32", serve_wide, "cpu", *width, *flags)
+                err = float(np.abs(got - ref).max())
+                log(f"forecast Moscow lstm_hidden={hidden} {label}: rows 2, 14, 20 launched "
+                    f"{counts[0]}, plain routes {counts[1]}; card vs --device cpu max_abs_err "
+                    f"{err:.3e}")
+                if counts[0] != want or (counts[1] == 0) != (hidden == 320):
+                    raise RuntimeError(f"forecast lstm_hidden={hidden} {label}: rows 2, 14, 20 "
+                                       f"{counts[0]} (want {want}), plain routes {counts[1]}")
+                np.testing.assert_allclose(got, ref, rtol=TOL["float32"], atol=TOL["float32"])
     # 17. The unmerged-gates stack (rows 14-15) and the task-batched stack
     # (rows 16-17) vs plain at full width: the inner step's LSTM (x [24,
     # 512, 256] time-major, 4 layers of 128), masks at rate 0.2 and off;
@@ -4508,12 +4574,12 @@ def main() -> int:
         out = os.path.join(out_root, "mesh_sp2_so")
         os.makedirs(out)
         ranks = two_ranks(out, "-o", "meta.second_order=true", "-o", "meta.inner_epochs=1")
-        so_steps = meta_cfg.meta_batch * meta_cfg.inner_batches
+        so_steps = meta_cfg.meta_batch * RANK_INNER_BATCHES
         for rec in ranks:
             got = (rec["launches"]["hvp_stack_fwd"], rec["launches"]["hvp_stack_bwd"],
                    rec["launches"]["gcn_shard_layer"])
             want = (so_steps, so_steps,
-                    cfg.gcn_layers * meta_cfg.meta_batch * (meta_cfg.inner_batches + 1))
+                    cfg.gcn_layers * meta_cfg.meta_batch * (RANK_INNER_BATCHES + 1))
             if got != want:
                 raise RuntimeError(f"SO rank {rec['rank']} launched rows 10, 11, 12 {got}, not "
                                    f"{want}")
@@ -4629,6 +4695,7 @@ def main() -> int:
             try:
                 t0 = time.perf_counter()
                 log_k = meta_train("float32", 3, "-o", f"meta.epochs_per_dispatch={k}",
+                                   "-o", f"meta.inner_epochs={CLI_INNER_EPOCHS}",
                                    out=f"epochs_k{k}")
                 secs = time.perf_counter() - t0
             finally:
@@ -4651,13 +4718,13 @@ def main() -> int:
         p_worst = max(p_rels, key=p_rels.get)
         bitwise = bool((losses == ref_losses).all()) and all(
             torch.equal(chained["params"][k], v) for k, v in unchained["params"].items())
-        forwards_epoch = meta_cfg.meta_batch * (meta_cfg.inner_epochs * meta_cfg.inner_batches
-                                                + 1)
+        chain_steps = meta_cfg.meta_batch * CLI_INNER_EPOCHS * meta_cfg.inner_batches
+        forwards_epoch = chain_steps + meta_cfg.meta_batch
         want = {"lstm_stack_train": 3 * forwards_epoch,
                 "lstm_stack_train.backward": 3 * forwards_epoch,
                 "gcn_stack_train": 3 * forwards_epoch,
                 "gcn_stack_train.backward": 3 * forwards_epoch,
-                "clip_sgd_update": 3 * per_step}
+                "clip_sgd_update": 3 * chain_steps}
         got = {k: chained["launches"][k] for k in want}
         log(f"chained meta epochs, float32, 3 epochs: epochs_per_dispatch=2 (chunks 2 + 1) vs "
             f"1 fed the same indices {[r['task_indices'] for r in chained['log']]}: losses "
@@ -4720,6 +4787,8 @@ def main() -> int:
         new_paths = wavefront_vbatch_phase(torch, dev, card, out_root)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log("16-block clusters of the recurrences at once (cudaOccupancyMaxActiveClusters): "
+        + json.dumps(wide.pop("max_active_clusters_16")) + f"  [{card}]")
 
     kernels = []
     for name in TPU_KERNELS:
@@ -4751,6 +4820,8 @@ def main() -> int:
                if k in m},
             # Rows 9, 12, 13, 16 and 17 on phase 24's paths.
             **({"new_paths": new_paths[name]} if name in new_paths else {}),
+            # The LSTM rows on 16-block clusters (phase 9d).
+            **({"wide": wide[name]} if name in wide else {}),
         })
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -4763,6 +4834,431 @@ def main() -> int:
         },
     }))
     return 0
+
+
+def native_phase(torch, card: str, forecast) -> None:
+    """The native host pipeline (`weatherforecast_stgcn_maml_tpu_torch.native`,
+    built by g++ in the build phase): its five functions against the numpy
+    route on Moscow's region (441 nodes; 720 hourly steps, 5% NaNs): the kNN
+    edges and the window gather equal, the adjacency, the NaN fill with its
+    stats and the z-score within float32 rounding; then the forecast
+    request's host stages (the region's graph and features) and the whole
+    request (`forecast(...)`, the CLI in process) with the library on and
+    off, in turns (on, off, off, on)."""
+    import numpy as np
+
+    from weatherforecast_stgcn_maml_tpu_torch import graph, native
+    from weatherforecast_stgcn_maml_tpu_torch.config import (
+        ADAPTATION_REGIONS,
+        NUM_WEATHER_VARS,
+        DataConfig,
+        ModelConfig,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.data import preprocess
+    from weatherforecast_stgcn_maml_tpu_torch.data.windows import WindowSpec, gather_batch
+    from weatherforecast_stgcn_maml_tpu_torch.engines.data_source import get_region_data
+
+    if not native.available():
+        raise RuntimeError("the native host pipeline is off")
+    data_cfg, mc = DataConfig(), ModelConfig()
+    box = dict((name, b) for b, name in ADAPTATION_REGIONS)["Moscow"]
+    region = get_region_data(box, (data_cfg.validate_year,), data_cfg, tag="forecast",
+                             name="Moscow", num_timesteps=720)
+    weather = region.weather.copy()
+    weather[np.random.default_rng(0).random(weather.shape) < 0.05] = np.nan
+    nodes = np.ascontiguousarray(weather.reshape(weather.shape[0], -1, NUM_WEATHER_VARS))
+
+    def numpy_route(fn):
+        native.set_enabled(False)
+        try:
+            return fn()
+        finally:
+            native.set_enabled(True)
+
+    pos = graph.grid_node_positions(region.lats, region.lons)
+    edges = native.knn_edges_native(pos, data_cfg.k_neighbors)
+    same_edges = np.array_equal(edges, numpy_route(
+        lambda: graph.knn_edges(pos, data_cfg.k_neighbors)))
+    a_hat = native.normalized_adjacency_native(edges, len(pos), 512)
+    a_err = float(np.abs(a_hat - numpy_route(
+        lambda: graph.normalized_adjacency(edges, len(pos), 512))).max())
+    filled = nodes.copy()
+    mean, std = native.nan_fill_stats_native(filled)
+    ref_filled = preprocess.fill_nans_with_mean(nodes.copy())
+    ref_stats = preprocess.compute_stats(ref_filled)
+    fill_err = float(np.abs(filled - ref_filled).max() / np.abs(ref_filled).max())
+    stats_err = max(float(np.abs(mean - ref_stats.mean).max() / np.abs(ref_stats.mean).max()),
+                    float(np.abs(std - ref_stats.std).max() / np.abs(ref_stats.std).max()))
+    z = filled.copy()
+    if not native.normalize_native(z, mean, std):
+        raise RuntimeError("the native z-score did not run")
+    z_err = float(np.abs(z - (filled - mean) / std).max())
+    feats = preprocess.prepare_features(region)[0]
+    spec = WindowSpec(mc.window, mc.horizon)
+    anchors = np.arange(spec.window, spec.window + 64)
+    x, y = native.gather_windows_native(feats, anchors, spec.window, spec.horizon,
+                                        NUM_WEATHER_VARS)
+    rx, ry = gather_batch(torch.from_numpy(feats), anchors, spec)
+    same_windows = np.array_equal(x, rx.numpy()) and np.array_equal(y, ry.numpy())
+    log(f"native host pipeline on Moscow ({weather.shape[0]} x {len(pos)} x "
+        f"{NUM_WEATHER_VARS}, 5% NaN) against the numpy route: kNN edges equal {same_edges}; "
+        f"adjacency max_abs_err {a_err:.3e}; NaN fill max|diff|/max|ref| {fill_err:.3e}, "
+        f"stats {stats_err:.3e}; z-score max_abs_err {z_err:.3e}; 64 windows equal "
+        f"{same_windows}")
+    # The stats' gate is the JAX package's own (tests/test_native.py): the
+    # numpy route's float32 means of 1e5-sized variables carry ~1e-4 of
+    # rounding that the C++ pass, summing in double, does not.
+    if not (same_edges and same_windows) or a_err > 1e-6 or fill_err > 1e-6 or (
+            stats_err > 5e-4 or z_err > 1e-4):
+        raise RuntimeError("the native host pipeline disagrees with the numpy route")
+
+    def stage_ms(fn, repeats=5):
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    serving = get_region_data(box, (data_cfg.validate_year,), data_cfg, tag="forecast",
+                              name="Moscow", num_timesteps=max(mc.window + mc.horizon, 64))
+    stages = {
+        "graph": lambda: graph.build_region_graph(serving.lats, serving.lons,
+                                                  k_neighbors=data_cfg.k_neighbors),
+        "features": lambda: preprocess.prepare_features(serving),
+        "features 720 steps": lambda: preprocess.prepare_features(region),
+        "forecast request": lambda: forecast("Moscow", "float32"),
+    }
+    quiet = contextlib.redirect_stderr(io.StringIO())  # the request's progress lines
+    times = {k: {"on": [], "off": []} for k in stages}
+    for turn in ("on", "off", "off", "on"):
+        native.set_enabled(turn == "on")
+        try:
+            with quiet:
+                for k, fn in stages.items():
+                    times[k][turn].append(stage_ms(fn))
+        finally:
+            native.set_enabled(True)
+    for k, t in times.items():
+        log(f"  {k}: library on {t['on'][0]:.3f} / {t['on'][1]:.3f} ms, off {t['off'][0]:.3f} / "
+            f"{t['off'][1]:.3f} ms (host, median of 5, in turns)  [{card}]")
+
+
+# The widths only a 16-block cluster holds Wh at (the wide phase): float32
+# H 320 and 384, bfloat16 512; the kernels line lists each row's numbers
+# there under "wide".
+WIDE_WIDTHS = (("float32", 320), ("float32", 384), ("bfloat16", 512))
+
+
+def wide_cluster_phase(torch, dev, card: str) -> dict:
+    """Every LSTM cluster recurrence on 16-block clusters (Hopper's
+    non-portable size), where no cluster of 8 holds Wh: at float32 H 320 and
+    384 and bfloat16 H 512, at the inner step's shapes (x [24, 512, 256], 4
+    layers, masks at rate 0.2 and off), rows 4-5 and 16-17 (V = 2) forward
+    and every gradient, rows 10-11 (tangents at HVP_TOL), rows 18-19 at xp
+    [24, 512, 4H], rows 2 and 20 at [512, 24, 256] and [1536, 24, 256],
+    each against its plain version at TOL, gated on its launches; each
+    plan's cluster size (16) and the card's cudaOccupancyMaxActiveClusters
+    beside `fused_lstm_stack.H100_CLUSTERS_16`; each row's device time (CUDA
+    events), the plain version's, cuDNN's LSTM where one computes the same
+    function, and the bound. Returns {kernel name: {"<dtype> H <width>":
+    numbers}} for the kernels line."""
+    import numpy as np
+
+    from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
+    from weatherforecast_stgcn_maml_tpu_torch.models.lstm import init_lstm
+    from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build, fused_lstm, lstm_scan
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp as fh
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
+
+    lib = cuda_build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w_len, n, c_in, n_l, keep = 24, 512, 256, 4, 0.8
+    found: dict = {}
+
+    def lstm_flops(rows, hidden):
+        return sum(2 * w_len * rows * ((c_in if l == 0 else hidden) + hidden) * 4 * hidden
+                   for l in range(n_l))
+
+    def record(name, label, dt_name, ms, plain_ms, n_bytes, flops, **extra):
+        bound, bound_by = bound_ms(n_bytes, flops, dt_name)
+        found.setdefault(name, {})[label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, **extra}
+        log(f"  {name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by})" + "".join(f", {k} {v}" for k, v in extra.items()) + f"  [{card}]")
+
+    def fwd_bwd(fn, inputs, params, ct):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves + list(params), ct)
+
+    def check(what, got, ref, got_g, ref_g, tol):
+        fwd = float((got.float() - ref.float()).abs().max())
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol, msg=what)
+        worst = max(rel_err(a, b) for a, b in zip(got_g, ref_g)) if got_g else 0.0
+        if worst > tol:
+            raise RuntimeError(f"{what}: gradient max|diff|/max|ref| {worst:.3e} > {tol}")
+        return fwd, worst
+
+    for dt_name, hidden in WIDE_WIDTHS:
+        dt = getattr(torch, dt_name)
+        tol, e = TOL[dt_name], dt.itemsize
+        label = f"{dt_name} H {hidden}"
+        code = cuda_build.dtype_code(dt)
+        g4 = 4 * hidden
+        log(f"16-block clusters at {label}:")
+        for what, plan, query in (
+                ("forward recurrence, 512 rows", fls.forward_plan(hidden, n, e, sms),
+                 lib.wf_lstm_stack_forward_clusters),
+                ("forward recurrence, 2 x 512 rows", fls.forward_plan(hidden, n, e, sms, 2),
+                 lib.wf_lstm_stack_forward_clusters),
+                ("forward recurrence, 1536 rows", fls.forward_plan(hidden, 1536, e, sms),
+                 lib.wf_lstm_stack_forward_clusters),
+                ("backward recurrence, 512 rows", fls.recurrence_plan(hidden, n, e, sms),
+                 lib.wf_lstm_stack_recurrence_clusters),
+                ("backward recurrence, 2 x 512 rows", fls.recurrence_plan(hidden, n, e, sms, 2),
+                 lib.wf_lstm_stack_recurrence_clusters),
+                ("tangent forward recurrence, 512 rows", fh.tangent_forward_plan(hidden, n, e, sms),
+                 lib.wf_lstm_tangent_forward_clusters),
+                ("tangent recurrence, 512 rows", fh.tangent_plan(hidden, n, e, sms),
+                 lib.wf_lstm_tangent_recurrence_clusters)):
+            cs, hcp, rb = plan
+            active = query(code, cs, hcp, rb, hidden)
+            log(f"  {what}: cluster of {cs}, {hcp} weight columns, {rb} rows a cluster; "
+                f"cudaOccupancyMaxActiveClusters {active} (the plans assume "
+                f"{fls.H100_CLUSTERS_16})  [{card}]")
+            if cs != fls.WIDE_CLUSTER or active <= 0:
+                raise RuntimeError(f"{what} at {label}: plan {plan}, {active} clusters at once")
+        found.setdefault("max_active_clusters_16", {})[label] = active
+
+        lstm = init_lstm(torch.Generator().manual_seed(hidden), c_in, hidden, n_l).to(dev)
+        params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
+        w_bytes = 4 * sum(p.numel() for p in params)
+        rng = np.random.default_rng(hidden)
+
+        def card_array(*shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+        x = card_array(n, w_len, c_in)  # [B, T, C]: 512 rows of one inner step
+        ct = card_array(n, hidden)
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(1),
+                          (n_l - 1, w_len, n, hidden), 0.2, dev)
+        cudnn = torch.nn.LSTM(c_in, hidden, n_l, batch_first=True).to(dev, dt)
+        xd = x.to(dt)
+
+        # Rows 4-5: a gemm_nn and a recurrence launch a layer each way.
+        train = fls.lstm_stack_train
+
+        def counts():
+            return (train.launches, train.backward_launches, train.forward_recurrence_launches,
+                    train.forward_gemm_nn_launches, train.backward_recurrence_launches,
+                    train.backward_gemm_nn_launches)
+
+        errs45, moved45 = [], []
+        for m_label, m in (("masks 0.2", masks), ("masks off", None)):
+            k = keep if m is not None else 1.0
+            before = counts()
+            got, got_g = fwd_bwd(lambda a: train(lstm.layers, a, masks=m, keep=k,
+                                                 compute_dtype=dt), [x], params, ct)
+            moved = tuple(a - b for a, b in zip(counts(), before))
+            ref, ref_g = fwd_bwd(lambda a: fls.lstm_stack_plain(lstm.layers, a, dt, m, k),
+                                 [x], params, ct)
+            fwd, worst = check(f"rows 4-5 {label} {m_label}", got, ref, got_g, ref_g, tol)
+            errs45.append((fwd, worst))
+            log(f"  rows 4-5 {m_label}: forward max_abs_err {fwd:.3e}, gradients "
+                f"max|diff|/max|ref| {worst:.3e} (tol {tol}); launches {moved}")
+            if moved != (1, 1, n_l, n_l, n_l, n_l):
+                raise RuntimeError(f"rows 4-5 at {label}: launches {moved}")
+            moved45.append(moved)
+        xr = x.detach().requires_grad_(True)
+        fwd_k = cuda_ms(torch, lambda: train(lstm.layers, xr, masks=masks, keep=keep,
+                                             compute_dtype=dt))
+        both_k = cuda_ms(torch, lambda: fwd_bwd(lambda a: train(
+            lstm.layers, a, masks=masks, keep=keep, compute_dtype=dt), [x], params, ct))
+        fwd_p = cuda_ms(torch, lambda: fls.lstm_stack_plain(lstm.layers, xr, dt, masks, keep),
+                        repeats=2)
+        both_p = cuda_ms(torch, lambda: fwd_bwd(lambda a: fls.lstm_stack_plain(
+            lstm.layers, a, dt, masks, keep), [x], params, ct), repeats=2)
+        xc = xd.detach().requires_grad_(True)
+        fwd_c = cuda_ms(torch, lambda: cudnn(xc)[0])
+        both_c = cuda_ms(torch, lambda: torch.autograd.grad(
+            cudnn(xc)[0][:, -1], [xc, *cudnn.parameters()], ct.to(dt)))
+        io = 4 * x.numel() + w_bytes + masks.numel()
+        res = 2 * n_l * w_len * n * hidden * e
+        fl = lstm_flops(n, hidden)
+        record("lstm_stack_train", label, dt_name, fwd_k, fwd_p, io + res + 4 * n * hidden, fl,
+               cudnn_ms=fwd_c, max_abs_err=max(e[0] for e in errs45),
+               launches=sum(m[0] for m in moved45))
+        record("lstm_stack_train.backward", label, dt_name, both_k - fwd_k, both_p - fwd_p,
+               io + res + 4 * n * hidden + 4 * x.numel() + w_bytes, 2 * fl,
+               cudnn_ms=both_c - fwd_c, max_rel_err=max(e[1] for e in errs45),
+               launches=sum(m[1] for m in moved45))
+
+        # Rows 10-11 after rows 4-5 at the same point.
+        xt = x.transpose(0, 1).contiguous()  # [T, B, C]
+        wcat = [torch.cat([layer.wx, layer.wh]).detach() for layer in lstm.layers]
+        twcat = [card_array(*w.shape, scale=0.1) for w in wcat]
+        b2d = torch.stack([layer.b.detach() for layer in lstm.layers])
+        tb2d, tx, tg = card_array(n_l, g4, scale=0.1), card_array(*xt.shape), card_array(n, hidden)
+        h_last, h_all, c_all, gates = fh.stack_fwd(xt, wcat, b2d, masks, keep, dt)
+        before = (fh.hvp_stack_fwd.launches, fh.hvp_stack_bwd.launches)
+
+        def row10():
+            return fh.hvp_stack_fwd(xt, tx, wcat, twcat, b2d, tb2d, masks, keep, dt,
+                                    res=(h_all, c_all, gates))
+
+        th_last, th_all, tc_all, tgates = row10()
+        bwd = fh.stack_bwd(ct, xt, h_all, c_all, gates, wcat, masks, keep, dt)
+
+        def row11():
+            return fh.hvp_stack_bwd(ct, tg, xt, tx, h_all, th_all, c_all, tc_all, gates, tgates,
+                                    wcat, twcat, masks, keep, dt, res=tuple(bwd[3:6]))
+
+        tdx, tdw, tdb = row11()
+        moved = (fh.hvp_stack_fwd.launches - before[0], fh.hvp_stack_bwd.launches - before[1])
+
+        def plain_10():
+            return fh.hvp_fwd_plain(xt, wcat, b2d, masks, keep, dt, tx, twcat, tb2d)
+
+        ref_f = plain_10()
+
+        def plain_11():
+            return fh.hvp_bwd_plain(ct, xt, *ref_f[1:4], wcat, masks, keep, dt, tg, tx,
+                                    *ref_f[5:8], twcat)
+
+        ref_b = plain_11()
+        ttol = HVP_TOL[dt_name]
+        errs = {"th_last": rel_err(th_last, ref_f[4]), "th_all": rel_err(th_all, ref_f[5]),
+                "tc_all": rel_err(tc_all, ref_f[6]), "tgates": rel_err(tgates, ref_f[7]),
+                "tdx": rel_err(tdx, ref_b[6]), "tdb": rel_err(tdb, ref_b[8]),
+                **{f"tdw{l}": rel_err(a, b) for l, (a, b) in enumerate(zip(tdw, ref_b[7]))}}
+        worst = max(errs, key=errs.get)
+        log(f"  rows 10-11 masks 0.2: tangents max|diff|/max|ref| {errs[worst]:.3e} at {worst} "
+            f"(tol {ttol}); launches {moved}")
+        if moved != (1, 1) or errs[worst] > ttol:
+            raise RuntimeError(f"rows 10-11 at {label}: launches {moved}, {worst} {errs[worst]}")
+        res_b = n_l * w_len * n * hidden * 4
+        gate_b, x_b = 4 * res_b, w_len * n * c_in * 4
+        masks_b = masks.numel()
+        record("hvp_stack_fwd", label, dt_name, cuda_ms(torch, row10),
+               cuda_ms(torch, plain_10, repeats=1),
+               2 * x_b + 2 * w_bytes + masks_b + 4 * res_b + 2 * gate_b + n * hidden * 4, 2 * fl,
+               max_rel_err=max(errs[k] for k in ("th_last", "th_all", "tc_all", "tgates")),
+               launches=moved[0])
+        record("hvp_stack_bwd", label, dt_name, cuda_ms(torch, row11),
+               cuda_ms(torch, plain_11, repeats=1),
+               2 * n * hidden * 4 + 4 * gate_b + 6 * res_b + 3 * x_b + masks_b + 3 * w_bytes,
+               4 * fl, max_rel_err=max(v for k, v in errs.items() if k.startswith("td")),
+               launches=moved[1])
+        del bwd, h_all, c_all, gates, th_all, tc_all, tgates, ref_f, ref_b
+
+        # Rows 16-17 at V = 2, each task its own weights.
+        tasks = [init_lstm(torch.Generator().manual_seed(hidden + v), c_in, hidden,
+                           n_l).to(dev).layers for v in (1, 2)]
+        w0 = torch.stack([torch.cat([t[0].wx, t[0].wh]) for t in tasks]).detach()
+        wr = torch.stack([torch.stack([torch.cat([t[l].wx, t[l].wh]) for l in range(1, n_l)])
+                          for t in tasks]).detach()
+        bv = torch.stack([torch.stack([layer.b for layer in t]) for t in tasks]).detach()
+        xv = card_array(2, n, w_len, c_in)
+        ctv = card_array(2, n, hidden)
+        mv = draw_mask(torch.Generator(device=dev).manual_seed(2),
+                       (2, n_l - 1, w_len, n, hidden), 0.2, dev)
+        fn = fls.lstm_stack_train_tasks
+        errs1617, moved1617 = [], []
+        for m_label, m in (("masks 0.2", mv), ("masks off", None)):
+            k = keep if m is not None else 1.0
+            before = (fn.launches, fn.backward_launches)
+            got, got_g = fwd_bwd(lambda a, w0, b, wr: fn(a, w0, wr, b, masks=m, keep=k,
+                                                         compute_dtype=dt),
+                                 [xv, w0, bv, wr], [], ctv)
+            moved = (fn.launches - before[0], fn.backward_launches - before[1])
+            ref, ref_g = fwd_bwd(lambda a, w0, b, wr: fls.lstm_stack_tasks_plain(
+                a, w0, wr, b, m, k, dt), [xv, w0, bv, wr], [], ctv)
+            fwd, worst = check(f"rows 16-17 {label} {m_label}", got, ref, got_g, ref_g, tol)
+            errs1617.append((fwd, worst))
+            log(f"  rows 16-17 V = 2 {m_label}: forward max_abs_err {fwd:.3e}, gradients "
+                f"max|diff|/max|ref| {worst:.3e} (tol {tol}); launches {moved}")
+            if moved != (1, 1):
+                raise RuntimeError(f"rows 16-17 at {label}: launches {moved}")
+            moved1617.append(moved)
+        leaves = [t.detach().requires_grad_(True) for t in (xv, w0, bv, wr)]
+        fwd_k = cuda_ms(torch, lambda: fn(leaves[0], leaves[1], leaves[3], leaves[2], masks=mv,
+                                          keep=keep, compute_dtype=dt))
+        both_k = cuda_ms(torch, lambda: fwd_bwd(lambda a, w0, b, wr: fn(
+            a, w0, wr, b, masks=mv, keep=keep, compute_dtype=dt), [xv, w0, bv, wr], [], ctv))
+        fwd_p = cuda_ms(torch, lambda: fls.lstm_stack_tasks_plain(
+            leaves[0], leaves[1], leaves[3], leaves[2], mv, keep, dt), repeats=2)
+        both_p = cuda_ms(torch, lambda: fwd_bwd(lambda a, w0, b, wr: fls.lstm_stack_tasks_plain(
+            a, w0, wr, b, mv, keep, dt), [xv, w0, bv, wr], [], ctv), repeats=2)
+        record("lstm_stack_train_tasks", label, dt_name, fwd_k, fwd_p,
+               2 * (io + res + 4 * n * hidden), 2 * fl, cudnn_ms=2 * fwd_c,
+               max_abs_err=max(e[0] for e in errs1617),
+               launches=sum(m[0] for m in moved1617))
+        record("lstm_stack_train_tasks.backward", label, dt_name, both_k - fwd_k, both_p - fwd_p,
+               2 * (io + res + 4 * n * hidden + 4 * x.numel() + w_bytes), 4 * fl,
+               cudnn_ms=2 * (both_c - fwd_c), max_rel_err=max(e[1] for e in errs1617),
+               launches=sum(m[1] for m in moved1617))
+        del xv, mv, leaves, got, got_g, ref, ref_g
+
+        # Rows 18-19: one layer's recurrence at xp [24, 512, 4H].
+        xp = card_array(w_len, n, g4)
+        wh = card_array(hidden, g4, scale=hidden ** -0.5).requires_grad_(True)
+        cth = card_array(w_len, n, hidden)
+        rec = lstm_scan.lstm_recurrence
+        before = (rec.launches, rec.backward_launches, rec.backward_gemm_tn_launches)
+        got, got_g = fwd_bwd(lambda a: rec(a, wh, compute_dtype=dt), [xp], [wh], cth)
+        moved = tuple(a - b for a, b in zip(
+            (rec.launches, rec.backward_launches, rec.backward_gemm_tn_launches), before))
+        ref, ref_g = fwd_bwd(lambda a: lstm_scan.lstm_recurrence_plain(a, wh, dt), [xp], [wh],
+                             cth)
+        fwd, worst = check(f"rows 18-19 {label}", got, ref, got_g, ref_g, tol)
+        log(f"  rows 18-19: forward max_abs_err {fwd:.3e}, gradients max|diff|/max|ref| "
+            f"{worst:.3e} (tol {tol}); launches {moved}")
+        if moved != (1, 1, 1):
+            raise RuntimeError(f"rows 18-19 at {label}: launches {moved}")
+        xpr = xp.detach().requires_grad_(True)
+        fwd_k = cuda_ms(torch, lambda: rec(xpr, wh, compute_dtype=dt))
+        both_k = cuda_ms(torch, lambda: fwd_bwd(lambda a: rec(a, wh, compute_dtype=dt), [xp],
+                                                [wh], cth))
+        fwd_p = cuda_ms(torch, lambda: lstm_scan.lstm_recurrence_plain(xpr, wh, dt), repeats=2)
+        both_p = cuda_ms(torch, lambda: fwd_bwd(lambda a: lstm_scan.lstm_recurrence_plain(
+            a, wh, dt), [xp], [wh], cth), repeats=2)
+        rec_flops = 2 * w_len * n * hidden * g4
+        rec_io = 4 * (w_len * n * g4 + hidden * g4 + 2 * w_len * n * hidden)
+        record("lstm_recurrence", label, dt_name, fwd_k, fwd_p, rec_io, rec_flops,
+               max_abs_err=fwd, launches=moved[0])
+        record("lstm_recurrence.backward", label, dt_name, both_k - fwd_k, both_p - fwd_p,
+               4 * (w_len * n * hidden + w_len * n * g4 + 2 * w_len * n * hidden + hidden * g4)
+               + 4 * (w_len * n * g4 + hidden * g4), 2 * rec_flops, max_rel_err=worst,
+               launches=moved[1])
+        del xp, xpr, wh, got, got_g, ref, ref_g
+
+        # Rows 2 and 20: the eval forward at the forecast's and validate's rows.
+        with torch.no_grad():
+            for rows in (n, 3 * n):
+                xe = card_array(rows, w_len, c_in)
+                ref = fls.lstm_stack_plain(lstm.layers, xe, dt)
+                plain_ms = cuda_ms(torch, lambda: fls.lstm_stack_plain(lstm.layers, xe, dt),
+                                   repeats=2)
+                xe_d = xe.to(dt)
+                lib_ms = cuda_ms(torch, lambda: cudnn(xe_d)[0])
+                for name, entry in (("lstm_stack_last_all", fls.lstm_stack_last_all),
+                                    ("fused_lstm_last_hidden", fused_lstm.fused_lstm_last_hidden)):
+                    before = entry.launches
+                    got = entry(lstm.layers, xe, compute_dtype=dt)
+                    moved = entry.launches - before
+                    if moved != 1:
+                        raise RuntimeError(f"{name} at {label}: {moved} launches")
+                    err = float((got - ref).abs().max())
+                    torch.testing.assert_close(got, ref, rtol=tol, atol=tol, msg=name)
+                    record(name, f"{label}, {rows} rows", dt_name,
+                           cuda_ms(torch, lambda: entry(lstm.layers, xe, compute_dtype=dt)),
+                           plain_ms, 4 * xe.numel() + w_bytes + 4 * rows * hidden,
+                           lstm_flops(rows, hidden), cudnn_ms=lib_ms, max_abs_err=err,
+                           launches=moved)
+        del lstm, cudnn, x, xd, xr, xc, masks
+        torch.cuda.empty_cache()
+    return found
 
 
 def tasks_at_path_shapes(torch, dev, rows: int, w_len: int, c_in: int, hidden: int,
@@ -4998,12 +5494,13 @@ def wavefront_vbatch_phase(torch, dev, card: str, out_root: str) -> dict:
         del res, r
 
         # The main path: `cli meta-train -o model.lstm_wavefront=true`, one
-        # epoch at MetaConfig(); then a Moscow forecast from its checkpoint
+        # epoch of CLI_INNER_EPOCHS inner epochs; then a Moscow forecast from its checkpoint
         # on the card against --device cpu (phase 4's gate).
         wf_dir = os.path.join(out_root, "wavefront")
         zero()
         wavefront_calls.clear()
         _, _, t = run_cli(["meta-train", "-o", f"out_dir={wf_dir}", "-o", "meta.num_epochs=1",
+                           "-o", f"meta.inner_epochs={CLI_INNER_EPOCHS}",
                            "-o", "model.lstm_wavefront=true"])
         with open(os.path.join(wf_dir, "meta", "meta_log.jsonl")) as f:
             rec = json.loads(f.readline())
@@ -5162,12 +5659,12 @@ def wavefront_vbatch_phase(torch, dev, card: str, out_root: str) -> dict:
     out = os.path.join(out_root, "mesh_sp2_vbatch")
     os.makedirs(out)
     ranks = two_ranks(out, "--vbatch", "-o", "meta.inner_epochs=1")
-    per_rank = meta_cfg.meta_batch // 2 * (meta_cfg.inner_batches + 1)  # 2 micro-batches, V = 2
+    per_rank = meta_cfg.meta_batch // 2 * (RANK_INNER_BATCHES + 1)  # 2 micro-batches, V = 2
     for rec in ranks:
         c = rec["launches"]
         got = (c["lstm_stack_train_tasks"], c["lstm_stack_train_tasks.backward"],
                c["clip_sgd_update.batched"], c["lstm_stack_train"], c["clip_sgd_update"])
-        want = (per_rank, per_rank, meta_cfg.meta_batch // 2 * meta_cfg.inner_batches, 0, 0)
+        want = (per_rank, per_rank, meta_cfg.meta_batch // 2 * RANK_INNER_BATCHES, 0, 0)
         if got != want:
             raise RuntimeError(f"_VBATCH rank {rec['rank']} launched rows 16, 17, 9, 4, 8 {got}, "
                                f"not {want}")
@@ -5195,17 +5692,21 @@ def wavefront_vbatch_phase(torch, dev, card: str, out_root: str) -> dict:
 def two_ranks(out, *extra):
     """`cli meta-train --mesh` on two ranks (dp 1 x sp 2) on card 0, joined
     by gloo, under torch.distributed.run (`mesh_rank`), with `extra`
-    arguments (`--vbatch` first, then overrides); both ranks' records,
+    arguments (`--vbatch` first, then overrides) after `-o
+    meta.inner_batches=RANK_INNER_BATCHES`; both ranks' records,
     checked: the same finite losses, one set of checkpoints, 512 padded
     nodes (256 a rank)."""
     import numpy as np
 
     from weatherforecast_stgcn_maml_tpu_torch.parallel import distributed
 
+    args = list(extra)
+    at = 1 if args[:1] == ["--vbatch"] else 0
+    args[at:at] = ["-o", f"meta.inner_batches={RANK_INNER_BATCHES}"]
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
          f"--master_port={distributed.free_port()}", os.path.abspath(__file__),
-         "--mesh-rank", out, *extra],
+         "--mesh-rank", out, *args],
         capture_output=True, text=True, timeout=900,
     )
     if proc.returncode != 0:

@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
 from weatherforecast_stgcn_maml_tpu.engines import adapt as jax_adapt
 from weatherforecast_stgcn_maml_tpu.models.registry import init_model as jax_init_model
@@ -123,7 +123,7 @@ def _adapt_cfg(pkg, out_dir, **adapt_kw):
 @pytest.fixture()
 def meta_ckpt(tmp_path):
     """One set of float32 parameters, as a JAX and a port checkpoint."""
-    jax_native.set_enabled(False)  # the port has only the numpy host route
+    use_same_host_route()
     mc = jcfg.ModelConfig(**SMALL)
     params = _np(jax_init_model(jax.random.key(3), mc))
     meta = {"epoch": 0, "config": jcfg.to_dict(jcfg.ExperimentConfig(model=mc))}
@@ -131,7 +131,7 @@ def meta_ckpt(tmp_path):
     jax_ckpt.save_checkpoint(jax_path, {"params": params}, meta)
     save_checkpoint(port_path, state_dict_from_params(params), meta)
     yield params, jax_path, port_path
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 def test_run_adaptation_matches_jax_float64(meta_ckpt, tmp_path, monkeypatch):

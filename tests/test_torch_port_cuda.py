@@ -641,9 +641,16 @@ def test_lstm_recurrence_forward_matches_its_plain_piece(dev, dtype, rows, hidde
 
 @pytest.mark.cuda
 def test_lstm_recurrence_refuses_what_it_does_not_take(dev):
+    """Hidden widths that are no multiple of 4, float32 452 (no cluster of
+    16 holds Wh: the forward plan refuses), 4H disagreeing, float64 inputs,
+    float16 compute."""
+    with pytest.raises(ValueError, match="multiples of 4"):
+        lstm_scan.lstm_recurrence(torch.zeros((3, 8, 4 * 302), device=dev),
+                                  torch.zeros((302, 1208), device=dev))
+    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 16 blocks"):
+        lstm_scan.lstm_recurrence(torch.zeros((3, 8, 4 * 452), device=dev),
+                                  torch.zeros((452, 1808), device=dev))
     xp = torch.zeros((3, 8, 4 * 300), device=dev)
-    with pytest.raises(ValueError, match="up to 256"):
-        lstm_scan.lstm_recurrence(xp, torch.zeros((300, 1200), device=dev))
     with pytest.raises(ValueError, match="disagree"):
         lstm_scan.lstm_recurrence(xp[..., :64], torch.zeros((8, 32), device=dev))
     with pytest.raises(TypeError, match="float32"):
@@ -1335,7 +1342,10 @@ def test_unmerged_gates_training_runs_the_gemm_core(dev, monkeypatch):
 # Wh^T resident in a cluster's shared memory, at the widths that take each
 # cluster size, and row 5 on its layer-by-layer schedule at full width.
 CLUSTER = {(torch.float32, 64): 1, (torch.float32, 128): 2, (torch.float32, 256): 8,
-           (torch.bfloat16, 64): 1, (torch.bfloat16, 128): 1, (torch.bfloat16, 256): 4}
+           (torch.bfloat16, 64): 1, (torch.bfloat16, 128): 1, (torch.bfloat16, 256): 4,
+           # Hopper's non-portable 16-block clusters, where 8 blocks do not hold Wh
+           (torch.float32, 320): 16, (torch.float32, 384): 16, (torch.bfloat16, 448): 16,
+           (torch.bfloat16, 512): 16}
 
 
 def _recurrence_inputs(dev, t_len, rows, hidden, seed):
@@ -2005,11 +2015,12 @@ def test_lstm_tasks_forward_at_full_width(dev, dtype, nv, rows, layers, dropout)
 
 @pytest.mark.cuda
 def test_auto_takes_the_plain_stack_where_no_cluster_holds_wh(dev):
-    """Float32 hidden 320 has no cluster plan for Wh: a train step of the
-    hybrid under `lstm_kernel="auto"` runs the plain stack (rows 4-5 never
-    launch, `plain_routes` counts the call) with the plain route's
-    gradients; the forced routes `pallas_stack` and `pallas` raise."""
-    cfg = dataclasses.replace(CFG, lstm_hidden=320, lstm_layers=2)
+    """Float32 hidden 448 (320 before 16-block clusters) has no cluster
+    plan for Wh: a train step of the hybrid under `lstm_kernel="auto"` runs
+    the plain stack (rows 4-5 never launch, `plain_routes` counts the call)
+    with the plain route's gradients; the forced routes `pallas_stack` and
+    `pallas` raise."""
+    cfg = dataclasses.replace(CFG, lstm_hidden=448, lstm_layers=2)
     model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
     a_hat = _a_hat(dev)
     x = torch.from_numpy(
@@ -2028,16 +2039,16 @@ def test_auto_takes_the_plain_stack_where_no_cluster_holds_wh(dev):
     for (name, _), a, b in zip(model.named_parameters(), got, ref):
         assert torch.equal(a, b), name
     for kernel, match in (("pallas_stack", "forward recurrence holds Wh"),
-                          ("pallas", "hidden widths that are multiples of 4 up to 256")):
+                          ("pallas", "forward recurrence holds Wh in at most 16 blocks")):
         with pytest.raises(ValueError, match=match):
             apply_model(model, a_hat, x, 3, dataclasses.replace(cfg, lstm_kernel=kernel),
                         train=True, generator=gen.manual_seed(5))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [320, 132])
+@pytest.mark.parametrize("hidden", [448, 132])
 def test_eval_routes_take_the_plain_stack_where_unplanned(dev, hidden):
-    """Float32 hidden 320 (no cluster holds Wh) and 132 (not a multiple of
+    """Float32 hidden 448 (no cluster holds Wh) and 132 (not a multiple of
     8): the hybrid's eval forward under `lstm_kernel="auto"` and under
     `use_pallas_lstm` (also its train mode at dropout 0) runs the plain
     stack, counted once a call, rows 2 and 20 never launch, and it equals
@@ -2072,16 +2083,155 @@ def test_eval_routes_take_the_plain_stack_where_unplanned(dev, hidden):
 
 @pytest.mark.cuda
 def test_lstm_tasks_forward_refuses_what_row4_refuses(dev):
-    """Row 16 takes the widths row 4 takes: float32 hidden 320 holds no
-    forward-recurrence plan (Wh beyond 8 blocks' shared memory), which the
-    earlier one-kernel forward took at input 24 and 2 layers."""
-    w0, wr, b = _task_weights(dev, 2, 24, 320, 2, 0)
+    """Row 16 takes the widths row 4 takes: float32 hidden 448 holds no
+    forward-recurrence plan (Wh beyond 16 blocks' shared memory; 320 before
+    16-block clusters), which the earlier one-kernel forward took at input
+    24 and 2 layers."""
+    w0, wr, b = _task_weights(dev, 2, 24, 448, 2, 0)
     x = torch.zeros((2, 8, 7, 24), device=dev)
-    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 8 blocks"):
+    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 16 blocks"):
         fused_lstm_stack.lstm_stack_train_tasks(x, w0, wr, b)
-    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 8 blocks"):
-        fused_lstm_stack.lstm_stack_train(init_lstm(torch.Generator().manual_seed(0), 24, 320,
+    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 16 blocks"):
+        fused_lstm_stack.lstm_stack_train(init_lstm(torch.Generator().manual_seed(0), 24, 448,
                                                     2).to(dev).layers, x[0])
+
+
+WIDE = [(torch.float32, 320), (torch.float32, 384), (torch.bfloat16, 448), (torch.bfloat16, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hidden", WIDE)
+def test_recurrences_on_16_block_clusters_match_plain(dev, dtype, hidden):
+    """The four cluster recurrences alone at 48 rows where only a 16-block
+    cluster holds Wh (float32 H 320 / 384, bfloat16 448 / 512): forward,
+    backward (both C entries), tangent backward, tangent forward below the
+    top layer and at it, each against its plain version, each plan's
+    16-block clusters fitting on the card."""
+    test_forward_recurrence_cluster_sizes_match_plain(dev, dtype, hidden)
+    test_backward_recurrence_cluster_sizes_match_plain(dev, dtype, hidden)
+    test_tangent_recurrence_cluster_sizes_match_plain(dev, dtype, hidden)
+    for below_top in (True, False):
+        test_tangent_forward_recurrence_cluster_sizes_match_plain(dev, dtype, hidden, below_top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hidden", [(torch.float32, 320), (torch.float32, 384),
+                                          (torch.bfloat16, 512)])
+def test_stacks_on_16_block_clusters_match_plain(dev, dtype, hidden):
+    """Every LSTM row on 16-block clusters against its plain version at 100
+    rows, 7 steps, 2 layers, masks at 0.2: rows 4-5 (forward and every
+    gradient), rows 10-11 (tangents 1e-4 relative in float32), rows 16-17
+    at V = 2, rows 18-19 (one layer's recurrence and its backward, the
+    weight layout in two launches of 8 slices) and rows 2 and 20 (the eval
+    forward); each launches."""
+    fls, fh = fused_lstm_stack, fused_lstm_hvp
+    sms, tol = fls._sms(dev), TOL[dtype]
+    for plan in (fls.forward_plan(hidden, 100, dtype.itemsize, sms),
+                 fls.recurrence_plan(hidden, 100, dtype.itemsize, sms),
+                 fls.forward_plan(hidden, 100, dtype.itemsize, sms, 2),
+                 fh.tangent_forward_plan(hidden, 100, dtype.itemsize, sms),
+                 fh.tangent_plan(hidden, 100, dtype.itemsize, sms)):
+        assert plan[:2] == (16, 32), plan
+    lstm = init_lstm(torch.Generator().manual_seed(1), 24, hidden, 2).to(dev)
+    x = _card(dev, (100, 7, 24), seed=6)
+    masks = draw_mask(torch.Generator(device=dev).manual_seed(4), (1, 7, 100, hidden), 0.2, dev)
+    params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
+    train = fls.lstm_stack_train
+    before = (train.launches, train.backward_launches)
+    got, got_g = _fwd_bwd(lambda x: train(lstm.layers, x, masks=masks, keep=0.8,
+                                          compute_dtype=dtype), [x], params)
+    assert (train.launches, train.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_g = _fwd_bwd(lambda x: fls.lstm_stack_plain(lstm.layers, x, dtype, masks, 0.8),
+                          [x], params)
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= tol, ("rows 4-5", i, _rel(g, r))
+
+    a = _r_op_inputs(dev, 7, 100, 24, hidden, 2, 0.2, w_scale=0.1)
+    before = (fh.hvp_stack_fwd.launches, fh.hvp_stack_bwd.launches)
+    got_p, got_t = r_ops(a, dtype, kernels=True)
+    assert (fh.hvp_stack_fwd.launches, fh.hvp_stack_bwd.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    ref_p, ref_t = r_ops(a, dtype, kernels=False)
+    for i, (g, r) in enumerate(zip(got_p, ref_p)):
+        assert _rel(g, r) <= tol, ("rows 4-5 under rows 10-11", i, _rel(g, r))
+    for i, (g, r) in enumerate(zip(got_t, ref_t)):
+        assert _rel(g, r) <= (1e-4 if dtype == torch.float32 else tol), ("rows 10-11", i)
+
+    w0, wr, b2d = _task_weights(dev, 2, 24, hidden, 2, 10)
+    xv = _card(dev, (2, 100, 7, 24), seed=7)
+    mv = draw_mask(torch.Generator(device=dev).manual_seed(5), (2, 1, 7, 100, hidden), 0.2, dev)
+    fn = fls.lstm_stack_train_tasks
+    before = (fn.launches, fn.backward_launches)
+    got, got_g = _fwd_bwd(lambda x, w0, b, wr: fn(x, w0, wr, b, masks=mv, keep=0.8,
+                                                  compute_dtype=dtype), [xv, w0, b2d, wr], [])
+    assert (fn.launches, fn.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_g = _fwd_bwd(lambda x, w0, b, wr: fls.lstm_stack_tasks_plain(
+        x, w0, wr, b, mv, 0.8, dtype), [xv, w0, b2d, wr], [])
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= tol, ("rows 16-17", i, _rel(g, r))
+
+    xp = _card(dev, (7, 100, 4 * hidden), seed=8)
+    wh = _card(dev, (hidden, 4 * hidden), seed=9, scale=hidden ** -0.5).requires_grad_(True)
+    rec = lstm_scan.lstm_recurrence
+    before = (rec.launches, rec.backward_launches)
+    got, got_g = _fwd_bwd(lambda a: rec(a, wh, compute_dtype=dtype), [xp], [wh])
+    assert (rec.launches, rec.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_g = _fwd_bwd(lambda a: lstm_scan.lstm_recurrence_plain(a, wh, dtype), [xp], [wh])
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert _rel(g, r) <= tol, ("rows 18-19", i, _rel(g, r))
+
+    with torch.no_grad():
+        ref = fls.lstm_stack_plain(lstm.layers, x, dtype)
+        for entry in (fls.lstm_stack_last_all, fused_lstm.fused_lstm_last_hidden):
+            before = entry.launches
+            torch.testing.assert_close(entry(lstm.layers, x, compute_dtype=dtype), ref,
+                                       rtol=tol, atol=tol)
+            assert entry.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [320, 384])
+def test_auto_and_forced_routes_take_the_kernels_at_16_block_widths(dev, hidden):
+    """Float32 hidden 320 and 384, where 16-block clusters hold Wh: a train
+    step of the hybrid under `auto` and `pallas_stack` launches rows 4-5,
+    under `pallas` rows 18-19, each with the plain route's gradients, no
+    plain route counted; the eval forward under `auto` launches row 2 and
+    under `use_pallas_lstm` row 20, equal to the plain route."""
+    cfg = dataclasses.replace(CFG, lstm_hidden=hidden, lstm_layers=2)
+    model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
+    a_hat = _a_hat(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(7, 128, 16)).astype(np.float32)).to(dev)
+    fls = fused_lstm_stack
+    gen = torch.Generator(device=dev)
+    params = list(model.parameters())
+
+    def grads(mc):
+        return torch.autograd.grad(apply_model(model, a_hat, x, 3, mc, train=True,
+                                               generator=gen.manual_seed(5)).sum(), params)
+
+    ref = grads(dataclasses.replace(cfg, lstm_kernel="xla"))
+    plain = fls.lstm_stack_train.plain_routes
+    for kernel, entry in (("auto", fls.lstm_stack_train), ("pallas_stack", fls.lstm_stack_train),
+                          ("pallas", lstm_scan.lstm_recurrence)):
+        before = (entry.launches, entry.backward_launches)
+        got = grads(dataclasses.replace(cfg, lstm_kernel=kernel))
+        n = 1 if entry is fls.lstm_stack_train else cfg.lstm_layers
+        assert (entry.launches, entry.backward_launches) == (before[0] + n, before[1] + n), kernel
+        for (name, _), a, b in zip(model.named_parameters(), got, ref):
+            assert _rel(a, b) <= 1e-4, (kernel, name, _rel(a, b))
+    with torch.no_grad():
+        ref = apply_model(model, a_hat, x, 3, dataclasses.replace(cfg, lstm_kernel="xla"))
+        for flags, entry in ((dict(lstm_kernel="auto"), fls.lstm_stack_last_all),
+                             (dict(use_pallas_lstm=True), fused_lstm.fused_lstm_last_hidden)):
+            before = entry.launches
+            got = apply_model(model, a_hat, x, 3, dataclasses.replace(cfg, **flags))
+            assert entry.launches == before + 1, flags
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert fls.lstm_stack_train.plain_routes == plain
 
 
 @pytest.mark.cuda
@@ -2186,6 +2336,52 @@ def test_imported_split_biases_train_on_rows_4_to_7(dev):
     for l in range(cfg.lstm_layers):
         assert torch.equal(grads["kernel"][f"lstm.layers.{l}.b_ih"],
                            grads["kernel"][f"lstm.layers.{l}.b_hh"])
+
+
+@pytest.mark.cuda
+def test_fleet_step_task_batched_is_bitwise_serial(dev):
+    """The fleet's task-batched step at the reference width (3 regions of 2
+    windows x 512 nodes, dropout 0, where rows 16-17's plans are rows 4-5's)
+    gives each region bitwise its serial step's predictions, loss and
+    gradients: row 17's weight gradients split as one task's, the heads
+    each their own product."""
+    from weatherforecast_stgcn_maml_tpu_torch.models.hybrid import apply_hybrid_tasks
+    from weatherforecast_stgcn_maml_tpu_torch.models.losses import masked_mse
+    from weatherforecast_stgcn_maml_tpu_torch.train.supervised import functional_apply
+
+    cfg = ModelConfig(gcn_dropout=0.0, lstm_dropout=0.0)
+    template = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
+    names = [k for k, _ in template.named_parameters()]
+    models = [init_model(torch.Generator().manual_seed(10 + v), cfg, device=dev)
+              for v in range(3)]
+    params = {k: torch.stack([dict(m.named_parameters())[k].detach() for m in models])
+              for k in names}
+    graph = build_region_graph(np.arange(53, 58.01, 0.25), np.arange(35, 40.01, 0.25))
+    a_hat = torch.from_numpy(graph.a_hat).to(dev).expand(3, -1, -1).contiguous()
+    mask = torch.from_numpy(graph.node_mask).to(dev)
+    x = _card(dev, (3, 2, cfg.window, 512, cfg.feature_channels), seed=1)
+    y = _card(dev, (3, 2, cfg.horizon, 512, 12), seed=2)
+    koppen = [5, 7, 9]
+    # The serial step with `_VBATCH` off, as the fleet's default route runs
+    # it (under `_VBATCH` a window batch would run on rows 16-17 itself).
+    assert not fused_lstm_stack._VBATCH
+    leaves = [params[k].detach().requires_grad_(True) for k in names]
+    tasks = fused_lstm_stack.lstm_stack_train_tasks
+    before = (tasks.launches, tasks.backward_launches)
+    preds = apply_hybrid_tasks(dict(zip(names, leaves)), a_hat, x,
+                               torch.tensor(koppen, device=dev), cfg, masks={})
+    losses = torch.stack([masked_mse(preds[v], y[v], mask) for v in range(3)])
+    grads = torch.autograd.grad(losses.sum(), leaves)
+    assert (tasks.launches, tasks.backward_launches) == (before[0] + 1, before[1] + 1)
+    for v in range(3):
+        one = [params[k][v].detach().requires_grad_(True) for k in names]
+        ref = functional_apply(template, dict(zip(names, one)), apply_model, a_hat[v], x[v],
+                               koppen[v], cfg, train=True,
+                               generator=torch.Generator(device=dev).manual_seed(1))
+        loss = masked_mse(ref, y[v], mask)
+        assert torch.equal(preds[v].detach(), ref.detach()) and torch.equal(losses[v], loss), v
+        for k, g, r in zip(names, grads, torch.autograd.grad(loss, one)):
+            assert torch.equal(g[v], r), (v, k, _rel(g[v], r))
 
 
 @pytest.mark.cuda

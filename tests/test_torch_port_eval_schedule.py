@@ -18,7 +18,7 @@ package.
     schedule: `fused_lstm_last_hidden` (eval and train mode, the biases
     split as b_ih / b_hh), `lstm_stack_last_all` and the unmerged eval
     forward through `eval_forward`, each counted on its own entry.
-  * The routing: at float32 hidden 320 (no cluster holds Wh) and 130 (not a
+  * The routing: at float32 hidden 448 (no cluster holds Wh) and 130 (not a
     multiple of 8) `lstm_kernel="auto"` and `use_pallas_lstm` run the plain
     stack in eval mode, counted, and the hybrid's forward equals JAX's
     `apply_hybrid` with the same flags (float32 1e-5, float64 1e-10).
@@ -284,10 +284,10 @@ def _hybrid(kw, a_hat, x, monkeypatch):
     return out, calls, jp
 
 
-@pytest.mark.parametrize("hidden", [320, 130])
+@pytest.mark.parametrize("hidden", [448, 130])
 @pytest.mark.parametrize("flag", list(FLAGS))
 def test_eval_routing_takes_the_plain_stack_where_unplanned(monkeypatch, hidden, flag):
-    """float32 hidden 320 (no cluster holds Wh) or 130 (not a multiple of
+    """float32 hidden 448 (no cluster holds Wh) or 130 (not a multiple of
     8): neither row 2's nor row 20's entry is called, the plain route is
     counted once, and the forward is bitwise the plain stack's
     (`lstm_kernel="xla"`); in float64 (plain on every route) the hybrid's
@@ -337,9 +337,11 @@ def test_forward_plan_at_validate_rows(hidden, itemsize, rows, plan):
 
 @pytest.mark.parametrize("c_in,hidden,dtype,planned", [
     (256, 128, torch.float32, True), (256, 256, torch.float32, True),
-    (16, 320, torch.float32, False), (16, 130, torch.float32, False),
+    (16, 448, torch.float32, False), (16, 130, torch.float32, False),
     (12, 128, torch.float32, False), (256, 384, torch.bfloat16, True),
-    (16, 320, torch.float64, True),
+    (16, 320, torch.float64, True), (256, 320, torch.float32, True),
+    (256, 384, torch.float32, True), (256, 512, torch.bfloat16, True),
+    (256, 640, torch.bfloat16, False),
 ])
 def test_eval_planned(c_in, hidden, dtype, planned):
     """The eval forward's answer: widths that are multiples of 8 and a

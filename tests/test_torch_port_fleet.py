@@ -143,7 +143,7 @@ def _jax_fleet(out_dir):
     import jax
 
     from weatherforecast_stgcn_maml_tpu import config as jcfg
-    from weatherforecast_stgcn_maml_tpu import native as jax_native
+    from tests._host_route import restore_host_routes, use_same_host_route
     from weatherforecast_stgcn_maml_tpu.engines import fleet_adapt as jax_fleet
     from weatherforecast_stgcn_maml_tpu.models.registry import init_model as jax_init
     from weatherforecast_stgcn_maml_tpu_torch.utils.convert import state_dict_from_params
@@ -163,13 +163,13 @@ def _jax_fleet(out_dir):
     jax_fleet.load_checkpoint = lambda path, like=None: ({"params": f64}, {"epoch": 0})
     jax_fleet.load_meta = lambda path: {}
     jax_fleet.save_checkpoint = lambda *a, **k: None
-    jax_native.set_enabled(False)  # the port has only the numpy host route
+    use_same_host_route()
     try:
         with jax.enable_x64(True):
             res = jax_fleet.run_fleet_adaptation(cfg, REGIONS, log_cb=lambda *a: None)
     finally:
         jax_fleet.load_checkpoint, jax_fleet.load_meta, jax_fleet.save_checkpoint = saved
-        jax_native.set_enabled(True)
+        restore_host_routes()
     return state_dict_from_params(params), res
 
 

@@ -165,7 +165,7 @@ def test_forward_plan(hidden, itemsize, rows, plan):
 
 
 def test_forward_plan_refuses_what_no_cluster_holds():
-    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 8 blocks"):
+    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 16 blocks"):
         fls.forward_plan(1024, 512, 4, 132)
 
 

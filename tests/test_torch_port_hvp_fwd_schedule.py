@@ -187,7 +187,7 @@ def test_tangent_forward_plan(hidden, itemsize, rows, plan):
 
 
 def test_tangent_forward_plan_refuses_what_no_cluster_holds():
-    with pytest.raises(ValueError, match="tangent forward recurrence holds Wh in at most 8"):
+    with pytest.raises(ValueError, match="tangent forward recurrence holds Wh in at most 16"):
         fh.tangent_forward_plan(1024, 512, 4, 132)
 
 

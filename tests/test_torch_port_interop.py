@@ -25,7 +25,7 @@ import torch
 
 from weatherforecast_stgcn_maml_tpu import cli as jax_cli
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data import region as jax_region
 from weatherforecast_stgcn_maml_tpu.engines import data_source as jax_data_source
 from weatherforecast_stgcn_maml_tpu.utils import profiling as jax_profiling
@@ -230,14 +230,14 @@ def test_export_import_roundtrip_and_fused_bias(tmp_path):
 
 
 @pytest.fixture()
-def numpy_host_route():
-    jax_native.set_enabled(False)  # the port has only the numpy host route
+def same_host_route():
+    use_same_host_route()
     yield
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 @pytest.mark.parametrize("adapted", [False, True], ids=["meta", "adapted"])
-def test_cli_import_then_forecast_matches_jax(tmp_path, numpy_host_route, adapted):
+def test_cli_import_then_forecast_matches_jax(tmp_path, same_host_route, adapted):
     """`import-checkpoint` then `forecast --device cpu`, against the JAX
     CLI's, float32; the adapted form imports under the region's name with
     its stats. Then `export-checkpoint` of what was imported gives back the
@@ -317,7 +317,7 @@ def test_data_report_prints_jax_lines(monkeypatch, years):
     assert len(got.splitlines()) == 3 + 12 and "!!" in got and " !" in got
 
 
-def test_data_report_moscow_matches_jax(numpy_host_route):
+def test_data_report_moscow_matches_jax(same_host_route):
     """The unpatched synthetic backend, a named region."""
     argv = ["data-report", "--region", "Moscow", "-o", "data.synthetic_timesteps=64"]
     _, want, _ = _cli(*argv, main=jax_cli.main)

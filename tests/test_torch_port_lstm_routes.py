@@ -39,7 +39,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
 from weatherforecast_stgcn_maml_tpu.graph import build_region_graph as jax_graph
 from weatherforecast_stgcn_maml_tpu.models.hybrid import apply_hybrid as jax_apply_hybrid
@@ -372,12 +372,11 @@ META = dict(meta_batch=2, grad_accum=2, inner_epochs=1, inner_batches=2, query_b
 
 
 @pytest.fixture()
-def numpy_host_route():
-    """The port gathers windows with torch indexing; hold it against the
-    JAX package's numpy route."""
-    jax_native.set_enabled(False)
+def same_host_route():
+    """Both packages on one host route (`tests/_host_route.py`)."""
+    use_same_host_route()
     yield
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 def _regions(port, n):
@@ -401,7 +400,7 @@ def _setup(model_kw, meta_kw, n_tasks):
     return (mc, meta, tasks, params), (tmc, tmeta, ptasks, model)
 
 
-def test_fo_meta_step_on_the_recurrence_route_matches_jax_float64(numpy_host_route):
+def test_fo_meta_step_on_the_recurrence_route_matches_jax_float64(same_host_route):
     """One FO meta step (2 tasks, grad-accum 2, the fused inner update) with
     lstm_kernel="pallas" on both sides, against JAX's make_meta_step."""
     (mc, meta, tasks, params), (tmc, tmeta, ptasks, model) = _setup(
@@ -423,7 +422,7 @@ def test_fo_meta_step_on_the_recurrence_route_matches_jax_float64(numpy_host_rou
 
 @pytest.mark.parametrize("impl", ["xla", "fhvp"])
 @pytest.mark.parametrize("route", [dict(lstm_kernel="pallas"), dict(use_pallas_lstm=True)])
-def test_so_meta_gradient_on_the_routes_matches_jax_float64(numpy_host_route, route, impl):
+def test_so_meta_gradient_on_the_routes_matches_jax_float64(same_host_route, route, impl):
     """One task's SO meta-gradient (2 inner steps, dropout 0) against
     jax.grad of JAX's adapt_and_query_loss with second_order=True. JAX
     reroutes the twice-differentiated parts to its XLA routes

@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
 from weatherforecast_stgcn_maml_tpu.ops import fused_sgd as jax_fused_sgd
 from weatherforecast_stgcn_maml_tpu.train import maml as jax_maml
@@ -62,12 +62,11 @@ META = dict(meta_batch=2, grad_accum=2, inner_epochs=2, inner_batches=2,
 
 
 @pytest.fixture()
-def numpy_host_route():
-    """The port gathers windows with torch indexing; hold it against the
-    JAX package's numpy route."""
-    jax_native.set_enabled(False)
+def same_host_route():
+    """Both packages on one host route (`tests/_host_route.py`)."""
+    use_same_host_route()
     yield
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 def _np(tree):
@@ -176,7 +175,7 @@ def _regions(port):
     return [make((10.0 + i, 10.5 + i, 20.0, 20.5), num_timesteps=40, seed=i) for i in range(2)]
 
 
-def test_build_meta_tasks_matches_jax(numpy_host_route):
+def test_build_meta_tasks_matches_jax(same_host_route):
     mc, meta = jcfg.ModelConfig(**MODEL), jcfg.MetaConfig(**META)
     ref = jax_build_meta_tasks(_regions(False), mc, meta, jcfg.DataConfig())
     got = build_meta_tasks(_regions(True), tcfg.ModelConfig(**MODEL), tcfg.MetaConfig(**META),
@@ -227,14 +226,14 @@ def _check_step(got_state, got_metrics, ref_state, ref_metrics):
         np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(), err_msg=name, **tol)
 
 
-def test_fo_meta_step_matches_jax_float64(numpy_host_route):
+def test_fo_meta_step_matches_jax_float64(same_host_route):
     """Two tasks, grad-accum 2 (two AdamW updates), 2 x 2 inner steps,
     dropout 0, the per-leaf clip + SGD; then one more step from JAX's
     mid-run state."""
     _check_meta_steps(META)
 
 
-def test_fo_meta_step_fused_update_matches_jax_float64(numpy_host_route):
+def test_fo_meta_step_fused_update_matches_jax_float64(same_host_route):
     """The same with `fused_inner_update` on, the default, on both sides:
     the port's whole-tree clip + SGD (its plain version on the CPU)."""
     _check_meta_steps({**META, "fused_inner_update": True})

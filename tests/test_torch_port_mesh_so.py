@@ -422,12 +422,12 @@ def _worker(case, rank, world, port, out_dir):
 
 
 def _jax_tasks_and_state(mc, meta):
-    """The four tasks (the JAX package's numpy host route) and the float64
+    """The four tasks (on the port's host route: `tests/_host_route.py`) and the float64
     initial state, as JAX arrays (call under x64)."""
     import jax
     import jax.numpy as jnp
 
-    from weatherforecast_stgcn_maml_tpu import native as jax_native
+    from tests._host_route import restore_host_routes, use_same_host_route
     from weatherforecast_stgcn_maml_tpu.config import DataConfig
     from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box
     from weatherforecast_stgcn_maml_tpu.train.maml import MamlState, init_meta_state
@@ -436,11 +436,11 @@ def _jax_tasks_and_state(mc, meta):
 
     regions = [synthetic_region_for_box((10.0 + i, 12.25 + i, 20.0, 22.25), num_timesteps=32,
                                         seed=i) for i in range(4)]
-    jax_native.set_enabled(False)
+    use_same_host_route()
     try:
         built = build_meta_tasks(regions, mc, meta, DataConfig())
     finally:
-        jax_native.set_enabled(True)
+        restore_host_routes()
 
     def f64(a):
         a = np.asarray(a)

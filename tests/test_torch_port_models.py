@@ -17,7 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data.preprocess import prepare_features as jax_features
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region as jax_region
 from weatherforecast_stgcn_maml_tpu.data.windows import WindowSpec as JaxWindowSpec
@@ -47,11 +47,11 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=5e-2, atol=5
 
 
 @pytest.fixture()
-def numpy_host_route():
-    """The port has only the JAX package's numpy host route; compare with it."""
-    jax_native.set_enabled(False)
+def same_host_route():
+    """Both packages on one host route (`tests/_host_route.py`)."""
+    use_same_host_route()
     yield
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 def _np(tree):
@@ -90,7 +90,7 @@ def test_config_constants_and_overrides_equal_jax():
         tcfg.apply_overrides(tcfg.ExperimentConfig(), ["compat.koppen_zero_in_adapt=Ture"])
 
 
-def test_host_pipeline_equals_jax(numpy_host_route):
+def test_host_pipeline_equals_jax(same_host_route):
     kw = dict(num_timesteps=40, seed=3, nan_fraction=0.05, hour_offset=7)
     region = synthetic_region(10.0, 11.0, 20.0, 21.5, **kw)
     ref_region = jax_region(10.0, 11.0, 20.0, 21.5, **kw)

@@ -269,7 +269,7 @@ def _jax_tasks_and_state():
     import jax
     import jax.numpy as jnp
 
-    from weatherforecast_stgcn_maml_tpu import native as jax_native
+    from tests._host_route import restore_host_routes, use_same_host_route
     from weatherforecast_stgcn_maml_tpu.config import DataConfig
     from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box
     from weatherforecast_stgcn_maml_tpu.train.maml import MamlState, init_meta_state
@@ -279,11 +279,11 @@ def _jax_tasks_and_state():
     mc, meta = _jax_cfgs()
     regions = [synthetic_region_for_box((10.0 + i, 12.25 + i, 20.0, 22.25), num_timesteps=32,
                                         seed=i) for i in range(meta.meta_batch)]
-    jax_native.set_enabled(False)
+    use_same_host_route()
     try:
         built = build_meta_tasks(regions, mc, meta, DataConfig())
     finally:
-        jax_native.set_enabled(True)
+        restore_host_routes()
 
     def f64(a):
         a = np.asarray(a)
@@ -613,7 +613,7 @@ def test_engine_takes_vbatch_on_the_dp_x_sp_mesh(monkeypatch, override, match):
     assert mine.support_x.shape[:1] + mine.support_x.shape[3:4] == (2, 64)
     assert maml.lockstep_route(cfg.model, cfg.meta, mine)
     before = maml.lockstep_route.serial_fallbacks
-    wide = dataclasses.replace(cfg.model, lstm_hidden=320)  # no plan at float32 H 320
+    wide = dataclasses.replace(cfg.model, lstm_hidden=448)  # no plan at float32 H 448
     assert not maml.lockstep_route(wide, cfg.meta, mine)
     assert maml.lockstep_route.serial_fallbacks == before + 1
 

@@ -21,7 +21,7 @@ import pytest  # noqa: E402
 import jax  # noqa: E402
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg  # noqa: E402
-from weatherforecast_stgcn_maml_tpu import native as jax_native  # noqa: E402
+from tests._host_route import restore_host_routes, use_same_host_route  # noqa: E402
 from weatherforecast_stgcn_maml_tpu.data.preprocess import NormStats as JaxNormStats  # noqa: E402
 from weatherforecast_stgcn_maml_tpu.data.synthetic import (  # noqa: E402
     synthetic_region_for_box as jax_box,
@@ -131,7 +131,7 @@ def test_validation_plots_match_jax_float64(closed, tmp_path, monkeypatch):
     """`run_validation(make_plots=True)` in float64 on an adapted checkpoint
     against JAX's: the same metrics (1e-8), the same two files, the same
     line data (1e-8)."""
-    jax_native.set_enabled(False)  # the port has only the numpy host route
+    use_same_host_route()
     try:
         params = jax.tree.map(np.asarray, jax_init_model(jax.random.key(1),
                                                          jcfg.ModelConfig(**SMALL)))
@@ -146,7 +146,7 @@ def test_validation_plots_match_jax_float64(closed, tmp_path, monkeypatch):
                 BOX, "tiny", region=jax_box(BOX, num_timesteps=96, seed=5, name="tiny"),
                 make_plots=True, log_cb=lambda *a: None)
     finally:
-        jax_native.set_enabled(True)
+        restore_host_routes()
     cfg = tcfg.ExperimentConfig(model=tcfg.ModelConfig(**model), out_dir=str(tmp_path / "port"))
     mc = jcfg.ExperimentConfig(model=jcfg.ModelConfig(**SMALL))
     save_checkpoint(adapted_ckpt_path(cfg.out_dir, "tiny", BOX), state_dict_from_params(params),

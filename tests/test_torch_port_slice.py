@@ -21,7 +21,7 @@ import torch
 import jax
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.engines.adapt import adapted_ckpt_path as jax_adapted_path
 from weatherforecast_stgcn_maml_tpu.engines.forecast import run_forecast as jax_run_forecast
 from weatherforecast_stgcn_maml_tpu.engines.validate import run_validation as jax_run_validation
@@ -46,7 +46,7 @@ OVERRIDES = [a for k, v in SMALL.items() for a in ("-o", f"model.{k}={v}")]
 def outs(tmp_path):
     """A JAX-written base and adapted checkpoint, and their conversions for
     the port (each package under its own out_dir)."""
-    jax_native.set_enabled(False)  # the port has only the numpy host route
+    use_same_host_route()
     jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
     mc = jcfg.ModelConfig(**SMALL)
     meta = {"config": jcfg.to_dict(jcfg.ExperimentConfig(model=mc))}
@@ -64,7 +64,7 @@ def outs(tmp_path):
         save_checkpoint(os.path.join(port_out, rel), state_dict, saved_meta)
     assert os.path.isdir(adapted_ckpt_path(port_out, NAME, BOX))
     yield jax_out, port_out
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 def _port_cli(*argv):

@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
 from weatherforecast_stgcn_maml_tpu.models.losses import masked_mse as jax_mse
 from weatherforecast_stgcn_maml_tpu.models.registry import apply_model as jax_apply_model
@@ -197,12 +197,11 @@ def test_hvp_plain_matches_autodiff_float64(layers, with_masks):
 
 
 @pytest.fixture()
-def numpy_host_route():
-    """The port gathers windows with torch indexing; hold it against the
-    JAX package's numpy route."""
-    jax_native.set_enabled(False)
+def same_host_route():
+    """Both packages on one host route (`tests/_host_route.py`)."""
+    use_same_host_route()
     yield
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 def _np(tree):
@@ -241,7 +240,7 @@ def _model(mc, params_sd):
     return model
 
 
-def test_grad_loss_fused_and_its_hvp_match_jax_float64(numpy_host_route):
+def test_grad_loss_fused_and_its_hvp_match_jax_float64(same_host_route):
     """(c) make_grad_loss_fused (the plain stack ops on the CPU, through the
     same composition the card runs on its kernels) and torch.func.jvp of it
     against jax.grad / jax.jvp(jax.grad) of JAX's support loss, dropout on,
@@ -308,12 +307,12 @@ def so_reference():
     steps, dropout 0; the port's side of `_so_setup`), JAX's computed once
     a family, with `so_impl="hvp"` (every so_impl computes the same exact
     meta-gradient, as the JAX package's own tests hold; "hvp" compiles
-    fastest on the CPU), on the numpy host route."""
+    fastest on the CPU), on the port's host route (`tests/_host_route.py`)."""
     cache = {}
 
     def ref(family):
         if family not in cache:
-            jax_native.set_enabled(False)
+            use_same_host_route()
             try:
                 (mc, meta, tasks, params), port = _so_setup(family)
                 meta = dataclasses.replace(meta, so_impl="hvp")
@@ -324,7 +323,7 @@ def so_reference():
                                                                 mc, meta))(params)
                     g_ref = state_dict_from_params(_np(g_ref), np.float64)
             finally:
-                jax_native.set_enabled(True)
+                restore_host_routes()
             cache[family] = (float(loss_ref), g_ref, port)
         return cache[family]
 
@@ -369,7 +368,7 @@ def test_so_wavefront_meta_gradient_matches_jax_float64(so_reference, monkeypatc
                                    err_msg=name)
 
 
-def test_so_meta_step_matches_jax_float64(numpy_host_route):
+def test_so_meta_step_matches_jax_float64(same_host_route):
     """(e) One SO meta step (fhvp, 2 tasks, grad-accum 2: two AdamW updates)
     against JAX's make_meta_step."""
     (mc, meta, tasks, params), (tmc, tmeta, ptasks, sd) = _so_setup("hybrid", n_tasks=2)

@@ -1,5 +1,6 @@
 """The LSTM stack's route under `lstm_kernel="auto"` where no cluster holds
-Wh, on the CPU.
+Wh, on the CPU (16-block clusters hold it up to float32 H 396 and bfloat16
+H 512; float32 H 448 has no plan).
 
   * `fused_lstm_stack.stack_planned` (the cluster plans of the training
     stack's recurrences) by width and dtype, and the route `apply_lstm`
@@ -12,10 +13,11 @@ Wh, on the CPU.
     tests/test_torch_port_cuda.py);
   * `train/maml.lockstep_route` with a micro-batch of V = 2 tasks follows
     the same rule (`_VBATCH`);
-  * a train step of the hybrid at hidden width 320 under `auto` (JAX's
+  * a train step of the hybrid at hidden width 448 under `auto` (JAX's
     masks injected) against JAX's `apply_model` with `kernel="auto"`, whose
     CPU route is its XLA scan: float64 at 1e-8, and the float32 config,
     which takes the plain route by the decision, at float32's tolerance;
+    and at 320, where the float32 config takes the training stack's entry;
   * second order's fused gradient (`make_grad_loss_fused`) by the same
     rule: the plain loss's gradient where no plan holds Wh, as the JAX
     package takes jax.grad of its XLA loss where its R-kernels do not fit.
@@ -41,6 +43,7 @@ from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.models import lstm as tlstm
 from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
 from weatherforecast_stgcn_maml_tpu_torch.models.registry import apply_model, draw_masks, init_model
+from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_hvp
 from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
 from weatherforecast_stgcn_maml_tpu_torch.train import maml
 from weatherforecast_stgcn_maml_tpu_torch.train.so_fused import (
@@ -54,10 +57,13 @@ torch.set_num_threads(1)  # small tensors; more threads oversubscribe side-by-si
 
 CPU = torch.device("cpu")
 T, B, C, KEEP = 3, 4, 8, 0.8
-# (compute dtype, hidden width, planned): float32 plans up to 256, bfloat16
-# up to 384 (PERF.md; `_cluster_plan`).
-WIDTHS = [(torch.float32, 128, True), (torch.float32, 256, True), (torch.float32, 320, False),
-          (torch.float32, 512, False), (torch.bfloat16, 384, True), (torch.bfloat16, 512, False)]
+# (compute dtype, hidden width, planned): float32 plans up to 392, bfloat16
+# up to 512, 16-block clusters past float32 256 and bfloat16 384 (PERF.md;
+# `_cluster_plan`).
+WIDTHS = [(torch.float32, 128, True), (torch.float32, 256, True), (torch.float32, 448, False),
+          (torch.float32, 512, False), (torch.bfloat16, 384, True), (torch.bfloat16, 640, False),
+          (torch.float32, 320, True), (torch.float32, 384, True), (torch.bfloat16, 448, True),
+          (torch.bfloat16, 512, True)]
 
 
 def _stack(hidden, layers=2, seed=0):
@@ -107,14 +113,15 @@ def test_auto_takes_the_plain_stack_where_no_plan_holds_wh(monkeypatch, dtype, h
 
 
 def test_plans_refuse_float32_h320_and_forced_routes_reach_their_kernels(monkeypatch):
-    """At float32 hidden 320 both recurrence plans refuse (a card raises
-    there); `pallas_stack` still calls the training stack's entry and
-    `pallas` the per-layer route, counting no plain route."""
-    for plan, what in ((fls.forward_plan, "forward recurrence holds Wh"),
+    """At float32 hidden 448 (320 before 16-block clusters) both recurrence
+    plans refuse (a card raises there); `pallas_stack` still calls the
+    training stack's entry and `pallas` the per-layer route, counting no
+    plain route."""
+    for plan, what in ((fls.forward_plan, "forward recurrence holds Wh in at most 16 blocks"),
                        (fls.recurrence_plan, r"backward recurrence holds Wh\^T")):
         with pytest.raises(ValueError, match=what):
-            plan(320, 512, 4, fls.H100_SMS)
-    lstm = _stack(320)
+            plan(448, 512, 4, fls.H100_SMS)
+    lstm = _stack(448)
     x = torch.randn((B, T, C), generator=torch.Generator().manual_seed(1))
     stack = _spy(monkeypatch, tlstm, "lstm_stack_train")
     layerwise = _spy(monkeypatch, tlstm, "lstm_layerwise")
@@ -129,11 +136,11 @@ def test_plans_refuse_float32_h320_and_forced_routes_reach_their_kernels(monkeyp
 def test_eval_forward_keeps_row2_at_any_width(monkeypatch, merged):
     """The eval forward, merged (row 2) or not (row 14,
     `_MERGED_GATES=False`), runs on the card as one schedule whose forward
-    recurrence has no cluster plan at float32 hidden 320 (`eval_planned`):
+    recurrence has no cluster plan at float32 hidden 448 (`eval_planned`):
     `auto` runs the plain stack there, counted, as JAX's `auto` does where
     `stack_supported` fails; no eval entry is called."""
     monkeypatch.setattr(fls, "_MERGED_GATES", merged)
-    lstm = _stack(320)
+    lstm = _stack(448)
     x = torch.randn((B, T, C), generator=torch.Generator().manual_seed(1))
     calls = _spy(monkeypatch, tlstm, "lstm_stack_last_all")
     before = fls.lstm_stack_train.plain_routes
@@ -141,12 +148,12 @@ def test_eval_forward_keeps_row2_at_any_width(monkeypatch, merged):
         got = tlstm.apply_lstm(lstm, x, compute_dtype=torch.float32, kernel="auto")
     assert calls == []
     assert fls.lstm_stack_train.plain_routes == before + 1
-    assert not fls.eval_planned(C, 320, B, torch.float32, x.device)
+    assert not fls.eval_planned(C, 448, B, torch.float32, x.device)
     with torch.no_grad():
         assert torch.equal(got, fls.lstm_stack_plain(lstm.layers, x, torch.float32))
 
 
-SMALL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=320, lstm_layers=2, window=4,
+SMALL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=448, lstm_layers=2, window=4,
              horizon=2, koppen_dim=4, gcn_dropout=0.2, lstm_dropout=0.2, lstm_kernel="auto")
 
 
@@ -173,10 +180,24 @@ def _jax_masks(mc, rng, w, n):
 ])
 def test_auto_train_step_at_h320_matches_jax(dtype, tol):
     """The hybrid's train step (output and every parameter's gradient of
-    sum(out * ct)) at hidden 320 under `auto`, JAX's masks injected, against
-    JAX's `apply_model`; the float32 config takes the plain route by the
-    decision (counted), float64 is plain on every route."""
-    kw = dict(SMALL, compute_dtype=dtype)
+    sum(out * ct)) at hidden 448 (320 before 16-block clusters) under
+    `auto`, JAX's masks injected, against JAX's `apply_model`; the float32
+    config takes the plain route by the decision (counted), float64 is plain
+    on every route."""
+    _train_step_matches_jax(dtype, tol, 448, planned=False)
+
+
+@pytest.mark.parametrize("hidden", [320, 384])
+def test_auto_train_step_at_16_block_widths_matches_jax(hidden):
+    """The same step at float32 hidden 320 and 384, where 16-block clusters
+    hold Wh: `auto` takes the training stack's entry (its plain pieces on a
+    CPU tensor), counts no plain route, and matches JAX at float32's
+    tolerance."""
+    _train_step_matches_jax("float32", dict(rtol=1e-4, atol=1e-5), hidden, planned=True)
+
+
+def _train_step_matches_jax(dtype, tol, hidden, planned):
+    kw = dict(SMALL, compute_dtype=dtype, lstm_hidden=hidden)
     mc = jcfg.ModelConfig(**kw)
     npdt = np.float64 if dtype == "float64" else np.float32
     a_hat = jax_graph(np.arange(10.0, 11.0 + 1e-9, 0.25),
@@ -207,18 +228,22 @@ def test_auto_train_step_at_h320_matches_jax(dtype, tol):
                       tcfg.ModelConfig(**kw), train=True,
                       masks={k: torch.from_numpy(v) for k, v in masks.items()})
     (out * torch.from_numpy(ct)).sum().backward()
-    assert fls.lstm_stack_train.plain_routes == before + (dtype == "float32")
+    assert fls.lstm_stack_train.plain_routes == before + (dtype == "float32" and not planned)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **tol)
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), ref_sd[name].numpy(), err_msg=name, **tol)
 
 
-@pytest.mark.parametrize("hidden,planned", [(128, True), (320, False)])
+@pytest.mark.parametrize("hidden,planned", [(128, True), (448, False), (320, True)])
 def test_so_fused_gradient_takes_the_plain_loss_where_no_plan_holds_wh(hidden, planned):
-    """`make_grad_loss_fused` (float32, `auto`): at hidden 320 the plain
-    loss's gradient, bit for bit, counted as a plain route; at 128 the
-    fused composition (the plain stack ops on a CPU tensor), not counted,
-    equal to it at float32's tolerance."""
+    """`make_grad_loss_fused` (float32, `auto`): at hidden 448 the plain
+    loss's gradient, bit for bit, counted as a plain route; at 128 and 320
+    (a 16-block cluster) the fused composition (the plain stack ops on a CPU
+    tensor), not counted, equal to it at float32's tolerance. Where the
+    stack is planned, rows 10-11's tangent plans exist too."""
+    if planned:
+        for plan in (fused_lstm_hvp.tangent_forward_plan, fused_lstm_hvp.tangent_plan):
+            assert plan(hidden, 128, 4, fls.H100_SMS)
     cfg = tcfg.ModelConfig(**dict(SMALL, lstm_hidden=hidden))
     model = init_model(torch.Generator().manual_seed(0), cfg)
     n = 128

@@ -14,7 +14,7 @@ kernel rows 16-17 with row 9) and the unmerged-gates stack
   * the task-batched hybrid forward against V calls of `apply_hybrid`
     (float64, the same masks);
   * the lockstep FO meta step in float64 against JAX `make_meta_step`
-    (dropout 0, JAX's tasks on its numpy host route), with the fused and
+    (dropout 0, JAX's tasks on the port's host route), with the fused and
     the per-leaf inner update; the lockstep route against the port's serial
     route with the same injected masks; one float32 meta-gradient against
     JAX's with `_VBATCH` on in the interpreter (rows 16-17 inside JAX's
@@ -40,7 +40,7 @@ import jax
 import jax.numpy as jnp
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
 from weatherforecast_stgcn_maml_tpu.models.lstm import init_lstm as jax_init_lstm
 from weatherforecast_stgcn_maml_tpu.ops import fused_lstm_stack as jax_fls
@@ -72,12 +72,11 @@ MODEL = dict(hidden_channels=16, gcn_layers=2, lstm_hidden=8, lstm_layers=2, win
 
 
 @pytest.fixture()
-def numpy_host_route():
-    """The port gathers windows with torch indexing; hold it against the
-    JAX package's numpy route."""
-    jax_native.set_enabled(False)
+def same_host_route():
+    """Both packages on one host route (`tests/_host_route.py`)."""
+    use_same_host_route()
     yield
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 @pytest.fixture()
@@ -268,7 +267,7 @@ def _jax_f64(tree):
 
 
 @pytest.mark.parametrize("fused", [True, False])
-def test_lockstep_meta_step_matches_jax_float64(numpy_host_route, vbatch, monkeypatch, fused):
+def test_lockstep_meta_step_matches_jax_float64(same_host_route, vbatch, monkeypatch, fused):
     """Two tasks in one micro-batch (V = 2), 2 x 2 inner steps, dropout 0,
     two meta steps: the port's lockstep route (counted) against JAX
     `make_meta_step`, with the fused and the per-leaf inner update."""

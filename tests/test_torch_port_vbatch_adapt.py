@@ -12,7 +12,7 @@ one window a task, the weights shared across the windows (kernel rows
     the update);
   * where the window batch stays folded: `_ROWFOLD` on, `_VBATCH` off, one
     window, the plain stack (`lstm_kernel="xla"`), the wavefront, and no
-    plan for the windows' rows (float32 H 320, counted).
+    plan for the windows' rows (float32 H 448, counted).
 """
 
 import numpy as np
@@ -22,7 +22,7 @@ import torch
 import jax
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
 from weatherforecast_stgcn_maml_tpu.engines import adapt as jax_adapt
 from weatherforecast_stgcn_maml_tpu.models.registry import init_model as jax_init_model
@@ -89,7 +89,7 @@ def test_unfolded_run_adaptation_matches_jax_float64(tmp_path, monkeypatch, unfo
     broadcast with task stride 0."""
     monkeypatch.setattr(jax_fls, "_VBATCH", True)
     monkeypatch.setattr(jax_fls, "_ROWFOLD", False)
-    jax_native.set_enabled(False)  # the port has only the numpy host route
+    use_same_host_route()
     try:
         mc = jcfg.ModelConfig(**SMALL)
         params = _np(jax_init_model(jax.random.key(3), mc))
@@ -108,7 +108,7 @@ def test_unfolded_run_adaptation_matches_jax_float64(tmp_path, monkeypatch, unfo
             ref_params, _ = jax_ckpt.load_checkpoint(ref.ckpt_path)
             ref_sd = state_dict_from_params(_np(ref_params["params"]), np.float64)
     finally:
-        jax_native.set_enabled(True)
+        restore_host_routes()
     got = adapt.run_adaptation(
         _adapt_cfg(tcfg, tmp_path / "port"), BOX, "tiny", device="cpu", meta_ckpt=port_path,
         region=synthetic_region_for_box(BOX, num_timesteps=48, seed=5, name="tiny"),
@@ -171,12 +171,12 @@ def test_window_batch_stays_folded(monkeypatch, tasks_calls, case):
     """Where the window batch folds into the LSTM's rows: `_ROWFOLD` on,
     `_VBATCH` off, one window, the plain stack, the wavefront (no
     task-batched route), and where no cluster plan holds the windows' rows
-    (float32 H 320: the fold then takes `auto`'s plain stack), counted in
+    (float32 H 448: the fold then takes `auto`'s plain stack), counted in
     `window_batch_unfolded.folded_fallbacks`."""
     monkeypatch.setattr(fused_lstm_stack, "_VBATCH", case != "no _VBATCH")
     model_kw = {"lstm_kernel xla": dict(lstm_kernel="xla"),
                 "lstm_wavefront": dict(lstm_wavefront=True),
-                "unplanned": dict(lstm_hidden=320)}.get(case, {})
+                "unplanned": dict(lstm_hidden=448)}.get(case, {})
     before = port_hybrid.window_batch_unfolded.folded_fallbacks
     plain = fused_lstm_stack.lstm_stack_train.plain_routes
     loss, _ = _train_step("float32", folded=case == "rowfold",

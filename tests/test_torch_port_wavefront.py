@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from weatherforecast_stgcn_maml_tpu import config as jcfg
-from weatherforecast_stgcn_maml_tpu import native as jax_native
+from tests._host_route import restore_host_routes, use_same_host_route
 from weatherforecast_stgcn_maml_tpu.data.synthetic import synthetic_region_for_box as jax_box
 from weatherforecast_stgcn_maml_tpu.graph import build_region_graph as jax_graph
 from weatherforecast_stgcn_maml_tpu.models.hybrid import apply_hybrid as jax_apply_hybrid
@@ -262,12 +262,11 @@ META = dict(meta_batch=2, grad_accum=2, inner_epochs=1, inner_batches=2, query_b
 
 
 @pytest.fixture()
-def numpy_host_route():
-    """The port gathers windows with torch indexing; hold it against the
-    JAX package's numpy route."""
-    jax_native.set_enabled(False)
+def same_host_route():
+    """Both packages on one host route (`tests/_host_route.py`)."""
+    use_same_host_route()
     yield
-    jax_native.set_enabled(True)
+    restore_host_routes()
 
 
 def _regions(port, n):
@@ -298,7 +297,7 @@ def _count_wavefront(monkeypatch):
     return calls
 
 
-def test_fo_meta_step_with_lstm_wavefront_matches_jax_float64(numpy_host_route, monkeypatch):
+def test_fo_meta_step_with_lstm_wavefront_matches_jax_float64(same_host_route, monkeypatch):
     """One FO meta step (2 tasks, grad-accum 2, the fused inner update) with
     `model.lstm_wavefront` on both sides against JAX's make_meta_step: every
     forward runs the wavefront."""
@@ -325,7 +324,7 @@ def test_fo_meta_step_with_lstm_wavefront_matches_jax_float64(numpy_host_route, 
     ("rof", {}, dict(so_wavefront=True)),
     ("xla", dict(lstm_wavefront=True), {}),
 ], ids=["hvp-so_wavefront", "rof-so_wavefront", "xla-lstm_wavefront"])
-def test_so_meta_gradient_on_the_wavefront_matches_jax_float64(numpy_host_route, monkeypatch,
+def test_so_meta_gradient_on_the_wavefront_matches_jax_float64(same_host_route, monkeypatch,
                                                                impl, model_kw, meta_kw):
     """One task's SO meta-gradient (2 inner steps, three LSTM layers)
     against jax.grad of JAX's adapt_and_query_loss with the same flags

@@ -3,6 +3,7 @@
 checkouts on one card.
 
   python3 tools/step_times.py [CHECKOUT] [--cpu] [--eval-only] [--sgd-only]
+                               [--vbatch-only]
 
 imports the port from CHECKOUT (default: this one) and prints one JSON
 line: the eval LSTM stack's two entries alone (rows 2 and 20 at validate's
@@ -15,7 +16,17 @@ time by torch.profiler, by CUDA events and by graph replay, the host's
 time to enqueue a call with the card idle, and the float32 FO inner step
 by the host clock and the device's busy time; after holding each row
 against its plain version, two calls bitwise equal and a graph replay of
-one call equal to an eager call; it exits 1 where one of these fails), and
+one call equal to an eager call; it exits 1 where one of these fails;
+`--vbatch-only` instead times only the task-batched paths: row 17 alone,
+from row 16's residuals in its dtype (masks 0.2, 4 layers of 128), at V = 2
+x 512 rows and at the fleet's V = 3 x 1024 rows (three regions of two
+windows), float32 and bfloat16, by CUDA events and by graph replay; then,
+under `_VBATCH`, the lockstep FO meta step at `MetaConfig()` defaults on
+one device, on a dp mesh of one rank and on a 1 x 1 dp x sp mesh (a NCCL
+group of one), each the median of 3 after one warm-up step, and one fleet
+epoch of three cold regions (40 steps of batch 2: rows 16-17 at V = 3 x
+1024, the heads, Adam), the median of 3 after one warm-up epoch, all by
+the host clock), and
 row 20's train-mode call (forward and backward through
 autograd, [1024, 24, 256]: the adaptation step's rows) by events; where the
 checkout has the 32-row forward plan (`FWD_WIDE_TILE`), rows 2 and 20 at
@@ -76,9 +87,12 @@ parser.add_argument("checkout", nargs="?",
 parser.add_argument("--cpu", action="store_true", help="dry run on the CPU, no times")
 parser.add_argument("--eval-only", action="store_true", help="rows 2 and 20 alone, then stop")
 parser.add_argument("--sgd-only", action="store_true", help="rows 8 and 9 alone, then stop")
+parser.add_argument("--vbatch-only", action="store_true",
+                    help="the task-batched (_VBATCH) paths alone, then stop")
 args = parser.parse_args()
 sys.path.insert(0, os.path.abspath(args.checkout))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from weatherforecast_stgcn_maml_tpu_torch.config import (  # noqa: E402
@@ -425,6 +439,104 @@ def sgd_rows():
     return failed
 
 
+def vbatch_rows():
+    """Row 17 and the task-batched steps alone (the module docstring), into
+    `res`."""
+    from weatherforecast_stgcn_maml_tpu_torch.config import ADAPTATION_REGIONS
+    from weatherforecast_stgcn_maml_tpu_torch.data.preprocess import pad_nodes, prepare_features
+    from weatherforecast_stgcn_maml_tpu_torch.data.windows import WindowSpec
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.fleet_mesh import (
+        make_fleet_epoch_runner,
+        stack_fleet,
+    )
+    from weatherforecast_stgcn_maml_tpu_torch.parallel.meta_dp import make_parallel_meta_step
+    from weatherforecast_stgcn_maml_tpu_torch.train.optimizers import adaptation_optimizer
+
+    fls = fused_lstm_stack
+    cfg = ModelConfig()
+    hid, lh, n_l, w_len = cfg.hidden_channels, cfg.lstm_hidden, cfg.lstm_layers, cfg.window
+    if not args.cpu:  # row 17 alone: one task's split plan against V tasks' in the parent
+        draw = torch.Generator(device=dev).manual_seed(9)
+        bound = lh ** -0.5
+        for nv, rows in ((2, 512), (3, 1024)):
+            x_v = torch.randn((nv, w_len, rows, hid), generator=draw, device=dev)
+            w0, wr, b2d = (torch.empty(shape, device=dev).uniform_(-bound, bound, generator=draw)
+                           for shape in ((nv, hid + lh, 4 * lh), (nv, n_l - 1, 2 * lh, 4 * lh),
+                                         (nv, n_l, 4 * lh)))
+            m = draw_mask(draw, (nv, n_l - 1, w_len, rows, lh), 0.2, dev)
+            g_v = torch.randn((nv, rows, lh), generator=draw, device=dev)
+            with torch.no_grad():
+                for dt in (torch.float32, torch.bfloat16):
+                    fwd = fls.tasks_forward(x_v, m, 0.8, dt, w0, wr, b2d)
+
+                    def row17():
+                        fls.tasks_backward(g_v, x_v, *fwd[1:], w0, wr, m, 0.8, dt)
+
+                    name = f"row 17 {str(dt)[6:]} V {nv} x {rows}"
+                    res[f"{name} ms"] = events_ms(row17)
+                    res[f"{name} device ms"] = graph_ms(row17)
+                    del fwd
+            del x_v, m, g_v, w0, wr, b2d
+    regions = [get_region_data(box, data_cfg.train_years, data_cfg, tag="train",
+                               name=f"region{i}") for i, box in enumerate(META_TRAIN_REGIONS[:4])]
+    tasks = stage_tasks([b.task for b in build_meta_tasks(regions, cfg, meta_cfg, data_cfg)], dev)
+    state = init_meta_state(torch.Generator().manual_seed(1), cfg, meta_cfg, device=dev)
+    distributed.ensure_process_group("gloo" if args.cpu else "nccl")
+    g = torch.Generator(device=dev).manual_seed(2)
+    steps = (("lockstep meta step", make_meta_step(cfg, meta_cfg), g),
+             ("dp lockstep meta step",
+              make_parallel_meta_step(cfg, meta_cfg, make_mesh_2d(1, 1, dev, axis_names=("dp",))),
+              (7, 1)),
+             ("dp x sp lockstep meta step",
+              make_shardmap_meta_step_2d(cfg, meta_cfg, make_mesh_2d(1, 1, dev)), (7, 1)))
+    # One fleet epoch of three cold regions, from one seeded template.
+    boxes = dict((name, box) for box, name in ADAPTATION_REGIONS)
+    cold = ("Moscow", "NorthSiberia", "Afghanistan")
+    datas = [get_region_data(boxes[r], data_cfg.adapt_years, data_cfg, tag="adapt", name=r)
+             for r in cold]
+    graph = build_region_graph(datas[0].lats, datas[0].lons, k_neighbors=4)
+    n = graph.a_hat.shape[0]
+    feats = torch.from_numpy(np.stack([pad_nodes(prepare_features(d)[0], n)
+                                       for d in datas])).to(dev)
+    template = init_model(torch.Generator().manual_seed(0), cfg, device=dev)
+    tx, lr0 = adaptation_optimizer("Moscow")
+    spec = WindowSpec(cfg.window, cfg.horizon)
+    nb = 1 if args.cpu else 40
+    anchors = (spec.window + np.arange(2 * nb)).reshape(nb, 2)
+    a_hat3 = torch.from_numpy(graph.a_hat).to(dev).expand(3, n, n).contiguous()
+    mask3 = torch.from_numpy(graph.node_mask).to(dev).expand(3, n).contiguous()
+    kop3 = [max(d.koppen_code, 0) for d in datas]
+    run_fleet = make_fleet_epoch_runner(cfg, tx, spec, template)
+    params3, _ = stack_fleet([dict(template.named_parameters())] * 3, None, dev)
+    states3 = [tx.init({k: p[v] for k, p in params3.items()}) for v in range(3)]
+    gens = [torch.Generator(device=dev).manual_seed(v) for v in range(3)]
+
+    def fleet_epoch(state, tasks, key):
+        run_fleet(params3, states3, feats, np.stack([anchors] * 3), a_hat3, mask3, kop3,
+                  [lr0] * 3, gens)
+
+    fls._VBATCH = True
+    try:
+        for name, step, key in (*steps, ("fleet epoch", fleet_epoch, None)):
+            step(state, tasks, key)
+            times = []
+            for _ in range(1 if args.cpu else 3):
+                sync()
+                t0 = time.perf_counter()
+                step(state, tasks, key)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            res[f"{name} ms"] = None if args.cpu else statistics.median(times)
+    finally:
+        fls._VBATCH = False
+
+
+if args.vbatch_only:
+    vbatch_rows()
+    res["seconds"] = time.perf_counter() - t_start
+    torch.distributed.destroy_process_group()
+    print(json.dumps(res), flush=True)
+    sys.exit(0)
 if args.sgd_only:
     failed = [] if args.cpu else sgd_rows()
     res["failed"] = failed

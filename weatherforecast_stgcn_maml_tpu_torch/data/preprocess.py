@@ -1,7 +1,8 @@
 """Feature assembly: RegionData -> model-ready [T, N, C] array + stats.
 
-The numpy route of the JAX package's `data/preprocess.py`: features carry
-weather (12, z-scored) + time (4) channels (+2 optional relative
+The JAX package's `data/preprocess.py`, on its native host pipeline
+(`native`) where that is on and on its numpy route otherwise: features
+carry weather (12, z-scored) + time (4) channels (+2 optional relative
 coordinates); the Koppen embedding is looked up inside the model.
 """
 
@@ -11,6 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from weatherforecast_stgcn_maml_tpu_torch import native
 from weatherforecast_stgcn_maml_tpu_torch.config import NUM_WEATHER_VARS
 from weatherforecast_stgcn_maml_tpu_torch.data.region import RegionData
 from weatherforecast_stgcn_maml_tpu_torch.data.timefeat import time_features
@@ -95,18 +97,25 @@ def prepare_features(
 
     When `stats` is given it is reused (validation and serving normalize
     with the stats saved at adaptation time); otherwise new stats are
-    computed.
+    computed. Where the native host pipeline is on (`native`), the NaN fill
+    and the stats are one fused C++ pass and the z-score another, in place
+    on a fresh copy, as in the JAX package.
     """
     t, la, lo, c = region.weather.shape
     if c != NUM_WEATHER_VARS:
         raise ValueError(f"expected {NUM_WEATHER_VARS} weather vars, got {c}")
-    nodes = fill_nans_with_mean(
-        np.array(region.weather.reshape(t, la * lo, c), dtype=np.float32)
-    )
+    # A fresh C-contiguous copy: the native route fills and normalizes it in
+    # place and must never change the caller's RegionData.
+    nodes = np.array(region.weather.reshape(t, la * lo, c), dtype=np.float32, order="C")
 
+    fused = native.nan_fill_stats_native(nodes)  # the NaN fill, in place
+    if fused is None:
+        nodes = fill_nans_with_mean(nodes)
     if stats is None:
-        stats = compute_stats(nodes)
-    nodes = (nodes - stats.mean) / stats.std
+        stats = NormStats(mean=fused[0], std=fused[1]) if fused is not None else (
+            compute_stats(nodes))
+    if not native.normalize_native(nodes, stats.mean, stats.std):
+        nodes = (nodes - stats.mean) / stats.std
 
     tf = time_features(region.times)  # [T, 4]
     tf_tiled = np.broadcast_to(tf[:, None, :], (t, la * lo, tf.shape[-1]))

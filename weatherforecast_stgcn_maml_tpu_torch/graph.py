@@ -3,8 +3,10 @@
 The region's lat/lon grid becomes a directed kNN graph, then the dense
 GCN-normalized adjacency `A_hat = D^-1/2 (A + I) D^-1/2`, padded with zero
 rows and columns to a multiple of 128 nodes so that every region of a box
-size shares one shape. Numpy only, with stable-argsort tie-breaking, so the
-graph equals the JAX package's for the same grid.
+size shares one shape. The native host pipeline (`native`: the JAX
+package's C++ functions, built at first use) computes both where it is on;
+the numpy route beside each breaks ties by index as it does, so the graph
+equals the JAX package's for the same grid on either route.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from weatherforecast_stgcn_maml_tpu_torch import native
 
 NODE_ALIGN = 128  # padded node counts are multiples of this
 
@@ -37,6 +41,9 @@ def knn_edges(positions: np.ndarray, k: int = 4) -> np.ndarray:
     n = pos.shape[0]
     if k >= n:
         raise ValueError(f"k_neighbors={k} must be < num_nodes={n}")
+    native_edges = native.knn_edges_native(pos, k)
+    if native_edges is not None:
+        return native_edges
     d2 = np.sum((pos[:, None, :] - pos[None, :, :]) ** 2, axis=-1)
     np.fill_diagonal(d2, np.inf)
     nbr = np.argsort(d2, axis=1, kind="stable")[:, :k]
@@ -58,6 +65,9 @@ def normalized_adjacency(edges: np.ndarray, num_nodes: int, pad_to: int) -> np.n
     n = num_nodes
     if pad_to < n:
         raise ValueError(f"pad_to={pad_to} < num_nodes={n}")
+    a_native = native.normalized_adjacency_native(np.asarray(edges), n, pad_to)
+    if a_native is not None:
+        return a_native
     a = np.zeros((pad_to, pad_to), dtype=np.float64)
     if len(edges):
         e = np.asarray(edges)

@@ -204,7 +204,7 @@ def apply_hybrid_tasks(
       JAX package, whose vmap of them runs the tasks one after another);
       then every task's LSTM stack in one launch each way
       (`lstm_stack_train_tasks`, rows 16-17; its plain version under
-      `lstm_kernel="xla"`), and the head as one batched product.
+      `lstm_kernel="xla"`), and the heads task by task.
     """
     if cfg.lstm_kernel not in ("auto", "pallas_stack", "xla") or (
             cfg.use_pallas_lstm and cfg.lstm_dropout == 0.0):
@@ -246,7 +246,7 @@ def tasks_lstm_head(params: dict, h: torch.Tensor, masks: dict, cfg: ModelConfig
     {name: [V, ...]}): h [V, R, W, C] (the encoder's features, R rows a
     task) -> [V, R, horizon * 12]. Every task's stack in one launch each
     way (rows 16-17; their plain version under `lstm_kernel="xla"`), the
-    heads as one batched product. masks: "lstm" [V, L-1, W, R, H], "head"
+    heads task by task. masks: "lstm" [V, L-1, W, R, H], "head"
     [V, R, H], either may be absent. `apply_hybrid_tasks` and the node-
     sharded `parallel.spatial.hybrid_local_forward_tasks` end here."""
     dtype = resolve_dtype(cfg.compute_dtype)
@@ -261,8 +261,11 @@ def tasks_lstm_head(params: dict, h: torch.Tensor, masks: dict, cfg: ModelConfig
     feat = _lstm_tasks(wcat[0], wcatr, b2d, h, cfg, masks.get("lstm"), dtype)
     if "head" in masks:
         feat = apply_mask(feat, masks["head"], 1.0 - cfg.lstm_dropout)
-    out = torch.matmul(as_operand(feat, dtype), as_operand(params["head.w"], dtype))
-    return out + params["head.b"][:, None]
+    # The heads task by task, each the serial route's product (a batched
+    # product may round otherwise): a task's output is bitwise its own call's.
+    return torch.stack([
+        torch.matmul(as_operand(feat[v], dtype), as_operand(params["head.w"][v], dtype))
+        + params["head.b"][v] for v in range(nv)])
 
 
 def _shared_lstm_weights(layers, nv: int):

@@ -152,18 +152,20 @@ extern "C" int wf_lstm_scan_backward(const ScanBackwardLaunch* p) {
   if (T <= 0 || R <= 0 || H <= 0 || H % 4 || T * R > 0x7fffffff || H > 0x7fffffff ||
       (p->w_dt != kF32 && !bf16) || hp < H || hp % 8 || hp - H >= 8 ||
       (p->hcp != 32 && p->hcp != 64 && p->hcp != 128) ||
-      (p->cs != 1 && p->cs != 2 && p->cs != 4 && p->cs != 8) ||
+      !cluster_size_ok((int)p->cs) ||
       scan_units((int)H, (int)p->cs) > p->hcp || p->split_rows <= 0 ||
       round_h != (p->h_round != 0) || bf16 != (p->dg_round != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(p->stream);
   auto fptr = [](long long v) { return reinterpret_cast<const float*>(v); };
   // Slice b: Wh's rows [b * hc, b * hc + hc) transposed, zero past them to
-  // hcp columns (a block that owns no unit reads its slice for nothing).
+  // hcp columns (a block that owns no unit reads its slice for nothing);
+  // one launch a group of up to 8 slices (wf_transpose_round's limit).
   const int hc = scan_units((int)H, (int)p->cs), hcp = (int)p->hcp;
-  const void* src[8];
-  void* dst[8];
-  int rows[8], cols[8], ld[8], trans[8], drows[8], slices = 0;
+  const void* src[kWideCluster];
+  void* dst[kWideCluster];
+  int rows[kWideCluster], cols[kWideCluster], ld[kWideCluster], trans[kWideCluster],
+      drows[kWideCluster], slices = 0;
   for (int b = 0; b < p->cs && b * hc < H; ++b, ++slices) {
     src[slices] = fptr(p->wh) + (size_t)b * hc * g4;
     dst[slices] = reinterpret_cast<char*>(p->wts) + (size_t)b * g4 * hcp * (bf16 ? 2 : 4);
@@ -172,8 +174,12 @@ extern "C" int wf_lstm_scan_backward(const ScanBackwardLaunch* p) {
     trans[slices] = 1;
     drows[slices] = hcp;
   }
-  int err = wf_transpose_round((int)p->w_dt, slices, src, dst, rows, cols, ld, trans, drows, s);
-  if (err) return err;
+  for (int b = 0; b < slices; b += 8) {
+    const int n = slices - b < 8 ? slices - b : 8;
+    const int err = wf_transpose_round((int)p->w_dt, n, src + b, dst + b, rows + b, cols + b,
+                                       ld + b, trans + b, drows + b, s);
+    if (err) return err;
+  }
   const ScanBwd a{fptr(p->g),
                   fptr(p->gates),
                   fptr(p->c_all),
@@ -186,7 +192,7 @@ extern "C" int wf_lstm_scan_backward(const ScanBackwardLaunch* p) {
                   (int)H,
                   (int)p->cs,
                   1};
-  err = launch_scan_bwd_dt<false>((int)p->w_dt, (int)p->hcp, (int)p->rb, a, s);
+  int err = launch_scan_bwd_dt<false>((int)p->w_dt, (int)p->hcp, (int)p->rb, a, s);
   if (err) return err;
   RoundPadArgs rp{};
   int count = 0;

@@ -32,9 +32,11 @@
 //
 // Design: Wh^T stays in shared memory for all T steps. Its H columns are
 // split across a thread-block cluster of cs blocks, the smallest power of
-// two (at most 8) whose slice [4H, hc] fits beside the dgates tiles:
-// float32 H = 128 takes 2 blocks of 128 KB, bfloat16 H = 128 one block,
-// float32 H = 256 eight. Each block copies its slice once a launch (bulk
+// two (at most 8, or Hopper's non-portable 16 where 8 do not hold it)
+// whose slice [4H, hc] fits beside the dgates tiles: float32 H = 128 takes
+// 2 blocks of 128 KB, bfloat16 H = 128 one block, float32 H = 256 eight,
+// float32 H = 260-396 and bfloat16 H = 420-512 sixteen (hc <= 32 units).
+// Each block copies its slice once a launch (bulk
 // copies behind an mbarrier, overlapping the first step's gate math) and
 // owns the dh / dc carries of its hc units for the cluster's RB rows. A
 // step: the block's threads form the dgates of its units (thread: a row and
@@ -494,10 +496,21 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
   if constexpr (DB) scan_db_partial<RB, HCP, EPT>(part, pr, pj, dsum, j0, nq, H, a.db);
 }
 
+// The cluster sizes the recurrences take: the portable 1, 2, 4 and 8, and
+// Hopper's non-portable 16 (ops/fused_lstm_stack.py `_cluster_plan` takes it
+// only where no smaller cluster's shared memory holds the weight slice).
+constexpr int kWideCluster = 16;
+__host__ __device__ inline bool cluster_size_ok(int cs) {
+  return cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == kWideCluster;
+}
+
 // Launch `kernel` on a grid of (cs, gy, gz) blocks in clusters of cs along
 // x with `smem` bytes of dynamic shared memory, or (max_clusters not null)
 // ask how many of its clusters fit on the card at once. `opted` holds the
-// kernel's opt-in to more than 48 KB of shared memory, once a device.
+// kernel's opt-ins to more than 48 KB of shared memory and to clusters
+// above the portable 8 blocks, once a device. A 16-block cluster the card
+// cannot run fails at its launch, with the card's code: nothing falls back
+// to a smaller cluster.
 template <typename Args>
 int launch_cluster(void (*kernel)(Args), const Args& a, bool (&opted)[64], int cs, unsigned gy,
                    unsigned gz, size_t smem, cudaStream_t stream, int* max_clusters) {
@@ -507,6 +520,8 @@ int launch_cluster(void (*kernel)(Args), const Args& a, bool (&opted)[64], int c
   if (dev >= 64 || !opted[dev]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kScanMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) opted[dev] = true;
   }
@@ -574,8 +589,8 @@ inline bool aligned_to(const void* p, uintptr_t n) {
 // the occupancy of its clusters): w_dt (0 = float32, 1 = bfloat16) is the
 // compute dtype, the weight slices'; c_all is float32 or, with
 // C_IN_COMPUTE, in the compute dtype. The plan (a.cs blocks a cluster, hcp
-// weight columns a block, rb rows a cluster) is the caller's: cs 1, 2, 4
-// or 8, hcp 32, 64 or 128 and at least scan_units(H, cs), rb 2, 4, 8 or 16,
+// weight columns a block, rb rows a cluster) is the caller's: cs 1, 2, 4,
+// 8 or 16, hcp 32, 64 or 128 and at least scan_units(H, cs), rb 2, 4, 8 or 16,
 // within 227 KB of shared memory; 1 to 65535 tasks. H is a multiple of 4;
 // every array is 16-byte aligned (c_all in bfloat16: 8-byte), and so is
 // every task's slice of it. Returns a cudaError_t code:
@@ -588,7 +603,7 @@ int launch_scan_bwd_dt(int w_dt, int hcp, int rb, const ScanBwd& a, cudaStream_t
   const bool bf16 = w_dt == kBF16;
   if ((w_dt != kF32 && !bf16) || (hcp != 32 && hcp != 64 && hcp != 128) ||
       (rb != 2 && rb != 4 && rb != 8 && rb != 16) ||
-      (a.cs != 1 && a.cs != 2 && a.cs != 4 && a.cs != 8) || a.T <= 0 || a.R <= 0 || a.H <= 0 ||
+      !cluster_size_ok(a.cs) || a.T <= 0 || a.R <= 0 || a.H <= 0 ||
       a.H % 4 || scan_units(a.H, a.cs) > hcp || (a.R + rb - 1) / rb > 65535 ||
       a.tasks <= 0 || a.tasks > 65535 ||
       !a.dh_all != !a.dc_all || scan_bwd_smem(a.H, hcp, rb, bf16 ? 2 : 4) > kScanMaxSmem)

@@ -34,11 +34,12 @@
 //
 // Design, as the backward's (lstm_scan_bwd.cuh, whose helpers it uses): Wh
 // stays in shared memory for all T steps, split by hidden units over a
-// cluster of cs blocks: block b holds the four gate columns of its hc units,
-// [H, 4, hcp] (zero-padded to hcp), 128 KB at float32 H = 128 with cs = 2,
-// copied once a launch by cp.async while step 0 (which needs no weights: h_{-1}
-// = 0) runs. A thread owns a row and 4 units of all four gates (4 x 4 gate
-// values), so the c carry stays in its registers. A step: the block's 8
+// cluster of cs blocks (1-8, or 16 where 8 do not hold Wh: float32 H
+// 260-436, bfloat16 H 440-512): block b holds the four gate columns of its
+// hc units, [H, 4, hcp] (zero-padded to hcp), 128 KB at float32 H = 128
+// with cs = 2, copied once a launch by cp.async while step 0 (which needs no
+// weights: h_{-1} = 0) runs. A thread owns a row and 4 units of all four
+// gates (4 x 4 gate values), so the c carry stays in its registers. A step: the block's 8
 // warps contract the cluster's round(h_{t-1}) tile [RB, H] with their slice
 // (warp w: gate w % 4 over half of K; lane: UPT units of every row; the h
 // row read as broadcast 16-byte loads), write float32 partials [2, 4, RB,
@@ -371,8 +372,8 @@ int scan_fwd_hcp(int hcp, int rb, const ScanFwd& a, cudaStream_t s, int* max_clu
 
 // Whether a forward recurrence's plan (a cs-block cluster, hcp weight
 // columns a block and gate, rb rows a cluster) and shape are ones the
-// kernels take: cs 1, 2, 4 or 8, hcp 32, 64 or 128 and at least
-// scan_units(H, cs), rb among `tiles` (a bit a row tile: 2, 4, 8, 16, and
+// kernels take: cs 1, 2, 4, 8 or 16 (`cluster_size_ok`), hcp 32, 64 or
+// 128 and at least scan_units(H, cs), rb among `tiles` (a bit a row tile: 2, 4, 8, 16, and
 // 32 at hcp <= 64 in float32, hcp 32 in bfloat16), within 227 KB of shared
 // memory; H a multiple of 4 in float32 and of 8 in bfloat16 (the h tile's
 // 16-byte loads); 1 to 65535 tasks.
@@ -381,7 +382,7 @@ inline bool scan_fwd_plan_ok(bool bf16, int hcp, int rb, int cs, int T, int R, i
   return (hcp == 32 || hcp == 64 || hcp == 128) &&
          (rb == 2 || rb == 4 || rb == 8 || rb == 16 ||
           (rb == 32 && hcp <= (bf16 ? 32 : 64))) &&
-         (tiles & (unsigned)rb) && (cs == 1 || cs == 2 || cs == 4 || cs == 8) && T > 0 && R > 0 &&
+         (tiles & (unsigned)rb) && cluster_size_ok(cs) && T > 0 && R > 0 &&
          H > 0 && H % (bf16 ? 8 : 4) == 0 && scan_units(H, cs) <= hcp &&
          (R + rb - 1) / rb <= 65535 && tasks > 0 && tasks <= 65535 &&
          scan_fwd_smem(H, hcp, rb, bf16 ? 2 : 4) <= kScanMaxSmem;

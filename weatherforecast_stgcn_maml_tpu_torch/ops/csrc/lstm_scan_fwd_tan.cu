@@ -45,7 +45,7 @@
 // 4): 29 GFLOP (0.43 ms at the card's float32 rate), of which the serial
 // th @ Wh products are 6.44 over 4 x 24 steps; the off-chain products are
 // 22.5. The recurrence is lstm_scan_fwd.cuh's design (its helpers: Wh
-// resident in shared memory split by units over a 1-8 block cluster,
+// resident in shared memory split by units over a 1-16 block cluster,
 // round(th) exchanged over distributed shared memory, one cluster barrier a
 // step) with the tangent cell: a thread owns a row and 4 units, and reads
 // 12 values a unit a step (4 gates, c, 4 ds, and its c_{t-1}, tc carries in

@@ -264,10 +264,10 @@ int scan_tan_hcp(int hcp, int rb, const ScanTan& a, cudaStream_t s, int* max_clu
 // of its clusters): w_dt (0 = float32, 1 = bfloat16) is the compute dtype,
 // the weight slices', c_all's and tc_all's. The plan (a.cs blocks a
 // cluster, hcp weight columns a block, rb rows a cluster) is the caller's:
-// cs 1, 2, 4 or 8, hcp 32, 64 or 128 and at least scan_units(H, cs), rb 2, 4
-// or 8, within 227 KB of shared memory. H is a multiple of 4; every array is
-// 16-byte aligned (c_all and tc_all in bfloat16: 8-byte), ldb a multiple of
-// 4. Returns a cudaError_t code: a plan or an argument it does not take is
+// cs 1, 2, 4, 8 or 16, hcp 32, 64 or 128 and at least scan_units(H, cs),
+// rb 2, 4 or 8, within 227 KB of shared memory. H is a multiple of 4;
+// every array is 16-byte aligned (c_all and tc_all in bfloat16: 8-byte),
+// ldb a multiple of 4. Returns a cudaError_t code: a plan or an argument it does not take is
 // cudaErrorInvalidValue or cudaErrorMisalignedAddress; a cluster launch the
 // card refuses returns the card's code. Nothing falls back to another kernel.
 int launch_scan_tan(int w_dt, int hcp, int rb, const ScanTan& a, cudaStream_t s,
@@ -275,7 +275,7 @@ int launch_scan_tan(int w_dt, int hcp, int rb, const ScanTan& a, cudaStream_t s,
   const bool bf16 = w_dt == kBF16;
   const size_t tw = bf16 ? 2 : 4;
   if ((w_dt != kF32 && !bf16) || (hcp != 32 && hcp != 64 && hcp != 128) ||
-      (rb != 2 && rb != 4 && rb != 8) || (a.cs != 1 && a.cs != 2 && a.cs != 4 && a.cs != 8) ||
+      (rb != 2 && rb != 4 && rb != 8) || !cluster_size_ok(a.cs) ||
       a.T <= 0 || a.R <= 0 || a.H <= 0 || a.H % 4 || scan_units(a.H, a.cs) > hcp ||
       (a.R + rb - 1) / rb > 65535 || scan_bwd_smem(a.H, hcp, rb, tw) > kScanMaxSmem)
     return (int)cudaErrorInvalidValue;

@@ -1045,10 +1045,12 @@ def backward_schedule(g, x, h_all, c_all, wx, wh, masks, keep, compute_dtype,
         gate_buf = torch.empty((nv, steps, g4), dtype=acc, device=dev)  # reused by every layer
     x_c = x.reshape(nv, steps, c_in).to(compute_dtype)
     k_max = max(c_in, hidden)
-    # One split plan for both products of every layer: a wave of the
-    # recurrent weight gradient's [H, 4H] tiles (256 rows at V = 1, 512 at
-    # V = 2); the partials of one layer at a time.
-    split_rows = wave_split_rows(steps, hidden, g4, nv, _card_sms(dev))
+    # One split plan for both products of every layer: a wave of one task's
+    # recurrent weight gradient's [H, 4H] tiles (256 rows at R = 512), at
+    # any task count, so that each task's weight gradients are bitwise those
+    # of its one-task call (rows 16-17 add as rows 4-5 do, task by task);
+    # the partials of one layer at a time.
+    split_rows = wave_split_rows(steps, hidden, g4, 1, _card_sms(dev))
     splits = tn_splits(steps, split_rows)
     part_buf = torch.empty(splits * nv * (k_max + hidden) * g4, dtype=acc, device=dev)
     dw = torch.empty((nv, n_layers, k_max + hidden, g4), dtype=acc, device=dev)
@@ -1190,29 +1192,46 @@ def scan_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
             + SCAN_WARPS * rb * hcp * 4)
 
 
+# A 16-block cluster (Hopper's non-portable size, beside the portable 1-8)
+# needs 16 free SMs of one GPC at a block an SM: an H100 SXM runs
+# `H100_CLUSTERS_16` such clusters of the recurrences at once
+# (cudaOccupancyMaxActiveClusters on the card, chip_smoke.py prints it), not
+# 132 / 16. The plans take 16 blocks only where no cluster of 1-8 holds the
+# weight slice (the training stack at float32 H 260-396 and bfloat16 H
+# 420-512, the forward recurrence alone to float32 H 436), so every plan a
+# cluster of at most 8 holds stays as it was.
+H100_CLUSTERS_16 = 7
+WIDE_CLUSTER = 16
+CLUSTER_SIZES = (1, 2, 4, 8, WIDE_CLUSTER)
+
+
 def _cluster_plan(hidden: int, rows: int, sms: int, tasks: int, smem: Callable,
-                  what: str, row_tiles=(2, 4, 8, 16)) -> tuple[int, int, int]:
+                  what: str, row_tiles=(2, 4, 8, 16),
+                  sizes=CLUSTER_SIZES) -> tuple[int, int, int]:
     """(cs, hcp, rb) of a cluster recurrence whose block takes smem(hcp, rb)
-    bytes of shared memory: the smallest cluster (1, 2, 4, 8) whose weight
-    slice fits beside the tiles of a row tile (of `row_tiles`) that puts the
-    clusters of all `tasks` tasks' rows on `sms` SMs in one wave, with the
-    smallest such tile; if no cluster reaches one wave, the smallest that
-    fits at all, with its largest tile."""
+    bytes of shared memory: the smallest cluster of `sizes` (16 only where
+    none of the smaller sizes fits) whose weight slice fits beside the tiles of a row tile
+    (of `row_tiles`) that puts the clusters of all `tasks` tasks' rows on
+    `sms` SMs in one wave (`_one_wave`), with the smallest such tile; if no
+    cluster reaches one wave, the smallest that fits at all, with its
+    largest tile."""
     fallback = None
-    for cs in (1, 2, 4, 8):
+    for cs in sizes:
+        if cs == WIDE_CLUSTER and fallback is not None:
+            break
         hcp = next((p for p in (32, 64, 128) if p >= scan_units(hidden, cs)), None)
         if hcp is None:
             continue
         tiles = [rb for rb in row_tiles if smem(hcp, rb) <= SCAN_MAX_SMEM]
         if not tiles:
             continue
-        wave = [rb for rb in tiles if tasks * -(-rows // rb) * cs <= sms]
+        wave = [rb for rb in tiles if _one_wave((cs, hcp, rb), rows, tasks, sms)]
         if wave:
             return cs, hcp, wave[0]
         fallback = fallback or (cs, hcp, tiles[-1])
     if fallback is None:
-        raise ValueError(f"the {what} in at most 8 blocks' shared memory; hidden width {hidden} "
-                         f"does not fit")
+        raise ValueError(f"the {what} in at most {sizes[-1]} blocks' shared memory; "
+                         f"hidden width {hidden} does not fit")
     return fallback
 
 
@@ -1262,11 +1281,12 @@ def forward_plan(hidden: int, rows: int, itemsize: int, sms: int,
     plan = _cluster_plan(hidden, rows, sms, tasks, smem, what)
     if tasks > 1 or _one_wave(plan, rows, tasks, sms):
         return plan
-    try:  # the wide tile is built at hcp <= 16 x itemsize only
+    try:  # the wide tile is built at hcp <= 16 x itemsize only, in the plan's kind of cluster
         wide = _cluster_plan(
             hidden, rows, sms, tasks,
             lambda hcp, rb: smem(hcp, rb) if hcp <= 16 * itemsize else SCAN_MAX_SMEM + 1,
-            what, row_tiles=(FWD_WIDE_TILE,))
+            what, row_tiles=(FWD_WIDE_TILE,),
+            sizes=CLUSTER_SIZES if plan[0] == WIDE_CLUSTER else CLUSTER_SIZES[:-1])
     except ValueError:
         return plan
     return wide if _one_wave(wide, rows, tasks, sms) else plan
@@ -1274,9 +1294,12 @@ def forward_plan(hidden: int, rows: int, itemsize: int, sms: int,
 
 def _one_wave(plan, rows, tasks, sms):
     """Whether the plan's clusters over `tasks` tasks' rows fit on `sms` SMs
-    at once (a block an SM)."""
+    at once (a block an SM; 16-block clusters: `H100_CLUSTERS_16` of them)."""
     cs, _, rb = plan
-    return tasks * -(-rows // rb) * cs <= sms
+    clusters = tasks * -(-rows // rb)
+    if cs == WIDE_CLUSTER:
+        return clusters <= H100_CLUSTERS_16
+    return clusters * cs <= sms
 
 
 def stack_planned(hidden: int, rows: int, compute_dtype: torch.dtype, device: torch.device,
@@ -1285,11 +1308,12 @@ def stack_planned(hidden: int, rows: int, compute_dtype: torch.dtype, device: to
     the training stack of hidden width `hidden` over `rows` rows in
     `compute_dtype` on `device`'s card: rows 4-5 and 14-15 for one task,
     rows 16-17 for `tasks`. False where no cluster's shared memory holds Wh
-    (float32 H > 256, bfloat16 H > 384) and, where the input width `c_in` is
-    given, at widths the training kernels do not take (`_check_train`: not
-    multiples of 8, or C > 7H); True under float64, which runs plain on
-    every route. Off a card the plans assume an H100, so the answer is the
-    card's. Pure Python: the plans' own answer, before any launch."""
+    (float32 H > 396, bfloat16 H > 512: not even a 16-block cluster) and,
+    where the input width `c_in` is given, at widths the training kernels do
+    not take (`_check_train`: not multiples of 8, or C > 7H); True under
+    float64, which runs plain on every route. Off a card the plans assume
+    an H100, so the answer is the card's. Pure Python: the plans' own
+    answer, before any launch."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return True
     if c_in is not None and (c_in % 8 or hidden % 8 or c_in > 7 * hidden):
@@ -1310,8 +1334,8 @@ def eval_planned(c_in: int, hidden: int, rows: int, compute_dtype: torch.dtype,
     width `hidden` over `rows` rows in `compute_dtype` on `device`'s card:
     widths that are multiples of 8 (its input products' K) and a cluster
     plan of the forward recurrence (`forward_plan`; none where no cluster's
-    shared memory holds Wh, float32 H > 256). True under float64, which runs
-    plain on every route; off a card the H100's answer. Pure Python, asked
+    shared memory holds Wh, float32 H > 436, bfloat16 H > 512). True under
+    float64, which runs plain on every route; off a card the H100's answer. Pure Python, asked
     before any launch, as `stack_planned` is for the training stack."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return True

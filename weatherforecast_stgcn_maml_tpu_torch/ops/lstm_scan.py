@@ -296,9 +296,9 @@ def lstm_recurrence(
     hidden = wh.shape[0]
     if xp.shape[2] != 4 * hidden or wh.shape[1] != 4 * hidden:
         raise ValueError(f"xp {list(xp.shape)} and wh {list(wh.shape)} disagree on 4H")
-    if hidden % 4 or hidden > 256:
+    if hidden % 4:
         raise ValueError(f"the recurrence kernel takes hidden widths that are multiples "
-                         f"of 4 up to 256, got {hidden}")
+                         f"of 4, got {hidden}")
     if hidden % 8 and compute_dtype == torch.bfloat16:
         raise ValueError(f"the recurrence kernel takes bfloat16 compute at hidden widths that "
                          f"are multiples of 8, got {hidden}")

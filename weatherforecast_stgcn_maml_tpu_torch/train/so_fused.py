@@ -25,9 +25,10 @@ jax.grad of its XLA loss. `lstm_kernel="pallas"` (the per-layer recurrence)
 and `use_pallas_lstm` take the stack ops here, as in the JAX package
 (`fused_hvp_chunk`): their kernels are first-order only. Where no cluster
 plan holds the stack's Wh (`fused_lstm_stack.stack_planned`: float32 H >
-256, bfloat16 H > 384; rows 10-11's tangent plans share those shared-memory
-budgets) grad_loss is the plain loss's gradient too, as the JAX package
-takes jax.grad of its XLA loss where no chunk of its R-kernels fits.
+396, bfloat16 H > 512; rows 10-11's tangent plans share those shared-memory
+budgets, with row tiles of at most 8, so they exist wherever those do)
+grad_loss is the plain loss's gradient too, as the JAX package takes
+jax.grad of its XLA loss where no chunk of its R-kernels fits.
 
 Its node-sharded twin for the dp x sp mesh, the same composition on one
 rank's node rows, is parallel/meta_sp.make_local_grad_loss_fused (JAX keeps

@@ -4,8 +4,10 @@ Counterpart of `weatherforecast_stgcn_maml_tpu/train/tasks.py`: build the
 graph (nodes padded to one count shared by every task), preprocess features,
 window, and split support/query contiguously. Only the support windows the
 inner loop touches are gathered (`meta.inner_batches`, cycled over short
-regions), and `meta.query_batches` query windows (at least 1). The Koppen
-code rides along as an integer; the model looks its embedding up.
+regions), and `meta.query_batches` query windows (at least 1), on the host:
+by the native host pipeline's gather where it is on (`native`, as the JAX
+package's `_materialize`), else by `gather_batch`. The Koppen code rides
+along as an integer; the model looks its embedding up.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from weatherforecast_stgcn_maml_tpu_torch import native
 from weatherforecast_stgcn_maml_tpu_torch.config import (
+    NUM_WEATHER_VARS,
     DataConfig,
     MetaConfig,
     ModelConfig,
@@ -60,6 +64,18 @@ class BuiltTask:
     region_name: str
 
 
+def _materialize(features: np.ndarray, anchors: np.ndarray,
+                 spec: WindowSpec) -> tuple[torch.Tensor, torch.Tensor]:
+    """The windows at `anchors` of host features [T, N, C]: (x [S, W, N, C],
+    y [S, H, N, 12]) CPU tensors, gathered by the native library where it is
+    on (one copy a window), else by `gather_batch`."""
+    out = native.gather_windows_native(features, anchors, spec.window, spec.horizon,
+                                       y_channels=NUM_WEATHER_VARS)
+    if out is not None:
+        return torch.from_numpy(out[0]), torch.from_numpy(out[1])
+    return gather_batch(torch.from_numpy(features), torch.from_numpy(anchors), spec)
+
+
 def build_task(
     region: RegionData,
     model_cfg: ModelConfig,
@@ -75,7 +91,7 @@ def build_task(
     features, stats = prepare_features(
         region, stats=stats, rel_coords=model_cfg.relative_coords
     )
-    features = torch.from_numpy(pad_nodes(features, graph.padded_nodes))
+    features = pad_nodes(features, graph.padded_nodes)
 
     spec = WindowSpec(model_cfg.window, model_cfg.horizon)
     n_samples = spec.num_samples(region.num_timesteps)
@@ -100,8 +116,8 @@ def build_task(
     # query windows.
     support_used = np.resize(support_idx, meta_cfg.inner_batches)
     query_used = np.resize(query_idx, max(1, meta_cfg.query_batches))
-    sx, sy = gather_batch(features, torch.from_numpy(spec.window + support_used), spec)
-    qx, qy = gather_batch(features, torch.from_numpy(spec.window + query_used), spec)
+    sx, sy = _materialize(features, spec.window + support_used, spec)
+    qx, qy = _materialize(features, spec.window + query_used, spec)
     task = Task(
         support_x=sx,
         support_y=sy,

@@ -25,8 +25,12 @@ time):
      it) and that the retired row 2 and row 20 sources are gone; print the
      cluster plans of the backward, forward and tangent LSTM recurrences
      (validate's 1536 rows on 48 clusters of 2 x 32 rows in float32, all
-     co-resident) and ptxas's registers and spills of each recurrence
-     instance (none may spill at 32 rows a cluster);
+     co-resident), the streamed plans at float32 H 448, 512 and 1024 and
+     bfloat16 H 640 and 1024 and the eval forward's at float32 H 320 / 384
+     (k_res of K rows resident, shared memory C against Python, clusters at
+     once, L2 bytes a step) and ptxas's registers and spills of each
+     recurrence instance (none may spill at 32 rows a cluster, no streamed
+     instance may spill: 11 forward, 23 + 23 backward);
   3. hold the serving kernels (rows 1-2) against their plain PyTorch
      versions at the reference width (ModelConfig() defaults, the Moscow
      graph: 441 nodes padded to 512; row 2 at validate's [1536, 24, 256]
@@ -106,21 +110,40 @@ time):
   9c. `lstm_kernel=auto` at float32 hidden 448, where no cluster plan holds
      Wh (not even a 16-block one): one train step of the hybrid runs the
      plain stack (rows 4-5 never launch, the plain-route counter moves once;
-     loss and gradients equal to `lstm_kernel=xla`'s), `pallas_stack` and
-     `pallas` raise, second order's fused inner gradient is the plain loss's
-     (counted once); `cli meta-train -o model.lstm_hidden=320` (16-block
-     clusters) trains 1 float32 epoch (its inner epochs cut to 1) with 64
-     launches of rows 4 and 5 and no plain route;
+     loss and gradients equal to `lstm_kernel=xla`'s), `pallas_stack` (rows
+     4-5; under `_MERGED_GATES = False` rows 14-15) and `pallas` (rows
+     18-19, once a layer) launch their kernels on streamed plans, every
+     launch counted as streamed (each entry's counts set to 0 just before
+     its step: rows 14-15 and 18-19's main-path launches on the kernels
+     line), no plain route, loss and gradients within TOL of `xla`'s; the
+     eval forward under `pallas_stack` launches row 2 once, streamed (its
+     main-path launch), within TOL of `xla`'s; second order's fused inner
+     gradient is the plain loss's (counted once); `cli meta-train -o
+     model.lstm_hidden=320` (16-block clusters) trains 1 float32 epoch (its
+     inner epochs cut to 1) with 64 launches of rows 4 and 5 and no plain
+     route, and `-o model.lstm_hidden=448 -o model.lstm_kernel=pallas_stack`
+     the same with 64 streamed launches of rows 4 and 5 (the streamed rows'
+     main path) and finite losses;
   9d. every LSTM cluster recurrence on 16-block clusters (`wide_cluster_phase`)
      at float32 H 320 and 384 and bfloat16 H 512, at the inner step's
      shapes: rows 4-5 and 16-17 (V = 2; masks at 0.2 and off), rows 10-11,
      rows 18-19 (xp [24, 512, 4H]), rows 2 and 20 ([512, 24, 256] and
-     [1536, 24, 256]) against their plain versions, gated on their
-     launches; each plan's cluster size and cudaOccupancyMaxActiveClusters;
-     each row's time by CUDA events beside its plain version's, cuDNN's
-     LSTM and its bound;
- 10. drive `cli adapt` (Moscow and Thailand float32, 2 epochs, Moscow
-     bfloat16, 1 epoch) from that `ckpt_best`, `validate` the adapted
+     [1536, 24, 256]; their plan `eval_plan`'s) against their plain versions,
+     gated on their launches; each plan's cluster size and
+     cudaOccupancyMaxActiveClusters; each row's time by CUDA events beside
+     its plain version's, cuDNN's LSTM and its bound; then
+     (`streamed_phase`) every LSTM row on streamed plans at float32 H 448,
+     512 and 1024 and bfloat16 H 640 and 1024 at the same shapes (rows 4-5
+     and 14-15 masks on and off, 18-19, 2 and 20 at [512, 24, 256]) against
+     its plain version, gated on its launches and streamed launches, its
+     device time by CUDA graph replay (5 replays) beside its plain
+     version's, cuDNN's and its bound; and ROADMAP item 13: the eval
+     forward at [1536 / 512, 24, 256], float32 H 320 and 384, on the
+     cheapest streamed plan, the 16-block plan and the plain stack by
+     events in turns (A B C C B A), `auto`'s route (`eval_plan`'s plan) no
+     slower than the plain stack and within ITEM13_MARGIN of the fastest;
+ 10. drive `cli adapt` (Moscow float32 2 epochs, Thailand float32 and Moscow
+     bfloat16 1 epoch) from that `ckpt_best`, `validate` the adapted
      Moscow model (with --no-plots, then at its defaults: where matplotlib
      is missing it must raise an ImportError naming --no-plots, where it is
      present both figures must be written; the phase prints which held)
@@ -190,10 +213,11 @@ time):
      2 never), `forecast -o model.lstm_kernel=pallas` (4 launches of row 18
      a predict), `adapt -o model.use_pallas_lstm=true -o
      model.lstm_dropout=0` (1 epoch: row 20 in train mode, forward and
-     backward on the card, row 4 never; its epoch timed beside the default
-     route's in this phase), and `forecast -o model.lstm_hidden=320` under
-     `lstm_kernel=auto` (row 2) and under `use_pallas_lstm` (row 20; 16-block
-     clusters), and at `model.lstm_hidden=448` under both (no cluster holds
+     backward on the card, row 4 never; the first half of its epoch timed
+     beside the default route's in turns in this phase), and `forecast -o
+     model.lstm_hidden=320` under `lstm_kernel=auto` (row 2) and under
+     `use_pallas_lstm` (row 20: its streamed main-path launch), each on
+     `eval_plan`'s streamed plan, and at `model.lstm_hidden=448` under both (no cluster holds
      Wh: the plain stack, counted, rows 2, 14 and 20 never), each against
      `--device cpu`; every loss must be finite;
  17. hold the unmerged-gates stack (rows 14-15: the forward's last h and
@@ -230,7 +254,8 @@ time):
      each, row 17 with 4 recurrence, 4 gemm_nn and 8 gemm_tn launches each,
      row 9 180, rows 4-5 and 8 none);
      one lockstep inner step timed with a torch.profiler breakdown; the
-     lockstep meta step against the serial one in turns, with the peak
+     lockstep meta step against the serial one in turns (TIMED_INNER_EPOCHS
+     inner epoch each, one untimed run of each first), with the peak
      device memory of each;
  19. with ops.fused_lstm_stack._MERGED_GATES = False: `cli meta-train` for 1
      float32 epoch (rows 14-15 364 launches each, the GEMM core 4 a row-14
@@ -263,7 +288,8 @@ time):
      set, the fleet on rows 16-17 (once a zone's fleet step each way, rows
      4-5 never; the forward plans printed) against the default fleet, 1e-5
      relative; one fleet epoch of the three cold regions against their
-     three serial epochs in turns, with peak device memory, and rows 16-17
+     three serial epochs in turns (one untimed run of each first), with peak
+     device memory, and rows 16-17
      at the fleet's shape against three calls of rows 4-5.
  22. second order and _VBATCH on meshes, at ModelConfig() float32: on a 1 x 1
      dp mesh and a 1 x 1 dp x sp mesh (a NCCL group of one rank), the SO
@@ -370,6 +396,36 @@ TPU_KERNELS = {
     "lstm_stack_train_tasks.backward":
         "weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py:1232",
 }
+# The LSTM rows on streamed plans (past every cluster that holds Wh; the
+# streamed phase, 9d): each the STREAM variant of its row's recurrence,
+# named after the row.
+STREAMED_KERNELS = {
+    "lstm_stack_last_all.streamed": "lstm_stack_last_all",
+    "lstm_stack_train.streamed": "lstm_stack_train",
+    "lstm_stack_train.backward.streamed": "lstm_stack_train.backward",
+    "lstm_stack_split.streamed": "lstm_stack_split",
+    "lstm_stack_split.backward.streamed": "lstm_stack_split.backward",
+    "lstm_recurrence.streamed": "lstm_recurrence",
+    "lstm_recurrence.backward.streamed": "lstm_recurrence.backward",
+    "fused_lstm_last_hidden.streamed": "fused_lstm_last_hidden",
+}
+TPU_KERNELS.update({k: TPU_KERNELS[v] for k, v in STREAMED_KERNELS.items()})
+STREAMED_AT = "float32 H 448"  # the kernels line's numbers of a streamed row; the rest: "widths"
+# The main path whose launches the kernels line gives for a streamed row,
+# each entry's counts set to 0 just before it and read just after.
+STREAMED_MAIN_PATHS = {
+    "lstm_stack_last_all.streamed": "phase 9c: apply_model eval, float32 H 448, "
+                                    "lstm_kernel=pallas_stack",
+    "lstm_stack_train.streamed": "phase 9c: cli meta-train, float32 H 448, "
+                                 "lstm_kernel=pallas_stack, 1 epoch of 1 inner epoch",
+    "lstm_stack_split.streamed": "phase 9c: a train step, float32 H 448, "
+                                 "lstm_kernel=pallas_stack, _MERGED_GATES=False",
+    "lstm_recurrence.streamed": "phase 9c: a train step, float32 H 448, lstm_kernel=pallas",
+    "fused_lstm_last_hidden.streamed": "phase 16: cli forecast Moscow, float32 H 320, "
+                                       "use_pallas_lstm (eval_plan streams there)",
+}
+for _name in ("lstm_stack_train", "lstm_stack_split", "lstm_recurrence"):
+    STREAMED_MAIN_PATHS[_name + ".backward.streamed"] = STREAMED_MAIN_PATHS[_name + ".streamed"]
 CSRC = "weatherforecast_stgcn_maml_tpu_torch/ops/csrc/"
 # The kernel's sources, its main one first (the kernels line's "source").
 SOURCES = {
@@ -407,6 +463,10 @@ SOURCES = {
     "lstm_stack_train_tasks.backward": [CSRC + "lstm_scan_bwd.cuh", CSRC + "fused_lstm_split.cu",
                                         CSRC + "gemm_nn.cu", CSRC + "gemm.cu"],
 }
+# A streamed row's sources: its recurrence's header first, then its row's.
+SOURCES.update({k: [CSRC + ("lstm_scan_bwd.cuh" if "backward" in k else "lstm_scan_fwd.cuh"),
+                    *(f for f in SOURCES[v] if not f.endswith(("fwd.cuh", "bwd.cuh")))]
+                for k, v in STREAMED_KERNELS.items()})
 # Kernels whose ptxas report the build phase prints by name.
 NEW_KERNELS = ("gemm_nn_f32_kernel", "gemm_nn_bf16_kernel", "gemm_tn_f32_kernel",
                "gemm_tn_bf16_kernel", "dz_top_kernel", "transpose_round_kernel",
@@ -424,8 +484,8 @@ RANK_INNER_BATCHES = 5
 # Phase 23's chained meta-train runs and phase 24's wavefront meta-train:
 # 1 inner epoch, not 6.
 CLI_INNER_EPOCHS = 1
-# The meta steps timed in turns in phase 13 and the SO meta step timed in
-# phase 11: 1 inner epoch, not 6.
+# The meta steps timed in turns in phases 13 and 18 and the SO meta step
+# timed in phase 11: 1 inner epoch, not 6.
 TIMED_INNER_EPOCHS = 1
 SO_INNER_EPOCHS = 1  # the SO meta-train runs' cut (phases 9b and 22): 1 x 15 inner steps a task
 HVP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tangents: max|diff| / max|ref|
@@ -462,6 +522,24 @@ def host_ms(torch, fn, repeats=REPEATS):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def host_turns_ms(torch, dev, fns: dict, pair: tuple):
+    """Two routes' wall times in ms in turns (A B B A), each route run once
+    untimed first; returns ({route: [ms, ms]}, {route: peak device memory
+    in GiB over its timed runs})."""
+    for fn in fns.values():
+        fn()
+    times, peak = {k: [] for k in pair}, {}
+    for name in (*pair, *pair[::-1]):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        fns[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        peak[name] = max(peak.get(name, 0.0), torch.cuda.max_memory_allocated(dev) / 2**30)
+    return times, peak
 
 
 def enqueue_ms(torch, fn, repeats=REPEATS):
@@ -791,31 +869,35 @@ def main() -> int:
             new = next((entry[entry.index(k):][:48] for k in NEW_KERNELS if k in entry), None)
             kernel = next((k for k in RECURRENCE_SOURCES if new and new.startswith(k)), None)
             if kernel:
-                # <TW, UPT, RB>, mangled as e.g. I13__nv_bfloat16Li4ELi8E.
+                # <TW, UPT, RB> (the forward recurrence: <TW, UPT, RB, STREAM>),
+                # mangled as e.g. I13__nv_bfloat16Li4ELi8E(Lb1E).
                 if "registers" in line:
-                    tw, upt, rb = re.match(r"I(.*?)Li(\d+)ELi(\d+)E", entry[
+                    tw, upt, rb, streamed = re.match(r"I(.*?)Li(\d+)ELi(\d+)E(?:Lb(\d)E)?", entry[
                         entry.index(kernel) + len(kernel):]).groups()
                     regs = line.split("Used")[1].split("registers")[0].strip()
                     recurrence.append((kernel, RECURRENCE_SOURCES[kernel],
-                                       f"{'bf16' if 'bfloat16' in tw else 'f32'} {upt} {rb}",
-                                       regs))
+                                       f"{'bf16' if 'bfloat16' in tw else 'f32'} {upt} {rb}"
+                                       + " +stream" * (streamed == "1"), regs))
                 elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
                     log(f"  ptxas {kernel} SPILLS: {line.strip()} in {entry}")
                     spills.append((entry, line.strip()))
             elif new and new.startswith("lstm_scan_bwd_kernel"):
                 if "registers" in line:
-                    # <TW, TC, UPT, RB, DB>, mangled as e.g.
-                    # I13__nv_bfloat16S2_Li4ELi8ELb1E (DB: "+db").
-                    tw_tc, upt, rb, db = re.match(r"I(.*?)Li(\d+)ELi(\d+)ELb(\d)", entry[
-                        entry.index("lstm_scan_bwd_kernel") + 20:]).groups()
+                    # <TW, TC, UPT, RB, DB, STREAM>, mangled as e.g.
+                    # I13__nv_bfloat16S2_Li4ELi8ELb1ELb0E (DB: "+db", STREAM: "+stream").
+                    tw_tc, upt, rb, db, streamed = re.match(
+                        r"I(.*?)Li(\d+)ELi(\d+)ELb(\d)ELb(\d)", entry[
+                            entry.index("lstm_scan_bwd_kernel") + 20:]).groups()
                     tw_tc = tw_tc.replace("13__nv_bfloat16", "b").replace("S2_", "b")
                     args = "/".join({"f": "f32", "b": "bf16"}[c] for c in tw_tc)
                     source = "fused_lstm_split.cu" if "fused_lstm_split" in entry else "lstm_scan.cu"
                     regs = line.split("Used")[1].split("registers")[0].strip()
                     recurrence.append(("lstm_scan_bwd_kernel", source,
-                                       f"{args} {upt} {rb}{' +db' * (db == '1')}", regs))
+                                       f"{args} {upt} {rb}{' +db' * (db == '1')}"
+                                       + " +stream" * (streamed == "1"), regs))
                 elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
                     log(f"  ptxas lstm_scan_bwd_kernel SPILLS: {line.strip()} in {entry}")
+                    spills.append((entry, line.strip()))
             elif new and ("registers" in line or "spill" in line):
                 log(f"  ptxas {new}: {line.split(':', 1)[-1].strip()}")
                 if (new.startswith(("sumsq4_kernel", "update4_kernel")) and "spill" in line
@@ -840,6 +922,25 @@ def main() -> int:
             raise RuntimeError(f"the forward recurrence's 32-row instances: {wide}")
         if any(re.search(r"lstm_scan_fwd_kernelI.*?Li\d+ELi32E", e) for e, _ in spills):
             raise RuntimeError(f"a 32-row forward recurrence spills: {spills}")
+        # The streamed recurrences (past the clusters that hold Wh): the
+        # forward at row tiles of 8 and 16, the backward at 2-16 with the
+        # bias partials (rows 5 and 15) and without (row 19), every weight
+        # column count and dtype but 16 rows at 128 bfloat16 columns (the
+        # resident instance there spills, as it did before streaming); none
+        # may spill.
+        streamed = {src: sorted(r[2] for r in recurrence if r[1] == src and "+stream" in r[2])
+                    for src in ("lstm_stack_fwd.cu", "fused_lstm_split.cu", "lstm_scan.cu")}
+        log("  streamed recurrence instances: " + json.dumps({k: len(v)
+                                                               for k, v in streamed.items()}))
+        if [len(v) for v in streamed.values()] != [11, 23, 23]:
+            raise RuntimeError(f"the streamed recurrences' instances: {streamed}")
+        def streamed_entry(e):  # a STREAM = true instance (the template's last bool)
+            m = (re.search(r"lstm_scan_fwd_kernelI.*?Li\d+ELi\d+ELb(\d)E", e)
+                 or re.search(r"lstm_scan_bwd_kernelI.*?Li\d+ELi\d+ELb\dELb(\d)E", e))
+            return bool(m) and m.group(1) == "1"
+
+        if any(streamed_entry(e) for e, _ in spills):
+            raise RuntimeError(f"a streamed recurrence spills: {spills}")
         # Row 8's update holds its chunk's g and p in registers while it
         # waits for the norm: a spill would put them in memory.
         if any("sumsq4_kernel" in e or "update4_kernel" in e for e, _ in spills):
@@ -869,7 +970,7 @@ def main() -> int:
         for dt in (torch.float32, torch.bfloat16):
             for hidden, rows, nv in ((128, 512, 1), (128, 1024, 1), (128, 256, 1),
                                      (128, 512, 2), (64, 48, 1), (128, 48, 1), (256, 48, 1)):
-                cs, hcp, rb = fls.recurrence_plan(hidden, rows, dt.itemsize, sms, nv)
+                cs, hcp, rb, _ = fls.recurrence_plan(hidden, rows, dt.itemsize, sms, nv)
                 code = cuda_build.dtype_code(dt)
                 smem = lib.wf_lstm_stack_recurrence_smem(code, hcp, rb, hidden)
                 if smem != fls.scan_smem(hidden, hcp, rb, dt.itemsize):
@@ -891,7 +992,7 @@ def main() -> int:
         for dt in (torch.float32, torch.bfloat16):
             for hidden, rows, nv in ((128, 512, 1), (128, 1024, 1), (128, 256, 1), (128, 1536, 1),
                                      (128, 512, 2), (64, 48, 1), (128, 48, 1), (256, 48, 1)):
-                cs, hcp, rb = fls.forward_plan(hidden, rows, dt.itemsize, sms, nv)
+                cs, hcp, rb, _ = fls.forward_plan(hidden, rows, dt.itemsize, sms, nv)
                 code = cuda_build.dtype_code(dt)
                 smem = lib.wf_lstm_stack_forward_smem(code, hcp, rb, hidden)
                 if smem != fls.scan_fwd_smem(hidden, hcp, rb, dt.itemsize):
@@ -943,6 +1044,36 @@ def main() -> int:
                     f"{cs}, {hcp} weight columns and {rb} rows a cluster, "
                     f"{fls.scan_fwd_smem(hidden, hcp, rb, dt.itemsize)} B a block; {clusters} "
                     f"clusters ({clusters * cs} blocks), at most {active} at once")
+        # The streamed plans (past the clusters that hold Wh, and the eval
+        # forward's at float32 H 320 / 384): k_res of K rows resident, the
+        # shared memory a block takes (C against Python) and the clusters
+        # the card runs at once.
+        for dt, hidden, rows, forward in (
+                *((getattr(torch, d), h, 512, f) for d, h in STREAM_WIDTHS for f in (True, False)),
+                (torch.float32, 320, 1536, None), (torch.float32, 384, 1536, None)):
+            e, code = dt.itemsize, cuda_build.dtype_code(dt)
+            plan = (fls.eval_plan(hidden, rows, e, sms) if forward is None else
+                    (fls.forward_plan if forward else fls.recurrence_plan)(hidden, rows, e, sms))
+            cs, hcp, rb, k_res = plan
+            fwd = forward is not False
+            k_rows = hidden if fwd else 4 * hidden
+            smem = (lib.wf_lstm_stack_forward_stream_smem if fwd else
+                    lib.wf_lstm_stack_recurrence_stream_smem)(code, hcp, rb, hidden, k_res)
+            want = (fls.scan_fwd_stream_smem if fwd else fls.scan_stream_smem)(hidden, hcp, rb, e,
+                                                                              k_res)
+            active = (lib.wf_lstm_stack_forward_stream_clusters if fwd else
+                      lib.wf_lstm_stack_recurrence_stream_clusters)(code, cs, hcp, rb, hidden,
+                                                                     k_res)
+            if not fls.streams(plan, k_rows) or smem != want or active <= 0:
+                raise RuntimeError(f"streamed plan {plan} at {dt} H {hidden}: shared memory C "
+                                   f"{smem} B, Python {want} B, {active} clusters at once")
+            clusters = -(-rows // rb)
+            log(f"  {'eval forward' if forward is None else 'lstm_scan_fwd' if fwd else 'lstm_scan_bwd'}"
+                f" streamed {str(dt)[6:]} H = {hidden}, R = {rows}: cluster of {cs}, {hcp} "
+                f"weight columns, {rb} rows a cluster, {k_res} of {k_rows} K-rows resident, "
+                f"{smem} B a block; {clusters} clusters, at most {active} at once; "
+                f"{clusters * cs * (k_rows - k_res) * fls._slice_row_bytes(hcp, e, fwd) / 1e6:.1f}"
+                f" MB from L2 a step")
 
     cfg = ModelConfig()
     boxes = dict((name, box) for box, name in ADAPTATION_REGIONS)
@@ -1262,7 +1393,7 @@ def main() -> int:
                                      torch.sigmoid(pre[:, :, 3:])], dim=2).reshape(7, 48, -1)
                 g_r, c_r = card_array((7, 48, hidden)), card_array((7, 48, hidden))
                 wh_r = card_array((hidden, 4 * hidden), hidden ** -0.5)
-                cs, hcp, rb = fls.recurrence_plan(hidden, 48, dt.itemsize, sms)
+                cs, hcp, rb, _ = fls.recurrence_plan(hidden, 48, dt.itemsize, sms)
                 active = cuda_build.load().wf_lstm_stack_recurrence_clusters(
                     cuda_build.dtype_code(dt), cs, hcp, rb, hidden)
                 refs = lstm_scan.scan_backward_plain(g_r, gates_r, c_r.to(dt), wh_r, dt,
@@ -1299,7 +1430,7 @@ def main() -> int:
                 b_r = card_array((4 * hidden,), 0.1)
                 m_r = torch.from_numpy((draw.uniform(size=(7, 48, hidden)) >= 0.2)
                                        .astype(np.int8)).to(dev)
-                cs, hcp, rb = fls.forward_plan(hidden, 48, dt.itemsize, sms)
+                cs, hcp, rb, _ = fls.forward_plan(hidden, 48, dt.itemsize, sms)
                 outs = {}
                 for route, piece in (("kernel", fls._forward_recurrence_card),
                                      ("plain", fls._forward_recurrence_plain)):
@@ -2379,10 +2510,12 @@ def main() -> int:
     # 9c. `lstm_kernel=auto` where no cluster holds Wh (float32 hidden 448,
     # past even a 16-block cluster): the plain stack in place of rows 4-5,
     # as the JAX package's `auto` takes its XLA scan where `stack_supported`
-    # fails; the forced routes raise. At hidden 320 a 16-block cluster holds
-    # Wh: `cli meta-train` there runs rows 4-5 (the wide phase, 9d, holds
-    # each row there against its plain version).
-    with Phase("auto at float32 hidden 448 and 320"):
+    # fails; the forced routes run their kernels there on streamed plans, as
+    # JAX's forced routes bypass `stack_supported`. At hidden 320 a 16-block
+    # cluster holds Wh: `cli meta-train` there runs rows 4-5 (the wide phase
+    # holds each row there against its plain version), and at 448 under
+    # `pallas_stack` rows 4-5 on streamed plans (the streamed phase, 9d).
+    with Phase("auto at float32 hidden 448 and 320; forced routes at 448"):
         cfg448 = dataclasses.replace(cfg, lstm_hidden=448)
         state = init_meta_state(torch.Generator().manual_seed(1), cfg448, meta_cfg, device=dev)
         task = task_at(tasks, 0)
@@ -2399,6 +2532,10 @@ def main() -> int:
             train = lstm_stack_train
             return (train.launches, train.backward_launches, train.plain_routes)
 
+        def counts_streamed(entry):
+            return (entry.launches, entry.backward_launches, entry.streamed_launches,
+                    entry.backward_streamed_launches)
+
         before = counts_auto()
         loss448, got = step448(cfg448)
         moved = tuple(a - b for a, b in zip(counts_auto(), before))
@@ -2410,13 +2547,63 @@ def main() -> int:
         if moved != (0, 0, 1) or not same or not torch.isfinite(loss448):
             raise RuntimeError(f"auto at float32 hidden 448: launches {moved}, equal to the "
                                f"plain route {same}, loss {float(loss448)}")
-        for kernel in ("pallas_stack", "pallas"):
+        # The forced routes, each entry's counts set to 0 just before its
+        # step and read just after: rows 4-5 (one call each way), rows 14-15
+        # under `_MERGED_GATES = False` (one call each way) and rows 18-19
+        # (one a layer each way), every launch on a streamed plan, no plain
+        # route. Rows 14-15 and 18-19's counts are their main-path launches
+        # on the kernels line (rows 4-5's: the `meta-train` run below).
+        def zero_streamed(entry):
+            for attr in ("launches", "backward_launches", "streamed_launches",
+                         "backward_streamed_launches"):
+                setattr(entry, attr, 0)
+            lstm_stack_train.plain_routes = 0
+
+        streamed_main = {}
+        for kernel, merged, entry, name, calls in (
+                ("pallas_stack", True, lstm_stack_train, "lstm_stack_train", 1),
+                ("pallas_stack", False, fls.lstm_stack_split, "lstm_stack_split", 1),
+                ("pallas", True, lstm_recurrence, "lstm_recurrence", cfg448.lstm_layers)):
+            zero_streamed(entry)
+            fls._MERGED_GATES = merged
             try:
-                step448(dataclasses.replace(cfg448, lstm_kernel=kernel))
-            except ValueError as err:
-                log(f"lstm_kernel={kernel} at float32 hidden 448 refused: {err}")
-            else:
-                raise RuntimeError(f"lstm_kernel={kernel} ran at float32 hidden 448")
+                loss_k, got_k = step448(dataclasses.replace(cfg448, lstm_kernel=kernel))
+            finally:
+                fls._MERGED_GATES = True
+            moved = counts_streamed(entry)
+            loss_err = abs(float(loss_k - loss_x)) / abs(float(loss_x))
+            worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(got_k, ref))
+            log(f"train step float32 hidden 448, lstm_kernel={kernel}, _MERGED_GATES={merged}: "
+                f"loss {float(loss_k):.6f} (rel {loss_err:.3e} from xla's), gradients "
+                f"max|diff|/max|ref| {worst:.3e} (tol {TOL['float32']}); {name} launches "
+                f"(forward, backward, streamed forward, streamed backward) {moved}; plain "
+                f"routes {lstm_stack_train.plain_routes}")
+            if (moved != (calls,) * 4 or lstm_stack_train.plain_routes
+                    or loss_err > TOL["float32"] or worst > TOL["float32"]):
+                raise RuntimeError(f"lstm_kernel={kernel} (_MERGED_GATES={merged}) at float32 "
+                                   f"hidden 448: launches {moved}, loss {loss_err:.3e}, "
+                                   f"gradients {worst:.3e}")
+            if entry is not lstm_stack_train:
+                streamed_main[f"{name}.streamed"] = moved[2]
+                streamed_main[f"{name}.backward.streamed"] = moved[3]
+        # The eval forward under the forced `pallas_stack` (row 2 on its
+        # streamed plan), counted from zero, against the plain route's.
+        lstm_stack_last_all.launches = lstm_stack_last_all.streamed_launches = 0
+        lstm_stack_train.plain_routes = 0
+        with torch.no_grad():
+            eval_k, eval_x = (apply_model(state.params, task.a_hat, task.support_x[0],
+                                          task.koppen, dataclasses.replace(cfg448, lstm_kernel=k),
+                                          train=False) for k in ("pallas_stack", "xla"))
+        row2 = (lstm_stack_last_all.launches, lstm_stack_last_all.streamed_launches,
+                lstm_stack_train.plain_routes)
+        eval_err = float((eval_k - eval_x).abs().max())
+        log(f"eval forward float32 hidden 448, lstm_kernel=pallas_stack: row 2 launches / "
+            f"streamed / plain routes {row2}; max_abs_err against xla {eval_err:.3e}")
+        if row2 != (1, 1, 0):
+            raise RuntimeError(f"eval forward at float32 hidden 448 under pallas_stack: {row2}")
+        torch.testing.assert_close(eval_k, eval_x, rtol=TOL["float32"], atol=TOL["float32"])
+        streamed_main["lstm_stack_last_all.streamed"] = row2[1]
         # Second order's fused inner gradient (fhvp) takes the plain loss's
         # gradient there, as the JAX package's fhvp takes its XLA loss's.
         aux = (task.support_x[0], task.support_y[0], task.a_hat, task.koppen, task.node_mask)
@@ -2432,7 +2619,7 @@ def main() -> int:
             f"the plain loss's gradient: {same}")
         if so_moved != 1 or not same:
             raise RuntimeError(f"SO at float32 hidden 448: plain routes {so_moved}, equal {same}")
-        del state, task, params, got, ref, q, got_so, ref_so
+        del state, task, params, got, ref, q, got_so, ref_so, got_k, eval_k, eval_x
         # The CLI at the defaults but the width 320 (16-block clusters): 1
         # float32 epoch (one meta step), its depth cut to 1 inner epoch (4 x
         # 15 inner steps and a query a task): rows 4-5 once a forward, no
@@ -2452,11 +2639,35 @@ def main() -> int:
         for r in records:
             log(f"  hidden 320 epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, "
                 f"{r['epoch_seconds']:.2f} s  [{card}]")
+        # The same run at 448 under the forced `pallas_stack`: rows 4-5 on
+        # streamed plans once a forward, counted from zero, no plain route.
+        for attr in ("launches", "backward_launches", "streamed_launches",
+                     "backward_streamed_launches", "plain_routes"):
+            setattr(lstm_stack_train, attr, 0)
+        records = meta_train("float32", 1, "-o", "model.lstm_hidden=448",
+                             "-o", "model.lstm_kernel=pallas_stack",
+                             "-o", "meta.inner_epochs=1", out="h448")
+        h448 = (*counts_streamed(lstm_stack_train), lstm_stack_train.plain_routes)
+        streamed_main.update({"lstm_stack_train.streamed": h448[2],
+                              "lstm_stack_train.backward.streamed": h448[3]})
+        log(f"meta-train -o model.lstm_hidden=448 -o model.lstm_kernel=pallas_stack, 1 epoch of "
+            f"1 inner epoch: rows 4 / 5 / streamed 4 / streamed 5 / plain routes {h448}")
+        if h448 != (calls320,) * 4 + (0,) or not all(
+                np.isfinite([r["meta_loss"], *r["per_task_loss"]]).all() for r in records):
+            raise RuntimeError(f"meta-train at float32 hidden 448 under pallas_stack: launches "
+                               f"{h448}, not {(calls320,) * 4 + (0,)}; logs {records}")
+        for r in records:
+            log(f"  hidden 448 pallas_stack epoch {r['epoch']}: meta_loss {r['meta_loss']:.6f}, "
+                f"per task {r['per_task_loss']}, {r['epoch_seconds']:.2f} s  [{card}]")
 
     # 9d. Every LSTM cluster recurrence on 16-block clusters, against its
     # plain version, at the widths only such a cluster holds Wh at.
     with Phase("16-block clusters"):
         wide = wide_cluster_phase(torch, dev, card)
+    # ... and every LSTM row on streamed plans past them, with item 13's
+    # three routes of the eval forward at float32 H 320 and 384.
+    with Phase("streamed recurrences"):
+        streamed = streamed_phase(torch, dev, card)
 
     # 10. Adaptation and the pipeline through the CLI, from the meta-trained
     # ckpt_best (float32); depth cut to 1-2 epochs, the width is the reference's.
@@ -2475,7 +2686,7 @@ def main() -> int:
             fn.launches = 0
         for fn in counters:
             fn.launches = fn.backward_launches = 0
-        for region, dt_name, epochs in (("Moscow", "float32", 2), ("Thailand", "float32", 2),
+        for region, dt_name, epochs in (("Moscow", "float32", 2), ("Thailand", "float32", 1),
                                         ("Moscow", "bfloat16", 1)):
             out = adapt_dir if dt_name == "float32" else os.path.join(out_root, "adapt_bf16")
             _, _, secs = run_cli([
@@ -3397,9 +3608,11 @@ def main() -> int:
             raise RuntimeError("adapt with use_pallas_lstm did not train through row 20")
         # One adaptation epoch on each route in turns (row 20 at dropout 0,
         # the default route at dropout 0, again in reverse order), Moscow's
-        # data, beside phase 10's default epoch (dropout 0.2).
+        # data, its depth cut to the first half of the epoch's steps,
+        # beside phase 10's default epoch (dropout 0.2, every step).
         feats, _ = prepare_features(moscow_adapt)
         feats = torch.from_numpy(pad_nodes(feats, n)).to(dev)
+        half = batches[:len(batches) // 2]
         epochs = {"use_pallas_lstm": [], "default": []}
         for route in ("use_pallas_lstm", "default", "default", "use_pallas_lstm"):
             mc = ModelConfig(lstm_dropout=0.0, use_pallas_lstm=route == "use_pallas_lstm")
@@ -3409,23 +3622,27 @@ def main() -> int:
             g = torch.Generator(device=dev).manual_seed(5)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            astate, losses = run_epoch(astate, feats, batches, a_hat, node_mask, koppen, lr0, g)
+            astate, losses = run_epoch(astate, feats, half, a_hat, node_mask, koppen, lr0, g)
             torch.cuda.synchronize()
             epochs[route].append(time.perf_counter() - t0)
             if not torch.isfinite(losses).all():
                 raise RuntimeError(f"adaptation epoch on the {route} route: non-finite loss")
         ratio = min(epochs["use_pallas_lstm"]) / min(epochs["default"])
-        log(f"adaptation epoch float32 at lstm_dropout=0 ({len(batches)} steps of batch 2), in "
-            f"turns: use_pallas_lstm {epochs['use_pallas_lstm']} s, default route "
-            f"{epochs['default']} s (ratio {ratio:.3f}); the default route at dropout 0.2 "
-            f"(phase 10) {default_epoch_s:.3f} s  [{card}]")
+        log(f"adaptation epoch float32 at lstm_dropout=0, its first {len(half)} of "
+            f"{len(batches)} steps of batch 2, in turns: use_pallas_lstm "
+            f"{epochs['use_pallas_lstm']} s, default route {epochs['default']} s (ratio "
+            f"{ratio:.3f}); the default route at dropout 0.2 (phase 10, every step) "
+            f"{default_epoch_s:.3f} s  [{card}]")
         del feats, astate, adapted
         route_launches["fused_gcn_layer"] = fused_gcn_layer.launches  # on no path: 0
 
         # Float32 hidden 320, where a 16-block cluster holds Wh: `forecast`
         # under `lstm_kernel=auto` runs row 2 and under `use_pallas_lstm` row
-        # 20; at 448, where none does, both run the plain stack (counted),
-        # rows 2, 14 and 20 never. Each matches `--device cpu`.
+        # 20, each on `eval_plan`'s streamed plan (the forecast's 512 rows:
+        # item 13); at 448, where none does, both run the plain stack
+        # (counted), rows 2, 14 and 20 never. Each matches `--device cpu`.
+        # Row 20's count at 320 is its main-path launch on the kernels line's
+        # streamed entry.
         eval_entries = (lstm_stack_last_all, fls.lstm_stack_split, fused_lstm_last_hidden)
         for hidden in (320, 448):
             wide_cfg = ModelConfig(lstm_hidden=hidden)
@@ -3441,18 +3658,23 @@ def main() -> int:
                                        ("use_pallas_lstm", row20, [0, 0, 1])):
                 want = want if hidden == 320 else [0, 0, 0]
                 for fn in eval_entries:
-                    fn.launches = 0
+                    fn.launches = fn.streamed_launches = 0
                 lstm_stack_train.plain_routes = 0
                 got = forecast("Moscow", "float32", serve_wide, "cuda", *width, *flags)
-                counts = ([fn.launches for fn in eval_entries], lstm_stack_train.plain_routes)
+                counts = ([fn.launches for fn in eval_entries], lstm_stack_train.plain_routes,
+                          [fn.streamed_launches for fn in eval_entries])
                 ref = forecast("Moscow", "float32", serve_wide, "cpu", *width, *flags)
                 err = float(np.abs(got - ref).max())
                 log(f"forecast Moscow lstm_hidden={hidden} {label}: rows 2, 14, 20 launched "
-                    f"{counts[0]}, plain routes {counts[1]}; card vs --device cpu max_abs_err "
-                    f"{err:.3e}")
-                if counts[0] != want or (counts[1] == 0) != (hidden == 320):
+                    f"{counts[0]} (on streamed plans {counts[2]}), plain routes {counts[1]}; "
+                    f"card vs --device cpu max_abs_err {err:.3e}")
+                if (counts[0] != want or counts[2] != want
+                        or (counts[1] == 0) != (hidden == 320)):
                     raise RuntimeError(f"forecast lstm_hidden={hidden} {label}: rows 2, 14, 20 "
-                                       f"{counts[0]} (want {want}), plain routes {counts[1]}")
+                                       f"{counts[0]}, streamed {counts[2]} (want {want}), plain "
+                                       f"routes {counts[1]}")
+                if hidden == 320 and label == "use_pallas_lstm":
+                    streamed_main["fused_lstm_last_hidden.streamed"] = counts[2][2]
                 np.testing.assert_allclose(got, ref, rtol=TOL["float32"], atol=TOL["float32"])
     # 17. The unmerged-gates stack (rows 14-15) and the task-batched stack
     # (rows 16-17) vs plain at full width: the inner step's LSTM (x [24,
@@ -3704,7 +3926,7 @@ def main() -> int:
                         f"{times['plain'][1]:.4f} ms  [{card}]")
                     if nv == 2:  # rows 16-17 alone, from the same residuals
                         alone = tasks_alone(xs, weights, m, keep, dt, tol)
-                        cs, hcp, rb = alone["plan"]
+                        cs, hcp, rb, _ = alone["plan"]
                         log(f"row 16 {dt_name} V=2 [2 x 512, 24, 256] L=4 alone against its "
                             f"schedule on the plain pieces: max_abs_err " + ", ".join(
                                 f"{k} {v:.2e}" for k, v in alone["errs16"].items())
@@ -3901,20 +4123,18 @@ def main() -> int:
             profile_steps(torch, lockstep_inner_step, "float32 lockstep inner steps (2 tasks)",
                           card, host_rows=8)
             del fast
-            step = make_meta_step(cfg, meta_cfg)
+            step = make_meta_step(cfg, dataclasses.replace(meta_cfg,
+                                                           inner_epochs=TIMED_INNER_EPOCHS))
 
             def run_step(lockstep):
                 fls._VBATCH = lockstep
                 step(state, tasks, g)
 
-            step_ms = {"lockstep": [], "serial": []}
-            peak = {}
-            for name in ("lockstep", "serial", "serial", "lockstep"):
-                torch.cuda.reset_peak_memory_stats(dev)
-                step_ms[name].append(host_ms(torch, lambda: run_step(name == "lockstep"),
-                                             repeats=1))
-                peak[name] = torch.cuda.max_memory_allocated(dev) / 2**30
-            log("meta step float32 at the defaults, host clock, in turns: " + ", ".join(
+            step_ms, peak = host_turns_ms(torch, dev, {"lockstep": lambda: run_step(True),
+                                                       "serial": lambda: run_step(False)},
+                                          ("lockstep", "serial"))
+            log(f"meta step float32 at the defaults but {TIMED_INNER_EPOCHS} inner epoch, host "
+                "clock, in turns: " + ", ".join(
                 f"{k} {v[0]:.1f} / {v[1]:.1f} ms" for k, v in step_ms.items())
                 + f"; lockstep / serial {sum(step_ms['lockstep']) / sum(step_ms['serial']):.3f}"
                 f"; peak device memory lockstep {peak['lockstep']:.3f} GiB, serial "
@@ -4279,7 +4499,8 @@ def main() -> int:
         sides_vb = None
         plans = {r: fls.forward_plan(cfg.lstm_hidden, 2 * n, 4, fls._card_sms(dev), r)
                  for r in (1, 2, 3, 4, 8)}
-        log(f"forward recurrence plans (cs, hcp, rb) at {2 * n} rows a region, float32: {plans}")
+        log(f"forward recurrence plans (cs, hcp, rb, k_res) at {2 * n} rows a region, float32: "
+            f"{plans}")
         fls._VBATCH = True
         try:
             zero_fleet_counts()
@@ -4340,13 +4561,8 @@ def main() -> int:
                 run_serial(serial_states[v], fleet_feats[v], anchors, a_hat, node_mask, kop3[v],
                            lr0, gens[v])
 
-        epoch_ms = {"fleet": [], "serial": []}
-        fleet_peak = {}
-        for name in ("fleet", "serial", "serial", "fleet"):
-            torch.cuda.reset_peak_memory_stats(dev)
-            fn = fleet_epoch if name == "fleet" else serial_epochs
-            epoch_ms[name].append(host_ms(torch, fn, repeats=1))
-            fleet_peak[name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        epoch_ms, fleet_peak = host_turns_ms(
+            torch, dev, {"fleet": fleet_epoch, "serial": serial_epochs}, ("fleet", "serial"))
         log("3 cold regions, 40 steps of batch 2 each, host clock, in turns: one fleet epoch "
             f"{epoch_ms['fleet'][0]:.1f} / {epoch_ms['fleet'][1]:.1f} ms, three serial epochs "
             f"{epoch_ms['serial'][0]:.1f} / {epoch_ms['serial'][1]:.1f} ms; peak device memory "
@@ -4791,7 +5007,29 @@ def main() -> int:
         + json.dumps(wide.pop("max_active_clusters_16")) + f"  [{card}]")
 
     kernels = []
+    log("item 13 (eval forward at float32 H 320 / 384): " + json.dumps(streamed.pop("item13"))
+        + f"  [{card}]")
     for name in TPU_KERNELS:
+        if name in STREAMED_KERNELS:
+            rep = streamed[name][STREAMED_AT]
+            kernels.append({
+                "name": name,
+                "route": "cuda",
+                "source": SOURCES[name][0],
+                "sources": SOURCES[name],
+                "replaces": TPU_KERNELS[name],
+                "launches": streamed_main[name],
+                "launches_on": STREAMED_MAIN_PATHS[name],
+                "max_abs_err": rep.get("max_abs_err", rep.get("max_rel_err")),
+                "ms": rep["ms"],
+                "plain_ms": rep["plain_ms"],
+                "bound_ms": rep["bound_ms"],
+                "bound_by": rep["bound_by"],
+                "library_ms": rep["library_ms"],
+                "at": STREAMED_AT,
+                "widths": streamed[name],
+            })
+            continue
         m = measured[name]
         bound, bound_by = bound_ms(m["bytes"], m["flops"])
         count = next(src[name] for src in (launches, train_launches, so_launches,
@@ -4944,6 +5182,17 @@ def native_phase(torch, card: str, forecast) -> None:
             f"{t['off'][1]:.3f} ms (host, median of 5, in turns)  [{card}]")
 
 
+# The widths past every cluster that holds Wh (the streamed phase, 9d):
+# float32 H 448, 512 and 1024, bfloat16 640 and 1024; the kernels line lists
+# each row's numbers there under "streamed".
+# Item 13's timing: calls a route a turn, and how far auto's route may lie
+# above the fastest route's mean of two turns (at the forecast's 512 rows the
+# streamed and 16-block plans came within 0.1% in one run, and one route's
+# two turns differed by up to 9%: PERF.md §6).
+ITEM13_REPEATS = 10
+ITEM13_MARGIN = 1.05
+STREAM_WIDTHS = (("float32", 448), ("float32", 512), ("float32", 1024), ("bfloat16", 640),
+                 ("bfloat16", 1024))
 # The widths only a 16-block cluster holds Wh at (the wide phase): float32
 # H 320 and 384, bfloat16 512; the kernels line lists each row's numbers
 # there under "wide".
@@ -5022,7 +5271,7 @@ def wide_cluster_phase(torch, dev, card: str) -> dict:
                  lib.wf_lstm_tangent_forward_clusters),
                 ("tangent recurrence, 512 rows", fh.tangent_plan(hidden, n, e, sms),
                  lib.wf_lstm_tangent_recurrence_clusters)):
-            cs, hcp, rb = plan
+            cs, hcp, rb = plan[:3]
             active = query(code, cs, hcp, rb, hidden)
             log(f"  {what}: cluster of {cs}, {hcp} weight columns, {rb} rows a cluster; "
                 f"cudaOccupancyMaxActiveClusters {active} (the plans assume "
@@ -5261,6 +5510,276 @@ def wide_cluster_phase(torch, dev, card: str) -> dict:
     return found
 
 
+def streamed_phase(torch, dev, card: str, repeats: int = 3) -> dict:
+    """The LSTM rows on streamed plans (past every cluster that holds Wh:
+    a block keeps what fits of its slice in shared memory and streams the
+    rest from L2), at float32 H 448, 512 and 1024 and bfloat16 H 640 and
+    1024, at the inner step's shapes (x [24, 512, 256], 4 layers): rows 4-5
+    and 14-15 (masks at 0.2 and off; forward and every gradient), rows 18-19
+    (xp [24, 512, 4H]), rows 2 and 20 ([512, 24, 256]), each against its
+    plain version at TOL, gated on its launches and its streamed launches;
+    each row's device time by CUDA graph replay (`repeats`; a backward's:
+    its forward and backward in one graph less the forward), its plain
+    version's and cuDNN's LSTM by events (rows 2, 4 and 14 its forward;
+    rows 5 and 15 its backward), the bound, k_res / K and the L2 bytes a
+    step of each plan. Then item 13 of ROADMAP: the eval forward at
+    validate's [1536, 24, 256] and the forecast's [512, 24, 256], float32 H
+    320 and 384: `apply_lstm(kernel="auto")` takes the route
+    `eval_planned` names (the kernels on `eval_plan`'s plan, counted on row
+    2, or the plain stack, counted as a plain route), equal to the plain
+    stack; the streamed plan, the 16-block plan and the plain stack by
+    events in turns (A B C C B A, `ITEM13_REPEATS` calls each), the route's
+    time no more than the plain stack's and within `ITEM13_MARGIN` of the
+    fastest route's. Returns {kernel name: {"<dtype> H <width>": numbers}}
+    and {"item13": times}; the launches a row records here are checks, not
+    the kernels line's main-path counts (phases 9c and 16)."""
+    import numpy as np
+
+    from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
+    from weatherforecast_stgcn_maml_tpu_torch.models.lstm import init_lstm
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm, lstm_scan
+    from weatherforecast_stgcn_maml_tpu_torch.ops import fused_lstm_stack as fls
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w_len, n, c_in, n_l, keep = 24, 512, 256, 4, 0.8
+    found: dict = {}
+
+    def lstm_flops(rows, hidden):
+        return sum(2 * w_len * rows * ((c_in if l == 0 else hidden) + hidden) * 4 * hidden
+                   for l in range(n_l))
+
+    def record(name, label, dt_name, ms, plain_ms, n_bytes, flops, launches, **extra):
+        bound, bound_by = bound_ms(n_bytes, flops, dt_name)
+        found.setdefault(name, {})[label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "launches": launches, **extra}
+        log(f"  {name} {label}: {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}), launches {launches}"
+            + "".join(f", {k} {v}" for k, v in extra.items()) + f"  [{card}]")
+
+    def moved(entry, before):
+        return tuple(a - b for a, b in zip(counts(entry), before))
+
+    def counts(entry):
+        return (entry.launches, getattr(entry, "backward_launches", 0), entry.streamed_launches,
+                getattr(entry, "backward_streamed_launches", 0))
+
+    def fwd_bwd(fn, inputs, params, ct):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves + list(params), ct)
+
+    def backward_ms(fn, inputs, params, ct, forward_ms):
+        """The backward's device time: the forward and its backward in one
+        graph (autograd runs a backward on its forward's stream, so both
+        are captured), replayed, less the forward's."""
+        return graph_ms(torch, lambda: fwd_bwd(fn, inputs, params, ct), repeats) - forward_ms
+
+    def check(what, got, ref, got_g, ref_g, tol):
+        fwd = float((got.float() - ref.float()).abs().max())
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol, msg=what)
+        worst = max(rel_err(a, b) for a, b in zip(got_g, ref_g)) if got_g else 0.0
+        if worst > tol:
+            raise RuntimeError(f"{what}: gradient max|diff|/max|ref| {worst:.3e} > {tol}")
+        return fwd, worst
+
+    for dt_name, hidden in STREAM_WIDTHS:
+        dt = getattr(torch, dt_name)
+        tol, e = TOL[dt_name], dt.itemsize
+        label = f"{dt_name} H {hidden}"
+        g4 = 4 * hidden
+        plans = {}
+        for what, fwd, plan in (("forward", True, fls.forward_plan(hidden, n, e, sms)),
+                                ("backward", False, fls.recurrence_plan(hidden, n, e, sms))):
+            k_rows = hidden if fwd else g4
+            if not fls.streams(plan, k_rows):
+                raise RuntimeError(f"the {what} plan at {label} does not stream: {plan}")
+            plans[what] = {"plan": plan, "k_res_of_k": f"{plan[3]} / {k_rows}",
+                           "l2_mb_a_step": -(-n // plan[2]) * plan[0] * (k_rows - plan[3])
+                           * fls._slice_row_bytes(plan[1], e, fwd) / 1e6}
+        log(f"streamed plans at {label}, 512 rows: {json.dumps(plans)}")
+        lstm = init_lstm(torch.Generator().manual_seed(hidden), c_in, hidden, n_l).to(dev)
+        params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
+        w_bytes = 4 * sum(p.numel() for p in params)
+        rng = np.random.default_rng(hidden)
+
+        def card_array(*shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+        x = card_array(n, w_len, c_in)
+        ct = card_array(n, hidden)
+        masks = draw_mask(torch.Generator(device=dev).manual_seed(1),
+                          (n_l - 1, w_len, n, hidden), 0.2, dev)
+        cudnn = torch.nn.LSTM(c_in, hidden, n_l, batch_first=True).to(dev, dt)
+        xc = x.to(dt).detach().requires_grad_(True)
+        cudnn_fwd = cuda_ms(torch, lambda: cudnn(xc)[0], repeats)
+        cudnn_both = cuda_ms(torch, lambda: torch.autograd.grad(
+            cudnn(xc)[0][:, -1], [xc, *cudnn.parameters()], ct.to(dt)), repeats)
+        io = 4 * x.numel() + w_bytes + masks.numel()
+        res = 2 * n_l * w_len * n * hidden * e
+        fl = lstm_flops(n, hidden)
+
+        # Rows 4-5 and 14-15: one launch each way, each on streamed plans.
+        for name, entry in (("lstm_stack_train", fls.lstm_stack_train),
+                            ("lstm_stack_split", fls.lstm_stack_split)):
+            errs, launched = [], []
+            for m_label, m in (("masks 0.2", masks), ("masks off", None)):
+                k = keep if m is not None else 1.0
+                before = counts(entry)
+                got, got_g = fwd_bwd(lambda a: entry(lstm.layers, a, masks=m, keep=k,
+                                                     compute_dtype=dt), [x], params, ct)
+                got_moved = moved(entry, before)
+                ref, ref_g = fwd_bwd(lambda a: fls.lstm_stack_plain(lstm.layers, a, dt, m, k),
+                                     [x], params, ct)
+                errs.append(check(f"{name} {label} {m_label}", got, ref, got_g, ref_g, tol))
+                log(f"  {name} {m_label}: forward max_abs_err {errs[-1][0]:.3e}, gradients "
+                    f"max|diff|/max|ref| {errs[-1][1]:.3e} (tol {tol}); launches (forward, "
+                    f"backward, streamed forward, streamed backward) {got_moved}")
+                if got_moved != (1, 1, 1, 1):
+                    raise RuntimeError(f"{name} at {label}: launches {got_moved}")
+                launched.append(got_moved)
+            xr = x.detach().requires_grad_(True)
+            fwd_k = graph_ms(torch, lambda: entry(lstm.layers, xr, masks=masks, keep=keep,
+                                                  compute_dtype=dt), repeats)
+            bwd_k = backward_ms(lambda a: entry(lstm.layers, a, masks=masks, keep=keep,
+                                                compute_dtype=dt), [x], params, ct, fwd_k)
+            fwd_p = cuda_ms(torch, lambda: fls.lstm_stack_plain(lstm.layers, xr, dt, masks, keep),
+                            repeats=2)
+            both_p = cuda_ms(torch, lambda: fwd_bwd(lambda a: fls.lstm_stack_plain(
+                lstm.layers, a, dt, masks, keep), [x], params, ct), repeats=2)
+            record(name + ".streamed", label, dt_name, fwd_k, fwd_p,
+                   io + res + 4 * n * hidden, fl, sum(m[2] for m in launched),
+                   library_ms=cudnn_fwd, max_abs_err=max(v[0] for v in errs),
+                   plan=plans["forward"])
+            record(name + ".backward.streamed", label, dt_name, bwd_k, both_p - fwd_p,
+                   io + res + 4 * n * hidden + 4 * x.numel() + w_bytes, 2 * fl,
+                   sum(m[3] for m in launched), library_ms=cudnn_both - cudnn_fwd,
+                   max_rel_err=max(v[1] for v in errs), plan=plans["backward"])
+
+        # Rows 18-19: one layer's recurrence at xp [24, 512, 4H].
+        xp = card_array(w_len, n, g4)
+        wh = card_array(hidden, g4, scale=hidden ** -0.5).requires_grad_(True)
+        cth = card_array(w_len, n, hidden)
+        rec = lstm_scan.lstm_recurrence
+        before = counts(rec)
+        got, got_g = fwd_bwd(lambda a: rec(a, wh, compute_dtype=dt), [xp], [wh], cth)
+        got_moved = moved(rec, before)
+        ref, ref_g = fwd_bwd(lambda a: lstm_scan.lstm_recurrence_plain(a, wh, dt), [xp], [wh],
+                             cth)
+        fwd, worst = check(f"rows 18-19 {label}", got, ref, got_g, ref_g, tol)
+        log(f"  rows 18-19: forward max_abs_err {fwd:.3e}, gradients max|diff|/max|ref| "
+            f"{worst:.3e} (tol {tol}); launches {got_moved}")
+        if got_moved != (1, 1, 1, 1):
+            raise RuntimeError(f"rows 18-19 at {label}: launches {got_moved}")
+        xpr = xp.detach().requires_grad_(True)
+        fwd_k = graph_ms(torch, lambda: rec(xpr, wh, compute_dtype=dt), repeats)
+        bwd_k = backward_ms(lambda a: rec(a, wh, compute_dtype=dt), [xp], [wh], cth, fwd_k)
+        fwd_p = cuda_ms(torch, lambda: lstm_scan.lstm_recurrence_plain(xpr, wh, dt), repeats=2)
+        both_p = cuda_ms(torch, lambda: fwd_bwd(lambda a: lstm_scan.lstm_recurrence_plain(
+            a, wh, dt), [xp], [wh], cth), repeats=2)
+        rec_flops = 2 * w_len * n * hidden * g4
+        rec_io = 4 * (w_len * n * g4 + hidden * g4 + 2 * w_len * n * hidden)
+        record("lstm_recurrence.streamed", label, dt_name, fwd_k, fwd_p, rec_io, rec_flops,
+               got_moved[2], library_ms=None, max_abs_err=fwd, plan=plans["forward"])
+        record("lstm_recurrence.backward.streamed", label, dt_name, bwd_k, both_p - fwd_p,
+               4 * (w_len * n * hidden + w_len * n * g4 + 2 * w_len * n * hidden + hidden * g4)
+               + 4 * (w_len * n * g4 + hidden * g4), 2 * rec_flops, got_moved[3],
+               library_ms=None, max_rel_err=worst, plan=plans["backward"])
+        del xp, xpr, wh, got, got_g, ref, ref_g
+
+        # Rows 2 and 20: the eval forward at the forecast's rows.
+        with torch.no_grad():
+            ref = fls.lstm_stack_plain(lstm.layers, x, dt)
+            plain_ms = cuda_ms(torch, lambda: fls.lstm_stack_plain(lstm.layers, x, dt), repeats=2)
+            for name, entry in (("lstm_stack_last_all", fls.lstm_stack_last_all),
+                                ("fused_lstm_last_hidden", fused_lstm.fused_lstm_last_hidden)):
+                before = counts(entry)
+                got = entry(lstm.layers, x, compute_dtype=dt)
+                got_moved = moved(entry, before)
+                if got_moved[0] != 1 or got_moved[2] != 1:
+                    raise RuntimeError(f"{name} at {label}: launches {got_moved}")
+                err = float((got - ref).abs().max())
+                torch.testing.assert_close(got, ref, rtol=tol, atol=tol, msg=name)
+                record(name + ".streamed", label, dt_name,
+                       graph_ms(torch, lambda: entry(lstm.layers, x, compute_dtype=dt), repeats),
+                       plain_ms, 4 * x.numel() + w_bytes + 4 * n * hidden, fl, got_moved[2],
+                       library_ms=cudnn_fwd, max_abs_err=err, plan=plans["forward"])
+        del lstm, cudnn, x, xc, masks
+        torch.cuda.empty_cache()
+
+    # Item 13: validate's and the forecast's eval forward at float32 H 320
+    # and 384: the route `auto` takes (`eval_planned`: the kernels on
+    # `eval_plan`'s plan, or the plain stack), the 16-block plan, the
+    # cheapest streamed plan and the plain stack, by events in turns.
+    from weatherforecast_stgcn_maml_tpu_torch.models.lstm import apply_lstm
+
+    found["item13"] = {}
+    for hidden in (320, 384):
+        lstm = init_lstm(torch.Generator().manual_seed(hidden), c_in, hidden, n_l).to(dev)
+        for rows in (3 * n, n):
+            xe = torch.from_numpy(np.random.default_rng(rows).standard_normal(
+                (rows, w_len, c_in)).astype(np.float32)).to(dev)
+            planned = fls.eval_planned(c_in, hidden, rows, torch.float32, dev)
+            stream_plan = fls.stream_plans(hidden, rows, 4, sms, True)[0]
+            wide_plan = fls.forward_plan(hidden, rows, 4, sms)
+            auto_plan = fls.eval_plan(hidden, rows, 4, sms)
+            route = ("plain" if not planned else "streamed" if auto_plan == stream_plan
+                     else "wide" if auto_plan == wide_plan else None)
+            if route is None:
+                raise RuntimeError(f"item 13 at float32 H {hidden}, {rows} rows: eval_plan "
+                                   f"{auto_plan} is neither {stream_plan} nor {wide_plan}")
+            saved = fls.eval_plan
+
+            def on_plan(plan):
+                def run():
+                    fls.eval_plan = lambda *a, **k: plan
+                    try:
+                        return fls.lstm_stack_last_all(lstm.layers, xe)
+                    finally:
+                        fls.eval_plan = saved
+                return run
+
+            def run_plain():
+                return fls.lstm_stack_plain(lstm.layers, xe, torch.float32)
+
+            with torch.no_grad():
+                ref = run_plain()
+                before = (fls.lstm_stack_last_all.launches, fls.lstm_stack_train.plain_routes)
+                got = apply_lstm(lstm, xe, kernel="auto")
+                took = (fls.lstm_stack_last_all.launches - before[0],
+                        fls.lstm_stack_train.plain_routes - before[1])
+                if took != ((1, 0) if planned else (0, 1)):
+                    raise RuntimeError(f"auto at float32 H {hidden}, {rows} rows (eval_planned "
+                                       f"{planned}) took (kernel, plain) {took}")
+                torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5, msg="auto")
+                routes = {"wide": on_plan(wide_plan), "streamed": on_plan(stream_plan),
+                          "plain": run_plain}
+                for what in ("wide", "streamed"):
+                    torch.testing.assert_close(routes[what](), ref, rtol=1e-5, atol=1e-5,
+                                               msg=what)
+                times = {k: [] for k in routes}
+                for turn in (list(routes), list(routes)[::-1]):
+                    for k in turn:
+                        times[k].append(cuda_ms(torch, routes[k], ITEM13_REPEATS))
+            got = {k: statistics.mean(v) for k, v in times.items()}
+            fastest = min(got, key=got.get)
+            key = f"float32 H {hidden}, {rows} rows"
+            found["item13"][key] = {"eval_planned": planned, "route": route,
+                                    "streamed_plan": stream_plan, "wide_plan": wide_plan,
+                                    **{f"{k}_ms": v for k, v in got.items()}, "turns": times}
+            log(f"  item 13 {key}: auto takes the {route} route (eval_planned {planned}); "
+                f"streamed plan {stream_plan} {got['streamed']:.4f} ms, 16-block plan "
+                f"{wide_plan} {got['wide']:.4f} ms, plain stack {got['plain']:.4f} ms (events, "
+                f"two turns: {json.dumps(times)}); fastest: {fastest}  [{card}]")
+            if got[route] > got["plain"] or got[route] > ITEM13_MARGIN * got[fastest]:
+                raise RuntimeError(f"item 13 at {key}: auto's route ({route}) "
+                                   f"{got[route]:.4f} ms is slower than the plain stack's "
+                                   f"{got['plain']:.4f} ms or more than {ITEM13_MARGIN} x the "
+                                   f"fastest route's ({fastest}, {got[fastest]:.4f} ms)")
+        del lstm
+    return found
+
+
 def tasks_at_path_shapes(torch, dev, rows: int, w_len: int, c_in: int, hidden: int,
                          n_layers: int) -> None:
     """Rows 16-17 (`lstm_stack_train_tasks`) against their plain version at
@@ -5318,7 +5837,7 @@ def tasks_at_path_shapes(torch, dev, rows: int, w_len: int, c_in: int, hidden: i
                 log(f"rows 16-17 {dt_name} {what}, dropout {dropout}: forward max_abs_err "
                     f"{float((got - ref).abs().max()):.3e} (tol {tol}); gradients (x, wcat0, "
                     f"wcatr, b2d) max|diff|/max|ref| {max(rels):.3e} (tol {tol}), per input "
-                    f"{[f'{e:.1e}' for e in rels]}; plans (cs, hcp, rb): forward {plans[0]}, "
+                    f"{[f'{e:.1e}' for e in rels]}; plans (cs, hcp, rb, k_res): forward {plans[0]}, "
                     f"backward {plans[1]}")
                 if max(rels) > tol:
                     raise RuntimeError(f"rows 16-17 {dt_name} {what}: gradient error "

@@ -641,15 +641,21 @@ def test_lstm_recurrence_forward_matches_its_plain_piece(dev, dtype, rows, hidde
 
 @pytest.mark.cuda
 def test_lstm_recurrence_refuses_what_it_does_not_take(dev):
-    """Hidden widths that are no multiple of 4, float32 452 (no cluster of
-    16 holds Wh: the forward plan refuses), 4H disagreeing, float64 inputs,
+    """Hidden widths that are no multiple of 4, float32 2056 (past H 2048 no
+    plan holds even a streamed slice; float32 452, where no cluster of 16
+    holds Wh, launches a streamed plan), 4H disagreeing, float64 inputs,
     float16 compute."""
     with pytest.raises(ValueError, match="multiples of 4"):
         lstm_scan.lstm_recurrence(torch.zeros((3, 8, 4 * 302), device=dev),
                                   torch.zeros((302, 1208), device=dev))
-    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 16 blocks"):
-        lstm_scan.lstm_recurrence(torch.zeros((3, 8, 4 * 452), device=dev),
-                                  torch.zeros((452, 1808), device=dev))
+    rec = lstm_scan.lstm_recurrence
+    before = rec.launches, rec.streamed_launches
+    h = rec(torch.zeros((3, 8, 4 * 452), device=dev), torch.zeros((452, 1808), device=dev))
+    assert (rec.launches, rec.streamed_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(h, torch.zeros_like(h))  # gates 1/2, 0, 1/2: c and h stay 0
+    with pytest.raises(ValueError, match="nor does a streamed slice"):
+        lstm_scan.lstm_recurrence(torch.zeros((3, 8, 4 * 2056), device=dev),
+                                  torch.zeros((2056, 8224), device=dev))
     xp = torch.zeros((3, 8, 4 * 300), device=dev)
     with pytest.raises(ValueError, match="disagree"):
         lstm_scan.lstm_recurrence(xp[..., :64], torch.zeros((8, 32), device=dev))
@@ -724,8 +730,8 @@ def test_eval_rows_2_and_20_at_full_width(dev, dtype, rows):
     x = _card(dev, (rows, 24, 256), seed=rows)
     plan = fls.forward_plan(128, rows, dtype.itemsize, fls._sms(dev))
     if dtype == torch.float32 and rows == 1536 and fls._sms(dev) == fls.H100_SMS:
-        assert plan == (2, 64, 32)
-        assert cuda_build.load().wf_lstm_stack_forward_clusters(0, *plan, 128) >= 48
+        assert plan == (2, 64, 32, 128)
+        assert cuda_build.load().wf_lstm_stack_forward_clusters(0, *plan[:3], 128) >= 48
     ref = fls.lstm_stack_plain(lstm.layers, x, dtype)
     entries = (fls.lstm_stack_last_all, fused_lstm.fused_lstm_last_hidden)
     for entry in entries:
@@ -747,7 +753,7 @@ def test_forward_recurrence_wide_tile_matches_plain(dev, dtype, hidden, rows):
     plain version, 5 steps, with a mask and the last h; a bfloat16 32-row
     tile at 64 weight columns is refused."""
     fls = fused_lstm_stack
-    cs, hcp, rb = fls.forward_plan(hidden, rows, dtype.itemsize, fls._sms(dev))
+    cs, hcp, rb, _ = fls.forward_plan(hidden, rows, dtype.itemsize, fls._sms(dev))
     if fls._sms(dev) == fls.H100_SMS:
         assert rb == (32 if dtype == torch.float32 or hidden == 32 else 16)
     xp = _card(dev, (5, rows, 4 * hidden), seed=hidden)
@@ -772,7 +778,7 @@ def test_forward_recurrence_wide_tile_matches_plain(dev, dtype, hidden, rows):
         err = cuda_build.load().wf_lstm_stack_forward_recurrence(fls._SCAN_FWD.pack(
             1, 1, 64, 32, xp.data_ptr(), xp.data_ptr(), whc.data_ptr(), 256,
             bias.data_ptr(), h.data_ptr(), h.data_ptr(), 0, 0, 1.0, 0, 0, 5, rows, 64,
-            cuda_build.stream_ptr(dev), 1, *[0] * 8))
+            cuda_build.stream_ptr(dev), 1, *[0] * 8, -1))
         with pytest.raises(RuntimeError, match="invalid argument"):
             cuda_build.check(err, "bfloat16, 32 rows at 64 weight columns")
 
@@ -1369,7 +1375,7 @@ def test_backward_recurrence_cluster_sizes_match_plain(dev, dtype, hidden):
     clusters of 1, 2, 4 and 8 blocks."""
     fls = fused_lstm_stack
     g, gates, c, wh = _recurrence_inputs(dev, 7, 48, hidden, hidden)
-    cs, hcp, rb = fls.recurrence_plan(hidden, 48, dtype.itemsize, fls._sms(dev))
+    cs, hcp, rb, _ = fls.recurrence_plan(hidden, 48, dtype.itemsize, fls._sms(dev))
     assert cs == CLUSTER[(dtype, hidden)]
     lib = cuda_build.load()
     assert lib.wf_lstm_stack_recurrence_clusters(cuda_build.dtype_code(dtype), cs, hcp, rb,
@@ -1398,7 +1404,7 @@ def test_backward_recurrence_refuses_a_plan_it_does_not_take(dev):
     for plan in ((1, 64, 2), (2, 64, 3), (1, 128, 16)):  # 128 units; rb 3; 256 KB of f32
         err = lib.wf_lstm_stack_recurrence(fused_lstm_stack._SCAN_LAUNCH.pack(
             0, *plan, 1, g.data_ptr(), 0, gates.data_ptr(), 0, c.data_ptr(), 0, wh.data_ptr(), 0,
-            out.data_ptr(), 0, 0, 0, 0, 0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev)))
+            out.data_ptr(), 0, 0, 0, 0, 0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev), -1))
         with pytest.raises(RuntimeError, match="invalid argument"):
             cuda_build.check(err, f"plan {plan}")
 
@@ -1631,7 +1637,7 @@ def test_forward_recurrence_cluster_sizes_match_plain(dev, dtype, hidden):
     steps, with a mask (the next layer's input) and the last h: clusters of
     1, 2, 4 and 8 blocks."""
     fls = fused_lstm_stack
-    cs, hcp, rb = fls.forward_plan(hidden, 48, dtype.itemsize, fls._sms(dev))
+    cs, hcp, rb, _ = fls.forward_plan(hidden, 48, dtype.itemsize, fls._sms(dev))
     assert cs == CLUSTER[(dtype, hidden)]
     assert cuda_build.load().wf_lstm_stack_forward_clusters(
         cuda_build.dtype_code(dtype), cs, hcp, rb, hidden) > 0
@@ -1666,7 +1672,7 @@ def test_forward_recurrence_refuses_a_plan_it_does_not_take(dev):
         err = lib.wf_lstm_stack_forward_recurrence(fused_lstm_stack._SCAN_FWD.pack(
             0, *plan, gates.data_ptr(), gates.data_ptr(), wh.data_ptr(), 512, bias.data_ptr(),
             h.data_ptr(), h.data_ptr(), 0, 0, 1.0, 0, 0, 3, 8, 128, cuda_build.stream_ptr(dev),
-            1, *[0] * 8))
+            1, *[0] * 8, -1))
         with pytest.raises(RuntimeError, match="invalid argument"):
             cuda_build.check(err, f"plan {plan}")
 
@@ -2018,8 +2024,10 @@ def test_auto_takes_the_plain_stack_where_no_cluster_holds_wh(dev):
     """Float32 hidden 448 (320 before 16-block clusters) has no cluster
     plan for Wh: a train step of the hybrid under `lstm_kernel="auto"` runs
     the plain stack (rows 4-5 never launch, `plain_routes` counts the call)
-    with the plain route's gradients; the forced routes `pallas_stack` and
-    `pallas` raise."""
+    with the plain route's gradients; the forced routes `pallas_stack`
+    (rows 4-5) and `pallas` (rows 18-19) launch their kernels on streamed
+    plans, each counted, no plain route, the plain route's gradients within
+    1e-4 relative."""
     cfg = dataclasses.replace(CFG, lstm_hidden=448, lstm_layers=2)
     model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
     a_hat = _a_hat(dev)
@@ -2038,11 +2046,19 @@ def test_auto_takes_the_plain_stack_where_no_cluster_holds_wh(dev):
                                           generator=gen.manual_seed(5)).sum(), params)
     for (name, _), a, b in zip(model.named_parameters(), got, ref):
         assert torch.equal(a, b), name
-    for kernel, match in (("pallas_stack", "forward recurrence holds Wh"),
-                          ("pallas", "forward recurrence holds Wh in at most 16 blocks")):
-        with pytest.raises(ValueError, match=match):
-            apply_model(model, a_hat, x, 3, dataclasses.replace(cfg, lstm_kernel=kernel),
-                        train=True, generator=gen.manual_seed(5))
+    plain = train.plain_routes
+    for kernel, entry, n in (("pallas_stack", train, 1),
+                             ("pallas", lstm_scan.lstm_recurrence, cfg.lstm_layers)):
+        counts = lambda: (entry.launches, entry.backward_launches, entry.streamed_launches,
+                          entry.backward_streamed_launches)
+        before = counts()
+        got = torch.autograd.grad(apply_model(
+            model, a_hat, x, 3, dataclasses.replace(cfg, lstm_kernel=kernel), train=True,
+            generator=gen.manual_seed(5)).sum(), params)
+        assert counts() == tuple(b + n for b in before), kernel
+        for (name, _), a, b in zip(model.named_parameters(), got, ref):
+            assert _rel(a, b) <= 1e-4, (kernel, name, _rel(a, b))
+    assert train.plain_routes == plain
 
 
 @pytest.mark.cuda
@@ -2052,7 +2068,9 @@ def test_eval_routes_take_the_plain_stack_where_unplanned(dev, hidden):
     8): the hybrid's eval forward under `lstm_kernel="auto"` and under
     `use_pallas_lstm` (also its train mode at dropout 0) runs the plain
     stack, counted once a call, rows 2 and 20 never launch, and it equals
-    the plain route; a forced `pallas_stack` eval forward raises."""
+    the plain route; a forced `pallas_stack` eval forward launches row 2 on
+    a streamed plan at 448 (within 1e-4 of the plain route) and raises at
+    132."""
     cfg = dataclasses.replace(CFG, lstm_hidden=hidden, lstm_layers=2, lstm_dropout=0.0)
     model = init_model(torch.Generator().manual_seed(3), cfg, device=dev)
     a_hat = _a_hat(dev)
@@ -2076,24 +2094,38 @@ def test_eval_routes_take_the_plain_stack_where_unplanned(dev, hidden):
     apply_model(model, a_hat, x, 3, mc, train=True).sum().backward()
     assert (fused_lstm.fused_lstm_last_hidden.launches, fls.lstm_stack_train.plain_routes) == (
         before[0], before[1] + 1)
-    with torch.no_grad(), pytest.raises(ValueError, match="forward recurrence holds Wh|"
-                                                          "multiples of 8"):
-        apply_model(model, a_hat, x, 3, dataclasses.replace(cfg, lstm_kernel="pallas_stack"))
+    forced = dataclasses.replace(cfg, lstm_kernel="pallas_stack")
+    if hidden % 8:
+        with torch.no_grad(), pytest.raises(ValueError, match="multiples of 8"):
+            apply_model(model, a_hat, x, 3, forced)
+        return
+    last = fls.lstm_stack_last_all
+    before = last.launches, last.streamed_launches, fls.lstm_stack_train.plain_routes
+    with torch.no_grad():
+        got = apply_model(model, a_hat, x, 3, forced)
+    assert (last.launches, last.streamed_launches, fls.lstm_stack_train.plain_routes) == (
+        before[0] + 1, before[1] + 1, before[2])
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
 def test_lstm_tasks_forward_refuses_what_row4_refuses(dev):
-    """Row 16 takes the widths row 4 takes: float32 hidden 448 holds no
-    forward-recurrence plan (Wh beyond 16 blocks' shared memory; 320 before
-    16-block clusters), which the earlier one-kernel forward took at input
-    24 and 2 layers."""
+    """Row 16 takes the widths whose Wh a cluster holds: float32 hidden 448
+    holds no forward-recurrence plan for V tasks (Wh beyond 16 blocks'
+    shared memory; 320 before 16-block clusters), nor a streamed one for one
+    task, where row 4 (one task) launches its streamed plan."""
     w0, wr, b = _task_weights(dev, 2, 24, 448, 2, 0)
     x = torch.zeros((2, 8, 7, 24), device=dev)
     with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 16 blocks"):
         fused_lstm_stack.lstm_stack_train_tasks(x, w0, wr, b)
-    with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 16 blocks"):
+    with pytest.raises(ValueError, match="task-batched LSTM stack"):
+        fused_lstm_stack.lstm_stack_train_tasks(x[:1], w0[:1], wr[:1], b[:1])
+    train = fused_lstm_stack.lstm_stack_train
+    before = train.launches, train.streamed_launches
+    with torch.no_grad():
         fused_lstm_stack.lstm_stack_train(init_lstm(torch.Generator().manual_seed(0), 24, 448,
                                                     2).to(dev).layers, x[0])
+    assert (train.launches, train.streamed_launches) == (before[0] + 1, before[1] + 1)
 
 
 WIDE = [(torch.float32, 320), (torch.float32, 384), (torch.bfloat16, 448), (torch.bfloat16, 512)]
@@ -2432,3 +2464,111 @@ def test_fleet_step_region_batched_on_rows_16_17(dev, monkeypatch):
     for v in range(3):
         for k, mu in out[False][1][v].items():
             assert _rel(out[True][1][v][k], mu) <= TOL[torch.float32], (k, v)
+
+
+# Widths past the clusters that hold Wh: float32 448 (3-18% of a slice past
+# a 16-block cluster's shared memory) and 1024, bfloat16 640.
+STREAMED = [(torch.float32, 448), (torch.float32, 1024), (torch.bfloat16, 640)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hidden", STREAMED)
+@pytest.mark.parametrize("masked", [True, False])
+def test_streamed_recurrences_match_plain(dev, dtype, hidden, masked):
+    """The streamed recurrences against their plain versions at 100 rows,
+    7 steps, input 24, 2 layers (masks at 0.2, or none): the forward
+    recurrence alone (the next layer's masked input and the last h), the
+    backward alone through both C entries (with dh / dc and the bias
+    partials; c_all float32), rows 4-5 and 14-15 (forward and every
+    gradient), rows 18-19 and rows 2 and 20; every plan streams (k_res < K)
+    and each entry counts its streamed launches. Gates: float32 forwards
+    1e-5, gradients max|diff| / max|ref| <= 1e-5; bfloat16 5e-2."""
+    fls, tol = fused_lstm_stack, TOL[dtype]
+    rows, t_len, c_in = 100, 7, 24
+    sms = fls._sms(dev)
+    fwd_plan = fls.forward_plan(hidden, rows, dtype.itemsize, sms)
+    bwd_plan = fls.recurrence_plan(hidden, rows, dtype.itemsize, sms)
+    assert fwd_plan[3] < hidden and bwd_plan[3] < 4 * hidden, (fwd_plan, bwd_plan)
+    lib, code = cuda_build.load(), cuda_build.dtype_code(dtype)
+    assert lib.wf_lstm_stack_forward_stream_clusters(code, *fwd_plan[:3], hidden,
+                                                     fwd_plan[3]) > 0
+    assert lib.wf_lstm_stack_recurrence_stream_clusters(code, *bwd_plan[:3], hidden,
+                                                        bwd_plan[3]) > 0
+    assert lib.wf_lstm_stack_forward_stream_smem(code, *fwd_plan[1:3], hidden, fwd_plan[3]) == \
+        fls.scan_fwd_stream_smem(hidden, *fwd_plan[1:3], dtype.itemsize, fwd_plan[3])
+    assert lib.wf_lstm_stack_recurrence_stream_smem(code, *bwd_plan[1:3], hidden,
+                                                    bwd_plan[3]) == \
+        fls.scan_stream_smem(hidden, *bwd_plan[1:3], dtype.itemsize, bwd_plan[3])
+
+    # The forward recurrence alone (rows 4 and 14's piece).
+    xp = _card(dev, (t_len, rows, 4 * hidden), seed=hidden)
+    wh = _card(dev, (hidden, 4 * hidden), seed=hidden + 1, scale=hidden ** -0.5)
+    bias = _card(dev, (4 * hidden,), seed=hidden + 2, scale=0.1)
+    mask = ((_card(dev, (t_len, rows, hidden), seed=hidden + 3) > -0.84).to(torch.int8)
+            if masked else None)
+    outs = {}
+    for name, piece in (("kernel", fls._forward_recurrence_card),
+                        ("plain", fls._forward_recurrence_plain)):
+        gates = xp.clone()
+        res = [torch.empty((t_len, rows, hidden), dtype=dtype, device=dev) for _ in range(3)]
+        h_last = torch.empty((rows, hidden), device=dev)
+        piece(gates, wh, bias, dtype, res[0], res[1], mask=mask, inv_keep=1.25,
+              next_in=res[2] if masked else None, h_last=h_last)
+        outs[name] = (gates, res[0], res[1], h_last, *res[2:3 if masked else 2])
+    for i, (a, b) in enumerate(zip(outs["kernel"], outs["plain"])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol, msg=f"forward {i}")
+
+    # The backward recurrence alone (rows 5 and 15's entry, row 19's).
+    g, gates, c, wh = _recurrence_inputs(dev, t_len, rows, hidden, hidden)
+    ref, ref_dh, ref_dc = lstm_scan.scan_backward_plain(g, gates, c.to(dtype), wh, dtype,
+                                                        carries=True)
+    out, dh, dc = torch.empty_like(gates), torch.empty_like(g), torch.empty_like(g)
+    db = torch.empty((1, 4 * hidden), device=dev)
+    fls._recurrence_card(g, gates, c.to(dtype), wh, dtype, out, dh, dc, db=db[0])
+    for name, a, b in (("dgates", out, ref), ("dh", dh, ref_dh), ("dc", dc, ref_dc),
+                       ("db", db[0], ref.sum(dim=(0, 1)))):
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+    out19 = fls.launch_recurrence(lib.wf_lstm_scan_bwd, "row 19", g, gates, c, wh, dtype,
+                                  torch.empty_like(gates))
+    ref19 = lstm_scan.scan_backward_plain(g, gates, c, wh, dtype)
+    assert _rel(out19, ref19) <= tol, _rel(out19, ref19)
+
+    # Rows 4-5, 14-15, 18-19 and 2 / 20 through their entries.
+    lstm = init_lstm(torch.Generator().manual_seed(hidden), c_in, hidden, 2).to(dev)
+    x = _card(dev, (rows, t_len, c_in), seed=hidden + 4)
+    masks = (draw_mask(torch.Generator(device=dev).manual_seed(4), (1, t_len, rows, hidden),
+                       0.2, dev) if masked else None)
+    keep = 0.8 if masked else 1.0
+    params = [p for layer in lstm.layers for p in (layer.wx, layer.wh, layer.b)]
+    ref, ref_g = _fwd_bwd(lambda x: fls.lstm_stack_plain(lstm.layers, x, dtype, masks, keep),
+                          [x], params)
+    for entry in (fls.lstm_stack_train, fls.lstm_stack_split):
+        counts = lambda: (entry.launches, entry.backward_launches, entry.streamed_launches,
+                          entry.backward_streamed_launches)
+        before = counts()
+        got, got_g = _fwd_bwd(lambda x: entry(lstm.layers, x, masks=masks, keep=keep,
+                                              compute_dtype=dtype), [x], params)
+        assert counts() == tuple(b + 1 for b in before), entry.__name__
+        torch.testing.assert_close(got, ref, rtol=tol, atol=tol, msg=entry.__name__)
+        for i, (a, b) in enumerate(zip(got_g, ref_g)):
+            assert _rel(a, b) <= tol, (entry.__name__, i, _rel(a, b))
+    xp = _card(dev, (t_len, rows, 4 * hidden), seed=hidden + 5)
+    wh = _card(dev, (hidden, 4 * hidden), seed=hidden + 6, scale=hidden ** -0.5)
+    wh.requires_grad_(True)
+    rec = lstm_scan.lstm_recurrence
+    counts = lambda: (rec.launches, rec.backward_launches, rec.streamed_launches,
+                      rec.backward_streamed_launches)
+    before = counts()
+    got, got_g = _fwd_bwd(lambda a: rec(a, wh, compute_dtype=dtype), [xp], [wh])
+    assert counts() == tuple(b + 1 for b in before)
+    ref, ref_g = _fwd_bwd(lambda a: lstm_scan.lstm_recurrence_plain(a, wh, dtype), [xp], [wh])
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    for i, (a, b) in enumerate(zip(got_g, ref_g)):
+        assert _rel(a, b) <= tol, ("rows 18-19", i, _rel(a, b))
+    with torch.no_grad():
+        ref = fls.lstm_stack_plain(lstm.layers, x, dtype)
+        for entry in (fls.lstm_stack_last_all, fused_lstm.fused_lstm_last_hidden):
+            before = entry.launches, entry.streamed_launches
+            torch.testing.assert_close(entry(lstm.layers, x, compute_dtype=dtype), ref,
+                                       rtol=tol, atol=tol)
+            assert (entry.launches, entry.streamed_launches) == (before[0] + 1, before[1] + 1)

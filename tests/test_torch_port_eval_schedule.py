@@ -328,7 +328,7 @@ def test_forward_plan_at_validate_rows(hidden, itemsize, rows, plan):
     """The 32-row tile only where it puts every cluster in one wave and no
     tile of 16 rows or less does, for one task; two tasks keep their tiles
     of at most 16 rows."""
-    assert fls.forward_plan(hidden, rows, itemsize, 132) == plan
+    assert fls.forward_plan(hidden, rows, itemsize, 132) == (*plan, hidden)
     cs, hcp, rb = plan
     assert fls.scan_fwd_smem(hidden, hcp, rb, itemsize) <= fls.SCAN_MAX_SMEM
     assert rb < fls.FWD_WIDE_TILE or hcp <= 16 * itemsize
@@ -344,8 +344,9 @@ def test_forward_plan_at_validate_rows(hidden, itemsize, rows, plan):
     (256, 640, torch.bfloat16, False),
 ])
 def test_eval_planned(c_in, hidden, dtype, planned):
-    """The eval forward's answer: widths that are multiples of 8 and a
-    forward plan; float64 runs plain on every route."""
+    """The eval forward's answer at validate's 1536 rows: widths that are
+    multiples of 8 and a forward plan that holds Wh; float64 runs plain on
+    every route."""
     assert fls.eval_planned(c_in, hidden, 1536, dtype, torch.device("cpu")) is planned
     if dtype is torch.float32 and hidden % 8 == 0 and c_in % 8 == 0:
         assert planned is fls.stack_planned(hidden, 1536, dtype, torch.device("cpu"))

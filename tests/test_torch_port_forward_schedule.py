@@ -157,16 +157,22 @@ def test_row4_masked_input_rounds_once():
 ])
 def test_forward_plan(hidden, itemsize, rows, plan):
     """The smallest cluster whose Wh slice [H, 4, hcp] fits beside the
-    tiles, with the smallest row tile that fills 132 SMs in one wave."""
-    assert fls.forward_plan(hidden, rows, itemsize, 132) == plan
+    tiles, with the smallest row tile that fills 132 SMs in one wave; all
+    H of its K-rows resident."""
+    assert fls.forward_plan(hidden, rows, itemsize, 132) == (*plan, hidden)
     cs, hcp, rb = plan
     assert fls.scan_fwd_smem(hidden, hcp, rb, itemsize) <= fls.SCAN_MAX_SMEM
     assert hcp >= fls.scan_units(hidden, cs)
 
 
 def test_forward_plan_refuses_what_no_cluster_holds():
+    """Past the clusters that hold Wh one task streams part of each slice
+    (k_res < H); V tasks (row 16) and widths past H 2048 still raise."""
+    assert fls.forward_plan(1024, 512, 4, 132)[3] < 1024
     with pytest.raises(ValueError, match="forward recurrence holds Wh in at most 16 blocks"):
-        fls.forward_plan(1024, 512, 4, 132)
+        fls.forward_plan(1024, 512, 4, 132, 2)
+    with pytest.raises(ValueError, match="nor does a streamed slice"):
+        fls.forward_plan(2056, 512, 4, 132)
 
 
 # Row 13: node-major on the port's side, [W, rows, C] on JAX's.

@@ -239,8 +239,8 @@ def test_recurrence_plan(hidden, itemsize, rows, plan):
     """The cluster plan at the widths the card runs (132 SMs): each fits in
     a block's shared memory and puts the clusters in one wave."""
     got = fls.recurrence_plan(hidden, rows, itemsize, 132)
-    assert got == plan
-    cs, hcp, rb = got
+    assert got == (*plan, 4 * hidden)  # every K-row of the slice resident
+    cs, hcp, rb = plan
     assert fls.scan_units(hidden, cs) <= hcp
     assert fls.scan_smem(hidden, hcp, rb, itemsize) <= fls.SCAN_MAX_SMEM
     assert -(-rows // rb) * cs <= 132
@@ -248,10 +248,12 @@ def test_recurrence_plan(hidden, itemsize, rows, plan):
 
 def test_recurrence_plan_past_one_wave_and_refusal():
     """Rows past one wave take the smallest cluster's largest tile; a width
-    whose Wh^T fits no cluster of 8 raises."""
-    assert fls.recurrence_plan(32, 5000, 4, 132) == (1, 32, 16)
+    whose Wh^T fits no cluster of 16 streams part of each slice for one
+    task (k_res < 4H) and raises for two."""
+    assert fls.recurrence_plan(32, 5000, 4, 132) == (1, 32, 16, 128)
+    assert fls.recurrence_plan(512, 512, 4, 132)[3] < 4 * 512
     with pytest.raises(ValueError, match="does not fit"):
-        fls.recurrence_plan(512, 512, 4, 132)
+        fls.recurrence_plan(512, 512, 4, 132, 2)
 
 
 @pytest.mark.parametrize("hidden,cs,hcp", [(128, 2, 64), (128, 1, 128), (12, 1, 32),

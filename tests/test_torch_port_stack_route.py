@@ -1,6 +1,7 @@
 """The LSTM stack's route under `lstm_kernel="auto"` where no cluster holds
 Wh, on the CPU (16-block clusters hold it up to float32 H 396 and bfloat16
-H 512; float32 H 448 has no plan).
+H 512; past that, float32 H 448, the recurrences' plans stream part of each
+slice from L2).
 
   * `fused_lstm_stack.stack_planned` (the cluster plans of the training
     stack's recurrences) by width and dtype, and the route `apply_lstm`
@@ -9,8 +10,9 @@ H 512; float32 H 448 has no plan).
     `lstm_stack_train.plain_routes`; so does the eval forward, merged (row
     2) or not (row 14), where its recurrence has no plan (`eval_planned`);
   * the forced routes `pallas_stack` and `pallas` reach their kernels'
-    entries at any width (on a card they raise there: the plans refuse,
-    tests/test_torch_port_cuda.py);
+    entries at any width, on streamed plans past the clusters that hold Wh
+    (on a card they launch them, tests/test_torch_port_cuda.py), while
+    `stack_planned` stays False there;
   * `train/maml.lockstep_route` with a micro-batch of V = 2 tasks follows
     the same rule (`_VBATCH`);
   * a train step of the hybrid at hidden width 448 under `auto` (JAX's
@@ -18,6 +20,10 @@ H 512; float32 H 448 has no plan).
     CPU route is its XLA scan: float64 at 1e-8, and the float32 config,
     which takes the plain route by the decision, at float32's tolerance;
     and at 320, where the float32 config takes the training stack's entry;
+    and the same step at 448 under the forced `pallas_stack` against JAX's
+    forced `pallas_stack` route, its Pallas kernels in the interpreter (as
+    JAX's tests run them on the CPU: `force_interpret`), float32 1e-5 and
+    bfloat16 5e-2;
   * second order's fused gradient (`make_grad_loss_fused`) by the same
     rule: the plain loss's gradient where no plan holds Wh, as the JAX
     package takes jax.grad of its XLA loss where its R-kernels do not fit.
@@ -39,6 +45,7 @@ from weatherforecast_stgcn_maml_tpu import config as jcfg
 from weatherforecast_stgcn_maml_tpu.graph import build_region_graph as jax_graph
 from weatherforecast_stgcn_maml_tpu.models.registry import apply_model as jax_apply_model
 from weatherforecast_stgcn_maml_tpu.models.registry import init_model as jax_init_model
+from weatherforecast_stgcn_maml_tpu.ops import fused_lstm_stack as jax_fls
 from weatherforecast_stgcn_maml_tpu_torch import config as tcfg
 from weatherforecast_stgcn_maml_tpu_torch.models import lstm as tlstm
 from weatherforecast_stgcn_maml_tpu_torch.models.common import draw_mask
@@ -113,14 +120,20 @@ def test_auto_takes_the_plain_stack_where_no_plan_holds_wh(monkeypatch, dtype, h
 
 
 def test_plans_refuse_float32_h320_and_forced_routes_reach_their_kernels(monkeypatch):
-    """At float32 hidden 448 (320 before 16-block clusters) both recurrence
-    plans refuse (a card raises there); `pallas_stack` still calls the
-    training stack's entry and `pallas` the per-layer route, counting no
-    plain route."""
-    for plan, what in ((fls.forward_plan, "forward recurrence holds Wh in at most 16 blocks"),
-                       (fls.recurrence_plan, r"backward recurrence holds Wh\^T")):
+    """At float32 hidden 448 (320 before 16-block clusters, which refused
+    there until streamed slices) both recurrence plans stream part of each
+    slice (k_res < K) and `stack_planned` stays False; `pallas_stack` calls
+    the training stack's entry and `pallas` the per-layer route, whose card
+    launches take those plans, counting no plain route. V = 2 tasks still
+    refuse."""
+    for plan, k_rows, what in (
+            (fls.forward_plan, 448, "forward recurrence holds Wh in at most 16 blocks"),
+            (fls.recurrence_plan, 4 * 448, r"backward recurrence holds Wh\^T")):
+        assert fls.streams(plan(448, 512, 4, fls.H100_SMS), k_rows)
+        assert plan(448, B, 4, fls.H100_SMS)[3] < k_rows
         with pytest.raises(ValueError, match=what):
-            plan(448, 512, 4, fls.H100_SMS)
+            plan(448, 512, 4, fls.H100_SMS, 2)
+    assert not fls.stack_planned(448, B, torch.float32, CPU)
     lstm = _stack(448)
     x = torch.randn((B, T, C), generator=torch.Generator().manual_seed(1))
     stack = _spy(monkeypatch, tlstm, "lstm_stack_train")
@@ -187,6 +200,17 @@ def test_auto_train_step_at_h320_matches_jax(dtype, tol):
     _train_step_matches_jax(dtype, tol, 448, planned=False)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 5e-2)])
+def test_forced_pallas_stack_train_step_at_h448_matches_jax(dtype, tol):
+    """The step at hidden 448 under the forced `pallas_stack` (the training
+    stack's entry: on a card its streamed plans, here its plain pieces),
+    counting no plain route, against JAX's forced `pallas_stack`, which
+    runs its fused stack's Pallas kernels past `stack_supported` (here in
+    the interpreter)."""
+    _train_step_matches_jax(dtype, dict(rtol=tol, atol=tol), 448, planned=True,
+                            kernel="pallas_stack")
+
+
 @pytest.mark.parametrize("hidden", [320, 384])
 def test_auto_train_step_at_16_block_widths_matches_jax(hidden):
     """The same step at float32 hidden 320 and 384, where 16-block clusters
@@ -196,8 +220,8 @@ def test_auto_train_step_at_16_block_widths_matches_jax(hidden):
     _train_step_matches_jax("float32", dict(rtol=1e-4, atol=1e-5), hidden, planned=True)
 
 
-def _train_step_matches_jax(dtype, tol, hidden, planned):
-    kw = dict(SMALL, compute_dtype=dtype, lstm_hidden=hidden)
+def _train_step_matches_jax(dtype, tol, hidden, planned, kernel="auto"):
+    kw = dict(SMALL, compute_dtype=dtype, lstm_hidden=hidden, lstm_kernel=kernel)
     mc = jcfg.ModelConfig(**kw)
     npdt = np.float64 if dtype == "float64" else np.float32
     a_hat = jax_graph(np.arange(10.0, 11.0 + 1e-9, 0.25),
@@ -215,12 +239,13 @@ def _train_step_matches_jax(dtype, tol, hidden, planned):
                                   train=True, rng=rng)
             return jnp.sum(out * ct), out
 
-        (_, ref), ref_g = jax.value_and_grad(loss, has_aux=True)(jp)
+        with jax_fls.force_interpret():  # the Pallas kernels on the CPU, as JAX's tests run them
+            (_, ref), ref_g = jax.value_and_grad(loss, has_aux=True)(jp)
         ref_sd = state_dict_from_params(jax.tree.map(np.asarray, ref_g), npdt)
         params_sd = state_dict_from_params(jax.tree.map(np.asarray, jp), npdt)
         masks = _jax_masks(mc, rng, 4, n)
 
-    tdt = getattr(torch, dtype)
+    tdt = torch.float64 if dtype == "float64" else torch.float32  # bfloat16: its matmul operands
     model = init_model(torch.Generator().manual_seed(0), tcfg.ModelConfig(**kw)).to(tdt)
     model.load_state_dict(params_sd)
     before = fls.lstm_stack_train.plain_routes

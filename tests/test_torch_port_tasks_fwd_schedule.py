@@ -122,9 +122,9 @@ def test_forward_plan_by_task_count(itemsize, rows, plan, plan2):
     """One task: row 4's plans (the default); two tasks: the row tile that
     puts both tasks' clusters on 132 SMs in one wave (128 blocks at 512
     rows), else the largest tile that fits."""
-    assert fls.forward_plan(128, rows, itemsize, 132) == plan
-    assert fls.forward_plan(128, rows, itemsize, 132, 1) == plan
-    assert fls.forward_plan(128, rows, itemsize, 132, 2) == plan2
+    assert fls.forward_plan(128, rows, itemsize, 132) == (*plan, 128)
+    assert fls.forward_plan(128, rows, itemsize, 132, 1) == (*plan, 128)
+    assert fls.forward_plan(128, rows, itemsize, 132, 2) == (*plan2, 128)
     cs, hcp, rb = plan2
     assert fls.scan_fwd_smem(128, hcp, rb, itemsize) <= fls.SCAN_MAX_SMEM
 

@@ -183,7 +183,7 @@ def test_recurrence_plan_with_tasks(hidden, itemsize, rows, tasks, plan):
     """The cluster plan for `tasks` x rows: one task keeps today's plans;
     more tasks take the row tile that puts all their clusters in one wave
     on 132 SMs, or the largest tile if none does."""
-    assert fls.recurrence_plan(hidden, rows, itemsize, 132, tasks) == plan
+    assert fls.recurrence_plan(hidden, rows, itemsize, 132, tasks) == (*plan, 4 * hidden)
     cs, hcp, rb = plan
     assert fls.scan_smem(hidden, hcp, rb, itemsize) <= fls.SCAN_MAX_SMEM
     if tasks < 4:

@@ -188,15 +188,19 @@ def apply_lstm(
     its backward); "pallas" runs the layerwise route with the per-layer
     recurrence kernel (`lstm_layerwise`); "xla" runs the plain layerwise
     route. Under float64 every route is plain. Only "auto" chooses: where
-    the card's schedule does not take the stack (in train mode
-    `fused_lstm_stack.stack_planned`, the training stack's recurrences and
-    widths: float32 H > 396, bfloat16 H > 512, widths not multiples of 8;
-    in eval mode `eval_planned`, the eval forward's recurrence and widths:
-    float32 H > 436, bfloat16 H > 512, widths not multiples of 8) it runs
-    the plain stack, counted in `lstm_stack_train.plain_routes`, as the JAX
-    package's `auto` runs its XLA scan where `stack_supported` fails.
-    "pallas_stack" and "pallas" run their kernels at any width and raise on
-    a card where they refuse it, as the JAX package's forced routes do.
+    the card's schedule does not hold the stack's Wh in a cluster (in train
+    mode `fused_lstm_stack.stack_planned`, the training stack's recurrences
+    and widths: float32 H > 396, bfloat16 H > 512, widths not multiples of
+    8; in eval mode `eval_planned`, the eval forward's recurrence and
+    widths: float32 H > 436, bfloat16 H > 512, widths not multiples of 8)
+    it runs the plain stack, counted in `lstm_stack_train.plain_routes`, as the JAX package's
+    `auto` runs its XLA scan where `stack_supported` fails.
+    "pallas_stack" and "pallas" run their kernels at any width, as the JAX
+    package's forced routes do: past the clusters that hold Wh their
+    recurrences stream the rest of each block's slice from L2 (streamed
+    plans, to H 2048); on a card they raise only on widths the kernels do
+    not take (not multiples of 8 for the stack, of 4 for "pallas"; past H
+    2048).
 
     In train mode `masks` (int8 {0, 1} [L-1, T, B, H], time-major, or None)
     drop each inter-layer output with scale 1 / (1 - dropout_rate).

@@ -24,14 +24,15 @@
 
 // The arguments of one backward recurrence, every field 8 bytes wide, so
 // the Python side packs them with one struct format (ops/fused_lstm_stack.py
-// `_SCAN_LAUNCH`): one ctypes argument in place of twenty-five.
+// `_SCAN_LAUNCH`): one ctypes argument in place of twenty-six.
 struct ScanLaunch {
   long long w_dt, cs, hcp, rb, tasks;
   long long g, sg, gates, sgates, c_all, sc, wts, sw, dgates, sdg;
   long long dh_all, dc_all, sdh, db, sdb, ldb;
   long long T, R, H, stream;
+  long long k_res;  // resident rows of a slice (lstm_scan_bwd.cuh); 4H or -1: all
 };
-static_assert(sizeof(ScanLaunch) == 25 * 8, "ScanLaunch is 25 packed 8-byte fields");
+static_assert(sizeof(ScanLaunch) == 26 * 8, "ScanLaunch is 26 packed 8-byte fields");
 
 // The backward recurrence of one layer of either LSTM stack, for `tasks`
 // tasks at once: the serial part of the merged stack's training backward
@@ -41,15 +42,17 @@ static_assert(sizeof(ScanLaunch) == 25 * 8, "ScanLaunch is 25 packed 8-byte fiel
 // 4H] float32 (row 4's or 16's stored ones for rows 5 and 17, recomputed
 // for row 15), its c_all [T, R, H] in the compute dtype w_dt (0 = float32,
 // 1 = bfloat16) and Wh^T's column slices wts [cs, 4H, hcp] in w_dt, by the
-// cluster plan (cs, hcp, rb) of lstm_scan_bwd.cuh (ops/fused_lstm_stack.py
-// `recurrence_plan`); also each step's dh and dc [T, R, H] float32 into
+// cluster plan (cs, hcp, rb, k_res) of lstm_scan_bwd.cuh (ops/fused_lstm_stack.py
+// `recurrence_plan`; a streamed plan takes the bias partials, one task);
+// also each step's dh and dc [T, R, H] float32 into
 // dh_all and dc_all unless they are null (both or neither), and the bias
 // gradient's partials, a row tile each, into db unless it is null. Task z's
 // arrays start z times their stride (s*, in elements) after task 0's; row
 // tile y's partial starts at db + z * sdb + y * ldb. Returns a cudaError_t
 // code.
 extern "C" int wf_lstm_stack_recurrence(const ScanLaunch* p) {
-  if (p->T > 0x7fffffff || p->R > 0x7fffffff || p->H > 0x7fffffff || p->tasks > 0x7fffffff)
+  if (p->T > 0x7fffffff || p->R > 0x7fffffff || p->H > 0x7fffffff || p->tasks > 0x7fffffff ||
+      p->k_res > 4 * p->H)
     return (int)cudaErrorInvalidValue;
   auto ptr = [](long long v) { return reinterpret_cast<const void*>(v); };
   wf::ScanBwd a{static_cast<const float*>(ptr(p->g)),
@@ -69,6 +72,7 @@ extern "C" int wf_lstm_stack_recurrence(const ScanLaunch* p) {
   a.db = reinterpret_cast<float*>(p->db);
   a.sdb = p->sdb;
   a.ldb = p->ldb;
+  a.k_res = (int)p->k_res;
   return wf::launch_scan_bwd_dt<true>((int)p->w_dt, (int)p->hcp, (int)p->rb, a,
                                       reinterpret_cast<cudaStream_t>(p->stream));
 }
@@ -87,4 +91,22 @@ extern "C" int wf_lstm_stack_recurrence_clusters(int w_dt, int cs, int hcp, int 
 // The dynamic shared memory a block of that recurrence takes.
 extern "C" long long wf_lstm_stack_recurrence_smem(int w_dt, int hcp, int rb, int H) {
   return (long long)wf::scan_bwd_smem(H, hcp, rb, w_dt == wf::kF32 ? 4 : 2);
+}
+
+// The same two questions of a streamed plan, k_res resident rows of a slice
+// (the bias partials' instance, as rows 5 and 15 launch it).
+extern "C" int wf_lstm_stack_recurrence_stream_clusters(int w_dt, int cs, int hcp, int rb, int H,
+                                                        int k_res) {
+  wf::ScanBwd a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, 1,       1,       H,       cs,      1};
+  a.db = reinterpret_cast<float*>(16);  // asked, not launched
+  a.k_res = k_res;
+  int n = 0;
+  const int err = wf::launch_scan_bwd_dt<true>(w_dt, hcp, rb, a, nullptr, &n);
+  return err ? -err : n;
+}
+
+extern "C" long long wf_lstm_stack_recurrence_stream_smem(int w_dt, int hcp, int rb, int H,
+                                                          int k_res) {
+  return (long long)wf::scan_bwd_stream_smem(H, hcp, rb, w_dt == wf::kF32 ? 4 : 2, k_res);
 }

@@ -111,16 +111,17 @@ int launch_round_pad(const RoundPadArgs& args, int count, cudaStream_t s) {
 // Row 19's recurrence alone: dgates [T, R, 4H] float32 from the gradient g of
 // h_all, the forward's gates and c_all (float32), and Wh^T's column slices
 // wts [cs, 4H, hcp] in the compute dtype w_dt, by the cluster plan (cs, hcp,
-// rb) of lstm_scan_bwd.cuh (ops/fused_lstm_stack.py `recurrence_plan`).
+// rb, k_res) of lstm_scan_bwd.cuh (ops/fused_lstm_stack.py `recurrence_plan`).
 // Returns a cudaError_t code.
-extern "C" int wf_lstm_scan_bwd(int w_dt, int cs, int hcp, int rb, const float* g,
+extern "C" int wf_lstm_scan_bwd(int w_dt, int cs, int hcp, int rb, int k_res, const float* g,
                                 const float* gates, const float* c_all, const void* wts,
                                 float* dgates, int T, int R, int H, void* stream) {
-  const wf::ScanBwd a{g, gates, c_all, wts, dgates, nullptr, nullptr, T, R, H, cs, 1};
+  wf::ScanBwd a{g, gates, c_all, wts, dgates, nullptr, nullptr, T, R, H, cs, 1};
+  a.k_res = k_res;
   return wf::launch_scan_bwd_dt<false>(w_dt, hcp, rb, a, static_cast<cudaStream_t>(stream));
 }
 
-// The arguments of row 19's whole backward, 21 packed 8-byte fields
+// The arguments of row 19's whole backward, 22 packed 8-byte fields
 // (ops/lstm_scan.py `_SCAN_BWD`).
 struct ScanBackwardLaunch {
   long long w_dt, cs, hcp, rb;
@@ -133,12 +134,13 @@ struct ScanBackwardLaunch {
   long long wts, h_round, dg_round, part;
   long long dgates, dwh;  // float32 outputs [T, R, 4H] and [H, 4H]
   long long T, R, H, hp, split_rows, stream;
+  long long k_res;  // the recurrence's resident rows of a slice; 4H or -1: all
 };
-static_assert(sizeof(ScanBackwardLaunch) == 21 * 8,
-              "ScanBackwardLaunch is 21 packed 8-byte fields");
+static_assert(sizeof(ScanBackwardLaunch) == 22 * 8,
+              "ScanBackwardLaunch is 22 packed 8-byte fields");
 
 // Row 19: dgates and dWh (above) in five launches or fewer on `stream`, in
-// order: the weight layout, the recurrence of the plan (cs, hcp, rb), the
+// order: the weight layout, the recurrence of the plan (cs, hcp, rb, k_res), the
 // rounding and padding (where needed), dWh's TN partials with split_rows
 // rows a split (S = ceil(T R / split_rows)), their sum. hp is H rounded up to
 // a multiple of 8. Every array is 16-byte aligned. Returns 0, a cudaError_t
@@ -153,14 +155,16 @@ extern "C" int wf_lstm_scan_backward(const ScanBackwardLaunch* p) {
       (p->w_dt != kF32 && !bf16) || hp < H || hp % 8 || hp - H >= 8 ||
       (p->hcp != 32 && p->hcp != 64 && p->hcp != 128) ||
       !cluster_size_ok((int)p->cs) ||
-      scan_units((int)H, (int)p->cs) > p->hcp || p->split_rows <= 0 ||
+      scan_units((int)H, (int)p->cs) > p->hcp || p->split_rows <= 0 || p->k_res > g4 ||
       round_h != (p->h_round != 0) || bf16 != (p->dg_round != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(p->stream);
   auto fptr = [](long long v) { return reinterpret_cast<const float*>(v); };
   // Slice b: Wh's rows [b * hc, b * hc + hc) transposed, zero past them to
   // hcp columns (a block that owns no unit reads its slice for nothing);
-  // one launch a group of up to 8 slices (wf_transpose_round's limit).
+  // one launch a group of up to 8 slices (wf_transpose_round's limit). A
+  // streamed plan's slices are laid out alike: its blocks read their first
+  // k_res rows once and the rest at every step.
   const int hc = scan_units((int)H, (int)p->cs), hcp = (int)p->hcp;
   const void* src[kWideCluster];
   void* dst[kWideCluster];
@@ -180,18 +184,19 @@ extern "C" int wf_lstm_scan_backward(const ScanBackwardLaunch* p) {
                                        ld + b, trans + b, drows + b, s);
     if (err) return err;
   }
-  const ScanBwd a{fptr(p->g),
-                  fptr(p->gates),
-                  fptr(p->c_all),
-                  reinterpret_cast<const void*>(p->wts),
-                  reinterpret_cast<float*>(p->dgates),
-                  nullptr,
-                  nullptr,
-                  (int)T,
-                  (int)R,
-                  (int)H,
-                  (int)p->cs,
-                  1};
+  ScanBwd a{fptr(p->g),
+            fptr(p->gates),
+            fptr(p->c_all),
+            reinterpret_cast<const void*>(p->wts),
+            reinterpret_cast<float*>(p->dgates),
+            nullptr,
+            nullptr,
+            (int)T,
+            (int)R,
+            (int)H,
+            (int)p->cs,
+            1};
+  a.k_res = (int)p->k_res;
   int err = launch_scan_bwd_dt<false>((int)p->w_dt, (int)p->hcp, (int)p->rb, a, s);
   if (err) return err;
   RoundPadArgs rp{};

@@ -59,6 +59,23 @@
 // float32 dgates over the steps in registers, and after the last step the
 // block adds its rows' sums in row order into one partial a row tile
 // (ops/gemm.py `sum_splits` adds the tiles in order: no atomics).
+//
+// Streamed slices (the STREAM variant): where no cluster of 1-16 blocks holds
+// Wh^T (float32 H > 396, bfloat16 H > 512), a block keeps the first k_res
+// K-rows of its slice [4H, hcp] in shared memory, copied once a launch as
+// above, and reads the other 4H - k_res rows from global memory at every
+// step, where they stay L2-resident across the steps and the clusters: in
+// chunks of kStreamChunk bytes, by bulk copies (cp.async.bulk, the TMA's
+// one-dimensional form) into kStreamStages stage buffers behind an mbarrier
+// each, so that that many chunks are in flight. A chunk costs the block a
+// wait and a barrier, and its loop is short: large chunks amortise both. The first chunks of a step are issued while
+// the step before contracts its last ones, so they land during the gate
+// math, the cluster barrier and the contraction of the resident rows; each
+// chunk consumed frees its buffer for the chunk kStreamStages after it. Each warp takes its eighth of the resident rows
+// and of every chunk; the warps' partial sums are added in warp order as
+// above, and the arithmetic (round(dgates) @ round(Wh)^T, float32
+// accumulation) is the resident kernel's. The resident kernel (k_res = 4H) is
+// the variant STREAM = false, its code unchanged.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -91,12 +108,22 @@ struct ScanBwd {
   float* db;  // [z * sdb + tile * ldb + n] (n < 4H): the column sums of
               // dgates over every step and the tile's rows, or null
   long long sdb, ldb;
+  int k_res = -1;  // K-rows of each block's slice kept in shared memory, a
+                   // multiple of 16 bytes' k values; the rest are streamed.
+                   // Negative or 4H: all of them (the resident kernel)
 };
 
 constexpr int kScanThreads = 256;
 constexpr int kScanWarps = kScanThreads / 32;
 constexpr size_t kScanMaxSmem = 232448;  // 227 KB opt-in per block
 constexpr unsigned kBulkChunk = 32768;   // bytes a bulk copy of the weight slice
+constexpr int kStreamChunk = 32768;      // bytes a chunk of a streamed slice's rows
+constexpr int kStreamStages = 2;         // chunks in flight (stage buffers)
+constexpr int kStreamHeader = 64;        // the streamed variants' mbarriers: 1 + stages
+
+// Rows of one streamed chunk whose rows take row_bytes each (a multiple of
+// 16 bytes' k values at every weight-column count and dtype the plans use).
+__host__ __device__ constexpr int stream_rows(int row_bytes) { return kStreamChunk / row_bytes; }
 
 // The hidden units each block of a cs-block cluster owns: a multiple of 4.
 __host__ __device__ inline int scan_units(int H, int cs) {
@@ -109,6 +136,15 @@ __host__ __device__ inline int scan_units(int H, int cs) {
 inline size_t scan_bwd_smem(int H, int hcp, int rb, size_t tw) {
   return 16 + 4 * (size_t)H * hcp * tw + 2 * (size_t)rb * 4 * H * tw +
          (size_t)kScanWarps * rb * hcp * sizeof(float);
+}
+
+// The streamed variant's: its mbarriers (kStreamHeader bytes), the resident
+// rows [k_res, hcp] and kStreamStages stage buffers of a chunk's rows, the
+// tiles and partials as above.
+inline size_t scan_bwd_stream_smem(int H, int hcp, int rb, size_t tw, int k_res) {
+  const size_t row = (size_t)hcp * tw;
+  return kStreamHeader + ((size_t)k_res + kStreamStages * (size_t)stream_rows((int)row)) * row +
+         2 * (size_t)rb * 4 * H * tw + (size_t)kScanWarps * rb * hcp * sizeof(float);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -282,6 +318,67 @@ __device__ __forceinline__ void scan_copy_slice(uint64_t* bar, TW* w_s, const vo
   }
 }
 
+// Thread 0: `bytes` from src into shared memory at dst, completing on the
+// mbarrier `bar` (its arrival and the transaction count in one), by bulk
+// copies of at most kBulkChunk bytes.
+__device__ __forceinline__ void bulk_load(uint64_t* bar, void* dst, const void* src,
+                                          unsigned bytes) {
+  const uint32_t b = smem_u32(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+               : "memory");
+  for (unsigned off = 0; off < bytes; off += kBulkChunk) {
+    const unsigned n = bytes - off < kBulkChunk ? bytes - off : kBulkChunk;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_u32(dst) + off),
+        "l"(static_cast<const char*>(src) + off), "r"(n), "r"(b)
+        : "memory");
+  }
+}
+
+// A block's streamed slice: rows [0, k_res) of its K rows resident, the rest
+// read a chunk of KC rows at a time into kStreamStages stage buffers. Chunk g
+// (counted over every step: g = (step - 1) * nc + c for the c-th of the
+// step's nc chunks) lands in buffer g % S on mbarrier full[g % S], its
+// (g / S)-th completion (S = kStreamStages).
+template <typename TW, int ROW, int KC>
+struct SliceStream {
+  static constexpr int S = kStreamStages;
+  uint64_t* full;     // [S] mbarriers
+  TW* stage;          // [S, KC, ROW]
+  const TW* slice;    // this block's slice [K, ROW] in global memory
+  int k_res, K, nc, total;
+
+  // Thread 0: chunk g into its buffer (none past the last step's).
+  __device__ __forceinline__ void issue(int g) const {
+    if (g >= total) return;
+    const int k0 = k_res + (g % nc) * KC, kn = min(KC, K - k0);
+    // The buffer's last reads (generic proxy) before the copy's writes (async proxy).
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bulk_load(full + g % S, stage + (size_t)(g % S) * KC * ROW, slice + (size_t)k0 * ROW,
+              (unsigned)((size_t)kn * ROW * sizeof(TW)));
+  }
+  // Thread 0 at the launch, before any thread waits on them: the mbarriers
+  // (resident copy `res`, then the S stage buffers'), the resident rows into
+  // w_s and the first S chunks.
+  __device__ __forceinline__ void start(uint64_t* res, TW* w_s) const {
+    for (int i = 0; i <= S; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(res + i))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bulk_load(res, w_s, slice, (unsigned)((size_t)k_res * ROW * sizeof(TW)));
+    for (int g = 0; g < S; ++g) issue(g);
+  }
+  // Every thread: wait for chunk g; -> its buffer and its rows [k0, k0 + kn).
+  __device__ __forceinline__ const TW* wait(int g, int& k0, int& kn) const {
+    mbar_wait(smem_u32(full + g % S), (uint32_t)((g / S) & 1));
+    k0 = k_res + (g % nc) * KC;
+    kn = min(KC, K - k0);
+    return stage + (size_t)(g % S) * KC * ROW;
+  }
+};
+
 // The carry of this block's units: the tile [RB, 4H] (compute dtype) x its
 // weight slice [4H, HCP], warp w over its eighth of K; lane: units lane*UPT
 // .. +UPT-1 of every row (one broadcast 16-byte load of a tile row per 16
@@ -314,6 +411,61 @@ __device__ __forceinline__ void scan_contract(const TW* tile, const TW* w_s, flo
 #pragma unroll
         for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], w[u][p], acc[r][p]);
     }
+  }
+  float* pw = part + (size_t)warp * RB * HCP + lane * UPT;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
+}
+
+// scan_contract's inner loop over the K-rows [k0, k0 + kn) of the tile, the
+// weight row k at w + (k - k0) * HCP, warp w over its eighth of them, into
+// the lane's sums acc.
+template <typename TW, int UPT, int RB>
+__device__ __forceinline__ void scan_accum(const TW* tile, const TW* w, int k0, int kn, int g4,
+                                           int warp, int lane, float (&acc)[RB][UPT]) {
+  constexpr int HCP = 32 * UPT;
+  constexpr int VK = 16 / sizeof(TW);
+  const int nch = kn / VK;
+  const int c_hi = (warp + 1) * nch / kScanWarps;
+  const TW* wl = w + lane * UPT;
+  for (int c = warp * nch / kScanWarps; c < c_hi; ++c) {
+    const int k = c * VK;
+    float wv[VK][UPT];
+#pragma unroll
+    for (int u = 0; u < VK; ++u) load_units<UPT>(wl + (size_t)(k + u) * HCP, wv[u]);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      float av[VK];
+      load_k(tile + (size_t)r * g4 + k0 + k, av);
+#pragma unroll
+      for (int u = 0; u < VK; ++u)
+#pragma unroll
+        for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], wv[u][p], acc[r][p]);
+    }
+  }
+}
+
+// scan_contract on a streamed slice: the resident rows, then the step's nc
+// chunks from chunk g on (g advances past them); after each chunk the block
+// syncs and thread 0 issues the chunk kStreamStages on into the freed buffer.
+template <typename TW, int UPT, int RB, int KC>
+__device__ __forceinline__ void scan_contract_stream(const TW* tile, const TW* w_s,
+                                                     const SliceStream<TW, 32 * UPT, KC>& st,
+                                                     int& g, float* part, int g4, int warp,
+                                                     int lane) {
+  constexpr int HCP = 32 * UPT;
+  float acc[RB][UPT];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int p = 0; p < UPT; ++p) acc[r][p] = 0.f;
+  scan_accum<TW, UPT, RB>(tile, w_s, 0, st.k_res, g4, warp, lane, acc);
+  for (int c = 0; c < st.nc; ++c, ++g) {
+    int k0, kn;
+    const TW* w = st.wait(g, k0, kn);
+    scan_accum<TW, UPT, RB>(tile, w, k0, kn, g4, warp, lane, acc);
+    __syncthreads();  // every warp done with the buffer
+    if (threadIdx.x == 0) st.issue(g + kStreamStages);
   }
   float* pw = part + (size_t)warp * RB * HCP + lane * UPT;
 #pragma unroll
@@ -367,8 +519,9 @@ __device__ __forceinline__ void scan_db_partial(float* part, const int (&pr)[EPT
 // Grid (cs, row tiles, tasks); clusters of cs blocks along x: block rank b
 // owns units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp. DB:
 // the bias gradient's partials into a.db (a compile-time variant: its 16
-// sums a thread would cost the others registers).
-template <typename TW, typename TC, int UPT, int RB, bool DB>
+// sums a thread would cost the others registers). STREAM: the first a.k_res
+// rows of the slice resident, the rest streamed (`SliceStream`).
+template <typename TW, typename TC, int UPT, int RB, bool DB, bool STREAM>
 __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const ScanBwd tasks) {
   extern __shared__ __align__(128) unsigned char smem[];
   ScanBwd a = tasks;  // this block's task
@@ -396,13 +549,32 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
   const int row0 = blockIdx.y * RB;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  TW* w_s = reinterpret_cast<TW*>(smem + 16);           // [4H, HCP]
-  TW* dg_s = w_s + (size_t)g4 * HCP;                     // [2, RB, 4H]
+  constexpr int KC = stream_rows(HCP * sizeof(TW));  // STREAM: rows a chunk
+  const int k_res = STREAM ? a.k_res : g4;             // resident rows of the slice
+  TW* w_s = reinterpret_cast<TW*>(smem + (STREAM ? kStreamHeader : 16));  // [k_res, HCP]
+  // STREAM: the stage buffers [kStreamStages, KC, HCP] after the resident rows.
+  TW* dg_s = w_s + (size_t)k_res * HCP + (STREAM ? kStreamStages * KC * HCP : 0);  // [2, RB, 4H]
   float* part = reinterpret_cast<float*>(dg_s + (size_t)2 * RB * g4);  // [8, RB, HCP]
+  SliceStream<TW, HCP, KC> st{};
+  int chunk = 0;  // STREAM: the next chunk a contraction reads
+  if constexpr (STREAM) {
+    st.full = bar + 1;
+    st.stage = w_s + (size_t)k_res * HCP;
+    st.slice = static_cast<const TW*>(a.wts) + (size_t)rank * g4 * HCP;
+    st.k_res = k_res;
+    st.K = g4;
+    st.nc = (g4 - k_res + KC - 1) / KC;
+    st.total = (T - 1) * st.nc;
+  }
 
-  // The weight slice, copied while the first step's gate math runs.
-  if (T > 1 && tid == 0)
-    scan_copy_slice(bar, w_s, a.wts, rank, (unsigned)((size_t)g4 * HCP * sizeof(TW)));
+  // The weight slice (STREAM: its resident rows and first chunks),
+  // copied while the first step's gate math runs.
+  if (T > 1 && tid == 0) {
+    if constexpr (STREAM)
+      st.start(bar, w_s);
+    else
+      scan_copy_slice(bar, w_s, a.wts, rank, (unsigned)((size_t)g4 * HCP * sizeof(TW)));
+  }
 
   // Thread tid owns (row r, units j .. j+3) for e < EPT: pair tid + e * 256.
   int pr[EPT], pj[EPT];
@@ -489,7 +661,10 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_bwd_kernel(const Sc
     if (t == T - 1) mbar_wait(smem_u32(bar), 0);  // the weight slice has landed
 
     // dh_carry of this block's units: [RB, 4H] x [4H, hc].
-    scan_contract<TW, UPT, RB>(dgb, w_s, part, g4, warp, lane);
+    if constexpr (STREAM)
+      scan_contract_stream<TW, UPT, RB, KC>(dgb, w_s, st, chunk, part, g4, warp, lane);
+    else
+      scan_contract<TW, UPT, RB>(dgb, w_s, part, g4, warp, lane);
     __syncthreads();  // the partial sums visible to the threads that own the units
   }
 
@@ -545,41 +720,53 @@ int launch_cluster(void (*kernel)(Args), const Args& a, bool (&opted)[64], int c
 
 // Launch one kernel instance, or (max_clusters not null) ask how many of
 // its clusters fit on the card at once.
-template <typename TW, typename TC, int UPT, int RB, bool DB>
+template <typename TW, typename TC, int UPT, int RB, bool DB, bool STREAM>
 int scan_bwd_run(const ScanBwd& a, cudaStream_t stream, int* max_clusters) {
   static bool opted[64] = {};
-  return launch_cluster(lstm_scan_bwd_kernel<TW, TC, UPT, RB, DB>, a, opted, a.cs,
+  const int hcp = 32 * UPT;
+  return launch_cluster(lstm_scan_bwd_kernel<TW, TC, UPT, RB, DB, STREAM>, a, opted, a.cs,
                         (unsigned)((a.R + RB - 1) / RB), (unsigned)a.tasks,
-                        scan_bwd_smem(a.H, 32 * UPT, RB, sizeof(TW)), stream, max_clusters);
+                        STREAM ? scan_bwd_stream_smem(a.H, hcp, RB, sizeof(TW), a.k_res)
+                               : scan_bwd_smem(a.H, hcp, RB, sizeof(TW)),
+                        stream, max_clusters);
 }
 
-template <typename TW, typename TC, int UPT, bool DB>
+// The streamed variant is built at every row tile (2 for the widest H) but
+// 16 rows at 4 bfloat16 units a lane (its registers would spill).
+constexpr unsigned kStreamTilesBwd = 2u | 4u | 8u | 16u;
+
+template <typename TW, typename TC, int UPT, bool DB, bool STREAM>
 int scan_bwd_rb(int rb, const ScanBwd& a, cudaStream_t s, int* max_clusters) {
   switch (rb) {
     case 2:
-      return scan_bwd_run<TW, TC, UPT, 2, DB>(a, s, max_clusters);
+      return scan_bwd_run<TW, TC, UPT, 2, DB, STREAM>(a, s, max_clusters);
     case 4:
-      return scan_bwd_run<TW, TC, UPT, 4, DB>(a, s, max_clusters);
+      return scan_bwd_run<TW, TC, UPT, 4, DB, STREAM>(a, s, max_clusters);
     case 8:
-      return scan_bwd_run<TW, TC, UPT, 8, DB>(a, s, max_clusters);
+      return scan_bwd_run<TW, TC, UPT, 8, DB, STREAM>(a, s, max_clusters);
     case 16:
-      return scan_bwd_run<TW, TC, UPT, 16, DB>(a, s, max_clusters);
+      if constexpr (!STREAM || !(sizeof(TW) == 2 && UPT == 4))
+        return scan_bwd_run<TW, TC, UPT, 16, DB, STREAM>(a, s, max_clusters);
+      break;
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TW, typename TC, bool DB>
+template <typename TW, typename TC, bool DB, bool STREAM = false>
 int scan_bwd_hcp(int hcp, int rb, const ScanBwd& a, cudaStream_t s, int* max_clusters) {
   switch (hcp) {
     case 32:
-      return scan_bwd_rb<TW, TC, 1, DB>(rb, a, s, max_clusters);
+      return scan_bwd_rb<TW, TC, 1, DB, STREAM>(rb, a, s, max_clusters);
     case 64:
-      return scan_bwd_rb<TW, TC, 2, DB>(rb, a, s, max_clusters);
+      return scan_bwd_rb<TW, TC, 2, DB, STREAM>(rb, a, s, max_clusters);
     case 128:
-      return scan_bwd_rb<TW, TC, 4, DB>(rb, a, s, max_clusters);
+      return scan_bwd_rb<TW, TC, 4, DB, STREAM>(rb, a, s, max_clusters);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// Whether a backward plan streams its slices: k_res in [0, 4H).
+__host__ __device__ inline bool scan_streams(int k_res, int H) { return k_res >= 0 && k_res < 4 * H; }
 
 inline bool aligned_to(const void* p, uintptr_t n) {
   return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
@@ -589,9 +776,13 @@ inline bool aligned_to(const void* p, uintptr_t n) {
 // the occupancy of its clusters): w_dt (0 = float32, 1 = bfloat16) is the
 // compute dtype, the weight slices'; c_all is float32 or, with
 // C_IN_COMPUTE, in the compute dtype. The plan (a.cs blocks a cluster, hcp
-// weight columns a block, rb rows a cluster) is the caller's: cs 1, 2, 4,
-// 8 or 16, hcp 32, 64 or 128 and at least scan_units(H, cs), rb 2, 4, 8 or 16,
-// within 227 KB of shared memory; 1 to 65535 tasks. H is a multiple of 4;
+// weight columns a block, rb rows a cluster, a.k_res resident rows of a
+// slice) is the caller's: cs 1, 2, 4, 8 or 16, hcp 32, 64 or 128 and at
+// least scan_units(H, cs), rb 2, 4, 8 or 16, within 227 KB of shared
+// memory; 1 to 65535 tasks. A streamed plan (k_res in [0, 4H): a multiple of
+// 16 bytes' k values) takes, with C_IN_COMPUTE, the bias
+// gradient's partials (the stack entry's instances), without, none (row
+// 19's). H is a multiple of 4;
 // every array is 16-byte aligned (c_all in bfloat16: 8-byte), and so is
 // every task's slice of it. Returns a cudaError_t code:
 // a plan or an argument it does not take is cudaErrorInvalidValue or
@@ -601,12 +792,17 @@ template <bool C_IN_COMPUTE>
 int launch_scan_bwd_dt(int w_dt, int hcp, int rb, const ScanBwd& a, cudaStream_t s,
                        int* max_clusters = nullptr) {
   const bool bf16 = w_dt == kBF16;
+  const size_t tw = bf16 ? 2 : 4;
+  const bool stream = scan_streams(a.k_res, a.H);
   if ((w_dt != kF32 && !bf16) || (hcp != 32 && hcp != 64 && hcp != 128) ||
       (rb != 2 && rb != 4 && rb != 8 && rb != 16) ||
       !cluster_size_ok(a.cs) || a.T <= 0 || a.R <= 0 || a.H <= 0 ||
       a.H % 4 || scan_units(a.H, a.cs) > hcp || (a.R + rb - 1) / rb > 65535 ||
-      a.tasks <= 0 || a.tasks > 65535 ||
-      !a.dh_all != !a.dc_all || scan_bwd_smem(a.H, hcp, rb, bf16 ? 2 : 4) > kScanMaxSmem)
+      a.tasks <= 0 || a.tasks > 65535 || !a.dh_all != !a.dc_all ||
+      (stream ? scan_bwd_stream_smem(a.H, hcp, rb, tw, a.k_res)
+              : scan_bwd_smem(a.H, hcp, rb, tw)) > kScanMaxSmem ||
+      (stream && (!(kStreamTilesBwd & (unsigned)rb) || a.k_res % (16 / (int)tw) ||
+                  (C_IN_COMPUTE && !a.db))))
     return (int)cudaErrorInvalidValue;
   const int tc = C_IN_COMPUTE && bf16 ? 2 : 4;  // c_all's bytes an element
   if (!aligned_to(a.g, 16) || !aligned_to(a.gates, 16) || !aligned_to(a.dgates, 16) ||
@@ -615,14 +811,20 @@ int launch_scan_bwd_dt(int w_dt, int hcp, int rb, const ScanBwd& a, cudaStream_t
       a.sg % 4 || a.sgates % 4 || a.sdg % 4 || a.sdh % 4 || a.sc % 4 || a.sw % (bf16 ? 8 : 4))
     return (int)cudaErrorMisalignedAddress;
   using CB = typename std::conditional<C_IN_COMPUTE, __nv_bfloat16, float>::type;
-  // The bias-gradient variants exist for the stack entry alone (row 17).
+  // The bias-gradient variants exist for the stack entry alone (rows 5, 15, 17).
+  if constexpr (!C_IN_COMPUTE) {
+    if (a.db) return (int)cudaErrorInvalidValue;
+  }
+  if (stream) {  // rows 5 and 15 (with the bias partials) or row 19 (without)
+    if (bf16) return scan_bwd_hcp<__nv_bfloat16, CB, C_IN_COMPUTE, true>(hcp, rb, a, s,
+                                                                          max_clusters);
+    return scan_bwd_hcp<float, float, C_IN_COMPUTE, true>(hcp, rb, a, s, max_clusters);
+  }
   if constexpr (C_IN_COMPUTE) {
     if (a.db) {
       if (bf16) return scan_bwd_hcp<__nv_bfloat16, CB, true>(hcp, rb, a, s, max_clusters);
       return scan_bwd_hcp<float, float, true>(hcp, rb, a, s, max_clusters);
     }
-  } else if (a.db) {
-    return (int)cudaErrorInvalidValue;
   }
   if (bf16) return scan_bwd_hcp<__nv_bfloat16, CB, false>(hcp, rb, a, s, max_clusters);
   return scan_bwd_hcp<float, float, false>(hcp, rb, a, s, max_clusters);

@@ -59,6 +59,18 @@
 // slice copy, the contraction, the partials' sum and the tile exchange are
 // helpers (scan_fwd_*) that the tangent forward recurrence of row 10
 // (lstm_scan_fwd_tan.cu) shares.
+//
+// Streamed slices (the STREAM variant, lstm_scan_bwd.cuh's design): where
+// no cluster of 1-16 blocks holds Wh (float32 H > 436, bfloat16 H > 512), or
+// where the eval forward's plan prefers it (ops/fused_lstm_stack.py
+// `eval_plan`), Wh comes laid out as the blocks' slices [cs, H, 4, hcp]
+// (`forward_weights`); a block copies the first k_res K-rows of its slice
+// once a launch by bulk copies behind an mbarrier, and reads the other H -
+// k_res rows at every step in chunks of kStreamChunk bytes through
+// kStreamStages stage buffers (`SliceStream`), each warp its gate over its half of the
+// resident rows and of every chunk, the two halves added in order as above.
+// The resident kernel (k_res = H) is the variant STREAM = false, its code
+// unchanged.
 #pragma once
 
 #include "lstm_scan_bwd.cuh"
@@ -84,6 +96,10 @@ struct ScanFwd {
   int tasks = 1;  // the grid's z axis: task z reads and writes each array at z
                   // times its task stride below (in elements of its own type)
   long long sxp, sgates, sw, sbias, sres, smask, snext, slast;  // sres: h_all's, c_all's
+  int k_res = -1;  // K-rows of each block's slice kept in shared memory, a
+                   // multiple of 16 bytes' k values; the rest are streamed, and
+                   // wh is the slices [cs, H, 4, hcp]. Negative or H: all of
+                   // them, wh is Wh [H, 4H] (the resident kernel)
 };
 
 // Dynamic shared memory a block takes: its weight slice [H, 4, hcp] and two
@@ -92,6 +108,15 @@ struct ScanFwd {
 inline size_t scan_fwd_smem(int H, int hcp, int rb, size_t tw) {
   return 4 * (size_t)H * hcp * tw + 2 * (size_t)rb * H * tw +
          8 * (size_t)rb * hcp * sizeof(float);
+}
+
+// The streamed variant's: its mbarriers (kStreamHeader bytes), the resident
+// rows [k_res, 4, hcp] and kStreamStages stage buffers of a chunk's rows, the
+// tiles and partials as above.
+inline size_t scan_fwd_stream_smem(int H, int hcp, int rb, size_t tw, int k_res) {
+  const size_t row = 4 * (size_t)hcp * tw;
+  return kStreamHeader + ((size_t)k_res + kStreamStages * (size_t)stream_rows((int)row)) * row +
+         2 * (size_t)rb * H * tw + 8 * (size_t)rb * hcp * sizeof(float);
 }
 
 // Four elements (16 bytes in float32, 8 in bfloat16) into shared memory,
@@ -160,6 +185,63 @@ __device__ __forceinline__ void scan_fwd_contract(const TW* hb, const TW* w_s, f
   for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
 }
 
+// scan_fwd_contract's inner loop over the K-rows [k0, k0 + kn), the weight
+// row k at w + (k - k0) * 4 * HCP, warp w's gate over its half of them, into
+// the lane's sums acc.
+template <typename TW, int UPT, int RB>
+__device__ __forceinline__ void scan_fwd_accum(const TW* hb, const TW* w, int k0, int kn, int H,
+                                               int warp, int lane, float (&acc)[RB][UPT]) {
+  constexpr int HCP = 32 * UPT;
+  constexpr int VK = 16 / sizeof(TW);
+  const int q = warp & 3, kh = warp >> 2;
+  const int nch = kn / VK;
+  const int c_hi = (kh + 1) * nch / 2;
+  const TW* wl = w + (size_t)q * HCP + lane * UPT;
+  for (int c = kh * nch / 2; c < c_hi; ++c) {
+    const int k = c * VK;
+    float wv[VK][UPT];
+#pragma unroll
+    for (int u = 0; u < VK; ++u) load_units<UPT>(wl + (size_t)(k + u) * 4 * HCP, wv[u]);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      float av[VK];
+      load_k(hb + (size_t)r * H + k0 + k, av);
+#pragma unroll
+      for (int u = 0; u < VK; ++u)
+#pragma unroll
+        for (int p = 0; p < UPT; ++p) acc[r][p] = fmaf(av[u], wv[u][p], acc[r][p]);
+    }
+  }
+}
+
+// scan_fwd_contract on a streamed slice: the resident rows, then the step's
+// nc chunks from chunk g on (g advances past them); after each chunk the
+// block syncs and thread 0 issues the chunk kStreamStages on into the freed
+// buffer.
+template <typename TW, int UPT, int RB, int KC>
+__device__ __forceinline__ void scan_fwd_contract_stream(
+    const TW* hb, const TW* w_s, const SliceStream<TW, 4 * 32 * UPT, KC>& st, int& g,
+    float* part, int H, int warp, int lane) {
+  constexpr int HCP = 32 * UPT;
+  const int q = warp & 3, kh = warp >> 2;
+  float acc[RB][UPT];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int p = 0; p < UPT; ++p) acc[r][p] = 0.f;
+  scan_fwd_accum<TW, UPT, RB>(hb, w_s, 0, st.k_res, H, warp, lane, acc);
+  for (int c = 0; c < st.nc; ++c, ++g) {
+    int k0, kn;
+    const TW* w = st.wait(g, k0, kn);
+    scan_fwd_accum<TW, UPT, RB>(hb, w, k0, kn, H, warp, lane, acc);
+    __syncthreads();  // every warp done with the buffer
+    if (threadIdx.x == 0) st.issue(g + kStreamStages);
+  }
+  float* pw = part + (size_t)(kh * 4 + q) * RB * HCP + lane * UPT;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) store_units<UPT>(pw + (size_t)r * HCP, acc[r]);
+}
+
 // Gate q's product of row r, units u .. u+3 (u from the block's first
 // unit): the two K halves added in order.
 template <int RB, int HCP>
@@ -201,7 +283,8 @@ __device__ __forceinline__ void cell_fwd(float pi, float pf, float pg, float po,
 
 // Grid (cs, row tiles, tasks); clusters of cs blocks along x: block rank b
 // owns units [b*hc, b*hc + hc) of the cluster's RB rows. 32 * UPT = hcp.
-template <typename TW, int UPT, int RB>
+// STREAM: the first a.k_res rows of the slice resident, the rest streamed.
+template <typename TW, int UPT, int RB, bool STREAM>
 __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const ScanFwd tasks) {
   extern __shared__ __align__(128) unsigned char smem[];
   ScanFwd a = tasks;  // this block's task: each array z task strides on
@@ -229,11 +312,28 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
   const int nq = nu / 4;
   const int row0 = blockIdx.y * RB;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  TW* w_s = reinterpret_cast<TW*>(smem);                    // [H, 4, HCP]
-  TW* h_s = w_s + (size_t)H * 4 * HCP;                      // [2, RB, H]
+  constexpr int KC = stream_rows(4 * HCP * sizeof(TW));  // STREAM: rows a chunk
+  const int k_res = STREAM ? a.k_res : H;                  // resident rows of the slice
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);       // STREAM: 1 + stages mbarriers
+  TW* w_s = reinterpret_cast<TW*>(smem + (STREAM ? kStreamHeader : 0));  // [k_res, 4, HCP]
+  // STREAM: the stage buffers [kStreamStages, KC, 4, HCP] after the resident rows.
+  TW* h_s = w_s + (size_t)k_res * 4 * HCP +
+            (STREAM ? kStreamStages * KC * 4 * HCP : 0);  // [2, RB, H]
   float* part = reinterpret_cast<float*>(h_s + (size_t)2 * RB * H);  // [2, 4, RB, HCP]
-
-  if (T > 1) scan_fwd_copy_slice<TW, HCP>(w_s, a.wh, a.ldw, H, j0, nu);
+  SliceStream<TW, 4 * HCP, KC> st{};
+  int chunk = 0;  // STREAM: the next chunk a contraction reads
+  if constexpr (STREAM) {
+    st.full = bar + 1;
+    st.stage = w_s + (size_t)k_res * 4 * HCP;
+    st.slice = static_cast<const TW*>(a.wh) + (size_t)rank * H * 4 * HCP;
+    st.k_res = k_res;
+    st.K = H;
+    st.nc = (H - k_res + KC - 1) / KC;
+    st.total = (T - 1) * st.nc;
+    if (T > 1 && tid == 0) st.start(bar, w_s);
+  } else {
+    if (T > 1) scan_fwd_copy_slice<TW, HCP>(w_s, a.wh, a.ldw, H, j0, nu);
+  }
 
   int pr[EPT], pj[EPT];
   scan_fwd_pairs<RB, EPT>(nq, j0, pr, pj);
@@ -256,8 +356,11 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
 
   for (int t = 0; t < T; ++t) {
     if (t > 0) {
-      scan_fwd_contract<TW, UPT, RB>(h_s + (size_t)((t - 1) & 1) * RB * H, w_s, part, H, warp,
-                                     lane);
+      const TW* hb = h_s + (size_t)((t - 1) & 1) * RB * H;
+      if constexpr (STREAM)
+        scan_fwd_contract_stream<TW, UPT, RB, KC>(hb, w_s, st, chunk, part, H, warp, lane);
+      else
+        scan_fwd_contract<TW, UPT, RB>(hb, w_s, part, H, warp, lane);
       __syncthreads();  // the partials visible to the threads that own the units
     }
 
@@ -319,53 +422,68 @@ __global__ void __launch_bounds__(kScanThreads, 1) lstm_scan_fwd_kernel(const Sc
     }
     cluster_wait();
     if (t == 0) {  // the weight slice has landed (each thread's copies, then all)
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-      __syncthreads();
+      if constexpr (STREAM) {
+        mbar_wait(smem_u32(bar), 0);
+      } else {
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();
+      }
     }
   }
 }
 
 // Launch one kernel instance, or (max_clusters not null) ask how many of
 // its clusters fit on the card at once.
-template <typename TW, int UPT, int RB>
+template <typename TW, int UPT, int RB, bool STREAM>
 int scan_fwd_run(const ScanFwd& a, cudaStream_t stream, int* max_clusters) {
   static bool opted[64] = {};
-  return launch_cluster(lstm_scan_fwd_kernel<TW, UPT, RB>, a, opted, a.cs,
+  const int hcp = 32 * UPT;
+  return launch_cluster(lstm_scan_fwd_kernel<TW, UPT, RB, STREAM>, a, opted, a.cs,
                         (unsigned)((a.R + RB - 1) / RB), (unsigned)a.tasks,
-                        scan_fwd_smem(a.H, 32 * UPT, RB, sizeof(TW)), stream, max_clusters);
+                        STREAM ? scan_fwd_stream_smem(a.H, hcp, RB, sizeof(TW), a.k_res)
+                               : scan_fwd_smem(a.H, hcp, RB, sizeof(TW)),
+                        stream, max_clusters);
 }
 
-template <typename TW, int UPT>
+// The streamed variant is built at row tiles of 8 and 16 (`kStreamTilesFwd`),
+// but for 16 rows at 4 bfloat16 units a lane (its registers would spill).
+constexpr unsigned kStreamTilesFwd = 8u | 16u;
+
+template <typename TW, int UPT, bool STREAM>
 int scan_fwd_rb(int rb, const ScanFwd& a, cudaStream_t s, int* max_clusters) {
   switch (rb) {
     case 2:
-      return scan_fwd_run<TW, UPT, 2>(a, s, max_clusters);
+      if constexpr (!STREAM) return scan_fwd_run<TW, UPT, 2, STREAM>(a, s, max_clusters);
+      break;
     case 4:
-      return scan_fwd_run<TW, UPT, 4>(a, s, max_clusters);
+      if constexpr (!STREAM) return scan_fwd_run<TW, UPT, 4, STREAM>(a, s, max_clusters);
+      break;
     case 8:
-      return scan_fwd_run<TW, UPT, 8>(a, s, max_clusters);
+      return scan_fwd_run<TW, UPT, 8, STREAM>(a, s, max_clusters);
     case 16:
-      return scan_fwd_run<TW, UPT, 16>(a, s, max_clusters);
+      if constexpr (!STREAM || !(sizeof(TW) == 2 && UPT == 4))
+        return scan_fwd_run<TW, UPT, 16, STREAM>(a, s, max_clusters);
+      break;
     case 32:  // validate's 1536 rows in one wave. Its accumulators and a
               // 16-byte load's weights fit in registers (no spill) only where
               // the k values of the load times the units a lane are at most 8:
               // float32 at UPT <= 2, bfloat16 at UPT 1.
-      if constexpr (16 / sizeof(TW) * UPT <= 8)
-        return scan_fwd_run<TW, UPT, 32>(a, s, max_clusters);
+      if constexpr (!STREAM && 16 / sizeof(TW) * UPT <= 8)
+        return scan_fwd_run<TW, UPT, 32, STREAM>(a, s, max_clusters);
       break;
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TW>
+template <typename TW, bool STREAM>
 int scan_fwd_hcp(int hcp, int rb, const ScanFwd& a, cudaStream_t s, int* max_clusters) {
   switch (hcp) {
     case 32:
-      return scan_fwd_rb<TW, 1>(rb, a, s, max_clusters);
+      return scan_fwd_rb<TW, 1, STREAM>(rb, a, s, max_clusters);
     case 64:
-      return scan_fwd_rb<TW, 2>(rb, a, s, max_clusters);
+      return scan_fwd_rb<TW, 2, STREAM>(rb, a, s, max_clusters);
     case 128:
-      return scan_fwd_rb<TW, 4>(rb, a, s, max_clusters);
+      return scan_fwd_rb<TW, 4, STREAM>(rb, a, s, max_clusters);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -376,16 +494,21 @@ int scan_fwd_hcp(int hcp, int rb, const ScanFwd& a, cudaStream_t s, int* max_clu
 // 128 and at least scan_units(H, cs), rb among `tiles` (a bit a row tile: 2, 4, 8, 16, and
 // 32 at hcp <= 64 in float32, hcp 32 in bfloat16), within 227 KB of shared
 // memory; H a multiple of 4 in float32 and of 8 in bfloat16 (the h tile's
-// 16-byte loads); 1 to 65535 tasks.
+// 16-byte loads); 1 to 65535 tasks. A streamed plan (k_res in [0, H): a
+// multiple of 16 bytes' k values) takes the tiles of `kStreamTilesFwd`.
 inline bool scan_fwd_plan_ok(bool bf16, int hcp, int rb, int cs, int T, int R, int H,
-                             unsigned tiles, int tasks = 1) {
+                             unsigned tiles, int tasks = 1, int k_res = -1) {
+  const bool stream = k_res >= 0 && k_res < H;
+  const size_t tw = bf16 ? 2 : 4;
   return (hcp == 32 || hcp == 64 || hcp == 128) &&
          (rb == 2 || rb == 4 || rb == 8 || rb == 16 ||
           (rb == 32 && hcp <= (bf16 ? 32 : 64))) &&
          (tiles & (unsigned)rb) && cluster_size_ok(cs) && T > 0 && R > 0 &&
          H > 0 && H % (bf16 ? 8 : 4) == 0 && scan_units(H, cs) <= hcp &&
          (R + rb - 1) / rb <= 65535 && tasks > 0 && tasks <= 65535 &&
-         scan_fwd_smem(H, hcp, rb, bf16 ? 2 : 4) <= kScanMaxSmem;
+         (stream ? (kStreamTilesFwd & (unsigned)rb) && k_res % (16 / (int)tw) == 0 &&
+                       scan_fwd_stream_smem(H, hcp, rb, tw, k_res) <= kScanMaxSmem
+                 : scan_fwd_smem(H, hcp, rb, tw) <= kScanMaxSmem);
 }
 
 // Launch one forward recurrence on `stream` (or, with max_clusters, ask the
@@ -407,18 +530,26 @@ int launch_scan_fwd(int w_dt, int hcp, int rb, const Args& a, cudaStream_t s,
   const bool bf16 = w_dt == kBF16;
   const size_t tw = bf16 ? 2 : 4;
   const size_t to = a.out_f32 ? 4 : tw;
+  const bool stream = a.k_res >= 0 && a.k_res < a.H;
   if ((w_dt != kF32 && !bf16) ||
-      !scan_fwd_plan_ok(bf16, hcp, rb, a.cs, a.T, a.R, a.H, 62u, a.tasks) ||
+      !scan_fwd_plan_ok(bf16, hcp, rb, a.cs, a.T, a.R, a.H, 62u, a.tasks, a.k_res) ||
       !a.mask != !a.next_in)
     return (int)cudaErrorInvalidValue;
+  // A streamed plan's slices are read by bulk copies: 16-byte aligned, and so
+  // is each task's (a multiple of 16 bytes' elements).
   if (!aligned_to(a.xp, 16) || !aligned_to(a.gates, 16) || !aligned_to(a.bias, 16) ||
-      !aligned_to(a.h_last, 16) || !aligned_to(a.wh, 4 * tw) || !aligned_to(a.h_all, 4 * to) ||
-      !aligned_to(a.c_all, 4 * to) || !aligned_to(a.next_in, 4 * tw) ||
-      !aligned_to(a.mask, 4) || a.ldw % 4 || a.sxp % 4 || a.sgates % 4 || a.sw % 4 ||
-      a.sbias % 4 || a.sres % 4 || a.smask % 4 || a.snext % 4 || a.slast % 4)
+      !aligned_to(a.h_last, 16) || !aligned_to(a.wh, stream ? 16 : 4 * tw) ||
+      !aligned_to(a.h_all, 4 * to) || !aligned_to(a.c_all, 4 * to) ||
+      !aligned_to(a.next_in, 4 * tw) || !aligned_to(a.mask, 4) || a.ldw % 4 || a.sxp % 4 ||
+      a.sgates % 4 || a.sw % (stream ? 16 / (long long)tw : 4) || a.sbias % 4 || a.sres % 4 ||
+      a.smask % 4 || a.snext % 4 || a.slast % 4)
     return (int)cudaErrorMisalignedAddress;
-  if (bf16) return scan_fwd_hcp<__nv_bfloat16>(hcp, rb, a, s, max_clusters);
-  return scan_fwd_hcp<float>(hcp, rb, a, s, max_clusters);
+  if (stream) {
+    if (bf16) return scan_fwd_hcp<__nv_bfloat16, true>(hcp, rb, a, s, max_clusters);
+    return scan_fwd_hcp<float, true>(hcp, rb, a, s, max_clusters);
+  }
+  if (bf16) return scan_fwd_hcp<__nv_bfloat16, false>(hcp, rb, a, s, max_clusters);
+  return scan_fwd_hcp<float, false>(hcp, rb, a, s, max_clusters);
 }
 
 }  // namespace

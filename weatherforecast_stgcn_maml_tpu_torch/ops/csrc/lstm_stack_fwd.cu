@@ -59,11 +59,12 @@
 #include "gemm_nn_launch.cuh"
 #include "lstm_scan_fwd.cuh"
 
-// The arguments of one forward, 31 packed 8-byte fields (ops/fused_lstm_stack.py
+// The arguments of one forward, 32 packed 8-byte fields (ops/fused_lstm_stack.py
 // `_STACK_FWD`), followed by L quadruples (wx_l, wh_l, k_l, sw_l): layer l's
 // weights Wx_l [k_l, 4H] and Wh_l [H, 4H] in the compute dtype (row-major,
-// row stride 4H, 16-byte aligned), its input width k_l (C, then H) and its
-// weights' task stride sw_l (elements).
+// row stride 4H, 16-byte aligned; under a streamed plan, k_res in [0, H),
+// Wh_l laid out as the recurrence's slices [cs, H, 4, hcp]), its input width
+// k_l (C, then H) and its weights' task stride sw_l (elements).
 struct StackFwdLaunch {
   long long w_dt, cs, hcp, rb;
   long long x, sxt, sxr, x_f32;  // x[t, r, c] at x + t*sxt + r*sxr + c (elements)
@@ -75,11 +76,12 @@ struct StackFwdLaunch {
   // Tasks, and the task strides (elements) of x, bias, masks, h_all / c_all,
   // gates, h_last and masked: task v's arrays start v strides after task 0's.
   long long tasks, sxv, sbv, smv, sresv, sgv, slv, snv;
+  long long k_res;  // the recurrences' resident rows of a slice (lstm_scan_fwd.cuh)
 };
-static_assert(sizeof(StackFwdLaunch) == 31 * 8, "StackFwdLaunch is 31 packed 8-byte fields");
+static_assert(sizeof(StackFwdLaunch) == 32 * 8, "StackFwdLaunch is 32 packed 8-byte fields");
 
 // Rows 4, 14 and 16 and the eval forward: for each layer one NN product
-// (gemm_nn.cu) and one forward recurrence of the plan (cs, hcp, rb)
+// (gemm_nn.cu) and one forward recurrence of the plan (cs, hcp, rb, k_res)
 // (lstm_scan_fwd.cuh), on `stream`, in that order. w_dt is the compute dtype (0 = float32, 1 =
 // bfloat16); x is float32 (x_f32) or in the compute dtype; layer l's h_all
 // and c_all [T, R, H] at l * res_ls and masked [T, R, H] (with masks) in the
@@ -97,7 +99,7 @@ extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
   const long long T = p->T, R = p->R, H = p->H, L = p->L, V = p->tasks, g4 = 4 * H;
   const long long res = T * R * H;  // one layer's [T, R, H]
   if (T <= 0 || R <= 0 || H <= 0 || L <= 0 || V <= 0 || T > 0x7fffffff || R > 0x7fffffff ||
-      H > 0x7fffffff || T > 65535 || V > 65535 || T * R > 0x7fffffff ||
+      H > 0x7fffffff || T > 65535 || V > 65535 || T * R > 0x7fffffff || p->k_res > H ||
       (p->w_dt != wf::kF32 && p->w_dt != wf::kBF16) || (V > 1 && p->sxt != R * p->sxr) ||
       (p->res_ls != 0 && p->res_ls < res) || (p->gates_ls != 0 && p->gates_ls < 4 * res))
     return (int)cudaErrorInvalidValue;
@@ -157,6 +159,7 @@ extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
                   (int)R,
                   (int)H,
                   (int)p->cs};
+    a.k_res = (int)p->k_res;
     if (V > 1) {
       a.tasks = (int)V;
       a.sxp = a.sgates = p->sgv;
@@ -174,7 +177,7 @@ extern "C" int wf_lstm_stack_forward(const StackFwdLaunch* p) {
   return 0;
 }
 
-// The arguments of one forward recurrence, 29 packed 8-byte fields
+// The arguments of one forward recurrence, 30 packed 8-byte fields
 // (ops/fused_lstm_stack.py `_SCAN_FWD`): wf::ScanFwd's with the plan.
 struct ScanFwdLaunch {
   long long w_dt, cs, hcp, rb;
@@ -182,16 +185,18 @@ struct ScanFwdLaunch {
   double inv_keep;
   long long next_in, h_last, T, R, H, stream;
   long long tasks, sxp, sgates, sw, sbias, sres, smask, snext, slast;
+  long long k_res;  // resident rows of a slice; in [0, H): wh is the slices [cs, H, 4, hcp]
 };
-static_assert(sizeof(ScanFwdLaunch) == 29 * 8, "ScanFwdLaunch is 29 packed 8-byte fields");
+static_assert(sizeof(ScanFwdLaunch) == 30 * 8, "ScanFwdLaunch is 30 packed 8-byte fields");
 
 // One layer's forward recurrence alone (wf::ScanFwd for the arguments), on
-// the plan (cs, hcp, rb): rows 4, 14 and 16's recurrence a launch at a time
+// the plan (cs, hcp, rb, k_res): rows 4, 14 and 16's recurrence a launch at a time
 // (gates = xp: in place; row 16's tasks on the grid's z axis), and row 18
 // (xp with the bias, no bias array; the gates to an array of their own or
 // nowhere; h and c in float32). Returns a cudaError_t code.
 extern "C" int wf_lstm_stack_forward_recurrence(const ScanFwdLaunch* p) {
-  if (p->T > 0x7fffffff || p->R > 0x7fffffff || p->H > 0x7fffffff || p->tasks > 0x7fffffff)
+  if (p->T > 0x7fffffff || p->R > 0x7fffffff || p->H > 0x7fffffff || p->tasks > 0x7fffffff ||
+      p->k_res > p->H)
     return (int)cudaErrorInvalidValue;
   auto ptr = [](long long v) { return reinterpret_cast<void*>(v); };
   wf::ScanFwd a{static_cast<const float*>(ptr(p->xp)),
@@ -219,6 +224,7 @@ extern "C" int wf_lstm_stack_forward_recurrence(const ScanFwdLaunch* p) {
   a.smask = p->smask;
   a.snext = p->snext;
   a.slast = p->slast;
+  a.k_res = (int)p->k_res;
   return wf::launch_scan_fwd((int)p->w_dt, (int)p->hcp, (int)p->rb, a,
                              reinterpret_cast<cudaStream_t>(p->stream));
 }
@@ -239,4 +245,22 @@ extern "C" int wf_lstm_stack_forward_clusters(int w_dt, int cs, int hcp, int rb,
 // The dynamic shared memory a block of that recurrence takes.
 extern "C" long long wf_lstm_stack_forward_smem(int w_dt, int hcp, int rb, int H) {
   return (long long)wf::scan_fwd_smem(H, hcp, rb, w_dt == wf::kF32 ? 4 : 2);
+}
+
+// The same two questions of a streamed plan, k_res resident rows of a slice.
+extern "C" int wf_lstm_stack_forward_stream_clusters(int w_dt, int cs, int hcp, int rb, int H,
+                                                     int k_res) {
+  wf::ScanFwd a{};
+  a.T = a.R = 1;
+  a.H = H;
+  a.cs = cs;
+  a.k_res = k_res;
+  int n = 0;
+  const int err = wf::launch_scan_fwd(w_dt, hcp, rb, a, nullptr, &n);
+  return err ? -err : n;
+}
+
+extern "C" long long wf_lstm_stack_forward_stream_smem(int w_dt, int hcp, int rb, int H,
+                                                       int k_res) {
+  return (long long)wf::scan_fwd_stream_smem(H, hcp, rb, w_dt == wf::kF32 ? 4 : 2, k_res);
 }

@@ -49,11 +49,15 @@ _SIGNATURES = {
     "wf_lstm_stack_recurrence": [ctypes.c_char_p],
     "wf_lstm_stack_recurrence_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_stack_recurrence_smem": [_I, _I, _I, _I],
+    "wf_lstm_stack_recurrence_stream_clusters": [_I, _I, _I, _I, _I, _I],
+    "wf_lstm_stack_recurrence_stream_smem": [_I, _I, _I, _I, _I],
     # one packed StackFwdLaunch and its layers (ops/fused_lstm_stack.py `_STACK_FWD`)
     "wf_lstm_stack_forward": [ctypes.c_char_p],
     "wf_lstm_stack_forward_recurrence": [ctypes.c_char_p],  # one packed ScanFwdLaunch
     "wf_lstm_stack_forward_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_stack_forward_smem": [_I, _I, _I, _I],
+    "wf_lstm_stack_forward_stream_clusters": [_I, _I, _I, _I, _I, _I],
+    "wf_lstm_stack_forward_stream_smem": [_I, _I, _I, _I, _I],
     "wf_gemm_nn": [ctypes.c_char_p],  # one packed NNLaunch (ops/gemm.py _NN_LAUNCH)
     "wf_gemm_nn_smem": [_I],
     "wf_gemm_tn": [ctypes.c_char_p],  # one packed TNLaunch (ops/gemm.py _TN_LAUNCH)
@@ -63,7 +67,7 @@ _SIGNATURES = {
     "wf_lstm_tangent_forward_clusters": [_I, _I, _I, _I, _I],
     "wf_lstm_tangent_recurrence": [ctypes.c_char_p],  # one packed ScanTanLaunch
     "wf_lstm_tangent_recurrence_clusters": [_I, _I, _I, _I, _I],
-    "wf_lstm_scan_bwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "wf_lstm_scan_bwd": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wf_lstm_scan_backward": [ctypes.c_char_p],  # one packed ScanBackwardLaunch (lstm_scan.py)
     "wf_clip_sgd_update": [ctypes.c_char_p],  # one packed SgdLaunch (ops/fused_sgd.py)
     "wf_clip_sgd_update_tasks": [ctypes.c_char_p],  # the same, a task axis
@@ -74,6 +78,8 @@ _RESTYPES = {  # the rest return a cudaError_t
     "wf_gemm_nn_smem": ctypes.c_longlong,
     "wf_lstm_stack_recurrence_smem": ctypes.c_longlong,
     "wf_lstm_stack_forward_smem": ctypes.c_longlong,
+    "wf_lstm_stack_recurrence_stream_smem": ctypes.c_longlong,
+    "wf_lstm_stack_forward_stream_smem": ctypes.c_longlong,
 }
 
 _lib = None

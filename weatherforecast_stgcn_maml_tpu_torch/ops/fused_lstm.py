@@ -119,3 +119,7 @@ fused_lstm_last_hidden.forward_recurrence_launches = 0
 # Train-mode backwards on the card (row 15's schedule) and their TN products.
 fused_lstm_last_hidden.backward_launches = 0
 fused_lstm_last_hidden.backward_gemm_tn_launches = 0
+# Calls whose recurrences ran on a streamed plan (`eval_plan`; train mode
+# past the clusters that hold Wh never: models/hybrid.py asks `stack_planned`).
+fused_lstm_last_hidden.streamed_launches = 0
+fused_lstm_last_hidden.backward_streamed_launches = 0

@@ -441,7 +441,7 @@ def tangent_forward_plan(hidden: int, rows: int, itemsize: int,
     in float32, 1 block x 4 rows in bfloat16."""
     return _cluster_plan(hidden, rows, sms, 1,
                          lambda hcp, rb: scan_fwd_smem(hidden, hcp, rb, itemsize),
-                         "tangent forward recurrence holds Wh", row_tiles=(2, 4, 8))
+                         "tangent forward recurrence holds Wh", hidden, row_tiles=(2, 4, 8))[:3]
 
 
 # The tangent forward recurrence's launch arguments, packed as
@@ -726,7 +726,7 @@ def tangent_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[int, 
     and R = 512 on 132 SMs, 2 blocks x 8 rows in float32, 1 block x 4 rows
     in bfloat16."""
     return _cluster_plan(hidden, rows, sms, 1, lambda hcp, rb: scan_smem(hidden, hcp, rb, itemsize),
-                         "tangent recurrence holds Wh^T", row_tiles=(2, 4, 8))
+                         "tangent recurrence holds Wh^T", 4 * hidden, row_tiles=(2, 4, 8))[:3]
 
 
 # The tangent recurrence's launch arguments, packed as csrc/lstm_scan_tan.cu's

@@ -39,11 +39,14 @@ version there.
 
 `models/lstm.apply_lstm`'s `lstm_kernel="auto"` asks `stack_planned`
 before it calls the training entries and `eval_planned` before the eval
-forward: where the widths or no cluster plan fit it takes the plain stack,
-as the JAX package's `auto` takes its XLA scan where `stack_supported`
-fails (models/hybrid.py asks the same for row 20). That is a route chosen
-by shape before any launch; the entries themselves still raise at such a
-width.
+forward: where the widths or no cluster plan that holds Wh fit it takes the
+plain stack, as the JAX package's `auto` takes its XLA scan where
+`stack_supported` fails (models/hybrid.py asks the same for row 20). That is
+a route chosen by shape before any launch. The entries themselves (the
+forced `lstm_kernel="pallas_stack"`) run at any width to H 2048: past the
+clusters that hold Wh their recurrences take streamed plans, which keep what
+fits of each block's slice in shared memory and read the rest from L2 at
+every step (`stream_plans`; one task).
 
 Counterpart of `weatherforecast_stgcn_maml_tpu/ops/fused_lstm_stack.py`
 (`lstm_stack_last_all`; Pallas bodies `_fwd_kernel_m_lastonly_nomask`,
@@ -210,6 +213,9 @@ lstm_stack_last_all.launches = 0  # eval forwards run through the CUDA kernels (
 # Row 2's pieces: its gemm_nn and forward recurrence launches (one each a layer).
 lstm_stack_last_all.forward_gemm_nn_launches = 0
 lstm_stack_last_all.forward_recurrence_launches = 0
+# Calls whose recurrences ran on a streamed plan (`eval_plan`, or past the
+# clusters that hold Wh under `lstm_kernel=pallas_stack`).
+lstm_stack_last_all.streamed_launches = 0
 
 
 def eval_forward(layers: Sequence, x: torch.Tensor, compute_dtype: torch.dtype,
@@ -217,7 +223,8 @@ def eval_forward(layers: Sequence, x: torch.Tensor, compute_dtype: torch.dtype,
     """The eval forward of rows 2, 14 and 20 on a CUDA tensor: x [B, T, C]
     -> the top layer's last h [B, H] float32, no dropout, by row 14's
     schedule without residuals (`split_forward_schedule(...,
-    residuals=False)`) from the layers' own wx, wh and b: L `gemm_nn` input
+    residuals=False)`, its recurrences on `eval_plan`'s plan) from the
+    layers' own wx, wh and b: L `gemm_nn` input
     products and L forward recurrences enqueued by one C call
     (csrc/lstm_stack_fwd.cu), one gates buffer and one h buffer for every
     layer, no c and no top-layer h sequence stored. x keeps its [B, T, C]
@@ -403,12 +410,19 @@ def _forward_recurrence_plain(gates, wh, bias, compute_dtype, h_out, c_out, mask
 # The forward recurrence's launch arguments, packed as csrc/lstm_stack_fwd.cu's
 # `ScanFwdLaunch`; the whole forward's as its `StackFwdLaunch`, followed by
 # one (Wx_l, Wh_l, input width, task stride) quadruple a layer.
-_SCAN_FWD = struct.Struct("<13qd15q")
-_STACK_FWD = struct.Struct("<10qd20q")
+_SCAN_FWD = struct.Struct("<13qd16q")
+_STACK_FWD = struct.Struct("<10qd21q")
 
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
+
+
+def _plan_text(plan, k_rows):
+    """A recurrence plan in words, for the launch errors."""
+    cs, hcp, rb, k_res = plan
+    return (f"cluster of {cs}, {hcp} weight columns a block, {rb} rows a cluster"
+            + (f", {k_res} of {k_rows} K-rows resident" if k_res < k_rows else ""))
 
 
 def _forward_recurrence_card(gates, wh, bias, compute_dtype, h_out, c_out, mask=None,
@@ -420,10 +434,14 @@ def _forward_recurrence_card(gates, wh, bias, compute_dtype, h_out, c_out, mask=
         return gates
     nv, t_len, rows, g4 = gates.shape
     hidden = g4 // 4
-    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(gates.device), nv)
-    wh = wh.to(compute_dtype)
-    if wh.stride(-1) != 1 or not wh[0].is_contiguous():
-        wh = wh.contiguous()
+    plan = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(gates.device), nv)
+    cs, hcp, rb, k_res = plan
+    if streams(plan, hidden):  # the blocks' slices, read by bulk copies
+        wh = _per_task(lambda w: forward_weights(w, cs, hcp, compute_dtype), wh)
+    else:
+        wh = wh.to(compute_dtype)
+        if wh.stride(-1) != 1 or not wh[0].is_contiguous():
+            wh = wh.contiguous()
     if _task_stride(c_out, nv) != _task_stride(h_out, nv):
         raise ValueError("the LSTM forward recurrence takes h and c in one layout")
     cuda_build.check(
@@ -433,9 +451,8 @@ def _forward_recurrence_card(gates, wh, bias, compute_dtype, h_out, c_out, mask=
             _ptr(mask), inv_keep, _ptr(next_in), _ptr(h_last), t_len, rows, hidden,
             cuda_build.stream_ptr(gates.device), nv,
             *(_task_stride(t, nv) for t in (gates, gates, wh, bias, h_out, mask, next_in,
-                                            h_last)))),
-        f"LSTM forward recurrence ({nv} task(s), cluster of {cs}, {hcp} weight columns a "
-        f"block, {rb} rows a cluster)",
+                                            h_last)), k_res)),
+        f"LSTM forward recurrence ({nv} task(s), {_plan_text(plan, hidden)})",
     )
     _forward_recurrence_card.launches += 1
     return gates
@@ -454,31 +471,36 @@ def train_forward(x_tbc, masks, keep, compute_dtype, b2d, wcat):
     `forward_schedule`'s schedule, its L products and L recurrences enqueued
     by one C call (csrc/lstm_stack_fwd.cu)."""
     hidden = b2d.shape[1] // 4
+    plan = forward_plan(hidden, x_tbc.shape[1], compute_dtype.itemsize, _sms(x_tbc.device))
     # `weights` keeps the compute-dtype weights alive while the call enqueues.
     layers, weights = _one_task_layers([w[:-hidden] for w in wcat], [w[-hidden:] for w in wcat],
-                                       compute_dtype)
+                                       compute_dtype, plan)
     out = _stack_forward_card(x_tbc[None], _one_task(masks), keep, compute_dtype, b2d[None],
-                              layers, "LSTM train forward")
+                              layers, "LSTM train forward", plan=plan)
     n_layers = len(wcat)
     train = lstm_stack_train
     train.launches += 1
+    train.streamed_launches += streams(plan, hidden)
     train.forward_gemm_nn_launches += n_layers
     train.forward_recurrence_launches += n_layers
     return tuple(t[0] for t in out)
 
 
-def _one_task_layers(wx, wh, compute_dtype):
+def _one_task_layers(wx, wh, compute_dtype, plan):
     """The (Wx_l, Wh_l, K_l, task stride 0) quadruples of `_stack_forward_card`
     for one task's float32 wx_l [K_l, 4H] and wh_l [H, 4H] (row blocks of one
-    matrix or arrays of their own), and the tensors they point into: float32
-    as they are, else one cast of all layers (each layer's rows stay 16-byte
-    aligned: 4H columns)."""
+    matrix or arrays of their own) under the recurrences' plan, and the
+    tensors they point into: float32 as they are, else one cast of all
+    layers (each layer's rows stay 16-byte aligned: 4H columns); under a
+    streamed plan each Wh_l laid out as its slices (`forward_weights`)."""
     ws = [*wx, *wh]
     if compute_dtype is torch.float32:
         ws = [w.contiguous() for w in ws]
     else:
         ws = torch.cat(ws).to(compute_dtype).split([w.shape[0] for w in ws])
     n = len(wx)
+    if streams(plan, wh[0].shape[0]):
+        ws = [*ws[:n], *(forward_weights(w, *plan[:2], compute_dtype) for w in ws[n:])]
     return [(a.data_ptr(), b.data_ptr(), a.shape[0], 0) for a, b in zip(ws[:n], ws[n:])], ws
 
 
@@ -495,16 +517,17 @@ def _task_layers_card(wcat0, wcatr, c_in, hidden):
 
 
 def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_gates=True,
-                        residuals=True):
+                        residuals=True, plan=None):
     """`_forward_layers` on the card: its 2L launches enqueued by one C call
     (csrc/lstm_stack_fwd.cu) for V tasks from x [V, T, B, C], b2d [V, L, 4H],
     masks [V, L-1, T, B, H] or None and the layers' weights: a (Wx_l, Wh_l,
     K_l, task stride) quadruple each, addresses of Wx_l [K_l, 4H] and Wh_l
-    [H, 4H] in the compute dtype (row stride 4H) -> (h_last [V, B, H]
+    [H, 4H] in the compute dtype (row stride 4H; under a streamed plan Wh_l's
+    slices, `forward_weights`) -> (h_last [V, B, H]
     float32, h_all, c_all in the compute dtype, the gates float32; without
     `residuals` h_all is one layer's scratch, its top layer unwritten, and
-    c_all empty). One task keeps row 4's launches (x may be a strided
-    view)."""
+    c_all empty). `plan`: the recurrences' (None: `forward_plan`'s, Wh
+    resident). One task keeps row 4's launches (x may be a strided view)."""
     dev = x.device
     nv, t_len, rows, _ = x.shape
     n_layers, g4 = b2d.shape[1:]
@@ -527,7 +550,12 @@ def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_g
         masks = masked = None
     elif not masks.is_contiguous():
         masks = masks.contiguous()
-    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev), nv)
+    if plan is None:  # the task-batched stack's raw weights: Wh resident
+        plan = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev), nv)
+        if streams(plan, hidden):
+            raise ValueError(f"the task-batched LSTM stack (rows 16-17) holds Wh in a "
+                             f"cluster's shared memory; hidden width {hidden} does not fit")
+    cs, hcp, rb, k_res = plan
     bias = _per_task(torch.Tensor.contiguous, b2d)
     # Task strides: every array here is contiguous (bias: or shared, 0).
     strides = [0 if t is None or nv == 1 else t.stride(0)
@@ -538,13 +566,12 @@ def _stack_forward_card(x, masks, keep, compute_dtype, b2d, layers, what, keep_g
         h_all.data_ptr(), c_all.data_ptr() if residuals else 0, gates.data_ptr(),
         h_last.data_ptr(), _ptr(masked),
         t_len * rows * hidden if residuals else 0, t_len * rows * g4 if keep_gates else 0, t_len,
-        rows, hidden, n_layers, cuda_build.stream_ptr(dev), nv, *strides)
+        rows, hidden, n_layers, cuda_build.stream_ptr(dev), nv, *strides, k_res)
     err = cuda_build.load().wf_lstm_stack_forward(
         launch + struct.pack(f"<{4 * n_layers}q", *(v for layer in layers for v in layer)))
     if err < 0:
         raise ValueError(f"{what}: its input product takes {_NN_REFUSALS[err]}")
-    cuda_build.check(err, f"{what} ({nv} task(s); recurrences: cluster of {cs}, {hcp} weight "
-                          f"columns a block, {rb} rows a cluster)")
+    cuda_build.check(err, f"{what} ({nv} task(s); recurrences: {_plan_text(plan, hidden)})")
     gemm_nn.launches += n_layers
     return h_last, h_all, c_all, gates
 
@@ -566,6 +593,7 @@ def train_backward(g, x_tbc, h_all, c_all, gates, wcat, masks, keep, compute_dty
         masks, keep, compute_dtype, CARD_PIECES, carries=carries)
     train = lstm_stack_train
     train.backward_launches += 1
+    train.backward_streamed_launches += _backward_streams(h_all, compute_dtype)
     train.backward_recurrence_launches += _recurrence_card.launches - before[0]
     train.backward_gemm_nn_launches += gemm_nn.launches - before[1]
     train.backward_gemm_tn_launches += gemm_tn.launches - before[2]
@@ -630,6 +658,10 @@ lstm_stack_train.backward_launches = 0  # backwards run through the kernels (row
 lstm_stack_train.backward_recurrence_launches = 0
 lstm_stack_train.backward_gemm_nn_launches = 0
 lstm_stack_train.backward_gemm_tn_launches = 0
+# Forwards and backwards whose recurrences ran on a streamed plan (past the
+# clusters that hold Wh: `lstm_kernel=pallas_stack`).
+lstm_stack_train.streamed_launches = 0
+lstm_stack_train.backward_streamed_launches = 0
 # Calls that a route chosen by shape sent to the plain stack because no
 # cluster plan holds Wh (`stack_planned`): `lstm_kernel="auto"` in
 # models/lstm.apply_lstm, second order's fused gradient in train/so_fused.
@@ -944,14 +976,19 @@ def _split_forward_card(x_tbc, wx, wh, b2d, masks, keep, compute_dtype, residual
     """Row 14's schedule on the card from the layers' wx = [Wx_l [K_l, 4H]]
     and wh = [Wh_l [H, 4H]] float32, b2d [L, 4H]: one C call, one gates
     buffer for every layer (without `residuals` one h buffer too, no c),
-    counted on `counter`."""
+    counted on `counter` (a streamed plan also on its `streamed_launches`).
+    The recurrences' plan is `forward_plan`'s, without residuals (the eval
+    forward) `eval_plan`'s."""
     n_layers = len(wh)
+    plan = (forward_plan if residuals else eval_plan)(
+        wh[0].shape[0], x_tbc.shape[1], compute_dtype.itemsize, _sms(x_tbc.device))
     # `weights` keeps the compute-dtype weights alive while the call enqueues.
-    layers, weights = _one_task_layers(wx, wh, compute_dtype)
+    layers, weights = _one_task_layers(wx, wh, compute_dtype, plan)
     h_last, h_all, c_all, _ = _stack_forward_card(
         x_tbc[None], _one_task(masks), keep, compute_dtype, b2d[None], layers, what,
-        keep_gates=False, residuals=residuals)
+        keep_gates=False, residuals=residuals, plan=plan)
     counter.launches += 1
+    counter.streamed_launches += streams(plan, wh[0].shape[0])
     counter.forward_gemm_nn_launches += n_layers
     counter.forward_recurrence_launches += n_layers
     return (h_last[0], h_all[0], c_all[0]) if residuals else (h_last[0], None, None)
@@ -1204,17 +1241,134 @@ H100_CLUSTERS_16 = 7
 WIDE_CLUSTER = 16
 CLUSTER_SIZES = (1, 2, 4, 8, WIDE_CLUSTER)
 
+# Streamed plans (csrc/lstm_scan_bwd.cuh `SliceStream`): where no cluster of
+# 1-16 blocks holds the weight slice (float32 H > 396 backward, > 436
+# forward; bfloat16 H > 512), a block keeps the first k_res of its slice's K
+# rows (the forward's K = H rows of [4, hcp], the backward's K = 4H rows of
+# [hcp]) in shared memory and reads the rest from L2 at every step, in
+# chunks of `STREAM_CHUNK` bytes through `STREAM_STAGES` stage buffers.
+# Clusters of 8 and 16 blocks (the most rows resident), row tiles of
+# `STREAM_TILES_FWD` / `STREAM_TILES_BWD` (the instances built: not 16 rows
+# at hcp 128 in bfloat16, whose registers spill), k_res a multiple of 16
+# bytes' k values; one task (rows 16-17 take no streamed plan:
+# `stack_planned`).
+STREAM_CHUNK = 32768
+STREAM_STAGES = 2
+STREAM_HEADER = 64  # bytes of the streamed blocks' mbarriers
+STREAM_SIZES = (8, WIDE_CLUSTER)
+STREAM_TILES_FWD = (8, 16)
+STREAM_TILES_BWD = (2, 4, 8, 16)
+# The cost model that picks among streamed plans (and, for the eval forward,
+# between a 16-block plan and a streamed one: `eval_plan`): one step of one
+# layer takes waves x (STEP_US + a block's FMAs / FMA_PER_US + a block's
+# streamed bytes / L2_BYTES_PER_US) microseconds. STEP_US is a step's fixed
+# cost (the cluster barrier, the exchange of h or dgates, the cell; the fit
+# gives clusters of 8 and of 16 the same); FMA_PER_US an SM's rate on the
+# contraction (about 40% of its float32 peak); L2_BYTES_PER_US what a
+# streamed byte costs an SM. Least squares over 46 plans' times, float32 H
+# 128-1024 and bfloat16 H 640-1024 (tools/stream_plans.py; PERF.md §6;
+# mean error 10%, at most 30%).
+STEP_US = 3.1
+FMA_PER_US = 128e3
+L2_BYTES_PER_US = 75e3
+
+
+def stream_rows(row_bytes: int) -> int:
+    """Rows of one streamed chunk whose rows take `row_bytes` each
+    (csrc/lstm_scan_bwd.cuh `stream_rows`)."""
+    return STREAM_CHUNK // row_bytes
+
+
+def _slice_row_bytes(hcp: int, itemsize: int, forward: bool) -> int:
+    """Bytes of one K-row of a block's weight slice: [4, hcp] in the forward
+    recurrence, [hcp] in the backward."""
+    return (4 if forward else 1) * hcp * itemsize
+
+
+def scan_stream_smem(hidden: int, hcp: int, rb: int, itemsize: int, k_res: int) -> int:
+    """A streamed backward block's dynamic shared memory: its mbarriers,
+    its resident rows [k_res, hcp] and `STREAM_STAGES` stage buffers of a
+    chunk's rows,
+    its tiles and partials as `scan_smem`'s (`scan_bwd_stream_smem`)."""
+    row = hcp * itemsize
+    return (STREAM_HEADER + (k_res + STREAM_STAGES * stream_rows(row)) * row
+            + 2 * rb * 4 * hidden * itemsize + SCAN_WARPS * rb * hcp * 4)
+
+
+def scan_fwd_stream_smem(hidden: int, hcp: int, rb: int, itemsize: int, k_res: int) -> int:
+    """A streamed forward block's dynamic shared memory: its mbarriers,
+    its resident rows [k_res, 4, hcp] and `STREAM_STAGES` stage buffers of
+    a chunk's rows, its tiles and partials as `scan_fwd_smem`'s (csrc/lstm_scan_fwd.cuh
+    `scan_fwd_stream_smem`)."""
+    row = 4 * hcp * itemsize
+    return (STREAM_HEADER + (k_res + STREAM_STAGES * stream_rows(row)) * row
+            + 2 * rb * hidden * itemsize + 8 * rb * hcp * 4)
+
+
+def _waves(cs: int, clusters: int, sms: int) -> int:
+    """Waves of `clusters` clusters of cs blocks (16-block ones:
+    `H100_CLUSTERS_16` at once)."""
+    if cs == WIDE_CLUSTER:
+        return -(-clusters // H100_CLUSTERS_16)
+    return -(-clusters * cs // sms)
+
+
+def plan_cost(plan, hidden: int, rows: int, itemsize: int, sms: int, forward: bool) -> float:
+    """The cost model's time of one step of one layer (µs) of a one-task
+    recurrence plan (cs, hcp, rb, k_res): waves x (`STEP_US` + the block's
+    FMAs / `FMA_PER_US` + its streamed bytes a step / `L2_BYTES_PER_US`)."""
+    cs, hcp, rb, k_res = plan
+    k_rows = hidden if forward else 4 * hidden
+    fmas = rb * k_rows * (4 * hcp if forward else hcp)
+    streamed = (k_rows - k_res) * _slice_row_bytes(hcp, itemsize, forward)
+    return _waves(cs, -(-rows // rb), sms) * (
+        STEP_US + fmas / FMA_PER_US + streamed / L2_BYTES_PER_US)
+
+
+def stream_plans(hidden: int, rows: int, itemsize: int, sms: int, forward: bool):
+    """The streamed plans (cs, hcp, rb, k_res) of a recurrence, one task, by
+    the cost model's time, cheapest first: for each cluster of
+    `STREAM_SIZES` and row tile of `STREAM_TILES_FWD` / `_BWD` (not 16 rows
+    at 128 bfloat16 weight columns), the largest k_res (a
+    multiple of 16 bytes' k values) whose block fits in shared memory, where
+    it is short of K. Ties go to the fewer streamed bytes, then the smaller
+    cluster. Empty where no block fits (H > 2048, or its tiles alone fill
+    shared memory)."""
+    k_rows = hidden if forward else 4 * hidden
+    vk = 16 // itemsize
+    smem = scan_fwd_stream_smem if forward else scan_stream_smem
+    found = []
+    for cs in STREAM_SIZES:
+        hcp = next((p for p in (32, 64, 128) if p >= scan_units(hidden, cs)), None)
+        if hcp is None:
+            continue
+        row = _slice_row_bytes(hcp, itemsize, forward)
+        for rb in STREAM_TILES_FWD if forward else STREAM_TILES_BWD:
+            if rb == 16 and hcp == 128 and itemsize == 2:
+                continue
+            k_res = (SCAN_MAX_SMEM - smem(hidden, hcp, rb, itemsize, 0)) // row // vk * vk
+            if not 0 <= k_res < k_rows:
+                continue
+            plan = (cs, hcp, rb, k_res)
+            cost = plan_cost(plan, hidden, rows, itemsize, sms, forward)
+            found.append((cost, -(-rows // rb) * cs * (k_rows - k_res) * row, cs, plan))
+    return [f[-1] for f in sorted(found)]
+
 
 def _cluster_plan(hidden: int, rows: int, sms: int, tasks: int, smem: Callable,
-                  what: str, row_tiles=(2, 4, 8, 16),
-                  sizes=CLUSTER_SIZES) -> tuple[int, int, int]:
-    """(cs, hcp, rb) of a cluster recurrence whose block takes smem(hcp, rb)
-    bytes of shared memory: the smallest cluster of `sizes` (16 only where
+                  what: str, k_rows: int, row_tiles=(2, 4, 8, 16),
+                  sizes=CLUSTER_SIZES, streamed: Callable | None = None
+                  ) -> tuple[int, int, int, int]:
+    """(cs, hcp, rb, k_res) of a cluster recurrence whose block takes
+    smem(hcp, rb) bytes of shared memory and whose weight slice has
+    `k_rows` K-rows: the smallest cluster of `sizes` (16 only where
     none of the smaller sizes fits) whose weight slice fits beside the tiles of a row tile
     (of `row_tiles`) that puts the clusters of all `tasks` tasks' rows on
     `sms` SMs in one wave (`_one_wave`), with the smallest such tile; if no
     cluster reaches one wave, the smallest that fits at all, with its
-    largest tile."""
+    largest tile; k_res = k_rows (all rows resident). Where no cluster holds
+    the slice, one task and `streamed` given: the first plan `streamed()`
+    returns (a streamed plan, k_res < k_rows); else ValueError."""
     fallback = None
     for cs in sizes:
         if cs == WIDE_CLUSTER and fallback is not None:
@@ -1227,23 +1381,29 @@ def _cluster_plan(hidden: int, rows: int, sms: int, tasks: int, smem: Callable,
             continue
         wave = [rb for rb in tiles if _one_wave((cs, hcp, rb), rows, tasks, sms)]
         if wave:
-            return cs, hcp, wave[0]
-        fallback = fallback or (cs, hcp, tiles[-1])
+            return cs, hcp, wave[0], k_rows
+        fallback = fallback or (cs, hcp, tiles[-1], k_rows)
+    if fallback is None and streamed is not None and tasks == 1:
+        fallback = next(iter(streamed()), None)
     if fallback is None:
         raise ValueError(f"the {what} in at most {sizes[-1]} blocks' shared memory; "
-                         f"hidden width {hidden} does not fit")
+                         f"hidden width {hidden} does not fit"
+                         + (", nor does a streamed slice" if streamed and tasks == 1 else ""))
     return fallback
 
 
 @functools.lru_cache(maxsize=None)
 def recurrence_plan(hidden: int, rows: int, itemsize: int, sms: int,
-                    tasks: int = 1) -> tuple[int, int, int]:
-    """(cs, hcp, rb) of the backward recurrence: blocks a cluster, weight
-    columns a block (hcp >= `scan_units`, 32 x the units a lane owns), rows
-    a cluster, by `_cluster_plan` with its shared memory (`scan_smem`)."""
+                    tasks: int = 1) -> tuple[int, int, int, int]:
+    """(cs, hcp, rb, k_res) of the backward recurrence: blocks a cluster,
+    weight columns a block (hcp >= `scan_units`, 32 x the units a lane
+    owns), rows a cluster, resident K-rows of a block's slice (4H: all), by
+    `_cluster_plan` with its shared memory (`scan_smem`); one task past the
+    clusters that hold Wh^T, the cheapest streamed plan (`stream_plans`)."""
     return _cluster_plan(hidden, rows, sms, tasks,
                          lambda hcp, rb: scan_smem(hidden, hcp, rb, itemsize),
-                         "backward recurrence holds Wh^T")
+                         "backward recurrence holds Wh^T", 4 * hidden,
+                         streamed=lambda: stream_plans(hidden, rows, itemsize, sms, False))
 
 
 def scan_fwd_smem(hidden: int, hcp: int, rb: int, itemsize: int) -> int:
@@ -1264,51 +1424,76 @@ FWD_WIDE_TILE = 32
 
 @functools.lru_cache(maxsize=None)
 def forward_plan(hidden: int, rows: int, itemsize: int, sms: int,
-                 tasks: int = 1) -> tuple[int, int, int]:
-    """(cs, hcp, rb) of the forward recurrence of rows 2, 4, 14, 16, 18 and
-    20 (csrc/lstm_scan_fwd.cuh) for `tasks` tasks: blocks a cluster, weight
-    columns a block and gate, rows a cluster, by `_cluster_plan` with its
+                 tasks: int = 1) -> tuple[int, int, int, int]:
+    """(cs, hcp, rb, k_res) of the forward recurrence of rows 2, 4, 14, 16,
+    18 and 20 (csrc/lstm_scan_fwd.cuh) for `tasks` tasks: blocks a cluster,
+    weight columns a block and gate, rows a cluster, resident K-rows of a
+    block's slice (H: all), by `_cluster_plan` with its
     shared memory (`scan_fwd_smem`): at H = 128 and R = 512 on 132 SMs, 2
     blocks x 8 rows in float32, 1 block x 4 rows in bfloat16; R = 1024 or
     two tasks (row 16) double the rows. Where no tile of at most 16 rows
     reaches one wave, one task takes `FWD_WIDE_TILE` rows a cluster if that
     does: R = 1536 in float32, 2 blocks x 32 rows (48 clusters, not 192 in
-    three waves)."""
+    three waves). One task past the clusters that hold Wh: the cheapest
+    streamed plan (`stream_plans`)."""
     def smem(hcp, rb):
         return scan_fwd_smem(hidden, hcp, rb, itemsize)
 
     what = "forward recurrence holds Wh"
-    plan = _cluster_plan(hidden, rows, sms, tasks, smem, what)
-    if tasks > 1 or _one_wave(plan, rows, tasks, sms):
+    plan = _cluster_plan(hidden, rows, sms, tasks, smem, what, hidden,
+                         streamed=lambda: stream_plans(hidden, rows, itemsize, sms, True))
+    if tasks > 1 or plan[3] < hidden or _one_wave(plan, rows, tasks, sms):
         return plan
     try:  # the wide tile is built at hcp <= 16 x itemsize only, in the plan's kind of cluster
         wide = _cluster_plan(
             hidden, rows, sms, tasks,
             lambda hcp, rb: smem(hcp, rb) if hcp <= 16 * itemsize else SCAN_MAX_SMEM + 1,
-            what, row_tiles=(FWD_WIDE_TILE,),
+            what, hidden, row_tiles=(FWD_WIDE_TILE,),
             sizes=CLUSTER_SIZES if plan[0] == WIDE_CLUSTER else CLUSTER_SIZES[:-1])
     except ValueError:
         return plan
     return wide if _one_wave(wide, rows, tasks, sms) else plan
 
 
+@functools.lru_cache(maxsize=None)
+def eval_plan(hidden: int, rows: int, itemsize: int, sms: int) -> tuple[int, int, int, int]:
+    """The eval forward's recurrence plan (rows 2, 14 and 20 without
+    dropout): `forward_plan`, but where that is a 16-block plan (float32 H
+    260-436, bfloat16 H 420-512: 7 clusters a wave, so validate's 1536 rows
+    take 14-28 waves) the cheaper by the cost model (`plan_cost`) of it and
+    the cheapest streamed plan, whose clusters of 8 fit more to a wave
+    (`stream_plans`): at float32 H 320 and 384 and 1536 or 512 rows, 8
+    blocks x 32 rows with most of each slice streamed. Every plan a cluster
+    of at most 8 holds is `forward_plan`'s."""
+    plan = forward_plan(hidden, rows, itemsize, sms)
+    if plan[0] != WIDE_CLUSTER or plan[3] < hidden:
+        return plan
+    return min([plan, *stream_plans(hidden, rows, itemsize, sms, True)[:1]],
+               key=lambda p: plan_cost(p, hidden, rows, itemsize, sms, True))
+
+
 def _one_wave(plan, rows, tasks, sms):
     """Whether the plan's clusters over `tasks` tasks' rows fit on `sms` SMs
     at once (a block an SM; 16-block clusters: `H100_CLUSTERS_16` of them)."""
-    cs, _, rb = plan
-    clusters = tasks * -(-rows // rb)
-    if cs == WIDE_CLUSTER:
-        return clusters <= H100_CLUSTERS_16
-    return clusters * cs <= sms
+    cs, _, rb = plan[:3]
+    return _waves(cs, tasks * -(-rows // rb), sms) == 1
+
+
+def streams(plan, k_rows: int) -> bool:
+    """Whether a plan (cs, hcp, rb, k_res) streams part of its slices."""
+    return plan[3] < k_rows
 
 
 def stack_planned(hidden: int, rows: int, compute_dtype: torch.dtype, device: torch.device,
                   tasks: int = 1, c_in: int | None = None) -> bool:
     """Whether `forward_plan` and `recurrence_plan` place the recurrences of
     the training stack of hidden width `hidden` over `rows` rows in
-    `compute_dtype` on `device`'s card: rows 4-5 and 14-15 for one task,
-    rows 16-17 for `tasks`. False where no cluster's shared memory holds Wh
-    (float32 H > 396, bfloat16 H > 512: not even a 16-block cluster) and,
+    `compute_dtype` on `device`'s card with Wh resident: rows 4-5 and 14-15
+    for one task, rows 16-17 for `tasks`. False where no cluster's shared
+    memory holds Wh (float32 H > 396, bfloat16 H > 512: not even a 16-block
+    cluster; the forced routes take streamed plans there, the routes that
+    ask this the plain stack, as the JAX package's do where
+    `stack_supported` fails) and,
     where the input width `c_in` is given, at widths the training kernels do
     not take (`_check_train`: not multiples of 8, or C > 7H); True under
     float64, which runs plain on every route. Off a card the plans assume
@@ -1320,11 +1505,11 @@ def stack_planned(hidden: int, rows: int, compute_dtype: torch.dtype, device: to
         return False
     sms = _card_sms(device)
     try:
-        forward_plan(hidden, rows, compute_dtype.itemsize, sms, tasks)
-        recurrence_plan(hidden, rows, compute_dtype.itemsize, sms, tasks)
+        fwd = forward_plan(hidden, rows, compute_dtype.itemsize, sms, tasks)
+        bwd = recurrence_plan(hidden, rows, compute_dtype.itemsize, sms, tasks)
     except ValueError:
         return False
-    return True
+    return not streams(fwd, hidden) and not streams(bwd, 4 * hidden)
 
 
 def eval_planned(c_in: int, hidden: int, rows: int, compute_dtype: torch.dtype,
@@ -1333,19 +1518,23 @@ def eval_planned(c_in: int, hidden: int, rows: int, compute_dtype: torch.dtype,
     and 20 without dropout) takes an LSTM of input width `c_in` and hidden
     width `hidden` over `rows` rows in `compute_dtype` on `device`'s card:
     widths that are multiples of 8 (its input products' K) and a cluster
-    plan of the forward recurrence (`forward_plan`; none where no cluster's
-    shared memory holds Wh, float32 H > 436, bfloat16 H > 512). True under
-    float64, which runs plain on every route; off a card the H100's answer. Pure Python, asked
-    before any launch, as `stack_planned` is for the training stack."""
+    that holds Wh (`forward_plan` not streamed: none past float32 H 436 and
+    bfloat16 H 512, where `auto` runs the plain stack as before). The plan
+    it runs is `eval_plan`'s (at float32 H 320 / 384 the streamed plan,
+    which beat the plain stack at validate's 1536 rows in three of the four
+    card runs that timed both in turns, and the 16-block plan in all four:
+    PERF.md §6). True under float64, which runs plain on every route;
+    off a card the H100's answer. Pure Python, asked before any launch, as
+    `stack_planned` is for the training stack."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return True
     if c_in % 8 or hidden % 8:
         return False
     try:
-        forward_plan(hidden, rows, compute_dtype.itemsize, _card_sms(device))
+        plan = forward_plan(hidden, rows, compute_dtype.itemsize, _card_sms(device))
     except ValueError:
         return False
-    return True
+    return not streams(plan, hidden)
 
 
 def recurrence_weights(wh: torch.Tensor, cs: int, hcp: int,
@@ -1365,6 +1554,24 @@ def recurrence_weights(wh: torch.Tensor, cs: int, hcp: int,
     return wt.transpose(-3, -2).contiguous()
 
 
+def forward_weights(wh: torch.Tensor, cs: int, hcp: int,
+                    compute_dtype: torch.dtype) -> torch.Tensor:
+    """wh [..., H, 4H] (a leading task axis or none) -> the forward
+    recurrence's slices for a streamed plan, [..., cs, H, 4, hcp] in the
+    compute dtype: slice b, row k, gate q holds Wh[k, q*H + b*hc : q*H +
+    b*hc + hc] (hc = `scan_units`), zero-padded to hcp columns (a block
+    reads its K-rows of [4, hcp] as they lie)."""
+    hidden = wh.shape[-2]
+    hc = scan_units(hidden, cs)
+    w = wh.to(compute_dtype).reshape(*wh.shape[:-1], 4, hidden)
+    if cs * hc != hidden:
+        w = F.pad(w, (0, cs * hc - hidden))
+    w = w.reshape(*w.shape[:-1], cs, hc)
+    if hcp != hc:
+        w = F.pad(w, (0, hcp - hc))
+    return w.movedim(-2, -4).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1377,25 +1584,34 @@ def _card_sms(dev):
     return _sms(dev) if dev.type == "cuda" else H100_SMS
 
 
+def _backward_streams(h_all, compute_dtype):
+    """Whether the backward recurrence of a stack whose h_all is [..., T, R,
+    H] runs on a streamed plan (one task)."""
+    rows, hidden = h_all.shape[-2:]
+    return streams(recurrence_plan(hidden, rows, compute_dtype.itemsize,
+                                   _card_sms(h_all.device)), 4 * hidden)
+
+
 def launch_recurrence(entry, what, g, gates, c, wh, compute_dtype, out):
     """One layer's backward recurrence on the card through the C entry
     `entry` (wf_lstm_scan_bwd, row 19): g [T, R, H] float32, gates [T, R,
     4H] float32, c [T, R, H], wh [H, 4H] -> dgates into out."""
     t_len, rows, hidden = g.shape
-    cs, hcp, rb = recurrence_plan(hidden, rows, compute_dtype.itemsize, _sms(g.device))
+    plan = recurrence_plan(hidden, rows, compute_dtype.itemsize, _sms(g.device))
+    cs, hcp, rb, k_res = plan
     wts = recurrence_weights(wh, cs, hcp, compute_dtype)
     cuda_build.check(
-        entry(cuda_build.dtype_code(compute_dtype), cs, hcp, rb, g.data_ptr(), gates.data_ptr(),
-              c.data_ptr(), wts.data_ptr(), out.data_ptr(), t_len, rows, hidden,
-              cuda_build.stream_ptr(g.device)),
-        f"{what} (cluster of {cs}, {hcp} weight columns a block, {rb} rows a cluster)",
+        entry(cuda_build.dtype_code(compute_dtype), cs, hcp, rb, k_res, g.data_ptr(),
+              gates.data_ptr(), c.data_ptr(), wts.data_ptr(), out.data_ptr(), t_len, rows,
+              hidden, cuda_build.stream_ptr(g.device)),
+        f"{what} ({_plan_text(plan, 4 * hidden)})",
     )
     return out
 
 
 # The stack recurrence's launch arguments, packed as csrc/fused_lstm_split.cu's
-# `ScanLaunch`: 25 8-byte integers (pointers as integers).
-_SCAN_LAUNCH = struct.Struct("<25q")
+# `ScanLaunch`: 26 8-byte integers (pointers as integers).
+_SCAN_LAUNCH = struct.Struct("<26q")
 
 
 def _task_stride(t, nv):
@@ -1424,7 +1640,8 @@ def _recurrence_card(g, gates, c, wh, compute_dtype, out, dh=None, dc=None, db=N
         return out
     nv, t_len, rows, hidden = g.shape
     dev = g.device
-    cs, hcp, rb = recurrence_plan(hidden, rows, compute_dtype.itemsize, _sms(dev), nv)
+    plan = recurrence_plan(hidden, rows, compute_dtype.itemsize, _sms(dev), nv)
+    cs, hcp, rb, k_res = plan
     wts = _per_task(lambda w: recurrence_weights(w, cs, hcp, compute_dtype), wh)
     part = None
     if db is not None:
@@ -1440,9 +1657,8 @@ def _recurrence_card(g, gates, c, wh, compute_dtype, out, dh=None, dc=None, db=N
             out.data_ptr(), _task_stride(out, nv),
             0 if dh is None else dh.data_ptr(), 0 if dc is None else dc.data_ptr(), sdh,
             0 if part is None else part.data_ptr(), 4 * hidden, nv * 4 * hidden,
-            t_len, rows, hidden, cuda_build.stream_ptr(dev))),
-        f"LSTM backward recurrence ({nv} task(s), cluster of {cs}, {hcp} weight columns a "
-        f"block, {rb} rows a cluster)",
+            t_len, rows, hidden, cuda_build.stream_ptr(dev), k_res)),
+        f"LSTM backward recurrence ({nv} task(s), {_plan_text(plan, 4 * hidden)})",
     )
     if part is not None:
         sum_splits(part, db, "LSTM bias gradient partials")
@@ -1492,6 +1708,7 @@ def split_backward(g, x_tbc, h_all, c_all, wx0, wxr, wh, b2d, masks, keep, compu
         h_all.to(compute_dtype).contiguous(), c_all.to(compute_dtype).contiguous(),
         wx0, wxr, wh, b2d.to(torch.float32), masks, keep, compute_dtype, CARD_PIECES)
     counter.backward_launches += 1
+    counter.backward_streamed_launches += _backward_streams(h_all, compute_dtype)
     counter.backward_gemm_tn_launches += gemm_tn.launches - before
     return out
 
@@ -1547,3 +1764,6 @@ lstm_stack_split.forward_gemm_nn_launches = 0
 lstm_stack_split.forward_recurrence_launches = 0
 lstm_stack_split.backward_launches = 0  # backwards run through the kernels (row 15)
 lstm_stack_split.backward_gemm_tn_launches = 0  # row 15's weight gradients (two a layer)
+# Forwards and backwards whose recurrences ran on a streamed plan.
+lstm_stack_split.streamed_launches = 0
+lstm_stack_split.backward_streamed_launches = 0

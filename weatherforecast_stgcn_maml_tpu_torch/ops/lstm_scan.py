@@ -12,7 +12,11 @@ round(h_prev)^T @ round(dgates) on the GEMM core's K-split TN product
 (csrc/gemm_nn.cu), its partials added in split order; dxp is dgates.
 `scan_backward_schedule` states that backward on swappable pieces (the
 kernels a launch each, `CARD_PIECES`, or their plain versions,
-`PLAIN_PIECES`: the CPU tests). On a CPU tensor or under float64 it runs the
+`PLAIN_PIECES`: the CPU tests). Past the widths whose Wh a cluster holds
+(float32 H > 436 forward / 396 backward, bfloat16 H > 512), both
+recurrences take streamed plans (`forward_plan`, `recurrence_plan`: what
+fits of each block's slice resident, the rest read from L2 at every step),
+to H 2048. On a CPU tensor or under float64 it runs the
 plain version, `lstm_recurrence_plain`, differentiated by autograd. On a
 CUDA tensor a shape or dtype the kernels do not take raises; nothing falls
 back to the plain version there. The op is first-order differentiable only:
@@ -40,11 +44,14 @@ from weatherforecast_stgcn_maml_tpu_torch.ops import cuda_build
 from weatherforecast_stgcn_maml_tpu_torch.ops.fused_lstm_stack import (
     _SCAN_FWD,
     _forward_recurrence_plain,
+    _plan_text,
     _ptr,
     _sms,
     forward_plan,
+    forward_weights,
     launch_recurrence,
     recurrence_plan,
+    streams,
 )
 from weatherforecast_stgcn_maml_tpu_torch.ops.gemm import (
     _NN_REFUSALS,
@@ -143,17 +150,22 @@ def scan_forward(xp: torch.Tensor, wh: torch.Tensor, compute_dtype: torch.dtype,
     h_all = torch.empty((t_len, rows, hidden), dtype=torch.float32, device=dev)
     c_all = torch.empty_like(h_all)
     gates = torch.empty_like(xp) if keep_gates else None
-    xp, w = _aligned(xp), _aligned(wh.to(compute_dtype))
-    cs, hcp, rb = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
+    plan = forward_plan(hidden, rows, compute_dtype.itemsize, _sms(dev))
+    cs, hcp, rb, k_res = plan
+    streamed = streams(plan, hidden)
+    # A streamed plan reads Wh as its blocks' slices (bulk copies).
+    xp = _aligned(xp)
+    w = forward_weights(wh, cs, hcp, compute_dtype) if streamed else _aligned(wh.to(compute_dtype))
     cuda_build.check(
         cuda_build.load().wf_lstm_stack_forward_recurrence(_SCAN_FWD.pack(
             cuda_build.dtype_code(compute_dtype), cs, hcp, rb, xp.data_ptr(),
             0 if gates is None else gates.data_ptr(), w.data_ptr(), g4, 0, h_all.data_ptr(),
             c_all.data_ptr(), 1, 0, 1.0, 0, 0, t_len, rows, hidden, cuda_build.stream_ptr(dev),
-            1, *[0] * 8)),
-        f"LSTM recurrence (cluster of {cs}, {hcp} weight columns a block, {rb} rows a cluster)",
+            1, *[0] * 8, k_res)),
+        f"LSTM recurrence ({_plan_text(plan, hidden)})",
     )
     lstm_recurrence.launches += 1
+    lstm_recurrence.streamed_launches += streamed
     return h_all, c_all, gates
 
 
@@ -214,7 +226,7 @@ CARD_PIECES = ScanBackwardPieces(_recurrence_card, gemm_tn, sum_splits)
 PLAIN_PIECES = ScanBackwardPieces(_recurrence_plain, gemm_tn_plain, sum_splits_plain)
 
 # Row 19's launch arguments, packed as csrc/lstm_scan.cu's `ScanBackwardLaunch`.
-_SCAN_BWD = struct.Struct("<21q")
+_SCAN_BWD = struct.Struct("<22q")
 
 
 def scan_backward(g: torch.Tensor, h_all, c_all, gates, wh: torch.Tensor,
@@ -230,7 +242,8 @@ def scan_backward(g: torch.Tensor, h_all, c_all, gates, wh: torch.Tensor,
     steps = t_len * rows
     dev = h_all.device
     sms = _sms(dev)
-    cs, hcp, rb = recurrence_plan(hidden, rows, compute_dtype.itemsize, sms)
+    plan = recurrence_plan(hidden, rows, compute_dtype.itemsize, sms)
+    cs, hcp, rb, k_res = plan
     split_rows = wave_split_rows(steps, hidden, g4, 1, sms)
     h_pad = -(-hidden // NN_MULTIPLE) * NN_MULTIPLE
     bf16 = compute_dtype is torch.bfloat16
@@ -247,13 +260,13 @@ def scan_backward(g: torch.Tensor, h_all, c_all, gates, wh: torch.Tensor,
         cuda_build.dtype_code(compute_dtype), cs, hcp, rb, g.data_ptr(), gates.data_ptr(),
         c_all.data_ptr(), wh.data_ptr(), h_all.data_ptr(), wts.data_ptr(), _ptr(h_round),
         _ptr(dg_round), part.data_ptr(), dgates.data_ptr(), dwh.data_ptr(), t_len, rows, hidden, h_pad,
-        split_rows, cuda_build.stream_ptr(dev)))
+        split_rows, cuda_build.stream_ptr(dev), k_res))
     if err < 0:
         raise ValueError(f"LSTM recurrence weight gradient: gemm_tn takes {_NN_REFUSALS[err]}")
-    cuda_build.check(err, f"LSTM recurrence backward (cluster of {cs}, {hcp} weight columns a "
-                          f"block, {rb} rows a cluster; {split_rows} rows a weight-gradient "
-                          f"split)")
+    cuda_build.check(err, f"LSTM recurrence backward ({_plan_text(plan, g4)}; {split_rows} "
+                          f"rows a weight-gradient split)")
     lstm_recurrence.backward_launches += 1
+    lstm_recurrence.backward_streamed_launches += streams(plan, g4)
     lstm_recurrence.backward_gemm_tn_launches += 1
     gemm_tn.launches += 1
     return dgates, dwh
@@ -312,3 +325,6 @@ def lstm_recurrence(
 lstm_recurrence.launches = 0  # forwards run through the CUDA kernel (row 18)
 lstm_recurrence.backward_launches = 0  # backwards run through the kernels (row 19)
 lstm_recurrence.backward_gemm_tn_launches = 0  # row 19's dwh products on the TN core
+# Forwards and backwards on a streamed plan (past the clusters that hold Wh).
+lstm_recurrence.streamed_launches = 0
+lstm_recurrence.backward_streamed_launches = 0
